@@ -1,0 +1,419 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port on one GPU and hold its kernels to their
+plain PyTorch versions.
+
+    python3 chip_smoke.py            # full run: build, kernel phases, main
+                                     # path at real size, card-vs-CPU check
+    python3 chip_smoke.py --kernels-only --ptxas   # build + one checked
+                                     # launch per kernel, no timing
+
+Phases (any failure exits non-zero without the final line):
+
+1. the card's name and power limit (``nvidia-smi``), torch/CUDA versions,
+   and ``torch.backends.cuda.matmul.allow_tf32`` (must be False);
+2. build every kernel from ``fm_returnprediction_tpu_torch/csrc``;
+3. each kernel against its plain version at the main path's shapes, float32
+   and float64, with the tolerance printed beside the error, then CUDA-event
+   timings of kernel, plain version and (where one exists) a library call;
+4. the main path at real size — 600 months, 22,000 firms, ~77M daily rows
+   built from ``--seed`` by ``data.smoke_inputs`` — through
+   ``run_pipeline(device="cuda", dtype=torch.float32)``, with every kernel
+   launch counter set to 0 just before and read just after;
+5. the same path at a mid size in float64 on the card and on the CPU (plain
+   versions), Table 2's per-cell numbers held at rtol 1e-8.
+
+The last lines are a JSON object of per-kernel numbers, the ``nvidia-smi``
+line, and ``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+from fm_returnprediction_tpu_torch.cuda_build import build_kernels
+from fm_returnprediction_tpu_torch.data.smoke_inputs import make_smoke_inputs
+from fm_returnprediction_tpu_torch.ops.rolling import (
+    rolling_reduce_cuda,
+    rolling_reduce_plain,
+)
+from fm_returnprediction_tpu_torch.pipeline import run_pipeline
+from fm_returnprediction_tpu_torch.specgrid.grams import (
+    contract_spec_grams_plain,
+    gram_contract_cuda,
+    shared_center,
+    split_stats,
+)
+
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
+FP32_FLOPS = 67e12            # H100 SXM FP32 outside the tensor cores
+FP64_FLOPS = 34e12            # H100 SXM FP64 outside the tensor cores
+
+K1_SOURCE = "fm_returnprediction_tpu_torch/csrc/rolling.cu"
+K1_REPLACES = "fm_returnprediction_tpu/ops/pallas_kernels.py:216"
+K2_SOURCE = "fm_returnprediction_tpu_torch/csrc/gram.cu"
+K2_REPLACES = "fm_returnprediction_tpu/ops/gram_pallas.py:120"
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def check(ok: bool, what: str) -> None:
+    if not ok:
+        raise SmokeFailure(what)
+
+
+def log(*parts) -> None:
+    print(*parts, flush=True)
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60,
+    ).stdout.strip()
+    return out.splitlines()[0]
+
+
+def time_ms(fn, reps: int = 7) -> float:
+    """Median CUDA-event time of ``fn`` over ``reps`` runs after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def bound(bytes_moved: float, flops: float, dtype) -> tuple:
+    peak = FP64_FLOPS if dtype == torch.float64 else FP32_FLOPS
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# --- K1: the rolling family ----------------------------------------------
+
+
+def rolling_input(t: int, n: int, dtype, gen, scale: float, nan_frac: float):
+    """A compacted-layout (T, N) input: each column's rows packed to the
+    front (random lengths), NaN tail, scattered NaNs."""
+    x = torch.randn((t, n), generator=gen, device="cuda", dtype=dtype) * scale
+    counts = torch.randint(0, t + 1, (n,), generator=gen, device="cuda")
+    tail = torch.arange(t, device="cuda")[:, None] >= counts[None, :]
+    holes = torch.rand((t, n), generator=gen, device="cuda") < nan_frac
+    return torch.where(tail | holes, torch.full_like(x, float("nan")), x)
+
+
+def rolling_tolerance(x, kind: str, window: int, rel: float):
+    """Per-element tolerance ``rel·|p| + atol``: both sides subtract two
+    cumulative sums, so the absolute part scales with eps times the
+    column's largest cumulative magnitude (C1 = Σ|x|, C2 = Σx²)."""
+    eps = torch.finfo(x.dtype).eps
+    fin = torch.isfinite(x)
+    xz = torch.where(fin, x, torch.zeros_like(x))
+    c1 = xz.abs().sum(0)[None, :]
+    c2 = (xz * xz).sum(0)[None, :]
+    cnt = rolling_reduce_plain(fin.to(x.dtype), window, 0, "sum")
+    if kind == "sum":
+        atol = 4 * eps * c1
+    elif kind == "mean":
+        atol = 4 * eps * c1 / torch.clamp_min(cnt, 1)
+    else:
+        w1 = rolling_reduce_plain(x, window, 0, "sum").abs()
+        var_err = 4 * eps * (c2 + 2 * w1 * c1 / torch.clamp_min(cnt, 1))
+        atol = torch.sqrt(var_err / torch.clamp_min(cnt - 1, 1))
+    return atol, rel
+
+
+def check_rolling(x, window: int, min_periods: int, kind: str, rel: float,
+                  label: str) -> float:
+    got = rolling_reduce_cuda(x, window, min_periods, kind)
+    want = rolling_reduce_plain(x, window, min_periods, kind)
+    torch.cuda.synchronize()
+    atol, rel = rolling_tolerance(x, kind, window, rel)
+    same_nan = bool((torch.isnan(got) == torch.isnan(want)).all())
+    fin = torch.isfinite(want)
+    diff = torch.where(fin, (got - want).abs(), torch.zeros_like(want))
+    limit = (rel * want.abs() + atol).clamp_min(torch.finfo(x.dtype).tiny)
+    ratio = float(torch.where(fin, diff / limit, torch.zeros_like(diff)).max())
+    max_abs = float(diff.max())
+    max_rel = float(torch.where(fin, diff / want.abs().clamp_min(torch.finfo(x.dtype).tiny),
+                                torch.zeros_like(diff)).max())
+    log(f"K1 {label}: max_abs={max_abs:.3e} max_rel={max_rel:.3e} "
+        f"tol=|d|<={rel:g}*|p|+{{4eps*C}} worst_ratio={ratio:.3f} "
+        f"nan_pattern_equal={same_nan}")
+    check(same_nan, f"K1 {label}: NaN pattern differs from the plain version")
+    check(ratio <= 1.0, f"K1 {label}: error beyond tolerance")
+    return max_abs
+
+
+def k1_phase(gen, timed: bool):
+    cases = [  # (label, T, N, kind, window, min_periods, scale, nan_frac)
+        ("sum w=12 mp=1 (dy)", 600, 22000, "sum", 12, 1, 1.0, 0.02),
+        ("sum w=24 mp=24 (log_return_13_36)", 600, 22000, "sum", 24, 24, 0.1, 0.02),
+        ("mean w=12 mp=12 (turnover)", 600, 22000, "mean", 12, 12, 1.0, 0.02),
+        ("std w=252 mp=100 (daily vol)", 13312, 2432, "std", 252, 100, 0.02, 0.005),
+    ]
+    rows = []
+    for label, t, n, kind, window, mp, scale, nan_frac in cases:
+        for dtype, rel in ((torch.float32, 1e-4), (torch.float64, 1e-10)):
+            x = rolling_input(t, n, dtype, gen, scale, nan_frac)
+            tag = f"{label} {t}x{n} {str(dtype)[6:]}"
+            err = check_rolling(x, window, mp, kind, rel, tag)
+            if dtype == torch.float32 and timed and kind != "mean":
+                ms = time_ms(lambda: rolling_reduce_cuda(x, window, mp, kind))
+                plain_ms = time_ms(lambda: rolling_reduce_plain(x, window, mp, kind))
+                b_ms, b_by = bound(2 * x.numel() * x.element_size(),
+                                   12 * x.numel(), dtype)
+                log(f"K1 {tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                    f"bound {b_ms:.4f} ms ({b_by})")
+                rows.append(dict(name=f"rolling_reduce[{kind},w={window}] {t}x{n} f32",
+                                 key=f"{kind}/w={window}", route="cuda", source=K1_SOURCE,
+                                 replaces=K1_REPLACES, max_abs_err=err, ms=ms,
+                                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                                 library_ms=None))
+            del x
+    torch.cuda.empty_cache()
+    return rows
+
+
+# --- K2: the Gram contraction ----------------------------------------------
+
+
+def gram_inputs(t: int, n: int, p: int, dtype, gen):
+    """Table 2's contraction inputs: x (T, N, P) with NaNs and an all-NaN
+    firm column, y with NaNs, 3 universes, 9 specs (3 nested models × 3
+    universes), valid = universe of each spec."""
+    x = torch.randn((t, n, p), generator=gen, device="cuda", dtype=dtype)
+    x = torch.where(torch.rand((t, n, p), generator=gen, device="cuda") < 0.05,
+                    torch.full_like(x, float("nan")), x)
+    x[:, 7, 2] = float("nan")
+    y = 0.1 * torch.randn((t, n), generator=gen, device="cuda", dtype=dtype)
+    y = torch.where(torch.rand((t, n), generator=gen, device="cuda") < 0.1,
+                    torch.full_like(y, float("nan")), y)
+    universes = torch.rand((3, t, n), generator=gen, device="cuda") > \
+        torch.tensor([0.1, 0.4, 0.7], device="cuda")[:, None, None]
+    sizes = [3, 7, p]
+    col_sel = torch.zeros((9, p), dtype=torch.bool, device="cuda")
+    for mi, k in enumerate(sizes):
+        col_sel[3 * mi: 3 * mi + 3, :k] = True
+    uidx = torch.arange(9, device="cuda") % 3
+    valid = universes[uidx].to(torch.uint8).contiguous()
+    center = shared_center(x)
+    return y, x, universes[uidx], valid, col_sel, center
+
+
+def check_gram(t, n, p, dtype, rel, gen, timed):
+    y, x, uni, valid, col_sel, center = gram_inputs(t, n, p, dtype, gen)
+    window = torch.ones((9, t), dtype=torch.bool, device="cuda")
+    got = split_stats(gram_contract_cuda(y, x, valid, col_sel, center), p)
+    want = contract_spec_grams_plain(y, x, uni, col_sel, window, center)
+    torch.cuda.synchronize()
+    scale = torch.stack([
+        want[0].abs().amax((-1, -2)), want[1].abs().amax(-1),
+        want[2].abs(), want[3].abs(), want[4].abs(),
+    ]).amax(0).clamp_min(1.0)                                   # (S, T)
+    counts_exact = bool((got[2] == want[2]).all())
+    worst, max_abs = 0.0, 0.0
+    for g, w in zip(got, want):
+        d = (g - w).abs()
+        s = scale.reshape(scale.shape + (1,) * (d.dim() - 2))
+        worst = max(worst, float((d / s).max()))
+        max_abs = max(max_abs, float(d.max()))
+    label = f"T={t} N={n} P={p} S=9 {str(dtype)[6:]}"
+    log(f"K2 {label}: max_abs={max_abs:.3e} worst_rel_to_block_max={worst:.3e} "
+        f"tol={rel:g} counts_exact={counts_exact}")
+    check(counts_exact, f"K2 {label}: counts differ from the plain version")
+    check(worst <= rel, f"K2 {label}: error beyond tolerance")
+    row = None
+    if timed:
+        ms = time_ms(lambda: gram_contract_cuda(y, x, valid, col_sel, center))
+        plain_ms = time_ms(lambda: contract_spec_grams_plain(
+            y, x, uni, col_sel, window, center), reps=5)
+        # yardstick: ONE batched matmul over the pre-weighted augmented
+        # design, every (spec, month) a (QE, N) @ (N, QE) product
+        fin = torch.isfinite(x)
+        xz = torch.where(fin, x - center[:, None, :], torch.zeros_like(x))
+        finy = torch.isfinite(y)
+        yz = torch.where(finy, y, torch.zeros_like(y))
+        xa = torch.cat([torch.ones_like(y)[..., None], xz, yz[..., None]], -1)
+        bad = torch.einsum("tnp,sp->stn", (~fin).to(dtype), col_sel.to(dtype))
+        w = (uni & finy[None] & (bad == 0)).to(dtype)
+        del fin, xz, yz, bad
+        lhs = (xa[None] * w[..., None]).reshape(-1, n, p + 2).transpose(1, 2)
+        rhs = xa[None].expand(9, t, n, p + 2).reshape(-1, n, p + 2).contiguous()
+        lib = torch.bmm(lhs, rhs).reshape(9, t, p + 2, p + 2)
+        lib_err = float((split_stats(lib, p)[0] - got[0]).abs().max())
+        library_ms = time_ms(lambda: torch.bmm(lhs, rhs))
+        del lhs, rhs, lib, w, xa
+        tri = (p + 2) * (p + 3) // 2
+        in_bytes = sum(a.numel() * a.element_size()
+                       for a in (x, y, valid, col_sel, center))
+        out_bytes = 9 * t * (p + 2) ** 2 * x.element_size()
+        b_ms, b_by = bound(in_bytes + out_bytes, 2.0 * 9 * t * n * tri, dtype)
+        log(f"K2 {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"library bmm {library_ms:.4f} ms (|gram diff| {lib_err:.3e}), "
+            f"bound {b_ms:.4f} ms ({b_by})")
+        row = dict(name=f"gram_contract T={t} N={n} P={p} S=9 f32",
+                   key="gram", route="cuda", source=K2_SOURCE,
+                   replaces=K2_REPLACES, max_abs_err=max_abs, ms=ms,
+                   plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                   library_ms=library_ms)
+    del y, x, uni, valid, col_sel, center, got, want
+    torch.cuda.empty_cache()
+    return row
+
+
+def k2_phase(gen, timed: bool):
+    row = check_gram(600, 22000, 14, torch.float32, 1e-5, gen, timed)
+    check_gram(600, 3000, 14, torch.float64, 1e-12, gen, False)
+    return [row] if row else []
+
+
+# --- the main path ---------------------------------------------------------
+
+
+def reset_counts() -> None:
+    rolling_reduce_cuda.launches = 0
+    rolling_reduce_cuda.launches_by_key = {}
+    gram_contract_cuda.launches = 0
+
+
+def main_path(seed: int):
+    start = time.perf_counter()
+    base, daily = make_smoke_inputs(seed=seed, dtype=np.float32)
+    log(f"main path inputs: panel {base.values.shape} f32, "
+        f"{len(daily.row_values):,} daily rows over {daily.n_days} days, "
+        f"built in {time.perf_counter() - start:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    start = time.perf_counter()
+    res = run_pipeline(base, daily, device="cuda", dtype=torch.float32)
+    wall = time.perf_counter() - start
+    counts = dict(k1=rolling_reduce_cuda.launches,
+                  k1_by_key=dict(rolling_reduce_cuda.launches_by_key),
+                  k2=gram_contract_cuda.launches)
+    log(f"main path wall {wall:.3f} s; stages (s): "
+        + json.dumps({k: round(v, 4) for k, v in res.stage_seconds.items()}))
+    log(f"main path peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    log(f"main path launches: K1 {counts['k1']} {counts['k1_by_key']}, K2 {counts['k2']}")
+    check(counts["k1"] > 0, "main path never launched the rolling kernel")
+    check(counts["k2"] > 0, "main path never launched the Gram kernel")
+
+    t2 = res.table_2
+    finite = sum(int(np.isfinite(c["coef"]).sum() + np.isfinite(c["tstat"]).sum())
+                 for c in res.table_2_cells.values())
+    total = sum(2 * len(c["coef"]) for c in res.table_2_cells.values())
+    log(f"Table 2 shape {t2.shape}; finite coef/tstat entries {finite}/{total}")
+    log(t2.to_string())
+    check(tuple(res.panel.values.shape) == (600, 22000, 27),
+          f"enriched panel shape {tuple(res.panel.values.shape)}")
+    check(t2.shape == (27, 9), f"Table 2 shape {t2.shape}")
+    check(finite == total, "Table 2 has non-finite cells")
+    check(all(c["mean_n"] > 0 and np.isfinite(c["mean_r2"])
+              for c in res.table_2_cells.values()), "Table 2 N/R² not finite")
+    del res
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _cell_diffs(got: dict, ref: dict):
+    """(relative difference, cell, number, index, reference value) for every
+    Table 2 entry, checking that the NaN patterns agree."""
+    out = []
+    for key, r in ref.items():
+        for name in ("coef", "tstat", "mean_r2", "mean_n"):
+            a = np.atleast_1d(np.asarray(got[key][name], float))
+            b = np.atleast_1d(np.asarray(r[name], float))
+            check(bool((np.isnan(a) == np.isnan(b)).all()),
+                  f"card vs CPU: NaN pattern of {key} {name}")
+            for i in np.flatnonzero(np.isfinite(b)):
+                rel = abs(a[i] - b[i]) / max(abs(b[i]), 1e-300)
+                out.append((float(rel), key, name, int(i), float(b[i])))
+    return sorted(out, key=lambda d: d[0], reverse=True)
+
+
+def card_vs_cpu(seed: int) -> None:
+    base, daily = make_smoke_inputs(n_firms=3000, n_months=240, seed=seed + 1,
+                                    dtype=np.float64)
+    start = time.perf_counter()
+    gpu = run_pipeline(base, daily, device="cuda", dtype=torch.float64)
+    gpu_s = time.perf_counter() - start
+    again = run_pipeline(base, daily, device="cuda", dtype=torch.float64)
+    start = time.perf_counter()
+    cpu = run_pipeline(base, daily, device="cpu", dtype=torch.float64)
+    cpu_s = time.perf_counter() - start
+    diffs = _cell_diffs(gpu.table_2_cells, cpu.table_2_cells)
+    repeat = _cell_diffs(again.table_2_cells, gpu.table_2_cells)
+    worst, key, name, i, ref = diffs[0]
+    log(f"card vs CPU (T=240, N=3000, f64): cuda {gpu_s:.2f} s, cpu {cpu_s:.2f} s, "
+        f"worst rel diff {worst:.3e} (tol 1e-8) at {key} {name}[{i}] = {ref:.6e}; "
+        f"card run-to-run worst rel diff {repeat[0][0]:.3e}; formatted tables "
+        f"equal: {gpu.table_2.equals(cpu.table_2)}")
+    check(worst <= 1e-8, "card vs CPU: Table 2 beyond rtol 1e-8")
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--seed", type=int, default=20140131)
+    parser.add_argument("--kernels-only", action="store_true",
+                        help="build and check each kernel once, no timing")
+    parser.add_argument("--ptxas", action="store_true",
+                        help="print nvcc's register/shared-memory report")
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+
+    smi = nvidia_smi_line()
+    log(f"nvidia-smi: {smi}")
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"python {sys.version.split()[0]} "
+        f"allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmul is enabled")
+
+    start = time.perf_counter()
+    per_kernel = build_kernels(ptxas_verbose=args.ptxas)
+    log(f"kernel build {time.perf_counter() - start:.2f} s "
+        + json.dumps({k: round(v, 2) for k, v in per_kernel.items()}))
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(args.seed)
+    timed = not args.kernels_only
+    rows = k1_phase(gen, timed) + k2_phase(gen, timed)
+    if args.kernels_only:
+        log("kernels-only run: kernel phases passed")
+        return 0
+
+    counts = main_path(args.seed)
+    card_vs_cpu(args.seed)
+
+    for row in rows:
+        key = row.pop("key")
+        row["launches"] = (counts["k2"] if key == "gram"
+                           else counts["k1_by_key"].get(key, 0))
+        check(row["launches"] > 0, f"{row['name']} was not launched on the main path")
+    print(json.dumps({"kernels": rows}))
+    print(nvidia_smi_line())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

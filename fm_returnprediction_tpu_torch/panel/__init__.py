@@ -1,0 +1,1 @@
+"""panel layer of the PyTorch port (mirrors fm_returnprediction_tpu/panel)."""

@@ -1,0 +1,1 @@
+"""reporting layer of the PyTorch port (mirrors fm_returnprediction_tpu/reporting)."""

@@ -1,0 +1,1 @@
+"""specgrid layer of the PyTorch port (mirrors fm_returnprediction_tpu/specgrid)."""

@@ -1,0 +1,1 @@
+"""utils layer of the PyTorch port (mirrors fm_returnprediction_tpu/utils)."""

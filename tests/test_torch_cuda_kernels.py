@@ -1,0 +1,126 @@
+"""The port's CUDA kernels vs their plain PyTorch versions, on the card.
+
+These tests need a CUDA device and the CUDA toolkit (the kernels are built
+on first use); without a device they skip. On a machine with one GPU:
+
+    python -m pytest tests/test_torch_cuda_kernels.py -q
+
+Tolerances: float64 at rtol 1e-10 for the rolling family (both sides
+difference two cumulative sums, so a small window std under a large running
+sum loses digits to cancellation) and 1e-12 of each (spec, month) block's
+max-abs entry for the Gram contraction; identical NaN patterns, exact
+counts.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from fm_returnprediction_tpu_torch.ops import rolling
+from fm_returnprediction_tpu_torch.specgrid import grams
+
+pytestmark = pytest.mark.torch_port
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels run only on the card)")
+    return torch.device("cuda")
+
+
+def _rolling_input(dtype, cuda, t=300, n=257, seed=0):
+    rng = np.random.default_rng(seed)
+    x = 1.0 + 0.3 * rng.standard_normal((t, n))
+    x[rng.random(x.shape) < 0.05] = np.nan
+    x[:, 3] = np.nan                                   # an all-NaN column
+    counts = rng.integers(0, t + 1, n)
+    x[np.arange(t)[:, None] >= counts[None, :]] = np.nan
+    return torch.tensor(x, dtype=dtype, device=cuda)
+
+
+@pytest.mark.parametrize("kind", ["sum", "mean", "std"])
+@pytest.mark.parametrize("window,mp", [(12, 0), (12, 1), (24, 24), (252, 100), (500, 2)])
+def test_rolling_kernel_matches_plain_f64(cuda, kind, window, mp):
+    x = _rolling_input(torch.float64, cuda)
+    got = rolling.rolling_reduce_cuda(x, window, mp, kind).cpu().numpy()
+    want = rolling.rolling_reduce_plain(x, window, mp, kind).cpu().numpy()
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    np.testing.assert_allclose(got, want, rtol=1e-10, atol=1e-14, equal_nan=True)
+
+
+def test_rolling_kernel_f32_close_to_f64(cuda):
+    x64 = _rolling_input(torch.float64, cuda)
+    got = rolling.rolling_reduce_cuda(x64.float(), 252, 100, "std").double()
+    want = rolling.rolling_reduce_plain(x64, 252, 100, "std")
+    g, w = got.cpu().numpy(), want.cpu().numpy()
+    np.testing.assert_array_equal(np.isnan(g), np.isnan(w))
+    np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-5, equal_nan=True)
+
+
+def test_rolling_dispatch_launches_the_kernel(cuda):
+    x = _rolling_input(torch.float64, cuda)
+    before = rolling.rolling_reduce_cuda.launches
+    out = rolling.rolling_sum(x[:, ::2], 12, 1)        # non-contiguous view
+    assert rolling.rolling_reduce_cuda.launches == before + 1
+    want = rolling.rolling_reduce_plain(x[:, ::2], 12, 1, "sum")
+    torch.testing.assert_close(out, want, rtol=1e-12, atol=1e-14, equal_nan=True)
+
+
+def test_rolling_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    x = _rolling_input(torch.float64, cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        rolling.rolling_reduce_cuda(x[:, ::2], 12, 1, "sum")
+    with pytest.raises(TypeError):
+        rolling.rolling_reduce_cuda(x.half(), 12, 1, "sum")
+    with pytest.raises(ValueError):
+        rolling.rolling_reduce_cuda(x, 12, 1, "median")
+
+
+def _gram_args(dtype, cuda, t=11, n=700, p=6, s=5, seed=1):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((t, n, p))
+    x[rng.random(x.shape) < 0.1] = np.nan
+    x[:, 7, 2] = np.nan
+    y = rng.standard_normal((t, n))
+    y[rng.random(y.shape) < 0.15] = np.nan
+    universes = rng.random((2, t, n)) > 0.3
+    universes[0, 3] = False
+    uidx = np.arange(s) % 2
+    col_sel = rng.random((s, p)) > 0.4
+    col_sel[0] = [True] + [False] * (p - 1)
+    col_sel[-1] = True
+    window = np.ones((s, t), bool)
+    window[-1, :4] = False
+    to = lambda a, dt=None: torch.tensor(a, device=cuda, dtype=dt)  # noqa: E731
+    return (to(y, dtype), to(x, dtype), to(universes), to(uidx), to(col_sel),
+            to(window))
+
+
+@pytest.mark.parametrize("dtype,rtol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
+def test_gram_kernel_matches_plain(cuda, dtype, rtol):
+    y, x, universes, uidx, col_sel, window = _gram_args(dtype, cuda)
+    before = grams.gram_contract_cuda.launches
+    got = grams.contract_spec_grams(y, x, universes, uidx, col_sel, window)
+    assert grams.gram_contract_cuda.launches == before + 1
+    want = grams.contract_spec_grams_plain(y, x, universes[uidx], col_sel, window,
+                                           got.center)
+    scale = torch.stack([want[0].abs().amax((-1, -2)), want[1].abs().amax(-1),
+                         want[2].abs(), want[3].abs(), want[4].abs()]).amax(0)
+    scale = scale.clamp_min(1.0)
+    torch.testing.assert_close(got.n, want[2], rtol=0, atol=0)
+    for g, w in zip(got[:5], want):
+        s = scale.reshape(scale.shape + (1,) * (g.dim() - 2))
+        assert bool(((g - w).abs() <= rtol * s).all())
+
+
+def test_gram_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    y, x, universes, uidx, col_sel, window = _gram_args(torch.float64, cuda)
+    valid = universes[uidx].to(torch.uint8)
+    center = grams.shared_center(x)
+    with pytest.raises(TypeError):
+        grams.gram_contract_cuda(y.float(), x, valid, col_sel, center)
+    with pytest.raises(TypeError):
+        grams.gram_contract_cuda(y, x, universes[uidx], col_sel, center)
+    with pytest.raises(ValueError, match="contiguous"):
+        grams.gram_contract_cuda(y, x.transpose(0, 1), valid, col_sel, center)
