@@ -17,10 +17,20 @@ Phases (any failure exits non-zero without the final line):
    timings of kernel, plain version and (where one exists) a library call;
 4. the main path at real size — 600 months, 22,000 firms, ~77M daily rows
    built from ``--seed`` by ``data.smoke_inputs`` — through
-   ``run_pipeline(device="cuda", dtype=torch.float32)``, with every kernel
-   launch counter set to 0 just before and read just after;
+   ``run_pipeline(device="cuda", dtype=torch.float32)`` and all of its
+   stages (characteristics, universes, Table 1, Table 2, the figure/decile
+   sweep, Figure 1's rolling slopes, the decile table, the serving state),
+   with every kernel launch counter set to 0 just before and read just
+   after;
 5. the same path at a mid size in float64 on the card and on the CPU (plain
-   versions), Table 2's per-cell numbers held at rtol 1e-8.
+   versions): Table 2's per-cell numbers (a coefficient at
+   ``|d| <= 1e-8 * max(|b|, nw_se)``, its t-stat at ``1e-8 * max(|t|, 1)``,
+   the rest at rtol 1e-8), Table 1, the decile table, the figure frames and
+   the serving state.
+
+The masked cumulative moments kernel has no caller on the main path (nor
+in the JAX package it mirrors); its row carries ``"launches": 0`` and says
+so, and phase 3 holds it against its plain version like every other.
 
 The last lines are a JSON object of per-kernel numbers, the ``nvidia-smi``
 line, and ``{"ok": true, "device": {...}}``.
@@ -40,10 +50,13 @@ import torch
 from fm_returnprediction_tpu_torch.cuda_build import build_kernels
 from fm_returnprediction_tpu_torch.data.smoke_inputs import make_smoke_inputs
 from fm_returnprediction_tpu_torch.ops.rolling import (
+    masked_cumulative_moments_cuda,
+    masked_cumulative_moments_plain,
     rolling_reduce_cuda,
     rolling_reduce_plain,
 )
 from fm_returnprediction_tpu_torch.pipeline import run_pipeline
+from fm_returnprediction_tpu_torch.reporting.figure1 import subset_sweep
 from fm_returnprediction_tpu_torch.specgrid.grams import (
     contract_spec_grams_plain,
     gram_contract_cuda,
@@ -59,6 +72,9 @@ K1_SOURCE = "fm_returnprediction_tpu_torch/csrc/rolling.cu"
 K1_REPLACES = "fm_returnprediction_tpu/ops/pallas_kernels.py:216"
 K2_SOURCE = "fm_returnprediction_tpu_torch/csrc/gram.cu"
 K2_REPLACES = "fm_returnprediction_tpu/ops/gram_pallas.py:120"
+K3_SOURCE = "fm_returnprediction_tpu_torch/csrc/rolling.cu"
+K3_REPLACES = "fm_returnprediction_tpu/ops/pallas_kernels.py:132"
+K3_MAIN_PATH = "no caller in the JAX package"
 
 
 class SmokeFailure(RuntimeError):
@@ -72,6 +88,12 @@ def check(ok: bool, what: str) -> None:
 
 def log(*parts) -> None:
     print(*parts, flush=True)
+
+
+def worst_of(a: torch.Tensor) -> float:
+    """The largest entry, a NaN counting as infinitely large (Python's
+    ``max`` would pass over it)."""
+    return float(torch.nan_to_num(a, nan=float("inf")).max())
 
 
 def nvidia_smi_line() -> str:
@@ -162,19 +184,23 @@ def check_rolling(x, window: int, min_periods: int, kind: str, rel: float,
 
 
 def k1_phase(gen, timed: bool):
-    cases = [  # (label, T, N, kind, window, min_periods, scale, nan_frac)
-        ("sum w=12 mp=1 (dy)", 600, 22000, "sum", 12, 1, 1.0, 0.02),
-        ("sum w=24 mp=24 (log_return_13_36)", 600, 22000, "sum", 24, 24, 0.1, 0.02),
-        ("mean w=12 mp=12 (turnover)", 600, 22000, "mean", 12, 12, 1.0, 0.02),
-        ("std w=252 mp=100 (daily vol)", 13312, 2432, "std", 252, 100, 0.02, 0.005),
+    cases = [  # (label, T, N, kind, window, min_periods, scale, nan_frac, timed)
+        ("sum w=12 mp=1 (dy)", 600, 22000, "sum", 12, 1, 1.0, 0.02, True),
+        ("sum w=24 mp=24 (log_return_13_36)", 600, 22000, "sum", 24, 24, 0.1, 0.02, True),
+        ("mean w=12 mp=12 (turnover)", 600, 22000, "mean", 12, 12, 1.0, 0.02, False),
+        ("std w=252 mp=100 (daily vol)", 13312, 2432, "std", 252, 100, 0.02, 0.005, True),
+        # Figure 1's slope means of 3 subsets × 5 variables in one call, and
+        # one subset's lagged [intercept, 5 slopes] forecast means
+        ("mean w=120 mp=60 (figure slopes)", 600, 15, "mean", 120, 60, 0.01, 0.1, True),
+        ("mean w=120 mp=60 (forecast coefs)", 600, 6, "mean", 120, 60, 0.01, 0.1, True),
     ]
     rows = []
-    for label, t, n, kind, window, mp, scale, nan_frac in cases:
+    for label, t, n, kind, window, mp, scale, nan_frac, on_path in cases:
         for dtype, rel in ((torch.float32, 1e-4), (torch.float64, 1e-10)):
             x = rolling_input(t, n, dtype, gen, scale, nan_frac)
             tag = f"{label} {t}x{n} {str(dtype)[6:]}"
             err = check_rolling(x, window, mp, kind, rel, tag)
-            if dtype == torch.float32 and timed and kind != "mean":
+            if dtype == torch.float32 and timed and on_path:
                 ms = time_ms(lambda: rolling_reduce_cuda(x, window, mp, kind))
                 plain_ms = time_ms(lambda: rolling_reduce_plain(x, window, mp, kind))
                 b_ms, b_by = bound(2 * x.numel() * x.element_size(),
@@ -194,10 +220,11 @@ def k1_phase(gen, timed: bool):
 # --- K2: the Gram contraction ----------------------------------------------
 
 
-def gram_inputs(t: int, n: int, p: int, dtype, gen):
-    """Table 2's contraction inputs: x (T, N, P) with NaNs and an all-NaN
-    firm column, y with NaNs, 3 universes, 9 specs (3 nested models × 3
-    universes), valid = universe of each spec."""
+def gram_inputs(t: int, n: int, p: int, dtype, gen, figure: bool = False):
+    """The contraction inputs: x (T, N, P) with NaNs and an all-NaN firm
+    column, y with NaNs, 3 universes, valid = universe of each spec. Table
+    2's grid has 9 specs (3 nested models × 3 universes); the figure grid
+    (``figure=True``) 3, every column in each."""
     x = torch.randn((t, n, p), generator=gen, device="cuda", dtype=dtype)
     x = torch.where(torch.rand((t, n, p), generator=gen, device="cuda") < 0.05,
                     torch.full_like(x, float("nan")), x)
@@ -207,19 +234,22 @@ def gram_inputs(t: int, n: int, p: int, dtype, gen):
                     torch.full_like(y, float("nan")), y)
     universes = torch.rand((3, t, n), generator=gen, device="cuda") > \
         torch.tensor([0.1, 0.4, 0.7], device="cuda")[:, None, None]
-    sizes = [3, 7, p]
-    col_sel = torch.zeros((9, p), dtype=torch.bool, device="cuda")
-    for mi, k in enumerate(sizes):
-        col_sel[3 * mi: 3 * mi + 3, :k] = True
-    uidx = torch.arange(9, device="cuda") % 3
+    if figure:
+        col_sel = torch.ones((3, p), dtype=torch.bool, device="cuda")
+    else:
+        col_sel = torch.zeros((9, p), dtype=torch.bool, device="cuda")
+        for mi, k in enumerate([3, 7, p]):
+            col_sel[3 * mi: 3 * mi + 3, :k] = True
+    uidx = torch.arange(col_sel.shape[0], device="cuda") % 3
     valid = universes[uidx].to(torch.uint8).contiguous()
     center = shared_center(x)
     return y, x, universes[uidx], valid, col_sel, center
 
 
-def check_gram(t, n, p, dtype, rel, gen, timed):
-    y, x, uni, valid, col_sel, center = gram_inputs(t, n, p, dtype, gen)
-    window = torch.ones((9, t), dtype=torch.bool, device="cuda")
+def check_gram(t, n, p, dtype, rel, gen, timed, figure=False):
+    y, x, uni, valid, col_sel, center = gram_inputs(t, n, p, dtype, gen, figure)
+    s = col_sel.shape[0]
+    window = torch.ones((s, t), dtype=torch.bool, device="cuda")
     got = split_stats(gram_contract_cuda(y, x, valid, col_sel, center), p)
     want = contract_spec_grams_plain(y, x, uni, col_sel, window, center)
     torch.cuda.synchronize()
@@ -231,10 +261,10 @@ def check_gram(t, n, p, dtype, rel, gen, timed):
     worst, max_abs = 0.0, 0.0
     for g, w in zip(got, want):
         d = (g - w).abs()
-        s = scale.reshape(scale.shape + (1,) * (d.dim() - 2))
-        worst = max(worst, float((d / s).max()))
-        max_abs = max(max_abs, float(d.max()))
-    label = f"T={t} N={n} P={p} S=9 {str(dtype)[6:]}"
+        block_scale = scale.reshape(scale.shape + (1,) * (d.dim() - 2))
+        worst = max(worst, worst_of(d / block_scale))
+        max_abs = max(max_abs, worst_of(d))
+    label = f"T={t} N={n} P={p} S={s} {str(dtype)[6:]}"
     log(f"K2 {label}: max_abs={max_abs:.3e} worst_rel_to_block_max={worst:.3e} "
         f"tol={rel:g} counts_exact={counts_exact}")
     check(counts_exact, f"K2 {label}: counts differ from the plain version")
@@ -255,21 +285,21 @@ def check_gram(t, n, p, dtype, rel, gen, timed):
         w = (uni & finy[None] & (bad == 0)).to(dtype)
         del fin, xz, yz, bad
         lhs = (xa[None] * w[..., None]).reshape(-1, n, p + 2).transpose(1, 2)
-        rhs = xa[None].expand(9, t, n, p + 2).reshape(-1, n, p + 2).contiguous()
-        lib = torch.bmm(lhs, rhs).reshape(9, t, p + 2, p + 2)
+        rhs = xa[None].expand(s, t, n, p + 2).reshape(-1, n, p + 2).contiguous()
+        lib = torch.bmm(lhs, rhs).reshape(s, t, p + 2, p + 2)
         lib_err = float((split_stats(lib, p)[0] - got[0]).abs().max())
         library_ms = time_ms(lambda: torch.bmm(lhs, rhs))
         del lhs, rhs, lib, w, xa
         tri = (p + 2) * (p + 3) // 2
         in_bytes = sum(a.numel() * a.element_size()
                        for a in (x, y, valid, col_sel, center))
-        out_bytes = 9 * t * (p + 2) ** 2 * x.element_size()
-        b_ms, b_by = bound(in_bytes + out_bytes, 2.0 * 9 * t * n * tri, dtype)
+        out_bytes = s * t * (p + 2) ** 2 * x.element_size()
+        b_ms, b_by = bound(in_bytes + out_bytes, 2.0 * s * t * n * tri, dtype)
         log(f"K2 {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"library bmm {library_ms:.4f} ms (|gram diff| {lib_err:.3e}), "
             f"bound {b_ms:.4f} ms ({b_by})")
-        row = dict(name=f"gram_contract T={t} N={n} P={p} S=9 f32",
-                   key="gram", route="cuda", source=K2_SOURCE,
+        row = dict(name=f"gram_contract T={t} N={n} P={p} S={s} f32",
+                   key=f"gram/P={p},S={s}", route="cuda", source=K2_SOURCE,
                    replaces=K2_REPLACES, max_abs_err=max_abs, ms=ms,
                    plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                    library_ms=library_ms)
@@ -279,9 +309,72 @@ def check_gram(t, n, p, dtype, rel, gen, timed):
 
 
 def k2_phase(gen, timed: bool):
-    row = check_gram(600, 22000, 14, torch.float32, 1e-5, gen, timed)
+    rows = [check_gram(600, 22000, 14, torch.float32, 1e-5, gen, timed),
+            check_gram(600, 22000, 5, torch.float32, 1e-5, gen, timed, figure=True)]
     check_gram(600, 3000, 14, torch.float64, 1e-12, gen, False)
-    return [row] if row else []
+    check_gram(240, 3000, 5, torch.float64, 1e-12, gen, False, figure=True)
+    return [row for row in rows if row]
+
+
+# --- K3: the masked cumulative moments --------------------------------------
+
+
+def check_moments(x, rel: float, label: str, timed: bool):
+    """The kernel against its plain version: counts exact, each sum within
+    ``rel·|p| + 4·eps·C`` with C the cumulative Σ|x| (Σx² for the squares)
+    through that row."""
+    got = masked_cumulative_moments_cuda(x)
+    want = masked_cumulative_moments_plain(x)
+    torch.cuda.synchronize()
+    eps = torch.finfo(x.dtype).eps
+    c1, c2, _ = masked_cumulative_moments_plain(x.abs())
+    counts_exact = bool(torch.equal(got[2], want[2]))
+    worst, max_abs = 0.0, 0.0
+    for g, w, c in zip(got[:2], want[:2], (c1, c2)):
+        d = (g - w).abs()
+        limit = (rel * w.abs() + 4 * eps * c).clamp_min(torch.finfo(x.dtype).tiny)
+        worst = max(worst, worst_of(d / limit))
+        max_abs = max(max_abs, worst_of(d))
+    log(f"K3 {label}: max_abs={max_abs:.3e} tol=|d|<={rel:g}*|p|+4eps*C "
+        f"worst_ratio={worst:.3f} counts_exact={counts_exact}")
+    check(counts_exact, f"K3 {label}: counts differ from the plain version")
+    check(worst <= 1.0, f"K3 {label}: error beyond tolerance")
+    del got, want, c1, c2
+    if not timed:
+        return None
+    ms = time_ms(lambda: masked_cumulative_moments_cuda(x))
+    plain_ms = time_ms(lambda: masked_cumulative_moments_plain(x))
+    # yardstick: ONE torch.cumsum over a pre-built masked (T, 3N) stack; it
+    # skips the masking the kernel and the plain version do
+    fin = torch.isfinite(x)
+    xz = torch.where(fin, x, torch.zeros_like(x))
+    stack = torch.cat([xz, xz * xz, fin.to(x.dtype)], dim=1)
+    del fin, xz
+    library_ms = time_ms(lambda: torch.cumsum(stack, dim=0))
+    del stack
+    b_ms, b_by = bound(4 * x.numel() * x.element_size(), 4 * x.numel(), x.dtype)
+    log(f"K3 {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+        f"cumsum over a pre-masked (T, 3N) stack {library_ms:.4f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by})")
+    t, n = x.shape
+    return dict(name=f"masked_cumulative_moments {t}x{n} {str(x.dtype)[6:]}",
+                key="moments", route="cuda", source=K3_SOURCE, replaces=K3_REPLACES,
+                max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=library_ms, main_path=K3_MAIN_PATH)
+
+
+def k3_phase(gen, timed: bool):
+    rows = []
+    for t, n, dtype, rel, scale in ((13312, 2432, torch.float32, 1e-4, 0.02),
+                                    (600, 22000, torch.float32, 1e-4, 1.0),
+                                    (13312, 2432, torch.float64, 1e-10, 0.02)):
+        x = rolling_input(t, n, dtype, gen, scale, 0.02)
+        row = check_moments(x, rel, f"{t}x{n} {str(dtype)[6:]}", timed)
+        if row:
+            rows.append(row)
+        del x
+    torch.cuda.empty_cache()
+    return rows
 
 
 # --- the main path ---------------------------------------------------------
@@ -291,6 +384,8 @@ def reset_counts() -> None:
     rolling_reduce_cuda.launches = 0
     rolling_reduce_cuda.launches_by_key = {}
     gram_contract_cuda.launches = 0
+    gram_contract_cuda.launches_by_key = {}
+    masked_cumulative_moments_cuda.launches = 0
 
 
 def main_path(seed: int):
@@ -304,15 +399,22 @@ def main_path(seed: int):
     start = time.perf_counter()
     res = run_pipeline(base, daily, device="cuda", dtype=torch.float32)
     wall = time.perf_counter() - start
-    counts = dict(k1=rolling_reduce_cuda.launches,
-                  k1_by_key=dict(rolling_reduce_cuda.launches_by_key),
-                  k2=gram_contract_cuda.launches)
+    counts = {"k1": rolling_reduce_cuda.launches,
+              "k2": gram_contract_cuda.launches,
+              "moments": masked_cumulative_moments_cuda.launches}
+    counts.update(rolling_reduce_cuda.launches_by_key)
+    counts.update({f"gram/{k}": v for k, v in gram_contract_cuda.launches_by_key.items()})
     log(f"main path wall {wall:.3f} s; stages (s): "
         + json.dumps({k: round(v, 4) for k, v in res.stage_seconds.items()}))
     log(f"main path peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-    log(f"main path launches: K1 {counts['k1']} {counts['k1_by_key']}, K2 {counts['k2']}")
+    log(f"main path launches: K1 {counts['k1']} "
+        f"{dict(rolling_reduce_cuda.launches_by_key)}, K2 {counts['k2']} "
+        f"{dict(gram_contract_cuda.launches_by_key)}, K3 {counts['moments']}")
     check(counts["k1"] > 0, "main path never launched the rolling kernel")
-    check(counts["k2"] > 0, "main path never launched the Gram kernel")
+    check(counts.get("mean/w=120", 0) > 0,
+          "main path never launched the rolling kernel's mean w=120 (Figure 1, forecasts)")
+    check(counts["k2"] == 2, f"main path launched the Gram kernel {counts['k2']} times, "
+          "not twice (Table 2's grid and the figure grid)")
 
     t2 = res.table_2
     finite = sum(int(np.isfinite(c["coef"]).sum() + np.isfinite(c["tstat"]).sum())
@@ -326,25 +428,134 @@ def main_path(seed: int):
     check(finite == total, "Table 2 has non-finite cells")
     check(all(c["mean_n"] > 0 and np.isfinite(c["mean_r2"])
               for c in res.table_2_cells.values()), "Table 2 N/R² not finite")
+
+    t1 = res.table_1
+    log(f"Table 1 shape {t1.shape}")
+    log(t1.to_string())
+    check(t1.shape == (15, 9), f"Table 1 shape {t1.shape}")
+    for subset in res.subset_masks:
+        has_n = t1[(subset, "N")].to_numpy() > 0
+        for stat in ("Avg", "Std"):
+            check(bool(np.isfinite(t1[(subset, stat)].to_numpy()[has_n]).all()),
+                  f"Table 1 {subset} {stat} not finite where N > 0")
+    dec = res.decile_table
+    log(f"decile table shape {dec.shape}")
+    log(dec.to_string())
+    check(dec.shape == (13, 3), f"decile table shape {dec.shape}")
+    check(bool((dec.loc["Months"].to_numpy() > 0).all()), "decile table: a universe has no months")
+    check(bool(np.isfinite(dec.to_numpy(dtype=float)).all()), "decile table has non-finite cells")
+    check(set(res.figure_1) == {"All stocks", "Large stocks"}, "Figure 1 frames missing")
+    for name, frame in res.figure_1.items():
+        rolled = frame.to_numpy()
+        log(f"Figure 1 {name}: {frame.shape[0]} months, {int(np.isfinite(rolled).all(1).sum())} "
+            f"with all five rolling slopes")
+        check(frame.shape[1] == 5 and np.isfinite(rolled).all(1).any(),
+              f"Figure 1 {name}: no finite rolling slopes")
+    st = res.serving_state
+    log(f"serving state coef {st.coef.shape}, months with a lagged coefficient mean "
+        f"{int(st.have_coef().sum())}")
+    check(st.coef.shape == (600, 6), f"serving state coef shape {st.coef.shape}")
+    check(int(st.have_coef().sum()) > 0, "serving state has no quotable month")
     del res
     torch.cuda.empty_cache()
     return counts
 
 
 def _cell_diffs(got: dict, ref: dict):
-    """(relative difference, cell, number, index, reference value) for every
-    Table 2 entry, checking that the NaN patterns agree."""
+    """(held difference, plain relative difference, cell, number, index,
+    reference value) for every Table 2 entry, worst held first, checking
+    that the NaN patterns agree. A coefficient is held at its scale
+    ``max(|b|, nw_se)`` and its t-stat at ``max(|t|, 1)`` — the same bound
+    divided by the SE — so a statistically-zero coefficient is held at its
+    standard error's scale; every other number at ``|b|``."""
     out = []
     for key, r in ref.items():
+        se = np.atleast_1d(np.asarray(r["nw_se"], float))
         for name in ("coef", "tstat", "mean_r2", "mean_n"):
             a = np.atleast_1d(np.asarray(got[key][name], float))
             b = np.atleast_1d(np.asarray(r[name], float))
             check(bool((np.isnan(a) == np.isnan(b)).all()),
                   f"card vs CPU: NaN pattern of {key} {name}")
             for i in np.flatnonzero(np.isfinite(b)):
-                rel = abs(a[i] - b[i]) / max(abs(b[i]), 1e-300)
-                out.append((float(rel), key, name, int(i), float(b[i])))
+                diff = abs(a[i] - b[i])
+                scale = abs(b[i])
+                if name == "coef":
+                    scale = max(scale, se[i])
+                elif name == "tstat":
+                    scale = max(scale, 1.0)
+                out.append((float(diff / max(scale, 1e-300)),
+                            float(diff / max(abs(b[i]), 1e-300)),
+                            key, name, int(i), float(b[i])))
     return sorted(out, key=lambda d: d[0], reverse=True)
+
+
+def _rel_worst(got: np.ndarray, want: np.ndarray, what: str) -> float:
+    """Worst relative difference of two arrays whose NaN/inf patterns must
+    agree (checked)."""
+    got = np.asarray(got, dtype=float)
+    want = np.asarray(want, dtype=float)
+    check(got.shape == want.shape, f"card vs CPU: {what} shape {got.shape} vs {want.shape}")
+    check(all(np.array_equal(f(got), f(want)) for f in (np.isnan, np.isposinf, np.isneginf)),
+          f"card vs CPU: {what} non-finite pattern differs")
+    fin = np.isfinite(want)
+    if not fin.any():
+        return 0.0
+    return float((np.abs(got[fin] - want[fin]) / np.maximum(np.abs(want[fin]), 1e-300)).max())
+
+
+def _decile_count_flips(gpu, cpu) -> int:
+    """Decile-count cells (subset, month, decile) that differ card vs CPU:
+    a firm changing decile moves one count between two cells."""
+    on_card, on_cpu = (subset_sweep(r.panel, r.subset_masks, list(r.subset_masks))
+                       for r in (gpu, cpu))
+    return sum(int((on_card[name].deciles.decile_counts != entry.deciles.decile_counts).sum())
+               for name, entry in on_cpu.items())
+
+
+def _reporting_vs_cpu(gpu, cpu) -> None:
+    """Table 1, the decile table, the figure frames and the serving state,
+    card vs CPU."""
+    t1g, t1c = gpu.table_1, cpu.table_1
+    n_cols = [c for c in t1c.columns if c[1] == "N"]
+    n_exact = bool((t1g[n_cols].to_numpy() == t1c[n_cols].to_numpy()).all())
+    t1_worst = _rel_worst(t1g.drop(columns=n_cols).to_numpy(),
+                          t1c.drop(columns=n_cols).to_numpy(), "Table 1")
+    log(f"card vs CPU Table 1: Avg/Std worst rel diff {t1_worst:.3e} (tol 1e-10), "
+        f"N exact {n_exact}")
+    check(n_exact and t1_worst <= 1e-10, "card vs CPU: Table 1 beyond tolerance")
+
+    flips = _decile_count_flips(gpu, cpu)
+    dg, dc = gpu.decile_table, cpu.decile_table
+    months_exact = bool((dg.loc["Months"].to_numpy() == dc.loc["Months"].to_numpy()).all())
+    dec_worst = _rel_worst(dg.drop(index="Months").to_numpy(),
+                           dc.drop(index="Months").to_numpy(), "decile table")
+    log(f"card vs CPU decile table: worst rel diff {dec_worst:.3e} (tol 1e-8), Months "
+        f"exact {months_exact}, decile-count cells that differ (flips) {flips}")
+    check(months_exact and dec_worst <= 1e-8, "card vs CPU: decile table beyond tolerance")
+
+    fig_worst = 0.0
+    for name, frame in cpu.figure_1.items():
+        check(gpu.figure_1[name].index.equals(frame.index), f"card vs CPU: Figure 1 {name} months")
+        fig_worst = max(fig_worst, _rel_worst(gpu.figure_1[name].to_numpy(), frame.to_numpy(),
+                                              f"Figure 1 {name}"))
+    log(f"card vs CPU Figure 1 frames: worst rel diff {fig_worst:.3e} (tol 1e-8)")
+    check(fig_worst <= 1e-8, "card vs CPU: Figure 1 frames beyond tolerance")
+
+    sg, sc = gpu.serving_state, cpu.serving_state
+    st_worst = max(_rel_worst(getattr(sg, k), getattr(sc, k), f"serving {k}")
+                   for k in ("coef", "slopes_bar", "intercept_bar"))
+    exact = {k: bool(np.array_equal(getattr(sg, k), getattr(sc, k)))
+             for k in ("n_obs", "month_valid")}
+    # the support bounds are minima/maxima of the enriched panel, which the
+    # card computes in another order: they agree as closely as the panels do
+    bounds = {k: _rel_worst(getattr(sg, k), getattr(sc, k), f"serving {k}")
+              for k in ("x_lo", "x_hi")}
+    bit_equal = {k: bool(np.array_equal(getattr(sg, k), getattr(sc, k))) for k in bounds}
+    log(f"card vs CPU serving state: coef/slopes_bar/intercept_bar worst rel diff "
+        f"{st_worst:.3e} (tol 1e-8); exact {exact}; support bounds worst rel diff "
+        f"{bounds} (tol 1e-10), bit-equal {bit_equal}")
+    check(st_worst <= 1e-8 and all(exact.values()) and max(bounds.values()) <= 1e-10,
+          "card vs CPU: serving state beyond tolerance")
 
 
 def card_vs_cpu(seed: int) -> None:
@@ -359,12 +570,17 @@ def card_vs_cpu(seed: int) -> None:
     cpu_s = time.perf_counter() - start
     diffs = _cell_diffs(gpu.table_2_cells, cpu.table_2_cells)
     repeat = _cell_diffs(again.table_2_cells, gpu.table_2_cells)
-    worst, key, name, i, ref = diffs[0]
+    worst, plain, key, name, i, ref = diffs[0]
+    plain_worst = max(diffs, key=lambda d: d[1])
     log(f"card vs CPU (T=240, N=3000, f64): cuda {gpu_s:.2f} s, cpu {cpu_s:.2f} s, "
-        f"worst rel diff {worst:.3e} (tol 1e-8) at {key} {name}[{i}] = {ref:.6e}; "
-        f"card run-to-run worst rel diff {repeat[0][0]:.3e}; formatted tables "
-        f"equal: {gpu.table_2.equals(cpu.table_2)}")
-    check(worst <= 1e-8, "card vs CPU: Table 2 beyond rtol 1e-8")
+        f"Table 2 worst held diff {worst:.3e} (tol 1e-8; coef at max(|b|, nw_se), t-stat "
+        f"at max(|t|, 1)) at {key} {name}[{i}] = {ref:.6e} (plain rel {plain:.3e}); "
+        f"worst plain rel diff {plain_worst[1]:.3e} at {plain_worst[2]} {plain_worst[3]}"
+        f"[{plain_worst[4]}] = {plain_worst[5]:.6e}; card run-to-run worst plain rel diff "
+        f"{max(d[1] for d in repeat):.3e}; formatted tables equal: "
+        f"{gpu.table_2.equals(cpu.table_2)}")
+    check(worst <= 1e-8, "card vs CPU: Table 2 beyond tolerance")
+    _reporting_vs_cpu(gpu, cpu)
 
 
 def main(argv=None) -> int:
@@ -394,7 +610,7 @@ def main(argv=None) -> int:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(args.seed)
     timed = not args.kernels_only
-    rows = k1_phase(gen, timed) + k2_phase(gen, timed)
+    rows = k1_phase(gen, timed) + k2_phase(gen, timed) + k3_phase(gen, timed)
     if args.kernels_only:
         log("kernels-only run: kernel phases passed")
         return 0
@@ -403,9 +619,11 @@ def main(argv=None) -> int:
     card_vs_cpu(args.seed)
 
     for row in rows:
-        key = row.pop("key")
-        row["launches"] = (counts["k2"] if key == "gram"
-                           else counts["k1_by_key"].get(key, 0))
+        row["launches"] = counts.get(row.pop("key"), 0)
+        if row.get("main_path") == K3_MAIN_PATH:
+            check(row["launches"] == 0, f"{row['name']}: launched on the main path, "
+                  "which has no caller of it")
+            continue
         check(row["launches"] > 0, f"{row['name']} was not launched on the main path")
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi_line())

@@ -10,7 +10,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, List
 
-__all__ = ["ModelSpec", "MODELS", "model_columns"]
+__all__ = ["ModelSpec", "MODELS", "FIGURE1_VARS", "model_columns"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,6 +56,16 @@ MODELS: List[ModelSpec] = [
         ],
     ),
 ]
+
+# Figure 1 plots Model-2 slopes but with its OWN 5-variable set (panel
+# column → legend label), not the 7-predictor Model 2.
+FIGURE1_VARS: Dict[str, str] = {
+    "log_bm": "B/M",
+    "return_12_2": "Ret12",
+    "log_issues_36": "Issue36",
+    "accruals_final": "Accruals",
+    "log_assets_growth": "Log AG",
+}
 
 
 def model_columns(model: ModelSpec, variables_dict: Dict[str, str]) -> List[str]:

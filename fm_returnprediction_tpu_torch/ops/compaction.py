@@ -15,7 +15,10 @@ from typing import NamedTuple
 
 import torch
 
-__all__ = ["Compaction", "make_compaction", "compact", "scatter_back", "lag"]
+from fm_returnprediction_tpu_torch.ops.rolling import rolling_mean
+
+__all__ = ["Compaction", "make_compaction", "compact", "scatter_back", "lag",
+           "rolling_over_valid_rows"]
 
 
 class Compaction(NamedTuple):
@@ -66,3 +69,50 @@ def lag(comp_values: torch.Tensor, k: int, fill=float("nan")) -> torch.Tensor:
     pad = torch.full((k,) + tuple(comp_values.shape[1:]), fill,
                      dtype=comp_values.dtype, device=comp_values.device)
     return torch.cat([pad, comp_values[: max(t - k, 0)]], dim=0)[:t]
+
+
+def rolling_over_valid_rows(values: torch.Tensor, valid: torch.Tensor,
+                            window: int, min_periods: int, row_lag: int = 0,
+                            fill_invalid: bool = False) -> torch.Tensor:
+    """Rolling mean over the SURVIVING rows of a (T, K) series, scattered
+    back to calendar slots.
+
+    Figure 1's 120-month slope means roll over consecutive surviving
+    months (the slope frame's rows), and the out-of-sample forecast's
+    lagged coefficient means do the same: stably compact rows where
+    ``valid`` (T,) holds to the front, roll over the compacted axis,
+    optionally shift by ``row_lag`` rows (strictly-prior information), and
+    scatter back, NaN at invalid calendar slots.
+
+    ``fill_invalid=True`` (requires ``row_lag > 0``) instead gives EVERY
+    slot the lagged mean its position would see: for an invalid slot, the
+    window ending at the last surviving row before it. At surviving slots
+    the two modes agree exactly.
+
+    Leading batch axes are allowed — values (..., T, K), valid (..., T) —
+    and every series rolls in ONE ``rolling_mean`` call over a (T, B·K)
+    layout (one kernel launch on the card).
+    """
+    if fill_invalid and not row_lag:
+        raise ValueError("fill_invalid requires row_lag > 0")
+    t = valid.shape[-1]
+    ramp = torch.arange(t, device=valid.device)
+    order = torch.argsort((~valid).to(torch.uint8), dim=-1, stable=True)
+    comp = torch.gather(values, -2, order[..., None].expand(values.shape))
+    in_range = ramp < valid.sum(-1, keepdim=True)
+    comp = torch.where(in_range[..., None], comp, torch.full_like(comp, float("nan")))
+    time_major = comp.movedim(-2, 0)                       # (T, ..., K)
+    rolled = rolling_mean(time_major.reshape(t, -1), window, min_periods)
+    rolled = rolled.reshape(time_major.shape).movedim(0, -2)
+    if row_lag:
+        pad = torch.full(rolled.shape[:-2] + (row_lag, rolled.shape[-1]),
+                         float("nan"), dtype=rolled.dtype, device=rolled.device)
+        rolled = torch.cat([pad, rolled[..., : max(t - row_lag, 0), :]], dim=-2)[..., :t, :]
+    if fill_invalid:
+        # surviving rows strictly before each slot == the compacted index
+        # the slot's lagged window ends at
+        k = torch.cumsum(valid.to(torch.int64), dim=-1) - valid.to(torch.int64)
+        return torch.gather(rolled, -2, k[..., None].expand(rolled.shape))
+    inv_order = torch.argsort(order, dim=-1, stable=True)
+    back = torch.gather(rolled, -2, inv_order[..., None].expand(rolled.shape))
+    return torch.where(valid[..., None], back, torch.full_like(back, float("nan")))

@@ -21,8 +21,9 @@ from typing import NamedTuple
 
 import torch
 
-__all__ = ["CSRegressionResult", "row_validity", "augment_design",
-           "lstsq_min_norm", "monthly_cs_ols"]
+__all__ = ["CSRegressionResult", "NormalStats", "row_validity",
+           "augment_design", "sufficient_stats", "lstsq_min_norm",
+           "monthly_cs_ols"]
 
 
 class CSRegressionResult(NamedTuple):
@@ -52,6 +53,28 @@ def augment_design(y: torch.Tensor, x: torch.Tensor, valid: torch.Tensor):
     x_aug = x_aug * v[..., None]
     y_z = torch.where(valid, y, torch.zeros_like(y))
     return x_aug, y_z, v
+
+
+class NormalStats(NamedTuple):
+    """Normal-equation sufficient statistics for a batch of cross-sections:
+    exactly the quantities that are ADDITIVE over disjoint firm subsets."""
+
+    gram: torch.Tensor    # (..., Q, Q) XᵀX with intercept column, Q = P+1
+    moment: torch.Tensor  # (..., Q)    Xᵀy
+    n: torch.Tensor       # (...)       valid rows, in x's dtype
+    ysum: torch.Tensor    # (...)       Σy over valid rows
+    yy: torch.Tensor      # (...)       Σy² over valid rows
+
+
+def sufficient_stats(y: torch.Tensor, x: torch.Tensor,
+                     valid: torch.Tensor) -> NormalStats:
+    """Contract a masked cross-section batch into normal-equation stats.
+    Shapes: y (..., N), x (..., N, P), valid (..., N) bool. The products
+    run at the dtype's full precision (no TF32)."""
+    x_aug, y_z, v = augment_design(y, x, valid)
+    gram = torch.einsum("...np,...nq->...pq", x_aug, x_aug)
+    moment = torch.einsum("...np,...n->...p", x_aug, y_z)
+    return NormalStats(gram, moment, v.sum(-1), y_z.sum(-1), (y_z * y_z).sum(-1))
 
 
 def lstsq_min_norm(a: torch.Tensor, b: torch.Tensor, rcond: float) -> torch.Tensor:

@@ -16,6 +16,11 @@ versions, chosen by where the tensor lies:
 
 There is no fallback between the two. ``rolling_prod`` is plain PyTorch on
 either device.
+
+``masked_cumulative_moments`` (the inclusive masked Σx, Σx², count) is
+dispatched the same way: ``masked_cumulative_moments_cuda`` launches the
+kernel of the same source, ``masked_cumulative_moments_plain`` is three
+``torch.cumsum`` passes.
 """
 
 from __future__ import annotations
@@ -38,6 +43,9 @@ __all__ = [
     "rolling_mean",
     "rolling_std",
     "rolling_prod",
+    "masked_cumulative_moments_plain",
+    "masked_cumulative_moments_cuda",
+    "masked_cumulative_moments",
 ]
 
 _KINDS = {"sum": 0, "mean": 1, "std": 2}
@@ -104,18 +112,23 @@ def rolling_reduce_plain(x: torch.Tensor, window: int, min_periods: int,
     raise ValueError(f"kind must be one of {tuple(_KINDS)}, got {kind!r}")
 
 
+def _check_kernel_input(x: torch.Tensor, what: str) -> None:
+    """Raise on a tensor the kernels of ``csrc/rolling.cu`` do not take."""
+    if not x.is_cuda:
+        raise ValueError(f"{what} needs a CUDA tensor")
+    if x.dtype not in _DTYPE_CODES:
+        raise TypeError(f"{what} takes float32/float64, got {x.dtype}")
+    if x.dim() != 2:
+        raise ValueError(f"{what} takes a (T, N) tensor, got {tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{what} needs a contiguous tensor")
+
+
 def rolling_reduce_cuda(x: torch.Tensor, window: int, min_periods: int,
                         kind: str) -> torch.Tensor:
     """Launch the rolling kernel on a contiguous (T, N) float32/float64
     CUDA tensor. Raises on anything the kernel does not take."""
-    if not x.is_cuda:
-        raise ValueError("rolling_reduce_cuda needs a CUDA tensor")
-    if x.dtype not in _DTYPE_CODES:
-        raise TypeError(f"rolling kernel takes float32/float64, got {x.dtype}")
-    if x.dim() != 2:
-        raise ValueError(f"rolling kernel takes a (T, N) tensor, got {tuple(x.shape)}")
-    if not x.is_contiguous():
-        raise ValueError("rolling kernel needs a contiguous tensor")
+    _check_kernel_input(x, "rolling kernel")
     if kind not in _KINDS:
         raise ValueError(f"kind must be one of {tuple(_KINDS)}, got {kind!r}")
     if window < 1 or min_periods < 0:
@@ -179,3 +192,46 @@ def rolling_prod(x: torch.Tensor, window: int, min_periods: int) -> torch.Tensor
                      device=x.device)
     prod = torch.cat([pad, x], dim=0).unfold(0, window, 1).prod(dim=-1)
     return _gate(prod, windowed_count(torch.isfinite(x), window), min_periods)
+
+
+def masked_cumulative_moments_plain(x: torch.Tensor):
+    """The plain PyTorch version of the moments kernel, on any device:
+    inclusive cumulative Σx, Σx² and count along axis 0, non-finite
+    entries contributing zero; all three in x's dtype."""
+    finite = torch.isfinite(x)
+    xz = torch.where(finite, x, torch.zeros_like(x))
+    return (torch.cumsum(xz, dim=0), torch.cumsum(xz * xz, dim=0),
+            torch.cumsum(finite.to(x.dtype), dim=0))
+
+
+def masked_cumulative_moments_cuda(x: torch.Tensor):
+    """Launch the moments kernel on a contiguous (T, N) float32/float64
+    CUDA tensor; returns ``(csum, csumsq, ccnt)``. Raises on anything the
+    kernel does not take."""
+    _check_kernel_input(x, "moments kernel")
+    csum, csumsq, ccnt = (torch.empty_like(x) for _ in range(3))
+    if x.numel() == 0:
+        return csum, csumsq, ccnt
+    fn = kernel_function("rolling", "masked_cumulative_moments", [
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
+    ])
+    with torch.cuda.device(x.device):
+        status = fn(_DTYPE_CODES[x.dtype], x.data_ptr(), csum.data_ptr(),
+                    csumsq.data_ptr(), ccnt.data_ptr(), x.shape[0], x.shape[1],
+                    torch.cuda.current_stream().cuda_stream)
+    check_status("rolling", status)
+    masked_cumulative_moments_cuda.launches += 1
+    return csum, csumsq, ccnt
+
+
+masked_cumulative_moments_cuda.launches = 0
+
+
+def masked_cumulative_moments(x: torch.Tensor):
+    """Inclusive cumulative (Σx, Σx², count) over axis 0 of a (T, N)
+    tensor, NaN-masked: the kernel for a CUDA tensor, the plain version for
+    a CPU one. Returns three (T, N) tensors in x's dtype."""
+    if not x.is_cuda:
+        return masked_cumulative_moments_plain(x)
+    return masked_cumulative_moments_cuda(x.contiguous())

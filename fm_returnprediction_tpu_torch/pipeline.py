@@ -1,5 +1,6 @@
-"""End-to-end entry of the port's slice: prepared panel → characteristics →
-universes → Table 2.
+"""End-to-end entry of the port's slices: prepared panel → characteristics →
+universes → Table 1 → Table 2 → the figure/decile sweep → Figure 1's
+rolling slopes → the decile table → the serving state.
 
 The entry starts from the prepared inputs — the dense base panel and the
 compacted daily strips, both host numpy (``panel.dense.DensePanel``,
@@ -9,6 +10,10 @@ from other producers) — and everything after runs on the compute device.
     from fm_returnprediction_tpu_torch.pipeline import run_pipeline
     res = run_pipeline(dense_base, compact_daily)            # on the GPU
     res = run_pipeline(dense_base, compact_daily, device="cpu")
+
+Figure 1 is returned as the rolling-slope frames it plots
+(``PipelineResult.figure_1``); drawing them needs matplotlib
+(``reporting.figure1.create_figure_1``), which the pipeline does not import.
 """
 
 from __future__ import annotations
@@ -24,9 +29,16 @@ from fm_returnprediction_tpu_torch.panel.characteristics import get_factors
 from fm_returnprediction_tpu_torch.panel.daily import CompactDaily
 from fm_returnprediction_tpu_torch.panel.dense import DensePanel
 from fm_returnprediction_tpu_torch.panel.subsets import compute_subset_masks
+from fm_returnprediction_tpu_torch.reporting.deciles import build_decile_table
+from fm_returnprediction_tpu_torch.reporting.figure1 import figure_frames, subset_sweep
+from fm_returnprediction_tpu_torch.reporting.table1 import build_table_1
 from fm_returnprediction_tpu_torch.reporting.table2 import (
     format_table_2,
     table_2_cells,
+)
+from fm_returnprediction_tpu_torch.serving.state import (
+    ServingState,
+    build_serving_state_from_panel,
 )
 from fm_returnprediction_tpu_torch.utils.timing import StageTimer
 
@@ -38,8 +50,12 @@ class PipelineResult:
     panel: DensePanel                       # enriched panel, values on device
     factors_dict: Dict[str, str]
     subset_masks: Dict[str, torch.Tensor]
+    table_1: pd.DataFrame                   # (subset, {Avg, Std, N}) columns
     table_2: pd.DataFrame                   # formatted reference layout
     table_2_cells: Dict[Tuple[str, str], dict]  # coef/tstat/mean_r2/mean_n
+    figure_1: Optional[Dict[str, pd.DataFrame]]  # subset → rolling slopes
+    decile_table: Optional[pd.DataFrame]
+    serving_state: Optional[ServingState]
     stage_seconds: Dict[str, float]         # device-synchronized wall time
 
 
@@ -63,10 +79,13 @@ def run_pipeline(
     device=None,
     dtype: torch.dtype = torch.float32,
     include_turnover: bool = False,
+    make_figure: bool = True,
+    make_deciles: bool = True,
+    make_serving: bool = True,
 ) -> PipelineResult:
-    """Characteristics → NYSE-breakpoint universes → Table 2, on ``device``
-    (default the GPU; raises when there is none and the CPU was not asked
-    for)."""
+    """Characteristics → NYSE-breakpoint universes → Table 1 → Table 2 →
+    Figure 1 / deciles → serving state, on ``device`` (default the GPU;
+    raises when there is none and the CPU was not asked for)."""
     device = resolve_device(device)
     timer = StageTimer(device)
     with timer.stage("build_panel"):
@@ -76,8 +95,38 @@ def run_pipeline(
         )
     with timer.stage("subset_masks"):
         masks = compute_subset_masks(panel)
+    with timer.stage("table_1"):
+        table_1 = build_table_1(panel, masks, factors_dict)
     with timer.stage("table_2"):
         cells = table_2_cells(panel, masks, factors_dict)
     table_2 = format_table_2(cells, list(masks))
-    return PipelineResult(panel, factors_dict, masks, table_2, cells,
-                          dict(timer.durations))
+
+    # The figure, the decile table and the serving state share one sweep:
+    # one Gram contraction gives every subset's figure cross-sections.
+    cs_cache = {}
+    if make_figure or make_deciles:
+        with timer.stage("figure_cs"):
+            needed = set(masks) if make_deciles else {"All stocks", "Large stocks"}
+            cs_cache = subset_sweep(panel, masks, [n for n in masks if n in needed],
+                                    make_deciles=make_deciles)
+    figure_1 = None
+    if make_figure:
+        with timer.stage("figure_1"):
+            figure_1 = figure_frames(panel, masks, cs_cache)
+    decile_table = None
+    if make_deciles:
+        with timer.stage("decile_table"):
+            decile_table = build_decile_table(panel, masks, cs_cache=cs_cache)
+    serving_state = None
+    if make_serving and "All stocks" in masks:
+        with timer.stage("serving_state"):
+            entry = cs_cache.get("All stocks")
+            serving_state = build_serving_state_from_panel(
+                panel, masks["All stocks"],
+                cs=entry.cs if entry is not None else None)
+    return PipelineResult(
+        panel=panel, factors_dict=factors_dict, subset_masks=masks,
+        table_1=table_1, table_2=table_2, table_2_cells=cells,
+        figure_1=figure_1, decile_table=decile_table,
+        serving_state=serving_state, stage_seconds=dict(timer.durations),
+    )

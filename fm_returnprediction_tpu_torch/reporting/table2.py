@@ -42,8 +42,8 @@ def table_2_cells(
     return_col: str = "retx",
 ) -> Dict[Tuple[str, str], dict]:
     """Every Table 2 cell's numbers: ``(model name, subset) → {"coef",
-    "tstat", "mean_r2", "mean_n"}`` (host numpy; coef/tstat in the model's
-    predictor order)."""
+    "tstat", "nw_se", "mean_r2", "mean_n"}`` (host numpy; coef/tstat/nw_se
+    in the model's predictor order)."""
     models = models if models is not None else MODELS
     subset_names = list(subset_masks)
     grid = table2_grid(
@@ -60,7 +60,7 @@ def table_2_cells(
             fm = res.spec_summary(grid, mi * len(subset_names) + si)
             cells[(model.name, name)] = {
                 "coef": np.asarray(fm.coef), "tstat": np.asarray(fm.tstat),
-                "mean_r2": float(fm.mean_r2), "mean_n": float(fm.mean_n),
+                "nw_se": np.asarray(fm.nw_se), "mean_r2": float(fm.mean_r2), "mean_n": float(fm.mean_n),
             }
     return cells
 

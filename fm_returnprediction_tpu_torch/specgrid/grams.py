@@ -128,10 +128,15 @@ def gram_contract_cuda(y: torch.Tensor, x: torch.Tensor, valid: torch.Tensor,
                     torch.cuda.current_stream().cuda_stream)
     check_status("gram", status)
     gram_contract_cuda.launches += 1
+    key = f"P={p},S={s}"
+    by_key = gram_contract_cuda.launches_by_key
+    by_key[key] = by_key.get(key, 0) + 1
     return out
 
 
+# launch counters: the total, and per "P=<columns>,S=<specs>"
 gram_contract_cuda.launches = 0
+gram_contract_cuda.launches_by_key = {}
 
 
 def contract_spec_grams_plain(y, x, uni, col_sel, window, center,

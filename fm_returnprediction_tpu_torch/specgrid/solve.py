@@ -79,6 +79,16 @@ class SpecGridResult(NamedTuple):
             mean_n=self.mean_n[s], n_months=self.n_months[s],
         )
 
+    def spec_cs(self, grid: SpecGrid, s: int) -> CSRegressionResult:
+        """One spec's per-month cross-sections in its own predictor order
+        (numpy leaves)."""
+        pos = grid.column_positions(grid.specs[s])
+        return CSRegressionResult(
+            slopes=self.slopes[s][:, pos], intercept=self.intercept[s],
+            r2=self.r2[s], n_obs=self.n_obs[s],
+            month_valid=self.month_valid[s],
+        )
+
 
 def solve_spec_stats(stats, sel_aug: torch.Tensor) -> SpecSolve:
     """Solve every (spec, month) padded Gram system.

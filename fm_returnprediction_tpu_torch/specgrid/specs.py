@@ -6,7 +6,7 @@ names), a stock universe (a subset-mask name) and an optional sample window
 FM hyperparameters (NW lags / weight scheme / min-months), solved together
 from one Gram contraction (``specgrid.grams`` / ``specgrid.solve``).
 ``table2_grid`` reproduces Table 2's 3 models × 3 universes in model-major
-order.
+order; ``figure1_grid`` the figure's 5-variable set per universe.
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-__all__ = ["Spec", "SpecGrid", "table2_grid"]
+__all__ = ["Spec", "SpecGrid", "table2_grid", "figure1_grid"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -133,4 +133,19 @@ def table2_grid(
         for name in subsets:
             specs.append(Spec(f"{model.name} | {name}", cols, name))
     return SpecGrid(tuple(specs), nw_lags=nw_lags, min_months=min_months,
+                    weight=weight)
+
+
+def figure1_grid(
+    subsets: Sequence[str],
+    nw_lags: int = 4,
+    min_months: int = 10,
+    weight: str = "reference",
+) -> SpecGrid:
+    """The Figure-1 family: the figure's own 5-variable set per universe."""
+    from fm_returnprediction_tpu_torch.models.lewellen import FIGURE1_VARS
+
+    cols = tuple(FIGURE1_VARS.keys())
+    specs = tuple(Spec(f"figure1 | {name}", cols, name) for name in subsets)
+    return SpecGrid(specs, nw_lags=nw_lags, min_months=min_months,
                     weight=weight)

@@ -8,8 +8,10 @@ on first use); without a device they skip. On a machine with one GPU:
 Tolerances: float64 at rtol 1e-10 for the rolling family (both sides
 difference two cumulative sums, so a small window std under a large running
 sum loses digits to cancellation) and 1e-12 of each (spec, month) block's
-max-abs entry for the Gram contraction; identical NaN patterns, exact
-counts.
+max-abs entry for the Gram contraction; the cumulative moments at 1e-12
+(float64) / 1e-5 (float32) of the largest cumulative magnitude (the card's
+``torch.cumsum`` scans in another order than the kernel's sequential walk);
+identical NaN patterns, exact counts.
 """
 
 import numpy as np
@@ -67,6 +69,45 @@ def test_rolling_dispatch_launches_the_kernel(cuda):
     torch.testing.assert_close(out, want, rtol=1e-12, atol=1e-14, equal_nan=True)
 
 
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_rolling_mean_w120_on_figure_series(cuda, dtype):
+    """Figure 1's roll: mean w=120 mp=60 on a (600, 15) series (3 subsets ×
+    5 slopes) through the dispatch, counted under "mean/w=120"."""
+    rng = np.random.default_rng(4)
+    x = 0.01 * rng.standard_normal((600, 15))
+    x[rng.random(x.shape) < 0.1] = np.nan
+    xt = torch.tensor(x, dtype=dtype, device=cuda)
+    before = rolling.rolling_reduce_cuda.launches_by_key.get("mean/w=120", 0)
+    got = rolling.rolling_mean(xt, 120, 60)
+    assert rolling.rolling_reduce_cuda.launches_by_key["mean/w=120"] == before + 1
+    want = rolling.rolling_reduce_plain(xt, 120, 60, "mean")
+    rtol, atol = (1e-10, 1e-16) if dtype == torch.float64 else (1e-4, 1e-9)
+    torch.testing.assert_close(got, want, rtol=rtol, atol=atol, equal_nan=True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_moments_kernel_matches_plain(cuda, dtype):
+    x = _rolling_input(dtype, cuda)
+    before = rolling.masked_cumulative_moments_cuda.launches
+    got = rolling.masked_cumulative_moments(x)
+    assert rolling.masked_cumulative_moments_cuda.launches == before + 1
+    want = rolling.masked_cumulative_moments_plain(x)
+    rtol = 1e-12 if dtype == torch.float64 else 1e-5
+    torch.testing.assert_close(got[2], want[2], rtol=0, atol=0)
+    for g, w in zip(got[:2], want[:2]):
+        torch.testing.assert_close(g, w, rtol=rtol, atol=rtol * float(w.abs().max()))
+
+
+def test_moments_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    x = _rolling_input(torch.float64, cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        rolling.masked_cumulative_moments_cuda(x[:, ::2])
+    with pytest.raises(TypeError):
+        rolling.masked_cumulative_moments_cuda(x.half())
+    with pytest.raises(ValueError):
+        rolling.masked_cumulative_moments_cuda(x[None])
+
+
 def test_rolling_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     x = _rolling_input(torch.float64, cuda)
     with pytest.raises(ValueError, match="contiguous"):
@@ -97,9 +138,11 @@ def _gram_args(dtype, cuda, t=11, n=700, p=6, s=5, seed=1):
             to(window))
 
 
+@pytest.mark.parametrize("p,s", [(6, 5), (5, 3)])
 @pytest.mark.parametrize("dtype,rtol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
-def test_gram_kernel_matches_plain(cuda, dtype, rtol):
-    y, x, universes, uidx, col_sel, window = _gram_args(dtype, cuda)
+def test_gram_kernel_matches_plain(cuda, dtype, rtol, p, s):
+    """P=5, S=3 is the figure grid's shape (5 variables × 3 universes)."""
+    y, x, universes, uidx, col_sel, window = _gram_args(dtype, cuda, p=p, s=s)
     before = grams.gram_contract_cuda.launches
     got = grams.contract_spec_grams(y, x, universes, uidx, col_sel, window)
     assert grams.gram_contract_cuda.launches == before + 1

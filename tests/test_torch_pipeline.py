@@ -7,7 +7,11 @@ compact daily strips then go through the JAX warm path
 and through the port's ``run_pipeline(device="cpu", dtype=torch.float64)``.
 Enriched panel values agree at rtol 1e-10 with identical NaN patterns, the
 masks exactly, Table 2's per-cell numbers at rtol 1e-8, and the formatted
-frames are equal.
+frames are equal. The JAX warm path's later stages (``build_table_1``, the
+``subset_sweep``, Figure 1's ``rolling_slopes``, ``build_decile_table``,
+``build_serving_state_from_panel``) run on the same JAX panel: Table 1 at
+rtol 1e-10 with N exact, the figure frames, decile table and serving state
+at rtol 1e-8 with counts and flags exact.
 """
 
 import os
@@ -26,7 +30,11 @@ from fm_returnprediction_tpu.data.synthetic import SyntheticConfig, generate_syn
 from fm_returnprediction_tpu.models.lewellen import MODELS
 from fm_returnprediction_tpu.panel.subsets import compute_subset_masks
 from fm_returnprediction_tpu.pipeline import build_panel, build_panel_prepared
+from fm_returnprediction_tpu.reporting.deciles import build_decile_table
+from fm_returnprediction_tpu.reporting.figure1 import rolling_slopes, subset_sweep
+from fm_returnprediction_tpu.reporting.table1 import build_table_1
 from fm_returnprediction_tpu.reporting.table2 import build_table_2
+from fm_returnprediction_tpu.serving.state import build_serving_state_from_panel
 from fm_returnprediction_tpu.specgrid import run_spec_grid, table2_grid
 from fm_returnprediction_tpu_torch.convert import prepared_from_numpy
 from fm_returnprediction_tpu_torch.pipeline import run_pipeline
@@ -53,8 +61,16 @@ def jax_run():
         for si, name in enumerate(masks):
             fm = res.spec_summary(grid, mi * len(masks) + si)
             cells[(model.name, name)] = fm
+    sweep = subset_sweep(panel, masks, list(masks))
+    figure = {name: rolling_slopes(panel, masks[name], cs=sweep[name].cs,
+                                   rolled=sweep[name].rolled)
+              for name in ("All stocks", "Large stocks")}
     return dict(base=base, daily=daily, panel=panel, factors=factors,
-                masks=masks, table=table, cells=cells)
+                masks=masks, table=table, cells=cells,
+                table_1=build_table_1(panel, masks, factors), figure=figure,
+                deciles=build_decile_table(panel, masks, cs_cache=sweep),
+                serving=build_serving_state_from_panel(
+                    panel, masks["All stocks"], cs=sweep["All stocks"].cs))
 
 
 @pytest.fixture(scope="module")
@@ -96,9 +112,66 @@ def test_formatted_table2_equal(jax_run, port_run):
     assert port_run.table_2.equals(jax_run["table"])
 
 
+def _assert_frames_close(got, want, rtol, exact_rows=()):
+    assert list(got.index) == list(want.index)
+    assert got.index.name == want.index.name
+    assert list(got.columns) == list(want.columns)
+    g = got.to_numpy(dtype=float)
+    w = want.to_numpy(dtype=float)
+    exact = np.isin(np.asarray(got.index), list(exact_rows))
+    np.testing.assert_array_equal(g[exact], w[exact])
+    np.testing.assert_array_equal(np.isnan(g), np.isnan(w))
+    np.testing.assert_allclose(g[~exact], w[~exact], rtol=rtol, atol=0, equal_nan=True)
+
+
+def test_table1_matches(jax_run, port_run):
+    got, want = port_run.table_1, jax_run["table_1"]
+    assert got.shape == (15, 9)
+    n_cols = [c for c in got.columns if c[1] == "N"]
+    np.testing.assert_array_equal(got[n_cols].to_numpy(), want[n_cols].to_numpy())
+    _assert_frames_close(got.drop(columns=n_cols), want.drop(columns=n_cols), 1e-10)
+
+
+def test_figure_frames_match(jax_run, port_run):
+    assert list(port_run.figure_1) == list(jax_run["figure"])
+    for name, want in jax_run["figure"].items():
+        got = port_run.figure_1[name]
+        assert got.index.equals(want.index), name
+        _assert_frames_close(got, want, 1e-8)
+
+
+def test_decile_table_matches(jax_run, port_run):
+    assert port_run.decile_table.shape == (13, 3)
+    _assert_frames_close(port_run.decile_table, jax_run["deciles"], 1e-8,
+                         exact_rows=("Months",))
+
+
+def test_serving_state_matches(jax_run, port_run):
+    got, want = port_run.serving_state, jax_run["serving"]
+    assert got.xvars == want.xvars and got.coef.shape == want.coef.shape
+    np.testing.assert_array_equal(got.months, want.months)
+    for name in ("coef", "slopes_bar", "intercept_bar", "gram", "moment", "ysum", "yy"):
+        a, b = getattr(got, name), getattr(want, name)
+        assert a.dtype == b.dtype, name
+        np.testing.assert_array_equal(np.isnan(a), np.isnan(b), err_msg=name)
+        np.testing.assert_allclose(a, b, rtol=1e-8, atol=0, equal_nan=True, err_msg=name)
+    for name in ("n_obs", "month_valid"):
+        a, b = getattr(got, name), getattr(want, name)
+        assert a.dtype == b.dtype, name
+        np.testing.assert_array_equal(a, b, err_msg=name)
+    # the support bounds are minima/maxima of the enriched panel, so they
+    # agree as closely as the two panels do (rtol 1e-10, test above); on a
+    # shared panel they are exact (tests/test_torch_reporting.py)
+    for name in ("x_lo", "x_hi"):
+        a, b = getattr(got, name), getattr(want, name)
+        assert a.dtype == b.dtype, name
+        np.testing.assert_allclose(a, b, rtol=1e-10, atol=0, err_msg=name)
+
+
 def test_stage_times_are_recorded(port_run):
     assert {"build_panel", "daily_kernels", "characteristics_winsorize",
-            "subset_masks", "table_2"} <= set(port_run.stage_seconds)
+            "subset_masks", "table_1", "table_2", "figure_cs", "figure_1",
+            "decile_table", "serving_state"} <= set(port_run.stage_seconds)
 
 
 # -- guards ---------------------------------------------------------------
@@ -127,6 +200,10 @@ def test_port_runs_with_jax_blocked():
         base, daily = make_smoke_inputs(n_firms=80, n_months=60, dtype=np.float64)
         res = run_pipeline(base, daily, device="cpu", dtype=torch.float64)
         assert res.table_2.shape == (27, 9), res.table_2.shape
+        assert res.table_1.shape == (15, 9), res.table_1.shape
+        assert res.decile_table.shape == (13, 3), res.decile_table.shape
+        assert set(res.figure_1) == {"All stocks", "Large stocks"}
+        assert res.serving_state.coef.shape == (60, 6), res.serving_state.coef.shape
         loaded = [m for m in sys.modules
                   if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
         assert not loaded, loaded
