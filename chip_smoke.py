@@ -56,7 +56,6 @@ from fm_returnprediction_tpu_torch.ops.rolling import (
     rolling_reduce_plain,
 )
 from fm_returnprediction_tpu_torch.pipeline import run_pipeline
-from fm_returnprediction_tpu_torch.reporting.figure1 import subset_sweep
 from fm_returnprediction_tpu_torch.specgrid.grams import (
     contract_spec_grams_plain,
     gram_contract_cuda,
@@ -208,7 +207,8 @@ def k1_phase(gen, timed: bool):
                 log(f"K1 {tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                     f"bound {b_ms:.4f} ms ({b_by})")
                 rows.append(dict(name=f"rolling_reduce[{kind},w={window}] {t}x{n} f32",
-                                 key=f"{kind}/w={window}", route="cuda", source=K1_SOURCE,
+                                 key=f"{kind}/w={window},{t}x{n}", route="cuda",
+                                 source=K1_SOURCE,
                                  replaces=K1_REPLACES, max_abs_err=err, ms=ms,
                                  plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                                  library_ms=None))
@@ -399,19 +399,27 @@ def main_path(seed: int):
     start = time.perf_counter()
     res = run_pipeline(base, daily, device="cuda", dtype=torch.float32)
     wall = time.perf_counter() - start
+    # K1 is counted per kind, window and shape ("mean/w=120,600x15"); the
+    # per-kind totals ("mean/w=120") are summed here
+    by_shape = dict(rolling_reduce_cuda.launches_by_key)
+    by_kind = {}
+    for key, n in by_shape.items():
+        kind = key.split(",")[0]
+        by_kind[kind] = by_kind.get(kind, 0) + n
     counts = {"k1": rolling_reduce_cuda.launches,
               "k2": gram_contract_cuda.launches,
               "moments": masked_cumulative_moments_cuda.launches}
-    counts.update(rolling_reduce_cuda.launches_by_key)
+    counts.update(by_shape)
+    counts.update(by_kind)
     counts.update({f"gram/{k}": v for k, v in gram_contract_cuda.launches_by_key.items()})
     log(f"main path wall {wall:.3f} s; stages (s): "
         + json.dumps({k: round(v, 4) for k, v in res.stage_seconds.items()}))
     log(f"main path peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-    log(f"main path launches: K1 {counts['k1']} "
-        f"{dict(rolling_reduce_cuda.launches_by_key)}, K2 {counts['k2']} "
-        f"{dict(gram_contract_cuda.launches_by_key)}, K3 {counts['moments']}")
+    log(f"main path launches: K1 {counts['k1']} {by_kind} by shape {by_shape}, "
+        f"K2 {counts['k2']} {dict(gram_contract_cuda.launches_by_key)}, "
+        f"K3 {counts['moments']}")
     check(counts["k1"] > 0, "main path never launched the rolling kernel")
-    check(counts.get("mean/w=120", 0) > 0,
+    check(by_kind.get("mean/w=120", 0) > 0,
           "main path never launched the rolling kernel's mean w=120 (Figure 1, forecasts)")
     check(counts["k2"] == 2, f"main path launched the Gram kernel {counts['k2']} times, "
           "not twice (Table 2's grid and the figure grid)")
@@ -504,12 +512,13 @@ def _rel_worst(got: np.ndarray, want: np.ndarray, what: str) -> float:
 
 
 def _decile_count_flips(gpu, cpu) -> int:
-    """Decile-count cells (subset, month, decile) that differ card vs CPU:
-    a firm changing decile moves one count between two cells."""
-    on_card, on_cpu = (subset_sweep(r.panel, r.subset_masks, list(r.subset_masks))
-                       for r in (gpu, cpu))
-    return sum(int((on_card[name].deciles.decile_counts != entry.deciles.decile_counts).sum())
-               for name, entry in on_cpu.items())
+    """Decile-count cells (subset, month, decile) that differ card vs CPU in
+    the two runs' own sweeps: a firm changing decile moves one count
+    between two cells."""
+    check(list(gpu.sweep) == list(cpu.sweep), "card vs CPU: swept subsets differ")
+    return sum(int(np.sum(np.asarray(gpu.sweep[name].deciles.decile_counts)
+                          != np.asarray(entry.deciles.decile_counts)))
+               for name, entry in cpu.sweep.items())
 
 
 def _reporting_vs_cpu(gpu, cpu) -> None:

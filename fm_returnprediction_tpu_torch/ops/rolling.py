@@ -147,13 +147,13 @@ def rolling_reduce_cuda(x: torch.Tensor, window: int, min_periods: int,
                     int(min_periods), torch.cuda.current_stream().cuda_stream)
     check_status("rolling", status)
     rolling_reduce_cuda.launches += 1
-    key = f"{kind}/w={window}"
+    key = f"{kind}/w={window},{x.shape[0]}x{x.shape[1]}"
     by_key = rolling_reduce_cuda.launches_by_key
     by_key[key] = by_key.get(key, 0) + 1
     return out
 
 
-# launch counters: the total, and per "kind/w=window"
+# launch counters: the total, and per "kind/w=window,TxN"
 rolling_reduce_cuda.launches = 0
 rolling_reduce_cuda.launches_by_key = {}
 

@@ -30,7 +30,11 @@ from fm_returnprediction_tpu_torch.panel.daily import CompactDaily
 from fm_returnprediction_tpu_torch.panel.dense import DensePanel
 from fm_returnprediction_tpu_torch.panel.subsets import compute_subset_masks
 from fm_returnprediction_tpu_torch.reporting.deciles import build_decile_table
-from fm_returnprediction_tpu_torch.reporting.figure1 import figure_frames, subset_sweep
+from fm_returnprediction_tpu_torch.reporting.figure1 import (
+    SubsetSweepEntry,
+    figure_frames,
+    subset_sweep,
+)
 from fm_returnprediction_tpu_torch.reporting.table1 import build_table_1
 from fm_returnprediction_tpu_torch.reporting.table2 import (
     format_table_2,
@@ -53,6 +57,7 @@ class PipelineResult:
     table_1: pd.DataFrame                   # (subset, {Avg, Std, N}) columns
     table_2: pd.DataFrame                   # formatted reference layout
     table_2_cells: Dict[Tuple[str, str], dict]  # coef/tstat/mean_r2/mean_n
+    sweep: Dict[str, SubsetSweepEntry]      # the figure/decile sweep's subsets
     figure_1: Optional[Dict[str, pd.DataFrame]]  # subset → rolling slopes
     decile_table: Optional[pd.DataFrame]
     serving_state: Optional[ServingState]
@@ -103,30 +108,31 @@ def run_pipeline(
 
     # The figure, the decile table and the serving state share one sweep:
     # one Gram contraction gives every subset's figure cross-sections.
-    cs_cache = {}
+    # Without the decile table only the figure's two subsets are swept.
+    sweep = {}
     if make_figure or make_deciles:
         with timer.stage("figure_cs"):
             needed = set(masks) if make_deciles else {"All stocks", "Large stocks"}
-            cs_cache = subset_sweep(panel, masks, [n for n in masks if n in needed],
-                                    make_deciles=make_deciles)
+            sweep = subset_sweep(panel, masks, [n for n in masks if n in needed],
+                                 make_deciles=make_deciles)
     figure_1 = None
     if make_figure:
         with timer.stage("figure_1"):
-            figure_1 = figure_frames(panel, masks, cs_cache)
+            figure_1 = figure_frames(panel, masks, sweep)
     decile_table = None
     if make_deciles:
         with timer.stage("decile_table"):
-            decile_table = build_decile_table(panel, masks, cs_cache=cs_cache)
+            decile_table = build_decile_table(panel, masks, cs_cache=sweep)
     serving_state = None
     if make_serving and "All stocks" in masks:
         with timer.stage("serving_state"):
-            entry = cs_cache.get("All stocks")
+            entry = sweep.get("All stocks")
             serving_state = build_serving_state_from_panel(
                 panel, masks["All stocks"],
                 cs=entry.cs if entry is not None else None)
     return PipelineResult(
         panel=panel, factors_dict=factors_dict, subset_masks=masks,
-        table_1=table_1, table_2=table_2, table_2_cells=cells,
+        table_1=table_1, table_2=table_2, table_2_cells=cells, sweep=sweep,
         figure_1=figure_1, decile_table=decile_table,
         serving_state=serving_state, stage_seconds=dict(timer.durations),
     )

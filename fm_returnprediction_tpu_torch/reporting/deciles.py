@@ -30,29 +30,29 @@ def build_decile_table(
     min_periods: int = 60,
     n_deciles: int = 10,
     min_obs: int = 50,
-    cs_cache: Optional[Dict] = None,
+    cs_cache: Optional[Dict[str, SubsetSweepEntry]] = None,
 ) -> pd.DataFrame:
     """Rows: Decile 1 (low Ê[r]) … Decile 10 (high), ``10-1 spread``,
     ``t(spread)``, ``Months``; index name ``"Portfolio"``. Columns: the
-    three size universes. ``cs_cache`` maps subset name → a
-    ``figure1.SubsetSweepEntry`` whose finished decile result is used when
-    its parameters match (else its cross-section is reused) or a
-    precomputed ``figure_cs`` result."""
+    three size universes. With ``cs_cache`` (``figure1.subset_sweep`` entries
+    for every universe) each column is its entry's finished decile result,
+    and parameters other than those the sweep ran with raise; without it
+    each universe's forecast and sorts are computed here."""
+    params = (window, min_periods, n_deciles, min_obs)
     cols = {}
     for subset in SUBSET_ORDER:
-        entry = (cs_cache or {}).get(subset)
-        if (isinstance(entry, SubsetSweepEntry) and entry.deciles is not None
-                and entry.decile_params == (window, min_periods, n_deciles, min_obs)):
+        if cs_cache is not None:
+            entry = cs_cache[subset]
+            if entry.decile_params != params:
+                raise ValueError(f"{subset}: the sweep's decile parameters "
+                                 f"{entry.decile_params} are not {params}")
             res = entry.deciles
         else:
             y = panel.var(return_col)
             x = panel.select(list(FIGURE1_VARS.keys()))
-            cs = entry.cs if isinstance(entry, SubsetSweepEntry) else entry
-            if cs is not None:
-                cs = type(cs)(*(torch.as_tensor(a, device=y.device) for a in cs))
             mask = torch.as_tensor(subset_masks[subset], device=y.device)
             fr = rolling_er_forecast(y, x, mask, window=window,
-                                     min_periods=min_periods, cs=cs)
+                                     min_periods=min_periods)
             res = decile_sorts(fr.er, fr.er_valid, y, n_deciles=n_deciles,
                                min_obs=min_obs)
         mean_returns = np.asarray(torch.as_tensor(res.mean_returns).cpu())

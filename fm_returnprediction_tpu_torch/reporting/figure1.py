@@ -56,8 +56,8 @@ class SubsetSweepEntry(NamedTuple):
     rolled: np.ndarray           # (T, 5) rolling slope means, calendar-placed
     deciles: Optional[DecileSortResult]
     decile_params: Optional[Tuple[int, int, int, int]] = None
-    # (window, min_periods, n_deciles, min_obs): consumers check it against
-    # their own arguments before trusting `deciles` (build_decile_table does)
+    # (window, min_periods, n_deciles, min_obs) of `deciles`;
+    # build_decile_table raises when they differ from its own
 
 
 def subset_sweep(
@@ -136,15 +136,14 @@ def figure_frames(panel: DensePanel, subset_masks: Dict[str, torch.Tensor],
                   cs_cache: Optional[Dict[str, SubsetSweepEntry]] = None
                   ) -> Dict[str, pd.DataFrame]:
     """The rolling-slope frames Figure 1 plots: subset → ``rolling_slopes``
-    frame for "All stocks" and "Large stocks" (where present), reusing
-    ``subset_sweep`` entries."""
+    frame for "All stocks" and "Large stocks" (where present), from the
+    ``subset_sweep`` entries when given, else computed here."""
     frames = {}
     for subset_name in ("All stocks", "Large stocks"):
         if subset_name in subset_masks:
-            entry = (cs_cache or {}).get(subset_name)
-            cs, rolled = entry, None
-            if isinstance(entry, SubsetSweepEntry):
-                cs, rolled = entry.cs, entry.rolled
+            cs = rolled = None
+            if cs_cache is not None:
+                cs, rolled = cs_cache[subset_name].cs, cs_cache[subset_name].rolled
             frames[subset_name] = rolling_slopes(
                 panel, subset_masks[subset_name], cs=cs, rolled=rolled)
     return frames
@@ -153,13 +152,11 @@ def figure_frames(panel: DensePanel, subset_masks: Dict[str, torch.Tensor],
 def create_figure_1(
     panel: DensePanel,
     subset_masks: Dict[str, torch.Tensor],
-    save_plot: bool = False,
-    output_dir=None,
     cs_cache: Optional[Dict[str, SubsetSweepEntry]] = None,
 ) -> Tuple[object, object]:
     """Two stacked panels (All / Large stocks) of 10-year rolling slopes.
     Needs matplotlib, imported here; ``run_pipeline`` computes the frames
-    (``figure_frames``) and does not draw."""
+    (``figure_frames``) and does not draw. ``fig.savefig`` writes a file."""
     import matplotlib
 
     matplotlib.use("Agg")
@@ -183,10 +180,4 @@ def create_figure_1(
         ax.margins(x=0)
     axes[1].set_xlabel("Month")
     fig.tight_layout()
-
-    if save_plot and output_dir is not None:
-        from pathlib import Path
-
-        Path(output_dir).mkdir(parents=True, exist_ok=True)
-        fig.savefig(Path(output_dir) / "figure_1.pdf", bbox_inches="tight")
     return fig, axes

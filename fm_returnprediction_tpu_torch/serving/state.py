@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from fm_returnprediction_tpu_torch.models.forecast import fit_forecast_artifacts
+from fm_returnprediction_tpu_torch.models.lewellen import FIGURE1_VARS
 from fm_returnprediction_tpu_torch.ops.ols import CSRegressionResult
 from fm_returnprediction_tpu_torch.utils.cache import load_array_bundle, save_array_bundle
 
@@ -199,8 +200,6 @@ def build_serving_state_from_panel(
     """Fit the serving state from a pipeline ``DensePanel``: the figure's
     5-variable model over one subset, matching the decile-table forecast
     route cell for cell."""
-    from fm_returnprediction_tpu_torch.models.lewellen import FIGURE1_VARS
-
     if xvars is None:
         xvars = list(FIGURE1_VARS.keys())
     return build_serving_state(

@@ -16,6 +16,9 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from fm_returnprediction_tpu_torch.models.lewellen import FIGURE1_VARS, MODELS, model_columns
+from fm_returnprediction_tpu_torch.panel.subsets import SUBSET_ORDER
+
 __all__ = ["Spec", "SpecGrid", "table2_grid", "figure1_grid"]
 
 
@@ -122,9 +125,6 @@ def table2_grid(
 ) -> SpecGrid:
     """Table 2's cells, model-major: ``specs[mi * len(subsets) + si]`` is
     (model mi, subset si)."""
-    from fm_returnprediction_tpu_torch.models.lewellen import MODELS, model_columns
-    from fm_returnprediction_tpu_torch.panel.subsets import SUBSET_ORDER
-
     models = models if models is not None else MODELS
     subsets = list(subsets) if subsets is not None else list(SUBSET_ORDER)
     specs = []
@@ -143,8 +143,6 @@ def figure1_grid(
     weight: str = "reference",
 ) -> SpecGrid:
     """The Figure-1 family: the figure's own 5-variable set per universe."""
-    from fm_returnprediction_tpu_torch.models.lewellen import FIGURE1_VARS
-
     cols = tuple(FIGURE1_VARS.keys())
     specs = tuple(Spec(f"figure1 | {name}", cols, name) for name in subsets)
     return SpecGrid(specs, nw_lags=nw_lags, min_months=min_months,

@@ -72,14 +72,14 @@ def test_rolling_dispatch_launches_the_kernel(cuda):
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_rolling_mean_w120_on_figure_series(cuda, dtype):
     """Figure 1's roll: mean w=120 mp=60 on a (600, 15) series (3 subsets ×
-    5 slopes) through the dispatch, counted under "mean/w=120"."""
+    5 slopes) through the dispatch, counted under "mean/w=120,600x15"."""
     rng = np.random.default_rng(4)
     x = 0.01 * rng.standard_normal((600, 15))
     x[rng.random(x.shape) < 0.1] = np.nan
     xt = torch.tensor(x, dtype=dtype, device=cuda)
-    before = rolling.rolling_reduce_cuda.launches_by_key.get("mean/w=120", 0)
+    before = rolling.rolling_reduce_cuda.launches_by_key.get("mean/w=120,600x15", 0)
     got = rolling.rolling_mean(xt, 120, 60)
-    assert rolling.rolling_reduce_cuda.launches_by_key["mean/w=120"] == before + 1
+    assert rolling.rolling_reduce_cuda.launches_by_key["mean/w=120,600x15"] == before + 1
     want = rolling.rolling_reduce_plain(xt, 120, 60, "mean")
     rtol, atol = (1e-10, 1e-16) if dtype == torch.float64 else (1e-4, 1e-9)
     torch.testing.assert_close(got, want, rtol=rtol, atol=atol, equal_nan=True)

@@ -168,6 +168,40 @@ def test_serving_state_matches(jax_run, port_run):
         np.testing.assert_allclose(a, b, rtol=1e-10, atol=0, err_msg=name)
 
 
+def test_sweep_covers_every_universe(port_run):
+    assert list(port_run.sweep) == list(port_run.subset_masks)
+    for entry in port_run.sweep.values():
+        assert entry.decile_params == (120, 60, 10, 50)
+        assert entry.deciles is not None
+
+
+@pytest.mark.parametrize("make_figure", [True, False])
+def test_pipeline_without_deciles(jax_run, port_run, make_figure):
+    """Without the decile table the sweep covers only the figure's two
+    universes, or none when the figure is off too (the serving state then
+    fits its own cross-section); what runs agrees with the full run."""
+    base, daily = prepared_from_numpy(jax_run["base"], jax_run["daily"])
+    res = run_pipeline(base, daily, device="cpu", dtype=torch.float64,
+                       make_figure=make_figure, make_deciles=False)
+    assert res.decile_table is None and "decile_table" not in res.stage_seconds
+    if make_figure:
+        assert set(res.sweep) == {"All stocks", "Large stocks"}
+        assert all(entry.deciles is None for entry in res.sweep.values())
+        assert list(res.figure_1) == list(port_run.figure_1)
+        for name, want in port_run.figure_1.items():
+            assert res.figure_1[name].index.equals(want.index), name
+            _assert_frames_close(res.figure_1[name], want, 1e-12)
+    else:
+        assert res.sweep == {} and res.figure_1 is None
+        assert "figure_cs" not in res.stage_seconds
+    got, want = res.serving_state, port_run.serving_state
+    for name in ("coef", "slopes_bar", "intercept_bar"):
+        np.testing.assert_allclose(getattr(got, name), getattr(want, name), rtol=1e-8,
+                                   atol=0, equal_nan=True, err_msg=name)
+    for name in ("n_obs", "month_valid", "x_lo", "x_hi"):
+        np.testing.assert_array_equal(getattr(got, name), getattr(want, name), err_msg=name)
+
+
 def test_stage_times_are_recorded(port_run):
     assert {"build_panel", "daily_kernels", "characteristics_winsorize",
             "subset_masks", "table_1", "table_2", "figure_cs", "figure_1",

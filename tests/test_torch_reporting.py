@@ -275,6 +275,12 @@ def test_decile_table_matches_jax(jax_side, port_side):
            1e-8, "deciles, self-contained")
 
 
+def test_decile_table_refuses_other_parameters_than_the_sweeps(port_side):
+    with pytest.raises(ValueError, match="decile parameters"):
+        build_decile_table(port_side["panel"], port_side["masks"], min_obs=40,
+                           cs_cache=port_side["sweep"])
+
+
 # -- serving state --------------------------------------------------------
 
 
