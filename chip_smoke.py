@@ -22,7 +22,9 @@ Phases (any failure exits non-zero without the final line):
    sweep, Figure 1's rolling slopes, the decile table, the serving state),
    with every kernel launch counter set to 0 just before and read just
    after;
-5. the same path at a mid size in float64 on the card and on the CPU (plain
+5. K1 std at every daily-strip shape the main path launched it at (read
+   from its counters), checked and timed, with the sum of launches × time;
+6. the same path at a mid size in float64 on the card and on the CPU (plain
    versions): Table 2's per-cell numbers (a coefficient at
    ``|d| <= 1e-8 * max(|b|, nw_se)``, its t-stat at ``1e-8 * max(|t|, 1)``,
    the rest at rtol 1e-8), Table 1, the decile table, the figure frames and
@@ -40,6 +42,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -182,12 +185,35 @@ def check_rolling(x, window: int, min_periods: int, kind: str, rel: float,
     return max_abs
 
 
+def k1_row(x, window: int, mp: int, kind: str, err: float, label: str) -> dict:
+    """Time the rolling kernel and its plain version on ``x``; the kernel
+    table row (launches filled in from the main path's counters)."""
+    t, n = x.shape
+    ms = time_ms(lambda: rolling_reduce_cuda(x, window, mp, kind))
+    plain_ms = time_ms(lambda: rolling_reduce_plain(x, window, mp, kind))
+    b_ms, b_by = bound(2 * x.numel() * x.element_size(), 12 * x.numel(), x.dtype)
+    log(f"K1 {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by})")
+    return dict(name=f"rolling_reduce[{kind},w={window}] {t}x{n} f32",
+                key=f"{kind}/w={window},{t}x{n}", route="cuda", source=K1_SOURCE,
+                replaces=K1_REPLACES, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
 def k1_phase(gen, timed: bool):
     cases = [  # (label, T, N, kind, window, min_periods, scale, nan_frac, timed)
         ("sum w=12 mp=1 (dy)", 600, 22000, "sum", 12, 1, 1.0, 0.02, True),
         ("sum w=24 mp=24 (log_return_13_36)", 600, 22000, "sum", 24, 24, 0.1, 0.02, True),
         ("mean w=12 mp=12 (turnover)", 600, 22000, "mean", 12, 12, 1.0, 0.02, False),
-        ("std w=252 mp=100 (daily vol)", 13312, 2432, "std", 252, 100, 0.02, 0.005, True),
+        # the daily strips are timed one by one after the main path, at the
+        # shapes its counters show (strip_phase)
+        ("std w=252 mp=100 (daily vol)", 13312, 2432, "std", 252, 100, 0.02, 0.005, False),
+        # several chunks with window = chunk/2: every warm-up reaches back a
+        # whole window into the chunk before
+        ("std w=300 mp=2 (warm-up of a whole window)", 3000, 2432, "std", 300, 2, 0.02, 0.005,
+         False),
+        ("mean w=300 mp=2 (warm-up of a whole window)", 3000, 2432, "mean", 300, 2, 0.02, 0.005,
+         False),
         # Figure 1's slope means of 3 subsets × 5 variables in one call, and
         # one subset's lagged [intercept, 5 slopes] forecast means
         ("mean w=120 mp=60 (figure slopes)", 600, 15, "mean", 120, 60, 0.01, 0.1, True),
@@ -200,20 +226,39 @@ def k1_phase(gen, timed: bool):
             tag = f"{label} {t}x{n} {str(dtype)[6:]}"
             err = check_rolling(x, window, mp, kind, rel, tag)
             if dtype == torch.float32 and timed and on_path:
-                ms = time_ms(lambda: rolling_reduce_cuda(x, window, mp, kind))
-                plain_ms = time_ms(lambda: rolling_reduce_plain(x, window, mp, kind))
-                b_ms, b_by = bound(2 * x.numel() * x.element_size(),
-                                   12 * x.numel(), dtype)
-                log(f"K1 {tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                    f"bound {b_ms:.4f} ms ({b_by})")
-                rows.append(dict(name=f"rolling_reduce[{kind},w={window}] {t}x{n} f32",
-                                 key=f"{kind}/w={window},{t}x{n}", route="cuda",
-                                 source=K1_SOURCE,
-                                 replaces=K1_REPLACES, max_abs_err=err, ms=ms,
-                                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                                 library_ms=None))
+                rows.append(k1_row(x, window, mp, kind, err, tag))
             del x
     torch.cuda.empty_cache()
+    return rows
+
+
+STRIP_KEY = re.compile(r"^std/w=(\d+),(\d+)x(\d+)$")
+
+
+def strip_phase(gen, by_shape: dict, mp: int = 100):
+    """K1 std at every daily-strip shape the main path launched it at (read
+    from its counters, so another seed's strip heights cannot break the
+    launch check): checked against the plain version, timed, and summed as
+    launches × time over the main path."""
+    strips = []
+    for key, count in by_shape.items():
+        match = STRIP_KEY.match(key)
+        if match:
+            window, t, n = (int(v) for v in match.groups())
+            strips.append((t, n, window, count))
+    rows, total_ms, launches = [], 0.0, 0
+    for t, n, window, count in sorted(strips, reverse=True):
+        x = rolling_input(t, n, torch.float32, gen, 0.02, 0.005)
+        label = f"std w={window} mp={mp} (daily strip) {t}x{n} float32"
+        err = check_rolling(x, window, mp, "std", 1e-4, label)
+        row = k1_row(x, window, mp, "std", err, label)
+        total_ms += count * row["ms"]
+        launches += count
+        rows.append(row)
+        del x
+    torch.cuda.empty_cache()
+    log(f"K1 std on the main path's daily strips: {launches} launches, "
+        f"sum of launches × kernel time {total_ms:.4f} ms")
     return rows
 
 
@@ -296,8 +341,8 @@ def check_gram(t, n, p, dtype, rel, gen, timed, figure=False):
         out_bytes = s * t * (p + 2) ** 2 * x.element_size()
         b_ms, b_by = bound(in_bytes + out_bytes, 2.0 * s * t * n * tri, dtype)
         log(f"K2 {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"library bmm {library_ms:.4f} ms (|gram diff| {lib_err:.3e}), "
-            f"bound {b_ms:.4f} ms ({b_by})")
+            f"library bmm {library_ms:.4f} ms (|gram diff| {lib_err:.3e}; "
+            f"kernel/bmm {ms / library_ms:.3f}), bound {b_ms:.4f} ms ({b_by})")
         row = dict(name=f"gram_contract T={t} N={n} P={p} S={s} f32",
                    key=f"gram/P={p},S={s}", route="cuda", source=K2_SOURCE,
                    replaces=K2_REPLACES, max_abs_err=max_abs, ms=ms,
@@ -625,6 +670,7 @@ def main(argv=None) -> int:
         return 0
 
     counts = main_path(args.seed)
+    rows += strip_phase(gen, counts)
     card_vs_cpu(args.seed)
 
     for row in rows:

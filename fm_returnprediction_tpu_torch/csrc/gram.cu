@@ -14,143 +14,341 @@
 //
 // What bounds it on an H100: at Table 2's shape (T=600, N=22,000, P=14,
 // S=9) it reads ~0.9 GB (x, y and the uint8 mask) and does
-// S*T*N*QE*(QE+1)/2 ~ 1.6e10 multiply-adds, so in plain FP32 the
-// arithmetic (~0.5 ms at 67 TFLOP/s) outweighs the bytes (~0.27 ms at
-// 3.35 TB/s). Tensor cores are not used: TF32 would break the 1e-6 parity
-// pin of the float route.
+// S*T*N*QE*(QE+1)/2 ~ 1.6e10 multiply-adds, so in plain FP32 the arithmetic
+// (~0.5 ms at 67 TFLOP/s) outweighs the bytes (~0.27 ms at 3.35 TB/s). At
+// the figure grid's shape (P=5, S=3) the bytes bound it (~0.1 ms).
 //
-// Design: one block per month t walks the firm axis in tiles of BN firms.
-// x is read in its native (T, N, P) layout, where a tile is BN*P contiguous
-// values (one coalesced sweep). The block builds the augmented rows
-// [1 | x - c_t | y] and every spec's 0/1 weight in shared memory, so the
-// panel is read once for all S specs and no (S, T, N) float weight tensor
-// exists in device memory. Each thread owns up to kMaxPerThread fixed
-// (s, i, j) entries of the upper triangles and keeps them in registers; the
-// block writes each block once, mirroring the triangle. Firms are summed in
-// two levels, a per-tile partial and a running total, which keeps the float
-// rounding near that of the chunked einsum. No atomics: the result is
-// reproducible and the counts are exact.
+// Design. One block per month t walks the firm axis in tiles; x is read in
+// its native (T, N, P) layout, where a tile is tile*P contiguous values.
+// - Register tiles of the output: the (QE x QE) upper triangle is padded to
+//   a multiple of 4 and cut into 4x4 tiles (10 at P=14, 3 at P=5). A thread
+//   owns one (spec, tile) pair and keeps its 16 sums in registers. Per firm
+//   it reads 4 + 4 row values as two 16-byte shared-memory loads and the
+//   spec's weight as one, forms w*a_i once and does 16 FMAs: 3 loads per 16
+//   FMAs, where one thread per output entry would spend 3 loads per FMA.
+//   The lanes of a warp read one firm's row, so those loads are broadcasts,
+//   free of bank conflicts.
+// - Firm groups: the (spec, tile) owners are replicated G times so that a
+//   block has up to 192 threads; group g sums firms g, g+G, ... of each
+//   tile. Blocks are kept small (float: <= 192 threads, <= 64 registers,
+//   <= 44 KB of shared memory) so that five share an SM and all 600 months
+//   of the main path are resident at once: no tail wave, and one block's
+//   barriers overlap the others' arithmetic. Each thread adds a per-tile partial into a running
+//   total (two-level sum), and at the end the groups' totals are added in
+//   group order through shared memory: no atomics, so the result is the same
+//   from run to run and the counts are exact.
+// - Asynchronous double-buffered tiles: the next tile of x, y and the
+//   block's valid rows is copied with cp.async in 16-byte chunks (a ragged
+//   first or last chunk byte by byte) while this tile is summed.
+// - The build is spread over the block: each thread keeps one column of
+//   the centred augmented rows for a stride of firms (row stride QE rounded
+//   up to 4, so a warp writes consecutive words: no bank conflict), and one
+//   thread per firm finds the firm's non-finite columns once, as a bit mask,
+//   then writes every spec's 0/1 weight from the staged valid byte: a
+//   (firm, spec) weight costs one byte load and one mask test.
+// - When S * tiles exceeds one block's threads (large P or S, not on the
+//   main path), the (spec, tile) pairs are split over gridDim.y blocks,
+//   each staging only the valid rows of its own specs.
+// Tensor cores are not used: TF32 keeps ~10 mantissa bits and would break
+// the 1e-5 (f32) parity with the plain version. A split-TF32 scheme is left
+// for later work, if this CUDA-core design stays above 3x its bound.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
-constexpr int kMaxPerThread = 8;
-constexpr int kMaxTile = 128;
-constexpr size_t kSmemLimit = 48 * 1024;
+constexpr long long kMaxEntries = 8192;  // S * QE * (QE + 1) / 2
+constexpr int kMaxP = 32;
+constexpr int kMaxTile = 1024;
+constexpr int kMinTile = 16;
+constexpr size_t kSmemMax = 227 * 1024;
+
+// Threads a block has at most, blocks that must fit on one SM (registers:
+// 64 a thread in float) and the shared memory each may take. In float five
+// blocks of ~180 threads fit on an SM, so all 600 months of the main path
+// are resident at once: no tail wave, and one block's barriers overlap the
+// others' arithmetic.
+template <typename T>
+struct Limits;
+template <>
+struct Limits<float> {
+  static constexpr int kThreads = 192;
+  static constexpr int kMinBlocks = 5;
+  static constexpr size_t kSmemBudget = 44 * 1024;
+};
+template <>
+struct Limits<double> {
+  static constexpr int kThreads = 192;
+  static constexpr int kMinBlocks = 2;
+  static constexpr size_t kSmemBudget = 112 * 1024;
+};
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__host__ __device__ __forceinline__ size_t up16(size_t b) {
+  return (b + 15) & ~size_t(15);
+}
+
+// Byte offsets of one block's dynamic shared memory: two stages of raw
+// tiles (x, y, one valid row per spec of the block), then the augmented
+// rows and the weights.
+struct Layout {
+  int qp;              // row stride: QE rounded up to 4
+  size_t x_bytes, y_bytes, v_row, stage;
+  size_t rows_off, w_off, total;
+};
 
 template <typename T>
-__global__ void gram_kernel(const T* __restrict__ x, const T* __restrict__ y,
-                            const unsigned char* __restrict__ valid,
-                            const unsigned int* __restrict__ sel_bits,
-                            const T* __restrict__ center, T* __restrict__ out,
-                            int t_len, long long n, int p, int s_specs,
-                            int tile) {
-  extern __shared__ unsigned char smem_raw[];
-  const int qe = p + 2;
-  T* rows = reinterpret_cast<T*>(smem_raw);  // tile x qe augmented rows
-  T* wts = rows + (size_t)tile * qe;         // tile x s_specs weights
-  const int t = blockIdx.x;
-  const int tri = qe * (qe + 1) / 2;
-  const int n_entries = s_specs * tri;
+__host__ __device__ Layout make_layout(int tile, int p, int nsb) {
+  Layout L;
+  L.qp = ((p + 2 + 3) / 4) * 4;
+  // each raw row keeps room for a 16-byte misalignment of its source
+  L.x_bytes = up16((size_t)tile * p * sizeof(T) + 16);
+  L.y_bytes = up16((size_t)tile * sizeof(T) + 16);
+  L.v_row = up16((size_t)tile + 16);
+  L.stage = L.x_bytes + L.y_bytes + L.v_row * nsb;
+  L.rows_off = 2 * L.stage;
+  L.w_off = L.rows_off + up16((size_t)tile * L.qp * sizeof(T));
+  L.total = L.w_off + up16((size_t)tile * nsb * sizeof(T));
+  return L;
+}
 
-  // this thread's fixed (s, i, j) entries, i <= j
-  int es[kMaxPerThread], ei[kMaxPerThread], ej[kMaxPerThread];
-  T acc[kMaxPerThread];
-  int mine = 0;
-#pragma unroll
-  for (int k = 0; k < kMaxPerThread; ++k) {
-    const int e = threadIdx.x + k * blockDim.x;
-    es[k] = 0;
-    ei[k] = 0;
-    ej[k] = 0;
-    acc[k] = T(0);
-    if (e < n_entries) {
-      int r = e % tri;
-      int i = 0;
-      while (r >= qe - i) {
-        r -= qe - i;
-        ++i;
-      }
-      es[k] = e / tri;
-      ei[k] = i;
-      ej[k] = i + r;
-      mine = k + 1;
-    }
-  }
-
-  const T* ct = center + (size_t)t * p;
-  for (long long n0 = 0; n0 < n; n0 += tile) {
-    const int cnt = (n - n0 < tile) ? (int)(n - n0) : tile;
-    // 1. raw x tile: cnt * p contiguous values, coalesced
-    const T* xt = x + ((long long)t * n + n0) * p;
-    for (int idx = threadIdx.x; idx < cnt * p; idx += blockDim.x) {
-      const int f = idx / p;
-      rows[f * qe + 1 + (idx - f * p)] = xt[idx];
-    }
-    __syncthreads();
-    // 2. one thread per firm: validity bits, centering, y and the weights
-    for (int f = threadIdx.x; f < tile; f += blockDim.x) {
-      T* row = rows + f * qe;
-      T* wf = wts + f * s_specs;
-      if (f < cnt) {
-        unsigned int bad = 0u;
-        for (int c = 0; c < p; ++c) {
-          const T v = row[1 + c];
-          const bool fin = isfinite(v);
-          if (!fin) bad |= 1u << c;
-          row[1 + c] = fin ? v - ct[c] : T(0);
-        }
-        const long long tn = (long long)t * n + n0 + f;
-        const T yv = y[tn];
-        const bool finy = isfinite(yv);
-        row[0] = T(1);
-        row[qe - 1] = finy ? yv : T(0);
-        for (int s = 0; s < s_specs; ++s) {
-          const bool ok = finy && valid[(long long)s * t_len * n + tn] != 0 &&
-                          (bad & sel_bits[s]) == 0u;
-          wf[s] = ok ? T(1) : T(0);
-        }
-      } else {
-        for (int c = 0; c < qe; ++c) row[c] = T(0);
-        for (int s = 0; s < s_specs; ++s) wf[s] = T(0);
-      }
-    }
-    __syncthreads();
-    // 3. this tile's partial sums, then into the running totals
-    T part[kMaxPerThread];
-#pragma unroll
-    for (int k = 0; k < kMaxPerThread; ++k) part[k] = T(0);
-    for (int f = 0; f < cnt; ++f) {
-      const T* row = rows + f * qe;
-      const T* wf = wts + f * s_specs;
-#pragma unroll
-      for (int k = 0; k < kMaxPerThread; ++k) {
-        if (k < mine) part[k] = fma(wf[es[k]] * row[ei[k]], row[ej[k]], part[k]);
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < kMaxPerThread; ++k) acc[k] += part[k];
-    __syncthreads();  // the next tile overwrites shared memory
-  }
-
-#pragma unroll
-  for (int k = 0; k < kMaxPerThread; ++k) {
-    if (k < mine) {
-      T* blk = out + ((size_t)es[k] * t_len + t) * qe * qe;
-      blk[ei[k] * qe + ej[k]] = acc[k];
-      blk[ej[k] * qe + ei[k]] = acc[k];
+// Stage `nrows` rows of `row_bytes` global bytes each (row r starts at
+// src + r * src_stride) into shared memory at dst + r * dst_stride. Row r's
+// byte e lands at dst + r * dst_stride + (address of its first byte & 15) + e:
+// whole 16-byte chunks go by cp.async, a ragged first or last chunk byte by
+// byte with plain loads.
+__device__ void stage_rows(unsigned char* dst, int dst_stride,
+                           const unsigned char* src, long long src_stride,
+                           int nrows, int row_bytes, int tid, int nthreads) {
+  const int cpr = row_bytes / 16 + 2;  // chunks a row can touch
+  for (int k = tid; k < nrows * cpr; k += nthreads) {
+    const int r = nrows == 1 ? 0 : k / cpr;
+    const int ch = k - r * cpr;
+    const unsigned char* lo = src + r * src_stride;
+    const unsigned char* hi = lo + row_bytes;
+    const uintptr_t a0 = reinterpret_cast<uintptr_t>(lo) & ~uintptr_t(15);
+    const unsigned char* c0 = reinterpret_cast<const unsigned char*>(a0) + ch * 16;
+    if (c0 >= hi) continue;
+    unsigned char* d = dst + r * dst_stride + ch * 16;
+    if (c0 >= lo && c0 + 16 <= hi) {
+      cp_async16(d, c0);
+    } else {
+      for (int b = 0; b < 16; ++b)
+        if (c0 + b >= lo && c0 + b < hi) d[b] = c0[b];
     }
   }
 }
 
-int threads_for(int n_entries) {
-  int threads = (n_entries + 3) / 4;  // aim for <= 4 entries a thread
-  threads = ((threads + 31) / 32) * 32;
-  if (threads < 64) threads = 64;
-  if (threads > 1024) threads = 1024;
-  return threads;
+__device__ __forceinline__ int misalign(const void* p) {
+  return (int)(reinterpret_cast<uintptr_t>(p) & 15);
+}
+
+__device__ __forceinline__ void load4(const float* p, float* v) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  v[0] = a.x;
+  v[1] = a.y;
+  v[2] = a.z;
+  v[3] = a.w;
+}
+__device__ __forceinline__ void load4(const double* p, double* v) {
+  const double2 a = *reinterpret_cast<const double2*>(p);
+  const double2 b = *reinterpret_cast<const double2*>(p + 2);
+  v[0] = a.x;
+  v[1] = a.y;
+  v[2] = b.x;
+  v[3] = b.y;
+}
+
+// (spec, 4x4 tile) of pair index `pr`: tiles of the upper triangle of an
+// nt4 x nt4 tile grid, row by row.
+__device__ __forceinline__ void decode_pair(int pr, int ntiles, int nt4,
+                                            int& s, int& ti, int& tj) {
+  s = pr / ntiles;
+  int r = pr - s * ntiles;
+  int i = 0;
+  while (r >= nt4 - i) {
+    r -= nt4 - i;
+    ++i;
+  }
+  ti = i;
+  tj = i + r;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(Limits<T>::kThreads, Limits<T>::kMinBlocks)
+gram_kernel(const T* __restrict__ x, const T* __restrict__ y,
+            const unsigned char* __restrict__ valid,
+            const unsigned int* __restrict__ sel_bits,
+            const T* __restrict__ center, T* __restrict__ out, int t_len,
+            long long n, int p, int s_specs, int tile, int pairs_per_block,
+            int groups) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int qe = p + 2;
+  const int nt4 = (qe + 3) / 4;
+  const int ntiles = nt4 * (nt4 + 1) / 2;
+  const int npairs = s_specs * ntiles;
+  const int t = blockIdx.x;
+  const int p0 = blockIdx.y * pairs_per_block;
+  const int p1 = min(p0 + pairs_per_block, npairs);
+  const int s_lo = p0 / ntiles;
+  const int nsb = (p1 - 1) / ntiles - s_lo + 1;
+  const Layout L = make_layout<T>(tile, p, nsb);
+  const int qp = L.qp;
+  T* rows = reinterpret_cast<T*>(smem + L.rows_off);
+  T* wts = reinterpret_cast<T*>(smem + L.w_off);
+  const int tid = threadIdx.x;
+  const int nthreads = blockDim.x;
+
+  // this thread's (spec, tile) pair and firm group
+  const int lp = tid % pairs_per_block;
+  const int g = tid / pairs_per_block;
+  const bool owner = p0 + lp < p1;
+  int sl = 0, ti = 0, tj = 0;
+  if (owner) {
+    decode_pair(p0 + lp, ntiles, nt4, sl, ti, tj);
+    sl -= s_lo;
+  }
+  // this thread's column of the augmented rows (firms rf0, rf0 + rstep, ...)
+  const int rc = tid % qp;
+  const int rf0 = tid / qp;
+  const int rstep = nthreads / qp;
+  const T shift = (rc >= 1 && rc <= p) ? center[(size_t)t * p + rc - 1] : T(0);
+
+  const long long n_tiles = (n + tile - 1) / tile;
+  const long long row_t = (long long)t * n;
+  const unsigned char* v_first = valid + ((long long)s_lo * t_len + t) * n;
+  const long long v_stride = (long long)t_len * n;
+  // tiles start at multiples of 16 firms, so each source's misalignment is
+  // the same for every tile of the month
+  const int x_mis = misalign(x + row_t * p);
+  const int y_mis = misalign(y + row_t);
+
+  auto stage_tile = [&](long long n0, int buf) {
+    const int cnt = (int)min((long long)tile, n - n0);
+    unsigned char* st = smem + buf * L.stage;
+    stage_rows(st, 0, reinterpret_cast<const unsigned char*>(x + (row_t + n0) * p), 0,
+               1, cnt * p * (int)sizeof(T), tid, nthreads);
+    stage_rows(st + L.x_bytes, 0,
+               reinterpret_cast<const unsigned char*>(y + row_t + n0), 0, 1,
+               cnt * (int)sizeof(T), tid, nthreads);
+    stage_rows(st + L.x_bytes + L.y_bytes, (int)L.v_row, v_first + n0, v_stride,
+               nsb, cnt, tid, nthreads);
+    cp_async_commit();
+  };
+
+  T acc[16];
+#pragma unroll
+  for (int e = 0; e < 16; ++e) acc[e] = T(0);
+
+  stage_tile(0, 0);
+  for (long long k = 0; k < n_tiles; ++k) {
+    const long long n0 = k * tile;
+    const int cnt = (int)min((long long)tile, n - n0);
+    const int buf = (int)(k & 1);
+    cp_async_wait_all();
+    __syncthreads();  // tile k staged; the previous tile's sums are done
+    if (k + 1 < n_tiles) stage_tile(n0 + tile, buf ^ 1);
+
+    const unsigned char* st = smem + buf * L.stage;
+    const T* xr = reinterpret_cast<const T*>(st + x_mis);
+    const T* yr = reinterpret_cast<const T*>(st + L.x_bytes + y_mis);
+    const unsigned char* vr = st + L.x_bytes + L.y_bytes;
+    // augmented rows [1 | x - c | y | 0 pad]: a fixed column per thread, so
+    // a warp writes consecutive words
+    if (rf0 < rstep) {
+      for (int f = rf0; f < cnt; f += rstep) {
+        T v = T(0);
+        if (rc == 0) {
+          v = T(1);
+        } else if (rc <= p) {
+          const T xv = xr[f * p + rc - 1];
+          v = isfinite(xv) ? xv - shift : T(0);
+        } else if (rc == qe - 1) {
+          const T yv = yr[f];
+          v = isfinite(yv) ? yv : T(0);
+        }
+        rows[f * qp + rc] = v;
+      }
+    }
+    // 0/1 weights: one thread per firm finds its non-finite columns once
+    // (bit 32: y) and writes every spec's weight from the staged valid bytes
+    for (int f = tid; f < cnt; f += nthreads) {
+      unsigned long long bad = isfinite(yr[f]) ? 0ull : (1ull << 32);
+      const T* xf = xr + f * p;
+      for (int c = 0; c < p; ++c)
+        if (!isfinite(xf[c])) bad |= 1ull << c;
+      for (int s = 0; s < nsb; ++s) {
+        const unsigned char* vs = vr + s * L.v_row + misalign(v_first + s * v_stride);
+        const unsigned long long need = (unsigned long long)__ldg(sel_bits + s_lo + s) |
+                                        (1ull << 32);
+        wts[f * nsb + s] = (vs[f] != 0 && (bad & need) == 0ull) ? T(1) : T(0);
+      }
+    }
+    __syncthreads();
+
+    if (owner) {
+      T part[16];
+#pragma unroll
+      for (int e = 0; e < 16; ++e) part[e] = T(0);
+#pragma unroll 2
+      for (int f = g; f < cnt; f += groups) {
+        const T* row = rows + f * qp;
+        T ai[4], aj[4];
+        load4(row + 4 * ti, ai);
+        load4(row + 4 * tj, aj);
+        const T w = wts[f * nsb + sl];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const T wa = w * ai[i];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) part[4 * i + j] = fma(wa, aj[j], part[4 * i + j]);
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < 16; ++e) acc[e] += part[e];
+    }
+  }
+
+  // the groups' totals, added in group order
+  __syncthreads();
+  T* red = reinterpret_cast<T*>(smem);
+  if (owner) {
+#pragma unroll
+    for (int e = 0; e < 16; ++e)
+      red[((size_t)g * pairs_per_block + lp) * 16 + e] = acc[e];
+  }
+  __syncthreads();
+  for (int idx = tid; idx < (p1 - p0) * 16; idx += nthreads) {
+    const int lpi = idx / 16;
+    const int e = idx - lpi * 16;
+    T sum = T(0);
+    for (int gg = 0; gg < groups; ++gg)
+      sum += red[((size_t)gg * pairs_per_block + lpi) * 16 + e];
+    int s, a, b;
+    decode_pair(p0 + lpi, ntiles, nt4, s, a, b);
+    const int i = e / 4, j = e % 4;
+    const int r = 4 * a + i, c = 4 * b + j;
+    if (r < qe && c < qe && (a < b || i <= j)) {
+      T* blk = out + ((size_t)s * t_len + t) * qe * qe;
+      blk[r * qe + c] = sum;
+      blk[c * qe + r] = sum;
+    }
+  }
 }
 
 template <typename T>
@@ -158,18 +356,38 @@ int launch(const void* x, const void* y, const unsigned char* valid,
            const unsigned int* sel_bits, const void* center, void* out,
            int t_len, long long n, int p, int s_specs, cudaStream_t stream) {
   const int qe = p + 2;
-  const int n_entries = s_specs * qe * (qe + 1) / 2;
-  const int threads = threads_for(n_entries);
-  if ((n_entries + threads - 1) / threads > kMaxPerThread) return -1;
+  if ((long long)s_specs * qe * (qe + 1) / 2 > kMaxEntries) return -1;
+  const int nt4 = (qe + 3) / 4;
+  const int ntiles = nt4 * (nt4 + 1) / 2;
+  const int npairs = s_specs * ntiles;
+  const int max_threads = Limits<T>::kThreads;
+  const int n_blocks_y = (npairs + max_threads - 1) / max_threads;
+  const int pb = (npairs + n_blocks_y - 1) / n_blocks_y;  // pairs a block
+  const int groups = max_threads / pb > 1 ? max_threads / pb : 1;
+  const int threads = groups * pb;
+  int nsb_max = 0;  // the most specs one block covers
+  for (int b = 0; b < n_blocks_y; ++b) {
+    const int lo = b * pb;
+    const int hi = std::min(lo + pb, npairs);
+    nsb_max = std::max(nsb_max, (hi - 1) / ntiles - lo / ntiles + 1);
+  }
+  const size_t red = (size_t)threads * 16 * sizeof(T);
   int tile = kMaxTile;
-  while (tile > 1 && (size_t)tile * (qe + s_specs) * sizeof(T) > kSmemLimit)
-    tile /= 2;
-  const size_t smem = (size_t)tile * (qe + s_specs) * sizeof(T);
-  if (smem > kSmemLimit) return -1;
-  gram_kernel<T><<<t_len, threads, smem, stream>>>(
+  auto smem_for = [&](int tl) {
+    const size_t s = make_layout<T>(tl, p, nsb_max).total;
+    return s > red ? s : red;
+  };
+  while (tile > kMinTile && smem_for(tile) > Limits<T>::kSmemBudget) tile /= 2;
+  const size_t smem = smem_for(tile);
+  if (smem > kSmemMax || n_blocks_y > 65535) return -1;
+  cudaError_t err = cudaFuncSetAttribute(
+      gram_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)t_len, (unsigned)n_blocks_y);
+  gram_kernel<T><<<grid, threads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(y), valid, sel_bits,
       static_cast<const T*>(center), static_cast<T*>(out), t_len, n, p,
-      s_specs, tile);
+      s_specs, tile, pb, groups);
   return (int)cudaGetLastError();
 }
 
@@ -177,14 +395,14 @@ int launch(const void* x, const void* y, const unsigned char* valid,
 
 // dtype_code: 0 float, 1 double. x (T, N, P), y (T, N), center (T, P) and
 // out (S, T, P+2, P+2) in that type; valid (S, T, N) uint8; sel_bits (S,)
-// uint32 with bit c set when spec s selects column c. P must be <= 32.
-// Returns 0 on success, the cudaError_t of the launch otherwise, or -1 for
-// arguments the kernel does not take.
+// uint32 with bit c set when spec s selects column c. P must be <= 32 and
+// S * (P+2)(P+3)/2 <= 8192. Returns 0 on success, the cudaError_t of the
+// launch otherwise, or -1 for arguments the kernel does not take.
 extern "C" int gram_contract(int dtype_code, const void* x, const void* y,
                              const void* valid, const void* sel_bits,
                              const void* center, void* out, int t_len,
                              long long n, int p, int s_specs, void* stream) {
-  if (t_len <= 0 || n <= 0 || p < 0 || p > 32 || s_specs <= 0) return -1;
+  if (t_len <= 0 || n <= 0 || p < 0 || p > kMaxP || s_specs <= 0) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const unsigned char* v = static_cast<const unsigned char*>(valid);
   const unsigned int* b = static_cast<const unsigned int*>(sel_bits);

@@ -10,7 +10,9 @@ versions, chosen by where the tensor lies:
 
 - a CUDA tensor goes to the hand-written kernel (``csrc/rolling.cu``,
   wrapper ``rolling_reduce_cuda``): one read of ``x``, one write of the
-  finished reduction;
+  finished reduction, the time axis cut into chunks of
+  ``rolling_chunk_rows(window)`` rows that each warm up from one window
+  before their first row (``rolling_chunk_plan``);
 - a CPU tensor takes the plain version, the cumulative-sum difference plus
   the ``finalize_*`` functions below (``rolling_reduce_plain``).
 
@@ -38,6 +40,8 @@ __all__ = [
     "finalize_mean",
     "finalize_std",
     "rolling_reduce_plain",
+    "rolling_chunk_rows",
+    "rolling_chunk_plan",
     "rolling_reduce_cuda",
     "rolling_sum",
     "rolling_mean",
@@ -49,6 +53,7 @@ __all__ = [
 ]
 
 _KINDS = {"sum": 0, "mean": 1, "std": 2}
+_MIN_CHUNK_ROWS = 512
 _DTYPE_CODES = {torch.float32: 0, torch.float64: 1}
 
 
@@ -124,6 +129,23 @@ def _check_kernel_input(x: torch.Tensor, what: str) -> None:
         raise ValueError(f"{what} needs a contiguous tensor")
 
 
+def rolling_chunk_rows(window: int) -> int:
+    """Rows of the time axis one block of the rolling kernel writes: at
+    least two windows, so a chunk's warm-up (at most one window) is at most
+    half its walk, and at least 512 rows. It depends on the window alone,
+    never on the card, so a result does not depend on the SM count."""
+    return max(2 * int(window), _MIN_CHUNK_ROWS)
+
+
+def rolling_chunk_plan(t_len: int, window: int):
+    """The rolling kernel's chunks as ``(anchor, start, stop)`` triples: the
+    block for rows ``[start, stop)`` starts both running triples from zero at
+    ``anchor = max(start - window, 0)`` and writes from ``start`` on."""
+    chunk = rolling_chunk_rows(window)
+    return [(max(start - window, 0), start, min(start + chunk, t_len))
+            for start in range(0, t_len, chunk)]
+
+
 def rolling_reduce_cuda(x: torch.Tensor, window: int, min_periods: int,
                         kind: str) -> torch.Tensor:
     """Launch the rolling kernel on a contiguous (T, N) float32/float64
@@ -139,12 +161,14 @@ def rolling_reduce_cuda(x: torch.Tensor, window: int, min_periods: int,
     fn = kernel_function("rolling", "rolling_reduce", [
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
-        ctypes.c_longlong, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
     ])
+    chunk = rolling_chunk_rows(window)
     with torch.cuda.device(x.device):
         status = fn(_DTYPE_CODES[x.dtype], _KINDS[kind], x.data_ptr(),
                     out.data_ptr(), x.shape[0], x.shape[1], int(window),
-                    int(min_periods), torch.cuda.current_stream().cuda_stream)
+                    int(min_periods), chunk,
+                    torch.cuda.current_stream().cuda_stream)
     check_status("rolling", status)
     rolling_reduce_cuda.launches += 1
     key = f"{kind}/w={window},{x.shape[0]}x{x.shape[1]}"

@@ -15,8 +15,9 @@ and the rest is ignored by the padded solve (``specgrid.solve``).
 tensors lie:
 
 - CUDA tensors go to the hand-written kernel (``csrc/gram.cu``, wrapper
-  ``gram_contract_cuda``): one block per month reads the panel once for all
-  specs and builds the weights in shared memory;
+  ``gram_contract_cuda``): one block per month streams the panel through
+  shared memory once for all specs, builds the weights there, and sums
+  4×4 register tiles of every spec's block;
 - CPU tensors take the plain version, a chunked masked einsum over firm
   slices (``contract_spec_grams_plain``).
 
@@ -43,6 +44,7 @@ __all__ = [
 ]
 
 _DTYPE_CODES = {torch.float32: 0, torch.float64: 1}
+GRAM_MAX_ENTRIES = 8192  # upper-triangle entries of all specs (csrc/gram.cu)
 
 
 class SpecGramStats(NamedTuple):
@@ -111,6 +113,9 @@ def gram_contract_cuda(y: torch.Tensor, x: torch.Tensor, valid: torch.Tensor,
         raise ValueError("gram kernel: inconsistent shapes")
     if p > 32:
         raise ValueError(f"gram kernel takes at most 32 predictor columns, got {p}")
+    if s * (p + 2) * (p + 3) // 2 > GRAM_MAX_ENTRIES:
+        raise ValueError(f"gram kernel takes at most {GRAM_MAX_ENTRIES} block entries "
+                         f"S·(P+2)(P+3)/2, got S={s}, P={p}")
     out = torch.zeros((s, t, p + 2, p + 2), dtype=x.dtype, device=x.device)
     if t == 0 or n == 0 or s == 0:
         return out

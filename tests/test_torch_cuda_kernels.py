@@ -60,6 +60,44 @@ def test_rolling_kernel_f32_close_to_f64(cuda):
     np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-5, equal_nan=True)
 
 
+def _rolling_limit(x64, kind, window, eps):
+    """``4·eps·C`` per element, C the column's cumulative magnitude (the
+    variance-level form for std), as ``chip_smoke.rolling_tolerance``."""
+    fin = torch.isfinite(x64)
+    xz = torch.where(fin, x64, torch.zeros_like(x64))
+    c1 = xz.abs().sum(0)[None, :]
+    c2 = (xz * xz).sum(0)[None, :]
+    cnt = rolling.rolling_reduce_plain(fin.double(), window, 0, "sum").clamp_min(1)
+    if kind == "sum":
+        return 4 * eps * c1
+    if kind == "mean":
+        return 4 * eps * c1 / cnt
+    w1 = rolling.rolling_reduce_plain(x64, window, 0, "sum").abs()
+    return torch.sqrt(4 * eps * (c2 + 2 * w1 * c1 / cnt) / (cnt - 1).clamp_min(1))
+
+
+@pytest.mark.parametrize("kind", ["sum", "mean", "std"])
+@pytest.mark.parametrize("t,n", [(3000, 257), (1024, 2432)])
+def test_rolling_kernel_chunks_match_plain(cuda, kind, t, n):
+    """Several chunks of the time axis (w=252: 512-row chunks, each warming
+    up from 252 rows before its first), f64 at rtol 1e-10 and f32 at
+    1e-4·|p| + 4·eps·C, identical NaN patterns."""
+    assert len(rolling.rolling_chunk_plan(t, 252)) > 1
+    x64 = _rolling_input(torch.float64, cuda, t=t, n=n, seed=5)
+    want = rolling.rolling_reduce_plain(x64, 252, 100, kind)
+    got = rolling.rolling_reduce_cuda(x64, 252, 100, kind)
+    np.testing.assert_array_equal(torch.isnan(got).cpu().numpy(),
+                                  torch.isnan(want).cpu().numpy())
+    torch.testing.assert_close(got, want, rtol=1e-10, atol=1e-14, equal_nan=True)
+    got32 = rolling.rolling_reduce_cuda(x64.float(), 252, 100, kind).double()
+    np.testing.assert_array_equal(torch.isnan(got32).cpu().numpy(),
+                                  torch.isnan(want).cpu().numpy())
+    limit = 1e-4 * want.abs() + _rolling_limit(x64, kind, 252,
+                                               torch.finfo(torch.float32).eps)
+    fin = torch.isfinite(want)
+    assert bool(((got32 - want).abs()[fin] <= limit[fin]).all())
+
+
 def test_rolling_dispatch_launches_the_kernel(cuda):
     x = _rolling_input(torch.float64, cuda)
     before = rolling.rolling_reduce_cuda.launches
@@ -122,11 +160,12 @@ def _gram_args(dtype, cuda, t=11, n=700, p=6, s=5, seed=1):
     rng = np.random.default_rng(seed)
     x = rng.standard_normal((t, n, p))
     x[rng.random(x.shape) < 0.1] = np.nan
-    x[:, 7, 2] = np.nan
+    if n > 7 and p > 2:
+        x[:, 7, 2] = np.nan
     y = rng.standard_normal((t, n))
     y[rng.random(y.shape) < 0.15] = np.nan
     universes = rng.random((2, t, n)) > 0.3
-    universes[0, 3] = False
+    universes[0, min(3, t - 1)] = False
     uidx = np.arange(s) % 2
     col_sel = rng.random((s, p)) > 0.4
     col_sel[0] = [True] + [False] * (p - 1)
@@ -155,6 +194,40 @@ def test_gram_kernel_matches_plain(cuda, dtype, rtol, p, s):
     for g, w in zip(got[:5], want):
         s = scale.reshape(scale.shape + (1,) * (g.dim() - 2))
         assert bool(((g - w).abs() <= rtol * s).all())
+
+
+@pytest.mark.parametrize("t,n,p,s", [
+    (5, 1000, 6, 5),     # N not a multiple of any tile
+    (4, 5, 6, 5),        # N below one tile
+    (1, 700, 6, 5),      # one month
+    (6, 700, 6, 1),      # one spec
+    (3, 300, 32, 7),     # 7·34·35/2 = 4,165 entries: pairs over two blocks
+    (3, 300, 0, 4),      # intercept and y only
+])
+@pytest.mark.parametrize("dtype,rtol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
+def test_gram_kernel_edge_shapes(cuda, dtype, rtol, t, n, p, s):
+    y, x, universes, uidx, col_sel, window = _gram_args(dtype, cuda, t=t, n=n,
+                                                        p=max(p, 1), s=s)
+    x, col_sel = x[..., :p].contiguous(), col_sel[:, :p].contiguous()
+    got = grams.contract_spec_grams(y, x, universes, uidx, col_sel, window)
+    want = grams.contract_spec_grams_plain(y, x, universes[uidx], col_sel, window,
+                                           got.center)
+    scale = torch.stack([want[0].abs().amax((-1, -2)), want[1].abs().amax(-1),
+                         want[2].abs(), want[3].abs(), want[4].abs()]).amax(0)
+    scale = scale.clamp_min(1.0)
+    torch.testing.assert_close(got.n, want[2], rtol=0, atol=0)
+    for g, w in zip(got[:5], want):
+        sc = scale.reshape(scale.shape + (1,) * (g.dim() - 2))
+        assert bool(((g - w).abs() <= rtol * sc).all())
+    assert torch.equal(got.gram, got.gram.transpose(-1, -2))
+
+
+def test_gram_wrapper_refuses_too_many_entries(cuda):
+    y, x, universes, uidx, col_sel, window = _gram_args(torch.float32, cuda, t=2,
+                                                        n=50, p=32, s=14)
+    valid = universes[uidx].to(torch.uint8)
+    with pytest.raises(ValueError, match="8192"):   # 14·34·35/2 = 8,330
+        grams.gram_contract_cuda(y, x, valid, col_sel, grams.shared_center(x))
 
 
 def test_gram_wrapper_refuses_what_the_kernel_does_not_take(cuda):
