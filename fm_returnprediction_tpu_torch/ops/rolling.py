@@ -21,13 +21,16 @@ either device.
 
 ``masked_cumulative_moments`` (the inclusive masked Σx, Σx², count) is
 dispatched the same way: ``masked_cumulative_moments_cuda`` launches the
-kernel of the same source, ``masked_cumulative_moments_plain`` is three
-``torch.cumsum`` passes.
+two-pass kernel of the same source (chunks of ``moments_chunk_rows(T)``
+rows, ``moments_chunk_plan``: each chunk's totals, then each chunk's scan
+from the totals of the chunks before it), ``masked_cumulative_moments_plain``
+is three ``torch.cumsum`` passes.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -48,12 +51,16 @@ __all__ = [
     "rolling_std",
     "rolling_prod",
     "masked_cumulative_moments_plain",
+    "moments_chunk_rows",
+    "moments_chunk_plan",
+    "launch_moments_kernel",
     "masked_cumulative_moments_cuda",
     "masked_cumulative_moments",
 ]
 
 _KINDS = {"sum": 0, "mean": 1, "std": 2}
 _MIN_CHUNK_ROWS = 512
+_MOMENTS_MIN_ROWS, _MOMENTS_MAX_ROWS, _MOMENTS_MIN_CHUNKS = 64, 256, 32
 _DTYPE_CODES = {torch.float32: 0, torch.float64: 1}
 
 
@@ -228,25 +235,62 @@ def masked_cumulative_moments_plain(x: torch.Tensor):
             torch.cumsum(finite.to(x.dtype), dim=0))
 
 
-def masked_cumulative_moments_cuda(x: torch.Tensor):
-    """Launch the moments kernel on a contiguous (T, N) float32/float64
-    CUDA tensor; returns ``(csum, csumsq, ccnt)``. Raises on anything the
-    kernel does not take."""
+def moments_chunk_rows(t_len: int) -> int:
+    """Rows of the time axis one block of the moments kernel scans: the
+    largest power of two from 64 to 256 rows that still cuts T into at least
+    32 chunks (64 rows when none does). Shorter chunks put more warps on the
+    card for a short series; longer ones keep each chunk's carry (the
+    totals of every chunk before it) short on a tall one. It depends on T
+    alone, never on the card, so a result does not depend on the SM count."""
+    rows = _MOMENTS_MIN_ROWS
+    while rows < _MOMENTS_MAX_ROWS and 2 * rows * _MOMENTS_MIN_CHUNKS <= t_len:
+        rows *= 2
+    return rows
+
+
+def moments_chunk_plan(t_len: int):
+    """The moments kernel's chunks as ``(start, stop)`` pairs, in the order
+    their totals are added into the carry of every later chunk."""
+    chunk = moments_chunk_rows(t_len)
+    return [(start, min(start + chunk, t_len)) for start in range(0, t_len, chunk)]
+
+
+def launch_moments_kernel(x: torch.Tensor, chunk: Optional[int] = None):
+    """One launch of the two-pass moments kernel (both passes), with
+    ``chunk``-row chunks (default ``moments_chunk_rows(T)``) and scratch for
+    the chunk totals allocated here; counts nothing. ``chip_smoke.py
+    --k3-chunks`` times other chunk lengths through it."""
     _check_kernel_input(x, "moments kernel")
     csum, csumsq, ccnt = (torch.empty_like(x) for _ in range(3))
     if x.numel() == 0:
         return csum, csumsq, ccnt
+    t_len, n = x.shape
+    chunk = moments_chunk_rows(t_len) if chunk is None else int(chunk)
+    if chunk < 1:
+        raise ValueError(f"chunk must be at least 1, got {chunk}")
+    chunks = -(-t_len // chunk)
+    scratch = torch.empty((chunks - 1, 3, n), dtype=x.dtype, device=x.device)
     fn = kernel_function("rolling", "masked_cumulative_moments", [
         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+        ctypes.c_longlong, ctypes.c_void_p,
     ])
     with torch.cuda.device(x.device):
         status = fn(_DTYPE_CODES[x.dtype], x.data_ptr(), csum.data_ptr(),
-                    csumsq.data_ptr(), ccnt.data_ptr(), x.shape[0], x.shape[1],
-                    torch.cuda.current_stream().cuda_stream)
+                    csumsq.data_ptr(), ccnt.data_ptr(),
+                    scratch.data_ptr() if chunks > 1 else None, t_len, n,
+                    chunk, torch.cuda.current_stream().cuda_stream)
     check_status("rolling", status)
-    masked_cumulative_moments_cuda.launches += 1
     return csum, csumsq, ccnt
+
+
+def masked_cumulative_moments_cuda(x: torch.Tensor):
+    """Launch the moments kernel on a contiguous (T, N) float32/float64
+    CUDA tensor; returns ``(csum, csumsq, ccnt)``. Raises on anything the
+    kernel does not take."""
+    out = launch_moments_kernel(x)
+    masked_cumulative_moments_cuda.launches += 1
+    return out
 
 
 masked_cumulative_moments_cuda.launches = 0

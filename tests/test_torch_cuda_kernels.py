@@ -10,8 +10,9 @@ difference two cumulative sums, so a small window std under a large running
 sum loses digits to cancellation) and 1e-12 of each (spec, month) block's
 max-abs entry for the Gram contraction; the cumulative moments at 1e-12
 (float64) / 1e-5 (float32) of the largest cumulative magnitude (the card's
-``torch.cumsum`` scans in another order than the kernel's sequential walk);
-identical NaN patterns, exact counts.
+``torch.cumsum`` scans in another order than the kernel's chunked two-pass
+walk) and bit-identical from launch to launch; identical NaN patterns,
+exact counts.
 """
 
 import numpy as np
@@ -31,10 +32,13 @@ def cuda():
     return torch.device("cuda")
 
 
-def _rolling_input(dtype, cuda, t=300, n=257, seed=0):
+def _rolling_input(dtype, cuda, t=300, n=257, seed=0, infs=False):
     rng = np.random.default_rng(seed)
     x = 1.0 + 0.3 * rng.standard_normal((t, n))
     x[rng.random(x.shape) < 0.05] = np.nan
+    if infs:                                           # +inf and -inf add nothing
+        x[rng.random(x.shape) < 0.01] = np.inf
+        x[rng.random(x.shape) < 0.01] = -np.inf
     x[:, 3] = np.nan                                   # an all-NaN column
     counts = rng.integers(0, t + 1, n)
     x[np.arange(t)[:, None] >= counts[None, :]] = np.nan
@@ -123,9 +127,17 @@ def test_rolling_mean_w120_on_figure_series(cuda, dtype):
     torch.testing.assert_close(got, want, rtol=rtol, atol=atol, equal_nan=True)
 
 
+@pytest.mark.parametrize("t,n,infs", [
+    (300, 257, False),
+    (300, 257, True),
+    (3000, 257, True),          # several chunks, the last ragged
+    (1024, 2432, True),         # a short daily strip's width
+    (4097, 33, True),           # 33 chunks of 128 rows, the last one row; one column in the last group
+    (1, 257, True),             # one row: one chunk, no first pass
+])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-def test_moments_kernel_matches_plain(cuda, dtype):
-    x = _rolling_input(dtype, cuda)
+def test_moments_kernel_matches_plain(cuda, dtype, t, n, infs):
+    x = _rolling_input(dtype, cuda, t=t, n=n, seed=3, infs=infs)
     before = rolling.masked_cumulative_moments_cuda.launches
     got = rolling.masked_cumulative_moments(x)
     assert rolling.masked_cumulative_moments_cuda.launches == before + 1
@@ -134,6 +146,16 @@ def test_moments_kernel_matches_plain(cuda, dtype):
     torch.testing.assert_close(got[2], want[2], rtol=0, atol=0)
     for g, w in zip(got[:2], want[:2]):
         torch.testing.assert_close(g, w, rtol=rtol, atol=rtol * float(w.abs().max()))
+
+
+def test_moments_kernel_is_bit_identical_run_to_run(cuda):
+    """Fixed order of additions, no atomics: two launches give the same bits."""
+    x = _rolling_input(torch.float32, cuda, t=3001, n=2437, seed=9, infs=True)
+    assert len(rolling.moments_chunk_plan(3001)) > 1
+    first = rolling.masked_cumulative_moments_cuda(x)
+    second = rolling.masked_cumulative_moments_cuda(x)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 def test_moments_wrapper_refuses_what_the_kernel_does_not_take(cuda):
