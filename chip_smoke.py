@@ -34,8 +34,7 @@ The masked cumulative moments kernel has no caller on the main path (nor
 in the JAX package it mirrors); its row carries ``"launches": 0`` and says
 so, and phase 3 holds it against its plain version like every other, also
 on a ragged multi-chunk shape, checks that two launches give the same bits,
-and prints each shape's chunk count. ``--k3-chunks 64,128,256`` also times
-it at those chunk lengths in place of ``ops.rolling.moments_chunk_rows``.
+and prints each shape's chunk plan.
 
 The last lines are a JSON object of per-kernel numbers, the ``nvidia-smi``
 line, and ``{"ok": true, "device": {...}}``.
@@ -56,7 +55,6 @@ import torch
 from fm_returnprediction_tpu_torch.cuda_build import build_kernels
 from fm_returnprediction_tpu_torch.data.smoke_inputs import make_smoke_inputs
 from fm_returnprediction_tpu_torch.ops.rolling import (
-    launch_moments_kernel,
     masked_cumulative_moments_cuda,
     masked_cumulative_moments_plain,
     moments_chunk_plan,
@@ -403,16 +401,10 @@ def check_moments(x, rel: float, label: str, timed: bool):
     del fin, xz
     library_ms = time_ms(lambda: torch.cumsum(stack, dim=0))
     del stack
-    # what the card's memory gives at this size: PyTorch's own copy of x
-    out = torch.empty_like(x)
-    copy_ms = time_ms(lambda: out.copy_(x))
-    del out
     b_ms, b_by = bound(4 * x.numel() * x.element_size(), 4 * x.numel(), x.dtype)
     log(f"K3 {label}: kernel {ms:.4f} ms ({b_ms / ms:.1%} of the bound), plain "
         f"{plain_ms:.4f} ms, library cumsum over a pre-masked (T, 3N) stack "
-        f"{library_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); copy of x (one read, "
-        f"one write) {copy_ms:.4f} ms = "
-        f"{2 * x.numel() * x.element_size() / copy_ms / 1e9:.3f} TB/s")
+        f"{library_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
     t, n = x.shape
     return dict(name=f"masked_cumulative_moments {t}x{n} {str(x.dtype)[6:]}",
                 key="moments", route="cuda", source=K3_SOURCE, replaces=K3_REPLACES,
@@ -430,20 +422,7 @@ def check_moments_repeat(x, label: str) -> None:
     check(same, f"K3 {label}: two launches on the same input differ")
 
 
-def time_moments_chunks(x, chunks, label: str) -> None:
-    """``--k3-chunks``: the kernel's time at other chunk lengths than
-    ``moments_chunk_rows``, each launch checked bit-equal to the plain
-    version's counts."""
-    want_cnt = masked_cumulative_moments_plain(x)[2]
-    for chunk in chunks:
-        got = launch_moments_kernel(x, chunk)
-        check(torch.equal(got[2], want_cnt), f"K3 {label} chunk={chunk}: counts differ")
-        ms = time_ms(lambda: launch_moments_kernel(x, chunk))
-        n_chunks = -(-x.shape[0] // chunk)
-        log(f"K3 chunk sweep {label}: chunk={chunk} ({n_chunks} chunks) kernel {ms:.4f} ms")
-
-
-def k3_phase(gen, timed: bool, sweep=()):
+def k3_phase(gen, timed: bool):
     rows = []
     for t, n, dtype, rel, scale, on_table in (
             (13312, 2432, torch.float32, 1e-4, 0.02, True),
@@ -460,10 +439,7 @@ def k3_phase(gen, timed: bool, sweep=()):
         if (t, n, dtype) == (13312, 2432, torch.float32):
             check_moments_repeat(x, label)
         if row:
-            row["chunks"] = len(moments_chunk_plan(t))
             rows.append(row)
-        if sweep and on_table:
-            time_moments_chunks(x, sweep, label)
         del x
     torch.cuda.empty_cache()
     return rows
@@ -691,11 +667,7 @@ def main(argv=None) -> int:
                         help="build and check each kernel once, no timing")
     parser.add_argument("--ptxas", action="store_true",
                         help="print nvcc's register/shared-memory report")
-    parser.add_argument("--k3-chunks", default="",
-                        help="comma-separated chunk lengths at which to also time "
-                             "the moments kernel, at its timed shapes")
     args = parser.parse_args(argv)
-    sweep = [int(c) for c in args.k3_chunks.split(",") if c]
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
@@ -715,7 +687,7 @@ def main(argv=None) -> int:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(args.seed)
     timed = not args.kernels_only
-    rows = k1_phase(gen, timed) + k2_phase(gen, timed) + k3_phase(gen, timed, sweep)
+    rows = k1_phase(gen, timed) + k2_phase(gen, timed) + k3_phase(gen, timed)
     if args.kernels_only:
         log("kernels-only run: kernel phases passed")
         return 0

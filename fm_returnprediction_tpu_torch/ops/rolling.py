@@ -30,7 +30,6 @@ is three ``torch.cumsum`` passes.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
 
 import torch
 
@@ -53,7 +52,6 @@ __all__ = [
     "masked_cumulative_moments_plain",
     "moments_chunk_rows",
     "moments_chunk_plan",
-    "launch_moments_kernel",
     "masked_cumulative_moments_cuda",
     "masked_cumulative_moments",
 ]
@@ -255,19 +253,17 @@ def moments_chunk_plan(t_len: int):
     return [(start, min(start + chunk, t_len)) for start in range(0, t_len, chunk)]
 
 
-def launch_moments_kernel(x: torch.Tensor, chunk: Optional[int] = None):
-    """One launch of the two-pass moments kernel (both passes), with
-    ``chunk``-row chunks (default ``moments_chunk_rows(T)``) and scratch for
-    the chunk totals allocated here; counts nothing. ``chip_smoke.py
-    --k3-chunks`` times other chunk lengths through it."""
+def masked_cumulative_moments_cuda(x: torch.Tensor):
+    """Launch the two-pass moments kernel on a contiguous (T, N)
+    float32/float64 CUDA tensor, with ``moments_chunk_rows(T)``-row chunks
+    and scratch for the chunk totals allocated here; returns ``(csum,
+    csumsq, ccnt)``. Raises on anything the kernel does not take."""
     _check_kernel_input(x, "moments kernel")
     csum, csumsq, ccnt = (torch.empty_like(x) for _ in range(3))
     if x.numel() == 0:
         return csum, csumsq, ccnt
     t_len, n = x.shape
-    chunk = moments_chunk_rows(t_len) if chunk is None else int(chunk)
-    if chunk < 1:
-        raise ValueError(f"chunk must be at least 1, got {chunk}")
+    chunk = moments_chunk_rows(t_len)
     chunks = -(-t_len // chunk)
     scratch = torch.empty((chunks - 1, 3, n), dtype=x.dtype, device=x.device)
     fn = kernel_function("rolling", "masked_cumulative_moments", [
@@ -281,16 +277,8 @@ def launch_moments_kernel(x: torch.Tensor, chunk: Optional[int] = None):
                     scratch.data_ptr() if chunks > 1 else None, t_len, n,
                     chunk, torch.cuda.current_stream().cuda_stream)
     check_status("rolling", status)
-    return csum, csumsq, ccnt
-
-
-def masked_cumulative_moments_cuda(x: torch.Tensor):
-    """Launch the moments kernel on a contiguous (T, N) float32/float64
-    CUDA tensor; returns ``(csum, csumsq, ccnt)``. Raises on anything the
-    kernel does not take."""
-    out = launch_moments_kernel(x)
     masked_cumulative_moments_cuda.launches += 1
-    return out
+    return csum, csumsq, ccnt
 
 
 masked_cumulative_moments_cuda.launches = 0

@@ -148,4 +148,4 @@ def test_plan_depends_on_t_alone():
 
 def test_kernel_launcher_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensor"):
-        port.launch_moments_kernel(torch.zeros((4, 3)), 2)
+        port.masked_cumulative_moments_cuda(torch.zeros((4, 3)))
