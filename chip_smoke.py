@@ -20,15 +20,25 @@ Phases (any failure exits non-zero without the final line):
    ``run_pipeline(device="cuda", dtype=torch.float32)`` and all of its
    stages (characteristics, universes, Table 1, Table 2, the figure/decile
    sweep, Figure 1's rolling slopes, the decile table, the serving state),
-   with every kernel launch counter set to 0 just before and read just
-   after;
+   three times, with every kernel launch counter set to 0 just before each
+   run and read just after: guarded with the drift sentinel armed (empty
+   violations, counters only for conditioning), unguarded (every artifact
+   bit-identical, the same launches: K1 17, K2 2, K3 0), and guarded again
+   on the same audit directory (the drift check passes by sha);
 5. K1 std at every daily-strip shape the main path launched it at (read
    from its counters), checked and timed, with the sum of launches × time;
 6. the same path at a mid size in float64 on the card and on the CPU (plain
    versions): Table 2's per-cell numbers (a coefficient at
    ``|d| <= 1e-8 * max(|b|, nw_se)``, its t-stat at ``1e-8 * max(|t|, 1)``,
    the rest at rtol 1e-8), Table 1, the decile table, the figure frames and
-   the serving state.
+   the serving state;
+7. the raw-frame route (a 250-firm × 130-month synthetic universe, float64)
+   on the card and on the CPU: the enriched panel at rtol 1e-10, the tables
+   as in phase 6, the audit records equal;
+8. the command line, ``python -m fm_returnprediction_tpu_torch.pipeline
+   --synthetic --firms 1000 --months 240 --output-dir … --audit-dir …``, in
+   a subprocess: exit code, artifacts, stage seconds and launches (without
+   ``--output-dir`` when matplotlib or jinja2 does not import, said so).
 
 The masked cumulative moments kernel has no caller on the main path (nor
 in the JAX package it mirrors); its row carries ``"launches": 0`` and says
@@ -43,17 +53,23 @@ line, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from fm_returnprediction_tpu_torch.cuda_build import build_kernels
 from fm_returnprediction_tpu_torch.data.smoke_inputs import make_smoke_inputs
+from fm_returnprediction_tpu_torch.data.synthetic import SyntheticConfig
+from fm_returnprediction_tpu_torch.ops.daily_kernels import segment_sum
 from fm_returnprediction_tpu_torch.ops.rolling import (
     masked_cumulative_moments_cuda,
     masked_cumulative_moments_plain,
@@ -445,6 +461,37 @@ def k3_phase(gen, timed: bool):
     return rows
 
 
+# --- the daily stage's weekly sums ------------------------------------------
+
+
+def weekly_sum_phase(gen, n_days: int, n_cols: int = 2432) -> None:
+    """The weekly segment sum of the beta stage (``ops.daily_kernels
+    .segment_sum``: each week's days added in order) at a daily strip's
+    calendar shape: two calls give the same bits; timed beside the
+    ``index_add_`` it replaced (atomic adds), whose run-to-run bits are
+    printed."""
+    week = torch.arange(n_days, device="cuda") // 5
+    n_weeks = int(week[-1]) + 1
+    x = torch.randn((n_days, n_cols), generator=gen, device="cuda")
+
+    def by_index_add():
+        return torch.zeros((n_weeks, n_cols), device="cuda").index_add_(0, week, x)
+
+    seg = [segment_sum(x, week, n_weeks) for _ in range(2)]
+    idx = [by_index_add() for _ in range(2)]
+    same = torch.equal(seg[0], seg[1])
+    diff = float((seg[0] - idx[0]).abs().max())
+    ms = time_ms(lambda: segment_sum(x, week, n_weeks))
+    index_add_ms = time_ms(by_index_add)
+    log(f"weekly segment sum ({n_days} days x {n_cols}, {n_weeks} weeks, f32): two calls "
+        f"bit-identical {same}; index_add_ two calls bit-identical "
+        f"{torch.equal(idx[0], idx[1])}, max |segment sum - index_add_| {diff:.3e}; "
+        f"segment sum {ms:.4f} ms, index_add_ {index_add_ms:.4f} ms")
+    check(same, "the weekly segment sum differs between two calls")
+    del x, seg, idx
+    torch.cuda.empty_cache()
+
+
 # --- the main path ---------------------------------------------------------
 
 
@@ -456,19 +503,10 @@ def reset_counts() -> None:
     masked_cumulative_moments_cuda.launches = 0
 
 
-def main_path(seed: int):
-    start = time.perf_counter()
-    base, daily = make_smoke_inputs(seed=seed, dtype=np.float32)
-    log(f"main path inputs: panel {base.values.shape} f32, "
-        f"{len(daily.row_values):,} daily rows over {daily.n_days} days, "
-        f"built in {time.perf_counter() - start:.1f} s")
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    start = time.perf_counter()
-    res = run_pipeline(base, daily, device="cuda", dtype=torch.float32)
-    wall = time.perf_counter() - start
-    # K1 is counted per kind, window and shape ("mean/w=120,600x15"); the
-    # per-kind totals ("mean/w=120") are summed here
+def launch_counts() -> dict:
+    """The launch counters since ``reset_counts``: K1 per kind, window and
+    shape ("mean/w=120,600x15") and per kind ("mean/w=120"), K2 per shape
+    ("gram/P=14,S=9"), and the totals."""
     by_shape = dict(rolling_reduce_cuda.launches_by_key)
     by_kind = {}
     for key, n in by_shape.items():
@@ -480,18 +518,19 @@ def main_path(seed: int):
     counts.update(by_shape)
     counts.update(by_kind)
     counts.update({f"gram/{k}": v for k, v in gram_contract_cuda.launches_by_key.items()})
-    log(f"main path wall {wall:.3f} s; stages (s): "
-        + json.dumps({k: round(v, 4) for k, v in res.stage_seconds.items()}))
-    log(f"main path peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-    log(f"main path launches: K1 {counts['k1']} {by_kind} by shape {by_shape}, "
-        f"K2 {counts['k2']} {dict(gram_contract_cuda.launches_by_key)}, "
-        f"K3 {counts['moments']}")
-    check(counts["k1"] > 0, "main path never launched the rolling kernel")
-    check(by_kind.get("mean/w=120", 0) > 0,
-          "main path never launched the rolling kernel's mean w=120 (Figure 1, forecasts)")
-    check(counts["k2"] == 2, f"main path launched the Gram kernel {counts['k2']} times, "
-          "not twice (Table 2's grid and the figure grid)")
+    return counts
 
+
+def counted_run(base, daily, **kw):
+    """One real-size f32 run with every launch counter set to 0 just
+    before and read just after: (result, wall s, counts)."""
+    reset_counts()
+    start = time.perf_counter()
+    res = run_pipeline(base, daily, device="cuda", dtype=torch.float32, **kw)
+    return res, time.perf_counter() - start, launch_counts()
+
+
+def check_main_path_result(res) -> None:
     t2 = res.table_2
     finite = sum(int(np.isfinite(c["coef"]).sum() + np.isfinite(c["tstat"]).sum())
                  for c in res.table_2_cells.values())
@@ -532,7 +571,84 @@ def main_path(seed: int):
         f"{int(st.have_coef().sum())}")
     check(st.coef.shape == (600, 6), f"serving state coef shape {st.coef.shape}")
     check(int(st.have_coef().sum()) > 0, "serving state has no quotable month")
-    del res
+
+
+def bit_differences(a, b) -> list:
+    """The artifacts of two runs that are not bit-identical."""
+    out = [name for name in ("table_1", "table_2", "decile_table")
+           if not getattr(a, name).equals(getattr(b, name))]
+    if any(not np.array_equal(np.asarray(v), np.asarray(b.table_2_cells[key][k]), equal_nan=True)
+           for key, cell in a.table_2_cells.items() for k, v in cell.items()):
+        out.append("table_2_cells")
+    if any(not frame.equals(b.figure_1[name]) for name, frame in a.figure_1.items()):
+        out.append("figure_1")
+    for leaf in ("coef", "slopes_bar", "intercept_bar", "x_lo", "x_hi", "gram", "moment",
+                 "n_obs", "ysum", "yy", "month_valid"):
+        if not np.array_equal(getattr(a.serving_state, leaf), getattr(b.serving_state, leaf),
+                              equal_nan=leaf != "month_valid"):
+            out.append(f"serving_state.{leaf}")
+    return out
+
+
+def main_path(seed: int, audit_dir: Path):
+    """The main path at real size: guarded with the drift sentinel armed,
+    then unguarded (bit-identical, same launches), then guarded again on
+    the same audit directory (the drift check passes by sha)."""
+    start = time.perf_counter()
+    base, daily = make_smoke_inputs(seed=seed, dtype=np.float32)
+    log(f"main path inputs: panel {base.values.shape} f32, "
+        f"{len(daily.row_values):,} daily rows over {daily.n_days} days, "
+        f"built in {time.perf_counter() - start:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    res, wall, counts = counted_run(base, daily, guard=True, audit_dir=audit_dir)
+    stages = res.stage_seconds
+    log(f"main path (guarded) wall {wall:.3f} s; stages (s): "
+        + json.dumps({k: round(v, 4) for k, v in stages.items()}))
+    log(f"main path peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    by_kind = {k: v for k, v in counts.items() if "/" in k and "," not in k
+               and not k.startswith("gram/")}
+    by_shape = {k: v for k, v in counts.items() if "," in k and not k.startswith("gram/")}
+    log(f"main path launches: K1 {counts['k1']} {by_kind} by shape {by_shape}, "
+        f"K2 {counts['k2']} {dict(gram_contract_cuda.launches_by_key)}, "
+        f"K3 {counts['moments']}")
+    log(f"guard stages: guard_panel_contracts {stages['guard_panel_contracts']:.4f} s, "
+        f"guard_drift {stages['guard_drift']:.4f} s")
+    audit = res.audit
+    log("audit report: " + audit.report().replace("\n", "; "))
+    check(not audit.violations and not audit.quarantined,
+          "guarded main path: contract violations or quarantined artifacts")
+    check(all(k.endswith(".cond_exceeded_months") for k in audit.counters),
+          f"guarded main path: sentinel counters beyond conditioning: {dict(audit.counters)}")
+    check(counts["k1"] == 17 and counts["k2"] == 2 and counts["moments"] == 0,
+          f"main path launched K1 {counts['k1']}, K2 {counts['k2']}, K3 "
+          f"{counts['moments']} times, not 17, 2 and 0")
+    check(by_kind.get("mean/w=120", 0) > 0,
+          "main path never launched the rolling kernel's mean w=120 (Figure 1, forecasts)")
+    check_main_path_result(res)
+    first = json.loads((audit_dir / "audit.json").read_text())
+
+    plain, wall_off, counts_off = counted_run(base, daily, guard=False)
+    diffs = bit_differences(res, plain)
+    log(f"main path unguarded wall {wall_off:.3f} s (guarded {wall:.3f} s); "
+        f"launches equal {counts_off == counts}; artifacts that differ in bits {diffs}; "
+        "stages (s): " + json.dumps({k: round(v, 4) for k, v in plain.stage_seconds.items()}))
+    check(counts_off == counts, "guard on and off launched the kernels differently")
+    check(not diffs, f"guard on and off differ in {diffs}")
+    check(plain.audit.ok() and "guard_panel_contracts" not in plain.stage_seconds,
+          "the unguarded run ran the guard layer")
+    del plain
+
+    again, wall_again, _ = counted_run(base, daily, guard=True, audit_dir=audit_dir)
+    second = json.loads((audit_dir / "audit.json").read_text())
+    by_sha = sorted(name for name, art in second["artifacts"].items()
+                    if art.get("sha256") and art["sha256"] == first["artifacts"][name].get("sha256"))
+    same_probe = second["artifacts"]["panel_stats"] == first["artifacts"]["panel_stats"]
+    log(f"second guarded run on the same audit dir: wall {wall_again:.3f} s, sha "
+        f"short-circuit for {by_sha}, panel_stats identical {same_probe}; stages (s): "
+        + json.dumps({k: round(v, 4) for k, v in again.stage_seconds.items()}))
+    check(by_sha == ["decile_table", "serving_state", "table_1", "table_2"] and same_probe,
+          "the second guarded run did not pass the drift check by sha")
+    del res, again
     torch.cuda.empty_cache()
     return counts
 
@@ -660,6 +776,93 @@ def card_vs_cpu(seed: int) -> None:
     _reporting_vs_cpu(gpu, cpu)
 
 
+def ingest_vs_cpu() -> None:
+    """The raw-frame route at float64 on the card and on the CPU: the same
+    synthetic universe through ``run_pipeline(synthetic=True)``."""
+    cfg = SyntheticConfig(n_firms=250, n_months=130)
+    start = time.perf_counter()
+    gpu = run_pipeline(synthetic=True, synthetic_config=cfg, device="cuda", dtype=torch.float64)
+    gpu_s = time.perf_counter() - start
+    start = time.perf_counter()
+    cpu = run_pipeline(synthetic=True, synthetic_config=cfg, device="cpu", dtype=torch.float64)
+    cpu_s = time.perf_counter() - start
+    panel_worst = _rel_worst(gpu.panel.values.cpu().numpy(), cpu.panel.values.numpy(),
+                             "enriched panel")
+    diffs = _cell_diffs(gpu.table_2_cells, cpu.table_2_cells)
+    log(f"ingest route card vs CPU (synthetic 250 firms x 130 months, f64): cuda {gpu_s:.2f} s "
+        f"(generation {gpu.stage_seconds['load_raw_data']:.2f} s), cpu {cpu_s:.2f} s; "
+        f"enriched panel {tuple(gpu.panel.values.shape)} worst rel diff {panel_worst:.3e} "
+        f"(tol 1e-10); Table 2 worst held diff {diffs[0][0]:.3e} (tol 1e-8); formatted "
+        f"tables equal: {gpu.table_2.equals(cpu.table_2)}; audit card "
+        f"{gpu.audit.as_dict()} cpu {cpu.audit.as_dict()}")
+    check(panel_worst <= 1e-10, "ingest route card vs CPU: enriched panel beyond tolerance")
+    check(diffs[0][0] <= 1e-8, "ingest route card vs CPU: Table 2 beyond tolerance")
+    _reporting_vs_cpu(gpu, cpu)
+    check(gpu.audit.as_dict() == cpu.audit.as_dict(), "ingest route: audits differ card vs CPU")
+
+
+# Run as the command line would be, then read the launch counters of that
+# process (the command line itself does not print them).
+CLI_WRAPPER = """
+import json, runpy, sys
+from fm_returnprediction_tpu_torch.ops.rolling import (
+    masked_cumulative_moments_cuda, rolling_reduce_cuda)
+from fm_returnprediction_tpu_torch.specgrid.grams import gram_contract_cuda
+sys.argv = ["fm_returnprediction_tpu_torch.pipeline"] + sys.argv[1:]
+runpy.run_module("fm_returnprediction_tpu_torch.pipeline", run_name="__main__", alter_sys=True)
+print("CLI-LAUNCHES " + json.dumps({"k1": rolling_reduce_cuda.launches,
+                                    "k2": gram_contract_cuda.launches,
+                                    "moments": masked_cumulative_moments_cuda.launches,
+                                    "k1_by_key": rolling_reduce_cuda.launches_by_key,
+                                    "k2_by_key": gram_contract_cuda.launches_by_key}))
+"""
+
+ARTIFACTS = ("data_saved.marker", "table_1.pkl", "table_1.tex", "table_2.pkl", "table_2.tex",
+             "decile_sorts.pkl", "decile_sorts.tex", "serving_state.npz", "figure_1.pdf",
+             "research_report.tex")
+
+
+def cli_phase(firms: int, months: int) -> None:
+    """``python -m fm_returnprediction_tpu_torch.pipeline --synthetic`` in a
+    subprocess on the card, with artifacts and the drift sentinel."""
+    have = {m: importlib.util.find_spec(m) is not None
+            for m in ("pyarrow", "matplotlib", "jinja2")}
+    missing = [m for m in ("matplotlib", "jinja2") if not have[m]]
+    log(f"artifact libraries here: {have}")
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        out, audit = Path(tmp) / "out", Path(tmp) / "audit"
+        args = ["--synthetic", "--firms", str(firms), "--months", str(months),
+                "--audit-dir", str(audit)]
+        if missing:
+            log(f"CLI phase runs without --output-dir: {missing} do not import here")
+        else:
+            args += ["--output-dir", str(out)]
+        start = time.perf_counter()
+        done = subprocess.run([sys.executable, "-c", CLI_WRAPPER] + args,
+                              cwd=Path(__file__).resolve().parent,
+                              capture_output=True, text=True, timeout=900)
+        wall = time.perf_counter() - start
+        check(done.returncode == 0,
+              f"CLI exited {done.returncode}: {done.stderr[-2000:]}")
+        stages = {m.group(1): float(m.group(2)) for m in
+                  re.finditer(r"^(\S+)\s+([0-9.]+)s$", done.stdout, re.MULTILINE)}
+        launches = json.loads(done.stdout.split("CLI-LAUNCHES ", 1)[1].splitlines()[0])
+        made = sorted(os.listdir(out)) if out.exists() else []
+        log(f"CLI --synthetic --firms {firms} --months {months}: exit 0 in {wall:.1f} s, "
+            f"generation {stages.get('load_raw_data', float('nan')):.2f} s; stages (s) "
+            f"{json.dumps(stages)}; launches {launches}; artifacts {made}; audit "
+            f"{sorted(os.listdir(audit))}")
+        check((audit / "audit.json").exists(), "CLI wrote no audit.json")
+        check(launches["k1"] > 0 and launches["k2"] == 2 and launches["moments"] == 0,
+              f"CLI launches {launches}")
+        check({"load_raw_data", "build_panel", "guard_panel_contracts", "table_2",
+               "serving_state", "guard_drift"} <= set(stages), f"CLI stages {sorted(stages)}")
+        if not missing:
+            check(set(ARTIFACTS) <= set(made), f"CLI artifacts missing: "
+                  f"{sorted(set(ARTIFACTS) - set(made))}")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=20140131)
@@ -667,6 +870,10 @@ def main(argv=None) -> int:
                         help="build and check each kernel once, no timing")
     parser.add_argument("--ptxas", action="store_true",
                         help="print nvcc's register/shared-memory report")
+    parser.add_argument("--cli-firms", type=int, default=1000,
+                        help="synthetic firms of the command-line phase")
+    parser.add_argument("--cli-months", type=int, default=240,
+                        help="synthetic months of the command-line phase")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -692,9 +899,13 @@ def main(argv=None) -> int:
         log("kernels-only run: kernel phases passed")
         return 0
 
-    counts = main_path(args.seed)
+    with tempfile.TemporaryDirectory() as audit_dir:
+        counts = main_path(args.seed, Path(audit_dir))
     rows += strip_phase(gen, counts)
+    weekly_sum_phase(gen, n_days=13045)
     card_vs_cpu(args.seed)
+    ingest_vs_cpu()
+    cli_phase(args.cli_firms, args.cli_months)
 
     for row in rows:
         row["launches"] = counts.get(row.pop("key"), 0)

@@ -1,0 +1,1 @@
+"""guard layer of the PyTorch port (mirrors fm_returnprediction_tpu/guard)."""

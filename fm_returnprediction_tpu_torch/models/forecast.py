@@ -92,7 +92,7 @@ def fit_forecast_artifacts(y: torch.Tensor, x: torch.Tensor, mask: torch.Tensor,
     batch forecast's coverage.
     """
     if cs is None:
-        cs = monthly_cs_ols(y, x, mask)
+        cs = monthly_cs_ols(y, x, mask, record=False)
     coefs, bar = _lagged_coef_means(cs, window, min_periods, fill_invalid=True)
     stats = sufficient_stats(y, x, row_validity(y, x, mask))
     return ForecastArtifacts(coefs, cs.month_valid, bar[:, 1:], bar[:, 0], stats)
@@ -108,7 +108,7 @@ def rolling_er_forecast(y: torch.Tensor, x: torch.Tensor, mask: torch.Tensor,
     exactly these inputs) to reuse an earlier batched OLS.
     """
     if cs is None:
-        cs = monthly_cs_ols(y, x, mask)
+        cs = monthly_cs_ols(y, x, mask, record=False)
     _, bar = _lagged_coef_means(cs, window, min_periods)
     intercept_bar = bar[:, 0]
     slopes_bar = bar[:, 1:]

@@ -12,10 +12,14 @@ are emitted for week-starts from its first to its last observation week;
 the weekly rows are stamped with the month-end of the window START and
 deduplicated keep-last per (firm, month).
 
-Tensor design: daily rows → weekly partial sums by ``index_add_`` over the
-week ids, 156-week FORWARD windowed sums by reversed cumulative-sum
-difference, then a per-month max-reduction picks the last valid week.
-Everything is per-firm independent along N.
+Tensor design: daily rows → weekly partial sums by a segment sum over the
+(sorted) week ids, 156-week FORWARD windowed sums by reversed
+cumulative-sum difference, then a per-month max-reduction picks the last
+valid week. Everything is per-firm independent along N. The segment sum
+adds each week's rows in day order on every device (``index_add_`` on the
+card adds them with atomics in whatever order the threads run), so the
+card gives the same bits from run to run and the CPU the bits of a
+sequential scatter-add.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from fm_returnprediction_tpu_torch.ops.rolling import windowed_sum
 
 __all__ = [
     "last_obs_per_month",
+    "segment_sum",
     "weekly_partial_sums",
     "beta_from_weekly_sums",
     "weekly_rolling_beta_monthly",
@@ -38,9 +43,11 @@ def _forward_windowed_sum(x: torch.Tensor, window: int) -> torch.Tensor:
     return torch.flip(windowed_sum(torch.flip(x, (0,)), window), (0,))
 
 
-def _segment_sum(a: torch.Tensor, seg: torch.Tensor, n_seg: int) -> torch.Tensor:
-    out = torch.zeros((n_seg,) + tuple(a.shape[1:]), dtype=a.dtype, device=a.device)
-    return out.index_add_(0, seg, a)
+def segment_sum(a: torch.Tensor, seg: torch.Tensor, n_seg: int) -> torch.Tensor:
+    """Row sums of ``a`` per segment id, ``seg`` nondecreasing in [0,
+    n_seg); rows added in order, an empty segment sums to 0."""
+    lengths = torch.bincount(seg, minlength=n_seg)
+    return torch.segment_reduce(a, "sum", lengths=lengths, axis=0, unsafe=True)
 
 
 def last_obs_per_month(
@@ -86,13 +93,13 @@ def weekly_partial_sums(ret_d, mask_d, mkt_d, week_id, n_weeks: int,
     log_rm = torch.where(rm_valid, torch.log1p(mkt_d)[:, None], zero)
 
     seg = week_id.to(torch.int64)
-    w_ri = _segment_sum(log_ri, seg, n_weeks)
-    w_rm = _segment_sum(log_rm, seg, n_weeks)
-    w_rirm = _segment_sum(torch.where(ri_valid & rm_valid, log_ri * log_rm, zero),
+    w_ri = segment_sum(log_ri, seg, n_weeks)
+    w_rm = segment_sum(log_rm, seg, n_weeks)
+    w_rirm = segment_sum(torch.where(ri_valid & rm_valid, log_ri * log_rm, zero),
                           seg, n_weeks)
-    w_rm2 = _segment_sum(log_rm * log_rm, seg, n_weeks)
-    w_cnt = _segment_sum(present.to(ret_d.dtype), seg, n_weeks)
-    w_rm_cnt = _segment_sum(rm_valid.to(ret_d.dtype), seg, n_weeks)
+    w_rm2 = segment_sum(log_rm * log_rm, seg, n_weeks)
+    w_cnt = segment_sum(present.to(ret_d.dtype), seg, n_weeks)
+    w_rm_cnt = segment_sum(rm_valid.to(ret_d.dtype), seg, n_weeks)
     return w_ri, w_rm, w_rirm, w_rm2, w_cnt, w_rm_cnt
 
 

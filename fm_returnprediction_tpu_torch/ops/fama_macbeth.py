@@ -6,6 +6,10 @@
   coefficient and t-stat;
 - t-stat = mean / NW-SE with the reference's ``1 − k/n`` weight;
 - mean R² and mean N over the months that ran.
+
+With the guard layer on, ``fama_macbeth`` queues its counters under
+``"ols.fama_macbeth"``: its cross-sections' non-finite solves and R², and
+infinite t-stats (the NW tap); its inner ``monthly_cs_ols`` does not record.
 """
 
 from __future__ import annotations
@@ -14,6 +18,7 @@ from typing import NamedTuple
 
 import torch
 
+from fm_returnprediction_tpu_torch.guard import checks as _guard
 from fm_returnprediction_tpu_torch.ops.newey_west import nw_mean_se
 from fm_returnprediction_tpu_torch.ops.ols import CSRegressionResult, monthly_cs_ols
 
@@ -69,7 +74,10 @@ def fama_macbeth(y: torch.Tensor, x: torch.Tensor, mask: torch.Tensor,
                  nw_lags: int = 4, min_months: int = 10,
                  weight: str = "reference"):
     """End-to-end FM: batched monthly QR OLS + aggregation."""
-    cs = monthly_cs_ols(y, x, mask)
+    cs = monthly_cs_ols(y, x, mask, record=False)
     fm = fama_macbeth_summary(cs, nw_lags=nw_lags, min_months=min_months,
                               weight=weight)
+    if _guard.guard_active():
+        _guard.record("ols.fama_macbeth",
+                      {**_guard.cs_counters(cs), **_guard.fm_counters(fm)})
     return cs, fm

@@ -13,6 +13,11 @@ solves the compressed system by SVD least squares with the cutoff pinned to
 the global row count: ``RᵀR = [X|y]ᵀ[X|y]`` gives ``‖R_xβ − r_y‖ = ‖Xβ − y‖``
 for every β, so the compressed minimum-norm solution is the global one and
 ``cond(R_x) = cond(X)`` (no condition-number squaring).
+
+With the guard layer on (``guard.checks``) ``monthly_cs_ols`` queues its
+sentinel counters under ``"ols.monthly_cs_ols"``: non-finite solves and R²
+on months that ran, and months whose triangular condition proxy
+``max|r_ii|/min|r_ii|`` exceeds ``1/sqrt(eps)``.
 """
 
 from __future__ import annotations
@@ -20,6 +25,8 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+
+from fm_returnprediction_tpu_torch.guard import checks as _guard
 
 __all__ = ["CSRegressionResult", "NormalStats", "row_validity",
            "augment_design", "sufficient_stats", "lstsq_min_norm",
@@ -90,13 +97,15 @@ def lstsq_min_norm(a: torch.Tensor, b: torch.Tensor, rcond: float) -> torch.Tens
 
 
 def monthly_cs_ols(y: torch.Tensor, x: torch.Tensor,
-                   mask: torch.Tensor) -> CSRegressionResult:
+                   mask: torch.Tensor, record: bool = True) -> CSRegressionResult:
     """Every month's cross-sectional regression in one batched call.
 
     y (T, N) returns; x (T, N, P) lagged predictors; mask (T, N) bool row
     exists. Invalid months carry zeros and ``month_valid=False``; a month
     that ran with a non-finite solve keeps its NaNs for the FM layer to
-    drop.
+    drop. With the guard layer on and ``record`` true the call's sentinel
+    counters are queued; a caller that accounts for this solve itself
+    (``fama_macbeth``, the forecast fits) passes ``record=False``.
     """
     valid = row_validity(y, x, mask)
     n = valid.sum(dim=-1)
@@ -118,4 +127,18 @@ def monthly_cs_ols(y: torch.Tensor, x: torch.Tensor,
     r2 = torch.where(sst > 0, 1.0 - sse / torch.where(sst > 0, sst, torch.ones_like(sst)),
                      torch.zeros_like(sst))
     r2 = torch.where(month_valid, r2, torch.zeros_like(r2))
-    return CSRegressionResult(beta[:, 1:], beta[:, 0], r2, n, month_valid)
+    cs = CSRegressionResult(beta[:, 1:], beta[:, 0], r2, n, month_valid)
+    if record and _guard.guard_active():
+        # triangular condition proxy: cond(R_x) >= max|r_ii| / min|r_ii|,
+        # priced from the R factor the solve already computed
+        rd = torch.diagonal(r[..., :-1], dim1=-2, dim2=-1).abs()
+        proxy = rd.amax(dim=-1) / torch.clamp_min(rd.amin(dim=-1),
+                                                  torch.finfo(x.dtype).tiny)
+        _guard.record("ols.monthly_cs_ols", {
+            **_guard.cs_counters(cs),
+            "gram_nonfinite_entries": torch.zeros((), dtype=torch.int64,
+                                                  device=x.device),
+            "cond_exceeded_months": (
+                month_valid & (proxy > _guard.cond_limit(x.dtype))).sum(),
+        })
+    return cs

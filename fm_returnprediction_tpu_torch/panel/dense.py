@@ -4,6 +4,7 @@
 permno), ``K`` the variables. Firm-months absent from the source are masked
 out and hold NaN. Pandas' row-shift semantics are reproduced downstream by
 compacting each firm's observed rows (``ops.compaction``).
+``long_to_dense`` packs a long firm-month frame into this layout on the host.
 """
 
 from __future__ import annotations
@@ -12,8 +13,9 @@ import dataclasses
 from typing import List, Sequence
 
 import numpy as np
+import pandas as pd
 
-__all__ = ["DensePanel"]
+__all__ = ["DensePanel", "long_to_dense"]
 
 
 @dataclasses.dataclass
@@ -52,3 +54,33 @@ class DensePanel:
         """The (T, N, len(names)) sub-array in the given variable order."""
         idx = [self.var_index(n) for n in names]
         return self.values[:, :, idx]
+
+
+def long_to_dense(
+    df: pd.DataFrame,
+    date_col: str,
+    id_col: str,
+    value_cols: Sequence[str],
+    dtype=np.float64,
+) -> DensePanel:
+    """Pack a long firm-month frame into a host-numpy ``DensePanel``
+    (``dtype`` a numpy dtype). Duplicate (id, date) rows keep the last
+    occurrence (the reference's keep-last merge convention)."""
+    months, t_idx = np.unique(df[date_col].to_numpy(), return_inverse=True)
+    ids, n_idx = np.unique(df[id_col].to_numpy(), return_inverse=True)
+
+    t, n, k = len(months), len(ids), len(value_cols)
+    values = np.full((t, n, k), np.nan, dtype=dtype)
+    mask = np.zeros((t, n), dtype=bool)
+
+    data = df[list(value_cols)].to_numpy(dtype=dtype)
+    values[t_idx, n_idx, :] = data  # later duplicates overwrite earlier ones
+    mask[t_idx, n_idx] = True
+
+    return DensePanel(
+        values=values,
+        mask=mask,
+        months=pd.DatetimeIndex(months).values,
+        ids=ids,
+        var_names=list(value_cols),
+    )

@@ -1,39 +1,78 @@
-"""End-to-end entry of the port's slices: prepared panel → characteristics →
-universes → Table 1 → Table 2 → the figure/decile sweep → Figure 1's
-rolling slopes → the decile table → the serving state.
+"""End-to-end Lewellen pipeline of the port, and its command line.
 
-The entry starts from the prepared inputs — the dense base panel and the
-compacted daily strips, both host numpy (``panel.dense.DensePanel``,
-``panel.daily.CompactDaily``; ``convert.prepared_from_numpy`` reads them
-from other producers) — and everything after runs on the compute device.
+Raw WRDS-shaped frames (a synthetic universe or a cached raw directory) →
+universe filter and relational transforms (host pandas) → dense monthly
+base panel and compact daily strips (host numpy) → characteristics →
+universes → Table 1 → Table 2 → the figure/decile sweep → Figure 1's
+rolling slopes → the decile table → the serving state → artifacts, with the
+guard layer (``guard``) checking every stage boundary. Everything after
+the host ingest runs on the compute device.
 
     from fm_returnprediction_tpu_torch.pipeline import run_pipeline
-    res = run_pipeline(dense_base, compact_daily)            # on the GPU
-    res = run_pipeline(dense_base, compact_daily, device="cpu")
+    res = run_pipeline(synthetic=True)                       # on the GPU
+    res = run_pipeline(raw_data_dir="_data/raw", device="cpu")
+    res = run_pipeline(dense_base, compact_daily)            # prepared inputs
 
-Figure 1 is returned as the rolling-slope frames it plots
-(``PipelineResult.figure_1``); drawing them needs matplotlib
-(``reporting.figure1.create_figure_1``), which the pipeline does not import.
+    python -m fm_returnprediction_tpu_torch.pipeline --synthetic --output-dir _output
+    python -m fm_returnprediction_tpu_torch.pipeline --synthetic --device cpu
+
+The dtype comes from ``dtype=`` or the ``DTYPE`` environment variable
+(default ``float32``); the guard switch from ``guard=`` or ``FMRP_GUARD``
+(default on). Figure 1 is returned as the rolling-slope frames it plots
+(``PipelineResult.figure_1``); it is drawn only to write ``figure_1.pdf``
+under ``output_dir``, which needs matplotlib.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import json
+import os
+from pathlib import Path
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import pandas as pd
 import torch
 
+from fm_returnprediction_tpu_torch.data.synthetic import (
+    FILE_NAMES,
+    SyntheticConfig,
+    generate_synthetic_wrds,
+)
+from fm_returnprediction_tpu_torch.data.wrds_pull import (
+    FLAG_COLUMNS,
+    subset_to_common_stock_and_exchanges,
+)
 from fm_returnprediction_tpu_torch.device import resolve_device
-from fm_returnprediction_tpu_torch.panel.characteristics import get_factors
-from fm_returnprediction_tpu_torch.panel.daily import CompactDaily
-from fm_returnprediction_tpu_torch.panel.dense import DensePanel
+from fm_returnprediction_tpu_torch.guard import checks as _guard_checks
+from fm_returnprediction_tpu_torch.guard import contracts as _contracts
+from fm_returnprediction_tpu_torch.panel.characteristics import BASE_COLUMNS, get_factors
+from fm_returnprediction_tpu_torch.panel.daily import CompactDaily, build_compact_daily
+from fm_returnprediction_tpu_torch.panel.dense import DensePanel, long_to_dense
 from fm_returnprediction_tpu_torch.panel.subsets import compute_subset_masks
-from fm_returnprediction_tpu_torch.reporting.deciles import build_decile_table
+from fm_returnprediction_tpu_torch.panel.transform_compustat import (
+    add_report_date,
+    calc_book_equity,
+    expand_compustat_annual_to_monthly,
+    merge_CRSP_and_Compustat,
+)
+from fm_returnprediction_tpu_torch.panel.transform_crsp import calculate_market_equity
+from fm_returnprediction_tpu_torch.reporting.deciles import (
+    build_decile_table,
+    save_decile_table,
+)
 from fm_returnprediction_tpu_torch.reporting.figure1 import (
     SubsetSweepEntry,
+    draw_figure_1,
     figure_frames,
     subset_sweep,
+)
+from fm_returnprediction_tpu_torch.reporting.latex import (
+    compile_latex_document,
+    create_latex_document,
+    save_data,
 )
 from fm_returnprediction_tpu_torch.reporting.table1 import build_table_1
 from fm_returnprediction_tpu_torch.reporting.table2 import (
@@ -44,9 +83,86 @@ from fm_returnprediction_tpu_torch.serving.state import (
     ServingState,
     build_serving_state_from_panel,
 )
+from fm_returnprediction_tpu_torch.utils.cache import load_cache_data
 from fm_returnprediction_tpu_torch.utils.timing import StageTimer
 
-__all__ = ["PipelineResult", "build_panel_prepared", "run_pipeline"]
+__all__ = [
+    "PipelineResult",
+    "RAW_FILE_NAMES",
+    "load_raw_data",
+    "build_panel",
+    "build_panel_prepared",
+    "resolve_dtype",
+    "run_pipeline",
+]
+
+RAW_FILE_NAMES = dict(FILE_NAMES)
+
+# The daily stage reads only (permno, dlycaldt, retx) and the universe
+# filter the CIZ flag columns; the rest of the daily file is pruned at the
+# read.
+_CRSP_D_COLUMNS = ["permno", "dlycaldt", "retx"] + FLAG_COLUMNS
+
+_TORCH_DTYPES = {"float32": torch.float32, "float64": torch.float64}
+
+
+def resolve_dtype(dtype=None) -> torch.dtype:
+    """The compute dtype: ``dtype`` (a torch or numpy dtype, or a name)
+    when given, else the ``DTYPE`` environment variable, default
+    ``float32``."""
+    if dtype is None:
+        dtype = os.environ.get("DTYPE", "float32")
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    name = np.dtype(dtype).name
+    if name not in _TORCH_DTYPES:
+        raise ValueError(f"unsupported compute dtype {name!r}; "
+                         f"expected one of {sorted(_TORCH_DTYPES)}")
+    return _TORCH_DTYPES[name]
+
+
+def _resolve_turnover(include_turnover: Optional[bool]) -> bool:
+    """``include_turnover``, else the ``INCLUDE_TURNOVER`` environment
+    variable (default 0): the opt-in 16th characteristic."""
+    if include_turnover is None:
+        return bool(int(os.environ.get("INCLUDE_TURNOVER", "0")))
+    return bool(include_turnover)
+
+
+def _default_raw_data_dir() -> Path:
+    """``<DATA_DIR>/raw``, ``DATA_DIR`` (default ``_data``) taken relative
+    to the repository root unless absolute."""
+    data_dir = Path(os.environ.get("DATA_DIR", "_data"))
+    if not data_dir.is_absolute():
+        data_dir = Path(__file__).resolve().parents[1] / data_dir
+    return data_dir / "raw"
+
+
+def _pipeline_fingerprint(panel, dtype, salt: str = "") -> str:
+    """The drift sentinel's key: the panel's identity axes (months, ids,
+    variables, shape) + compute dtype + a data-provenance salt. The same
+    definition as the reference package's, so both packages key the same
+    panel alike."""
+    h = hashlib.sha256()
+    h.update(f"{_contracts.numpy_dtype(dtype).str}|{salt}|"
+             f"{tuple(panel.values.shape)}|".encode())
+    h.update(np.asarray(panel.months).astype("datetime64[ns]")
+             .astype(np.int64).tobytes())
+    h.update(np.ascontiguousarray(panel.ids).tobytes())
+    h.update("|".join(panel.var_names).encode())
+    return h.hexdigest()
+
+
+def _raw_fingerprint(raw_data_dir, dtype) -> str:
+    """Provenance salt of a raw cache directory: each raw file's (name,
+    size, mtime_ns) and the compute dtype, keyed as the reference package's
+    prepared-inputs checkpoint keys it."""
+    h = hashlib.sha256()
+    h.update(f"v3|{_contracts.numpy_dtype(dtype).str}|".encode())
+    for name in sorted(RAW_FILE_NAMES.values()):
+        st = (Path(raw_data_dir) / name).stat()
+        h.update(f"|{name}:{st.st_size}:{st.st_mtime_ns}".encode())
+    return h.hexdigest()
 
 
 @dataclasses.dataclass
@@ -62,6 +178,74 @@ class PipelineResult:
     decile_table: Optional[pd.DataFrame]
     serving_state: Optional[ServingState]
     stage_seconds: Dict[str, float]         # device-synchronized wall time
+    # the guard ledger: contract violations, numerical sentinel counters
+    # and quarantined artifacts (empty when clean or guards disabled)
+    audit: _contracts.AuditRecord
+
+
+def load_raw_data(raw_data_dir) -> Dict[str, pd.DataFrame]:
+    """Load the five cached raw datasets by their canonical file names; the
+    daily file is column-pruned to what the pipeline reads."""
+    out = {}
+    for key, name in RAW_FILE_NAMES.items():
+        if key != "crsp_d":
+            out[key] = load_cache_data(raw_data_dir, name)
+            continue
+        try:
+            out[key] = load_cache_data(raw_data_dir, name, columns=_CRSP_D_COLUMNS)
+        except (ValueError, KeyError):
+            # a cache written by another producer may lack pruned columns:
+            # read it whole
+            out[key] = load_cache_data(raw_data_dir, name)
+    return out
+
+
+def build_panel(
+    data: Dict[str, pd.DataFrame],
+    dtype: torch.dtype = torch.float32,
+    device=None,
+    include_turnover: Optional[bool] = None,
+    timer: Optional[StageTimer] = None,
+) -> Tuple[DensePanel, Dict[str, str]]:
+    """Raw frames → merged monthly panel → enriched characteristic panel.
+
+    The common-stock/exchange universe filter is applied to both the
+    monthly and the daily rows. The host ingest (filter, market equity,
+    Compustat expansion, CCM merge, daily compaction, ``long_to_dense``)
+    runs in ``dtype``'s numpy dtype; ``get_factors`` then computes the
+    characteristics on ``device``."""
+    device = resolve_device(device)
+    timer = timer or StageTimer(device)
+    np_dtype = _contracts.numpy_dtype(dtype)
+    include_turnover = _resolve_turnover(include_turnover)
+    with timer.stage("panel/universe_filter"):
+        crsp_m = subset_to_common_stock_and_exchanges(data["crsp_m"])
+        crsp_d = subset_to_common_stock_and_exchanges(
+            data["crsp_d"], columns=["permno", "dlycaldt", "retx"])
+    with timer.stage("panel/market_equity"):
+        crsp = calculate_market_equity(crsp_m)
+    with timer.stage("panel/compustat"):
+        comp = add_report_date(data["comp"].copy())
+        comp = calc_book_equity(comp)
+        comp = expand_compustat_annual_to_monthly(comp)
+    with timer.stage("panel/ccm_merge"):
+        merged = merge_CRSP_and_Compustat(crsp, comp, data["ccm"])
+    with timer.stage("daily_ingest"):
+        # the month vocabulary long_to_dense derives from ``merged``
+        months = np.unique(merged["jdate"].to_numpy())
+        daily = build_compact_daily(crsp_d, data["crsp_index_d"], months,
+                                    dtype=np_dtype)
+    with timer.stage("long_to_dense"):
+        columns = list(BASE_COLUMNS)
+        if include_turnover:
+            if "vol" not in merged.columns:
+                raise KeyError("include_turnover needs a 'vol' column in the "
+                               "monthly CRSP frame")
+            columns.append("vol")
+        merged["is_nyse"] = (merged["primaryexch"] == "N").astype(float)
+        base = long_to_dense(merged, "jdate", "permno", columns, dtype=np_dtype)
+    return get_factors(base, daily, dtype=dtype, device=device,
+                       include_turnover=include_turnover, timer=timer)
 
 
 def build_panel_prepared(
@@ -78,33 +262,131 @@ def build_panel_prepared(
 
 
 def run_pipeline(
-    dense_base: DensePanel,
-    compact_daily: CompactDaily,
+    dense_base: Optional[DensePanel] = None,
+    compact_daily: Optional[CompactDaily] = None,
     *,
+    raw_data_dir=None,
+    output_dir=None,
+    synthetic: bool = False,
+    synthetic_config: Optional[SyntheticConfig] = None,
     device=None,
-    dtype: torch.dtype = torch.float32,
-    include_turnover: bool = False,
+    dtype=None,
+    include_turnover: Optional[bool] = None,
     make_figure: bool = True,
     make_deciles: bool = True,
     make_serving: bool = True,
+    compile_pdf: bool = True,
+    guard: Optional[bool] = None,
+    audit_dir=None,
 ) -> PipelineResult:
-    """Characteristics → NYSE-breakpoint universes → Table 1 → Table 2 →
-    Figure 1 / deciles → serving state, on ``device`` (default the GPU;
-    raises when there is none and the CPU was not asked for)."""
-    device = resolve_device(device)
-    timer = StageTimer(device)
-    with timer.stage("build_panel"):
-        panel, factors_dict = build_panel_prepared(
-            dense_base, compact_daily, dtype=dtype, device=device,
-            include_turnover=include_turnover, timer=timer,
+    """Raw data or prepared inputs → characteristics → NYSE-breakpoint
+    universes → Table 1 → Table 2 → Figure 1 / deciles → serving state →
+    artifacts, on ``device`` (default the GPU; raises when there is none
+    and the CPU was not asked for).
+
+    The panel comes from the prepared inputs when ``dense_base`` and
+    ``compact_daily`` are given, else from a synthetic universe
+    (``synthetic=True``, ``synthetic_config``), else from the cached raw
+    frames in ``raw_data_dir`` (default ``<DATA_DIR>/raw``). ``dtype=None``
+    follows ``DTYPE`` (default float32), ``include_turnover=None`` follows
+    ``INCLUDE_TURNOVER`` (default off).
+
+    ``guard`` arms the guard layer (``None`` follows ``FMRP_GUARD``,
+    default on): the panel contract after the build, the frame contracts
+    on Table 1 and Table 2, the quarantine screen on the decile table and
+    the serving state, and the numerical sentinels of the OLS, FM and
+    spec-grid solves, all folded into ``PipelineResult.audit``. Guards
+    change no number: the tables are bit-identical with them on or off.
+
+    ``audit_dir`` arms the drift sentinel (``guard.drift``): this run's
+    artifact summaries are held against the previous same-fingerprint run's
+    ``audit.json`` there — drift beyond the band raises
+    ``DriftDetectedError`` (after the artifacts are saved, without
+    rewriting the trusted manifest) — then the manifest is updated.
+
+    ``output_dir`` writes the artifacts: ``table_{1,2}.{pkl,tex}``,
+    ``figure_1.pdf`` (matplotlib), ``decile_sorts.{pkl,tex}``,
+    ``serving_state.npz``, ``data_saved.marker`` and
+    ``research_report.tex`` (compiled when ``pdflatex`` exists and
+    ``compile_pdf``)."""
+    if guard is None:
+        guard = _guard_checks.guard_active()
+    with _guard_checks.guards(bool(guard)):
+        return _run_pipeline_guarded(
+            dense_base, compact_daily, raw_data_dir=raw_data_dir,
+            output_dir=output_dir, synthetic=synthetic,
+            synthetic_config=synthetic_config, device=device, dtype=dtype,
+            include_turnover=include_turnover, make_figure=make_figure,
+            make_deciles=make_deciles, make_serving=make_serving,
+            compile_pdf=compile_pdf, guard=bool(guard), audit_dir=audit_dir,
         )
+
+
+def _run_pipeline_guarded(
+    dense_base, compact_daily, *, raw_data_dir, output_dir, synthetic,
+    synthetic_config, device, dtype, include_turnover, make_figure,
+    make_deciles, make_serving, compile_pdf, guard, audit_dir,
+) -> PipelineResult:
+    """``run_pipeline``'s body, entered with the sentinel switch already
+    pinned to ``guard`` for the whole run."""
+    device = resolve_device(device)
+    dtype = resolve_dtype(dtype)
+    include_turnover = _resolve_turnover(include_turnover)
+    audit = _contracts.AuditRecord()
+    counters_before = _guard_checks.drain() if guard else {}
+    timer = StageTimer(device)
+
+    prepared = dense_base is not None or compact_daily is not None
+    if prepared:
+        if dense_base is None or compact_daily is None:
+            raise ValueError("the prepared-inputs entry needs both dense_base "
+                             "and compact_daily")
+        if synthetic or raw_data_dir is not None:
+            raise ValueError("pass prepared inputs, synthetic=True or "
+                             "raw_data_dir, not several")
+        with timer.stage("build_panel"):
+            panel, factors_dict = build_panel_prepared(
+                dense_base, compact_daily, dtype=dtype, device=device,
+                include_turnover=include_turnover, timer=timer)
+    else:
+        if not synthetic:
+            if raw_data_dir is None:
+                raw_data_dir = _default_raw_data_dir()
+            if not Path(raw_data_dir).is_dir():
+                raise FileNotFoundError(
+                    f"Raw data directory {str(raw_data_dir)!r} does not exist. "
+                    "Pass --raw-data-dir pointing at the cached WRDS parquet "
+                    f"files ({', '.join(RAW_FILE_NAMES.values())}), or use "
+                    "--synthetic."
+                )
+        with timer.stage("load_raw_data"):
+            data = (generate_synthetic_wrds(synthetic_config) if synthetic
+                    else load_raw_data(raw_data_dir))
+        with timer.stage("build_panel"):
+            panel, factors_dict = build_panel(
+                data, dtype=dtype, device=device,
+                include_turnover=include_turnover, timer=timer)
+        # the raw frames are dead once the panel exists
+        del data
+
+    panel_stats = None
+    if guard:
+        with timer.stage("guard_panel_contracts"):
+            # the probe doubles as the drift sentinel's panel_stats artifact
+            panel_stats = _contracts.check_panel(panel, dtype=dtype, audit=audit)
+
     with timer.stage("subset_masks"):
         masks = compute_subset_masks(panel)
+
     with timer.stage("table_1"):
         table_1 = build_table_1(panel, masks, factors_dict)
+        if guard:
+            _contracts.check_frame(table_1, "table_1", audit)
     with timer.stage("table_2"):
         cells = table_2_cells(panel, masks, factors_dict)
-    table_2 = format_table_2(cells, list(masks))
+        table_2 = format_table_2(cells, list(masks))
+        if guard:
+            _contracts.check_frame(table_2, "table_2", audit)
 
     # The figure, the decile table and the serving state share one sweep:
     # one Gram contraction gives every subset's figure cross-sections.
@@ -123,6 +405,12 @@ def run_pipeline(
     if make_deciles:
         with timer.stage("decile_table"):
             decile_table = build_decile_table(panel, masks, cs_cache=sweep)
+            if guard:
+                decile_table = _contracts.screen_artifact(
+                    "decile_table", decile_table,
+                    _contracts.frame_rules("decile_table", blocking="quarantine"),
+                    audit,
+                )
     serving_state = None
     if make_serving and "All stocks" in masks:
         with timer.stage("serving_state"):
@@ -130,9 +418,136 @@ def run_pipeline(
             serving_state = build_serving_state_from_panel(
                 panel, masks["All stocks"],
                 cs=entry.cs if entry is not None else None)
+            if guard:
+                # optional artifact: a quarantine-severity violation drops
+                # it and the run completes degraded
+                serving_state = _contracts.screen_artifact(
+                    "serving_state", serving_state,
+                    _contracts.serving_state_rules(), audit,
+                )
+
+    if output_dir is not None:
+        with timer.stage("save_artifacts"):
+            figure = draw_figure_1(figure_1) if figure_1 is not None else None
+            save_data(table_1, table_2, figure, output_dir)
+            if figure is not None:
+                import matplotlib.pyplot as plt
+
+                plt.close(figure[0])
+            if decile_table is not None:
+                save_decile_table(decile_table, output_dir)
+            if serving_state is not None:
+                serving_state.save(Path(output_dir) / "serving_state.npz")
+            tex = create_latex_document(output_dir)
+            if tex is not None and compile_pdf:
+                compile_latex_document(tex)
+
+    if guard:
+        # fold this run's sentinel counters into the audit record; the
+        # counters are process-wide, so diff against the pre-run snapshot
+        ended = _guard_checks.drain()
+        audit.record_counters({
+            k: v - counters_before.get(k, 0) for k, v in ended.items()
+        })
+
+    if audit_dir is not None:
+        # drift sentinel AFTER the artifacts are saved: a drifted run's
+        # outputs stay on disk for inspection, the trusted manifest survives
+        from fm_returnprediction_tpu_torch.guard.drift import (
+            DriftSentinel,
+            summarize_arrays,
+            summarize_frame,
+        )
+
+        if prepared:
+            salt = "prepared"
+        elif synthetic:
+            salt = json.dumps(vars(synthetic_config or SyntheticConfig()),
+                              sort_keys=True, default=str)
+        else:
+            salt = _raw_fingerprint(raw_data_dir, dtype)
+        with timer.stage("guard_drift"):
+            sentinel = DriftSentinel(audit_dir,
+                                     _pipeline_fingerprint(panel, dtype, salt))
+            if panel_stats is None:
+                panel_stats = _contracts.panel_probe(panel)
+            sentinel.check("panel_stats", panel_stats)
+            sentinel.check("table_1", summarize_frame(table_1))
+            sentinel.check("table_2", summarize_frame(table_2))
+            if decile_table is not None:
+                sentinel.check("decile_table", summarize_frame(decile_table))
+            if serving_state is not None:
+                sentinel.check("serving_state", summarize_arrays({
+                    "coef": serving_state.coef,
+                    "slopes_bar": serving_state.slopes_bar,
+                    "intercept_bar": serving_state.intercept_bar,
+                    "gram": serving_state.gram,
+                    "moment": serving_state.moment,
+                    "n_obs": serving_state.n_obs,
+                }))
+            sentinel.raise_on_drift(audit)
+            sentinel.commit(audit)
+
     return PipelineResult(
         panel=panel, factors_dict=factors_dict, subset_masks=masks,
         table_1=table_1, table_2=table_2, table_2_cells=cells, sweep=sweep,
         figure_1=figure_1, decile_table=decile_table,
         serving_state=serving_state, stage_seconds=dict(timer.durations),
+        audit=audit,
     )
+
+
+def _main(argv=None) -> None:
+    import argparse
+
+    parser = argparse.ArgumentParser(
+        description="Run the Lewellen FM pipeline (PyTorch port).")
+    parser.add_argument("--raw-data-dir", default=None)
+    parser.add_argument("--output-dir", default=None)
+    parser.add_argument("--synthetic", action="store_true")
+    parser.add_argument("--firms", type=int, default=None,
+                        help="synthetic only (default 100)")
+    parser.add_argument("--months", type=int, default=None,
+                        help="synthetic only (default 120)")
+    parser.add_argument(
+        "--no-guard", action="store_true",
+        help="disable the guard layer (stage-boundary contracts + numerical "
+             "sentinels; default follows FMRP_GUARD, normally on)",
+    )
+    parser.add_argument(
+        "--audit-dir", default=None,
+        help="arm the drift sentinel: compare this run's artifact summaries "
+             "(sha256 + per-column moments) against the previous run's audit "
+             "manifest in this directory; drift beyond band fails loudly, a "
+             "clean run updates the manifest",
+    )
+    parser.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                        help="compute device (default cuda; raises without a "
+                             "GPU); takes the place of the reference's --backend")
+    args = parser.parse_args(argv)
+    if not args.synthetic and (args.firms is not None or args.months is not None):
+        parser.error("--firms/--months only apply with --synthetic")
+    cfg = SyntheticConfig(
+        n_firms=args.firms if args.firms is not None else 100,
+        n_months=args.months if args.months is not None else 120,
+    )
+    result = run_pipeline(
+        raw_data_dir=args.raw_data_dir,
+        output_dir=args.output_dir,
+        synthetic=args.synthetic,
+        synthetic_config=cfg if args.synthetic else None,
+        device=args.device,
+        guard=False if args.no_guard else None,
+        audit_dir=args.audit_dir,
+    )
+    print(result.table_1.round(3).to_string())
+    print()
+    print(result.table_2.to_string())
+    print()
+    width = max(len(name) for name in result.stage_seconds)
+    for name, seconds in result.stage_seconds.items():
+        print(f"{name:<{width}}  {seconds:9.3f}s")
+
+
+if __name__ == "__main__":
+    _main()

@@ -19,7 +19,7 @@ from fm_returnprediction_tpu_torch.panel.dense import DensePanel
 from fm_returnprediction_tpu_torch.panel.subsets import SUBSET_ORDER
 from fm_returnprediction_tpu_torch.reporting.figure1 import SubsetSweepEntry
 
-__all__ = ["build_decile_table"]
+__all__ = ["build_decile_table", "save_decile_table"]
 
 
 def build_decile_table(
@@ -65,3 +65,19 @@ def build_decile_table(
     table = pd.DataFrame(cols)
     table.index.name = "Portfolio"
     return table
+
+
+def save_decile_table(table: pd.DataFrame, output_dir) -> None:
+    """Persist the decile table (pickle + LaTeX). The Months row renders as
+    integers; everything else gets 4 decimals."""
+    from pathlib import Path
+
+    out = Path(output_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    table.to_pickle(out / "decile_sorts.pkl")
+    tex = table.copy().astype(object)
+    tex.loc["Months"] = [f"{int(v):d}" for v in table.loc["Months"]]
+    for row in tex.index:
+        if row != "Months":
+            tex.loc[row] = [f"{float(v):.4f}" for v in table.loc[row]]
+    (out / "decile_sorts.tex").write_text(tex.to_latex())

@@ -34,7 +34,7 @@ from fm_returnprediction_tpu_torch.specgrid.solve import run_spec_grid
 from fm_returnprediction_tpu_torch.specgrid.specs import figure1_grid
 
 __all__ = ["SubsetSweepEntry", "figure_cs", "subset_sweep", "rolling_slopes",
-           "figure_frames", "create_figure_1"]
+           "figure_frames", "draw_figure_1", "create_figure_1"]
 
 
 def _host(a) -> np.ndarray:
@@ -149,29 +149,24 @@ def figure_frames(panel: DensePanel, subset_masks: Dict[str, torch.Tensor],
     return frames
 
 
-def create_figure_1(
-    panel: DensePanel,
-    subset_masks: Dict[str, torch.Tensor],
-    cs_cache: Optional[Dict[str, SubsetSweepEntry]] = None,
-) -> Tuple[object, object]:
-    """Two stacked panels (All / Large stocks) of 10-year rolling slopes.
-    Needs matplotlib, imported here; ``run_pipeline`` computes the frames
-    (``figure_frames``) and does not draw. ``fig.savefig`` writes a file."""
+def draw_figure_1(frames: Dict[str, pd.DataFrame]) -> Tuple[object, object]:
+    """Draw Figure 1 from its rolling-slope frames (``figure_frames``, or
+    ``PipelineResult.figure_1``): two stacked panels, All / Large stocks.
+    Needs matplotlib, imported here; ``fig.savefig`` writes a file."""
     import matplotlib
 
     matplotlib.use("Agg")
     import matplotlib.pyplot as plt
 
-    slopes_dict = figure_frames(panel, subset_masks, cs_cache)
     fig, axes = plt.subplots(nrows=2, ncols=1, figsize=(14, 10), sharex=True)
     panel_specs = [
         ("All stocks", axes[0], "Panel A: All Stocks (10-Year Rolling Slopes)"),
         ("Large stocks", axes[1], "Panel B: Large Stocks (10-Year Rolling Slopes)"),
     ]
     for subset_name, ax, title in panel_specs:
-        if subset_name not in slopes_dict:
+        if subset_name not in frames:
             continue
-        frame = slopes_dict[subset_name]
+        frame = frames[subset_name]
         for var, label in FIGURE1_VARS.items():
             ax.plot(frame.index, frame[var], label=label)
         ax.set_title(title)
@@ -181,3 +176,13 @@ def create_figure_1(
     axes[1].set_xlabel("Month")
     fig.tight_layout()
     return fig, axes
+
+
+def create_figure_1(
+    panel: DensePanel,
+    subset_masks: Dict[str, torch.Tensor],
+    cs_cache: Optional[Dict[str, SubsetSweepEntry]] = None,
+) -> Tuple[object, object]:
+    """Two stacked panels (All / Large stocks) of 10-year rolling slopes
+    (``figure_frames`` drawn by ``draw_figure_1``; needs matplotlib)."""
+    return draw_figure_1(figure_frames(panel, subset_masks, cs_cache))

@@ -1,0 +1,1 @@
+"""resilience layer of the PyTorch port (mirrors fm_returnprediction_tpu/resilience)."""

@@ -20,6 +20,12 @@ stats were contracted in:
   farther from float64 truth than the centered equilibrated Gram solve.
 
 The solve runs in the stats' own dtype.
+
+With the guard layer on (``guard.checks``) ``run_spec_grid`` queues the
+grid's sentinel counters under ``"specgrid.grid_program"`` — non-finite
+Gram/moment entries, and months conditioned beyond ``1/√eps`` that no
+referee re-solves (only possible on float32 panels, where the conditioning
+tier is off) — and each referee solve records as ``"ols.fama_macbeth"``.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ from typing import Dict, NamedTuple, Tuple
 import numpy as np
 import torch
 
+from fm_returnprediction_tpu_torch.guard import checks as _guard
 from fm_returnprediction_tpu_torch.ops.fama_macbeth import (
     FamaMacbethSummary,
     fama_macbeth,
@@ -90,13 +97,15 @@ class SpecGridResult(NamedTuple):
         )
 
 
-def solve_spec_stats(stats, sel_aug: torch.Tensor) -> SpecSolve:
+def solve_spec_stats(stats, sel_aug: torch.Tensor, guard: bool = False):
     """Solve every (spec, month) padded Gram system.
 
     ``sel_aug`` (S, Q) bool selects augmented columns (intercept always
     True). Unselected rows/columns are replaced by identity, so the padded
     eigendecomposition solves exactly the selected subsystem with zeros
-    elsewhere.
+    elsewhere. Returns a :class:`SpecSolve`; with ``guard`` the pair
+    ``(SpecSolve, counters)``, the counters computed from the eigenvalues
+    the solve already holds.
     """
     gram, moment, n, ysum, yy, center = stats
     dtype = gram.dtype
@@ -120,7 +129,14 @@ def solve_spec_stats(stats, sel_aug: torch.Tensor) -> SpecSolve:
     scale = torch.where(dg > 0, torch.rsqrt(torch.clamp_min(dg, eps)),
                         torch.ones_like(dg))
     gs = g * scale[..., :, None] * scale[..., None, :]
-    w, v = torch.linalg.eigh(gs)                                  # ascending
+    # a system with a non-finite entry (an overflowed Gram) gets NaN
+    # eigenpairs, so its months come out suspect and the referee re-solves
+    # the spec; torch's eigh raises on such input, so it decomposes the
+    # identity in its place
+    broken = ~torch.isfinite(gs).all(dim=-1).all(dim=-1)          # (S, T)
+    w, v = torch.linalg.eigh(torch.where(broken[..., None, None], eye, gs))
+    w = torch.where(broken[..., None], float("nan"), w)           # ascending
+    v = torch.where(broken[..., None, None], float("nan"), v)
     wmax = w[..., -1]
     cutoff = q * eps * wmax
     winv = torch.where(w > cutoff[..., None], 1.0 / torch.clamp_min(w, eps),
@@ -152,18 +168,32 @@ def solve_spec_stats(stats, sel_aug: torch.Tensor) -> SpecSolve:
     # undo the column shift: raw intercept a = a_c − Σ b_p c_p
     intercept = beta[..., 0] - torch.einsum("stp,tp->st", beta[..., 1:], center)
     beta = torch.cat([intercept[..., None], beta[..., 1:]], dim=-1)
-    return SpecSolve(beta, r2, month_valid, suspect)
+    sol = SpecSolve(beta, r2, month_valid, suspect)
+    if not guard:
+        return sol
+    # suspect months are a handled condition (the referee re-solves them),
+    # so only conditioning beyond 1/√eps on months no referee touches counts
+    ill = w[..., 0] * cond_limit < wmax
+    return sol, {
+        "gram_nonfinite_entries": _guard.nonfinite_count(gram) + _guard.nonfinite_count(m),
+        "cond_exceeded_months": (month_valid & ill & ~suspect).sum(),
+    }
 
 
 def _solve_and_aggregate(stats, col_sel: torch.Tensor, out_dtype, *,
-                         nw_lags: int, min_months: int, weight: str):
-    """Padded Gram solve + FM aggregation over the spec axis."""
+                         nw_lags: int, min_months: int, weight: str, guard: bool):
+    """Padded Gram solve + FM aggregation over the spec axis; the sentinel
+    counters (None without ``guard``) come last."""
     s_specs = col_sel.shape[0]
     sel_aug = torch.cat(
         [torch.ones((s_specs, 1), dtype=torch.bool, device=col_sel.device),
          col_sel], dim=1,
     )
-    sol = solve_spec_stats(stats, sel_aug)
+    counters = None
+    if guard:
+        sol, counters = solve_spec_stats(stats, sel_aug, guard=True)
+    else:
+        sol = solve_spec_stats(stats, sel_aug)
     slopes = torch.where(col_sel[:, None, :], sol.beta[..., 1:],
                          torch.full_like(sol.beta[..., 1:], float("nan")))
     cs = CSRegressionResult(
@@ -175,7 +205,7 @@ def _solve_and_aggregate(stats, col_sel: torch.Tensor, out_dtype, *,
     )
     fm = fama_macbeth_summary(cs, nw_lags=nw_lags, min_months=min_months,
                               weight=weight)
-    return cs, fm, sol.suspect
+    return cs, fm, sol.suspect, counters
 
 
 def _host(a: torch.Tensor) -> np.ndarray:
@@ -205,10 +235,13 @@ def run_spec_grid(y: torch.Tensor, x: torch.Tensor,
 
     stats = contract_spec_grams(y, x, universes, uidx, col_sel, window,
                                 firm_chunk=firm_chunk)
-    cs, fm, suspect = _solve_and_aggregate(
+    guard = _guard.guard_active()
+    cs, fm, suspect, counters = _solve_and_aggregate(
         stats, col_sel, y.dtype, nw_lags=grid.nw_lags,
-        min_months=grid.min_months, weight=grid.weight,
+        min_months=grid.min_months, weight=grid.weight, guard=guard,
     )
+    if guard:
+        _guard.record("specgrid.grid_program", counters)
     suspect_months = _host(suspect).sum(axis=1).astype(np.int64)
     flagged = [int(s) for s in np.nonzero(suspect_months > 0)[0]]
 

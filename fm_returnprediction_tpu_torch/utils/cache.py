@@ -7,6 +7,9 @@ file loads with ``allow_pickle`` off). The metadata records a sha256 over
 every array's (name, dtype, shape, bytes) — ``array_bundle_digest``, byte
 for byte the reference's definition — so a bundle written by either
 package loads, verified, in the other.
+
+``load_cache_data`` reads a cached raw frame (parquet or csv) by its file
+name, the read the raw-data route of the pipeline makes.
 """
 
 from __future__ import annotations
@@ -21,9 +24,10 @@ from pathlib import Path
 from typing import Any, Dict, Optional, Tuple, Union
 
 import numpy as np
+import pandas as pd
 
 __all__ = ["CorruptArtifactError", "array_bundle_digest", "save_array_bundle",
-           "load_array_bundle"]
+           "load_array_bundle", "read_cached_data", "load_cache_data"]
 
 _BUNDLE_META_KEY = "__meta__"
 _BUNDLE_HASH_KEY = "__sha256__"  # meta-dict slot for the content checksum
@@ -109,3 +113,24 @@ def load_array_bundle(
     if stored is not None and stored != array_bundle_digest(arrays):
         raise CorruptArtifactError(f"array bundle {path} failed its content hash")
     return arrays, meta
+
+
+def read_cached_data(filepath: Union[Path, str], columns=None) -> pd.DataFrame:
+    """Read a cached frame. ``columns`` prunes the read: parquet reads only
+    the named column chunks, csv passes them as ``usecols``."""
+    fmt = Path(filepath).suffix.lstrip(".")
+    if fmt == "csv":
+        return pd.read_csv(filepath, usecols=columns)
+    if fmt == "parquet":
+        return pd.read_parquet(filepath, columns=columns)
+    raise ValueError(f"Unsupported file format: {fmt}")
+
+
+def load_cache_data(data_dir: Union[Path, str], file_name: str,
+                    columns=None) -> pd.DataFrame:
+    """Load a cached frame by exact name, raising ``FileNotFoundError`` if
+    absent."""
+    path = Path(data_dir, file_name)
+    if not path.exists():
+        raise FileNotFoundError(f"File {file_name} not found in {data_dir}.")
+    return read_cached_data(path, columns=columns)

@@ -216,3 +216,21 @@ def test_daily_chunked_matches(monthly, gaps):
     want = jax_daily_chunked(*args, firm_chunk=32, use_pallas=False)
     _close(got[0], want[0], "vol")
     _close(got[1], want[1], "beta")
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_weekly_segment_sum_adds_rows_in_order(dtype):
+    """The beta stage's weekly sums add each week's days in day order, bit
+    for bit a sequential scatter-add (``np.add.at``); a week with no day
+    sums to 0."""
+    from fm_returnprediction_tpu_torch.ops.daily_kernels import segment_sum
+
+    rng = np.random.default_rng(11)
+    seg = np.sort(rng.integers(0, 60, 400))
+    seg[seg == 7] = 8                                   # an empty week
+    a = rng.standard_normal((400, 9)).astype(dtype)
+    want = np.zeros((60, 9), dtype)
+    np.add.at(want, seg, a)
+    got = segment_sum(T(a), T(seg), 60).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert not got[7].any()

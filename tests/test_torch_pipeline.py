@@ -211,10 +211,13 @@ def test_stage_times_are_recorded(port_run):
 # -- guards ---------------------------------------------------------------
 
 
-def test_port_runs_with_jax_blocked():
+def test_port_runs_with_jax_blocked(tmp_path):
     """The port's whole path on the CPU in a process where importing jax or
-    the JAX package raises."""
+    the JAX package raises: from prepared inputs, from a synthetic universe
+    with the guard and the drift sentinel armed, and through the command
+    line with artifacts."""
     code = textwrap.dedent("""
+        import runpy
         import sys
 
         BLOCKED = ("jax", "jaxlib", "fm_returnprediction_tpu")
@@ -229,6 +232,7 @@ def test_port_runs_with_jax_blocked():
         import numpy as np
         import torch
         from fm_returnprediction_tpu_torch.data.smoke_inputs import make_smoke_inputs
+        from fm_returnprediction_tpu_torch.data.synthetic import SyntheticConfig
         from fm_returnprediction_tpu_torch.pipeline import run_pipeline
 
         base, daily = make_smoke_inputs(n_firms=80, n_months=60, dtype=np.float64)
@@ -238,13 +242,31 @@ def test_port_runs_with_jax_blocked():
         assert res.decile_table.shape == (13, 3), res.decile_table.shape
         assert set(res.figure_1) == {"All stocks", "Large stocks"}
         assert res.serving_state.coef.shape == (60, 6), res.serving_state.coef.shape
+
+        tmp = sys.argv[1]
+        res = run_pipeline(synthetic=True, synthetic_config=SyntheticConfig(
+            n_firms=60, n_months=72), device="cpu", guard=True,
+            audit_dir=tmp + "/audit")
+        assert res.audit.as_dict()["violations"] == [], res.audit.report()
+        assert "guard_panel_contracts" in res.stage_seconds
+        assert "guard_drift" in res.stage_seconds
+
+        sys.argv = ["pipeline", "--synthetic", "--firms", "60", "--months", "72",
+                    "--device", "cpu", "--output-dir", tmp + "/out",
+                    "--audit-dir", tmp + "/audit_cli"]
+        runpy.run_module("fm_returnprediction_tpu_torch.pipeline", run_name="__main__")
+        import os
+        made = set(os.listdir(tmp + "/out"))
+        assert {"data_saved.marker", "table_1.pkl", "table_2.pkl", "serving_state.npz",
+                "research_report.tex"} <= made, made
+        assert os.listdir(tmp + "/audit_cli") == ["audit.json"]
         loaded = [m for m in sys.modules
                   if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
         assert not loaded, loaded
         print("PORT-OK")
     """)
     env = dict(os.environ, PYTHONPATH=str(REPO))
-    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+    out = subprocess.run([sys.executable, "-c", code, str(tmp_path)], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert "PORT-OK" in out.stdout
@@ -270,6 +292,11 @@ def _port_files():
 def test_port_never_names_jax_or_the_jax_package(pattern):
     files = _port_files()
     assert len(files) > 20
+    names = {str(f.relative_to(REPO / "fm_returnprediction_tpu_torch")) for f in files[1:]}
+    assert {"guard/checks.py", "guard/contracts.py", "guard/drift.py",
+            "resilience/errors.py", "data/synthetic.py", "data/wrds_pull.py",
+            "panel/transform_crsp.py", "panel/transform_compustat.py",
+            "reporting/latex.py", "pipeline.py"} <= names
     hits = [str(f.relative_to(REPO)) for f in files
             if re.search(pattern, f.read_text())]
     assert not hits, hits
