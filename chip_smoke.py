@@ -69,7 +69,6 @@ import torch
 from fm_returnprediction_tpu_torch.cuda_build import build_kernels
 from fm_returnprediction_tpu_torch.data.smoke_inputs import make_smoke_inputs
 from fm_returnprediction_tpu_torch.data.synthetic import SyntheticConfig
-from fm_returnprediction_tpu_torch.ops.daily_kernels import segment_sum
 from fm_returnprediction_tpu_torch.ops.rolling import (
     masked_cumulative_moments_cuda,
     masked_cumulative_moments_plain,
@@ -461,37 +460,6 @@ def k3_phase(gen, timed: bool):
     return rows
 
 
-# --- the daily stage's weekly sums ------------------------------------------
-
-
-def weekly_sum_phase(gen, n_days: int, n_cols: int = 2432) -> None:
-    """The weekly segment sum of the beta stage (``ops.daily_kernels
-    .segment_sum``: each week's days added in order) at a daily strip's
-    calendar shape: two calls give the same bits; timed beside the
-    ``index_add_`` it replaced (atomic adds), whose run-to-run bits are
-    printed."""
-    week = torch.arange(n_days, device="cuda") // 5
-    n_weeks = int(week[-1]) + 1
-    x = torch.randn((n_days, n_cols), generator=gen, device="cuda")
-
-    def by_index_add():
-        return torch.zeros((n_weeks, n_cols), device="cuda").index_add_(0, week, x)
-
-    seg = [segment_sum(x, week, n_weeks) for _ in range(2)]
-    idx = [by_index_add() for _ in range(2)]
-    same = torch.equal(seg[0], seg[1])
-    diff = float((seg[0] - idx[0]).abs().max())
-    ms = time_ms(lambda: segment_sum(x, week, n_weeks))
-    index_add_ms = time_ms(by_index_add)
-    log(f"weekly segment sum ({n_days} days x {n_cols}, {n_weeks} weeks, f32): two calls "
-        f"bit-identical {same}; index_add_ two calls bit-identical "
-        f"{torch.equal(idx[0], idx[1])}, max |segment sum - index_add_| {diff:.3e}; "
-        f"segment sum {ms:.4f} ms, index_add_ {index_add_ms:.4f} ms")
-    check(same, "the weekly segment sum differs between two calls")
-    del x, seg, idx
-    torch.cuda.empty_cache()
-
-
 # --- the main path ---------------------------------------------------------
 
 
@@ -822,9 +790,15 @@ ARTIFACTS = ("data_saved.marker", "table_1.pkl", "table_1.tex", "table_2.pkl", "
              "research_report.tex")
 
 
-def cli_phase(firms: int, months: int) -> None:
+# The command line's synthetic universe: 1000 firms over 240 months, whose
+# host generation fits the smoke's time limit whole (see PERF.md, Cells).
+CLI_FIRMS, CLI_MONTHS = 1000, 240
+
+
+def cli_phase() -> None:
     """``python -m fm_returnprediction_tpu_torch.pipeline --synthetic`` in a
     subprocess on the card, with artifacts and the drift sentinel."""
+    firms, months = CLI_FIRMS, CLI_MONTHS
     have = {m: importlib.util.find_spec(m) is not None
             for m in ("pyarrow", "matplotlib", "jinja2")}
     missing = [m for m in ("matplotlib", "jinja2") if not have[m]]
@@ -870,10 +844,6 @@ def main(argv=None) -> int:
                         help="build and check each kernel once, no timing")
     parser.add_argument("--ptxas", action="store_true",
                         help="print nvcc's register/shared-memory report")
-    parser.add_argument("--cli-firms", type=int, default=1000,
-                        help="synthetic firms of the command-line phase")
-    parser.add_argument("--cli-months", type=int, default=240,
-                        help="synthetic months of the command-line phase")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -902,10 +872,9 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as audit_dir:
         counts = main_path(args.seed, Path(audit_dir))
     rows += strip_phase(gen, counts)
-    weekly_sum_phase(gen, n_days=13045)
     card_vs_cpu(args.seed)
     ingest_vs_cpu()
-    cli_phase(args.cli_firms, args.cli_months)
+    cli_phase()
 
     for row in rows:
         row["launches"] = counts.get(row.pop("key"), 0)

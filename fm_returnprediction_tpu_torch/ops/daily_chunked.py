@@ -83,10 +83,12 @@ def daily_characteristics_compact_chunked(
     mkt_t = dev(np.asarray(mkt_d, dtype=np_dtype))
     mkt_present_t = dev(mkt_present, torch.bool)
     month_t = dev(day_month_id, torch.int64)
-    week_t = dev(week_id, torch.int64)
+    # days per week, counted once for every strip's segment sums (the
+    # calendar's week ids never decrease: ``panel.daily.CompactDaily``)
+    week_len_t = dev(np.bincount(np.asarray(week_id), minlength=int(n_weeks)),
+                     torch.int64)
     week_month_t = dev(week_month_id, torch.int64)
-    kwargs = dict(n_days=int(n_days), n_weeks=int(n_weeks),
-                  n_months=int(n_months), window=window,
+    kwargs = dict(n_days=int(n_days), n_months=int(n_months), window=window,
                   min_periods=min_periods, window_weeks=window_weeks)
 
     # per-firm day-contiguity: positions strictly increase per firm, so a
@@ -119,7 +121,7 @@ def daily_characteristics_compact_chunked(
             counts_arr[: len(firms)] = counts[firms]
             vol_s, beta_s = daily_compact_strip_contiguous(
                 dev(rect_vals), dev(starts_arr), dev(counts_arr),
-                mkt_t, mkt_present_t, month_t, week_t, week_month_t, **kwargs,
+                mkt_t, mkt_present_t, month_t, week_len_t, week_month_t, **kwargs,
             )
         else:
             rect_pos = np.full((h, c), n_days, dtype=np.int64)
@@ -128,7 +130,7 @@ def daily_characteristics_compact_chunked(
                 rect_pos[: b - a, k] = row_pos[a:b]
             vol_s, beta_s = daily_compact_strip(
                 dev(rect_vals), dev(rect_pos),
-                mkt_t, mkt_present_t, month_t, week_t, week_month_t, **kwargs,
+                mkt_t, mkt_present_t, month_t, week_len_t, week_month_t, **kwargs,
             )
         vol_out[:, firms] = vol_s[:, : len(firms)].cpu().numpy()
         beta_out[:, firms] = beta_s[:, : len(firms)].cpu().numpy()

@@ -13,7 +13,8 @@ the weekly rows are stamped with the month-end of the window START and
 deduplicated keep-last per (firm, month).
 
 Tensor design: daily rows → weekly partial sums by a segment sum over the
-(sorted) week ids, 156-week FORWARD windowed sums by reversed
+week lengths (days per week, the calendar's nondecreasing week ids counted
+once on the host), 156-week FORWARD windowed sums by reversed
 cumulative-sum difference, then a per-month max-reduction picks the last
 valid week. Everything is per-firm independent along N. The segment sum
 adds each week's rows in day order on every device (``index_add_`` on the
@@ -43,10 +44,10 @@ def _forward_windowed_sum(x: torch.Tensor, window: int) -> torch.Tensor:
     return torch.flip(windowed_sum(torch.flip(x, (0,)), window), (0,))
 
 
-def segment_sum(a: torch.Tensor, seg: torch.Tensor, n_seg: int) -> torch.Tensor:
-    """Row sums of ``a`` per segment id, ``seg`` nondecreasing in [0,
-    n_seg); rows added in order, an empty segment sums to 0."""
-    lengths = torch.bincount(seg, minlength=n_seg)
+def segment_sum(a: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """Row sums of ``a`` over consecutive segments of ``lengths`` rows
+    (summing to ``a.shape[0]``); rows added in order, an empty segment sums
+    to 0."""
     return torch.segment_reduce(a, "sum", lengths=lengths, axis=0, unsafe=True)
 
 
@@ -75,9 +76,9 @@ def last_obs_per_month(
     return torch.where(last >= 0, picked, torch.full_like(picked, float("nan")))
 
 
-def weekly_partial_sums(ret_d, mask_d, mkt_d, week_id, n_weeks: int,
-                        mkt_present=None):
-    """Daily rows → the six weekly partial-sum tensors (n_weeks, N).
+def weekly_partial_sums(ret_d, mask_d, mkt_d, week_lengths, mkt_present=None):
+    """Daily rows → the six weekly partial-sum tensors (n_weeks, N);
+    ``week_lengths`` (n_weeks,) int64 counts the days of each week.
 
     NaN returns follow the reference's polars semantics: aggregate sums
     skip nulls, while ``pl.count()`` counts ALL rows; days the index table
@@ -92,14 +93,13 @@ def weekly_partial_sums(ret_d, mask_d, mkt_d, week_id, n_weeks: int,
     log_ri = torch.where(ri_valid, torch.log1p(ret_d), zero)
     log_rm = torch.where(rm_valid, torch.log1p(mkt_d)[:, None], zero)
 
-    seg = week_id.to(torch.int64)
-    w_ri = segment_sum(log_ri, seg, n_weeks)
-    w_rm = segment_sum(log_rm, seg, n_weeks)
+    w_ri = segment_sum(log_ri, week_lengths)
+    w_rm = segment_sum(log_rm, week_lengths)
     w_rirm = segment_sum(torch.where(ri_valid & rm_valid, log_ri * log_rm, zero),
-                          seg, n_weeks)
-    w_rm2 = segment_sum(log_rm * log_rm, seg, n_weeks)
-    w_cnt = segment_sum(present.to(ret_d.dtype), seg, n_weeks)
-    w_rm_cnt = segment_sum(rm_valid.to(ret_d.dtype), seg, n_weeks)
+                         week_lengths)
+    w_rm2 = segment_sum(log_rm * log_rm, week_lengths)
+    w_cnt = segment_sum(present.to(ret_d.dtype), week_lengths)
+    w_rm_cnt = segment_sum(rm_valid.to(ret_d.dtype), week_lengths)
     return w_ri, w_rm, w_rirm, w_rm2, w_cnt, w_rm_cnt
 
 
@@ -132,11 +132,11 @@ def beta_from_weekly_sums(w_ri, w_rm, w_rirm, w_rm2, w_cnt, w_rm_cnt,
 
 
 def weekly_rolling_beta_monthly(
-    ret_d, mask_d, mkt_d, week_id, n_weeks: int, week_month_id, n_months: int,
+    ret_d, mask_d, mkt_d, week_lengths, week_month_id, n_months: int,
     window_weeks: int = 156, mkt_present=None,
 ) -> torch.Tensor:
     """Rolling beta on the weekly Monday lattice, one value per
     (month, firm); NaN where no valid window start falls in the month."""
-    sums = weekly_partial_sums(ret_d, mask_d, mkt_d, week_id, n_weeks,
+    sums = weekly_partial_sums(ret_d, mask_d, mkt_d, week_lengths,
                                mkt_present=mkt_present)
     return beta_from_weekly_sums(*sums, week_month_id, n_months, window_weeks)

@@ -51,6 +51,11 @@ class CompactDaily:
     week_month_id: np.ndarray  # (n_weeks,) month index of each week's Monday
     n_months: int
 
+    def __post_init__(self):
+        # the weekly sums add each week's days as one run of rows
+        if np.any(np.diff(np.asarray(self.week_id)) < 0):
+            raise ValueError("CompactDaily.week_id must never decrease along the days")
+
     @property
     def n_days(self) -> int:
         return len(self.days)

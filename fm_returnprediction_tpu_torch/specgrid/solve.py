@@ -103,9 +103,9 @@ def solve_spec_stats(stats, sel_aug: torch.Tensor, guard: bool = False):
     ``sel_aug`` (S, Q) bool selects augmented columns (intercept always
     True). Unselected rows/columns are replaced by identity, so the padded
     eigendecomposition solves exactly the selected subsystem with zeros
-    elsewhere. Returns a :class:`SpecSolve`; with ``guard`` the pair
-    ``(SpecSolve, counters)``, the counters computed from the eigenvalues
-    the solve already holds.
+    elsewhere. Returns ``(SpecSolve, counters)``: with ``guard`` the
+    sentinel counters, computed from the eigenvalues the solve already
+    holds; without it None, and no extra tensor is computed.
     """
     gram, moment, n, ysum, yy, center = stats
     dtype = gram.dtype
@@ -170,7 +170,7 @@ def solve_spec_stats(stats, sel_aug: torch.Tensor, guard: bool = False):
     beta = torch.cat([intercept[..., None], beta[..., 1:]], dim=-1)
     sol = SpecSolve(beta, r2, month_valid, suspect)
     if not guard:
-        return sol
+        return sol, None
     # suspect months are a handled condition (the referee re-solves them),
     # so only conditioning beyond 1/√eps on months no referee touches counts
     ill = w[..., 0] * cond_limit < wmax
@@ -189,11 +189,7 @@ def _solve_and_aggregate(stats, col_sel: torch.Tensor, out_dtype, *,
         [torch.ones((s_specs, 1), dtype=torch.bool, device=col_sel.device),
          col_sel], dim=1,
     )
-    counters = None
-    if guard:
-        sol, counters = solve_spec_stats(stats, sel_aug, guard=True)
-    else:
-        sol = solve_spec_stats(stats, sel_aug)
+    sol, counters = solve_spec_stats(stats, sel_aug, guard=guard)
     slopes = torch.where(col_sel[:, None, :], sol.beta[..., 1:],
                          torch.full_like(sol.beta[..., 1:], float("nan")))
     cs = CSRegressionResult(

@@ -181,24 +181,32 @@ def _calendar(daily):
             daily.week_month_id)
 
 
+def _port_calendar(daily):
+    """``_calendar`` with the week ids replaced by the days of each week."""
+    week_lengths = np.bincount(daily.week_id, minlength=daily.n_weeks).astype(np.int64)
+    return (daily.mkt, daily.mkt_present, daily.day_month_id, week_lengths,
+            daily.week_month_id)
+
+
 @pytest.mark.parametrize("contiguous", [True, False])
 def test_daily_strip_matches(monthly, contiguous):
     _, _, _, daily = monthly
     rect, pos, starts, counts = _strip(daily, np.arange(0, 40))
-    static = dict(n_days=daily.n_days, n_weeks=daily.n_weeks,
-                  n_months=daily.n_months)
-    cal = _calendar(daily)
+    static = dict(n_days=daily.n_days, n_months=daily.n_months)
+    cal, port_cal = _calendar(daily), _port_calendar(daily)
     if contiguous:
         got = daily_compact_strip_contiguous(
-            T(rect), T(starts), T(counts), *(T(np.asarray(a)) for a in cal), **static)
+            T(rect), T(starts), T(counts), *(T(np.asarray(a)) for a in port_cal),
+            **static)
         want = jax_strip_contiguous(
             jnp.asarray(rect), jnp.asarray(starts), jnp.asarray(counts),
-            *(jnp.asarray(a) for a in cal), **static)
+            *(jnp.asarray(a) for a in cal), n_weeks=daily.n_weeks, **static)
     else:
-        got = daily_compact_strip(T(rect), T(pos), *(T(np.asarray(a)) for a in cal),
-                                  **static)
+        got = daily_compact_strip(T(rect), T(pos),
+                                  *(T(np.asarray(a)) for a in port_cal), **static)
         want = jax_strip(jnp.asarray(rect), jnp.asarray(pos),
-                         *(jnp.asarray(a) for a in cal), **static)
+                         *(jnp.asarray(a) for a in cal), n_weeks=daily.n_weeks,
+                         **static)
     _close(got[0].numpy(), want[0], "vol")
     _close(got[1].numpy(), want[1], "beta")
 
@@ -231,6 +239,24 @@ def test_weekly_segment_sum_adds_rows_in_order(dtype):
     a = rng.standard_normal((400, 9)).astype(dtype)
     want = np.zeros((60, 9), dtype)
     np.add.at(want, seg, a)
-    got = segment_sum(T(a), T(seg), 60).numpy()
+    got = segment_sum(T(a), T(np.bincount(seg, minlength=60))).numpy()
     np.testing.assert_array_equal(got, want)
     assert not got[7].any()
+
+
+def test_compact_daily_refuses_decreasing_week_ids(monthly):
+    """The weekly sums take each week's days as one run of rows, so a
+    calendar whose week ids go back is refused where it is built."""
+    import dataclasses
+    import types
+
+    from fm_returnprediction_tpu_torch.convert import prepared_from_numpy
+
+    _, _, base, daily = monthly
+    week_id = np.asarray(daily.week_id).copy()
+    week_id[[3, 10]] = week_id[[10, 3]]
+    assert week_id[10] < week_id[9]
+    produced = types.SimpleNamespace(**{**dataclasses.asdict(daily), "week_id": week_id})
+    with pytest.raises(ValueError, match="week_id"):
+        prepared_from_numpy(base, produced)
+    prepared_from_numpy(base, daily)                  # the calendar as made

@@ -76,9 +76,10 @@ def test_solve_spec_stats_matches(panel):
                          jnp.asarray(uidx), jnp.asarray(col_sel), jnp.asarray(window))
     sel_aug = np.concatenate([np.ones((len(grid), 1), bool), col_sel], axis=1)
     want = jax_solve(stats, jnp.asarray(sel_aug))
-    got = solve_spec_stats(
+    got, counters = solve_spec_stats(
         SpecGramStats(*(torch.from_numpy(np.asarray(a)) for a in stats)),
         torch.from_numpy(sel_aug))
+    assert counters is None                           # the guard is off
     np.testing.assert_array_equal(got.month_valid.numpy(), np.asarray(want.month_valid))
     np.testing.assert_array_equal(got.suspect.numpy(), np.asarray(want.suspect))
     assert got.suspect.numpy()[:, 4].all()            # the collinear month
