@@ -25,20 +25,37 @@ Phases (any failure exits non-zero without the final line):
    violations, counters only for conditioning), unguarded (every artifact
    bit-identical, the same launches: K1 17, K2 2, K3 0), and guarded again
    on the same audit directory (the drift check passes by sha);
-5. K1 std at every daily-strip shape the main path launched it at (read
+5. the same inputs through the prepared-inputs slot at real size:
+   ``save_prepared``, the memory-mapped ``load_prepared`` (and one load with
+   ``FMRP_PREPARED_VERIFY=1``), timed, then the main path from the mapped
+   arrays: bit-identical to the in-memory run, launches K1 17, K2 2, K3 0;
+6. K1 std at every daily-strip shape the main path launched it at (read
    from its counters), checked and timed, with the sum of launches × time;
-6. the same path at a mid size in float64 on the card and on the CPU (plain
+7. the same path at a mid size in float64 on the card and on the CPU (plain
    versions): Table 2's per-cell numbers (a coefficient at
    ``|d| <= 1e-8 * max(|b|, nw_se)``, its t-stat at ``1e-8 * max(|t|, 1)``,
    the rest at rtol 1e-8), Table 1, the decile table, the figure frames and
    the serving state;
-7. the raw-frame route (a 250-firm × 130-month synthetic universe, float64)
+8. the raw-frame route (a 250-firm × 130-month synthetic universe, float64)
    on the card and on the CPU: the enriched panel at rtol 1e-10, the tables
-   as in phase 6, the audit records equal;
-8. the command line, ``python -m fm_returnprediction_tpu_torch.pipeline
-   --synthetic --firms 1000 --months 240 --output-dir … --audit-dir …``, in
+   as in phase 7, the audit records equal;
+9. the command line, ``python -m fm_returnprediction_tpu_torch.pipeline
+   --synthetic --firms 250 --months 130 --output-dir … --audit-dir …``, in
    a subprocess: exit code, artifacts, stage seconds and launches (without
-   ``--output-dir`` when matplotlib or jinja2 does not import, said so).
+   ``--output-dir`` when matplotlib or jinja2 does not import, said so);
+10. a raw directory of 1,000 firms × 240 months (``write_synthetic_cache``)
+   through the command line three times: cold (the columnar route ran and
+   wrote the slot, no fallback warning), warm (the slot was mapped,
+   ``load_raw_data`` skipped) and by the legacy route with the slot off;
+   the sha256s of their tables and serving state in the drift manifests
+   are equal, and their launches are K1 8, K2 2, K3 0; then the host
+   ingest of both routes in five alternating pairs, in process with the
+   slot off (logged: medians, spreads, the pairs the columnar route won);
+11. on the same directory in float64, a run crashed by a fault plan at
+   ``pipeline.serving_state`` and resumed from its stage checkpoints (three
+   hits, K2 once for the figure sweep), bit-identical to an uncheckpointed
+   run; its artifact files (``make_figure=False``) held against a CPU
+   run's, and every stage checkpoint reloaded into the object it holds.
 
 The masked cumulative moments kernel has no caller on the main path (nor
 in the JAX package it mirrors); its row carries ``"launches": 0`` and says
@@ -53,6 +70,7 @@ line, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import importlib.util
 import json
 import os
@@ -64,11 +82,13 @@ import time
 from pathlib import Path
 
 import numpy as np
+import pandas as pd
 import torch
 
 from fm_returnprediction_tpu_torch.cuda_build import build_kernels
+from fm_returnprediction_tpu_torch.data import prepared
 from fm_returnprediction_tpu_torch.data.smoke_inputs import make_smoke_inputs
-from fm_returnprediction_tpu_torch.data.synthetic import SyntheticConfig
+from fm_returnprediction_tpu_torch.data.synthetic import SyntheticConfig, write_synthetic_cache
 from fm_returnprediction_tpu_torch.ops.rolling import (
     masked_cumulative_moments_cuda,
     masked_cumulative_moments_plain,
@@ -77,13 +97,19 @@ from fm_returnprediction_tpu_torch.ops.rolling import (
     rolling_reduce_cuda,
     rolling_reduce_plain,
 )
-from fm_returnprediction_tpu_torch.pipeline import run_pipeline
+from fm_returnprediction_tpu_torch.pipeline import load_or_build_panel, run_pipeline
+from fm_returnprediction_tpu_torch.registry.integrity import array_bundle_digest
+from fm_returnprediction_tpu_torch.resilience import checkpoint
+from fm_returnprediction_tpu_torch.resilience.errors import InjectedFault
+from fm_returnprediction_tpu_torch.resilience.faults import FaultPlan, FaultSpec
+from fm_returnprediction_tpu_torch.serving.state import ServingState
 from fm_returnprediction_tpu_torch.specgrid.grams import (
     contract_spec_grams_plain,
     gram_contract_cuda,
     shared_center,
     split_stats,
 )
+from fm_returnprediction_tpu_torch.utils.timing import StageTimer
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 FP32_FLOPS = 67e12            # H100 SXM FP32 outside the tensor cores
@@ -541,32 +567,42 @@ def check_main_path_result(res) -> None:
     check(int(st.have_coef().sum()) > 0, "serving state has no quotable month")
 
 
-def bit_differences(a, b) -> list:
-    """The artifacts of two runs that are not bit-identical."""
-    out = [name for name in ("table_1", "table_2", "decile_table")
-           if not getattr(a, name).equals(getattr(b, name))]
-    if any(not np.array_equal(np.asarray(v), np.asarray(b.table_2_cells[key][k]), equal_nan=True)
-           for key, cell in a.table_2_cells.items() for k, v in cell.items()):
-        out.append("table_2_cells")
-    if any(not frame.equals(b.figure_1[name]) for name, frame in a.figure_1.items()):
-        out.append("figure_1")
-    for leaf in ("coef", "slopes_bar", "intercept_bar", "x_lo", "x_hi", "gram", "moment",
-                 "n_obs", "ysum", "yy", "month_valid"):
-        if not np.array_equal(getattr(a.serving_state, leaf), getattr(b.serving_state, leaf),
-                              equal_nan=leaf != "month_valid"):
-            out.append(f"serving_state.{leaf}")
+SERVING_LEAVES = ("coef", "slopes_bar", "intercept_bar", "x_lo", "x_hi", "gram", "moment",
+                  "n_obs", "ysum", "yy", "month_valid")
+
+
+def artifact_digests(res) -> dict:
+    """A sha256 of each artifact of a run: each frame's CSV text (Table 1,
+    Table 2, the decile table, Figure 1's frames; exact for floats, which
+    print at round-trip precision), and the array-bundle digest of Table
+    2's per-cell numbers and of the serving state's leaves."""
+    frames = {name: getattr(res, name) for name in ("table_1", "table_2", "decile_table")}
+    frames.update({f"figure_1/{name}": frame for name, frame in (res.figure_1 or {}).items()})
+    out = {name: hashlib.sha256(frame.to_csv().encode()).hexdigest()
+           for name, frame in frames.items() if frame is not None}
+    out["table_2_cells"] = array_bundle_digest({
+        f"{model}|{subset}|{k}": np.asarray(v)
+        for (model, subset), cell in res.table_2_cells.items() for k, v in cell.items()})
+    if res.serving_state is not None:
+        out["serving_state"] = array_bundle_digest(
+            {leaf: getattr(res.serving_state, leaf) for leaf in SERVING_LEAVES})
     return out
 
 
-def main_path(seed: int, audit_dir: Path):
+def bit_differences(a, b) -> list:
+    """The artifacts of two runs that are not bit-identical."""
+    da, db = artifact_digests(a), artifact_digests(b)
+    return sorted(name for name in set(da) | set(db) if da.get(name) != db.get(name))
+
+
+MAIN_PATH_LAUNCHES = {"k1": 17, "k2": 2, "moments": 0}
+
+
+def main_path(base, daily, audit_dir: Path):
     """The main path at real size: guarded with the drift sentinel armed,
     then unguarded (bit-identical, same launches), then guarded again on
-    the same audit directory (the drift check passes by sha)."""
-    start = time.perf_counter()
-    base, daily = make_smoke_inputs(seed=seed, dtype=np.float32)
-    log(f"main path inputs: panel {base.values.shape} f32, "
-        f"{len(daily.row_values):,} daily rows over {daily.n_days} days, "
-        f"built in {time.perf_counter() - start:.1f} s")
+    the same audit directory (the drift check passes by sha). Returns the
+    first run's launch counts and artifact digests."""
     torch.cuda.reset_peak_memory_stats()
     res, wall, counts = counted_run(base, daily, guard=True, audit_dir=audit_dir)
     stages = res.stage_seconds
@@ -587,7 +623,7 @@ def main_path(seed: int, audit_dir: Path):
           "guarded main path: contract violations or quarantined artifacts")
     check(all(k.endswith(".cond_exceeded_months") for k in audit.counters),
           f"guarded main path: sentinel counters beyond conditioning: {dict(audit.counters)}")
-    check(counts["k1"] == 17 and counts["k2"] == 2 and counts["moments"] == 0,
+    check({k: counts[k] for k in MAIN_PATH_LAUNCHES} == MAIN_PATH_LAUNCHES,
           f"main path launched K1 {counts['k1']}, K2 {counts['k2']}, K3 "
           f"{counts['moments']} times, not 17, 2 and 0")
     check(by_kind.get("mean/w=120", 0) > 0,
@@ -616,9 +652,56 @@ def main_path(seed: int, audit_dir: Path):
         + json.dumps({k: round(v, 4) for k, v in again.stage_seconds.items()}))
     check(by_sha == ["decile_table", "serving_state", "table_1", "table_2"] and same_probe,
           "the second guarded run did not pass the drift check by sha")
+    digests = artifact_digests(res)
     del res, again
     torch.cuda.empty_cache()
-    return counts
+    return counts, digests
+
+
+def slot_phase(base, daily, digests: dict) -> None:
+    """The real-size inputs through the prepared-inputs slot: written
+    (``save_prepared``), mapped back (``load_prepared``), and run on the
+    card; the run is bit-identical to the main path's in-memory run, with
+    the same launches."""
+    with tempfile.TemporaryDirectory() as tmp:
+        slot = Path(tmp) / prepared.PREPARED_DIRNAME
+        fingerprint = "chip-smoke real-size slot"
+        start = time.perf_counter()
+        prepared.save_prepared(slot, fingerprint, base, daily)
+        save_s = time.perf_counter() - start
+        files = list(slot.iterdir())
+        slot_bytes = sum(p.stat().st_size for p in files)
+        start = time.perf_counter()
+        loaded = prepared.load_prepared(slot, fingerprint)
+        load_s = time.perf_counter() - start
+        check(loaded is not None, "the real-size slot did not load")
+        os.environ["FMRP_PREPARED_VERIFY"] = "1"
+        try:
+            start = time.perf_counter()
+            verified = prepared.load_prepared(slot, fingerprint)
+            verify_s = time.perf_counter() - start
+        finally:
+            del os.environ["FMRP_PREPARED_VERIFY"]
+        check(verified is not None, "the real-size slot failed its sha256 verification")
+        del verified
+        log(f"prepared slot at real size: {slot_bytes:,} bytes in {len(files)} files; "
+            f"save_prepared {save_s:.3f} s, load_prepared (memory-mapped) {load_s:.4f} s, "
+            f"load_prepared with FMRP_PREPARED_VERIFY=1 {verify_s:.3f} s (page cache warm: "
+            "the slot was just written)")
+        res, wall, counts = counted_run(*loaded)
+        del loaded
+        diffs = sorted(name for name, d in artifact_digests(res).items()
+                       if digests.get(name) != d)
+        launches = {k: counts[k] for k in MAIN_PATH_LAUNCHES}
+        log(f"main path from the mapped slot: wall {wall:.3f} s; launches {launches}; "
+            f"artifacts that differ in bits from the in-memory run {diffs}; stages (s): "
+            + json.dumps({k: round(v, 4) for k, v in res.stage_seconds.items()}))
+        check(not diffs, f"the run from the slot differs from the in-memory run in {diffs}")
+        check(launches == MAIN_PATH_LAUNCHES, f"the run from the slot launched {launches}")
+        del res
+    torch.cuda.empty_cache()
+
+
 
 
 def _cell_diffs(got: dict, ref: dict):
@@ -790,40 +873,55 @@ ARTIFACTS = ("data_saved.marker", "table_1.pkl", "table_1.tex", "table_2.pkl", "
              "research_report.tex")
 
 
-# The command line's synthetic universe: 1000 firms over 240 months, whose
-# host generation fits the smoke's time limit whole (see PERF.md, Cells).
+# The raw-directory command line's synthetic universe: 1000 firms over 240
+# months, written once and read by three runs; the --synthetic command line
+# runs at 250 x 130 (see PERF.md, Cells).
 CLI_FIRMS, CLI_MONTHS = 1000, 240
+SYNTHETIC_CLI_FIRMS, SYNTHETIC_CLI_MONTHS = 250, 130
+# Launches of each raw-directory command-line run at CLI_FIRMS x CLI_MONTHS:
+# K1 std over the daily strips, sum w=12 and w=24, the figure's mean roll and
+# four forecast means; K2 for Table 2 and the figure grid (PERF.md, Findings).
+RAW_CLI_LAUNCHES = {"k1": 8, "k2": 2, "moments": 0}
+STAGE_LINE = re.compile(r"^(\S+)\s+([0-9.]+)s$", re.MULTILINE)
+SKIPPED_LINE = re.compile(r"^(\S+)\s+skipped \((.*)\)$", re.MULTILINE)
+
+
+def run_cli(args, env=None) -> dict:
+    """The command line in a subprocess on the card: its wall time, stage
+    seconds, skipped stages (with reasons), launches and stderr."""
+    torch.cuda.empty_cache()
+    start = time.perf_counter()
+    done = subprocess.run([sys.executable, "-c", CLI_WRAPPER] + [str(a) for a in args],
+                          cwd=Path(__file__).resolve().parent, capture_output=True,
+                          text=True, timeout=600, env={**os.environ, **(env or {})})
+    wall = time.perf_counter() - start
+    check(done.returncode == 0, f"CLI {args} exited {done.returncode}: {done.stderr[-2000:]}")
+    return dict(
+        wall=wall, stderr=done.stderr,
+        stages={m.group(1): float(m.group(2)) for m in STAGE_LINE.finditer(done.stdout)},
+        skipped={m.group(1): m.group(2) for m in SKIPPED_LINE.finditer(done.stdout)},
+        launches=json.loads(done.stdout.split("CLI-LAUNCHES ", 1)[1].splitlines()[0]))
 
 
 def cli_phase() -> None:
-    """``python -m fm_returnprediction_tpu_torch.pipeline --synthetic`` in a
-    subprocess on the card, with artifacts and the drift sentinel."""
-    firms, months = CLI_FIRMS, CLI_MONTHS
+    """``python -m fm_returnprediction_tpu_torch.pipeline --synthetic`` on
+    the card, with artifacts and the drift sentinel."""
+    firms, months = SYNTHETIC_CLI_FIRMS, SYNTHETIC_CLI_MONTHS
     have = {m: importlib.util.find_spec(m) is not None
             for m in ("pyarrow", "matplotlib", "jinja2")}
     missing = [m for m in ("matplotlib", "jinja2") if not have[m]]
     log(f"artifact libraries here: {have}")
-    torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         out, audit = Path(tmp) / "out", Path(tmp) / "audit"
-        args = ["--synthetic", "--firms", str(firms), "--months", str(months),
-                "--audit-dir", str(audit)]
+        args = ["--synthetic", "--firms", firms, "--months", months, "--audit-dir", audit]
         if missing:
             log(f"CLI phase runs without --output-dir: {missing} do not import here")
         else:
-            args += ["--output-dir", str(out)]
-        start = time.perf_counter()
-        done = subprocess.run([sys.executable, "-c", CLI_WRAPPER] + args,
-                              cwd=Path(__file__).resolve().parent,
-                              capture_output=True, text=True, timeout=900)
-        wall = time.perf_counter() - start
-        check(done.returncode == 0,
-              f"CLI exited {done.returncode}: {done.stderr[-2000:]}")
-        stages = {m.group(1): float(m.group(2)) for m in
-                  re.finditer(r"^(\S+)\s+([0-9.]+)s$", done.stdout, re.MULTILINE)}
-        launches = json.loads(done.stdout.split("CLI-LAUNCHES ", 1)[1].splitlines()[0])
+            args += ["--output-dir", out]
+        run = run_cli(args)
+        stages, launches = run["stages"], run["launches"]
         made = sorted(os.listdir(out)) if out.exists() else []
-        log(f"CLI --synthetic --firms {firms} --months {months}: exit 0 in {wall:.1f} s, "
+        log(f"CLI --synthetic --firms {firms} --months {months}: exit 0 in {run['wall']:.1f} s, "
             f"generation {stages.get('load_raw_data', float('nan')):.2f} s; stages (s) "
             f"{json.dumps(stages)}; launches {launches}; artifacts {made}; audit "
             f"{sorted(os.listdir(audit))}")
@@ -835,6 +933,216 @@ def cli_phase() -> None:
         if not missing:
             check(set(ARTIFACTS) <= set(made), f"CLI artifacts missing: "
                   f"{sorted(set(ARTIFACTS) - set(made))}")
+
+
+def raw_cli_phase(raw: Path) -> None:
+    """``python -m fm_returnprediction_tpu_torch.pipeline --raw-data-dir``
+    three times on one raw directory: cold (the columnar route writes the
+    prepared slot), warm (the slot is mapped), and by the legacy route with
+    the slot off. Each run's drift manifest carries the sha256 of its Table
+    1, Table 2, decile table and serving state: they are equal across the
+    three."""
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, env in (("cold", {}), ("warm", {}),
+                          ("legacy", {"FMRP_PANEL_ROUTE": "legacy", "PREPARED_CACHE": "0"})):
+            audit = Path(tmp) / name
+            run = run_cli(["--raw-data-dir", raw, "--audit-dir", audit], env)
+            manifest = json.loads((audit / "audit.json").read_text())["artifacts"]
+            run["sha256"] = {k: manifest[k]["sha256"] for k in
+                             ("table_1", "table_2", "decile_table", "serving_state")}
+            runs[name] = run
+            log(f"CLI --raw-data-dir ({name}{', ' + str(env) if env else ''}): exit 0 in "
+                f"{run['wall']:.1f} s; stages (s) {json.dumps(run['stages'])}; skipped "
+                f"{run['skipped']}; launches {run['launches']}; sha256 {run['sha256']}")
+    cold, warm, legacy = runs["cold"], runs["warm"], runs["legacy"]
+    check({"panel/monthly_ingest", "factors/daily_ingest", "build_panel/save_prepared"}
+          <= set(cold["stages"]), f"cold CLI run: the columnar route did not run: {cold['stages']}")
+    check("falling back to the legacy" not in cold["stderr"],
+          "cold CLI run: the columnar route fell back to the legacy route")
+    check("load_prepared" in warm["stages"]
+          and not {"load_raw_data", "factors/daily_ingest", "panel/monthly_ingest"}
+          & set(warm["stages"])
+          and warm["skipped"].get("load_raw_data") == "prepared checkpoint hit",
+          f"warm CLI run did not map the slot: {warm['stages']} {warm['skipped']}")
+    check({"load_raw_data", "panel/universe_filter", "factors/long_to_dense"}
+          <= set(legacy["stages"]) and "load_prepared" not in legacy["stages"],
+          f"legacy CLI run: {legacy['stages']}")
+    check(cold["sha256"] == warm["sha256"] == legacy["sha256"],
+          "the three raw-directory CLI runs differ in their artifacts' sha256")
+    for name, run in runs.items():
+        got = {k: run["launches"][k] for k in RAW_CLI_LAUNCHES}
+        check(got == RAW_CLI_LAUNCHES, f"{name} CLI run launched {got}, not {RAW_CLI_LAUNCHES}")
+    check(cold["launches"] == warm["launches"] == legacy["launches"],
+          "the three raw-directory CLI runs launched differently by shape")
+    log(f"host ingest at {CLI_FIRMS} x {CLI_MONTHS} in these single runs: columnar (cold) "
+        f"{host_ingest_seconds(cold['stages']):.3f} s, legacy "
+        f"{host_ingest_seconds(legacy['stages']):.3f} s")
+
+
+# The stages that read the raw files, up to the panel's host arrays.
+INGEST_STAGES = ("load_raw_data", "factors/daily_ingest", "factors/long_to_dense")
+INGEST_PAIRS = 5
+
+
+def host_ingest_seconds(stages: dict) -> float:
+    return sum(v for k, v in stages.items() if k.startswith("panel/") or k in INGEST_STAGES)
+
+
+def ingest_pairs_phase(raw: Path) -> None:
+    """The host ingest of the raw directory by the columnar and the legacy
+    route, in process with the prepared slot off: INGEST_PAIRS pairs in
+    alternating order (the host's speed drifts within a call, so single
+    runs do not compare the routes). Logs each route's median, the spread
+    between its quartiles and the pairs the columnar route won."""
+    times = {"columnar": [], "legacy": []}
+    won = 0
+    saved = {k: os.environ.get(k) for k in ("FMRP_PANEL_ROUTE", "PREPARED_CACHE")}
+    try:
+        os.environ["PREPARED_CACHE"] = "0"
+        for i in range(INGEST_PAIRS):
+            pair = {}
+            for route in (("columnar", "legacy") if i % 2 == 0 else ("legacy", "columnar")):
+                os.environ["FMRP_PANEL_ROUTE"] = route
+                timer = StageTimer("cuda")
+                load_or_build_panel(raw, dtype=torch.float32, device="cuda", timer=timer)
+                pair[route] = host_ingest_seconds(timer.durations)
+                times[route].append(pair[route])
+            won += pair["columnar"] < pair["legacy"]
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    summary = {route: {"median": float(np.median(t)),
+                       "quartile_spread": float(np.subtract(*np.percentile(t, [75, 25]))),
+                       "runs": t} for route, t in times.items()}
+    log(f"host ingest at {CLI_FIRMS} x {CLI_MONTHS}, float32, {INGEST_PAIRS} alternating pairs "
+        f"in process: {json.dumps(summary)}; columnar faster in {won} of {INGEST_PAIRS} pairs, "
+        f"legacy / columnar medians "
+        f"{summary['legacy']['median'] / summary['columnar']['median']:.2f}")
+
+
+NUMBER = re.compile(r"-?\d[\d,]*\.?\d*(?:e[-+]?\d+)?")
+
+
+def compare_artifact_files(gpu_dir: Path, cpu_dir: Path) -> None:
+    """The artifacts a card run and a CPU run wrote at float64: the pickled
+    frames and the serving state at the card-vs-CPU tolerances (PERF.md,
+    Layers); a ``.tex`` file equal as text, or its differing cells named
+    (their layout must be equal)."""
+    names = sorted(os.listdir(gpu_dir))
+    check(names == sorted(os.listdir(cpu_dir)), f"artifact files differ: {names} vs "
+          f"{sorted(os.listdir(cpu_dir))}")
+    t1g, t1c = (pd.read_pickle(d / "table_1.pkl") for d in (gpu_dir, cpu_dir))
+    n_cols = [c for c in t1c.columns if c[1] == "N"]
+    t1_worst = _rel_worst(t1g.drop(columns=n_cols).to_numpy(), t1c.drop(columns=n_cols).to_numpy(),
+                          "table_1.pkl")
+    check(t1g[n_cols].equals(t1c[n_cols]) and t1_worst <= 1e-10, "table_1.pkl beyond tolerance")
+    t2g, t2c = (pd.read_pickle(d / "table_2.pkl") for d in (gpu_dir, cpu_dir))
+    t2_cells = [(row, col, t2g.loc[row, col], t2c.loc[row, col]) for row in t2c.index
+                for col in t2c.columns if t2g.loc[row, col] != t2c.loc[row, col]]
+    check(t2g.shape == t2c.shape and all(
+        abs(float(a.replace(",", "")) - float(b.replace(",", ""))) <= 1.0001e-3
+        for *_, a, b in t2_cells), f"table_2.pkl: cells beyond a rounding step {t2_cells}")
+    dg, dc = (pd.read_pickle(d / "decile_sorts.pkl") for d in (gpu_dir, cpu_dir))
+    dec_worst = _rel_worst(dg.drop(index="Months").to_numpy(), dc.drop(index="Months").to_numpy(),
+                           "decile_sorts.pkl")
+    check(dg.loc["Months"].equals(dc.loc["Months"]) and dec_worst <= 1e-8,
+          "decile_sorts.pkl beyond tolerance")
+    sg, sc = (ServingState.load(d / "serving_state.npz") for d in (gpu_dir, cpu_dir))
+    st_worst = max(_rel_worst(getattr(sg, k), getattr(sc, k), f"serving_state.npz {k}")
+                   for k in ("coef", "slopes_bar", "intercept_bar"))
+    bounds = max(_rel_worst(getattr(sg, k), getattr(sc, k), f"serving_state.npz {k}")
+                 for k in ("x_lo", "x_hi"))
+    check(st_worst <= 1e-8 and bounds <= 1e-10 and all(
+        np.array_equal(getattr(sg, k), getattr(sc, k)) for k in ("n_obs", "month_valid")),
+        "serving_state.npz beyond tolerance")
+    tex = {}
+    for name in (n for n in names if n.endswith(".tex")):
+        lg, lc = ((d / name).read_text().splitlines() for d in (gpu_dir, cpu_dir))
+        check(len(lg) == len(lc) and all(NUMBER.sub("#", a) == NUMBER.sub("#", b)
+                                         for a, b in zip(lg, lc)),
+              f"{name}: the card's and the CPU's files differ beyond their numbers")
+        tex[name] = [(i + 1, x, y) for i, (a, b) in enumerate(zip(lg, lc))
+                     for x, y in zip(NUMBER.findall(a), NUMBER.findall(b)) if x != y]
+    log(f"artifact files card vs CPU (float64): {names}; table_1.pkl Avg/Std worst rel diff "
+        f"{t1_worst:.3e} (tol 1e-10), N exact; table_2.pkl formatted cells that differ "
+        f"{t2_cells}; decile_sorts.pkl worst rel diff {dec_worst:.3e} (tol 1e-8); "
+        f"serving_state.npz coef/slopes/intercept {st_worst:.3e} (tol 1e-8), bounds "
+        f"{bounds:.3e} (tol 1e-10); .tex cells that differ (line, card, CPU): "
+        + json.dumps({k: v[:8] + ([f"... {len(v) - 8} more"] if len(v) > 8 else [])
+                      for k, v in tex.items()}))
+
+
+def resume_phase(raw: Path) -> None:
+    """``run_pipeline`` on the raw directory at float64 with stage
+    checkpoints: a fault plan crashes the run once at
+    ``pipeline.serving_state``; the rerun loads Table 1, Table 2 and the
+    decile table from their checkpoints, launches K2 only for the figure
+    sweep and writes the artifacts (``make_figure=False``: matplotlib may
+    not import here). Its tables and serving state are bit-identical to an
+    uncheckpointed run on the card, its files agree with a CPU run's, and
+    every stage checkpoint reloads into the object it holds."""
+    kw = dict(raw_data_dir=raw, dtype=torch.float64, make_figure=False)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        ckpt = tmp / "ckpt"
+        with FaultPlan({"pipeline.serving_state": FaultSpec(times=1)}) as plan:
+            try:
+                run_pipeline(device="cuda", checkpoint_dir=ckpt, **kw)
+                crashed = False
+            except InjectedFault:
+                crashed = True
+        saved = sorted(os.listdir(ckpt))
+        check(crashed and plan.fired["pipeline.serving_state"] == 1,
+              "the fault plan did not crash the run at pipeline.serving_state")
+        before = dict(checkpoint.OUTCOMES)
+        reset_counts()
+        start = time.perf_counter()
+        resumed = run_pipeline(device="cuda", checkpoint_dir=ckpt, output_dir=tmp / "cuda", **kw)
+        wall = time.perf_counter() - start
+        counts = launch_counts()
+        outcomes = {k: checkpoint.OUTCOMES[k] - before.get(k, 0)
+                    for k in ("hit", "miss", "corrupt", "save")}
+        by_key = dict(gram_contract_cuda.launches_by_key)
+        k1_by_key = dict(rolling_reduce_cuda.launches_by_key)
+        fresh = run_pipeline(device="cuda", **kw)
+        diffs = bit_differences(resumed, fresh)
+        log(f"resume on the card (raw {CLI_FIRMS} x {CLI_MONTHS}, float64): checkpoints after "
+            f"the crash {saved}; rerun wall {wall:.3f} s, checkpoint outcomes {outcomes}, "
+            f"launches K1 {counts['k1']} {k1_by_key} K2 "
+            f"{counts['k2']} {by_key} K3 {counts['moments']}; "
+            f"stages (s) {json.dumps({k: round(v, 4) for k, v in resumed.stage_seconds.items()})}"
+            f"; artifacts that differ in bits from an uncheckpointed run {diffs}")
+        check(saved == ["decile_table.pkl", "manifest.json", "table_1.pkl", "table_2.pkl"],
+              f"checkpoints after the crash: {saved}")
+        check(outcomes == {"hit": 3, "miss": 1, "corrupt": 0, "save": 1},
+              f"the rerun's checkpoint outcomes {outcomes}")
+        check(by_key == {"P=5,S=3": 1}, f"the rerun launched K2 {by_key}, not once for the "
+              "figure sweep")
+        check(not diffs, f"the resumed run differs from an uncheckpointed run in {diffs}")
+
+        reloaded = {name: pd.read_pickle(ckpt / f"{name}.pkl")
+                    for name in ("table_1", "table_2", "decile_table")}
+        state = ServingState.load(ckpt / "serving_state.npz")
+        check(reloaded["table_1"].equals(fresh.table_1)
+              and reloaded["decile_table"].equals(fresh.decile_table)
+              and array_bundle_digest({f"{m}|{u}|{k}": np.asarray(v)
+                                       for (m, u), c in reloaded["table_2"].items()
+                                       for k, v in c.items()})
+              == artifact_digests(fresh)["table_2_cells"]
+              and all(np.array_equal(getattr(state, leaf), getattr(fresh.serving_state, leaf),
+                                     equal_nan=leaf != "month_valid")
+                      for leaf in SERVING_LEAVES),
+              "a stage checkpoint does not reload into the object it holds")
+        del resumed, fresh
+        cpu = run_pipeline(device="cpu", output_dir=tmp / "cpu", **kw)
+        check(cpu.timer.skipped.get("load_raw_data") == "prepared checkpoint hit",
+              "the CPU run did not map the slot the card runs wrote")
+        del cpu
+        compare_artifact_files(tmp / "cuda", tmp / "cpu")
 
 
 def main(argv=None) -> int:
@@ -869,12 +1177,28 @@ def main(argv=None) -> int:
         log("kernels-only run: kernel phases passed")
         return 0
 
+    start = time.perf_counter()
+    base, daily = make_smoke_inputs(seed=args.seed, dtype=np.float32)
+    log(f"main path inputs: panel {base.values.shape} f32, "
+        f"{len(daily.row_values):,} daily rows over {daily.n_days} days, "
+        f"built in {time.perf_counter() - start:.1f} s")
     with tempfile.TemporaryDirectory() as audit_dir:
-        counts = main_path(args.seed, Path(audit_dir))
+        counts, digests = main_path(base, daily, Path(audit_dir))
+    slot_phase(base, daily, digests)
+    del base, daily
     rows += strip_phase(gen, counts)
     card_vs_cpu(args.seed)
     ingest_vs_cpu()
     cli_phase()
+    with tempfile.TemporaryDirectory() as tmp:
+        raw = Path(tmp) / "raw"
+        start = time.perf_counter()
+        write_synthetic_cache(raw, SyntheticConfig(n_firms=CLI_FIRMS, n_months=CLI_MONTHS))
+        log(f"raw directory {CLI_FIRMS} firms x {CLI_MONTHS} months written in "
+            f"{time.perf_counter() - start:.1f} s")
+        raw_cli_phase(raw)
+        ingest_pairs_phase(raw)
+        resume_phase(raw)
 
     for row in rows:
         row["launches"] = counts.get(row.pop("key"), 0)

@@ -30,6 +30,8 @@ import numpy as np
 import pandas as pd
 from pandas.tseries.offsets import MonthEnd
 
+from fm_returnprediction_tpu_torch.utils.cache import save_cache_data
+
 __all__ = ["FILE_NAMES", "SyntheticConfig", "generate_synthetic_wrds", "write_synthetic_cache"]
 
 # Canonical cache file names (reference ``src/calc_Lewellen_2014.py:1236-1240``)
@@ -264,13 +266,8 @@ def generate_synthetic_wrds(cfg: SyntheticConfig | None = None) -> Dict[str, pd.
 def write_synthetic_cache(
     raw_data_dir: Path, cfg: SyntheticConfig | None = None
 ) -> Dict[str, Path]:
-    """Persist the synthetic datasets under the pipeline's cache file names."""
+    """Persist the synthetic datasets under the pipeline's cache file names
+    (parquet, each written atomically by ``utils.cache.save_cache_data``)."""
     data = generate_synthetic_wrds(cfg)
-    raw_data_dir = Path(raw_data_dir)
-    raw_data_dir.mkdir(parents=True, exist_ok=True)
-    paths = {}
-    for key, name in FILE_NAMES.items():
-        path = raw_data_dir / name
-        data[key].to_parquet(path, index=False)
-        paths[key] = path
-    return paths
+    return {key: save_cache_data(data[key], raw_data_dir, file_name=name)
+            for key, name in FILE_NAMES.items()}

@@ -210,13 +210,16 @@ def screen_artifact(
 
 
 def numpy_dtype(a) -> np.dtype:
-    """The numpy dtype of an array, a torch tensor or a torch dtype (the
-    contracts and the run fingerprint speak numpy's dtype vocabulary)."""
+    """The numpy dtype of an array, a torch tensor, a torch dtype or a
+    numpy dtype or scalar type (the contracts and the fingerprints speak
+    numpy's dtype vocabulary)."""
     if isinstance(a, torch.Tensor):
         a = a.dtype
     if isinstance(a, torch.dtype):
         return torch.empty((), dtype=a).numpy().dtype
-    return np.dtype(getattr(a, "dtype", a))
+    if isinstance(a, (type, np.dtype, str)):
+        return np.dtype(a)
+    return np.dtype(a.dtype)
 
 
 def panel_probe(panel) -> dict:
@@ -237,7 +240,8 @@ def panel_probe(panel) -> dict:
         torch.where(finite, values, float("-inf")).amax(dim=(0, 1)).to(torch.float64),
     ])
     del finite, vz
-    mask_counts = torch.as_tensor(np.asarray(panel.mask)).sum(dim=1)
+    # a copy: the mask may be a read-only map of a prepared-inputs slot
+    mask_counts = torch.tensor(np.asarray(panel.mask)).sum(dim=1)
     cnt, inf_cnt, total, total2, vmin, vmax = summary.cpu().numpy()
     mask_counts = mask_counts.numpy()
     cnt = cnt.astype(np.int64)

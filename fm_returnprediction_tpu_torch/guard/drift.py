@@ -35,7 +35,7 @@ import numpy as np
 
 from fm_returnprediction_tpu_torch.guard.contracts import AuditRecord, Violation
 from fm_returnprediction_tpu_torch.resilience.errors import DriftDetectedError
-from fm_returnprediction_tpu_torch.utils.cache import array_bundle_digest
+from fm_returnprediction_tpu_torch.registry.integrity import array_bundle_digest
 
 __all__ = [
     "DriftBand",
@@ -111,7 +111,7 @@ def summarize_frame(df) -> dict:
 
 def summarize_arrays(arrays: Dict[str, np.ndarray]) -> dict:
     """Summary of a named array bundle (e.g. the serving state's leaves);
-    the content hash is ``utils.cache.array_bundle_digest``, the digest the
+    the content hash is ``registry.integrity.array_bundle_digest``, the digest the
     array-bundle files embed."""
     columns = {}
     for name in sorted(arrays):

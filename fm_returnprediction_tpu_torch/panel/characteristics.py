@@ -210,13 +210,13 @@ def get_factors(
             f"compact_daily was built against {cd.n_months} months but the "
             f"monthly panel has {len(panel.months)}"
         )
-    with timer.stage("daily_kernels"):
+    with timer.stage("factors/daily_kernels"):
         vol_np, beta_np = daily_characteristics_compact_chunked(
             cd.row_values, cd.row_pos, cd.offsets, cd.mkt, cd.mkt_present,
             cd.day_month_id, cd.week_id, cd.week_month_id,
             cd.n_days, cd.n_weeks, cd.n_months, device=device, dtype=dtype,
         )
-    with timer.stage("daily_merge"):
+    with timer.stage("factors/daily_merge"):
         # left-merge the daily firm columns onto the monthly permno vocabulary
         daily_ids = cd.ids
         pos = np.searchsorted(daily_ids, panel.ids)
@@ -226,7 +226,7 @@ def get_factors(
         vol_m = np.where(keep, vol_np[:, pos_c], np.nan)
         beta_m = np.where(keep, beta_np[:, pos_c], np.nan)
 
-    with timer.stage("characteristics_winsorize"):
+    with timer.stage("factors/characteristics_winsorize"):
         var_index = {name: panel.var_index(name) for name in base_columns}
         values = torch.tensor(np.asarray(panel.values), dtype=dtype,
                                  device=device)

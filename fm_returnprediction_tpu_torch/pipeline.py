@@ -14,13 +14,21 @@ the host ingest runs on the compute device.
     res = run_pipeline(dense_base, compact_daily)            # prepared inputs
 
     python -m fm_returnprediction_tpu_torch.pipeline --synthetic --output-dir _output
-    python -m fm_returnprediction_tpu_torch.pipeline --synthetic --device cpu
+    python -m fm_returnprediction_tpu_torch.pipeline --raw-data-dir _data/raw \
+        --checkpoint-dir _ckpt --device cpu
 
-The dtype comes from ``dtype=`` or the ``DTYPE`` environment variable
-(default ``float32``); the guard switch from ``guard=`` or ``FMRP_GUARD``
-(default on). Figure 1 is returned as the rolling-slope frames it plots
-(``PipelineResult.figure_1``); it is drawn only to write ``figure_1.pdf``
-under ``output_dir``, which needs matplotlib.
+A raw directory is read by the columnar route (``panel.columnar``;
+``FMRP_PANEL_ROUTE=legacy`` selects the pandas route) and its host products
+are kept in a prepared-inputs slot (``data.prepared``, ``<raw>/_prepared``;
+``PREPARED_CACHE=0`` disables it), which a warm run maps and takes straight
+to the device stages (``load_or_build_panel``). ``checkpoint_dir`` keeps
+each completed reporting stage (``resilience.checkpoint``), so a crashed
+run resumes at its last completed stage. The dtype comes from ``dtype=``
+or the ``DTYPE`` environment variable (default ``float32``); the guard
+switch from ``guard=`` or ``FMRP_GUARD`` (default on). Figure 1 is
+returned as the rolling-slope frames it plots (``PipelineResult.figure_1``);
+it is drawn only to write ``figure_1.pdf`` under ``output_dir``, which
+needs matplotlib.
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ import dataclasses
 import hashlib
 import json
 import os
+import warnings
 from pathlib import Path
 from typing import Dict, Optional, Tuple
 
@@ -36,6 +45,8 @@ import numpy as np
 import pandas as pd
 import torch
 
+from fm_returnprediction_tpu_torch.data import prepared as _prepared
+from fm_returnprediction_tpu_torch.data.columnar import ColumnarIngestError
 from fm_returnprediction_tpu_torch.data.synthetic import (
     FILE_NAMES,
     SyntheticConfig,
@@ -49,6 +60,7 @@ from fm_returnprediction_tpu_torch.device import resolve_device
 from fm_returnprediction_tpu_torch.guard import checks as _guard_checks
 from fm_returnprediction_tpu_torch.guard import contracts as _contracts
 from fm_returnprediction_tpu_torch.panel.characteristics import BASE_COLUMNS, get_factors
+from fm_returnprediction_tpu_torch.panel.columnar import build_panel_columnar
 from fm_returnprediction_tpu_torch.panel.daily import CompactDaily, build_compact_daily
 from fm_returnprediction_tpu_torch.panel.dense import DensePanel, long_to_dense
 from fm_returnprediction_tpu_torch.panel.subsets import compute_subset_masks
@@ -79,6 +91,8 @@ from fm_returnprediction_tpu_torch.reporting.table2 import (
     format_table_2,
     table_2_cells,
 )
+from fm_returnprediction_tpu_torch.resilience.checkpoint import StageCheckpointer
+from fm_returnprediction_tpu_torch.resilience.faults import fault_site
 from fm_returnprediction_tpu_torch.serving.state import (
     ServingState,
     build_serving_state_from_panel,
@@ -92,6 +106,8 @@ __all__ = [
     "load_raw_data",
     "build_panel",
     "build_panel_prepared",
+    "load_or_build_panel",
+    "panel_route",
     "resolve_dtype",
     "run_pipeline",
 ]
@@ -121,6 +137,18 @@ def resolve_dtype(dtype=None) -> torch.dtype:
     return _TORCH_DTYPES[name]
 
 
+def panel_route() -> str:
+    """The ingest route of a raw-directory build: ``"columnar"`` (default;
+    chunked Arrow reads + vectorized numpy joins, ``panel.columnar``) or
+    ``"legacy"`` (pandas frames + relational merges). Read from
+    ``FMRP_PANEL_ROUTE`` at each call; the two routes give bit-identical
+    panels."""
+    route = os.environ.get("FMRP_PANEL_ROUTE", "columnar").strip().lower()
+    if route not in ("columnar", "legacy"):
+        raise ValueError(f"FMRP_PANEL_ROUTE must be 'columnar' or 'legacy', got {route!r}")
+    return route
+
+
 def _resolve_turnover(include_turnover: Optional[bool]) -> bool:
     """``include_turnover``, else the ``INCLUDE_TURNOVER`` environment
     variable (default 0): the opt-in 16th characteristic."""
@@ -139,10 +167,10 @@ def _default_raw_data_dir() -> Path:
 
 
 def _pipeline_fingerprint(panel, dtype, salt: str = "") -> str:
-    """The drift sentinel's key: the panel's identity axes (months, ids,
-    variables, shape) + compute dtype + a data-provenance salt. The same
-    definition as the reference package's, so both packages key the same
-    panel alike."""
+    """The key of the stage checkpoints and the drift sentinel: the panel's
+    identity axes (months, ids, variables, shape) + compute dtype + a
+    data-provenance salt. The same definition as the reference package's,
+    so both packages key the same panel alike."""
     h = hashlib.sha256()
     h.update(f"{_contracts.numpy_dtype(dtype).str}|{salt}|"
              f"{tuple(panel.values.shape)}|".encode())
@@ -150,18 +178,6 @@ def _pipeline_fingerprint(panel, dtype, salt: str = "") -> str:
              .astype(np.int64).tobytes())
     h.update(np.ascontiguousarray(panel.ids).tobytes())
     h.update("|".join(panel.var_names).encode())
-    return h.hexdigest()
-
-
-def _raw_fingerprint(raw_data_dir, dtype) -> str:
-    """Provenance salt of a raw cache directory: each raw file's (name,
-    size, mtime_ns) and the compute dtype, keyed as the reference package's
-    prepared-inputs checkpoint keys it."""
-    h = hashlib.sha256()
-    h.update(f"v3|{_contracts.numpy_dtype(dtype).str}|".encode())
-    for name in sorted(RAW_FILE_NAMES.values()):
-        st = (Path(raw_data_dir) / name).stat()
-        h.update(f"|{name}:{st.st_size}:{st.st_mtime_ns}".encode())
     return h.hexdigest()
 
 
@@ -178,6 +194,7 @@ class PipelineResult:
     decile_table: Optional[pd.DataFrame]
     serving_state: Optional[ServingState]
     stage_seconds: Dict[str, float]         # device-synchronized wall time
+    timer: StageTimer                       # stage_seconds, the skipped stages, report()
     # the guard ledger: contract violations, numerical sentinel counters
     # and quarantined artifacts (empty when clean or guards disabled)
     audit: _contracts.AuditRecord
@@ -206,46 +223,53 @@ def build_panel(
     device=None,
     include_turnover: Optional[bool] = None,
     timer: Optional[StageTimer] = None,
+    capture: Optional[dict] = None,
 ) -> Tuple[DensePanel, Dict[str, str]]:
-    """Raw frames → merged monthly panel → enriched characteristic panel.
+    """Raw frames → merged monthly panel → enriched characteristic panel
+    (the legacy pandas route).
 
     The common-stock/exchange universe filter is applied to both the
     monthly and the daily rows. The host ingest (filter, market equity,
     Compustat expansion, CCM merge, daily compaction, ``long_to_dense``)
     runs in ``dtype``'s numpy dtype; ``get_factors`` then computes the
-    characteristics on ``device``."""
+    characteristics on ``device``. ``capture``, when a dict, receives the
+    two host products, ``dense_base`` and ``compact_daily``, for the
+    prepared-inputs slot."""
     device = resolve_device(device)
     timer = timer or StageTimer(device)
     np_dtype = _contracts.numpy_dtype(dtype)
     include_turnover = _resolve_turnover(include_turnover)
-    with timer.stage("panel/universe_filter"):
-        crsp_m = subset_to_common_stock_and_exchanges(data["crsp_m"])
-        crsp_d = subset_to_common_stock_and_exchanges(
-            data["crsp_d"], columns=["permno", "dlycaldt", "retx"])
-    with timer.stage("panel/market_equity"):
-        crsp = calculate_market_equity(crsp_m)
-    with timer.stage("panel/compustat"):
-        comp = add_report_date(data["comp"].copy())
-        comp = calc_book_equity(comp)
-        comp = expand_compustat_annual_to_monthly(comp)
-    with timer.stage("panel/ccm_merge"):
-        merged = merge_CRSP_and_Compustat(crsp, comp, data["ccm"])
-    with timer.stage("daily_ingest"):
-        # the month vocabulary long_to_dense derives from ``merged``
-        months = np.unique(merged["jdate"].to_numpy())
-        daily = build_compact_daily(crsp_d, data["crsp_index_d"], months,
-                                    dtype=np_dtype)
-    with timer.stage("long_to_dense"):
-        columns = list(BASE_COLUMNS)
-        if include_turnover:
-            if "vol" not in merged.columns:
-                raise KeyError("include_turnover needs a 'vol' column in the "
-                               "monthly CRSP frame")
-            columns.append("vol")
-        merged["is_nyse"] = (merged["primaryexch"] == "N").astype(float)
-        base = long_to_dense(merged, "jdate", "permno", columns, dtype=np_dtype)
-    return get_factors(base, daily, dtype=dtype, device=device,
-                       include_turnover=include_turnover, timer=timer)
+    with timer.ensure_stage("build_panel"):
+        with timer.stage("panel/universe_filter"):
+            crsp_m = subset_to_common_stock_and_exchanges(data["crsp_m"])
+            crsp_d = subset_to_common_stock_and_exchanges(
+                data["crsp_d"], columns=["permno", "dlycaldt", "retx"])
+        with timer.stage("panel/market_equity"):
+            crsp = calculate_market_equity(crsp_m)
+        with timer.stage("panel/compustat"):
+            comp = add_report_date(data["comp"].copy())
+            comp = calc_book_equity(comp)
+            comp = expand_compustat_annual_to_monthly(comp)
+        with timer.stage("panel/ccm_merge"):
+            merged = merge_CRSP_and_Compustat(crsp, comp, data["ccm"])
+        with timer.stage("factors/daily_ingest"):
+            # the month vocabulary long_to_dense derives from ``merged``
+            months = np.unique(merged["jdate"].to_numpy())
+            daily = build_compact_daily(crsp_d, data["crsp_index_d"], months,
+                                        dtype=np_dtype)
+        with timer.stage("factors/long_to_dense"):
+            columns = list(BASE_COLUMNS)
+            if include_turnover:
+                if "vol" not in merged.columns:
+                    raise KeyError("include_turnover needs a 'vol' column in the "
+                                   "monthly CRSP frame")
+                columns.append("vol")
+            merged["is_nyse"] = (merged["primaryexch"] == "N").astype(float)
+            base = long_to_dense(merged, "jdate", "permno", columns, dtype=np_dtype)
+        if capture is not None:
+            capture["dense_base"], capture["compact_daily"] = base, daily
+        return get_factors(base, daily, dtype=dtype, device=device,
+                           include_turnover=include_turnover, timer=timer)
 
 
 def build_panel_prepared(
@@ -257,8 +281,91 @@ def build_panel_prepared(
     timer: Optional[StageTimer] = None,
 ) -> Tuple[DensePanel, Dict[str, str]]:
     """The enriched characteristic panel from the prepared inputs."""
-    return get_factors(dense_base, compact_daily, dtype=dtype, device=device,
-                       include_turnover=include_turnover, timer=timer)
+    timer = timer or StageTimer(resolve_device(device))
+    with timer.ensure_stage("build_panel"):
+        return get_factors(dense_base, compact_daily, dtype=dtype, device=device,
+                           include_turnover=include_turnover, timer=timer)
+
+
+def load_or_build_panel(
+    raw_data_dir,
+    dtype=None,
+    device=None,
+    include_turnover: Optional[bool] = None,
+    timer: Optional[StageTimer] = None,
+) -> Tuple[DensePanel, Dict[str, str]]:
+    """The enriched panel from a raw cache directory, through its
+    prepared-inputs slot.
+
+    A slot valid for the current raw files (``data.prepared``) is mapped
+    and taken straight to the device stages (``load_prepared``, then
+    ``build_panel``; ``load_raw_data`` is marked skipped). Otherwise the
+    raw parquet is ingested by the route ``panel_route()`` names — the
+    columnar route streams its reads inside ``build_panel``
+    (``panel/monthly_ingest`` … ``factors/daily_ingest``) and marks
+    ``load_raw_data`` skipped; a :class:`ColumnarIngestError` warns and
+    falls back to the legacy route — and the slot is written
+    (``build_panel/save_prepared``). ``dtype=None`` follows ``DTYPE`` and
+    ``include_turnover=None`` follows ``INCLUDE_TURNOVER``, resolved here so
+    every caller lands on the same slot."""
+    device = resolve_device(device)
+    dtype = resolve_dtype(dtype)
+    include_turnover = _resolve_turnover(include_turnover)
+    timer = timer or StageTimer(device)
+
+    prepared = prepared_dir = fingerprint = None
+    if _prepared.prepared_enabled():
+        candidates = _prepared.prepared_candidates(raw_data_dir)
+        prepared_dir = candidates[0]
+        # the turnover flag changes the base column set, so it is in the key
+        fingerprint = _prepared.raw_fingerprint(
+            raw_data_dir, dtype, salt=f"turnover={int(include_turnover)}")
+        with timer.stage("load_prepared"):
+            for candidate in candidates:
+                prepared = _prepared.load_prepared(candidate, fingerprint)
+                if prepared is not None:
+                    break
+    if prepared is not None:
+        base, daily = prepared
+        timer.mark_skipped("load_raw_data", "prepared checkpoint hit")
+        with timer.stage("build_panel"):
+            return build_panel_prepared(base, daily, dtype=dtype, device=device,
+                                        include_turnover=include_turnover, timer=timer)
+
+    capture = {} if prepared_dir is not None else None
+
+    def save_slot():
+        if capture is not None:
+            # nested name: this runs inside the build_panel stage
+            with timer.stage("build_panel/save_prepared"):
+                _prepared.save_prepared(prepared_dir, fingerprint,
+                                        capture["dense_base"], capture["compact_daily"])
+
+    if panel_route() == "columnar":
+        # the raw reads stream inside build_panel: no load_raw_data stage
+        timer.mark_skipped("load_raw_data", "columnar route streams raw parquet in-stage")
+        try:
+            with timer.stage("build_panel"):
+                panel, factors_dict = build_panel_columnar(
+                    raw_data_dir, dtype=dtype, device=device,
+                    include_turnover=include_turnover, timer=timer, capture=capture)
+                save_slot()
+            return panel, factors_dict
+        except ColumnarIngestError as exc:
+            # a cache the columnar reader cannot service (csv, columns of
+            # another layout) goes through the pandas route instead
+            warnings.warn(f"columnar panel route unavailable ({exc}); falling back to "
+                          "the legacy pandas ingest", stacklevel=2)
+    with timer.stage("load_raw_data"):
+        data = load_raw_data(raw_data_dir)
+    with timer.stage("build_panel"):
+        panel, factors_dict = build_panel(data, dtype=dtype, device=device,
+                                          include_turnover=include_turnover, timer=timer,
+                                          capture=capture)
+        # the raw frames are dead once the panel exists
+        del data
+        save_slot()
+    return panel, factors_dict
 
 
 def run_pipeline(
@@ -276,6 +383,7 @@ def run_pipeline(
     make_deciles: bool = True,
     make_serving: bool = True,
     compile_pdf: bool = True,
+    checkpoint_dir=None,
     guard: Optional[bool] = None,
     audit_dir=None,
 ) -> PipelineResult:
@@ -287,9 +395,18 @@ def run_pipeline(
     The panel comes from the prepared inputs when ``dense_base`` and
     ``compact_daily`` are given, else from a synthetic universe
     (``synthetic=True``, ``synthetic_config``), else from the cached raw
-    frames in ``raw_data_dir`` (default ``<DATA_DIR>/raw``). ``dtype=None``
-    follows ``DTYPE`` (default float32), ``include_turnover=None`` follows
-    ``INCLUDE_TURNOVER`` (default off).
+    frames in ``raw_data_dir`` (default ``<DATA_DIR>/raw``) through
+    ``load_or_build_panel`` (the columnar route and the prepared-inputs
+    slot). ``dtype=None`` follows ``DTYPE`` (default float32),
+    ``include_turnover=None`` follows ``INCLUDE_TURNOVER`` (default off).
+
+    ``checkpoint_dir`` keeps each completed reporting stage (Table 1, Table
+    2, the decile table, the serving state) there, keyed by the panel's
+    identity, the dtype and the data's provenance (the raw directory's
+    fingerprint, or the synthetic config): a rerun after a crash loads the
+    completed stages and recomputes from the failure on; a stale or
+    corrupt stage file is recomputed. The prepared-inputs entry has no
+    provenance to key on, so it refuses ``checkpoint_dir``.
 
     ``guard`` arms the guard layer (``None`` follows ``FMRP_GUARD``,
     default on): the panel contract after the build, the frame contracts
@@ -318,14 +435,15 @@ def run_pipeline(
             synthetic_config=synthetic_config, device=device, dtype=dtype,
             include_turnover=include_turnover, make_figure=make_figure,
             make_deciles=make_deciles, make_serving=make_serving,
-            compile_pdf=compile_pdf, guard=bool(guard), audit_dir=audit_dir,
+            compile_pdf=compile_pdf, checkpoint_dir=checkpoint_dir,
+            guard=bool(guard), audit_dir=audit_dir,
         )
 
 
 def _run_pipeline_guarded(
     dense_base, compact_daily, *, raw_data_dir, output_dir, synthetic,
     synthetic_config, device, dtype, include_turnover, make_figure,
-    make_deciles, make_serving, compile_pdf, guard, audit_dir,
+    make_deciles, make_serving, compile_pdf, checkpoint_dir, guard, audit_dir,
 ) -> PipelineResult:
     """``run_pipeline``'s body, entered with the sentinel switch already
     pinned to ``guard`` for the whole run."""
@@ -344,30 +462,42 @@ def _run_pipeline_guarded(
         if synthetic or raw_data_dir is not None:
             raise ValueError("pass prepared inputs, synthetic=True or "
                              "raw_data_dir, not several")
+        if checkpoint_dir is not None:
+            raise ValueError(
+                "checkpoint_dir needs the data's provenance to key its stages on "
+                "(a raw directory or a synthetic config); prepared inputs carry "
+                "none, and a checkpoint of other data with the same axes would "
+                "load silently")
         with timer.stage("build_panel"):
             panel, factors_dict = build_panel_prepared(
                 dense_base, compact_daily, dtype=dtype, device=device,
                 include_turnover=include_turnover, timer=timer)
-    else:
-        if not synthetic:
-            if raw_data_dir is None:
-                raw_data_dir = _default_raw_data_dir()
-            if not Path(raw_data_dir).is_dir():
-                raise FileNotFoundError(
-                    f"Raw data directory {str(raw_data_dir)!r} does not exist. "
-                    "Pass --raw-data-dir pointing at the cached WRDS parquet "
-                    f"files ({', '.join(RAW_FILE_NAMES.values())}), or use "
-                    "--synthetic."
-                )
+    elif synthetic:
         with timer.stage("load_raw_data"):
-            data = (generate_synthetic_wrds(synthetic_config) if synthetic
-                    else load_raw_data(raw_data_dir))
+            data = generate_synthetic_wrds(synthetic_config)
         with timer.stage("build_panel"):
             panel, factors_dict = build_panel(
                 data, dtype=dtype, device=device,
                 include_turnover=include_turnover, timer=timer)
         # the raw frames are dead once the panel exists
         del data
+    else:
+        if raw_data_dir is None:
+            raw_data_dir = _default_raw_data_dir()
+        if not Path(raw_data_dir).is_dir():
+            raise FileNotFoundError(
+                f"Raw data directory {str(raw_data_dir)!r} does not exist. "
+                "Pass --raw-data-dir pointing at the cached WRDS parquet "
+                f"files ({', '.join(RAW_FILE_NAMES.values())}), or use "
+                "--synthetic."
+            )
+        panel, factors_dict = load_or_build_panel(
+            raw_data_dir, dtype=dtype, device=device,
+            include_turnover=include_turnover, timer=timer)
+
+    # a fault plan can hand back a corrupted panel here; the contract right
+    # below must catch it at its declared severity
+    panel = fault_site("pipeline.panel", payload=panel)
 
     panel_stats = None
     if guard:
@@ -378,34 +508,82 @@ def _run_pipeline_guarded(
     with timer.stage("subset_masks"):
         masks = compute_subset_masks(panel)
 
+    salt_memo = {}
+
+    def provenance_salt() -> str:
+        """The data-provenance salt the stage checkpointer and the drift
+        sentinel share: the raw directory's fingerprint, or the synthetic
+        config. Computed once (it stats the raw files)."""
+        if "salt" not in salt_memo:
+            if prepared:
+                salt_memo["salt"] = "prepared"
+            elif synthetic:
+                salt_memo["salt"] = json.dumps(vars(synthetic_config or SyntheticConfig()),
+                                               sort_keys=True, default=str)
+            else:
+                salt_memo["salt"] = _prepared.raw_fingerprint(raw_data_dir, dtype)
+        return salt_memo["salt"]
+
+    ckpt = None
+    if checkpoint_dir is not None:
+        ckpt = StageCheckpointer(
+            checkpoint_dir, _pipeline_fingerprint(panel, dtype, provenance_salt()))
+
+    def frame_stage(name, compute):
+        """One checkpointable stage with its fault site
+        ``pipeline.<name>``; without a checkpoint directory it computes."""
+
+        def compute_with_fault():
+            fault_site(f"pipeline.{name}")
+            return compute()
+
+        if ckpt is None:
+            return compute_with_fault()
+        return ckpt.frame(name, compute_with_fault)
+
     with timer.stage("table_1"):
-        table_1 = build_table_1(panel, masks, factors_dict)
-        if guard:
+        table_1 = frame_stage("table_1", lambda: build_table_1(panel, masks, factors_dict))
+        if guard:  # checkpoint-loaded frames too
             _contracts.check_frame(table_1, "table_1", audit)
     with timer.stage("table_2"):
-        cells = table_2_cells(panel, masks, factors_dict)
+        # the stage keeps the per-cell numbers; the formatted frame follows
+        # from them
+        cells = frame_stage("table_2", lambda: table_2_cells(panel, masks, factors_dict))
         table_2 = format_table_2(cells, list(masks))
         if guard:
             _contracts.check_frame(table_2, "table_2", audit)
 
     # The figure, the decile table and the serving state share one sweep:
     # one Gram contraction gives every subset's figure cross-sections.
-    # Without the decile table only the figure's two subsets are swept.
+    # Without the decile table only the figure's two subsets are swept. The
+    # decile checkpoint is loaded (and verified) before the sweep: a loaded
+    # table drops the sweep's decile legs but not its subsets, since the
+    # Gram kernel's firm grouping follows the number of specs and the same
+    # subsets keep the figure and the serving state bit-identical to a
+    # fresh run's on the card; a missing or corrupt one is swept as in a
+    # fresh run.
+    decile_table = None
+    if make_deciles and ckpt is not None:
+        decile_table = ckpt.load_frame("decile_table")
+    decile_fresh = make_deciles and decile_table is None
     sweep = {}
     if make_figure or make_deciles:
         with timer.stage("figure_cs"):
             needed = set(masks) if make_deciles else {"All stocks", "Large stocks"}
             sweep = subset_sweep(panel, masks, [n for n in masks if n in needed],
-                                 make_deciles=make_deciles)
+                                 make_deciles=decile_fresh)
     figure_1 = None
     if make_figure:
         with timer.stage("figure_1"):
             figure_1 = figure_frames(panel, masks, sweep)
-    decile_table = None
     if make_deciles:
         with timer.stage("decile_table"):
-            decile_table = build_decile_table(panel, masks, cs_cache=sweep)
-            if guard:
+            if decile_fresh:
+                fault_site("pipeline.decile_table")
+                decile_table = build_decile_table(panel, masks, cs_cache=sweep)
+                if ckpt is not None:
+                    ckpt.save_frame("decile_table", decile_table)
+            if guard:  # checkpoint-loaded tables too
                 decile_table = _contracts.screen_artifact(
                     "decile_table", decile_table,
                     _contracts.frame_rules("decile_table", blocking="quarantine"),
@@ -414,10 +592,20 @@ def _run_pipeline_guarded(
     serving_state = None
     if make_serving and "All stocks" in masks:
         with timer.stage("serving_state"):
-            entry = sweep.get("All stocks")
-            serving_state = build_serving_state_from_panel(
-                panel, masks["All stocks"],
-                cs=entry.cs if entry is not None else None)
+            def compute_serving():
+                fault_site("pipeline.serving_state")
+                entry = sweep.get("All stocks")
+                return build_serving_state_from_panel(
+                    panel, masks["All stocks"],
+                    cs=entry.cs if entry is not None else None)
+
+            if ckpt is None:
+                serving_state = compute_serving()
+            else:
+                serving_state = ckpt.stage(
+                    "serving_state", compute_serving,
+                    saver=lambda st, path: st.save(path), loader=ServingState.load,
+                    suffix=".npz")
             if guard:
                 # optional artifact: a quarantine-severity violation drops
                 # it and the run completes degraded
@@ -459,16 +647,9 @@ def _run_pipeline_guarded(
             summarize_frame,
         )
 
-        if prepared:
-            salt = "prepared"
-        elif synthetic:
-            salt = json.dumps(vars(synthetic_config or SyntheticConfig()),
-                              sort_keys=True, default=str)
-        else:
-            salt = _raw_fingerprint(raw_data_dir, dtype)
         with timer.stage("guard_drift"):
             sentinel = DriftSentinel(audit_dir,
-                                     _pipeline_fingerprint(panel, dtype, salt))
+                                     _pipeline_fingerprint(panel, dtype, provenance_salt()))
             if panel_stats is None:
                 panel_stats = _contracts.panel_probe(panel)
             sentinel.check("panel_stats", panel_stats)
@@ -493,7 +674,7 @@ def _run_pipeline_guarded(
         table_1=table_1, table_2=table_2, table_2_cells=cells, sweep=sweep,
         figure_1=figure_1, decile_table=decile_table,
         serving_state=serving_state, stage_seconds=dict(timer.durations),
-        audit=audit,
+        timer=timer, audit=audit,
     )
 
 
@@ -509,6 +690,11 @@ def _main(argv=None) -> None:
                         help="synthetic only (default 100)")
     parser.add_argument("--months", type=int, default=None,
                         help="synthetic only (default 120)")
+    parser.add_argument(
+        "--checkpoint-dir", default=None,
+        help="per-stage checkpoint directory: a rerun after a crash resumes "
+             "at the last completed reporting stage",
+    )
     parser.add_argument(
         "--no-guard", action="store_true",
         help="disable the guard layer (stage-boundary contracts + numerical "
@@ -537,6 +723,7 @@ def _main(argv=None) -> None:
         synthetic=args.synthetic,
         synthetic_config=cfg if args.synthetic else None,
         device=args.device,
+        checkpoint_dir=args.checkpoint_dir,
         guard=False if args.no_guard else None,
         audit_dir=args.audit_dir,
     )
@@ -544,9 +731,7 @@ def _main(argv=None) -> None:
     print()
     print(result.table_2.to_string())
     print()
-    width = max(len(name) for name in result.stage_seconds)
-    for name, seconds in result.stage_seconds.items():
-        print(f"{name:<{width}}  {seconds:9.3f}s")
+    print(result.timer.report())
 
 
 if __name__ == "__main__":

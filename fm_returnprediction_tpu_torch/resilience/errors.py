@@ -1,22 +1,32 @@
-"""The typed failures the guard layer raises.
+"""The typed failures the guard and resilience layers raise.
 
-The part of the reference package's failure taxonomy that the port's
-guard layer uses: contract violations, quarantined artifacts and drift.
-Nothing here imports anything, so every layer can name these types.
+The part of the reference package's failure taxonomy that the port uses:
+corrupt persisted artifacts, injected faults, contract violations,
+quarantined artifacts and drift. Nothing here imports anything, so every
+layer (``utils.cache``, ``data.prepared``, ``resilience.checkpoint``) can
+name these types.
 """
 
 from __future__ import annotations
 
 __all__ = [
     "ResilienceError",
+    "CorruptArtifactError",
     "IngestRejectedError",
     "ContractViolationError",
     "DriftDetectedError",
+    "InjectedFault",
 ]
 
 
 class ResilienceError(RuntimeError):
     """Base class for failures the resilience and guard layers raise."""
+
+
+class CorruptArtifactError(ResilienceError):
+    """A persisted artifact failed its content checksum or is structurally
+    unreadable. The resume paths (the prepared-inputs slot, the stage
+    checkpoints) catch it and rebuild the artifact."""
 
 
 class IngestRejectedError(ResilienceError):
@@ -37,3 +47,9 @@ class DriftDetectedError(ContractViolationError):
     """A persisted artifact moved beyond its tolerance band relative to the
     previous run's audit manifest (``guard.drift``). The trusted manifest
     is left unmodified so the regression remains reproducible against it."""
+
+
+class InjectedFault(OSError):
+    """The default exception a ``resilience.faults.FaultPlan`` raises at a
+    fault site. Subclasses ``OSError`` so an injected fault takes the same
+    handler paths a real transient IO error would."""

@@ -1,21 +1,24 @@
-"""No-pickle npz array bundles with a content checksum.
+"""The port's file cache: no-pickle npz array bundles and cached frames.
 
-The port's own copy of the array-bundle format the reference package
-writes for its serving state: one ``np.savez_compressed`` file holding the
-named arrays and a ``__meta__`` JSON scalar (fixed-width unicode, so the
-file loads with ``allow_pickle`` off). The metadata records a sha256 over
-every array's (name, dtype, shape, bytes) — ``array_bundle_digest``, byte
-for byte the reference's definition — so a bundle written by either
-package loads, verified, in the other.
+``save_array_bundle``/``load_array_bundle`` are the reference package's
+array-bundle format (its serving state's): one ``np.savez_compressed`` file
+holding the named arrays and a ``__meta__`` JSON scalar (fixed-width
+unicode, so the file loads with ``allow_pickle`` off). The metadata records
+``registry.integrity.array_bundle_digest`` over every array, so a bundle
+written by either package loads, verified, in the other.
 
-``load_cache_data`` reads a cached raw frame (parquet or csv) by its file
-name, the read the raw-data route of the pipeline makes.
+``write_cache_data``/``save_cache_data`` write a frame (parquet or csv) and
+``load_cache_data`` reads one back by its file name, as the raw-data route
+of the pipeline does. Every write is atomic (temporary file in the same
+directory + ``os.replace``): a crash mid-write leaves the old file or
+nothing, never a torn artifact. The writers carry the fault sites
+``cache.write_cache_data`` and ``cache.save_array_bundle``
+(``resilience.faults``).
 """
 
 from __future__ import annotations
 
 import contextlib
-import hashlib
 import json
 import os
 import threading
@@ -26,35 +29,25 @@ from typing import Any, Dict, Optional, Tuple, Union
 import numpy as np
 import pandas as pd
 
+from fm_returnprediction_tpu_torch.registry.integrity import array_bundle_digest
+from fm_returnprediction_tpu_torch.resilience.errors import CorruptArtifactError
+from fm_returnprediction_tpu_torch.resilience.faults import fault_site
+
 __all__ = ["CorruptArtifactError", "array_bundle_digest", "save_array_bundle",
-           "load_array_bundle", "read_cached_data", "load_cache_data"]
+           "load_array_bundle", "read_cached_data", "write_cache_data",
+           "save_cache_data", "load_cache_data"]
 
-_BUNDLE_META_KEY = "__meta__"
-_BUNDLE_HASH_KEY = "__sha256__"  # meta-dict slot for the content checksum
-
-
-class CorruptArtifactError(RuntimeError):
-    """A persisted artifact is structurally unreadable or failed its
-    content checksum."""
-
-
-def array_bundle_digest(arrays: Dict[str, np.ndarray]) -> str:
-    """Order-independent content hash over (name, dtype, shape, bytes) of
-    every array."""
-    h = hashlib.sha256()
-    for name in sorted(arrays):
-        arr = np.ascontiguousarray(np.asarray(arrays[name]))
-        h.update(f"{name}|{arr.dtype.str}|{arr.shape}|".encode())
-        h.update(arr.data)
-    return h.hexdigest()
+_FRAME_EXTS = ("parquet", "csv")
 
 
 @contextlib.contextmanager
 def _atomic_replace(filepath: Path):
-    """Yield a temp path in the same directory, then ``os.replace`` it over
-    ``filepath``: a crash mid-write leaves the old file or nothing. The
-    temp name keeps the ``.npz`` suffix (``np.savez`` appends one to
-    anything else) and is pid+thread salted."""
+    """Yield a temporary path in the same directory, then ``os.replace`` it
+    over ``filepath``: a crash mid-write leaves the old file or nothing.
+    The temporary name keeps the real suffix (``np.savez`` appends
+    ``.npz`` to anything else) and is salted with the process and thread,
+    so concurrent writers never share one."""
+    filepath = Path(filepath)
     filepath.parent.mkdir(parents=True, exist_ok=True)
     tmp = filepath.parent / (
         f".{filepath.stem}.tmp-{os.getpid()}-{threading.get_ident()}"
@@ -65,6 +58,10 @@ def _atomic_replace(filepath: Path):
         os.replace(tmp, filepath)
     finally:
         tmp.unlink(missing_ok=True)
+
+
+_BUNDLE_META_KEY = "__meta__"
+_BUNDLE_HASH_KEY = "__sha256__"  # meta-dict slot for the content checksum
 
 
 def save_array_bundle(
@@ -90,6 +87,7 @@ def save_array_bundle(
     with _atomic_replace(path) as tmp:
         np.savez_compressed(
             tmp, **{_BUNDLE_META_KEY: np.asarray(json.dumps(meta_out))}, **arrays)
+    fault_site("cache.save_array_bundle", path=path)
     return path
 
 
@@ -124,6 +122,28 @@ def read_cached_data(filepath: Union[Path, str], columns=None) -> pd.DataFrame:
     if fmt == "parquet":
         return pd.read_parquet(filepath, columns=columns)
     raise ValueError(f"Unsupported file format: {fmt}")
+
+
+def write_cache_data(df: pd.DataFrame, filepath: Union[Path, str]) -> None:
+    """Write a frame by its file's extension (parquet or csv), atomically."""
+    filepath = Path(filepath)
+    fmt = filepath.suffix.lstrip(".")
+    if fmt not in _FRAME_EXTS:
+        raise ValueError(f"Unsupported file format: {fmt}")
+    with _atomic_replace(filepath) as tmp:
+        if fmt == "parquet":
+            df.to_parquet(tmp, index=False)
+        else:
+            df.to_csv(tmp, index=False)
+    fault_site("cache.write_cache_data", path=filepath)
+
+
+def save_cache_data(df: pd.DataFrame, data_dir: Union[Path, str], file_name: str) -> Path:
+    """Save ``df`` atomically as ``data_dir/file_name`` (the name carries its
+    ``.parquet`` or ``.csv`` extension). Returns the path written."""
+    cache_path = Path(data_dir, file_name)
+    write_cache_data(df, cache_path)
+    return cache_path
 
 
 def load_cache_data(data_dir: Union[Path, str], file_name: str,

@@ -223,13 +223,18 @@ def test_synthetic_run_writes_the_same_artifacts(runs):
             "decile_sorts.tex", "serving_state.npz", "research_report.tex"} <= set(names)
 
 
-def test_raw_cache_run_equals_in_memory_run(runs, tmp_path):
+def test_raw_cache_run_equals_in_memory_run(runs, tmp_path, monkeypatch):
+    """The legacy pandas route from a raw directory (the columnar route and
+    the prepared slot are held in ``tests/test_torch_columnar.py`` and
+    ``tests/test_torch_prepared.py``)."""
+    monkeypatch.setenv("FMRP_PANEL_ROUTE", "legacy")
+    monkeypatch.setenv("PREPARED_CACHE", "0")
     port_synthetic.write_synthetic_cache(tmp_path / "raw", port_synthetic.SyntheticConfig(**CFG))
     res = port_pipeline.run_pipeline(raw_data_dir=tmp_path / "raw", device="cpu",
                                      dtype=torch.float64, make_figure=False)
     want = runs["port"]
-    assert {"load_raw_data", "panel/universe_filter", "daily_ingest",
-            "long_to_dense"} <= set(res.stage_seconds)
+    assert {"load_raw_data", "panel/universe_filter", "factors/daily_ingest",
+            "factors/long_to_dense"} <= set(res.stage_seconds)
     np.testing.assert_array_equal(res.panel.values.numpy(), want.panel.values.numpy())
     assert res.table_1.equals(want.table_1)
     assert res.table_2.equals(want.table_2)

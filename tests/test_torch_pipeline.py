@@ -203,7 +203,7 @@ def test_pipeline_without_deciles(jax_run, port_run, make_figure):
 
 
 def test_stage_times_are_recorded(port_run):
-    assert {"build_panel", "daily_kernels", "characteristics_winsorize",
+    assert {"build_panel", "factors/daily_kernels", "factors/characteristics_winsorize",
             "subset_masks", "table_1", "table_2", "figure_cs", "figure_1",
             "decile_table", "serving_state"} <= set(port_run.stage_seconds)
 
@@ -214,8 +214,10 @@ def test_stage_times_are_recorded(port_run):
 def test_port_runs_with_jax_blocked(tmp_path):
     """The port's whole path on the CPU in a process where importing jax or
     the JAX package raises: from prepared inputs, from a synthetic universe
-    with the guard and the drift sentinel armed, and through the command
-    line with artifacts."""
+    with the guard and the drift sentinel armed, through the command line
+    with artifacts, and from a raw directory by the columnar route, cold
+    (the slot is written) and warm (the slot is mapped), with stage
+    checkpoints."""
     code = textwrap.dedent("""
         import runpy
         import sys
@@ -260,6 +262,20 @@ def test_port_runs_with_jax_blocked(tmp_path):
         assert {"data_saved.marker", "table_1.pkl", "table_2.pkl", "serving_state.npz",
                 "research_report.tex"} <= made, made
         assert os.listdir(tmp + "/audit_cli") == ["audit.json"]
+
+        from fm_returnprediction_tpu_torch.data.synthetic import write_synthetic_cache
+        write_synthetic_cache(tmp + "/raw", SyntheticConfig(n_firms=50, n_months=72))
+        runs = [run_pipeline(raw_data_dir=tmp + "/raw", device="cpu", dtype=torch.float64,
+                             checkpoint_dir=tmp + "/ckpt") for _ in range(2)]
+        cold, warm = (r.timer for r in runs)
+        assert "panel/monthly_ingest" in cold.durations, cold.durations
+        assert "build_panel/save_prepared" in cold.durations, cold.durations
+        assert warm.skipped == {"load_raw_data": "prepared checkpoint hit"}, warm.skipped
+        assert "panel/monthly_ingest" not in warm.durations, warm.durations
+        assert sorted(os.listdir(tmp + "/ckpt")) == [
+            "decile_table.pkl", "manifest.json", "serving_state.npz", "table_1.pkl",
+            "table_2.pkl"]
+        assert runs[0].table_2.equals(runs[1].table_2)
         loaded = [m for m in sys.modules
                   if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
         assert not loaded, loaded
@@ -296,7 +312,10 @@ def test_port_never_names_jax_or_the_jax_package(pattern):
     assert {"guard/checks.py", "guard/contracts.py", "guard/drift.py",
             "resilience/errors.py", "data/synthetic.py", "data/wrds_pull.py",
             "panel/transform_crsp.py", "panel/transform_compustat.py",
-            "reporting/latex.py", "pipeline.py"} <= names
+            "reporting/latex.py", "pipeline.py", "registry/integrity.py",
+            "data/columnar.py", "panel/columnar.py", "data/prepared.py",
+            "resilience/faults.py", "resilience/checkpoint.py", "utils/timing.py",
+            "utils/cache.py"} <= names
     hits = [str(f.relative_to(REPO)) for f in files
             if re.search(pattern, f.read_text())]
     assert not hits, hits
