@@ -15,6 +15,9 @@ Phases (any failure exits non-zero without the final line):
 3. each kernel against its plain version at the main path's shapes, float32
    and float64, with the tolerance printed beside the error, then CUDA-event
    timings of kernel, plain version and (where one exists) a library call;
+   K2 also with coreset row weights (float32, float64, and 0/1 weights with
+   exact counts), bfloat16 operands (float32 sums, exact counts) and a
+   117-spec batch cut into two launches;
 4. the main path at real size — 600 months, 22,000 firms, ~77M daily rows
    built from ``--seed`` by ``data.smoke_inputs`` — through
    ``run_pipeline(device="cuda", dtype=torch.float32)`` and all of its
@@ -29,13 +32,19 @@ Phases (any failure exits non-zero without the final line):
    ``save_prepared``, the memory-mapped ``load_prepared`` (and one load with
    ``FMRP_PREPARED_VERIFY=1``), timed, then the main path from the mapped
    arrays: bit-identical to the in-memory run, launches K1 17, K2 2, K3 0;
+5b. the spec-grid scenario sweep at real size (27 cells): through
+   ``run_pipeline(make_specgrid=True)`` guarded, again with
+   ``FMRP_GRAM_PRECISION=bf16``, then ``run_scenarios`` on the coreset route
+   and on a 12-subperiod unfactorized sweep (117 specs, two launches), each
+   run's launches pinned (``SPECGRID_LAUNCHES``);
 6. K1 std at every daily-strip shape the main path launched it at (read
    from its counters), checked and timed, with the sum of launches × time;
 7. the same path at a mid size in float64 on the card and on the CPU (plain
    versions): Table 2's per-cell numbers (a coefficient at
    ``|d| <= 1e-8 * max(|b|, nw_se)``, its t-stat at ``1e-8 * max(|t|, 1)``,
-   the rest at rtol 1e-8), Table 1, the decile table, the figure frames and
-   the serving state;
+   the rest at rtol 1e-8), Table 1, the decile table, the figure frames, the
+   serving state, and the scenario sweep from the card's panel (default,
+   200 cells with bootstrap draws, coreset; rtol 1e-8);
 8. the raw-frame route (a 250-firm × 130-month synthetic universe, float64)
    on the card and on the CPU: the enriched panel at rtol 1e-10, the tables
    as in phase 7, the audit records equal;
@@ -48,9 +57,14 @@ Phases (any failure exits non-zero without the final line):
    wrote the slot, no fallback warning), warm (the slot was mapped,
    ``load_raw_data`` skipped) and by the legacy route with the slot off;
    the sha256s of their tables and serving state in the drift manifests
-   are equal, and their launches are K1 8, K2 2, K3 0; then the host
-   ingest of both routes in five alternating pairs, in process with the
-   slot off (logged: medians, spreads, the pairs the columnar route won);
+   are equal, and their launches are K1 8, K2 2, K3 0; then ``--specgrid
+   --specgrid-cells 200`` from the warm slot (216 cells, K2 3), with
+   ``--output-dir`` where matplotlib imports, else ``specgrid_scenarios.csv``
+   written by ``run_pipeline(make_figure=False, output_dir=…)`` on the same
+   slot (the command line draws the figure into any output directory, and
+   raises without matplotlib, as the reference does); then the host ingest of both
+   routes in five alternating pairs, in process with the slot off (logged:
+   medians, spreads, the pairs the columnar route won);
 11. on the same directory in float64, a run crashed by a fault plan at
    ``pipeline.serving_state`` and resumed from its stage checkpoints (three
    hits, K2 once for the figure sweep), bit-identical to an uncheckpointed
@@ -70,6 +84,7 @@ line, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import hashlib
 import importlib.util
 import json
@@ -106,14 +121,17 @@ from fm_returnprediction_tpu_torch.serving.state import ServingState
 from fm_returnprediction_tpu_torch.specgrid.grams import (
     contract_spec_grams_plain,
     gram_contract_cuda,
+    gram_spec_chunk,
     shared_center,
     split_stats,
 )
+from fm_returnprediction_tpu_torch.specgrid.scenarios import run_scenarios
 from fm_returnprediction_tpu_torch.utils.timing import StageTimer
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 FP32_FLOPS = 67e12            # H100 SXM FP32 outside the tensor cores
 FP64_FLOPS = 34e12            # H100 SXM FP64 outside the tensor cores
+BF16_FLOPS = 989e12           # H100 SXM bf16 dense on the tensor cores
 
 K1_SOURCE = "fm_returnprediction_tpu_torch/csrc/rolling.cu"
 K1_REPLACES = "fm_returnprediction_tpu/ops/pallas_kernels.py:216"
@@ -168,7 +186,7 @@ def time_ms(fn, reps: int = 7) -> float:
 
 
 def bound(bytes_moved: float, flops: float, dtype) -> tuple:
-    peak = FP64_FLOPS if dtype == torch.float64 else FP32_FLOPS
+    peak = {torch.float64: FP64_FLOPS, torch.bfloat16: BF16_FLOPS}.get(dtype, FP32_FLOPS)
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -310,11 +328,13 @@ def strip_phase(gen, by_shape: dict, mp: int = 100):
 # --- K2: the Gram contraction ----------------------------------------------
 
 
-def gram_inputs(t: int, n: int, p: int, dtype, gen, figure: bool = False):
+def gram_inputs(t: int, n: int, p: int, dtype, gen, figure: bool = False, specs: int = 9):
     """The contraction inputs: x (T, N, P) with NaNs and an all-NaN firm
     column, y with NaNs, 3 universes, valid = universe of each spec. Table
-    2's grid has 9 specs (3 nested models × 3 universes); the figure grid
-    (``figure=True``) 3, every column in each."""
+    2's grid has 9 specs (3 nested models × 3 universes); ``specs`` more
+    cycle through the same models and universes, as the unfactorized
+    scenario sweep's windows do; the figure grid (``figure=True``) has 3,
+    every column in each."""
     x = torch.randn((t, n, p), generator=gen, device="cuda", dtype=dtype)
     x = torch.where(torch.rand((t, n, p), generator=gen, device="cuda") < 0.05,
                     torch.full_like(x, float("nan")), x)
@@ -327,82 +347,155 @@ def gram_inputs(t: int, n: int, p: int, dtype, gen, figure: bool = False):
     if figure:
         col_sel = torch.ones((3, p), dtype=torch.bool, device="cuda")
     else:
-        col_sel = torch.zeros((9, p), dtype=torch.bool, device="cuda")
-        for mi, k in enumerate([3, 7, p]):
-            col_sel[3 * mi: 3 * mi + 3, :k] = True
+        col_sel = torch.zeros((specs, p), dtype=torch.bool, device="cuda")
+        for i in range(specs):
+            col_sel[i, :[3, 7, p][(i // 3) % 3]] = True
     uidx = torch.arange(col_sel.shape[0], device="cuda") % 3
     valid = universes[uidx].to(torch.uint8).contiguous()
     center = shared_center(x)
     return y, x, universes[uidx], valid, col_sel, center
 
 
-def check_gram(t, n, p, dtype, rel, gen, timed, figure=False):
-    y, x, uni, valid, col_sel, center = gram_inputs(t, n, p, dtype, gen, figure)
-    s = col_sel.shape[0]
-    window = torch.ones((s, t), dtype=torch.bool, device="cuda")
-    got = split_stats(gram_contract_cuda(y, x, valid, col_sel, center), p)
-    want = contract_spec_grams_plain(y, x, uni, col_sel, window, center)
-    torch.cuda.synchronize()
+def coreset_like_weights(t: int, n: int, dtype, gen, binary: bool):
+    """Row weights as the coreset route makes them: most rows 0, sampled
+    rows a positive importance weight (or 1 with ``binary``)."""
+    u = torch.rand((t, n), generator=gen, device="cuda", dtype=torch.float64)
+    w = torch.ones_like(u) if binary else 0.5 + 4.0 * u
+    return torch.where(u < 0.3, w, torch.zeros_like(w)).to(dtype)
+
+
+def gram_worst(got, want) -> tuple:
+    """The worst difference of two split Gram stats, each block relative to
+    the largest entry of its (spec, month) in ``want`` (at least 1), and
+    the worst absolute difference."""
     scale = torch.stack([
         want[0].abs().amax((-1, -2)), want[1].abs().amax(-1),
         want[2].abs(), want[3].abs(), want[4].abs(),
     ]).amax(0).clamp_min(1.0)                                   # (S, T)
-    counts_exact = bool((got[2] == want[2]).all())
     worst, max_abs = 0.0, 0.0
     for g, w in zip(got, want):
         d = (g - w).abs()
         block_scale = scale.reshape(scale.shape + (1,) * (d.dim() - 2))
         worst = max(worst, worst_of(d / block_scale))
         max_abs = max(max_abs, worst_of(d))
-    label = f"T={t} N={n} P={p} S={s} {str(dtype)[6:]}"
+    return worst, max_abs
+
+
+def check_gram(t, n, p, dtype, rel, gen, timed, figure=False, weights=None,
+               low=False, specs=9):
+    """K2 against its plain version on the same inputs; with ``timed`` the
+    kernel table row. ``weights`` is None, "binary" (0/1: counts exact) or
+    "coreset"; ``low`` runs bfloat16 operands (the float32 inputs rounded)
+    into float32 sums. Both sides of a bfloat16 check sum in float32, and
+    the plain version's own error is most of their gap, so the kernel is
+    first held at ``rel`` against the plain version at float64 on the same
+    bfloat16-rounded terms (``x − c`` rounded to bfloat16 as both form it),
+    then against the float32 plain version at ``rel`` plus that plain
+    version's own worst error against the float64 sums."""
+    y, x, uni, valid, col_sel, center = gram_inputs(t, n, p, dtype, gen, figure, specs)
+    rw = None
+    if weights is not None:
+        rw = coreset_like_weights(t, n, dtype, gen, binary=weights == "binary")
+    if low:
+        y, x, center = (a.to(torch.bfloat16) for a in (y, x, center))
+        rw = None if rw is None else rw.to(torch.bfloat16)
+    s = col_sel.shape[0]
+    window = torch.ones((s, t), dtype=torch.bool, device="cuda")
+    got = split_stats(gram_contract_cuda(y, x, valid, col_sel, center, rw), p)
+    want = contract_spec_grams_plain(y, x, uni, col_sel, window, center, row_weights=rw)
+    torch.cuda.synchronize()
+    counts_exact = bool((got[2] == want[2]).all())
+    worst, max_abs = gram_worst(got, want)
+    kind = "bf16" if low else str(dtype)[6:]
+    label = (f"T={t} N={n} P={p} S={s} {kind}" + (f" rw={weights}" if weights else "")
+             + (f" ({-(-s // gram_spec_chunk(p))} launches)" if s > gram_spec_chunk(p) else ""))
+    tol = rel
+    if low:
+        exact = contract_spec_grams_plain(
+            y.double(), (x - center[:, None, :]).double(), uni, col_sel, window,
+            torch.zeros(center.shape, dtype=torch.float64, device="cuda"),
+            row_weights=None if rw is None else rw.double())
+        worst_exact, _ = gram_worst(got, exact)
+        plain_exact, _ = gram_worst(want, exact)
+        del exact
+        tol = rel + plain_exact
+        log(f"K2 {label}: against the float64 sums of the same bf16 terms: kernel "
+            f"worst_rel_to_block_max={worst_exact:.3e} tol={rel:g}, float32 plain version "
+            f"{plain_exact:.3e}")
+        check(worst_exact <= rel, f"K2 {label}: error against the float64 sums beyond tolerance")
     log(f"K2 {label}: max_abs={max_abs:.3e} worst_rel_to_block_max={worst:.3e} "
-        f"tol={rel:g} counts_exact={counts_exact}")
-    check(counts_exact, f"K2 {label}: counts differ from the plain version")
-    check(worst <= rel, f"K2 {label}: error beyond tolerance")
+        f"tol={tol:g} counts_exact={counts_exact}")
+    check(counts_exact or weights == "coreset",
+          f"K2 {label}: counts differ from the plain version")
+    check(worst <= tol, f"K2 {label}: error beyond tolerance")
     row = None
     if timed:
-        ms = time_ms(lambda: gram_contract_cuda(y, x, valid, col_sel, center))
+        ms = time_ms(lambda: gram_contract_cuda(y, x, valid, col_sel, center, rw))
         plain_ms = time_ms(lambda: contract_spec_grams_plain(
-            y, x, uni, col_sel, window, center), reps=5)
-        # yardstick: ONE batched matmul over the pre-weighted augmented
-        # design, every (spec, month) a (QE, N) @ (N, QE) product
-        fin = torch.isfinite(x)
-        xz = torch.where(fin, x - center[:, None, :], torch.zeros_like(x))
-        finy = torch.isfinite(y)
-        yz = torch.where(finy, y, torch.zeros_like(y))
-        xa = torch.cat([torch.ones_like(y)[..., None], xz, yz[..., None]], -1)
-        bad = torch.einsum("tnp,sp->stn", (~fin).to(dtype), col_sel.to(dtype))
-        w = (uni & finy[None] & (bad == 0)).to(dtype)
-        del fin, xz, yz, bad
-        lhs = (xa[None] * w[..., None]).reshape(-1, n, p + 2).transpose(1, 2)
-        rhs = xa[None].expand(s, t, n, p + 2).reshape(-1, n, p + 2).contiguous()
-        lib = torch.bmm(lhs, rhs).reshape(s, t, p + 2, p + 2)
-        lib_err = float((split_stats(lib, p)[0] - got[0]).abs().max())
-        library_ms = time_ms(lambda: torch.bmm(lhs, rhs))
-        del lhs, rhs, lib, w, xa
+            y, x, uni, col_sel, window, center, row_weights=rw), reps=5)
         tri = (p + 2) * (p + 3) // 2
         in_bytes = sum(a.numel() * a.element_size()
-                       for a in (x, y, valid, col_sel, center))
-        out_bytes = s * t * (p + 2) ** 2 * x.element_size()
-        b_ms, b_by = bound(in_bytes + out_bytes, 2.0 * s * t * n * tri, dtype)
-        log(f"K2 {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"library bmm {library_ms:.4f} ms (|gram diff| {lib_err:.3e}; "
-            f"kernel/bmm {ms / library_ms:.3f}), bound {b_ms:.4f} ms ({b_by})")
-        row = dict(name=f"gram_contract T={t} N={n} P={p} S={s} f32",
-                   key=f"gram/P={p},S={s}", route="cuda", source=K2_SOURCE,
-                   replaces=K2_REPLACES, max_abs_err=max_abs, ms=ms,
-                   plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                   library_ms=library_ms)
-    del y, x, uni, valid, col_sel, center, got, want
+                       for a in (x, y, valid, col_sel, center, rw) if a is not None)
+        out_bytes = s * t * (p + 2) ** 2 * got[0].element_size()
+        b_ms, b_by = bound(in_bytes + out_bytes, 2.0 * s * t * n * tri, x.dtype)
+        library_ms, lib_note = None, "none: the pre-weighted design would not fit"
+        lib_bytes = 2 * s * t * n * (p + 2) * x.element_size()
+        if lib_bytes < 24 * 2**30:
+            # yardstick: ONE batched matmul over the pre-weighted augmented
+            # design, every (spec, month) a (QE, N) @ (N, QE) product
+            fin = torch.isfinite(x)
+            xz = torch.where(fin, x - center[:, None, :], torch.zeros_like(x))
+            finy = torch.isfinite(y)
+            yz = torch.where(finy, y, torch.zeros_like(y))
+            xa = torch.cat([torch.ones_like(y)[..., None], xz, yz[..., None]], -1)
+            bad = torch.einsum("tnp,sp->stn", (~fin).float(), col_sel.float())
+            w = (uni & finy[None] & (bad == 0)).to(x.dtype)
+            if rw is not None:
+                w = w * rw
+            del fin, xz, yz, bad
+            lhs = (xa[None] * w[..., None]).reshape(-1, n, p + 2).transpose(1, 2)
+            rhs = xa[None].expand(s, t, n, p + 2).reshape(-1, n, p + 2).contiguous()
+            lib = torch.bmm(lhs, rhs).reshape(s, t, p + 2, p + 2).float()
+            lib_err = float((split_stats(lib, p)[0] - got[0].float()).abs().max())
+            library_ms = time_ms(lambda: torch.bmm(lhs, rhs))
+            lib_note = (f"bmm {library_ms:.4f} ms (|gram diff| {lib_err:.3e}; "
+                        f"kernel/bmm {ms / library_ms:.3f})")
+            del lhs, rhs, lib, w, xa
+        log(f"K2 {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+            f"{lib_note}, bound {b_ms:.4f} ms ({b_by})")
+        # the wrapper's launch key ("P=14,S=9,f32[,rw]")
+        key = (f"gram/P={p},S={s},{'bf16' if low else {torch.float32: 'f32', torch.float64: 'f64'}[dtype]}"
+               + (",rw" if rw is not None else ""))
+        row = dict(name=f"gram_contract {label}", key=key, route="cuda", source=K2_SOURCE,
+                   replaces=K2_REPLACES, max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                   bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
+    del y, x, uni, valid, col_sel, center, got, want, rw
     torch.cuda.empty_cache()
     return row
 
 
+# The scenario sweep's launches at real size (specgrid_phase): the default
+# sweep contracts its 9 (model, universe) pairs in one launch; the
+# 12-subperiod sweep with the factorization off contracts 117 specs, cut into
+# two launches of at most 60 (gram_spec_chunk(14)).
+SPLIT_SPECS = 117
+# which real-size run launches each scenario-sweep K2 shape (specgrid_phase)
+ROW_PATH = {"gram/P=14,S=9,bf16": "bf16", "gram/P=14,S=9,f32,rw": "coreset",
+            f"gram/P=14,S={SPLIT_SPECS},f32": "split"}
+
+
 def k2_phase(gen, timed: bool):
     rows = [check_gram(600, 22000, 14, torch.float32, 1e-5, gen, timed),
-            check_gram(600, 22000, 5, torch.float32, 1e-5, gen, timed, figure=True)]
+            check_gram(600, 22000, 5, torch.float32, 1e-5, gen, timed, figure=True),
+            check_gram(600, 22000, 14, torch.float32, 1e-5, gen, timed, weights="coreset"),
+            check_gram(600, 22000, 14, torch.float32, 1e-5, gen, timed, low=True),
+            check_gram(600, 22000, 14, torch.float32, 1e-5, gen, timed, specs=SPLIT_SPECS)]
     check_gram(600, 3000, 14, torch.float64, 1e-12, gen, False)
     check_gram(240, 3000, 5, torch.float64, 1e-12, gen, False, figure=True)
+    check_gram(600, 3000, 14, torch.float64, 1e-12, gen, False, weights="coreset")
+    check_gram(600, 3000, 14, torch.float64, 1e-12, gen, False, weights="binary")
+    check_gram(600, 3000, 14, torch.float32, 1e-5, gen, False, weights="binary", low=True)
+    check_gram(60, 3000, 14, torch.float64, 1e-12, gen, False, specs=SPLIT_SPECS)
     return [row for row in rows if row]
 
 
@@ -500,7 +593,8 @@ def reset_counts() -> None:
 def launch_counts() -> dict:
     """The launch counters since ``reset_counts``: K1 per kind, window and
     shape ("mean/w=120,600x15") and per kind ("mean/w=120"), K2 per shape
-    ("gram/P=14,S=9"), and the totals."""
+    ("gram/P=14,S=9,f32", a call cut into chunks counting each launch), and
+    the totals."""
     by_shape = dict(rolling_reduce_cuda.launches_by_key)
     by_kind = {}
     for key, n in by_shape.items():
@@ -704,6 +798,125 @@ def slot_phase(base, daily, digests: dict) -> None:
 
 
 
+# The scenario sweep at real size: 3 models × 3 universes × (full sample,
+# two halves) = 27 cells, (3 + 7 + 14) × 9 = 216 rows; each run's launches,
+# K1/K2/K3 and K2 by call shape. A run_pipeline run launches K2 for Table 2
+# and the figure grid too; the factorized sweep contracts its 9 pairs in one
+# launch; the 12-subperiod sweep without the factorization its 117 specs in
+# two (60 + 57).
+SPECGRID_CELLS, SPECGRID_ROWS = 27, 216
+SPECGRID_LAUNCHES = {
+    "guarded": ({"k1": 17, "k2": 3, "moments": 0}, {"P=14,S=9,f32": 2, "P=5,S=3,f32": 1}),
+    "bf16": ({"k1": 17, "k2": 3, "moments": 0}, {"P=14,S=9,bf16": 2, "P=5,S=3,bf16": 1}),
+    "coreset": ({"k1": 0, "k2": 1, "moments": 0}, {"P=14,S=9,f32,rw": 1}),
+    "split": ({"k1": 0, "k2": 2, "moments": 0}, {f"P=14,S={SPLIT_SPECS},f32": 2}),
+}
+SCENARIO_COLUMNS = ["cell", "model", "universe", "window", "winsor_pct", "nw_weight",
+                    "predictor", "coef", "tstat", "nw_se", "mean_r2", "mean_n", "n_months",
+                    "refereed"]
+
+
+def check_scenario_frame(frame: pd.DataFrame, label: str, cells: int, extra=(),
+                         min_finite: float = 0.9) -> None:
+    """The sweep's tidy frame: its cells and columns, finite estimates (a
+    share of at least ``min_finite`` of the coefficients: a predictor with
+    fewer than 10 valid months in a window has none)."""
+    check(list(frame.columns) == SCENARIO_COLUMNS + list(extra),
+          f"{label}: scenario columns {list(frame.columns)}")
+    check(frame["cell"].nunique() == cells, f"{label}: {frame['cell'].nunique()} cells, "
+          f"not {cells}")
+    finite = float(np.isfinite(frame["coef"].to_numpy(float)).mean())
+    log(f"{label}: {len(frame)} rows over {cells} cells, finite coef share {finite:.3f}, "
+        f"refereed cells {frame.loc[frame['refereed'], 'cell'].nunique()}")
+    ran = frame["n_months"].to_numpy() > 0
+    check(finite >= min_finite and ran.mean() >= min_finite
+          and bool(np.isfinite(frame["mean_r2"].to_numpy(float)[ran]).all()),
+          f"{label}: non-finite estimates")
+
+
+def _k2_pinned(label: str, counts: dict, want: tuple) -> None:
+    totals, by_key = want
+    got_by_key = {k[len("gram/"):]: v for k, v in counts.items() if k.startswith("gram/")}
+    log(f"{label} launches: K1 {counts['k1']}, K2 {counts['k2']} {got_by_key}, "
+        f"K3 {counts['moments']}")
+    check({k: counts[k] for k in totals} == totals and got_by_key == by_key,
+          f"{label}: launches {({k: counts[k] for k in totals}, got_by_key)}, not {want}")
+
+
+def specgrid_phase(base, daily) -> dict:
+    """The scenario sweep at real size on the main path's inputs: through
+    ``run_pipeline(make_specgrid=True)`` guarded, again with
+    ``FMRP_GRAM_PRECISION=bf16`` (Table 2 and the figure grid follow the
+    knob too, as in the reference), then ``run_scenarios`` on the coreset
+    route and on the 12-subperiod unfactorized sweep whose 117 specs are cut
+    into two launches. Each run's launches are pinned; returns them by run."""
+    runs = {}
+    res, wall, counts = counted_run(base, daily, guard=True, make_specgrid=True)
+    frame = res.specgrid_scenarios
+    log(f"specgrid (guarded, f32): wall {wall:.3f} s, stage specgrid "
+        f"{res.stage_seconds['specgrid']:.4f} s; audit " + res.audit.report().replace("\n", "; "))
+    check(not res.audit.violations and not res.audit.quarantined,
+          "guarded specgrid run: contract violations or quarantined artifacts")
+    check(len(frame) == SPECGRID_ROWS, f"specgrid frame has {len(frame)} rows")
+    check_scenario_frame(frame, "specgrid (guarded, f32)", SPECGRID_CELLS)
+    _k2_pinned("specgrid (guarded, f32)", counts, SPECGRID_LAUNCHES["guarded"])
+    runs["guarded"] = counts
+
+    os.environ["FMRP_GRAM_PRECISION"] = "bf16"
+    try:
+        low, wall16, counts16 = counted_run(base, daily, make_specgrid=True)
+    finally:
+        del os.environ["FMRP_GRAM_PRECISION"]
+    f16 = low.specgrid_scenarios
+    promoted = f16.groupby("cell")["bf16_promoted_months"].first()
+    dt = np.abs(f16["tstat"].to_numpy(float) - frame["tstat"].to_numpy(float))
+    log(f"specgrid (bf16): wall {wall16:.3f} s, stage specgrid "
+        f"{low.stage_seconds['specgrid']:.4f} s; promoted months per cell min "
+        f"{promoted.min()} median {promoted.median()} max {promoted.max()}; "
+        f"|t(bf16) - t(f32)| max {np.nanmax(dt):.3e}")
+    check(bool((f16["precision"] == "bf16").all()), "bf16 sweep: rows not marked bf16")
+    check_scenario_frame(f16, "specgrid (bf16)", SPECGRID_CELLS,
+                         extra=("precision", "bf16_promoted_months"))
+    _k2_pinned("specgrid (bf16)", counts16, SPECGRID_LAUNCHES["bf16"])
+    runs["bf16"] = counts16
+    del low, f16
+
+    # the first of 12 fifty-month windows starts before the 36-month
+    # predictors have their history
+    for name, kw, cells, extra, min_finite in (
+            ("coreset", dict(route="coreset"), SPECGRID_CELLS,
+             ("route", "coreset_m", "coreset_rate", "suspect_months"), 0.9),
+            ("split", dict(subperiods=12, factorize="off"), SPLIT_SPECS, (), 0.75)):
+        reset_counts()
+        start = time.perf_counter()
+        got, stats = run_scenarios(res.panel, res.subset_masks, res.factors_dict,
+                                   return_stats=True, **kw)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - start
+        counts_s = launch_counts()
+        log(f"run_scenarios({kw}): wall {wall_s:.3f} s; stats "
+            + json.dumps({k: v for k, v in stats.items() if k != "seconds"}, default=str))
+        check_scenario_frame(got, f"run_scenarios {name}", cells, extra=extra,
+                             min_finite=min_finite)
+        _k2_pinned(f"run_scenarios {name}", counts_s, SPECGRID_LAUNCHES[name])
+        if name == "coreset":
+            # against the exact Gram solves only: a refereed exact cell is the
+            # float32 QR route's, whose eps·N cutoff truncates raw-unit columns
+            exact = frame[~frame["refereed"]].set_index(["cell", "predictor"])
+            approx = got.set_index(["cell", "predictor"]).loc[exact.index]
+            gap = (approx["coef"] - exact["coef"]).abs() / exact["nw_se"]
+            log(f"coreset (m {stats['coreset_m']} of {res.panel.values.shape[1]} a month, "
+                f"rate {got['coreset_rate'].min():.3f}-{got['coreset_rate'].max():.3f}): "
+                f"|coef - exact coef| / exact nw_se over the {len(exact)} rows of unrefereed "
+                f"exact cells: median {gap.median():.3f}, 90th percentile "
+                f"{gap.quantile(0.9):.3f}, max {gap.max():.3f}")
+            check(not got["refereed"].any(), "coreset cells were refereed")
+        runs[name] = counts_s
+    del res
+    torch.cuda.empty_cache()
+    return runs
+
+
 def _cell_diffs(got: dict, ref: dict):
     """(held difference, plain relative difference, cell, number, index,
     reference value) for every Table 2 entry, worst held first, checking
@@ -825,6 +1038,132 @@ def card_vs_cpu(seed: int) -> None:
         f"{gpu.table_2.equals(cpu.table_2)}")
     check(worst <= 1e-8, "card vs CPU: Table 2 beyond tolerance")
     _reporting_vs_cpu(gpu, cpu)
+    _scenarios_vs_cpu(gpu)
+
+
+SCENARIO_FLOATS = {"coef", "tstat", "nw_se", "mean_r2", "mean_n", "coreset_rate"}
+
+
+def _scenario_worst(got: pd.DataFrame, want: pd.DataFrame, strict: bool = True) -> float:
+    """Worst held difference of two scenario frames whose labels, flags,
+    counts and NaN patterns must be equal (checked): a coefficient at
+    ``max(|b|, nw_se)``, its t-stat at ``max(|t|, 1)``, the rest relative.
+    With ``strict=False`` only the numbers are read, and a NaN pattern that
+    differs reads as inf."""
+    check(list(got.columns) == list(want.columns) and len(got) == len(want),
+          "card vs CPU: scenario frames differ in shape")
+    for c in want.columns:
+        if strict and c not in SCENARIO_FLOATS:
+            check(bool((got[c].to_numpy() == want[c].to_numpy()).all()),
+                  f"card vs CPU: scenario column {c} differs")
+    se = want["nw_se"].to_numpy(float)
+    worst = 0.0
+    for c in SCENARIO_FLOATS & set(want.columns):
+        g, w = got[c].to_numpy(float), want[c].to_numpy(float)
+        if not strict and not (np.isnan(g) == np.isnan(w)).all():
+            return float("inf")
+        check(bool((np.isnan(g) == np.isnan(w)).all()), f"card vs CPU: NaN pattern of {c}")
+        fin = np.isfinite(w)
+        scale = np.abs(w[fin])
+        if c == "coef":
+            scale = np.fmax(scale, se[fin])
+        elif c == "tstat":
+            scale = np.maximum(scale, 1.0)
+        if fin.any():
+            worst = max(worst, float((np.abs(g[fin] - w[fin]) / np.maximum(scale, 1e-300)).max()))
+    return worst
+
+
+# The limit on a coreset cell with a suspect month, card vs CPU, at the
+# scales of ``_scenario_worst``. Such a month is one the Gram route's QR
+# referee would re-solve; the coreset route has no referee, so the
+# ill-conditioned Gram solve stands and moves with the order of the sums.
+# The limit sits between the CPU's own spread under another firm chunk and
+# a planted fault (each row weight applied twice), both read in the same
+# run (PERF.md, Findings, PR 7).
+SUSPECT_TOL = 1e-3
+SUSPECT_CHUNK = 256
+
+
+def _rows(frame: pd.DataFrame, keep: np.ndarray) -> pd.DataFrame:
+    return frame[keep].reset_index(drop=True)
+
+
+def _coreset_witnesses(host_panel, host_masks, factors, want, suspect) -> dict:
+    """The two readings behind ``SUSPECT_TOL``, both on the CPU: the same
+    coreset sweep with the plain contraction cut into ``SUSPECT_CHUNK``-firm
+    chunks (another order of the same sums; flags must stay exact), and
+    with every row weight applied twice (``w²`` in place of ``w``, a weight
+    operand multiplied in once too often; its numbers only, since it also
+    moves the flags). Returns the worst differences from ``want`` on the
+    suspect rows and the others, and the flag columns the fault moved."""
+    from unittest import mock
+
+    from fm_returnprediction_tpu_torch.specgrid import coreset, grams
+
+    plan_of = coreset.coreset_plan
+
+    def doubled_plan(*args, **kwargs):
+        plan = plan_of(*args, **kwargs)
+        return plan._replace(row_weights=plan.row_weights * plan.row_weights)
+
+    out = {}
+    with mock.patch.object(grams, "auto_firm_chunk", lambda *a, **k: SUSPECT_CHUNK):
+        reordered = run_scenarios(host_panel, host_masks, factors, route="coreset")
+    out["order_suspect"] = _scenario_worst(_rows(reordered, suspect), _rows(want, suspect))
+    out["order_held"] = _scenario_worst(_rows(reordered, ~suspect), _rows(want, ~suspect))
+    with mock.patch.object(coreset, "coreset_plan", doubled_plan):
+        faulty = run_scenarios(host_panel, host_masks, factors, route="coreset")
+    out["fault_suspect"] = _scenario_worst(_rows(faulty, suspect), _rows(want, suspect),
+                                           strict=False)
+    out["fault_held"] = _scenario_worst(_rows(faulty, ~suspect), _rows(want, ~suspect),
+                                        strict=False)
+    out["fault_moved"] = [c for c in want.columns if c not in SCENARIO_FLOATS
+                          and not (faulty[c].to_numpy() == want[c].to_numpy()).all()]
+    return out
+
+
+def _scenarios_vs_cpu(gpu) -> None:
+    """The float64 scenario sweep on the card against the same sweep on the
+    CPU, both from the card run's panel (copied to the host, so both sides
+    draw the same coreset plan): the default sweep, 200 cells with
+    bootstrap draws and the coreset route, at rtol 1e-8 (Table 2's pins),
+    labels and flags exact. On the coreset route a cell with a suspect
+    month is held to ``SUSPECT_TOL`` instead, and the two readings that
+    place that limit (``_coreset_witnesses``) are logged and checked: the
+    CPU's own spread under another sum order below it, a planted weight
+    fault above it."""
+    host_panel = dataclasses.replace(gpu.panel, values=gpu.panel.values.cpu())
+    host_masks = {k: m.cpu() for k, m in gpu.subset_masks.items()}
+    for label, kw in (("default", {}), ("cells=200", dict(cells=200)),
+                      ("coreset", dict(route="coreset"))):
+        got = run_scenarios(gpu.panel, gpu.subset_masks, gpu.factors_dict, **kw)
+        want = run_scenarios(host_panel, host_masks, gpu.factors_dict, **kw)
+        suspect = np.zeros(len(want), bool)
+        if "suspect_months" in want:
+            suspect = (want["suspect_months"] > 0).to_numpy()
+        worst = _scenario_worst(_rows(got, ~suspect), _rows(want, ~suspect))
+        log(f"card vs CPU scenario sweep ({label}, f64): {len(want)} rows, worst diff "
+            f"{worst:.3e} over the {int((~suspect).sum())} rows of "
+            f"{want.loc[~suspect, 'cell'].nunique()} cells without a suspect month (tol 1e-8); "
+            f"refereed cells {want.loc[want['refereed'], 'cell'].nunique()}")
+        check(worst <= 1e-8, f"card vs CPU: scenario sweep ({label}) beyond tolerance")
+        if suspect.any():
+            worst_sus = _scenario_worst(_rows(got, suspect), _rows(want, suspect))
+            wit = _coreset_witnesses(host_panel, host_masks, gpu.factors_dict, want, suspect)
+            log(f"card vs CPU scenario sweep ({label}, f64): worst diff {worst_sus:.3e} over the "
+                f"{int(suspect.sum())} rows of {want.loc[suspect, 'cell'].nunique()} cells with a "
+                f"suspect month (tol {SUSPECT_TOL:g}); CPU with {SUSPECT_CHUNK}-firm chunks vs "
+                f"CPU: suspect rows {wit['order_suspect']:.3e}, other rows "
+                f"{wit['order_held']:.3e}; planted fault (each row weight applied twice) vs "
+                f"CPU: suspect rows {wit['fault_suspect']:.3e}, other rows "
+                f"{wit['fault_held']:.3e}, flag columns it moved {wit['fault_moved']}")
+            check(worst_sus <= SUSPECT_TOL,
+                  f"card vs CPU: suspect coreset cells ({label}) beyond {SUSPECT_TOL:g}")
+            check(wit["order_suspect"] <= SUSPECT_TOL < wit["fault_suspect"]
+                  and wit["order_held"] <= 1e-8 < wit["fault_held"],
+                  f"the suspect-cell limit {SUSPECT_TOL:g} does not sit between the CPU's "
+                  f"sum-order spread and a planted fault: {wit}")
 
 
 def ingest_vs_cpu() -> None:
@@ -897,7 +1236,7 @@ def run_cli(args, env=None) -> dict:
     wall = time.perf_counter() - start
     check(done.returncode == 0, f"CLI {args} exited {done.returncode}: {done.stderr[-2000:]}")
     return dict(
-        wall=wall, stderr=done.stderr,
+        wall=wall, stdout=done.stdout, stderr=done.stderr,
         stages={m.group(1): float(m.group(2)) for m in STAGE_LINE.finditer(done.stdout)},
         skipped={m.group(1): m.group(2) for m in SKIPPED_LINE.finditer(done.stdout)},
         launches=json.loads(done.stdout.split("CLI-LAUNCHES ", 1)[1].splitlines()[0]))
@@ -987,6 +1326,49 @@ INGEST_PAIRS = 5
 
 def host_ingest_seconds(stages: dict) -> float:
     return sum(v for k, v in stages.items() if k.startswith("panel/") or k in INGEST_STAGES)
+
+
+def specgrid_cli_phase(raw: Path) -> None:
+    """``python -m fm_returnprediction_tpu_torch.pipeline --raw-data-dir …
+    --specgrid --specgrid-cells 200`` on the raw directory whose slot the
+    cold run wrote: exit 0, the slot mapped, the sweep grown to 216 cells by
+    8 bootstrap draws, and ``specgrid_scenarios.csv`` written. The command
+    line draws Figure 1 into any ``--output-dir`` and, like the reference,
+    raises where matplotlib does not import; there it runs without one and
+    the csv comes from ``run_pipeline(make_figure=False, output_dir=…)`` on
+    the same slot, its row count equal to the one the command line printed."""
+    have_mpl = importlib.util.find_spec("matplotlib") is not None
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "out"
+        args = ["--raw-data-dir", raw, "--specgrid", "--specgrid-cells", 200]
+        run = run_cli(args + (["--output-dir", out] if have_mpl else []))
+        printed = re.search(r"^spec-grid scenarios: (\d+) rows$", run["stdout"], re.MULTILINE)
+        log(f"CLI --raw-data-dir --specgrid --specgrid-cells 200"
+            f"{' --output-dir' if have_mpl else ''}: exit 0 in {run['wall']:.1f} s; stages (s) "
+            f"{json.dumps(run['stages'])}; launches {run['launches']}; "
+            f"{printed.group(0) if printed else 'no row count printed'}")
+        check("load_prepared" in run["stages"] and "specgrid" in run["stages"],
+              f"specgrid CLI stages {sorted(run['stages'])}")
+        check(printed is not None, "the specgrid CLI printed no scenario row count")
+        if not have_mpl:
+            res = run_pipeline(raw_data_dir=raw, device="cuda", make_figure=False,
+                               make_specgrid=True, specgrid_cells=200, output_dir=out)
+            check(res.timer.skipped.get("load_raw_data") == "prepared checkpoint hit",
+                  "the csv run did not map the slot")
+            del res
+        made = sorted(os.listdir(out))
+        log(f"specgrid_scenarios.csv written by "
+            f"{'the command line' if have_mpl else 'run_pipeline(make_figure=False)'}; "
+            f"artifacts {made}")
+        check("specgrid_scenarios.csv" in made, "no specgrid_scenarios.csv was written")
+        frame = pd.read_csv(out / "specgrid_scenarios.csv")
+        check(frame["cell"].nunique() == 216 and frame["draw"].max() == 7
+              and len(frame) == int(printed.group(1)),
+              f"specgrid csv: {frame['cell'].nunique()} cells, {len(frame)} rows")
+        launches = run["launches"]
+        check((launches["k1"], launches["k2"], launches["moments"]) == (8, 3, 0)
+              and launches["k2_by_key"] == {"P=14,S=9,f32": 2, "P=5,S=3,f32": 1},
+              f"specgrid CLI launches {launches}")
 
 
 def ingest_pairs_phase(raw: Path) -> None:
@@ -1120,7 +1502,7 @@ def resume_phase(raw: Path) -> None:
               f"checkpoints after the crash: {saved}")
         check(outcomes == {"hit": 3, "miss": 1, "corrupt": 0, "save": 1},
               f"the rerun's checkpoint outcomes {outcomes}")
-        check(by_key == {"P=5,S=3": 1}, f"the rerun launched K2 {by_key}, not once for the "
+        check(by_key == {"P=5,S=3,f64": 1}, f"the rerun launched K2 {by_key}, not once for the "
               "figure sweep")
         check(not diffs, f"the resumed run differs from an uncheckpointed run in {diffs}")
 
@@ -1185,6 +1567,7 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as audit_dir:
         counts, digests = main_path(base, daily, Path(audit_dir))
     slot_phase(base, daily, digests)
+    path_counts = {"main": counts, **specgrid_phase(base, daily)}
     del base, daily
     rows += strip_phase(gen, counts)
     card_vs_cpu(args.seed)
@@ -1197,11 +1580,15 @@ def main(argv=None) -> int:
         log(f"raw directory {CLI_FIRMS} firms x {CLI_MONTHS} months written in "
             f"{time.perf_counter() - start:.1f} s")
         raw_cli_phase(raw)
+        specgrid_cli_phase(raw)
         ingest_pairs_phase(raw)
         resume_phase(raw)
 
     for row in rows:
-        row["launches"] = counts.get(row.pop("key"), 0)
+        key = row.pop("key")
+        # the scenario sweep's K2 shapes are launched by its runs, the rest
+        # by the main path
+        row["launches"] = path_counts[ROW_PATH.get(key, "main")].get(key, 0)
         if row.get("main_path") == K3_MAIN_PATH:
             check(row["launches"] == 0, f"{row['name']}: launched on the main path, "
                   "which has no caller of it")

@@ -4,9 +4,10 @@ Raw WRDS-shaped frames (a synthetic universe or a cached raw directory) →
 universe filter and relational transforms (host pandas) → dense monthly
 base panel and compact daily strips (host numpy) → characteristics →
 universes → Table 1 → Table 2 → the figure/decile sweep → Figure 1's
-rolling slopes → the decile table → the serving state → artifacts, with the
-guard layer (``guard``) checking every stage boundary. Everything after
-the host ingest runs on the compute device.
+rolling slopes → the decile table → the serving state → (optionally) the
+spec-grid scenario sweep → artifacts, with the guard layer (``guard``)
+checking every stage boundary. Everything after the host ingest runs on
+the compute device.
 
     from fm_returnprediction_tpu_torch.pipeline import run_pipeline
     res = run_pipeline(synthetic=True)                       # on the GPU
@@ -16,6 +17,8 @@ the host ingest runs on the compute device.
     python -m fm_returnprediction_tpu_torch.pipeline --synthetic --output-dir _output
     python -m fm_returnprediction_tpu_torch.pipeline --raw-data-dir _data/raw \
         --checkpoint-dir _ckpt --device cpu
+    python -m fm_returnprediction_tpu_torch.pipeline --synthetic --specgrid \
+        --specgrid-cells 200 --specgrid-sink topk
 
 A raw directory is read by the columnar route (``panel.columnar``;
 ``FMRP_PANEL_ROUTE=legacy`` selects the pandas route) and its host products
@@ -97,6 +100,9 @@ from fm_returnprediction_tpu_torch.serving.state import (
     ServingState,
     build_serving_state_from_panel,
 )
+from fm_returnprediction_tpu_torch.specgrid.estimators import resolve_estimator
+from fm_returnprediction_tpu_torch.specgrid.scenarios import run_scenarios
+from fm_returnprediction_tpu_torch.specgrid.sinks import SINK_NAMES, resolve_sink_name
 from fm_returnprediction_tpu_torch.utils.cache import load_cache_data
 from fm_returnprediction_tpu_torch.utils.timing import StageTimer
 
@@ -198,6 +204,9 @@ class PipelineResult:
     # the guard ledger: contract violations, numerical sentinel counters
     # and quarantined artifacts (empty when clean or guards disabled)
     audit: _contracts.AuditRecord
+    # the spec-grid scenario sweep (specgrid.run_scenarios): the sink's
+    # frame, or None when not requested
+    specgrid_scenarios: Optional[pd.DataFrame] = None
 
 
 def load_raw_data(raw_data_dir) -> Dict[str, pd.DataFrame]:
@@ -386,6 +395,9 @@ def run_pipeline(
     checkpoint_dir=None,
     guard: Optional[bool] = None,
     audit_dir=None,
+    make_specgrid: bool = False,
+    specgrid_cells: Optional[int] = None,
+    specgrid_sink: Optional[str] = None,
 ) -> PipelineResult:
     """Raw data or prepared inputs → characteristics → NYSE-breakpoint
     universes → Table 1 → Table 2 → Figure 1 / deciles → serving state →
@@ -421,11 +433,22 @@ def run_pipeline(
     ``DriftDetectedError`` (after the artifacts are saved, without
     rewriting the trusted manifest) — then the manifest is updated.
 
+    ``make_specgrid`` runs the scenario sweep on the spec-grid tile engine
+    (``specgrid.run_scenarios``: 3 models × the universes × the full sample
+    and two halves) after the serving state: ``specgrid_cells`` scales it
+    to at least that many cells (the bootstrap-draw dimension grows;
+    memory stays one tile), ``specgrid_sink`` picks the streaming sink
+    (default ``FMRP_SPECGRID_SINK``, else the full frame), and
+    ``FMRP_GRAM_PRECISION=bf16`` contracts it in bfloat16; an estimator
+    other than OLS with the Newey-West tail in ``FMRP_SPECGRID_ESTIMATOR``
+    raises (ROADMAP A5). The guard screens the full frame at quarantine
+    severity.
+
     ``output_dir`` writes the artifacts: ``table_{1,2}.{pkl,tex}``,
     ``figure_1.pdf`` (matplotlib), ``decile_sorts.{pkl,tex}``,
-    ``serving_state.npz``, ``data_saved.marker`` and
-    ``research_report.tex`` (compiled when ``pdflatex`` exists and
-    ``compile_pdf``)."""
+    ``serving_state.npz``, ``specgrid_scenarios.csv`` (with the sweep),
+    ``data_saved.marker`` and ``research_report.tex`` (compiled when
+    ``pdflatex`` exists and ``compile_pdf``)."""
     if guard is None:
         guard = _guard_checks.guard_active()
     with _guard_checks.guards(bool(guard)):
@@ -436,7 +459,8 @@ def run_pipeline(
             include_turnover=include_turnover, make_figure=make_figure,
             make_deciles=make_deciles, make_serving=make_serving,
             compile_pdf=compile_pdf, checkpoint_dir=checkpoint_dir,
-            guard=bool(guard), audit_dir=audit_dir,
+            guard=bool(guard), audit_dir=audit_dir, make_specgrid=make_specgrid,
+            specgrid_cells=specgrid_cells, specgrid_sink=specgrid_sink,
         )
 
 
@@ -444,6 +468,7 @@ def _run_pipeline_guarded(
     dense_base, compact_daily, *, raw_data_dir, output_dir, synthetic,
     synthetic_config, device, dtype, include_turnover, make_figure,
     make_deciles, make_serving, compile_pdf, checkpoint_dir, guard, audit_dir,
+    make_specgrid, specgrid_cells, specgrid_sink,
 ) -> PipelineResult:
     """``run_pipeline``'s body, entered with the sentinel switch already
     pinned to ``guard`` for the whole run."""
@@ -614,6 +639,31 @@ def _run_pipeline_guarded(
                     _contracts.serving_state_rules(), audit,
                 )
 
+    specgrid_scenarios = None
+    if make_specgrid:
+        with timer.stage("specgrid"):
+            # models × universes × subperiod halves on the tile engine, one
+            # contraction per tile batch, streamed through the sink. The
+            # estimator knob (FMRP_SPECGRID_ESTIMATOR) is read as the
+            # reference reads it, so a kind the port lacks raises in the
+            # engine (ROADMAP A5) instead of being ignored
+            est = resolve_estimator()
+            estimators = None if (est.kind, est.se) == ("ols", "nw") else (est,)
+            specgrid_scenarios = frame_stage(
+                "specgrid_scenarios",
+                lambda: run_scenarios(panel, masks, factors_dict, cells=specgrid_cells,
+                                      sink=specgrid_sink, estimators=estimators,
+                                      output_dir=output_dir))
+            if guard and resolve_sink_name(specgrid_sink) == "frame":
+                # the other sinks emit their own schema (leaderboard, moment
+                # table, part manifest): the tidy-frame contract is the
+                # full frame's
+                specgrid_scenarios = _contracts.screen_artifact(
+                    "specgrid_scenarios", specgrid_scenarios,
+                    _contracts.frame_rules("specgrid_scenarios", blocking="quarantine"),
+                    audit,
+                )
+
     if output_dir is not None:
         with timer.stage("save_artifacts"):
             figure = draw_figure_1(figure_1) if figure_1 is not None else None
@@ -626,6 +676,9 @@ def _run_pipeline_guarded(
                 save_decile_table(decile_table, output_dir)
             if serving_state is not None:
                 serving_state.save(Path(output_dir) / "serving_state.npz")
+            if specgrid_scenarios is not None:
+                specgrid_scenarios.to_csv(Path(output_dir) / "specgrid_scenarios.csv",
+                                          index=False)
             tex = create_latex_document(output_dir)
             if tex is not None and compile_pdf:
                 compile_latex_document(tex)
@@ -657,6 +710,8 @@ def _run_pipeline_guarded(
             sentinel.check("table_2", summarize_frame(table_2))
             if decile_table is not None:
                 sentinel.check("decile_table", summarize_frame(decile_table))
+            if specgrid_scenarios is not None:
+                sentinel.check("specgrid_scenarios", summarize_frame(specgrid_scenarios))
             if serving_state is not None:
                 sentinel.check("serving_state", summarize_arrays({
                     "coef": serving_state.coef,
@@ -674,7 +729,7 @@ def _run_pipeline_guarded(
         table_1=table_1, table_2=table_2, table_2_cells=cells, sweep=sweep,
         figure_1=figure_1, decile_table=decile_table,
         serving_state=serving_state, stage_seconds=dict(timer.durations),
-        timer=timer, audit=audit,
+        timer=timer, audit=audit, specgrid_scenarios=specgrid_scenarios,
     )
 
 
@@ -707,6 +762,22 @@ def _main(argv=None) -> None:
              "manifest in this directory; drift beyond band fails loudly, a "
              "clean run updates the manifest",
     )
+    parser.add_argument(
+        "--specgrid", action="store_true",
+        help="also run the spec-grid robustness sweep (subperiods × universes × "
+             "models via Gram contraction) and save specgrid_scenarios.csv",
+    )
+    parser.add_argument(
+        "--specgrid-cells", type=int, default=None, metavar="N",
+        help="scale the spec-grid sweep to at least N cells (the bootstrap-draw "
+             "dimension grows to cover it; cells stream tile by tile)",
+    )
+    parser.add_argument(
+        "--specgrid-sink", default=None, choices=list(SINK_NAMES),
+        help="spec-grid streaming sink: full tidy frame (default), top-k-by-|tstat| "
+             "leaderboard, running summary moments, or parquet part spill "
+             "(default follows FMRP_SPECGRID_SINK)",
+    )
     parser.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                         help="compute device (default cuda; raises without a "
                              "GPU); takes the place of the reference's --backend")
@@ -726,11 +797,18 @@ def _main(argv=None) -> None:
         checkpoint_dir=args.checkpoint_dir,
         guard=False if args.no_guard else None,
         audit_dir=args.audit_dir,
+        make_specgrid=(args.specgrid or args.specgrid_cells is not None
+                       or args.specgrid_sink is not None),
+        specgrid_cells=args.specgrid_cells,
+        specgrid_sink=args.specgrid_sink,
     )
     print(result.table_1.round(3).to_string())
     print()
     print(result.table_2.to_string())
     print()
+    if result.specgrid_scenarios is not None:
+        print(f"spec-grid scenarios: {len(result.specgrid_scenarios)} rows")
+        print()
     print(result.timer.report())
 
 

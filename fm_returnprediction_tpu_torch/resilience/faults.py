@@ -22,7 +22,8 @@ The plan records every site visit (``calls``) and every triggered fault
 
 The sites of the port: ``pipeline.panel`` (payload: the enriched panel,
 before its contract), ``pipeline.<stage>`` for the checkpointable stages
-(``table_1``, ``table_2``, ``decile_table``, ``serving_state``),
+(``table_1``, ``table_2``, ``decile_table``, ``serving_state``,
+``specgrid_scenarios``),
 ``cache.write_cache_data`` and ``cache.save_array_bundle`` (path: the file
 just written). The declarative part of a plan serializes into
 ``FMRP_CHAOS_PLAN``/``FMRP_CHAOS_SEED`` (:func:`chaos_env`), which a child

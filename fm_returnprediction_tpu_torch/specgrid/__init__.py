@@ -1,1 +1,108 @@
-"""specgrid layer of the PyTorch port (mirrors fm_returnprediction_tpu/specgrid)."""
+"""Spec-grid estimation of the port: Gram-contracted many-spec Fama-MacBeth.
+
+- ``specs``     — declarative ``Spec``/``SpecGrid``, the Table 2 / Figure 1
+  presets, ``product_grid`` and the ``route`` flag resolver.
+- ``grams``     — the panel → Gram contraction (the CUDA kernel and its
+  plain version; row weights, bf16 operands, the factorized route).
+- ``solve``     — padded batched Gram solve, FM/NW aggregation and the QR
+  referee, for one or several weight schemes.
+- ``cellspace`` — the lazy, index-addressable scenario cell product and its
+  fixed-width tiling.
+- ``engine``    — the tile driver, streaming tile rows into sinks.
+- ``sinks``     — full frame, top-k, running summary, parquet spill.
+- ``coreset``   — the sampled-and-reweighted approximation route.
+- ``boot``      — month-resampled FM aggregation for bootstrap draws.
+- ``scenarios`` — the robustness sweep (subperiods, universes, winsor
+  levels, NW weights, bootstrap draws) → one tidy frame.
+- ``estimators`` — the estimator value type (OLS runs; ROADMAP A5).
+
+Not ported yet: the Gram bank (ROADMAP A4) and the mesh and multi-process
+grids (ROADMAP A8).
+"""
+
+from fm_returnprediction_tpu_torch.specgrid.cellspace import (
+    Cell,
+    CellSpace,
+    CellTile,
+    scenario_space,
+)
+from fm_returnprediction_tpu_torch.specgrid.coreset import CoresetPlan, coreset_plan
+from fm_returnprediction_tpu_torch.specgrid.engine import (
+    block_bootstrap_months,
+    run_cellspace,
+)
+from fm_returnprediction_tpu_torch.specgrid.estimators import (
+    EST_OLS,
+    Estimator,
+    parse_estimator,
+    resolve_estimator,
+)
+from fm_returnprediction_tpu_torch.specgrid.grams import (
+    SpecGramStats,
+    auto_firm_chunk,
+    contract_spec_grams,
+)
+from fm_returnprediction_tpu_torch.specgrid.scenarios import (
+    run_scenarios,
+    scenario_grid,
+    subperiod_windows,
+    winsor_variant,
+)
+from fm_returnprediction_tpu_torch.specgrid.sinks import (
+    FrameSink,
+    ParquetSink,
+    Sink,
+    SummarySink,
+    TopKSink,
+    resolve_sink,
+)
+from fm_returnprediction_tpu_torch.specgrid.solve import (
+    SpecGridResult,
+    run_spec_grid,
+    run_spec_grid_weights,
+    solve_spec_stats,
+)
+from fm_returnprediction_tpu_torch.specgrid.specs import (
+    Spec,
+    SpecGrid,
+    figure1_grid,
+    product_grid,
+    table2_grid,
+)
+
+__all__ = [
+    "Cell",
+    "CellSpace",
+    "CellTile",
+    "CoresetPlan",
+    "EST_OLS",
+    "Estimator",
+    "FrameSink",
+    "ParquetSink",
+    "Sink",
+    "Spec",
+    "SpecGrid",
+    "SpecGramStats",
+    "SpecGridResult",
+    "SummarySink",
+    "TopKSink",
+    "auto_firm_chunk",
+    "block_bootstrap_months",
+    "contract_spec_grams",
+    "coreset_plan",
+    "figure1_grid",
+    "parse_estimator",
+    "product_grid",
+    "resolve_estimator",
+    "resolve_sink",
+    "run_cellspace",
+    "run_scenarios",
+    "run_spec_grid",
+    "run_spec_grid_weights",
+    "scenario_grid",
+    "scenario_space",
+    "solve_spec_stats",
+    "subperiod_windows",
+    "table2_grid",
+    "winsor_variant",
+]

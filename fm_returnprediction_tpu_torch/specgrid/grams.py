@@ -6,10 +6,11 @@ cell is a weighted contraction of the SAME augmented design
     G_s[t] = Σ_n  w_s[t,n] · x̃[t,n,:] x̃[t,n,:]ᵀ ,  x̃ = [1 | X_union − c_t]
 
 where ``w_s`` is the spec's 0/1 row validity (universe mask ∧ finite y ∧
-finite selected predictors ∧ sample window) and ``c_t`` a per-month column
-shift that decollinearizes the intercept column. Non-finite entries of
-UNSELECTED columns enter as zero, so each spec's selected block is exact
-and the rest is ignored by the padded solve (``specgrid.solve``).
+finite selected predictors ∧ sample window), times the optional row
+weights, and ``c_t`` a per-month column shift that decollinearizes the
+intercept column. Non-finite entries of UNSELECTED columns enter as zero,
+so each spec's selected block is exact and the rest is ignored by the
+padded solve (``specgrid.solve``).
 
 ``contract_spec_grams`` takes one of two versions, chosen by where the
 tensors lie:
@@ -21,14 +22,34 @@ tensors lie:
 - CPU tensors take the plain version, a chunked masked einsum over firm
   slices (``contract_spec_grams_plain``).
 
-There is no fallback between the two.
+There is no fallback between the two, and no counterpart of the reference's
+``resolve_gram_route`` (its ``xla``/``pallas`` knob): the device decides.
+
+Options, as in the reference:
+
+- ``precision`` — ``"highest"`` (the storage dtype) or ``"bf16"``: x, y,
+  the center and the row weights are rounded to bfloat16 once, ``x − c`` is
+  formed and rounded in bfloat16, and the products ``w·x̃`` and every sum
+  are float32. The stats come back float32 and carry bf16's eps to the
+  solve's conditioning referee. ``FMRP_GRAM_PRECISION`` sets the default
+  (``resolve_gram_precision``).
+- ``window=None`` — the factorized route: no window term in validity; the
+  solve applies each spec's window to the additive per-month stats
+  (``solve.expand_window_stats``). ``unique_pairs`` collapses the spec axis
+  to its distinct (universe, col_sel) pairs; ``FMRP_GRAM_FACTORIZE`` sets
+  the policy (``resolve_gram_factorize``).
+- ``row_weights`` — a non-negative, finite (T, N) weight multiplying each
+  spec's 0/1 validity (the coreset route's importance weights): ``n``
+  becomes Σw and every moment is weighted.
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from fm_returnprediction_tpu_torch.cuda_build import check_status, kernel_function
@@ -40,11 +61,80 @@ __all__ = [
     "contract_spec_grams",
     "contract_spec_grams_plain",
     "gram_contract_cuda",
+    "gram_spec_chunk",
+    "resolve_gram_factorize",
+    "resolve_gram_precision",
     "split_stats",
+    "unique_pairs",
 ]
 
-_DTYPE_CODES = {torch.float32: 0, torch.float64: 1}
-GRAM_MAX_ENTRIES = 8192  # upper-triangle entries of all specs (csrc/gram.cu)
+# operand dtype → (the kernel's dtype code, its launch-key name)
+_DTYPE_CODES = {torch.float32: (0, "f32"), torch.float64: (1, "f64"),
+                torch.bfloat16: (2, "bf16")}
+GRAM_MAX_ENTRIES = 8192  # upper-triangle entries of one launch (csrc/gram.cu)
+GRAM_MAX_P = 32          # predictor columns the kernel takes (csrc/gram.cu)
+
+GRAM_PRECISIONS = ("highest", "bf16")
+GRAM_FACTORIZE_MODES = ("auto", "on", "off")
+
+
+def resolve_gram_precision(precision: Optional[str] = None) -> str:
+    """The contraction precision: explicit argument > ``FMRP_GRAM_PRECISION``
+    env > ``"highest"``."""
+    if precision is None:
+        precision = (os.environ.get("FMRP_GRAM_PRECISION", "highest").strip().lower()
+                     or "highest")
+    if precision not in GRAM_PRECISIONS:
+        raise ValueError(f"gram precision must be one of {GRAM_PRECISIONS}, got {precision!r}")
+    return precision
+
+
+def resolve_gram_factorize(factorize: Optional[str] = None) -> str:
+    """The month-axis factorization policy: explicit argument >
+    ``FMRP_GRAM_FACTORIZE`` env > ``"auto"``. ``"on"`` contracts once per
+    unique (universe, col_sel) pair without the window term and derives
+    each spec's windowed stats at the solve (exact: a window multiplies
+    every row weight of a month by the same 0/1); ``"off"`` keeps the
+    per-spec contraction; ``"auto"`` factorizes where pairs repeat."""
+    if factorize is None:
+        factorize = (os.environ.get("FMRP_GRAM_FACTORIZE", "auto").strip().lower()
+                     or "auto")
+    if factorize not in GRAM_FACTORIZE_MODES:
+        raise ValueError(f"gram factorize must be one of {GRAM_FACTORIZE_MODES}, "
+                         f"got {factorize!r}")
+    return factorize
+
+
+def unique_pairs(uidx, col_sel, pad_to: Optional[int] = None):
+    """Collapse the spec axis to its distinct (universe, col_sel) pairs,
+    the factorized route's contraction axis (host numpy).
+
+    Returns ``(uidx_u (K,), col_sel_u (K, P), pair_idx (S,))`` with
+    ``uidx_u[pair_idx[s]] == uidx[s]`` and ``col_sel_u[pair_idx[s]] ==
+    col_sel[s]``: specs differing only in their sample window share a pair.
+    ``pad_to`` pads K by repeating pair 0 (rows no ``pair_idx`` points at)."""
+    uidx = np.asarray(uidx)
+    col_sel = np.asarray(col_sel, bool)
+    seen: dict = {}
+    pair_idx = np.empty(uidx.shape[0], np.int32)
+    u_rows, c_rows = [], []
+    for s in range(uidx.shape[0]):
+        key = (int(uidx[s]), col_sel[s].tobytes())
+        k = seen.get(key)
+        if k is None:
+            k = len(u_rows)
+            seen[key] = k
+            u_rows.append(int(uidx[s]))
+            c_rows.append(col_sel[s])
+        pair_idx[s] = k
+    if pad_to is not None:
+        if pad_to < len(u_rows):
+            raise ValueError(f"pair pad {pad_to} is below the {len(u_rows)} distinct "
+                             "(universe, col_sel) pairs this grid actually holds")
+        while len(u_rows) < pad_to:
+            u_rows.append(u_rows[0])
+            c_rows.append(c_rows[0])
+    return np.asarray(u_rows, uidx.dtype), np.stack(c_rows), pair_idx
 
 
 class SpecGramStats(NamedTuple):
@@ -88,72 +178,102 @@ def split_stats(out: torch.Tensor, p: int):
             out[:, :, 0, q], out[:, :, q, q])
 
 
+def gram_spec_chunk(p: int) -> int:
+    """The most specs one kernel launch takes at ``p`` predictor columns:
+    ⌊8192 / ((P+2)(P+3)/2)⌋, 60 at P = 14."""
+    return GRAM_MAX_ENTRIES // ((p + 2) * (p + 3) // 2)
+
+
 def gram_contract_cuda(y: torch.Tensor, x: torch.Tensor, valid: torch.Tensor,
-                       col_sel: torch.Tensor, center: torch.Tensor) -> torch.Tensor:
-    """Launch the Gram kernel. y (T, N), x (T, N, P), center (T, P) float32
-    or float64 contiguous CUDA tensors of one dtype; valid (S, T, N) uint8
-    (universe ∧ window); col_sel (S, P) bool. Returns the augmented
-    (S, T, P+2, P+2) blocks in x's dtype. Raises on anything the kernel
-    does not take."""
+                       col_sel: torch.Tensor, center: torch.Tensor,
+                       row_weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch the Gram kernel. y (T, N), x (T, N, P), center (T, P) and
+    the optional row weights (T, N) are contiguous CUDA tensors of one
+    dtype: float32, float64, or bfloat16 (summed in float32); valid (S, T,
+    N) uint8 (universe ∧ window); col_sel (S, P) bool. Returns the
+    augmented (S, T, P+2, P+2) blocks, float32 for bfloat16 operands and
+    x's dtype otherwise.
+
+    A spec batch over one launch's 8192 block entries is cut into
+    consecutive chunks of ``gram_spec_chunk(P)`` specs, one launch each,
+    each writing its own slice of the output; the cut depends only on (S,
+    P). P is at most 32. Raises on anything the kernel does not take."""
     tensors = {"y": y, "x": x, "valid": valid, "col_sel": col_sel,
                "center": center}
+    if row_weights is not None:
+        tensors["row_weights"] = row_weights
     for name, a in tensors.items():
         if not a.is_cuda or a.device != x.device:
             raise ValueError(f"gram kernel: {name} must be on {x.device} (CUDA)")
         if not a.is_contiguous():
             raise ValueError(f"gram kernel: {name} must be contiguous")
-    if x.dtype not in _DTYPE_CODES or y.dtype != x.dtype or center.dtype != x.dtype:
-        raise TypeError("gram kernel takes float32/float64 x, y, center of one dtype")
+    if x.dtype not in _DTYPE_CODES or any(
+            a.dtype != x.dtype for a in (y, center, row_weights) if a is not None):
+        raise TypeError("gram kernel takes float32, float64 or bfloat16 x, y, center "
+                        "and row weights of one dtype")
     if valid.dtype != torch.uint8 or col_sel.dtype != torch.bool:
         raise TypeError("gram kernel takes a uint8 valid mask and a bool col_sel")
     t, n, p = x.shape
     s = col_sel.shape[0]
     if (y.shape != (t, n) or valid.shape != (s, t, n)
-            or col_sel.shape != (s, p) or center.shape != (t, p)):
+            or col_sel.shape != (s, p) or center.shape != (t, p)
+            or (row_weights is not None and row_weights.shape != (t, n))):
         raise ValueError("gram kernel: inconsistent shapes")
-    if p > 32:
-        raise ValueError(f"gram kernel takes at most 32 predictor columns, got {p}")
-    if s * (p + 2) * (p + 3) // 2 > GRAM_MAX_ENTRIES:
-        raise ValueError(f"gram kernel takes at most {GRAM_MAX_ENTRIES} block entries "
-                         f"S·(P+2)(P+3)/2, got S={s}, P={p}")
-    out = torch.zeros((s, t, p + 2, p + 2), dtype=x.dtype, device=x.device)
+    if p > GRAM_MAX_P:
+        raise ValueError(f"gram kernel takes at most {GRAM_MAX_P} predictor columns, got {p}")
+    code, dtype_name = _DTYPE_CODES[x.dtype]
+    out_dtype = torch.float32 if x.dtype == torch.bfloat16 else x.dtype
+    out = torch.zeros((s, t, p + 2, p + 2), dtype=out_dtype, device=x.device)
     if t == 0 or n == 0 or s == 0:
         return out
     weights = 2 ** torch.arange(p, device=x.device, dtype=torch.int64)
     sel_bits = (col_sel.to(torch.int64) * weights).sum(-1).to(torch.int32)
     fn = kernel_function("gram", "gram_contract", [
         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ])
+    rw_ptr = row_weights.data_ptr() if row_weights is not None else None
+    chunk = gram_spec_chunk(p)
     with torch.cuda.device(x.device):
-        status = fn(_DTYPE_CODES[x.dtype], x.data_ptr(), y.data_ptr(),
-                    valid.data_ptr(), sel_bits.data_ptr(), center.data_ptr(),
-                    out.data_ptr(), t, n, p, s,
-                    torch.cuda.current_stream().cuda_stream)
-    check_status("gram", status)
-    gram_contract_cuda.launches += 1
-    key = f"P={p},S={s}"
-    by_key = gram_contract_cuda.launches_by_key
-    by_key[key] = by_key.get(key, 0) + 1
+        stream = torch.cuda.current_stream().cuda_stream
+        for s0 in range(0, s, chunk):
+            s1 = min(s0 + chunk, s)
+            status = fn(code, x.data_ptr(), y.data_ptr(), rw_ptr,
+                        valid[s0:s1].data_ptr(), sel_bits[s0:s1].data_ptr(),
+                        center.data_ptr(), out[s0:s1].data_ptr(), t, n, p,
+                        s1 - s0, stream)
+            check_status("gram", status)
+            gram_contract_cuda.launches += 1
+            key = f"P={p},S={s},{dtype_name}" + (",rw" if row_weights is not None else "")
+            by_key = gram_contract_cuda.launches_by_key
+            by_key[key] = by_key.get(key, 0) + 1
     return out
 
 
-# launch counters: the total, and per "P=<columns>,S=<specs>"
+# launch counters: the total, and per call shape
+# "P=<columns>,S=<specs>,<f32|f64|bf16>[,rw]" (a call cut into chunks adds
+# one per launch)
 gram_contract_cuda.launches = 0
 gram_contract_cuda.launches_by_key = {}
 
 
 def contract_spec_grams_plain(y, x, uni, col_sel, window, center,
-                              firm_chunk: Optional[int] = None):
+                              firm_chunk: Optional[int] = None,
+                              row_weights: Optional[torch.Tensor] = None):
     """The plain PyTorch version of the Gram kernel, on any device: a
     chunked masked einsum over firm slices, one weighted design per spec.
-    ``uni`` is the (S, T, N) bool universe mask of each spec."""
+    ``uni`` is the (S, T, N) bool universe mask of each spec, ``window``
+    (S, T) bool or None (no window term). bfloat16 operands (x, y, center,
+    row weights) form ``x − c`` in bfloat16 and everything after it in
+    float32, whose stats they return."""
     t, n_firms, p = x.shape
     q = p + 1
-    dtype = x.dtype
+    low = x.dtype == torch.bfloat16
+    dtype = torch.float32 if low else x.dtype
     s_specs = col_sel.shape[0]
-    chunk = firm_chunk or auto_firm_chunk(t, n_firms, q, x.element_size())
+    # the budget is the float32/float64 weighted design's, whatever the operands
+    chunk = firm_chunk or auto_firm_chunk(t, n_firms, q, torch.finfo(dtype).bits // 8)
     sel_f = col_sel.to(dtype)
     zeros = dict(dtype=dtype, device=x.device)
     gram = torch.zeros((s_specs, t, q, q), **zeros)
@@ -166,13 +286,19 @@ def contract_spec_grams_plain(y, x, uni, col_sel, window, center,
         xc, yc = x[:, sl], y[:, sl]
         finx = torch.isfinite(xc)
         finy = torch.isfinite(yc)
-        xz = torch.where(finx, xc - center[:, None, :], torch.zeros_like(xc))
-        yz = torch.where(finy, yc, torch.zeros_like(yc))
+        # x − c in the operand dtype (rounded there for bfloat16), then up
+        xz = torch.where(finx, xc - center[:, None, :], torch.zeros_like(xc)).to(dtype)
+        yz = torch.where(finy, yc, torch.zeros_like(yc)).to(dtype)
         bad = torch.einsum("tnp,sp->stn", (~finx).to(dtype), sel_f)
-        valid = uni[:, :, sl] & finy[None] & (bad == 0) & window[:, :, None]
-        xa = torch.cat([torch.ones_like(yc)[..., None], xz], dim=-1)
+        valid = uni[:, :, sl] & finy[None] & (bad == 0)
+        if window is not None:
+            valid = valid & window[:, :, None]
+        xa = torch.cat([torch.ones_like(yz)[..., None], xz], dim=-1)
+        rw = row_weights[:, sl].to(dtype) if row_weights is not None else None
         for s in range(s_specs):
             w = valid[s].to(dtype)
+            if rw is not None:
+                w = w * rw
             b = xa * w[..., None]
             gram[s] += torch.einsum("tnp,tnq->tpq", b, xa)
             moment[s] += torch.einsum("tnp,tn->tp", b, yz)
@@ -189,31 +315,50 @@ def contract_spec_grams(
     universes: torch.Tensor,
     uidx: torch.Tensor,
     col_sel: torch.Tensor,
-    window: torch.Tensor,
+    window: Optional[torch.Tensor],
     firm_chunk: Optional[int] = None,
     center: Optional[torch.Tensor] = None,
+    row_weights: Optional[torch.Tensor] = None,
+    precision: str = "highest",
 ) -> SpecGramStats:
     """Contract the (T, N, P) union panel into (S, T, Q, Q) Gram stats.
 
     y (T, N) regressand; x (T, N, P) union predictor columns; universes
     (U, T, N) bool; uidx (S,) each spec's universe row; col_sel (S, P)
-    bool; window (S, T) bool. ``center`` (T, P) defaults to
-    ``shared_center(x)``. ``firm_chunk`` sets the plain version's firm
-    slice width. CUDA tensors run the Gram kernel, CPU tensors the plain
-    version; validity per spec = universe ∧ finite(y) ∧ finite(selected
-    x) ∧ window either way.
+    bool; window (S, T) bool, or None for no window term (the factorized
+    route). ``center`` (T, P) defaults to ``shared_center(x)``;
+    ``row_weights`` (T, N) multiply each spec's 0/1 validity; ``precision``
+    is ``"highest"`` or ``"bf16"`` (module docstring: the stats are then
+    float32 and ``center`` is the bfloat16 center upcast). ``firm_chunk``
+    sets the plain version's firm slice width. CUDA tensors run the Gram
+    kernel, CPU tensors the plain version; validity per spec = universe ∧
+    finite(y) ∧ finite(selected x) ∧ window either way.
     """
+    if precision not in GRAM_PRECISIONS:
+        raise ValueError(f"precision must be one of {GRAM_PRECISIONS}, got {precision!r}")
     dtype = x.dtype
     center = shared_center(x) if center is None else center.to(dtype)
+    y = y.to(dtype)
+    if row_weights is not None:
+        row_weights = row_weights.to(dtype)
+    if precision == "bf16":
+        # operands rounded to bfloat16 once; the center returned is the one
+        # the contraction subtracted
+        x, y, center = (a.to(torch.bfloat16) for a in (x, y, center))
+        if row_weights is not None:
+            row_weights = row_weights.to(torch.bfloat16)
+    out_center = center.to(torch.float32) if precision == "bf16" else center
     uni = universes[uidx]                       # (S, T, N)
     if x.is_cuda:
-        valid = (uni & window[:, :, None]).to(torch.uint8)
-        out = gram_contract_cuda(y.to(dtype).contiguous(), x.contiguous(),
-                                 valid.contiguous(), col_sel.contiguous(),
-                                 center.contiguous())
+        valid = uni if window is None else uni & window[:, :, None]
+        out = gram_contract_cuda(
+            y.contiguous(), x.contiguous(), valid.to(torch.uint8).contiguous(),
+            col_sel.contiguous(), center.contiguous(),
+            None if row_weights is None else row_weights.contiguous())
         gram, moment, n, ysum, yy = split_stats(out, x.shape[-1])
     else:
         gram, moment, n, ysum, yy = contract_spec_grams_plain(
             y, x, uni, col_sel, window, center, firm_chunk=firm_chunk,
+            row_weights=row_weights,
         )
-    return SpecGramStats(gram, moment, n, ysum, yy, center)
+    return SpecGramStats(gram, moment, n, ysum, yy, out_center)

@@ -15,22 +15,35 @@ stats were contracted in:
 
 - STRUCTURAL (always): rank-deficient at the data-eps pinv cutoff, or
   exactly determined (n == Q);
-- CONDITIONING (float64 panels only): equilibrated condition beyond
-  ``1/√eps``. For float32 panels this tier is off: the float32 QR route is
-  farther from float64 truth than the centered equilibrated Gram solve.
+- CONDITIONING (float64 panels, and stats contracted in bfloat16):
+  equilibrated condition beyond ``1/√eps`` of the precision the stats were
+  contracted in. For float32 panels this tier is off: the float32 QR route
+  is farther from float64 truth than the centered equilibrated Gram solve.
+  For bfloat16-contracted stats it is on at ``1/√eps(bf16)``, so a month
+  the bfloat16 Gram cannot defend sends its spec back to the
+  full-precision QR route (the promotion ``suspect_months`` discloses).
 
-The solve runs in the stats' own dtype.
+The solve runs in the stats' own dtype (float32 for bfloat16 stats).
 
-With the guard layer on (``guard.checks``) ``run_spec_grid`` queues the
-grid's sentinel counters under ``"specgrid.grid_program"`` — non-finite
-Gram/moment entries, and months conditioned beyond ``1/√eps`` that no
-referee re-solves (only possible on float32 panels, where the conditioning
-tier is off) — and each referee solve records as ``"ols.fama_macbeth"``.
+``run_spec_grid_weights`` solves a grid once for several Newey-West weight
+schemes, optionally on the factorized route (one contraction per distinct
+(universe, col_sel) pair, windows applied to the additive per-month stats
+by ``expand_window_stats``), with coreset row weights (the referee is then
+off: it would re-solve on the full panel) or bfloat16 operands. It runs on
+one device; a mesh or a multi-process grid is not ported (ROADMAP A8).
+
+With the guard layer on (``guard.checks``) a grid run queues its sentinel
+counters under ``"specgrid.grid_program"`` — non-finite Gram/moment
+entries, and months conditioned beyond ``1/√eps`` that no referee
+re-solves (only possible on float32 panels, where the conditioning tier is
+off) — and each referee solve records as ``"ols.fama_macbeth"``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Tuple
+import collections
+import os
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -42,10 +55,73 @@ from fm_returnprediction_tpu_torch.ops.fama_macbeth import (
     fama_macbeth_summary,
 )
 from fm_returnprediction_tpu_torch.ops.ols import CSRegressionResult
-from fm_returnprediction_tpu_torch.specgrid.grams import contract_spec_grams
+from fm_returnprediction_tpu_torch.specgrid.grams import (
+    SpecGramStats,
+    contract_spec_grams,
+    resolve_gram_factorize,
+    resolve_gram_precision,
+    unique_pairs,
+)
 from fm_returnprediction_tpu_torch.specgrid.specs import SpecGrid
 
-__all__ = ["SpecSolve", "SpecGridResult", "solve_spec_stats", "run_spec_grid"]
+__all__ = [
+    "SpecSolve",
+    "SpecGridResult",
+    "contraction_counts",
+    "expand_window_stats",
+    "require_single_device",
+    "solve_spec_stats",
+    "run_spec_grid",
+    "run_spec_grid_weights",
+]
+
+# contraction work, per grid call: specs solved, and spec rows (legacy) or
+# pair rows (factorized) contracted; the tile engine reports the deltas
+CONTRACTIONS: collections.Counter = collections.Counter()
+
+# bfloat16's machine epsilon, the precision bf16-contracted stats carry
+BF16_EPS = float(torch.finfo(torch.bfloat16).eps)
+
+
+def contraction_counts() -> Dict[str, int]:
+    """Snapshot of the contraction-work counters."""
+    return dict(CONTRACTIONS)
+
+
+def require_single_device(mesh=None, procs: Optional[int] = None) -> None:
+    """Raise unless the grid runs on one device in one process: a ``mesh``,
+    ``FMRP_SPECGRID_MESH`` naming more than one device, or more than one
+    process (``procs`` or ``FMRP_SPECGRID_PROCS``) asks for the sharded or
+    multi-process grid, which is not ported (ROADMAP A8)."""
+    want_mesh = os.environ.get("FMRP_SPECGRID_MESH", "").strip().lower()
+    one_mesh = want_mesh in ("", "0", "1") or (
+        want_mesh == "auto" and torch.cuda.device_count() <= 1)
+    want_procs = os.environ.get("FMRP_SPECGRID_PROCS", "").strip().lower()
+    n_procs = int(procs) if procs is not None else (
+        1 if want_procs in ("", "0", "1") else int(want_procs))
+    if mesh is not None or not one_mesh or n_procs > 1:
+        raise NotImplementedError(
+            "the spec grid runs on one device in one process here: the mesh and "
+            "multi-process grid (mesh=, FMRP_SPECGRID_MESH, FMRP_SPECGRID_PROCS) "
+            "are not ported yet (ROADMAP A8)")
+
+
+def expand_window_stats(stats, pair_idx: torch.Tensor, window: torch.Tensor):
+    """Per-spec windowed stats from per-pair unwindowed stats, the solve
+    side of the factorized route (``grams.unique_pairs``). Exact: every
+    per-month leaf is a sum over that month's rows and a window multiplies
+    every row weight of a month by the same 0/1. ``pair_idx`` (S,) gathers
+    each spec's pair row; ``window`` (S, T) bool is its month mask."""
+    gram, moment, n, ysum, yy, center = stats
+    w = window.to(gram.dtype)
+    return SpecGramStats(
+        gram[pair_idx] * w[:, :, None, None],
+        moment[pair_idx] * w[:, :, None],
+        n[pair_idx] * w,
+        ysum[pair_idx] * w,
+        yy[pair_idx] * w,
+        center,
+    )
 
 
 class SpecSolve(NamedTuple):
@@ -97,22 +173,46 @@ class SpecGridResult(NamedTuple):
         )
 
 
-def solve_spec_stats(stats, sel_aug: torch.Tensor, guard: bool = False):
+# the most (Q, Q) systems one batched eigh call takes: on an H100 with CUDA
+# 12.8, cuSOLVER's batched solver refuses 32,767 systems of 15 × 15 (float32
+# and float64) and takes 24,576; the 117-spec sweep has 70,200
+EIGH_BATCH = 16384
+
+
+def _eigh(a: torch.Tensor):
+    """``torch.linalg.eigh`` over the leading axes, in slices of at most
+    ``EIGH_BATCH`` systems (one call below that, so those bits are the
+    unsliced call's)."""
+    flat = a.reshape(-1, *a.shape[-2:])
+    if flat.shape[0] <= EIGH_BATCH:
+        return torch.linalg.eigh(a)
+    parts = [torch.linalg.eigh(flat[i:i + EIGH_BATCH])
+             for i in range(0, flat.shape[0], EIGH_BATCH)]
+    w = torch.cat([pt[0] for pt in parts]).reshape(a.shape[:-1])
+    v = torch.cat([pt[1] for pt in parts]).reshape(a.shape)
+    return w, v
+
+
+def solve_spec_stats(stats, sel_aug: torch.Tensor, guard: bool = False,
+                     contracted_eps: Optional[float] = None):
     """Solve every (spec, month) padded Gram system.
 
     ``sel_aug`` (S, Q) bool selects augmented columns (intercept always
     True). Unselected rows/columns are replaced by identity, so the padded
     eigendecomposition solves exactly the selected subsystem with zeros
-    elsewhere. Returns ``(SpecSolve, counters)``: with ``guard`` the
-    sentinel counters, computed from the eigenvalues the solve already
-    holds; without it None, and no extra tensor is computed.
+    elsewhere. ``contracted_eps`` declares that the stats were contracted
+    below their storage precision (bfloat16 stats stored in float32): the
+    pinv cutoff then uses that eps and the conditioning tier turns on at
+    ``1/√contracted_eps``. Returns ``(SpecSolve, counters)``: with
+    ``guard`` the sentinel counters, computed from the eigenvalues the
+    solve already holds; without it None, and no extra tensor is computed.
     """
     gram, moment, n, ysum, yy, center = stats
     dtype = gram.dtype
     q = gram.shape[-1]
-    eps = torch.finfo(dtype).eps
+    eps = torch.finfo(dtype).eps if contracted_eps is None else float(contracted_eps)
     cond_limit = 1.0 / np.sqrt(eps)
-    cond_tier = dtype == torch.float64
+    cond_tier = dtype == torch.float64 or contracted_eps is not None
 
     q_s = sel_aug.sum(-1).to(dtype)                               # (S,)
     month_valid = n >= q_s[:, None]                               # (S, T)
@@ -134,7 +234,7 @@ def solve_spec_stats(stats, sel_aug: torch.Tensor, guard: bool = False):
     # the spec; torch's eigh raises on such input, so it decomposes the
     # identity in its place
     broken = ~torch.isfinite(gs).all(dim=-1).all(dim=-1)          # (S, T)
-    w, v = torch.linalg.eigh(torch.where(broken[..., None, None], eye, gs))
+    w, v = _eigh(torch.where(broken[..., None, None], eye, gs))
     w = torch.where(broken[..., None], float("nan"), w)           # ascending
     v = torch.where(broken[..., None, None], float("nan"), v)
     wmax = w[..., -1]
@@ -181,15 +281,19 @@ def solve_spec_stats(stats, sel_aug: torch.Tensor, guard: bool = False):
 
 
 def _solve_and_aggregate(stats, col_sel: torch.Tensor, out_dtype, *,
-                         nw_lags: int, min_months: int, weight: str, guard: bool):
-    """Padded Gram solve + FM aggregation over the spec axis; the sentinel
-    counters (None without ``guard``) come last."""
+                         nw_lags: int, min_months: int, weights: Tuple[str, ...],
+                         guard: bool, precision: str = "highest"):
+    """Padded Gram solve + FM aggregation over the spec axis, once per NW
+    weight scheme: ``(cs, fms, suspect, counters)``, the sentinel counters
+    None without ``guard``."""
     s_specs = col_sel.shape[0]
     sel_aug = torch.cat(
         [torch.ones((s_specs, 1), dtype=torch.bool, device=col_sel.device),
          col_sel], dim=1,
     )
-    sol, counters = solve_spec_stats(stats, sel_aug, guard=guard)
+    sol, counters = solve_spec_stats(
+        stats, sel_aug, guard=guard,
+        contracted_eps=BF16_EPS if precision == "bf16" else None)
     slopes = torch.where(col_sel[:, None, :], sol.beta[..., 1:],
                          torch.full_like(sol.beta[..., 1:], float("nan")))
     cs = CSRegressionResult(
@@ -199,9 +303,9 @@ def _solve_and_aggregate(stats, col_sel: torch.Tensor, out_dtype, *,
         n_obs=stats.n.to(out_dtype),
         month_valid=sol.month_valid,
     )
-    fm = fama_macbeth_summary(cs, nw_lags=nw_lags, min_months=min_months,
-                              weight=weight)
-    return cs, fm, sol.suspect, counters
+    fms = tuple(fama_macbeth_summary(cs, nw_lags=nw_lags, min_months=min_months,
+                                     weight=w) for w in weights)
+    return cs, fms, sol.suspect, counters
 
 
 def _host(a: torch.Tensor) -> np.ndarray:
@@ -210,66 +314,149 @@ def _host(a: torch.Tensor) -> np.ndarray:
 
 def run_spec_grid(y: torch.Tensor, x: torch.Tensor,
                   universe_masks: Dict[str, torch.Tensor], grid: SpecGrid,
-                  firm_chunk=None) -> SpecGridResult:
+                  referee: bool = True, firm_chunk=None, row_weights=None,
+                  precision: Optional[str] = None,
+                  factorize: Optional[str] = None) -> SpecGridResult:
     """Solve a whole spec grid from panel tensors.
 
     ``x`` holds the grid's union predictor columns in
     ``grid.union_predictors`` order; ``universe_masks`` maps universe name →
-    (T, N) bool, all on the device of ``y``. Any spec containing a suspect
-    month is re-solved by the per-cell batched QR route (the referee), so
-    its numbers are exactly that route's. ``firm_chunk`` sets the plain
-    contraction's firm slice width.
-    """
+    (T, N) bool, all on the device of ``y``. With ``referee`` any spec
+    containing a suspect month is re-solved by the per-cell batched QR
+    route, so its numbers are exactly that route's. ``firm_chunk`` sets the
+    plain contraction's firm slice width; the other options are
+    ``run_spec_grid_weights``'."""
+    return run_spec_grid_weights(
+        y, x, universe_masks, grid, (grid.weight,), referee=referee,
+        firm_chunk=firm_chunk, row_weights=row_weights, precision=precision,
+        factorize=factorize,
+    )[grid.weight]
+
+
+def run_spec_grid_weights(
+    y: torch.Tensor,
+    x: torch.Tensor,
+    universe_masks: Dict[str, torch.Tensor],
+    grid: SpecGrid,
+    weights: Tuple[str, ...],
+    referee: bool = True,
+    firm_chunk=None,
+    mesh=None,
+    procs: Optional[int] = None,
+    row_weights=None,
+    precision: Optional[str] = None,
+    factorize: Optional[str] = None,
+    pair_pad: Optional[int] = None,
+) -> Dict[str, SpecGridResult]:
+    """``run_spec_grid`` for several NW weight schemes at once: the panel
+    contraction and Gram solve run once, and each scheme re-aggregates the
+    per-month series (``grid.weight`` is ignored in favour of ``weights``).
+
+    ``precision`` (``FMRP_GRAM_PRECISION`` when None) ``"bf16"`` contracts
+    bfloat16 operands; the conditioning referee is then on at bf16's eps
+    and promotes the specs it flags to the full-precision QR route, with
+    ``suspect_months`` disclosing the count. ``factorize``
+    (``FMRP_GRAM_FACTORIZE`` when None): ``"on"`` contracts once per
+    unique (universe, col_sel) pair and applies each spec's window to the
+    additive per-month stats (``expand_window_stats``, exact); ``"auto"``
+    does so only where the grid repeats pairs; ``"off"`` contracts per
+    spec. ``pair_pad`` pads the pair axis with inert repeats of pair 0.
+    ``row_weights`` (T, N) is the coreset route's importance weighting; the
+    referee is off with it (it would re-solve on the full panel and splice
+    two estimands). ``mesh`` and ``procs`` > 1 raise (ROADMAP A8)."""
+    precision = resolve_gram_precision(precision)
+    factorize = resolve_gram_factorize(factorize)
+    require_single_device(mesh, procs)
     device = y.device
     names = list(universe_masks)
     universes = torch.stack([torch.as_tensor(universe_masks[nm], device=device)
                              for nm in names])
     t = y.shape[0]
-    uidx = torch.as_tensor(grid.universe_index(names), device=device)
-    col_sel = torch.as_tensor(grid.column_selector(), device=device)
+    uidx_np = grid.universe_index(names)
+    col_sel_np = grid.column_selector()
+    uidx = torch.as_tensor(uidx_np, device=device)
+    col_sel = torch.as_tensor(col_sel_np, device=device)
     window = torch.as_tensor(grid.window_masks(t), device=device)
+    if row_weights is not None:
+        row_weights = torch.as_tensor(row_weights, device=device).to(x.dtype)
+        referee = False
 
-    stats = contract_spec_grams(y, x, universes, uidx, col_sel, window,
-                                firm_chunk=firm_chunk)
+    s_specs = len(grid)
+    use_fact = False
+    if factorize != "off":
+        k_unique = int(unique_pairs(uidx_np, col_sel_np)[0].shape[0])
+        # "auto" factorizes only when the grid repeats pairs (a window sweep)
+        use_fact = factorize == "on" or k_unique < s_specs
+    CONTRACTIONS["specs_solved"] += s_specs
+    if use_fact:
+        uidx_u, col_sel_u, pair_idx = unique_pairs(uidx_np, col_sel_np, pad_to=pair_pad)
+        CONTRACTIONS["pairs_unique"] += k_unique
+        CONTRACTIONS["pairs_contracted"] += int(uidx_u.shape[0])
+        pair_stats = contract_spec_grams(
+            y, x, universes, torch.as_tensor(uidx_u, device=device),
+            torch.as_tensor(col_sel_u, device=device), None, firm_chunk=firm_chunk,
+            row_weights=row_weights, precision=precision)
+        stats = expand_window_stats(pair_stats, torch.as_tensor(pair_idx, device=device,
+                                                                dtype=torch.long), window)
+    else:
+        CONTRACTIONS["specs_contracted"] += s_specs
+        stats = contract_spec_grams(y, x, universes, uidx, col_sel, window,
+                                    firm_chunk=firm_chunk, row_weights=row_weights,
+                                    precision=precision)
     guard = _guard.guard_active()
-    cs, fm, suspect, counters = _solve_and_aggregate(
-        stats, col_sel, y.dtype, nw_lags=grid.nw_lags,
-        min_months=grid.min_months, weight=grid.weight, guard=guard,
+    cs, fms, suspect, counters = _solve_and_aggregate(
+        stats, col_sel, y.dtype, nw_lags=grid.nw_lags, min_months=grid.min_months,
+        weights=tuple(weights), guard=guard, precision=precision,
     )
     if guard:
         _guard.record("specgrid.grid_program", counters)
     suspect_months = _host(suspect).sum(axis=1).astype(np.int64)
-    flagged = [int(s) for s in np.nonzero(suspect_months > 0)[0]]
+    flagged = [int(s) for s in np.nonzero(suspect_months > 0)[0]] if referee else []
 
-    slopes, intercept, r2 = _host(cs.slopes), _host(cs.intercept), _host(cs.r2)
-    n_obs, month_valid = _host(cs.n_obs), _host(cs.month_valid)
-    coef, tstat, nw_se = _host(fm.coef), _host(fm.tstat), _host(fm.nw_se)
-    mean_r2, mean_n = _host(fm.mean_r2), _host(fm.mean_n)
-    n_months = _host(fm.n_months)
-    for s in flagged:
-        spec = grid.specs[s]
-        pos = grid.column_positions(spec)
-        mask = universes[uidx[s]] & window[s][:, None]
-        ref_cs, ref_fm = fama_macbeth(
-            y, x[:, :, pos], mask, nw_lags=grid.nw_lags,
-            min_months=grid.min_months, weight=grid.weight,
+    out: Dict[str, SpecGridResult] = {}
+    # duplicate specs (the tile engine pads batches by repeating a spec)
+    # share one referee solve
+    referee_cache: Dict[tuple, tuple] = {}
+    slopes0, intercept0, r20 = _host(cs.slopes), _host(cs.intercept), _host(cs.r2)
+    n_obs0, month_valid0 = _host(cs.n_obs), _host(cs.month_valid)
+    for w, fm in zip(weights, fms):
+        slopes, intercept, r2 = slopes0.copy(), intercept0.copy(), r20.copy()
+        n_obs, month_valid = n_obs0.copy(), month_valid0.copy()
+        coef, tstat, nw_se = _host(fm.coef), _host(fm.tstat), _host(fm.nw_se)
+        mean_r2, mean_n = _host(fm.mean_r2), _host(fm.mean_n)
+        n_months = _host(fm.n_months)
+        for s in flagged:
+            spec = grid.specs[s]
+            pos = grid.column_positions(spec)
+            key = (w, spec.predictors, spec.universe, spec.window)
+            cached = referee_cache.get(key)
+            if cached is None:
+                mask = universes[uidx[s]] & window[s][:, None]
+                ref_cs, ref_fm = fama_macbeth(
+                    y, x[:, :, pos], mask, nw_lags=grid.nw_lags,
+                    min_months=grid.min_months, weight=w,
+                )
+                cached = referee_cache[key] = (
+                    {k: _host(v) for k, v in ref_cs._asdict().items()},
+                    {k: _host(v) for k, v in ref_fm._asdict().items()})
+            ref_cs, ref_fm = cached
+            slopes[s] = np.nan
+            slopes[s][:, pos] = ref_cs["slopes"]
+            intercept[s] = ref_cs["intercept"]
+            r2[s] = ref_cs["r2"]
+            n_obs[s] = ref_cs["n_obs"]
+            month_valid[s] = ref_cs["month_valid"]
+            coef[s] = np.nan
+            coef[s][pos] = ref_fm["coef"]
+            tstat[s] = np.nan
+            tstat[s][pos] = ref_fm["tstat"]
+            nw_se[s] = np.nan
+            nw_se[s][pos] = ref_fm["nw_se"]
+            mean_r2[s] = ref_fm["mean_r2"]
+            mean_n[s] = ref_fm["mean_n"]
+            n_months[s] = ref_fm["n_months"]
+        out[w] = SpecGridResult(
+            slopes, intercept, r2, n_obs, month_valid, coef, tstat, nw_se,
+            mean_r2, mean_n, n_months, suspect_months.copy(), tuple(flagged),
         )
-        slopes[s] = np.nan
-        slopes[s][:, pos] = _host(ref_cs.slopes)
-        intercept[s] = _host(ref_cs.intercept)
-        r2[s] = _host(ref_cs.r2)
-        n_obs[s] = _host(ref_cs.n_obs)
-        month_valid[s] = _host(ref_cs.month_valid)
-        coef[s] = np.nan
-        coef[s][pos] = _host(ref_fm.coef)
-        tstat[s] = np.nan
-        tstat[s][pos] = _host(ref_fm.tstat)
-        nw_se[s] = np.nan
-        nw_se[s][pos] = _host(ref_fm.nw_se)
-        mean_r2[s] = _host(ref_fm.mean_r2)
-        mean_n[s] = _host(ref_fm.mean_n)
-        n_months[s] = _host(ref_fm.n_months)
-    return SpecGridResult(
-        slopes, intercept, r2, n_obs, month_valid, coef, tstat, nw_se,
-        mean_r2, mean_n, n_months, suspect_months, tuple(flagged),
-    )
+    return out

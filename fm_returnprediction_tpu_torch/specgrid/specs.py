@@ -1,12 +1,14 @@
 """Declarative specification grids.
 
 A ``Spec`` names one Fama-MacBeth cell: a regressor subset (panel column
-names), a stock universe (a subset-mask name) and an optional sample window
-(month-index range). A ``SpecGrid`` is an ordered batch of specs sharing the
-FM hyperparameters (NW lags / weight scheme / min-months), solved together
-from one Gram contraction (``specgrid.grams`` / ``specgrid.solve``).
-``table2_grid`` reproduces Table 2's 3 models × 3 universes in model-major
-order; ``figure1_grid`` the figure's 5-variable set per universe.
+names), a stock universe (a subset-mask name), an optional sample window
+(month-index range) and a free-form scenario tag. A ``SpecGrid`` is an
+ordered batch of specs sharing the FM hyperparameters (NW lags / weight
+scheme / min-months), solved together from one Gram contraction
+(``specgrid.grams`` / ``specgrid.solve``). ``table2_grid`` reproduces Table
+2's 3 models × 3 universes in model-major order; ``figure1_grid`` the
+figure's 5-variable set per universe; ``product_grid`` any regressor-set ×
+universe × window product.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ import numpy as np
 from fm_returnprediction_tpu_torch.models.lewellen import FIGURE1_VARS, MODELS, model_columns
 from fm_returnprediction_tpu_torch.panel.subsets import SUBSET_ORDER
 
-__all__ = ["Spec", "SpecGrid", "table2_grid", "figure1_grid"]
+__all__ = ["Spec", "SpecGrid", "table2_grid", "figure1_grid", "product_grid"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,6 +34,7 @@ class Spec:
     predictors: Tuple[str, ...]
     universe: str
     window: Optional[Tuple[int, int]] = None
+    tag: str = ""
 
     def __post_init__(self):
         if len(set(self.predictors)) != len(self.predictors):
@@ -48,24 +51,38 @@ class Spec:
 
 @dataclasses.dataclass(frozen=True)
 class SpecGrid:
-    """An ordered batch of specs + the shared FM hyperparameters."""
+    """An ordered batch of specs + the shared FM hyperparameters.
+
+    ``union`` optionally pins the union-column order (a superset of every
+    spec's predictors): the tile engine solves one union tensor in
+    fixed-width spec batches, so every batch must agree on the column axis.
+    ``None`` derives it from the specs, first seen first."""
 
     specs: Tuple[Spec, ...]
     nw_lags: int = 4
     min_months: int = 10
     weight: str = "reference"
+    union: Optional[Tuple[str, ...]] = None
 
     def __post_init__(self):
         if not self.specs:
             raise ValueError("a SpecGrid needs at least one spec")
+        if self.union is not None:
+            missing = {c for s in self.specs for c in s.predictors} - set(self.union)
+            if missing:
+                raise ValueError(
+                    f"pinned union is missing predictor columns {sorted(missing)}")
 
     def __len__(self) -> int:
         return len(self.specs)
 
     @property
     def union_predictors(self) -> List[str]:
-        """Union of every spec's predictor columns, first-seen order — the
-        column order of the ``x`` tensor the contraction reads."""
+        """Union of every spec's predictor columns, first-seen order (or the
+        pinned ``union``) — the column order of the ``x`` tensor the
+        contraction reads."""
+        if self.union is not None:
+            return list(self.union)
         union: List[str] = []
         for spec in self.specs:
             for c in spec.predictors:
@@ -147,3 +164,25 @@ def figure1_grid(
     specs = tuple(Spec(f"figure1 | {name}", cols, name) for name in subsets)
     return SpecGrid(specs, nw_lags=nw_lags, min_months=min_months,
                     weight=weight)
+
+
+def product_grid(
+    regressor_sets: Dict[str, Sequence[str]],
+    universes: Sequence[str],
+    windows: Optional[Dict[str, Optional[Tuple[int, int]]]] = None,
+    tag: str = "",
+    nw_lags: int = 4,
+    min_months: int = 10,
+    weight: str = "reference",
+) -> SpecGrid:
+    """Cartesian product regressor-set × universe × window → one grid."""
+    windows = windows or {"full": None}
+    specs = []
+    for set_name, cols in regressor_sets.items():
+        for universe in universes:
+            for win_name, win in windows.items():
+                specs.append(Spec(f"{set_name} | {universe} | {win_name}",
+                                  tuple(cols), universe, window=win, tag=tag))
+    return SpecGrid(tuple(specs), nw_lags=nw_lags, min_months=min_months,
+                    weight=weight)
+

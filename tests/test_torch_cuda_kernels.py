@@ -8,7 +8,9 @@ on first use); without a device they skip. On a machine with one GPU:
 Tolerances: float64 at rtol 1e-10 for the rolling family (both sides
 difference two cumulative sums, so a small window std under a large running
 sum loses digits to cancellation) and 1e-12 of each (spec, month) block's
-max-abs entry for the Gram contraction; the cumulative moments at 1e-12
+max-abs entry for the Gram contraction (1e-5 in float32 and for bfloat16
+operands, whose plain version forms the same float32 products); the
+cumulative moments at 1e-12
 (float64) / 1e-5 (float32) of the largest cumulative magnitude (the card's
 ``torch.cumsum`` scans in another order than the kernel's chunked two-pass
 walk) and bit-identical from launch to launch; identical NaN patterns,
@@ -244,12 +246,81 @@ def test_gram_kernel_edge_shapes(cuda, dtype, rtol, t, n, p, s):
     assert torch.equal(got.gram, got.gram.transpose(-1, -2))
 
 
+def _held_to_plain(got, want, rtol, counts_exact=True):
+    """Every statistic within ``rtol`` of its (spec, month) block's max-abs
+    entry; counts exactly equal where the weights are 0/1."""
+    scale = torch.stack([want[0].abs().amax((-1, -2)), want[1].abs().amax(-1),
+                         want[2].abs(), want[3].abs(), want[4].abs()]).amax(0)
+    scale = scale.clamp_min(1.0)
+    if counts_exact:
+        torch.testing.assert_close(got[2], want[2], rtol=0, atol=0)
+    for g, w in zip(got[:5], want):
+        sc = scale.reshape(scale.shape + (1,) * (g.dim() - 2))
+        assert bool(((g - w).abs() <= rtol * sc).all())
+
+
 def test_gram_wrapper_refuses_too_many_entries(cuda):
+    """P > 32 is refused (the kernel's column mask is one 32-bit word); a
+    spec batch over one launch's 8192 entries is split instead."""
     y, x, universes, uidx, col_sel, window = _gram_args(torch.float32, cuda, t=2,
-                                                        n=50, p=32, s=14)
+                                                        n=50, p=33, s=3)
     valid = universes[uidx].to(torch.uint8)
-    with pytest.raises(ValueError, match="8192"):   # 14·34·35/2 = 8,330
+    with pytest.raises(ValueError, match="32"):
         grams.gram_contract_cuda(y, x, valid, col_sel, grams.shared_center(x))
+
+
+@pytest.mark.parametrize("dtype,rtol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
+def test_gram_kernel_row_weights_match_plain(cuda, dtype, rtol):
+    y, x, universes, uidx, col_sel, window = _gram_args(dtype, cuda, p=14, s=9)
+    rng = np.random.default_rng(5)
+    rw = torch.tensor(rng.random(y.shape) * 2, dtype=dtype, device=cuda)
+    rw[:, ::7] = 0.0                                   # rows outside the coreset
+    got = grams.contract_spec_grams(y, x, universes, uidx, col_sel, window,
+                                    row_weights=rw)
+    want = grams.contract_spec_grams_plain(y, x, universes[uidx], col_sel, window,
+                                           got.center, row_weights=rw)
+    _held_to_plain(got, want, rtol, counts_exact=False)
+    # 0/1 weights: the counts are exact again
+    ones = (rw > 0.5).to(dtype)
+    got = grams.contract_spec_grams(y, x, universes, uidx, col_sel, window,
+                                    row_weights=ones)
+    want = grams.contract_spec_grams_plain(y, x, universes[uidx], col_sel, window,
+                                           got.center, row_weights=ones)
+    _held_to_plain(got, want, rtol)
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_gram_kernel_bf16_matches_plain(cuda, weighted):
+    y, x, universes, uidx, col_sel, window = _gram_args(torch.float32, cuda, p=14, s=9)
+    rw = None
+    if weighted:
+        rng = np.random.default_rng(6)
+        rw = torch.tensor(rng.random(y.shape) * 2, dtype=torch.float32, device=cuda)
+    got = grams.contract_spec_grams(y, x, universes, uidx, col_sel, window,
+                                    row_weights=rw, precision="bf16")
+    assert got.gram.dtype == torch.float32
+    bf = torch.bfloat16
+    want = grams.contract_spec_grams_plain(
+        y.to(bf), x.to(bf), universes[uidx], col_sel, window, got.center.to(bf),
+        row_weights=None if rw is None else rw.to(bf))
+    _held_to_plain(got, want, 1e-5, counts_exact=not weighted)
+
+
+@pytest.mark.parametrize("dtype,rtol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
+def test_gram_kernel_splits_spec_batches(cuda, dtype, rtol):
+    """S = 123 at P = 14 is three launches of at most 60 specs; repeated
+    calls give the same bits."""
+    assert grams.gram_spec_chunk(14) == 60
+    y, x, universes, uidx, col_sel, window = _gram_args(dtype, cuda, t=5, n=400,
+                                                        p=14, s=123)
+    before = grams.gram_contract_cuda.launches
+    got = grams.contract_spec_grams(y, x, universes, uidx, col_sel, window)
+    assert grams.gram_contract_cuda.launches == before + 3
+    want = grams.contract_spec_grams_plain(y, x, universes[uidx], col_sel, window,
+                                           got.center)
+    _held_to_plain(got, want, rtol)
+    again = grams.contract_spec_grams(y, x, universes, uidx, col_sel, window)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 def test_gram_wrapper_refuses_what_the_kernel_does_not_take(cuda):
@@ -260,5 +331,10 @@ def test_gram_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         grams.gram_contract_cuda(y.float(), x, valid, col_sel, center)
     with pytest.raises(TypeError):
         grams.gram_contract_cuda(y, x, universes[uidx], col_sel, center)
+    with pytest.raises(TypeError):
+        grams.gram_contract_cuda(y.to(torch.bfloat16), x.to(torch.bfloat16), valid,
+                                 col_sel, center)
+    with pytest.raises(TypeError):
+        grams.gram_contract_cuda(y, x, valid, col_sel, center, row_weights=y.float())
     with pytest.raises(ValueError, match="contiguous"):
         grams.gram_contract_cuda(y, x.transpose(0, 1), valid, col_sel, center)

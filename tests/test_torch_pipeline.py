@@ -9,9 +9,10 @@ Enriched panel values agree at rtol 1e-10 with identical NaN patterns, the
 masks exactly, Table 2's per-cell numbers at rtol 1e-8, and the formatted
 frames are equal. The JAX warm path's later stages (``build_table_1``, the
 ``subset_sweep``, Figure 1's ``rolling_slopes``, ``build_decile_table``,
-``build_serving_state_from_panel``) run on the same JAX panel: Table 1 at
-rtol 1e-10 with N exact, the figure frames, decile table and serving state
-at rtol 1e-8 with counts and flags exact.
+``build_serving_state_from_panel``, the scenario sweep ``run_scenarios``)
+run on the same JAX panel: Table 1 at rtol 1e-10 with N exact, the figure
+frames, decile table, serving state and scenario frame at rtol 1e-8 with
+counts, labels and flags exact.
 """
 
 import os
@@ -36,6 +37,7 @@ from fm_returnprediction_tpu.reporting.table1 import build_table_1
 from fm_returnprediction_tpu.reporting.table2 import build_table_2
 from fm_returnprediction_tpu.serving.state import build_serving_state_from_panel
 from fm_returnprediction_tpu.specgrid import run_spec_grid, table2_grid
+from fm_returnprediction_tpu.specgrid.scenarios import run_scenarios
 from fm_returnprediction_tpu_torch.convert import prepared_from_numpy
 from fm_returnprediction_tpu_torch.pipeline import run_pipeline
 
@@ -202,6 +204,54 @@ def test_pipeline_without_deciles(jax_run, port_run, make_figure):
         np.testing.assert_array_equal(getattr(got, name), getattr(want, name), err_msg=name)
 
 
+def test_specgrid_scenarios_match(jax_run):
+    """``run_pipeline(make_specgrid=True)`` against the JAX sweep on the
+    JAX panel: the default sweep (3 models × 3 universes × full sample and
+    two halves) and one grown to 100 cells by bootstrap draws."""
+    base, daily = prepared_from_numpy(jax_run["base"], jax_run["daily"])
+    for cells in (None, 100):
+        res = run_pipeline(base, daily, device="cpu", dtype=torch.float64, make_figure=False,
+                           make_deciles=False, make_serving=False, make_specgrid=True,
+                           specgrid_cells=cells)
+        want = run_scenarios(jax_run["panel"], jax_run["masks"], jax_run["factors"],
+                             cells=cells)
+        got = res.specgrid_scenarios
+        assert "specgrid" in res.stage_seconds
+        assert list(got.columns) == list(want.columns) and len(got) == len(want)
+        floats = [c for c in want.columns if want[c].dtype.kind == "f"]
+        for c in want.columns:
+            g, w = got[c].to_numpy(), want[c].to_numpy()
+            if c in floats:
+                np.testing.assert_array_equal(np.isnan(g), np.isnan(w), err_msg=c)
+                np.testing.assert_allclose(g, w, rtol=1e-8, atol=1e-13, equal_nan=True,
+                                           err_msg=c)
+            else:
+                np.testing.assert_array_equal(g, w, err_msg=c)
+        assert got["cell"].nunique() == (27 if cells is None else 108)
+
+
+def test_artifacts_without_matplotlib(jax_run, tmp_path, monkeypatch):
+    """Where matplotlib does not import, a run that draws the figure into
+    ``output_dir`` raises ImportError, as the reference's does; with
+    ``make_figure=False`` it writes every other artifact, the scenario csv
+    too (research_report.tex, which includes the figure, is skipped)."""
+    from fm_returnprediction_tpu_torch import pipeline as port_pipeline
+
+    def no_matplotlib(frames):
+        raise ImportError("No module named 'matplotlib'")
+
+    monkeypatch.setattr(port_pipeline, "draw_figure_1", no_matplotlib)
+    base, daily = prepared_from_numpy(jax_run["base"], jax_run["daily"])
+    kw = dict(device="cpu", dtype=torch.float64, make_deciles=False, make_specgrid=True,
+              specgrid_sink="summary")
+    with pytest.raises(ImportError, match="matplotlib"):
+        run_pipeline(base, daily, output_dir=tmp_path / "figure", **kw)
+    run_pipeline(base, daily, make_figure=False, output_dir=tmp_path / "out", **kw)
+    made = sorted(p.name for p in (tmp_path / "out").iterdir())
+    assert made == ["data_saved.marker", "serving_state.npz", "specgrid_scenarios.csv",
+                    "table_1.pkl", "table_1.tex", "table_2.pkl", "table_2.tex"]
+
+
 def test_stage_times_are_recorded(port_run):
     assert {"build_panel", "factors/daily_kernels", "factors/characteristics_winsorize",
             "subset_masks", "table_1", "table_2", "figure_cs", "figure_1",
@@ -215,9 +265,10 @@ def test_port_runs_with_jax_blocked(tmp_path):
     """The port's whole path on the CPU in a process where importing jax or
     the JAX package raises: from prepared inputs, from a synthetic universe
     with the guard and the drift sentinel armed, through the command line
-    with artifacts, and from a raw directory by the columnar route, cold
+    with artifacts, from a raw directory by the columnar route, cold
     (the slot is written) and warm (the slot is mapped), with stage
-    checkpoints."""
+    checkpoints, and the spec-grid scenario sweep, in process and through
+    the command line."""
     code = textwrap.dedent("""
         import runpy
         import sys
@@ -276,6 +327,18 @@ def test_port_runs_with_jax_blocked(tmp_path):
             "decile_table.pkl", "manifest.json", "serving_state.npz", "table_1.pkl",
             "table_2.pkl"]
         assert runs[0].table_2.equals(runs[1].table_2)
+
+        res = run_pipeline(base, daily, device="cpu", dtype=torch.float64,
+                           make_specgrid=True)
+        frame = res.specgrid_scenarios
+        assert frame["cell"].nunique() == 27 and frame["coef"].notna().any(), frame
+        sys.argv = ["pipeline", "--synthetic", "--firms", "60", "--months", "72",
+                    "--device", "cpu", "--specgrid", "--specgrid-cells", "40",
+                    "--specgrid-sink", "topk", "--output-dir", tmp + "/out_sg"]
+        runpy.run_module("fm_returnprediction_tpu_torch.pipeline", run_name="__main__")
+        import pandas as pd
+        top = pd.read_csv(tmp + "/out_sg/specgrid_scenarios.csv")
+        assert len(top) == 100 and "draw" in top.columns, top.shape
         loaded = [m for m in sys.modules
                   if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
         assert not loaded, loaded
@@ -315,7 +378,10 @@ def test_port_never_names_jax_or_the_jax_package(pattern):
             "reporting/latex.py", "pipeline.py", "registry/integrity.py",
             "data/columnar.py", "panel/columnar.py", "data/prepared.py",
             "resilience/faults.py", "resilience/checkpoint.py", "utils/timing.py",
-            "utils/cache.py"} <= names
+            "utils/cache.py", "specgrid/grams.py", "specgrid/solve.py", "specgrid/specs.py",
+            "specgrid/cellspace.py", "specgrid/coreset.py", "specgrid/boot.py",
+            "specgrid/sinks.py", "specgrid/engine.py", "specgrid/scenarios.py",
+            "specgrid/estimators/core.py", "specgrid/__init__.py", "csrc/gram.cu"} <= names
     hits = [str(f.relative_to(REPO)) for f in files
             if re.search(pattern, f.read_text())]
     assert not hits, hits
