@@ -4,7 +4,9 @@ plain PyTorch versions.
 
     python3 chip_smoke.py            # full run: build, kernel phases, main
                                      # path at real size, card-vs-CPU check
-    python3 chip_smoke.py --kernels-only --ptxas   # build + one checked
+    python3 chip_smoke.py --kernels-only --ptxas   # build (nvcc's
+                                     # register report, the SASS HMMA count
+                                     # of each Gram kernel) + one checked
                                      # launch per kernel, no timing
 
 Phases (any failure exits non-zero without the final line):
@@ -16,8 +18,11 @@ Phases (any failure exits non-zero without the final line):
    and float64, with the tolerance printed beside the error, then CUDA-event
    timings of kernel, plain version and (where one exists) a library call;
    K2 also with coreset row weights (float32, float64, and 0/1 weights with
-   exact counts), bfloat16 operands (float32 sums, exact counts) and a
-   117-spec batch cut into two launches;
+   exact counts), bfloat16 operands on the tensor cores (float32 sums, at
+   Table 2's and the figure grid's shapes, with and without row weights:
+   exact counts, two calls bit-identical, and the whole bf16
+   ``contract_spec_grams`` call from float32 inputs timed) and a 117-spec
+   batch cut into two launches;
 4. the main path at real size — 600 months, 22,000 firms, ~77M daily rows
    built from ``--seed`` by ``data.smoke_inputs`` — through
    ``run_pipeline(device="cuda", dtype=torch.float32)`` and all of its
@@ -35,8 +40,8 @@ Phases (any failure exits non-zero without the final line):
 5b. the spec-grid scenario sweep at real size (27 cells): through
    ``run_pipeline(make_specgrid=True)`` guarded, again with
    ``FMRP_GRAM_PRECISION=bf16``, then ``run_scenarios`` on the coreset route
-   and on a 12-subperiod unfactorized sweep (117 specs, two launches), each
-   run's launches pinned (``SPECGRID_LAUNCHES``);
+   in float32 and in bf16 and on a 12-subperiod unfactorized sweep (117
+   specs, two launches), each run's launches pinned (``SPECGRID_LAUNCHES``);
 6. K1 std at every daily-strip shape the main path launched it at (read
    from its counters), checked and timed, with the sum of launches × time;
 7. the same path at a mid size in float64 on the card and on the CPU (plain
@@ -90,6 +95,7 @@ import importlib.util
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -100,7 +106,7 @@ import numpy as np
 import pandas as pd
 import torch
 
-from fm_returnprediction_tpu_torch.cuda_build import build_kernels
+from fm_returnprediction_tpu_torch.cuda_build import build_kernels, library_path
 from fm_returnprediction_tpu_torch.data import prepared
 from fm_returnprediction_tpu_torch.data.smoke_inputs import make_smoke_inputs
 from fm_returnprediction_tpu_torch.data.synthetic import SyntheticConfig, write_synthetic_cache
@@ -119,6 +125,7 @@ from fm_returnprediction_tpu_torch.resilience.errors import InjectedFault
 from fm_returnprediction_tpu_torch.resilience.faults import FaultPlan, FaultSpec
 from fm_returnprediction_tpu_torch.serving.state import ServingState
 from fm_returnprediction_tpu_torch.specgrid.grams import (
+    contract_spec_grams,
     contract_spec_grams_plain,
     gram_contract_cuda,
     gram_spec_chunk,
@@ -396,12 +403,14 @@ def check_gram(t, n, p, dtype, rel, gen, timed, figure=False, weights=None,
     rw = None
     if weights is not None:
         rw = coreset_like_weights(t, n, dtype, gen, binary=weights == "binary")
+    y_in, x_in, rw_in = y, x, rw
     if low:
         y, x, center = (a.to(torch.bfloat16) for a in (y, x, center))
         rw = None if rw is None else rw.to(torch.bfloat16)
     s = col_sel.shape[0]
     window = torch.ones((s, t), dtype=torch.bool, device="cuda")
-    got = split_stats(gram_contract_cuda(y, x, valid, col_sel, center, rw), p)
+    out = gram_contract_cuda(y, x, valid, col_sel, center, rw)
+    got = split_stats(out, p)
     want = contract_spec_grams_plain(y, x, uni, col_sel, window, center, row_weights=rw)
     torch.cuda.synchronize()
     counts_exact = bool((got[2] == want[2]).all())
@@ -411,6 +420,8 @@ def check_gram(t, n, p, dtype, rel, gen, timed, figure=False, weights=None,
              + (f" ({-(-s // gram_spec_chunk(p))} launches)" if s > gram_spec_chunk(p) else ""))
     tol = rel
     if low:
+        check(torch.equal(out, gram_contract_cuda(y, x, valid, col_sel, center, rw)),
+              f"K2 {label}: two calls differ in their bits")
         exact = contract_spec_grams_plain(
             y.double(), (x - center[:, None, :]).double(), uni, col_sel, window,
             torch.zeros(center.shape, dtype=torch.float64, device="cuda"),
@@ -463,13 +474,22 @@ def check_gram(t, n, p, dtype, rel, gen, timed, figure=False, weights=None,
             del lhs, rhs, lib, w, xa
         log(f"K2 {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
             f"{lib_note}, bound {b_ms:.4f} ms ({b_by})")
+        if low:
+            # the whole call as Table 2 makes it from float32 inputs: the
+            # center, the bf16 casts, the universe gather and the kernel
+            uidx = torch.arange(s, device="cuda") % 3
+            whole_ms = time_ms(lambda: contract_spec_grams(
+                y_in, x_in, uni[:3], uidx, col_sel, window, row_weights=rw_in,
+                precision="bf16"))
+            log(f"K2 {label}: contract_spec_grams(precision='bf16') from float32 "
+                f"inputs {whole_ms:.4f} ms, of which the kernel {ms:.4f} ms")
         # the wrapper's launch key ("P=14,S=9,f32[,rw]")
         key = (f"gram/P={p},S={s},{'bf16' if low else {torch.float32: 'f32', torch.float64: 'f64'}[dtype]}"
                + (",rw" if rw is not None else ""))
         row = dict(name=f"gram_contract {label}", key=key, route="cuda", source=K2_SOURCE,
                    replaces=K2_REPLACES, max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
                    bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
-    del y, x, uni, valid, col_sel, center, got, want, rw
+    del y, x, uni, valid, col_sel, center, out, got, want, rw, y_in, x_in, rw_in
     torch.cuda.empty_cache()
     return row
 
@@ -480,7 +500,8 @@ def check_gram(t, n, p, dtype, rel, gen, timed, figure=False, weights=None,
 # two launches of at most 60 (gram_spec_chunk(14)).
 SPLIT_SPECS = 117
 # which real-size run launches each scenario-sweep K2 shape (specgrid_phase)
-ROW_PATH = {"gram/P=14,S=9,bf16": "bf16", "gram/P=14,S=9,f32,rw": "coreset",
+ROW_PATH = {"gram/P=14,S=9,bf16": "bf16", "gram/P=5,S=3,bf16": "bf16",
+            "gram/P=14,S=9,f32,rw": "coreset", "gram/P=14,S=9,bf16,rw": "coreset_bf16",
             f"gram/P=14,S={SPLIT_SPECS},f32": "split"}
 
 
@@ -489,7 +510,14 @@ def k2_phase(gen, timed: bool):
             check_gram(600, 22000, 5, torch.float32, 1e-5, gen, timed, figure=True),
             check_gram(600, 22000, 14, torch.float32, 1e-5, gen, timed, weights="coreset"),
             check_gram(600, 22000, 14, torch.float32, 1e-5, gen, timed, low=True),
+            check_gram(600, 22000, 5, torch.float32, 1e-5, gen, timed, figure=True, low=True),
+            check_gram(600, 22000, 14, torch.float32, 1e-5, gen, timed, weights="coreset",
+                       low=True),
             check_gram(600, 22000, 14, torch.float32, 1e-5, gen, timed, specs=SPLIT_SPECS)]
+    check_gram(600, 22000, 5, torch.float32, 1e-5, gen, False, figure=True, weights="coreset",
+               low=True)
+    check_gram(600, 3000, 5, torch.float32, 1e-5, gen, False, figure=True, weights="binary",
+               low=True)
     check_gram(600, 3000, 14, torch.float64, 1e-12, gen, False)
     check_gram(240, 3000, 5, torch.float64, 1e-12, gen, False, figure=True)
     check_gram(600, 3000, 14, torch.float64, 1e-12, gen, False, weights="coreset")
@@ -497,6 +525,40 @@ def k2_phase(gen, timed: bool):
     check_gram(600, 3000, 14, torch.float32, 1e-5, gen, False, weights="binary", low=True)
     check_gram(60, 3000, 14, torch.float64, 1e-12, gen, False, specs=SPLIT_SPECS)
     return [row for row in rows if row]
+
+
+def sass_hmma_phase() -> None:
+    """Count the tensor-core instructions (``HMMA``) in the SASS of each
+    Gram kernel of the built library (``cuobjdump -sass``): the bf16
+    kernels must have some, the float and double kernels none."""
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    tool = shutil.which("cuobjdump") or os.path.join(cuda_home, "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        log("SASS HMMA count: cuobjdump is not in this toolkit; not counted")
+        return
+    sass = subprocess.run([tool, "-sass", str(library_path("gram"))], check=True,
+                          capture_output=True, text=True, timeout=300).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            counts[name] = 0
+        elif name is not None and re.search(r"\bHMMA\b", line):
+            counts[name] += 1
+    filt = shutil.which("c++filt")
+    if filt and counts:
+        names = subprocess.run([filt], input="\n".join(counts), check=True,
+                               capture_output=True, text=True, timeout=60).stdout.split("\n")
+        short = (re.sub(r"\(.*$", "", nm.replace("(anonymous namespace)::", ""))
+                 .removeprefix("void ") for nm in names)
+        counts = dict(zip(short, counts.values()))
+    log("SASS HMMA count per Gram kernel: " + json.dumps(counts))
+    tc = {k: v for k, v in counts.items() if "gram_tc_kernel" in k}
+    cc = {k: v for k, v in counts.items() if "gram_tc_kernel" not in k}
+    check(len(tc) == 8 and all(v > 0 for v in tc.values()),
+          "bf16 Gram kernels without tensor-core instructions")
+    check(all(v == 0 for v in cc.values()), "float/double Gram kernels use the tensor cores")
 
 
 # --- K3: the masked cumulative moments --------------------------------------
@@ -809,6 +871,7 @@ SPECGRID_LAUNCHES = {
     "guarded": ({"k1": 17, "k2": 3, "moments": 0}, {"P=14,S=9,f32": 2, "P=5,S=3,f32": 1}),
     "bf16": ({"k1": 17, "k2": 3, "moments": 0}, {"P=14,S=9,bf16": 2, "P=5,S=3,bf16": 1}),
     "coreset": ({"k1": 0, "k2": 1, "moments": 0}, {"P=14,S=9,f32,rw": 1}),
+    "coreset_bf16": ({"k1": 0, "k2": 1, "moments": 0}, {"P=14,S=9,bf16,rw": 1}),
     "split": ({"k1": 0, "k2": 2, "moments": 0}, {f"P=14,S={SPLIT_SPECS},f32": 2}),
 }
 SCENARIO_COLUMNS = ["cell", "model", "universe", "window", "winsor_pct", "nw_weight",
@@ -848,8 +911,8 @@ def specgrid_phase(base, daily) -> dict:
     ``run_pipeline(make_specgrid=True)`` guarded, again with
     ``FMRP_GRAM_PRECISION=bf16`` (Table 2 and the figure grid follow the
     knob too, as in the reference), then ``run_scenarios`` on the coreset
-    route and on the 12-subperiod unfactorized sweep whose 117 specs are cut
-    into two launches. Each run's launches are pinned; returns them by run."""
+    route (float32, and bf16 with its row weights) and on the 12-subperiod
+    unfactorized sweep whose 117 specs are cut into two launches. Each run's launches are pinned; returns them by run."""
     runs = {}
     res, wall, counts = counted_run(base, daily, guard=True, make_specgrid=True)
     frame = res.specgrid_scenarios
@@ -886,6 +949,9 @@ def specgrid_phase(base, daily) -> dict:
     for name, kw, cells, extra, min_finite in (
             ("coreset", dict(route="coreset"), SPECGRID_CELLS,
              ("route", "coreset_m", "coreset_rate", "suspect_months"), 0.9),
+            ("coreset_bf16", dict(route="coreset", precision="bf16"), SPECGRID_CELLS,
+             ("precision", "bf16_promoted_months", "route", "coreset_m", "coreset_rate",
+              "suspect_months"), 0.9),
             ("split", dict(subperiods=12, factorize="off"), SPLIT_SPECS, (), 0.75)):
         reset_counts()
         start = time.perf_counter()
@@ -1550,6 +1616,8 @@ def main(argv=None) -> int:
     per_kernel = build_kernels(ptxas_verbose=args.ptxas)
     log(f"kernel build {time.perf_counter() - start:.2f} s "
         + json.dumps({k: round(v, 2) for k, v in per_kernel.items()}))
+    if args.ptxas:
+        sass_hmma_phase()
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(args.seed)

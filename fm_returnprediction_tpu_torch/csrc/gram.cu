@@ -1,5 +1,6 @@
-// Masked per-month Gram contraction for a batch of specs: float, double, and
-// bf16 operands accumulated in float.
+// Masked per-month Gram contraction for a batch of specs: float and double
+// operands on the CUDA cores, bf16 operands on the tensor cores with float
+// sums.
 //
 // Replaces the Pallas TPU kernel
 //   fm_returnprediction_tpu/ops/gram_pallas.py::gram_contract_pallas
@@ -15,22 +16,17 @@
 // Non-finite x entries of unselected columns and a non-finite y enter as 0.
 // The caller splits the block into gram, moment, n, sum y and sum y^2.
 //
-// bf16 operands (x, y, center, rw) are widened to float on their way into
-// shared memory's augmented rows. The centred value x - c is rounded back to
-// bf16 there, because the reference's XLA route materialises it in bf16;
-// the product w * a_i is formed in float (exact: two 8-bit significands) and
-// every sum is a float sum, so counts stay exact past bf16's 256.
-//
 // What bounds it on an H100: at Table 2's shape (T=600, N=22,000, P=14,
 // S=9) it reads ~0.9 GB (x, y and the uint8 mask) and does
 // S*T*N*QE*(QE+1)/2 ~ 1.6e10 multiply-adds, so in plain FP32 the arithmetic
 // (~0.5 ms at 67 TFLOP/s) outweighs the bytes (~0.27 ms at 3.35 TB/s). At
 // the figure grid's shape (P=5, S=3) the bytes bound it (~0.1 ms). With bf16
-// operands the same work is bound by its ~0.54 GB (~0.16 ms) against the
-// tensor cores' rate; this CUDA-core kernel runs it at its FP32 speed.
+// operands the same work reads ~0.52 GB (~0.16 ms) and its products, on the
+// tensor cores, take ~0.06 ms even at full 16x16 blocks: the bytes bound it.
 //
-// Design. One block per month t walks the firm axis in tiles; x is read in
-// its native (T, N, P) layout, where a tile is tile*P contiguous values.
+// Design, float and double (gram_kernel). One block per month t walks the
+// firm axis in tiles; x is read in its native (T, N, P) layout, where a tile
+// is tile*P contiguous values.
 // - Register tiles of the output: the (QE x QE) upper triangle is padded to
 //   a multiple of 4 and cut into 4x4 tiles (10 at P=14, 3 at P=5). A thread
 //   owns one (spec, tile) pair and keeps its 16 sums in registers. Per firm
@@ -62,14 +58,63 @@
 // - When S * tiles exceeds one block's threads (large P or S, not on the
 //   main path), the (spec, tile) pairs are split over gridDim.y blocks,
 //   each staging only the valid rows of its own specs.
-// - One launch takes at most 8192 block entries S * QE * (QE + 1) / 2 (60
-//   specs at P = 14): the wrapper cuts a larger spec batch into consecutive
-//   chunks, one launch each. P is at most 32 (the non-finite column mask is
-//   one 32-bit word per spec); no ported path goes past P = 15.
-// Tensor cores are not used: TF32 keeps ~10 mantissa bits and would break
-// the 1e-5 (f32) parity with the plain version. A split-TF32 scheme (and,
-// for bf16 operands, bf16 wgmma with f32 accumulation) is left for later
-// work.
+// Tensor cores are not used for float and double: TF32 keeps ~10 mantissa
+// bits and would break the 1e-5 (f32) parity with the plain version; a
+// split-TF32 or split-bf16 scheme is left for later work.
+//
+// Design, bf16 operands (gram_tc_kernel). One block per month, as above.
+// - Tiles by the copy engine: each row of a tile (x, y, the row weights,
+//   the block's valid rows) goes by one bulk copy (cp.async.bulk, 1-D TMA)
+//   of its 16-byte-aligned interior that completes on the stage's mbarrier;
+//   a ragged head or tail goes byte by byte. Double-buffered: the next tile
+//   is in flight while this one is summed.
+// - Products on the tensor cores: per 16 firms one spec's block is
+//   (w o A)^T A with mma.sync m16n8k16 (bf16 operands, f32 sums), A the
+//   16-firm tile of augmented rows [1 | x - c | y]. The build writes A
+//   transposed, one shared-memory row of firm pairs per column (row stride
+//   padded by 16 bytes: 4 banks mod 32, so the fragment loads are free of
+//   bank conflicts), and the same four words a thread loads per 16 rows are
+//   the A fragment of rows 16m.. and the B fragments of columns 16m.. and
+//   16m+8... QE is padded to 16 rows (MT m-tiles) and 8 columns (NT
+//   n-tiles); an n-tile wholly below the diagonal is skipped. At P=14 that
+//   is 2 MMAs per spec per 16 firms, at P=5 one.
+// - Weights as masks: one thread per firm pair finds the pair's non-finite
+//   columns once and writes a 0xFFFF/0 half per (spec, firm); a warp ANDs
+//   the packed bf16x2 halves of its A fragment with its firms' masks. Both
+//   operands are exact bf16 and the tensor core forms the exact products,
+//   so 0/1 weights lose nothing before the sums.
+// - Row weights split exactly: w*a_i (a bf16 times a bf16) has up to 16
+//   significant bits, in float. The build writes hi = bf16_rn(w*a_i) and
+//   lo = bf16_rn(w*a_i - hi), so hi + lo == w*a_i exactly (the remainder
+//   has at most 8 significant bits; exact wherever |w*a_i| is 0 or at least
+//   2^-118, far below any panel value), and one MMA on hi and one on lo go
+//   into the same sums. The weighted copy does not depend on the spec; the
+//   spec's mask is applied to its fragments as above. The unweighted kernel
+//   carries none of this (a template flag).
+// - Work split: the block's specs are cut into groups of at most SPW (by the
+//   register budget of QE's class), one warp per group, and when there are
+//   fewer than four groups the warps also split each tile's 16-firm steps
+//   (wk warps a group). A warp starts a fresh accumulator per tile and adds
+//   it into its running float sums in shared memory (two-level sum; the
+//   registers stay with the accumulators); at the end the wk sums of a spec
+//   are added in a fixed order. No atomics: two calls give the same bits,
+//   and counts (entry (0,0) under 0/1 weights) are sums of integers below
+//   2^24, exact.
+// - The bf16 rounding point is the CUDA-core kernel's and the reference's:
+//   x - c is formed in float and rounded to bf16; products and sums are
+//   float. Blocks take at most 128 threads and 44 KB of shared memory, so
+//   five months share an SM (600 months on 132 SMs: one wave); a tile holds
+//   two firms per thread (192 at Table 2's 96 threads).
+// What bounds it now (H100, Table 2's shape, PERF.md): not the bytes. Each
+// block runs its phases one after another between barriers (issue the next
+// tile's copies, build, MMAs), and with ~3 warps a scheduler each phase
+// waits on its own latencies; a later design overlaps them (producer and
+// consumer warps).
+//
+// One launch takes at most 8192 block entries S * QE * (QE + 1) / 2 (60
+// specs at P = 14): the wrapper cuts a larger spec batch into consecutive
+// chunks, one launch each. P is at most 32 (the non-finite column mask is
+// one 32-bit word per spec); no ported path goes past P = 15.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -180,17 +225,13 @@ __device__ __forceinline__ int misalign(const void* p) {
 }
 
 // An operand widened to the accumulation type, and a centred value rounded
-// as the operand type holds it (only bf16 rounds).
+// as the operand type holds it: identities for the float and double kernel
+// (bf16 operands have their own kernel, gram_tc_kernel).
 __device__ __forceinline__ float widen(float v) { return v; }
 __device__ __forceinline__ double widen(double v) { return v; }
-__device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
 template <typename In, typename T>
 __device__ __forceinline__ T as_operand(T v) {
   return v;
-}
-template <>
-__device__ __forceinline__ float as_operand<__nv_bfloat16, float>(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
 }
 
 __device__ __forceinline__ void load4(const float* p, float* v) {
@@ -453,6 +494,491 @@ int launch_any(const void* x, const void* y, const void* rw,
                               s_specs, stream);
 }
 
+
+// --- bf16 operands on the tensor cores ---------------------------------------
+
+constexpr int kTcThreads = 128;    // threads a block has at most
+constexpr int kTcMaxTile = 256;    // firms a staged tile holds: 16 MMA steps
+constexpr size_t kTcSmemBudget = 44 * 1024;
+
+// Output tiles of one spec's block: MT m-tiles of 16 rows by NT n-tiles of 8
+// columns; tile (mi, nj) is kept when nj >= 2 mi (it holds an entry on or
+// above the diagonal), so an m-row keeps NT - 2 mi tiles.
+__host__ __device__ constexpr int tc_tiles(int mt, int nt) {
+  int c = 0;
+  for (int m = 0; m < mt; ++m) c += nt - 2 * m;
+  return c;
+}
+__host__ __device__ constexpr int tc_tile_index(int mi, int nj, int nt) {
+  return tc_tiles(mi, nt) + nj - 2 * mi;
+}
+
+// Byte offsets of one block's dynamic shared memory: two stages of raw
+// tiles (as the float kernel's) and their two mbarriers, the month's center
+// in float, each spec's selected columns and valid row offset, the
+// transposed augmented rows (kMp rows of `tile` bf16 firms, stride padded
+// by 16 bytes), with row weights their hi and lo parts, a 16-bit mask per
+// (spec, firm), and each thread's running sums (`run` floats,
+// lane-interleaved).
+struct TcLayout {
+  int rstride;  // bytes of one transposed row
+  size_t x_bytes, y_bytes, rw_bytes, v_row, stage;
+  size_t bar_off, cen_off, spec_off, rows_off, hi_off, lo_off, mask_off, run_off, total;
+};
+
+__host__ __device__ inline TcLayout make_tc_layout(int tile, int p, int nsb, int mp,
+                                                   bool has_rw, int warps, int run) {
+  TcLayout L;
+  L.rstride = tile * 2 + 16;
+  L.x_bytes = up16((size_t)tile * p * 2 + 16);
+  L.y_bytes = up16((size_t)tile * 2 + 16);
+  L.rw_bytes = has_rw ? L.y_bytes : 0;
+  L.v_row = up16((size_t)tile + 16);
+  L.stage = L.x_bytes + L.y_bytes + L.rw_bytes + L.v_row * nsb;
+  L.bar_off = 2 * L.stage;
+  L.cen_off = L.bar_off + 16;
+  L.spec_off = L.cen_off + up16((size_t)kMaxP * sizeof(float));
+  L.rows_off = L.spec_off + up16((size_t)kMaxP * 2 * sizeof(int));
+  const size_t rows = (size_t)mp * L.rstride;
+  L.hi_off = L.rows_off + rows;
+  L.lo_off = L.hi_off + (has_rw ? rows : 0);
+  L.mask_off = L.lo_off + (has_rw ? rows : 0);
+  L.run_off = L.mask_off + up16((size_t)nsb * tile * 2);
+  L.total = L.run_off + (size_t)warps * 32 * run * sizeof(float);
+  return L;
+}
+
+// An mbarrier in shared memory, and the bulk (TMA) copy that completes on it.
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar)));
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+// Wait for the phase of the given parity to complete; a wait of ~seconds
+// traps (a launch error) where a protocol fault would otherwise hang.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done = 0;
+  for (long long i = 0; !done; ++i) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+    if (i > (1ll << 26)) __trap();
+  }
+}
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+      "[%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// d += a b: a 16x16 row-major, b 16x8 column-major, bf16 operands, f32 sums.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two floats rounded to a packed bf16 pair (a in the low half), and back.
+__device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  uint32_t u;
+  memcpy(&u, &h, sizeof(u));
+  return u;
+}
+__device__ __forceinline__ float lo_float(uint32_t u) { return __uint_as_float(u << 16); }
+__device__ __forceinline__ float hi_float(uint32_t u) {
+  return __uint_as_float(u & 0xFFFF0000u);
+}
+__device__ __forceinline__ uint32_t halves(bool lo, bool hi) {
+  return (lo ? 0xFFFFu : 0u) | (hi ? 0xFFFF0000u : 0u);
+}
+
+// MT, NT: the output class of QE (above); SPW: the most specs one warp sums;
+// kRw: whether there are row weights.
+template <int MT, int NT, int SPW, bool kRw>
+__global__ void __launch_bounds__(kTcThreads, MT == 1 ? 5 : 3)
+gram_tc_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ y,
+               const __nv_bfloat16* __restrict__ rw, const unsigned char* __restrict__ valid,
+               const unsigned int* __restrict__ sel_bits,
+               const __nv_bfloat16* __restrict__ center, float* __restrict__ out,
+               int t_len, long long n, int p, int s_specs, int tile, int spg, int ws,
+               int wk) {
+  using bf16 = __nv_bfloat16;
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int kMp = 16 * MT;  // transposed rows: the A side's padded QE
+  constexpr int kTiles = tc_tiles(MT, NT);
+  constexpr int kMaxPc = 8 * NT - 2 < kMaxP ? 8 * NT - 2 : kMaxP;  // the class's columns
+  constexpr int kMaxSb = 4 * SPW;                                  // a block's specs
+  constexpr int kRun = SPW * kTiles * 4;  // a thread's running sums
+  const int qe = p + 2;
+  const int t = blockIdx.x;
+  const int s_lo = blockIdx.y * ws * spg;
+  const int nsb = min(ws * spg, s_specs - s_lo);
+  const int tid = threadIdx.x;
+  const int nthreads = blockDim.x;
+  const TcLayout L = make_tc_layout(tile, p, nsb, kMp, kRw, nthreads / 32, kRun);
+  const int rs2 = L.rstride / 4;  // row stride in firm pairs
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L.bar_off);  // one a stage
+  float* cen = reinterpret_cast<float*>(smem + L.cen_off);
+  unsigned* spec_sel = reinterpret_cast<unsigned*>(smem + L.spec_off);
+  int* spec_voff = reinterpret_cast<int*>(smem + L.spec_off) + kMaxP;
+  // the transposed rows, a 32-bit word per firm pair (firm 2u low, 2u + 1 high)
+  uint32_t* rows = reinterpret_cast<uint32_t*>(smem + L.rows_off);
+  uint32_t* rows_hi = reinterpret_cast<uint32_t*>(smem + L.hi_off);
+  uint32_t* rows_lo = reinterpret_cast<uint32_t*>(smem + L.lo_off);
+  uint32_t* masks = reinterpret_cast<uint32_t*>(smem + L.mask_off);  // (spec, pair)
+
+  // this warp's specs (local w_lo .. w_lo + spg - 1, those below nsb) and
+  // its share of each tile's 16-firm steps (kg, kg + wk, ...)
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int sg = warp / wk;
+  const int kg = warp - sg * wk;
+  const int w_lo = sg * spg;
+  float* run = reinterpret_cast<float*>(smem + L.run_off) + warp * 32 * kRun + lane;
+  static_assert(kMaxSb <= kMaxP, "the spec arrays hold kMaxP entries");
+
+  const unsigned char* v_first = valid + ((long long)s_lo * t_len + t) * n;
+  const long long v_stride = (long long)t_len * n;
+  if (tid < kMaxP) cen[tid] = tid < p ? __bfloat162float(center[(size_t)t * p + tid]) : 0.f;
+  // past the block's specs: no column selected, the first valid row
+  if (tid < kMaxSb) {
+    spec_sel[tid] = tid < nsb ? sel_bits[s_lo + tid] : 0u;
+    spec_voff[tid] = tid < nsb ? tid * (int)L.v_row + misalign(v_first + tid * v_stride) : 0;
+  }
+  for (int e = 0; e < kRun; ++e) run[e * 32] = 0.f;
+  if (tid == 0) {
+    mbar_init(bars);
+    mbar_init(bars + 1);
+  }
+  __syncthreads();
+
+  const long long n_tiles = (n + tile - 1) / tile;
+  const long long row_t = (long long)t * n;
+  // tiles start at multiples of 16 firms, so each source's misalignment is
+  // the same for every tile of the month
+  const int x_mis = misalign(x + row_t * p);
+  const int y_mis = misalign(y + row_t);
+  const int rw_mis = kRw ? misalign(rw + row_t) : 0;
+  const size_t rw_off = L.x_bytes + L.y_bytes;
+  const size_t v_off = rw_off + L.rw_bytes;
+
+  // A tile's rows (x, y, the row weights if any, the block's valid rows)
+  // are copied by the copy engine: lane r of warp 0 sends the 16-byte
+  // aligned interior of row r as one bulk copy that completes on the
+  // stage's mbarrier (lane 0 first arms it with all of their bytes) and
+  // copies the row's ragged head and tail byte by byte. Byte e of a row
+  // lands at (its address & 15) + e, as stage_rows places it.
+  const int n_rows = (kRw ? 3 : 2) + nsb;
+  auto stage_tile = [&](long long n0, int buf) {
+    if (warp != 0) return;
+    const int cnt = (int)min((long long)tile, n - n0);
+    unsigned char* st = smem + buf * L.stage;
+    const unsigned char* src = nullptr;
+    unsigned char* dst = st;
+    int bytes = 0;
+    if (lane == 0) {
+      src = reinterpret_cast<const unsigned char*>(x + (row_t + n0) * p);
+      bytes = cnt * p * 2;
+    } else if (lane == 1) {
+      src = reinterpret_cast<const unsigned char*>(y + row_t + n0);
+      dst = st + L.x_bytes;
+      bytes = cnt * 2;
+    } else if (kRw && lane == 2) {
+      src = reinterpret_cast<const unsigned char*>(rw + row_t + n0);
+      dst = st + rw_off;
+      bytes = cnt * 2;
+    } else if (lane < n_rows) {
+      const int sr = lane - (kRw ? 3 : 2);
+      src = v_first + sr * v_stride + n0;
+      dst = st + v_off + sr * L.v_row;
+      bytes = cnt;
+    }
+    const uintptr_t lo = reinterpret_cast<uintptr_t>(src), hi = lo + bytes;
+    const uintptr_t a = (lo + 15) & ~uintptr_t(15);
+    const uintptr_t b = (hi & ~uintptr_t(15)) > a ? (hi & ~uintptr_t(15)) : a;
+    dst += lo & 15;  // byte e of the row goes to dst[e]
+    const unsigned total = __reduce_add_sync(0xffffffffu, (unsigned)(b - a));
+    if (lane == 0) mbar_expect_tx(bars + buf, total);
+    __syncwarp();
+    if (b > a) bulk_copy(dst + (a - lo), reinterpret_cast<const void*>(a), (unsigned)(b - a),
+                         bars + buf);
+    for (uintptr_t e = lo; e < (b > a ? a : hi); ++e) dst[e - lo] = src[e - lo];
+    for (uintptr_t e = b > a ? b : hi; e < hi; ++e) dst[e - lo] = src[e - lo];
+  };
+
+  // the fragment layout of mma.m16n8k16: lane = 4 g + tig. Row r of the
+  // transposed tile holds firm pairs; a thread's A fragment of rows 16 mi..
+  // is words (16 mi + g [+ 8], k0 / 2 + tig [+ 4]), which also are the B
+  // fragments of columns 16 mi.. and 16 mi + 8.. (row stride = 4 banks
+  // mod 32: no bank conflict).
+  const int g = lane >> 2;
+  const int tig = lane & 3;
+  const uint32_t* frag_rows = rows + g * rs2 + tig;
+  const uint32_t* frag_hi = rows_hi + g * rs2 + tig;
+  const uint32_t* frag_lo = rows_lo + g * rs2 + tig;
+  const uint32_t* mask_rows[SPW];
+#pragma unroll
+  for (int j = 0; j < SPW; ++j)
+    mask_rows[j] = masks + min(w_lo + j, nsb - 1) * (tile >> 1) + tig;
+
+  // one 16-firm step: each spec ANDs its firms' masks into the A fragment
+  auto mma_step = [&](int k0, float (&part)[SPW][kTiles][4]) {
+    const int w0 = k0 >> 1;
+    uint32_t fa[MT][4], fh[kRw ? MT : 1][4], fl[kRw ? MT : 1][4];
+#pragma unroll
+    for (int mi = 0; mi < MT; ++mi) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int at = (16 * mi + (r & 1) * 8) * rs2 + w0 + (r >> 1) * 4;
+        fa[mi][r] = frag_rows[at];
+        if constexpr (kRw) {
+          fh[mi][r] = frag_hi[at];
+          fl[mi][r] = frag_lo[at];
+        }
+      }
+    }
+    // a slot past the warp's specs (an uneven last group) reads the masks
+    // of the block's last spec into sums that are never read, so no branch
+    // splits the step
+    uint32_t m0[SPW], m1[SPW];
+#pragma unroll
+    for (int j = 0; j < SPW; ++j) {
+      m0[j] = mask_rows[j][w0];      // firms k0 + 2 tig, +1: a0, a1
+      m1[j] = mask_rows[j][w0 + 4];  // firms k0 + 8 + 2 tig, +1: a2, a3
+    }
+#pragma unroll
+    for (int j = 0; j < SPW; ++j) {
+#pragma unroll
+      for (int mi = 0; mi < MT; ++mi) {
+        const uint32_t(&src)[4] = kRw ? fh[kRw ? mi : 0] : fa[mi];
+        const uint32_t a[4] = {src[0] & m0[j], src[1] & m0[j], src[2] & m1[j],
+                               src[3] & m1[j]};
+#pragma unroll
+        for (int nj = 2 * mi; nj < NT; ++nj) {
+          const int q = tc_tile_index(mi, nj, NT);
+          const uint32_t b0 = fa[nj >> 1][nj & 1];
+          const uint32_t b1 = fa[nj >> 1][2 + (nj & 1)];
+          mma_bf16(part[j][q], a, b0, b1);
+          if constexpr (kRw) {
+            const uint32_t(&l)[4] = fl[kRw ? mi : 0];
+            const uint32_t alo[4] = {l[0] & m0[j], l[1] & m0[j], l[2] & m1[j],
+                                     l[3] & m1[j]};
+            mma_bf16(part[j][q], alo, b0, b1);
+          }
+        }
+      }
+    }
+  };
+
+  stage_tile(0, 0);
+  for (long long k = 0; k < n_tiles; ++k) {
+    const long long n0 = k * tile;
+    const int cnt = (int)min((long long)tile, n - n0);
+    const int cnt16 = (cnt + 15) & ~15;
+    const int buf = (int)(k & 1);
+    mbar_wait(bars + buf, (unsigned)((k >> 1) & 1));
+    __syncthreads();  // tile k staged; the previous tile's sums are done
+    if (k + 1 < n_tiles) stage_tile(n0 + tile, buf ^ 1);
+
+    const unsigned char* st = smem + buf * L.stage;
+    const bf16* xr = reinterpret_cast<const bf16*>(st + x_mis);
+    const bf16* yr = reinterpret_cast<const bf16*>(st + L.x_bytes + y_mis);
+    const bf16* rwr = reinterpret_cast<const bf16*>(st + rw_off + rw_mis);
+    const unsigned char* vr = st + v_off;
+    // the build, one thread per firm pair: the transposed columns
+    // [1 | x - c | y] (with row weights also the hi and lo parts of
+    // w * a_i), the non-finite columns as bit masks and each spec's masks.
+    // Firms cnt .. cnt16 - 1 read what the buffer holds and are zeroed
+    // (`live`). Each group of loads comes before the stores that use it,
+    // which the compiler may not move them past.
+    for (int u = tid; u < (cnt16 >> 1); u += nthreads) {
+      const int f = 2 * u;
+      const uint32_t live = halves(f < cnt, f + 1 < cnt);
+      const bf16* xf = xr + f * p;
+      // every column of the class: columns p .. kMaxPc - 1 read what
+      // follows in shared memory and land in row qe - 1 (written again
+      // below) or in the padding rows past QE, whose products fall in
+      // output entries that are never stored
+      uint32_t xab[kMaxPc];  // column c of both firms, packed
+      float cc[kMaxPc];
+#pragma unroll
+      for (int c = 0; c < kMaxPc; ++c) {
+        xab[c] = (uint32_t)__bfloat16_as_ushort(xf[c]) |
+                 ((uint32_t)__bfloat16_as_ushort(xf[p + c]) << 16);
+        cc[c] = cen[c];
+      }
+      const uint32_t yab = (uint32_t)__bfloat16_as_ushort(yr[f]) |
+                           ((uint32_t)__bfloat16_as_ushort(yr[f + 1]) << 16);
+      float wa = 0.f, wb = 0.f;
+      if (kRw) {
+        wa = (live & 1u) ? __bfloat162float(rwr[f]) : 0.f;
+        wb = (live >> 16) ? __bfloat162float(rwr[f + 1]) : 0.f;
+      }
+      auto put = [&](int i, uint32_t v) {
+        rows[i * rs2 + u] = v;
+        if (kRw) {
+          const float pa = wa * lo_float(v), pb = wb * hi_float(v);  // exact in float
+          const uint32_t h = pack_bf16(pa, pb);
+          rows_hi[i * rs2 + u] = h;
+          rows_lo[i * rs2 + u] = pack_bf16(pa - lo_float(h), pb - hi_float(h));
+        }
+      };
+      unsigned bad_a = 0, bad_b = 0;
+      put(0, 0x3F803F80u & live);  // bf16 1.0 twice
+#pragma unroll
+      for (int c = 0; c < kMaxPc; ++c) {
+        const float xa = lo_float(xab[c]), xb = hi_float(xab[c]);
+        const bool fa = isfinite(xa), fb = isfinite(xb);
+        bad_a |= fa ? 0u : 1u << c;  // columns past p are in no spec's selection
+        bad_b |= fb ? 0u : 1u << c;
+        put(c + 1, pack_bf16(xa - cc[c], xb - cc[c]) & halves(fa, fb) & live);
+      }
+      const bool ya_ok = isfinite(lo_float(yab)), yb_ok = isfinite(hi_float(yab));
+      put(qe - 1, yab & halves(ya_ok, yb_ok) & live);
+      // each spec's masks, eight specs' loads at a time
+#pragma unroll
+      for (int s0 = 0; s0 < kMaxSb; s0 += 8) {
+        uint32_t vab[8], sel[8];
+#pragma unroll
+        for (int d = 0; d < 8; ++d) {
+          if (s0 + d < kMaxSb) {
+            const unsigned char* vs = vr + spec_voff[s0 + d] + f;
+            vab[d] = (uint32_t)vs[0] | ((uint32_t)vs[1] << 8);
+            sel[d] = spec_sel[s0 + d];
+          }
+        }
+#pragma unroll
+        for (int d = 0; d < 8; ++d) {
+          if (s0 + d < kMaxSb && s0 + d < nsb)
+            masks[(s0 + d) * (tile >> 1) + u] =
+                halves(ya_ok && (vab[d] & 0xFFu) != 0u && (bad_a & sel[d]) == 0u,
+                       yb_ok && (vab[d] >> 8) != 0u && (bad_b & sel[d]) == 0u) & live;
+        }
+      }
+    }
+    __syncthreads();
+
+    // the products, a fresh sum per tile
+    float part[SPW][kTiles][4];
+#pragma unroll
+    for (int j = 0; j < SPW; ++j)
+#pragma unroll
+      for (int q = 0; q < kTiles; ++q)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[j][q][e] = 0.f;
+    const int nks = cnt16 >> 4;
+#pragma unroll 2
+    for (int ks = kg; ks < nks; ks += wk) mma_step(ks * 16, part);
+#pragma unroll
+    for (int j = 0; j < SPW; ++j)
+#pragma unroll
+      for (int q = 0; q < kTiles; ++q)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) run[((j * kTiles + q) * 4 + e) * 32] += part[j][q][e];
+  }
+
+  // each spec's wk totals, added in kg order; entry (r, c) sits in tile
+  // (r / 16, c / 8) at lane 4 (r % 8) + (c % 8) / 2, element
+  // 2 ((r / 8) % 2) + c % 2
+  __syncthreads();
+  const float* runs = reinterpret_cast<const float*>(smem + L.run_off);
+  const int qq = qe * qe;
+  for (int idx = tid; idx < nsb * qq; idx += nthreads) {
+    const int s = idx / qq;
+    const int rem = idx - s * qq;
+    const int r = rem / qe, c = rem - (rem / qe) * qe;
+    if (r > c) continue;
+    const int gs = s / spg, j = s - gs * spg;
+    const int q = tc_tile_index(r >> 4, c >> 3, NT);
+    const int e = ((r >> 3) & 1) * 2 + (c & 1);
+    const int at = ((j * kTiles + q) * 4 + e) * 32 + (r & 7) * 4 + ((c >> 1) & 3);
+    float sum = 0.f;
+    for (int kk = 0; kk < wk; ++kk) sum += runs[(gs * wk + kk) * 32 * kRun + at];
+    float* blk = out + ((size_t)(s_lo + s) * t_len + t) * qq;
+    blk[r * qe + c] = sum;
+    blk[c * qe + r] = sum;
+  }
+}
+
+template <int MT, int NT, int SPW, bool kRw>
+int launch_tc(const void* x, const void* y, const void* rw, const unsigned char* valid,
+              const unsigned int* sel_bits, const void* center, void* out, int t_len,
+              long long n, int p, int s_specs, cudaStream_t stream) {
+  constexpr int kMp = 16 * MT;
+  // spec groups of at most SPW, balanced; up to four a block (one warp
+  // each), the rest over gridDim.y; fewer than four groups split each
+  // tile's steps over wk warps a group
+  const int groups0 = (s_specs + SPW - 1) / SPW;
+  const int spg = (s_specs + groups0 - 1) / groups0;
+  const int groups = (s_specs + spg - 1) / spg;
+  int ws = std::min(groups, kTcThreads / 32);
+  const int n_blocks_y = (groups + ws - 1) / ws;
+  ws = (groups + n_blocks_y - 1) / n_blocks_y;
+  const int wk = std::max(1, kTcThreads / 32 / ws);
+  const int threads = 32 * ws * wk;
+  const int nsb_max = std::min(ws * spg, s_specs);
+  auto smem_for = [&](int tl) {
+    return make_tc_layout(tl, p, nsb_max, kMp, kRw, ws * wk,
+                          SPW * tc_tiles(MT, NT) * 4).total;
+  };
+  // a tile of two firms per thread, doubled while it stays within the
+  // largest tile, halved (in multiples of 16) while it exceeds the budget
+  int tile = 2 * threads;
+  while (2 * tile <= kTcMaxTile) tile *= 2;
+  while (tile > kMinTile && smem_for(tile) > kTcSmemBudget)
+    tile = std::max(kMinTile, (tile / 2) & ~15);
+  const size_t smem = smem_for(tile);
+  if (smem > kSmemMax || n_blocks_y > 65535) return -1;
+  cudaError_t err = cudaFuncSetAttribute(gram_tc_kernel<MT, NT, SPW, kRw>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)t_len, (unsigned)n_blocks_y);
+  gram_tc_kernel<MT, NT, SPW, kRw><<<grid, threads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(y),
+      static_cast<const __nv_bfloat16*>(rw), valid, sel_bits,
+      static_cast<const __nv_bfloat16*>(center), static_cast<float*>(out), t_len, n, p,
+      s_specs, tile, spg, ws, wk);
+  return (int)cudaGetLastError();
+}
+
+// The class of QE = P + 2: QE <= 8 one 16x8 tile (six specs a warp), <= 16
+// two (three), <= 32 six (one), <= 34 nine (one).
+template <bool kRw>
+int launch_bf16(const void* x, const void* y, const void* rw, const unsigned char* valid,
+                const unsigned int* sel_bits, const void* center, void* out, int t_len,
+                long long n, int p, int s_specs, cudaStream_t stream) {
+  const int qe = p + 2;
+  if ((long long)s_specs * qe * (qe + 1) / 2 > kMaxEntries) return -1;
+  if (p <= 6)
+    return launch_tc<1, 1, 6, kRw>(x, y, rw, valid, sel_bits, center, out, t_len, n, p,
+                                   s_specs, stream);
+  if (p <= 14)
+    return launch_tc<1, 2, 3, kRw>(x, y, rw, valid, sel_bits, center, out, t_len, n, p,
+                                   s_specs, stream);
+  if (p <= 30)
+    return launch_tc<2, 4, 1, kRw>(x, y, rw, valid, sel_bits, center, out, t_len, n, p,
+                                   s_specs, stream);
+  return launch_tc<3, 5, 1, kRw>(x, y, rw, valid, sel_bits, center, out, t_len, n, p,
+                                 s_specs, stream);
+}
+
 }  // namespace
 
 // dtype_code: 0 float, 1 double, 2 bf16 operands with float sums. x (T, N,
@@ -476,8 +1002,9 @@ extern "C" int gram_contract(int dtype_code, const void* x, const void* y,
   if (dtype_code == 1)
     return launch_any<double, double>(x, y, rw, v, b, center, out, t_len, n, p, s_specs, s);
   if (dtype_code == 2)
-    return launch_any<__nv_bfloat16, float>(x, y, rw, v, b, center, out, t_len, n, p,
-                                            s_specs, s);
+    return rw != nullptr
+               ? launch_bf16<true>(x, y, rw, v, b, center, out, t_len, n, p, s_specs, s)
+               : launch_bf16<false>(x, y, rw, v, b, center, out, t_len, n, p, s_specs, s);
   return -1;
 }
 

@@ -17,8 +17,11 @@ tensors lie:
 
 - CUDA tensors go to the hand-written kernel (``csrc/gram.cu``, wrapper
   ``gram_contract_cuda``): one block per month streams the panel through
-  shared memory once for all specs, builds the weights there, and sums
-  4×4 register tiles of every spec's block;
+  shared memory once for all specs and builds the weights there; float32
+  and float64 sum 4×4 register tiles of every spec's block on the CUDA
+  cores, bfloat16 operands go to the tensor cores (``mma.sync`` with
+  float32 sums, each spec's 0/1 weight a mask on the fragments, a row
+  weight's product ``w·x̃`` split exactly into two bfloat16 parts);
 - CPU tensors take the plain version, a chunked masked einsum over firm
   slices (``contract_spec_grams_plain``).
 

@@ -338,3 +338,74 @@ def test_gram_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         grams.gram_contract_cuda(y, x, valid, col_sel, center, row_weights=y.float())
     with pytest.raises(ValueError, match="contiguous"):
         grams.gram_contract_cuda(y, x.transpose(0, 1), valid, col_sel, center)
+
+
+def _bf16_gram_case(cuda, t, n, p, s, weights, seed=7):
+    """bfloat16 operands for the tensor-core kernel: NaNs, an all-NaN column
+    (every firm), row weights None, 0/1 or real-valued (coreset-like, most
+    rows 0)."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((t, n, p)) * 3.0
+    x[rng.random(x.shape) < 0.1] = np.nan
+    if p >= 2:
+        x[:, :, p // 2] = np.nan
+    y = rng.standard_normal((t, n))
+    y[rng.random(y.shape) < 0.15] = np.nan
+    universes = rng.random((3, t, n)) > np.array([0.1, 0.4, 0.7])[:, None, None]
+    uidx = np.arange(s) % 3
+    col_sel = rng.random((s, p)) > 0.4
+    col_sel[0] = False
+    col_sel[0, 0] = True
+    col_sel[-1] = True
+    rw = None
+    if weights is not None:
+        u = rng.random((t, n))
+        w = np.ones_like(u) if weights == "binary" else 0.5 + 4.0 * u
+        rw = torch.tensor(np.where(u < 0.3, w, 0.0), device=cuda, dtype=torch.bfloat16)
+    bf = torch.bfloat16
+    xt = torch.tensor(x, device=cuda, dtype=bf)
+    center = grams.shared_center(torch.tensor(x, device=cuda, dtype=torch.float32)).to(bf)
+    uni = torch.tensor(universes[uidx], device=cuda)
+    return (torch.tensor(y, device=cuda, dtype=bf), xt, uni,
+            uni.to(torch.uint8).contiguous(), torch.tensor(col_sel, device=cuda), center, rw)
+
+
+@pytest.mark.parametrize("weights", [None, "binary", "real"])
+@pytest.mark.parametrize("n", [400, 3000])
+@pytest.mark.parametrize("s", [1, 9, 61])
+@pytest.mark.parametrize("p", [1, 5, 14, 15, 30, 32])
+def test_gram_bf16_tensor_core_kernel(cuda, p, s, n, weights):
+    """The tensor-core bf16 kernel against the float64 sums of the same bf16
+    terms (1e-5 of each block's max-abs entry) and against the float32 plain
+    version (1e-5 plus that version's own error against the float64 sums);
+    counts exact for 0/1 weights, a repeated call bit-identical, each block
+    symmetric. N = 400 and 3,000 leave ragged tiles; S = 61 takes two
+    launches at P = 14 (more at P >= 15)."""
+    y, x, uni, valid, col_sel, center, rw = _bf16_gram_case(cuda, 4, n, p, s, weights)
+    window = torch.ones((s, 4), dtype=torch.bool, device=cuda)
+    before = grams.gram_contract_cuda.launches
+    out = grams.gram_contract_cuda(y, x, valid, col_sel, center, rw)
+    assert grams.gram_contract_cuda.launches == before + -(-s // grams.gram_spec_chunk(p))
+    assert out.dtype == torch.float32
+    got = grams.split_stats(out, p)
+    want = grams.contract_spec_grams_plain(y, x, uni, col_sel, window, center,
+                                           row_weights=rw)
+    exact = grams.contract_spec_grams_plain(
+        y.double(), (x - center[:, None, :]).double(), uni, col_sel, window,
+        torch.zeros(center.shape, dtype=torch.float64, device=cuda),
+        row_weights=None if rw is None else rw.double())
+
+    def worst(a, b):
+        scale = torch.stack([b[0].abs().amax((-1, -2)), b[1].abs().amax(-1), b[2].abs(),
+                             b[3].abs(), b[4].abs()]).amax(0).clamp_min(1.0)
+        return max(float(torch.nan_to_num(
+            (g.double() - w.double()).abs() / scale.reshape(scale.shape + (1,) * (g.dim() - 2)),
+            nan=float("inf")).max()) for g, w in zip(a, b))
+
+    plain_err = worst(want, exact)
+    assert worst(got, exact) <= 1e-5
+    assert worst(got, want) <= 1e-5 + plain_err
+    if weights != "real":
+        assert torch.equal(got[2], want[2])
+    assert torch.equal(out, out.transpose(-1, -2))
+    assert torch.equal(out, grams.gram_contract_cuda(y, x, valid, col_sel, center, rw))

@@ -20,6 +20,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from fm_returnprediction_tpu.specgrid.grams import contract_spec_grams as jax_contract
 from fm_returnprediction_tpu.specgrid.grams import unique_pairs as jax_unique_pairs
@@ -123,6 +125,35 @@ def test_bf16_with_row_weights_matches_xla():
     _close(_port(args, precision="bf16", row_weights=rw),
            _jax(args, precision="bf16", row_weights=rw), 1e-6, counts_exact=False,
            count_rtol=1e-6)
+
+
+# bf16 values by their bits: a sign, a 7-bit significand and an exponent
+# that is normal (|v| near 1), tiny or large, or the value 0
+_BF16_EXPONENTS = st.one_of(st.integers(-20, 20), st.integers(-59, -40),
+                            st.integers(40, 63))
+_BF16 = st.one_of(
+    st.just(0),
+    st.builds(lambda sign, e, m: sign << 15 | (e + 127) << 7 | m,
+              st.integers(0, 1), _BF16_EXPONENTS, st.integers(0, 127)))
+
+
+@settings(max_examples=200, deadline=None)
+@given(st.lists(st.tuples(_BF16, _BF16), min_size=1, max_size=64))
+def test_row_weight_split_is_exact(pairs):
+    """The Gram kernel's row-weight split (csrc/gram.cu, bf16 operands): for
+    bf16 w and a, w·a is exact in float32 (two 8-bit significands), and
+    hi = bf16(w·a), lo = bf16(w·a − hi) add back to it exactly, so one
+    tensor-core product on hi and one on lo sum the exact weighted term. The
+    exponents keep |w·a| at 0 or within [2^-118, 2^128), where the
+    remainder's at most 8 significant bits are a bf16 value (below 2^-118
+    bf16's subnormals would cut them; no panel value is that small)."""
+    bits = torch.tensor(pairs, dtype=torch.int32).to(torch.int16)
+    w, a = bits.view(torch.bfloat16).float().unbind(-1)
+    prod = w * a
+    assert torch.equal(prod.double(), w.double() * a.double())
+    hi = prod.to(torch.bfloat16)
+    lo = (prod - hi.float()).to(torch.bfloat16)
+    assert torch.equal(hi.float() + lo.float(), prod)
 
 
 @pytest.mark.parametrize("precision", ["highest", "bf16"])
