@@ -42,14 +42,31 @@ Phases (any failure exits non-zero without the final line):
    ``FMRP_GRAM_PRECISION=bf16``, then ``run_scenarios`` on the coreset route
    in float32 and in bf16 and on a 12-subperiod unfactorized sweep (117
    specs, two launches), each run's launches pinned (``SPECGRID_LAUNCHES``);
+5c. the bootstrap-SE table at real size (B = 10,000, BASELINE.json
+   configs[4]) through ``run_pipeline(make_bootstrap=True)``: the
+   ``bootstrap_table`` stage and its peak device memory, launches as the
+   main path's, a finite positive Boot SE in every Model 1 cell, and a
+   second table with the same seed bit-identical;
+5d. the main path at real size with ``FMRP_SPECGRID_ROUTE=stacked`` (the
+   split branch: one batched-QR Fama-MacBeth per cell): launches K1 17, K2
+   0, K3 0; the ``table_2``/``figure_cs`` stages, peak memory and
+   ``torch.linalg.qr`` at each model's design in float32 (its gap to the
+   Gram route logged); in float64 Table 2 and the figure/decile frames
+   within 1.5e-3 of the Gram route's; then one further month (its "All
+   stocks" rows of 22,000 firm slots) ingested into a float64
+   ``solver="normal"`` serving state on the card, held against the CPU's
+   ingest and a full rebuild at the reference's pins;
 6. K1 std at every daily-strip shape the main path launched it at (read
    from its counters), checked and timed, with the sum of launches × time;
 7. the same path at a mid size in float64 on the card and on the CPU (plain
    versions): Table 2's per-cell numbers (a coefficient at
    ``|d| <= 1e-8 * max(|b|, nw_se)``, its t-stat at ``1e-8 * max(|t|, 1)``,
    the rest at rtol 1e-8), Table 1, the decile table, the figure frames, the
-   serving state, and the scenario sweep from the card's panel (default,
-   200 cells with bootstrap draws, coreset; rtol 1e-8);
+   serving state, the scenario sweep from the card's panel (default,
+   200 cells with bootstrap draws, coreset; rtol 1e-8), and the bootstrap
+   (B = 2,000): one cell's replicate means and SEs from the same slope
+   series and starts on both devices (rtol 1e-10), and each run's own table
+   held as Table 2's cells are (1e-8);
 8. the raw-frame route (a 250-firm × 130-month synthetic universe, float64)
    on the card and on the CPU: the enriched panel at rtol 1e-10, the tables
    as in phase 7, the audit records equal;
@@ -57,6 +74,9 @@ Phases (any failure exits non-zero without the final line):
    --synthetic --firms 250 --months 130 --output-dir … --audit-dir …``, in
    a subprocess: exit code, artifacts, stage seconds and launches (without
    ``--output-dir`` when matplotlib or jinja2 does not import, said so);
+   then ``--bootstrap 200`` (the ``bootstrap_table`` stage, and
+   ``bootstrap_se.pkl``/``.tex`` written, by ``run_pipeline(make_figure=False)``
+   where matplotlib does not import);
 10. a raw directory of 1,000 firms × 240 months (``write_synthetic_cache``)
    through the command line three times: cold (the columnar route ran and
    wrote the slot, no fallback warning), warm (the slot was mapped,
@@ -118,12 +138,22 @@ from fm_returnprediction_tpu_torch.ops.rolling import (
     rolling_reduce_cuda,
     rolling_reduce_plain,
 )
+from fm_returnprediction_tpu_torch.models.lewellen import FIGURE1_VARS, MODELS, model_columns
+from fm_returnprediction_tpu_torch.ops.fama_macbeth import fama_macbeth
+from fm_returnprediction_tpu_torch.ops.newey_west import compact_front
+from fm_returnprediction_tpu_torch.parallel.bootstrap import (
+    block_bootstrap_se,
+    draw_block_starts,
+    replicate_means_from_starts,
+)
 from fm_returnprediction_tpu_torch.pipeline import load_or_build_panel, run_pipeline
+from fm_returnprediction_tpu_torch.reporting.bootstrap_table import build_bootstrap_table
 from fm_returnprediction_tpu_torch.registry.integrity import array_bundle_digest
 from fm_returnprediction_tpu_torch.resilience import checkpoint
 from fm_returnprediction_tpu_torch.resilience.errors import InjectedFault
 from fm_returnprediction_tpu_torch.resilience.faults import FaultPlan, FaultSpec
-from fm_returnprediction_tpu_torch.serving.state import ServingState
+from fm_returnprediction_tpu_torch.serving.ingest import ingest_month
+from fm_returnprediction_tpu_torch.serving.state import ServingState, build_serving_state
 from fm_returnprediction_tpu_torch.specgrid.grams import (
     contract_spec_grams,
     contract_spec_grams_plain,
@@ -758,7 +788,8 @@ def main_path(base, daily, audit_dir: Path):
     """The main path at real size: guarded with the drift sentinel armed,
     then unguarded (bit-identical, same launches), then guarded again on
     the same audit directory (the drift check passes by sha). Returns the
-    first run's launch counts and artifact digests."""
+    first run's launch counts, artifact digests and its Table 2, Figure 1
+    and decile frames (the Gram route's, for ``stacked_phase``)."""
     torch.cuda.reset_peak_memory_stats()
     res, wall, counts = counted_run(base, daily, guard=True, audit_dir=audit_dir)
     stages = res.stage_seconds
@@ -809,9 +840,11 @@ def main_path(base, daily, audit_dir: Path):
     check(by_sha == ["decile_table", "serving_state", "table_1", "table_2"] and same_probe,
           "the second guarded run did not pass the drift check by sha")
     digests = artifact_digests(res)
+    frames = {"table_2": res.table_2, "decile_table": res.decile_table,
+              **{f"figure_1/{name}": frame for name, frame in res.figure_1.items()}}
     del res, again
     torch.cuda.empty_cache()
-    return counts, digests
+    return counts, digests, frames
 
 
 def slot_phase(base, daily, digests: dict) -> None:
@@ -1085,11 +1118,12 @@ def card_vs_cpu(seed: int) -> None:
     base, daily = make_smoke_inputs(n_firms=3000, n_months=240, seed=seed + 1,
                                     dtype=np.float64)
     start = time.perf_counter()
-    gpu = run_pipeline(base, daily, device="cuda", dtype=torch.float64)
+    boot = dict(make_bootstrap=True, bootstrap_replicates=BOOT_CPU_REPLICATES)
+    gpu = run_pipeline(base, daily, device="cuda", dtype=torch.float64, **boot)
     gpu_s = time.perf_counter() - start
     again = run_pipeline(base, daily, device="cuda", dtype=torch.float64)
     start = time.perf_counter()
-    cpu = run_pipeline(base, daily, device="cpu", dtype=torch.float64)
+    cpu = run_pipeline(base, daily, device="cpu", dtype=torch.float64, **boot)
     cpu_s = time.perf_counter() - start
     diffs = _cell_diffs(gpu.table_2_cells, cpu.table_2_cells)
     repeat = _cell_diffs(again.table_2_cells, gpu.table_2_cells)
@@ -1104,6 +1138,7 @@ def card_vs_cpu(seed: int) -> None:
         f"{gpu.table_2.equals(cpu.table_2)}")
     check(worst <= 1e-8, "card vs CPU: Table 2 beyond tolerance")
     _reporting_vs_cpu(gpu, cpu)
+    _boot_vs_cpu(gpu, cpu)
     _scenarios_vs_cpu(gpu)
 
 
@@ -1255,6 +1290,302 @@ def ingest_vs_cpu() -> None:
     check(diffs[0][0] <= 1e-8, "ingest route card vs CPU: Table 2 beyond tolerance")
     _reporting_vs_cpu(gpu, cpu)
     check(gpu.audit.as_dict() == cpu.audit.as_dict(), "ingest route: audits differ card vs CPU")
+
+
+# --- the bootstrap-SE table, the stacked-QR route, the month ingest --------
+
+# BASELINE.json configs[4]: 10,000 moving-block replicates of every Table 2
+# cell's slope series (block length 5); the card-vs-CPU check runs fewer
+BOOT_REPLICATES = 10_000
+BOOT_CPU_REPLICATES = 2_000
+BOOT_COLUMNS = ["Slope", "Boot SE", "t (boot)", "t (NW)"]
+
+
+def bootstrap_phase(base, daily) -> None:
+    """The bootstrap-SE table at real size through
+    ``run_pipeline(make_bootstrap=True)`` (B = 10,000): the stage's wall and
+    peak device memory, launches as the main path's (the table adds no
+    kernel), a finite positive Boot SE in every Model 1 cell, and a second
+    ``build_bootstrap_table`` with the same seed bit-identical to the
+    run's."""
+    res, wall, counts = counted_run(base, daily, make_bootstrap=True,
+                                    bootstrap_replicates=BOOT_REPLICATES)
+    table = res.bootstrap_table
+    launches = {k: counts[k] for k in MAIN_PATH_LAUNCHES}
+    log(f"bootstrap (B={BOOT_REPLICATES}): run wall {wall:.3f} s, stage bootstrap_table "
+        f"{res.stage_seconds['bootstrap_table']:.4f} s; launches {launches}; table "
+        f"{table.shape}")
+    log(table.to_string())
+    check(launches == MAIN_PATH_LAUNCHES, f"the bootstrap run launched {launches}")
+    check(table.shape == (sum(len(m.predictors) for m in MODELS), 3 * len(BOOT_COLUMNS))
+          and list(table.columns.get_level_values(1)[:4]) == BOOT_COLUMNS,
+          f"bootstrap table layout {table.shape}")
+    se1 = table.loc[MODELS[0].name].xs("Boot SE", axis=1, level=1).to_numpy(float)
+    check(bool(np.isfinite(se1).all() and (se1 > 0).all()),
+          f"Model 1 Boot SE not finite and positive: {se1}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    start = time.perf_counter()
+    again = build_bootstrap_table(res.panel, res.subset_masks, res.factors_dict,
+                                  n_replicates=BOOT_REPLICATES)
+    torch.cuda.synchronize()
+    again_s = time.perf_counter() - start
+    peak = (torch.cuda.max_memory_allocated() - before) / 2**30
+    log(f"bootstrap table again with the same seed: {again_s:.4f} s, peak device memory "
+        f"above the resident panel {peak:.3f} GiB; bit-identical {again.equals(table)}")
+    check(again.equals(table), "two bootstrap tables with one seed differ")
+    del res, again
+    torch.cuda.empty_cache()
+
+
+def _boot_vs_cpu(gpu, cpu) -> None:
+    """The float64 bootstrap, card vs CPU. Given the same inputs: one cell's
+    slope series (the CPU run's) and one set of starts handed to
+    ``replicate_means_from_starts`` on each device, and the same slopes
+    through ``block_bootstrap_se`` (one seed, so the same CPU-drawn starts),
+    at rtol 1e-10. The two runs' whole tables, whose slopes come from each
+    device's own QR solves, are held as Table 2's cells are (1e-8: a slope
+    at ``max(|b|, Boot SE)``, a t at ``max(|t|, 1)``, Boot SE relative)."""
+    g, c = gpu.bootstrap_table, cpu.bootstrap_table
+    check(g.index.equals(c.index) and g.columns.equals(c.columns), "bootstrap table layout")
+    held = 0.0
+    for subset in c.columns.get_level_values(0).unique():
+        a, b = g[subset], c[subset]
+        scale = {"Slope": np.maximum(b["Slope"].abs(), b["Boot SE"]), "Boot SE": b["Boot SE"],
+                 "t (boot)": np.maximum(b["t (boot)"].abs(), 1.0),
+                 "t (NW)": np.maximum(b["t (NW)"].abs(), 1.0)}
+        for col, sc in scale.items():
+            d = ((a[col] - b[col]).abs() / sc).to_numpy(float)
+            check(bool((np.isnan(a[col]) == np.isnan(b[col])).all()),
+                  f"card vs CPU: bootstrap {subset} {col} NaN pattern")
+            held = max(held, float(np.nanmax(d, initial=0.0)))
+    model = MODELS[-1]
+    y = cpu.panel.var("retx")
+    x = cpu.panel.select(model_columns(model, cpu.factors_dict))
+    cs, _ = fama_macbeth(y, x, cpu.subset_masks["All stocks"])
+    valid = cs.month_valid[:, None] & torch.isfinite(cs.slopes)
+    series, counts = compact_front(cs.slopes.T, valid.T)
+    starts = draw_block_starts(counts, BOOT_CPU_REPLICATES, 5, series.shape[1],
+                               torch.Generator().manual_seed(1))
+    means = [replicate_means_from_starts(series.to(dev), counts.to(dev), starts, 5).cpu()
+             for dev in ("cuda", "cpu")]
+    ses = [block_bootstrap_se(cs.slopes.to(dev), valid.to(dev), seed=0,
+                              n_replicates=BOOT_CPU_REPLICATES).se.cpu()
+           for dev in ("cuda", "cpu")]
+    means_worst = _rel_worst(means[0].numpy(), means[1].numpy(), "replicate means")
+    se_worst = _rel_worst(ses[0].numpy(), ses[1].numpy(), "bootstrap SE")
+    log(f"card vs CPU bootstrap (B={BOOT_CPU_REPLICATES}, f64): same series and starts, "
+        f"{model.name} All stocks replicate means worst rel diff {means_worst:.3e}, SEs "
+        f"{se_worst:.3e} (tol 1e-10); each run's own table held as Table 2's cells "
+        f"{held:.3e} (tol 1e-8)")
+    check(means_worst <= 1e-10 and se_worst <= 1e-10 and held <= 1e-8,
+          "card vs CPU: bootstrap beyond tolerance")
+
+
+def _frame_worst(got: pd.DataFrame, want: pd.DataFrame, what: str) -> tuple:
+    """(worst absolute, worst relative) difference of two float frames of
+    one layout whose NaN patterns agree (checked)."""
+    check(got.index.equals(want.index) and got.columns.equals(want.columns),
+          f"stacked vs gram: {what} layout")
+    a, b = got.to_numpy(float), want.to_numpy(float)
+    check(bool((np.isnan(a) == np.isnan(b)).all()), f"stacked vs gram: {what} NaN pattern")
+    fin = np.isfinite(b)
+    diff = np.abs(a[fin] - b[fin])
+    return float(diff.max(initial=0.0)), _rel_worst(a, b, what)
+
+
+def _formatted_worst(a: pd.DataFrame, b: pd.DataFrame) -> float:
+    """Worst cell difference of two formatted (``%.3f`` / N) Table 2
+    frames of one layout, blanks equal (the reference's
+    ``_formatted_frames_close``)."""
+    check(a.index.equals(b.index) and a.columns.equals(b.columns), "Table 2 layout")
+    worst = 0.0
+    for col in a.columns:
+        for idx in a.index:
+            va, vb = a.loc[idx, col], b.loc[idx, col]
+            if va == vb:
+                continue
+            check(va != "" and vb != "", f"Table 2 {idx} {col}: {va!r} vs {vb!r}")
+            worst = max(worst, abs(float(str(va).replace(",", ""))
+                                   - float(str(vb).replace(",", ""))))
+    return worst
+
+
+STACKED_LAUNCHES = {"k1": 17, "k2": 0, "moments": 0}
+STACKED_TOL = 1.5e-3
+
+
+def _stacked_gaps(res, gram_frames: dict) -> tuple:
+    """(Table 2's worst formatted-cell gap, {frame: (worst abs, worst rel)})
+    of a stacked run against the Gram route's frames."""
+    t2 = _formatted_worst(res.table_2, gram_frames["table_2"])
+    got = {"decile_table": res.decile_table,
+           **{f"figure_1/{name}": frame for name, frame in res.figure_1.items()}}
+    return t2, {name: _frame_worst(frame, gram_frames[name], name)
+                for name, frame in got.items()}
+
+
+def _gap_text(t2: float, worst: dict) -> str:
+    return (f"Table 2 formatted cells worst |diff| {t2:.4g}; (worst abs, worst rel) "
+            + json.dumps({k: [float(f"{a:.4g}"), float(f"{r:.4g}")]
+                          for k, (a, r) in worst.items()}))
+
+
+def _stacked_run(base, daily, dtype):
+    """One counted main-path run on ``FMRP_SPECGRID_ROUTE=stacked``:
+    (result, wall s, launches, peak GiB)."""
+    os.environ["FMRP_SPECGRID_ROUTE"] = "stacked"
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        reset_counts()
+        start = time.perf_counter()
+        res = run_pipeline(base, daily, device="cuda", dtype=dtype)
+        wall = time.perf_counter() - start
+        counts = launch_counts()
+    finally:
+        del os.environ["FMRP_SPECGRID_ROUTE"]
+    return res, wall, {k: counts[k] for k in STACKED_LAUNCHES}, \
+        torch.cuda.max_memory_allocated() / 2**30
+
+
+def stacked_phase(base, daily, gram_frames: dict) -> None:
+    """The main path at real size with ``FMRP_SPECGRID_ROUTE=stacked``:
+    Table 2 and the figure/decile sweep by batched QR (the real shape takes
+    the split branch, 2.5 GB of stacked design > 512 MB), K2 never launched
+    and K1 as on the Gram route; the ``table_2`` and ``figure_cs`` stages,
+    peak memory, and ``torch.linalg.qr`` at each model's (600, 22000,
+    P + 2) design timed on its own. In float32 the QR route's cutoff
+    (eps·N of the largest singular value, as in the reference) truncates
+    the raw-unit columns, so its gap to the Gram route is logged, not held;
+    the frames are held against the Gram route's within ``STACKED_TOL``
+    (the reference's cross-route tolerance on formatted frames, which its
+    twin test applies at float64) on a float64 pair of runs. Then
+    ``ingest_phase`` on the float64 run's panel."""
+    res, wall, launches, peak = _stacked_run(base, daily, torch.float32)
+    stages = res.stage_seconds
+    log(f"stacked route (f32): wall {wall:.3f} s, stage table_2 {stages['table_2']:.4f} s, "
+        f"figure_cs {stages['figure_cs']:.4f} s, peak device memory {peak:.3f} GiB; launches "
+        f"{launches}; stages (s): " + json.dumps({k: round(v, 4) for k, v in stages.items()}))
+    check(launches == STACKED_LAUNCHES, f"the stacked route launched {launches}")
+    log("stacked vs gram route at f32 (logged, not held: the QR cutoff truncates raw-unit "
+        "columns): " + _gap_text(*_stacked_gaps(res, gram_frames)))
+
+    y = res.panel.var("retx")
+    mask = res.subset_masks["All stocks"]
+    qr_ms = {}
+    for model in MODELS:
+        x = res.panel.select(model_columns(model, res.factors_dict))
+        valid = mask & torch.isfinite(y) & torch.isfinite(x).all(-1)
+        design = torch.cat([torch.ones_like(y)[..., None], x, y[..., None]], -1)
+        design = torch.where(valid[..., None], design, torch.zeros_like(design))
+        qr_ms[tuple(design.shape)] = time_ms(lambda d=design: torch.linalg.qr(d, mode="r"),
+                                             reps=3)
+        del design
+    per_table = 3 * sum(qr_ms.values()) / 1e3
+    log("torch.linalg.qr(mode='r') per call (ms): "
+        + json.dumps({"x".join(map(str, k)): round(v, 3) for k, v in qr_ms.items()})
+        + f"; Table 2's nine QRs {per_table:.3f} s of its {stages['table_2']:.3f} s stage")
+    del res, y, mask
+    torch.cuda.empty_cache()
+
+    gram = run_pipeline(base, daily, device="cuda", dtype=torch.float64)
+    gram64 = {"table_2": gram.table_2, "decile_table": gram.decile_table,
+              **{f"figure_1/{name}": frame for name, frame in gram.figure_1.items()}}
+    del gram
+    torch.cuda.empty_cache()
+    res, wall, launches, peak = _stacked_run(base, daily, torch.float64)
+    t2, worst = _stacked_gaps(res, gram64)
+    log(f"stacked route (f64): wall {wall:.3f} s, stage table_2 "
+        f"{res.stage_seconds['table_2']:.4f} s, figure_cs {res.stage_seconds['figure_cs']:.4f} s, "
+        f"peak {peak:.3f} GiB; launches {launches}; vs the f64 gram route (tol {STACKED_TOL}): "
+        + _gap_text(t2, worst))
+    check(launches == STACKED_LAUNCHES, f"the f64 stacked route launched {launches}")
+    check(t2 <= STACKED_TOL and all(a <= STACKED_TOL for a, _ in worst.values()),
+          "the stacked route's frames differ from the Gram route's beyond tolerance")
+    ingest_phase(res)
+    del res
+    torch.cuda.empty_cache()
+
+
+def ingest_phase(res) -> None:
+    """One further month of the real-size serving panel ingested on the
+    card: the "All stocks" figure model of a float64 run, a ``solver="normal"``
+    state over the first 599 months, then month 600 (its universe rows of
+    22,000 firm slots) by ``ingest_month`` on the card and on the CPU, held
+    against each other
+    and against a full normal-route rebuild on the card at the reference's
+    pins (coefficients and means rtol 1e-9 / atol 1e-12, Grams the same,
+    support bounds 1e-12)."""
+    y = res.panel.var("retx")
+    x = res.panel.select(list(FIGURE1_VARS))
+    mask = res.subset_masks["All stocks"]
+    months = np.asarray(res.panel.months)
+    prior = build_serving_state(y[:-1], x[:-1], mask[:-1], months=months[:-1],
+                                xvars=list(FIGURE1_VARS), solver="normal")
+    row = (y[-1].cpu().numpy(), x[-1].cpu().numpy(), mask[-1].cpu().numpy())
+    times = []
+    for _ in range(3):
+        start = time.perf_counter()
+        card = ingest_month(prior, *row, months[-1], device="cuda")
+        times.append(time.perf_counter() - start)
+    start = time.perf_counter()
+    host = ingest_month(prior, *row, months[-1], device="cpu")
+    cpu_s = time.perf_counter() - start
+    full = build_serving_state(y, x, mask, months=months, xvars=list(FIGURE1_VARS),
+                               solver="normal")
+    worst = {}
+    for name, want in (("cpu", host), ("rebuild", full)):
+        for leaf, rtol, atol in (("coef", 1e-9, 1e-12), ("slopes_bar", 1e-9, 1e-12),
+                                 ("intercept_bar", 1e-9, 1e-12), ("gram", 1e-9, 1e-12),
+                                 ("moment", 1e-9, 1e-12), ("x_lo", 1e-12, 0.0),
+                                 ("x_hi", 1e-12, 0.0)):
+            a, b = getattr(card, leaf)[-1], getattr(want, leaf)[-1]
+            check(bool((np.isnan(a) == np.isnan(b)).all()), f"ingest {name} {leaf} NaN pattern")
+            fin = np.isfinite(b)
+            excess = np.abs(a[fin] - b[fin]) - (atol + rtol * np.abs(b[fin]))
+            worst[f"{name}/{leaf}"] = float(excess.max(initial=-np.inf))
+        check(bool(np.array_equal(card.n_obs, want.n_obs)
+                   and np.array_equal(card.month_valid, want.month_valid)),
+              f"ingest vs {name}: counts or month gates differ")
+    log(f"ingest one month ({int(row[2].sum())} firms, f64) on the card: "
+        f"{', '.join(f'{t * 1e3:.2f}' for t in times)} ms (three calls), on the CPU "
+        f"{cpu_s * 1e3:.2f} ms; worst |diff| - (atol + rtol|want|) per leaf (<= 0 passes) "
+        + json.dumps({k: float(f"{v:.3g}") for k, v in worst.items()}))
+    check(all(v <= 0 for v in worst.values()), "ingest beyond the reference's pins")
+
+
+def bootstrap_cli_phase() -> None:
+    """``python -m fm_returnprediction_tpu_torch.pipeline --synthetic
+    --bootstrap 200`` at 250 × 130 on the card: exit 0 with the
+    ``bootstrap_table`` stage, and ``bootstrap_se.pkl``/``.tex`` written.
+    The command line draws Figure 1 into any ``--output-dir`` and raises
+    where matplotlib does not import, as the reference does; there it runs
+    without one and the files come from ``run_pipeline(make_figure=False,
+    make_bootstrap=True, output_dir=…)`` on the same universe."""
+    have_mpl = importlib.util.find_spec("matplotlib") is not None
+    firms, months = SYNTHETIC_CLI_FIRMS, SYNTHETIC_CLI_MONTHS
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "out"
+        args = ["--synthetic", "--firms", firms, "--months", months, "--bootstrap", 200]
+        run = run_cli(args + (["--output-dir", out] if have_mpl else []))
+        log(f"CLI --synthetic --firms {firms} --months {months} --bootstrap 200"
+            f"{' --output-dir' if have_mpl else ''}: exit 0 in {run['wall']:.1f} s; stage "
+            f"bootstrap_table {run['stages'].get('bootstrap_table', float('nan')):.3f} s; "
+            f"launches K1 {run['launches']['k1']}, K2 {run['launches']['k2']}")
+        check("bootstrap_table" in run["stages"], f"bootstrap CLI stages {sorted(run['stages'])}")
+        if not have_mpl:
+            res = run_pipeline(synthetic=True, synthetic_config=SyntheticConfig(
+                n_firms=firms, n_months=months), device="cuda", make_figure=False,
+                make_bootstrap=True, bootstrap_replicates=200, output_dir=out)
+            del res
+        made = sorted(os.listdir(out))
+        log(f"bootstrap_se written by "
+            f"{'the command line' if have_mpl else 'run_pipeline(make_figure=False)'}: {made}")
+        check({"bootstrap_se.pkl", "bootstrap_se.tex"} <= set(made),
+              "bootstrap_se.pkl/.tex were not written")
+        table = pd.read_pickle(out / "bootstrap_se.pkl")
+        check(table.shape == (24, 12), f"bootstrap_se.pkl shape {table.shape}")
 
 
 # Run as the command line would be, then read the launch counters of that
@@ -1633,14 +1964,17 @@ def main(argv=None) -> int:
         f"{len(daily.row_values):,} daily rows over {daily.n_days} days, "
         f"built in {time.perf_counter() - start:.1f} s")
     with tempfile.TemporaryDirectory() as audit_dir:
-        counts, digests = main_path(base, daily, Path(audit_dir))
+        counts, digests, gram_frames = main_path(base, daily, Path(audit_dir))
     slot_phase(base, daily, digests)
     path_counts = {"main": counts, **specgrid_phase(base, daily)}
+    bootstrap_phase(base, daily)
+    stacked_phase(base, daily, gram_frames)
     del base, daily
     rows += strip_phase(gen, counts)
     card_vs_cpu(args.seed)
     ingest_vs_cpu()
     cli_phase()
+    bootstrap_cli_phase()
     with tempfile.TemporaryDirectory() as tmp:
         raw = Path(tmp) / "raw"
         start = time.perf_counter()

@@ -54,6 +54,7 @@ __all__ = [
     "check_panel",
     "frame_rules",
     "check_frame",
+    "cross_section_rules",
     "serving_state_rules",
     "VALUE_BOUND",
 ]
@@ -507,6 +508,96 @@ def frame_rules(name: str, blocking: str = "fail") -> List[Rule]:
 
 def check_frame(frame, name: str, audit: Optional[AuditRecord] = None) -> None:
     enforce(evaluate(frame_rules(name), frame), audit=audit, context=name)
+
+
+# -- serving cross-section contracts ---------------------------------------
+
+
+def cross_section_rules(
+    state, month=None, value_bound: float = VALUE_BOUND
+) -> List[Rule]:
+    """The one definition of a valid ingest cross-section
+    (``serving.ingest.validate_cross_section`` is a thin wrapper). Subject:
+    the coerced numpy ``(y, x, mask)`` triple.
+
+    All severities are ``quarantine``: keeping the last good state and
+    ledgering the month is the right blast radius for one bad month."""
+
+    def _shape(sub):
+        _, x, _ = sub
+        if x.ndim != 2:
+            return f"x must be (N, P), got shape {x.shape}"
+        if x.shape[-1] != state.n_predictors:
+            return (
+                f"expected {state.n_predictors} predictors ({state.xvars}), "
+                f"got {x.shape[-1]}"
+            )
+        return None
+
+    def _length(sub):
+        y, x, mask = sub
+        if not (y.shape == mask.shape == x.shape[:1]):
+            return f"length mismatch: y {y.shape}, x {x.shape}, mask {mask.shape}"
+        return None
+
+    def _nan_flood(sub):
+        y, x, mask = sub
+        if mask.any() and not np.isfinite(x[mask]).any():
+            return "all-NaN cross-section: no finite predictor in any masked row"
+        return None
+
+    def _y_bounds(sub):
+        y, x, mask = sub
+        if mask.any() and np.isinf(y[mask]).any():
+            return "infinite realized return in y"
+        return None
+
+    def _value_bounds(sub):
+        y, x, mask = sub
+        if not mask.any():
+            return None
+        xm = x[mask]
+        finite = np.isfinite(xm)
+        if finite.any():
+            worst = float(np.abs(np.where(finite, xm, 0.0)).max())
+            if worst > value_bound:
+                return (
+                    f"predictor magnitude {worst:.3g} exceeds the guard "
+                    f"bound {value_bound:g} (f32 Gram overflow territory)"
+                )
+        return None
+
+    def _stale_repeat(sub):
+        if month is None or state.n_months == 0:
+            return None
+        stamp = np.datetime64(month, "ns")
+        if stamp == state.months[-1]:
+            return None  # a merge re-offer of the same month is legal
+        y, x, mask = sub
+        from fm_returnprediction_tpu_torch.serving.state import _support_bounds
+
+        lo, hi = _support_bounds(torch.from_numpy(np.asarray(x)[None]),
+                                 torch.from_numpy(np.asarray(mask, dtype=bool)[None]))
+        lo, hi = lo[0].numpy(), hi[0].numpy()
+        if not (np.isfinite(lo).any() or np.isfinite(hi).any()):
+            return None  # an empty/thin month carries no repeat evidence
+        if np.array_equal(lo, state.x_lo[-1]) and np.array_equal(hi, state.x_hi[-1]):
+            return (
+                f"stale repeated month: the cross-section offered as "
+                f"{stamp} is bit-identical (per-column support bounds) to "
+                f"the state's last month {state.months[-1]} — the upstream "
+                f"feed looks stuck"
+            )
+        return None
+
+    return [
+        Rule("cs.shape", "quarantine", _shape),
+        Rule("cs.length", "quarantine", _length),
+        Rule("cs.nan_flood", "quarantine", _nan_flood),
+        Rule("cs.y_bounds", "quarantine", _y_bounds),
+        Rule("cs.value_bounds", "quarantine", _value_bounds),
+        Rule("cs.stale_repeat", "quarantine", _stale_repeat),
+    ]
 
 
 # -- serving-state contracts -----------------------------------------------

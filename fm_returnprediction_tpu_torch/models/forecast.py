@@ -82,17 +82,18 @@ def _lagged_coef_means(cs, window: int, min_periods: int,
 
 def fit_forecast_artifacts(y: torch.Tensor, x: torch.Tensor, mask: torch.Tensor,
                            window: int = 120, min_periods: int = 60,
-                           cs=None) -> ForecastArtifacts:
+                           solver: str = "qr", cs=None) -> ForecastArtifacts:
     """Everything ``serving.state.ServingState`` persists.
 
     Same inputs and conventions as :func:`rolling_er_forecast` (pass
-    ``cs`` to reuse a precomputed batched OLS); additionally contracts the
+    ``cs`` to reuse a precomputed batched OLS, else ``solver`` picks the
+    per-month OLS solver); additionally contracts the
     panel into per-month normal-equation sufficient statistics. The lagged
     means are the ``fill_invalid`` variant, a deliberate superset of the
     batch forecast's coverage.
     """
     if cs is None:
-        cs = monthly_cs_ols(y, x, mask, record=False)
+        cs = monthly_cs_ols(y, x, mask, record=False, solver=solver)
     coefs, bar = _lagged_coef_means(cs, window, min_periods, fill_invalid=True)
     stats = sufficient_stats(y, x, row_validity(y, x, mask))
     return ForecastArtifacts(coefs, cs.month_valid, bar[:, 1:], bar[:, 0], stats)
@@ -100,15 +101,16 @@ def fit_forecast_artifacts(y: torch.Tensor, x: torch.Tensor, mask: torch.Tensor,
 
 def rolling_er_forecast(y: torch.Tensor, x: torch.Tensor, mask: torch.Tensor,
                         window: int = 120, min_periods: int = 60,
-                        cs=None) -> ForecastResult:
+                        solver: str = "qr", cs=None) -> ForecastResult:
     """Strictly out-of-sample Ê[r] from lagged rolling FM coefficients.
 
     y (T, N), x (T, N, P) LAGGED characteristics, mask (T, N) bool. Pass a
     precomputed ``cs`` (``CSRegressionResult`` tensors on y's device for
-    exactly these inputs) to reuse an earlier batched OLS.
+    exactly these inputs) to reuse an earlier batched OLS; otherwise
+    ``solver`` (``"qr"``, ``"lstsq"`` or ``"normal"``) fits it.
     """
     if cs is None:
-        cs = monthly_cs_ols(y, x, mask, record=False)
+        cs = monthly_cs_ols(y, x, mask, record=False, solver=solver)
     _, bar = _lagged_coef_means(cs, window, min_periods)
     intercept_bar = bar[:, 0]
     slopes_bar = bar[:, 1:]

@@ -72,9 +72,10 @@ def fama_macbeth_summary(cs: CSRegressionResult, nw_lags: int = 4,
 
 def fama_macbeth(y: torch.Tensor, x: torch.Tensor, mask: torch.Tensor,
                  nw_lags: int = 4, min_months: int = 10,
-                 weight: str = "reference"):
-    """End-to-end FM: batched monthly QR OLS + aggregation."""
-    cs = monthly_cs_ols(y, x, mask, record=False)
+                 weight: str = "reference", solver: str = "qr"):
+    """End-to-end FM: batched monthly OLS (``solver`` as in
+    ``ops.ols.monthly_cs_ols``) + aggregation."""
+    cs = monthly_cs_ols(y, x, mask, record=False, solver=solver)
     fm = fama_macbeth_summary(cs, nw_lags=nw_lags, min_months=min_months,
                               weight=weight)
     if _guard.guard_active():

@@ -5,7 +5,8 @@ universe filter and relational transforms (host pandas) → dense monthly
 base panel and compact daily strips (host numpy) → characteristics →
 universes → Table 1 → Table 2 → the figure/decile sweep → Figure 1's
 rolling slopes → the decile table → the serving state → (optionally) the
-spec-grid scenario sweep → artifacts, with the guard layer (``guard``)
+spec-grid scenario sweep and the bootstrap-SE table → artifacts, with the
+guard layer (``guard``)
 checking every stage boundary. Everything after the host ingest runs on
 the compute device.
 
@@ -19,6 +20,7 @@ the compute device.
         --checkpoint-dir _ckpt --device cpu
     python -m fm_returnprediction_tpu_torch.pipeline --synthetic --specgrid \
         --specgrid-cells 200 --specgrid-sink topk
+    python -m fm_returnprediction_tpu_torch.pipeline --synthetic --bootstrap 10000
 
 A raw directory is read by the columnar route (``panel.columnar``;
 ``FMRP_PANEL_ROUTE=legacy`` selects the pandas route) and its host products
@@ -28,7 +30,9 @@ to the device stages (``load_or_build_panel``). ``checkpoint_dir`` keeps
 each completed reporting stage (``resilience.checkpoint``), so a crashed
 run resumes at its last completed stage. The dtype comes from ``dtype=``
 or the ``DTYPE`` environment variable (default ``float32``); the guard
-switch from ``guard=`` or ``FMRP_GUARD`` (default on). Figure 1 is
+switch from ``guard=`` or ``FMRP_GUARD`` (default on); Table 2 and the
+figure/decile sweep take their route from ``FMRP_SPECGRID_ROUTE`` ("gram",
+the default, or "stacked", split by ``FMRP_FUSE_SUBSETS_MB``). Figure 1 is
 returned as the rolling-slope frames it plots (``PipelineResult.figure_1``);
 it is drawn only to write ``figure_1.pdf`` under ``output_dir``, which
 needs matplotlib.
@@ -74,6 +78,10 @@ from fm_returnprediction_tpu_torch.panel.transform_compustat import (
     merge_CRSP_and_Compustat,
 )
 from fm_returnprediction_tpu_torch.panel.transform_crsp import calculate_market_equity
+from fm_returnprediction_tpu_torch.reporting.bootstrap_table import (
+    build_bootstrap_table,
+    save_bootstrap_table,
+)
 from fm_returnprediction_tpu_torch.reporting.deciles import (
     build_decile_table,
     save_decile_table,
@@ -207,6 +215,9 @@ class PipelineResult:
     # the spec-grid scenario sweep (specgrid.run_scenarios): the sink's
     # frame, or None when not requested
     specgrid_scenarios: Optional[pd.DataFrame] = None
+    # the bootstrap-SE table (reporting.bootstrap_table), or None when not
+    # requested
+    bootstrap_table: Optional[pd.DataFrame] = None
 
 
 def load_raw_data(raw_data_dir) -> Dict[str, pd.DataFrame]:
@@ -398,6 +409,8 @@ def run_pipeline(
     make_specgrid: bool = False,
     specgrid_cells: Optional[int] = None,
     specgrid_sink: Optional[str] = None,
+    make_bootstrap: bool = False,
+    bootstrap_replicates: int = 10_000,
 ) -> PipelineResult:
     """Raw data or prepared inputs → characteristics → NYSE-breakpoint
     universes → Table 1 → Table 2 → Figure 1 / deciles → serving state →
@@ -444,9 +457,16 @@ def run_pipeline(
     raises (ROADMAP A5). The guard screens the full frame at quarantine
     severity.
 
+    ``make_bootstrap`` builds the bootstrap-SE table
+    (``reporting.bootstrap_table``: per Table 2 cell and predictor the
+    moving-block bootstrap SE of the mean slope from
+    ``bootstrap_replicates`` replicates, seed 0) in the stage
+    ``bootstrap_table``.
+
     ``output_dir`` writes the artifacts: ``table_{1,2}.{pkl,tex}``,
     ``figure_1.pdf`` (matplotlib), ``decile_sorts.{pkl,tex}``,
     ``serving_state.npz``, ``specgrid_scenarios.csv`` (with the sweep),
+    ``bootstrap_se.{pkl,tex}`` (with the bootstrap table),
     ``data_saved.marker`` and ``research_report.tex`` (compiled when
     ``pdflatex`` exists and ``compile_pdf``)."""
     if guard is None:
@@ -461,6 +481,7 @@ def run_pipeline(
             compile_pdf=compile_pdf, checkpoint_dir=checkpoint_dir,
             guard=bool(guard), audit_dir=audit_dir, make_specgrid=make_specgrid,
             specgrid_cells=specgrid_cells, specgrid_sink=specgrid_sink,
+            make_bootstrap=make_bootstrap, bootstrap_replicates=bootstrap_replicates,
         )
 
 
@@ -468,7 +489,8 @@ def _run_pipeline_guarded(
     dense_base, compact_daily, *, raw_data_dir, output_dir, synthetic,
     synthetic_config, device, dtype, include_turnover, make_figure,
     make_deciles, make_serving, compile_pdf, checkpoint_dir, guard, audit_dir,
-    make_specgrid, specgrid_cells, specgrid_sink,
+    make_specgrid, specgrid_cells, specgrid_sink, make_bootstrap,
+    bootstrap_replicates,
 ) -> PipelineResult:
     """``run_pipeline``'s body, entered with the sentinel switch already
     pinned to ``guard`` for the whole run."""
@@ -664,6 +686,12 @@ def _run_pipeline_guarded(
                     audit,
                 )
 
+    bootstrap_table = None
+    if make_bootstrap:
+        with timer.stage("bootstrap_table"):
+            bootstrap_table = build_bootstrap_table(
+                panel, masks, factors_dict, n_replicates=bootstrap_replicates)
+
     if output_dir is not None:
         with timer.stage("save_artifacts"):
             figure = draw_figure_1(figure_1) if figure_1 is not None else None
@@ -679,6 +707,8 @@ def _run_pipeline_guarded(
             if specgrid_scenarios is not None:
                 specgrid_scenarios.to_csv(Path(output_dir) / "specgrid_scenarios.csv",
                                           index=False)
+            if bootstrap_table is not None:
+                save_bootstrap_table(bootstrap_table, output_dir)
             tex = create_latex_document(output_dir)
             if tex is not None and compile_pdf:
                 compile_latex_document(tex)
@@ -730,6 +760,7 @@ def _run_pipeline_guarded(
         figure_1=figure_1, decile_table=decile_table,
         serving_state=serving_state, stage_seconds=dict(timer.durations),
         timer=timer, audit=audit, specgrid_scenarios=specgrid_scenarios,
+        bootstrap_table=bootstrap_table,
     )
 
 
@@ -778,6 +809,10 @@ def _main(argv=None) -> None:
              "leaderboard, running summary moments, or parquet part spill "
              "(default follows FMRP_SPECGRID_SINK)",
     )
+    parser.add_argument(
+        "--bootstrap", type=int, default=0, metavar="B",
+        help="also build the bootstrap-SE table with B replicates",
+    )
     parser.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                         help="compute device (default cuda; raises without a "
                              "GPU); takes the place of the reference's --backend")
@@ -801,6 +836,8 @@ def _main(argv=None) -> None:
                        or args.specgrid_sink is not None),
         specgrid_cells=args.specgrid_cells,
         specgrid_sink=args.specgrid_sink,
+        make_bootstrap=args.bootstrap > 0,
+        bootstrap_replicates=args.bootstrap or 10_000,
     )
     print(result.table_1.round(3).to_string())
     print()

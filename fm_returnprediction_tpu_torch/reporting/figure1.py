@@ -6,11 +6,18 @@ those columns), then a 120-month rolling mean (min 60) over the
 CONSECUTIVE result months (row-based, as pandas ``rolling`` on the slope
 frame).
 
-``subset_sweep`` computes the figure/decile family for every subset on the
-Gram route: one ``run_spec_grid`` over ``figure1_grid`` gives every
-subset's monthly cross-sections from one Gram contraction, the rolled
-slope means of all subsets come from one rolling call, and the decile legs
-reuse each subset's cross-section on the device.
+``subset_sweep`` computes the figure/decile family for every subset on one
+of two routes (``specgrid.resolve_route``: the ``route`` argument, then
+``FMRP_SPECGRID_ROUTE``, default "gram"):
+
+- "gram": one ``run_spec_grid`` over ``figure1_grid`` gives every subset's
+  monthly cross-sections from one Gram contraction;
+- "stacked": batched-QR ``monthly_cs_ols`` per subset, as one batched call
+  over the stacked subset masks below the ``reporting.fusion`` budget and
+  one call per subset above it.
+
+On both, the rolled slope means of all subsets come from one rolling call,
+and the decile legs reuse each subset's cross-section on the device.
 """
 
 from __future__ import annotations
@@ -21,6 +28,7 @@ import numpy as np
 import pandas as pd
 import torch
 
+from fm_returnprediction_tpu_torch.guard import checks as _guard
 from fm_returnprediction_tpu_torch.models.forecast import (
     DecileSortResult,
     decile_sorts,
@@ -30,8 +38,9 @@ from fm_returnprediction_tpu_torch.models.lewellen import FIGURE1_VARS
 from fm_returnprediction_tpu_torch.ops.compaction import rolling_over_valid_rows
 from fm_returnprediction_tpu_torch.ops.ols import CSRegressionResult, monthly_cs_ols
 from fm_returnprediction_tpu_torch.panel.dense import DensePanel
+from fm_returnprediction_tpu_torch.reporting.fusion import fuse_over_subsets
 from fm_returnprediction_tpu_torch.specgrid.solve import run_spec_grid
-from fm_returnprediction_tpu_torch.specgrid.specs import figure1_grid
+from fm_returnprediction_tpu_torch.specgrid.specs import figure1_grid, resolve_route
 
 __all__ = ["SubsetSweepEntry", "figure_cs", "subset_sweep", "rolling_slopes",
            "figure_frames", "draw_figure_1", "create_figure_1"]
@@ -60,6 +69,45 @@ class SubsetSweepEntry(NamedTuple):
     # build_decile_table raises when they differ from its own
 
 
+def _decile_legs(y, x, mask, cs, window, min_periods, n_deciles, min_obs):
+    """Forecast + decile sorts for one subset from its cross-section
+    (tensors on y's device) → numpy ``DecileSortResult``."""
+    fr = rolling_er_forecast(y, x, mask, window=window, min_periods=min_periods, cs=cs)
+    return DecileSortResult(*(_host(a) for a in decile_sorts(
+        fr.er, fr.er_valid, y, n_deciles=n_deciles, min_obs=min_obs)))
+
+
+def _rolling_batched(slopes: torch.Tensor, month_valid: torch.Tensor,
+                     window: int, min_periods: int) -> np.ndarray:
+    """Calendar-placed rolling slope means of every subset in one call:
+    (S, T, P) in, (S, T, P) numpy out."""
+    return _host(rolling_over_valid_rows(slopes, month_valid, window, min_periods))
+
+
+def _subset_sweep_stacked(y, x, masks, names, window, min_periods, n_deciles,
+                          min_obs, make_deciles):
+    """The figure/decile family on the stacked route: the figure OLS of
+    every subset in one batched call over the stacked masks (S, T, N), or
+    one call per subset above the ``reporting.fusion`` budget; then the
+    decile legs per subset and one rolling call. Returns (stacked numpy
+    cross-sections, rolled means, per-subset deciles or Nones)."""
+    stacked = torch.stack([masks[n] for n in names])
+    t, n = y.shape
+    if fuse_over_subsets(len(names), t, n, x.shape[-1], x.element_size()):
+        cs = monthly_cs_ols(y, x, stacked, record=False)
+    else:
+        per = [monthly_cs_ols(y, x, stacked[i], record=False) for i in range(len(names))]
+        cs = CSRegressionResult(*(torch.stack(leaves) for leaves in zip(*per)))
+    decs = [_decile_legs(y, x, stacked[i], CSRegressionResult(*(a[i] for a in cs)),
+                         window, min_periods, n_deciles, min_obs)
+            if make_deciles else None for i in range(len(names))]
+    rolled = _rolling_batched(cs.slopes, cs.month_valid, window, min_periods)
+    cs_all = CSRegressionResult(*(_host(a) for a in cs))
+    # the batched solves fold the per-subset records: account here
+    _guard.record_cs_host("figure.subset_sweep", cs_all)
+    return cs_all, rolled, decs
+
+
 def subset_sweep(
     panel: DensePanel,
     subset_masks: Dict[str, torch.Tensor],
@@ -70,24 +118,33 @@ def subset_sweep(
     n_deciles: int = 10,
     min_obs: int = 50,
     make_deciles: bool = True,
+    route: Optional[str] = None,
 ) -> Dict[str, SubsetSweepEntry]:
     """The figure/decile family for the subsets in ``names`` on the Gram
-    route; numpy results per subset."""
+    or the stacked route (module docstring; "coreset" is refused); numpy
+    results per subset."""
     names = [n for n in names if n in subset_masks]
     if not names:
         return {}
+    resolved = resolve_route(route, allowed=("gram", "stacked"))
     y = panel.var(return_col)
     x = panel.select(list(FIGURE1_VARS.keys()))
     device = y.device
     masks = {n: torch.as_tensor(subset_masks[n], device=device) for n in names}
+    params = (window, min_periods, n_deciles, min_obs)
+    if resolved == "stacked":
+        cs_all, rolled, decs = _subset_sweep_stacked(
+            y, x, masks, names, window, min_periods, n_deciles, min_obs, make_deciles)
+        return {name: SubsetSweepEntry(CSRegressionResult(*(a[i] for a in cs_all)),
+                                       rolled[i], decs[i],
+                                       params if decs[i] is not None else None)
+                for i, name in enumerate(names)}
     grid = figure1_grid(names)
     res = run_spec_grid(y, x, masks, grid)
     # every subset's (T, 5) slope series rolls in one call
-    rolled = _host(rolling_over_valid_rows(
-        torch.as_tensor(res.slopes, device=device),
-        torch.as_tensor(res.month_valid, device=device), window, min_periods,
-    ))
-    params = (window, min_periods, n_deciles, min_obs)
+    rolled = _rolling_batched(torch.as_tensor(res.slopes, device=device),
+                              torch.as_tensor(res.month_valid, device=device),
+                              window, min_periods)
     out = {}
     for i, name in enumerate(names):
         cs_np = res.spec_cs(grid, i)
@@ -95,10 +152,8 @@ def subset_sweep(
         if make_deciles:
             cs_dev = CSRegressionResult(*(torch.as_tensor(a, device=device)
                                           for a in cs_np))
-            fr = rolling_er_forecast(y, x, masks[name], window=window,
-                                     min_periods=min_periods, cs=cs_dev)
-            dec = DecileSortResult(*(_host(a) for a in decile_sorts(
-                fr.er, fr.er_valid, y, n_deciles=n_deciles, min_obs=min_obs)))
+            dec = _decile_legs(y, x, masks[name], cs_dev, window, min_periods,
+                               n_deciles, min_obs)
         out[name] = SubsetSweepEntry(cs_np, rolled[i], dec,
                                      params if dec is not None else None)
     return out

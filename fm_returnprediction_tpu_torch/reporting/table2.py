@@ -1,8 +1,17 @@
 """Table 2 — Fama-MacBeth slopes, t-stats and R² for 3 models × 3 universes.
 
-All nine (model, subset) cells are solved from one shared Gram contraction
-(``specgrid.run_spec_grid``), with the batched QR route as the per-cell
-referee. Layout and formatting follow the reference:
+Two routes (``specgrid.resolve_route``: the ``route`` argument, then
+``FMRP_SPECGRID_ROUTE``, default "gram"):
+
+- "gram": all nine (model, subset) cells are solved from one shared Gram
+  contraction (``specgrid.run_spec_grid``), with the batched QR route as
+  the per-cell referee;
+- "stacked": every cell is a batched-QR ``fama_macbeth``. Below the
+  ``reporting.fusion`` budget each model's subsets run as one batched call
+  over the stacked subset masks (``_fm_sweep``); above it, one call per
+  cell.
+
+Layout and formatting follow the reference:
 
 - rows (Model, Predictor) with an ``N`` row closing each model block;
 - columns (subset, {Slope, t-stat, R^2}), subsets in canonical order;
@@ -20,18 +29,73 @@ import numpy as np
 import pandas as pd
 import torch
 
+from fm_returnprediction_tpu_torch.guard import checks as _guard
 from fm_returnprediction_tpu_torch.models.lewellen import MODELS, model_columns
+from fm_returnprediction_tpu_torch.ops.fama_macbeth import (
+    FamaMacbethSummary,
+    fama_macbeth,
+    fama_macbeth_summary,
+)
+from fm_returnprediction_tpu_torch.ops.ols import monthly_cs_ols
 from fm_returnprediction_tpu_torch.panel.dense import DensePanel
 from fm_returnprediction_tpu_torch.panel.subsets import SUBSET_ORDER
+from fm_returnprediction_tpu_torch.reporting.fusion import fuse_over_subsets
 from fm_returnprediction_tpu_torch.specgrid.solve import run_spec_grid
-from fm_returnprediction_tpu_torch.specgrid.specs import table2_grid
+from fm_returnprediction_tpu_torch.specgrid.specs import resolve_route, table2_grid
 
 __all__ = ["table_2_cells", "format_table_2", "build_table_2"]
 
-# Table 2's FM hyperparameters (NW lag 4, reference weight, 10 months).
+# Table 2's FM hyperparameters (NW lag 4, reference weight, 10 months; the
+# stacked route's per-month solver is the QR one).
 TABLE2_NW_LAGS = 4
 TABLE2_MIN_MONTHS = 10
 TABLE2_WEIGHT = "reference"
+TABLE2_SOLVER = "qr"
+
+
+def _host_summary(fm: FamaMacbethSummary) -> FamaMacbethSummary:
+    return FamaMacbethSummary(*(leaf.cpu().numpy() for leaf in fm))
+
+
+def _fm_sweep(y: torch.Tensor, x_all: torch.Tensor, masks: torch.Tensor, idxs):
+    """Every (model, subset) FM summary: per model, one batched QR solve
+    over the stacked subset masks (S, T, N). Returns one summary per model
+    with a leading subset axis (numpy leaves)."""
+    out = []
+    for idx in idxs:
+        cs = monthly_cs_ols(y, x_all[:, :, list(idx)], masks, record=False,
+                            solver=TABLE2_SOLVER)
+        out.append(_host_summary(fama_macbeth_summary(
+            cs, nw_lags=TABLE2_NW_LAGS, min_months=TABLE2_MIN_MONTHS,
+            weight=TABLE2_WEIGHT)))
+    return out
+
+
+def _stacked_summaries(y, x_all, subset_masks, idxs):
+    """The stacked route: ``(model index, subset index) → summary`` (numpy
+    leaves), fused or split by ``reporting.fusion.fuse_over_subsets``."""
+    masks = torch.stack([torch.as_tensor(m, device=y.device) for m in subset_masks.values()])
+    n_subsets = masks.shape[0]
+    t, n = y.shape
+    # priced as the reference prices its one fused program: Σ(p_i + 2) as
+    # one design of that width (reporting.fusion)
+    p_sum = sum(len(idx) + 2 for idx in idxs)
+    if fuse_over_subsets(n_subsets, t, n, max(p_sum - 2, 0), x_all.element_size()):
+        sweep = _fm_sweep(y, x_all, masks, idxs)
+        for fm in sweep:
+            # the batched calls fold the per-cell solves: account here
+            _guard.record_fm_host("table2.fm_sweep", fm)
+        return {(mi, si): FamaMacbethSummary(*(leaf[si] for leaf in fm))
+                for mi, fm in enumerate(sweep) for si in range(n_subsets)}
+    out = {}
+    for mi, idx in enumerate(idxs):
+        x = x_all[:, :, list(idx)]
+        for si in range(n_subsets):
+            _, fm = fama_macbeth(y, x, masks[si], nw_lags=TABLE2_NW_LAGS,
+                                 min_months=TABLE2_MIN_MONTHS, weight=TABLE2_WEIGHT,
+                                 solver=TABLE2_SOLVER)
+            out[(mi, si)] = _host_summary(fm)
+    return out
 
 
 def table_2_cells(
@@ -40,12 +104,15 @@ def table_2_cells(
     variables_dict: Dict[str, str],
     models: Optional[list] = None,
     return_col: str = "retx",
+    route: Optional[str] = None,
 ) -> Dict[Tuple[str, str], dict]:
     """Every Table 2 cell's numbers: ``(model name, subset) → {"coef",
     "tstat", "nw_se", "mean_r2", "mean_n"}`` (host numpy; coef/tstat/nw_se
-    in the model's predictor order)."""
+    in the model's predictor order). ``route`` is "gram" or "stacked"
+    (module docstring); "coreset" is refused."""
     models = models if models is not None else MODELS
     subset_names = list(subset_masks)
+    resolved = resolve_route(route, allowed=("gram", "stacked"))
     grid = table2_grid(
         variables_dict, models=models, subsets=subset_names,
         nw_lags=TABLE2_NW_LAGS, min_months=TABLE2_MIN_MONTHS,
@@ -53,11 +120,19 @@ def table_2_cells(
     )
     y = panel.var(return_col)
     x_all = panel.select(grid.union_predictors)
-    res = run_spec_grid(y, x_all, subset_masks, grid)
+    if resolved == "gram":
+        res = run_spec_grid(y, x_all, subset_masks, grid)
+        summaries = {(mi, si): res.spec_summary(grid, mi * len(subset_names) + si)
+                     for mi in range(len(models)) for si in range(len(subset_names))}
+    else:
+        col = {c: i for i, c in enumerate(grid.union_predictors)}
+        idxs = [tuple(col[c] for c in model_columns(model, variables_dict))
+                for model in models]
+        summaries = _stacked_summaries(y, x_all, subset_masks, idxs)
     cells = {}
     for mi, model in enumerate(models):
         for si, name in enumerate(subset_names):
-            fm = res.spec_summary(grid, mi * len(subset_names) + si)
+            fm = summaries[(mi, si)]
             cells[(model.name, name)] = {
                 "coef": np.asarray(fm.coef), "tstat": np.asarray(fm.tstat),
                 "nw_se": np.asarray(fm.nw_se), "mean_r2": float(fm.mean_r2), "mean_n": float(fm.mean_n),
@@ -128,8 +203,10 @@ def build_table_2(
     variables_dict: Dict[str, str],
     models: Optional[list] = None,
     return_col: str = "retx",
+    route: Optional[str] = None,
 ) -> pd.DataFrame:
-    """Assemble the formatted reference-layout Table 2."""
+    """Assemble the formatted reference-layout Table 2 (``route`` as in
+    :func:`table_2_cells`)."""
     cells = table_2_cells(panel, subset_masks, variables_dict, models=models,
-                          return_col=return_col)
+                          return_col=return_col, route=route)
     return format_table_2(cells, list(subset_masks), models=models)

@@ -10,7 +10,8 @@ time. Everything a query needs is fitted offline and frozen here:
   vocabulary, and per-month support bounds ``[x_lo, x_hi]`` (the observed
   min/max of each predictor's valid cross-section);
 - the per-month additive OLS sufficient statistics (``ops.ols.NormalStats``)
-  and the raw per-month coefficient rows with their validity flags.
+  and the raw per-month coefficient rows with their validity flags, from
+  which a later month is ingested without a refit (``serving.ingest``).
 
 The state is host numpy and persists through ``utils.cache.save_array_bundle``
 in the reference package's layout (same array names, dtypes and digest), so
@@ -53,7 +54,7 @@ class ServingState:
     yy: np.ndarray             # (T,)      Σy² per month
     window: int = 120
     min_periods: int = 60
-    solver: str = "qr"         # the per-month OLS solver (the port has QR only)
+    solver: str = "qr"         # the per-month OLS solver ("qr", "lstsq", "normal")
 
     @property
     def n_months(self) -> int:
@@ -140,6 +141,19 @@ def _support_bounds(x: torch.Tensor, mask: torch.Tensor):
     return lo, hi
 
 
+def _merge_bounds(lo_a, hi_a, lo_b, hi_b):
+    """Elementwise union of two fitted supports (numpy), respecting the
+    ±inf "no observation" sentinels (observed bounds are always finite:
+    the support only covers finite entries). Both sides empty stays
+    open."""
+    lo = np.minimum(np.where(np.isfinite(lo_a), lo_a, np.inf),
+                    np.where(np.isfinite(lo_b), lo_b, np.inf))
+    hi = np.maximum(np.where(np.isfinite(hi_a), hi_a, -np.inf),
+                    np.where(np.isfinite(hi_b), hi_b, -np.inf))
+    return (np.where(np.isfinite(lo), lo, -np.inf),
+            np.where(np.isfinite(hi), hi, np.inf))
+
+
 def _host(a: torch.Tensor) -> np.ndarray:
     return a.detach().cpu().numpy()
 
@@ -152,17 +166,20 @@ def build_serving_state(
     xvars: Optional[Sequence[str]] = None,
     window: int = 120,
     min_periods: int = 60,
+    solver: str = "qr",
     cs=None,
 ) -> ServingState:
     """Fit a ``ServingState`` from a dense panel's tensors: y (T, N),
     x (T, N, P), mask (T, N) bool, all on one device. Pass ``cs`` (numpy
     or tensor leaves) to reuse an already computed batched OLS, e.g. a
-    ``subset_sweep`` entry's. Only (T, ·)-sized results leave the device."""
+    ``subset_sweep`` entry's; otherwise ``solver`` (``"qr"``, ``"lstsq"``
+    or ``"normal"``) fits it, and the state keeps the name. Only
+    (T, ·)-sized results leave the device."""
     mask = torch.as_tensor(mask, device=y.device)
     if cs is not None:
         cs = CSRegressionResult(*(torch.as_tensor(a, device=y.device) for a in cs))
     art = fit_forecast_artifacts(y, x, mask, window=window,
-                                 min_periods=min_periods, cs=cs)
+                                 min_periods=min_periods, solver=solver, cs=cs)
     lo, hi = _support_bounds(x, mask)
     t = art.coef.shape[0]
     if months is None:
@@ -185,6 +202,7 @@ def build_serving_state(
         yy=_host(art.stats.yy),
         window=window,
         min_periods=min_periods,
+        solver=solver,
     )
 
 
@@ -195,6 +213,7 @@ def build_serving_state_from_panel(
     xvars: Optional[Sequence[str]] = None,
     window: int = 120,
     min_periods: int = 60,
+    solver: str = "qr",
     cs=None,
 ) -> ServingState:
     """Fit the serving state from a pipeline ``DensePanel``: the figure's
@@ -205,5 +224,5 @@ def build_serving_state_from_panel(
     return build_serving_state(
         panel.var(return_col), panel.select(xvars), subset_mask,
         months=panel.months, xvars=xvars, window=window,
-        min_periods=min_periods, cs=cs,
+        min_periods=min_periods, solver=solver, cs=cs,
     )

@@ -67,6 +67,7 @@ from fm_returnprediction_tpu_torch.specgrid.specs import (
     SpecGrid,
     figure1_grid,
     product_grid,
+    resolve_route,
     table2_grid,
 )
 
@@ -94,6 +95,7 @@ __all__ = [
     "parse_estimator",
     "product_grid",
     "resolve_estimator",
+    "resolve_route",
     "resolve_sink",
     "run_cellspace",
     "run_scenarios",

@@ -8,12 +8,14 @@ scheme / min-months), solved together from one Gram contraction
 (``specgrid.grams`` / ``specgrid.solve``). ``table2_grid`` reproduces Table
 2's 3 models × 3 universes in model-major order; ``figure1_grid`` the
 figure's 5-variable set per universe; ``product_grid`` any regressor-set ×
-universe × window product.
+universe × window product. ``resolve_route`` reads the reporting-route
+flag (``FMRP_SPECGRID_ROUTE``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -21,7 +23,8 @@ import numpy as np
 from fm_returnprediction_tpu_torch.models.lewellen import FIGURE1_VARS, MODELS, model_columns
 from fm_returnprediction_tpu_torch.panel.subsets import SUBSET_ORDER
 
-__all__ = ["Spec", "SpecGrid", "table2_grid", "figure1_grid", "product_grid"]
+__all__ = ["Spec", "SpecGrid", "table2_grid", "figure1_grid", "product_grid",
+           "resolve_route"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -186,3 +189,33 @@ def product_grid(
     return SpecGrid(tuple(specs), nw_lags=nw_lags, min_months=min_months,
                     weight=weight)
 
+
+def resolve_route(
+    route: Optional[str] = None,
+    default: str = "gram",
+    allowed: Optional[Tuple[str, ...]] = None,
+) -> str:
+    """The reporting-route flag: the ``route`` argument wins, then the
+    ``FMRP_SPECGRID_ROUTE`` environment variable, then ``default``.
+    "gram" solves the cells from shared Gram sufficient statistics;
+    "stacked" is the batched-QR route under the ``reporting.fusion``
+    split/fuse policy; "coreset" is the Gram route on a sampled and
+    reweighted panel (``specgrid.coreset``), a disclosed approximation that
+    only the scenario engine accepts: Table 2 and the figure sweep pass
+    ``allowed`` and refuse it."""
+    if route is None:
+        route = os.environ.get("FMRP_SPECGRID_ROUTE", default)
+    if route not in ("gram", "stacked", "coreset"):
+        raise ValueError(
+            f"route={route!r}: expected 'gram', 'stacked' or 'coreset'"
+        )
+    if allowed is not None and route not in allowed:
+        # the paper-parity surfaces fail loudly rather than silently
+        # approximate when FMRP_SPECGRID_ROUTE=coreset leaks in from a
+        # scenario-sweep environment
+        raise ValueError(
+            f"route={route!r} is not available here (allowed: {allowed}) — "
+            "the coreset tier is a disclosed approximation for the scenario "
+            "engine, not the parity reporting paths"
+        )
+    return route

@@ -270,7 +270,7 @@ def test_cli_writes_the_same_artifacts_as_the_jax_cli(tmp_path):
 
 @pytest.mark.parametrize("argv", [
     ["--synthetic", "--specgrid", "--specgrid-estimator", "fwl:log_size"],  # ROADMAP A5
-    ["--synthetic", "--bootstrap", "10"],
+    ["--synthetic", "--fleet-size", "2"],      # ROADMAP A6
     ["--synthetic", "--backend", "cpu"],        # the port's --device replaces it
     ["--firms", "10"],                          # --firms needs --synthetic
 ])

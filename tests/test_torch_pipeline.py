@@ -267,8 +267,10 @@ def test_port_runs_with_jax_blocked(tmp_path):
     with the guard and the drift sentinel armed, through the command line
     with artifacts, from a raw directory by the columnar route, cold
     (the slot is written) and warm (the slot is mapped), with stage
-    checkpoints, and the spec-grid scenario sweep, in process and through
-    the command line."""
+    checkpoints, the spec-grid scenario sweep, in process and through
+    the command line, the bootstrap-SE table in process and through the
+    command line, the stacked-QR route through ``FMRP_SPECGRID_ROUTE``, and
+    one serving-state month ingest."""
     code = textwrap.dedent("""
         import runpy
         import sys
@@ -339,6 +341,30 @@ def test_port_runs_with_jax_blocked(tmp_path):
         import pandas as pd
         top = pd.read_csv(tmp + "/out_sg/specgrid_scenarios.csv")
         assert len(top) == 100 and "draw" in top.columns, top.shape
+
+        res = run_pipeline(base, daily, device="cpu", dtype=torch.float64,
+                           make_bootstrap=True, bootstrap_replicates=50)
+        boot = res.bootstrap_table
+        assert boot.shape == (24, 12) and "bootstrap_table" in res.stage_seconds, boot.shape
+        sys.argv = ["pipeline", "--synthetic", "--firms", "60", "--months", "72",
+                    "--device", "cpu", "--bootstrap", "20", "--output-dir", tmp + "/out_bs"]
+        runpy.run_module("fm_returnprediction_tpu_torch.pipeline", run_name="__main__")
+        assert pd.read_pickle(tmp + "/out_bs/bootstrap_se.pkl").shape == (24, 12)
+        assert os.path.exists(tmp + "/out_bs/bootstrap_se.tex")
+
+        os.environ["FMRP_SPECGRID_ROUTE"] = "stacked"
+        os.environ["FMRP_FUSE_SUBSETS_MB"] = "0"
+        stacked = run_pipeline(base, daily, device="cpu", dtype=torch.float64,
+                               make_serving=False)
+        del os.environ["FMRP_SPECGRID_ROUTE"], os.environ["FMRP_FUSE_SUBSETS_MB"]
+        assert stacked.table_2.shape == (27, 9) and set(stacked.sweep) == set(res.sweep)
+
+        from fm_returnprediction_tpu_torch.serving.ingest import ingest_month
+        state = res.serving_state
+        grown = ingest_month(state, np.zeros(5), np.ones((5, state.n_predictors)),
+                             np.ones(5, bool), state.months[-1] + np.timedelta64(31, "D"),
+                             device="cpu")
+        assert grown.n_months == state.n_months + 1, grown.n_months
         loaded = [m for m in sys.modules
                   if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
         assert not loaded, loaded
@@ -381,7 +407,11 @@ def test_port_never_names_jax_or_the_jax_package(pattern):
             "utils/cache.py", "specgrid/grams.py", "specgrid/solve.py", "specgrid/specs.py",
             "specgrid/cellspace.py", "specgrid/coreset.py", "specgrid/boot.py",
             "specgrid/sinks.py", "specgrid/engine.py", "specgrid/scenarios.py",
-            "specgrid/estimators/core.py", "specgrid/__init__.py", "csrc/gram.cu"} <= names
+            "specgrid/estimators/core.py", "specgrid/__init__.py", "csrc/gram.cu",
+            "ops/ols.py", "ops/fama_macbeth.py", "models/forecast.py", "serving/state.py",
+            "serving/ingest.py", "reporting/fusion.py", "reporting/table2.py",
+            "reporting/figure1.py", "reporting/bootstrap_table.py", "parallel/__init__.py",
+            "parallel/bootstrap.py"} <= names
     hits = [str(f.relative_to(REPO)) for f in files
             if re.search(pattern, f.read_text())]
     assert not hits, hits
