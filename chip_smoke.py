@@ -55,7 +55,19 @@ Phases (any failure exits non-zero without the final line):
    within 1.5e-3 of the Gram route's; then one further month (its "All
    stocks" rows of 22,000 firm slots) ingested into a float64
    ``solver="normal"`` serving state on the card, held against the CPU's
-   ingest and a full rebuild at the reference's pins;
+   ingest and a full rebuild at the reference's pins, and into a float64
+   Gram bank of the first 599 months (one K2 launch a call, timed), held
+   against a bank of all 600 (leaves at 1e-13 of their max,
+   ``window_query`` at 1e-11 of ``max(|coef|, 1)`` on the pairs without a
+   suspect month);
+5e. the rolling-origin backtest at real size (36 cells: expanding and
+   rolling120 × 3 models × 3 universes × EW/VW) through
+   ``run_pipeline(make_backtest=True)`` guarded (no violation, VW kept,
+   launches ``BACKTEST_LAUNCHES``: the main path's plus the bank's one K2
+   launch), the stage again on the resident panel (peak memory above it,
+   the same bits), the bank alone (K2 once) and ``run_backtest`` over it
+   with the counters at 0 (K2 never, ``panel_contractions`` 0), and the
+   refit oracle's time beside the scan's;
 6. K1 std at every daily-strip shape the main path launched it at (read
    from its counters), checked and timed, with the sum of launches × time;
 7. the same path at a mid size in float64 on the card and on the CPU (plain
@@ -66,7 +78,12 @@ Phases (any failure exits non-zero without the final line):
    200 cells with bootstrap draws, coreset; rtol 1e-8), and the bootstrap
    (B = 2,000): one cell's replicate means and SEs from the same slope
    series and starts on both devices (rtol 1e-10), and each run's own table
-   held as Table 2's cells are (1e-8);
+   held as Table 2's cells are (1e-8); the backtest from the card's panel
+   (the frame at rtol 1e-9 on cells without a suspect month and at
+   ``SUSPECT_TOL`` on the others, placed by two CPU witnesses; bucket flips
+   counted), the bank's ``bootstrap_query`` (200 draws), and on the card
+   the scan route against the refit oracle (expanding and rolling120, OLS
+   and FWL) at 1e-13 of ``max(|path|, 1)``;
 8. the raw-frame route (a 250-firm × 130-month synthetic universe, float64)
    on the card and on the CPU: the enriched panel at rtol 1e-10, the tables
    as in phase 7, the audit records equal;
@@ -76,7 +93,8 @@ Phases (any failure exits non-zero without the final line):
    ``--output-dir`` when matplotlib or jinja2 does not import, said so);
    then ``--bootstrap 200`` (the ``bootstrap_table`` stage, and
    ``bootstrap_se.pkl``/``.tex`` written, by ``run_pipeline(make_figure=False)``
-   where matplotlib does not import);
+   where matplotlib does not import), and ``--backtest --backtest-sink
+   metrics`` (the ``backtest`` stage, K2 3; ``backtest.csv`` written);
 10. a raw directory of 1,000 firms × 240 months (``write_synthetic_cache``)
    through the command line three times: cold (the columnar route ran and
    wrote the slot, no fallback warning), warm (the slot was mapped,
@@ -126,6 +144,14 @@ import numpy as np
 import pandas as pd
 import torch
 
+from fm_returnprediction_tpu_torch.backtest import (
+    backtest_paths,
+    backtest_space,
+    quantile_sorts,
+    run_backtest,
+    run_backtest_scenarios,
+)
+from fm_returnprediction_tpu_torch.backtest.paths import _predict_pair
 from fm_returnprediction_tpu_torch.cuda_build import build_kernels, library_path
 from fm_returnprediction_tpu_torch.data import prepared
 from fm_returnprediction_tpu_torch.data.smoke_inputs import make_smoke_inputs
@@ -162,7 +188,9 @@ from fm_returnprediction_tpu_torch.specgrid.grams import (
     shared_center,
     split_stats,
 )
-from fm_returnprediction_tpu_torch.specgrid.scenarios import run_scenarios
+from fm_returnprediction_tpu_torch.specgrid import grambank
+from fm_returnprediction_tpu_torch.specgrid.cellspace import scenario_space
+from fm_returnprediction_tpu_torch.specgrid.scenarios import bank_for_scenarios, run_scenarios
 from fm_returnprediction_tpu_torch.utils.timing import StageTimer
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
@@ -530,9 +558,11 @@ def check_gram(t, n, p, dtype, rel, gen, timed, figure=False, weights=None,
 # two launches of at most 60 (gram_spec_chunk(14)).
 SPLIT_SPECS = 117
 # which real-size run launches each scenario-sweep K2 shape (specgrid_phase)
-ROW_PATH = {"gram/P=14,S=9,bf16": "bf16", "gram/P=5,S=3,bf16": "bf16",
-            "gram/P=14,S=9,f32,rw": "coreset", "gram/P=14,S=9,bf16,rw": "coreset_bf16",
-            f"gram/P=14,S={SPLIT_SPECS},f32": "split"}
+ROW_PATH = {"gram/P=14,S=9,bf16": ("bf16",), "gram/P=5,S=3,bf16": ("bf16",),
+            "gram/P=14,S=9,f32,rw": ("coreset",), "gram/P=14,S=9,bf16,rw": ("coreset_bf16",),
+            f"gram/P=14,S={SPLIT_SPECS},f32": ("split",),
+            # Table 2's shape is the backtest bank's too (backtest_phase)
+            "gram/P=14,S=9,f32": ("main", "backtest")}
 
 
 def k2_phase(gen, timed: bool):
@@ -1140,6 +1170,7 @@ def card_vs_cpu(seed: int) -> None:
     _reporting_vs_cpu(gpu, cpu)
     _boot_vs_cpu(gpu, cpu)
     _scenarios_vs_cpu(gpu)
+    _backtest_vs_cpu(gpu)
 
 
 SCENARIO_FLOATS = {"coef", "tstat", "nw_se", "mean_r2", "mean_n", "coreset_rate"}
@@ -1181,7 +1212,9 @@ def _scenario_worst(got: pd.DataFrame, want: pd.DataFrame, strict: bool = True) 
 # ill-conditioned Gram solve stands and moves with the order of the sums.
 # The limit sits between the CPU's own spread under another firm chunk and
 # a planted fault (each row weight applied twice), both read in the same
-# run (PERF.md, Findings, PR 7).
+# run (PERF.md, Findings). The Gram bank has no referee either: the
+# backtest's cells and bootstrap_query's pairs with a suspect month are held
+# to the same limit, placed the same way (_backtest_witnesses).
 SUSPECT_TOL = 1e-3
 SUSPECT_CHUNK = 256
 
@@ -1504,6 +1537,7 @@ def stacked_phase(base, daily, gram_frames: dict) -> None:
     check(t2 <= STACKED_TOL and all(a <= STACKED_TOL for a, _ in worst.values()),
           "the stacked route's frames differ from the Gram route's beyond tolerance")
     ingest_phase(res)
+    bank_ingest_phase(res)
     del res
     torch.cuda.empty_cache()
 
@@ -1586,6 +1620,377 @@ def bootstrap_cli_phase() -> None:
               "bootstrap_se.pkl/.tex were not written")
         table = pd.read_pickle(out / "bootstrap_se.pkl")
         check(table.shape == (24, 12), f"bootstrap_se.pkl shape {table.shape}")
+
+
+# --- the rolling-origin backtest on the Gram bank -------------------------
+
+# 2 schemes (expanding, rolling120) × 3 models × 3 universes × EW/VW
+BACKTEST_CELLS = 36
+# Launches at real size: the guarded run_pipeline(make_backtest=True) — the
+# main path's K1 17 and K2 2 plus the bank's one K2 contraction of its 9
+# (model, universe) pairs, at Table 2's shape; the bank built alone; and the
+# sweep over that bank, which contracts nothing.
+BACKTEST_LAUNCHES = {
+    "backtest": ({"k1": 17, "k2": 3, "moments": 0}, {"P=14,S=9,f32": 2, "P=5,S=3,f32": 1}),
+    "bank": ({"k1": 0, "k2": 1, "moments": 0}, {"P=14,S=9,f32": 1}),
+    "sweep": ({"k1": 0, "k2": 0, "moments": 0}, {}),
+}
+BACKTEST_METRICS = ["oos_r2", "ic_mean", "ic_tstat", "rank_ic_mean", "spread", "spread_tstat",
+                    "spread_turnover"]
+BACKTEST_INTS = ["cell", "quantiles", "ic_months", "n_months", "forecast_months",
+                 "suspect_months"]
+BACKTEST_RTOL = 1e-9          # card vs CPU, the frame (float64)
+SCAN_REFIT_TOL = 1e-13        # the reference's pin, of max(|path|, 1)
+BANK_BOOT_DRAWS = 200
+
+
+def _timed(fn):
+    """(result, wall seconds) of ``fn()``, synchronized with the card."""
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - start
+
+
+def backtest_phase(base, daily) -> dict:
+    """The backtest at real size: ``run_pipeline(make_backtest=True)``
+    guarded (36 cells, VW kept, no violation, launches pinned), the stage
+    again on the resident panel (its peak device memory above the panel,
+    the stats, bit-identical frame), the bank alone (one K2 launch) and the
+    sweep over it with the counters at 0 (no K2 launch, no panel
+    contraction, the same frame), and the refit oracle's time at real size
+    beside the scan's. Returns the pipeline run's launch counts."""
+    res, wall, counts = counted_run(base, daily, guard=True, make_backtest=True)
+    frame = res.backtest_table
+    log(f"backtest (guarded, f32): wall {wall:.3f} s, stage backtest "
+        f"{res.stage_seconds['backtest']:.4f} s; audit " + res.audit.report().replace("\n", "; "))
+    check(not res.audit.violations and not res.audit.quarantined,
+          "guarded backtest run: contract violations or quarantined artifacts")
+    _k2_pinned("backtest (guarded, f32)", counts, BACKTEST_LAUNCHES["backtest"])
+    check(frame is not None and len(frame) == BACKTEST_CELLS
+          and list(frame["cell"]) == list(range(BACKTEST_CELLS)),
+          f"backtest frame: {None if frame is None else len(frame)} rows")
+    check(set(frame["weighting"]) == {"ew", "vw"}
+          and set(frame["scheme"]) == {"expanding", "rolling120"},
+          f"backtest frame cells {set(frame['weighting'])} {set(frame['scheme'])}")
+    finite = np.isfinite(frame[BACKTEST_METRICS].to_numpy(float))
+    log(frame[["scheme", "set", "universe", "weighting"] + BACKTEST_METRICS
+              + ["n_months", "suspect_months"]].to_string())
+    check(bool(finite.all()), "backtest frame: non-finite headline metrics")
+
+    panel, masks, factors = res.panel, res.subset_masks, res.factors_dict
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    (again, stats), again_s = _timed(lambda: run_backtest_scenarios(
+        panel, masks, factors, return_stats=True, device="cuda"))
+    peak = (torch.cuda.max_memory_allocated() - before) / 2**30
+    log(f"backtest stage again on the resident panel: {again_s:.4f} s, peak device memory "
+        f"above the resident panel {peak:.3f} GiB; stats "
+        + json.dumps({k: v for k, v in stats.items()}, default=str)
+        + f"; bit-identical {again.equals(frame)}")
+    check(not stats["weighting_reduced"] and stats["panel_contractions"] == 0,
+          f"backtest stats {stats}")
+    check(again.equals(frame), "two backtest runs on one panel differ")
+
+    reset_counts()
+    bank, bank_s = _timed(lambda: bank_for_scenarios(panel, masks, factors,
+                                                     fingerprint="backtest", device="cuda"))
+    _k2_pinned("bank (f32)", launch_counts(), BACKTEST_LAUNCHES["bank"])
+    space = backtest_space(bank)
+    x = panel.select(list(bank.union))
+    realized, weights = panel.var("retx"), panel.var("me")
+    reset_counts()
+    (swept, sweep_stats), sweep_s = _timed(lambda: run_backtest(
+        bank, x, realized, {n: masks[n] for n in space.universes}, space=space,
+        weights_var=weights, min_months=10, device="cuda"))
+    sweep_counts = launch_counts()
+    log(f"bank_for_scenarios {bank_s:.4f} s ({bank.n_pairs} pairs x {bank.n_months} months); "
+        f"run_backtest over the bank {sweep_s:.4f} s, panel_contractions "
+        f"{sweep_stats['panel_contractions']}, path solves {sweep_stats['path_solves']}, "
+        f"forecasts {sweep_stats['predict_calls']}; the same frame {swept.equals(frame)}")
+    _k2_pinned("sweep over the bank", sweep_counts, BACKTEST_LAUNCHES["sweep"])
+    check(sweep_stats["panel_contractions"] == 0, "the sweep contracted the panel")
+    check(swept.equals(frame), "the sweep over the bank differs from the stage's frame")
+
+    scan, scan_s = _timed(lambda: backtest_paths(bank, "expanding", route="scan", device="cuda"))
+    refit, refit_s = _timed(lambda: backtest_paths(bank, "expanding", route="refit",
+                                                   device="cuda"))
+    log(f"coefficient paths at real size (f32, expanding, OLS): scan {scan_s * 1e3:.2f} ms, "
+        f"refit oracle {refit_s:.3f} s ({bank.n_months} origins); scan vs refit worst "
+        f"|d| / max(|path|, 1) {_path_gap(scan, refit):.3e} (logged: float32; the float64 "
+        "pin is checked card vs CPU)")
+    del res, panel, masks, x, realized, weights, again, swept, bank
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _path_gap(a, b) -> float:
+    """Worst |a − b| / max(|b|, 1) of two coefficient paths whose NaN
+    patterns, counts and month gates must agree (checked)."""
+    check(np.array_equal(np.isnan(a.path), np.isnan(b.path))
+          and np.array_equal(a.month_valid, b.month_valid)
+          and np.array_equal(a.count, b.count),
+          f"paths {a.scheme} {a.estimator_label}: NaN pattern, month gates or counts differ")
+    fin = np.isfinite(b.path)
+    gap = np.abs(a.path[fin] - b.path[fin]) / np.maximum(np.abs(b.path[fin]), 1.0)
+    beta = np.abs(a.beta - b.beta) / np.maximum(np.abs(b.beta), 1.0)
+    return float(max(gap.max(initial=0.0), beta.max(initial=0.0)))
+
+
+def _held_worst(got: dict, want: dict) -> float:
+    """Worst held difference of FM summaries given as dicts of arrays
+    (``coef`` at ``max(|b|, nw_se)``, ``tstat`` at ``max(|t|, 1)``, the
+    rest relative), NaN patterns and month counts equal (checked)."""
+    check(np.array_equal(np.asarray(got["n_months"]), np.asarray(want["n_months"])),
+          "card vs CPU: month counts differ")
+    worst = 0.0
+    for name in ("coef", "tstat", "nw_se", "mean_r2", "mean_n"):
+        a, b = np.asarray(got[name], float), np.asarray(want[name], float)
+        check(np.array_equal(np.isnan(a), np.isnan(b)), f"card vs CPU: NaN pattern of {name}")
+        fin = np.isfinite(b)
+        scale = np.abs(b[fin])
+        if name == "coef":
+            scale = np.fmax(scale, np.asarray(want["nw_se"], float)[fin])
+        elif name == "tstat":
+            scale = np.maximum(scale, 1.0)
+        if fin.any():
+            worst = max(worst, float((np.abs(a[fin] - b[fin]) / np.maximum(scale, 1e-300)).max()))
+    return worst
+
+
+def _bucket_counts(bank, panel, masks, device) -> dict:
+    """Every backtest cell's (T, D) quantile-bucket counts on ``device``:
+    a firm changing bucket moves one count between two cells."""
+    space = backtest_space(bank)
+    x = panel.select(list(bank.union))
+    realized, weights = panel.var("retx"), panel.var("me")
+    out = {}
+    for scheme in space.schemes:
+        paths = backtest_paths(bank, scheme, device=device)
+        for pair, (_, uni) in enumerate(bank.pair_labels):
+            er, er_valid = _predict_pair(paths, x, masks[uni], pair)
+            for vw in (False, True):
+                port = quantile_sorts(er, er_valid, realized, weights=weights if vw else None,
+                                      n_quantiles=space.n_quantiles, min_obs=space.min_obs,
+                                      nw_lags=space.nw_lags, value_weighted=vw)
+                out[(scheme, pair, vw)] = port.counts.cpu().numpy()
+    return out
+
+
+def _frame_rel_worst(got: pd.DataFrame, want: pd.DataFrame, rows: np.ndarray) -> float:
+    """Worst relative difference of two backtest frames' float columns on
+    ``rows``, non-finite patterns equal (checked)."""
+    return max((_rel_worst(got[c].to_numpy(float)[rows], want[c].to_numpy(float)[rows],
+                           f"backtest {c}")
+                for c in want.columns if want[c].dtype.kind == "f"), default=0.0)
+
+
+def _backtest_witnesses(panel, masks, factors, want, suspect) -> dict:
+    """The two readings that place ``SUSPECT_TOL`` for the backtest, both
+    on the CPU: the same stage with the plain contraction cut into
+    ``SUSPECT_CHUNK``-firm chunks (another order of the bank's sums), and
+    with a planted look-ahead fault (month t forecast from origin t, not
+    t−1). Worst differences from ``want`` on the rows of cells with a
+    suspect month and on the others."""
+    from unittest import mock
+
+    from fm_returnprediction_tpu_torch.backtest import sweep
+    from fm_returnprediction_tpu_torch.specgrid import grams
+
+    predict = sweep._predict_pair
+
+    def look_ahead(paths, x, mask, pair):
+        path = np.concatenate([paths.path[:, 1:], paths.path[:, -1:]], axis=1)
+        return predict(paths._replace(path=path), x, mask, pair)
+
+    out = {}
+    with mock.patch.object(grams, "auto_firm_chunk", lambda *a, **k: SUSPECT_CHUNK):
+        reordered = run_backtest_scenarios(panel, masks, factors, device="cpu")
+    with mock.patch.object(sweep, "_predict_pair", look_ahead):
+        faulty = run_backtest_scenarios(panel, masks, factors, device="cpu")
+    for name, frame in (("order", reordered), ("fault", faulty)):
+        out[f"{name}_suspect"] = _frame_rel_worst(frame, want, suspect)
+        out[f"{name}_held"] = _frame_rel_worst(frame, want, ~suspect)
+    return out
+
+
+def _backtest_vs_cpu(gpu) -> None:
+    """The float64 backtest on the card against the CPU, both from the card
+    run's panel (copied to the host): the stage's frame at rtol 1e-9 on the
+    cells without a suspect month, labels and integer columns equal, the
+    quantile-bucket flips between the two devices counted and logged. A
+    cell with a suspect month forecasts from per-month solves the bank
+    discloses as ill-conditioned and no referee re-solves, which move with
+    the order of the sums: those cells are held at ``SUSPECT_TOL``, and the
+    two readings that place it (``_backtest_witnesses``) are logged and
+    checked, as for the coreset sweep. The bank's ``bootstrap_query`` (200
+    draws on the same resample rows) is held as Table 2's cells are, at
+    1e-9 on the pairs without a suspect month and ``SUSPECT_TOL`` on the
+    others. On the card, the scan route against the per-origin refit oracle
+    at the reference's pin 1e-13 of ``max(|path|, 1)``, expanding and
+    rolling120, OLS and FWL on a Model 1 column (the refit's time
+    logged)."""
+    host_panel = dataclasses.replace(gpu.panel, values=gpu.panel.values.cpu())
+    host_masks = {k: m.cpu() for k, m in gpu.subset_masks.items()}
+    sides = {"cuda": (gpu.panel, gpu.subset_masks), "cpu": (host_panel, host_masks)}
+    factors = gpu.factors_dict
+    frames, banks, secs = {}, {}, {}
+    for dev, (panel, masks) in sides.items():
+        frames[dev], secs[dev] = _timed(lambda: run_backtest_scenarios(panel, masks, factors,
+                                                                       device=dev))
+        banks[dev] = bank_for_scenarios(panel, masks, factors, fingerprint="backtest",
+                                        device=dev)
+    got, want = frames["cuda"], frames["cpu"]
+    check(list(got.columns) == list(want.columns) and len(got) == len(want) == BACKTEST_CELLS,
+          "card vs CPU: backtest frames differ in shape")
+    for c in want.columns:
+        if want[c].dtype.kind != "f":
+            check(bool((got[c].to_numpy() == want[c].to_numpy()).all()),
+                  f"card vs CPU: backtest column {c} differs")
+    suspect = (want["suspect_months"] > 0).to_numpy()
+    held, worst_sus = _frame_rel_worst(got, want, ~suspect), _frame_rel_worst(got, want, suspect)
+    counts = {dev: _bucket_counts(banks[dev], *sides[dev], dev) for dev in sides}
+    flips = sum(int(np.sum(counts["cuda"][k] != counts["cpu"][k])) for k in counts["cpu"])
+    wit = _backtest_witnesses(host_panel, host_masks, factors, want, suspect)
+    log(f"card vs CPU backtest (T=240, N=3000, f64): cuda {secs['cuda']:.2f} s, cpu "
+        f"{secs['cpu']:.2f} s; worst rel diff {held:.3e} over the {int((~suspect).sum())} cells "
+        f"without a suspect month (tol {BACKTEST_RTOL:g}), {worst_sus:.3e} over the "
+        f"{int(suspect.sum())} with one (tol {SUSPECT_TOL:g}); integer and label columns "
+        f"equal; quantile-bucket count cells that differ (flips) {flips} of "
+        f"{sum(a.size for a in counts['cpu'].values())}; CPU with {SUSPECT_CHUNK}-firm chunks "
+        f"vs CPU: suspect cells {wit['order_suspect']:.3e}, others {wit['order_held']:.3e}; "
+        f"planted look-ahead fault vs CPU: suspect cells {wit['fault_suspect']:.3e}, others "
+        f"{wit['fault_held']:.3e}")
+    check(held <= BACKTEST_RTOL and worst_sus <= SUSPECT_TOL,
+          "card vs CPU: backtest frame beyond tolerance")
+    check(wit["order_suspect"] <= SUSPECT_TOL < wit["fault_suspect"]
+          and wit["order_held"] <= BACKTEST_RTOL < wit["fault_held"],
+          f"the backtest's suspect-cell limit {SUSPECT_TOL:g} does not sit between the CPU's "
+          f"sum-order spread and a planted fault: {wit}")
+
+    boot = {dev: grambank.bootstrap_query(banks[dev], BANK_BOOT_DRAWS, device=dev)
+            for dev in sides}
+    fields = ("coef", "tstat", "nw_se", "mean_r2", "mean_n", "n_months")
+    point_g, point_c = boot["cuda"][0]._asdict(), boot["cpu"][0]._asdict()
+    check(np.array_equal(point_g["suspect_months"], point_c["suspect_months"]),
+          "card vs CPU: bootstrap_query suspect months differ")
+    worst = {True: 0.0, False: 0.0}
+    for k, sus in enumerate(point_c["suspect_months"] > 0):
+        pair_g = {f: point_g[f][k] for f in fields}
+        pair_c = {f: point_c[f][k] for f in fields}
+        worst[bool(sus)] = max(worst[bool(sus)], _held_worst(pair_g, pair_c), _held_worst(
+            dict(zip(fields, boot["cuda"][1][k])), dict(zip(fields, boot["cpu"][1][k]))))
+    log(f"card vs CPU bootstrap_query ({BANK_BOOT_DRAWS} draws, {banks['cpu'].n_pairs} pairs, "
+        f"suspect months {point_c['suspect_months'].tolist()}): worst held diff (point and "
+        f"draws) {worst[False]:.3e} on the pairs without a suspect month (tol "
+        f"{BACKTEST_RTOL:g}), {worst[True]:.3e} on the others (tol {SUSPECT_TOL:g})")
+    check(worst[False] <= BACKTEST_RTOL and worst[True] <= SUSPECT_TOL,
+          "card vs CPU: bootstrap_query beyond tolerance")
+
+    control = model_columns(MODELS[0], factors)[0]
+    for est in (None, f"fwl:{control}"):
+        for scheme in ("expanding", "rolling120"):
+            scan, scan_s = _timed(lambda: backtest_paths(banks["cuda"], scheme, estimator=est,
+                                                         route="scan", device="cuda"))
+            refit, refit_s = _timed(lambda: backtest_paths(banks["cuda"], scheme, estimator=est,
+                                                           route="refit", device="cuda"))
+            gap = _path_gap(scan, refit)
+            log(f"scan vs refit on the card (f64, {scheme}, {est or 'ols'}): worst |d| / "
+                f"max(|path|, 1) {gap:.3e} (tol {SCAN_REFIT_TOL:g}); scan {scan_s * 1e3:.2f} ms, "
+                f"refit {refit_s:.3f} s ({banks['cuda'].n_months} origins)")
+            check(gap <= SCAN_REFIT_TOL, f"scan vs refit ({scheme}, {est}) beyond the pin")
+
+
+def bank_ingest_phase(res) -> None:
+    """The bank's month ingest on the card at real size (float64 panel): a
+    bank of months 0…T−2 grown by month T−1 (one K2 launch over one month,
+    three calls timed) against a bank contracted on all T months, at the
+    reference's pins: leaves at 1e-13 of ``max(|leaf|, 1)``,
+    ``window_query`` coefficients at 1e-11 of ``max(|coef|, 1)`` on the
+    pairs without a suspect month (the others logged)."""
+    panel, masks, factors = res.panel, res.subset_masks, res.factors_dict
+    t = len(panel.months)
+    space = scenario_space(factors, list(masks), t)
+    y, x = panel.var("retx"), panel.select(list(space.union_predictors))
+    full = grambank.build_bank(y, x, masks, space, device="cuda")
+    head = grambank.build_bank(y[:-1], x[:-1], {k: m[:-1] for k, m in masks.items()}, space,
+                               device="cuda")
+    last = {k: m[-1] for k, m in masks.items()}
+    reset_counts()
+    times = []
+    for _ in range(3):
+        grown, secs = _timed(lambda: grambank.ingest_month(head, y[-1], x[-1], last, t - 1,
+                                                           device="cuda"))
+        times.append(secs)
+    by_key = dict(gram_contract_cuda.launches_by_key)
+    worst = {}
+    for leaf in ("gram", "moment", "n", "ysum", "yy", "center"):
+        a, b = getattr(grown, leaf), getattr(full, leaf)
+        worst[leaf] = float(np.abs(a - b).max() / max(np.abs(b).max(), 1.0))
+    got, want = (grambank.window_query(grown, device="cuda"),
+                 grambank.window_query(full, device="cuda"))
+    check(np.array_equal(np.isnan(got.coef), np.isnan(want.coef))
+          and np.array_equal(got.n_months, want.n_months)
+          and np.array_equal(got.suspect_months, want.suspect_months),
+          "ingest: window_query NaN pattern, month counts or suspect months differ")
+    # the reference pins 1e-11 on unit-scale coefficients; the Lewellen
+    # coefficients reach tens, so the pin is held at max(|coef|, 1). A pair
+    # with a suspect month (an ill-conditioned solve the bank discloses and
+    # no referee re-solves) amplifies the last-bit differences of the
+    # leaves: its gap is logged, not held
+    gap = np.abs(got.coef - want.coef) / np.maximum(np.abs(want.coef), 1.0)
+    clean = want.suspect_months == 0
+    q_gap = float(np.nanmax(gap[clean], initial=0.0))
+    log(f"bank ingest of month {t - 1} ({int(last['All stocks'].sum())} 'All stocks' firms, "
+        f"f64, {full.n_pairs} pairs) on the card: {', '.join(f'{s * 1e3:.2f}' for s in times)} "
+        f"ms (three calls); K2 launches {gram_contract_cuda.launches} {by_key}; worst |grown - "
+        f"full| / max(|full|, 1) per leaf " + json.dumps({k: float(f"{v:.3g}") for k, v in
+                                                         worst.items()})
+        + f" (tol 1e-13); window_query coef worst |d| / max(|coef|, 1) {q_gap:.3e} over the "
+        f"{int(clean.sum())} pairs without a suspect month (tol 1e-11); pairs with suspect "
+        f"months {want.suspect_months[~clean].tolist()}: "
+        f"{[float(f'{v:.3g}') for v in np.nanmax(gap[~clean], axis=1, initial=0.0)]} (logged)")
+    check(gram_contract_cuda.launches == 3, "ingest: not one K2 launch a call")
+    check(clean.any(), "ingest: every pair has a suspect month; nothing to hold")
+    check(max(worst.values()) <= 1e-13 and q_gap <= 1e-11, "bank ingest beyond the reference's pins")
+    check(np.array_equal(grown.months, full.months), "ingest: month labels differ")
+
+
+def backtest_cli_phase() -> None:
+    """``python -m fm_returnprediction_tpu_torch.pipeline --synthetic
+    --backtest --backtest-sink metrics`` at 250 × 130 on the card: exit 0
+    with the ``backtest`` stage and the bank's K2 launch; then
+    ``backtest.csv`` written by an ``--output-dir`` run — the command line
+    where matplotlib imports, else ``run_pipeline(make_figure=False,
+    make_backtest=True, output_dir=…)`` on the same universe (the command
+    line draws Figure 1 into any output directory)."""
+    have_mpl = importlib.util.find_spec("matplotlib") is not None
+    firms, months = SYNTHETIC_CLI_FIRMS, SYNTHETIC_CLI_MONTHS
+    base_args = ["--synthetic", "--firms", firms, "--months", months, "--backtest"]
+    run = run_cli(base_args + ["--backtest-sink", "metrics"])
+    log(f"CLI --synthetic --firms {firms} --months {months} --backtest --backtest-sink metrics: "
+        f"exit 0 in {run['wall']:.1f} s; stage backtest "
+        f"{run['stages'].get('backtest', float('nan')):.3f} s; launches K1 "
+        f"{run['launches']['k1']}, K2 {run['launches']['k2']} {run['launches']['k2_by_key']}")
+    check("backtest" in run["stages"] and run["launches"]["k2"] == 3,
+          f"backtest CLI stages {sorted(run['stages'])}, launches {run['launches']}")
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "out"
+        if have_mpl:
+            run_cli(base_args + ["--output-dir", out])
+        else:
+            run_pipeline(synthetic=True, synthetic_config=SyntheticConfig(
+                n_firms=firms, n_months=months), device="cuda", make_figure=False,
+                make_backtest=True, output_dir=out)
+        frame = pd.read_csv(out / "backtest.csv")
+        log(f"backtest.csv written by "
+            f"{'the command line' if have_mpl else 'run_pipeline(make_figure=False)'}: "
+            f"{frame.shape}")
+        check(len(frame) == BACKTEST_CELLS and set(BACKTEST_METRICS) <= set(frame.columns),
+              f"backtest.csv shape {frame.shape}")
 
 
 # Run as the command line would be, then read the launch counters of that
@@ -1968,6 +2373,7 @@ def main(argv=None) -> int:
     slot_phase(base, daily, digests)
     path_counts = {"main": counts, **specgrid_phase(base, daily)}
     bootstrap_phase(base, daily)
+    path_counts["backtest"] = backtest_phase(base, daily)
     stacked_phase(base, daily, gram_frames)
     del base, daily
     rows += strip_phase(gen, counts)
@@ -1975,6 +2381,7 @@ def main(argv=None) -> int:
     ingest_vs_cpu()
     cli_phase()
     bootstrap_cli_phase()
+    backtest_cli_phase()
     with tempfile.TemporaryDirectory() as tmp:
         raw = Path(tmp) / "raw"
         start = time.perf_counter()
@@ -1989,8 +2396,8 @@ def main(argv=None) -> int:
     for row in rows:
         key = row.pop("key")
         # the scenario sweep's K2 shapes are launched by its runs, the rest
-        # by the main path
-        row["launches"] = path_counts[ROW_PATH.get(key, "main")].get(key, 0)
+        # by the main path; Table 2's shape adds the backtest run's launches
+        row["launches"] = sum(path_counts[p].get(key, 0) for p in ROW_PATH.get(key, ("main",)))
         if row.get("main_path") == K3_MAIN_PATH:
             check(row["launches"] == 0, f"{row['name']}: launched on the main path, "
                   "which has no caller of it")

@@ -54,6 +54,7 @@ __all__ = [
     "check_panel",
     "frame_rules",
     "check_frame",
+    "backtest_rules",
     "cross_section_rules",
     "serving_state_rules",
     "VALUE_BOUND",
@@ -508,6 +509,43 @@ def frame_rules(name: str, blocking: str = "fail") -> List[Rule]:
 
 def check_frame(frame, name: str, audit: Optional[AuditRecord] = None) -> None:
     enforce(evaluate(frame_rules(name), frame), audit=audit, context=name)
+
+
+def backtest_rules(blocking: str = "quarantine") -> List[Rule]:
+    """Stage-boundary contract for the backtest cell frame: the generic
+    frame rules plus the metric ranges the backtest schema promises — the
+    required per-cell columns exist, a finite ``oos_r2`` never exceeds 1,
+    ICs are correlations in [−1, 1], and one-way turnover of a normalized
+    long-short book lies in [0, 1]."""
+    required = ("cell", "scheme", "set", "universe", "weighting", "oos_r2", "ic_mean",
+                "spread", "spread_tstat", "spread_turnover", "n_months")
+
+    def _has_columns(df):
+        missing = [c for c in required if c not in df.columns]
+        if missing:
+            return f"backtest frame lacks required columns {missing}"
+        return None
+
+    def _in_band(col, lo, hi):
+        def check(df):
+            if col not in df.columns:  # presence is _has_columns's call
+                return None
+            vals = np.asarray(df[col], dtype=float)
+            vals = vals[np.isfinite(vals)]
+            if vals.size and ((vals < lo).any() or (vals > hi).any()):
+                return (f"{col} outside [{lo}, {hi}]: "
+                        f"range [{vals.min():.4g}, {vals.max():.4g}]")
+            return None
+
+        return check
+
+    return frame_rules("backtest", blocking) + [
+        Rule("backtest.columns", blocking, _has_columns),
+        Rule("backtest.oos_r2_bound", blocking, _in_band("oos_r2", -np.inf, 1.0)),
+        Rule("backtest.ic_band", blocking, _in_band("ic_mean", -1.0, 1.0)),
+        Rule("backtest.rank_ic_band", blocking, _in_band("rank_ic_mean", -1.0, 1.0)),
+        Rule("backtest.turnover_band", blocking, _in_band("spread_turnover", 0.0, 1.0)),
+    ]
 
 
 # -- serving cross-section contracts ---------------------------------------

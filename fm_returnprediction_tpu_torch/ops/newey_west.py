@@ -10,9 +10,10 @@ ADJACENT SURVIVING months — so valid entries are compacted to the front
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-__all__ = ["compact_front", "nw_mean_se"]
+__all__ = ["compact_front", "nw_mean_se", "nw_mean_se_np"]
 
 
 def compact_front(x: torch.Tensor, valid: torch.Tensor):
@@ -61,3 +62,27 @@ def nw_mean_se(x: torch.Tensor, valid: torch.Tensor, lags: int = 4,
     var_mean = (gamma0 + 2.0 * acc) / torch.clamp_min(nf, 1.0) ** 2
     return torch.where(n >= 2, torch.sqrt(var_mean),
                        torch.full_like(var_mean, float("nan")))
+
+
+def nw_mean_se_np(vals: np.ndarray, lags: int = 4, weight: str = "reference") -> float:
+    """Numpy mirror of :func:`nw_mean_se` on an ALREADY-compacted valid
+    series, the host oracle of the backtest's inference. Fewer than 2
+    entries give NaN, and so does a negative small-sample HAC variance."""
+    vals = np.asarray(vals, float)
+    n = vals.size
+    if n < 2:
+        return float("nan")
+    u = vals - vals.mean()
+    gamma0 = float(u @ u)
+    acc = 0.0
+    for k in range(1, lags + 1):
+        gamma_k = float(u[k:] @ u[:-k]) if k < n else 0.0
+        if weight == "reference":
+            w = max(1.0 - k / n, 0.0)
+        elif weight == "textbook":
+            w = 1.0 - k / (lags + 1.0)
+        else:
+            raise ValueError(f"Unknown NW weight scheme: {weight}")
+        acc += w * gamma_k
+    var_mean = (gamma0 + 2.0 * acc) / n**2
+    return float(np.sqrt(var_mean)) if var_mean >= 0 else float("nan")

@@ -5,8 +5,8 @@ universe filter and relational transforms (host pandas) → dense monthly
 base panel and compact daily strips (host numpy) → characteristics →
 universes → Table 1 → Table 2 → the figure/decile sweep → Figure 1's
 rolling slopes → the decile table → the serving state → (optionally) the
-spec-grid scenario sweep and the bootstrap-SE table → artifacts, with the
-guard layer (``guard``)
+spec-grid scenario sweep, the rolling-origin backtest and the bootstrap-SE
+table → artifacts, with the guard layer (``guard``)
 checking every stage boundary. Everything after the host ingest runs on
 the compute device.
 
@@ -21,6 +21,8 @@ the compute device.
     python -m fm_returnprediction_tpu_torch.pipeline --synthetic --specgrid \
         --specgrid-cells 200 --specgrid-sink topk
     python -m fm_returnprediction_tpu_torch.pipeline --synthetic --bootstrap 10000
+    python -m fm_returnprediction_tpu_torch.pipeline --synthetic --backtest \
+        --backtest-schemes expanding,rolling60 --backtest-sink metrics
 
 A raw directory is read by the columnar route (``panel.columnar``;
 ``FMRP_PANEL_ROUTE=legacy`` selects the pandas route) and its host products
@@ -52,6 +54,12 @@ import numpy as np
 import pandas as pd
 import torch
 
+from fm_returnprediction_tpu_torch.backtest import run_backtest_scenarios
+from fm_returnprediction_tpu_torch.backtest.paths import BACKTEST_ROUTES
+from fm_returnprediction_tpu_torch.backtest.sinks import (
+    BACKTEST_SINK_NAMES,
+    resolve_backtest_sink_name,
+)
 from fm_returnprediction_tpu_torch.data import prepared as _prepared
 from fm_returnprediction_tpu_torch.data.columnar import ColumnarIngestError
 from fm_returnprediction_tpu_torch.data.synthetic import (
@@ -218,6 +226,9 @@ class PipelineResult:
     # the bootstrap-SE table (reporting.bootstrap_table), or None when not
     # requested
     bootstrap_table: Optional[pd.DataFrame] = None
+    # the rolling-origin backtest sweep (backtest.run_backtest_scenarios):
+    # the sink's frame, one row per cell, or None when not requested
+    backtest_table: Optional[pd.DataFrame] = None
 
 
 def load_raw_data(raw_data_dir) -> Dict[str, pd.DataFrame]:
@@ -411,6 +422,11 @@ def run_pipeline(
     specgrid_sink: Optional[str] = None,
     make_bootstrap: bool = False,
     bootstrap_replicates: int = 10_000,
+    make_backtest: bool = False,
+    backtest_schemes: Optional[str] = None,
+    backtest_route: Optional[str] = None,
+    backtest_quantiles: Optional[int] = None,
+    backtest_sink: Optional[str] = None,
 ) -> PipelineResult:
     """Raw data or prepared inputs → characteristics → NYSE-breakpoint
     universes → Table 1 → Table 2 → Figure 1 / deciles → serving state →
@@ -463,11 +479,24 @@ def run_pipeline(
     ``bootstrap_replicates`` replicates, seed 0) in the stage
     ``bootstrap_table``.
 
+    ``make_backtest`` runs the rolling-origin backtest sweep
+    (``backtest.run_backtest_scenarios``) in the stage ``backtest``: the
+    scenario panel is contracted once into an in-memory Gram bank and every
+    cell (window scheme × model × universe × EW/VW weighting) answers from
+    it — coefficient paths by the prefix-sum scan route
+    (``backtest_route``, default ``FMRP_BACKTEST_ROUTE`` or ``auto``),
+    out-of-sample forecasts, OOS R², IC, ``backtest_quantiles``-bucket
+    portfolio spreads and turnover, streamed through ``backtest_sink``.
+    ``backtest_schemes`` is the comma list (default ``FMRP_BACKTEST_SCHEMES``
+    or ``"expanding,rolling120"``). The estimator is OLS (the
+    ``--specgrid-estimator`` knob is ROADMAP A5); the guard screens the full
+    frame with ``guard.contracts.backtest_rules`` at quarantine severity.
+
     ``output_dir`` writes the artifacts: ``table_{1,2}.{pkl,tex}``,
     ``figure_1.pdf`` (matplotlib), ``decile_sorts.{pkl,tex}``,
     ``serving_state.npz``, ``specgrid_scenarios.csv`` (with the sweep),
-    ``bootstrap_se.{pkl,tex}`` (with the bootstrap table),
-    ``data_saved.marker`` and ``research_report.tex`` (compiled when
+    ``backtest.csv`` (with the backtest), ``bootstrap_se.{pkl,tex}`` (with
+    the bootstrap table), ``data_saved.marker`` and ``research_report.tex`` (compiled when
     ``pdflatex`` exists and ``compile_pdf``)."""
     if guard is None:
         guard = _guard_checks.guard_active()
@@ -482,6 +511,9 @@ def run_pipeline(
             guard=bool(guard), audit_dir=audit_dir, make_specgrid=make_specgrid,
             specgrid_cells=specgrid_cells, specgrid_sink=specgrid_sink,
             make_bootstrap=make_bootstrap, bootstrap_replicates=bootstrap_replicates,
+            make_backtest=make_backtest, backtest_schemes=backtest_schemes,
+            backtest_route=backtest_route, backtest_quantiles=backtest_quantiles,
+            backtest_sink=backtest_sink,
         )
 
 
@@ -490,7 +522,8 @@ def _run_pipeline_guarded(
     synthetic_config, device, dtype, include_turnover, make_figure,
     make_deciles, make_serving, compile_pdf, checkpoint_dir, guard, audit_dir,
     make_specgrid, specgrid_cells, specgrid_sink, make_bootstrap,
-    bootstrap_replicates,
+    bootstrap_replicates, make_backtest, backtest_schemes, backtest_route,
+    backtest_quantiles, backtest_sink,
 ) -> PipelineResult:
     """``run_pipeline``'s body, entered with the sentinel switch already
     pinned to ``guard`` for the whole run."""
@@ -686,6 +719,25 @@ def _run_pipeline_guarded(
                     audit,
                 )
 
+    backtest_table = None
+    if make_backtest:
+        with timer.stage("backtest"):
+            # the rolling-origin sweep on the banked Gram stats: the panel is
+            # contracted once and every cell answers from the bank; knobs
+            # resolve argument > FMRP_BACKTEST_* env > default
+            backtest_table = frame_stage(
+                "backtest",
+                lambda: run_backtest_scenarios(
+                    panel, masks, factors_dict, schemes=backtest_schemes,
+                    route=backtest_route, n_quantiles=backtest_quantiles,
+                    sink=backtest_sink, output_dir=output_dir, device=device))
+            if guard and resolve_backtest_sink_name(backtest_sink) == "frame":
+                # the other sinks emit their own schema: the backtest frame
+                # contract is the full frame's
+                backtest_table = _contracts.screen_artifact(
+                    "backtest", backtest_table,
+                    _contracts.backtest_rules(blocking="quarantine"), audit)
+
     bootstrap_table = None
     if make_bootstrap:
         with timer.stage("bootstrap_table"):
@@ -707,6 +759,8 @@ def _run_pipeline_guarded(
             if specgrid_scenarios is not None:
                 specgrid_scenarios.to_csv(Path(output_dir) / "specgrid_scenarios.csv",
                                           index=False)
+            if backtest_table is not None:
+                backtest_table.to_csv(Path(output_dir) / "backtest.csv", index=False)
             if bootstrap_table is not None:
                 save_bootstrap_table(bootstrap_table, output_dir)
             tex = create_latex_document(output_dir)
@@ -742,6 +796,8 @@ def _run_pipeline_guarded(
                 sentinel.check("decile_table", summarize_frame(decile_table))
             if specgrid_scenarios is not None:
                 sentinel.check("specgrid_scenarios", summarize_frame(specgrid_scenarios))
+            if backtest_table is not None:
+                sentinel.check("backtest", summarize_frame(backtest_table))
             if serving_state is not None:
                 sentinel.check("serving_state", summarize_arrays({
                     "coef": serving_state.coef,
@@ -760,7 +816,7 @@ def _run_pipeline_guarded(
         figure_1=figure_1, decile_table=decile_table,
         serving_state=serving_state, stage_seconds=dict(timer.durations),
         timer=timer, audit=audit, specgrid_scenarios=specgrid_scenarios,
-        bootstrap_table=bootstrap_table,
+        bootstrap_table=bootstrap_table, backtest_table=backtest_table,
     )
 
 
@@ -813,6 +869,34 @@ def _main(argv=None) -> None:
         "--bootstrap", type=int, default=0, metavar="B",
         help="also build the bootstrap-SE table with B replicates",
     )
+    parser.add_argument(
+        "--backtest", action="store_true",
+        help="also run the rolling-origin backtest sweep on the Gram bank (scheme × "
+             "model × universe × weighting: OOS R², IC, quantile-portfolio spreads, "
+             "turnover) and save backtest.csv",
+    )
+    parser.add_argument(
+        "--backtest-schemes", default=None, metavar="LIST",
+        help="comma list of estimation-path schemes, e.g. 'expanding,rolling120' "
+             "(default follows FMRP_BACKTEST_SCHEMES)",
+    )
+    parser.add_argument(
+        "--backtest-route", default=None, choices=list(BACKTEST_ROUTES),
+        help="coefficient-path route: prefix-sum scan (auto/scan) or the per-origin "
+             "full-refit differential oracle (default follows FMRP_BACKTEST_ROUTE)",
+    )
+    parser.add_argument(
+        "--backtest-quantiles", type=int, default=None, metavar="D",
+        help="portfolio sort buckets, >= 2 (default follows FMRP_BACKTEST_QUANTILES, "
+             "normally 10)",
+    )
+    parser.add_argument(
+        "--backtest-sink", default=None, choices=list(BACKTEST_SINK_NAMES),
+        help="backtest streaming sink: full per-cell frame (default), "
+             "top-k-by-|spread_tstat| leaderboard, running moments, parquet part "
+             "spill, or the per-(scheme, weighting) metrics aggregate (default "
+             "follows FMRP_BACKTEST_SINK)",
+    )
     parser.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                         help="compute device (default cuda; raises without a "
                              "GPU); takes the place of the reference's --backend")
@@ -838,6 +922,14 @@ def _main(argv=None) -> None:
         specgrid_sink=args.specgrid_sink,
         make_bootstrap=args.bootstrap > 0,
         bootstrap_replicates=args.bootstrap or 10_000,
+        make_backtest=(args.backtest or args.backtest_schemes is not None
+                       or args.backtest_route is not None
+                       or args.backtest_quantiles is not None
+                       or args.backtest_sink is not None),
+        backtest_schemes=args.backtest_schemes,
+        backtest_route=args.backtest_route,
+        backtest_quantiles=args.backtest_quantiles,
+        backtest_sink=args.backtest_sink,
     )
     print(result.table_1.round(3).to_string())
     print()
@@ -845,6 +937,9 @@ def _main(argv=None) -> None:
     print()
     if result.specgrid_scenarios is not None:
         print(f"spec-grid scenarios: {len(result.specgrid_scenarios)} rows")
+        print()
+    if result.backtest_table is not None:
+        print(f"backtest: {len(result.backtest_table)} rows")
         print()
     print(result.timer.report())
 

@@ -13,11 +13,15 @@
 - ``coreset``   — the sampled-and-reweighted approximation route.
 - ``boot``      — month-resampled FM aggregation for bootstrap draws.
 - ``scenarios`` — the robustness sweep (subperiods, universes, winsor
-  levels, NW weights, bootstrap draws) → one tidy frame.
-- ``estimators`` — the estimator value type (OLS runs; ROADMAP A5).
+  levels, NW weights, bootstrap draws) → one tidy frame, and its banked
+  twin.
+- ``grambank``  — the in-memory Gram bank: per-month stats of one panel
+  answering window, bootstrap and scenario queries without the panel.
+- ``estimators`` — the estimator value type and the FWL transform (the
+  sweep runs OLS; the rest is ROADMAP A5).
 
-Not ported yet: the Gram bank (ROADMAP A4) and the mesh and multi-process
-grids (ROADMAP A8).
+Not ported yet: the bank's persistence (ROADMAP A7) and the mesh and
+multi-process grids (ROADMAP A8).
 """
 
 from fm_returnprediction_tpu_torch.specgrid.cellspace import (
@@ -37,13 +41,23 @@ from fm_returnprediction_tpu_torch.specgrid.estimators import (
     parse_estimator,
     resolve_estimator,
 )
+from fm_returnprediction_tpu_torch.specgrid.grambank import (
+    GramBank,
+    bootstrap_query,
+    build_bank,
+    ingest_month,
+    scenario_query,
+    window_query,
+)
 from fm_returnprediction_tpu_torch.specgrid.grams import (
     SpecGramStats,
     auto_firm_chunk,
     contract_spec_grams,
 )
 from fm_returnprediction_tpu_torch.specgrid.scenarios import (
+    bank_for_scenarios,
     run_scenarios,
+    run_scenarios_banked,
     scenario_grid,
     subperiod_windows,
     winsor_variant,
@@ -79,6 +93,7 @@ __all__ = [
     "EST_OLS",
     "Estimator",
     "FrameSink",
+    "GramBank",
     "ParquetSink",
     "Sink",
     "Spec",
@@ -88,10 +103,14 @@ __all__ = [
     "SummarySink",
     "TopKSink",
     "auto_firm_chunk",
+    "bank_for_scenarios",
     "block_bootstrap_months",
+    "bootstrap_query",
+    "build_bank",
     "contract_spec_grams",
     "coreset_plan",
     "figure1_grid",
+    "ingest_month",
     "parse_estimator",
     "product_grid",
     "resolve_estimator",
@@ -99,12 +118,15 @@ __all__ = [
     "resolve_sink",
     "run_cellspace",
     "run_scenarios",
+    "run_scenarios_banked",
     "run_spec_grid",
     "run_spec_grid_weights",
     "scenario_grid",
+    "scenario_query",
     "scenario_space",
     "solve_spec_stats",
     "subperiod_windows",
     "table2_grid",
+    "window_query",
     "winsor_variant",
 ]

@@ -5,9 +5,12 @@ Frisch-Waugh-Lovell partialling-out, ``"absorb"`` absorbed fixed effects,
 ``"iv"`` two-stage least squares, ``"pooled"`` pooled OLS) with its columns
 and SE family; ``EST_OLS`` is the incumbent every ``CellSpace`` carries.
 ``parse_estimator`` reads the command-line grammar and
-``resolve_estimator`` the ``FMRP_SPECGRID_ESTIMATOR`` knob. Only OLS with
-the Newey-West tail runs in the port: the tile engine refuses the other
-kinds until their transforms are ported (ROADMAP A5).
+``resolve_estimator`` the ``FMRP_SPECGRID_ESTIMATOR`` knob.
+``masked_psd_solve`` solves the selected block of batched PSD systems with
+the grid solve's numerics; the FWL transform (``estimators.fwl``) is built
+on it and runs in the backtest. The tile engine runs OLS with the
+Newey-West tail only: it refuses the other kinds until their transforms
+are ported (ROADMAP A5).
 """
 
 from __future__ import annotations
@@ -15,6 +18,10 @@ from __future__ import annotations
 import dataclasses
 import os
 from typing import Optional, Tuple
+
+import torch
+
+from fm_returnprediction_tpu_torch.specgrid.solve import _eigh
 
 __all__ = [
     "ESTIMATOR_KINDS",
@@ -24,6 +31,7 @@ __all__ = [
     "EST_OLS",
     "parse_estimator",
     "resolve_estimator",
+    "masked_psd_solve",
 ]
 
 ESTIMATOR_KINDS = ("ols", "fwl", "absorb", "iv", "pooled")
@@ -180,3 +188,43 @@ def resolve_estimator(
             "dimension of the spec-grid engine, not the parity reporting paths"
         )
     return estimator
+
+
+def masked_psd_solve(gram: torch.Tensor, mask: torch.Tensor, rhs: torch.Tensor,
+                     data_eps: float):
+    """Solve the SELECTED block of a batched PSD system with the grid
+    solve's numerics: identity-pad the unselected rows/columns,
+    Jacobi-equilibrate, eigendecompose (``solve._eigh``, in slices cuSOLVER
+    takes), and apply a pinv-style eigenvalue cutoff at ``q·eps·λmax``.
+
+    ``gram`` (..., Q, Q), ``mask`` (..., Q) bool (the block to invert),
+    ``rhs`` (..., Q, R) with rows outside ``mask`` ignored. Returns
+    ``(x, deficient)``: ``x`` (..., Q, R) is zero outside the masked rows,
+    ``deficient`` (...) flags systems whose masked block lost rank at the
+    cutoff. A system with a non-finite entry decomposes the identity in its
+    place and gets NaN eigenpairs, as in ``solve.solve_spec_stats`` (torch's
+    eigh raises on such input where the reference's returns NaN): its
+    ``x`` is NaN and it is deficient."""
+    dtype = gram.dtype
+    q = gram.shape[-1]
+    eps = float(data_eps)
+    eye = torch.eye(q, dtype=dtype, device=gram.device)
+    m2 = mask[..., :, None] & mask[..., None, :]
+    a = torch.where(m2, gram, eye)
+    dg = torch.diagonal(a, dim1=-2, dim2=-1)
+    scale = torch.where(dg > 0, torch.rsqrt(torch.clamp_min(dg, eps)), torch.ones_like(dg))
+    a_s = a * scale[..., :, None] * scale[..., None, :]
+    broken = ~torch.isfinite(a_s).all(dim=-1).all(dim=-1)
+    w, v = _eigh(torch.where(broken[..., None, None], eye, a_s))
+    w = torch.where(broken[..., None], float("nan"), w)
+    v = torch.where(broken[..., None, None], float("nan"), v)
+    cutoff = q * eps * w[..., -1]
+    keep = w > cutoff[..., None]
+    winv = torch.where(keep, 1.0 / torch.clamp_min(w, eps), torch.zeros_like(w))
+    r = torch.where(mask[..., :, None], rhs, torch.zeros_like(rhs)) * scale[..., :, None]
+    t1 = torch.einsum("...qk,...qr->...kr", v, r)
+    x = scale[..., :, None] * torch.einsum("...qk,...kr->...qr", v, t1 * winv[..., :, None])
+    x = torch.where(mask[..., :, None], x, torch.zeros_like(x))
+    q_m = mask.sum(-1)
+    rank = keep.sum(-1) - (q - q_m)
+    return x, rank < q_m

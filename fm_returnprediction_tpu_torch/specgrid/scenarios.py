@@ -16,7 +16,9 @@ approximation; levels looser than the base are not recoverable and are
 rejected. The re-clip runs through the batched (V, T, N) winsorizer
 (``ops.quantiles.winsorize_cs_batched``).
 
-The Gram bank's banked scenario queries are not ported yet (ROADMAP A4).
+``bank_for_scenarios`` contracts the sweep's panel ONCE into an in-memory
+Gram bank (``specgrid.grambank``) and ``run_scenarios_banked`` answers
+window and bootstrap scenarios from it without reading the panel again.
 """
 
 from __future__ import annotations
@@ -36,6 +38,8 @@ __all__ = [
     "winsor_variant",
     "scenario_grid",
     "run_scenarios",
+    "bank_for_scenarios",
+    "run_scenarios_banked",
 ]
 
 
@@ -178,3 +182,66 @@ def run_scenarios(
     if return_stats:
         return frame, stats
     return frame
+
+
+def bank_for_scenarios(
+    panel,
+    subset_masks: Dict[str, object],
+    variables_dict: Dict[str, str],
+    models=None,
+    universes: Optional[Sequence[str]] = None,
+    subperiods: int = 2,
+    nw_lags: int = 4,
+    min_months: int = 10,
+    return_col: str = "retx",
+    fingerprint: str = "scenarios",
+    precision: Optional[str] = None,
+    device=None,
+):
+    """Contract the scenario sweep's panel ONCE into a month-addressed
+    :class:`~fm_returnprediction_tpu_torch.specgrid.grambank.GramBank` on
+    ``device`` (``None`` → the GPU): one unwindowed per-month Gram per
+    (model, universe) pair, from which ``run_scenarios_banked`` answers
+    window and bootstrap scenarios in O(T·Q²) without re-reading the (T, N,
+    P) panel. Month labels are INDEX positions (0..T-1), matching
+    ``subperiod_windows``'s half-open ranges."""
+    from fm_returnprediction_tpu_torch.models.lewellen import MODELS
+    from fm_returnprediction_tpu_torch.specgrid.cellspace import scenario_space
+    from fm_returnprediction_tpu_torch.specgrid.grambank import build_bank
+
+    models = models if models is not None else MODELS
+    universes = list(universes) if universes is not None else list(subset_masks)
+    t = len(panel.months)
+    space = scenario_space(variables_dict, universes, t, models=models,
+                           subperiods=subperiods, nw_lags=nw_lags, min_months=min_months)
+    return build_bank(
+        panel.var(return_col), panel.select(list(space.union_predictors)),
+        {n: subset_masks[n] for n in universes}, space, fingerprint=fingerprint,
+        precision=precision, device=device)
+
+
+def run_scenarios_banked(
+    bank,
+    windows: Optional[Dict[str, object]] = None,
+    bootstrap: int = 1,
+    seed: int = 0,
+    weights: Sequence[str] = ("reference",),
+    variables_dict: Optional[Dict[str, str]] = None,
+    estimator=None,
+    device=None,
+):
+    """The scenarios path over BANKED stats: a tidy frame in the
+    ``run_scenarios`` row schema, answered from the bank's month-axis Grams
+    on ``device`` — a new subperiod split or bootstrap depth costs O(T·Q²)
+    per pair and no panel read. ``windows`` defaults to the full sample;
+    pass ``subperiod_windows(bank.n_months, pieces)`` for fresh splits. No
+    QR referee runs here: ``refereed`` is always False and
+    ``suspect_months`` carries the disclosure. ``estimator`` raises until
+    the bank's estimator queries are ported (ROADMAP §A item 5)."""
+    from fm_returnprediction_tpu_torch.specgrid.grambank import scenario_query
+
+    label_of = ({col: label for label, col in variables_dict.items()}
+                if variables_dict else None)
+    return scenario_query(bank, windows=windows, bootstrap=bootstrap, seed=seed,
+                          weights=weights, label_of=label_of, estimator=estimator,
+                          device=device)

@@ -9,10 +9,11 @@ Enriched panel values agree at rtol 1e-10 with identical NaN patterns, the
 masks exactly, Table 2's per-cell numbers at rtol 1e-8, and the formatted
 frames are equal. The JAX warm path's later stages (``build_table_1``, the
 ``subset_sweep``, Figure 1's ``rolling_slopes``, ``build_decile_table``,
-``build_serving_state_from_panel``, the scenario sweep ``run_scenarios``)
-run on the same JAX panel: Table 1 at rtol 1e-10 with N exact, the figure
-frames, decile table, serving state and scenario frame at rtol 1e-8 with
-counts, labels and flags exact.
+``build_serving_state_from_panel``, the scenario sweep ``run_scenarios``,
+the backtest ``run_backtest_scenarios``) run on the same JAX panel: Table 1
+at rtol 1e-10 with N exact, the figure frames, decile table, serving state,
+scenario frame and backtest frame at rtol 1e-8 with counts, labels and
+flags exact.
 """
 
 import os
@@ -27,6 +28,7 @@ import numpy as np
 import pytest
 import torch
 
+from fm_returnprediction_tpu.backtest import run_backtest_scenarios
 from fm_returnprediction_tpu.data.synthetic import SyntheticConfig, generate_synthetic_wrds
 from fm_returnprediction_tpu.models.lewellen import MODELS
 from fm_returnprediction_tpu.panel.subsets import compute_subset_masks
@@ -230,6 +232,29 @@ def test_specgrid_scenarios_match(jax_run):
         assert got["cell"].nunique() == (27 if cells is None else 108)
 
 
+def test_backtest_table_matches(jax_run):
+    """``run_pipeline(make_backtest=True)`` against the JAX package's
+    backtest stage on the JAX panel: 2 schemes × 3 models × 3 universes ×
+    EW/VW, one row per cell."""
+    base, daily = prepared_from_numpy(jax_run["base"], jax_run["daily"])
+    kw = dict(backtest_schemes="expanding,rolling60", backtest_quantiles=5)
+    res = run_pipeline(base, daily, device="cpu", dtype=torch.float64, make_figure=False,
+                       make_deciles=False, make_serving=False, make_backtest=True, **kw)
+    want = run_backtest_scenarios(jax_run["panel"], jax_run["masks"], jax_run["factors"],
+                                  schemes=kw["backtest_schemes"], n_quantiles=5)
+    got = res.backtest_table
+    assert "backtest" in res.stage_seconds and res.audit.ok()
+    assert list(got.columns) == list(want.columns) and len(got) == len(want) == 36
+    for c in want.columns:
+        g, w = got[c].to_numpy(), want[c].to_numpy()
+        if want[c].dtype.kind == "f":
+            np.testing.assert_array_equal(np.isnan(g), np.isnan(w), err_msg=c)
+            np.testing.assert_allclose(g, w, rtol=1e-8, atol=1e-13, equal_nan=True, err_msg=c)
+        else:
+            np.testing.assert_array_equal(g, w, err_msg=c)
+    assert np.isfinite(got["spread"].to_numpy(float)).any()
+
+
 def test_artifacts_without_matplotlib(jax_run, tmp_path, monkeypatch):
     """Where matplotlib does not import, a run that draws the figure into
     ``output_dir`` raises ImportError, as the reference's does; with
@@ -269,8 +294,9 @@ def test_port_runs_with_jax_blocked(tmp_path):
     (the slot is written) and warm (the slot is mapped), with stage
     checkpoints, the spec-grid scenario sweep, in process and through
     the command line, the bootstrap-SE table in process and through the
-    command line, the stacked-QR route through ``FMRP_SPECGRID_ROUTE``, and
-    one serving-state month ingest."""
+    command line, the stacked-QR route through ``FMRP_SPECGRID_ROUTE``, one
+    serving-state month ingest, and the rolling-origin backtest in process
+    and through the command line (``backtest.csv`` written)."""
     code = textwrap.dedent("""
         import runpy
         import sys
@@ -365,6 +391,18 @@ def test_port_runs_with_jax_blocked(tmp_path):
                              np.ones(5, bool), state.months[-1] + np.timedelta64(31, "D"),
                              device="cpu")
         assert grown.n_months == state.n_months + 1, grown.n_months
+
+        res = run_pipeline(base, daily, device="cpu", dtype=torch.float64,
+                           make_figure=False, make_backtest=True,
+                           backtest_schemes="expanding,rolling24")
+        assert res.backtest_table.shape[0] == 36 and "backtest" in res.stage_seconds
+        assert not res.audit.quarantined, res.audit.report()
+        sys.argv = ["pipeline", "--synthetic", "--firms", "60", "--months", "72",
+                    "--device", "cpu", "--backtest", "--backtest-sink", "metrics",
+                    "--output-dir", tmp + "/out_bt"]
+        runpy.run_module("fm_returnprediction_tpu_torch.pipeline", run_name="__main__")
+        metrics = pd.read_csv(tmp + "/out_bt/backtest.csv")
+        assert len(metrics) == 4 and "spread_tstat_mean" in metrics.columns, metrics.shape
         loaded = [m for m in sys.modules
                   if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
         assert not loaded, loaded
@@ -411,7 +449,10 @@ def test_port_never_names_jax_or_the_jax_package(pattern):
             "ops/ols.py", "ops/fama_macbeth.py", "models/forecast.py", "serving/state.py",
             "serving/ingest.py", "reporting/fusion.py", "reporting/table2.py",
             "reporting/figure1.py", "reporting/bootstrap_table.py", "parallel/__init__.py",
-            "parallel/bootstrap.py"} <= names
+            "parallel/bootstrap.py", "specgrid/grambank.py", "specgrid/estimators/fwl.py",
+            "backtest/__init__.py", "backtest/paths.py", "backtest/evaluate.py",
+            "backtest/portfolio.py", "backtest/space.py", "backtest/sinks.py",
+            "backtest/sweep.py"} <= names
     hits = [str(f.relative_to(REPO)) for f in files
             if re.search(pattern, f.read_text())]
     assert not hits, hits
