@@ -21,8 +21,9 @@ Phases (any failure exits non-zero without the final line):
    exact counts), bfloat16 operands on the tensor cores (float32 sums, at
    Table 2's and the figure grid's shapes, with and without row weights:
    exact counts, two calls bit-identical, and the whole bf16
-   ``contract_spec_grams`` call from float32 inputs timed) and a 117-spec
-   batch cut into two launches;
+   ``contract_spec_grams`` call from float32 inputs timed), a 117-spec
+   batch cut into two launches, and the estimator family's shapes (27 specs
+   in one launch, with and without row weights; Table 2's in float64);
 4. the main path at real size — 600 months, 22,000 firms, ~77M daily rows
    built from ``--seed`` by ``data.smoke_inputs`` — through
    ``run_pipeline(device="cuda", dtype=torch.float32)`` and all of its
@@ -68,6 +69,20 @@ Phases (any failure exits non-zero without the final line):
    the same bits), the bank alone (K2 once) and ``run_backtest`` over it
    with the counters at 0 (K2 never, ``panel_contractions`` 0), and the
    refit oracle's time beside the scan's;
+5f. the estimator family at real size: ``run_pipeline(make_specgrid=True,
+   make_backtest=True, specgrid_estimator="fwl:log_size")`` guarded (the
+   sweep and the backtest under FWL, the control never reported), then on
+   the resident panel ``run_scenarios`` under IV, one- and two-way absorbed
+   fixed effects (seeded 12- and 10-level codes), pooled OLS with two-way
+   clustered SEs, FWL with the clustered FM tail, FWL in bf16, and absorb on
+   the coreset route; the pooled run again on a float64 copy of the panel
+   (the float32 gap logged); each run's wall, peak memory above the panel
+   and launches (pinned, ``ESTIMATOR_LAUNCHES``); the FE cell contraction
+   twice (bit-identical); the Gram bank's ``estimator_query`` under
+   ``ols@iid``, FWL, IV and ``pooled:cluster_month`` with K2 0 and no panel
+   contraction after the bank, absorb refused, ``scenario_query`` under FWL,
+   and a ``StreamingBootstrap`` of 1,000 draws over the bank's slopes in
+   chunks, equal to two merged halves;
 6. K1 std at every daily-strip shape the main path launched it at (read
    from its counters), checked and timed, with the sum of launches × time;
 7. the same path at a mid size in float64 on the card and on the CPU (plain
@@ -83,7 +98,10 @@ Phases (any failure exits non-zero without the final line):
    ``SUSPECT_TOL`` on the others, placed by two CPU witnesses; bucket flips
    counted), the bank's ``bootstrap_query`` (200 draws), and on the card
    the scan route against the refit oracle (expanding and rolling120, OLS
-   and FWL) at 1e-13 of ``max(|path|, 1)``;
+   and FWL) at 1e-13 of ``max(|path|, 1)``; each estimator kind's sweep
+   (FWL, IV, absorb one- and two-way, pooled two-way, FWL@cluster, absorb
+   on the coreset route) at 1e-8, cells with a suspect month at
+   ``SUSPECT_TOL`` between two CPU witnesses, integer disclosures exact;
 8. the raw-frame route (a 250-firm × 130-month synthetic universe, float64)
    on the card and on the CPU: the enriched panel at rtol 1e-10, the tables
    as in phase 7, the audit records equal;
@@ -93,8 +111,10 @@ Phases (any failure exits non-zero without the final line):
    ``--output-dir`` when matplotlib or jinja2 does not import, said so);
    then ``--bootstrap 200`` (the ``bootstrap_table`` stage, and
    ``bootstrap_se.pkl``/``.tex`` written, by ``run_pipeline(make_figure=False)``
-   where matplotlib does not import), and ``--backtest --backtest-sink
-   metrics`` (the ``backtest`` stage, K2 3; ``backtest.csv`` written);
+   where matplotlib does not import), ``--backtest --backtest-sink
+   metrics`` (the ``backtest`` stage, K2 3; ``backtest.csv`` written), and
+   ``--specgrid --specgrid-estimator iv:…`` (exit 0, K2 3) and
+   ``--specgrid-estimator absorb:ind`` (exits non-zero, as the reference);
 10. a raw directory of 1,000 firms × 240 months (``write_synthetic_cache``)
    through the command line three times: cold (the columnar route ran and
    wrote the slot, no fallback warning), warm (the slot was mapped,
@@ -190,6 +210,7 @@ from fm_returnprediction_tpu_torch.specgrid.grams import (
 )
 from fm_returnprediction_tpu_torch.specgrid import grambank
 from fm_returnprediction_tpu_torch.specgrid.cellspace import scenario_space
+from fm_returnprediction_tpu_torch.specgrid.estimators import parse_estimator
 from fm_returnprediction_tpu_torch.specgrid.scenarios import bank_for_scenarios, run_scenarios
 from fm_returnprediction_tpu_torch.utils.timing import StageTimer
 
@@ -557,12 +578,19 @@ def check_gram(t, n, p, dtype, rel, gen, timed, figure=False, weights=None,
 # 12-subperiod sweep with the factorization off contracts 117 specs, cut into
 # two launches of at most 60 (gram_spec_chunk(14)).
 SPLIT_SPECS = 117
-# which real-size run launches each scenario-sweep K2 shape (specgrid_phase)
-ROW_PATH = {"gram/P=14,S=9,bf16": ("bf16",), "gram/P=5,S=3,bf16": ("bf16",),
+# which real-size runs launch each K2 shape beyond the main path's: the
+# scenario sweep's (specgrid_phase), the backtest's and the estimator
+# family's (estimators_phase: absorb contracts per spec, 27 at a time; the
+# pooled run on the float64 panel)
+ROW_PATH = {"gram/P=14,S=9,bf16": ("bf16", "estimators"), "gram/P=5,S=3,bf16": ("bf16",),
             "gram/P=14,S=9,f32,rw": ("coreset",), "gram/P=14,S=9,bf16,rw": ("coreset_bf16",),
             f"gram/P=14,S={SPLIT_SPECS},f32": ("split",),
-            # Table 2's shape is the backtest bank's too (backtest_phase)
-            "gram/P=14,S=9,f32": ("main", "backtest")}
+            "gram/P=14,S=9,f32": ("main", "backtest", "estimators"),
+            "gram/P=14,S=27,f32": ("estimators",), "gram/P=14,S=27,f32,rw": ("estimators",),
+            "gram/P=14,S=9,f64": ("estimators",)}
+# the absorb kind's per-spec contraction (27 specs: 3 models × 3 universes ×
+# 3 windows)
+ABSORB_SPECS = 27
 
 
 def k2_phase(gen, timed: bool):
@@ -573,7 +601,11 @@ def k2_phase(gen, timed: bool):
             check_gram(600, 22000, 5, torch.float32, 1e-5, gen, timed, figure=True, low=True),
             check_gram(600, 22000, 14, torch.float32, 1e-5, gen, timed, weights="coreset",
                        low=True),
-            check_gram(600, 22000, 14, torch.float32, 1e-5, gen, timed, specs=SPLIT_SPECS)]
+            check_gram(600, 22000, 14, torch.float32, 1e-5, gen, timed, specs=SPLIT_SPECS),
+            check_gram(600, 22000, 14, torch.float32, 1e-5, gen, timed, specs=ABSORB_SPECS),
+            check_gram(600, 22000, 14, torch.float32, 1e-5, gen, timed, specs=ABSORB_SPECS,
+                       weights="coreset"),
+            check_gram(600, 22000, 14, torch.float64, 1e-12, gen, timed)]
     check_gram(600, 22000, 5, torch.float32, 1e-5, gen, False, figure=True, weights="coreset",
                low=True)
     check_gram(600, 3000, 5, torch.float32, 1e-5, gen, False, figure=True, weights="binary",
@@ -1171,6 +1203,7 @@ def card_vs_cpu(seed: int) -> None:
     _boot_vs_cpu(gpu, cpu)
     _scenarios_vs_cpu(gpu)
     _backtest_vs_cpu(gpu)
+    _estimators_vs_cpu(gpu)
 
 
 SCENARIO_FLOATS = {"coef", "tstat", "nw_se", "mean_r2", "mean_n", "coreset_rate"}
@@ -1993,6 +2026,425 @@ def backtest_cli_phase() -> None:
               f"backtest.csv shape {frame.shape}")
 
 
+# --- the estimator family ---------------------------------------------------
+
+# FWL partials a column of every Table 2 model out ("Log Size (-1)"); the
+# absorb kind's fixed-effect codes are seeded as the JAX bench makes them
+# (bench.py: default_rng(2016).integers(0, 12, (T, N))), the second factor
+# of the two-way kind with 10 levels from the next seed.
+EST_CONTROL = "log_size"
+FE_SEEDS = {"ind": (2016, 12), "size": (2017, 10)}
+# Launches of each real-size estimator run, the counters at 0 just before
+# and read just after. The pipeline run: the main path's K1 17 and K2 2,
+# the FWL sweep's 9 (universe, col_sel) pairs in one launch and the
+# backtest bank's one. fwl/iv/pooled sweeps contract their 9 pairs at
+# Table 2's shape; absorb contracts per spec (27: its FE cells are per
+# spec), in one launch; the bank built alone launches once, its queries
+# never.
+EST_T2 = {"P=14,S=9,f32": 1}
+EST_SPECS = {"P=14,S=27,f32": 1}
+ESTIMATOR_LAUNCHES = {
+    "pipeline": ({"k1": 17, "k2": 4, "moments": 0}, {"P=14,S=9,f32": 3, "P=5,S=3,f32": 1}),
+    "iv": ({"k1": 0, "k2": 1, "moments": 0}, EST_T2),
+    "absorb": ({"k1": 0, "k2": 1, "moments": 0}, EST_SPECS),
+    "absorb2": ({"k1": 0, "k2": 1, "moments": 0}, EST_SPECS),
+    "pooled": ({"k1": 0, "k2": 1, "moments": 0}, EST_T2),
+    "fwl_cluster": ({"k1": 0, "k2": 1, "moments": 0}, EST_T2),
+    "fwl_bf16": ({"k1": 0, "k2": 1, "moments": 0}, {"P=14,S=9,bf16": 1}),
+    "absorb_coreset": ({"k1": 0, "k2": 1, "moments": 0}, {"P=14,S=27,f32,rw": 1}),
+    "pooled_f64": ({"k1": 0, "k2": 1, "moments": 0}, {"P=14,S=9,f64": 1}),
+    "bank": ({"k1": 0, "k2": 1, "moments": 0}, EST_T2),
+    "bank_queries": ({"k1": 0, "k2": 0, "moments": 0}, {}),
+}
+EST_COLUMNS = ("estimator", "se_family", "suspect_months")
+ABSORB_COLUMNS = EST_COLUMNS + ("absorb_iters", "absorb_converged")
+STREAM_DRAWS = 1000
+
+
+def fe_codes(t: int, n: int) -> dict:
+    return {name: np.random.default_rng(seed).integers(0, levels, (t, n))
+            for name, (seed, levels) in FE_SEEDS.items()}
+
+
+def estimator_specs(factors) -> dict:
+    """The estimator cells every estimator run uses, from Table 2's
+    columns: FWL on ``EST_CONTROL``; IV of Model 1's B/M column on a Model 3
+    column no other model carries (Models 1 and 2 are identified by it;
+    in Model 3 it is a structural column too, so those cells are
+    rank-deficient and disclose it, as in the reference); the bank's IV on
+    Model 1's momentum column (a bank reads instruments out of every pair's
+    columns, so the instrument must be banked in every pair)."""
+    cols = [model_columns(m, factors) for m in MODELS]
+    check(EST_CONTROL == cols[0][0], f"Table 2's first column is {cols[0][0]}")
+    only3 = [c for c in cols[2] if c not in cols[1]]
+    return {"fwl": f"fwl:{EST_CONTROL}", "iv": f"iv:{cols[0][1]}~{only3[-1]}",
+            "bank_iv": f"iv:{cols[0][1]}~{cols[0][2]}"}
+
+
+def _estimator_run(name: str, panel, masks, factors, spec: str, extra, **kw):
+    """One real-size ``run_scenarios(estimators=(spec,))`` with the launch
+    counters at 0 just before and read just after: its wall, peak device
+    memory above what was resident, launches (pinned), frame checks."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    reset_counts()
+    (frame, stats), wall = _timed(lambda: run_scenarios(
+        panel, masks, factors, estimators=(spec,), return_stats=True, **kw))
+    counts = launch_counts()
+    peak = (torch.cuda.max_memory_allocated() - before) / 2**30
+    sus = frame.groupby("cell")["suspect_months"].first()
+    log(f"estimators {name} ({spec}{', ' + json.dumps(kw, default=str) if kw else ''}): "
+        f"wall {wall:.3f} s, peak above the resident panel {peak:.3f} GiB; cells with a "
+        f"suspect month {int((sus > 0).sum())} of {len(sus)} (months per cell max "
+        f"{int(sus.max())}); contractions " + json.dumps(
+            {k: stats[k] for k in ("specs_solved", "specs_contracted", "pairs_unique")}))
+    check_scenario_frame(frame, f"estimators {name}", SPECGRID_CELLS, extra=extra)
+    check(set(frame["estimator"]) == {parse_estimator(spec).label},
+          f"estimators {name}: labels {set(frame['estimator'])}")
+    _k2_pinned(f"estimators {name}", counts, ESTIMATOR_LAUNCHES[name])
+    return frame, counts, wall, peak
+
+
+def _add_counts(total: dict, counts: dict) -> None:
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+
+
+def _held_gap(got: pd.DataFrame, want: pd.DataFrame) -> dict:
+    """Per model: (coef gap at max(|b|, se), se gap relative) of two frames
+    of the same cells."""
+    check(np.array_equal(np.isfinite(got["coef"].to_numpy(float)),
+                         np.isfinite(want["coef"].to_numpy(float))),
+          "f32 vs f64: NaN pattern differs")
+    out = {}
+    for model in want["model"].unique():
+        rows = (want["model"] == model).to_numpy()
+        b, bw = got["coef"].to_numpy(float)[rows], want["coef"].to_numpy(float)[rows]
+        s, sw = got["nw_se"].to_numpy(float)[rows], want["nw_se"].to_numpy(float)[rows]
+        fin = np.isfinite(bw) & np.isfinite(sw)
+        coef = np.abs(b[fin] - bw[fin]) / np.maximum(np.fmax(np.abs(bw[fin]), sw[fin]), 1e-300)
+        se = np.abs(s[fin] - sw[fin]) / np.maximum(np.abs(sw[fin]), 1e-300)
+        out[model] = (float(coef.max()), float(se.max()))
+    return out
+
+
+def _pooled_conditions(panel, masks, factors, frame) -> tuple:
+    """Each pooled cell's condition number: the equilibrated, month-summed,
+    de-centered Gram of its (model, universe, window), from a float64 bank
+    on the CPU. Returns ``(rows of cells whose condition times eps(f64)
+    reaches a tenth of the 1e-8 pin, {cell key: condition})``. The pooled
+    kind discloses rank loss only (``suspect_months``: the pooled Gram
+    deficient at the cutoff), as the reference's does; its numbers move
+    with the order of its sums by about condition × eps without a flag
+    (Model 3's pooled Grams on the smoke panel: 2e7–1.3e8, the other
+    models' ~1e4)."""
+    from fm_returnprediction_tpu_torch.specgrid.estimators.cluster import decentered_stats
+    from fm_returnprediction_tpu_torch.specgrid.scenarios import subperiod_windows
+    from fm_returnprediction_tpu_torch.specgrid.solve import expand_window_stats
+
+    bank = bank_for_scenarios(panel, masks, factors, fingerprint="pooled", device="cpu")
+    stats = bank.stats("cpu")
+    k, t = bank.n_pairs, bank.n_months
+    sel = torch.as_tensor(np.concatenate([np.ones((k, 1), bool), bank.col_sel], axis=1))
+    months = np.arange(t)
+    cond = {}
+    for name, win in subperiod_windows(t, 2).items():
+        mask = np.ones(t, bool) if win is None else (months >= win[0]) & (months < win[1])
+        masked = expand_window_stats(stats, torch.arange(k),
+                                     torch.as_tensor(np.broadcast_to(mask, (k, t)).copy()))
+        g = decentered_stats(masked, sel)[0].sum(1)                    # (K, Q, Q)
+        g = torch.where(sel[:, :, None] & sel[:, None, :], g, torch.eye(g.shape[-1],
+                                                                         dtype=g.dtype))
+        d = torch.rsqrt(torch.diagonal(g, dim1=-2, dim2=-1).clamp_min(1e-300))
+        w = torch.linalg.eigvalsh(g * d[:, :, None] * d[:, None, :])
+        for j, (set_name, uni) in enumerate(bank.pair_labels):
+            cond[(set_name, uni, name)] = float(w[j, -1] / w[j, 0])
+    limit = 1e-9 / np.finfo(np.float64).eps
+    ill = np.array([cond[key] > limit for key in zip(frame["model"], frame["universe"],
+                                                     frame["window"])])
+    return ill, cond
+
+
+def estimators_phase(base, daily) -> dict:
+    """The estimator family at real size (600 × 22,000, f32): through
+    ``run_pipeline(specgrid_estimator="fwl:log_size", make_backtest=True)``
+    (the sweep and the backtest under FWL), then on the resident panel
+    ``run_scenarios`` under IV, one- and two-way absorbed FE, pooled
+    two-way clustered SEs, FWL with the clustered FM tail, FWL in bf16 and
+    absorb on the coreset route (row weights), and the pooled run again on
+    a float64 copy of the panel (the f32 gap logged); the FE cell
+    contraction twice (bit-identical); the Gram bank's estimator queries
+    (K2 0 after the bank, absorb refused), ``scenario_query`` under FWL and
+    a ``StreamingBootstrap`` of 1,000 draws over the bank's slopes, chunked
+    and merged. Each run's launches are pinned (``ESTIMATOR_LAUNCHES``);
+    returns their sum."""
+    from fm_returnprediction_tpu_torch.specgrid.estimators import StreamingBootstrap
+    from fm_returnprediction_tpu_torch.specgrid.estimators.absorb import contract_absorb_cells
+    from fm_returnprediction_tpu_torch.specgrid.scenarios import subperiod_windows
+    from fm_returnprediction_tpu_torch.specgrid.solve import contraction_counts
+
+    total: dict = {}
+    torch.cuda.reset_peak_memory_stats()
+    spec_fwl = f"fwl:{EST_CONTROL}"
+    res, wall, counts = counted_run(base, daily, make_specgrid=True, make_backtest=True,
+                                    specgrid_estimator=spec_fwl)
+    frame, bt = res.specgrid_scenarios, res.backtest_table
+    log(f"estimators pipeline (guarded, f32, specgrid_estimator={spec_fwl!r}, backtest): wall "
+        f"{wall:.3f} s, stages specgrid {res.stage_seconds['specgrid']:.4f} s, backtest "
+        f"{res.stage_seconds['backtest']:.4f} s, peak {torch.cuda.max_memory_allocated() / 2**30:.3f}"
+        f" GiB; audit " + res.audit.report().replace("\n", "; "))
+    check(not res.audit.violations and not res.audit.quarantined,
+          "estimator pipeline run: contract violations or quarantined artifacts")
+    check_scenario_frame(frame, "estimators pipeline (fwl)", SPECGRID_CELLS, extra=EST_COLUMNS)
+    control_label = {c: lab for lab, c in res.factors_dict.items()}[EST_CONTROL]
+    check(control_label not in set(frame["predictor"]),
+          "the partialled control was reported as a predictor")
+    check(bt is not None and len(bt) == BACKTEST_CELLS
+          and set(bt["estimator"]) == {parse_estimator(spec_fwl).label},
+          f"the backtest stage did not run under {spec_fwl}")
+    check(bool(np.isfinite(bt[BACKTEST_METRICS].to_numpy(float)).all()),
+          "estimator backtest: non-finite headline metrics")
+    _k2_pinned("estimators pipeline", counts, ESTIMATOR_LAUNCHES["pipeline"])
+    _add_counts(total, counts)
+    panel, masks, factors = res.panel, res.subset_masks, res.factors_dict
+    specs = estimator_specs(factors)
+    t, n = panel.values.shape[:2]
+    fe = fe_codes(t, n)
+    del res, frame, bt
+
+    runs = (("iv", specs["iv"], EST_COLUMNS, {}),
+            ("absorb", "absorb:ind", ABSORB_COLUMNS, dict(fe_codes=fe)),
+            ("absorb2", "absorb:ind+size", ABSORB_COLUMNS, dict(fe_codes=fe)),
+            ("pooled", "pooled:cluster_twoway", EST_COLUMNS, {}),
+            ("fwl_cluster", f"{spec_fwl}@cluster", EST_COLUMNS, {}),
+            ("fwl_bf16", spec_fwl, EST_COLUMNS + ("precision", "bf16_promoted_months"),
+             dict(precision="bf16")),
+            ("absorb_coreset", "absorb:ind", ABSORB_COLUMNS + ("route", "coreset_m",
+                                                               "coreset_rate"),
+             dict(fe_codes=fe, route="coreset")))
+    frames = {}
+    for name, spec, extra, kw in runs:
+        frames[name], counts, _, _ = _estimator_run(name, panel, masks, factors, spec, extra, **kw)
+        _add_counts(total, counts)
+        if name.startswith("absorb"):
+            per_cell = frames[name].groupby("cell")[["absorb_iters", "absorb_converged"]].first()
+            log(f"estimators {name}: absorb_iters min {int(per_cell['absorb_iters'].min())} max "
+                f"{int(per_cell['absorb_iters'].max())}, cells converged "
+                f"{int(per_cell['absorb_converged'].sum())} of {len(per_cell)} (tol 1e-10 at "
+                "the stats' float32)")
+            if name != "absorb2":
+                check(bool(per_cell["absorb_converged"].all())
+                      and int(per_cell["absorb_iters"].max()) == 1,
+                      f"{name}: one-way absorption is one exact sweep")
+
+    panel64 = dataclasses.replace(panel, values=panel.values.double())
+    wide, counts, _, _ = _estimator_run("pooled_f64", panel64, masks, factors,
+                                        "pooled:cluster_twoway", EST_COLUMNS)
+    _add_counts(total, counts)
+    del panel64
+    gaps = _held_gap(frames["pooled"], wide)
+    f32_def = frames["pooled"].groupby("model")["suspect_months"].max().to_dict()
+    log("pooled:cluster_twoway float32 vs the same run at float64 (real size), per model "
+        "(coef worst |d| / max(|b|, se), se worst relative; cells deficient in f32): "
+        + "; ".join(f"{m}: {c:.3e}, {e:.3e}, {f32_def[m]}" for m, (c, e) in gaps.items())
+        + " (logged: the f32 month sum of de-centered raw-basis Grams, solved in f32)")
+
+    bank_labels = {}
+    reset_counts()
+    bank, bank_s = _timed(lambda: bank_for_scenarios(panel, masks, factors,
+                                                     fingerprint="estimators", device="cuda"))
+    _k2_pinned("estimators bank", launch_counts(), ESTIMATOR_LAUNCHES["bank"])
+    _add_counts(total, launch_counts())
+    reset_counts()
+    before = contraction_counts()
+    served = {}
+    for spec in ("ols@iid", spec_fwl, specs["bank_iv"], "pooled:cluster_month"):
+        (served[spec], bank_labels[spec]), q_s = _timed(
+            lambda: grambank.estimator_query(bank, spec, device="cuda"))
+        res_q = served[spec]
+        sel = bank_labels[spec]["col_sel"]
+        finite = np.isfinite(res_q.coef[sel]).mean()
+        log(f"estimator_query({spec!r}) over the bank's {bank.n_pairs} pairs: {q_s * 1e3:.2f} ms, "
+            f"finite coef share {finite:.3f}, suspect months per pair "
+            f"{res_q.suspect_months.tolist()}")
+        check(finite >= 0.9, f"estimator_query {spec}: non-finite coefficients")
+    try:
+        grambank.estimator_query(bank, "absorb:ind", device="cuda")
+        check(False, "the bank served an absorb cell")
+    except ValueError as exc:
+        log(f"estimator_query('absorb:ind') raised ValueError as the reference does: {exc}")
+    swept, sweep_s = _timed(lambda: grambank.scenario_query(
+        bank, windows=subperiod_windows(bank.n_months, 2), estimator=spec_fwl, device="cuda"))
+    check(set(swept["estimator"]) == {parse_estimator(spec_fwl).label}
+          and np.isfinite(swept["coef"].to_numpy(float)).mean() >= 0.9,
+          "scenario_query under FWL: labels or coefficients")
+    fwl_q = served[spec_fwl]
+    series = (fwl_q.slopes.astype(np.float64), fwl_q.r2, fwl_q.n_obs, fwl_q.month_valid)
+    chunked, stream_s = _timed(lambda: StreamingBootstrap(*series, chunk=256, device="cuda")
+                               .extend(STREAM_DRAWS))
+    half = StreamingBootstrap(*series, chunk=STREAM_DRAWS, device="cuda").extend(STREAM_DRAWS // 2)
+    rest = StreamingBootstrap(*series, chunk=STREAM_DRAWS, device="cuda")
+    rest.draws_done = STREAM_DRAWS // 2
+    merged = half.merge(rest.extend(STREAM_DRAWS))
+    gaps = [float(np.nanmax(np.abs(a - b) / np.maximum(np.abs(b), 1e-300)))
+            for a, b in ((chunked.mean, merged.mean), (chunked.m2, merged.m2))]
+    queries = launch_counts()
+    log(f"bank_for_scenarios {bank_s:.4f} s (K2 once); scenario_query under FWL (2 halves + "
+        f"full) {sweep_s:.4f} s, {len(swept)} rows; StreamingBootstrap {STREAM_DRAWS} draws over "
+        f"{bank.n_pairs} pairs in chunks of 256 {stream_s:.3f} s, vs two merged halves: mean "
+        f"{gaps[0]:.3e}, M2 {gaps[1]:.3e} (tol 1e-10), draws {chunked.draws_done}; "
+        f"contractions during the queries "
+        f"{ {k: v - before.get(k, 0) for k, v in contraction_counts().items()} }")
+    check(max(gaps) <= 1e-10 and np.array_equal(chunked.count, merged.count),
+          "StreamingBootstrap: chunked and merged passes differ")
+    check(contraction_counts() == before, "the bank's estimator queries contracted the panel")
+    _k2_pinned("estimators bank queries", queries, ESTIMATOR_LAUNCHES["bank_queries"])
+
+    # the FE cells twice on the card: the ordered segment sums give the same bits
+    y, x = panel.var("retx").contiguous(), panel.select(list(bank.union)).contiguous()
+    universes = torch.stack([masks[u] for u in bank.universes])
+    k = bank.n_pairs
+    args = (y, x, universes, torch.as_tensor(bank.uidx, device="cuda"),
+            torch.as_tensor(bank.col_sel, device="cuda"),
+            torch.ones((k, t), dtype=torch.bool, device="cuda"), shared_center(x),
+            torch.as_tensor(fe["ind"], device="cuda"), torch.as_tensor(fe["size"], device="cuda"))
+    kw = dict(ga=FE_SEEDS["ind"][1], gb=FE_SEEDS["size"][1])
+    first, cells_s = _timed(lambda: contract_absorb_cells(*args, **kw))
+    second = contract_absorb_cells(*args, **kw)
+    same = all(torch.equal(a, b) for a, b in zip(first, second))
+    log(f"contract_absorb_cells at real size ({k} specs, 12 x 10 FE cells a month): "
+        f"{cells_s:.4f} s; two calls bit-identical {same}")
+    check(same, "the FE cell contraction is not bit-identical run to run")
+    del first, second, args, y, x, universes, bank, panel, masks
+    torch.cuda.empty_cache()
+    return total
+
+
+def _estimators_vs_cpu(gpu) -> None:
+    """Each estimator kind at float64 on the card against the CPU, both
+    from the card run's panel (copied to the host; one FE code draw): FWL,
+    IV, one- and two-way absorb, pooled two-way, FWL with the clustered
+    tail, absorb on the coreset route. Labels, flags and the integer
+    disclosures (``suspect_months``, ``absorb_iters``, ``absorb_converged``)
+    exactly; the numbers at 1e-8 on the rows of cells without a suspect
+    month (``_scenario_worst``'s scales) and at ``SUSPECT_TOL`` on the
+    others, that limit placed for the FWL, IV and two-way absorb sweeps
+    between two CPU witnesses: the same sweep under ``SUSPECT_CHUNK``-firm
+    chunks (another order of the sums) and with a planted fault (the
+    regressand moved one month later, a misaligned return). The pooled
+    kind flags rank loss only, so its cells whose pooled Gram's condition
+    times eps reaches a tenth of the 1e-8 pin (``_pooled_conditions``) are
+    held as suspect cells, between the same two witnesses."""
+    from unittest import mock
+
+    from fm_returnprediction_tpu_torch.specgrid import grams
+
+    host_panel = dataclasses.replace(gpu.panel, values=gpu.panel.values.cpu())
+    host_masks = {k: m.cpu() for k, m in gpu.subset_masks.items()}
+    factors = gpu.factors_dict
+    specs = estimator_specs(factors)
+    t, n = host_panel.values.shape[:2]
+    fe = fe_codes(t, n)
+    faulty = host_panel.values.clone()
+    i = host_panel.var_index("retx")
+    faulty[1:, :, i] = host_panel.values[:-1, :, i]
+    faulty[0, :, i] = float("nan")
+    fault_panel = dataclasses.replace(host_panel, values=faulty)
+    cases = (("fwl", specs["fwl"], {}, True), ("iv", specs["iv"], {}, True),
+             ("absorb", "absorb:ind", dict(fe_codes=fe), False),
+             ("absorb2", "absorb:ind+size", dict(fe_codes=fe), True),
+             ("pooled", "pooled:cluster_twoway", {}, True),
+             ("fwl_cluster", f"{specs['fwl']}@cluster", {}, False),
+             ("absorb_coreset", "absorb:ind", dict(fe_codes=fe, route="coreset"), False))
+    for name, spec, kw, witness in cases:
+        start = time.perf_counter()
+        got = run_scenarios(gpu.panel, gpu.subset_masks, factors, estimators=(spec,), **kw)
+        mid = time.perf_counter()
+        want = run_scenarios(host_panel, host_masks, factors, estimators=(spec,), **kw)
+        cpu_s = time.perf_counter() - mid
+        suspect = (want["suspect_months"] > 0).to_numpy()
+        extra_note = ""
+        if spec.startswith("pooled"):
+            ill, cond = _pooled_conditions(host_panel, host_masks, factors, want)
+            suspect = suspect | ill
+            worst_cond = {m: max(c for key, c in cond.items() if key[0] == m)
+                          for m in want["model"].unique()}
+            extra_note = ("; pooled Grams with condition × eps ≥ 1e-9 (held as suspect cells): "
+                          f"{want.loc[ill, 'cell'].nunique()} cells, worst condition per "
+                          "model " + json.dumps({m: f"{c:.2e}" for m, c in worst_cond.items()}))
+        held = _scenario_worst(_rows(got, ~suspect), _rows(want, ~suspect))
+        worst_sus = (_scenario_worst(_rows(got, suspect), _rows(want, suspect))
+                     if suspect.any() else 0.0)
+        text = (f"card vs CPU estimators {name} ({spec}, f64, 240 x 3,000): cuda "
+                f"{mid - start:.2f} s, cpu {cpu_s:.2f} s; worst diff {held:.3e} over "
+                f"{int((~suspect).sum())} rows of {want.loc[~suspect, 'cell'].nunique()} cells "
+                f"without a suspect month (tol 1e-8), {worst_sus:.3e} over {int(suspect.sum())} "
+                f"rows of {want.loc[suspect, 'cell'].nunique()} cells with one (tol "
+                f"{SUSPECT_TOL:g}); labels and integer disclosures equal{extra_note}")
+        if "absorb_iters" in want:
+            text += (f"; absorb_iters max {int(want['absorb_iters'].max())}, cells converged "
+                     f"{int(want.groupby('cell')['absorb_converged'].first().sum())} of "
+                     f"{want['cell'].nunique()}")
+        log(text)
+        check(held <= 1e-8 and worst_sus <= SUSPECT_TOL,
+              f"card vs CPU: estimator sweep {name} beyond tolerance")
+        if witness and suspect.any():
+            with mock.patch.object(grams, "auto_firm_chunk", lambda *a, **k: SUSPECT_CHUNK):
+                reordered = run_scenarios(host_panel, host_masks, factors, estimators=(spec,),
+                                          **kw)
+            fault = run_scenarios(fault_panel, host_masks, factors, estimators=(spec,), **kw)
+            wit = {"order_suspect": _scenario_worst(_rows(reordered, suspect),
+                                                    _rows(want, suspect)),
+                   "order_held": _scenario_worst(_rows(reordered, ~suspect),
+                                                 _rows(want, ~suspect)),
+                   "fault_suspect": _scenario_worst(_rows(fault, suspect), _rows(want, suspect),
+                                                    strict=False),
+                   "fault_held": _scenario_worst(_rows(fault, ~suspect), _rows(want, ~suspect),
+                                                 strict=False)}
+            log(f"card vs CPU estimators {name}: CPU with {SUSPECT_CHUNK}-firm chunks vs CPU: "
+                f"suspect rows {wit['order_suspect']:.3e}, other rows {wit['order_held']:.3e}; "
+                f"planted fault (the return one month late) vs CPU: suspect rows "
+                f"{wit['fault_suspect']:.3e}, other rows {wit['fault_held']:.3e}")
+            check(wit["order_suspect"] <= SUSPECT_TOL < wit["fault_suspect"]
+                  and wit["order_held"] <= 1e-8 < wit["fault_held"],
+                  f"estimators {name}: the suspect-cell limit {SUSPECT_TOL:g} does not sit "
+                  f"between the CPU's sum-order spread and a planted fault: {wit}")
+
+
+def estimator_cli_phase() -> None:
+    """``python -m fm_returnprediction_tpu_torch.pipeline --synthetic
+    --specgrid --specgrid-estimator iv:…`` at 250 × 130 on the card: exit 0
+    with the ``specgrid`` stage and one K2 launch more than the main path
+    (the sweep's pairs); then ``--specgrid-estimator absorb:ind``, which
+    exits non-zero as the reference does (the pipeline has no FE codes: the
+    engine's KeyError)."""
+    firms, months = SYNTHETIC_CLI_FIRMS, SYNTHETIC_CLI_MONTHS
+    spec = "iv:log_bm~log_issues_36"
+    base_args = ["--synthetic", "--firms", firms, "--months", months, "--specgrid",
+                 "--specgrid-estimator"]
+    run = run_cli(base_args + [spec])
+    printed = re.search(r"^spec-grid scenarios: (\d+) rows$", run["stdout"], re.MULTILINE)
+    log(f"CLI --synthetic --firms {firms} --months {months} --specgrid --specgrid-estimator "
+        f"{spec}: exit 0 in {run['wall']:.1f} s; stage specgrid "
+        f"{run['stages'].get('specgrid', float('nan')):.3f} s; "
+        f"{printed.group(0) if printed else 'no row count printed'}; launches K1 "
+        f"{run['launches']['k1']}, K2 {run['launches']['k2']} {run['launches']['k2_by_key']}")
+    check("specgrid" in run["stages"] and printed is not None and run["launches"]["k2"] == 3,
+          f"estimator CLI stages {sorted(run['stages'])}, launches {run['launches']}")
+    start = time.perf_counter()
+    done = subprocess.run([sys.executable, "-m", "fm_returnprediction_tpu_torch.pipeline"]
+                          + [str(a) for a in base_args + ["absorb:ind"]],
+                          cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
+                          timeout=600)
+    tail = done.stderr.strip().splitlines()[-1] if done.stderr.strip() else ""
+    log(f"CLI --specgrid-estimator absorb:ind: exit {done.returncode} in "
+        f"{time.perf_counter() - start:.1f} s: {tail}")
+    check(done.returncode != 0 and "KeyError" in done.stderr,
+          "the absorb CLI run did not fail with the engine's KeyError")
+
+
 # Run as the command line would be, then read the launch counters of that
 # process (the command line itself does not print them).
 CLI_WRAPPER = """
@@ -2374,6 +2826,7 @@ def main(argv=None) -> int:
     path_counts = {"main": counts, **specgrid_phase(base, daily)}
     bootstrap_phase(base, daily)
     path_counts["backtest"] = backtest_phase(base, daily)
+    path_counts["estimators"] = estimators_phase(base, daily)
     stacked_phase(base, daily, gram_frames)
     del base, daily
     rows += strip_phase(gen, counts)
@@ -2382,6 +2835,7 @@ def main(argv=None) -> int:
     cli_phase()
     bootstrap_cli_phase()
     backtest_cli_phase()
+    estimator_cli_phase()
     with tempfile.TemporaryDirectory() as tmp:
         raw = Path(tmp) / "raw"
         start = time.perf_counter()

@@ -50,11 +50,8 @@ import torch
 from fm_returnprediction_tpu_torch.device import resolve_device
 from fm_returnprediction_tpu_torch.specgrid.estimators.core import resolve_estimator
 from fm_returnprediction_tpu_torch.specgrid.estimators.fwl import fwl_transform
-from fm_returnprediction_tpu_torch.specgrid.solve import (
-    BF16_EPS,
-    expand_window_stats,
-    solve_spec_stats,
-)
+from fm_returnprediction_tpu_torch.specgrid.grambank import _bank_eps, _estimator_selectors
+from fm_returnprediction_tpu_torch.specgrid.solve import expand_window_stats, solve_spec_stats
 
 __all__ = [
     "BACKTEST_ROUTES",
@@ -151,45 +148,6 @@ class BacktestPaths(NamedTuple):
     route: str
 
 
-def _estimator_selection(bank, est):
-    """The (sel_aug, ctrl_aug, sel_solve) selectors an estimator needs on
-    this bank's pairs (host numpy); every FWL control must be banked in
-    EVERY pair."""
-    union = bank.union
-    pos = {c: i for i, c in enumerate(union)}
-    col_sel = np.asarray(bank.col_sel, bool)
-    k = bank.n_pairs
-    ones = np.ones((k, 1), bool)
-    ctrl_aug = np.zeros((k, len(union) + 1), bool)
-    sel_solve = col_sel
-    if est.kind == "fwl":
-        ctrl = np.zeros(len(union), bool)
-        for nm in est.controls:
-            if nm not in pos:
-                raise KeyError(f"estimator control column {nm!r} is not in the bank's "
-                               f"union {tuple(union)}")
-            ctrl[pos[nm]] = True
-        lacking = [bank.pair_labels[j] for j in range(k) if not (ctrl <= col_sel[j]).all()]
-        if lacking:
-            raise ValueError(
-                "estimator control columns were not contracted into every banked pair — "
-                f"pairs lacking them: {lacking}; rebuild the bank with the columns in each "
-                "regressor set")
-        sel_solve = col_sel & ~ctrl[None, :]
-        ctrl_aug = np.concatenate([ones, np.broadcast_to(ctrl, col_sel.shape)], axis=1)
-    sel_aug = np.concatenate([ones, sel_solve], axis=1)
-    return sel_aug, ctrl_aug, sel_solve
-
-
-def _bank_eps(bank):
-    """(data_eps, contracted_eps): the cutoffs at the eps the stats were
-    CONTRACTED in — bf16's for a bf16 bank (whose stats are float32), the
-    bank dtype's otherwise, where the solve's own eps applies."""
-    if str(bank.meta.get("precision", "highest")) == "bf16":
-        return BF16_EPS, BF16_EPS
-    return float(np.finfo(np.dtype(bank.dtype)).eps), None
-
-
 def _transform_and_solve(stats, sel_aug, ctrl_aug, kind: str, data_eps: float,
                          contracted_eps):
     """The per-month estimation core of both routes: (optional) FWL Schur
@@ -275,7 +233,7 @@ def backtest_paths(
     effective = "refit" if resolve_backtest_route(route) == "refit" else "scan"
     min_months = int(bank.meta.get("min_months", 10) if min_months is None else min_months)
     dev = resolve_device(device)
-    sel_aug, ctrl_aug, sel_solve = _estimator_selection(bank, est)
+    sel_aug, ctrl_aug, sel_solve = _estimator_selectors(bank, est)
     data_eps, contracted_eps = _bank_eps(bank)
     stats = bank.stats(dev)
     sel_t = torch.as_tensor(sel_aug, device=dev)

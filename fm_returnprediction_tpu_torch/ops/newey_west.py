@@ -6,6 +6,12 @@ Keeps the reference's NON-textbook Bartlett weight ``w_k = 1 − k/T``, where
 computes NW on ``.dropna()``'d slope series — autocovariance lag k pairs
 ADJACENT SURVIVING months — so valid entries are compacted to the front
 (stable chronological order) before lagged products are formed.
+
+``clustered_mean_se`` is the estimator family's ``se="cluster"`` kernel: the
+cluster-robust standard error of the same mean, by calendar blocks
+(``specgrid.estimators.cluster.fm_cluster_summary``). Its cluster sums are
+one product with the (T, G) cluster indicator, so they come out in the same
+order on every run (no atomics).
 """
 
 from __future__ import annotations
@@ -13,7 +19,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["compact_front", "nw_mean_se", "nw_mean_se_np"]
+__all__ = ["compact_front", "nw_mean_se", "nw_mean_se_np", "clustered_mean_se",
+           "clustered_mean_se_np"]
 
 
 def compact_front(x: torch.Tensor, valid: torch.Tensor):
@@ -62,6 +69,47 @@ def nw_mean_se(x: torch.Tensor, valid: torch.Tensor, lags: int = 4,
     var_mean = (gamma0 + 2.0 * acc) / torch.clamp_min(nf, 1.0) ** 2
     return torch.where(n >= 2, torch.sqrt(var_mean),
                        torch.full_like(var_mean, float("nan")))
+
+
+def clustered_mean_se(x: torch.Tensor, valid: torch.Tensor,
+                      cluster_ids: torch.Tensor) -> torch.Tensor:
+    """Cluster-robust standard error for the mean of the valid entries of
+    each series along the last axis:
+
+        var(mean) = (Σ_g S_g²) / n²,   S_g = Σ_{i∈g} (x_i − x̄)
+
+    over the valid entries, with ``cluster_ids`` (T,) the CALENDAR grouping
+    of the series' slots (``month // 12`` for by-year blocks), ids in
+    [0, T). All within-cluster covariance counts and none across clusters.
+    Fewer than 2 valid entries give NaN; the variance is a sum of squares
+    and never negative."""
+    valid = valid.to(torch.bool)
+    dtype = x.dtype
+    t = x.shape[-1]
+    nf = valid.sum(dim=-1).to(dtype)
+    zero = torch.zeros((), dtype=dtype, device=x.device)
+    mean = torch.where(valid, x, zero).sum(dim=-1) / torch.clamp_min(nf, 1.0)
+    mean = torch.where(nf > 0, mean, zero)
+    u = torch.where(valid, x - mean[..., None], zero)
+    ids = torch.as_tensor(cluster_ids, device=x.device).to(torch.int64)
+    onehot = (ids[:, None] == torch.arange(t, device=x.device)[None, :]).to(dtype)
+    s_g = u @ onehot                                    # (..., T) cluster sums
+    var_mean = (s_g * s_g).sum(dim=-1) / torch.clamp_min(nf, 1.0) ** 2
+    return torch.where(nf >= 2, torch.sqrt(var_mean),
+                       torch.full_like(var_mean, float("nan")))
+
+
+def clustered_mean_se_np(vals: np.ndarray, clusters: np.ndarray) -> float:
+    """Numpy mirror of :func:`clustered_mean_se` on an already-compacted
+    valid series with its cluster labels, the host oracle."""
+    vals = np.asarray(vals, float)
+    clusters = np.asarray(clusters)
+    n = vals.size
+    if n < 2:
+        return float("nan")
+    u = vals - vals.mean()
+    s_g = np.array([u[clusters == g].sum() for g in np.unique(clusters)])
+    return float(np.sqrt((s_g ** 2).sum() / n ** 2))
 
 
 def nw_mean_se_np(vals: np.ndarray, lags: int = 4, weight: str = "reference") -> float:

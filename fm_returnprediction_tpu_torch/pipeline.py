@@ -420,6 +420,7 @@ def run_pipeline(
     make_specgrid: bool = False,
     specgrid_cells: Optional[int] = None,
     specgrid_sink: Optional[str] = None,
+    specgrid_estimator: Optional[str] = None,
     make_bootstrap: bool = False,
     bootstrap_replicates: int = 10_000,
     make_backtest: bool = False,
@@ -468,10 +469,15 @@ def run_pipeline(
     to at least that many cells (the bootstrap-draw dimension grows;
     memory stays one tile), ``specgrid_sink`` picks the streaming sink
     (default ``FMRP_SPECGRID_SINK``, else the full frame), and
-    ``FMRP_GRAM_PRECISION=bf16`` contracts it in bfloat16; an estimator
-    other than OLS with the Newey-West tail in ``FMRP_SPECGRID_ESTIMATOR``
-    raises (ROADMAP A5). The guard screens the full frame at quarantine
-    severity.
+    ``FMRP_GRAM_PRECISION=bf16`` contracts it in bfloat16.
+    ``specgrid_estimator`` (grammar ``"fwl:c1+c2[@se]"``,
+    ``"absorb:fe1+fe2"``, ``"iv:endog~z1+z2"``, ``"pooled[:se]"``; default
+    ``FMRP_SPECGRID_ESTIMATOR``, else OLS) runs every cell under that
+    estimator, resolved loudly before the sweep so a typo fails first (an
+    absorb estimator raises: the pipeline has no FE codes to pass). Table 2
+    and the figure sweep stay on OLS: a non-OLS estimator leaking in
+    through ``FMRP_SPECGRID_ESTIMATOR`` stops the run at ``table_2``. The
+    guard screens the full frame at quarantine severity.
 
     ``make_bootstrap`` builds the bootstrap-SE table
     (``reporting.bootstrap_table``: per Table 2 cell and predictor the
@@ -488,9 +494,10 @@ def run_pipeline(
     out-of-sample forecasts, OOS R², IC, ``backtest_quantiles``-bucket
     portfolio spreads and turnover, streamed through ``backtest_sink``.
     ``backtest_schemes`` is the comma list (default ``FMRP_BACKTEST_SCHEMES``
-    or ``"expanding,rolling120"``). The estimator is OLS (the
-    ``--specgrid-estimator`` knob is ROADMAP A5); the guard screens the full
-    frame with ``guard.contracts.backtest_rules`` at quarantine severity.
+    or ``"expanding,rolling120"``). The backtest runs under
+    ``specgrid_estimator`` too (OLS or FWL: the kinds with a per-month slope
+    path; the others raise there); the guard screens the full frame with
+    ``guard.contracts.backtest_rules`` at quarantine severity.
 
     ``output_dir`` writes the artifacts: ``table_{1,2}.{pkl,tex}``,
     ``figure_1.pdf`` (matplotlib), ``decile_sorts.{pkl,tex}``,
@@ -510,6 +517,7 @@ def run_pipeline(
             compile_pdf=compile_pdf, checkpoint_dir=checkpoint_dir,
             guard=bool(guard), audit_dir=audit_dir, make_specgrid=make_specgrid,
             specgrid_cells=specgrid_cells, specgrid_sink=specgrid_sink,
+            specgrid_estimator=specgrid_estimator,
             make_bootstrap=make_bootstrap, bootstrap_replicates=bootstrap_replicates,
             make_backtest=make_backtest, backtest_schemes=backtest_schemes,
             backtest_route=backtest_route, backtest_quantiles=backtest_quantiles,
@@ -521,7 +529,7 @@ def _run_pipeline_guarded(
     dense_base, compact_daily, *, raw_data_dir, output_dir, synthetic,
     synthetic_config, device, dtype, include_turnover, make_figure,
     make_deciles, make_serving, compile_pdf, checkpoint_dir, guard, audit_dir,
-    make_specgrid, specgrid_cells, specgrid_sink, make_bootstrap,
+    make_specgrid, specgrid_cells, specgrid_sink, specgrid_estimator, make_bootstrap,
     bootstrap_replicates, make_backtest, backtest_schemes, backtest_route,
     backtest_quantiles, backtest_sink,
 ) -> PipelineResult:
@@ -698,11 +706,10 @@ def _run_pipeline_guarded(
     if make_specgrid:
         with timer.stage("specgrid"):
             # models × universes × subperiod halves on the tile engine, one
-            # contraction per tile batch, streamed through the sink. The
-            # estimator knob (FMRP_SPECGRID_ESTIMATOR) is read as the
-            # reference reads it, so a kind the port lacks raises in the
-            # engine (ROADMAP A5) instead of being ignored
-            est = resolve_estimator()
+            # contraction per tile batch, streamed through the sink; the
+            # estimator (argument > FMRP_SPECGRID_ESTIMATOR > OLS) is
+            # resolved loudly here, so a typo fails before the sweep runs
+            est = resolve_estimator(specgrid_estimator)
             estimators = None if (est.kind, est.se) == ("ols", "nw") else (est,)
             specgrid_scenarios = frame_stage(
                 "specgrid_scenarios",
@@ -730,7 +737,8 @@ def _run_pipeline_guarded(
                 lambda: run_backtest_scenarios(
                     panel, masks, factors_dict, schemes=backtest_schemes,
                     route=backtest_route, n_quantiles=backtest_quantiles,
-                    sink=backtest_sink, output_dir=output_dir, device=device))
+                    sink=backtest_sink, estimator=specgrid_estimator,
+                    output_dir=output_dir, device=device))
             if guard and resolve_backtest_sink_name(backtest_sink) == "frame":
                 # the other sinks emit their own schema: the backtest frame
                 # contract is the full frame's
@@ -866,6 +874,13 @@ def _main(argv=None) -> None:
              "(default follows FMRP_SPECGRID_SINK)",
     )
     parser.add_argument(
+        "--specgrid-estimator", default=None, metavar="SPEC",
+        help="run the spec-grid sweep (and the backtest) under an estimator cell instead "
+             "of OLS@NW — grammar 'fwl:c1+c2[@se]' | 'absorb:fe1+fe2' | 'iv:endog~z1+z2' | "
+             "'pooled[:se]' (default follows FMRP_SPECGRID_ESTIMATOR; Table 2 and the "
+             "figure sweep keep rejecting non-OLS loudly)",
+    )
+    parser.add_argument(
         "--bootstrap", type=int, default=0, metavar="B",
         help="also build the bootstrap-SE table with B replicates",
     )
@@ -917,9 +932,11 @@ def _main(argv=None) -> None:
         guard=False if args.no_guard else None,
         audit_dir=args.audit_dir,
         make_specgrid=(args.specgrid or args.specgrid_cells is not None
-                       or args.specgrid_sink is not None),
+                       or args.specgrid_sink is not None
+                       or args.specgrid_estimator is not None),
         specgrid_cells=args.specgrid_cells,
         specgrid_sink=args.specgrid_sink,
+        specgrid_estimator=args.specgrid_estimator,
         make_bootstrap=args.bootstrap > 0,
         bootstrap_replicates=args.bootstrap or 10_000,
         make_backtest=(args.backtest or args.backtest_schemes is not None

@@ -39,6 +39,7 @@ from fm_returnprediction_tpu_torch.ops.compaction import rolling_over_valid_rows
 from fm_returnprediction_tpu_torch.ops.ols import CSRegressionResult, monthly_cs_ols
 from fm_returnprediction_tpu_torch.panel.dense import DensePanel
 from fm_returnprediction_tpu_torch.reporting.fusion import fuse_over_subsets
+from fm_returnprediction_tpu_torch.specgrid.estimators.core import resolve_estimator
 from fm_returnprediction_tpu_torch.specgrid.solve import run_spec_grid
 from fm_returnprediction_tpu_torch.specgrid.specs import figure1_grid, resolve_route
 
@@ -122,10 +123,13 @@ def subset_sweep(
 ) -> Dict[str, SubsetSweepEntry]:
     """The figure/decile family for the subsets in ``names`` on the Gram
     or the stacked route (module docstring; "coreset" is refused); numpy
-    results per subset."""
+    results per subset. The sweep is a paper-parity surface: a non-OLS
+    estimator leaking in through ``FMRP_SPECGRID_ESTIMATOR`` raises before
+    any compute, as Table 2's does."""
     names = [n for n in names if n in subset_masks]
     if not names:
         return {}
+    resolve_estimator(None, allowed=("ols",))
     resolved = resolve_route(route, allowed=("gram", "stacked"))
     y = panel.var(return_col)
     x = panel.select(list(FIGURE1_VARS.keys()))

@@ -40,6 +40,7 @@ from fm_returnprediction_tpu_torch.ops.ols import monthly_cs_ols
 from fm_returnprediction_tpu_torch.panel.dense import DensePanel
 from fm_returnprediction_tpu_torch.panel.subsets import SUBSET_ORDER
 from fm_returnprediction_tpu_torch.reporting.fusion import fuse_over_subsets
+from fm_returnprediction_tpu_torch.specgrid.estimators.core import resolve_estimator
 from fm_returnprediction_tpu_torch.specgrid.solve import run_spec_grid
 from fm_returnprediction_tpu_torch.specgrid.specs import resolve_route, table2_grid
 
@@ -109,10 +110,14 @@ def table_2_cells(
     """Every Table 2 cell's numbers: ``(model name, subset) → {"coef",
     "tstat", "nw_se", "mean_r2", "mean_n"}`` (host numpy; coef/tstat/nw_se
     in the model's predictor order). ``route`` is "gram" or "stacked"
-    (module docstring); "coreset" is refused."""
+    (module docstring); "coreset" is refused, and so is an estimator other
+    than OLS leaking in through ``FMRP_SPECGRID_ESTIMATOR``: Table 2 is the
+    paper's OLS parity surface, where a partialled, absorbed or
+    instrumented cell would be a silently different estimand."""
     models = models if models is not None else MODELS
     subset_names = list(subset_masks)
     resolved = resolve_route(route, allowed=("gram", "stacked"))
+    resolve_estimator(None, allowed=("ols",))
     grid = table2_grid(
         variables_dict, models=models, subsets=subset_names,
         nw_lags=TABLE2_NW_LAGS, min_months=TABLE2_MIN_MONTHS,

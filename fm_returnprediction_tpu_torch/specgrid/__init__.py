@@ -16,9 +16,11 @@
   levels, NW weights, bootstrap draws) → one tidy frame, and its banked
   twin.
 - ``grambank``  — the in-memory Gram bank: per-month stats of one panel
-  answering window, bootstrap and scenario queries without the panel.
-- ``estimators`` — the estimator value type and the FWL transform (the
-  sweep runs OLS; the rest is ROADMAP A5).
+  answering window, bootstrap, scenario and estimator queries without the
+  panel.
+- ``estimators`` — the estimator family as a sweep dimension: FWL,
+  absorbed fixed effects, IV/2SLS, pooled OLS with its sandwich SE
+  families, the clustered FM tail, and the streaming block bootstrap.
 
 Not ported yet: the bank's persistence (ROADMAP A7) and the mesh and
 multi-process grids (ROADMAP A8).
@@ -36,15 +38,22 @@ from fm_returnprediction_tpu_torch.specgrid.engine import (
     run_cellspace,
 )
 from fm_returnprediction_tpu_torch.specgrid.estimators import (
+    BANK_POOLED_SE,
     EST_OLS,
+    ESTIMATOR_KINDS,
+    FM_SE_FAMILIES,
+    POOLED_SE_FAMILIES,
     Estimator,
+    StreamingBootstrap,
     parse_estimator,
     resolve_estimator,
+    run_estimator_grid_weights,
 )
 from fm_returnprediction_tpu_torch.specgrid.grambank import (
     GramBank,
     bootstrap_query,
     build_bank,
+    estimator_query,
     ingest_month,
     scenario_query,
     window_query,
@@ -86,20 +95,25 @@ from fm_returnprediction_tpu_torch.specgrid.specs import (
 )
 
 __all__ = [
+    "BANK_POOLED_SE",
     "Cell",
     "CellSpace",
     "CellTile",
     "CoresetPlan",
     "EST_OLS",
+    "ESTIMATOR_KINDS",
     "Estimator",
+    "FM_SE_FAMILIES",
     "FrameSink",
     "GramBank",
+    "POOLED_SE_FAMILIES",
     "ParquetSink",
     "Sink",
     "Spec",
     "SpecGrid",
     "SpecGramStats",
     "SpecGridResult",
+    "StreamingBootstrap",
     "SummarySink",
     "TopKSink",
     "auto_firm_chunk",
@@ -109,6 +123,7 @@ __all__ = [
     "build_bank",
     "contract_spec_grams",
     "coreset_plan",
+    "estimator_query",
     "figure1_grid",
     "ingest_month",
     "parse_estimator",
@@ -117,6 +132,7 @@ __all__ = [
     "resolve_route",
     "resolve_sink",
     "run_cellspace",
+    "run_estimator_grid_weights",
     "run_scenarios",
     "run_scenarios_banked",
     "run_spec_grid",

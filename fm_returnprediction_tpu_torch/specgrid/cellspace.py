@@ -18,9 +18,10 @@ The dimension order follows the execution grouping:
 - ``weight`` next — every NW scheme re-aggregates from one contraction and
   solve (``solve.run_spec_grid_weights``), so the engine passes the
   space's full weight tuple and slices per cell;
-- ``estimator`` next — each estimator kind solves on its own route, so
-  grouping cells by estimator keeps one route per batch (only OLS runs in
-  the port, ROADMAP A5);
+- ``estimator`` next — each estimator kind solves on its own route (OLS on
+  the refereed grid route, the other kinds through
+  ``estimators.run_estimator_grid_weights``), so grouping cells by
+  estimator keeps one route per batch;
 - the (set, universe, window) spec product in the middle — contiguous cell
   ranges decode to contiguous spec runs, which lets a tile chunk into
   fixed-width padded ``SpecGrid`` batches;

@@ -21,9 +21,19 @@ realized sampling rate, and the QR referee is off). Under
 ``precision="bf16"`` every row discloses ``bf16_promoted_months``, the
 months the conditioning referee sent back to the full-precision route.
 
+Estimators: each batch solves under one estimator. OLS rides the refereed
+grid route untouched; every other kind (FWL, absorbed FE, IV, pooled; the
+FM kinds under the ``nw``/``iid``/``cluster`` tails) goes through
+``estimators.run_estimator_grid_weights``, and its rows add ``estimator``,
+``se_family``, ``suspect_months`` and, for absorb, ``absorb_iters`` and
+``absorb_converged``. The validations are loud and up front, with the
+reference's exception types: OLS cells must ride the NW tail, pooled cells
+need ``bootstrap=1``, bootstrap draws need ``se="nw"``, absorb needs
+``fe_codes`` (KeyError).
+
 The engine runs on one device: ``mesh=``, ``FMRP_SPECGRID_MESH`` or
-``FMRP_SPECGRID_PROCS`` > 1 raise (ROADMAP A8), and so does an estimator
-other than OLS with the Newey-West tail (ROADMAP A5).
+``FMRP_SPECGRID_PROCS`` > 1 raise (ROADMAP A8) before any estimator runs
+(the reference's estimator kinds are single-device too).
 """
 
 from __future__ import annotations
@@ -50,6 +60,7 @@ from fm_returnprediction_tpu_torch.specgrid.grams import (
     resolve_gram_factorize,
     resolve_gram_precision,
 )
+from fm_returnprediction_tpu_torch.specgrid.estimators.grid import run_estimator_grid_weights
 from fm_returnprediction_tpu_torch.specgrid.sinks import Sink, resolve_sink
 from fm_returnprediction_tpu_torch.specgrid.solve import (
     contraction_counts,
@@ -103,12 +114,13 @@ class _TileSolver:
             seen.setdefault((space.estimator_index(c.index), space.spec_index(c.index)), c)
         self.spec_rows: Dict[Tuple[int, int], Tuple[int, int]] = {}
         self.results: List[Dict[str, object]] = []
+        self.disclosures: List[Optional[dict]] = []
         # each batch holds one estimator's cells
         groups: Dict[int, List[Tuple[int, int]]] = {}
         for key in seen:
             groups.setdefault(key[0], []).append(key)
         pad = engine.spec_pad
-        for keys in groups.values():
+        for eidx, keys in groups.items():
             for start in range(0, len(keys), pad):
                 block_keys = keys[start:start + pad]
                 for row, key in enumerate(block_keys):
@@ -121,21 +133,24 @@ class _TileSolver:
                     nw_lags=space.nw_lags, min_months=space.min_months,
                     union=space.union_predictors,
                 )
-                self.results.append(engine.solve_block(grid, x_level))
+                res, disc = engine.solve_block(grid, x_level, space.estimators[eidx])
+                self.results.append(res)
+                self.disclosures.append(disc)
 
     def cell_view(self, cell: Cell):
-        """(per-weight SpecGridResult, local spec row) for one cell."""
+        """(per-weight SpecGridResult, local spec row, block disclosures or
+        None) for one cell."""
         space = self.engine.space
         b, row = self.spec_rows[(space.estimator_index(cell.index),
                                  space.spec_index(cell.index))]
-        return self.results[b][cell.weight], row
+        return self.results[b][cell.weight], row, self.disclosures[b]
 
 
 class _Engine:
     def __init__(self, y, x, universe_masks, space: CellSpace, *,
                  mask, route: str, mesh, referee: bool, firm_chunk, label_of,
                  seed: int, coreset_m, coreset_budget_mb, tile_cells,
-                 precision=None, factorize=None):
+                 precision=None, factorize=None, fe_codes=None):
         # resolved once per sweep: a knob flipped mid-sweep would splice two
         # numerics regimes into one result frame
         self.precision = resolve_gram_precision(precision)
@@ -159,12 +174,34 @@ class _Engine:
         self.seed = int(seed)
         self.route = route
         self._union_pos = {c: i for i, c in enumerate(self.union)}
-        odd = [e for e in space.estimators if e.kind != "ols" or e.se != "nw"]
-        if odd:
-            raise NotImplementedError(
-                f"estimator cells {[e.label + '@' + e.se for e in odd]} are not ported: "
-                "the tile engine runs OLS with the Newey-West tail only (ROADMAP A5)")
-        self.emit_estimator = len(space.estimators) > 1
+        # the estimator dimension, validated loudly up front rather than S
+        # tiles into the sweep
+        self.fe_codes = fe_codes
+        self.emit_estimator = len(space.estimators) > 1 or any(
+            e.kind != "ols" or e.se != "nw" for e in space.estimators)
+        ols_odd = [e for e in space.estimators if e.kind == "ols" and e.se != "nw"]
+        if ols_odd:
+            raise ValueError(
+                f"OLS cells ride the incumbent NW grid tail; se families "
+                f"{[e.se for e in ols_odd]} are estimator-subsystem tails — query the gram "
+                "bank instead (grambank.estimator_query serves ols under the iid/clustered "
+                "tails)")
+        non_ols = [e for e in space.estimators if e.kind != "ols"]
+        if any(e.kind == "pooled" for e in non_ols) and space.bootstrap > 1:
+            raise ValueError(
+                "pooled estimator cells produce no per-month slope series to resample — a "
+                "pooled space must have bootstrap=1")
+        if space.bootstrap > 1 and any(e.se != "nw" for e in non_ols):
+            raise ValueError(
+                "bootstrap draws re-aggregate the slope series under the NW tail; estimator "
+                "cells with se != 'nw' cannot ride them — drop the draws or use se='nw'")
+        for e in non_ols:
+            if e.kind == "absorb":
+                missing = [nm for nm in e.absorb if nm not in (fe_codes or {})]
+                if missing:
+                    raise KeyError(
+                        f"estimator {e.label!r} needs FE codes for {missing} — pass "
+                        "fe_codes={name: (T, N) int codes} to run_cellspace")
         # tile width rounds UP to a multiple of the draw count, so a spec's
         # draw run never straddles two tiles
         want = resolve_tile_cells(tile_cells)
@@ -232,13 +269,22 @@ class _Engine:
         self._winsor_cache = (level, x_level)
         return x_level
 
-    def solve_block(self, grid: SpecGrid, x_level):
-        """One padded spec batch: every weight scheme's SpecGridResult."""
-        return run_spec_grid_weights(
-            self.y, x_level, self.universe_masks, grid, self.space.weights,
-            referee=self.referee, firm_chunk=self.firm_chunk,
-            row_weights=self.row_weights, precision=self.precision,
-            factorize=self.gram_factorize, pair_pad=self.pair_pad,
+    def solve_block(self, grid: SpecGrid, x_level, estimator):
+        """One padded spec batch under one estimator: ``(every weight
+        scheme's SpecGridResult, disclosures or None)``. OLS rides the
+        refereed grid route; the other kinds the estimator route."""
+        if estimator.kind == "ols":
+            return run_spec_grid_weights(
+                self.y, x_level, self.universe_masks, grid, self.space.weights,
+                referee=self.referee, firm_chunk=self.firm_chunk,
+                row_weights=self.row_weights, precision=self.precision,
+                factorize=self.gram_factorize, pair_pad=self.pair_pad,
+            ), None
+        return run_estimator_grid_weights(
+            estimator, self.y, x_level, self.universe_masks, grid, self.space.weights,
+            firm_chunk=self.firm_chunk, row_weights=self.row_weights,
+            precision=self.precision, factorize=self.gram_factorize,
+            pair_pad=self.pair_pad, fe_codes=self.fe_codes,
         )
 
     def resamples(self) -> np.ndarray:
@@ -277,9 +323,14 @@ class _Engine:
             self._rate_cache[key] = rate
         return rate
 
-    def rows_for(self, cell: Cell, res, row: int) -> List[dict]:
+    def rows_for(self, cell: Cell, res, row: int, disc: Optional[dict] = None) -> List[dict]:
         space = self.space
         preds = cell.predictors
+        if cell.estimator.kind == "fwl":
+            # a control inside the cell's focal set is partialled OUT of the
+            # solve, so its slot holds padding, not a coefficient
+            dropped = set(cell.estimator.controls)
+            preds = tuple(c for c in preds if c not in dropped)
         pos = [self._union_pos[c] for c in preds]
         if cell.draw == 0:
             coef, tstat, nw_se = res.coef[row], res.tstat[row], res.nw_se[row]
@@ -317,8 +368,16 @@ class _Engine:
                 "refereed": refereed,
             }
             if self.emit_estimator:
+                # estimator cells disclose, never referee: the label, the SE
+                # family, the conditioning disclosure and (absorb) the
+                # alternating projections' convergence account
                 r["estimator"] = cell.estimator.label
                 r["se_family"] = cell.estimator.se
+                if cell.estimator.kind != "ols":
+                    r["suspect_months"] = int(res.suspect_months[row])
+                if disc is not None and "absorb_iters" in disc:
+                    r["absorb_iters"] = int(disc["absorb_iters"][row])
+                    r["absorb_converged"] = bool(disc["absorb_converged"][row])
             if space.bootstrap > 1:
                 r["draw"] = cell.draw
             if self.precision == "bf16":
@@ -354,6 +413,7 @@ def run_cellspace(
     output_dir=None,
     precision: Optional[str] = None,
     factorize: Optional[str] = None,
+    fe_codes: Optional[Dict[str, object]] = None,
 ):
     """Stream a ``CellSpace`` sweep through a sink.
 
@@ -362,7 +422,9 @@ def run_cellspace(
     ``universe_masks`` covers every universe the space names; ``mask`` (T,
     N) is the panel's validity (needed by winsor levels and the coreset
     plan). ``sink`` is a ``Sink``, a sink name (``sinks.SINK_NAMES``), or
-    None (the ``FMRP_SPECGRID_SINK``/``"frame"`` default). Returns
+    None (the ``FMRP_SPECGRID_SINK``/``"frame"`` default). ``fe_codes``
+    maps FE names → (T, N) int code arrays for spaces carrying ``absorb``
+    estimator cells. Returns
     ``(sink.finish(), stats)`` where the stats disclose
     cells/rows/tiles/seconds and the contraction work.
     """
@@ -372,6 +434,7 @@ def run_cellspace(
         referee=referee, firm_chunk=firm_chunk, label_of=label_of, seed=seed,
         coreset_m=coreset_m, coreset_budget_mb=coreset_budget_mb,
         tile_cells=tile_cells, precision=precision, factorize=factorize,
+        fe_codes=fe_codes,
     )
     before = contraction_counts()
     n_tiles = 0
@@ -381,8 +444,8 @@ def run_cellspace(
         for level, cells in _winsor_groups(tile):
             solver = _TileSolver(engine, engine.x_at_level(level), cells)
             for cell in cells:
-                res, row = solver.cell_view(cell)
-                frames.extend(engine.rows_for(cell, res, row))
+                res, row, disc = solver.cell_view(cell)
+                frames.extend(engine.rows_for(cell, res, row, disc))
             del solver  # one tile of solve leaves live at a time
         engine._boot_cache.clear()  # draw runs never straddle tiles
         sink_obj.consume(pd.DataFrame(frames))

@@ -7,10 +7,15 @@ and SE family; ``EST_OLS`` is the incumbent every ``CellSpace`` carries.
 ``parse_estimator`` reads the command-line grammar and
 ``resolve_estimator`` the ``FMRP_SPECGRID_ESTIMATOR`` knob.
 ``masked_psd_solve`` solves the selected block of batched PSD systems with
-the grid solve's numerics; the FWL transform (``estimators.fwl``) is built
-on it and runs in the backtest. The tile engine runs OLS with the
-Newey-West tail only: it refuses the other kinds until their transforms
-are ported (ROADMAP A5).
+the grid solve's numerics; the FWL and IV transforms and the pooled fit are
+built on it.
+
+SE families (``Estimator.se``): the FM kinds take ``"nw"`` (Newey-West, the
+incumbent), ``"iid"`` (lag 0) and ``"cluster"`` (by-year clustered SE of the
+FM mean); the pooled kind takes ``"iid"``, ``"white"``, ``"cluster_month"``,
+``"cluster_firm"`` and ``"cluster_twoway"``. Estimator cells are never
+re-solved by the OLS QR referee (that would splice two estimators into one
+number): rank and conditioning flags are disclosed per cell instead.
 """
 
 from __future__ import annotations

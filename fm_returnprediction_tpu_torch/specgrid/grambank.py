@@ -11,8 +11,14 @@ aggregation, the banked ``(K, T, Q, Q)`` leaves answer
 - a NEW BOOTSTRAP query — solve the slope series once, then the
   pairs-batched month-resample aggregation
   (``boot.bootstrap_aggregate_pairs``),
+- an ESTIMATOR query (``estimator_query``) — the FWL Schur complement, the
+  IV two-solve projection, OLS under the ``iid``/``cluster`` FM tails, or
+  the pooled fit under its month-separable SE families
+  (``estimators.BANK_POOLED_SE``), all transforms of the banked stats,
 
-both in O(T·Q²) work per pair, without touching the ``(T, N, P)`` panel.
+all in O(T·Q²) work per pair, without touching the ``(T, N, P)`` panel
+(absorbed FE needs FE-cell stats the bank does not hold, and the firm and
+White pooled meats need the panel's residuals: both raise).
 ``ingest_month`` appends one month's cross-section by Gram additivity (one
 O(N·Q²) monthly contraction). The rolling-origin backtest (``backtest``)
 answers its whole sweep from one bank.
@@ -27,9 +33,7 @@ Bank queries have no QR referee (the panel is not there to re-solve
 against): suspect months are DISCLOSED per pair (``suspect_months``).
 
 Not ported yet: the bank's persistence on the registry's artifact plane
-(``save_bank``, ``load_bank``, ``bank_key``; ROADMAP §A item 7) and the
-estimator queries (``estimator_query``, ``scenario_query(estimator=...)``;
-ROADMAP §A item 5).
+(``save_bank``, ``load_bank``, ``bank_key``; ROADMAP §A item 7b).
 """
 
 from __future__ import annotations
@@ -52,8 +56,10 @@ from fm_returnprediction_tpu_torch.specgrid.grams import (
     unique_pairs,
 )
 from fm_returnprediction_tpu_torch.specgrid.solve import (
+    BF16_EPS,
     _solve_and_aggregate,
     expand_window_stats,
+    solve_spec_stats,
 )
 
 __all__ = [
@@ -61,6 +67,7 @@ __all__ = [
     "GramBank",
     "bootstrap_query",
     "build_bank",
+    "estimator_query",
     "ingest_month",
     "scenario_query",
     "window_query",
@@ -359,6 +366,191 @@ def bootstrap_query(
     return point, [tuple(leaf[k] for leaf in stacked) for k in range(bank.n_pairs)]
 
 
+def _estimator_selectors(bank: GramBank, est):
+    """The (sel_aug (K, Q), aux_sel (K, Q), sel_solve (K, P)) selectors of
+    an estimator on the bank's pairs (host numpy): the solved selection
+    with its intercept, the kind's second block (FWL controls, IV
+    instruments; intercept + the pair's columns for the other kinds, which
+    ignore it) and the solved columns. Under IV the banked columns are
+    read as structural ∪ excluded instruments. Every control, instrument and
+    endogenous column must be banked in EVERY pair."""
+    union = bank.union
+    pos = {c: i for i, c in enumerate(union)}
+
+    def _mask(names, what):
+        m = np.zeros(len(union), bool)
+        for nm in names:
+            if nm not in pos:
+                raise KeyError(f"estimator {what} column {nm!r} is not in the bank's union "
+                               f"{tuple(union)}")
+            m[pos[nm]] = True
+        return m
+
+    def _require_banked(m, what):
+        lacking = [bank.pair_labels[k] for k in range(bank.n_pairs)
+                   if not (m <= bank.col_sel[k]).all()]
+        if lacking:
+            raise ValueError(
+                f"estimator {what} columns were not contracted into every banked pair — pairs "
+                f"lacking them: {lacking}; rebuild the bank with the columns in each regressor "
+                "set")
+
+    col_sel = np.asarray(bank.col_sel, bool)
+    ones = np.ones((bank.n_pairs, 1), bool)
+    aux_sel = np.concatenate([ones, col_sel], axis=1)  # placeholder
+    sel_solve = col_sel
+    if est.kind == "fwl":
+        ctrl = _mask(est.controls, "control")
+        _require_banked(ctrl, "control")
+        sel_solve = col_sel & ~ctrl[None, :]
+        aux_sel = np.concatenate([ones, np.broadcast_to(ctrl, col_sel.shape)], axis=1)
+    elif est.kind == "iv":
+        inst = _mask(est.instruments, "instrument")
+        endog = _mask(est.endog, "endogenous")
+        _require_banked(inst, "instrument")
+        _require_banked(endog, "endogenous")
+        sel_solve = col_sel & ~inst[None, :]
+        aux_sel = np.concatenate([ones, (sel_solve & ~endog[None, :]) | inst[None, :]], axis=1)
+    return np.concatenate([ones, sel_solve], axis=1), aux_sel, sel_solve
+
+
+def _bank_eps(bank: GramBank):
+    """(data_eps, contracted_eps): the cutoffs at the eps the stats were
+    CONTRACTED in — bf16's for a bf16 bank (whose stats are float32), the
+    bank dtype's otherwise, where the solve's own eps applies. The stats
+    are transformed and solved at their own dtype (``estimators.grid``)."""
+    if str(bank.meta.get("precision", "highest")) == "bf16":
+        return BF16_EPS, BF16_EPS
+    return float(np.finfo(np.dtype(bank.dtype)).eps), None
+
+
+def _bank_estimator_program(stats: SpecGramStats, sel_aug, aux_sel, col_sel, window, *,
+                            kind: str, se: str, nw_lags: int, min_months: int,
+                            weights: Tuple[str, ...], data_eps: float, contracted_eps):
+    """Window-mask the banked stats, run the kind's Gram-stat transform
+    (FWL Schur complement / IV two-solve / pooled month sum — never the
+    panel), then the padded solve + SE-family tail. The estimator twin of
+    ``_bank_query_program``; the (T, N, P) panel never appears."""
+    from fm_returnprediction_tpu_torch.specgrid.estimators.cluster import pooled_fit
+    from fm_returnprediction_tpu_torch.specgrid.estimators.fwl import fwl_transform
+    from fm_returnprediction_tpu_torch.specgrid.estimators.grid import _fm_tail
+    from fm_returnprediction_tpu_torch.specgrid.estimators.iv import iv_r2, iv_transform
+
+    k = stats.gram.shape[0]
+    masked = expand_window_stats(stats, torch.arange(k, device=stats.gram.device), window)
+    if kind == "pooled":
+        return pooled_fit(masked, sel_aug, se, data_eps, panel=None)
+    if kind == "fwl":
+        stats2, deficient = fwl_transform(masked, sel_aug | aux_sel, aux_sel, data_eps)
+    elif kind == "iv":
+        stats2, deficient = iv_transform(masked, sel_aug, aux_sel, data_eps)
+    else:  # ols under a non-default SE family: the banked stats as they are
+        stats2 = masked
+        deficient = torch.zeros(masked.n.shape, dtype=torch.bool, device=masked.n.device)
+    sol, _ = solve_spec_stats(stats2, sel_aug, contracted_eps=contracted_eps)
+    if kind == "iv":
+        sol = sol._replace(r2=iv_r2(sol.beta, masked, sol.month_valid))
+    suspect = sol.suspect | (deficient & sol.month_valid)
+    cs, fms = _fm_tail(sol, stats2.n, col_sel, stats.gram.dtype, weights=weights, se=se,
+                       nw_lags=nw_lags, min_months=min_months)
+    return cs, fms, suspect
+
+
+def estimator_query(
+    bank: GramBank,
+    estimator,
+    window=None,
+    nw_lags: Optional[int] = None,
+    min_months: Optional[int] = None,
+    weight: str = "reference",
+    device=None,
+) -> Tuple[BankQueryResult, Dict[str, object]]:
+    """One estimator cell for every banked pair, answered from the banked
+    month-axis Gram stats on ``device`` (``None`` → the GPU) — the
+    ``window_query`` of the estimator family. ``estimator`` is an
+    ``Estimator``, a grammar string (``"fwl:beme+mom@iid"``), or None
+    (``FMRP_SPECGRID_ESTIMATOR``/OLS through ``resolve_estimator``).
+    Returns ``(result, disclosures)``; ``disclosures["col_sel"]`` is the (K,
+    P) selection actually SOLVED (focal columns under FWL, structural under
+    IV).
+
+    - ``ols``/``fwl``/``iv``: exact Gram-stat transforms of the banked
+      leaves, no panel contraction (``solve.contraction_counts`` and the K2
+      launch counter stay flat);
+    - ``pooled``: the month-separable SE families only
+      (``estimators.BANK_POOLED_SE``); the firm/White/two-way meats need
+      firm-level residuals the bank does not hold, so they raise
+      ``ValueError``;
+    - ``absorb``: raises ``ValueError`` — the alternating projections need
+      per-(month, FE cell) stats the bank does not carry.
+
+    Under IV the banked pair columns are read as structural ∪ EXCLUDED
+    instruments: ``instruments`` leave the structural selection. Every
+    control/instrument must be banked in EVERY pair (loud otherwise, naming
+    the pairs)."""
+    from fm_returnprediction_tpu_torch.specgrid.estimators.cluster import BANK_POOLED_SE
+    from fm_returnprediction_tpu_torch.specgrid.estimators.core import resolve_estimator
+
+    est = resolve_estimator(estimator)
+    if est.kind == "absorb":
+        raise ValueError(
+            f"estimator {est.label!r} cannot be served from the gram bank: absorbed FE needs "
+            "per-(month, FE-cell) sufficient stats the bank does not carry — run "
+            "run_estimator_grid_weights on the panel instead")
+    if est.kind == "pooled" and est.se not in BANK_POOLED_SE:
+        raise ValueError(
+            f"pooled SE family {est.se!r} needs firm-level residual scores the bank does not "
+            f"hold; bank-servable families are {BANK_POOLED_SE} — run the grid route for the "
+            "rest")
+    nw_lags = _bank_int(bank, "nw_lags", nw_lags, 4)
+    min_months = _bank_int(bank, "min_months", min_months, 10)
+    sel_aug, aux_sel, sel_solve = _estimator_selectors(bank, est)
+    data_eps, contracted_eps = _bank_eps(bank)
+
+    dev = resolve_device(device)
+    mask = _window_mask(bank, window)
+    win = torch.as_tensor(np.broadcast_to(mask, (bank.n_pairs, bank.n_months)).copy(),
+                          device=dev)
+    out = _bank_estimator_program(
+        bank.stats(dev), torch.as_tensor(sel_aug, device=dev),
+        torch.as_tensor(aux_sel, device=dev), torch.as_tensor(sel_solve, device=dev), win,
+        kind=est.kind, se=est.se, nw_lags=nw_lags, min_months=min_months,
+        weights=(str(weight),), data_eps=data_eps, contracted_eps=contracted_eps)
+    disclosures: Dict[str, object] = {"estimator": est.label, "kind": est.kind,
+                                      "se_family": est.se, "col_sel": sel_solve}
+    k, t, p = bank.n_pairs, bank.n_months, len(bank.union)
+    if est.kind == "pooled":
+        res = out
+        deficient = _host(res.deficient).astype(bool)
+        n_months = _host(res.n_months).astype(np.int64)
+        disclosures["deficient_months"] = deficient.astype(np.int64)
+        nan_kt = np.full((k, t), np.nan)
+        result = BankQueryResult(
+            slopes=np.full((k, t, p), np.nan), r2=nan_kt.copy(), n_obs=nan_kt.copy(),
+            month_valid=np.zeros((k, t), bool),
+            coef=_host(res.beta[:, 1:]).astype(float),
+            tstat=_host(res.tstat[:, 1:]).astype(float),
+            nw_se=_host(res.se[:, 1:]).astype(float),
+            mean_r2=_host(res.r2).astype(float),
+            mean_n=np.divide(_host(res.n_total).astype(float), np.maximum(n_months, 1),
+                             where=n_months > 0, out=np.full(n_months.shape, np.nan)),
+            n_months=n_months,
+            suspect_months=deficient.astype(np.int64),
+        )
+        return result, disclosures
+    cs, fms, suspect = out
+    fm = fms[0]
+    suspect_months = _host(suspect).sum(axis=1).astype(np.int64)
+    disclosures["deficient_months"] = suspect_months
+    result = BankQueryResult(
+        slopes=_host(cs.slopes), r2=_host(cs.r2), n_obs=_host(cs.n_obs),
+        month_valid=_host(cs.month_valid), coef=_host(fm.coef), tstat=_host(fm.tstat),
+        nw_se=_host(fm.nw_se), mean_r2=_host(fm.mean_r2), mean_n=_host(fm.mean_n),
+        n_months=_host(fm.n_months), suspect_months=suspect_months,
+    )
+    return result, disclosures
+
+
 def scenario_query(
     bank: GramBank,
     windows: Optional[Dict[str, object]] = None,
@@ -374,26 +566,49 @@ def scenario_query(
     predictor/coef/tstat/... plus ``draw`` when bootstrapped), answered per
     (window, weight, draw) from the bank on ``device`` with ZERO panel
     reads. No QR referee exists here, so ``refereed`` is always False and
-    ``suspect_months`` carries the disclosure. ``estimator`` must be None:
-    the bank's estimator queries are not ported yet (ROADMAP §A item 5)."""
-    if estimator is not None:
-        raise NotImplementedError(
-            "bank estimator queries (scenario_query(estimator=...), estimator_query) are "
-            "not ported yet (ROADMAP §A item 5)")
+    ``suspect_months`` carries the disclosure.
+
+    ``estimator`` (None: the OLS@NW path) sweeps the scenarios under a
+    bank-servable estimator cell (:func:`estimator_query`); rows then carry
+    ``estimator``/``se_family``, and bootstrap draws resample the
+    transformed per-month slope series (pooled has no month series, so
+    pooled with ``bootstrap > 1`` raises)."""
     windows = windows if windows is not None else {"full": None}
     label_of = label_of or {}
     rows = []
     union = bank.union
+    est = None
+    if estimator is not None:
+        from fm_returnprediction_tpu_torch.specgrid.estimators.core import resolve_estimator
+
+        est = resolve_estimator(estimator)
+        if est.kind == "pooled" and bootstrap > 1:
+            raise ValueError("pooled estimator cells produce no per-month slope series to "
+                             "resample — bootstrap must be 1")
     for win_name, window in windows.items():
         for w in weights:
-            if bootstrap > 1:
+            est_sel = None
+            if est is not None:
+                point, disc = estimator_query(bank, est, window, weight=w, device=device)
+                est_sel = disc["col_sel"]
+                draw_stacks = None
+                if bootstrap > 1:
+                    idx = resample_matrix(bank.n_months, int(bootstrap), seed=seed)
+                    mask = _window_mask(bank, window)
+                    stacked = bootstrap_aggregate_pairs(
+                        point.slopes, point.r2, point.n_obs, point.month_valid & mask[None, :],
+                        idx, _bank_int(bank, "nw_lags", None, 4),
+                        _bank_int(bank, "min_months", None, 10), w, device=device)
+                    draw_stacks = [tuple(leaf[k] for leaf in stacked)
+                                   for k in range(bank.n_pairs)]
+            elif bootstrap > 1:
                 point, draw_stacks = bootstrap_query(bank, bootstrap, window, seed=seed,
                                                      weight=w, device=device)
             else:
                 point = window_query(bank, window, weight=w, device=device)
                 draw_stacks = None
             for k, (set_name, uni) in enumerate(bank.pair_labels):
-                pos = np.flatnonzero(bank.col_sel[k])
+                pos = np.flatnonzero(bank.col_sel[k] if est_sel is None else est_sel[k])
                 for d in range(int(bootstrap)):
                     if d == 0:
                         coef, tstat, nw_se = point.coef[k], point.tstat[k], point.nw_se[k]
@@ -422,6 +637,9 @@ def scenario_query(
                             "suspect_months": int(point.suspect_months[k]),
                             "source": "bank",
                         }
+                        if est is not None:
+                            r["estimator"] = est.label
+                            r["se_family"] = est.se
                         if bootstrap > 1:
                             r["draw"] = d
                         rows.append(r)

@@ -119,6 +119,7 @@ def run_scenarios(
     precision: Optional[str] = None,
     factorize: Optional[str] = None,
     estimators=None,
+    fe_codes: Optional[Dict[str, object]] = None,
 ):
     """The scenario sweep: one tidy row per (cell, predictor).
 
@@ -136,9 +137,11 @@ def run_scenarios(
 
     ``cells=N`` grows the bootstrap-draw dimension until the space holds at
     least N cells. ``sink`` is a ``sinks.Sink``, a sink name, or None (the
-    ``FMRP_SPECGRID_SINK`` / full-frame default). ``estimators`` takes
-    ``Estimator`` values or grammar strings; only OLS with the Newey-West
-    tail runs (ROADMAP A5). ``mesh`` raises (ROADMAP A8).
+    ``FMRP_SPECGRID_SINK`` / full-frame default). ``estimators`` adds the
+    estimator dimension: ``Estimator`` values or grammar strings
+    (``"fwl:log_size@iid"``, ``parse_estimator``); None keeps the OLS@NW
+    space and its row schema. ``fe_codes`` maps FE names → (T, N) int code
+    arrays for ``absorb`` cells. ``mesh`` raises (ROADMAP A8).
     """
     from fm_returnprediction_tpu_torch.models.lewellen import MODELS
     from fm_returnprediction_tpu_torch.specgrid.cellspace import scenario_space
@@ -178,6 +181,7 @@ def run_scenarios(
         referee=referee, mask=panel.mask, label_of=label_of, seed=seed,
         coreset_m=coreset_m, coreset_budget_mb=coreset_budget_mb,
         output_dir=output_dir, precision=precision, factorize=factorize,
+        fe_codes=fe_codes,
     )
     if return_stats:
         return frame, stats
@@ -236,8 +240,11 @@ def run_scenarios_banked(
     per pair and no panel read. ``windows`` defaults to the full sample;
     pass ``subperiod_windows(bank.n_months, pieces)`` for fresh splits. No
     QR referee runs here: ``refereed`` is always False and
-    ``suspect_months`` carries the disclosure. ``estimator`` raises until
-    the bank's estimator queries are ported (ROADMAP §A item 5)."""
+    ``suspect_months`` carries the disclosure. ``estimator`` sweeps the
+    banked scenarios under a bank-servable estimator cell
+    (``grambank.estimator_query``: ols/fwl/iv and the month-separable
+    pooled families), still without a panel contraction; absorb raises there
+    (the bank holds no FE-cell stats)."""
     from fm_returnprediction_tpu_torch.specgrid.grambank import scenario_query
 
     label_of = ({col: label for label, col in variables_dict.items()}

@@ -673,8 +673,15 @@ def test_cli_backtest_flags_parse_and_estimator_stays_refused(monkeypatch, capsy
     with pytest.raises(Stop):
         port_pipeline._main(["--synthetic", "--device", "cpu", "--backtest"])
     assert seen["make_backtest"] and seen["backtest_sink"] is None
+    # --specgrid-estimator is ported: it reaches the backtest stage too, as
+    # in the reference (the pipeline passes it to run_backtest_scenarios)
+    with pytest.raises(Stop):
+        port_pipeline._main(["--synthetic", "--device", "cpu", "--backtest",
+                             "--specgrid-estimator", "fwl:c0"])
+    assert seen["make_backtest"] and seen["make_specgrid"]
+    assert seen["specgrid_estimator"] == "fwl:c0"
     for argv in (["--backtest-route", "bogus"], ["--backtest-sink", "bogus"],
-                 ["--backtest", "--specgrid-estimator", "fwl:c0"]):
+                 ["--backtest", "--trace-dir", "/tmp/x"]):
         with pytest.raises(SystemExit) as exc:
             port_pipeline._main(["--synthetic", "--device", "cpu"] + argv)
         assert exc.value.code == 2

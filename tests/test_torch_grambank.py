@@ -198,11 +198,28 @@ def test_scenario_query_schema_and_zero_panel_reads(banks):
 
 
 def test_scenario_query_with_an_estimator_raises(banks):
-    port, _, _ = banks
-    with pytest.raises(NotImplementedError, match=r"ROADMAP §A item 5"):
-        grambank.scenario_query(port, estimator="fwl:c0", device=CPU)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP §A item 5"):
-        scenarios.run_scenarios_banked(port, estimator="fwl:c0", device=CPU)
+    """``scenario_query(estimator="fwl:c0")`` and ``run_scenarios_banked``
+    (once refused here) against the reference's frames, with no panel
+    contraction; the bank-unservable absorb kind still raises."""
+    port, ref, _ = banks
+    kw = dict(windows={"full": None, "late": (20, 30)}, estimator="fwl:c0")
+    before = contraction_counts()
+    frame = grambank.scenario_query(port, device=CPU, **kw)
+    banked = scenarios.run_scenarios_banked(port, device=CPU, **kw)
+    assert contraction_counts() == before
+    for got, want in ((frame, jax_grambank.scenario_query(ref, **kw)),
+                      (banked, jax_scenarios.run_scenarios_banked(ref, **kw))):
+        assert list(got.columns) == list(want.columns) and len(got) == len(want) > 0
+        for c in want.columns:
+            if want[c].dtype.kind == "f":
+                np.testing.assert_allclose(got[c], want[c], atol=1e-10, rtol=1e-10,
+                                           equal_nan=True, err_msg=c)
+            else:
+                np.testing.assert_array_equal(got[c].to_numpy(), want[c].to_numpy(),
+                                              err_msg=c)
+    assert set(frame["estimator"]) == {"fwl[c0]"} and "c0" not in set(frame["predictor"])
+    with pytest.raises(ValueError, match="absorb"):
+        grambank.scenario_query(port, estimator="absorb:ind", device=CPU)
 
 
 class _MiniPanel:

@@ -295,8 +295,11 @@ def test_port_runs_with_jax_blocked(tmp_path):
     checkpoints, the spec-grid scenario sweep, in process and through
     the command line, the bootstrap-SE table in process and through the
     command line, the stacked-QR route through ``FMRP_SPECGRID_ROUTE``, one
-    serving-state month ingest, and the rolling-origin backtest in process
-    and through the command line (``backtest.csv`` written)."""
+    serving-state month ingest, the rolling-origin backtest in process
+    and through the command line (``backtest.csv`` written), and the
+    estimator family: one sweep of each of fwl, iv, absorb and pooled, one
+    bank ``estimator_query``, and ``--specgrid-estimator`` through the
+    command line."""
     code = textwrap.dedent("""
         import runpy
         import sys
@@ -403,6 +406,22 @@ def test_port_runs_with_jax_blocked(tmp_path):
         runpy.run_module("fm_returnprediction_tpu_torch.pipeline", run_name="__main__")
         metrics = pd.read_csv(tmp + "/out_bt/backtest.csv")
         assert len(metrics) == 4 and "spread_tstat_mean" in metrics.columns, metrics.shape
+
+        from fm_returnprediction_tpu_torch.specgrid import grambank
+        from fm_returnprediction_tpu_torch.specgrid.scenarios import (
+            bank_for_scenarios, run_scenarios)
+        panel, masks, factors = res.panel, res.subset_masks, res.factors_dict
+        fe = {"ind": np.random.default_rng(2016).integers(0, 12, panel.values.shape[:2])}
+        for spec in ("fwl:log_size", "iv:log_bm~log_issues_36", "absorb:ind",
+                     "pooled:cluster_twoway"):
+            est = run_scenarios(panel, masks, factors, estimators=(spec,), fe_codes=fe)
+            assert est["estimator"].nunique() == 1 and est["coef"].notna().any(), spec
+        bank = bank_for_scenarios(panel, masks, factors, device="cpu")
+        served, disc = grambank.estimator_query(bank, "pooled:cluster_month", device="cpu")
+        assert disc["kind"] == "pooled" and np.isfinite(served.coef).any()
+        sys.argv = ["pipeline", "--synthetic", "--firms", "60", "--months", "72",
+                    "--device", "cpu", "--specgrid-estimator", "fwl:log_size"]
+        runpy.run_module("fm_returnprediction_tpu_torch.pipeline", run_name="__main__")
         loaded = [m for m in sys.modules
                   if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
         assert not loaded, loaded
@@ -452,7 +471,10 @@ def test_port_never_names_jax_or_the_jax_package(pattern):
             "parallel/bootstrap.py", "specgrid/grambank.py", "specgrid/estimators/fwl.py",
             "backtest/__init__.py", "backtest/paths.py", "backtest/evaluate.py",
             "backtest/portfolio.py", "backtest/space.py", "backtest/sinks.py",
-            "backtest/sweep.py"} <= names
+            "backtest/sweep.py", "ops/newey_west.py", "specgrid/estimators/__init__.py",
+            "specgrid/estimators/absorb.py", "specgrid/estimators/cluster.py",
+            "specgrid/estimators/grid.py", "specgrid/estimators/iv.py",
+            "specgrid/estimators/stream.py"} <= names
     hits = [str(f.relative_to(REPO)) for f in files
             if re.search(pattern, f.read_text())]
     assert not hits, hits

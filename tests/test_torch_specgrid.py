@@ -278,15 +278,20 @@ def test_bf16_sweep_matches_jax(panels, case):
 def test_sweep_refuses_what_is_not_ported(panels, monkeypatch):
     ppanel, pmasks = panels["port"]
     factors = panels["factors"]
-    with pytest.raises(NotImplementedError, match="A5"):
-        run_scenarios(ppanel, pmasks, factors, estimators=["fwl:log_size"])
+    # the estimator sweep runs (the family is ported; its parity with the
+    # reference is held in tests/test_torch_estimators.py)
+    frame = run_scenarios(ppanel, pmasks, factors, estimators=["fwl:log_size"])
+    assert set(frame["estimator"]) == {"fwl[log_size]"} and frame["coef"].notna().any()
     with pytest.raises(NotImplementedError, match="A8"):
         run_scenarios(ppanel, pmasks, factors, mesh=object())
+    # a leaked non-OLS knob stops the pipeline at Table 2, the paper's OLS
+    # parity surface, as in the reference
     monkeypatch.setenv("FMRP_SPECGRID_ESTIMATOR", "iv:log_size~log_bm")
-    with pytest.raises(NotImplementedError, match="A5"):
+    with pytest.raises(ValueError, match="ols") as exc:
         port_pipeline.run_pipeline(synthetic=True, synthetic_config=SyntheticConfig(
             n_firms=40, n_months=48), device="cpu", make_figure=False, make_deciles=False,
             make_serving=False, make_specgrid=True)
+    assert any(str(e.path).endswith("table2.py") for e in exc.traceback)
     monkeypatch.delenv("FMRP_SPECGRID_ESTIMATOR")
     monkeypatch.setenv("FMRP_SPECGRID_PROCS", "2")
     with pytest.raises(NotImplementedError, match="A8"):
