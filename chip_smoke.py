@@ -34,6 +34,24 @@ Phases (any failure exits non-zero without the final line):
    violations, counters only for conditioning), unguarded (every artifact
    bit-identical, the same launches: K1 17, K2 2, K3 0), and guarded again
    on the same audit directory (the drift check passes by sha);
+4b. the online service over the first run's serving state
+   (``serving_phase``): ``ERService(device="cuda", max_batch=256)`` warms
+   one CUDA graph per bucket (9 captures, nothing built after); every
+   universe row with a realized return of the last 12 months is quoted
+   through ``submit_many`` in seeded mixed batch sizes (1..256) and through
+   ``query_many``, held against the run's batch forecast
+   (``rolling_er_forecast``) with the NaN pattern exact and
+   ``|serve − batch| ≤ 8·eps32·(|ā| + Σ|x b̄|)``; the real rows bit-equal
+   across every bucket and between graph replay and eager dispatch; p50/p99
+   latency, qps, and each bucket's graph against eager dispatch time;
+4c. tracing and profiling the main path (``trace_phase``,
+   ``profile_phase``): ``run_pipeline(trace_dir=)`` against an untraced
+   run (artifacts bit-identical, launches equal, ``events.jsonl`` and
+   ``trace.json`` parse, a span for every stage; both walls), and
+   ``run_pipeline(profile_dir=)``: the ``torch.profiler`` trace's kernel
+   rows carry K1's and K2's names with the counters' launch counts, and the
+   card's busy share inside ``factors/daily_kernels`` (and three other
+   intervals) is read from it;
 5. the same inputs through the prepared-inputs slot at real size:
    ``save_prepared``, the memory-mapped ``load_prepared`` (and one load with
    ``FMRP_PREPARED_VERIFY=1``), timed, then the main path from the mapped
@@ -60,7 +78,11 @@ Phases (any failure exits non-zero without the final line):
    Gram bank of the first 599 months (one K2 launch a call, timed), held
    against a bank of all 600 (leaves at 1e-13 of their max,
    ``window_query`` at 1e-11 of ``max(|coef|, 1)`` on the pairs without a
-   suspect month);
+   suspect month); and through ``ERService.ingest_month`` on the card
+   (``service_ingest_phase``): a ``poison_nan_flood`` at ``serving.ingest``
+   quarantined with the quotes unchanged, then the clean month swapped in
+   behind newly captured graphs while two client threads keep quoting,
+   equal to the module's ingest;
 5e. the rolling-origin backtest at real size (36 cells: expanding and
    rolling120 × 3 models × 3 universes × EW/VW) through
    ``run_pipeline(make_backtest=True)`` guarded (no violation, VW kept,
@@ -114,7 +136,9 @@ Phases (any failure exits non-zero without the final line):
    where matplotlib does not import), ``--backtest --backtest-sink
    metrics`` (the ``backtest`` stage, K2 3; ``backtest.csv`` written), and
    ``--specgrid --specgrid-estimator iv:…`` (exit 0, K2 3) and
-   ``--specgrid-estimator absorb:ind`` (exits non-zero, as the reference);
+   ``--specgrid-estimator absorb:ind`` (exits non-zero, as the reference),
+   and ``--trace-dir D --profile-dir P`` (both trace files and the profile
+   written; the profile's kernel rows equal the launches);
 10. a raw directory of 1,000 firms × 240 months (``write_synthetic_cache``)
    through the command line three times: cold (the columnar route ran and
    wrote the slot, no fallback warning), warm (the slot was mapped,
@@ -140,8 +164,10 @@ so, and phase 3 holds it against its plain version like every other, also
 on a ragged multi-chunk shape, checks that two launches give the same bits,
 and prints each shape's chunk plan.
 
-The last lines are a JSON object of per-kernel numbers, the ``nvidia-smi``
-line, and ``{"ok": true, "device": {...}}``.
+Each phase added with the telemetry layer and the service prints its
+seconds (``phase <name>: s``). The last lines are a JSON object of
+per-kernel numbers, the ``nvidia-smi`` line, and ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -157,6 +183,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -164,6 +191,7 @@ import numpy as np
 import pandas as pd
 import torch
 
+from fm_returnprediction_tpu_torch import telemetry
 from fm_returnprediction_tpu_torch.backtest import (
     backtest_paths,
     backtest_space,
@@ -184,9 +212,11 @@ from fm_returnprediction_tpu_torch.ops.rolling import (
     rolling_reduce_cuda,
     rolling_reduce_plain,
 )
+from fm_returnprediction_tpu_torch.models.forecast import rolling_er_forecast
 from fm_returnprediction_tpu_torch.models.lewellen import FIGURE1_VARS, MODELS, model_columns
 from fm_returnprediction_tpu_torch.ops.fama_macbeth import fama_macbeth
 from fm_returnprediction_tpu_torch.ops.newey_west import compact_front
+from fm_returnprediction_tpu_torch.ops.ols import CSRegressionResult
 from fm_returnprediction_tpu_torch.parallel.bootstrap import (
     block_bootstrap_se,
     draw_block_starts,
@@ -197,7 +227,8 @@ from fm_returnprediction_tpu_torch.reporting.bootstrap_table import build_bootst
 from fm_returnprediction_tpu_torch.registry.integrity import array_bundle_digest
 from fm_returnprediction_tpu_torch.resilience import checkpoint
 from fm_returnprediction_tpu_torch.resilience.errors import InjectedFault
-from fm_returnprediction_tpu_torch.resilience.faults import FaultPlan, FaultSpec
+from fm_returnprediction_tpu_torch.resilience.faults import FaultPlan, FaultSpec, poison_nan_flood
+from fm_returnprediction_tpu_torch.serving import ERService
 from fm_returnprediction_tpu_torch.serving.ingest import ingest_month
 from fm_returnprediction_tpu_torch.serving.state import ServingState, build_serving_state
 from fm_returnprediction_tpu_torch.specgrid.grams import (
@@ -212,6 +243,12 @@ from fm_returnprediction_tpu_torch.specgrid import grambank
 from fm_returnprediction_tpu_torch.specgrid.cellspace import scenario_space
 from fm_returnprediction_tpu_torch.specgrid.estimators import parse_estimator
 from fm_returnprediction_tpu_torch.specgrid.scenarios import bank_for_scenarios, run_scenarios
+from fm_returnprediction_tpu_torch.telemetry.perf import (
+    DEVICE_CATEGORIES,
+    PROFILE_TRACE_NAME,
+    device_busy_share,
+    profile_kernel_counts,
+)
 from fm_returnprediction_tpu_torch.utils.timing import StageTimer
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
@@ -850,8 +887,9 @@ def main_path(base, daily, audit_dir: Path):
     """The main path at real size: guarded with the drift sentinel armed,
     then unguarded (bit-identical, same launches), then guarded again on
     the same audit directory (the drift check passes by sha). Returns the
-    first run's launch counts, artifact digests and its Table 2, Figure 1
-    and decile frames (the Gram route's, for ``stacked_phase``)."""
+    first run's launch counts, artifact digests, its Table 2, Figure 1
+    and decile frames (the Gram route's, for ``stacked_phase``) and its
+    ``serving_reference`` (for ``serving_phase``)."""
     torch.cuda.reset_peak_memory_stats()
     res, wall, counts = counted_run(base, daily, guard=True, audit_dir=audit_dir)
     stages = res.stage_seconds
@@ -904,9 +942,10 @@ def main_path(base, daily, audit_dir: Path):
     digests = artifact_digests(res)
     frames = {"table_2": res.table_2, "decile_table": res.decile_table,
               **{f"figure_1/{name}": frame for name, frame in res.figure_1.items()}}
+    serving = serving_reference(res)
     del res, again
     torch.cuda.empty_cache()
-    return counts, digests, frames
+    return counts, digests, frames, serving
 
 
 def slot_phase(base, daily, digests: dict) -> None:
@@ -952,6 +991,349 @@ def slot_phase(base, daily, digests: dict) -> None:
         del res
     torch.cuda.empty_cache()
 
+
+
+
+# --- the telemetry layer and the online service ----------------------------
+
+SERVING_MAX_BATCH = 256
+SERVING_MONTHS = 12
+# serving vs the batch forecast, f32: both sum the same six terms (the
+# intercept and P = 5 products) in f32, in different orders (the batch's
+# einsum, the serving loop over P in order), so they may differ by the
+# rounding of such a sum: at most (P + 1)·eps32 of the terms' absolute sum
+SERVING_ULPS = 8
+PROFILE_KERNELS = {"k1": r"\brolling_reduce_kernel\b", "k2": r"\bgram(_tc)?_kernel\b",
+                   "moments": r"\bmoments_(totals|scan)_kernel\b"}
+
+
+def phase_timed(name: str, fn, *args):
+    """Run one phase and print its seconds."""
+    start = time.perf_counter()
+    out = fn(*args)
+    log(f"phase {name}: {time.perf_counter() - start:.1f} s")
+    return out
+
+
+def serving_reference(res) -> dict:
+    """What the serving phase holds the service to, taken from a main-path
+    run before it is freed: its serving state, and the batch forecast
+    (``rolling_er_forecast`` on the "All stocks" figure model, from the
+    run's own cross-sections, as the state) over the last
+    ``SERVING_MONTHS`` months, with the rows to query (in the universe,
+    with a realized return: the batch forecast's row set)."""
+    y = res.panel.var("retx")
+    x = res.panel.select(list(FIGURE1_VARS))
+    mask = res.subset_masks["All stocks"]
+    cs = CSRegressionResult(*(torch.as_tensor(np.asarray(a), device=y.device)
+                              for a in res.sweep["All stocks"].cs))
+    fr = rolling_er_forecast(y, x, mask, cs=cs)
+    last = slice(-SERVING_MONTHS, None)
+    t = y.shape[0]
+    rows = (mask[last] & torch.isfinite(y[last])).cpu().numpy()
+    return dict(state=res.serving_state, er=fr.er[last].cpu().numpy(),
+                slopes_bar=fr.slopes_bar[last].cpu().numpy(),
+                intercept_bar=fr.intercept_bar[last].cpu().numpy(),
+                x=x[last].cpu().numpy(), rows=rows, months=np.arange(t - SERVING_MONTHS, t))
+
+
+def _serving_worst(got, ref, months, firms) -> tuple:
+    """The serving answers against the batch forecast: (the NaN patterns
+    are equal, the worst |diff| over its bound, the worst |diff|), the
+    bound ``SERVING_ULPS``·eps32 of |ā| + Σ|x_p b̄_p| (float64 on the host)."""
+    state, slot = ref["state"], months - ref["months"][0]
+    want = ref["er"][slot, firms]
+    same_nan = bool(np.array_equal(np.isnan(got), np.isnan(want)))
+    fin = np.isfinite(want)
+    xq = ref["x"][slot, firms].astype(np.float64)
+    terms = (np.abs(state.intercept_bar[months].astype(np.float64))
+             + np.abs(xq * state.slopes_bar[months].astype(np.float64)).sum(-1))
+    bound = SERVING_ULPS * np.finfo(np.float32).eps * terms
+    diff = np.abs(got.astype(np.float64) - want.astype(np.float64))[fin]
+    return same_nan, float((diff / bound[fin]).max(initial=0.0)), float(diff.max(initial=0.0))
+
+
+def serving_phase(ref) -> None:
+    """``ERService(device="cuda", max_batch=256)`` over the main path's
+    serving state: every bucket captured once at warm-up; every universe
+    row with a realized return of the last 12 months queried through
+    ``submit_many`` in mixed batch sizes (1..256, seeded; p50/p99 latency
+    and qps read from ``stats()`` after this pass) and again through
+    ``query_many`` (256 rows a call), held against the batch forecast of
+    the same run (NaN pattern exact, f32 pin ``SERVING_ULPS``); the real
+    rows bit-equal across every bucket and between graph replay and an
+    eager dispatch; no capture, no ledger record and no build-cache growth
+    after warm-up; per bucket, the graph dispatch's time against the eager
+    one's (host clock, each ends in a stream synchronize)."""
+    state = ref["state"]
+    slot_months, firms = np.nonzero(ref["rows"])
+    months = ref["months"][slot_months]
+    xq = ref["x"][slot_months, firms]
+    n_rows = len(months)
+    bars_equal = bool(np.array_equal(state.slopes_bar[ref["months"]], ref["slopes_bar"],
+                                     equal_nan=True)
+                      and np.array_equal(state.intercept_bar[ref["months"]],
+                                         ref["intercept_bar"], equal_nan=True))
+    check(bool((state.have_coef()[ref["months"]] == np.isfinite(ref["intercept_bar"])).all()),
+          "serving state and batch forecast disagree on which months have a lagged mean")
+    ledger_before = telemetry.cost_ledger().last_seq
+    start = time.perf_counter()
+    with ERService(state, max_batch=SERVING_MAX_BATCH, device="cuda") as svc:
+        warm_s = time.perf_counter() - start
+        buckets = svc.executor.buckets()
+        captures = [r for r in telemetry.cost_ledger().since(ledger_before)
+                    if r.program == "serving_bucket"]
+        check(svc.executor.compiles == len(buckets) == len(captures)
+              and all(r.provenance == "captured" for r in captures),
+              f"warm-up captured {svc.executor.compiles} buckets for a ladder of "
+              f"{len(buckets)}")
+        log(f"serving: ERService over the main path's state ({state.n_months} months, "
+            f"{state.n_predictors} predictors, f32) warm in {warm_s:.3f} s: {len(buckets)} "
+            f"CUDA graphs captured, per bucket (ms) "
+            + json.dumps({r.bucket: round(r.compile_s * 1e3, 3) for r in captures})
+            + f"; serving bars equal the batch forecast's over the last {SERVING_MONTHS} "
+            f"months: {bars_equal}")
+        mark = telemetry.cost_ledger().last_seq
+        with telemetry.recompile_watch("serving", warm=True) as watch:
+            first_s = time_host(svc.query, int(months[0]), xq[0])
+            rng = np.random.default_rng(SERVING_MAX_BATCH)
+            got = np.empty(n_rows)
+            start = time.perf_counter()
+            lo = 0
+            while lo < n_rows:
+                hi = min(n_rows, lo + int(rng.integers(1, SERVING_MAX_BATCH + 1)))
+                out = svc.submit_many([(int(m), r) for m, r in zip(months[lo:hi], xq[lo:hi])])
+                check(all(kind == "ok" for kind, _ in out), "submit_many refused a request")
+                got[lo:hi] = [fut.result(timeout=60) for _, fut in out]
+                lo = hi
+            submit_s = time.perf_counter() - start
+            stats = svc.stats()
+            start = time.perf_counter()
+            again = np.concatenate([
+                svc.query_many(list(months[k:k + SERVING_MAX_BATCH]),
+                               list(xq[k:k + SERVING_MAX_BATCH]), timeout=60)
+                for k in range(0, n_rows, SERVING_MAX_BATCH)])
+            query_s = time.perf_counter() - start
+            end_stats = svc.stats()
+            # bits across buckets and graph vs eager, on the first 256 rows
+            head_m, head_x = months[:SERVING_MAX_BATCH], xq[:SERVING_MAX_BATCH]
+            full = svc.executor.run(head_m, head_x)
+            cross = {}
+            for size in (*buckets, 3, 5, 100, 255):
+                parts = [svc.executor.run(head_m[k:k + size], head_x[k:k + size])
+                         for k in range(0, len(head_m), size)]
+                cross[size] = bool(np.array_equal(np.concatenate(parts), full, equal_nan=True))
+            eager = svc.executor.run_eager(head_m, head_x)
+            graph_eq_eager = bool(np.array_equal(eager, full, equal_nan=True))
+            timing = {}
+            for b in buckets:
+                bm, bx = head_m[:b], head_x[:b]
+                g = [time_host(svc.executor.run, bm, bx) for _ in range(15)]
+                e = [time_host(svc.executor.run_eager, bm, bx) for _ in range(15)]
+                timing[b] = (float(np.median(g)) * 1e3, float(np.median(e)) * 1e3)
+        compiles, misses = svc.executor.compiles, end_stats["executable_cache_misses"]
+    after = telemetry.cost_ledger().since(mark)
+    same_nan, worst, worst_abs = _serving_worst(got, ref, months, firms)
+    same_nan2, worst2, _ = _serving_worst(again, ref, months, firms)
+    log(f"serving: {n_rows} rows (last {SERVING_MONTHS} months, {int(np.isfinite(got).sum())} "
+        f"answered): submit_many in mixed batches {submit_s:.3f} s "
+        f"({n_rows / submit_s:.0f} rows/s), query_many 256 at a time {query_s:.3f} s "
+        f"({n_rows / query_s:.0f} rows/s); vs the batch forecast: NaN pattern equal "
+        f"{same_nan and same_nan2}, worst |diff| {worst_abs:.3e} = {max(worst, worst2):.3f} of "
+        f"the bound ({SERVING_ULPS}·eps32·(|a|+Σ|x b|)); the two passes bit-equal "
+        f"{bool(np.array_equal(got, again, equal_nan=True))}")
+    log(f"serving: the first query after warm-up took {first_s * 1e3:.3f} ms; stats after "
+        f"the submit_many pass: p50 {stats['p50_ms']:.3f} ms, p99 "
+        f"{stats['p99_ms']:.3f} ms, qps {stats['qps']:.0f} (since warm-up), batches "
+        f"{stats['n_batches']}, occupancy {stats['batch_occupancy']:.3f}, hits "
+        f"{stats['executable_cache_hits']}, misses {stats['executable_cache_misses']}, "
+        f"compiles {stats['executable_compiles']}")
+    log("serving bits: real rows equal across bucket sizes "
+        + json.dumps({str(k): v for k, v in cross.items()})
+        + f"; graph replay = eager dispatch {graph_eq_eager}")
+    log("serving dispatch per bucket, graph vs eager (ms, median of 15, host clock to the "
+        "synchronized result): "
+        + json.dumps({b: [round(g, 4), round(e, 4)] for b, (g, e) in timing.items()}))
+    check(same_nan and same_nan2, "serving NaN pattern differs from the batch forecast")
+    check(worst <= 1.0 and worst2 <= 1.0, "serving differs from the batch forecast beyond "
+          "its f32 pin")
+    check(all(cross.values()), f"real rows differ in bits across buckets: {cross}")
+    check(graph_eq_eager, "graph replay and eager dispatch differ in bits")
+    check(misses == 0 and compiles == len(buckets) and not after and watch.grew == 0,
+          f"a capture or a build after warm-up: misses {misses}, compiles {compiles}, "
+          f"ledger records {len(after)}, build cache +{watch.grew}")
+
+
+def time_host(fn, *args) -> float:
+    start = time.perf_counter()
+    fn(*args)
+    return time.perf_counter() - start
+
+
+def service_ingest_phase(prior, row, month, card) -> None:
+    """``ERService.ingest_month`` on the card (float64, the real-size
+    serving state of ``ingest_phase``): a NaN flood injected at
+    ``serving.ingest`` (``poison_nan_flood``) quarantines the month under
+    ``cs.nan_flood`` and the service keeps quoting from its previous state;
+    the clean month then swaps in behind a freshly captured executor while
+    two client threads keep quoting the previous month (every answer its
+    previous bits), its state equal to ``serving.ingest.ingest_month``'s
+    and its quotes to that state's projection (rtol 1e-9, atol 1e-12)."""
+    rows = np.nonzero(row[2] & np.isfinite(row[1]).all(1))[0][:SERVING_MAX_BATCH]
+    prev = prior.n_months - 1
+    with ERService(prior, max_batch=SERVING_MAX_BATCH, device="cuda") as svc:
+        before = svc.query_many([prev] * len(rows), list(row[1][rows]), timeout=60)
+        with FaultPlan({"serving.ingest": FaultSpec(times=1, mutate=poison_nan_flood)}):
+            poisoned = svc.ingest_month(*row, month)
+        reasons = svc.quarantined_months()
+        still = svc.query_many([prev] * len(rows), list(row[1][rows]), timeout=60)
+        # the swap under load: two client threads keep quoting the previous
+        # month while the ingest thread captures the new executor's graphs;
+        # every answer must be the previous bits, from either executor
+        stop, served, wrong = threading.Event(), [0, 0], []
+
+        def client(k):
+            while not stop.is_set():
+                got = svc.query_many([prev] * len(rows), list(row[1][rows]), timeout=60)
+                served[k] += len(rows)
+                if not np.array_equal(got, before, equal_nan=True):
+                    wrong.append(k)
+
+        clients = [threading.Thread(target=client, args=(k,)) for k in range(2)]
+        for th in clients:
+            th.start()
+        start = time.perf_counter()
+        try:
+            healed = svc.ingest_month(*row, month)
+            ingest_s = time.perf_counter() - start
+            time.sleep(0.2)
+        finally:
+            stop.set()
+            for th in clients:
+                th.join(timeout=60)
+        check(not any(th.is_alive() for th in clients), "a serving client hung")
+        quotes = svc.query_many([svc.state.n_months - 1] * len(rows), list(row[1][rows]),
+                                timeout=60)
+        stats = svc.stats()
+        state = svc.state
+    t = state.n_months - 1
+    want = state.intercept_bar[t] + np.clip(row[1][rows], state.x_lo[t],
+                                            state.x_hi[t]) @ state.slopes_bar[t]
+    leaves_equal = all(np.array_equal(getattr(state, leaf), getattr(card, leaf), equal_nan=True)
+                       for leaf in SERVING_LEAVES)
+    quote_ok = bool(np.allclose(quotes, want, rtol=1e-9, atol=1e-12, equal_nan=True))
+    log(f"service ingest (f64, {len(rows)} quoted rows): poisoned month accepted {poisoned}, "
+        f"quarantined {sorted(reasons)} ({next(iter(reasons.values()), '')[:80]}), quotes "
+        f"unchanged {bool(np.array_equal(before, still, equal_nan=True))}; clean month "
+        f"accepted {healed} in {ingest_s:.3f} s (ingest + {len(svc.executor.buckets())} "
+        f"captures) while two clients quoted {sum(served)} rows of the previous month "
+        f"({len(wrong)} answers off its bits), state equal to ingest_month's "
+        f"{leaves_equal}, quotes within rtol 1e-9 "
+        f"{quote_ok}; compiles {stats['executable_compiles']}, misses "
+        f"{stats['executable_cache_misses']}, degraded {stats['degraded']}")
+    check(not poisoned and any("cs.nan_flood" in r for r in reasons.values()),
+          "the poisoned month was not quarantined under cs.nan_flood")
+    check(bool(np.array_equal(before, still, equal_nan=True)),
+          "the quarantine changed the service's quotes")
+    check(healed and not stats["degraded"] and state.n_months == prior.n_months + 1,
+          "the clean month did not swap in")
+    check(leaves_equal and quote_ok, "service ingest differs from ingest_month")
+    check(not wrong and min(served) > 0, "quotes during the swap were wrong or none served")
+    check(stats["executable_cache_misses"] == 0, "a query after the swap built a bucket")
+
+
+def trace_phase(base, daily, digests: dict) -> None:
+    """``run_pipeline(trace_dir=...)`` at real size against an untraced
+    run: artifacts bit-identical (and to the main path's), launches equal,
+    ``events.jsonl`` and ``trace.json`` parse, every stage of
+    ``timer.durations`` has its span under the ``run_pipeline`` root; the
+    traced wall beside the untraced one."""
+    plain, wall_off, counts_off = counted_run(base, daily)
+    with tempfile.TemporaryDirectory() as tmp:
+        traced, wall_on, counts_on = counted_run(base, daily, trace_dir=tmp)
+        records = [json.loads(line) for line in (Path(tmp) / "events.jsonl").open()]
+        doc = json.loads((Path(tmp) / "trace.json").read_text())
+        sizes = {p.name: p.stat().st_size for p in Path(tmp).iterdir()}
+    spans = [r for r in records if r["type"] == "span"]
+    root = [s for s in spans if s["name"] == "run_pipeline"]
+    missing = sorted(set(traced.timer.durations) - {s["name"] for s in spans})
+    diffs = bit_differences(plain, traced)
+    vs_main = sorted(k for k, v in artifact_digests(traced).items() if digests.get(k) != v)
+    launches = {k: counts_on[k] for k in MAIN_PATH_LAUNCHES}
+    log(f"trace phase: untraced wall {wall_off:.3f} s, traced {wall_on:.3f} s "
+        f"({len(spans)} spans, {len(doc['traceEvents'])} Chrome events, files {sizes}); "
+        f"launches equal {counts_on == counts_off} {launches}; artifacts that differ in bits: "
+        f"traced vs untraced {diffs}, vs the main path {vs_main}; stages without a span "
+        f"{missing}")
+    check(len(root) == 1 and all(s["trace_id"] == root[0]["trace_id"] for s in spans
+                                 if s["thread_name"] == root[0]["thread_name"]),
+          "the traced run has no single run_pipeline root")
+    check(not diffs and not vs_main, f"tracing changed artifacts: {diffs} {vs_main}")
+    check(counts_on == counts_off and launches == MAIN_PATH_LAUNCHES,
+          f"tracing changed the launches: {counts_on} vs {counts_off}")
+    check(not missing, f"stages without a span: {missing}")
+    del plain, traced
+    torch.cuda.empty_cache()
+
+
+def profile_phase(base, daily, digests: dict) -> None:
+    """One main path at real size with ``profile_dir=``: the
+    ``torch.profiler`` trace's device rows carry K1's and K2's kernel names
+    with the launch counters' counts; the run's artifacts equal the main
+    path's; and, from the trace, the card's busy share inside the
+    ``factors/daily_kernels`` stage (the union of its kernels, copies and
+    sets over the stage's host interval)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        res, wall, counts = counted_run(base, daily, profile_dir=tmp)
+        trace = Path(tmp) / PROFILE_TRACE_NAME
+        size = trace.stat().st_size
+        doc = json.loads(trace.read_text())
+    kernels = profile_kernel_counts(doc, PROFILE_KERNELS)
+    stages = {}
+    for name in ("factors/daily_kernels", "factors/characteristics_winsorize", "table_2",
+                 "run_pipeline"):
+        share, window_s, n = device_busy_share(doc, name)
+        stages[name] = (round(share, 4), round(window_s, 4), n)
+    diffs = sorted(k for k, v in artifact_digests(res).items() if digests.get(k) != v)
+    device_events = sum(1 for e in doc["traceEvents"] if e.get("cat") in DEVICE_CATEGORIES)
+    log(f"profile phase: wall {wall:.3f} s with torch.profiler (CPU + CUDA), trace "
+        f"{size:,} bytes, {len(doc['traceEvents'])} events ({device_events} on the device); "
+        f"kernel launches in the trace {kernels} vs the counters "
+        f"{ {k: counts[k] for k in PROFILE_KERNELS} }; artifacts that differ from the main "
+        f"path {diffs}")
+    log("device busy share inside each stage (share, stage s, intervals): "
+        + json.dumps(stages))
+    check(kernels == {k: counts[k] for k in PROFILE_KERNELS},
+          "the profile's kernel rows do not match the launch counters")
+    check({k: counts[k] for k in MAIN_PATH_LAUNCHES} == MAIN_PATH_LAUNCHES,
+          f"the profiled run launched {counts}")
+    check(not diffs, f"profiling changed artifacts: {diffs}")
+    del res
+    torch.cuda.empty_cache()
+
+
+def trace_cli_phase() -> None:
+    """``--synthetic --trace-dir D --profile-dir P`` at 250 × 130 through
+    the command line: exit 0, both trace files and the profile written and
+    parsed, the usual launches."""
+    with tempfile.TemporaryDirectory() as tmp:
+        trace_dir, profile_dir = Path(tmp) / "trace", Path(tmp) / "profile"
+        run = run_cli(["--synthetic", "--firms", SYNTHETIC_CLI_FIRMS, "--months",
+                       SYNTHETIC_CLI_MONTHS, "--trace-dir", trace_dir,
+                       "--profile-dir", profile_dir])
+        made = {d.name: sorted(p.name for p in d.iterdir()) for d in (trace_dir, profile_dir)}
+        names = {json.loads(line).get("name") for line in (trace_dir / "events.jsonl").open()}
+        json.loads((trace_dir / "trace.json").read_text())
+        kernels = profile_kernel_counts(profile_dir / PROFILE_TRACE_NAME, PROFILE_KERNELS)
+    launches = run["launches"]
+    log(f"CLI --trace-dir --profile-dir at {SYNTHETIC_CLI_FIRMS} x {SYNTHETIC_CLI_MONTHS}: "
+        f"exit 0 in {run['wall']:.1f} s; files {made}; launches {launches['k1']}/"
+        f"{launches['k2']}/{launches['moments']}, in the profile {kernels}")
+    check(made == {"trace": ["events.jsonl", "trace.json"], "profile": [PROFILE_TRACE_NAME]},
+          f"CLI trace files {made}")
+    check({"run_pipeline", "table_2", "serving_state"} <= names, "CLI trace lacks stage spans")
+    check(kernels == {"k1": launches["k1"], "k2": launches["k2"], "moments": 0}
+          and launches["k2"] == 2, f"CLI profile kernels {kernels} vs launches {launches}")
 
 
 
@@ -1620,6 +2002,7 @@ def ingest_phase(res) -> None:
         f"{cpu_s * 1e3:.2f} ms; worst |diff| - (atol + rtol|want|) per leaf (<= 0 passes) "
         + json.dumps({k: float(f"{v:.3g}") for k, v in worst.items()}))
     check(all(v <= 0 for v in worst.values()), "ingest beyond the reference's pins")
+    phase_timed("service_ingest_phase", service_ingest_phase, prior, row, months[-1], card)
 
 
 def bootstrap_cli_phase() -> None:
@@ -2821,8 +3204,12 @@ def main(argv=None) -> int:
         f"{len(daily.row_values):,} daily rows over {daily.n_days} days, "
         f"built in {time.perf_counter() - start:.1f} s")
     with tempfile.TemporaryDirectory() as audit_dir:
-        counts, digests, gram_frames = main_path(base, daily, Path(audit_dir))
+        counts, digests, gram_frames, serving = main_path(base, daily, Path(audit_dir))
+    phase_timed("serving_phase", serving_phase, serving)
+    del serving
     slot_phase(base, daily, digests)
+    phase_timed("trace_phase", trace_phase, base, daily, digests)
+    phase_timed("profile_phase", profile_phase, base, daily, digests)
     path_counts = {"main": counts, **specgrid_phase(base, daily)}
     bootstrap_phase(base, daily)
     path_counts["backtest"] = backtest_phase(base, daily)
@@ -2836,6 +3223,7 @@ def main(argv=None) -> int:
     bootstrap_cli_phase()
     backtest_cli_phase()
     estimator_cli_phase()
+    phase_timed("trace_cli_phase", trace_cli_phase)
     with tempfile.TemporaryDirectory() as tmp:
         raw = Path(tmp) / "raw"
         start = time.perf_counter()

@@ -149,12 +149,27 @@ def drain() -> Dict[str, int]:
         pending, _PENDING[:] = list(_PENDING), []
     if pending:
         counts = iter(_fold(pending))
+        fresh: Dict[str, int] = {}
         with _LOCK:
             for site, values in pending:
                 for name in values:
                     count = next(counts)
                     if count:
-                        _COUNTERS[f"{site}.{name}"] += count
+                        key = f"{site}.{name}"
+                        _COUNTERS[key] += count
+                        fresh[key] = fresh.get(key, 0) + count
+        if fresh:
+            # mirror into the process metrics registry so the trips export
+            # with every other counter (_COUNTERS stays the audit's source)
+            from fm_returnprediction_tpu_torch.telemetry import event, registry
+
+            for key, count in fresh.items():
+                registry().counter(
+                    "fmrp_guard_sentinel_total",
+                    help="numerical sentinel trips by site.counter",
+                    sentinel=key,
+                ).inc(count)
+                event("guard.sentinel", cat="guard", sentinel=key, count=count)
     with _LOCK:
         return dict(_COUNTERS)
 

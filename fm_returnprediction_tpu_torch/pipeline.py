@@ -23,6 +23,8 @@ the compute device.
     python -m fm_returnprediction_tpu_torch.pipeline --synthetic --bootstrap 10000
     python -m fm_returnprediction_tpu_torch.pipeline --synthetic --backtest \
         --backtest-schemes expanding,rolling60 --backtest-sink metrics
+    python -m fm_returnprediction_tpu_torch.pipeline --synthetic \
+        --trace-dir _trace --profile-dir _profile
 
 A raw directory is read by the columnar route (``panel.columnar``;
 ``FMRP_PANEL_ROUTE=legacy`` selects the pandas route) and its host products
@@ -54,6 +56,7 @@ import numpy as np
 import pandas as pd
 import torch
 
+from fm_returnprediction_tpu_torch import telemetry as _telemetry
 from fm_returnprediction_tpu_torch.backtest import run_backtest_scenarios
 from fm_returnprediction_tpu_torch.backtest.paths import BACKTEST_ROUTES
 from fm_returnprediction_tpu_torch.backtest.sinks import (
@@ -428,6 +431,8 @@ def run_pipeline(
     backtest_route: Optional[str] = None,
     backtest_quantiles: Optional[int] = None,
     backtest_sink: Optional[str] = None,
+    trace_dir=None,
+    profile_dir=None,
 ) -> PipelineResult:
     """Raw data or prepared inputs → characteristics → NYSE-breakpoint
     universes → Table 1 → Table 2 → Figure 1 / deciles → serving state →
@@ -504,10 +509,25 @@ def run_pipeline(
     ``serving_state.npz``, ``specgrid_scenarios.csv`` (with the sweep),
     ``backtest.csv`` (with the backtest), ``bootstrap_se.{pkl,tex}`` (with
     the bootstrap table), ``data_saved.marker`` and ``research_report.tex`` (compiled when
-    ``pdflatex`` exists and ``compile_pdf``)."""
+    ``pdflatex`` exists and ``compile_pdf``).
+
+    ``trace_dir`` arms the telemetry layer for the run (``None`` follows
+    ``FMRP_TRACE_DIR``, default off): the run is a ``run_pipeline`` span,
+    each stage a child span, and the exports land in
+    ``<trace_dir>/events.jsonl`` (the structured event log) and
+    ``<trace_dir>/trace.json`` (Chrome trace-event format, for Perfetto).
+    Spans are host records only: a traced run's artifacts are bit-identical
+    to an untraced run's, with the same kernel launches.
+
+    ``profile_dir`` wraps the run in a ``torch.profiler`` capture (CPU
+    activities and, on the card, CUDA's) written to
+    ``<profile_dir>/profile_trace.json``; every stage span also names its
+    interval in the profile (``telemetry.profiling``)."""
     if guard is None:
         guard = _guard_checks.guard_active()
-    with _guard_checks.guards(bool(guard)):
+    with _telemetry.tracing(trace_dir), _telemetry.profiling(
+        profile_dir, device=device
+    ), _telemetry.span("run_pipeline", cat="pipeline"), _guard_checks.guards(bool(guard)):
         return _run_pipeline_guarded(
             dense_base, compact_daily, raw_data_dir=raw_data_dir,
             output_dir=output_dir, synthetic=synthetic,
@@ -912,6 +932,18 @@ def _main(argv=None) -> None:
              "spill, or the per-(scheme, weighting) metrics aggregate (default "
              "follows FMRP_BACKTEST_SINK)",
     )
+    parser.add_argument(
+        "--trace-dir", default=None,
+        help="arm telemetry and export the run's host spans here: events.jsonl "
+             "(structured event log) + trace.json (Chrome trace-event format, loads "
+             "in Perfetto); default follows FMRP_TRACE_DIR",
+    )
+    parser.add_argument(
+        "--profile-dir", default=None,
+        help="also capture a torch.profiler trace of the run (CPU and, on the "
+             "card, CUDA activities) into this directory as profile_trace.json; "
+             "the stage spans name their intervals in it",
+    )
     parser.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                         help="compute device (default cuda; raises without a "
                              "GPU); takes the place of the reference's --backend")
@@ -947,6 +979,8 @@ def _main(argv=None) -> None:
         backtest_route=args.backtest_route,
         backtest_quantiles=args.backtest_quantiles,
         backtest_sink=args.backtest_sink,
+        trace_dir=args.trace_dir,
+        profile_dir=args.profile_dir,
     )
     print(result.table_1.round(3).to_string())
     print()

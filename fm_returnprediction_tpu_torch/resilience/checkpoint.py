@@ -19,7 +19,9 @@ Contract (the reference package's):
   the previous consistent manifest.
 
 ``OUTCOMES`` counts each load or save by outcome (``hit``, ``miss``,
-``corrupt``, ``save``) for the whole process.
+``corrupt``, ``save``) for the whole process; each outcome also counts
+into the metrics family ``fmrp_checkpoint_total{outcome=...}`` and, with
+tracing on, is a ``checkpoint.<outcome>`` event.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from typing import Callable
 
 import pandas as pd
 
+from fm_returnprediction_tpu_torch import telemetry
 from fm_returnprediction_tpu_torch.registry.integrity import file_sha256
 from fm_returnprediction_tpu_torch.resilience.errors import CorruptArtifactError
 
@@ -41,6 +44,16 @@ __all__ = ["OUTCOMES", "StageCheckpointer"]
 _MANIFEST = "manifest.json"
 
 OUTCOMES: Counter = Counter()
+
+
+def _outcome(outcome: str, name: str, **attrs) -> None:
+    OUTCOMES[outcome] += 1
+    telemetry.registry().counter(
+        "fmrp_checkpoint_total",
+        help="stage checkpoint-resume outcomes by kind",
+        outcome=outcome,
+    ).inc()
+    telemetry.event(f"checkpoint.{outcome}", cat="resilience", stage=name, **attrs)
 
 
 class StageCheckpointer:
@@ -96,7 +109,7 @@ class StageCheckpointer:
     def _load(self, name: str, loader: Callable[[Path], object]):
         rec = self._stages.get(name)
         if rec is None:
-            OUTCOMES["miss"] += 1
+            _outcome("miss", name)
             return None
         path = self.dir / rec["file"]
         try:
@@ -106,7 +119,7 @@ class StageCheckpointer:
                 raise CorruptArtifactError(f"checkpoint {name!r} failed its content hash")
             got = loader(path)
         except Exception as exc:  # noqa: BLE001 — any unreadable artifact is rebuilt
-            OUTCOMES["corrupt"] += 1
+            _outcome("corrupt", name, error=repr(exc)[:200])
             warnings.warn(f"stage checkpoint {name!r} unreadable, recomputing: {exc!r}",
                           stacklevel=3)
             # drop the record so completed() stops advertising it
@@ -116,7 +129,7 @@ class StageCheckpointer:
             except OSError:
                 pass
             return None
-        OUTCOMES["hit"] += 1
+        _outcome("hit", name)
         return got
 
     def _save(self, name, obj, saver, suffix) -> None:
@@ -129,7 +142,7 @@ class StageCheckpointer:
             tmp.unlink(missing_ok=True)
         self._stages[name] = {"file": final.name, "sha256": file_sha256(final)}
         self._write_manifest()
-        OUTCOMES["save"] += 1
+        _outcome("save", name)
 
     def frame(self, name: str, compute: Callable[[], object]):
         """A pickled stage (a DataFrame, or a dict of numpy arrays): pickle

@@ -2,25 +2,41 @@
 
 The part of the reference package's failure taxonomy that the port uses:
 corrupt persisted artifacts, injected faults, contract violations,
-quarantined artifacts and drift. Nothing here imports anything, so every
-layer (``utils.cache``, ``data.prepared``, ``resilience.checkpoint``) can
-name these types.
+quarantined artifacts and drift, an exhausted retry, a stalled serving
+dispatch and a killed serving replica. Nothing here imports anything, so
+every layer (``utils.cache``, ``data.prepared``, ``resilience.checkpoint``,
+``resilience.retry``, ``serving``) can name these types.
 """
 
 from __future__ import annotations
 
 __all__ = [
     "ResilienceError",
+    "RetryExhaustedError",
+    "DispatchTimeoutError",
     "CorruptArtifactError",
     "IngestRejectedError",
     "ContractViolationError",
     "DriftDetectedError",
+    "ReplicaDeadError",
     "InjectedFault",
 ]
 
 
 class ResilienceError(RuntimeError):
     """Base class for failures the resilience and guard layers raise."""
+
+
+class RetryExhaustedError(ResilienceError):
+    """A retried call failed on every attempt; ``__cause__`` is the last
+    underlying error."""
+
+
+class DispatchTimeoutError(ResilienceError):
+    """A serving bucket dispatch exceeded the executor's watchdog budget.
+
+    Delivered to the in-flight batch's futures so the microbatcher keeps
+    draining instead of hanging behind a stalled runner."""
 
 
 class CorruptArtifactError(ResilienceError):
@@ -47,6 +63,12 @@ class DriftDetectedError(ContractViolationError):
     """A persisted artifact moved beyond its tolerance band relative to the
     previous run's audit manifest (``guard.drift``). The trusted manifest
     is left unmodified so the regression remains reproducible against it."""
+
+
+class ReplicaDeadError(ResilienceError):
+    """A serving replica was killed (``serving.service.ERService.kill``)
+    with this request still queued on it: the request fails with this
+    error instead of being stranded."""
 
 
 class InjectedFault(OSError):

@@ -25,7 +25,12 @@ before its contract), ``pipeline.<stage>`` for the checkpointable stages
 (``table_1``, ``table_2``, ``decile_table``, ``serving_state``,
 ``specgrid_scenarios``),
 ``cache.write_cache_data`` and ``cache.save_array_bundle`` (path: the file
-just written). The declarative part of a plan serializes into
+just written), ``serving.ingest`` (payload: the ``(y, x, mask)``
+cross-section offered to ``ERService.ingest_month``, before its
+validation: where :func:`poison_nan_flood` and :func:`poison_scale_spike`
+are injected), and ``serving.dispatch`` and ``fleet.replica_stall``
+(payload: the replica's label, None outside a fleet) inside a serving
+bucket dispatch, where a stall is what the dispatch watchdog sees. The declarative part of a plan serializes into
 ``FMRP_CHAOS_PLAN``/``FMRP_CHAOS_SEED`` (:func:`chaos_env`), which a child
 process installs with :func:`install_plan_from_env`; ``FaultSpec.proc``
 restricts a spec to the child whose ``FMRP_DIST_PROC_ID`` or
@@ -33,9 +38,7 @@ restricts a spec to the child whose ``FMRP_DIST_PROC_ID`` or
 
 Inert until their callers are ported, and so left out of ``__all__``: the
 port spawns no child process yet (``chaos_env``, ``install_plan_from_env``,
-``FaultSpec.proc`` and ``sigkill`` serve the multi-process paths), and no
-site hands over a ``(y, x, mask)`` cross-section (``poison_nan_flood``,
-``poison_scale_spike``).
+``FaultSpec.proc`` and ``sigkill`` serve the multi-process paths).
 """
 
 from __future__ import annotations
@@ -62,6 +65,8 @@ __all__ = [
     "FaultPlan",
     "fault_site",
     "truncate_file",
+    "poison_nan_flood",
+    "poison_scale_spike",
     "corrupt_panel_duplicate_id",
     "corrupt_panel_permute_firms",
     "corrupt_panel_stale_month",

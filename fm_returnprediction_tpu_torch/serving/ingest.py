@@ -29,12 +29,10 @@ their QR solutions, and only ingested months carry normal-route solutions.
 
 The state stays host numpy. The month's statistics and solve run on the
 device the caller names (``device=None`` means the GPU and raises without
-one). The reference package also carries a fault site, ``serving.ingest``,
-on its serving front end (``serving/service.py``), where the
-cross-section mutators ``resilience.faults.poison_nan_flood`` and
-``poison_scale_spike`` are injected. That front end is not ported yet
-(ROADMAP §A item 6), so the site is not here either and those mutators
-stay inert: a site placed on this function would be a different contract.
+one). The fault site ``serving.ingest``, where the cross-section mutators
+``resilience.faults.poison_nan_flood`` and ``poison_scale_spike`` are
+injected, sits on the serving front end (``ERService.ingest_month``),
+before :func:`validate_cross_section`, as in the reference.
 """
 
 from __future__ import annotations

@@ -7,7 +7,9 @@ from it), expands the solve into per-cell rows — weight schemes are slices
 of the same solve, bootstrap draws are month-block re-aggregations of the
 same per-spec slope series — and streams every tile's rows into a sink
 (``specgrid.sinks``). The engine holds one tile of specs, solve leaves and
-result rows at a time.
+result rows at a time. With tracing armed the sweep is a
+``specgrid.cellspace`` span with one ``specgrid.tile`` span per tile, and
+``fmrp_specgrid_cells_total`` counts the cells streamed.
 
 Every tile solves in fixed-width spec batches (``spec_pad``), padded by
 repeating the batch's first spec, against the space's pinned union-column
@@ -39,13 +41,13 @@ The engine runs on one device: ``mesh=``, ``FMRP_SPECGRID_MESH`` or
 from __future__ import annotations
 
 import math
-import time
 from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import pandas as pd
 import torch
 
+from fm_returnprediction_tpu_torch import telemetry
 from fm_returnprediction_tpu_torch.specgrid.boot import (
     bootstrap_aggregate_device,
     resample_matrix,
@@ -437,20 +439,27 @@ def run_cellspace(
         fe_codes=fe_codes,
     )
     before = contraction_counts()
+    cells_counter = telemetry.registry().counter(
+        "fmrp_specgrid_cells_total",
+        help="scenario cells streamed through the spec-grid tile engine",
+    )
     n_tiles = 0
-    start = time.perf_counter()
-    for tile in space.tiles(engine.tile_cells):
-        frames: List[dict] = []
-        for level, cells in _winsor_groups(tile):
-            solver = _TileSolver(engine, engine.x_at_level(level), cells)
-            for cell in cells:
-                res, row, disc = solver.cell_view(cell)
-                frames.extend(engine.rows_for(cell, res, row, disc))
-            del solver  # one tile of solve leaves live at a time
-        engine._boot_cache.clear()  # draw runs never straddle tiles
-        sink_obj.consume(pd.DataFrame(frames))
-        n_tiles += 1
-    seconds = time.perf_counter() - start
+    with telemetry.timed("specgrid.cellspace", cells=len(space),
+                         tile=engine.tile_cells, route=route) as sweep_t:
+        for tile in space.tiles(engine.tile_cells):
+            with telemetry.span("specgrid.tile", start=tile.start, stop=tile.stop):
+                frames: List[dict] = []
+                for level, cells in _winsor_groups(tile):
+                    solver = _TileSolver(engine, engine.x_at_level(level), cells)
+                    for cell in cells:
+                        res, row, disc = solver.cell_view(cell)
+                        frames.extend(engine.rows_for(cell, res, row, disc))
+                    del solver  # one tile of solve leaves live at a time
+                engine._boot_cache.clear()  # draw runs never straddle tiles
+                sink_obj.consume(pd.DataFrame(frames))
+                cells_counter.inc(len(tile))
+            n_tiles += 1
+    seconds = sweep_t.s
     after = contraction_counts()
     delta = {k: after.get(k, 0) - before.get(k, 0)
              for k in ("specs_solved", "specs_contracted", "pairs_contracted", "pairs_unique")}

@@ -44,8 +44,8 @@ Route discipline, as in the reference:
 
 The ``solve.CONTRACTIONS`` ledger keys (``specs_solved``,
 ``specs_contracted``, ``pairs_unique``, ``pairs_contracted``) count this
-route's work like the OLS grid's. The reference's program-trace counters
-and telemetry spans are not ported (ROADMAP A7a).
+route's work like the OLS grid's. The reference's program-trace counter
+(``record_trace``) has no counterpart in eager torch (``telemetry.metrics``).
 """
 
 from __future__ import annotations

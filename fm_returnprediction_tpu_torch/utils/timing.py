@@ -12,6 +12,11 @@ top-level stage; a name without one is a top-level stage and must not be
 opened while another stage is open. A stage that deliberately did not run
 (a checkpoint hit) is marked with :meth:`StageTimer.mark_skipped` and has
 no duration, so it never reads as "ran in 0.0 s".
+
+With tracing armed (``telemetry``), each stage is also a host span of
+category ``stage``, opened before the start synchronize and closed after
+the end one, so a trace and ``durations`` read the same clock; a skipped
+stage is a ``stage.skipped`` event.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ from typing import Dict, List
 import torch
 
 from fm_returnprediction_tpu_torch.device import synchronize
+from fm_returnprediction_tpu_torch.telemetry import spans as _spans
 
 __all__ = ["StageTimer"]
 
@@ -43,20 +49,21 @@ class StageTimer:
     def stage(self, name: str):
         nested = bool(self._stack)
         self._stack.append(name)
-        synchronize(self.device)
-        start = time.perf_counter()
-        try:
-            yield
-        finally:
+        with _spans.span(name, cat="stage"):
             synchronize(self.device)
-            self._stack.pop()
-            self.skipped.pop(name, None)  # it ran after all
-            self.durations[name] = (self.durations.get(name, 0.0)
-                                    + time.perf_counter() - start)
-            if "/" in name and not nested:
-                self._uncovered.add(name)
-            elif "/" not in name and nested:
-                self._shadowed.add(name)
+            start = time.perf_counter()
+            try:
+                yield
+            finally:
+                synchronize(self.device)
+                self._stack.pop()
+                self.skipped.pop(name, None)  # it ran after all
+                self.durations[name] = (self.durations.get(name, 0.0)
+                                        + time.perf_counter() - start)
+                if "/" in name and not nested:
+                    self._uncovered.add(name)
+                elif "/" not in name and nested:
+                    self._shadowed.add(name)
 
     @contextlib.contextmanager
     def ensure_stage(self, name: str):
@@ -73,6 +80,7 @@ class StageTimer:
         """Record that stage ``name`` deliberately did not run, and why. It
         gets no duration; a stage that runs later clears the mark."""
         self.skipped[name] = reason
+        _spans.event("stage.skipped", cat="stage", stage=name, reason=reason)
 
     def total(self) -> float:
         """The sum of the top-level stages. Raises ``ValueError`` when a

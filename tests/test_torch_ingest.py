@@ -269,7 +269,7 @@ def test_cli_writes_the_same_artifacts_as_the_jax_cli(tmp_path):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--synthetic", "--trace-dir", "/tmp/x"],  # ROADMAP A7a
+    ["--synthetic", "--registry-dir", "/tmp/x"],  # ROADMAP A7b
     ["--synthetic", "--fleet-size", "2"],      # ROADMAP A6
     ["--synthetic", "--backend", "cpu"],        # the port's --device replaces it
     ["--firms", "10"],                          # --firms needs --synthetic

@@ -299,7 +299,9 @@ def test_port_runs_with_jax_blocked(tmp_path):
     and through the command line (``backtest.csv`` written), and the
     estimator family: one sweep of each of fwl, iv, absorb and pooled, one
     bank ``estimator_query``, and ``--specgrid-estimator`` through the
-    command line."""
+    command line; the telemetry layer: a traced ``run_pipeline`` (both
+    trace files written) and ``--trace-dir`` through the command line;
+    and one ``ERService(device="cpu")`` query."""
     code = textwrap.dedent("""
         import runpy
         import sys
@@ -422,6 +424,22 @@ def test_port_runs_with_jax_blocked(tmp_path):
         sys.argv = ["pipeline", "--synthetic", "--firms", "60", "--months", "72",
                     "--device", "cpu", "--specgrid-estimator", "fwl:log_size"]
         runpy.run_module("fm_returnprediction_tpu_torch.pipeline", run_name="__main__")
+        res = run_pipeline(base, daily, device="cpu", dtype=torch.float64,
+                           make_figure=False, trace_dir=tmp + "/trace")
+        assert sorted(os.listdir(tmp + "/trace")) == ["events.jsonl", "trace.json"]
+        sys.argv = ["pipeline", "--synthetic", "--firms", "60", "--months", "72",
+                    "--device", "cpu", "--trace-dir", tmp + "/trace_cli"]
+        runpy.run_module("fm_returnprediction_tpu_torch.pipeline", run_name="__main__")
+        import json
+        names = {json.loads(line).get("name") for line in open(tmp + "/trace_cli/events.jsonl")}
+        assert {"run_pipeline", "table_2", "serving_state"} <= names, names
+        from fm_returnprediction_tpu_torch.serving import (
+            ERService, build_serving_state_from_panel)
+        state = build_serving_state_from_panel(res.panel, res.subset_masks["All stocks"],
+                                               window=24, min_periods=12)
+        with ERService(state, max_batch=8, device="cpu") as svc:
+            quote = svc.query(state.n_months - 1, np.zeros(state.n_predictors))
+        assert np.isfinite(quote), quote
         loaded = [m for m in sys.modules
                   if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
         assert not loaded, loaded
@@ -474,7 +492,11 @@ def test_port_never_names_jax_or_the_jax_package(pattern):
             "backtest/sweep.py", "ops/newey_west.py", "specgrid/estimators/__init__.py",
             "specgrid/estimators/absorb.py", "specgrid/estimators/cluster.py",
             "specgrid/estimators/grid.py", "specgrid/estimators/iv.py",
-            "specgrid/estimators/stream.py"} <= names
+            "specgrid/estimators/stream.py", "telemetry/__init__.py", "telemetry/identity.py",
+            "telemetry/spans.py", "telemetry/metrics.py", "telemetry/export.py",
+            "telemetry/perf.py", "telemetry/slo.py", "telemetry/regress.py",
+            "resilience/retry.py", "serving/executor.py", "serving/batcher.py",
+            "serving/service.py", "serving/__init__.py"} <= names
     hits = [str(f.relative_to(REPO)) for f in files
             if re.search(pattern, f.read_text())]
     assert not hits, hits
