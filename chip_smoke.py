@@ -55,7 +55,29 @@ Phases (any failure exits non-zero without the final line):
 5. the same inputs through the prepared-inputs slot at real size:
    ``save_prepared``, the memory-mapped ``load_prepared`` (and one load with
    ``FMRP_PREPARED_VERIFY=1``), timed, then the main path from the mapped
-   arrays: bit-identical to the in-memory run, launches K1 17, K2 2, K3 0;
+   arrays with the registry armed (``registry_dir=``): bit-identical to the
+   in-memory unarmed run, launches K1 17, K2 2, K3 0; the
+   ``registry_publish`` stage's seconds, the published serving state's
+   leaves sha256-equal to the in-memory run's, both kernel libraries
+   stored, ``Registry.verify(deep=True)`` clean;
+5a. the registry and the fleet (``registry_phase``, ``fleet_phase``): a
+   fresh process with an empty build directory and the registry armed
+   fetches K1's and K2's libraries (no nvcc build) and holds each against
+   its plain version, its fetch beside the cold nvcc build;
+   ``warm_from_registry`` over the published state (0 builds, 9
+   captures); a ``ServingFleet`` of 1 and of 2 thread replicas
+   (``max_batch=256``, a journal, the supervisor) quoting the serving
+   phase's rows in the same mixed batches, every quote bit-equal to the
+   bare service's, p50/p99 and rows/s; the routed replica killed under load
+   (``fleet_kill_routed``), one supervisor tick replacing it through the
+   warm pool, the time from the kill to the replacement's first quote, the
+   journal replayed clean; brownout on a tight token bucket (every degraded
+   quote disclosed and within its bound of the full quote; the shed and
+   degraded shares); ``hard_crash`` with a torn journal tail and
+   ``ServingFleet.recover`` (the tail repaired, the in-flight closed out,
+   the new fleet quoting the same bits); one ``LoadGen`` burst against
+   ``capacity_model``; and the card's allocated memory after 5
+   kill→replace cycles;
 5b. the spec-grid scenario sweep at real size (27 cells): through
    ``run_pipeline(make_specgrid=True)`` guarded, again with
    ``FMRP_GRAM_PRECISION=bf16``, then ``run_scenarios`` on the coreset route
@@ -128,7 +150,7 @@ Phases (any failure exits non-zero without the final line):
    on the card and on the CPU: the enriched panel at rtol 1e-10, the tables
    as in phase 7, the audit records equal;
 9. the command line, ``python -m fm_returnprediction_tpu_torch.pipeline
-   --synthetic --firms 250 --months 130 --output-dir … --audit-dir …``, in
+   --synthetic --firms 150 --months 130 --output-dir … --audit-dir …``, in
    a subprocess: exit code, artifacts, stage seconds and launches (without
    ``--output-dir`` when matplotlib or jinja2 does not import, said so);
    then ``--bootstrap 200`` (the ``bootstrap_table`` stage, and
@@ -139,7 +161,7 @@ Phases (any failure exits non-zero without the final line):
    ``--specgrid-estimator absorb:ind`` (exits non-zero, as the reference),
    and ``--trace-dir D --profile-dir P`` (both trace files and the profile
    written; the profile's kernel rows equal the launches);
-10. a raw directory of 1,000 firms × 240 months (``write_synthetic_cache``)
+10. a raw directory of 600 firms × 240 months (``write_synthetic_cache``)
    through the command line three times: cold (the columnar route ran and
    wrote the slot, no fallback warning), warm (the slot was mapped,
    ``load_raw_data`` skipped) and by the legacy route with the slot off;
@@ -224,11 +246,30 @@ from fm_returnprediction_tpu_torch.parallel.bootstrap import (
 )
 from fm_returnprediction_tpu_torch.pipeline import load_or_build_panel, run_pipeline
 from fm_returnprediction_tpu_torch.reporting.bootstrap_table import build_bootstrap_table
+from fm_returnprediction_tpu_torch.registry import Registry, warm_from_registry
+from fm_returnprediction_tpu_torch.registry import artifacts as registry_artifacts
 from fm_returnprediction_tpu_torch.registry.integrity import array_bundle_digest
 from fm_returnprediction_tpu_torch.resilience import checkpoint
-from fm_returnprediction_tpu_torch.resilience.errors import InjectedFault
-from fm_returnprediction_tpu_torch.resilience.faults import FaultPlan, FaultSpec, poison_nan_flood
-from fm_returnprediction_tpu_torch.serving import ERService
+from fm_returnprediction_tpu_torch.resilience.errors import InjectedFault, ServiceOverloadError
+from fm_returnprediction_tpu_torch.resilience.faults import (
+    FaultPlan,
+    FaultSpec,
+    fleet_hard_crash,
+    fleet_kill_routed,
+    poison_nan_flood,
+    tear_journal_tail,
+)
+from fm_returnprediction_tpu_torch.serving import (
+    AdmissionPolicy,
+    BrownoutPolicy,
+    DegradedQuote,
+    ERService,
+    LoadGen,
+    LoadPhase,
+    ServingFleet,
+    capacity_model,
+    replay_journal,
+)
 from fm_returnprediction_tpu_torch.serving.ingest import ingest_month
 from fm_returnprediction_tpu_torch.serving.state import ServingState, build_serving_state
 from fm_returnprediction_tpu_torch.specgrid.grams import (
@@ -948,11 +989,14 @@ def main_path(base, daily, audit_dir: Path):
     return counts, digests, frames, serving
 
 
-def slot_phase(base, daily, digests: dict) -> None:
+def slot_phase(base, daily, digests: dict, registry_root: Path) -> None:
     """The real-size inputs through the prepared-inputs slot: written
     (``save_prepared``), mapped back (``load_prepared``), and run on the
-    card; the run is bit-identical to the main path's in-memory run, with
-    the same launches."""
+    card with the registry armed at ``registry_root``; the run is
+    bit-identical to the main path's in-memory (unarmed) run, with the same
+    launches; its ``registry_publish`` stage leaves the serving state (the
+    in-memory run's leaves, by sha256) and both kernel libraries in the
+    registry, which verifies deep."""
     with tempfile.TemporaryDirectory() as tmp:
         slot = Path(tmp) / prepared.PREPARED_DIRNAME
         fingerprint = "chip-smoke real-size slot"
@@ -978,17 +1022,37 @@ def slot_phase(base, daily, digests: dict) -> None:
             f"save_prepared {save_s:.3f} s, load_prepared (memory-mapped) {load_s:.4f} s, "
             f"load_prepared with FMRP_PREPARED_VERIFY=1 {verify_s:.3f} s (page cache warm: "
             "the slot was just written)")
-        res, wall, counts = counted_run(*loaded)
+        res, wall, counts = counted_run(*loaded, registry_dir=registry_root)
         del loaded
         diffs = sorted(name for name, d in artifact_digests(res).items()
                        if digests.get(name) != d)
         launches = {k: counts[k] for k in MAIN_PATH_LAUNCHES}
-        log(f"main path from the mapped slot: wall {wall:.3f} s; launches {launches}; "
-            f"artifacts that differ in bits from the in-memory run {diffs}; stages (s): "
+        log(f"main path from the mapped slot, registry armed: wall {wall:.3f} s; launches "
+            f"{launches}; artifacts that differ in bits from the in-memory unarmed run "
+            f"{diffs}; stages (s): "
             + json.dumps({k: round(v, 4) for k, v in res.stage_seconds.items()}))
         check(not diffs, f"the run from the slot differs from the in-memory run in {diffs}")
         check(launches == MAIN_PATH_LAUNCHES, f"the run from the slot launched {launches}")
-        del res
+        reg = Registry(registry_root)
+        entry = registry_artifacts.get_entry_dir("serving_state", registry=reg)
+        published = ServingState.load(entry / "serving_state.npz")
+        same_leaves = array_bundle_digest(
+            {leaf: getattr(published, leaf) for leaf in SERVING_LEAVES}) == \
+            digests["serving_state"]
+        rows = reg.ls()
+        bad = reg.verify(deep=True)
+        log(f"registry after the armed run: stage registry_publish "
+            f"{res.stage_seconds['registry_publish']:.4f} s; entries "
+            + json.dumps([(r["kind"], r.get("program") or r.get("name"), r["bytes"])
+                          for r in rows])
+            + f"; the published serving state's leaves sha256-equal to the in-memory "
+            f"unarmed run's {same_leaves}; verify(deep=True) faults {bad}")
+        check(same_leaves, "the published serving state is not the run's")
+        check(sorted(r.get("program") for r in rows if r["kind"] == "executable")
+              == ["cuda_kernel:gram", "cuda_kernel:rolling"],
+              "the kernel libraries were not published")
+        check(not bad, f"the registry has corrupt entries: {bad}")
+        del res, published
     torch.cuda.empty_cache()
 
 
@@ -1162,6 +1226,7 @@ def serving_phase(ref) -> None:
     check(misses == 0 and compiles == len(buckets) and not after and watch.grew == 0,
           f"a capture or a build after warm-up: misses {misses}, compiles {compiles}, "
           f"ledger records {len(after)}, build cache +{watch.grew}")
+    return got
 
 
 def time_host(fn, *args) -> float:
@@ -1242,6 +1307,346 @@ def service_ingest_phase(prior, row, month, card) -> None:
     check(stats["executable_cache_misses"] == 0, "a query after the swap built a bucket")
 
 
+# --- the registry and the serving fleet ---------------------------------------
+
+# A fresh process with an empty build directory and the registry armed: it
+# must load both kernel libraries from the registry (no nvcc build) and hold
+# each kernel against its plain version at a main-path shape.
+EXECUTABLE_PLANE_CHILD = """
+import json, os, sys, time
+start = time.perf_counter()
+import torch
+from fm_returnprediction_tpu_torch import cuda_build
+torch.cuda.init()
+ready = time.perf_counter()
+seconds = cuda_build.build_kernels()
+for name in cuda_build.KERNEL_SOURCES:
+    cuda_build._library(name)
+fetch_s = time.perf_counter() - ready
+import chip_smoke as cs
+from fm_returnprediction_tpu_torch.ops.rolling import rolling_reduce_cuda
+from fm_returnprediction_tpu_torch.specgrid.grams import gram_contract_cuda
+gen = torch.Generator(device="cuda")
+gen.manual_seed(int(sys.argv[1]))
+x = cs.rolling_input(600, 22000, torch.float32, gen, 1.0, 0.02)
+k1_err = cs.check_rolling(x, 12, 1, "sum", 1e-4, "sum w=12 mp=1 600x22000 float32 (fetched)")
+del x
+cs.check_gram(600, 22000, 14, torch.float32, 1e-5, gen, False)
+print("EXE-PLANE " + json.dumps({
+    "seconds": seconds, "fetch_s": fetch_s, "start_s": ready - start,
+    "nvcc_builds": cuda_build.NVCC_RUNS,
+    "build_dir": sorted(os.listdir(cuda_build.build_dir()))
+    if cuda_build.build_dir().exists() else [],
+    "fetched": {k: str(v[0]) for k, v in cuda_build._FETCHED.items()},
+    "launches": {"k1": rolling_reduce_cuda.launches, "k2": gram_contract_cuda.launches},
+    "k1_max_abs": k1_err}))
+"""
+# the journaled passes are cut short: every journal event is written and
+# flushed, so they run at ~2k rows/s (PERF.md, Findings)
+FLEET_JOURNALED_ROWS = 8192    # rows of the journaled pass the kill lands in
+FLEET_KILL_AT = 3000           # the routed request the kill lands on
+FLEET_CRASH_AT = 2000          # the admitted request the hard crash lands between
+FLEET_RECOVER_ROWS = 4096      # rows the recovered fleet quotes against the bare service
+JOURNAL_APPENDS = 20000        # appends timed per journal location
+FLEET_CYCLES = 5               # kill → replace cycles before the memory reading
+BROWNOUT_FILL = 400            # rows queued (auto_flush off) to pin the occupancy
+BROWNOUT_ROWS = 4096           # rows offered once the ladder is at coreset
+LOADGEN_REQUESTS, LOADGEN_WORKERS = 2048, 32
+
+
+def registry_phase(registry_root: Path, seed: int, cold_build: dict, state) -> None:
+    """The executable plane from a fresh process, and the warm pool."""
+    with tempfile.TemporaryDirectory() as build:
+        start = time.perf_counter()
+        done = subprocess.run(
+            [sys.executable, "-c", EXECUTABLE_PLANE_CHILD, str(seed)],
+            cwd=Path(__file__).resolve().parent, capture_output=True, text=True, timeout=600,
+            env={**os.environ, "FMRP_REGISTRY_DIR": str(registry_root),
+                 "FMRP_CUDA_BUILD_DIR": build})
+        wall = time.perf_counter() - start
+    check(done.returncode == 0, f"the executable-plane process exited {done.returncode}: "
+          f"{done.stderr[-3000:]}{done.stdout[-2000:]}")
+    child = json.loads(done.stdout.split("EXE-PLANE ", 1)[1].splitlines()[0])
+    root = str(registry_root)
+    log(f"executable plane, a fresh process (empty build directory, registry armed): "
+        f"process wall {wall:.2f} s ({child['start_s']:.2f} s to torch and the card); "
+        f"fetch and load of both libraries {child['fetch_s']:.3f} s against the cold nvcc "
+        f"build {max(cold_build.values()):.2f} s ({json.dumps({k: round(v, 2) for k, v in cold_build.items()})}); "
+        f"nvcc builds {child['nvcc_builds']}, build directory {child['build_dir']}, loaded "
+        f"from the registry {sorted(child['fetched'])}; K1 and K2 held against their plain "
+        f"versions there (launches {child['launches']})")
+    check(child["nvcc_builds"] == 0 and not child["build_dir"], "the fresh process built")
+    check(sorted(child["fetched"]) == ["gram", "rolling"]
+          and all(p.startswith(root) for p in child["fetched"].values()),
+          f"the fresh process did not load both libraries from the registry: {child}")
+    check(child["launches"] == {"k1": 1, "k2": 1}, f"fetched kernels launched {child}")
+
+    start = time.perf_counter()
+    svc, report = warm_from_registry(registry_dir=registry_root, max_batch=SERVING_MAX_BATCH,
+                                     strict=True, device="cuda")
+    wall = time.perf_counter() - start
+    same = bool(np.array_equal(svc.state.slopes_bar, state.slopes_bar, equal_nan=True))
+    svc.close()
+    svc.release()
+    log(f"warm pool: warm_from_registry over the published state in {wall:.3f} s (the "
+        f"service's warm-up {report.wall_s:.3f} s): builds {report.builds}, captures "
+        f"{report.captures}, libraries fetched {report.fetched}; state equal to the main "
+        f"path's {same}")
+    check(report.builds == 0 and report.captures == 9 and same,
+          f"the warm pool's report {report}")
+
+
+def _fleet_pass(fleet, months, xq, n=None) -> tuple:
+    """Every row (or the first ``n``) through ``fleet.submit`` in the
+    serving phase's seeded mixed batches (1..256): each batch's requests
+    submitted, then their quotes gathered. Returns (quotes, seconds)."""
+    n = len(months) if n is None else n
+    rng = np.random.default_rng(SERVING_MAX_BATCH)
+    got = np.empty(n)
+    start = time.perf_counter()
+    lo = 0
+    while lo < n:
+        hi = min(n, lo + int(rng.integers(1, SERVING_MAX_BATCH + 1)))
+        futs = [fleet.submit(int(m), r) for m, r in zip(months[lo:hi], xq[lo:hi])]
+        got[lo:hi] = [f.result(timeout=60) for f in futs]
+        lo = hi
+    return got, time.perf_counter() - start
+
+
+def _replica_latency(fleet) -> tuple:
+    """The worst replica's p50 and p99 (ms) from its own ``stats()``."""
+    stats = [fleet.replica(r).service.stats() for r in fleet.replica_states()]
+    return max(s["p50_ms"] for s in stats), max(s["p99_ms"] for s in stats)
+
+
+def _serving_bound(ref, months, firms) -> np.ndarray:
+    """``SERVING_ULPS``·eps32·(|ā| + Σ|x_p b̄_p|) per row (float64 host)."""
+    state, slot = ref["state"], months - ref["months"][0]
+    xq = ref["x"][slot, firms].astype(np.float64)
+    terms = (np.abs(state.intercept_bar[months].astype(np.float64))
+             + np.abs(xq * state.slopes_bar[months].astype(np.float64)).sum(-1))
+    return SERVING_ULPS * np.finfo(np.float32).eps * terms
+
+
+def _journal_append_us(directory) -> float:
+    """Microseconds per ``RequestJournal.append`` (each one written and
+    flushed, write-ahead) in ``directory``, one thread."""
+    from fm_returnprediction_tpu_torch.serving import RequestJournal
+
+    with tempfile.TemporaryDirectory(dir=directory) as tmp:
+        with RequestJournal(Path(tmp) / "bench.jsonl") as journal:
+            start = time.perf_counter()
+            for k in range(JOURNAL_APPENDS):
+                journal.append("admit", k)
+            return (time.perf_counter() - start) / JOURNAL_APPENDS * 1e6
+
+
+def fleet_phase(ref, bare: np.ndarray, registry_root: Path) -> None:
+    """The serving fleet at real size over the main path's f32 state."""
+    state = ref["state"]
+    slot_months, firms = np.nonzero(ref["rows"])
+    months = ref["months"][slot_months]
+    xq = ref["x"][slot_months, firms]
+    n_rows = len(months)
+    kw = dict(max_batch=SERVING_MAX_BATCH, registry_dir=registry_root, device="cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        journal = Path(tmp) / "fleet.jsonl"
+        for size in (1, 2):
+            fleet = ServingFleet(state, size, **kw)
+            got, wall = _fleet_pass(fleet, months, xq)
+            p50, p99 = _replica_latency(fleet)
+            equal = bool(np.array_equal(got, bare, equal_nan=True))
+            log(f"fleet of {size}: {n_rows} rows in mixed batches in {wall:.3f} s "
+                f"({n_rows / wall:.0f} rows/s), worst replica p50 {p50:.3f} ms p99 "
+                f"{p99:.3f} ms; every quote bit-equal to the bare service's {equal}; warm "
+                f"reports (builds, captures) "
+                + json.dumps({r: (w.builds, w.captures) for r, w in fleet.warm_reports.items()}))
+            check(equal, f"the fleet of {size} quotes differ from the bare service's")
+            check(all(w.builds == 0 and w.captures == 9 for w in fleet.warm_reports.values()),
+                  "a fleet replica's warm-up built or did not capture 9 buckets")
+            fleet.close()
+
+        # the journal's cost: every event is written and flushed before the
+        # action it records, so its rate is the file system's
+        where = {"TMPDIR": tempfile.gettempdir()}
+        if os.path.isdir("/dev/shm") and os.access("/dev/shm", os.W_OK):
+            where["/dev/shm"] = "/dev/shm"
+        append_us = {name: _journal_append_us(d) for name, d in where.items()}
+        log("journal append (written and flushed), µs each over "
+            f"{JOURNAL_APPENDS} appends: "
+            + json.dumps({k: round(v, 2) for k, v in append_us.items()})
+            + f" (TMPDIR {where['TMPDIR']})")
+
+        fleet = ServingFleet(state, 2, journal=journal, **kw)
+        # the routed replica killed under load, one tick replacing it
+        killed = {}
+        armed = threading.Event()
+
+        def stamped_kill(payload):
+            killed["t"], killed["rid"] = time.perf_counter(), payload[1]
+            fleet_kill_routed()(payload)
+            armed.set()
+            return payload
+
+        out = {}
+
+        def load():
+            out["got"], out["wall"] = _fleet_pass(fleet, months, xq, FLEET_JOURNALED_ROWS)
+
+        with FaultPlan({"fleet.replica_kill": FaultSpec(skip=FLEET_KILL_AT, times=1,
+                                                        mutate=stamped_kill)}) as plan:
+            worker = threading.Thread(target=load)
+            worker.start()
+            check(armed.wait(timeout=120), "the kill never fired")
+            actions = fleet.supervisor.tick()
+            new = [r for r in fleet.replica_states() if r not in ("r0", "r1")]
+            key = next(str(k) for k in range(100000) if fleet._ring.route(str(k)) in new)
+            fleet.submit(int(months[0]), xq[0], key=key).result(timeout=60)
+            first_s = time.perf_counter() - killed["t"]
+            worker.join(timeout=300)
+        check(not worker.is_alive() and plan.fired["fleet.replica_kill"] == 1,
+              "the kill-under-load pass did not finish")
+        fleet.drain(timeout=60)
+        stats = fleet.stats()
+        replay = replay_journal(journal)
+        warm = fleet.warm_reports[new[0]]
+        equal = bool(np.array_equal(out["got"], bare[:FLEET_JOURNALED_ROWS], equal_nan=True))
+        log(f"kill under load: a journaled fleet of 2 quoting {FLEET_JOURNALED_ROWS} rows; "
+            f"{killed['rid']} killed at routed request {FLEET_KILL_AT}; tick "
+            f"{actions}; the replacement {new[0]} warmed in {warm.wall_s:.3f} s (builds "
+            f"{warm.builds}, captures {warm.captures}); kill → its first quote "
+            f"{first_s * 1e3:.1f} ms; the pass {out['wall']:.3f} s "
+            f"({FLEET_JOURNALED_ROWS / out['wall']:.0f} rows/s), requeues "
+            f"{stats['requeues_total']}, every quote bit-equal {equal}; journal: admitted "
+            f"{replay.n_admitted}, done {replay.n_done}, dropped {len(replay.dropped)}, "
+            f"duplicated {len(replay.duplicated)}, requeues {replay.n_requeues}, clean "
+            f"{replay.clean}")
+        check(actions == [f"failover:{killed['rid']}->{new[0]}"] and warm.builds == 0,
+              f"the tick did not replace the killed replica through the warm pool: {actions}")
+        check(equal and replay.clean and not replay.dropped and not replay.duplicated,
+              "the kill under load lost, duplicated or changed a quote")
+
+        # hard crash with a torn tail, then recovery from the registry
+        crash_out = {}
+        with FaultPlan({"fleet.hard_crash": FaultSpec(skip=FLEET_CRASH_AT, times=1,
+                                                      mutate=fleet_hard_crash),
+                        "fleet.journal_torn_tail": FaultSpec(times=1,
+                                                             corrupt=tear_journal_tail)}) as plan:
+            try:
+                _fleet_pass(fleet, months, xq)
+            except Exception as exc:  # noqa: BLE001 — the crash ends the pass
+                crash_out["exc"] = type(exc).__name__
+        check(plan.fired["fleet.hard_crash"] == 1
+              and plan.fired["fleet.journal_torn_tail"] == 1, "the hard crash did not fire")
+        start = time.perf_counter()
+        recovered, report = ServingFleet.recover(journal, **kw)
+        recover_s = time.perf_counter() - start
+        got, _ = _fleet_pass(recovered, months, xq, FLEET_RECOVER_ROWS)
+        equal = bool(np.array_equal(got, bare[:FLEET_RECOVER_ROWS], equal_nan=True))
+        log(f"hard crash at admitted request {FLEET_CRASH_AT} ({crash_out.get('exc')}), then "
+            f"ServingFleet.recover in {recover_s:.3f} s: torn lines {report.journal.torn_lines} "
+            f"({report.journal.torn_bytes} bytes), closed out "
+            f"{len(report.journal.recovered)} in-flight, replays clean {report.clean}, "
+            f"{report.n_replicas} replicas ({report.zero_compile_starts} without a build), "
+            f"state {report.state_source.split(':')[0]}; {FLEET_RECOVER_ROWS} rows quoted "
+            f"bit-equal {equal}")
+        check(report.journal.torn_lines == 1 and report.clean and report.n_replicas == 2
+              and report.zero_compile_starts == 2 and equal,
+              f"recovery: {report}")
+
+        # one LoadGen burst against the capacity model
+        model = capacity_model(recovered)
+        load = LoadGen(recovered, months, xq, seed=SERVING_MAX_BATCH).run(
+            [LoadPhase("burst", n_requests=LOADGEN_REQUESTS, workers=LOADGEN_WORKERS)])
+        phase = load["phases"][0]
+        log(f"LoadGen burst ({LOADGEN_REQUESTS} requests, {LOADGEN_WORKERS} closed-loop "
+            f"workers, 2 replicas): {phase['rows_per_s']:.0f} rows/s, p50 {phase['p50_ms']} "
+            f"ms, p99 {phase['p99_ms']} ms, ok {phase['ok']}, shed {phase['shed']}, errors "
+            f"{phase['errors']}; capacity_model {json.dumps(model)}; measured / predicted "
+            f"{phase['rows_per_s'] / model['predicted_rows_per_s']:.4f}")
+        check(phase["ok"] == LOADGEN_REQUESTS and phase["errors"] == 0,
+              f"the LoadGen burst: {phase}")
+
+        # kill → replace cycles and the card's allocated memory
+        def cycle():
+            victim = sorted(recovered.replica_states())[0]
+            recovered.kill_replica(victim, reason="memory cycle")
+            check(recovered.supervisor.tick()[0].startswith(f"failover:{victim}"),
+                  "a memory cycle did not fail over")
+
+        cycle()
+        torch.cuda.synchronize()
+        base_bytes = torch.cuda.memory_allocated()
+        (extra,) = recovered.scale_out(1, reason="footprint")
+        torch.cuda.synchronize()
+        footprint = torch.cuda.memory_allocated() - base_bytes
+        recovered.kill_replica(extra, reason="footprint")
+        recovered.retire(extra)
+        for _ in range(FLEET_CYCLES):
+            cycle()
+        torch.cuda.synchronize()
+        grown = torch.cuda.memory_allocated() - base_bytes
+        log(f"memory: one replica holds {footprint:,} bytes on the card; after "
+            f"{FLEET_CYCLES} kill → replace cycles the allocated memory moved {grown:+,} bytes "
+            f"(tolerance: half of one replica, {footprint // 2:,}); reserved "
+            f"{torch.cuda.memory_reserved():,} bytes")
+        check(footprint > 0 and grown <= footprint // 2,
+              "kill → replace cycles leave device memory behind")
+        recovered.close()
+
+    # brownout on a tight token bucket
+    clk = [0.0]
+    fleet = ServingFleet(state, 2, max_batch=SERVING_MAX_BATCH, max_queue=256,
+                         auto_flush=False, device="cuda", admission_clock=lambda: clk[0],
+                         admission=AdmissionPolicy(rate_per_s=2000.0, burst=64.0),
+                         brownout=BrownoutPolicy(ladder=("full", "coreset", "shed"),
+                                                 enter_burn=1e9, exit_burn=1.0,
+                                                 enter_occupancy=0.5, exit_occupancy=0.1,
+                                                 dwell_ticks=1, recover_ticks=3))
+    try:
+        offered, queued, degraded, shed = 0, [], [], 0
+        for k in range(BROWNOUT_FILL + BROWNOUT_ROWS):
+            if k == BROWNOUT_FILL:
+                actions = fleet.supervisor.tick()
+                check(actions == ["brownout:coreset"], f"the ladder did not engage: {actions}")
+            clk[0] += 0.0004            # 2,500 offered a second against 2,000 admitted
+            offered += 1
+            try:
+                fut = fleet.submit(int(months[k]), xq[k])
+            except ServiceOverloadError as exc:
+                check(exc.reason == "token_bucket", f"an unexpected shed {exc.reason}")
+                shed += 1
+                continue
+            (queued if k < BROWNOUT_FILL else degraded).append((k, fut))
+        fleet.flush_all()
+        full = np.asarray([f.result(timeout=60) for _, f in queued])
+        idx = np.asarray([k for k, _ in degraded])
+        quotes = [f.result(timeout=60) for _, f in degraded]
+        q = np.asarray([float(v) for v in quotes])
+        # a quote the row cannot answer is NaN and carries no bound
+        disclosed = all(isinstance(v, DegradedQuote) and v.route == "coreset"
+                        and v.m == (state.n_predictors + 1) // 2
+                        and (v.err_bound is not None or np.isnan(v)) for v in quotes)
+        bound_ = np.asarray([np.nan if v.err_bound is None else v.err_bound
+                             for v in quotes]) + _serving_bound(ref, months[idx], firms[idx])
+        want = bare[idx]
+        same_nan = bool(np.array_equal(np.isnan(q), np.isnan(want)))
+        fin = np.isfinite(want)
+        ratio = float((np.abs(q - want)[fin] / bound_[fin]).max(initial=0.0))
+        full_equal = bool(np.array_equal(full, bare[[k for k, _ in queued]], equal_nan=True))
+        log(f"brownout (token bucket 2,000/s, burst 64; {offered} offered at 2,500/s): ladder "
+            f"at coreset after {BROWNOUT_FILL} queued rows; degraded share "
+            f"{len(quotes) / offered:.4f}, shed share {shed / offered:.4f}, queued full "
+            f"{len(queued) / offered:.4f} (bit-equal to the bare service {full_equal}); every "
+            f"degraded quote disclosed {disclosed}, NaN pattern equal {same_nan}, worst "
+            f"|degraded − full| / (err_bound + {SERVING_ULPS}·eps32 of the terms) {ratio:.4f}; "
+            f"err_bound median {float(np.median(bound_[fin])):.3e}")
+        check(disclosed and same_nan and ratio <= 1.0 and full_equal and shed > 0,
+              "a degraded quote was undisclosed or beyond its bound")
+    finally:
+        fleet.close()
+
+
 def trace_phase(base, daily, digests: dict) -> None:
     """``run_pipeline(trace_dir=...)`` at real size against an untraced
     run: artifacts bit-identical (and to the main path's), launches equal,
@@ -1313,22 +1718,45 @@ def profile_phase(base, daily, digests: dict) -> None:
 
 
 def trace_cli_phase() -> None:
-    """``--synthetic --trace-dir D --profile-dir P`` at 250 × 130 through
-    the command line: exit 0, both trace files and the profile written and
-    parsed, the usual launches."""
+    """``--synthetic --trace-dir D --profile-dir P --registry-dir R
+    --fleet-size 2`` at 150 × 130 through the command line: exit 0, both
+    trace files and the profile written and parsed, the usual launches; the
+    fleet smoke's JSON with every quote finite and 2 healthy replicas; then
+    ``python -m fm_returnprediction_tpu_torch.registry verify R`` exits 0."""
     with tempfile.TemporaryDirectory() as tmp:
         trace_dir, profile_dir = Path(tmp) / "trace", Path(tmp) / "profile"
+        registry_root = Path(tmp) / "registry"
         run = run_cli(["--synthetic", "--firms", SYNTHETIC_CLI_FIRMS, "--months",
                        SYNTHETIC_CLI_MONTHS, "--trace-dir", trace_dir,
-                       "--profile-dir", profile_dir])
+                       "--profile-dir", profile_dir, "--registry-dir", registry_root,
+                       "--fleet-size", 2])
         made = {d.name: sorted(p.name for p in d.iterdir()) for d in (trace_dir, profile_dir)}
         names = {json.loads(line).get("name") for line in (trace_dir / "events.jsonl").open()}
         json.loads((trace_dir / "trace.json").read_text())
         kernels = profile_kernel_counts(profile_dir / PROFILE_TRACE_NAME, PROFILE_KERNELS)
+        smoke = re.search(r"^serving fleet smoke: (\{.*\})$", run["stdout"], re.MULTILINE)
+        check(smoke is not None, "the CLI printed no fleet smoke")
+        smoke = json.loads(smoke.group(1))
+        verify = subprocess.run([sys.executable, "-m", "fm_returnprediction_tpu_torch.registry",
+                                 "--registry-dir", str(registry_root), "verify"],
+                                cwd=Path(__file__).resolve().parent, capture_output=True,
+                                text=True, timeout=300)
+        listed = subprocess.run([sys.executable, "-m", "fm_returnprediction_tpu_torch.registry",
+                                 "--registry-dir", str(registry_root), "ls"],
+                                cwd=Path(__file__).resolve().parent, capture_output=True,
+                                text=True, timeout=300).stdout
     launches = run["launches"]
-    log(f"CLI --trace-dir --profile-dir at {SYNTHETIC_CLI_FIRMS} x {SYNTHETIC_CLI_MONTHS}: "
-        f"exit 0 in {run['wall']:.1f} s; files {made}; launches {launches['k1']}/"
-        f"{launches['k2']}/{launches['moments']}, in the profile {kernels}")
+    log(f"CLI --trace-dir --profile-dir --registry-dir --fleet-size 2 at {SYNTHETIC_CLI_FIRMS} "
+        f"x {SYNTHETIC_CLI_MONTHS}: exit 0 in {run['wall']:.1f} s; files {made}; launches "
+        f"{launches['k1']}/{launches['k2']}/{launches['moments']}, in the profile {kernels}; "
+        f"stage registry_publish {run['stages'].get('registry_publish')} s; fleet smoke "
+        f"{json.dumps(smoke, sort_keys=True)}; registry verify exit {verify.returncode} "
+        f"({verify.stdout.strip()}); ls: {' | '.join(listed.strip().splitlines())}")
+    check(smoke.get("finite_quotes") == smoke.get("n_queries")
+          and smoke.get("healthy_replicas") == 2, f"the CLI fleet smoke {smoke}")
+    check(verify.returncode == 0, f"registry verify exited {verify.returncode}: "
+          f"{verify.stderr[-2000:]}")
+    check("registry_publish" in run["stages"], "the CLI run has no registry_publish stage")
     check(made == {"trace": ["events.jsonl", "trace.json"], "profile": [PROFILE_TRACE_NAME]},
           f"CLI trace files {made}")
     check({"run_pipeline", "table_2", "serving_state"} <= names, "CLI trace lacks stage spans")
@@ -2007,7 +2435,7 @@ def ingest_phase(res) -> None:
 
 def bootstrap_cli_phase() -> None:
     """``python -m fm_returnprediction_tpu_torch.pipeline --synthetic
-    --bootstrap 200`` at 250 × 130 on the card: exit 0 with the
+    --bootstrap 200`` at 150 × 130 on the card: exit 0 with the
     ``bootstrap_table`` stage, and ``bootstrap_se.pkl``/``.tex`` written.
     The command line draws Figure 1 into any ``--output-dir`` and raises
     where matplotlib does not import, as the reference does; there it runs
@@ -2377,7 +2805,7 @@ def bank_ingest_phase(res) -> None:
 
 def backtest_cli_phase() -> None:
     """``python -m fm_returnprediction_tpu_torch.pipeline --synthetic
-    --backtest --backtest-sink metrics`` at 250 × 130 on the card: exit 0
+    --backtest --backtest-sink metrics`` at 150 × 130 on the card: exit 0
     with the ``backtest`` stage and the bank's K2 launch; then
     ``backtest.csv`` written by an ``--output-dir`` run — the command line
     where matplotlib imports, else ``run_pipeline(make_figure=False,
@@ -2798,7 +3226,7 @@ def _estimators_vs_cpu(gpu) -> None:
 
 def estimator_cli_phase() -> None:
     """``python -m fm_returnprediction_tpu_torch.pipeline --synthetic
-    --specgrid --specgrid-estimator iv:…`` at 250 × 130 on the card: exit 0
+    --specgrid --specgrid-estimator iv:…`` at 150 × 130 on the card: exit 0
     with the ``specgrid`` stage and one K2 launch more than the main path
     (the sweep's pairs); then ``--specgrid-estimator absorb:ind``, which
     exits non-zero as the reference does (the pipeline has no FE codes: the
@@ -2849,11 +3277,12 @@ ARTIFACTS = ("data_saved.marker", "table_1.pkl", "table_1.tex", "table_2.pkl", "
              "research_report.tex")
 
 
-# The raw-directory command line's synthetic universe: 1000 firms over 240
+# The raw-directory command line's synthetic universe: 600 firms over 240
 # months, written once and read by three runs; the --synthetic command line
-# runs at 250 x 130 (see PERF.md, Cells).
-CLI_FIRMS, CLI_MONTHS = 1000, 240
-SYNTHETIC_CLI_FIRMS, SYNTHETIC_CLI_MONTHS = 250, 130
+# runs at 150 x 130 (see PERF.md, Cells). Both were cut (from 1000 and 250
+# firms) to pay for the fleet phase: their generation is linear in firms.
+CLI_FIRMS, CLI_MONTHS = 600, 240
+SYNTHETIC_CLI_FIRMS, SYNTHETIC_CLI_MONTHS = 150, 130
 # Launches of each raw-directory command-line run at CLI_FIRMS x CLI_MONTHS:
 # K1 std over the daily strips, sum w=12 and w=24, the figure's mean roll and
 # four forecast means; K2 for Table 2 and the figure grid (PERF.md, Findings).
@@ -2958,7 +3387,7 @@ def raw_cli_phase(raw: Path) -> None:
 
 # The stages that read the raw files, up to the panel's host arrays.
 INGEST_STAGES = ("load_raw_data", "factors/daily_ingest", "factors/long_to_dense")
-INGEST_PAIRS = 5
+INGEST_PAIRS = 3
 
 
 def host_ingest_seconds(stages: dict) -> float:
@@ -3193,7 +3622,9 @@ def main(argv=None) -> int:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(args.seed)
     timed = not args.kernels_only
-    rows = k1_phase(gen, timed) + k2_phase(gen, timed) + k3_phase(gen, timed)
+    rows = (phase_timed("k1_phase", k1_phase, gen, timed)
+            + phase_timed("k2_phase", k2_phase, gen, timed)
+            + phase_timed("k3_phase", k3_phase, gen, timed))
     if args.kernels_only:
         log("kernels-only run: kernel phases passed")
         return 0
@@ -3204,25 +3635,31 @@ def main(argv=None) -> int:
         f"{len(daily.row_values):,} daily rows over {daily.n_days} days, "
         f"built in {time.perf_counter() - start:.1f} s")
     with tempfile.TemporaryDirectory() as audit_dir:
-        counts, digests, gram_frames, serving = main_path(base, daily, Path(audit_dir))
-    phase_timed("serving_phase", serving_phase, serving)
-    del serving
-    slot_phase(base, daily, digests)
+        counts, digests, gram_frames, serving = phase_timed("main_path", main_path, base,
+                                                            daily, Path(audit_dir))
+    bare = phase_timed("serving_phase", serving_phase, serving)
+    with tempfile.TemporaryDirectory() as registry_root:
+        registry_root = Path(registry_root)
+        phase_timed("slot_phase", slot_phase, base, daily, digests, registry_root)
+        phase_timed("registry_phase", registry_phase, registry_root, args.seed, per_kernel,
+                    serving["state"])
+        phase_timed("fleet_phase", fleet_phase, serving, bare, registry_root)
+    del serving, bare
     phase_timed("trace_phase", trace_phase, base, daily, digests)
     phase_timed("profile_phase", profile_phase, base, daily, digests)
-    path_counts = {"main": counts, **specgrid_phase(base, daily)}
-    bootstrap_phase(base, daily)
-    path_counts["backtest"] = backtest_phase(base, daily)
-    path_counts["estimators"] = estimators_phase(base, daily)
-    stacked_phase(base, daily, gram_frames)
+    path_counts = {"main": counts, **phase_timed("specgrid_phase", specgrid_phase, base, daily)}
+    phase_timed("bootstrap_phase", bootstrap_phase, base, daily)
+    path_counts["backtest"] = phase_timed("backtest_phase", backtest_phase, base, daily)
+    path_counts["estimators"] = phase_timed("estimators_phase", estimators_phase, base, daily)
+    phase_timed("stacked_phase", stacked_phase, base, daily, gram_frames)
     del base, daily
-    rows += strip_phase(gen, counts)
-    card_vs_cpu(args.seed)
-    ingest_vs_cpu()
-    cli_phase()
-    bootstrap_cli_phase()
-    backtest_cli_phase()
-    estimator_cli_phase()
+    rows += phase_timed("strip_phase", strip_phase, gen, counts)
+    phase_timed("card_vs_cpu", card_vs_cpu, args.seed)
+    phase_timed("ingest_vs_cpu", ingest_vs_cpu)
+    phase_timed("cli_phase", cli_phase)
+    phase_timed("bootstrap_cli_phase", bootstrap_cli_phase)
+    phase_timed("backtest_cli_phase", backtest_cli_phase)
+    phase_timed("estimator_cli_phase", estimator_cli_phase)
     phase_timed("trace_cli_phase", trace_cli_phase)
     with tempfile.TemporaryDirectory() as tmp:
         raw = Path(tmp) / "raw"
@@ -3230,10 +3667,10 @@ def main(argv=None) -> int:
         write_synthetic_cache(raw, SyntheticConfig(n_firms=CLI_FIRMS, n_months=CLI_MONTHS))
         log(f"raw directory {CLI_FIRMS} firms x {CLI_MONTHS} months written in "
             f"{time.perf_counter() - start:.1f} s")
-        raw_cli_phase(raw)
-        specgrid_cli_phase(raw)
-        ingest_pairs_phase(raw)
-        resume_phase(raw)
+        phase_timed("raw_cli_phase", raw_cli_phase, raw)
+        phase_timed("specgrid_cli_phase", specgrid_cli_phase, raw)
+        phase_timed("ingest_pairs_phase", ingest_pairs_phase, raw)
+        phase_timed("resume_phase", resume_phase, raw)
 
     for row in rows:
         key = row.pop("key")

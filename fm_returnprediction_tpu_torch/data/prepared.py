@@ -93,9 +93,19 @@ def raw_fingerprint(raw_dir, dtype, salt: str = "") -> str:
 
 
 def prepared_candidates(raw_dir) -> List[Path]:
-    """The slots to try, in order; saves go to the first. Only
-    ``<raw_dir>/_prepared`` until a registry root exists in the port."""
-    return [Path(raw_dir) / PREPARED_DIRNAME]
+    """The slots to try, in order; saves go to the first. With a registry
+    armed (``FMRP_REGISTRY_DIR``) the slot lives under its root, keyed by
+    the raw directory's absolute path (two raw caches do not share a
+    slot), and ``<raw_dir>/_prepared`` stays as a read fallback; without
+    one, only ``<raw_dir>/_prepared``."""
+    from fm_returnprediction_tpu_torch.registry.store import active_registry
+
+    legacy = Path(raw_dir) / PREPARED_DIRNAME
+    reg = active_registry()
+    if reg is None:
+        return [legacy]
+    slot = hashlib.sha256(str(Path(raw_dir).resolve()).encode()).hexdigest()[:16]
+    return [reg.prepared_root(slot), legacy]
 
 
 def _write_npy(prepared_dir: Path, name: str, arr: np.ndarray, manifest: dict) -> None:

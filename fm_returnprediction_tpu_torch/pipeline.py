@@ -433,6 +433,7 @@ def run_pipeline(
     backtest_sink: Optional[str] = None,
     trace_dir=None,
     profile_dir=None,
+    registry_dir=None,
 ) -> PipelineResult:
     """Raw data or prepared inputs → characteristics → NYSE-breakpoint
     universes → Table 1 → Table 2 → Figure 1 / deciles → serving state →
@@ -522,10 +523,22 @@ def run_pipeline(
     ``profile_dir`` wraps the run in a ``torch.profiler`` capture (CPU
     activities and, on the card, CUDA's) written to
     ``<profile_dir>/profile_trace.json``; every stage span also names its
-    interval in the profile (``telemetry.profiling``)."""
+    interval in the profile (``telemetry.profiling``).
+
+    ``registry_dir`` arms the registry for the run (``None`` follows
+    ``FMRP_REGISTRY_DIR``, default off): the prepared-inputs slot lives
+    under its root, a kernel library the run needs is fetched from it
+    before nvcc runs, and the stage ``registry_publish`` publishes the
+    serving state, the sweep and backtest CSVs, the audit manifest and the
+    kernel libraries the run loaded, then warms the serving buckets on the
+    device. Unlike the reference, a publish that leaves the registry
+    without this run's serving-state entry raises: the run does not end
+    as a success with its artifacts missing from the registry it armed."""
+    from fm_returnprediction_tpu_torch.registry.store import using_registry
+
     if guard is None:
         guard = _guard_checks.guard_active()
-    with _telemetry.tracing(trace_dir), _telemetry.profiling(
+    with using_registry(registry_dir), _telemetry.tracing(trace_dir), _telemetry.profiling(
         profile_dir, device=device
     ), _telemetry.span("run_pipeline", cat="pipeline"), _guard_checks.guards(bool(guard)):
         return _run_pipeline_guarded(
@@ -838,6 +851,16 @@ def _run_pipeline_guarded(
             sentinel.raise_on_drift(audit)
             sentinel.commit(audit)
 
+    from fm_returnprediction_tpu_torch.registry.store import active_registry
+
+    registry = active_registry()
+    if registry is not None:
+        with timer.stage("registry_publish"):
+            _registry_publish(
+                registry, _pipeline_fingerprint(panel, dtype, provenance_salt()), device,
+                output_dir=output_dir, audit_dir=audit_dir, serving_state=serving_state,
+                specgrid_scenarios=specgrid_scenarios, backtest_table=backtest_table)
+
     return PipelineResult(
         panel=panel, factors_dict=factors_dict, subset_masks=masks,
         table_1=table_1, table_2=table_2, table_2_cells=cells, sweep=sweep,
@@ -846,6 +869,50 @@ def _run_pipeline_guarded(
         timer=timer, audit=audit, specgrid_scenarios=specgrid_scenarios,
         bootstrap_table=bootstrap_table, backtest_table=backtest_table,
     )
+
+
+def _registry_publish(registry, fingerprint: str, device, *, output_dir, audit_dir,
+                      serving_state, specgrid_scenarios, backtest_table) -> None:
+    """The ``registry_publish`` stage: the serving state (the npz the
+    artifact writer saved, else serialized here), the sweep and backtest
+    CSVs and the audit manifest that this run wrote, and, on the card, the
+    kernel libraries it loaded; then the serving buckets are warmed on the
+    device (each captured once and freed), as the reference warms its
+    bucket programs at publication. Raises when the registry holds no
+    serving-state entry for this run afterwards (each ``put_*`` warns
+    instead of raising)."""
+    from fm_returnprediction_tpu_torch import cuda_build
+    from fm_returnprediction_tpu_torch.guard.drift import MANIFEST_NAME
+    from fm_returnprediction_tpu_torch.registry import artifacts as _rart
+    from fm_returnprediction_tpu_torch.serving.executor import BucketedExecutor
+
+    out = Path(output_dir) if output_dir is not None else None
+    if serving_state is not None:
+        saved = out / "serving_state.npz" if out is not None else None
+        if saved is not None and saved.exists():
+            _rart.put_files(_rart.SERVING_STATE_NAME, fingerprint, [saved], registry=registry,
+                            meta={"n_months": int(serving_state.n_months),
+                                  "n_predictors": int(serving_state.n_predictors)})
+        else:
+            _rart.put_serving_state(serving_state, fingerprint, registry=registry)
+        if _rart.get_entry_dir(_rart.SERVING_STATE_NAME, fingerprint, registry=registry) is None:
+            raise RuntimeError(
+                f"registry_publish: the registry at {registry.root} holds no serving-state "
+                f"entry for this run (fingerprint {fingerprint}) after the publish")
+    for name, frame, file in (("specgrid_scenarios", specgrid_scenarios,
+                               "specgrid_scenarios.csv"),
+                              ("backtest", backtest_table, "backtest.csv")):
+        if frame is not None and out is not None and (out / file).exists():
+            _rart.put_files(name, fingerprint, [out / file], registry=registry)
+    if audit_dir is not None and (Path(audit_dir) / MANIFEST_NAME).exists():
+        _rart.put_files("audit_manifest", fingerprint, [Path(audit_dir) / MANIFEST_NAME],
+                        registry=registry)
+    if device.type == "cuda":
+        cuda_build.publish_libraries(registry)
+    if serving_state is not None:
+        executor = BucketedExecutor(serving_state, device=device)
+        executor.warmup()
+        executor.release()
 
 
 def _main(argv=None) -> None:
@@ -944,6 +1011,26 @@ def _main(argv=None) -> None:
              "card, CUDA activities) into this directory as profile_trace.json; "
              "the stage spans name their intervals in it",
     )
+    parser.add_argument(
+        "--registry-dir", default=None,
+        help="arm the registry at this root: the prepared-inputs slot, the kernel "
+             "libraries and the fitted artifacts are fetched from (and published "
+             "into) it, so a later process skips rebuilds; default follows "
+             "FMRP_REGISTRY_DIR",
+    )
+    parser.add_argument(
+        "--fleet-size", type=int, default=None, metavar="N",
+        help="after the pipeline completes, stand up an N-replica serving fleet on "
+             "the fitted serving state and run the admission-controlled query smoke; "
+             "default follows FMRP_FLEET_SIZE when set (FMRP_FLEET_RATE/_BURST/"
+             "_SHED_OCCUPANCY shape admission, FMRP_FLEET_JOURNAL arms the journal); "
+             "a failed smoke exits nonzero",
+    )
+    parser.add_argument(
+        "--replica-mode", choices=("thread",), default=None,
+        help="fleet replica boundary: threads of this process (process replicas "
+             "are not ported yet)",
+    )
     parser.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                         help="compute device (default cuda; raises without a "
                              "GPU); takes the place of the reference's --backend")
@@ -981,6 +1068,7 @@ def _main(argv=None) -> None:
         backtest_sink=args.backtest_sink,
         trace_dir=args.trace_dir,
         profile_dir=args.profile_dir,
+        registry_dir=args.registry_dir,
     )
     print(result.table_1.round(3).to_string())
     print()
@@ -993,6 +1081,22 @@ def _main(argv=None) -> None:
         print(f"backtest: {len(result.backtest_table)} rows")
         print()
     print(result.timer.report())
+    fleet_size = args.fleet_size
+    if fleet_size is None and os.environ.get("FMRP_FLEET_SIZE"):
+        fleet_size = int(os.environ["FMRP_FLEET_SIZE"])
+    if fleet_size:
+        if result.serving_state is None:
+            print("fleet smoke skipped: no serving state was built")
+            return
+        # unlike the reference, a failed smoke is not swallowed: the
+        # exception ends the command with a nonzero exit
+        from fm_returnprediction_tpu_torch.serving.fleet import fleet_smoke
+
+        smoke = fleet_smoke(result.serving_state, fleet_size,
+                            registry_dir=args.registry_dir,
+                            replica_mode=args.replica_mode, device=args.device)
+        print()
+        print("serving fleet smoke: " + json.dumps(smoke, sort_keys=True))
 
 
 if __name__ == "__main__":

@@ -6,7 +6,8 @@ with the typed :class:`CorruptArtifactError` the caller degrades on: the
 prepared-inputs slot's ``meta.json`` manifest (``data.prepared``), the
 array-bundle digest ``utils.cache.save_array_bundle`` embeds, the drift
 sentinel's array-artifact hash (``guard.drift``) and the stage
-checkpoints' manifest (``resilience.checkpoint``).
+checkpoints' manifest (``resilience.checkpoint``) and the registry's
+entries (``registry.store``).
 
 The digests are the reference package's byte for byte: ``file_sha256``
 hashes the raw file bytes and ``array_bundle_digest`` frames
@@ -18,7 +19,7 @@ from __future__ import annotations
 
 import hashlib
 from pathlib import Path
-from typing import Dict, Union
+from typing import Dict, Iterable, Union
 
 import numpy as np
 
@@ -29,7 +30,10 @@ __all__ = [
     "file_sha256",
     "array_bundle_digest",
     "manifest_entry",
+    "build_manifest",
     "verify_entry",
+    "verify_manifest",
+    "hash_files",
 ]
 
 _CHUNK = 1 << 22
@@ -61,6 +65,12 @@ def manifest_entry(path: Union[Path, str]) -> dict:
     return {"sha256": file_sha256(path), "size": path.stat().st_size}
 
 
+def build_manifest(paths: Iterable[Union[Path, str]]) -> Dict[str, dict]:
+    """Manifest over several files, keyed by file name (a registry entry
+    and a prepared slot keep their payloads flat in one directory)."""
+    return {Path(p).name: manifest_entry(p) for p in paths}
+
+
 def verify_entry(path: Union[Path, str], entry: dict, deep: bool = False) -> None:
     """Check one payload file against its manifest record.
 
@@ -86,3 +96,21 @@ def verify_entry(path: Union[Path, str], entry: dict, deep: bool = False) -> Non
             raise CorruptArtifactError(f"{name} unreadable during verify: {exc!r}") from exc
         if digest != entry.get("sha256"):
             raise CorruptArtifactError(f"{name} failed its content sha256")
+
+
+def verify_manifest(directory: Union[Path, str], manifest: Dict[str, dict],
+                    deep: bool = False) -> None:
+    """Verify every manifest record against the files in ``directory``."""
+    directory = Path(directory)
+    for name, entry in manifest.items():
+        verify_entry(directory / name, entry, deep=deep)
+
+
+def hash_files(paths: Iterable[Union[Path, str]]) -> str:
+    """One digest over several files' (name, bytes), in name order."""
+    h = hashlib.sha256()
+    for p in sorted(Path(p) for p in paths):
+        h.update(p.name.encode())
+        h.update(b"|")
+        h.update(p.read_bytes())
+    return h.hexdigest()

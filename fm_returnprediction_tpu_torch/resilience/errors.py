@@ -3,7 +3,8 @@
 The part of the reference package's failure taxonomy that the port uses:
 corrupt persisted artifacts, injected faults, contract violations,
 quarantined artifacts and drift, an exhausted retry, a stalled serving
-dispatch and a killed serving replica. Nothing here imports anything, so
+dispatch, a killed serving replica, and the serving fleet's admission
+shed, crash close-out and aborted rollover. Nothing here imports anything, so
 every layer (``utils.cache``, ``data.prepared``, ``resilience.checkpoint``,
 ``resilience.retry``, ``serving``) can name these types.
 """
@@ -18,7 +19,10 @@ __all__ = [
     "IngestRejectedError",
     "ContractViolationError",
     "DriftDetectedError",
+    "ServiceOverloadError",
     "ReplicaDeadError",
+    "RecoveredInFlightError",
+    "StateRolloverError",
     "InjectedFault",
 ]
 
@@ -65,10 +69,59 @@ class DriftDetectedError(ContractViolationError):
     is left unmodified so the regression remains reproducible against it."""
 
 
+class ServiceOverloadError(ResilienceError):
+    """The serving fleet shed this request at admission (429-style).
+
+    RETRIABLE by contract: the request was refused before any replica saw
+    it, so a resubmit can never double-serve. Carries the shed decision's
+    evidence:
+
+    - ``retry_after_s``: the admission controller's hint for when capacity
+      should exist again (token-bucket refill time, or the estimated queue
+      drain time);
+    - ``reason``: ``"token_bucket"`` | ``"queue_occupancy"`` |
+      ``"replica_backpressure"`` | ``"no_healthy_replicas"`` |
+      ``"brownout_shed"``;
+    - ``queue_depth`` / ``queue_ceiling``: aggregate pending requests vs
+      the fleet's total queue capacity at decision time (None when the
+      reason carries no queue evidence).
+    """
+
+    def __init__(self, message: str, *, retry_after_s: float = 0.0,
+                 reason: str = "overload", queue_depth=None, queue_ceiling=None):
+        super().__init__(message)
+        self.retry_after_s = float(retry_after_s)
+        self.reason = str(reason)
+        self.queue_depth = queue_depth
+        self.queue_ceiling = queue_ceiling
+
+    @property
+    def occupancy(self):
+        """Queue fill fraction at decision time (None without evidence)."""
+        if not self.queue_ceiling:
+            return None
+        return self.queue_depth / self.queue_ceiling
+
+
 class ReplicaDeadError(ResilienceError):
     """A serving replica was killed (``serving.service.ERService.kill``)
     with this request still queued on it: the request fails with this
     error instead of being stranded."""
+
+
+class RecoveredInFlightError(ResilienceError):
+    """A request was admitted but still in flight when the fleet process
+    died; crash-restart recovery (``serving.recovery``) closed it out with
+    this outcome in the journal. RETRIABLE by contract: quoting is
+    read-only and the original future died with the process, so a
+    resubmit can never double-serve."""
+
+
+class StateRolloverError(ResilienceError):
+    """A fleet-wide state rollover aborted in its PREPARE phase (a failed
+    validation, a poisoned candidate, a warm-up error on some replica).
+    Nothing has flipped: every replica still serves the previous version.
+    The message names the replica and the cause."""
 
 
 class InjectedFault(OSError):

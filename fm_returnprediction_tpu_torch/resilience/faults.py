@@ -30,7 +30,10 @@ cross-section offered to ``ERService.ingest_month``, before its
 validation: where :func:`poison_nan_flood` and :func:`poison_scale_spike`
 are injected), and ``serving.dispatch`` and ``fleet.replica_stall``
 (payload: the replica's label, None outside a fleet) inside a serving
-bucket dispatch, where a stall is what the dispatch watchdog sees. The declarative part of a plan serializes into
+bucket dispatch, where a stall is what the dispatch watchdog sees; and the
+serving fleet's ``fleet.replica_kill``, ``fleet.swap_mid_flight``,
+``fleet.poison_state``, ``fleet.hard_crash`` and
+``fleet.journal_torn_tail`` (their mutators are below). The declarative part of a plan serializes into
 ``FMRP_CHAOS_PLAN``/``FMRP_CHAOS_SEED`` (:func:`chaos_env`), which a child
 process installs with :func:`install_plan_from_env`; ``FaultSpec.proc``
 restricts a spec to the child whose ``FMRP_DIST_PROC_ID`` or
@@ -71,6 +74,12 @@ __all__ = [
     "corrupt_panel_permute_firms",
     "corrupt_panel_stale_month",
     "corrupt_panel_scale_spike",
+    "fleet_kill_routed",
+    "fleet_stall_replica",
+    "fleet_trigger_staged_rollover",
+    "fleet_hard_crash",
+    "poison_serving_state_nan",
+    "tear_journal_tail",
 ]
 
 # The installed plan: a plain module global, so the inactive path costs one
@@ -360,3 +369,89 @@ def corrupt_panel_scale_spike(panel, column: int = -1, scale: float = 1e20):
     values = panel.values.clone()
     values[:, :, column] = values[:, :, column] * scale
     return dataclasses.replace(panel, values=values)
+
+
+# -- fleet fault mutators ----------------------------------------------------
+#
+# The serving fleet's fault sites (``serving.fleet``) carry LIVE OBJECTS as
+# payloads (the fleet itself, or (fleet, routed replica id)), so a plan can
+# act on the fleet's topology at a deterministic point in the request
+# stream (the spec's skip/times counters pick WHICH request). Each mutator
+# returns the payload unchanged: these sites poison the world, not the data.
+#
+#   fleet.replica_kill      after a request is in flight on its routed
+#                           replica; ``fleet_kill_routed`` kills that replica
+#   fleet.replica_stall     at each replica dispatch, with its id;
+#                           ``fleet_stall_replica`` stalls one replica
+#   fleet.swap_mid_flight   inside the admitted-submit path;
+#                           ``fleet_trigger_staged_rollover`` fires the staged
+#                           rollover between two specific requests
+#   fleet.poison_state      per replica in a rollover's PREPARE;
+#                           ``poison_serving_state_nan`` corrupts the candidate
+#   fleet.hard_crash        inside the admitted-submit path;
+#                           ``fleet_hard_crash`` abandons the whole fleet
+#   fleet.journal_torn_tail with the journal's path as a crash drops its
+#                           handle; ``tear_journal_tail`` cuts the last line
+
+
+def fleet_kill_routed(rid: Optional[str] = None):
+    """Mutator factory for ``fleet.replica_kill``: kill the replica the
+    triggering request was just routed to (payload ``(fleet, routed_rid)``),
+    or only when it is ``rid``."""
+
+    def mutate(payload):
+        fleet, routed = payload
+        if rid is None or routed == rid:
+            fleet.kill_replica(routed, reason="chaos: fleet.replica_kill")
+        return payload
+
+    return mutate
+
+
+def fleet_stall_replica(rid: str, delay_s: float):
+    """Mutator factory for ``fleet.replica_stall``: stall exactly one
+    replica's dispatches (the payload is the dispatching replica's id)."""
+
+    def mutate(payload):
+        if payload == rid:
+            time.sleep(delay_s)
+        return payload
+
+    return mutate
+
+
+def fleet_trigger_staged_rollover(payload):
+    """Mutator for ``fleet.swap_mid_flight``: fire the fleet's staged state
+    rollover now, from inside the submit path."""
+    payload.trigger_staged_rollover()
+    return payload
+
+
+def fleet_hard_crash(payload):
+    """Mutator for ``fleet.hard_crash``: abandon the fleet mid-load as a
+    process death would (no drain, no journal terminals)."""
+    payload.hard_crash()
+    return payload
+
+
+def tear_journal_tail(path: Union[str, Path]) -> None:
+    """Corruptor for ``fleet.journal_torn_tail``: cut the journal's final
+    line in half, the shape a crash in the middle of an append leaves."""
+    path = Path(path)
+    data = path.read_bytes().rstrip(b"\n")
+    if not data:
+        return
+    nl = data.rfind(b"\n")
+    last = data[nl + 1:]
+    path.write_bytes(data[: nl + 1] + last[: max(len(last) // 2, 1)])
+
+
+def poison_serving_state_nan(state):
+    """A rollover candidate whose every lagged coefficient is NaN. Declared
+    catch: the fleet's candidate validation in PREPARE
+    (``StateRolloverError``, no replica flipped)."""
+    return dataclasses.replace(
+        state,
+        slopes_bar=np.full_like(np.asarray(state.slopes_bar), np.nan),
+        intercept_bar=np.full_like(np.asarray(state.intercept_bar), np.nan),
+    )

@@ -10,23 +10,64 @@ buckets are warmed CUDA graphs on the card and eager callables on the CPU
 occupancy and program counters, SLOs and the metrics endpoint
 (``service``), and the incremental month ingest (``ingest``).
 
-The reference's fleet tier (``fleet``, ``supervisor``, ``journal``,
-``recovery``, ``brownout``, ``loadgen``, the process replicas and the
-shared-memory transport) is not ported yet (ROADMAP A6, A8).
+Above the single service sits the FLEET tier, in one process: N
+supervised thread replicas behind one admission-controlled submit path
+(``fleet``: consistent-hash routing, token-bucket and queue-occupancy
+shedding with typed retriable 429s, drain-and-replace failover through
+the registry warm pool, two-phase state rollover), the supervisor with its
+autoscaler leg (``supervisor``), the brownout ladder of disclosed
+host-side routes (``brownout``), the write-ahead request journal and its
+replay (``journal``), crash-restart recovery (``recovery``), and the load
+harness with the capacity model (``loadgen``). The reference's process
+replicas and shared-memory transport wait for ROADMAP A8.
 """
 
 from fm_returnprediction_tpu_torch.serving.batcher import MicroBatcher, QueueFullError
+from fm_returnprediction_tpu_torch.serving.brownout import (
+    BrownoutController,
+    BrownoutPolicy,
+    DegradedQuote,
+)
 from fm_returnprediction_tpu_torch.serving.executor import (
     BucketedExecutor,
     bucket_for,
     bucket_sizes,
 )
+from fm_returnprediction_tpu_torch.serving.fleet import (
+    AdmissionPolicy,
+    HashRing,
+    ServingFleet,
+    TokenBucket,
+    fleet_smoke,
+)
 from fm_returnprediction_tpu_torch.serving.ingest import ingest_month
+from fm_returnprediction_tpu_torch.serving.journal import (
+    JournalReplay,
+    RequestJournal,
+    replay_journal,
+)
+from fm_returnprediction_tpu_torch.serving.loadgen import (
+    LoadGen,
+    LoadPhase,
+    capacity_model,
+    portfolio_consumer,
+    query_with_retry,
+)
+from fm_returnprediction_tpu_torch.serving.recovery import (
+    RecoveryReport,
+    recover_journal,
+    repair_journal,
+)
 from fm_returnprediction_tpu_torch.serving.service import ERService
 from fm_returnprediction_tpu_torch.serving.state import (
     ServingState,
     build_serving_state,
     build_serving_state_from_panel,
+)
+from fm_returnprediction_tpu_torch.serving.supervisor import (
+    AutoscalePolicy,
+    HealthPolicy,
+    Supervisor,
 )
 
 __all__ = [
@@ -40,4 +81,26 @@ __all__ = [
     "bucket_for",
     "ERService",
     "ingest_month",
+    "ServingFleet",
+    "AdmissionPolicy",
+    "TokenBucket",
+    "HashRing",
+    "fleet_smoke",
+    "RequestJournal",
+    "JournalReplay",
+    "replay_journal",
+    "Supervisor",
+    "HealthPolicy",
+    "AutoscalePolicy",
+    "BrownoutPolicy",
+    "BrownoutController",
+    "DegradedQuote",
+    "LoadGen",
+    "LoadPhase",
+    "capacity_model",
+    "portfolio_consumer",
+    "query_with_retry",
+    "RecoveryReport",
+    "recover_journal",
+    "repair_journal",
 ]

@@ -395,6 +395,13 @@ class MicroBatcher:
 
     # -- lifecycle / metrics ----------------------------------------------
 
+    @property
+    def queue_depth(self) -> int:
+        """Pending requests right now: a lock-free read (``len`` of a deque
+        is atomic), cheap enough for the fleet's admission check on every
+        submit."""
+        return len(self._pending)
+
     def abort(self, exc: BaseException) -> int:
         """Abrupt death: stop accepting work and FAIL every queued request
         with ``exc``, no drain, no flush (``ERService.kill``): nothing is

@@ -144,8 +144,21 @@ class _GraphBucket:
             self._out = er_project(*state_args, self._month_idx, self._x, self._valid)
         side.synchronize()
 
+    def release(self) -> None:
+        """Free the graph and its buffers once no dispatch holds the
+        bucket (a later dispatch raises instead of replaying freed
+        memory)."""
+        with self.lock:
+            if self.graph is not None:
+                self.graph.reset()
+            self.graph = None
+            self._month_idx = self._x = self._valid = self._out = None
+            self._h_month_idx = self._h_x = self._h_valid = self._h_out = None
+
     def __call__(self, month_idx, x, valid) -> np.ndarray:
         with self.lock:
+            if self.graph is None:
+                raise RuntimeError("serving bucket released (its replica left)")
             self._h_month_idx.numpy()[:] = month_idx
             self._h_x.numpy()[:] = x
             self._h_valid.numpy()[:] = valid
@@ -289,6 +302,21 @@ class BucketedExecutor:
         for b in self.buckets():
             self._ensure(b)
         return self.buckets()
+
+    def release(self) -> None:
+        """Drop every bucket program and the state on the device, after
+        the dispatches in flight on them end, then synchronize the serving
+        stream: once this returns the executor does no more device work
+        and holds no device memory (the fleet calls it when a replica
+        leaves). Idempotent."""
+        with self._lock:
+            buckets, self._buckets = self._buckets, {}
+        for built in buckets.values():
+            if isinstance(built, _GraphBucket):
+                built.release()
+        self._state_args = ()
+        if self._stream is not None:
+            self._stream.synchronize()
 
     def _padded(self, month_idx, x, valid):
         month_idx = np.asarray(month_idx, dtype=np.int64)

@@ -351,6 +351,22 @@ class ERService:
             self._metrics_server = None
         return stranded
 
+    def release(self, timeout: float = 5.0) -> None:
+        """Free what a killed or closed service holds on the device: its
+        executors' bucket graphs, their static buffers and pinned staging,
+        and the state pushed to the card (the fleet calls it when a
+        replica leaves, and as the fence of ``hard_crash``). Waits up to
+        ``timeout`` for the flusher thread (a batch mid-dispatch finishes
+        first), then releases every executor, the retired ones included.
+        Counters and ``stats()`` keep working; queries do not."""
+        thread = self.batcher._thread
+        if thread is not None and thread is not threading.current_thread():
+            thread.join(timeout=timeout)
+        with self._swap_lock:
+            executors = [*self._retired, self.executor]
+        for ex in executors:
+            ex.release()
+
     @property
     def degraded(self) -> bool:
         """True while any quarantined month is outstanding — the quote

@@ -32,12 +32,26 @@ contraction per device, so the bank records no contraction route.
 Bank queries have no QR referee (the panel is not there to re-solve
 against): suspect months are DISCLOSED per pair (``suspect_months``).
 
-Not ported yet: the bank's persistence on the registry's artifact plane
-(``save_bank``, ``load_bank``, ``bank_key``; ROADMAP §A item 7b).
+A bank persists on the registry's artifact plane (``save_bank``,
+``load_bank``): ``artifacts/gram_bank/<bank_key>/bank.npz``. The key is the
+reference's (data provenance, pair selectors, month axis, dtype,
+precision) with its two numerics terms replaced: the reference's
+``gram_route`` (one of several contraction routes) and its x64 flag (which
+changes the banked numbers) become the contraction's DEVICE type. The port
+has one contraction per device, and the card's K2 and the CPU's plain
+version sum in different orders, so a bank contracted on one is another
+entry than a bank contracted on the other; the torch version stands in
+the entry's meta where the reference keeps x64.
 """
 
 from __future__ import annotations
 
+import hashlib
+import io
+import json
+import tempfile
+import warnings
+from pathlib import Path
 from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -65,13 +79,25 @@ from fm_returnprediction_tpu_torch.specgrid.solve import (
 __all__ = [
     "BankQueryResult",
     "GramBank",
+    "bank_key",
     "bootstrap_query",
     "build_bank",
     "estimator_query",
     "ingest_month",
+    "load_bank",
+    "save_bank",
     "scenario_query",
     "window_query",
 ]
+
+BANK_NAME = "gram_bank"
+BANK_FILE = "bank.npz"
+#: bump when the banked-array layout changes: an old bank must read as a
+#: miss to a new process, never as a half-compatible hit
+BANK_SCHEMA = 1
+
+_ARRAY_FIELDS = ("gram", "moment", "n", "ysum", "yy", "center",
+                 "uidx", "col_sel", "months")
 
 
 class GramBank(NamedTuple):
@@ -114,6 +140,48 @@ class GramBank(NamedTuple):
         return SpecGramStats(*(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
                                for a in (self.gram, self.moment, self.n, self.ysum,
                                          self.yy, self.center)))
+
+
+def _pairs_digest(uidx: np.ndarray, col_sel: np.ndarray) -> str:
+    h = hashlib.sha256()
+    h.update(np.ascontiguousarray(np.asarray(uidx, np.int64)).tobytes())
+    h.update(np.ascontiguousarray(np.asarray(col_sel, bool)).tobytes())
+    return h.hexdigest()
+
+
+def bank_key(
+    fingerprint: str,
+    union: Sequence[str],
+    universes: Sequence[str],
+    uidx: np.ndarray,
+    col_sel: np.ndarray,
+    dtype: str,
+    months: np.ndarray,
+    device: str,
+    precision: str,
+) -> str:
+    """Content address of one bank entry: data provenance + pair selectors
+    + MONTH AXIS + contraction numerics (the device type and the
+    precision). Anything that changes the banked numbers changes the key;
+    the month digest keeps an ``ingest_month``-grown bank from replacing
+    its parent at the parent's address."""
+    payload = json.dumps(
+        {
+            "schema": BANK_SCHEMA,
+            "fingerprint": str(fingerprint),
+            "union": list(union),
+            "universes": list(universes),
+            "pairs": _pairs_digest(uidx, col_sel),
+            "months": hashlib.sha256(
+                np.ascontiguousarray(np.asarray(months, np.int64)).tobytes()
+            ).hexdigest(),
+            "dtype": str(dtype),
+            "device": str(device),
+            "precision": precision,
+        },
+        sort_keys=True,
+    )
+    return hashlib.sha256(payload.encode()).hexdigest()[:32]
 
 
 def _space_pairs(space) -> Tuple[np.ndarray, np.ndarray, tuple]:
@@ -188,7 +256,8 @@ def build_bank(
         union=tuple(space.union_predictors), universes=tuple(space.universes),
         pair_labels=labels, dtype=_torch_dtype_name(x.dtype),
         meta={"fingerprint": str(fingerprint), "precision": precision,
-              "nw_lags": int(space.nw_lags), "min_months": int(space.min_months)},
+              "device": dev.type, "nw_lags": int(space.nw_lags),
+              "min_months": int(space.min_months)},
     )
 
 
@@ -236,6 +305,103 @@ def ingest_month(
         n=app(bank.n, new.n), ysum=app(bank.ysum, new.ysum), yy=app(bank.yy, new.yy),
         center=np.concatenate([bank.center, new.center], axis=0),
         months=np.concatenate([bank.months, np.asarray([int(month)], np.int64)]),
+    )
+
+
+# -- persistence (registry artifact plane) -----------------------------------
+
+
+def save_bank(bank: GramBank, registry=None) -> Optional[Path]:
+    """Publish the bank as a registry artifact
+    (``artifacts/gram_bank/<key>/bank.npz`` and its manifest-bearing meta).
+    Returns the entry dir, or None when the registry is off or the write
+    failed (banking is an accelerant, never a correctness gate)."""
+    from fm_returnprediction_tpu_torch.registry import artifacts as _artifacts
+    from fm_returnprediction_tpu_torch.registry.store import active_registry
+
+    registry = registry or active_registry()
+    if registry is None:
+        return None
+    key = bank_key(bank.meta.get("fingerprint", "adhoc"), bank.union, bank.universes,
+                   bank.uidx, bank.col_sel, bank.dtype, bank.months,
+                   bank.meta.get("device", "cuda"), bank.meta.get("precision", "highest"))
+    with tempfile.TemporaryDirectory() as td:
+        path = Path(td) / BANK_FILE
+        buf = io.BytesIO()
+        np.savez(buf, **{f: getattr(bank, f) for f in _ARRAY_FIELDS})
+        path.write_bytes(buf.getvalue())
+        return _artifacts.put_files(
+            BANK_NAME, key, [path], registry=registry,
+            meta={
+                "bank_schema": BANK_SCHEMA,
+                "union": list(bank.union),
+                "universes": list(bank.universes),
+                "pair_labels": [list(p) for p in bank.pair_labels],
+                "dtype": bank.dtype,
+                "n_pairs": bank.n_pairs,
+                "n_months": bank.n_months,
+                "torch": torch.__version__,
+                "bank_meta": dict(bank.meta),
+            },
+        )
+
+
+def load_bank(
+    fingerprint: str,
+    union: Sequence[str],
+    universes: Sequence[str],
+    uidx: np.ndarray,
+    col_sel: np.ndarray,
+    dtype: str,
+    months: np.ndarray,
+    device=None,
+    precision: Optional[str] = None,
+    registry=None,
+) -> Optional[GramBank]:
+    """Fetch the bank for this exact (data, pairs, month axis, device,
+    precision) address, or None on any miss: no registry, no entry, a
+    schema skew, or corruption (warned; the caller re-contracts).
+    ``device`` (``None`` → the GPU) is the device the caller would
+    contract on; ``precision`` follows ``FMRP_GRAM_PRECISION`` when None."""
+    from fm_returnprediction_tpu_torch import telemetry
+    from fm_returnprediction_tpu_torch.registry import artifacts as _artifacts
+    from fm_returnprediction_tpu_torch.registry import integrity
+    from fm_returnprediction_tpu_torch.registry.store import active_registry
+
+    registry = registry or active_registry()
+    if registry is None:
+        return None
+    device_type = resolve_device(device).type
+    precision = resolve_gram_precision(precision)
+    key = bank_key(fingerprint, union, universes, uidx, col_sel, dtype, months,
+                   device_type, precision)
+    entry = _artifacts.get_entry_dir(BANK_NAME, key, registry=registry)
+    if entry is None:
+        return None
+    meta = registry.read_meta(entry) or {}
+    if meta.get("bank_schema") != BANK_SCHEMA:
+        return None
+    try:
+        path = _artifacts.get_file(BANK_NAME, BANK_FILE, key, registry=registry)
+        if path is None:
+            return None
+        with np.load(path) as z:
+            arrays = {f: np.asarray(z[f]) for f in _ARRAY_FIELDS}
+    except (integrity.CorruptArtifactError, OSError, KeyError, ValueError) as exc:
+        warnings.warn(f"gram bank {key} unreadable ({exc!r}); re-contracting",
+                      stacklevel=2)
+        return None
+    telemetry.registry().counter(
+        "fmrp_grambank_fetches_total",
+        help="gram-bank registry fetches answered from banked stats",
+    ).inc()
+    return GramBank(
+        **arrays,
+        union=tuple(meta.get("union", list(union))),
+        universes=tuple(meta.get("universes", list(universes))),
+        pair_labels=tuple(tuple(p) for p in meta.get("pair_labels", [])),
+        dtype=str(meta.get("dtype", dtype)),
+        meta=dict(meta.get("bank_meta", {})),
     )
 
 

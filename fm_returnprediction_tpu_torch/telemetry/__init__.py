@@ -39,8 +39,10 @@ counterpart is ``cuda_build_cache_stats``), ``record_trace`` (a jit
 lowering count: eager torch has none, see ``metrics``),
 ``record_compiled`` and ``timed_aot_compile`` (XLA's AOT compile and cost
 analysis; the port records a bucket capture with ``record_program``).
-``timeline.py`` and ``distributed.py`` (multi-process trace merge) belong
-to the serving fleet (ROADMAP A6b).
+Of ``distributed.py`` the port has the one-process part (the fleet's
+``MetricAggregator``, ``registry_delta``, ``metrics_enabled``); its trace
+propagation, peers and flight annexes, and ``timeline.py`` (the
+multi-process trace merge), wait for the process replicas (ROADMAP A8).
 """
 
 from __future__ import annotations
@@ -62,6 +64,7 @@ from fm_returnprediction_tpu_torch.telemetry.perf import (
     ProgramRecord,
     cost_ledger,
     dump_flight,
+    peak_bandwidth_estimate,
     peak_flops_estimate,
     profiling,
     recompile_watch,
@@ -80,6 +83,7 @@ from fm_returnprediction_tpu_torch.telemetry.spans import (
     enabled,
     event,
     finished_spans,
+    record_span,
     reset,
     set_enabled,
     set_trace_dir,
@@ -101,6 +105,7 @@ __all__ = [
     "Span",
     "cost_ledger",
     "dump_flight",
+    "peak_bandwidth_estimate",
     "peak_flops_estimate",
     "profiling",
     "recompile_watch",
@@ -119,6 +124,7 @@ __all__ = [
     "finished_spans",
     "flush",
     "prometheus_text",
+    "record_span",
     "registry",
     "reset",
     "set_enabled",

@@ -463,14 +463,14 @@ def registry() -> MetricsRegistry:
 
 
 def cuda_build_cache_stats(build_dir=None) -> dict:
-    """Entry count and bytes of the nvcc build cache (``cuda_build.BUILD_DIR``
+    """Entry count and bytes of the nvcc build cache (``cuda_build.build_dir()``
     unless ``build_dir`` is given): the regular files only, so a
     subdirectory never counts as an entry without bytes. Zeros when the
     directory does not exist (nothing built yet)."""
     if build_dir is None:
-        from fm_returnprediction_tpu_torch.cuda_build import BUILD_DIR
+        from fm_returnprediction_tpu_torch import cuda_build
 
-        build_dir = BUILD_DIR
+        build_dir = cuda_build.build_dir()
     try:
         files = [p for p in (os.path.join(build_dir, f) for f in os.listdir(build_dir))
                  if os.path.isfile(p)]

@@ -29,9 +29,10 @@ the flight recorder and the rebuild sentinel.
   and warns, naming the programs the ledger saw built in the window.
 
 The reference's registry fetch and store around an AOT compile
-(``_registry_fetch``, ``_registry_store``) wait for the registry
-(ROADMAP A7b), and its ``provenance_summary`` (fresh against deserialized
-compiles) with them.
+(``_registry_fetch``, ``_registry_store``) have their counterpart in
+``cuda_build.build_kernels``, which fetches a kernel library from the
+registry before nvcc and records it as a ``cuda_kernel`` program of
+provenance ``fetched`` (``built`` after nvcc).
 """
 
 from __future__ import annotations
@@ -95,7 +96,8 @@ class ProgramRecord:
     argument_bytes: Optional[int]
     output_bytes: Optional[int]
     generated_code_bytes: Optional[int]
-    provenance: str  # "captured" (a CUDA graph) | "eager" (a CPU callable)
+    provenance: str  # "captured" (a CUDA graph) | "eager" (a CPU callable) |
+    #                  "built" / "fetched" (a kernel library: nvcc / the registry)
     cache_entries_delta: int
     bucket: Optional[int] = None
     t_ns: int = 0  # perf_counter_ns at record time (epoch-anchorable)
@@ -185,11 +187,14 @@ def record_program(program: str, signature: str, seconds: float, *, backend: str
                    flops: Optional[float] = None, bytes_accessed: Optional[float] = None,
                    argument_bytes: Optional[int] = None, output_bytes: Optional[int] = None,
                    bucket: Optional[int] = None,
-                   provenance: str = "captured") -> ProgramRecord:
+                   provenance: str = "captured",
+                   saved_s: Optional[float] = None) -> ProgramRecord:
     """Account one freshly built program into the ledger, the metrics
     registry and (when tracing is armed) the current span: ``seconds`` is
     the build's wall time (a CUDA graph's capture), the FLOPs and byte
-    counts are the caller's analytic ones."""
+    counts are the caller's analytic ones. A kernel library fetched from
+    the registry is recorded with provenance ``fetched`` and ``saved_s``,
+    the build seconds its entry cost when it was stored."""
     record = cost_ledger().add(ProgramRecord(
         program=program, signature=signature, fingerprint=_fingerprint(program, signature),
         backend=backend, lower_s=0.0, compile_s=float(seconds),
@@ -197,7 +202,7 @@ def record_program(program: str, signature: str, seconds: float, *, backend: str
         bytes_accessed=float(bytes_accessed) if bytes_accessed is not None else None,
         temp_bytes=None, argument_bytes=argument_bytes, output_bytes=output_bytes,
         generated_code_bytes=None, provenance=provenance, cache_entries_delta=0,
-        bucket=bucket, t_ns=time.perf_counter_ns(),
+        bucket=bucket, t_ns=time.perf_counter_ns(), saved_s=saved_s,
     ))
     reg = _metrics.registry()
     reg.counter(
@@ -262,6 +267,27 @@ def peak_flops_estimate(dtype: str = "float32") -> float:
     except Exception:  # noqa: BLE001 — an unreadable card takes the CPU rule
         pass
     return (os.cpu_count() or 1) * _CPU_PEAK_PER_CORE
+
+
+#: published memory rates by card (NVIDIA's data sheet, the SXM part)
+_CUDA_BANDWIDTH = {"H100": 3.35e12}
+
+
+def peak_bandwidth_estimate() -> Optional[float]:
+    """Peak device memory rate in bytes/s for a byte roofline: on a CUDA
+    card named in :data:`_CUDA_BANDWIDTH`, its published rate; otherwise
+    None (no byte roofline on the CPU or an unknown card). Never raises."""
+    try:
+        import torch
+
+        if torch.cuda.is_available():
+            name = torch.cuda.get_device_name(0)
+            for card, rate in _CUDA_BANDWIDTH.items():
+                if card in name:
+                    return rate
+    except Exception:  # noqa: BLE001 — an unreadable card has no roofline
+        pass
+    return None
 
 
 def record_runtime(program: str, seconds: float, flops: Optional[float] = None) -> dict:

@@ -31,9 +31,10 @@ While a ``torch.profiler`` capture is live (``telemetry.perf.profiling``)
 the annotation factory is ``torch.profiler.record_function``: every armed
 span then also names its interval on the profiler's timeline.
 
-The reference package's remote-parent context and ``record_span`` serve
-its multi-process trace merge (``telemetry.distributed``), which belongs
-to the serving fleet (ROADMAP A6b) and is not ported.
+:func:`record_span` collects an interval from explicit stamps (the
+fleet's request spans). The reference package's remote-parent context
+serves its multi-process trace merge, which waits for the process
+replicas (ROADMAP A8).
 """
 
 from __future__ import annotations
@@ -58,6 +59,7 @@ __all__ = [
     "device_sync",
     "timed",
     "current_span",
+    "record_span",
     "finished_spans",
     "standalone_events",
     "collector_stats",
@@ -265,6 +267,22 @@ def event(name: str, cat: str = "event", **attrs) -> None:
             _DROPPED += 1
         else:
             _EVENTS.append(rec)
+
+
+def record_span(name: str, t0_ns: int, t1_ns: Optional[int] = None,
+                cat: str = "hop", **attrs) -> Optional[Span]:
+    """Collect an interval that has already ended, from explicit
+    ``perf_counter_ns`` stamps (the fleet's ``fleet.request`` and
+    ``hop.admit``: the start stamp is taken at admission, the span is
+    recorded when the request reaches its terminal). No-op returning None
+    when tracing is off or the start stamp is unset (0)."""
+    if not _ENABLED or not t0_ns:
+        return None
+    s = Span(name, cat, attrs)
+    s.t0_ns = int(t0_ns)
+    s.t1_ns = int(t1_ns if t1_ns is not None else time.perf_counter_ns())
+    _collect_span(s)
+    return s
 
 
 def current_span() -> Optional[Span]:

@@ -269,8 +269,8 @@ def test_cli_writes_the_same_artifacts_as_the_jax_cli(tmp_path):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--synthetic", "--registry-dir", "/tmp/x"],  # ROADMAP A7b
-    ["--synthetic", "--fleet-size", "2"],      # ROADMAP A6
+    ["--synthetic", "--replica-mode", "process"],  # ROADMAP A8
+    ["--synthetic", "--fleet-size", "2", "--replica-mode", "process"],  # ROADMAP A8
     ["--synthetic", "--backend", "cpu"],        # the port's --device replaces it
     ["--firms", "10"],                          # --firms needs --synthetic
 ])

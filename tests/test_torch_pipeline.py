@@ -301,7 +301,11 @@ def test_port_runs_with_jax_blocked(tmp_path):
     bank ``estimator_query``, and ``--specgrid-estimator`` through the
     command line; the telemetry layer: a traced ``run_pipeline`` (both
     trace files written) and ``--trace-dir`` through the command line;
-    and one ``ERService(device="cpu")`` query."""
+    one ``ERService(device="cpu")`` query; and the fleet and the
+    registry: a journaled ``ServingFleet(device="cpu")`` of 2 with one kill
+    and replace, ``ServingFleet.recover`` after a hard crash,
+    ``--registry-dir --fleet-size 2`` through the command line, and
+    ``python -m fm_returnprediction_tpu_torch.registry ls``."""
     code = textwrap.dedent("""
         import runpy
         import sys
@@ -440,6 +444,40 @@ def test_port_runs_with_jax_blocked(tmp_path):
         with ERService(state, max_batch=8, device="cpu") as svc:
             quote = svc.query(state.n_months - 1, np.zeros(state.n_predictors))
         assert np.isfinite(quote), quote
+        from fm_returnprediction_tpu_torch.serving import ServingFleet, replay_journal
+        months = [state.n_months - 1] * 16
+        rows = np.zeros((16, state.n_predictors))
+        fleet = ServingFleet(state, 2, max_batch=8, journal=tmp + "/fleet.jsonl",
+                             device="cpu")
+        before = fleet.query_many(months, rows)
+        fleet.kill_replica("r0", reason="test")
+        actions = fleet.supervisor.tick()
+        assert actions == ["failover:r0->r2"], actions
+        assert np.array_equal(fleet.query_many(months, rows), before)
+        fleet.drain()
+        fleet.hard_crash()
+        fleet, report = ServingFleet.recover(tmp + "/fleet.jsonl", state=state,
+                                             max_batch=8, device="cpu")
+        assert report.clean and report.n_replicas == 2, report
+        assert np.array_equal(fleet.query_many(months, rows), before)
+        fleet.close()
+        assert replay_journal(tmp + "/fleet.jsonl").clean
+        sys.argv = ["pipeline", "--synthetic", "--firms", "60", "--months", "150",
+                    "--device", "cpu", "--registry-dir", tmp + "/reg", "--fleet-size", "2"]
+        import contextlib, io
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            runpy.run_module("fm_returnprediction_tpu_torch.pipeline", run_name="__main__")
+        line = [ln for ln in buf.getvalue().splitlines()
+                if ln.startswith("serving fleet smoke: ")][-1]
+        smoke = json.loads(line.split(": ", 1)[1])
+        assert smoke["finite_quotes"] == smoke["n_queries"] == 256, smoke
+        assert smoke["healthy_replicas"] == 2, smoke
+        from fm_returnprediction_tpu_torch.registry.__main__ import main as registry_main
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            assert registry_main(["--registry-dir", tmp + "/reg", "ls"]) == 0
+        assert "artifacts/serving_state/" in buf.getvalue(), buf.getvalue()
         loaded = [m for m in sys.modules
                   if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
         assert not loaded, loaded
@@ -496,7 +534,12 @@ def test_port_never_names_jax_or_the_jax_package(pattern):
             "telemetry/spans.py", "telemetry/metrics.py", "telemetry/export.py",
             "telemetry/perf.py", "telemetry/slo.py", "telemetry/regress.py",
             "resilience/retry.py", "serving/executor.py", "serving/batcher.py",
-            "serving/service.py", "serving/__init__.py"} <= names
+            "serving/service.py", "serving/__init__.py", "registry/__init__.py",
+            "registry/__main__.py", "registry/store.py", "registry/artifacts.py",
+            "registry/executables.py", "registry/warm.py", "serving/journal.py",
+            "serving/recovery.py", "serving/brownout.py", "serving/supervisor.py",
+            "serving/fleet.py", "serving/loadgen.py", "telemetry/distributed.py",
+            "cuda_build.py"} <= names
     hits = [str(f.relative_to(REPO)) for f in files
             if re.search(pattern, f.read_text())]
     assert not hits, hits
