@@ -77,12 +77,28 @@ Phases (any failure exits non-zero without the final line):
    ``ServingFleet.recover`` (the tail repaired, the in-flight closed out,
    the new fleet quoting the same bits); one ``LoadGen`` burst against
    ``capacity_model``; and the card's allocated memory after 5
-   kill→replace cycles;
+   kill→replace cycles; then process replicas (``process_fleet_phase``):
+   a fleet of 2 replica processes, each with its own CUDA context, over
+   the socket and (where ``/dev/shm`` fits the rings) the shm transport,
+   quoting the same rows bit-equal to the bare service, p50/p99 and rows/s
+   beside the thread fleets'; a journaled, traced fleet of 2 with one
+   replica SIGKILLed under load (replaced by the supervisor, the journal
+   clean, the quotes bit-equal, the card's free memory back within one
+   replica's share), and the ``telemetry.timeline`` merge of the router's
+   and the children's exports (exit 0, its hop table);
 5b. the spec-grid scenario sweep at real size (27 cells): through
    ``run_pipeline(make_specgrid=True)`` guarded, again with
    ``FMRP_GRAM_PRECISION=bf16``, then ``run_scenarios`` on the coreset route
    in float32 and in bf16 and on a 12-subperiod unfactorized sweep (117
    specs, two launches), each run's launches pinned (``SPECGRID_LAUNCHES``);
+   then the 27-cell sweep across 2 contraction worker processes
+   (``multiproc_phase``, ``FMRP_SPECGRID_PROCS=2``) over ``frames`` and
+   (where ``/dev/shm`` fits the panel) ``shm``, from an empty build
+   directory: each worker launches K2 on its 11,000-firm shard (their
+   launches, read from their reports, make the per-worker K2 row's
+   count), at most one nvcc build over the pool, the parent launching no
+   K2; cells held against the one-process sweep, the two transports
+   bit-identical, and the merged stats against one-process K2 at 1e-5;
 5c. the bootstrap-SE table at real size (B = 10,000, BASELINE.json
    configs[4]) through ``run_pipeline(make_bootstrap=True)``: the
    ``bootstrap_table`` stage and its peak device memory, launches as the
@@ -129,7 +145,7 @@ Phases (any failure exits non-zero without the final line):
    chunks, equal to two merged halves;
 6. K1 std at every daily-strip shape the main path launched it at (read
    from its counters), checked and timed, with the sum of launches × time;
-7. the same path at a mid size in float64 on the card and on the CPU (plain
+7. the same path at a mid size (240 × 2,000) in float64 on the card and on the CPU (plain
    versions): Table 2's per-cell numbers (a coefficient at
    ``|d| <= 1e-8 * max(|b|, nw_se)``, its t-stat at ``1e-8 * max(|t|, 1)``,
    the rest at rtol 1e-8), Table 1, the decile table, the figure frames, the
@@ -153,15 +169,17 @@ Phases (any failure exits non-zero without the final line):
    --synthetic --firms 150 --months 130 --output-dir … --audit-dir …``, in
    a subprocess: exit code, artifacts, stage seconds and launches (without
    ``--output-dir`` when matplotlib or jinja2 does not import, said so);
-   then ``--bootstrap 200`` (the ``bootstrap_table`` stage, and
-   ``bootstrap_se.pkl``/``.tex`` written, by ``run_pipeline(make_figure=False)``
-   where matplotlib does not import), ``--backtest --backtest-sink
-   metrics`` (the ``backtest`` stage, K2 3; ``backtest.csv`` written), and
+   then ``--bootstrap 200 --backtest --backtest-sink metrics`` in one
+   command (the ``bootstrap_table`` and ``backtest`` stages, K2 3;
+   ``bootstrap_se.pkl``/``.tex`` and ``backtest.csv`` written, by
+   ``run_pipeline(make_figure=False)`` where matplotlib does not import),
    ``--specgrid --specgrid-estimator iv:…`` (exit 0, K2 3) and
    ``--specgrid-estimator absorb:ind`` (exits non-zero, as the reference),
-   and ``--trace-dir D --profile-dir P`` (both trace files and the profile
-   written; the profile's kernel rows equal the launches);
-10. a raw directory of 600 firms × 240 months (``write_synthetic_cache``)
+   and ``--trace-dir D --profile-dir P --registry-dir R --fleet-size 2
+   --replica-mode process`` (both trace files and the profile written; the
+   profile's kernel rows equal the launches; the fleet smoke on two
+   replica processes);
+10. a raw directory of 400 firms × 240 months (``write_synthetic_cache``)
    through the command line three times: cold (the columnar route ran and
    wrote the slot, no fallback warning), warm (the slot was mapped,
    ``load_raw_data`` skipped) and by the legacy route with the slot off;
@@ -280,7 +298,7 @@ from fm_returnprediction_tpu_torch.specgrid.grams import (
     shared_center,
     split_stats,
 )
-from fm_returnprediction_tpu_torch.specgrid import grambank
+from fm_returnprediction_tpu_torch.specgrid import grambank, multiproc
 from fm_returnprediction_tpu_torch.specgrid.cellspace import scenario_space
 from fm_returnprediction_tpu_torch.specgrid.estimators import parse_estimator
 from fm_returnprediction_tpu_torch.specgrid.scenarios import bank_for_scenarios, run_scenarios
@@ -546,7 +564,7 @@ def gram_worst(got, want) -> tuple:
 
 
 def check_gram(t, n, p, dtype, rel, gen, timed, figure=False, weights=None,
-               low=False, specs=9):
+               low=False, specs=9, key_prefix="gram"):
     """K2 against its plain version on the same inputs; with ``timed`` the
     kernel table row. ``weights`` is None, "binary" (0/1: counts exact) or
     "coreset"; ``low`` runs bfloat16 operands (the float32 inputs rounded)
@@ -641,7 +659,7 @@ def check_gram(t, n, p, dtype, rel, gen, timed, figure=False, weights=None,
             log(f"K2 {label}: contract_spec_grams(precision='bf16') from float32 "
                 f"inputs {whole_ms:.4f} ms, of which the kernel {ms:.4f} ms")
         # the wrapper's launch key ("P=14,S=9,f32[,rw]")
-        key = (f"gram/P={p},S={s},{'bf16' if low else {torch.float32: 'f32', torch.float64: 'f64'}[dtype]}"
+        key = (f"{key_prefix}/P={p},S={s},{'bf16' if low else {torch.float32: 'f32', torch.float64: 'f64'}[dtype]}"
                + (",rw" if rw is not None else ""))
         row = dict(name=f"gram_contract {label}", key=key, route="cuda", source=K2_SOURCE,
                    replaces=K2_REPLACES, max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
@@ -656,6 +674,11 @@ def check_gram(t, n, p, dtype, rel, gen, timed, figure=False, weights=None,
 # 12-subperiod sweep with the factorization off contracts 117 specs, cut into
 # two launches of at most 60 (gram_spec_chunk(14)).
 SPLIT_SPECS = 117
+# the absorb kind's per-spec contraction, and the multi-process sweep's
+# unfactorized one (27 specs: 3 models × 3 universes × 3 windows)
+ABSORB_SPECS = 27
+# contraction worker processes of the multi-process sweep (multiproc_phase)
+MP_PROCS = 2
 # which real-size runs launch each K2 shape beyond the main path's: the
 # scenario sweep's (specgrid_phase), the backtest's and the estimator
 # family's (estimators_phase: absorb contracts per spec, 27 at a time; the
@@ -665,10 +688,8 @@ ROW_PATH = {"gram/P=14,S=9,bf16": ("bf16", "estimators"), "gram/P=5,S=3,bf16": (
             f"gram/P=14,S={SPLIT_SPECS},f32": ("split",),
             "gram/P=14,S=9,f32": ("main", "backtest", "estimators"),
             "gram/P=14,S=27,f32": ("estimators",), "gram/P=14,S=27,f32,rw": ("estimators",),
-            "gram/P=14,S=9,f64": ("estimators",)}
-# the absorb kind's per-spec contraction (27 specs: 3 models × 3 universes ×
-# 3 windows)
-ABSORB_SPECS = 27
+            "gram/P=14,S=9,f64": ("estimators",),
+            f"gram-worker/P=14,S={ABSORB_SPECS},f32": ("multiproc",)}
 
 
 def k2_phase(gen, timed: bool):
@@ -683,7 +704,11 @@ def k2_phase(gen, timed: bool):
             check_gram(600, 22000, 14, torch.float32, 1e-5, gen, timed, specs=ABSORB_SPECS),
             check_gram(600, 22000, 14, torch.float32, 1e-5, gen, timed, specs=ABSORB_SPECS,
                        weights="coreset"),
-            check_gram(600, 22000, 14, torch.float64, 1e-12, gen, timed)]
+            check_gram(600, 22000, 14, torch.float64, 1e-12, gen, timed),
+            # one contraction worker's shard of the multi-process sweep
+            # (multiproc_phase): half the firms, the 27 specs unfactorized
+            check_gram(600, 22000 // MP_PROCS, 14, torch.float32, 1e-5, gen, timed,
+                       specs=ABSORB_SPECS, key_prefix="gram-worker")]
     check_gram(600, 22000, 5, torch.float32, 1e-5, gen, False, figure=True, weights="coreset",
                low=True)
     check_gram(600, 3000, 5, torch.float32, 1e-5, gen, False, figure=True, weights="binary",
@@ -815,6 +840,7 @@ def k3_phase(gen, timed: bool):
 
 
 def reset_counts() -> None:
+    multiproc.WORKER_LAUNCHES.clear()
     rolling_reduce_cuda.launches = 0
     rolling_reduce_cuda.launches_by_key = {}
     gram_contract_cuda.launches = 0
@@ -1441,8 +1467,11 @@ def _journal_append_us(directory) -> float:
             return (time.perf_counter() - start) / JOURNAL_APPENDS * 1e6
 
 
-def fleet_phase(ref, bare: np.ndarray, registry_root: Path) -> None:
-    """The serving fleet at real size over the main path's f32 state."""
+def fleet_phase(ref, bare: np.ndarray, registry_root: Path) -> dict:
+    """The serving fleet at real size over the main path's f32 state;
+    returns the thread fleets' rows/s by size (process_fleet_phase reads
+    its process replicas against them)."""
+    rates = {}
     state = ref["state"]
     slot_months, firms = np.nonzero(ref["rows"])
     months = ref["months"][slot_months]
@@ -1465,6 +1494,7 @@ def fleet_phase(ref, bare: np.ndarray, registry_root: Path) -> None:
             check(all(w.builds == 0 and w.captures == 9 for w in fleet.warm_reports.values()),
                   "a fleet replica's warm-up built or did not capture 9 buckets")
             fleet.close()
+            rates[size] = n_rows / wall
 
         # the journal's cost: every event is written and flushed before the
         # action it records, so its rate is the file system's
@@ -1645,6 +1675,146 @@ def fleet_phase(ref, bare: np.ndarray, registry_root: Path) -> None:
               "a degraded quote was undisclosed or beyond its bound")
     finally:
         fleet.close()
+    return rates
+
+
+def shm_room() -> str:
+    """``/dev/shm``'s size and free bytes, for the log."""
+    try:
+        st = os.statvfs("/dev/shm")
+    except OSError as exc:
+        return f"/dev/shm unreadable ({exc})"
+    return (f"/dev/shm size {st.f_blocks * st.f_frsize:,} bytes, free "
+            f"{st.f_bavail * st.f_frsize:,}")
+
+
+def _device_free() -> int:
+    torch.cuda.synchronize()
+    return int(torch.cuda.mem_get_info()[0])
+
+
+def process_fleet_phase(ref, bare: np.ndarray, registry_root: Path, thread_rates: dict) -> None:
+    """Process replicas at real size over the main path's f32 state: a
+    fleet of 2 replica processes (each its own CUDA context, warmed from
+    the registry) over the socket and, where ``/dev/shm`` fits the rings,
+    the shm transport, each quoting every row of the serving phase in the
+    same mixed batches, bit-equal to the bare service, with p50/p99 and
+    rows/s beside the thread fleets'; then a journaled, traced fleet of 2
+    with one replica SIGKILLed under load: the supervisor replaces it, the
+    journal replays clean, the quotes stay bit-equal, and the card's free
+    memory comes back within one replica's share; then the trace merge
+    (``python -m fm_returnprediction_tpu_torch.telemetry.timeline``)
+    exits 0 and prints its hop table."""
+    from fm_returnprediction_tpu_torch.parallel.shm import HEADER_BYTES, shm_available
+
+    state = ref["state"]
+    slot_months, firms = np.nonzero(ref["rows"])
+    months = ref["months"][slot_months]
+    xq = ref["x"][slot_months, firms]
+    n_rows = len(months)
+    kw = dict(max_batch=SERVING_MAX_BATCH, registry_dir=registry_root, device="cuda",
+              replica_mode="process")
+    transports = ["socket"]
+    if shm_available(2 * (HEADER_BYTES + 64 * 65536)):
+        transports.append("shm")
+    log(f"process fleet: {shm_room()}; transports {transports}")
+    for transport in transports:
+        free0 = _device_free()
+        start = time.perf_counter()
+        fleet = ServingFleet(state, 2, transport=transport, **kw)
+        spawn_s = time.perf_counter() - start
+        share = (free0 - _device_free()) // 2
+        try:
+            got, wall = _fleet_pass(fleet, months, xq)
+            p50, p99 = _replica_latency(fleet)
+            warm = {r: (w.builds, w.captures) for r, w in fleet.warm_reports.items()}
+            st = fleet.stats()
+        finally:
+            fleet.close()
+        equal = bool(np.array_equal(got, bare, equal_nan=True))
+        log(f"process fleet of 2 ({transport}): spawned in {spawn_s:.2f} s, "
+            f"{share:,} bytes of the card per replica process; {n_rows} rows in mixed batches "
+            f"in {wall:.3f} s ({n_rows / wall:.0f} rows/s against the thread fleet's "
+            f"{thread_rates[2]:.0f} with 2 replicas and {thread_rates[1]:.0f} with 1), worst "
+            f"replica p50 {p50:.3f} ms p99 {p99:.3f} ms; transport {st['transport']}; every "
+            f"quote bit-equal to the bare service's {equal}; warm reports (builds, captures) "
+            + json.dumps(warm))
+        check(equal, f"the process fleet ({transport}) quotes differ from the bare service's")
+        check(st["transport"] == transport, f"the fleet ran on {st['transport']}")
+        check(all(b == 0 and c == 9 for b, c in warm.values()),
+              "a replica process built a kernel or did not capture 9 buckets")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        journal, trace_dir = Path(tmp) / "proc.jsonl", Path(tmp) / "trace"
+        saved = {k: os.environ.get(k) for k in ("FMRP_TELEMETRY", "FMRP_TRACE_DIR")}
+        os.environ["FMRP_TELEMETRY"], os.environ["FMRP_TRACE_DIR"] = "1", str(trace_dir)
+        out = {}
+        try:
+            with telemetry.tracing(str(trace_dir)):
+                free0 = _device_free()
+                fleet = ServingFleet(state, 2, journal=journal, transport=transports[-1], **kw)
+                free1 = _device_free()
+                share = (free0 - free1) // 2
+                try:
+                    victim = fleet.replica("r0").service.proc
+
+                    def load():
+                        out["got"], out["wall"] = _fleet_pass(fleet, months, xq,
+                                                              FLEET_JOURNALED_ROWS)
+
+                    worker = threading.Thread(target=load)
+                    worker.start()
+                    time.sleep(0.5)
+                    victim.kill()
+                    victim.wait(timeout=60)
+                    killed = time.perf_counter()
+                    actions = []
+                    while "r0" in fleet.replica_states() and time.perf_counter() - killed < 120:
+                        actions += fleet.supervisor.tick()
+                        time.sleep(0.05)
+                    replaced_s = time.perf_counter() - killed
+                    worker.join(timeout=300)
+                    fleet.drain(timeout=60)
+                    free2 = _device_free()
+                    stats = fleet.stats()
+                finally:
+                    fleet.close()
+                free3 = _device_free()
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        check(not worker.is_alive(), "the kill-under-load pass did not finish")
+        replay = replay_journal(journal)
+        equal = bool(np.array_equal(out["got"], bare[:FLEET_JOURNALED_ROWS], equal_nan=True))
+        log(f"process fleet SIGKILL under load ({transports[-1]}, journaled, traced): r0 "
+            f"(pid {victim.pid}) killed; ticks {actions}; replaced {replaced_s * 1e3:.1f} ms "
+            f"after the kill; the pass of {FLEET_JOURNALED_ROWS} rows {out['wall']:.3f} s, "
+            f"requeues {stats['requeues_total']}, every quote bit-equal {equal}; journal: "
+            f"admitted {replay.n_admitted}, dropped {len(replay.dropped)}, duplicated "
+            f"{len(replay.duplicated)}, clean {replay.clean}; the card's free memory: before "
+            f"{free0:,}, fleet up {free1:,} ({share:,} per replica), after kill → replace "
+            f"{free2:,} ({free2 - free1:+,}), after close {free3:,} ({free3 - free0:+,})")
+        check(equal and replay.clean and not replay.dropped and not replay.duplicated,
+              "the process fleet's kill lost, duplicated or changed a quote")
+        check(any(a.startswith("failover:r0") for a in actions),
+              f"the supervisor did not replace the killed replica process: {actions}")
+        check(abs(free2 - free1) <= share and free0 - free3 <= share,
+              "a killed or closed replica process left its memory on the card")
+        for _ in range(100):
+            if len(list(trace_dir.glob("events*.jsonl"))) >= 4:
+                break
+            time.sleep(0.1)
+        merged = subprocess.run(
+            [sys.executable, "-m", "fm_returnprediction_tpu_torch.telemetry.timeline",
+             str(journal), str(trace_dir)], cwd=Path(__file__).resolve().parent,
+            capture_output=True, text=True, timeout=300)
+        log(f"timeline over {sorted(p.name for p in trace_dir.glob('events*.jsonl'))}: exit "
+            f"{merged.returncode}\n" + merged.stdout.strip())
+        check(merged.returncode == 0, f"the timeline merge exited {merged.returncode}: "
+              f"{merged.stderr[-2000:]}")
 
 
 def trace_phase(base, daily, digests: dict) -> None:
@@ -1719,17 +1889,18 @@ def profile_phase(base, daily, digests: dict) -> None:
 
 def trace_cli_phase() -> None:
     """``--synthetic --trace-dir D --profile-dir P --registry-dir R
-    --fleet-size 2`` at 150 × 130 through the command line: exit 0, both
-    trace files and the profile written and parsed, the usual launches; the
-    fleet smoke's JSON with every quote finite and 2 healthy replicas; then
-    ``python -m fm_returnprediction_tpu_torch.registry verify R`` exits 0."""
+    --fleet-size 2 --replica-mode process`` at 150 × 130 through the command
+    line: exit 0, both trace files and the profile written and parsed, the
+    usual launches; the fleet smoke (two replica processes) with every
+    quote finite and 2 healthy replicas; then ``python -m
+    fm_returnprediction_tpu_torch.registry verify R`` exits 0."""
     with tempfile.TemporaryDirectory() as tmp:
         trace_dir, profile_dir = Path(tmp) / "trace", Path(tmp) / "profile"
         registry_root = Path(tmp) / "registry"
         run = run_cli(["--synthetic", "--firms", SYNTHETIC_CLI_FIRMS, "--months",
                        SYNTHETIC_CLI_MONTHS, "--trace-dir", trace_dir,
                        "--profile-dir", profile_dir, "--registry-dir", registry_root,
-                       "--fleet-size", 2])
+                       "--fleet-size", 2, "--replica-mode", "process"])
         made = {d.name: sorted(p.name for p in d.iterdir()) for d in (trace_dir, profile_dir)}
         names = {json.loads(line).get("name") for line in (trace_dir / "events.jsonl").open()}
         json.loads((trace_dir / "trace.json").read_text())
@@ -1746,7 +1917,8 @@ def trace_cli_phase() -> None:
                                 cwd=Path(__file__).resolve().parent, capture_output=True,
                                 text=True, timeout=300).stdout
     launches = run["launches"]
-    log(f"CLI --trace-dir --profile-dir --registry-dir --fleet-size 2 at {SYNTHETIC_CLI_FIRMS} "
+    log(f"CLI --trace-dir --profile-dir --registry-dir --fleet-size 2 --replica-mode process at "
+        f"{SYNTHETIC_CLI_FIRMS} "
         f"x {SYNTHETIC_CLI_MONTHS}: exit 0 in {run['wall']:.1f} s; files {made}; launches "
         f"{launches['k1']}/{launches['k2']}/{launches['moments']}, in the profile {kernels}; "
         f"stage registry_publish {run['stages'].get('registry_publish')} s; fleet smoke "
@@ -1883,9 +2055,134 @@ def specgrid_phase(base, daily) -> dict:
                 f"{gap.quantile(0.9):.3f}, max {gap.max():.3f}")
             check(not got["refereed"].any(), "coreset cells were refereed")
         runs[name] = counts_s
-    del res
+    return runs, res
+
+
+def _held_cell_gap(got: pd.DataFrame, want: pd.DataFrame) -> float:
+    """The worst coefficient gap at ``max(|b|, nw_se)`` and t-stat gap at
+    ``max(|t|, 1)`` between two frames of the same cells, NaN patterns
+    checked equal."""
+    worst = 0.0
+    for col, scale in (("coef", np.fmax(want["coef"].abs(), want["nw_se"])),
+                       ("tstat", np.fmax(want["tstat"].abs(), 1.0))):
+        g, w = got[col].to_numpy(float), want[col].to_numpy(float)
+        check(bool(np.array_equal(np.isnan(g), np.isnan(w))), f"{col}: NaN patterns differ")
+        fin = np.isfinite(w)
+        worst = max(worst, float((np.abs(g - w)[fin] / scale.to_numpy(float)[fin]).max(
+            initial=0.0)))
+    return worst
+
+
+def multiproc_phase(res) -> dict:
+    """The 27-cell f32 scenario sweep at real size across ``MP_PROCS``
+    contraction worker processes (``FMRP_SPECGRID_PROCS``), over the
+    ``frames`` transport and, where ``/dev/shm`` fits the panel, ``shm``:
+    each worker a fresh interpreter with its own CUDA context, launching K2
+    on its 11,000-firm shard, the parent solving the merged stats. The
+    build directory starts empty and no registry is armed, so the pool's
+    staggered start shows at most one nvcc build over the workers. Each
+    run: the wall beside a one-process sweep of the same panel in this
+    call, the workers' reports (device, K2 launches, builds), the parent's
+    own K2 launches (0), the cells held against the one-process sweep's
+    at ``SUSPECT_TOL``, and the two transports' frames bit-identical; the
+    pool's merged stats for a 9-spec grid against one-process K2 on the
+    full panel at K2's f32 tolerance (1e-5 of each block's max, counts
+    exact). Returns the workers' launches by kernel-table key."""
+    from fm_returnprediction_tpu_torch.parallel.shm import shm_available
+
+    panel, masks, factors = res.panel, res.subset_masks, res.factors_dict
+    t, n = panel.values.shape[:2]
+    reset_counts()
+    start = time.perf_counter()
+    one = run_scenarios(panel, masks, factors)
+    torch.cuda.synchronize()
+    one_wall = time.perf_counter() - start
+    panel_bytes = t * n * (14 * 4 + 4 + 3)
+    transports = ["frames"] + (["shm"] if shm_available(panel_bytes) else [])
+    log(f"multiproc: {shm_room()}; panel ~{panel_bytes:,} bytes; transports {transports}; "
+        f"the one-process sweep {one_wall:.3f} s")
+    saved = {k: os.environ.get(k) for k in ("FMRP_CUDA_BUILD_DIR", "FMRP_REGISTRY_DIR",
+                                           "FMRP_GRID_TRANSPORT", "FMRP_SPECGRID_PROCS")}
+    frames, out = {}, {}
+    with tempfile.TemporaryDirectory() as build_dir:
+        os.environ["FMRP_CUDA_BUILD_DIR"] = build_dir
+        os.environ.pop("FMRP_REGISTRY_DIR", None)
+        os.environ["FMRP_SPECGRID_PROCS"] = str(MP_PROCS)
+        try:
+            for transport in transports:
+                os.environ["FMRP_GRID_TRANSPORT"] = transport
+                reset_counts()
+                start = time.perf_counter()
+                try:
+                    got = run_scenarios(panel, masks, factors)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - start
+                    parent = launch_counts()
+                    workers = dict(multiproc.WORKER_LAUNCHES)
+                    pool = multiproc.cached_pool()
+                    reports, merge_s = list(pool.last_reports), pool.last_merge_s
+                    if transport == transports[0]:
+                        _merged_stats_check()
+                finally:
+                    multiproc._close_cached_pool()
+                builds = sum(r["nvcc_runs"] for r in reports)
+                gap = _held_cell_gap(got, one)
+                log(f"multiproc sweep ({transport}, {MP_PROCS} workers): wall {wall:.3f} s "
+                    f"(one process {one_wall:.3f} s), the last merge {merge_s:.3f} s; parent "
+                    f"launches K1 {parent['k1']} K2 {parent['k2']}; worker K2 launches "
+                    f"{workers}; reports " + json.dumps(reports)
+                    + f"; nvcc builds over the pool {builds}; worst held cell gap to the "
+                    f"one-process sweep {gap:.3e} (tol {SUSPECT_TOL:g})")
+                check_scenario_frame(got, f"multiproc sweep ({transport})", SPECGRID_CELLS)
+                check(parent["k2"] == 0, "the parent launched K2 on the multi-process path")
+                check(len(reports) == MP_PROCS and all(
+                    r["device"].startswith("cuda") and r["launches"] >= 1 for r in reports),
+                      f"a worker did not launch K2 on the card: {reports}")
+                check(builds <= 1, f"{builds} nvcc builds over the pool")
+                check(gap <= SUSPECT_TOL, "the multi-process sweep is off the one-process one")
+                frames[transport] = got
+                out.setdefault(f"gram-worker/P=14,S={ABSORB_SPECS},f32",
+                               workers.get(f"P=14,S={ABSORB_SPECS},f32", 0))
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+    if len(frames) == 2:
+        same = all(np.array_equal(frames["frames"][c].to_numpy(float),
+                                  frames["shm"][c].to_numpy(float), equal_nan=True)
+                   for c in ("coef", "tstat", "nw_se", "mean_r2", "mean_n"))
+        log(f"multiproc: shm and frames bit-identical {same}")
+        check(same, "the shm and frames sweeps differ")
     torch.cuda.empty_cache()
-    return runs
+    return out
+
+
+def _merged_stats_check() -> None:
+    """The cached pool's merged stats for a 9-spec grid (3 universes × 3
+    column sets, every month) against one-process K2 on the full panel."""
+    _key, (y, x, unis, _rw), pool = multiproc._POOL_CACHE
+    p = x.shape[-1]
+    uidx = np.arange(9) % len(unis)
+    col_sel = np.zeros((9, p), bool)
+    for i in range(9):
+        col_sel[i, :p - 3 * (i // 3)] = True
+    window = np.ones((9, x.shape[0]), bool)
+    start = time.perf_counter()
+    merged = pool.contract(uidx, col_sel, window)
+    merge_s = time.perf_counter() - start
+    universes = torch.stack([torch.as_tensor(u, device="cuda") for u in unis])
+    dev = lambda a: torch.as_tensor(a, device="cuda")  # noqa: E731
+    single = contract_spec_grams(y, x, universes, dev(uidx), dev(col_sel), dev(window))
+    got = [dev(a) for a in merged[:5]]
+    worst, max_abs = gram_worst(got, single[:5])
+    counts_exact = bool(torch.equal(got[2], single[2]))
+    center_gap = worst_of((dev(merged[5]) - single[5]).abs())
+    log(f"multiproc merged stats (9 specs, {MP_PROCS} shards, {merge_s:.3f} s) against "
+        f"one-process K2: worst_rel_to_block_max {worst:.3e} (tol 1e-5), max_abs "
+        f"{max_abs:.3e}, counts exact {counts_exact}, center max |diff| {center_gap:.3e}")
+    check(worst <= 1e-5 and counts_exact, "the merged stats are off one-process K2")
 
 
 def _cell_diffs(got: dict, ref: dict):
@@ -1986,8 +2283,12 @@ def _reporting_vs_cpu(gpu, cpu) -> None:
           "card vs CPU: serving state beyond tolerance")
 
 
+# firms of the card-vs-CPU universe (240 months, float64)
+CVC_FIRMS = 2000
+
+
 def card_vs_cpu(seed: int) -> None:
-    base, daily = make_smoke_inputs(n_firms=3000, n_months=240, seed=seed + 1,
+    base, daily = make_smoke_inputs(n_firms=CVC_FIRMS, n_months=240, seed=seed + 1,
                                     dtype=np.float64)
     start = time.perf_counter()
     boot = dict(make_bootstrap=True, bootstrap_replicates=BOOT_CPU_REPLICATES)
@@ -2001,7 +2302,7 @@ def card_vs_cpu(seed: int) -> None:
     repeat = _cell_diffs(again.table_2_cells, gpu.table_2_cells)
     worst, plain, key, name, i, ref = diffs[0]
     plain_worst = max(diffs, key=lambda d: d[1])
-    log(f"card vs CPU (T=240, N=3000, f64): cuda {gpu_s:.2f} s, cpu {cpu_s:.2f} s, "
+    log(f"card vs CPU (T=240, N={CVC_FIRMS}, f64): cuda {gpu_s:.2f} s, cpu {cpu_s:.2f} s, "
         f"Table 2 worst held diff {worst:.3e} (tol 1e-8; coef at max(|b|, nw_se), t-stat "
         f"at max(|t|, 1)) at {key} {name}[{i}] = {ref:.6e} (plain rel {plain:.3e}); "
         f"worst plain rel diff {plain_worst[1]:.3e} at {plain_worst[2]} {plain_worst[3]}"
@@ -2433,37 +2734,49 @@ def ingest_phase(res) -> None:
     phase_timed("service_ingest_phase", service_ingest_phase, prior, row, months[-1], card)
 
 
-def bootstrap_cli_phase() -> None:
+def bootstrap_backtest_cli_phase() -> None:
     """``python -m fm_returnprediction_tpu_torch.pipeline --synthetic
-    --bootstrap 200`` at 150 × 130 on the card: exit 0 with the
-    ``bootstrap_table`` stage, and ``bootstrap_se.pkl``/``.tex`` written.
-    The command line draws Figure 1 into any ``--output-dir`` and raises
-    where matplotlib does not import, as the reference does; there it runs
-    without one and the files come from ``run_pipeline(make_figure=False,
-    make_bootstrap=True, output_dir=…)`` on the same universe."""
+    --bootstrap 200 --backtest --backtest-sink metrics`` at 150 × 130 on
+    the card (one command for both): exit 0 with the
+    ``bootstrap_table`` and ``backtest`` stages and the bank's K2 launch;
+    then ``bootstrap_se.pkl``/``.tex`` and ``backtest.csv`` written by an
+    ``--output-dir`` run: the command line where matplotlib imports, else
+    ``run_pipeline(make_figure=False, make_bootstrap=True,
+    make_backtest=True, output_dir=…)`` on the same universe (the command
+    line draws Figure 1 into any output directory and raises without
+    matplotlib, as the reference does)."""
     have_mpl = importlib.util.find_spec("matplotlib") is not None
     firms, months = SYNTHETIC_CLI_FIRMS, SYNTHETIC_CLI_MONTHS
+    base_args = ["--synthetic", "--firms", firms, "--months", months, "--bootstrap", 200,
+                 "--backtest"]
+    run = run_cli(base_args + ["--backtest-sink", "metrics"])
+    log(f"CLI --synthetic --firms {firms} --months {months} --bootstrap 200 --backtest "
+        f"--backtest-sink metrics: exit 0 in {run['wall']:.1f} s; stage bootstrap_table "
+        f"{run['stages'].get('bootstrap_table', float('nan')):.3f} s, backtest "
+        f"{run['stages'].get('backtest', float('nan')):.3f} s; launches K1 "
+        f"{run['launches']['k1']}, K2 {run['launches']['k2']} {run['launches']['k2_by_key']}")
+    check({"bootstrap_table", "backtest"} <= set(run["stages"]) and run["launches"]["k2"] == 3,
+          f"bootstrap/backtest CLI stages {sorted(run['stages'])}, launches {run['launches']}")
     with tempfile.TemporaryDirectory() as tmp:
         out = Path(tmp) / "out"
-        args = ["--synthetic", "--firms", firms, "--months", months, "--bootstrap", 200]
-        run = run_cli(args + (["--output-dir", out] if have_mpl else []))
-        log(f"CLI --synthetic --firms {firms} --months {months} --bootstrap 200"
-            f"{' --output-dir' if have_mpl else ''}: exit 0 in {run['wall']:.1f} s; stage "
-            f"bootstrap_table {run['stages'].get('bootstrap_table', float('nan')):.3f} s; "
-            f"launches K1 {run['launches']['k1']}, K2 {run['launches']['k2']}")
-        check("bootstrap_table" in run["stages"], f"bootstrap CLI stages {sorted(run['stages'])}")
-        if not have_mpl:
-            res = run_pipeline(synthetic=True, synthetic_config=SyntheticConfig(
+        if have_mpl:
+            run_cli(base_args + ["--output-dir", out])
+        else:
+            run_pipeline(synthetic=True, synthetic_config=SyntheticConfig(
                 n_firms=firms, n_months=months), device="cuda", make_figure=False,
-                make_bootstrap=True, bootstrap_replicates=200, output_dir=out)
-            del res
+                make_bootstrap=True, bootstrap_replicates=200, make_backtest=True,
+                output_dir=out)
         made = sorted(os.listdir(out))
-        log(f"bootstrap_se written by "
-            f"{'the command line' if have_mpl else 'run_pipeline(make_figure=False)'}: {made}")
+        frame = pd.read_csv(out / "backtest.csv")
+        log(f"bootstrap_se and backtest.csv written by "
+            f"{'the command line' if have_mpl else 'run_pipeline(make_figure=False)'}: {made}; "
+            f"backtest.csv {frame.shape}")
         check({"bootstrap_se.pkl", "bootstrap_se.tex"} <= set(made),
               "bootstrap_se.pkl/.tex were not written")
         table = pd.read_pickle(out / "bootstrap_se.pkl")
         check(table.shape == (24, 12), f"bootstrap_se.pkl shape {table.shape}")
+        check(len(frame) == BACKTEST_CELLS and set(BACKTEST_METRICS) <= set(frame.columns),
+              f"backtest.csv shape {frame.shape}")
 
 
 # --- the rolling-origin backtest on the Gram bank -------------------------
@@ -2699,7 +3012,7 @@ def _backtest_vs_cpu(gpu) -> None:
     counts = {dev: _bucket_counts(banks[dev], *sides[dev], dev) for dev in sides}
     flips = sum(int(np.sum(counts["cuda"][k] != counts["cpu"][k])) for k in counts["cpu"])
     wit = _backtest_witnesses(host_panel, host_masks, factors, want, suspect)
-    log(f"card vs CPU backtest (T=240, N=3000, f64): cuda {secs['cuda']:.2f} s, cpu "
+    log(f"card vs CPU backtest (T=240, N={CVC_FIRMS}, f64): cuda {secs['cuda']:.2f} s, cpu "
         f"{secs['cpu']:.2f} s; worst rel diff {held:.3e} over the {int((~suspect).sum())} cells "
         f"without a suspect month (tol {BACKTEST_RTOL:g}), {worst_sus:.3e} over the "
         f"{int(suspect.sum())} with one (tol {SUSPECT_TOL:g}); integer and label columns "
@@ -2801,40 +3114,6 @@ def bank_ingest_phase(res) -> None:
     check(clean.any(), "ingest: every pair has a suspect month; nothing to hold")
     check(max(worst.values()) <= 1e-13 and q_gap <= 1e-11, "bank ingest beyond the reference's pins")
     check(np.array_equal(grown.months, full.months), "ingest: month labels differ")
-
-
-def backtest_cli_phase() -> None:
-    """``python -m fm_returnprediction_tpu_torch.pipeline --synthetic
-    --backtest --backtest-sink metrics`` at 150 × 130 on the card: exit 0
-    with the ``backtest`` stage and the bank's K2 launch; then
-    ``backtest.csv`` written by an ``--output-dir`` run — the command line
-    where matplotlib imports, else ``run_pipeline(make_figure=False,
-    make_backtest=True, output_dir=…)`` on the same universe (the command
-    line draws Figure 1 into any output directory)."""
-    have_mpl = importlib.util.find_spec("matplotlib") is not None
-    firms, months = SYNTHETIC_CLI_FIRMS, SYNTHETIC_CLI_MONTHS
-    base_args = ["--synthetic", "--firms", firms, "--months", months, "--backtest"]
-    run = run_cli(base_args + ["--backtest-sink", "metrics"])
-    log(f"CLI --synthetic --firms {firms} --months {months} --backtest --backtest-sink metrics: "
-        f"exit 0 in {run['wall']:.1f} s; stage backtest "
-        f"{run['stages'].get('backtest', float('nan')):.3f} s; launches K1 "
-        f"{run['launches']['k1']}, K2 {run['launches']['k2']} {run['launches']['k2_by_key']}")
-    check("backtest" in run["stages"] and run["launches"]["k2"] == 3,
-          f"backtest CLI stages {sorted(run['stages'])}, launches {run['launches']}")
-    with tempfile.TemporaryDirectory() as tmp:
-        out = Path(tmp) / "out"
-        if have_mpl:
-            run_cli(base_args + ["--output-dir", out])
-        else:
-            run_pipeline(synthetic=True, synthetic_config=SyntheticConfig(
-                n_firms=firms, n_months=months), device="cuda", make_figure=False,
-                make_backtest=True, output_dir=out)
-        frame = pd.read_csv(out / "backtest.csv")
-        log(f"backtest.csv written by "
-            f"{'the command line' if have_mpl else 'run_pipeline(make_figure=False)'}: "
-            f"{frame.shape}")
-        check(len(frame) == BACKTEST_CELLS and set(BACKTEST_METRICS) <= set(frame.columns),
-              f"backtest.csv shape {frame.shape}")
 
 
 # --- the estimator family ---------------------------------------------------
@@ -3188,7 +3467,7 @@ def _estimators_vs_cpu(gpu) -> None:
         held = _scenario_worst(_rows(got, ~suspect), _rows(want, ~suspect))
         worst_sus = (_scenario_worst(_rows(got, suspect), _rows(want, suspect))
                      if suspect.any() else 0.0)
-        text = (f"card vs CPU estimators {name} ({spec}, f64, 240 x 3,000): cuda "
+        text = (f"card vs CPU estimators {name} ({spec}, f64, 240 x {CVC_FIRMS:,}): cuda "
                 f"{mid - start:.2f} s, cpu {cpu_s:.2f} s; worst diff {held:.3e} over "
                 f"{int((~suspect).sum())} rows of {want.loc[~suspect, 'cell'].nunique()} cells "
                 f"without a suspect month (tol 1e-8), {worst_sus:.3e} over {int(suspect.sum())} "
@@ -3277,11 +3556,12 @@ ARTIFACTS = ("data_saved.marker", "table_1.pkl", "table_1.tex", "table_2.pkl", "
              "research_report.tex")
 
 
-# The raw-directory command line's synthetic universe: 600 firms over 240
+# The raw-directory command line's synthetic universe: 400 firms over 240
 # months, written once and read by three runs; the --synthetic command line
 # runs at 150 x 130 (see PERF.md, Cells). Both were cut (from 1000 and 250
-# firms) to pay for the fleet phase: their generation is linear in firms.
-CLI_FIRMS, CLI_MONTHS = 600, 240
+# firms, and from 600 for the process phases) to pay for later phases:
+# their generation is linear in firms.
+CLI_FIRMS, CLI_MONTHS = 400, 240
 SYNTHETIC_CLI_FIRMS, SYNTHETIC_CLI_MONTHS = 150, 130
 # Launches of each raw-directory command-line run at CLI_FIRMS x CLI_MONTHS:
 # K1 std over the daily strips, sum w=12 and w=24, the figure's mean roll and
@@ -3643,11 +3923,16 @@ def main(argv=None) -> int:
         phase_timed("slot_phase", slot_phase, base, daily, digests, registry_root)
         phase_timed("registry_phase", registry_phase, registry_root, args.seed, per_kernel,
                     serving["state"])
-        phase_timed("fleet_phase", fleet_phase, serving, bare, registry_root)
+        thread_rates = phase_timed("fleet_phase", fleet_phase, serving, bare, registry_root)
+        phase_timed("process_fleet_phase", process_fleet_phase, serving, bare, registry_root,
+                    thread_rates)
     del serving, bare
     phase_timed("trace_phase", trace_phase, base, daily, digests)
     phase_timed("profile_phase", profile_phase, base, daily, digests)
-    path_counts = {"main": counts, **phase_timed("specgrid_phase", specgrid_phase, base, daily)}
+    sweep_counts, sweep_res = phase_timed("specgrid_phase", specgrid_phase, base, daily)
+    path_counts = {"main": counts, **sweep_counts}
+    path_counts["multiproc"] = phase_timed("multiproc_phase", multiproc_phase, sweep_res)
+    del sweep_res
     phase_timed("bootstrap_phase", bootstrap_phase, base, daily)
     path_counts["backtest"] = phase_timed("backtest_phase", backtest_phase, base, daily)
     path_counts["estimators"] = phase_timed("estimators_phase", estimators_phase, base, daily)
@@ -3657,8 +3942,7 @@ def main(argv=None) -> int:
     phase_timed("card_vs_cpu", card_vs_cpu, args.seed)
     phase_timed("ingest_vs_cpu", ingest_vs_cpu)
     phase_timed("cli_phase", cli_phase)
-    phase_timed("bootstrap_cli_phase", bootstrap_cli_phase)
-    phase_timed("backtest_cli_phase", backtest_cli_phase)
+    phase_timed("bootstrap_backtest_cli_phase", bootstrap_backtest_cli_phase)
     phase_timed("estimator_cli_phase", estimator_cli_phase)
     phase_timed("trace_cli_phase", trace_cli_phase)
     with tempfile.TemporaryDirectory() as tmp:

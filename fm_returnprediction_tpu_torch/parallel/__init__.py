@@ -1,10 +1,12 @@
-"""Resampling and (later) multi-device parallel paths of the port.
+"""Resampling and multi-process paths of the port.
 
 - ``bootstrap`` — the moving-block bootstrap of the monthly slope series
   behind the bootstrap-SE table, on one device.
+- ``distributed`` — the multi-process bootstrap and the host exchange
+  (TCP allgather, rank-ordered ``sum_tree``).
+- ``shm`` — shared-memory frame rings and mapped array segments.
 
-The mesh and multi-process paths of the reference package are not ported
-yet (ROADMAP §A item 8).
+The device mesh of the reference package is not ported yet (ROADMAP A8b).
 """
 
 from fm_returnprediction_tpu_torch.parallel.bootstrap import (

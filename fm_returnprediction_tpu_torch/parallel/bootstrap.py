@@ -33,7 +33,7 @@ predictor of a replicate maps the same uniform draws onto its own range
 Replicates are gathered in chunks of at most ``REPLICATE_CHUNK_ELEMENTS``
 gathered values, and the chunks' moment sums are added in chunk order, so
 a repeated call is bit-identical. The mesh route (replicates sharded over
-devices) is not ported yet (ROADMAP §A item 8).
+devices) is not ported yet (ROADMAP A8b).
 """
 
 from __future__ import annotations
@@ -124,12 +124,12 @@ def block_bootstrap_se(slopes: torch.Tensor, slope_valid: torch.Tensor, seed: in
     slopes (T, P) monthly slope estimates (``monthly_cs_ols``);
     slope_valid (T, P) bool, month ran and slope finite; ``seed`` seeds the
     CPU generator of :func:`draw_block_starts`. The gather runs on the
-    slopes' device. ``mesh`` raises: the sharded route is ROADMAP §A item 8.
+    slopes' device. ``mesh`` raises: the sharded route is ROADMAP A8b.
     """
     if mesh is not None:
         raise NotImplementedError(
             "block_bootstrap_se runs on one device here: the mesh route "
-            "(replicates sharded over devices) is not ported yet (ROADMAP A8)")
+            "(replicates sharded over devices) is not ported yet (ROADMAP A8b)")
     if n_replicates < 2:
         raise ValueError(
             f"n_replicates must be >= 2 for a ddof=1 variance, got {n_replicates}")

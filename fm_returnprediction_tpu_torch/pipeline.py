@@ -1027,14 +1027,21 @@ def _main(argv=None) -> None:
              "a failed smoke exits nonzero",
     )
     parser.add_argument(
-        "--replica-mode", choices=("thread",), default=None,
-        help="fleet replica boundary: threads of this process (process replicas "
-             "are not ported yet)",
+        "--replica-mode", choices=("thread", "process"), default=None,
+        help="fleet smoke replica boundary: threads of this process or spawned "
+             "child processes (each with its own CUDA context) behind the socket "
+             "or shared-memory transport (FMRP_FLEET_TRANSPORT); default follows "
+             "FMRP_FLEET_REPLICA_MODE (thread)",
     )
     parser.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                         help="compute device (default cuda; raises without a "
                              "GPU); takes the place of the reference's --backend")
     args = parser.parse_args(argv)
+    from fm_returnprediction_tpu_torch.parallel.distributed import initialize_distributed
+
+    # join a multi-process run when FMRP_DIST_* is set (host exchange and
+    # telemetry identity); a no-op otherwise
+    initialize_distributed()
     if not args.synthetic and (args.firms is not None or args.months is not None):
         parser.error("--firms/--months only apply with --synthetic")
     cfg = SyntheticConfig(

@@ -24,6 +24,7 @@ __all__ = [
     "RecoveredInFlightError",
     "StateRolloverError",
     "InjectedFault",
+    "DegradedWorldError",
 ]
 
 
@@ -128,3 +129,15 @@ class InjectedFault(OSError):
     """The default exception a ``resilience.faults.FaultPlan`` raises at a
     fault site. Subclasses ``OSError`` so an injected fault takes the same
     handler paths a real transient IO error would."""
+
+
+class DegradedWorldError(ResilienceError):
+    """A grid worker died and the run is configured exact-world-only
+    (``FMRP_TOPO_DEGRADED_GRID=0``): the pool refuses the disclosed N−1
+    merge rather than serving a partial sum. Carries the dead shard ranks;
+    with the knob at its default the pool degrades (exactly, by Gram
+    additivity over the survivors) and discloses instead of raising."""
+
+    def __init__(self, message: str, *, dead_ranks=()):
+        super().__init__(message)
+        self.dead_ranks = tuple(dead_ranks)

@@ -33,15 +33,21 @@ are injected), and ``serving.dispatch`` and ``fleet.replica_stall``
 bucket dispatch, where a stall is what the dispatch watchdog sees; and the
 serving fleet's ``fleet.replica_kill``, ``fleet.swap_mid_flight``,
 ``fleet.poison_state``, ``fleet.hard_crash`` and
-``fleet.journal_torn_tail`` (their mutators are below). The declarative part of a plan serializes into
-``FMRP_CHAOS_PLAN``/``FMRP_CHAOS_SEED`` (:func:`chaos_env`), which a child
-process installs with :func:`install_plan_from_env`; ``FaultSpec.proc``
-restricts a spec to the child whose ``FMRP_DIST_PROC_ID`` or
-``FMRP_PROC_INDEX`` equals it. The semantics are the reference package's.
+``fleet.journal_torn_tail`` (their mutators are below); and in spawned
+processes ``dist.broker_round`` (the exchange broker, mid-round),
+``grid.rank_death`` (a spec-grid worker with its job received),
+``replica.result_send`` and ``replica.verb`` (a replica child over the
+socket), ``shm.ring.commit`` (between a ring frame's payload and its
+commit word), ``serving.shm.doorbell_fd`` and ``obs.annex_mirror``.
 
-Inert until their callers are ported, and so left out of ``__all__``: the
-port spawns no child process yet (``chaos_env``, ``install_plan_from_env``,
-``FaultSpec.proc`` and ``sigkill`` serve the multi-process paths).
+The declarative part of a plan serializes into
+``FMRP_CHAOS_PLAN``/``FMRP_CHAOS_SEED`` (:func:`chaos_env`), which every
+spawner (the grid worker pool, the process replicas) merges into its
+child's environment and the child installs with
+:func:`install_plan_from_env`; ``FaultSpec.proc`` restricts a spec to the
+child whose ``FMRP_DIST_PROC_ID`` or ``FMRP_PROC_INDEX`` equals it, and
+``FaultSpec.sigkill`` kills that child at the site. The semantics are the
+reference package's.
 """
 
 from __future__ import annotations
@@ -67,6 +73,8 @@ __all__ = [
     "FaultSpec",
     "FaultPlan",
     "fault_site",
+    "chaos_env",
+    "install_plan_from_env",
     "truncate_file",
     "poison_nan_flood",
     "poison_scale_spike",

@@ -18,8 +18,10 @@ the registry warm pool, two-phase state rollover), the supervisor with its
 autoscaler leg (``supervisor``), the brownout ladder of disclosed
 host-side routes (``brownout``), the write-ahead request journal and its
 replay (``journal``), crash-restart recovery (``recovery``), and the load
-harness with the capacity model (``loadgen``). The reference's process
-replicas and shared-memory transport wait for ROADMAP A8.
+harness with the capacity model (``loadgen``). Replicas are threads or,
+with ``replica_mode="process"``, spawned processes (``replica_proc``,
+``replica_worker``) behind a socket or a shared-memory data plane
+(``shm``).
 """
 
 from fm_returnprediction_tpu_torch.serving.batcher import MicroBatcher, QueueFullError

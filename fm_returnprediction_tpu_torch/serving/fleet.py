@@ -1,5 +1,5 @@
 """Resilient serving fleet: N supervised ``ERService`` replicas behind one
-admission-controlled submit path, in one process.
+admission-controlled submit path.
 
 A single ``ERService`` is one stalled bucket away from taking the whole
 quoting path down. The fleet makes serving survive faults the service
@@ -50,13 +50,21 @@ from inside the submit path), ``fleet.hard_crash`` (abandon the fleet the
 way a process death would), ``fleet.journal_torn_tail`` (tear the
 journal's final line as the handle drops).
 
-Replicas are threads of this process. The reference's
-``replica_mode="process"`` (spawned children behind a socket or
-shared-memory transport) waits for ROADMAP A8 and raises
-``NotImplementedError`` here.
+Replicas are threads of this process or, with ``replica_mode="process"``
+(``FMRP_FLEET_REPLICA_MODE``), spawned processes, each owning its own
+``ERService`` and CUDA context behind the socket control plane and a
+socket or shared-memory data plane (``FMRP_FLEET_TRANSPORT``;
+``serving.replica_proc``, ``replica_worker``, ``shm``). A process replica
+is spawned from the registry's warm pool when one is armed (its
+``WarmReport`` rides back in the hello) and loads its state from a
+``ServingState`` bundle on the filesystem. The journal stays with the
+router, so the exactly-once replay survives a replica process SIGKILL;
+the supervisor's stats probe is the wire heartbeat. Routing, admission,
+rollover and recovery are the same code in both modes.
 
 Knobs: ``FMRP_FLEET_SIZE`` (default replica count),
-``FMRP_FLEET_REPLICA_MODE`` (``thread``), ``FMRP_FLEET_RATE`` /
+``FMRP_FLEET_REPLICA_MODE`` (``thread``/``process``),
+``FMRP_FLEET_TRANSPORT`` (``auto``/``shm``/``socket``), ``FMRP_FLEET_RATE`` /
 ``FMRP_FLEET_BURST`` (admission token bucket), ``FMRP_FLEET_SHED_OCCUPANCY``
 (queue-occupancy shed threshold), ``FMRP_FLEET_JOURNAL`` (journal path),
 ``FMRP_FLEET_JOURNAL_KEEP`` (rotated-session retention),
@@ -69,6 +77,7 @@ command line.
 from __future__ import annotations
 
 import bisect
+import contextvars
 import dataclasses
 import hashlib
 import math
@@ -123,9 +132,10 @@ __all__ = [
 # inner-future failures the fleet requeues on another replica: each means
 # "this replica failed the request", never "the request is malformed" —
 # requeueing a poison-pill request would just serially crash the fleet,
-# so ValueError/KeyError/... deliberately are NOT here (QueueFullError is
-# the reference's set; thread replicas raise it at submit, where
-# _route_and_submit already reroutes)
+# so ValueError/KeyError/... deliberately are NOT here. QueueFullError is
+# here for the shm transport's optimistic accept: a replica-side
+# backpressure reject arrives on the future there (thread and socket
+# replicas raise it at submit, where _route_and_submit reroutes)
 _REQUEUEABLE = (ReplicaDeadError, DispatchTimeoutError, InjectedFault,
                 QueueFullError)
 
@@ -306,6 +316,7 @@ class ServingFleet:
         probe_interval_s: Optional[float] = None,
         admission_clock=time.monotonic,
         replica_mode: Optional[str] = None,
+        transport: Optional[str] = None,
         **service_kwargs,
     ):
         if n_replicas is None:
@@ -316,14 +327,19 @@ class ServingFleet:
             replica_mode = os.environ.get(
                 "FMRP_FLEET_REPLICA_MODE", "thread"
             ).strip().lower() or "thread"
-        if replica_mode == "process":
-            raise NotImplementedError(
-                "replica_mode='process' (spawned replica processes) is not "
-                "ported yet: ROADMAP item 8; use replica_mode='thread'"
-            )
-        if replica_mode != "thread":
-            raise ValueError(f"replica_mode {replica_mode!r} is not 'thread'")
+        if replica_mode not in ("thread", "process"):
+            raise ValueError(
+                f"replica_mode {replica_mode!r} is not 'thread'|'process'")
         self.replica_mode = replica_mode
+        # process replicas' data plane: "shm" rings or the "socket"
+        # (serving.shm.resolve_fleet_transport, resolved per spawn)
+        self._transport = transport
+        self._proc_scratch = None
+        if replica_mode == "process":
+            import tempfile
+            from pathlib import Path as _Path
+
+            self._proc_scratch = _Path(tempfile.mkdtemp(prefix="fmrp_fleet_proc_"))
         self.state = state
         self.version = 0          # bumped by every committed rollover
         self._registry_dir = registry_dir
@@ -339,11 +355,14 @@ class ServingFleet:
         # go negative because a replica died)
         self._agg_prior = {"n_done": 0, "n_rejected": 0, "n_failed": 0,
                            "dispatch_timeouts": 0}
-        # fleet-wide metric aggregation (telemetry.distributed): replicas
-        # in other processes ship registry deltas it folds under {proc=}
-        # labels; thread replicas share this process's registry, so it
-        # stays empty here and its fold is a no-op
+        # fleet-wide metric aggregation (telemetry.distributed): process
+        # replicas ship registry deltas on the stats heartbeat, folded
+        # under {proc=} labels; thread replicas share this process's
+        # registry, so with them it stays empty and its fold is a no-op
         self.aggregator = _obs.MetricAggregator()
+        # rid → flight-recorder tail harvested from a process replica's
+        # shm annex at its death
+        self.flights: Dict[str, dict] = {}
         self._ring = HashRing(vnodes=vnodes)
         self._generation = 0
         self._req_counter = 0
@@ -417,8 +436,7 @@ class ServingFleet:
             self.brownout = None
         self._crashed = False
         try:
-            for _ in range(n_replicas):
-                self._add_replica()
+            self._add_replicas(n_replicas)
         except Exception:
             # a spawn failure mid-loop must not leak what already started:
             # the started replicas hold graphs and memory on the card
@@ -430,6 +448,7 @@ class ServingFleet:
                     rep.service.release()
                 except Exception:  # noqa: BLE001 — best-effort reap
                     pass
+            self._cleanup_scratch()
             raise
         self._update_gauges()
         # the journal doubles as the fleet's topology record: size-carrying
@@ -472,6 +491,21 @@ class ServingFleet:
             from fm_returnprediction_tpu_torch.registry.store import registry_dir
 
             reg_dir = registry_dir()
+        if self.replica_mode == "process":
+            # a spawned child: the warm-pool start happens there, and its
+            # WarmReport rides back in the hello
+            from fm_returnprediction_tpu_torch.serving.replica_proc import ProcessReplica
+
+            service = ProcessReplica(
+                rid, state, scratch=self._proc_scratch,
+                service_kwargs=self._service_kwargs, registry_dir=reg_dir,
+                transport=self._transport,
+            )
+            # the stats heartbeat doubles as the metric-aggregation wire
+            service.metrics_sink = self.aggregator.ingest
+            if service.warm_report is not None:
+                self.warm_reports[rid] = service.warm_report
+            return service
         if reg_dir is not None:
             from fm_returnprediction_tpu_torch.registry.warm import (
                 warm_from_registry,
@@ -494,6 +528,42 @@ class ServingFleet:
         self._update_gauges()
         return rid
 
+    def _add_replicas(self, n: int) -> List[str]:
+        """The fleet's first ``n`` replicas. Process replicas start
+        concurrently: each child's interpreter, torch import, CUDA context
+        and warm-up overlap the others' (seconds each on the card), and a
+        failed start reaps the ones that did start before it raises."""
+        if self.replica_mode != "process" or n < 2:
+            return [self._add_replica() for _ in range(n)]
+        from concurrent.futures import ThreadPoolExecutor
+
+        from fm_returnprediction_tpu_torch.serving.replica_proc import _ship_state
+
+        _ship_state(self.state, self._proc_scratch)  # one bundle for every child
+        rids = [self._next_rid() for _ in range(n)]
+        with ThreadPoolExecutor(max_workers=n, thread_name_prefix="fmrp-spawn") as pool:
+            # each spawn runs in a copy of this context, so the open span
+            # reaches the child as its remote parent (trace_env)
+            futs = [pool.submit(contextvars.copy_context().run, self._spawn_service, rid,
+                                self.state) for rid in rids]
+        started, errors = [], []
+        for rid, fut in zip(rids, futs):
+            try:
+                started.append((rid, fut.result()))
+            except Exception as exc:  # noqa: BLE001 — re-raised below
+                errors.append(exc)
+        if errors:
+            for _, service in started:
+                service.kill("fleet start aborted")
+                service.release()
+            raise errors[0]
+        with self._lock:
+            for rid, service in started:
+                self._replicas[rid] = _Replica(rid, service, self._generation)
+                self._ring.add(rid)
+        self._update_gauges()
+        return rids
+
     def _fold_final(self, rep: _Replica) -> None:
         """Fold a departing replica's cumulative counters into the fleet
         prior (once per replica; queue_depth is point-in-time and is
@@ -504,6 +574,14 @@ class ServingFleet:
         # aggregated series fold the same way (a no-op for thread
         # replicas, which never shipped a delta)
         self.aggregator.fold_dead(rep.rid)
+        # post-mortem: the flight tail a process replica mirrored into its
+        # shm annex (cached on the handle at death; never raises)
+        harvest = getattr(rep.service, "harvest_flight", None)
+        if harvest is not None:
+            flight = harvest()
+            if flight is not None:
+                with self._lock:
+                    self.flights[rep.rid] = flight
         try:
             s = rep.service.stats()
         except Exception:  # noqa: BLE001 — a corpse that can't report
@@ -1164,6 +1242,7 @@ class ServingFleet:
                 "degraded": s["degraded"],
                 "dispatch_timeouts": s["dispatch_timeouts"],
                 "slo_state": s.get("slo_state"),
+                "transport": s.get("transport"),
                 "reasons": list(rep.reasons),
             }
             for k in ("n_done", "n_rejected", "n_failed", "queue_depth",
@@ -1182,9 +1261,13 @@ class ServingFleet:
             max(slo_states, key=lambda s: slo_order.get(s, 0))
             if slo_states else None
         )
+        transports = {d.get("transport") for d in per_replica.values()
+                      if d.get("transport")}
         return {
             "fleet_size": len(reps),
             "replica_mode": self.replica_mode,
+            "transport": (sorted(transports)[0] if len(transports) == 1
+                          else sorted(transports) or None),
             "slo_state": worst_slo,
             "brownout_level": (
                 self.brownout.level if self.brownout is not None else None
@@ -1270,12 +1353,13 @@ class ServingFleet:
         file on disk is exactly what a crashed process leaves behind, and
         :meth:`recover` is how the next fleet picks it up.
 
-        In one process the corpse shares the card with the fleet that
-        recovers it, so every replica is also FENCED: its flusher is
-        joined (a batch mid-dispatch finishes), its executors' streams are
+        The corpse shares the card with the fleet that recovers it, so
+        every replica is also FENCED: a thread replica's flusher is joined
+        (a batch mid-dispatch finishes), its executors' streams are
         synchronized and their graphs and device memory freed
-        (``ERService.release``). After this returns, nothing of the
-        crashed fleet runs on the card."""
+        (``ERService.release``); a process replica's child is killed and
+        reaped. After this returns, nothing of the crashed fleet runs on
+        the card."""
         self._crashed = True
         self.supervisor.stop()
         telemetry.event("fleet.hard_crash", cat="fleet")
@@ -1303,6 +1387,15 @@ class ServingFleet:
                     pass
         for rep in reps:
             rep.service.release()   # the fence: see the docstring
+        self._cleanup_scratch()
+
+    def _cleanup_scratch(self) -> None:
+        """Remove the process replicas' scratch tree (state bundles, spawn
+        configs, child logs); nothing in thread mode."""
+        if self._proc_scratch is not None:
+            from fm_returnprediction_tpu_torch.serving.replica_proc import cleanup_scratch
+
+            cleanup_scratch(self._proc_scratch)
 
     @classmethod
     def recover(cls, journal, registry_dir=None, state=None,
@@ -1408,6 +1501,7 @@ class ServingFleet:
             rep.service.release()
         if self.journal is not None and self._own_journal:
             self.journal.close()
+        self._cleanup_scratch()
 
     def __enter__(self) -> "ServingFleet":
         return self

@@ -22,8 +22,10 @@
   absorbed fixed effects, IV/2SLS, pooled OLS with its sandwich SE
   families, the clustered FM tail, and the streaming block bootstrap.
 
-Not ported yet: the bank's persistence (ROADMAP A7) and the mesh and
-multi-process grids (ROADMAP A8).
+- ``multiproc`` — the grid across worker processes (``FMRP_SPECGRID_PROCS``,
+  ``run_spec_grid_weights(procs=)``): firm shards contracted by K2 in every
+  worker, merged over the host exchange. The device mesh is not ported
+  (ROADMAP A8b).
 """
 
 from fm_returnprediction_tpu_torch.specgrid.cellspace import (

@@ -33,9 +33,12 @@ reference's exception types: OLS cells must ride the NW tail, pooled cells
 need ``bootstrap=1``, bootstrap draws need ``se="nw"``, absorb needs
 ``fe_codes`` (KeyError).
 
-The engine runs on one device: ``mesh=``, ``FMRP_SPECGRID_MESH`` or
-``FMRP_SPECGRID_PROCS`` > 1 raise (ROADMAP A8) before any estimator runs
-(the reference's estimator kinds are single-device too).
+The engine runs in one process or, with ``FMRP_SPECGRID_PROCS`` > 1, its
+OLS batches contract across that many worker processes
+(``specgrid.multiproc``); the estimator kinds beyond OLS and the factorized
+route are single-process, as in the reference, and a multi-process sweep
+with them raises up front. ``mesh=`` and ``FMRP_SPECGRID_MESH`` raise
+(ROADMAP A8b).
 """
 
 from __future__ import annotations
@@ -67,6 +70,7 @@ from fm_returnprediction_tpu_torch.specgrid.sinks import Sink, resolve_sink
 from fm_returnprediction_tpu_torch.specgrid.solve import (
     contraction_counts,
     require_single_device,
+    resolve_specgrid_procs,
     run_spec_grid_weights,
 )
 from fm_returnprediction_tpu_torch.specgrid.specs import SpecGrid
@@ -188,7 +192,12 @@ class _Engine:
                 f"{[e.se for e in ols_odd]} are estimator-subsystem tails — query the gram "
                 "bank instead (grambank.estimator_query serves ols under the iid/clustered "
                 "tails)")
+        single_process = resolve_specgrid_procs(None) == 1
         non_ols = [e for e in space.estimators if e.kind != "ols"]
+        if non_ols and not single_process:
+            raise ValueError(
+                "estimator kinds beyond OLS are a single-device route — the multi-process "
+                f"grid predates the estimator transforms (space has {non_ols})")
         if any(e.kind == "pooled" for e in non_ols) and space.bootstrap > 1:
             raise ValueError(
                 "pooled estimator cells produce no per-month slope series to resample — a "
@@ -217,8 +226,12 @@ class _Engine:
         # spans at most (spec_pad-1)//n_windows + 2 pairs, so one padded
         # pair width serves every batch
         fact = resolve_gram_factorize(factorize)
+        if fact == "on" and not single_process:
+            raise ValueError(
+                "factorize='on' is a single-device route — the multi-process contraction "
+                "keeps the window term in validity (specgrid.solve docstring)")
         if fact == "auto":
-            fact = "on" if len(space.windows) > 1 else "off"
+            fact = "on" if single_process and len(space.windows) > 1 else "off"
         self.gram_factorize = fact
         self.pair_pad = (min(self.spec_pad, (self.spec_pad - 1) // len(space.windows) + 2,
                              space.n_pairs)

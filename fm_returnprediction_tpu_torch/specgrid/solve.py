@@ -29,8 +29,10 @@ The solve runs in the stats' own dtype (float32 for bfloat16 stats).
 schemes, optionally on the factorized route (one contraction per distinct
 (universe, col_sel) pair, windows applied to the additive per-month stats
 by ``expand_window_stats``), with coreset row weights (the referee is then
-off: it would re-solve on the full panel) or bfloat16 operands. It runs on
-one device; a mesh or a multi-process grid is not ported (ROADMAP A8).
+off: it would re-solve on the full panel) or bfloat16 operands. With
+``procs`` > 1 (``FMRP_SPECGRID_PROCS``) the contraction runs across that
+many worker processes (``specgrid.multiproc``) and the solve here; a mesh
+is not ported (ROADMAP A8b).
 
 With the guard layer on (``guard.checks``) a grid run queues its sentinel
 counters under ``"specgrid.grid_program"`` — non-finite Gram/moment
@@ -62,6 +64,10 @@ from fm_returnprediction_tpu_torch.specgrid.grams import (
     resolve_gram_precision,
     unique_pairs,
 )
+from fm_returnprediction_tpu_torch.specgrid.multiproc import (
+    multiproc_grid_stats,
+    resolve_specgrid_procs,
+)
 from fm_returnprediction_tpu_torch.specgrid.specs import SpecGrid
 
 __all__ = [
@@ -70,6 +76,7 @@ __all__ = [
     "contraction_counts",
     "expand_window_stats",
     "require_single_device",
+    "resolve_specgrid_procs",
     "solve_spec_stats",
     "run_spec_grid",
     "run_spec_grid_weights",
@@ -88,22 +95,17 @@ def contraction_counts() -> Dict[str, int]:
     return dict(CONTRACTIONS)
 
 
-def require_single_device(mesh=None, procs: Optional[int] = None) -> None:
-    """Raise unless the grid runs on one device in one process: a ``mesh``,
-    ``FMRP_SPECGRID_MESH`` naming more than one device, or more than one
-    process (``procs`` or ``FMRP_SPECGRID_PROCS``) asks for the sharded or
-    multi-process grid, which is not ported (ROADMAP A8)."""
+def require_single_device(mesh=None) -> None:
+    """Raise on a device mesh: a ``mesh`` or ``FMRP_SPECGRID_MESH`` naming
+    more than one device asks for the sharded grid, which is not ported
+    (ROADMAP A8b). Several processes are ported (``procs``)."""
     want_mesh = os.environ.get("FMRP_SPECGRID_MESH", "").strip().lower()
     one_mesh = want_mesh in ("", "0", "1") or (
         want_mesh == "auto" and torch.cuda.device_count() <= 1)
-    want_procs = os.environ.get("FMRP_SPECGRID_PROCS", "").strip().lower()
-    n_procs = int(procs) if procs is not None else (
-        1 if want_procs in ("", "0", "1") else int(want_procs))
-    if mesh is not None or not one_mesh or n_procs > 1:
+    if mesh is not None or not one_mesh:
         raise NotImplementedError(
-            "the spec grid runs on one device in one process here: the mesh and "
-            "multi-process grid (mesh=, FMRP_SPECGRID_MESH, FMRP_SPECGRID_PROCS) "
-            "are not ported yet (ROADMAP A8)")
+            "the spec grid runs without a device mesh here: mesh= and "
+            "FMRP_SPECGRID_MESH (the sharded grid) are not ported yet (ROADMAP A8b)")
 
 
 def expand_window_stats(stats, pair_idx: torch.Tensor, window: torch.Tensor):
@@ -316,7 +318,8 @@ def run_spec_grid(y: torch.Tensor, x: torch.Tensor,
                   universe_masks: Dict[str, torch.Tensor], grid: SpecGrid,
                   referee: bool = True, firm_chunk=None, row_weights=None,
                   precision: Optional[str] = None,
-                  factorize: Optional[str] = None) -> SpecGridResult:
+                  factorize: Optional[str] = None,
+                  procs: Optional[int] = None) -> SpecGridResult:
     """Solve a whole spec grid from panel tensors.
 
     ``x`` holds the grid's union predictor columns in
@@ -329,7 +332,7 @@ def run_spec_grid(y: torch.Tensor, x: torch.Tensor,
     return run_spec_grid_weights(
         y, x, universe_masks, grid, (grid.weight,), referee=referee,
         firm_chunk=firm_chunk, row_weights=row_weights, precision=precision,
-        factorize=factorize,
+        factorize=factorize, procs=procs,
     )[grid.weight]
 
 
@@ -363,10 +366,32 @@ def run_spec_grid_weights(
     spec. ``pair_pad`` pads the pair axis with inert repeats of pair 0.
     ``row_weights`` (T, N) is the coreset route's importance weighting; the
     referee is off with it (it would re-solve on the full panel and splice
-    two estimands). ``mesh`` and ``procs`` > 1 raise (ROADMAP A8)."""
+    two estimands). ``procs`` (``FMRP_SPECGRID_PROCS`` when None) > 1
+    contracts across that many worker processes on ``y``'s device type
+    (``specgrid.multiproc``): not with bf16 operands, nor with
+    ``factorize="on"`` (``"auto"`` is off there). ``mesh`` raises (ROADMAP
+    A8b)."""
     precision = resolve_gram_precision(precision)
     factorize = resolve_gram_factorize(factorize)
-    require_single_device(mesh, procs)
+    procs = resolve_specgrid_procs(procs)
+    if mesh is not None and procs > 1:
+        raise ValueError(
+            "mesh= and procs>1 are mutually exclusive sharding stories: the mesh "
+            "spans devices in one process, FMRP_SPECGRID_PROCS spans processes — "
+            "pick one per run")
+    require_single_device(mesh)
+    if procs > 1 and precision == "bf16":
+        raise ValueError(
+            "precision='bf16' is a single-process route; the host-side merge of "
+            "bf16-floored shard stats is not refereed yet")
+    if factorize == "on" and procs > 1:
+        raise ValueError(
+            "factorize='on' is a single-device route: the multi-process contraction "
+            "predates the month-axis factorization (its window term stays in "
+            "validity); 'auto' resolves to the legacy route there")
+    # the worker pool is keyed on the caller's own objects, captured
+    # before any conversion below
+    raw_rw = row_weights
     device = y.device
     names = list(universe_masks)
     universes = torch.stack([torch.as_tensor(universe_masks[nm], device=device)
@@ -383,7 +408,7 @@ def run_spec_grid_weights(
 
     s_specs = len(grid)
     use_fact = False
-    if factorize != "off":
+    if factorize != "off" and procs == 1:
         k_unique = int(unique_pairs(uidx_np, col_sel_np)[0].shape[0])
         # "auto" factorizes only when the grid repeats pairs (a window sweep)
         use_fact = factorize == "on" or k_unique < s_specs
@@ -398,6 +423,13 @@ def run_spec_grid_weights(
             row_weights=row_weights, precision=precision)
         stats = expand_window_stats(pair_stats, torch.as_tensor(pair_idx, device=device,
                                                                 dtype=torch.long), window)
+    elif procs > 1:
+        CONTRACTIONS["specs_contracted"] += s_specs
+        merged = multiproc_grid_stats(
+            y, x, tuple(universe_masks[nm] for nm in names), uidx_np, col_sel_np,
+            grid.window_masks(t), procs=procs, row_weights=raw_rw, firm_chunk=firm_chunk,
+            device=device.type)
+        stats = SpecGramStats(*(torch.from_numpy(a).to(device) for a in merged))
     else:
         CONTRACTIONS["specs_contracted"] += s_specs
         stats = contract_spec_grams(y, x, universes, uidx, col_sel, window,

@@ -39,10 +39,9 @@ counterpart is ``cuda_build_cache_stats``), ``record_trace`` (a jit
 lowering count: eager torch has none, see ``metrics``),
 ``record_compiled`` and ``timed_aot_compile`` (XLA's AOT compile and cost
 analysis; the port records a bucket capture with ``record_program``).
-Of ``distributed.py`` the port has the one-process part (the fleet's
-``MetricAggregator``, ``registry_delta``, ``metrics_enabled``); its trace
-propagation, peers and flight annexes, and ``timeline.py`` (the
-multi-process trace merge), wait for the process replicas (ROADMAP A8).
+``distributed`` carries trace context, clock anchors, metric deltas and
+flight annexes across processes; ``timeline`` merges the per-process
+exports into one timeline with a per-hop latency table.
 """
 
 from __future__ import annotations

@@ -32,9 +32,12 @@ the annotation factory is ``torch.profiler.record_function``: every armed
 span then also names its interval on the profiler's timeline.
 
 :func:`record_span` collects an interval from explicit stamps (the
-fleet's request spans). The reference package's remote-parent context
-serves its multi-process trace merge, which waits for the process
-replicas (ROADMAP A8).
+fleet's request spans and the cross-process hops). A child process
+spawned inside a traced span installs that span as its remote parent
+(:func:`set_remote_context`, from ``telemetry.distributed``): every root
+span it opens then carries ``remote_trace``/``remote_parent`` attrs,
+which is how the timeline merge joins child spans to the router's
+without sharing span ids across processes.
 """
 
 from __future__ import annotations
@@ -68,6 +71,8 @@ __all__ = [
     "set_trace_dir",
     "annotation_factory",
     "set_annotation_factory",
+    "remote_context",
+    "set_remote_context",
 ]
 
 _TRUE = ("1", "on", "true", "yes")
@@ -142,6 +147,21 @@ def set_trace_dir(path: Optional[str]) -> None:
     _TRACE_DIR = str(path) if path else None
 
 
+_REMOTE_CTX: Optional[tuple] = None  # (trace_id, span_id) of the remote parent
+
+
+def remote_context() -> Optional[tuple]:
+    """The installed remote parent ``(trace_id, span_id)``, or None."""
+    return _REMOTE_CTX
+
+
+def set_remote_context(trace_id: Optional[int], span_id: Optional[int] = None) -> None:
+    """Install (or clear, with ``None``) the remote parent context, the
+    child-side half of cross-process trace propagation."""
+    global _REMOTE_CTX
+    _REMOTE_CTX = None if trace_id is None else (int(trace_id), int(span_id or 0))
+
+
 class Span:
     """One finished or open interval. Times are ``perf_counter_ns``."""
 
@@ -156,6 +176,11 @@ class Span:
         if parent is None:
             self.trace_id = self.span_id
             self.parent_id = None
+            if _REMOTE_CTX is not None:
+                # a root span in a child process names the remote request
+                # span by attribute, not by id
+                attrs = {**attrs, "remote_trace": _REMOTE_CTX[0],
+                         "remote_parent": _REMOTE_CTX[1]}
         else:
             self.trace_id = parent.trace_id
             self.parent_id = parent.span_id

@@ -681,7 +681,7 @@ def test_cli_backtest_flags_parse_and_estimator_stays_refused(monkeypatch, capsy
     assert seen["make_backtest"] and seen["make_specgrid"]
     assert seen["specgrid_estimator"] == "fwl:c0"
     for argv in (["--backtest-route", "bogus"], ["--backtest-sink", "bogus"],
-                 ["--backtest", "--replica-mode", "process"]):
+                 ["--backtest", "--replica-mode", "fiber"]):
         with pytest.raises(SystemExit) as exc:
             port_pipeline._main(["--synthetic", "--device", "cpu"] + argv)
         assert exc.value.code == 2

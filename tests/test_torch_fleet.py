@@ -22,8 +22,9 @@ keep every test deterministic.
   so the port's counterpart pins the port's own contract: every replica,
   the replacement included, starts through the warm pool with 0 builds.
 - **Release.** A replica that leaves drops its bucket programs and its
-  state on the device; ``replica_mode="process"`` raises, naming ROADMAP
-  item 8.
+  state on the device. ``replica_mode="process"`` (by argument or by
+  ``FMRP_FLEET_REPLICA_MODE``) builds a fleet of spawned replica processes
+  whose quotes are bit-equal to the thread fleet's; an unknown mode raises.
 """
 
 from __future__ import annotations
@@ -621,13 +622,24 @@ def test_fleet_env_knobs(case, monkeypatch):
 
 @pytest.mark.parametrize("how", ["argument", "environment"])
 def test_process_replicas_raise_naming_roadmap_item_8(how, case, monkeypatch):
-    *_, state, _, _, _ = case
+    """Process replicas are ported (the name is kept from when they
+    raised): a process fleet of 2 on the CPU, asked for by argument or by
+    environment, quotes bit-equal to the thread fleet of 2; an unknown
+    replica mode still raises."""
+    *_, state, _, months, qx = case
+    months, qx = months[:16], qx[:16]
     kw = {"replica_mode": "process"}
     if how == "environment":
         monkeypatch.setenv("FMRP_FLEET_REPLICA_MODE", "process")
         kw = {}
-    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
-        ServingFleet(state, 2, max_batch=8, device="cpu", **kw)
+    with ServingFleet(state, 2, max_batch=8, device="cpu", replica_mode="thread") as fleet:
+        want = fleet.query_many(months.tolist(), qx)
+    with ServingFleet(state, 2, max_batch=8, device="cpu", **kw) as fleet:
+        assert fleet.replica_mode == "process"
+        assert all(fleet.replica(r).service.pid for r in fleet.replica_states())
+        got = fleet.query_many(months.tolist(), qx)
+    assert np.isfinite(want).sum() > len(want) // 2
+    assert np.array_equal(got, want, equal_nan=True)
     with pytest.raises(ValueError, match="not 'thread'"):
         ServingFleet(state, 2, max_batch=8, device="cpu", replica_mode="fiber")
 

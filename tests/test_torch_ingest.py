@@ -269,8 +269,8 @@ def test_cli_writes_the_same_artifacts_as_the_jax_cli(tmp_path):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--synthetic", "--replica-mode", "process"],  # ROADMAP A8
-    ["--synthetic", "--fleet-size", "2", "--replica-mode", "process"],  # ROADMAP A8
+    ["--synthetic", "--replica-mode", "fiber"],  # not a replica mode
+    ["--synthetic", "--fleet-size", "2", "--replica-mode", "fiber"],  # not a replica mode
     ["--synthetic", "--backend", "cpu"],        # the port's --device replaces it
     ["--firms", "10"],                          # --firms needs --synthetic
 ])

@@ -305,7 +305,13 @@ def test_port_runs_with_jax_blocked(tmp_path):
     registry: a journaled ``ServingFleet(device="cpu")`` of 2 with one kill
     and replace, ``ServingFleet.recover`` after a hard crash,
     ``--registry-dir --fleet-size 2`` through the command line, and
-    ``python -m fm_returnprediction_tpu_torch.registry ls``."""
+    ``python -m fm_returnprediction_tpu_torch.registry ls``; and the
+    processes the port spawns: a spec grid over 2 worker processes and a
+    process fleet of 2 with one replica SIGKILLed and replaced. The
+    children inherit a ``PYTHONPATH`` whose first entry holds ``jax``,
+    ``jaxlib`` and ``fm_returnprediction_tpu`` packages that raise on
+    import, and run from a directory outside the repo, so a child that
+    imported either would fail the run."""
     code = textwrap.dedent("""
         import runpy
         import sys
@@ -478,13 +484,45 @@ def test_port_runs_with_jax_blocked(tmp_path):
         with contextlib.redirect_stdout(buf):
             assert registry_main(["--registry-dir", tmp + "/reg", "ls"]) == 0
         assert "artifacts/serving_state/" in buf.getvalue(), buf.getvalue()
+        import signal, time
+        from fm_returnprediction_tpu_torch.specgrid import Spec, SpecGrid, multiproc
+        from fm_returnprediction_tpu_torch.specgrid.solve import run_spec_grid
+        gy = torch.randn(24, 41, dtype=torch.float64)
+        gx = torch.randn(24, 41, 3, dtype=torch.float64)
+        gmasks = {"all": torch.rand(24, 41) > 0.2}
+        grid = SpecGrid((Spec("m", ("c0", "c1", "c2"), "all"),), union=("c0", "c1", "c2"))
+        one = run_spec_grid(gy, gx, gmasks, grid)
+        two = run_spec_grid(gy, gx, gmasks, grid, procs=2)
+        assert {r["device"] for r in multiproc.cached_pool().last_reports} == {"cpu"}
+        multiproc._close_cached_pool()
+        assert np.allclose(one.coef, two.coef, rtol=1e-12, atol=1e-12), (one.coef, two.coef)
+        fleet = ServingFleet(state, 2, max_batch=8, journal=tmp + "/proc.jsonl",
+                             replica_mode="process", device="cpu")
+        assert np.array_equal(fleet.query_many(months, rows), before)
+        victim = fleet.replica("r0").service.proc
+        victim.send_signal(signal.SIGKILL)
+        victim.wait(timeout=30)
+        deadline = time.monotonic() + 60
+        while "r0" in fleet.replica_states() and time.monotonic() < deadline:
+            fleet.supervisor.tick()
+            time.sleep(0.05)
+        assert "r0" not in fleet.replica_states() and fleet.stats()["healthy_replicas"] == 2
+        assert np.array_equal(fleet.query_many(months, rows), before)
+        fleet.close()
+        assert replay_journal(tmp + "/proc.jsonl").clean
         loaded = [m for m in sys.modules
                   if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
         assert not loaded, loaded
         print("PORT-OK")
     """)
-    env = dict(os.environ, PYTHONPATH=str(REPO))
-    out = subprocess.run([sys.executable, "-c", code, str(tmp_path)], cwd=REPO, env=env,
+    # packages that raise on import, first on the path every child inherits
+    shadow = tmp_path / "shadow"
+    for name in ("jax", "jaxlib", "fm_returnprediction_tpu"):
+        (shadow / name).mkdir(parents=True)
+        (shadow / name / "__init__.py").write_text(
+            f"raise ImportError('blocked import of {name} in a port process')\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(shadow), str(REPO)]))
+    out = subprocess.run([sys.executable, "-c", code, str(tmp_path)], cwd=tmp_path, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert "PORT-OK" in out.stdout
@@ -539,7 +577,10 @@ def test_port_never_names_jax_or_the_jax_package(pattern):
             "registry/executables.py", "registry/warm.py", "serving/journal.py",
             "serving/recovery.py", "serving/brownout.py", "serving/supervisor.py",
             "serving/fleet.py", "serving/loadgen.py", "telemetry/distributed.py",
-            "cuda_build.py"} <= names
+            "cuda_build.py", "parallel/distributed.py", "parallel/shm.py",
+            "specgrid/multiproc.py", "specgrid/mp_worker.py", "serving/shm.py",
+            "serving/replica_worker.py", "serving/replica_proc.py",
+            "telemetry/timeline.py"} <= names
     hits = [str(f.relative_to(REPO)) for f in files
             if re.search(pattern, f.read_text())]
     assert not hits, hits

@@ -293,10 +293,20 @@ def test_sweep_refuses_what_is_not_ported(panels, monkeypatch):
             make_serving=False, make_specgrid=True)
     assert any(str(e.path).endswith("table2.py") for e in exc.traceback)
     monkeypatch.delenv("FMRP_SPECGRID_ESTIMATOR")
+    # several processes are ported: FMRP_SPECGRID_PROCS=2 runs the sweep's
+    # contractions in two worker processes and matches the one-process sweep
+    # (another summation order, so not bit for bit); mesh= still raises
+    from fm_returnprediction_tpu_torch.specgrid import multiproc
+
     monkeypatch.setenv("FMRP_SPECGRID_PROCS", "2")
-    with pytest.raises(NotImplementedError, match="A8"):
-        run_scenarios(ppanel, pmasks, factors)
+    try:
+        multi = run_scenarios(ppanel, pmasks, factors)
+        assert multiproc.cached_pool() is not None
+        assert {r["device"] for r in multiproc.cached_pool().last_reports} == {"cpu"}
+    finally:
+        multiproc._close_cached_pool()
     monkeypatch.delenv("FMRP_SPECGRID_PROCS")
+    _assert_frames_match(multi, run_scenarios(ppanel, pmasks, factors))
     with pytest.raises(ValueError, match="looser"):
         run_scenarios(ppanel, pmasks, factors, winsor_levels=(0.5,))
     with pytest.raises(ValueError, match="route"):
