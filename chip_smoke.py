@@ -80,8 +80,9 @@ Phases (any failure exits non-zero without the final line):
    kill→replace cycles; then process replicas (``process_fleet_phase``):
    a fleet of 2 replica processes, each with its own CUDA context, over
    the socket and (where ``/dev/shm`` fits the rings) the shm transport,
-   quoting the same rows bit-equal to the bare service, p50/p99 and rows/s
-   beside the thread fleets'; a journaled, traced fleet of 2 with one
+   quoting the same rows (the socket fleet the first 16,384 where the shm
+   fleet runs) bit-equal to the bare service, p50/p99 and rows/s beside
+   the thread fleets'; a journaled, traced fleet of 2 with one
    replica SIGKILLed under load (replaced by the supervisor, the journal
    clean, the quotes bit-equal, the card's free memory back within one
    replica's share), and the ``telemetry.timeline`` merge of the router's
@@ -92,18 +93,42 @@ Phases (any failure exits non-zero without the final line):
    in float32 and in bf16 and on a 12-subperiod unfactorized sweep (117
    specs, two launches), each run's launches pinned (``SPECGRID_LAUNCHES``);
    then the 27-cell sweep across 2 contraction worker processes
-   (``multiproc_phase``, ``FMRP_SPECGRID_PROCS=2``) over ``frames`` and
-   (where ``/dev/shm`` fits the panel) ``shm``, from an empty build
+   (``multiproc_phase``, ``FMRP_SPECGRID_PROCS=2``) over ``shm`` (where
+   ``/dev/shm`` fits the panel, else ``frames``), from an empty build
    directory: each worker launches K2 on its 11,000-firm shard (their
    launches, read from their reports, make the per-worker K2 row's
    count), at most one nvcc build over the pool, the parent launching no
-   K2; cells held against the one-process sweep, the two transports
-   bit-identical, and the merged stats against one-process K2 at 1e-5;
+   K2; cells held against the one-process sweep, and the merged stats
+   against one-process K2 at 1e-5; after an shm sweep a 9-spec grid over
+   ``frames`` from the warm build directory (no nvcc build), its merged
+   stats bit-identical to the shm pool's;
 5c. the bootstrap-SE table at real size (B = 10,000, BASELINE.json
    configs[4]) through ``run_pipeline(make_bootstrap=True)``: the
    ``bootstrap_table`` stage and its peak device memory, launches as the
    main path's, a finite positive Boot SE in every Model 1 cell, and a
    second table with the same seed bit-identical;
+5c'. the device mesh (``mesh_phase``) on 4 virtual shards of the card
+   (``FMRP_VIRTUAL_DEVICES=4``; on one card they time the sharded
+   programs' overhead, not a multi-card speedup): ``run_pipeline`` with
+   ``MESH_DEVICES=4`` and the bootstrap at B = 10,000 — the daily strips
+   launch K1 once per shard per strip, Table 2 runs distributed TSQR (K2
+   only for the figure sweep), the bootstrap shards its replicates — held
+   against the unsharded run of 5c (Table 2 against its QR route at 1.5e-3
+   of ``max(|b|, nw_se)`` and of ``max(|t|, 1)``, its gap to the Gram route
+   logged: in float32 the QR solver's ``eps·N`` cutoff truncates raw-unit
+   columns; the daily vol/beta at 1e-4 of their scale and reported bit for
+   bit, the Boot SEs at 1e-4 relative), and at float64 on
+   240 × 2,000 at the reference's pins (coef rtol 1e-7, t-stat 1e-6); its
+   wall, peak memory, launches and collective counts; the 27-cell sweep
+   with ``FMRP_SPECGRID_MESH=4`` (4 K2 launches, one per shard, for its one
+   contraction; cells at ``SUSPECT_TOL`` of the one-device sweep's); the
+   time-sharded std and sum at w=252 over the tallest daily strip (13,312 ×
+   2,432, 4 K3 launches a call, one gather and one permute) against K1 at
+   K1's tolerance, over distinct cards too where there are several; and
+   ``fama_macbeth_hier`` on Table 2's Model 1 across 2 fresh processes
+   (gloo, 2 virtual shards each) against the one-process FM at 1e-4; plus
+   the per-shard kernel rows (K1 at the mesh's strip shapes, K2 at 600 ×
+   5,500, K3 at 3,328 × 2,432);
 5d. the main path at real size with ``FMRP_SPECGRID_ROUTE=stacked`` (the
    split branch: one batched-QR Fama-MacBeth per cell): launches K1 17, K2
    0, K3 0; the ``table_2``/``figure_cs`` stages, peak memory and
@@ -198,9 +223,10 @@ Phases (any failure exits non-zero without the final line):
    run; its artifact files (``make_figure=False``) held against a CPU
    run's, and every stage checkpoint reloaded into the object it holds.
 
-The masked cumulative moments kernel has no caller on the main path (nor
-in the JAX package it mirrors); its row carries ``"launches": 0`` and says
-so, and phase 3 holds it against its plain version like every other, also
+The masked cumulative moments kernel's caller is the time-sharded rolling
+family (phase 5c'), one launch per time shard: its per-shard row carries
+those launches; its rows at the full shapes carry ``"launches": 0`` and
+say so. Phase 3 holds it against its plain version like every other, also
 on a ragged multi-chunk shape, checks that two launches give the same bits,
 and prints each shape's chunk plan.
 
@@ -257,13 +283,20 @@ from fm_returnprediction_tpu_torch.models.lewellen import FIGURE1_VARS, MODELS, 
 from fm_returnprediction_tpu_torch.ops.fama_macbeth import fama_macbeth
 from fm_returnprediction_tpu_torch.ops.newey_west import compact_front
 from fm_returnprediction_tpu_torch.ops.ols import CSRegressionResult
+from fm_returnprediction_tpu_torch.parallel import mesh as mesh_mod
 from fm_returnprediction_tpu_torch.parallel.bootstrap import (
     block_bootstrap_se,
     draw_block_starts,
     replicate_means_from_starts,
 )
+from fm_returnprediction_tpu_torch.parallel.mesh import make_mesh
+from fm_returnprediction_tpu_torch.parallel.time_sharded import (
+    rolling_std_time_sharded,
+    rolling_sum_time_sharded,
+)
 from fm_returnprediction_tpu_torch.pipeline import load_or_build_panel, run_pipeline
 from fm_returnprediction_tpu_torch.reporting.bootstrap_table import build_bootstrap_table
+from fm_returnprediction_tpu_torch.reporting.table2 import table_2_cells
 from fm_returnprediction_tpu_torch.registry import Registry, warm_from_registry
 from fm_returnprediction_tpu_torch.registry import artifacts as registry_artifacts
 from fm_returnprediction_tpu_torch.registry.integrity import array_bundle_digest
@@ -321,7 +354,8 @@ K2_SOURCE = "fm_returnprediction_tpu_torch/csrc/gram.cu"
 K2_REPLACES = "fm_returnprediction_tpu/ops/gram_pallas.py:120"
 K3_SOURCE = "fm_returnprediction_tpu_torch/csrc/rolling.cu"
 K3_REPLACES = "fm_returnprediction_tpu/ops/pallas_kernels.py:132"
-K3_MAIN_PATH = "no caller in the JAX package"
+K3_MAIN_PATH = ("not launched at this shape: the mesh path's time shards launch K3, "
+                "once per shard (the mesh/moments row)")
 
 
 class SmokeFailure(RuntimeError):
@@ -335,6 +369,30 @@ def check(ok: bool, what: str) -> None:
 
 def log(*parts) -> None:
     print(*parts, flush=True)
+
+
+
+class _env:
+    """Set environment variables for a block (None unsets one) and restore
+    every named variable after it, whatever the block set meanwhile."""
+
+    def __init__(self, **values):
+        self.values = {k: None if v is None else str(v) for k, v in values.items()}
+
+    def __enter__(self):
+        self.saved = {k: os.environ.get(k) for k in self.values}
+        for k, v in self.values.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def worst_of(a: torch.Tensor) -> float:
@@ -1035,13 +1093,10 @@ def slot_phase(base, daily, digests: dict, registry_root: Path) -> None:
         loaded = prepared.load_prepared(slot, fingerprint)
         load_s = time.perf_counter() - start
         check(loaded is not None, "the real-size slot did not load")
-        os.environ["FMRP_PREPARED_VERIFY"] = "1"
-        try:
+        with _env(FMRP_PREPARED_VERIFY=1):
             start = time.perf_counter()
             verified = prepared.load_prepared(slot, fingerprint)
             verify_s = time.perf_counter() - start
-        finally:
-            del os.environ["FMRP_PREPARED_VERIFY"]
         check(verified is not None, "the real-size slot failed its sha256 verification")
         del verified
         log(f"prepared slot at real size: {slot_bytes:,} bytes in {len(files)} files; "
@@ -1370,6 +1425,9 @@ print("EXE-PLANE " + json.dumps({
 # the journaled passes are cut short: every journal event is written and
 # flushed, so they run at ~2k rows/s (PERF.md, Findings)
 FLEET_JOURNALED_ROWS = 8192    # rows of the journaled pass the kill lands in
+# rows of the socket process fleet's pass where the shm fleet quotes every
+# row (the socket transport moves ~1,500 rows/s: 60 s for all 88,157)
+PROCESS_SOCKET_ROWS = 16384
 FLEET_KILL_AT = 3000           # the routed request the kill lands on
 FLEET_CRASH_AT = 2000          # the admitted request the hard crash lands between
 FLEET_RECOVER_ROWS = 4096      # rows the recovered fleet quotes against the bare service
@@ -1698,8 +1756,9 @@ def process_fleet_phase(ref, bare: np.ndarray, registry_root: Path, thread_rates
     fleet of 2 replica processes (each its own CUDA context, warmed from
     the registry) over the socket and, where ``/dev/shm`` fits the rings,
     the shm transport, each quoting every row of the serving phase in the
-    same mixed batches, bit-equal to the bare service, with p50/p99 and
-    rows/s beside the thread fleets'; then a journaled, traced fleet of 2
+    same mixed batches (the socket fleet the first ``PROCESS_SOCKET_ROWS``
+    where the shm fleet runs), bit-equal to the bare service, with p50/p99
+    and rows/s beside the thread fleets'; then a journaled, traced fleet of 2
     with one replica SIGKILLed under load: the supervisor replaces it, the
     journal replays clean, the quotes stay bit-equal, and the card's free
     memory comes back within one replica's share; then the trace merge
@@ -1719,22 +1778,24 @@ def process_fleet_phase(ref, bare: np.ndarray, registry_root: Path, thread_rates
         transports.append("shm")
     log(f"process fleet: {shm_room()}; transports {transports}")
     for transport in transports:
+        n = (min(PROCESS_SOCKET_ROWS, n_rows) if transport == "socket" and len(transports) > 1
+             else n_rows)
         free0 = _device_free()
         start = time.perf_counter()
         fleet = ServingFleet(state, 2, transport=transport, **kw)
         spawn_s = time.perf_counter() - start
         share = (free0 - _device_free()) // 2
         try:
-            got, wall = _fleet_pass(fleet, months, xq)
+            got, wall = _fleet_pass(fleet, months, xq, n)
             p50, p99 = _replica_latency(fleet)
             warm = {r: (w.builds, w.captures) for r, w in fleet.warm_reports.items()}
             st = fleet.stats()
         finally:
             fleet.close()
-        equal = bool(np.array_equal(got, bare, equal_nan=True))
+        equal = bool(np.array_equal(got, bare[:n], equal_nan=True))
         log(f"process fleet of 2 ({transport}): spawned in {spawn_s:.2f} s, "
-            f"{share:,} bytes of the card per replica process; {n_rows} rows in mixed batches "
-            f"in {wall:.3f} s ({n_rows / wall:.0f} rows/s against the thread fleet's "
+            f"{share:,} bytes of the card per replica process; {n} rows in mixed batches "
+            f"in {wall:.3f} s ({n / wall:.0f} rows/s against the thread fleet's "
             f"{thread_rates[2]:.0f} with 2 replicas and {thread_rates[1]:.0f} with 1), worst "
             f"replica p50 {p50:.3f} ms p99 {p99:.3f} ms; transport {st['transport']}; every "
             f"quote bit-equal to the bare service's {equal}; warm reports (builds, captures) "
@@ -1746,10 +1807,8 @@ def process_fleet_phase(ref, bare: np.ndarray, registry_root: Path, thread_rates
 
     with tempfile.TemporaryDirectory() as tmp:
         journal, trace_dir = Path(tmp) / "proc.jsonl", Path(tmp) / "trace"
-        saved = {k: os.environ.get(k) for k in ("FMRP_TELEMETRY", "FMRP_TRACE_DIR")}
-        os.environ["FMRP_TELEMETRY"], os.environ["FMRP_TRACE_DIR"] = "1", str(trace_dir)
         out = {}
-        try:
+        with _env(FMRP_TELEMETRY=1, FMRP_TRACE_DIR=trace_dir):
             with telemetry.tracing(str(trace_dir)):
                 free0 = _device_free()
                 fleet = ServingFleet(state, 2, journal=journal, transport=transports[-1], **kw)
@@ -1780,12 +1839,6 @@ def process_fleet_phase(ref, bare: np.ndarray, registry_root: Path, thread_rates
                 finally:
                     fleet.close()
                 free3 = _device_free()
-        finally:
-            for k, v in saved.items():
-                if v is None:
-                    os.environ.pop(k, None)
-                else:
-                    os.environ[k] = v
         check(not worker.is_alive(), "the kill-under-load pass did not finish")
         replay = replay_journal(journal)
         equal = bool(np.array_equal(out["got"], bare[:FLEET_JOURNALED_ROWS], equal_nan=True))
@@ -2002,11 +2055,8 @@ def specgrid_phase(base, daily) -> dict:
     _k2_pinned("specgrid (guarded, f32)", counts, SPECGRID_LAUNCHES["guarded"])
     runs["guarded"] = counts
 
-    os.environ["FMRP_GRAM_PRECISION"] = "bf16"
-    try:
+    with _env(FMRP_GRAM_PRECISION="bf16"):
         low, wall16, counts16 = counted_run(base, daily, make_specgrid=True)
-    finally:
-        del os.environ["FMRP_GRAM_PRECISION"]
     f16 = low.specgrid_scenarios
     promoted = f16.groupby("cell")["bf16_promoted_months"].first()
     dt = np.abs(f16["tstat"].to_numpy(float) - frame["tstat"].to_numpy(float))
@@ -2076,18 +2126,21 @@ def _held_cell_gap(got: pd.DataFrame, want: pd.DataFrame) -> float:
 def multiproc_phase(res) -> dict:
     """The 27-cell f32 scenario sweep at real size across ``MP_PROCS``
     contraction worker processes (``FMRP_SPECGRID_PROCS``), over the
-    ``frames`` transport and, where ``/dev/shm`` fits the panel, ``shm``:
+    ``shm`` transport where ``/dev/shm`` fits the panel, else ``frames``:
     each worker a fresh interpreter with its own CUDA context, launching K2
     on its 11,000-firm shard, the parent solving the merged stats. The
     build directory starts empty and no registry is armed, so the pool's
-    staggered start shows at most one nvcc build over the workers. Each
+    staggered start shows at most one nvcc build over the workers. The
     run: the wall beside a one-process sweep of the same panel in this
     call, the workers' reports (device, K2 launches, builds), the parent's
     own K2 launches (0), the cells held against the one-process sweep's
-    at ``SUSPECT_TOL``, and the two transports' frames bit-identical; the
-    pool's merged stats for a 9-spec grid against one-process K2 on the
-    full panel at K2's f32 tolerance (1e-5 of each block's max, counts
-    exact). Returns the workers' launches by kernel-table key."""
+    at ``SUSPECT_TOL``; the pool's merged stats for a 9-spec grid against
+    one-process K2 on the full panel at K2's f32 tolerance (1e-5 of each
+    block's max, counts exact). After an ``shm`` sweep the same 9-spec grid
+    goes through the sweep's contraction (``multiproc_grid_stats``) over
+    ``frames``, with the build directory warm: a fresh pool of workers on
+    the card, no nvcc build, the merged stats bit-identical to the shm
+    pool's. Returns the workers' launches by kernel-table key."""
     from fm_returnprediction_tpu_torch.parallel.shm import shm_available
 
     panel, masks, factors = res.panel, res.subset_masks, res.factors_dict
@@ -2098,71 +2151,86 @@ def multiproc_phase(res) -> dict:
     torch.cuda.synchronize()
     one_wall = time.perf_counter() - start
     panel_bytes = t * n * (14 * 4 + 4 + 3)
-    transports = ["frames"] + (["shm"] if shm_available(panel_bytes) else [])
-    log(f"multiproc: {shm_room()}; panel ~{panel_bytes:,} bytes; transports {transports}; "
+    # the whole sweep over one transport: shm where /dev/shm holds the panel
+    # (PR 14 read the two bit-identical, frames 27.36 s against shm 17.11 s;
+    # PERF.md); frames then runs the 9-spec grid
+    transport = "shm" if shm_available(panel_bytes) else "frames"
+    log(f"multiproc: {shm_room()}; panel ~{panel_bytes:,} bytes; the sweep over {transport}; "
         f"the one-process sweep {one_wall:.3f} s")
-    saved = {k: os.environ.get(k) for k in ("FMRP_CUDA_BUILD_DIR", "FMRP_REGISTRY_DIR",
-                                           "FMRP_GRID_TRANSPORT", "FMRP_SPECGRID_PROCS")}
-    frames, out = {}, {}
-    with tempfile.TemporaryDirectory() as build_dir:
-        os.environ["FMRP_CUDA_BUILD_DIR"] = build_dir
-        os.environ.pop("FMRP_REGISTRY_DIR", None)
-        os.environ["FMRP_SPECGRID_PROCS"] = str(MP_PROCS)
+    out = {}
+    with tempfile.TemporaryDirectory() as build_dir, _env(
+            FMRP_CUDA_BUILD_DIR=build_dir, FMRP_REGISTRY_DIR=None,
+            FMRP_GRID_TRANSPORT=transport, FMRP_SPECGRID_PROCS=MP_PROCS):
+        reset_counts()
+        start = time.perf_counter()
         try:
-            for transport in transports:
-                os.environ["FMRP_GRID_TRANSPORT"] = transport
-                reset_counts()
-                start = time.perf_counter()
-                try:
-                    got = run_scenarios(panel, masks, factors)
-                    torch.cuda.synchronize()
-                    wall = time.perf_counter() - start
-                    parent = launch_counts()
-                    workers = dict(multiproc.WORKER_LAUNCHES)
-                    pool = multiproc.cached_pool()
-                    reports, merge_s = list(pool.last_reports), pool.last_merge_s
-                    if transport == transports[0]:
-                        _merged_stats_check()
-                finally:
-                    multiproc._close_cached_pool()
-                builds = sum(r["nvcc_runs"] for r in reports)
-                gap = _held_cell_gap(got, one)
-                log(f"multiproc sweep ({transport}, {MP_PROCS} workers): wall {wall:.3f} s "
-                    f"(one process {one_wall:.3f} s), the last merge {merge_s:.3f} s; parent "
-                    f"launches K1 {parent['k1']} K2 {parent['k2']}; worker K2 launches "
-                    f"{workers}; reports " + json.dumps(reports)
-                    + f"; nvcc builds over the pool {builds}; worst held cell gap to the "
-                    f"one-process sweep {gap:.3e} (tol {SUSPECT_TOL:g})")
-                check_scenario_frame(got, f"multiproc sweep ({transport})", SPECGRID_CELLS)
-                check(parent["k2"] == 0, "the parent launched K2 on the multi-process path")
-                check(len(reports) == MP_PROCS and all(
-                    r["device"].startswith("cuda") and r["launches"] >= 1 for r in reports),
-                      f"a worker did not launch K2 on the card: {reports}")
-                check(builds <= 1, f"{builds} nvcc builds over the pool")
-                check(gap <= SUSPECT_TOL, "the multi-process sweep is off the one-process one")
-                frames[transport] = got
-                out.setdefault(f"gram-worker/P=14,S={ABSORB_SPECS},f32",
-                               workers.get(f"P=14,S={ABSORB_SPECS},f32", 0))
+            got = run_scenarios(panel, masks, factors)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - start
+            parent = launch_counts()
+            workers = dict(multiproc.WORKER_LAUNCHES)
+            pool = multiproc.cached_pool()
+            reports, merge_s = list(pool.last_reports), pool.last_merge_s
+            grid, merged = _merged_stats_check()
         finally:
-            for k, v in saved.items():
-                if v is None:
-                    os.environ.pop(k, None)
-                else:
-                    os.environ[k] = v
-    if len(frames) == 2:
-        same = all(np.array_equal(frames["frames"][c].to_numpy(float),
-                                  frames["shm"][c].to_numpy(float), equal_nan=True)
-                   for c in ("coef", "tstat", "nw_se", "mean_r2", "mean_n"))
-        log(f"multiproc: shm and frames bit-identical {same}")
-        check(same, "the shm and frames sweeps differ")
+            multiproc._close_cached_pool()
+        builds = sum(r["nvcc_runs"] for r in reports)
+        gap = _held_cell_gap(got, one)
+        log(f"multiproc sweep ({transport}, {MP_PROCS} workers): wall {wall:.3f} s "
+            f"(one process {one_wall:.3f} s), the last merge {merge_s:.3f} s; parent "
+            f"launches K1 {parent['k1']} K2 {parent['k2']}; worker K2 launches "
+            f"{workers}; reports " + json.dumps(reports)
+            + f"; nvcc builds over the pool {builds}; worst held cell gap to the "
+            f"one-process sweep {gap:.3e} (tol {SUSPECT_TOL:g})")
+        check_scenario_frame(got, f"multiproc sweep ({transport})", SPECGRID_CELLS)
+        check(parent["k2"] == 0, "the parent launched K2 on the multi-process path")
+        _check_worker_reports(reports)
+        check(builds <= 1, f"{builds} nvcc builds over the pool")
+        check(gap <= SUSPECT_TOL, "the multi-process sweep is off the one-process one")
+        out[f"gram-worker/P=14,S={ABSORB_SPECS},f32"] = workers.get(
+            f"P=14,S={ABSORB_SPECS},f32", 0)
+        if transport == "shm":
+            os.environ["FMRP_GRID_TRANSPORT"] = "frames"
+            reset_counts()
+            start = time.perf_counter()
+            try:
+                frames = multiproc.multiproc_grid_stats(*grid[:-1], procs=MP_PROCS,
+                                                        row_weights=grid[-1], device="cuda")
+                frames_wall = time.perf_counter() - start
+                pool = multiproc.cached_pool()
+                reports, kind = list(pool.last_reports), pool.transport
+            finally:
+                multiproc._close_cached_pool()
+            parent = launch_counts()
+            builds = sum(r["nvcc_runs"] for r in reports)
+            same = all(np.array_equal(a, b, equal_nan=True) for a, b in zip(frames, merged))
+            log(f"multiproc 9-spec grid over {kind} ({MP_PROCS} workers, warm build "
+                f"directory): spawn, ship and contract {frames_wall:.3f} s; parent K2 "
+                f"launches {parent['k2']}; worker K2 launches "
+                f"{dict(multiproc.WORKER_LAUNCHES)}; reports " + json.dumps(reports)
+                + f"; nvcc builds {builds}; merged stats bit-identical to the shm pool's "
+                f"{same}")
+            check(kind == "frames", f"the 9-spec grid ran over {kind}")
+            check(parent["k2"] == 0, "the parent launched K2 on the frames pass")
+            _check_worker_reports(reports)
+            check(builds == 0, f"{builds} nvcc builds over a warm build directory")
+            check(same, "the shm and frames pools' merged stats differ")
     torch.cuda.empty_cache()
     return out
 
 
-def _merged_stats_check() -> None:
+def _check_worker_reports(reports) -> None:
+    check(len(reports) == MP_PROCS and all(
+        r["device"].startswith("cuda") and r["launches"] >= 1 for r in reports),
+          f"a worker did not launch K2 on the card: {reports}")
+
+
+def _merged_stats_check() -> tuple:
     """The cached pool's merged stats for a 9-spec grid (3 universes × 3
-    column sets, every month) against one-process K2 on the full panel."""
-    _key, (y, x, unis, _rw), pool = multiproc._POOL_CACHE
+    column sets, every month) against one-process K2 on the full panel.
+    Returns the grid as ``multiproc_grid_stats``' arguments (the pool's own
+    panel objects, its row weights last) and the merged stats."""
+    _key, (y, x, unis, rw), pool = multiproc._POOL_CACHE
     p = x.shape[-1]
     uidx = np.arange(9) % len(unis)
     col_sel = np.zeros((9, p), bool)
@@ -2183,6 +2251,7 @@ def _merged_stats_check() -> None:
         f"one-process K2: worst_rel_to_block_max {worst:.3e} (tol 1e-5), max_abs "
         f"{max_abs:.3e}, counts exact {counts_exact}, center max |diff| {center_gap:.3e}")
     check(worst <= 1e-5 and counts_exact, "the merged stats are off one-process K2")
+    return (y, x, unis, uidx, col_sel, window, rw), merged
 
 
 def _cell_diffs(got: dict, ref: dict):
@@ -2478,13 +2547,13 @@ BOOT_CPU_REPLICATES = 2_000
 BOOT_COLUMNS = ["Slope", "Boot SE", "t (boot)", "t (NW)"]
 
 
-def bootstrap_phase(base, daily) -> None:
+def bootstrap_phase(base, daily):
     """The bootstrap-SE table at real size through
     ``run_pipeline(make_bootstrap=True)`` (B = 10,000): the stage's wall and
     peak device memory, launches as the main path's (the table adds no
     kernel), a finite positive Boot SE in every Model 1 cell, and a second
     ``build_bootstrap_table`` with the same seed bit-identical to the
-    run's."""
+    run's. Returns the run (the unsharded reference of ``mesh_phase``)."""
     res, wall, counts = counted_run(base, daily, make_bootstrap=True,
                                     bootstrap_replicates=BOOT_REPLICATES)
     table = res.bootstrap_table
@@ -2512,8 +2581,330 @@ def bootstrap_phase(base, daily) -> None:
     log(f"bootstrap table again with the same seed: {again_s:.4f} s, peak device memory "
         f"above the resident panel {peak:.3f} GiB; bit-identical {again.equals(table)}")
     check(again.equals(table), "two bootstrap tables with one seed differ")
-    del res, again
+    del again
     torch.cuda.empty_cache()
+    return res
+
+
+# --- the device mesh -----------------------------------------------------------
+
+MESH_SHARDS = 4                       # virtual shards on the one card
+# TSQR vs the unsharded QR route, f32, coef at max(|b|, nw_se) and t at
+# max(|t|, 1): two solve routes of one f32 panel, held as the stacked route
+# is (STACKED_TOL). Both keep singular values down to the QR cutoff eps·N
+# (2.6e-3 of the largest), so f32 rounding reaches ~1/cutoff·eps32 of scale
+MESH_F32_TOL = 1.5e-3
+MESH_F64_FIRMS, MESH_F64_MONTHS = 2000, 240
+MESH_BOOT_TOL = 1e-4                  # bootstrap SEs, f32, relative
+TIME_SHARDED = (13312, 2432, 252, 100)  # the tallest daily strip; window, min_periods
+HIER_PROCS = 2
+HIER_F32_TOL = 1e-4                   # the f32 parity budget, Model 1's three predictors
+HIER_CHILD = """
+import sys, time
+t0 = time.perf_counter()
+import numpy as np
+import torch
+from fm_returnprediction_tpu_torch.parallel import fama_macbeth_hier, initialize_multihost
+from fm_returnprediction_tpu_torch.parallel import make_mesh_2d
+from fm_returnprediction_tpu_torch.parallel import mesh as M
+rank, port, tmp = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+assert initialize_multihost(f"127.0.0.1:{port}", 2, rank) == (rank, 2)
+backend = torch.distributed.get_backend()
+data = np.load(tmp + "/model1.npz")
+y, x, mask = (torch.from_numpy(data[k]).cuda() for k in ("y", "x", "mask"))
+mesh = make_mesh_2d(device="cuda")
+torch.cuda.synchronize()
+t1 = time.perf_counter()
+cs, fm = fama_macbeth_hier(y, x, mask, mesh=mesh)
+torch.cuda.synchronize()
+t2 = time.perf_counter()
+np.savez(tmp + f"/rank{rank}.npz", coef=fm.coef.cpu().numpy(), tstat=fm.tstat.cpu().numpy(),
+         nw_se=fm.nw_se.cpu().numpy(), month_valid=cs.month_valid.cpu().numpy(),
+         seconds=np.array([t1 - t0, t2 - t1]), processes=mesh.processes,
+         devices=np.array([str(d) for d in mesh.devices.flat]), backend=np.array(backend),
+         collectives=np.array(sorted(f"{k}:{v}" for k, v in M.collective_counts().items())))
+blocked = [m for m in sys.modules if m.split(".")[0] in ("jax", "fm_returnprediction_tpu")]
+assert not blocked, blocked
+torch.distributed.destroy_process_group()
+"""
+
+
+def _collective_delta(before: dict) -> dict:
+    after = mesh_mod.collective_counts()
+    return {f"{kind}/{axis}": n - before.get((kind, axis), 0)
+            for (kind, axis), n in sorted(after.items()) if n != before.get((kind, axis), 0)}
+
+
+def _cells_gap(got: dict, want: dict) -> tuple:
+    """Table 2 cells: the worst coef gap at ``max(|b|, nw_se)`` and t-stat
+    gap at ``max(|t|, 1)``, NaN patterns checked equal."""
+    coef_gap = tstat_gap = 0.0
+    for key, w in want.items():
+        g = got[key]
+        for name in ("coef", "tstat"):
+            check(bool(np.array_equal(np.isnan(g[name]), np.isnan(w[name]))),
+                  f"{key} {name}: NaN patterns differ")
+        coef_gap = max(coef_gap, float(np.nanmax(np.abs(g["coef"] - w["coef"])
+                                                 / np.fmax(np.abs(w["coef"]), w["nw_se"]))))
+        tstat_gap = max(tstat_gap, float(np.nanmax(np.abs(g["tstat"] - w["tstat"])
+                                                   / np.fmax(np.abs(w["tstat"]), 1.0))))
+    return coef_gap, tstat_gap
+
+
+def _held_to_k1(got, x, window: int, mp: int, kind: str, label: str) -> float:
+    """A rolling result held against the rolling kernel on the same input at
+    K1's tolerance (``rolling_tolerance``); returns the worst ratio."""
+    want = rolling_reduce_cuda(x, window, mp, kind)
+    atol, rel = rolling_tolerance(x, kind, window, 1e-4)
+    fin = torch.isfinite(want)
+    check(bool((torch.isnan(got) == torch.isnan(want)).all()), f"{label}: NaN pattern")
+    diff = torch.where(fin, (got - want).abs(), torch.zeros_like(want))
+    limit = (rel * want.abs() + atol).clamp_min(torch.finfo(x.dtype).tiny)
+    ratio = float(torch.where(fin, diff / limit, torch.zeros_like(diff)).max())
+    log(f"{label}: against K1 max_abs={float(diff.max()):.3e} tol=|d|<=1e-4*|p|+{{4eps*C}} "
+        f"worst_ratio={ratio:.3f}")
+    check(ratio <= 1.0, f"{label}: beyond K1's tolerance")
+    return ratio
+
+
+def _mesh_main_path(base, daily, ref) -> dict:
+    """``run_pipeline(use_mesh=True)`` at real size with ``MESH_DEVICES=4``
+    and the bootstrap at B = 10,000, against the unsharded run ``ref``;
+    then the float64 pins at 240 × 2,000. Returns the launches."""
+    torch.cuda.reset_peak_memory_stats()
+    before = mesh_mod.collective_counts()
+    with _env(MESH_DEVICES=MESH_SHARDS):
+        res, wall, counts = counted_run(base, daily, make_bootstrap=True,
+                                        bootstrap_replicates=BOOT_REPLICATES)
+    collectives = _collective_delta(before)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    strips = {k: v for k, v in counts.items() if STRIP_KEY.match(k)}
+    log(f"mesh main path ({MESH_SHARDS} shards): wall {wall:.3f} s; peak device memory "
+        f"{peak:.3f} GiB; stages (s) "
+        + json.dumps({k: round(v, 4) for k, v in res.stage_seconds.items()}))
+    log(f"mesh main path launches: K1 {counts['k1']} (daily strips by shard shape {strips}), "
+        f"K2 {counts['k2']} {dict(gram_contract_cuda.launches_by_key)}, K3 "
+        f"{counts['moments']}; collectives {collectives}")
+    check_main_path_result(res)
+    check(strips and all(v % MESH_SHARDS == 0 for v in strips.values()),
+          f"the mesh's daily strips did not launch K1 once per shard: {strips}")
+    check(counts["k2"] == 1, f"the mesh path launched K2 {counts['k2']} times (Table 2 runs "
+          "TSQR; the figure sweep one Gram launch)")
+    check(collectives.get("all_gather/firms") == 9 and collectives.get("psum/boot") == 9,
+          f"mesh collectives {collectives}")
+    # the mesh's Table 2 is distributed TSQR with the QR solver's rcond =
+    # eps·N (the reference's): its unsharded counterpart is the QR route
+    # (route="stacked"); in f32 both sit far from the Gram route's
+    # equilibrated eigh solve, logged beside
+    qr_cells = table_2_cells(ref.panel, ref.subset_masks, ref.factors_dict, route="stacked")
+    coef_gap, tstat_gap = _cells_gap(res.table_2_cells, qr_cells)
+    gram_coef_gap, gram_tstat_gap = _cells_gap(res.table_2_cells, ref.table_2_cells)
+    qr_gram = _cells_gap(qr_cells, ref.table_2_cells)
+    daily_same = {}
+    for col in ("rolling_std_252", "beta"):
+        a, b = res.panel.var(col), ref.panel.var(col)
+        daily_same[col] = bool(torch.equal(torch.nan_to_num(a, 7.0), torch.nan_to_num(b, 7.0)))
+        same_nan = bool((a.isnan() == b.isnan()).all())
+        fin = torch.isfinite(b)
+        d = float(torch.where(fin, (a - b).abs(), torch.zeros_like(b)).max())
+        scale = float(b[fin].abs().max())
+        check(same_nan and d <= 1e-4 * scale, f"mesh {col}: {d:.3e} beyond 1e-4 of {scale:.3e}")
+    g = res.bootstrap_table.xs("Boot SE", axis=1, level=1).to_numpy(float)
+    w = ref.bootstrap_table.xs("Boot SE", axis=1, level=1).to_numpy(float)
+    check(bool(np.array_equal(np.isnan(g), np.isnan(w))), "mesh bootstrap: NaN pattern")
+    boot_gap = float(np.nanmax(np.abs(g - w) / np.abs(w)))
+    log(f"mesh vs unsharded (f32): Table 2 (TSQR) against the unsharded QR route coef gap "
+        f"{coef_gap:.3e} of max(|b|, nw_se), t-stat {tstat_gap:.3e} of max(|t|, 1) (tol "
+        f"{MESH_F32_TOL:g}); against the Gram route (eigh) coef {gram_coef_gap:.3e}, t-stat "
+        f"{gram_tstat_gap:.3e}, where the unsharded QR route itself sits at coef "
+        f"{qr_gram[0]:.3e}, t-stat {qr_gram[1]:.3e}; daily vol/beta bit-identical "
+        f"{daily_same}; Boot SE worst rel diff {boot_gap:.3e} (tol {MESH_BOOT_TOL:g}); "
+        f"bootstrap_table stage {res.stage_seconds['bootstrap_table']:.4f} s vs "
+        f"{ref.stage_seconds['bootstrap_table']:.4f} s unsharded")
+    check(coef_gap <= MESH_F32_TOL and tstat_gap <= MESH_F32_TOL,
+          f"mesh Table 2 beyond {MESH_F32_TOL:g} of the unsharded QR route")
+    check(boot_gap <= MESH_BOOT_TOL, "mesh bootstrap SEs beyond tolerance")
+    del res
+
+    b64, d64 = make_smoke_inputs(n_firms=MESH_F64_FIRMS, n_months=MESH_F64_MONTHS,
+                                 dtype=np.float64)
+    kw = dict(device="cuda", dtype=torch.float64, make_figure=False, make_deciles=False,
+              make_serving=False)
+    one = run_pipeline(b64, d64, **kw)
+    with _env(MESH_DEVICES=MESH_SHARDS):
+        meshed = run_pipeline(b64, d64, **kw)
+    worst = {"coef": 0.0, "tstat": 0.0}
+    for key, want in one.table_2_cells.items():
+        got = meshed.table_2_cells[key]
+        for name, rtol, atol in (("coef", 1e-7, 1e-10), ("tstat", 1e-6, 1e-9)):
+            check(bool(np.array_equal(np.isnan(got[name]), np.isnan(want[name]))),
+                  f"f64 mesh {key} {name}: NaN pattern")
+            worst[name] = max(worst[name], float(np.nanmax(
+                np.abs(got[name] - want[name]) / (atol + rtol * np.abs(want[name])))))
+    check(max(worst.values()) <= 1.0, f"f64 mesh Table 2 beyond the reference's pins {worst}")
+    log(f"mesh vs unsharded at float64 ({MESH_F64_MONTHS} x {MESH_F64_FIRMS}): Table 2 worst "
+        f"|d| / (atol + rtol·|b|) coef {worst['coef']:.3e} (rtol 1e-7, atol 1e-10), t-stat "
+        f"{worst['tstat']:.3e} (rtol 1e-6, atol 1e-9); formatted tables equal "
+        f"{meshed.table_2.equals(one.table_2)}")
+    del one, meshed
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _mesh_sweep(ref, gen) -> tuple:
+    """The 27-cell f32 sweep with ``FMRP_SPECGRID_MESH=4`` against the
+    one-device sweep: 4 K2 launches for the one contraction, the cells at
+    ``SUSPECT_TOL``. Returns (launches, the per-shard K2 row)."""
+    panel, masks, factors = ref.panel, ref.subset_masks, ref.factors_dict
+    one = run_scenarios(panel, masks, factors)
+    before = mesh_mod.collective_counts()
+    with _env(FMRP_SPECGRID_MESH=MESH_SHARDS):
+        reset_counts()
+        start = time.perf_counter()
+        got, stats = run_scenarios(panel, masks, factors, return_stats=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+        counts = launch_counts()
+    gap = _held_cell_gap(got, one)
+    by_key = dict(gram_contract_cuda.launches_by_key)
+    log(f"mesh sweep ({MESH_SHARDS} shards): wall {wall:.3f} s; K2 {counts['k2']} {by_key}; "
+        f"collectives {_collective_delta(before)}; factorize {stats['gram_factorize']}; worst "
+        f"held cell gap to the one-device sweep {gap:.3e} (tol {SUSPECT_TOL:g})")
+    check_scenario_frame(got, "mesh sweep", SPECGRID_CELLS)
+    check(by_key == {f"P=14,S={ABSORB_SPECS},f32": MESH_SHARDS},
+          f"the mesh sweep did not launch K2 once per shard: {by_key}")
+    check(gap <= SUSPECT_TOL, "the mesh sweep is off the one-device sweep")
+    n_local = -(-panel.values.shape[1] // MESH_SHARDS)
+    row = check_gram(600, n_local, 14, torch.float32, 1e-5, gen, True, specs=ABSORB_SPECS,
+                     key_prefix="mesh/gram-shard")
+    return {row["key"]: by_key[f"P=14,S={ABSORB_SPECS},f32"]}, row
+
+
+def _mesh_time_sharded(gen) -> tuple:
+    """std and sum at w=252 over the tallest daily strip on 4 time shards:
+    4 K3 launches a call, one ``all_gather`` and one ``ppermute`` each,
+    held against K1 on the whole strip. Returns (launches, the per-shard
+    K3 row)."""
+    t, n, window, mp = TIME_SHARDED
+    x = rolling_input(t, n, torch.float32, gen, 0.02, 0.005)
+    meshes = [("virtual", make_mesh(MESH_SHARDS, axis_name="time", device="cuda"))]
+    if torch.cuda.device_count() > 1:
+        with _env(FMRP_VIRTUAL_DEVICES=1):
+            meshes.append(("distinct cards", make_mesh(
+                min(MESH_SHARDS, torch.cuda.device_count()), axis_name="time", device="cuda")))
+    else:
+        log("mesh: one card, so the shards are virtual (FMRP_VIRTUAL_DEVICES) and time "
+            "the sharded programs' overhead, not a multi-card speedup")
+    launches = 0
+    for label, mesh in meshes:
+        for kind, fn in (("std", rolling_std_time_sharded), ("sum", rolling_sum_time_sharded)):
+            before = mesh_mod.collective_counts()
+            reset_counts()
+            got = fn(x, window, mp, mesh=mesh)
+            torch.cuda.synchronize()
+            k3 = masked_cumulative_moments_cuda.launches
+            delta = _collective_delta(before)
+            ms = time_ms(lambda: fn(x, window, mp, mesh=mesh), reps=3)
+            log(f"time-sharded {kind} w={window} {t}x{n} f32 on {mesh.size} {label} shards: K3 "
+                f"launches {k3}, collectives {delta}, {ms:.4f} ms a call")
+            check(k3 == mesh.size, f"time-sharded {kind}: {k3} K3 launches, not {mesh.size}")
+            check(delta == {"all_gather/time": 1, "ppermute/time": 1},
+                  f"time-sharded {kind}: collectives {delta}")
+            _held_to_k1(got, x, window, mp, kind, f"time-sharded {kind} ({label})")
+            if label == "virtual":
+                launches += k3
+    shard = x[: t // MESH_SHARDS].contiguous()
+    row = check_moments(shard, 1e-4, f"{t // MESH_SHARDS}x{n} float32 (one time shard)", True)
+    row.pop("main_path")
+    row["key"] = f"mesh/moments/{t // MESH_SHARDS}x{n}"
+    del x, shard
+    torch.cuda.empty_cache()
+    return {row["key"]: launches}, row
+
+
+def _mesh_hierarchy(ref) -> None:
+    """Table 2's Model 1 ("All stocks") by ``fama_macbeth_hier`` across
+    ``HIER_PROCS`` fresh processes on the card (gloo, 2 virtual shards each,
+    a (2, 2) mesh), against the one-process unsharded FM at the f32 parity
+    budget."""
+    from fm_returnprediction_tpu_torch.parallel.distributed import free_port
+
+    model = MODELS[0]
+    y = ref.panel.var("retx")
+    x = ref.panel.select(model_columns(model, ref.factors_dict))
+    mask = ref.subset_masks["All stocks"]
+    _, want = fama_macbeth(y, x, mask)
+    with tempfile.TemporaryDirectory() as tmp:
+        np.savez(Path(tmp) / "model1.npz", y=y.cpu().numpy(), x=x.cpu().numpy(),
+                 mask=mask.cpu().numpy())
+        port = free_port()
+        env = dict(os.environ, FMRP_VIRTUAL_DEVICES="2",
+                   PYTHONPATH=os.pathsep.join(
+                       [p for p in (os.environ.get("PYTHONPATH"), str(Path(__file__).parent))
+                        if p]))
+        start = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, "-c", HIER_CHILD, str(r), str(port), tmp],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                                  env=env) for r in range(HIER_PROCS)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=240)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - start
+        check([p.returncode for p in procs] == [0] * HIER_PROCS,
+              "the hierarchy ranks failed:\n" + "\n---\n".join(o[-3000:] for o in outs))
+        got = [dict(np.load(Path(tmp) / f"rank{r}.npz")) for r in range(HIER_PROCS)]
+    w = {k: getattr(want, k).cpu().numpy() for k in ("coef", "tstat", "nw_se")}
+    coef_gap = max(float(np.nanmax(np.abs(g["coef"] - w["coef"])
+                                   / np.fmax(np.abs(w["coef"]), w["nw_se"]))) for g in got)
+    tstat_gap = max(float(np.nanmax(np.abs(g["tstat"] - w["tstat"])
+                                    / np.fmax(np.abs(w["tstat"]), 1.0))) for g in got)
+    same = all(np.array_equal(got[0][k], got[1][k]) for k in ("coef", "tstat"))
+    log(f"hierarchy across {HIER_PROCS} processes ({model.name}, All stocks, f32, backend "
+        f"{got[0]['backend']}, mesh rows by process {got[0]['processes'].tolist()}, devices "
+        f"{got[0]['devices'].tolist()}): wall {wall:.3f} s with the spawns; per rank start to "
+        f"mesh {[round(float(g['seconds'][0]), 3) for g in got]} s, run "
+        f"{[round(float(g['seconds'][1]), 4) for g in got]} s; collectives "
+        f"{got[0]['collectives'].tolist()}; ranks bit-identical {same}; coef gap {coef_gap:.3e} "
+        f"of max(|b|, nw_se), t-stat {tstat_gap:.3e} (tol {HIER_F32_TOL:g})")
+    check(same, "the hierarchy's ranks differ")
+    check(coef_gap <= HIER_F32_TOL and tstat_gap <= HIER_F32_TOL,
+          "the hierarchy is beyond the f32 parity budget")
+
+
+def mesh_phase(base, daily, ref, gen) -> tuple:
+    """The device mesh at real size on 4 virtual shards of the card
+    (``FMRP_VIRTUAL_DEVICES=4``): the sharded main path with the bootstrap,
+    the mesh spec grid, the time-sharded rolling family and the hierarchy
+    across two processes. Returns (launches by kernel-table key, the
+    per-shard kernel rows)."""
+    with _env(FMRP_VIRTUAL_DEVICES=MESH_SHARDS):
+        counts = _mesh_main_path(base, daily, ref)
+        launches = {f"mesh/{k}": v for k, v in counts.items() if STRIP_KEY.match(k)}
+        sweep, k2_row = _mesh_sweep(ref, gen)
+        moments, k3_row = _mesh_time_sharded(gen)
+    _mesh_hierarchy(ref)
+    launches.update(sweep)
+    launches.update(moments)
+    rows = []
+    for key, count in sorted(launches.items()):
+        match = STRIP_KEY.match(key[len("mesh/"):])
+        if match:
+            window, t, n = (int(v) for v in match.groups())
+            x = rolling_input(t, n, torch.float32, gen, 0.02, 0.005)
+            label = f"std w={window} mp=100 (daily strip, one mesh shard) {t}x{n} float32"
+            row = k1_row(x, window, 100, "std", check_rolling(x, window, 100, "std", 1e-4, label),
+                         label)
+            row["key"] = key
+            rows.append(row)
+            del x
+    torch.cuda.empty_cache()
+    return launches, rows + [k2_row, k3_row]
 
 
 def _boot_vs_cpu(gpu, cpu) -> None:
@@ -2612,16 +3003,13 @@ def _gap_text(t2: float, worst: dict) -> str:
 def _stacked_run(base, daily, dtype):
     """One counted main-path run on ``FMRP_SPECGRID_ROUTE=stacked``:
     (result, wall s, launches, peak GiB)."""
-    os.environ["FMRP_SPECGRID_ROUTE"] = "stacked"
     torch.cuda.reset_peak_memory_stats()
-    try:
+    with _env(FMRP_SPECGRID_ROUTE="stacked"):
         reset_counts()
         start = time.perf_counter()
         res = run_pipeline(base, daily, device="cuda", dtype=dtype)
         wall = time.perf_counter() - start
         counts = launch_counts()
-    finally:
-        del os.environ["FMRP_SPECGRID_ROUTE"]
     return res, wall, {k: counts[k] for k in STACKED_LAUNCHES}, \
         torch.cuda.max_memory_allocated() / 2**30
 
@@ -3725,9 +4113,7 @@ def ingest_pairs_phase(raw: Path) -> None:
     between its quartiles and the pairs the columnar route won."""
     times = {"columnar": [], "legacy": []}
     won = 0
-    saved = {k: os.environ.get(k) for k in ("FMRP_PANEL_ROUTE", "PREPARED_CACHE")}
-    try:
-        os.environ["PREPARED_CACHE"] = "0"
+    with _env(FMRP_PANEL_ROUTE=None, PREPARED_CACHE=0):
         for i in range(INGEST_PAIRS):
             pair = {}
             for route in (("columnar", "legacy") if i % 2 == 0 else ("legacy", "columnar")):
@@ -3737,12 +4123,6 @@ def ingest_pairs_phase(raw: Path) -> None:
                 pair[route] = host_ingest_seconds(timer.durations)
                 times[route].append(pair[route])
             won += pair["columnar"] < pair["legacy"]
-    finally:
-        for k, v in saved.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
     summary = {route: {"median": float(np.median(t)),
                        "quartile_spread": float(np.subtract(*np.percentile(t, [75, 25]))),
                        "runs": t} for route, t in times.items()}
@@ -3933,12 +4313,15 @@ def main(argv=None) -> int:
     path_counts = {"main": counts, **sweep_counts}
     path_counts["multiproc"] = phase_timed("multiproc_phase", multiproc_phase, sweep_res)
     del sweep_res
-    phase_timed("bootstrap_phase", bootstrap_phase, base, daily)
+    boot_ref = phase_timed("bootstrap_phase", bootstrap_phase, base, daily)
+    path_counts["mesh"], mesh_rows = phase_timed("mesh_phase", mesh_phase, base, daily,
+                                                 boot_ref, gen)
+    del boot_ref
     path_counts["backtest"] = phase_timed("backtest_phase", backtest_phase, base, daily)
     path_counts["estimators"] = phase_timed("estimators_phase", estimators_phase, base, daily)
     phase_timed("stacked_phase", stacked_phase, base, daily, gram_frames)
     del base, daily
-    rows += phase_timed("strip_phase", strip_phase, gen, counts)
+    rows += phase_timed("strip_phase", strip_phase, gen, counts) + mesh_rows
     phase_timed("card_vs_cpu", card_vs_cpu, args.seed)
     phase_timed("ingest_vs_cpu", ingest_vs_cpu)
     phase_timed("cli_phase", cli_phase)
@@ -3960,10 +4343,11 @@ def main(argv=None) -> int:
         key = row.pop("key")
         # the scenario sweep's K2 shapes are launched by its runs, the rest
         # by the main path; Table 2's shape adds the backtest run's launches
-        row["launches"] = sum(path_counts[p].get(key, 0) for p in ROW_PATH.get(key, ("main",)))
+        paths = ROW_PATH.get(key, ("mesh",) if key.startswith("mesh/") else ("main",))
+        row["launches"] = sum(path_counts[p].get(key, 0) for p in paths)
         if row.get("main_path") == K3_MAIN_PATH:
             check(row["launches"] == 0, f"{row['name']}: launched on the main path, "
-                  "which has no caller of it")
+                  "which does not call it at this shape")
             continue
         check(row["launches"] > 0, f"{row['name']} was not launched on the main path")
     print(json.dumps({"kernels": rows}))

@@ -27,9 +27,11 @@ from __future__ import annotations
 
 import torch
 
-from fm_returnprediction_tpu_torch.ops.rolling import windowed_sum
+from fm_returnprediction_tpu_torch.ops.compaction import compact, make_compaction, scatter_back
+from fm_returnprediction_tpu_torch.ops.rolling import rolling_std, windowed_sum
 
 __all__ = [
+    "rolling_vol_252_monthly",
     "last_obs_per_month",
     "segment_sum",
     "weekly_partial_sums",
@@ -74,6 +76,21 @@ def last_obs_per_month(
     last = last[:n_months]
     picked = torch.gather(values, 0, torch.clamp_min(last, 0))
     return torch.where(last >= 0, picked, torch.full_like(picked, float("nan")))
+
+
+def rolling_vol_252_monthly(ret_d, mask_d, month_id, n_months: int, window: int = 252,
+                            min_periods: int = 100) -> torch.Tensor:
+    """Annualized ``window``-row rolling std of daily returns (pandas' per-firm
+    ROW window: each firm's present rows compacted to the front), sampled
+    at each firm-month's last present day; (n_months, N) from the dense
+    (D, N) layout. The roll is ``rolling_std``: the rolling kernel on a CUDA
+    tensor."""
+    plan = make_compaction(mask_d)
+    comp_ret = torch.where(plan.valid, compact(ret_d, plan),
+                           torch.full_like(ret_d, float("nan")))
+    scale = torch.sqrt(torch.tensor(float(window), dtype=ret_d.dtype, device=ret_d.device))
+    vol = rolling_std(comp_ret, window, min_periods) * scale
+    return last_obs_per_month(scatter_back(vol, plan), mask_d, month_id, n_months)
 
 
 def weekly_partial_sums(ret_d, mask_d, mkt_d, week_lengths, mkt_present=None):

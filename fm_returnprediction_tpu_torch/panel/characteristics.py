@@ -185,6 +185,8 @@ def get_factors(
     device=None,
     include_turnover: bool = False,
     timer: Optional[StageTimer] = None,
+    mesh=None,
+    firm_chunk=None,
 ) -> Tuple[DensePanel, Dict[str, str]]:
     """All 15 characteristics from the prepared inputs, winsorized; returns
     the enriched panel (values a tensor on ``device``) and the display-name
@@ -192,9 +194,23 @@ def get_factors(
 
     ``dense_base`` is the dense base panel over BASE_COLUMNS (+ ``vol`` with
     ``include_turnover``); ``compact_daily`` the compacted daily strips,
-    whose month vocabulary must be the panel's months.
+    whose month vocabulary must be the panel's months. With a ``mesh`` the
+    daily strips shard over its devices (``ops.daily_chunked``): a 2-D
+    months × firms mesh flattens to one firm axis (the daily steps need no
+    collective, and splitting months too would repeat the same work), and
+    a mesh across processes takes this process's devices. ``firm_chunk``
+    sets the one-device strip width and refuses a mesh.
     """
+    if mesh is not None and firm_chunk is not None:
+        raise ValueError(
+            "firm_chunk applies only to the single-device compact path; the mesh "
+            "path shards the full firm axis (pass one or the other)")
     device = resolve_device(device)
+    daily_mesh = None
+    if mesh is not None:
+        from fm_returnprediction_tpu_torch.parallel.mesh import make_mesh
+
+        daily_mesh = make_mesh(axis_name="firms", devices=mesh.local_devices())
     timer = timer or StageTimer(device)
     panel = dense_base
     base_columns = list(BASE_COLUMNS)
@@ -215,6 +231,7 @@ def get_factors(
             cd.row_values, cd.row_pos, cd.offsets, cd.mkt, cd.mkt_present,
             cd.day_month_id, cd.week_id, cd.week_month_id,
             cd.n_days, cd.n_weeks, cd.n_months, device=device, dtype=dtype,
+            firm_chunk=firm_chunk, mesh=daily_mesh,
         )
     with timer.stage("factors/daily_merge"):
         # left-merge the daily firm columns onto the monthly permno vocabulary

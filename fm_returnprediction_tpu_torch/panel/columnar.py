@@ -446,6 +446,7 @@ def build_panel_columnar(
     include_turnover: bool = False,
     timer: Optional[StageTimer] = None,
     capture: Optional[dict] = None,
+    mesh=None,
 ) -> Tuple[DensePanel, Dict[str, str]]:
     """Raw parquet directory → enriched characteristic panel by the columnar
     route: the counterpart of ``pipeline.load_raw_data`` +
@@ -464,4 +465,4 @@ def build_panel_columnar(
         if capture is not None:
             capture["dense_base"], capture["compact_daily"] = base, cd
         return get_factors(base, cd, dtype=dtype, device=device,
-                           include_turnover=include_turnover, timer=timer)
+                           include_turnover=include_turnover, timer=timer, mesh=mesh)

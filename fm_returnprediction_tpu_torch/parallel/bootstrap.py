@@ -32,8 +32,14 @@ predictor of a replicate maps the same uniform draws onto its own range
 
 Replicates are gathered in chunks of at most ``REPLICATE_CHUNK_ELEMENTS``
 gathered values, and the chunks' moment sums are added in chunk order, so
-a repeated call is bit-identical. The mesh route (replicates sharded over
-devices) is not ported yet (ROADMAP A8b).
+a repeated call is bit-identical.
+
+With a ``mesh`` the replicates shard over its ``axis_name`` axis: the same
+CPU draws are split by replicate into one contiguous range per shard, each
+shard sums the moments of its range on its device, and one rank-ordered
+``psum`` of 2·P values combines them. B is not rounded up to a multiple of
+the shard count (the reference rounds it up), so a result depends on the
+seed and not on the mesh, up to rounding.
 """
 
 from __future__ import annotations
@@ -43,6 +49,7 @@ from typing import NamedTuple
 import torch
 
 from fm_returnprediction_tpu_torch.ops.newey_west import compact_front
+from fm_returnprediction_tpu_torch.parallel.mesh import psum
 
 __all__ = [
     "BootstrapResult",
@@ -116,20 +123,34 @@ def bootstrap_replicate_means(slopes: torch.Tensor, slope_valid: torch.Tensor,
     return replicate_means_from_starts(series, counts, starts, block_length)
 
 
+def _moment_sums(series, counts, starts, pilot, block_length: int):
+    """``(Σd, Σd²)`` over the replicates of ``starts``, ``d`` = replicate
+    mean − pilot, in chunks of at most ``REPLICATE_CHUNK_ELEMENTS``
+    gathered values added in chunk order."""
+    p, t = series.shape
+    s1 = torch.zeros_like(pilot)
+    s2 = torch.zeros_like(pilot)
+    chunk = max(1, REPLICATE_CHUNK_ELEMENTS // max(p * t, 1))
+    for lo in range(0, starts.shape[0], chunk):
+        means = replicate_means_from_starts(series, counts, starts[lo:lo + chunk], block_length)
+        d = means - pilot[None, :]
+        s1 = s1 + d.sum(dim=0)
+        s2 = s2 + (d * d).sum(dim=0)
+    return s1, s2
+
+
 def block_bootstrap_se(slopes: torch.Tensor, slope_valid: torch.Tensor, seed: int = 0,
                        n_replicates: int = 10_000, block_length: int = 5,
-                       mesh=None) -> BootstrapResult:
+                       mesh=None, axis_name: str = "boot") -> BootstrapResult:
     """Moving-block bootstrap SE of the mean slope, per predictor.
 
     slopes (T, P) monthly slope estimates (``monthly_cs_ols``);
     slope_valid (T, P) bool, month ran and slope finite; ``seed`` seeds the
     CPU generator of :func:`draw_block_starts`. The gather runs on the
-    slopes' device. ``mesh`` raises: the sharded route is ROADMAP A8b.
+    slopes' device, or with ``mesh`` on each shard's device, the replicates
+    split over ``axis_name`` (module docstring); the result lies on the
+    slopes' device.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "block_bootstrap_se runs on one device here: the mesh route "
-            "(replicates sharded over devices) is not ported yet (ROADMAP A8b)")
     if n_replicates < 2:
         raise ValueError(
             f"n_replicates must be >= 2 for a ddof=1 variance, got {n_replicates}")
@@ -140,14 +161,20 @@ def block_bootstrap_se(slopes: torch.Tensor, slope_valid: torch.Tensor, seed: in
     v = slope_valid.to(slopes.dtype)
     pilot = (torch.where(slope_valid, slopes, torch.zeros_like(slopes)).sum(dim=0)
              / torch.clamp_min(v.sum(dim=0), 1.0))
-    s1 = torch.zeros_like(pilot)
-    s2 = torch.zeros_like(pilot)
-    chunk = max(1, REPLICATE_CHUNK_ELEMENTS // max(p * t, 1))
-    for lo in range(0, n_replicates, chunk):
-        means = replicate_means_from_starts(series, counts, starts[lo:lo + chunk], block_length)
-        d = means - pilot[None, :]
-        s1 = s1 + d.sum(dim=0)
-        s2 = s2 + (d * d).sum(dim=0)
+    if mesh is None:
+        s1, s2 = _moment_sums(series, counts, starts, pilot, block_length)
+    else:
+        d = mesh.shape[axis_name]
+        k = mesh.axis_names.index(axis_name)
+        cuts = [n_replicates * i // d for i in range(d + 1)]
+        parts = []
+        for pos in mesh.local_positions():
+            i = mesh.coords(pos)[k]
+            dev = mesh.device_of(pos)
+            parts.append(_moment_sums(series.to(dev), counts.to(dev),
+                                      starts[cuts[i]:cuts[i + 1]], pilot.to(dev),
+                                      block_length))
+        s1, s2 = (a.to(slopes.device) for a in psum(mesh, parts, axis_name)[0])
     b = float(n_replicates)
     mean = pilot + s1 / b
     var = (s2 - s1 * s1 / b) / (b - 1.0)

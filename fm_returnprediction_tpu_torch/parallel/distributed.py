@@ -11,9 +11,11 @@ center, so ``sum_tree`` (allgather, then a rank-ordered summation
 computed identically on every rank) stands in for a device all-reduce:
 deterministic, and held against the single-process contraction
 (``tests/test_torch_multiprocess.py``). Device collectives across
-processes (the reference's ``FMRP_DIST_JAX``) serve the device mesh,
-which is not ported (ROADMAP A8b): ``FMRP_DIST_JAX=1`` raises, ``auto``
-brings up the host exchange only.
+processes (the reference's ``FMRP_DIST_JAX``) serve the device mesh:
+``FMRP_DIST_JAX=1`` also brings up ``torch.distributed``
+(``parallel.multihost.initialize_multihost``, its store on the
+coordinator's port + 1), ``auto`` does so only where a CUDA device is
+available, ``0`` never.
 
 Wire format, byte for byte the reference's: every frame is an 8-byte
 big-endian length followed by a pickled payload (trusted intra-cluster
@@ -26,7 +28,7 @@ root)``, the server buffers until all ``world`` ranks posted that
 Configuration (``FMRP_DIST_*``, mirrored by :class:`DistConfig`):
 ``FMRP_DIST_COORDINATOR`` (``host:port`` of rank 0's server),
 ``FMRP_DIST_PROCS`` (world size), ``FMRP_DIST_PROC_ID`` (this rank),
-``FMRP_DIST_JAX`` (``0``/``auto``; ``1`` raises, see above).
+``FMRP_DIST_JAX`` (``0``/``1``/``auto``, see above).
 
 ``initialize_distributed()`` is idempotent and a no-op when the
 environment is not set. It also stamps the process's telemetry identity
@@ -550,18 +552,19 @@ def process_count() -> int:
     return cfg.num_processes if cfg is not None else 1
 
 
-def _check_collectives(cfg: DistConfig) -> None:
-    """``FMRP_DIST_JAX=1`` asks for device collectives across processes,
-    whose consumer is the device mesh (ROADMAP A8b, not ported): raise.
-    ``0`` and ``auto`` bring up the host exchange only."""
+def _want_collectives(cfg: DistConfig) -> bool:
+    """``FMRP_DIST_JAX``: ``1`` brings up device collectives across
+    processes (``torch.distributed``, the device mesh's transport), ``auto``
+    only where a CUDA device is available (the reference's "only off-CPU"),
+    ``0`` never; another value raises."""
     mode = cfg.jax_collectives.strip().lower()
-    if mode == "1":
-        raise NotImplementedError(
-            "FMRP_DIST_JAX=1 (device collectives across processes) serves the "
-            "device mesh, which is not ported yet (ROADMAP A8b); use 0 or auto, "
-            "which bring up the host exchange")
-    if mode not in ("0", "auto"):
+    if mode not in ("0", "1", "auto"):
         raise ValueError(f"FMRP_DIST_JAX must be 0, 1 or auto, got {cfg.jax_collectives!r}")
+    if mode == "auto":
+        import torch
+
+        return torch.cuda.is_available()
+    return mode == "1"
 
 
 def initialize_distributed(config: Optional[DistConfig] = None) -> tuple:
@@ -571,8 +574,10 @@ def initialize_distributed(config: Optional[DistConfig] = None) -> tuple:
     missing config is the single-process no-op ``(0, 1)``. Otherwise it
     installs a fault plan that rode the spawn environment, brings up the
     host exchange (rank 0 embeds the server; the startup rendezvous is
-    the cluster barrier) and stamps the telemetry identity. Idempotent;
-    returns ``(process_index, process_count)``."""
+    the cluster barrier), brings up ``torch.distributed`` where
+    ``FMRP_DIST_JAX`` asks for it (``_want_collectives``) and stamps the
+    telemetry identity. Idempotent; returns ``(process_index,
+    process_count)``."""
     global _EXCHANGE, _COORDS
     with _STATE_LOCK:
         if _EXCHANGE is not None:
@@ -580,12 +585,17 @@ def initialize_distributed(config: Optional[DistConfig] = None) -> tuple:
         cfg = config if config is not None else DistConfig.from_env()
         if cfg is None:
             return (0, 1)
-        _check_collectives(cfg)
+        collectives = _want_collectives(cfg)
         from fm_returnprediction_tpu_torch.resilience.faults import install_plan_from_env
         from fm_returnprediction_tpu_torch.telemetry import identity
 
         install_plan_from_env()
         exchange = HostExchange(cfg)
+        if collectives:
+            from fm_returnprediction_tpu_torch.parallel.multihost import initialize_multihost
+
+            initialize_multihost(coordinator_address=f"{cfg.host}:{cfg.port + 1}",
+                                 num_processes=cfg.num_processes, process_id=cfg.process_id)
         identity.set_process_index(cfg.process_id)
         _EXCHANGE = exchange
         _COORDS = (cfg.process_id, cfg.num_processes)

@@ -258,6 +258,7 @@ def build_panel(
     include_turnover: Optional[bool] = None,
     timer: Optional[StageTimer] = None,
     capture: Optional[dict] = None,
+    mesh=None,
 ) -> Tuple[DensePanel, Dict[str, str]]:
     """Raw frames → merged monthly panel → enriched characteristic panel
     (the legacy pandas route).
@@ -266,9 +267,10 @@ def build_panel(
     monthly and the daily rows. The host ingest (filter, market equity,
     Compustat expansion, CCM merge, daily compaction, ``long_to_dense``)
     runs in ``dtype``'s numpy dtype; ``get_factors`` then computes the
-    characteristics on ``device``. ``capture``, when a dict, receives the
-    two host products, ``dense_base`` and ``compact_daily``, for the
-    prepared-inputs slot."""
+    characteristics on ``device``, the daily strips sharded over ``mesh``
+    when one is given. ``capture``, when a dict, receives the two host
+    products, ``dense_base`` and ``compact_daily``, for the prepared-inputs
+    slot."""
     device = resolve_device(device)
     timer = timer or StageTimer(device)
     np_dtype = _contracts.numpy_dtype(dtype)
@@ -303,7 +305,7 @@ def build_panel(
         if capture is not None:
             capture["dense_base"], capture["compact_daily"] = base, daily
         return get_factors(base, daily, dtype=dtype, device=device,
-                           include_turnover=include_turnover, timer=timer)
+                           include_turnover=include_turnover, timer=timer, mesh=mesh)
 
 
 def build_panel_prepared(
@@ -313,12 +315,14 @@ def build_panel_prepared(
     device=None,
     include_turnover: bool = False,
     timer: Optional[StageTimer] = None,
+    mesh=None,
 ) -> Tuple[DensePanel, Dict[str, str]]:
-    """The enriched characteristic panel from the prepared inputs."""
+    """The enriched characteristic panel from the prepared inputs (the
+    daily strips sharded over ``mesh`` when one is given)."""
     timer = timer or StageTimer(resolve_device(device))
     with timer.ensure_stage("build_panel"):
         return get_factors(dense_base, compact_daily, dtype=dtype, device=device,
-                           include_turnover=include_turnover, timer=timer)
+                           include_turnover=include_turnover, timer=timer, mesh=mesh)
 
 
 def load_or_build_panel(
@@ -327,9 +331,11 @@ def load_or_build_panel(
     device=None,
     include_turnover: Optional[bool] = None,
     timer: Optional[StageTimer] = None,
+    mesh=None,
 ) -> Tuple[DensePanel, Dict[str, str]]:
     """The enriched panel from a raw cache directory, through its
-    prepared-inputs slot.
+    prepared-inputs slot (the daily strips sharded over ``mesh`` when one is
+    given).
 
     A slot valid for the current raw files (``data.prepared``) is mapped
     and taken straight to the device stages (``load_prepared``, then
@@ -364,7 +370,8 @@ def load_or_build_panel(
         timer.mark_skipped("load_raw_data", "prepared checkpoint hit")
         with timer.stage("build_panel"):
             return build_panel_prepared(base, daily, dtype=dtype, device=device,
-                                        include_turnover=include_turnover, timer=timer)
+                                        include_turnover=include_turnover, timer=timer,
+                                        mesh=mesh)
 
     capture = {} if prepared_dir is not None else None
 
@@ -382,7 +389,8 @@ def load_or_build_panel(
             with timer.stage("build_panel"):
                 panel, factors_dict = build_panel_columnar(
                     raw_data_dir, dtype=dtype, device=device,
-                    include_turnover=include_turnover, timer=timer, capture=capture)
+                    include_turnover=include_turnover, timer=timer, capture=capture,
+                    mesh=mesh)
                 save_slot()
             return panel, factors_dict
         except ColumnarIngestError as exc:
@@ -395,7 +403,7 @@ def load_or_build_panel(
     with timer.stage("build_panel"):
         panel, factors_dict = build_panel(data, dtype=dtype, device=device,
                                           include_turnover=include_turnover, timer=timer,
-                                          capture=capture)
+                                          capture=capture, mesh=mesh)
         # the raw frames are dead once the panel exists
         del data
         save_slot()
@@ -434,6 +442,7 @@ def run_pipeline(
     trace_dir=None,
     profile_dir=None,
     registry_dir=None,
+    use_mesh: Optional[bool] = None,
 ) -> PipelineResult:
     """Raw data or prepared inputs → characteristics → NYSE-breakpoint
     universes → Table 1 → Table 2 → Figure 1 / deciles → serving state →
@@ -533,7 +542,17 @@ def run_pipeline(
     kernel libraries the run loaded, then warms the serving buckets on the
     device. Unlike the reference, a publish that leaves the registry
     without this run's serving-state entry raises: the run does not end
-    as a success with its artifacts missing from the registry it armed."""
+    as a success with its artifacts missing from the registry it armed.
+
+    ``use_mesh`` shards the run over a device mesh
+    (``parallel.mesh.pipeline_mesh``): None follows the policy (a months ×
+    firms hierarchy in a run across processes, else ``MESH_DEVICES``,
+    default 1 = no mesh); True takes the policy's mesh or every local
+    device, raising when there is only one; False never shards. On a mesh
+    the daily strips shard over firms, Table 2 runs distributed TSQR per
+    cell (``reporting.table2.run_model_fm``; a 2-D mesh the hierarchy) and
+    the bootstrap table shards its replicates over the mesh's devices
+    flattened (``as_flat_mesh``); the other stages run on ``device``."""
     from fm_returnprediction_tpu_torch.registry.store import using_registry
 
     if guard is None:
@@ -554,7 +573,7 @@ def run_pipeline(
             make_bootstrap=make_bootstrap, bootstrap_replicates=bootstrap_replicates,
             make_backtest=make_backtest, backtest_schemes=backtest_schemes,
             backtest_route=backtest_route, backtest_quantiles=backtest_quantiles,
-            backtest_sink=backtest_sink,
+            backtest_sink=backtest_sink, use_mesh=use_mesh,
         )
 
 
@@ -564,11 +583,24 @@ def _run_pipeline_guarded(
     make_deciles, make_serving, compile_pdf, checkpoint_dir, guard, audit_dir,
     make_specgrid, specgrid_cells, specgrid_sink, specgrid_estimator, make_bootstrap,
     bootstrap_replicates, make_backtest, backtest_schemes, backtest_route,
-    backtest_quantiles, backtest_sink,
+    backtest_quantiles, backtest_sink, use_mesh,
 ) -> PipelineResult:
     """``run_pipeline``'s body, entered with the sentinel switch already
     pinned to ``guard`` for the whole run."""
     device = resolve_device(device)
+    mesh = None
+    if use_mesh or use_mesh is None:
+        from fm_returnprediction_tpu_torch.parallel.mesh import (
+            local_devices,
+            make_mesh,
+            pipeline_mesh,
+        )
+
+        mesh = pipeline_mesh(device=device.type)
+        if use_mesh and mesh is None:
+            if len(local_devices(device.type)) <= 1:
+                raise RuntimeError("use_mesh=True but only one device is available")
+            mesh = make_mesh(axis_name="firms", device=device.type)
     dtype = resolve_dtype(dtype)
     include_turnover = _resolve_turnover(include_turnover)
     audit = _contracts.AuditRecord()
@@ -592,14 +624,14 @@ def _run_pipeline_guarded(
         with timer.stage("build_panel"):
             panel, factors_dict = build_panel_prepared(
                 dense_base, compact_daily, dtype=dtype, device=device,
-                include_turnover=include_turnover, timer=timer)
+                include_turnover=include_turnover, timer=timer, mesh=mesh)
     elif synthetic:
         with timer.stage("load_raw_data"):
             data = generate_synthetic_wrds(synthetic_config)
         with timer.stage("build_panel"):
             panel, factors_dict = build_panel(
                 data, dtype=dtype, device=device,
-                include_turnover=include_turnover, timer=timer)
+                include_turnover=include_turnover, timer=timer, mesh=mesh)
         # the raw frames are dead once the panel exists
         del data
     else:
@@ -614,7 +646,7 @@ def _run_pipeline_guarded(
             )
         panel, factors_dict = load_or_build_panel(
             raw_data_dir, dtype=dtype, device=device,
-            include_turnover=include_turnover, timer=timer)
+            include_turnover=include_turnover, timer=timer, mesh=mesh)
 
     # a fault plan can hand back a corrupted panel here; the contract right
     # below must catch it at its declared severity
@@ -669,7 +701,8 @@ def _run_pipeline_guarded(
     with timer.stage("table_2"):
         # the stage keeps the per-cell numbers; the formatted frame follows
         # from them
-        cells = frame_stage("table_2", lambda: table_2_cells(panel, masks, factors_dict))
+        cells = frame_stage("table_2", lambda: table_2_cells(panel, masks, factors_dict,
+                                                             mesh=mesh))
         table_2 = format_table_2(cells, list(masks))
         if guard:
             _contracts.check_frame(table_2, "table_2", audit)
@@ -782,8 +815,14 @@ def _run_pipeline_guarded(
     bootstrap_table = None
     if make_bootstrap:
         with timer.stage("bootstrap_table"):
+            boot_mesh = None
+            if mesh is not None:
+                from fm_returnprediction_tpu_torch.parallel.multihost import as_flat_mesh
+
+                boot_mesh = as_flat_mesh(mesh, axis_name="boot")
             bootstrap_table = build_bootstrap_table(
-                panel, masks, factors_dict, n_replicates=bootstrap_replicates)
+                panel, masks, factors_dict, n_replicates=bootstrap_replicates,
+                mesh=boot_mesh)
 
     if output_dir is not None:
         with timer.stage("save_artifacts"):
@@ -1038,10 +1077,13 @@ def _main(argv=None) -> None:
                              "GPU); takes the place of the reference's --backend")
     args = parser.parse_args(argv)
     from fm_returnprediction_tpu_torch.parallel.distributed import initialize_distributed
+    from fm_returnprediction_tpu_torch.parallel.multihost import initialize_multihost
 
     # join a multi-process run when FMRP_DIST_* is set (host exchange and
-    # telemetry identity); a no-op otherwise
+    # telemetry identity; torch.distributed too per FMRP_DIST_JAX), and the
+    # torch.distributed group when FMRP_MULTIHOST=1; no-ops otherwise
     initialize_distributed()
+    initialize_multihost()
     if not args.synthetic and (args.firms is not None or args.months is not None):
         parser.error("--firms/--months only apply with --synthetic")
     cfg = SyntheticConfig(

@@ -46,7 +46,8 @@ def build_bootstrap_table(
     Rows (Model, Predictor); columns (Subset × {Slope, Boot SE, t (boot),
     t (NW)}). Each cell's slopes come from the QR ``fama_macbeth`` on the
     panel's device, and every cell draws its starts from ``seed``, so the
-    table is deterministic in it. ``mesh`` raises (ROADMAP A8b, the device mesh).
+    table is deterministic in it. With a 1-D ``mesh`` (the pipeline flattens
+    its mesh to the ``"boot"`` axis) each cell's replicates shard over it.
     """
     models = models if models is not None else MODELS
     subset_names = [s for s in SUBSET_ORDER if s in subset_masks]

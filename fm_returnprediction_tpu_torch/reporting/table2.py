@@ -11,6 +11,11 @@ Two routes (``specgrid.resolve_route``: the ``route`` argument, then
   over the stacked subset masks (``_fm_sweep``); above it, one call per
   cell.
 
+With a device ``mesh`` the route is ignored: every cell is one
+``run_model_fm`` with the firm axis sharded (distributed TSQR,
+``parallel.fm_sharded``), or on a 2-D months × firms mesh the hierarchy
+(``parallel.multihost.fama_macbeth_hier``).
+
 Layout and formatting follow the reference:
 
 - rows (Model, Predictor) with an ``N`` row closing each model block;
@@ -44,7 +49,7 @@ from fm_returnprediction_tpu_torch.specgrid.estimators.core import resolve_estim
 from fm_returnprediction_tpu_torch.specgrid.solve import run_spec_grid
 from fm_returnprediction_tpu_torch.specgrid.specs import resolve_route, table2_grid
 
-__all__ = ["table_2_cells", "format_table_2", "build_table_2"]
+__all__ = ["table_2_cells", "format_table_2", "build_table_2", "run_model_fm"]
 
 # Table 2's FM hyperparameters (NW lag 4, reference weight, 10 months; the
 # stacked route's per-month solver is the QR one).
@@ -99,6 +104,54 @@ def _stacked_summaries(y, x_all, subset_masks, idxs):
     return out
 
 
+def run_model_fm(
+    panel: DensePanel,
+    subset_mask,
+    model,
+    variables_dict: Dict[str, str],
+    return_col: str = "retx",
+    nw_lags: int = TABLE2_NW_LAGS,
+    solver: str = TABLE2_SOLVER,
+    min_months: int = TABLE2_MIN_MONTHS,
+    weight: str = TABLE2_WEIGHT,
+    mesh=None,
+    y: Optional[torch.Tensor] = None,
+    x: Optional[torch.Tensor] = None,
+):
+    """One (model, subset) Fama-MacBeth on the dense panel: ``(cs, fm)``.
+
+    With ``mesh`` the firm axis shards over its devices: ``solver`` "qr"
+    runs distributed TSQR and "normal" the psum'd Gram (``n_refine`` 2 and
+    0 of ``parallel.fm_sharded``); "lstsq" exists on one device only and
+    raises with a mesh. A 2-D mesh runs the months × firms hierarchy.
+    Without a mesh the one-device ``fama_macbeth`` runs with ``solver``.
+    ``y``/``x`` take precomputed tensors (the model's columns)."""
+    if y is None:
+        y = panel.var(return_col)
+    if x is None:
+        x = panel.select(model_columns(model, variables_dict))
+    mask = torch.as_tensor(subset_mask, device=y.device)
+    if mesh is None:
+        return fama_macbeth(y, x, mask, nw_lags=nw_lags, min_months=min_months,
+                            weight=weight, solver=solver)
+    if solver not in ("qr", "normal"):
+        raise ValueError(f"solver={solver!r} is not available on a sharded mesh; use 'qr' "
+                         "(distributed TSQR) or 'normal' (psum'd Gram)")
+    n_refine = 0 if solver == "normal" else 2
+    if len(mesh.axis_names) == 2:
+        from fm_returnprediction_tpu_torch.parallel.multihost import fama_macbeth_hier
+
+        month_axis, firm_axis = mesh.axis_names
+        return fama_macbeth_hier(y, x, mask, mesh=mesh, month_axis=month_axis,
+                                 firm_axis=firm_axis, nw_lags=nw_lags, min_months=min_months,
+                                 weight=weight, n_refine=n_refine)
+    from fm_returnprediction_tpu_torch.parallel.fm_sharded import fama_macbeth_sharded
+
+    return fama_macbeth_sharded(y, x, mask, mesh=mesh, nw_lags=nw_lags, min_months=min_months,
+                                weight=weight, axis_name=mesh.axis_names[0],
+                                n_refine=n_refine)
+
+
 def table_2_cells(
     panel: DensePanel,
     subset_masks: Dict[str, torch.Tensor],
@@ -106,6 +159,7 @@ def table_2_cells(
     models: Optional[list] = None,
     return_col: str = "retx",
     route: Optional[str] = None,
+    mesh=None,
 ) -> Dict[Tuple[str, str], dict]:
     """Every Table 2 cell's numbers: ``(model name, subset) → {"coef",
     "tstat", "nw_se", "mean_r2", "mean_n"}`` (host numpy; coef/tstat/nw_se
@@ -113,7 +167,8 @@ def table_2_cells(
     (module docstring); "coreset" is refused, and so is an estimator other
     than OLS leaking in through ``FMRP_SPECGRID_ESTIMATOR``: Table 2 is the
     paper's OLS parity surface, where a partialled, absorbed or
-    instrumented cell would be a silently different estimand."""
+    instrumented cell would be a silently different estimand. Both are
+    resolved before a ``mesh`` (which ignores the route) takes over."""
     models = models if models is not None else MODELS
     subset_names = list(subset_masks)
     resolved = resolve_route(route, allowed=("gram", "stacked"))
@@ -125,7 +180,16 @@ def table_2_cells(
     )
     y = panel.var(return_col)
     x_all = panel.select(grid.union_predictors)
-    if resolved == "gram":
+    if mesh is not None:
+        col = {c: i for i, c in enumerate(grid.union_predictors)}
+        summaries = {}
+        for mi, model in enumerate(models):
+            x = x_all[:, :, [col[c] for c in model_columns(model, variables_dict)]]
+            for si, name in enumerate(subset_names):
+                _, fm = run_model_fm(panel, subset_masks[name], model, variables_dict,
+                                     return_col=return_col, mesh=mesh, y=y, x=x)
+                summaries[(mi, si)] = _host_summary(fm)
+    elif resolved == "gram":
         res = run_spec_grid(y, x_all, subset_masks, grid)
         summaries = {(mi, si): res.spec_summary(grid, mi * len(subset_names) + si)
                      for mi in range(len(models)) for si in range(len(subset_names))}
@@ -207,11 +271,12 @@ def build_table_2(
     subset_masks: Dict[str, torch.Tensor],
     variables_dict: Dict[str, str],
     models: Optional[list] = None,
+    mesh=None,
     return_col: str = "retx",
     route: Optional[str] = None,
 ) -> pd.DataFrame:
-    """Assemble the formatted reference-layout Table 2 (``route`` as in
-    :func:`table_2_cells`)."""
+    """Assemble the formatted reference-layout Table 2 (``route`` and
+    ``mesh`` as in :func:`table_2_cells`)."""
     cells = table_2_cells(panel, subset_masks, variables_dict, models=models,
-                          return_col=return_col, route=route)
+                          return_col=return_col, route=route, mesh=mesh)
     return format_table_2(cells, list(subset_masks), models=models)

@@ -24,8 +24,10 @@
 
 - ``multiproc`` — the grid across worker processes (``FMRP_SPECGRID_PROCS``,
   ``run_spec_grid_weights(procs=)``): firm shards contracted by K2 in every
-  worker, merged over the host exchange. The device mesh is not ported
-  (ROADMAP A8b).
+  worker, merged over the host exchange.
+- ``sharded``   — the grid on a device mesh (``FMRP_SPECGRID_MESH``,
+  ``run_spec_grid_weights(mesh=)``): firm-sharded contraction with K2 on
+  every shard, spec-sharded solve.
 """
 
 from fm_returnprediction_tpu_torch.specgrid.cellspace import (
@@ -81,6 +83,11 @@ from fm_returnprediction_tpu_torch.specgrid.sinks import (
     TopKSink,
     resolve_sink,
 )
+from fm_returnprediction_tpu_torch.specgrid.sharded import (
+    resolve_specgrid_mesh,
+    sharded_grid_parts,
+    specgrid_mesh,
+)
 from fm_returnprediction_tpu_torch.specgrid.solve import (
     SpecGridResult,
     run_spec_grid,
@@ -133,6 +140,7 @@ __all__ = [
     "resolve_estimator",
     "resolve_route",
     "resolve_sink",
+    "resolve_specgrid_mesh",
     "run_cellspace",
     "run_estimator_grid_weights",
     "run_scenarios",
@@ -142,7 +150,9 @@ __all__ = [
     "scenario_grid",
     "scenario_query",
     "scenario_space",
+    "sharded_grid_parts",
     "solve_spec_stats",
+    "specgrid_mesh",
     "subperiod_windows",
     "table2_grid",
     "window_query",

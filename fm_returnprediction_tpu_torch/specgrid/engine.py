@@ -33,12 +33,14 @@ reference's exception types: OLS cells must ride the NW tail, pooled cells
 need ``bootstrap=1``, bootstrap draws need ``se="nw"``, absorb needs
 ``fe_codes`` (KeyError).
 
-The engine runs in one process or, with ``FMRP_SPECGRID_PROCS`` > 1, its
-OLS batches contract across that many worker processes
-(``specgrid.multiproc``); the estimator kinds beyond OLS and the factorized
-route are single-process, as in the reference, and a multi-process sweep
-with them raises up front. ``mesh=`` and ``FMRP_SPECGRID_MESH`` raise
-(ROADMAP A8b).
+The engine runs on one device in one process or, with
+``FMRP_SPECGRID_PROCS`` > 1, its OLS batches contract across that many
+worker processes (``specgrid.multiproc``), or, with ``mesh=`` or
+``FMRP_SPECGRID_MESH`` (``sharded.resolve_specgrid_mesh``), over a device
+mesh (``specgrid.sharded``: firm-sharded contraction, spec-sharded solve).
+The estimator kinds beyond OLS and the factorized route are single-device,
+as in the reference: a multi-process or mesh sweep with them raises up
+front.
 """
 
 from __future__ import annotations
@@ -67,9 +69,12 @@ from fm_returnprediction_tpu_torch.specgrid.grams import (
 )
 from fm_returnprediction_tpu_torch.specgrid.estimators.grid import run_estimator_grid_weights
 from fm_returnprediction_tpu_torch.specgrid.sinks import Sink, resolve_sink
+from fm_returnprediction_tpu_torch.specgrid.sharded import (
+    placed_panel_scope,
+    resolve_specgrid_mesh,
+)
 from fm_returnprediction_tpu_torch.specgrid.solve import (
     contraction_counts,
-    require_single_device,
     resolve_specgrid_procs,
     run_spec_grid_weights,
 )
@@ -160,7 +165,7 @@ class _Engine:
         # resolved once per sweep: a knob flipped mid-sweep would splice two
         # numerics regimes into one result frame
         self.precision = resolve_gram_precision(precision)
-        require_single_device(mesh)
+        self.mesh = resolve_specgrid_mesh(mesh, device=y.device.type)
         self.space = space
         self.union = space.union_predictors
         self.y = y
@@ -192,12 +197,13 @@ class _Engine:
                 f"{[e.se for e in ols_odd]} are estimator-subsystem tails — query the gram "
                 "bank instead (grambank.estimator_query serves ols under the iid/clustered "
                 "tails)")
-        single_process = resolve_specgrid_procs(None) == 1
+        single_device = self.mesh is None and resolve_specgrid_procs(None) == 1
         non_ols = [e for e in space.estimators if e.kind != "ols"]
-        if non_ols and not single_process:
+        if non_ols and not single_device:
             raise ValueError(
-                "estimator kinds beyond OLS are a single-device route — the multi-process "
-                f"grid predates the estimator transforms (space has {non_ols})")
+                "estimator kinds beyond OLS are a single-device route — the mesh and "
+                "multi-process grid programs predate the estimator transforms (space has "
+                f"{non_ols})")
         if any(e.kind == "pooled" for e in non_ols) and space.bootstrap > 1:
             raise ValueError(
                 "pooled estimator cells produce no per-month slope series to resample — a "
@@ -226,12 +232,12 @@ class _Engine:
         # spans at most (spec_pad-1)//n_windows + 2 pairs, so one padded
         # pair width serves every batch
         fact = resolve_gram_factorize(factorize)
-        if fact == "on" and not single_process:
+        if fact == "on" and not single_device:
             raise ValueError(
-                "factorize='on' is a single-device route — the multi-process contraction "
-                "keeps the window term in validity (specgrid.solve docstring)")
+                "factorize='on' is a single-device route — the mesh and multi-process "
+                "contractions keep the window term in validity (specgrid.solve docstring)")
         if fact == "auto":
-            fact = "on" if single_process and len(space.windows) > 1 else "off"
+            fact = "on" if single_device and len(space.windows) > 1 else "off"
         self.gram_factorize = fact
         self.pair_pad = (min(self.spec_pad, (self.spec_pad - 1) // len(space.windows) + 2,
                              space.n_pairs)
@@ -291,7 +297,7 @@ class _Engine:
         if estimator.kind == "ols":
             return run_spec_grid_weights(
                 self.y, x_level, self.universe_masks, grid, self.space.weights,
-                referee=self.referee, firm_chunk=self.firm_chunk,
+                referee=self.referee, firm_chunk=self.firm_chunk, mesh=self.mesh,
                 row_weights=self.row_weights, precision=self.precision,
                 factorize=self.gram_factorize, pair_pad=self.pair_pad,
             ), None
@@ -457,8 +463,9 @@ def run_cellspace(
         help="scenario cells streamed through the spec-grid tile engine",
     )
     n_tiles = 0
-    with telemetry.timed("specgrid.cellspace", cells=len(space),
-                         tile=engine.tile_cells, route=route) as sweep_t:
+    # the mesh route keeps its placed panel for this sweep's tiles only
+    with placed_panel_scope(), telemetry.timed("specgrid.cellspace", cells=len(space),
+                                               tile=engine.tile_cells, route=route) as sweep_t:
         for tile in space.tiles(engine.tile_cells):
             with telemetry.span("specgrid.tile", start=tile.start, stop=tile.stop):
                 frames: List[dict] = []

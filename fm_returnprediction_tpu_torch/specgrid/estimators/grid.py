@@ -39,8 +39,8 @@ Route discipline, as in the reference:
   estimand than plain OLS, so the referee is off and every conditioning
   event is DISCLOSED (``suspect_months``, and the per-kind disclosures:
   transform rank loss, absorb iteration and convergence counts);
-- one device in one process: the engine refuses a mesh (ROADMAP A8b) or
-  several processes before any estimator runs, as the reference does.
+- one device in one process: the engine refuses a mesh or several
+  processes before any estimator runs, as the reference does.
 
 The ``solve.CONTRACTIONS`` ledger keys (``specs_solved``,
 ``specs_contracted``, ``pairs_unique``, ``pairs_contracted``) count this

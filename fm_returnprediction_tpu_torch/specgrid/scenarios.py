@@ -141,7 +141,8 @@ def run_scenarios(
     estimator dimension: ``Estimator`` values or grammar strings
     (``"fwl:log_size@iid"``, ``parse_estimator``); None keeps the OLS@NW
     space and its row schema. ``fe_codes`` maps FE names → (T, N) int code
-    arrays for ``absorb`` cells. ``mesh`` raises (ROADMAP A8b).
+    arrays for ``absorb`` cells. ``mesh`` (default ``FMRP_SPECGRID_MESH``)
+    runs the OLS batches on a device mesh (``specgrid.sharded``).
     """
     from fm_returnprediction_tpu_torch.models.lewellen import MODELS
     from fm_returnprediction_tpu_torch.specgrid.cellspace import scenario_space

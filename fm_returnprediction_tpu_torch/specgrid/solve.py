@@ -31,8 +31,9 @@ schemes, optionally on the factorized route (one contraction per distinct
 by ``expand_window_stats``), with coreset row weights (the referee is then
 off: it would re-solve on the full panel) or bfloat16 operands. With
 ``procs`` > 1 (``FMRP_SPECGRID_PROCS``) the contraction runs across that
-many worker processes (``specgrid.multiproc``) and the solve here; a mesh
-is not ported (ROADMAP A8b).
+many worker processes (``specgrid.multiproc``) and the solve here; with a
+``mesh`` the contraction shards over firms and the solve over specs
+(``specgrid.sharded``).
 
 With the guard layer on (``guard.checks``) a grid run queues its sentinel
 counters under ``"specgrid.grid_program"`` — non-finite Gram/moment
@@ -44,7 +45,6 @@ off) — and each referee solve records as ``"ols.fama_macbeth"``.
 from __future__ import annotations
 
 import collections
-import os
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -75,7 +75,6 @@ __all__ = [
     "SpecGridResult",
     "contraction_counts",
     "expand_window_stats",
-    "require_single_device",
     "resolve_specgrid_procs",
     "solve_spec_stats",
     "run_spec_grid",
@@ -93,19 +92,6 @@ BF16_EPS = float(torch.finfo(torch.bfloat16).eps)
 def contraction_counts() -> Dict[str, int]:
     """Snapshot of the contraction-work counters."""
     return dict(CONTRACTIONS)
-
-
-def require_single_device(mesh=None) -> None:
-    """Raise on a device mesh: a ``mesh`` or ``FMRP_SPECGRID_MESH`` naming
-    more than one device asks for the sharded grid, which is not ported
-    (ROADMAP A8b). Several processes are ported (``procs``)."""
-    want_mesh = os.environ.get("FMRP_SPECGRID_MESH", "").strip().lower()
-    one_mesh = want_mesh in ("", "0", "1") or (
-        want_mesh == "auto" and torch.cuda.device_count() <= 1)
-    if mesh is not None or not one_mesh:
-        raise NotImplementedError(
-            "the spec grid runs without a device mesh here: mesh= and "
-            "FMRP_SPECGRID_MESH (the sharded grid) are not ported yet (ROADMAP A8b)")
 
 
 def expand_window_stats(stats, pair_idx: torch.Tensor, window: torch.Tensor):
@@ -319,7 +305,7 @@ def run_spec_grid(y: torch.Tensor, x: torch.Tensor,
                   referee: bool = True, firm_chunk=None, row_weights=None,
                   precision: Optional[str] = None,
                   factorize: Optional[str] = None,
-                  procs: Optional[int] = None) -> SpecGridResult:
+                  procs: Optional[int] = None, mesh=None) -> SpecGridResult:
     """Solve a whole spec grid from panel tensors.
 
     ``x`` holds the grid's union predictor columns in
@@ -332,7 +318,7 @@ def run_spec_grid(y: torch.Tensor, x: torch.Tensor,
     return run_spec_grid_weights(
         y, x, universe_masks, grid, (grid.weight,), referee=referee,
         firm_chunk=firm_chunk, row_weights=row_weights, precision=precision,
-        factorize=factorize, procs=procs,
+        factorize=factorize, procs=procs, mesh=mesh,
     )[grid.weight]
 
 
@@ -369,8 +355,9 @@ def run_spec_grid_weights(
     two estimands). ``procs`` (``FMRP_SPECGRID_PROCS`` when None) > 1
     contracts across that many worker processes on ``y``'s device type
     (``specgrid.multiproc``): not with bf16 operands, nor with
-    ``factorize="on"`` (``"auto"`` is off there). ``mesh`` raises (ROADMAP
-    A8b)."""
+    ``factorize="on"`` (``"auto"`` is off there). ``mesh`` (a 1-D mesh,
+    ``specgrid.sharded``) contracts firm-sharded and solves spec-sharded;
+    it excludes ``procs`` > 1, bf16 and ``factorize="on"`` alike."""
     precision = resolve_gram_precision(precision)
     factorize = resolve_gram_factorize(factorize)
     procs = resolve_specgrid_procs(procs)
@@ -379,16 +366,19 @@ def run_spec_grid_weights(
             "mesh= and procs>1 are mutually exclusive sharding stories: the mesh "
             "spans devices in one process, FMRP_SPECGRID_PROCS spans processes — "
             "pick one per run")
-    require_single_device(mesh)
+    if mesh is not None and precision == "bf16":
+        raise ValueError(
+            "precision='bf16' is a single-device route; the mesh path's psum merge of "
+            "bf16-floored stats is not refereed yet")
     if procs > 1 and precision == "bf16":
         raise ValueError(
             "precision='bf16' is a single-process route; the host-side merge of "
             "bf16-floored shard stats is not refereed yet")
-    if factorize == "on" and procs > 1:
+    if factorize == "on" and (mesh is not None or procs > 1):
         raise ValueError(
-            "factorize='on' is a single-device route: the multi-process contraction "
-            "predates the month-axis factorization (its window term stays in "
-            "validity); 'auto' resolves to the legacy route there")
+            "factorize='on' is a single-device route: the mesh and multi-process "
+            "contractions predate the month-axis factorization (their window term "
+            "stays in validity); 'auto' resolves to the legacy route there")
     # the worker pool is keyed on the caller's own objects, captured
     # before any conversion below
     raw_rw = row_weights
@@ -407,8 +397,9 @@ def run_spec_grid_weights(
         referee = False
 
     s_specs = len(grid)
+    guard = _guard.guard_active()
     use_fact = False
-    if factorize != "off" and procs == 1:
+    if factorize != "off" and procs == 1 and mesh is None:
         k_unique = int(unique_pairs(uidx_np, col_sel_np)[0].shape[0])
         # "auto" factorizes only when the grid repeats pairs (a window sweep)
         use_fact = factorize == "on" or k_unique < s_specs
@@ -423,6 +414,14 @@ def run_spec_grid_weights(
             row_weights=row_weights, precision=precision)
         stats = expand_window_stats(pair_stats, torch.as_tensor(pair_idx, device=device,
                                                                 dtype=torch.long), window)
+    elif mesh is not None:
+        from fm_returnprediction_tpu_torch.specgrid.sharded import sharded_grid_parts
+
+        CONTRACTIONS["specs_contracted"] += s_specs
+        cs, fms, suspect, counters = sharded_grid_parts(
+            y, x, tuple(universe_masks[nm] for nm in names), uidx, col_sel, window, mesh=mesh,
+            row_weights=raw_rw, nw_lags=grid.nw_lags, min_months=grid.min_months,
+            weights=tuple(weights), firm_chunk=firm_chunk, guard=guard)
     elif procs > 1:
         CONTRACTIONS["specs_contracted"] += s_specs
         merged = multiproc_grid_stats(
@@ -435,11 +434,11 @@ def run_spec_grid_weights(
         stats = contract_spec_grams(y, x, universes, uidx, col_sel, window,
                                     firm_chunk=firm_chunk, row_weights=row_weights,
                                     precision=precision)
-    guard = _guard.guard_active()
-    cs, fms, suspect, counters = _solve_and_aggregate(
-        stats, col_sel, y.dtype, nw_lags=grid.nw_lags, min_months=grid.min_months,
-        weights=tuple(weights), guard=guard, precision=precision,
-    )
+    if mesh is None:
+        cs, fms, suspect, counters = _solve_and_aggregate(
+            stats, col_sel, y.dtype, nw_lags=grid.nw_lags, min_months=grid.min_months,
+            weights=tuple(weights), guard=guard, precision=precision,
+        )
     if guard:
         _guard.record("specgrid.grid_program", counters)
     suspect_months = _host(suspect).sum(axis=1).astype(np.int64)

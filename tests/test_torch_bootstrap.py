@@ -13,7 +13,7 @@ max_start + 1)``) and handed to the port:
 - the port's own draws are bit-identical for one seed, chunking the
   replicates changes nothing beyond summation order, and its SEs at
   B = 4,000 lie within 10% of JAX's (a statistical check with fixed seeds);
-- ``n_replicates < 2`` and ``mesh=`` raise; ``--bootstrap 32`` on the
+- ``n_replicates < 2`` raises, and ``mesh=`` matches one device; ``--bootstrap 32`` on the
   command line writes ``bootstrap_se.pkl`` and ``bootstrap_se.tex``.
 """
 
@@ -167,12 +167,22 @@ def test_se_within_ten_percent_of_jax_at_4000_replicates():
 
 
 def test_too_few_replicates_and_a_mesh_raise():
+    """Too few replicates raise, on one device and on a mesh; the mesh route
+    (the same draws split over 3 shards, B not a multiple of 3) is the
+    one-device result up to summation order."""
+    from fm_returnprediction_tpu_torch.parallel.mesh import make_mesh
+
     slopes, valid = _slopes()
     args = (torch.from_numpy(slopes), torch.from_numpy(valid))
+    mesh = make_mesh(axis_name="boot", devices=[torch.device("cpu")] * 3)
     with pytest.raises(ValueError, match="n_replicates must be >= 2"):
         bootstrap.block_bootstrap_se(*args, n_replicates=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        bootstrap.block_bootstrap_se(*args, mesh=object())
+    with pytest.raises(ValueError, match="n_replicates must be >= 2"):
+        bootstrap.block_bootstrap_se(*args, n_replicates=1, mesh=mesh)
+    one = bootstrap.block_bootstrap_se(*args, n_replicates=200)
+    sharded = bootstrap.block_bootstrap_se(*args, n_replicates=200, mesh=mesh)
+    assert sharded.n_replicates == 200
+    np.testing.assert_allclose(sharded.se.numpy(), one.se.numpy(), rtol=1e-8, atol=1e-12)
 
 
 def test_cli_bootstrap_writes_the_table(tmp_path, capsys):

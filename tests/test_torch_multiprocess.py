@@ -111,20 +111,49 @@ def test_barrier_tag_skew_raises():
 
 
 def test_device_collectives_raise_naming_the_mesh_item(monkeypatch):
-    """``FMRP_DIST_JAX=1`` asks for device collectives across processes,
-    whose consumer is the device mesh (ROADMAP A8b): it raises before any
-    socket is opened; ``auto`` and ``0`` would bring up the host exchange."""
+    """``FMRP_DIST_JAX`` asks for device collectives across processes, the
+    device mesh's transport: ``1`` brings up ``torch.distributed`` beside
+    the host exchange (here a world of one, gloo on the CPU, its store on
+    the coordinator's port + 1), ``auto`` only where a CUDA device is, ``0``
+    never; any other value raises before a socket is opened."""
     from fm_returnprediction_tpu_torch.parallel import distributed as dist
+    from fm_returnprediction_tpu_torch.parallel import multihost
 
     cfg = dist.DistConfig.from_env({"FMRP_DIST_COORDINATOR": "127.0.0.1:1",
                                     "FMRP_DIST_PROCS": "2", "FMRP_DIST_PROC_ID": "1",
                                     "FMRP_DIST_JAX": "1"})
     assert (cfg.host, cfg.port, cfg.num_processes, cfg.process_id) == ("127.0.0.1", 1, 2, 1)
-    with pytest.raises(NotImplementedError, match="A8b"):
-        dist.initialize_distributed(cfg)
-    assert not dist.dist_active() and dist.process_index() == 0
     with pytest.raises(ValueError, match="FMRP_DIST_JAX"):
         dist.initialize_distributed(dataclasses.replace(cfg, jax_collectives="sometimes"))
+    assert not dist.dist_active() and dist.process_index() == 0
+    assert dist._want_collectives(cfg)
+    assert not dist._want_collectives(dataclasses.replace(cfg, jax_collectives="0"))
+    assert dist._want_collectives(dataclasses.replace(cfg, jax_collectives="auto")) == \
+        torch.cuda.is_available()
+    port = next(p for p in iter(dist.free_port, None) if _port_free(p + 1))
+    one = dataclasses.replace(cfg, coordinator=f"127.0.0.1:{port}", num_processes=1,
+                              process_id=0)
+    try:
+        assert dist.initialize_distributed(one) == (0, 1)
+        assert multihost.distributed_client_active()
+        assert torch.distributed.get_backend() == "gloo"
+        assert multihost.initialize_multihost() == (0, 1)     # idempotent
+    finally:
+        dist.shutdown_distributed()
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+    assert not multihost.distributed_client_active()
+
+
+def _port_free(port: int) -> bool:
+    import socket
+
+    with socket.socket() as s:
+        try:
+            s.bind(("127.0.0.1", port))
+        except OSError:
+            return False
+    return True
 
 
 def test_frames_interoperate_with_the_reference_exchange():
@@ -341,7 +370,7 @@ def test_killed_worker_degrades_or_refuses(allow, monkeypatch):
 def test_multiproc_refuses_what_the_reference_refuses():
     """``tests/test_grid_factorize.py``'s procs case and its neighbours:
     ``factorize="on"``, bf16 operands and a mesh each refuse ``procs`` > 1
-    before anything is spawned."""
+    before anything is spawned; a mesh without ``procs`` runs."""
     from fm_returnprediction_tpu_torch.specgrid import Spec, SpecGrid
     from fm_returnprediction_tpu_torch.specgrid.solve import run_spec_grid
 
@@ -358,8 +387,19 @@ def test_multiproc_refuses_what_the_reference_refuses():
 
     with pytest.raises(ValueError, match="mutually exclusive"):
         run_spec_grid_weights(y, x, masks, grid, ("reference",), mesh=object(), procs=2)
-    with pytest.raises(NotImplementedError, match="A8b"):
-        run_spec_grid_weights(y, x, masks, grid, ("reference",), mesh=object())
+    # the mesh itself runs (the sharded grid, ``tests/test_torch_specgrid_mesh.py``)
+    # and gives the one-device grid on this panel
+    from fm_returnprediction_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(axis_name="cells", devices=[torch.device("cpu")] * 2)
+    rng = np.random.default_rng(3)
+    y = torch.from_numpy(rng.standard_normal((12, 8)))
+    x = torch.from_numpy(rng.standard_normal((12, 8, 1)))
+    masks = {"all": torch.ones((12, 8), dtype=torch.bool)}
+    one = run_spec_grid_weights(y, x, masks, grid, ("reference",))["reference"]
+    sharded = run_spec_grid_weights(y, x, masks, grid, ("reference",), mesh=mesh)["reference"]
+    np.testing.assert_allclose(sharded.coef, one.coef, rtol=1e-10, atol=1e-13)
+    np.testing.assert_array_equal(sharded.month_valid, one.month_valid)
 
 
 # -- process replicas ----------------------------------------------------------

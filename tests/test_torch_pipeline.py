@@ -305,9 +305,12 @@ def test_port_runs_with_jax_blocked(tmp_path):
     registry: a journaled ``ServingFleet(device="cpu")`` of 2 with one kill
     and replace, ``ServingFleet.recover`` after a hard crash,
     ``--registry-dir --fleet-size 2`` through the command line, and
-    ``python -m fm_returnprediction_tpu_torch.registry ls``; and the
+    ``python -m fm_returnprediction_tpu_torch.registry ls``; the
     processes the port spawns: a spec grid over 2 worker processes and a
-    process fleet of 2 with one replica SIGKILLed and replaced. The
+    process fleet of 2 with one replica SIGKILLed and replaced; and the
+    device mesh: ``run_pipeline(use_mesh=True)`` on 4 virtual CPU devices
+    (daily strips, Table 2 by distributed TSQR and the bootstrap table
+    sharded; at float64 Table 2 equal to the one-device run's). The
     children inherit a ``PYTHONPATH`` whose first entry holds ``jax``,
     ``jaxlib`` and ``fm_returnprediction_tpu`` packages that raise on
     import, and run from a directory outside the repo, so a child that
@@ -510,6 +513,19 @@ def test_port_runs_with_jax_blocked(tmp_path):
         assert np.array_equal(fleet.query_many(months, rows), before)
         fleet.close()
         assert replay_journal(tmp + "/proc.jsonl").clean
+        import os
+        os.environ["FMRP_VIRTUAL_DEVICES"] = "4"
+        from fm_returnprediction_tpu_torch.parallel import mesh as mesh_mod
+        kw = dict(synthetic=True, synthetic_config=SyntheticConfig(n_firms=60, n_months=72),
+                  device="cpu", dtype=torch.float64, make_figure=False, make_deciles=False,
+                  make_serving=False)
+        meshed = run_pipeline(use_mesh=True, make_bootstrap=True, bootstrap_replicates=16,
+                              **kw)
+        counts = mesh_mod.collective_counts()
+        assert counts[("psum", "boot")] == 9 and counts[("all_gather", "firms")] == 9, counts
+        one = run_pipeline(use_mesh=False, **kw)
+        assert meshed.table_2.equals(one.table_2), (meshed.table_2, one.table_2)
+        del os.environ["FMRP_VIRTUAL_DEVICES"]
         loaded = [m for m in sys.modules
                   if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
         assert not loaded, loaded
@@ -580,7 +596,10 @@ def test_port_never_names_jax_or_the_jax_package(pattern):
             "cuda_build.py", "parallel/distributed.py", "parallel/shm.py",
             "specgrid/multiproc.py", "specgrid/mp_worker.py", "serving/shm.py",
             "serving/replica_worker.py", "serving/replica_proc.py",
-            "telemetry/timeline.py"} <= names
+            "telemetry/timeline.py", "parallel/mesh.py", "parallel/partition.py",
+            "parallel/fm_sharded.py", "parallel/daily_sharded.py",
+            "parallel/time_sharded.py", "parallel/multihost.py",
+            "specgrid/sharded.py"} <= names
     hits = [str(f.relative_to(REPO)) for f in files
             if re.search(pattern, f.read_text())]
     assert not hits, hits

@@ -282,8 +282,17 @@ def test_sweep_refuses_what_is_not_ported(panels, monkeypatch):
     # reference is held in tests/test_torch_estimators.py)
     frame = run_scenarios(ppanel, pmasks, factors, estimators=["fwl:log_size"])
     assert set(frame["estimator"]) == {"fwl[log_size]"} and frame["coef"].notna().any()
-    with pytest.raises(NotImplementedError, match="A8"):
-        run_scenarios(ppanel, pmasks, factors, mesh=object())
+    # the device mesh is ported: FMRP_SPECGRID_MESH over two (virtual) CPU
+    # devices runs the OLS sweep sharded and matches the one-device sweep
+    # (another summation order, so not bit for bit); with an estimator
+    # beyond OLS it refuses, as in the reference
+    monkeypatch.setenv("FMRP_VIRTUAL_DEVICES", "2")
+    monkeypatch.setenv("FMRP_SPECGRID_MESH", "2")
+    meshed = run_scenarios(ppanel, pmasks, factors)
+    with pytest.raises(ValueError, match="single-device"):
+        run_scenarios(ppanel, pmasks, factors, estimators=["fwl:log_size"])
+    monkeypatch.delenv("FMRP_SPECGRID_MESH")
+    _assert_frames_match(meshed, run_scenarios(ppanel, pmasks, factors))
     # a leaked non-OLS knob stops the pipeline at Table 2, the paper's OLS
     # parity surface, as in the reference
     monkeypatch.setenv("FMRP_SPECGRID_ESTIMATOR", "iv:log_size~log_bm")
@@ -295,7 +304,7 @@ def test_sweep_refuses_what_is_not_ported(panels, monkeypatch):
     monkeypatch.delenv("FMRP_SPECGRID_ESTIMATOR")
     # several processes are ported: FMRP_SPECGRID_PROCS=2 runs the sweep's
     # contractions in two worker processes and matches the one-process sweep
-    # (another summation order, so not bit for bit); mesh= still raises
+    # (another summation order, so not bit for bit)
     from fm_returnprediction_tpu_torch.specgrid import multiproc
 
     monkeypatch.setenv("FMRP_SPECGRID_PROCS", "2")
