@@ -80,7 +80,7 @@ Phases (any failure exits non-zero without the final line):
    kill→replace cycles; then process replicas (``process_fleet_phase``):
    a fleet of 2 replica processes, each with its own CUDA context, over
    the socket and (where ``/dev/shm`` fits the rings) the shm transport,
-   quoting the same rows (the socket fleet the first 16,384 where the shm
+   quoting the same rows (the socket fleet the first 8,192 where the shm
    fleet runs) bit-equal to the bare service, p50/p99 and rows/s beside
    the thread fleets'; a journaled, traced fleet of 2 with one
    replica SIGKILLed under load (replaced by the supervisor, the journal
@@ -204,7 +204,7 @@ Phases (any failure exits non-zero without the final line):
    --replica-mode process`` (both trace files and the profile written; the
    profile's kernel rows equal the launches; the fleet smoke on two
    replica processes);
-10. a raw directory of 400 firms × 240 months (``write_synthetic_cache``)
+10. a raw directory of 200 firms × 240 months (``write_synthetic_cache``)
    through the command line three times: cold (the columnar route ran and
    wrote the slot, no fallback warning), warm (the slot was mapped,
    ``load_raw_data`` skipped) and by the legacy route with the slot off;
@@ -221,7 +221,23 @@ Phases (any failure exits non-zero without the final line):
    ``pipeline.serving_state`` and resumed from its stage checkpoints (three
    hits, K2 once for the figure sweep), bit-identical to an uncheckpointed
    run; its artifact files (``make_figure=False``) held against a CPU
-   run's, and every stage checkpoint reloaded into the object it holds.
+   run's, and every stage checkpoint reloaded into the object it holds;
+12. the task graph: ``python -m fm_returnprediction_tpu_torch.taskgraph
+   --synthetic`` twice on one state DB in subprocesses (the first run
+   executes every task it names, launching K1 and K2 with no nvcc build;
+   the rerun finds every task up to date: no launch, no build), then the
+   DAG in process at 600 months of ``data.benchscale``'s real-scale
+   universe with ``pull_data`` served by a stand-in ``wrds`` module: each
+   task's seconds and launches, the panel checkpoint's bytes, the peak
+   device memory, the up-to-date rerun, and the loaded
+   ``lewellen_panel.npz`` held bit for bit against ``load_or_build_panel``
+   on the same raw directory.
+
+The topology controller rides on phase 5a's journaled process fleet: one
+replica SIGKILLed, ``probe()`` saying ``killed``, ``repair()`` respawning
+it (its seconds), quotes bit-equal to the bare service; then the fleet
+hard-crashed and its declared shape rebuilt by
+``TopologyController.recover`` from the journal, with no nvcc build.
 
 The masked cumulative moments kernel's caller is the time-sharded rolling
 family (phase 5c'), one launch per time shard: its per-shard row carries
@@ -1427,7 +1443,7 @@ print("EXE-PLANE " + json.dumps({
 FLEET_JOURNALED_ROWS = 8192    # rows of the journaled pass the kill lands in
 # rows of the socket process fleet's pass where the shm fleet quotes every
 # row (the socket transport moves ~1,500 rows/s: 60 s for all 88,157)
-PROCESS_SOCKET_ROWS = 16384
+PROCESS_SOCKET_ROWS = 8192
 FLEET_KILL_AT = 3000           # the routed request the kill lands on
 FLEET_CRASH_AT = 2000          # the admitted request the hard crash lands between
 FLEET_RECOVER_ROWS = 4096      # rows the recovered fleet quotes against the bare service
@@ -1836,11 +1852,15 @@ def process_fleet_phase(ref, bare: np.ndarray, registry_root: Path, thread_rates
                     fleet.drain(timeout=60)
                     free2 = _device_free()
                     stats = fleet.stats()
+                    # this session's replay, before the topology pass crashes the
+                    # fleet and its recovery starts a new session on the path
+                    replay = replay_journal(journal)
+                    topology_pass(fleet, transports[-1], journal, registry_root, months, xq,
+                                  bare)
                 finally:
                     fleet.close()
                 free3 = _device_free()
         check(not worker.is_alive(), "the kill-under-load pass did not finish")
-        replay = replay_journal(journal)
         equal = bool(np.array_equal(out["got"], bare[:FLEET_JOURNALED_ROWS], equal_nan=True))
         log(f"process fleet SIGKILL under load ({transports[-1]}, journaled, traced): r0 "
             f"(pid {victim.pid}) killed; ticks {actions}; replaced {replaced_s * 1e3:.1f} ms "
@@ -1868,6 +1888,90 @@ def process_fleet_phase(ref, bare: np.ndarray, registry_root: Path, thread_rates
             f"{merged.returncode}\n" + merged.stdout.strip())
         check(merged.returncode == 0, f"the timeline merge exited {merged.returncode}: "
               f"{merged.stderr[-2000:]}")
+    # the traced block's spans are exported; a later traced run's export
+    # must hold its own spans only
+    telemetry.reset()
+
+
+# rows each fleet of the topology pass quotes against the bare service
+TOPOLOGY_ROWS = 1024
+
+
+def topology_pass(fleet, transport: str, journal: Path, registry_root: Path, months, xq,
+                  bare: np.ndarray) -> None:
+    """The topology controller on the journaled process fleet of
+    ``process_fleet_phase``: declared as 2 process replicas on
+    ``transport``, one replica SIGKILLed, ``probe()`` classifying it
+    ``killed``, ``repair()`` respawning it from the registry's warm pool
+    (the seconds from classification to respawn, the
+    ``fmrp_topology_last_respawn_s`` gauge), quotes after the repair
+    bit-equal to the bare service; then the fleet hard-crashed with
+    requests in flight and the declared shape rebuilt from the journal by
+    ``TopologyController.recover``, with no nvcc build, quoting the same
+    bits."""
+    from fm_returnprediction_tpu_torch import cuda_build
+    from fm_returnprediction_tpu_torch.topology import TopologyController, TopologySpec
+
+    spec = TopologySpec(replicas=2, replica_mode="process", transport=transport)
+    ctl = TopologyController(spec, fleet=fleet)
+    n = TOPOLOGY_ROWS
+    nvcc0 = cuda_build.NVCC_RUNS
+    victim = sorted(fleet.replica_states())[0]
+    proc = fleet.replica(victim).service.proc
+    proc.kill()
+    proc.wait(timeout=60)
+    start = time.perf_counter()
+    probe = {}
+    while probe.get(victim) != "killed" and time.perf_counter() - start < 30:
+        probe = ctl.probe()
+    classify_s = time.perf_counter() - start
+    check(probe.get(victim) == "killed", f"probe() after the SIGKILL: {probe}")
+    actions = ctl.repair(probe)
+    respawn_s = telemetry.registry().gauge("fmrp_topology_last_respawn_s").value
+    after = ctl.probe()
+    new_rid = actions[0].split("->")[1].split(":")[0] if actions else None
+    warm = fleet.warm_reports.get(new_rid)
+    got, wall = _fleet_pass(fleet, months, xq, n)
+    repaired_equal = bool(np.array_equal(got, bare[:n], equal_nan=True))
+    log(f"topology ({transport}): {victim} SIGKILLed, probe() said {probe[victim]!r} in "
+        f"{classify_s * 1e3:.1f} ms; repair() {actions} in {respawn_s:.3f} s from "
+        f"classification to respawn (fmrp_topology_last_respawn_s), the respawn built "
+        f"{getattr(warm, 'builds', None)} and captured {getattr(warm, 'captures', None)}; "
+        f"probe() after it {after}; {n} rows after the repair in {wall:.3f} s, bit-equal to "
+        f"the bare service {repaired_equal}")
+    check(len(actions) == 1 and sorted(after.values()) == ["live", "live"],
+          f"repair() {actions}, then probe() {after}")
+    check(warm is not None and warm.builds == 0, f"the respawned replica's warm report {warm}")
+    check(repaired_equal, "quotes after the topology repair differ from the bare service's")
+
+    for i in range(4):   # in flight at the crash
+        fleet.submit(int(months[i]), xq[i])
+    fleet.hard_crash()
+    start = time.perf_counter()
+    ctl2, report = TopologyController.recover(journal, registry_dir=registry_root,
+                                              state=fleet.state, max_batch=SERVING_MAX_BATCH,
+                                              device="cuda")
+    recover_s = time.perf_counter() - start
+    try:
+        builds = {r: w.builds for r, w in ctl2.fleet.warm_reports.items()}
+        got, wall = _fleet_pass(ctl2.fleet, months, xq, n)
+        kinds = sorted(m.kind for m in ctl2.members())
+    finally:
+        ctl2.close()
+    recovered_equal = bool(np.array_equal(got, bare[:n], equal_nan=True))
+    nvcc = cuda_build.NVCC_RUNS - nvcc0
+    log(f"topology recover after hard_crash: {recover_s:.2f} s to rebuild {ctl2.spec} "
+        f"(journal mark {report.journal.last_topology}); clean {report.clean}, closed out "
+        f"{len(report.journal.recovered)} in flight, replicas {report.n_replicas}, "
+        f"zero-build starts {report.zero_compile_starts}, builds {builds}, nvcc builds in the "
+        f"pass {nvcc}; members {kinds}; {n} rows in {wall:.3f} s, bit-equal to the bare "
+        f"service {recovered_equal}")
+    check(ctl2.spec == spec and report.clean and report.n_replicas == 2,
+          f"recover rebuilt {ctl2.spec}, clean {report.clean}")
+    check(report.zero_compile_starts == 2 and not any(builds.values()) and nvcc == 0,
+          f"recover built kernels: {builds}, nvcc {nvcc}")
+    check(kinds == ["replica_process", "replica_process", "router"], f"members {kinds}")
+    check(recovered_equal, "the recovered fleet's quotes differ from the bare service's")
 
 
 def trace_phase(base, daily, digests: dict) -> None:
@@ -1942,7 +2046,7 @@ def profile_phase(base, daily, digests: dict) -> None:
 
 def trace_cli_phase() -> None:
     """``--synthetic --trace-dir D --profile-dir P --registry-dir R
-    --fleet-size 2 --replica-mode process`` at 150 × 130 through the command
+    --fleet-size 2 --replica-mode process`` at 60 × 130 through the command
     line: exit 0, both trace files and the profile written and parsed, the
     usual launches; the fleet smoke (two replica processes) with every
     quote finite and 2 healthy replicas; then ``python -m
@@ -1965,10 +2069,17 @@ def trace_cli_phase() -> None:
                                  "--registry-dir", str(registry_root), "verify"],
                                 cwd=Path(__file__).resolve().parent, capture_output=True,
                                 text=True, timeout=300)
-        listed = subprocess.run([sys.executable, "-m", "fm_returnprediction_tpu_torch.registry",
-                                 "--registry-dir", str(registry_root), "ls"],
-                                cwd=Path(__file__).resolve().parent, capture_output=True,
-                                text=True, timeout=300).stdout
+        # the listing in process (the command line's main): one process
+        # start less than a second subprocess
+        import contextlib
+        import io
+
+        from fm_returnprediction_tpu_torch.registry.__main__ import main as registry_main
+
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            registry_main(["--registry-dir", str(registry_root), "ls"])
+        listed = buf.getvalue()
     launches = run["launches"]
     log(f"CLI --trace-dir --profile-dir --registry-dir --fleet-size 2 --replica-mode process at "
         f"{SYNTHETIC_CLI_FIRMS} "
@@ -3124,7 +3235,7 @@ def ingest_phase(res) -> None:
 
 def bootstrap_backtest_cli_phase() -> None:
     """``python -m fm_returnprediction_tpu_torch.pipeline --synthetic
-    --bootstrap 200 --backtest --backtest-sink metrics`` at 150 × 130 on
+    --bootstrap 200 --backtest --backtest-sink metrics`` at 60 × 130 on
     the card (one command for both): exit 0 with the
     ``bootstrap_table`` and ``backtest`` stages and the bank's K2 launch;
     then ``bootstrap_se.pkl``/``.tex`` and ``backtest.csv`` written by an
@@ -3893,7 +4004,7 @@ def _estimators_vs_cpu(gpu) -> None:
 
 def estimator_cli_phase() -> None:
     """``python -m fm_returnprediction_tpu_torch.pipeline --synthetic
-    --specgrid --specgrid-estimator iv:…`` at 150 × 130 on the card: exit 0
+    --specgrid --specgrid-estimator iv:…`` at 60 × 130 on the card: exit 0
     with the ``specgrid`` stage and one K2 launch more than the main path
     (the sweep's pairs); then ``--specgrid-estimator absorb:ind``, which
     exits non-zero as the reference does (the pipeline has no FE codes: the
@@ -3944,13 +4055,13 @@ ARTIFACTS = ("data_saved.marker", "table_1.pkl", "table_1.tex", "table_2.pkl", "
              "research_report.tex")
 
 
-# The raw-directory command line's synthetic universe: 400 firms over 240
+# The raw-directory command line's synthetic universe: 200 firms over 240
 # months, written once and read by three runs; the --synthetic command line
-# runs at 150 x 130 (see PERF.md, Cells). Both were cut (from 1000 and 250
-# firms, and from 600 for the process phases) to pay for later phases:
-# their generation is linear in firms.
-CLI_FIRMS, CLI_MONTHS = 400, 240
-SYNTHETIC_CLI_FIRMS, SYNTHETIC_CLI_MONTHS = 150, 130
+# runs at 60 x 130 (see PERF.md, Cells). Both were cut (from 1000, then
+# 400, and from 250, then 150, firms, and from 600 for the process phases)
+# to pay for later phases: their generation is linear in firms.
+CLI_FIRMS, CLI_MONTHS = 200, 240
+SYNTHETIC_CLI_FIRMS, SYNTHETIC_CLI_MONTHS = 60, 130
 # Launches of each raw-directory command-line run at CLI_FIRMS x CLI_MONTHS:
 # K1 std over the daily strips, sum w=12 and w=24, the figure's mean roll and
 # four forecast means; K2 for Table 2 and the figure grid (PERF.md, Findings).
@@ -4253,6 +4364,240 @@ def resume_phase(raw: Path) -> None:
         compare_artifact_files(tmp / "cuda", tmp / "cpu")
 
 
+# --- the task graph --------------------------------------------------------
+
+# Run the task graph's command line as a user would, then print the launch
+# counters and the nvcc builds of that process.
+TASKGRAPH_WRAPPER = """
+import json, runpy, sys
+from fm_returnprediction_tpu_torch import cuda_build
+from fm_returnprediction_tpu_torch.ops.rolling import (
+    masked_cumulative_moments_cuda, rolling_reduce_cuda)
+from fm_returnprediction_tpu_torch.specgrid.grams import gram_contract_cuda
+sys.argv = ["fm_returnprediction_tpu_torch.taskgraph"] + sys.argv[1:]
+try:
+    runpy.run_module("fm_returnprediction_tpu_torch.taskgraph", run_name="__main__",
+                     alter_sys=True)
+    code = 0
+except SystemExit as exc:
+    code = exc.code
+print("TG-LAUNCHES " + json.dumps({"exit": code, "k1": rolling_reduce_cuda.launches,
+                                   "k2": gram_contract_cuda.launches,
+                                   "moments": masked_cumulative_moments_cuda.launches,
+                                   "nvcc": cuda_build.NVCC_RUNS}))
+"""
+ANSI = re.compile(r"\x1b\[[0-9;]*m")
+TASK_STARTED = re.compile(r"^\.  (\S+)$", re.MULTILINE)
+TASK_UP_TO_DATE = re.compile(r"^-- (\S+) \(up to date\)$", re.MULTILINE)
+# The DAG's tasks without the figure; "reports" (figure_1.pdf, which needs
+# matplotlib) and "latex" run only where matplotlib imports.
+TG_TASKS = ["build_panel", "serve_state", "specgrid", "backtest"]
+# The real-size DAG: 600 months of the real-scale synthetic universe
+# (data.benchscale) with every column; its permnos cut from 22,000 (131.7 s
+# for the phase) to 4,000 to keep the whole script under 800 s (PERF.md,
+# Cells).
+TG_MONTHS = 600
+TG_PERMNOS = 4000
+WRDS_TABLES = (("dsf_v2", "crsp_d"), ("msf_v2", "crsp_m"), ("comp.funda", "comp"),
+               ("ccmxpf_linktable", "ccm"), ("dsix", "crsp_index_d"))
+
+
+def _dag_tasks() -> list:
+    """The tasks to name: every task where matplotlib imports, else the
+    ones that do not draw the figure."""
+    if importlib.util.find_spec("matplotlib") is not None:
+        return TG_TASKS + ["reports", "latex"]
+    return list(TG_TASKS)
+
+
+def run_taskgraph_cli(args, env: dict) -> dict:
+    """The task graph's command line in a subprocess on the card: wall,
+    the tasks it started and found up to date, launches and nvcc builds."""
+    torch.cuda.empty_cache()
+    start = time.perf_counter()
+    done = subprocess.run([sys.executable, "-c", TASKGRAPH_WRAPPER] + [str(a) for a in args],
+                          cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
+                          timeout=600, env={**os.environ, **env})
+    wall = time.perf_counter() - start
+    check(done.returncode == 0, f"taskgraph {args} exited {done.returncode}: "
+          f"{done.stderr[-2000:]}")
+    out = ANSI.sub("", done.stdout)
+    counts = json.loads(out.split("TG-LAUNCHES ", 1)[1].splitlines()[0])
+    return dict(wall=wall, counts=counts, started=TASK_STARTED.findall(out),
+                up_to_date=TASK_UP_TO_DATE.findall(out), stdout=out)
+
+
+def taskgraph_cli_phase() -> None:
+    """``python -m fm_returnprediction_tpu_torch.taskgraph --synthetic`` on
+    the card, the documented entry, twice on one state DB: the first run
+    executes every task it names (and their dependencies), launching K1
+    and K2 and building nothing (the kernels were built at the start); the
+    rerun finds every task up to date and runs no action (no launch, no
+    build)."""
+    names = _dag_tasks()
+    with tempfile.TemporaryDirectory() as tmp:
+        env = {"DATA_DIR": f"{tmp}/data", "OUTPUT_DIR": f"{tmp}/out"}
+        args = ["--synthetic", "--db", f"{tmp}/db.sqlite"] + names
+        first = run_taskgraph_cli(args, env)
+        again = run_taskgraph_cli(args, env)
+        made = sorted(os.listdir(f"{tmp}/out"))
+    want = {"config", "pull_data", *names}
+    log(f"taskgraph --synthetic {' '.join(names)} on the card: first run {first['wall']:.1f} s, "
+        f"tasks run {first['started']}, launches {first['counts']}; rerun {again['wall']:.1f} s, "
+        f"up to date {again['up_to_date']}, tasks run {again['started']}, launches "
+        f"{again['counts']}; artifacts {made}")
+    check(first["counts"]["exit"] == 0 and again["counts"]["exit"] == 0,
+          "the task graph's command line did not exit 0")
+    check(set(first["started"]) == want and not first["up_to_date"],
+          f"the first run ran {first['started']}, not {sorted(want)}")
+    check(first["counts"]["k1"] > 0 and first["counts"]["k2"] > 0
+          and first["counts"]["nvcc"] == 0,
+          f"the first run's launches and builds {first['counts']}")
+    check(not again["started"] and set(again["up_to_date"]) == want,
+          f"the rerun ran {again['started']} and found {again['up_to_date']} up to date")
+    check(again["counts"] == {"exit": 0, "k1": 0, "k2": 0, "moments": 0, "nvcc": 0},
+          f"the rerun launched or built {again['counts']}")
+    check({"specgrid_scenarios.csv", "backtest.csv", "task_timings.json"} <= set(made),
+          f"the task graph's artifacts {made}")
+
+
+class _StandInWrds:
+    """A ``wrds`` module answering the pullers' five queries from frames in
+    memory (each frame handed over once, its ``jdate`` column dropped as a
+    WRDS table has none). The network is never reached."""
+
+    def __init__(self, frames: dict):
+        self.frames = frames
+        self.queries = []
+        outer = self
+
+        class Connection:
+            def __init__(self, wrds_username=""):
+                pass
+
+            def raw_sql(self, sql, date_cols=None):
+                outer.queries.append(sql)
+                key = next(k for table, k in WRDS_TABLES if table in sql)
+                frame = outer.frames.pop(key)
+                if "jdate" in frame.columns:
+                    frame.pop("jdate")
+                return frame
+
+            def close(self):
+                pass
+
+        self.module = type(sys)("wrds")
+        self.module.Connection = Connection
+
+    def __enter__(self):
+        self.saved = sys.modules.get("wrds")
+        sys.modules["wrds"] = self.module
+        return self
+
+    def __exit__(self, *exc):
+        if self.saved is None:
+            sys.modules.pop("wrds", None)
+        else:
+            sys.modules["wrds"] = self.saved
+
+
+def taskgraph_real_phase(seed: int) -> None:
+    """The task graph in process at 600 months of the real-scale synthetic
+    universe: ``pull_data`` through the WRDS pullers against a stand-in
+    ``wrds`` module serving ``generate_benchscale_wrds``'s frames, then the
+    panel checkpoint, the serving state and the two sweeps on the card,
+    twice on one state DB. The first run launches K1 and K2; the rerun runs
+    no action (no launch, no build). The loaded ``lewellen_panel.npz`` is
+    ``load_or_build_panel``'s panel of the same raw directory, bit for
+    bit."""
+    from fm_returnprediction_tpu_torch import cuda_build
+    from fm_returnprediction_tpu_torch.data.benchscale import generate_benchscale_wrds
+    from fm_returnprediction_tpu_torch.panel.dense import DensePanel
+    from fm_returnprediction_tpu_torch.taskgraph.engine import (
+        PlainReporter,
+        TaskRunner,
+        write_timing_log,
+    )
+    from fm_returnprediction_tpu_torch.taskgraph.tasks import PANEL_FILE, build_tasks
+
+    names = _dag_tasks()
+    start = time.perf_counter()
+    frames = generate_benchscale_wrds(n_permnos=TG_PERMNOS, n_months=TG_MONTHS, seed=seed)
+    gen_s = time.perf_counter() - start
+    daily_rows = len(frames["crsp_d"])
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        tasks = build_tasks(raw_dir=tmp / "raw", processed_dir=tmp / "processed",
+                            output_dir=tmp / "out", device="cuda")
+        per_task = {}   # task → (K1, K2) launches of its actions
+        for t in tasks:
+            def before(name=t.name):
+                per_task[name] = (rolling_reduce_cuda.launches, gram_contract_cuda.launches)
+
+            def after(name=t.name):
+                k1, k2 = per_task[name]
+                per_task[name] = (rolling_reduce_cuda.launches - k1,
+                                  gram_contract_cuda.launches - k2)
+
+            t.actions = [before, *t.actions, after]
+        db = tmp / "db.sqlite"
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        nvcc0 = cuda_build.NVCC_RUNS
+        reset_counts()
+        start = time.perf_counter()
+        with _StandInWrds(frames) as wrds, TaskRunner(tasks, db_path=db,
+                                                      reporter=PlainReporter()) as runner:
+            ok = runner.run(names)
+            write_timing_log(runner, tmp / "timings.json")
+        first_s = time.perf_counter() - start
+        first = launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        check(ok, "the real-size task graph failed")
+        timings = json.loads((tmp / "timings.json").read_text())
+        npz = tmp / "processed" / PANEL_FILE
+        npz_bytes = npz.stat().st_size
+
+        reset_counts()
+        start = time.perf_counter()
+        with TaskRunner(tasks, db_path=db, reporter=PlainReporter()) as runner:
+            ok2 = runner.run(names)
+            stale = [t.name for t in tasks if t.name in names and not runner.is_up_to_date(t)]
+        rerun_s = time.perf_counter() - start
+        rerun = launch_counts()
+        builds = cuda_build.NVCC_RUNS - nvcc0
+
+        loaded = DensePanel.load(npz, device="cuda")
+        want, _ = load_or_build_panel(tmp / "raw", device="cuda")
+        same = (loaded.var_names == want.var_names
+                and bool(torch.equal(torch.isnan(loaded.values), torch.isnan(want.values)))
+                and bool(torch.equal(torch.nan_to_num(loaded.values, nan=0.0),
+                                     torch.nan_to_num(want.values, nan=0.0)))
+                and np.array_equal(loaded.mask, want.mask)
+                and np.array_equal(loaded.ids, want.ids)
+                and np.array_equal(loaded.months, want.months))
+        shape = tuple(loaded.values.shape)
+        del loaded, want
+    log(f"taskgraph at {TG_MONTHS} months x {TG_PERMNOS:,} permnos ({daily_rows:,} daily rows, "
+        f"generated in {gen_s:.1f} s), tasks {names}: {len(wrds.queries)} WRDS queries served "
+        f"by the stand-in; first run {first_s:.1f} s, per task (s) "
+        f"{json.dumps({k: round(v, 3) for k, v in sorted(timings.items())})}; launches K1 "
+        f"{first['k1']} K2 {first['k2']} K3 {first['moments']}, per task (K1, K2) "
+        f"{json.dumps(per_task)}; {PANEL_FILE} {npz_bytes:,} bytes "
+        f"for a panel of {shape}; peak device memory {peak / 2**30:.3f} GiB; rerun "
+        f"{rerun_s:.2f} s, launches K1 {rerun['k1']} K2 {rerun['k2']} K3 {rerun['moments']}, "
+        f"stale after it {stale}; nvcc builds {builds}; the loaded checkpoint bit-identical to "
+        f"load_or_build_panel's panel {same}")
+    check(len(wrds.queries) == 5, f"the stand-in answered {len(wrds.queries)} queries, not 5")
+    check(first["k1"] > 0 and first["k2"] > 0, f"the first run launched {first}")
+    check(ok2 and not stale and rerun["k1"] == rerun["k2"] == rerun["moments"] == 0,
+          f"the rerun launched K1 {rerun['k1']} K2 {rerun['k2']} or left {stale} stale")
+    check(builds == 0, f"the real-size task graph built {builds} kernels")
+    check(0 < shape[0] <= TG_MONTHS and 0 < shape[1] <= TG_PERMNOS,
+          f"the panel checkpoint's shape {shape}")
+    check(same, "the panel checkpoint differs from load_or_build_panel's panel")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=20140131)
@@ -4338,6 +4683,8 @@ def main(argv=None) -> int:
         phase_timed("specgrid_cli_phase", specgrid_cli_phase, raw)
         phase_timed("ingest_pairs_phase", ingest_pairs_phase, raw)
         phase_timed("resume_phase", resume_phase, raw)
+    phase_timed("taskgraph_cli_phase", taskgraph_cli_phase)
+    phase_timed("taskgraph_real_phase", taskgraph_real_phase, args.seed)
 
     for row in rows:
         key = row.pop("key")

@@ -48,6 +48,7 @@ from fm_returnprediction_tpu_torch.panel.daily import CompactDaily
 from fm_returnprediction_tpu_torch.panel.dense import DensePanel
 from fm_returnprediction_tpu_torch.registry import integrity as _integrity
 from fm_returnprediction_tpu_torch.resilience.errors import CorruptArtifactError
+from fm_returnprediction_tpu_torch.settings import config
 
 __all__ = [
     "PREPARED_DIRNAME",
@@ -74,8 +75,8 @@ _DAILY_ARRAYS = (
 
 
 def prepared_enabled() -> bool:
-    """The ``PREPARED_CACHE`` switch (default 1: on)."""
-    return bool(int(os.environ.get("PREPARED_CACHE", "1")))
+    """The ``PREPARED_CACHE`` setting (default 1: on)."""
+    return bool(config("PREPARED_CACHE"))
 
 
 def raw_fingerprint(raw_dir, dtype, salt: str = "") -> str:

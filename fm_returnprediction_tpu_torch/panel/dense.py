@@ -4,16 +4,22 @@
 permno), ``K`` the variables. Firm-months absent from the source are masked
 out and hold NaN. Pandas' row-shift semantics are reproduced downstream by
 compacting each firm's observed rows (``ops.compaction``).
-``long_to_dense`` packs a long firm-month frame into this layout on the host.
+``long_to_dense`` packs a long firm-month frame into this layout on the host;
+``DensePanel.save``/``load`` checkpoint it between the task graph's
+``build_panel`` stage and the stages that read it.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from pathlib import Path
 from typing import List, Sequence
 
 import numpy as np
 import pandas as pd
+import torch
+
+from fm_returnprediction_tpu_torch.device import resolve_device
 
 __all__ = ["DensePanel", "long_to_dense"]
 
@@ -54,6 +60,48 @@ class DensePanel:
         """The (T, N, len(names)) sub-array in the given variable order."""
         idx = [self.var_index(n) for n in names]
         return self.values[:, :, idx]
+
+    def save(self, path) -> None:
+        """Checkpoint the panel as one compressed npz of host arrays, the
+        reference package's format (the same keys, so either package loads
+        the other's file): ``values``, ``mask``, ``months`` (int64
+        nanoseconds), ``ids`` and ``var_names`` (fixed-width unicode, so
+        the file loads with ``allow_pickle`` off). A device tensor is
+        copied to the host first. The write is atomic: a crash leaves the
+        old file or none."""
+        from fm_returnprediction_tpu_torch.utils.cache import _atomic_replace
+
+        values = self.values
+        if isinstance(values, torch.Tensor):
+            values = values.detach().cpu().numpy()
+        path = Path(path)
+        if path.suffix != ".npz":
+            path = Path(str(path) + ".npz")  # where np.savez would write it
+        with _atomic_replace(path) as tmp:
+            np.savez_compressed(
+                tmp,
+                values=values,
+                mask=np.asarray(self.mask),
+                months=np.asarray(self.months).astype("datetime64[ns]").astype(np.int64),
+                ids=np.asarray(self.ids),
+                var_names=np.asarray(self.var_names, dtype=np.str_),
+            )
+
+    @classmethod
+    def load(cls, path, device=None) -> "DensePanel":
+        """A panel saved by either package, its values a tensor on
+        ``device`` (default the GPU; raises without one) in the file's
+        dtype; the mask, months and ids stay host numpy."""
+        device = resolve_device(device)
+        with np.load(path, allow_pickle=False) as z:
+            values = torch.from_numpy(z["values"]).to(device)
+            return cls(
+                values=values,
+                mask=z["mask"],
+                months=z["months"].astype("datetime64[ns]"),
+                ids=z["ids"],
+                var_names=[str(v) for v in z["var_names"]],
+            )
 
 
 def long_to_dense(

@@ -345,9 +345,11 @@ def shard_panel(y, x, mask, mesh: Mesh, axis_name: str = "firms"):
 
 
 def mesh_devices_setting() -> int:
-    """``MESH_DEVICES`` (default 1): 1 = no mesh, 0 = every device, N =
-    exactly N."""
-    return int(os.environ.get("MESH_DEVICES", "1").strip() or "1")
+    """The ``MESH_DEVICES`` setting (default 1): 1 = no mesh, 0 = every
+    device, N = exactly N."""
+    from fm_returnprediction_tpu_torch.settings import config
+
+    return config("MESH_DEVICES")
 
 
 def default_mesh(axis_name: str = "firms", device=None) -> Optional[Mesh]:

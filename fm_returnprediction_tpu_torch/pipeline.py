@@ -115,6 +115,7 @@ from fm_returnprediction_tpu_torch.reporting.table2 import (
 )
 from fm_returnprediction_tpu_torch.resilience.checkpoint import StageCheckpointer
 from fm_returnprediction_tpu_torch.resilience.faults import fault_site
+from fm_returnprediction_tpu_torch.settings import config
 from fm_returnprediction_tpu_torch.serving.state import (
     ServingState,
     build_serving_state_from_panel,
@@ -149,10 +150,10 @@ _TORCH_DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
 def resolve_dtype(dtype=None) -> torch.dtype:
     """The compute dtype: ``dtype`` (a torch or numpy dtype, or a name)
-    when given, else the ``DTYPE`` environment variable, default
-    ``float32``."""
+    when given, else the ``DTYPE`` setting (``settings``; default
+    ``float32``)."""
     if dtype is None:
-        dtype = os.environ.get("DTYPE", "float32")
+        dtype = config("DTYPE")
     if isinstance(dtype, torch.dtype):
         return dtype
     name = np.dtype(dtype).name
@@ -175,20 +176,18 @@ def panel_route() -> str:
 
 
 def _resolve_turnover(include_turnover: Optional[bool]) -> bool:
-    """``include_turnover``, else the ``INCLUDE_TURNOVER`` environment
-    variable (default 0): the opt-in 16th characteristic."""
+    """``include_turnover``, else the ``INCLUDE_TURNOVER`` setting (default
+    0): the opt-in 16th characteristic."""
     if include_turnover is None:
-        return bool(int(os.environ.get("INCLUDE_TURNOVER", "0")))
+        return bool(config("INCLUDE_TURNOVER"))
     return bool(include_turnover)
 
 
 def _default_raw_data_dir() -> Path:
-    """``<DATA_DIR>/raw``, ``DATA_DIR`` (default ``_data``) taken relative
-    to the repository root unless absolute."""
-    data_dir = Path(os.environ.get("DATA_DIR", "_data"))
-    if not data_dir.is_absolute():
-        data_dir = Path(__file__).resolve().parents[1] / data_dir
-    return data_dir / "raw"
+    """The ``RAW_DATA_DIR`` setting: ``<DATA_DIR>/raw``, ``DATA_DIR``
+    (default ``_data``) taken relative to the repository root unless
+    absolute."""
+    return config("RAW_DATA_DIR")
 
 
 def _pipeline_fingerprint(panel, dtype, salt: str = "") -> str:

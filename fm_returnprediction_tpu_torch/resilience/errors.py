@@ -2,11 +2,12 @@
 
 The part of the reference package's failure taxonomy that the port uses:
 corrupt persisted artifacts, injected faults, contract violations,
-quarantined artifacts and drift, an exhausted retry, a stalled serving
-dispatch, a killed serving replica, and the serving fleet's admission
-shed, crash close-out and aborted rollover. Nothing here imports anything, so
-every layer (``utils.cache``, ``data.prepared``, ``resilience.checkpoint``,
-``resilience.retry``, ``serving``) can name these types.
+quarantined artifacts and drift, an exhausted retry, a task past its time
+budget, a stalled serving dispatch, a killed serving replica, and the
+serving fleet's admission shed, crash close-out and aborted rollover.
+Nothing here imports anything, so every layer (``utils.cache``,
+``data.prepared``, ``resilience.checkpoint``, ``resilience.retry``,
+``serving``, ``taskgraph``) can name these types.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from __future__ import annotations
 __all__ = [
     "ResilienceError",
     "RetryExhaustedError",
+    "TaskTimeoutError",
     "DispatchTimeoutError",
     "CorruptArtifactError",
     "IngestRejectedError",
@@ -35,6 +37,10 @@ class ResilienceError(RuntimeError):
 class RetryExhaustedError(ResilienceError):
     """A retried call failed on every attempt; ``__cause__`` is the last
     underlying error."""
+
+
+class TaskTimeoutError(ResilienceError):
+    """A task action exceeded its ``timeout_s`` wall-clock budget."""
 
 
 class DispatchTimeoutError(ResilienceError):

@@ -1,8 +1,8 @@
 """Retry with exponential backoff and deterministic jitter.
 
-The one retry implementation of the port, for anything a caller wraps
-(the reference also wraps its WRDS pull and task-graph actions in it;
-those callers are ROADMAP A9). Policy decisions live in a frozen
+The one retry implementation of the port, for anything a caller wraps:
+the WRDS queries (``data.wrds_pull``) and the task graph's retried
+actions (``taskgraph.engine``). Policy decisions live in a frozen
 :class:`RetryPolicy`; the loop lives in :func:`call_with_retry`. Each
 attempt is a ``retry:<label>`` span, each failed attempt a
 ``retry.attempt`` event and a count in ``fmrp_retry_attempts_total``, each

@@ -435,6 +435,9 @@ class ServingFleet:
         else:
             self.brownout = None
         self._crashed = False
+        # set by TopologyController.__init__ when one adopts this fleet;
+        # the supervisor's scale verbs prefer it over direct fleet calls
+        self.topology = None
         try:
             self._add_replicas(n_replicas)
         except Exception:

@@ -380,11 +380,15 @@ class Supervisor:
         live = len(self.fleet.replica_states())
         now = self._clock()
         cooled = (now - self._last_scale_t) >= pol.cooldown_s
+        # scale verbs route through the topology controller when one is
+        # attached, so elasticity updates the DECLARED shape (and its
+        # journal topology mark) instead of drifting away from it
+        scaler = getattr(self.fleet, "topology", None) or self.fleet
         if pressure:
             self._relief_ticks = 0
             if cooled and live < pol.max_replicas:
                 n = min(pol.step, pol.max_replicas - live)
-                rids = self.fleet.scale_out(
+                rids = scaler.scale_out(
                     n,
                     reason=f"burn={sig.burn:.2f} occ={sig.occupancy:.2f} "
                            f"shed+={sig.shed_delta}",
@@ -396,7 +400,7 @@ class Supervisor:
             self._relief_ticks += 1
             if (cooled and self._relief_ticks >= pol.in_ticks
                     and sig.healthy > pol.min_replicas):
-                rid = self.fleet.scale_in(reason="sustained relief")
+                rid = scaler.scale_in(reason="sustained relief")
                 if rid is not None:
                     self._last_scale_t = now
                     self._relief_ticks = 0

@@ -7,9 +7,14 @@ unicode, so the file loads with ``allow_pickle`` off). The metadata records
 ``registry.integrity.array_bundle_digest`` over every array, so a bundle
 written by either package loads, verified, in the other.
 
-``write_cache_data``/``save_cache_data`` write a frame (parquet or csv) and
-``load_cache_data`` reads one back by its file name, as the raw-data route
-of the pipeline does. Every write is atomic (temporary file in the same
+``write_cache_data``/``save_cache_data`` write a frame (parquet, csv or a
+zip holding one csv) and ``load_cache_data`` reads one back by its file
+name, as the raw-data route of the pipeline does. The WRDS pullers
+(``data.wrds_pull``) name their caches by the reference package's scheme:
+``<code>__<safe-filters>.<ext>`` (``cache_filename``), or the dataset code,
+the date filters and a 9-hex sha256 of the others (``hash_cache_filename``),
+the first existing of ``.parquet``/``.csv``/``.zip`` winning
+(``file_cached``). Every write is atomic (temporary file in the same
 directory + ``os.replace``): a crash mid-write leaves the old file or
 nothing, never a torn artifact. The writers carry the fault sites
 ``cache.write_cache_data`` and ``cache.save_array_bundle``
@@ -19,12 +24,15 @@ nothing, never a torn artifact. The writers carry the fault sites
 from __future__ import annotations
 
 import contextlib
+import datetime
+import hashlib
 import json
 import os
+import re
 import threading
 import zipfile
 from pathlib import Path
-from typing import Any, Dict, Optional, Tuple, Union
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import pandas as pd
@@ -33,11 +41,99 @@ from fm_returnprediction_tpu_torch.registry.integrity import array_bundle_digest
 from fm_returnprediction_tpu_torch.resilience.errors import CorruptArtifactError
 from fm_returnprediction_tpu_torch.resilience.faults import fault_site
 
-__all__ = ["CorruptArtifactError", "array_bundle_digest", "save_array_bundle",
+__all__ = ["CorruptArtifactError", "array_bundle_digest", "cache_filename", "file_cached",
+           "flatten_dict_to_str", "hash_cache_filename", "save_array_bundle",
            "load_array_bundle", "read_cached_data", "write_cache_data",
            "save_cache_data", "load_cache_data"]
 
-_FRAME_EXTS = ("parquet", "csv")
+_FRAME_EXTS = ("parquet", "csv", "zip")
+
+
+def flatten_dict_to_str(filters: Dict[str, Any]) -> str:
+    """Flatten a (possibly nested) filter dict into a stable string key:
+    ``{'ticker': ['AAPL'], 'date': {'gte': '2020-01-01'}}`` →
+    ``"ticker=['AAPL'],date.gte=2020-01-01"``."""
+    items: List[str] = []
+    for key, value in filters.items():
+        if isinstance(value, dict):
+            items.extend(f"{key}.{sub}={subval}" for sub, subval in value.items())
+        else:
+            items.append(f"{key}={value}")
+    return ",".join(items)
+
+
+def _strip_keys(text: str) -> str:
+    return re.sub(r"export=[a-zA-Z]*|[^,]*=", "", text)
+
+
+def _char_clean(text: str) -> str:
+    for old, new in (("/", "_"), ("=", "_"), (",", "_"), ("-", ""), (" ", ""), ("'", "")):
+        text = text.replace(old, new)
+    return text
+
+
+def _sanitize(text: str) -> str:
+    return _char_clean(_strip_keys(text))
+
+
+def _split_filters(filters_str: str) -> List[str]:
+    """Split a flattened filter string on top-level commas only, keeping
+    bracketed list values (``date=['a', 'b']``) whole."""
+    parts, cur, depth = [], [], 0
+    for ch in filters_str:
+        if ch == "," and depth == 0:
+            parts.append("".join(cur))
+            cur = []
+            continue
+        if ch == "[":
+            depth += 1
+        elif ch == "]":
+            depth = max(depth - 1, 0)
+        cur.append(ch)
+    parts.append("".join(cur))
+    return [p for p in parts if p]
+
+
+def _cleanup(name: str) -> str:
+    return name.replace("__.", ".").replace("_.", ".")
+
+
+def cache_filename(code: str, filters_str: str, data_dir: Union[Path, str],
+                   file_ext_list: tuple = _FRAME_EXTS) -> List[Path]:
+    """Verbose cache paths ``<code>__<safe-filters>.<ext>`` for each
+    extension. A filter string without a date component gets today's date
+    appended, so undated pulls age out daily."""
+    if "date" not in filters_str:
+        filters_str += f"_{datetime.date.today().strftime('%Y%m%d')}"
+    safe = _sanitize(filters_str)
+    data_dir = Path(data_dir)
+    return [data_dir / _cleanup(f"{code.replace('/', '_')}__{safe}.{ext}")
+            for ext in file_ext_list]
+
+
+def hash_cache_filename(code: str, filters_str: str, data_dir: Union[Path, str],
+                        file_ext_list: tuple = _FRAME_EXTS) -> List[Path]:
+    """Hashed cache paths ``<code>_<date-parts>_<9-hex sha256 of the rest>``:
+    the filters whose key names a date stay readable in the name, the
+    others fold into the hash, and the dataset code always leads, so two
+    datasets with the same filters never collide."""
+    if "date" not in filters_str and "end_date" not in filters_str:
+        filters_str += f"_{datetime.date.today().strftime('%Y%m%d')}"
+    parts = _split_filters(filters_str)
+    keep_parts = [p for p in parts if "date" in p.partition("=")[0]]
+    hash_parts = [p for p in parts if "date" not in p.partition("=")[0]]
+    safe_keep = _char_clean(code) + "_" + _sanitize(",".join(keep_parts))
+    digest = hashlib.sha256(_sanitize(",".join(hash_parts)).encode()).hexdigest()[:9]
+    data_dir = Path(data_dir)
+    return [data_dir / _cleanup(f"{safe_keep}_{digest}.{ext}") for ext in file_ext_list]
+
+
+def file_cached(filepaths: List[Path]) -> Optional[Path]:
+    """The first existing path among the candidates, else None."""
+    for filepath in filepaths:
+        if Path(filepath).exists():
+            return Path(filepath)
+    return None
 
 
 @contextlib.contextmanager
@@ -114,18 +210,27 @@ def load_array_bundle(
 
 
 def read_cached_data(filepath: Union[Path, str], columns=None) -> pd.DataFrame:
-    """Read a cached frame. ``columns`` prunes the read: parquet reads only
-    the named column chunks, csv passes them as ``usecols``."""
+    """Read a cached frame; a zip archive holds one member (parquet or
+    csv). ``columns`` prunes the read: parquet reads only the named column
+    chunks, csv passes them as ``usecols``."""
     fmt = Path(filepath).suffix.lstrip(".")
     if fmt == "csv":
         return pd.read_csv(filepath, usecols=columns)
     if fmt == "parquet":
         return pd.read_parquet(filepath, columns=columns)
+    if fmt == "zip":
+        with zipfile.ZipFile(filepath, "r") as archive:
+            member = archive.namelist()[0]
+            with archive.open(member) as handle:
+                if member.endswith(".parquet"):
+                    return pd.read_parquet(handle, columns=columns)
+                return pd.read_csv(handle, usecols=columns)
     raise ValueError(f"Unsupported file format: {fmt}")
 
 
 def write_cache_data(df: pd.DataFrame, filepath: Union[Path, str]) -> None:
-    """Write a frame by its file's extension (parquet or csv), atomically."""
+    """Write a frame by its file's extension (parquet, csv, or a zip
+    holding one csv named after the archive), atomically."""
     filepath = Path(filepath)
     fmt = filepath.suffix.lstrip(".")
     if fmt not in _FRAME_EXTS:
@@ -133,15 +238,32 @@ def write_cache_data(df: pd.DataFrame, filepath: Union[Path, str]) -> None:
     with _atomic_replace(filepath) as tmp:
         if fmt == "parquet":
             df.to_parquet(tmp, index=False)
-        else:
+        elif fmt == "csv":
             df.to_csv(tmp, index=False)
+        else:
+            with zipfile.ZipFile(tmp, "w", zipfile.ZIP_DEFLATED) as archive:
+                archive.writestr(filepath.stem + ".csv", df.to_csv(index=False))
     fault_site("cache.write_cache_data", path=filepath)
 
 
-def save_cache_data(df: pd.DataFrame, data_dir: Union[Path, str], file_name: str) -> Path:
-    """Save ``df`` atomically as ``data_dir/file_name`` (the name carries its
-    ``.parquet`` or ``.csv`` extension). Returns the path written."""
-    cache_path = Path(data_dir, file_name)
+def save_cache_data(df: pd.DataFrame, data_dir: Union[Path, str],
+                    cache_paths: Optional[List[Path]] = None,
+                    file_name: Optional[str] = None,
+                    file_type: Optional[str] = None) -> Path:
+    """Save ``df`` atomically under ``file_name`` in ``data_dir`` (a name
+    without a known extension gets ``file_type``, default parquet), or
+    without a name at the first of ``cache_paths`` whose suffix is
+    ``file_type``. Returns the path written."""
+    if file_name is None:
+        file_type = file_type or "parquet"
+        cache_path = next((p for p in (cache_paths or []) if p.suffix == f".{file_type}"),
+                          None)
+        if cache_path is None:
+            raise ValueError("No cache path matches the requested file type.")
+    elif not any(file_name.endswith(f".{ext}") for ext in _FRAME_EXTS):
+        cache_path = Path(data_dir, f"{file_name}.{file_type or 'parquet'}")
+    else:
+        cache_path = Path(data_dir, file_name)
     write_cache_data(df, cache_path)
     return cache_path
 

@@ -13,6 +13,8 @@ opened while another stage is open. A stage that deliberately did not run
 (a checkpoint hit) is marked with :meth:`StageTimer.mark_skipped` and has
 no duration, so it never reads as "ran in 0.0 s".
 
+``trace(log_dir)`` wraps a region in a ``torch.profiler`` capture.
+
 With tracing armed (``telemetry``), each stage is also a host span of
 category ``stage``, opened before the start synchronize and closed after
 the end one, so a trace and ``durations`` read the same clock; a skipped
@@ -23,14 +25,14 @@ from __future__ import annotations
 
 import contextlib
 import time
-from typing import Dict, List
+from typing import Dict, Iterator, List, Optional
 
 import torch
 
 from fm_returnprediction_tpu_torch.device import synchronize
 from fm_returnprediction_tpu_torch.telemetry import spans as _spans
 
-__all__ = ["StageTimer"]
+__all__ = ["StageTimer", "trace"]
 
 
 class StageTimer:
@@ -108,3 +110,19 @@ class StageTimer:
         lines += [f"{name:<{width}}  skipped ({reason})" for name, reason in self.skipped.items()]
         lines.append(f"{'TOTAL':<{width}}  {self.total():9.3f}s")
         return "\n".join(lines)
+
+
+@contextlib.contextmanager
+def trace(log_dir: Optional[str] = None, device=None) -> Iterator[None]:
+    """Wrap a region in a ``torch.profiler`` capture written under
+    ``log_dir`` (``telemetry.perf.profiling``: the CPU's activities and, on
+    a CUDA ``device``, the card's); a pass-through when ``log_dir`` is
+    None. The task graph's ``FMRP_TRACE=<dir>`` wrapper of its compute
+    tasks."""
+    if log_dir is None:
+        yield
+        return
+    from fm_returnprediction_tpu_torch.telemetry.perf import profiling
+
+    with profiling(log_dir, device=device):
+        yield

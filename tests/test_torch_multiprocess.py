@@ -110,7 +110,7 @@ def test_barrier_tag_skew_raises():
     assert "tag skew" in errs[0] and "tag skew" in errs[1]
 
 
-def test_device_collectives_raise_naming_the_mesh_item(monkeypatch):
+def test_dist_jax_knob_brings_up_torch_distributed(monkeypatch):
     """``FMRP_DIST_JAX`` asks for device collectives across processes, the
     device mesh's transport: ``1`` brings up ``torch.distributed`` beside
     the host exchange (here a world of one, gloo on the CPU, its store on

@@ -310,7 +310,10 @@ def test_port_runs_with_jax_blocked(tmp_path):
     process fleet of 2 with one replica SIGKILLed and replaced; and the
     device mesh: ``run_pipeline(use_mesh=True)`` on 4 virtual CPU devices
     (daily strips, Table 2 by distributed TSQR and the bootstrap table
-    sharded; at float64 Table 2 equal to the one-device run's). The
+    sharded; at float64 Table 2 equal to the one-device run's); and
+    ``python -m fm_returnprediction_tpu_torch.taskgraph --synthetic`` on
+    the CPU twice (the DAG, then its up-to-date rerun) and a
+    ``TopologySpec`` journal-mark round trip. The
     children inherit a ``PYTHONPATH`` whose first entry holds ``jax``,
     ``jaxlib`` and ``fm_returnprediction_tpu`` packages that raise on
     import, and run from a directory outside the repo, so a child that
@@ -526,6 +529,19 @@ def test_port_runs_with_jax_blocked(tmp_path):
         one = run_pipeline(use_mesh=False, **kw)
         assert meshed.table_2.equals(one.table_2), (meshed.table_2, one.table_2)
         del os.environ["FMRP_VIRTUAL_DEVICES"]
+        os.environ.update(DATA_DIR=tmp + "/tg_data", OUTPUT_DIR=tmp + "/tg_out")
+        sys.argv = ["taskgraph", "--synthetic", "--device", "cpu", "--db", tmp + "/tg.sqlite"]
+        for _ in range(2):   # the DAG, then its rerun with every task up to date
+            try:
+                runpy.run_module("fm_returnprediction_tpu_torch.taskgraph", run_name="__main__")
+            except SystemExit as exc:
+                assert exc.code == 0, exc.code
+        assert {"table_2.pkl", "specgrid_scenarios.csv", "backtest.csv"} <= set(
+            os.listdir(tmp + "/tg_out")), os.listdir(tmp + "/tg_out")
+        assert os.path.exists(tmp + "/tg_data/processed/lewellen_panel.npz")
+        from fm_returnprediction_tpu_torch.topology import TopologySpec
+        spec = TopologySpec(replicas=2, replica_mode="process", transport="shm", grid_procs=2)
+        assert TopologySpec.from_mark(json.loads(json.dumps(spec.to_mark()))) == spec
         loaded = [m for m in sys.modules
                   if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
         assert not loaded, loaded
@@ -599,7 +615,11 @@ def test_port_never_names_jax_or_the_jax_package(pattern):
             "telemetry/timeline.py", "parallel/mesh.py", "parallel/partition.py",
             "parallel/fm_sharded.py", "parallel/daily_sharded.py",
             "parallel/time_sharded.py", "parallel/multihost.py",
-            "specgrid/sharded.py"} <= names
+            "specgrid/sharded.py", "settings.py", "utils/frames.py", "utils/figures.py",
+            "reporting/published.py", "data/benchscale.py", "taskgraph/__init__.py",
+            "taskgraph/__main__.py", "taskgraph/engine.py", "taskgraph/tasks.py",
+            "taskgraph/docs_site.py", "topology/__init__.py", "topology/spec.py",
+            "topology/controller.py"} <= names
     hits = [str(f.relative_to(REPO)) for f in files
             if re.search(pattern, f.read_text())]
     assert not hits, hits
