@@ -66,8 +66,9 @@ Phases (any failure exits non-zero without the final line):
    its plain version, its fetch beside the cold nvcc build;
    ``warm_from_registry`` over the published state (0 builds, 9
    captures); a ``ServingFleet`` of 1 and of 2 thread replicas
-   (``max_batch=256``, a journal, the supervisor) quoting the serving
-   phase's rows in the same mixed batches, every quote bit-equal to the
+   (``max_batch=256``, a journal, the supervisor) quoting the first 16,384
+   of the serving phase's rows in the same mixed batches, every quote
+   bit-equal to the
    bare service's, p50/p99 and rows/s; the routed replica killed under load
    (``fleet_kill_routed``), one supervisor tick replacing it through the
    warm pool, the time from the kill to the replacement's first quote, the
@@ -80,8 +81,8 @@ Phases (any failure exits non-zero without the final line):
    kill→replace cycles; then process replicas (``process_fleet_phase``):
    a fleet of 2 replica processes, each with its own CUDA context, over
    the socket and (where ``/dev/shm`` fits the rings) the shm transport,
-   quoting the same rows (the socket fleet the first 8,192 where the shm
-   fleet runs) bit-equal to the bare service, p50/p99 and rows/s beside
+   quoting the same first 16,384 rows (the socket fleet the first 8,192
+   where the shm fleet runs) bit-equal to the bare service, p50/p99 and rows/s beside
    the thread fleets'; a journaled, traced fleet of 2 with one
    replica SIGKILLed under load (replaced by the supervisor, the journal
    clean, the quotes bit-equal, the card's free memory back within one
@@ -101,7 +102,10 @@ Phases (any failure exits non-zero without the final line):
    K2; cells held against the one-process sweep, and the merged stats
    against one-process K2 at 1e-5; after an shm sweep a 9-spec grid over
    ``frames`` from the warm build directory (no nvcc build), its merged
-   stats bit-identical to the shm pool's;
+   stats bit-identical to the shm pool's; and ``run_spec_grid_on_panel``
+   on the guarded run's resident panel with Table 2's grid: one K2
+   launch, every leaf bit-equal to ``run_spec_grid`` on the same sliced
+   tensors;
 5c. the bootstrap-SE table at real size (B = 10,000, BASELINE.json
    configs[4]) through ``run_pipeline(make_bootstrap=True)``: the
    ``bootstrap_table`` stage and its peak device memory, launches as the
@@ -168,9 +172,21 @@ Phases (any failure exits non-zero without the final line):
    contraction after the bank, absorb refused, ``scenario_query`` under FWL,
    and a ``StreamingBootstrap`` of 1,000 draws over the bank's slopes in
    chunks, equal to two merged halves;
+5g. the dense daily route at real size (``daily_dense_phase``): the
+   (D, 22,000) float32 grid scattered from the main path's compact rows
+   through ``ops.daily_chunked.daily_characteristics_chunked`` with the
+   default budget (60% of the card: ``firm_chunk`` None, one call) and
+   with 4 strips forced by ``FMRP_DAILY_BUDGET_BYTES`` (bit-equal; one K1
+   launch a strip; seconds and peak memory printed), each vol/beta column
+   bit-equal to the main path's compact route on the same rows, and K1
+   std held against its plain version and timed at the grid's and
+   the strips' shapes (the ``dense/`` kernel rows);
+5h. ``dryrun_multichip(4)`` on the card (every sharding pattern on 4 mesh
+   positions, each held against its one-device step; K1 and K3 launched)
+   and ``entry()``'s FM step against the same step on the CPU;
 6. K1 std at every daily-strip shape the main path launched it at (read
    from its counters), checked and timed, with the sum of launches × time;
-7. the same path at a mid size (240 × 2,000) in float64 on the card and on the CPU (plain
+7. the same path at a mid size (240 × 1,600) in float64 on the card and on the CPU (plain
    versions): Table 2's per-cell numbers (a coefficient at
    ``|d| <= 1e-8 * max(|b|, nw_se)``, its t-stat at ``1e-8 * max(|t|, 1)``,
    the rest at rtol 1e-8), Table 1, the decile table, the figure frames, the
@@ -286,6 +302,9 @@ from fm_returnprediction_tpu_torch.cuda_build import build_kernels, library_path
 from fm_returnprediction_tpu_torch.data import prepared
 from fm_returnprediction_tpu_torch.data.smoke_inputs import make_smoke_inputs
 from fm_returnprediction_tpu_torch.data.synthetic import SyntheticConfig, write_synthetic_cache
+from fm_returnprediction_tpu_torch.dryrun import dryrun_multichip, entry
+from fm_returnprediction_tpu_torch.ops import daily_chunked
+from fm_returnprediction_tpu_torch.ops.compaction import compact, make_compaction
 from fm_returnprediction_tpu_torch.ops.rolling import (
     masked_cumulative_moments_cuda,
     masked_cumulative_moments_plain,
@@ -347,7 +366,13 @@ from fm_returnprediction_tpu_torch.specgrid.grams import (
     shared_center,
     split_stats,
 )
-from fm_returnprediction_tpu_torch.specgrid import grambank, multiproc
+from fm_returnprediction_tpu_torch.specgrid import (
+    grambank,
+    multiproc,
+    run_spec_grid,
+    run_spec_grid_on_panel,
+    table2_grid,
+)
 from fm_returnprediction_tpu_torch.specgrid.cellspace import scenario_space
 from fm_returnprediction_tpu_torch.specgrid.estimators import parse_estimator
 from fm_returnprediction_tpu_torch.specgrid.scenarios import bank_for_scenarios, run_scenarios
@@ -754,13 +779,14 @@ ABSORB_SPECS = 27
 # contraction worker processes of the multi-process sweep (multiproc_phase)
 MP_PROCS = 2
 # which real-size runs launch each K2 shape beyond the main path's: the
-# scenario sweep's (specgrid_phase), the backtest's and the estimator
+# scenario sweep's and ``run_spec_grid_on_panel``'s (specgrid_phase), the
+# backtest's and the estimator
 # family's (estimators_phase: absorb contracts per spec, 27 at a time; the
 # pooled run on the float64 panel)
 ROW_PATH = {"gram/P=14,S=9,bf16": ("bf16", "estimators"), "gram/P=5,S=3,bf16": ("bf16",),
             "gram/P=14,S=9,f32,rw": ("coreset",), "gram/P=14,S=9,bf16,rw": ("coreset_bf16",),
             f"gram/P=14,S={SPLIT_SPECS},f32": ("split",),
-            "gram/P=14,S=9,f32": ("main", "backtest", "estimators"),
+            "gram/P=14,S=9,f32": ("main", "backtest", "estimators", "on_panel"),
             "gram/P=14,S=27,f32": ("estimators",), "gram/P=14,S=27,f32,rw": ("estimators",),
             "gram/P=14,S=9,f64": ("estimators",),
             f"gram-worker/P=14,S={ABSORB_SPECS},f32": ("multiproc",)}
@@ -1441,9 +1467,12 @@ print("EXE-PLANE " + json.dumps({
 # the journaled passes are cut short: every journal event is written and
 # flushed, so they run at ~2k rows/s (PERF.md, Findings)
 FLEET_JOURNALED_ROWS = 8192    # rows of the journaled pass the kill lands in
-# rows of the socket process fleet's pass where the shm fleet quotes every
-# row (the socket transport moves ~1,500 rows/s: 60 s for all 88,157)
+# rows of the socket process fleet's pass (the socket transport moves ~1,500
+# rows/s: 60 s for all 88,157)
 PROCESS_SOCKET_ROWS = 8192
+# rows of the thread fleets' and the shm process fleet's passes: the first
+# of the serving phase's rows, cut from all 88,157 for the script's time
+FLEET_ROWS = 16384
 FLEET_KILL_AT = 3000           # the routed request the kill lands on
 FLEET_CRASH_AT = 2000          # the admitted request the hard crash lands between
 FLEET_RECOVER_ROWS = 4096      # rows the recovered fleet quotes against the bare service
@@ -1550,15 +1579,15 @@ def fleet_phase(ref, bare: np.ndarray, registry_root: Path) -> dict:
     slot_months, firms = np.nonzero(ref["rows"])
     months = ref["months"][slot_months]
     xq = ref["x"][slot_months, firms]
-    n_rows = len(months)
+    n_rows = min(FLEET_ROWS, len(months))
     kw = dict(max_batch=SERVING_MAX_BATCH, registry_dir=registry_root, device="cuda")
     with tempfile.TemporaryDirectory() as tmp:
         journal = Path(tmp) / "fleet.jsonl"
         for size in (1, 2):
             fleet = ServingFleet(state, size, **kw)
-            got, wall = _fleet_pass(fleet, months, xq)
+            got, wall = _fleet_pass(fleet, months, xq, n_rows)
             p50, p99 = _replica_latency(fleet)
-            equal = bool(np.array_equal(got, bare, equal_nan=True))
+            equal = bool(np.array_equal(got, bare[:n_rows], equal_nan=True))
             log(f"fleet of {size}: {n_rows} rows in mixed batches in {wall:.3f} s "
                 f"({n_rows / wall:.0f} rows/s), worst replica p50 {p50:.3f} ms p99 "
                 f"{p99:.3f} ms; every quote bit-equal to the bare service's {equal}; warm "
@@ -1794,8 +1823,8 @@ def process_fleet_phase(ref, bare: np.ndarray, registry_root: Path, thread_rates
         transports.append("shm")
     log(f"process fleet: {shm_room()}; transports {transports}")
     for transport in transports:
-        n = (min(PROCESS_SOCKET_ROWS, n_rows) if transport == "socket" and len(transports) > 1
-             else n_rows)
+        n = min(PROCESS_SOCKET_ROWS if transport == "socket" and len(transports) > 1
+                else FLEET_ROWS, n_rows)
         free0 = _device_free()
         start = time.perf_counter()
         fleet = ServingFleet(state, 2, transport=transport, **kw)
@@ -2049,8 +2078,8 @@ def trace_cli_phase() -> None:
     --fleet-size 2 --replica-mode process`` at 60 × 130 through the command
     line: exit 0, both trace files and the profile written and parsed, the
     usual launches; the fleet smoke (two replica processes) with every
-    quote finite and 2 healthy replicas; then ``python -m
-    fm_returnprediction_tpu_torch.registry verify R`` exits 0."""
+    quote finite and 2 healthy replicas; then the registry command line's
+    ``verify`` and ``ls`` (its ``main``, in process): ``verify`` returns 0."""
     with tempfile.TemporaryDirectory() as tmp:
         trace_dir, profile_dir = Path(tmp) / "trace", Path(tmp) / "profile"
         registry_root = Path(tmp) / "registry"
@@ -2065,17 +2094,17 @@ def trace_cli_phase() -> None:
         smoke = re.search(r"^serving fleet smoke: (\{.*\})$", run["stdout"], re.MULTILINE)
         check(smoke is not None, "the CLI printed no fleet smoke")
         smoke = json.loads(smoke.group(1))
-        verify = subprocess.run([sys.executable, "-m", "fm_returnprediction_tpu_torch.registry",
-                                 "--registry-dir", str(registry_root), "verify"],
-                                cwd=Path(__file__).resolve().parent, capture_output=True,
-                                text=True, timeout=300)
-        # the listing in process (the command line's main): one process
-        # start less than a second subprocess
+        # the verification and the listing in process (the command line's
+        # main): a process start less each than a subprocess
         import contextlib
         import io
 
         from fm_returnprediction_tpu_torch.registry.__main__ import main as registry_main
 
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            verify_rc = registry_main(["--registry-dir", str(registry_root), "verify"])
+        verified = buf.getvalue()
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
             registry_main(["--registry-dir", str(registry_root), "ls"])
@@ -2086,12 +2115,11 @@ def trace_cli_phase() -> None:
         f"x {SYNTHETIC_CLI_MONTHS}: exit 0 in {run['wall']:.1f} s; files {made}; launches "
         f"{launches['k1']}/{launches['k2']}/{launches['moments']}, in the profile {kernels}; "
         f"stage registry_publish {run['stages'].get('registry_publish')} s; fleet smoke "
-        f"{json.dumps(smoke, sort_keys=True)}; registry verify exit {verify.returncode} "
-        f"({verify.stdout.strip()}); ls: {' | '.join(listed.strip().splitlines())}")
+        f"{json.dumps(smoke, sort_keys=True)}; registry verify exit {verify_rc} "
+        f"({verified.strip()}); ls: {' | '.join(listed.strip().splitlines())}")
     check(smoke.get("finite_quotes") == smoke.get("n_queries")
           and smoke.get("healthy_replicas") == 2, f"the CLI fleet smoke {smoke}")
-    check(verify.returncode == 0, f"registry verify exited {verify.returncode}: "
-          f"{verify.stderr[-2000:]}")
+    check(verify_rc == 0, f"registry verify exited {verify_rc}: {verified[-2000:]}")
     check("registry_publish" in run["stages"], "the CLI run has no registry_publish stage")
     check(made == {"trace": ["events.jsonl", "trace.json"], "profile": [PROFILE_TRACE_NAME]},
           f"CLI trace files {made}")
@@ -2114,6 +2142,7 @@ SPECGRID_LAUNCHES = {
     "coreset": ({"k1": 0, "k2": 1, "moments": 0}, {"P=14,S=9,f32,rw": 1}),
     "coreset_bf16": ({"k1": 0, "k2": 1, "moments": 0}, {"P=14,S=9,bf16,rw": 1}),
     "split": ({"k1": 0, "k2": 2, "moments": 0}, {f"P=14,S={SPLIT_SPECS},f32": 2}),
+    "on_panel": ({"k1": 0, "k2": 1, "moments": 0}, {"P=14,S=9,f32": 1}),
 }
 SCENARIO_COLUMNS = ["cell", "model", "universe", "window", "winsor_pct", "nw_weight",
                     "predictor", "coef", "tstat", "nw_se", "mean_r2", "mean_n", "n_months",
@@ -2216,7 +2245,34 @@ def specgrid_phase(base, daily) -> dict:
                 f"{gap.quantile(0.9):.3f}, max {gap.max():.3f}")
             check(not got["refereed"].any(), "coreset cells were refereed")
         runs[name] = counts_s
+    runs["on_panel"] = _on_panel_check(res)
     return runs, res
+
+
+def _on_panel_check(res) -> dict:
+    """``run_spec_grid_on_panel`` on the guarded run's resident panel with
+    Table 2's grid: one K2 launch, every leaf bit-equal to ``run_spec_grid``
+    on the same sliced tensors."""
+    grid = table2_grid(res.factors_dict, subsets=list(res.subset_masks))
+    reset_counts()
+    start = time.perf_counter()
+    got = run_spec_grid_on_panel(res.panel, res.subset_masks, grid)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    counts = launch_counts()
+    _k2_pinned("run_spec_grid_on_panel (Table 2's grid)", counts, SPECGRID_LAUNCHES["on_panel"])
+    want = run_spec_grid(res.panel.var("retx").contiguous(),
+                         res.panel.select(grid.union_predictors).contiguous(),
+                         {n: res.subset_masks[n] for n in grid.universe_names}, grid)
+    equal = [f for f, a, b in zip(got._fields, got, want)
+             if f != "referee_specs" and not np.array_equal(a, b, equal_nan=True)]
+    log(f"run_spec_grid_on_panel: {len(grid)} specs, union P={len(grid.union_predictors)}, "
+        f"wall {wall:.4f} s, referee specs {list(got.referee_specs)}; leaves that differ from "
+        f"run_spec_grid on the same tensors: {equal}")
+    check(not equal and got.referee_specs == want.referee_specs,
+          f"run_spec_grid_on_panel differs from run_spec_grid: {equal}")
+    check(bool(np.isfinite(got.coef).any()), "run_spec_grid_on_panel: no finite coefficient")
+    return counts
 
 
 def _held_cell_gap(got: pd.DataFrame, want: pd.DataFrame) -> float:
@@ -2463,8 +2519,11 @@ def _reporting_vs_cpu(gpu, cpu) -> None:
           "card vs CPU: serving state beyond tolerance")
 
 
-# firms of the card-vs-CPU universe (240 months, float64)
-CVC_FIRMS = 2000
+# firms of the card-vs-CPU universe (240 months, float64); cut from 2,000,
+# its CPU side the host-bound cost, to pay for the dense daily route's and
+# the dry run's phases (at 1,200 one absorb cell without a suspect month
+# missed the 1e-8 pin: ROADMAP, faults)
+CVC_FIRMS = 1600
 
 
 def card_vs_cpu(seed: int) -> None:
@@ -4598,6 +4657,173 @@ def taskgraph_real_phase(seed: int) -> None:
     check(same, "the panel checkpoint differs from load_or_build_panel's panel")
 
 
+# --- the dense daily route and the dry run ---------------------------------
+
+# the forced strips' width (firms): 4 strips of the 22,000-firm grid
+DENSE_STRIP_FIRMS = 6144
+
+
+def dense_daily_grid(daily) -> tuple:
+    """The dense (D, N) float32 return grid and its mask of the compact
+    daily rows, by one scatter (the layout ``panel.daily.DailyPanel``
+    holds)."""
+    counts = np.diff(daily.offsets)
+    firm = np.repeat(np.arange(len(counts)), counts)
+    pos = daily.row_pos.astype(np.int64)
+    ret = np.full((daily.n_days, len(counts)), np.nan, dtype=np.float32)
+    mask = np.zeros(ret.shape, dtype=bool)
+    ret[pos, firm] = daily.row_values
+    mask[pos, firm] = True
+    return ret, mask
+
+
+def _route_gap(got: np.ndarray, want: np.ndarray) -> tuple:
+    """NaN patterns equal, then the largest absolute and relative gap."""
+    check(bool(np.array_equal(np.isnan(got), np.isnan(want))), "NaN patterns differ")
+    fin = np.isfinite(want)
+    diff = np.abs(got[fin].astype(np.float64) - want[fin])
+    rel = diff / np.maximum(np.abs(want[fin]), np.finfo(np.float32).tiny)
+    return float(diff.max(initial=0.0)), float(rel.max(initial=0.0))
+
+
+def daily_dense_phase(daily) -> tuple:
+    """The dense daily route at real size: the (D, 22,000) float32 grid
+    through ``daily_characteristics_chunked`` with the default budget
+    (60% of the card: one call expected) and with strips forced by
+    ``FMRP_DAILY_BUDGET_BYTES``; the two runs bit-equal, and bit-equal to
+    the main path's compact route (``daily_characteristics_compact_chunked``)
+    on the same rows (the gap printed); K1 std held against its plain
+    version and timed at the grid's and the strips' shapes. Returns the
+    runs' launch counts (keys prefixed ``dense/``) and the kernel rows."""
+    start = time.perf_counter()
+    ret, mask = dense_daily_grid(daily)
+    d, n = ret.shape
+    log(f"dense daily grid ({d}, {n}) float32: {ret.nbytes:,} bytes of returns and "
+        f"{mask.nbytes:,} of mask, scattered from {len(daily.row_values):,} rows in "
+        f"{time.perf_counter() - start:.2f} s")
+    args = (ret, mask, daily.mkt, daily.day_month_id, daily.week_id, daily.week_month_id,
+            daily.n_months, daily.n_weeks)
+    merged = {}
+
+    def run(label, budget):
+        with _env(FMRP_DAILY_BUDGET_BYTES=budget):
+            chunk = daily_chunked.auto_firm_chunk(d, n, ret.dtype.itemsize, device="cuda")
+            budget_bytes = daily_chunked._default_budget_bytes("cuda")
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            resident = torch.cuda.memory_allocated()
+            reset_counts()
+            t0 = time.perf_counter()
+            vol, beta = daily_chunked.daily_characteristics_chunked(
+                *args, mkt_present=daily.mkt_present, device="cuda")
+            wall = time.perf_counter() - t0
+            counts = launch_counts()
+        peak = (torch.cuda.max_memory_allocated() - resident) / 2**30
+        strips = 1 if chunk is None else -(-n // chunk)
+        log(f"dense route, {label}: budget {budget_bytes:,} bytes, firm_chunk {chunk} "
+            f"({strips} call{'s' if strips > 1 else ''}), {wall:.3f} s, launches K1 "
+            f"{counts['k1']} {({k: v for k, v in counts.items() if k.startswith('std/')})}, "
+            f"K2 {counts['k2']}, K3 {counts['moments']}; peak device memory above the "
+            f"resident {peak:.3f} GiB (the budget model: "
+            f"{d * ret.dtype.itemsize * daily_chunked._WORKSPACE_ARRAYS * min(chunk or n, n) / 2**30:.3f} GiB)")
+        check(counts["k1"] == counts.get("std/w=252", 0) == strips,
+              f"dense route, {label}: K1 launches {counts['k1']}, not one a strip ({strips})")
+        for key, v in counts.items():
+            merged["dense/" + key] = merged.get("dense/" + key, 0) + v
+        return vol, beta, chunk, strips
+
+    vol1, beta1, chunk1, _ = run("default budget", None)
+    budget = d * ret.dtype.itemsize * daily_chunked._WORKSPACE_ARRAYS * DENSE_STRIP_FIRMS
+    vol2, beta2, chunk2, strips2 = run("forced strips", budget)
+    check(chunk2 == DENSE_STRIP_FIRMS and strips2 >= 3, f"forced strips: {chunk2}, {strips2}")
+    same = (np.array_equal(vol1, vol2, equal_nan=True)
+            and np.array_equal(beta1, beta2, equal_nan=True))
+    log(f"dense route: {strips2} forced strips bit-equal to the default run: {same}")
+    check(same, "dense route: the strips differ from the default run")
+
+    t0 = time.perf_counter()
+    vol_c, beta_c = daily_chunked.daily_characteristics_compact_chunked(
+        daily.row_values, daily.row_pos, daily.offsets, daily.mkt, daily.mkt_present,
+        daily.day_month_id, daily.week_id, daily.week_month_id, daily.n_days, daily.n_weeks,
+        daily.n_months, device="cuda", dtype=torch.float32)
+    compact_s = time.perf_counter() - t0
+    gaps = {"vol": _route_gap(vol1, vol_c), "beta": _route_gap(beta1, beta_c)}
+    log(f"dense vs compact route (the main path's, {compact_s:.3f} s): vol bit-equal "
+        f"{np.array_equal(vol1, vol_c, equal_nan=True)}, beta bit-equal "
+        f"{np.array_equal(beta1, beta_c, equal_nan=True)}; max abs/rel gap vol "
+        f"{gaps['vol'][0]:.3e}/{gaps['vol'][1]:.3e}, beta {gaps['beta'][0]:.3e}/"
+        f"{gaps['beta'][1]:.3e}")
+
+    # K1's time chunks start every max(2·window, 512) rows from row 0
+    # whatever the height (ops.rolling.rolling_chunk_plan), and every other
+    # step is per firm column, so the routes give the same bits
+    check(np.array_equal(vol1, vol_c, equal_nan=True)
+          and np.array_equal(beta1, beta_c, equal_nan=True),
+          "dense vs compact route: the columns differ")
+
+    # the rolling kernel's input in the dense route: each firm's rows
+    # compacted to the front of the (D, N) grid
+    x = _dense_compacted(ret, mask)
+    rows = []
+    for cols in (n, DENSE_STRIP_FIRMS):
+        xc = x[:, :cols].contiguous()
+        label = f"std w=252 mp=100 (dense daily route) {d}x{cols} float32"
+        err = check_rolling(xc, 252, 100, "std", 1e-4, label)
+        row = k1_row(xc, 252, 100, "std", err, label)
+        row["key"] = "dense/" + row["key"]
+        rows.append(row)
+        del xc
+    del x
+    torch.cuda.empty_cache()
+    return merged, rows
+
+
+def _dense_compacted(ret: np.ndarray, mask: np.ndarray) -> torch.Tensor:
+    """``rolling_vol_252_monthly``'s K1 input: each column's present rows
+    packed to the front, NaN after them, on the card."""
+    mask_t = torch.from_numpy(mask).cuda()
+    plan = make_compaction(mask_t)
+    ret_t = torch.from_numpy(ret).cuda()
+    out = torch.where(plan.valid, compact(ret_t, plan), torch.full_like(ret_t, float("nan")))
+    del plan, ret_t, mask_t
+    return out
+
+
+def dryrun_phase() -> dict:
+    """``dryrun_multichip(4)`` on the card (4 mesh positions: virtual shards
+    of one card, or distinct cards where there are 4) and ``entry()``'s FM
+    step, held against the same step on the CPU."""
+    reset_counts()
+    start = time.perf_counter()
+    gaps = dryrun_multichip(4)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    counts = launch_counts()
+    log(f"dryrun_multichip(4): {wall:.3f} s over {torch.cuda.device_count()} card(s); "
+        f"launches K1 {counts['k1']}, K2 {counts['k2']}, K3 {counts['moments']}; largest gap "
+        "to the one-device step: " + json.dumps({k: float(f"{v:.3e}") for k, v in gaps.items()}))
+    check(counts["k1"] > 0 and counts["moments"] > 0,
+          "dryrun_multichip(4): K1 or K3 was not launched")
+    check(len(gaps) == 7, f"dryrun_multichip(4): patterns run {sorted(gaps)}")
+
+    fn, args = entry()
+    start = time.perf_counter()
+    got = [a.cpu().numpy() for a in fn(*args)]
+    entry_s = time.perf_counter() - start
+    fn_cpu, args_cpu = entry(device="cpu")
+    want = [a.numpy() for a in fn_cpu(*args_cpu)]
+    worst = {name: float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1.0)))
+             for name, a, b in zip(("coef", "tstat", "mean_r2"), got, want)}
+    log(f"entry(): FM step on (24, 64, 14) float32 in {entry_s:.4f} s; card vs CPU |d| / "
+        f"max(|x|, 1): " + json.dumps({k: float(f"{v:.3e}") for k, v in worst.items()})
+        + " (tol 1e-5 coef and R², 1e-4 t-stat)")
+    check(all(np.isfinite(a).all() for a in got), "entry(): non-finite FM step")
+    check(worst["coef"] <= 1e-5 and worst["mean_r2"] <= 1e-5 and worst["tstat"] <= 1e-4,
+          "entry(): card vs CPU beyond tolerance")
+    return counts
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=20140131)
@@ -4665,8 +4891,11 @@ def main(argv=None) -> int:
     path_counts["backtest"] = phase_timed("backtest_phase", backtest_phase, base, daily)
     path_counts["estimators"] = phase_timed("estimators_phase", estimators_phase, base, daily)
     phase_timed("stacked_phase", stacked_phase, base, daily, gram_frames)
+    path_counts["dense"], dense_rows = phase_timed("daily_dense_phase", daily_dense_phase,
+                                                   daily)
     del base, daily
-    rows += phase_timed("strip_phase", strip_phase, gen, counts) + mesh_rows
+    path_counts["dryrun"] = phase_timed("dryrun_phase", dryrun_phase)
+    rows += phase_timed("strip_phase", strip_phase, gen, counts) + mesh_rows + dense_rows
     phase_timed("card_vs_cpu", card_vs_cpu, args.seed)
     phase_timed("ingest_vs_cpu", ingest_vs_cpu)
     phase_timed("cli_phase", cli_phase)
@@ -4690,7 +4919,8 @@ def main(argv=None) -> int:
         key = row.pop("key")
         # the scenario sweep's K2 shapes are launched by its runs, the rest
         # by the main path; Table 2's shape adds the backtest run's launches
-        paths = ROW_PATH.get(key, ("mesh",) if key.startswith("mesh/") else ("main",))
+        prefix = key.split("/")[0]
+        paths = ROW_PATH.get(key, (prefix,) if prefix in ("mesh", "dense") else ("main",))
         row["launches"] = sum(path_counts[p].get(key, 0) for p in paths)
         if row.get("main_path") == K3_MAIN_PATH:
             check(row["launches"] == 0, f"{row['name']}: launched on the main path, "

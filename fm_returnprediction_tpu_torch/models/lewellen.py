@@ -10,7 +10,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, List
 
-__all__ = ["ModelSpec", "MODELS", "FIGURE1_VARS", "model_columns"]
+__all__ = ["ModelSpec", "MODELS", "FIGURE1_VARS", "model_columns", "model_by_name"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,3 +76,11 @@ def model_columns(model: ModelSpec, variables_dict: Dict[str, str]) -> List[str]
             raise ValueError(f"'{label}' not found in variables_dict!")
         xvars.append(variables_dict[label])
     return xvars
+
+
+def model_by_name(name: str) -> ModelSpec:
+    """The model of ``MODELS`` called ``name``; ``KeyError`` when none is."""
+    for model in MODELS:
+        if model.name == name:
+            return model
+    raise KeyError(name)

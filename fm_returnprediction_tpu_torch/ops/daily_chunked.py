@@ -2,12 +2,20 @@
 
 Firms are independent in every daily step (rolling windows and weekly sums
 run along days WITHIN a firm column), so scale on one device is a host loop
-over fixed-width firm strips of the compacted (CSR) daily layout: assemble
-an (H, C) rectangle on the host, move it to the device, run the strip, pull
-back the small (n_months, C) results. Peak device memory is set by the
-strip, not by N.
+over fixed-width firm strips: move a strip to the device, run the daily
+steps on it, pull back the small (n_months, C) results. Peak device memory
+is set by the strip, not by N. Two routes:
 
-With a ``mesh`` each strip's firm axis is split over the mesh's firm axis:
+- ``daily_characteristics_compact_chunked`` (the main path's): strips of
+  the compacted (CSR) daily layout. It assembles an (H, C) rectangle per
+  strip on the host, only as tall as the strip's longest-lived firm.
+- ``daily_characteristics_chunked`` (the dense route): strips of the dense
+  (D, N) grid (``panel.daily.DailyPanel``), each (D, C) moved once. The
+  strip width comes from a device-memory budget (``auto_firm_chunk``,
+  ``FMRP_DAILY_BUDGET_BYTES``, else 60% of the card's memory); a grid that
+  fits runs as one call.
+
+With a ``mesh`` the compact route's strips split over the mesh's firm axis:
 strips widen by the shard count (full blocks on every shard), and each
 shard runs the strip functions on its (H, C/d) block on its device, so on
 the card the rolling kernel launches once per shard per strip. Firms are
@@ -16,17 +24,149 @@ independent, so no collective runs.
 
 from __future__ import annotations
 
-from typing import Tuple
+import os
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
+from fm_returnprediction_tpu_torch.device import resolve_device
 from fm_returnprediction_tpu_torch.ops.daily_compact import (
     daily_compact_strip,
     daily_compact_strip_contiguous,
 )
+from fm_returnprediction_tpu_torch.ops.daily_kernels import (
+    rolling_vol_252_monthly,
+    weekly_rolling_beta_monthly,
+)
 
-__all__ = ["daily_characteristics_compact_chunked"]
+__all__ = [
+    "auto_firm_chunk",
+    "daily_characteristics_chunked",
+    "daily_characteristics_compact_chunked",
+]
+
+# Peak live (D, C)-shaped arrays of the dense route's vol and beta steps
+# (the compaction plan's int and bool arrays, the compacted returns, the
+# rolling sums, the scatter-back, beta's masked logs and products before the
+# weekly sums), counted in the input's dtype: the budget is a guardrail, not
+# a tuned high-water mark. The plan's indices are int64, so a float32 grid
+# peaks a little above it (1.04x at real size on the card, PERF.md).
+_WORKSPACE_ARRAYS = 12
+
+
+def _default_budget_bytes(device=None) -> int:
+    """The dense route's device workspace budget: ``FMRP_DAILY_BUDGET_BYTES``
+    when set, else 60% of the card's memory on a CUDA ``device`` (None
+    means the card), else 4 GiB."""
+    env = os.environ.get("FMRP_DAILY_BUDGET_BYTES")
+    if env:
+        return int(env)
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        return int(torch.cuda.get_device_properties(dev).total_memory * 0.6)
+    return 4 << 30
+
+
+def auto_firm_chunk(
+    n_days: int,
+    n_firms: int,
+    itemsize: int,
+    budget_bytes: Optional[int] = None,
+    device=None,
+) -> Optional[int]:
+    """Firm-strip width that keeps the dense route's working set under
+    ``budget_bytes`` (default ``_default_budget_bytes(device)``), in
+    multiples of 128 firms and at least 128, or None when the whole grid
+    fits (one call)."""
+    if budget_bytes is None:
+        budget_bytes = _default_budget_bytes(device)
+    per_firm = n_days * itemsize * _WORKSPACE_ARRAYS
+    if per_firm * n_firms <= budget_bytes:
+        return None
+    chunk = int(budget_bytes // max(per_firm, 1))
+    chunk = max((chunk // 128) * 128, 128)
+    return min(chunk, n_firms)
+
+
+def daily_characteristics_chunked(
+    ret_d,
+    mask_d,
+    mkt_d,
+    month_id,
+    week_id,
+    week_month_id,
+    n_months: int,
+    n_weeks: int,
+    mkt_present=None,
+    window: int = 252,
+    min_periods: int = 100,
+    window_weeks: int = 156,
+    firm_chunk: Optional[int] = None,
+    device=None,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """vol-252 and weekly beta from the dense (D, N) grid over firm strips;
+    returns numpy (n_months, N) pairs in ``ret_d``'s dtype.
+
+    Inputs are host numpy: ``ret_d``/``mask_d`` (D, N), the per-day
+    ``mkt_d``, ``month_id`` and ``week_id`` (nondecreasing, in
+    ``[0, n_weeks)``), and ``week_month_id`` (n_weeks,). The per-day vectors
+    move to ``device`` (None means the card) once for all strips; each strip
+    moves (D, C) once and runs ``rolling_vol_252_monthly`` (the rolling
+    kernel on the card) and ``weekly_rolling_beta_monthly``.
+    ``firm_chunk=None`` takes ``auto_firm_chunk``'s width (None: one call).
+    Strips are an execution schedule only: every step is per firm column,
+    so strips are not padded and give the single call's numbers.
+    """
+    device = resolve_device(device)
+    ret_d = np.asarray(ret_d)
+    mask_d = np.asarray(mask_d, dtype=bool)
+    mkt_d = np.asarray(mkt_d, dtype=ret_d.dtype)
+    mkt_present = np.isfinite(mkt_d) if mkt_present is None else np.asarray(mkt_present)
+    week_id = np.asarray(week_id)
+    if np.any(np.diff(week_id) < 0):
+        raise ValueError("week_id must never decrease along the days")
+    if len(week_id) and (week_id.min() < 0 or week_id.max() >= n_weeks):
+        raise ValueError(f"week_id must lie in [0, {n_weeks})")
+    d_days, n_firms = ret_d.shape
+
+    if firm_chunk is None:
+        firm_chunk = auto_firm_chunk(d_days, n_firms, ret_d.dtype.itemsize, device=device)
+
+    def to_device(a: np.ndarray) -> torch.Tensor:
+        # a read-only array (a memory map, a pandas-owned buffer) is copied,
+        # not wrapped
+        a = np.ascontiguousarray(a)
+        return (torch.from_numpy(a) if a.flags.writeable else torch.tensor(a)).to(device)
+
+    # per-day vectors, shared by every strip: moved once
+    month_t = torch.as_tensor(np.asarray(month_id), dtype=torch.int64, device=device)
+    week_lengths = torch.as_tensor(np.bincount(week_id, minlength=int(n_weeks)),
+                                   dtype=torch.int64, device=device)
+    week_month_t = torch.as_tensor(np.asarray(week_month_id), dtype=torch.int64,
+                                   device=device)
+    mkt_t = to_device(mkt_d)
+    mkt_present_t = torch.as_tensor(mkt_present, dtype=torch.bool, device=device)
+
+    def run(cols: slice):
+        ret_t = to_device(ret_d[:, cols])
+        mask_t = to_device(mask_d[:, cols])
+        vol = rolling_vol_252_monthly(ret_t, mask_t, month_t, n_months,
+                                      window=window, min_periods=min_periods)
+        beta = weekly_rolling_beta_monthly(ret_t, mask_t, mkt_t, week_lengths, week_month_t,
+                                           n_months, window_weeks=window_weeks,
+                                           mkt_present=mkt_present_t)
+        return vol.cpu().numpy(), beta.cpu().numpy()
+
+    if firm_chunk is None or firm_chunk >= n_firms:
+        return run(slice(None))
+    vol_out = np.empty((n_months, n_firms), dtype=ret_d.dtype)
+    beta_out = np.empty((n_months, n_firms), dtype=ret_d.dtype)
+    c = int(firm_chunk)
+    for start in range(0, n_firms, c):
+        cols = slice(start, min(start + c, n_firms))
+        vol_out[:, cols], beta_out[:, cols] = run(cols)
+    return vol_out, beta_out
 
 
 def _strip_plan(counts: np.ndarray, height_bucket: int = 1024,

@@ -1,11 +1,19 @@
-"""Daily data in per-firm compacted (CSR-like) layout (host numpy).
+"""Daily data on the host (numpy), in two layouts.
 
-Each firm's observed rows in chronological order, flattened firm-major,
-with int day positions into the shared trading-day vocabulary, plus the
-per-day calendar vectors the daily kernels need: month index of each day
-(out-of-vocabulary months map to the trash segment ``n_months``) and the
-Monday-lattice week index. ``build_compact_daily`` packs the daily CRSP
-rows into this layout without ever building the dense (D, N) grid.
+- ``CompactDaily`` (``build_compact_daily``): each firm's observed rows in
+  chronological order, flattened firm-major, with int day positions into
+  the shared trading-day vocabulary. It never builds the dense (D, N)
+  grid; the main path's daily strips (``ops.daily_chunked.
+  daily_characteristics_compact_chunked``) read it.
+- ``DailyPanel`` (``build_daily_panel``): the dense (D, N) grid of daily
+  returns and its mask, the input of the dense route
+  (``ops.daily_chunked.daily_characteristics_chunked``), which runs the
+  daily kernels on the whole grid in firm strips under a device-memory
+  budget.
+
+Both carry the per-day calendar vectors the daily kernels need: month
+index of each day (out-of-vocabulary months map to the trash segment
+``n_months``) and the Monday-lattice week index.
 """
 
 from __future__ import annotations
@@ -16,8 +24,10 @@ import numpy as np
 import pandas as pd
 from pandas.tseries.offsets import MonthEnd
 
-__all__ = ["CompactDaily", "build_compact_daily", "build_compact_daily_arrays",
-           "month_index_of"]
+from fm_returnprediction_tpu_torch.panel.dense import long_to_dense
+
+__all__ = ["DailyPanel", "CompactDaily", "build_daily_panel", "build_compact_daily",
+           "build_compact_daily_arrays", "month_index_of"]
 
 
 def month_index_of(dates: pd.DatetimeIndex, months: np.ndarray) -> np.ndarray:
@@ -31,6 +41,32 @@ def month_index_of(dates: pd.DatetimeIndex, months: np.ndarray) -> np.ndarray:
     pos_clipped = np.minimum(pos, len(months_i8) - 1)
     hit = months_i8[pos_clipped] == dates_i8
     return np.where(hit, pos_clipped, len(months_i8)).astype(np.int32)
+
+
+def _check_week_order(week_id) -> None:
+    # the weekly sums add each week's days as one run of rows
+    if np.any(np.diff(np.asarray(week_id)) < 0):
+        raise ValueError("week_id must never decrease along the days")
+
+
+@dataclasses.dataclass
+class DailyPanel:
+    """Dense daily data aligned to a monthly panel's vocabularies."""
+
+    ret: np.ndarray            # (D, N) daily retx
+    mask: np.ndarray           # (D, N) firm-day present
+    mkt: np.ndarray            # (D,) market return (vwretx), NaN if absent/null
+    mkt_present: np.ndarray    # (D,) bool, index table has a row for the day
+    days: np.ndarray           # (D,) datetime64
+    ids: np.ndarray            # (N,) permnos
+    day_month_id: np.ndarray   # (D,) month index into monthly vocab (trash=M)
+    week_id: np.ndarray        # (D,) Monday-lattice week index
+    n_weeks: int
+    week_month_id: np.ndarray  # (n_weeks,) month index of each week's Monday
+    n_months: int
+
+    def __post_init__(self):
+        _check_week_order(self.week_id)
 
 
 @dataclasses.dataclass
@@ -52,9 +88,7 @@ class CompactDaily:
     n_months: int
 
     def __post_init__(self):
-        # the weekly sums add each week's days as one run of rows
-        if np.any(np.diff(np.asarray(self.week_id)) < 0):
-            raise ValueError("CompactDaily.week_id must never decrease along the days")
+        _check_week_order(self.week_id)
 
     @property
     def n_days(self) -> int:
@@ -213,6 +247,41 @@ def build_compact_daily_arrays(
         mkt=mkt,
         mkt_present=mkt_present,
         days=np.asarray(days_idx),
+        day_month_id=day_month_id,
+        week_id=week_id,
+        n_weeks=n_weeks,
+        week_month_id=week_month_id,
+        n_months=len(months),
+    )
+
+
+def build_daily_panel(
+    crsp_d: pd.DataFrame,
+    crsp_index_d: pd.DataFrame,
+    months: np.ndarray,
+    dtype=np.float64,
+) -> DailyPanel:
+    """Pack daily CRSP + index data into dense arrays aligned to ``months``.
+
+    ``crsp_d`` needs [permno, dlycaldt, retx]; ``crsp_index_d`` needs
+    [caldt, vwretx]. The market series is aligned to the observed
+    trading-day vocabulary of ``crsp_d``: days the index lacks become NaN
+    and ``mkt_present`` False, so beta drops them as the reference's inner
+    join does. ``dtype`` is a numpy dtype. The (D, N) grid is host memory,
+    ``D · N`` values and as many mask bytes.
+    """
+    dense = long_to_dense(crsp_d, "dlycaldt", "permno", ["retx"], dtype=dtype)
+    days = pd.DatetimeIndex(dense.months)
+    mkt, mkt_present, day_month_id, week_id, n_weeks, week_month_id = _daily_calendar(
+        crsp_index_d, days, months, dtype
+    )
+    return DailyPanel(
+        ret=dense.var("retx"),
+        mask=dense.mask,
+        mkt=mkt,
+        mkt_present=mkt_present,
+        days=dense.months,
+        ids=dense.ids,
         day_month_id=day_month_id,
         week_id=week_id,
         n_weeks=n_weeks,

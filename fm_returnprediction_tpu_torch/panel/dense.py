@@ -4,8 +4,8 @@
 permno), ``K`` the variables. Firm-months absent from the source are masked
 out and hold NaN. Pandas' row-shift semantics are reproduced downstream by
 compacting each firm's observed rows (``ops.compaction``).
-``long_to_dense`` packs a long firm-month frame into this layout on the host;
-``DensePanel.save``/``load`` checkpoint it between the task graph's
+``long_to_dense`` packs a long firm-month frame into this layout on the host
+and ``dense_to_long`` unpacks it; ``DensePanel.save``/``load`` checkpoint it between the task graph's
 ``build_panel`` stage and the stages that read it.
 """
 
@@ -21,7 +21,7 @@ import torch
 
 from fm_returnprediction_tpu_torch.device import resolve_device
 
-__all__ = ["DensePanel", "long_to_dense"]
+__all__ = ["DensePanel", "long_to_dense", "dense_to_long"]
 
 
 @dataclasses.dataclass
@@ -132,3 +132,21 @@ def long_to_dense(
         ids=ids,
         var_names=list(value_cols),
     )
+
+
+def dense_to_long(panel: DensePanel) -> pd.DataFrame:
+    """Unpack a ``DensePanel`` back into a long frame of its existing rows
+    (``date``, ``id`` and one column per variable; the inverse of
+    ``long_to_dense`` up to row order). Device values are copied to the
+    host first."""
+    values = panel.values
+    if isinstance(values, torch.Tensor):
+        values = values.detach().cpu().numpy()
+    t_idx, n_idx = np.nonzero(np.asarray(panel.mask))
+    out = {
+        "date": pd.DatetimeIndex(panel.months)[t_idx],
+        "id": np.asarray(panel.ids)[n_idx],
+    }
+    for k, name in enumerate(panel.var_names):
+        out[name] = values[t_idx, n_idx, k]
+    return pd.DataFrame(out)

@@ -5,6 +5,8 @@ all-but-tiny (market equity at or above the monthly 20th percentile of
 NYSE market equity) and large (at or above the NYSE median). Breakpoints
 are pandas linear-interpolated quantiles; a month with no NYSE stocks has
 NaN breakpoints, so its rows drop out of the two filtered universes.
+``flag_firms_missing_variables`` is the reference's Table 1 firm filter
+(dead code on its main path, kept for the API).
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import torch
 from fm_returnprediction_tpu_torch.ops.quantiles import masked_quantile
 from fm_returnprediction_tpu_torch.panel.dense import DensePanel
 
-__all__ = ["SUBSET_ORDER", "compute_subset_masks"]
+__all__ = ["SUBSET_ORDER", "compute_subset_masks", "flag_firms_missing_variables"]
 
 SUBSET_ORDER = ["All stocks", "All-but-tiny stocks", "Large stocks"]
 
@@ -36,3 +38,20 @@ def compute_subset_masks(panel: DensePanel) -> Dict[str, torch.Tensor]:
         "All-but-tiny stocks": mask & (me >= me_20),
         "Large stocks": mask & (me >= me_50),
     }
+
+
+def flag_firms_missing_variables(
+    panel: DensePanel, needed_vars=("retx", "log_size", "log_bm", "return_12_2")
+) -> set:
+    """Firms with at least one required variable missing on every one of
+    their observed rows (the reference's ``filter_companies_table1``), as a
+    set of ids: one reduction over the time axis. Device values are copied
+    to the host first."""
+    vals = panel.select(list(needed_vars))           # (T, N, V)
+    if isinstance(vals, torch.Tensor):
+        vals = vals.detach().cpu().numpy()
+    mask = np.asarray(panel.mask)
+    has_value = np.isfinite(vals) & mask[:, :, None]  # observed & non-missing
+    any_value = has_value.any(axis=0)                 # (N, V)
+    flagged = mask.any(axis=0) & (~any_value).any(axis=1)
+    return set(np.asarray(panel.ids)[flagged].tolist())

@@ -36,12 +36,20 @@ from typing import Callable
 import pandas as pd
 
 from fm_returnprediction_tpu_torch import telemetry
-from fm_returnprediction_tpu_torch.registry.integrity import file_sha256
 from fm_returnprediction_tpu_torch.resilience.errors import CorruptArtifactError
 
 __all__ = ["OUTCOMES", "StageCheckpointer"]
 
 _MANIFEST = "manifest.json"
+
+
+def _file_sha256(path: Path) -> str:
+    # imported at the call: ``registry.integrity`` imports this package's
+    # errors, so a module-level import would be a cycle through
+    # ``resilience/__init__``
+    from fm_returnprediction_tpu_torch.registry.integrity import file_sha256
+
+    return file_sha256(path)
 
 OUTCOMES: Counter = Counter()
 
@@ -115,7 +123,7 @@ class StageCheckpointer:
         try:
             if not path.exists():
                 raise CorruptArtifactError(f"checkpoint file {path} missing")
-            if file_sha256(path) != rec["sha256"]:
+            if _file_sha256(path) != rec["sha256"]:
                 raise CorruptArtifactError(f"checkpoint {name!r} failed its content hash")
             got = loader(path)
         except Exception as exc:  # noqa: BLE001 — any unreadable artifact is rebuilt
@@ -140,7 +148,7 @@ class StageCheckpointer:
             os.replace(tmp, final)
         finally:
             tmp.unlink(missing_ok=True)
-        self._stages[name] = {"file": final.name, "sha256": file_sha256(final)}
+        self._stages[name] = {"file": final.name, "sha256": _file_sha256(final)}
         self._write_manifest()
         _outcome("save", name)
 

@@ -55,6 +55,10 @@ from fm_returnprediction_tpu_torch.serving.loadgen import (
     portfolio_consumer,
     query_with_retry,
 )
+from fm_returnprediction_tpu_torch.serving.replica_proc import (
+    ProcessReplica,
+    ReplicaSpawnError,
+)
 from fm_returnprediction_tpu_torch.serving.recovery import (
     RecoveryReport,
     recover_journal,
@@ -105,4 +109,6 @@ __all__ = [
     "RecoveryReport",
     "recover_journal",
     "repair_journal",
+    "ProcessReplica",
+    "ReplicaSpawnError",
 ]

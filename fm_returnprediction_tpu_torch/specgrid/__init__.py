@@ -55,10 +55,13 @@ from fm_returnprediction_tpu_torch.specgrid.estimators import (
 )
 from fm_returnprediction_tpu_torch.specgrid.grambank import (
     GramBank,
+    bank_key,
     bootstrap_query,
     build_bank,
     estimator_query,
     ingest_month,
+    load_bank,
+    save_bank,
     scenario_query,
     window_query,
 )
@@ -91,6 +94,7 @@ from fm_returnprediction_tpu_torch.specgrid.sharded import (
 from fm_returnprediction_tpu_torch.specgrid.solve import (
     SpecGridResult,
     run_spec_grid,
+    run_spec_grid_on_panel,
     run_spec_grid_weights,
     solve_spec_stats,
 )
@@ -127,6 +131,7 @@ __all__ = [
     "TopKSink",
     "auto_firm_chunk",
     "bank_for_scenarios",
+    "bank_key",
     "block_bootstrap_months",
     "bootstrap_query",
     "build_bank",
@@ -135,6 +140,7 @@ __all__ = [
     "estimator_query",
     "figure1_grid",
     "ingest_month",
+    "load_bank",
     "parse_estimator",
     "product_grid",
     "resolve_estimator",
@@ -146,7 +152,9 @@ __all__ = [
     "run_scenarios",
     "run_scenarios_banked",
     "run_spec_grid",
+    "run_spec_grid_on_panel",
     "run_spec_grid_weights",
+    "save_bank",
     "scenario_grid",
     "scenario_query",
     "scenario_space",

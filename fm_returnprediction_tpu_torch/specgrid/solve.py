@@ -33,7 +33,8 @@ off: it would re-solve on the full panel) or bfloat16 operands. With
 ``procs`` > 1 (``FMRP_SPECGRID_PROCS``) the contraction runs across that
 many worker processes (``specgrid.multiproc``) and the solve here; with a
 ``mesh`` the contraction shards over firms and the solve over specs
-(``specgrid.sharded``).
+(``specgrid.sharded``). ``run_spec_grid_on_panel`` slices the grid's
+tensors from a ``DensePanel`` first.
 
 With the guard layer on (``guard.checks``) a grid run queues its sentinel
 counters under ``"specgrid.grid_program"`` — non-finite Gram/moment
@@ -50,6 +51,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from fm_returnprediction_tpu_torch.device import resolve_device
 from fm_returnprediction_tpu_torch.guard import checks as _guard
 from fm_returnprediction_tpu_torch.ops.fama_macbeth import (
     FamaMacbethSummary,
@@ -79,6 +81,7 @@ __all__ = [
     "solve_spec_stats",
     "run_spec_grid",
     "run_spec_grid_weights",
+    "run_spec_grid_on_panel",
 ]
 
 # contraction work, per grid call: specs solved, and spec rows (legacy) or
@@ -491,3 +494,27 @@ def run_spec_grid_weights(
             mean_r2, mean_n, n_months, suspect_months.copy(), tuple(flagged),
         )
     return out
+
+
+def run_spec_grid_on_panel(
+    panel,
+    subset_masks: Dict[str, torch.Tensor],
+    grid: SpecGrid,
+    return_col: str = "retx",
+    referee: bool = True,
+    firm_chunk=None,
+    mesh=None,
+    device=None,
+) -> SpecGridResult:
+    """``run_spec_grid`` with ``y`` (the ``return_col`` column) and the
+    union predictor columns sliced from a ``DensePanel``, and only the
+    universes the grid names kept from ``subset_masks``. The panel's values
+    stay on their device when they are a tensor; host values move to
+    ``device`` (None means the card), and so do the masks."""
+    values = panel.values
+    dev = values.device if isinstance(values, torch.Tensor) else resolve_device(device)
+    y = torch.as_tensor(panel.var(return_col), device=dev).contiguous()
+    x = torch.as_tensor(panel.select(grid.union_predictors), device=dev).contiguous()
+    needed = set(grid.universe_names)
+    masks = {n: torch.as_tensor(m, device=dev) for n, m in subset_masks.items() if n in needed}
+    return run_spec_grid(y, x, masks, grid, referee=referee, firm_chunk=firm_chunk, mesh=mesh)

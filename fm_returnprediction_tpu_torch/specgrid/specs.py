@@ -93,6 +93,15 @@ class SpecGrid:
                     union.append(c)
         return union
 
+    @property
+    def universe_names(self) -> List[str]:
+        """Distinct universes, first-seen order."""
+        names: List[str] = []
+        for spec in self.specs:
+            if spec.universe not in names:
+                names.append(spec.universe)
+        return names
+
     def column_selector(self) -> np.ndarray:
         """(S, P) bool: which union columns each spec selects."""
         union = {c: i for i, c in enumerate(self.union_predictors)}

@@ -32,7 +32,9 @@ The reference's registry fetch and store around an AOT compile
 (``_registry_fetch``, ``_registry_store``) have their counterpart in
 ``cuda_build.build_kernels``, which fetches a kernel library from the
 registry before nvcc and records it as a ``cuda_kernel`` program of
-provenance ``fetched`` (``built`` after nvcc).
+provenance ``fetched`` (``built`` after nvcc); :func:`provenance_summary`
+reads the builds against the fetches, and the build seconds the fetches
+saved, per program from the ledger.
 """
 
 from __future__ import annotations
@@ -58,6 +60,7 @@ __all__ = [
     "CostLedger",
     "cost_ledger",
     "record_program",
+    "provenance_summary",
     "record_runtime",
     "peak_flops_estimate",
     "profiling",
@@ -118,6 +121,7 @@ class CostLedger:
         self._lock = threading.Lock()
         self._records: List[ProgramRecord] = []
         self._maxlen = maxlen
+        self._dropped = 0
         self._seq = itertools.count(1)
 
     def add(self, record: ProgramRecord) -> ProgramRecord:
@@ -127,6 +131,7 @@ class CostLedger:
                 # evict the OLDEST: the flight recorder and the rebuild
                 # sentinel both read the recent tail
                 self._records.pop(0)
+                self._dropped += 1
             self._records.append(record)
         return record
 
@@ -148,6 +153,11 @@ class CostLedger:
         with self._lock:
             return self._records[-1].seq if self._records else 0
 
+    def stats(self) -> dict:
+        """How many records the ledger holds, and how many it evicted."""
+        with self._lock:
+            return {"records": len(self._records), "dropped": self._dropped}
+
     def total(self, field: str, program: Optional[str] = None) -> float:
         """Sum of a numeric field over (optionally one program's) records."""
         out = 0.0
@@ -162,6 +172,7 @@ class CostLedger:
     def reset(self) -> None:
         with self._lock:
             self._records.clear()
+            self._dropped = 0
             self._seq = itertools.count(1)
 
 
@@ -181,6 +192,29 @@ def cost_ledger() -> CostLedger:
 
 def _fingerprint(program: str, signature: str) -> str:
     return hashlib.sha256(f"{program}|{signature}".encode()).hexdigest()[:12]
+
+
+def provenance_summary(records: Optional[List[ProgramRecord]] = None) -> dict:
+    """Per program, over the ledger (or an explicit record window): the
+    records by provenance (``built``, ``fetched``, ``captured``,
+    ``eager``), the seconds paid building (nvcc builds and graph captures,
+    ``build_s``), the seconds paid fetching kernel libraries from the
+    registry (``fetch_s``), and the nvcc seconds those fetches did not
+    pay (``saved_s``, what each fetched entry cost when it was stored)."""
+    out: Dict[str, dict] = {}
+    for r in (cost_ledger().records() if records is None else records):
+        d = out.setdefault(r.program, {
+            "built": 0, "fetched": 0, "captured": 0, "eager": 0,
+            "build_s": 0.0, "fetch_s": 0.0, "saved_s": 0.0,
+        })
+        d[r.provenance] = d.get(r.provenance, 0) + 1
+        if r.provenance == "fetched":
+            d["fetch_s"] += r.compile_s
+            if r.saved_s is not None:
+                d["saved_s"] += r.saved_s
+        else:
+            d["build_s"] += r.compile_s
+    return out
 
 
 def record_program(program: str, signature: str, seconds: float, *, backend: str,

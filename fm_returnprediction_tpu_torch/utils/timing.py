@@ -13,6 +13,9 @@ opened while another stage is open. A stage that deliberately did not run
 (a checkpoint hit) is marked with :meth:`StageTimer.mark_skipped` and has
 no duration, so it never reads as "ran in 0.0 s".
 
+``stage(name)`` times a block on the module's global timer, which waits
+for no device (pass ``timer=`` a ``StageTimer`` of the device to time
+device work), and ``StageTimer.dump`` writes ``durations`` as JSON.
 ``trace(log_dir)`` wraps a region in a ``torch.profiler`` capture.
 
 With tracing armed (``telemetry``), each stage is also a host span of
@@ -24,7 +27,9 @@ stage is a ``stage.skipped`` event.
 from __future__ import annotations
 
 import contextlib
+import json
 import time
+from pathlib import Path
 from typing import Dict, Iterator, List, Optional
 
 import torch
@@ -32,7 +37,7 @@ import torch
 from fm_returnprediction_tpu_torch.device import synchronize
 from fm_returnprediction_tpu_torch.telemetry import spans as _spans
 
-__all__ = ["StageTimer", "trace"]
+__all__ = ["StageTimer", "stage", "trace"]
 
 
 class StageTimer:
@@ -101,6 +106,11 @@ class StageTimer:
                              + "; ".join(problems))
         return sum(v for k, v in self.durations.items() if "/" not in k)
 
+    def dump(self, path) -> None:
+        """Write ``durations`` as JSON to ``path``, creating its directory."""
+        Path(path).parent.mkdir(parents=True, exist_ok=True)
+        Path(path).write_text(json.dumps(self.durations, indent=2))
+
     def report(self) -> str:
         """One line per stage (``name  seconds``), one per skipped stage
         (``name  skipped (reason)``), and the total."""
@@ -110,6 +120,17 @@ class StageTimer:
         lines += [f"{name:<{width}}  skipped ({reason})" for name, reason in self.skipped.items()]
         lines.append(f"{'TOTAL':<{width}}  {self.total():9.3f}s")
         return "\n".join(lines)
+
+
+_GLOBAL_TIMER = StageTimer("cpu")
+
+
+@contextlib.contextmanager
+def stage(name: str, timer: Optional[StageTimer] = None) -> Iterator[None]:
+    """Time a block as stage ``name`` on ``timer``, else on the global
+    timer (a CPU timer: it waits for no device)."""
+    with (timer or _GLOBAL_TIMER).stage(name):
+        yield
 
 
 @contextlib.contextmanager

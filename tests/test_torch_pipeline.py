@@ -313,7 +313,10 @@ def test_port_runs_with_jax_blocked(tmp_path):
     sharded; at float64 Table 2 equal to the one-device run's); and
     ``python -m fm_returnprediction_tpu_torch.taskgraph --synthetic`` on
     the CPU twice (the DAG, then its up-to-date rerun) and a
-    ``TopologySpec`` journal-mark round trip. The
+    ``TopologySpec`` journal-mark round trip; the dense daily route
+    (``build_daily_panel``, ``daily_characteristics_chunked`` in strips),
+    ``run_spec_grid_on_panel``, ``dryrun_multichip(4)`` and ``entry()``,
+    the package exports and the doit shim's creators. The
     children inherit a ``PYTHONPATH`` whose first entry holds ``jax``,
     ``jaxlib`` and ``fm_returnprediction_tpu`` packages that raise on
     import, and run from a directory outside the repo, so a child that
@@ -542,6 +545,34 @@ def test_port_runs_with_jax_blocked(tmp_path):
         from fm_returnprediction_tpu_torch.topology import TopologySpec
         spec = TopologySpec(replicas=2, replica_mode="process", transport="shm", grid_procs=2)
         assert TopologySpec.from_mark(json.loads(json.dumps(spec.to_mark()))) == spec
+        from fm_returnprediction_tpu_torch.data.synthetic import generate_synthetic_wrds
+        from fm_returnprediction_tpu_torch.ops.daily_chunked import (
+            daily_characteristics_chunked)
+        from fm_returnprediction_tpu_torch.panel.daily import build_daily_panel
+        frames = generate_synthetic_wrds(SyntheticConfig(n_firms=20, n_months=30))
+        dp = build_daily_panel(frames["crsp_d"], frames["crsp_index_d"],
+                               np.sort(frames["crsp_m"]["jdate"].unique()))
+        vol, beta = daily_characteristics_chunked(
+            dp.ret, dp.mask, dp.mkt, dp.day_month_id, dp.week_id, dp.week_month_id,
+            dp.n_months, dp.n_weeks, mkt_present=dp.mkt_present, window=60,
+            min_periods=20, window_weeks=26, firm_chunk=8, device="cpu")
+        assert vol.shape == beta.shape == (30, 20) and np.isfinite(vol).any()
+        from fm_returnprediction_tpu_torch.specgrid import run_spec_grid_on_panel, table2_grid
+        grid = table2_grid(res.factors_dict, subsets=list(res.subset_masks))
+        on_panel = run_spec_grid_on_panel(res.panel, res.subset_masks, grid)
+        assert on_panel.coef.shape[0] == 9 and np.isfinite(on_panel.coef).any()
+        from fm_returnprediction_tpu_torch.dryrun import dryrun_multichip, entry
+        assert len(dryrun_multichip(4, device="cpu")) == 7
+        fn, args = entry(device="cpu")
+        assert torch.isfinite(fn(*args)[0]).all()
+        import importlib
+        for pkg in ("ops", "guard", "resilience", "utils", "models"):
+            mod = importlib.import_module("fm_returnprediction_tpu_torch." + pkg)
+            assert all(hasattr(mod, n) for n in mod.__all__), pkg
+        os.environ["BACKEND"] = "cpu"
+        shim = runpy.run_path(os.path.join(os.path.dirname(
+            sys.modules["fm_returnprediction_tpu_torch"].__file__), "taskgraph", "dodo.py"))
+        assert "task_build_panel" in shim and "task_grid_parity" in shim
         loaded = [m for m in sys.modules
                   if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
         assert not loaded, loaded
@@ -619,7 +650,10 @@ def test_port_never_names_jax_or_the_jax_package(pattern):
             "reporting/published.py", "data/benchscale.py", "taskgraph/__init__.py",
             "taskgraph/__main__.py", "taskgraph/engine.py", "taskgraph/tasks.py",
             "taskgraph/docs_site.py", "topology/__init__.py", "topology/spec.py",
-            "topology/controller.py"} <= names
+            "topology/controller.py", "dryrun.py", "taskgraph/dodo.py", "panel/daily.py",
+            "panel/dense.py", "panel/subsets.py", "ops/daily_chunked.py", "ops/__init__.py",
+            "guard/__init__.py", "resilience/__init__.py", "utils/__init__.py",
+            "models/__init__.py", "models/lewellen.py"} <= names
     hits = [str(f.relative_to(REPO)) for f in files
             if re.search(pattern, f.read_text())]
     assert not hits, hits
