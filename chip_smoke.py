@@ -386,7 +386,7 @@ from fm_returnprediction_tpu_torch.utils.timing import StageTimer
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 FP32_FLOPS = 67e12            # H100 SXM FP32 outside the tensor cores
-FP64_FLOPS = 34e12            # H100 SXM FP64 outside the tensor cores
+FP64_FLOPS = 67e12            # H100 SXM FP64 on the tensor cores (DMMA)
 BF16_FLOPS = 989e12           # H100 SXM bf16 dense on the tensor cores
 
 K1_SOURCE = "fm_returnprediction_tpu_torch/csrc/rolling.cu"
@@ -724,10 +724,17 @@ def check_gram(t, n, p, dtype, rel, gen, timed, figure=False, weights=None,
         out_bytes = s * t * (p + 2) ** 2 * got[0].element_size()
         b_ms, b_by = bound(in_bytes + out_bytes, 2.0 * s * t * n * tri, x.dtype)
         library_ms, lib_note = None, "none: the pre-weighted design would not fit"
-        lib_bytes = 2 * s * t * n * (p + 2) * x.element_size()
-        if lib_bytes < 24 * 2**30:
-            # yardstick: ONE batched matmul over the pre-weighted augmented
-            # design, every (spec, month) a (QE, N) @ (N, QE) product
+        qe, isz = p + 2, x.element_size()
+        torch.cuda.empty_cache()
+        free = torch.cuda.mem_get_info()[0]
+        # yardstick: ONE batched matmul over the pre-weighted augmented
+        # design. Every (spec, month) its own (QE, N) @ (N, QE) product
+        # where both operands fit under 24 GiB; past that, one product a
+        # month, the specs' weighted rows stacked against the month's
+        # design, (S·QE, N) @ (N, QE): the same sums, the weighted operand
+        # the only large one
+        per_spec = 2 * s * t * n * qe * isz < 24 * 2**30
+        if per_spec or (s * t * n * qe + 2 * t * n * qe + s * t * n) * isz < 0.85 * free:
             fin = torch.isfinite(x)
             xz = torch.where(fin, x - center[:, None, :], torch.zeros_like(x))
             finy = torch.isfinite(y)
@@ -738,12 +745,21 @@ def check_gram(t, n, p, dtype, rel, gen, timed, figure=False, weights=None,
             if rw is not None:
                 w = w * rw
             del fin, xz, yz, bad
-            lhs = (xa[None] * w[..., None]).reshape(-1, n, p + 2).transpose(1, 2)
-            rhs = xa[None].expand(s, t, n, p + 2).reshape(-1, n, p + 2).contiguous()
-            lib = torch.bmm(lhs, rhs).reshape(s, t, p + 2, p + 2).float()
+            if per_spec:
+                lhs = (xa[None] * w[..., None]).reshape(-1, n, qe).transpose(1, 2)
+                rhs = xa[None].expand(s, t, n, qe).reshape(-1, n, qe).contiguous()
+                lib = torch.bmm(lhs, rhs).reshape(s, t, qe, qe).float()
+                layout = "one (QE, N) @ (N, QE) product a (spec, month)"
+            else:
+                lhs = torch.empty((t, s, qe, n), dtype=x.dtype, device="cuda")
+                for j in range(s):
+                    lhs[:, j] = (xa * w[j][..., None]).transpose(1, 2)
+                lhs, rhs = lhs.view(t, s * qe, n), xa
+                lib = torch.bmm(lhs, rhs).view(t, s, qe, qe).transpose(0, 1).float()
+                layout = "one (S·QE, N) @ (N, QE) product a month"
             lib_err = float((split_stats(lib, p)[0] - got[0].float()).abs().max())
             library_ms = time_ms(lambda: torch.bmm(lhs, rhs))
-            lib_note = (f"bmm {library_ms:.4f} ms (|gram diff| {lib_err:.3e}; "
+            lib_note = (f"bmm {library_ms:.4f} ms ({layout}; |gram diff| {lib_err:.3e}; "
                         f"kernel/bmm {ms / library_ms:.3f})")
             del lhs, rhs, lib, w, xa
         log(f"K2 {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
@@ -822,10 +838,40 @@ def k2_phase(gen, timed: bool):
     return [row for row in rows if row]
 
 
+# K2 past 32 predictor columns: the full-width union (Table 2's 14 columns
+# and 26 seeded ones, 600 × 22,000) and two wider unions at 4,096 firms,
+# each on every branch (float32, float64, coreset row weights, bfloat16
+# operands on the tensor cores); specs select the first 3, the first 7 and
+# every column of the union, Table 2's three nested shapes widened
+WIDE_P = 40
+WIDE_SHAPES = ((WIDE_P, 22000), (64, 4096), (100, 4096))
+# their launches on a path: k2_wide_path_phase's run_spec_grid runs
+ROW_PATH.update({f"gram/P={p},S=9,{branch}": ("wide",) for p, _ in WIDE_SHAPES
+                 for branch in ("f32", "f64", "f32,rw", "bf16")})
+
+
+def k2_wide_phase(gen, timed: bool):
+    """K2 at P = 40, 64 and 100 against its plain version on every branch
+    (the timed rows of the kernel table), then untimed edge cases: P = 33
+    in float64 and in bfloat16 with 0/1 weights on a ragged N, bfloat16
+    with coreset weights at P = 40."""
+    rows = []
+    for p, n in WIDE_SHAPES:
+        rows += [check_gram(600, n, p, torch.float32, 1e-5, gen, timed),
+                 check_gram(600, n, p, torch.float64, 1e-12, gen, timed),
+                 check_gram(600, n, p, torch.float32, 1e-5, gen, timed, weights="coreset"),
+                 check_gram(600, n, p, torch.float32, 1e-5, gen, timed, low=True)]
+    check_gram(600, 4096, WIDE_P, torch.float32, 1e-5, gen, False, weights="coreset", low=True)
+    check_gram(120, 3001, 33, torch.float64, 1e-12, gen, False)
+    check_gram(120, 3001, 33, torch.float32, 1e-5, gen, False, weights="binary", low=True)
+    return [row for row in rows if row]
+
+
 def sass_hmma_phase() -> None:
     """Count the tensor-core instructions (``HMMA``) in the SASS of each
     Gram kernel of the built library (``cuobjdump -sass``): the bf16
-    kernels must have some, the float and double kernels none."""
+    kernels (the eight register classes and the two wide kernels past 32
+    columns) must have some, the float and double kernels none."""
     cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
     tool = shutil.which("cuobjdump") or os.path.join(cuda_home, "bin", "cuobjdump")
     if not os.path.exists(tool):
@@ -849,9 +895,9 @@ def sass_hmma_phase() -> None:
                  .removeprefix("void ") for nm in names)
         counts = dict(zip(short, counts.values()))
     log("SASS HMMA count per Gram kernel: " + json.dumps(counts))
-    tc = {k: v for k, v in counts.items() if "gram_tc_kernel" in k}
-    cc = {k: v for k, v in counts.items() if "gram_tc_kernel" not in k}
-    check(len(tc) == 8 and all(v > 0 for v in tc.values()),
+    tc = {k: v for k, v in counts.items() if k.startswith("gram_tc_")}
+    cc = {k: v for k, v in counts.items() if not k.startswith("gram_tc_")}
+    check(len(tc) == 10 and all(v > 0 for v in tc.values()),
           "bf16 Gram kernels without tensor-core instructions")
     check(all(v == 0 for v in cc.values()), "float/double Gram kernels use the tensor cores")
 
@@ -972,7 +1018,7 @@ def counted_run(base, daily, **kw):
     before and read just after: (result, wall s, counts)."""
     reset_counts()
     start = time.perf_counter()
-    res = run_pipeline(base, daily, device="cuda", dtype=torch.float32, **kw)
+    res = run_pipeline(dense_base=base, compact_daily=daily, device="cuda", dtype=torch.float32, **kw)
     return res, time.perf_counter() - start, launch_counts()
 
 
@@ -2290,6 +2336,92 @@ def _held_cell_gap(got: pd.DataFrame, want: pd.DataFrame) -> float:
     return worst
 
 
+def wide_grid(factors: dict, universes, extra: int):
+    """Table 2's spec shapes over a union widened by ``extra`` seeded
+    columns: Models 1 and 2 select their Table 2 columns, Model 3 its 14
+    and every seeded column, each over Table 2's three universes. Returns
+    ``(grid, Table 2's union, the seeded columns' names)``."""
+    from fm_returnprediction_tpu_torch.specgrid.specs import Spec, SpecGrid
+
+    cols = [model_columns(m, factors) for m in MODELS]
+    union = list(dict.fromkeys(c for cs in cols for c in cs))
+    seeded = [f"seeded_{i}" for i in range(extra)]
+    specs = [Spec(f"{m.name} | {u}", tuple(c) + (tuple(seeded) if k == len(MODELS) - 1 else ()),
+                  u)
+             for k, (m, c) in enumerate(zip(MODELS, cols)) for u in universes]
+    return SpecGrid(tuple(specs), union=tuple(union + seeded)), union, seeded
+
+
+def _seeded_columns(t: int, n: int, k: int, seed: int, device, dtype) -> torch.Tensor:
+    """``k`` seeded standard-normal (T, N) columns, 2% of them NaN, made
+    from ``seed`` on ``device``."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    cols = torch.randn((t, n, k), generator=gen, device=device, dtype=torch.float64)
+    cols = torch.where(torch.rand((t, n, k), generator=gen, device=device, dtype=torch.float64)
+                       < 0.02, torch.full_like(cols, float("nan")), cols)
+    return cols.to(dtype)
+
+
+def k2_wide_path_phase(res, seed: int) -> dict:
+    """K2 past 32 columns through the normal entry, ``run_spec_grid``, on
+    the main path's float32 panel (600 × 22,000): Table 2's union and 26
+    seeded columns (``WIDE_P`` = 40), Table 2's spec shapes over it
+    (``wide_grid``), in float32, with coreset row weights, in bfloat16 and
+    in float64; then unions of 64 and 100 columns (50 and 86 seeded) at
+    the first 4,096 firms on the same four branches. Each run's K2
+    launches are counted by key: one a contraction, or ⌈9 /
+    gram_spec_chunk(P)⌉ where the batch is cut; Models 1 and 2 come out
+    finite. No referee: its QR re-solves launch no K2 (the card-vs-CPU
+    check runs the wide grid refereed). Returns the launch counts
+    (``gram/…`` keys) of every run."""
+    panel, masks = res.panel, res.subset_masks
+    t, n = panel.values.shape[:2]
+    universes = [u for u in masks if u in ("All stocks", "All-but-tiny stocks", "Large stocks")]
+    y = panel.var("retx").contiguous()
+    dev = panel.values.device
+    merged: dict = {}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    for p, firms in WIDE_SHAPES:
+        grid, union, seeded = wide_grid(res.factors_dict, universes, p - 14)
+        cols = torch.cat([panel.select(union),
+                          _seeded_columns(t, n, len(seeded), seed + p, dev, torch.float32)],
+                         dim=-1)[:, :firms].contiguous()
+        yy = y[:, :firms].contiguous()
+        mm = {u: masks[u][:, :firms].contiguous() for u in universes}
+        rw = coreset_like_weights(t, firms, torch.float32, gen, binary=False)
+        runs = (("f32", dict(), yy, cols), ("rw", dict(row_weights=rw), yy, cols),
+                ("bf16", dict(precision="bf16"), yy, cols),
+                ("f64", dict(), yy.double(), cols.double()))
+        for label, kw, y_run, x_run in runs:
+            masks_run = mm
+            reset_counts()
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            out = run_spec_grid(y_run, x_run, masks_run, grid, False, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - start
+            counts = launch_counts()
+            want = -(-len(grid.specs) // gram_spec_chunk(p))
+            nested = out.coef[: 2 * len(universes)]
+            n_cols = [len(s.predictors) for s in grid.specs[: 2 * len(universes)]]
+            finite = all(np.isfinite(nested[i, :k]).all() for i, k in enumerate(n_cols))
+            log(f"K2 wide path: run_spec_grid P={p} S={len(grid.specs)} N={firms} {label}: "
+                f"{wall:.3f} s, K2 {counts['k2']} ({ {k: v for k, v in counts.items() if k.startswith('gram/')} }), "
+                f"specs with a suspect month {int((out.suspect_months > 0).sum())}, Models 1-2 "
+                f"finite {finite}")
+            check(counts["k2"] == want, f"wide run_spec_grid P={p} {label}: K2 {counts['k2']}, "
+                  f"not {want}")
+            check(finite, f"wide run_spec_grid P={p} {label}: Models 1-2 not finite")
+            for key, v in counts.items():
+                if key.startswith("gram/"):
+                    merged[key] = merged.get(key, 0) + v
+        del cols, rw, yy, mm
+        torch.cuda.empty_cache()
+    return merged
+
+
 def multiproc_phase(res) -> dict:
     """The 27-cell f32 scenario sweep at real size across ``MP_PROCS``
     contraction worker processes (``FMRP_SPECGRID_PROCS``), over the
@@ -2520,22 +2652,23 @@ def _reporting_vs_cpu(gpu, cpu) -> None:
 
 
 # firms of the card-vs-CPU universe (240 months, float64); cut from 2,000,
-# its CPU side the host-bound cost, to pay for the dense daily route's and
-# the dry run's phases (at 1,200 one absorb cell without a suspect month
-# missed the 1e-8 pin: ROADMAP, faults)
-CVC_FIRMS = 1600
+# its CPU side the host-bound cost. At 1,200 one absorb cell without a
+# suspect month sits at 1.3e-8 of the 1e-8 pin, both devices at its worst
+# month's condition (1.2e7) times the sum-order eps: such a cell is held to
+# the bound its own months give (_condition_pin)
+CVC_FIRMS = 1200
 
 
-def card_vs_cpu(seed: int) -> None:
+def card_vs_cpu(seed: int, absorb_reading: bool = False) -> None:
     base, daily = make_smoke_inputs(n_firms=CVC_FIRMS, n_months=240, seed=seed + 1,
                                     dtype=np.float64)
     start = time.perf_counter()
     boot = dict(make_bootstrap=True, bootstrap_replicates=BOOT_CPU_REPLICATES)
-    gpu = run_pipeline(base, daily, device="cuda", dtype=torch.float64, **boot)
+    gpu = run_pipeline(dense_base=base, compact_daily=daily, device="cuda", dtype=torch.float64, **boot)
     gpu_s = time.perf_counter() - start
-    again = run_pipeline(base, daily, device="cuda", dtype=torch.float64)
+    again = run_pipeline(dense_base=base, compact_daily=daily, device="cuda", dtype=torch.float64)
     start = time.perf_counter()
-    cpu = run_pipeline(base, daily, device="cpu", dtype=torch.float64, **boot)
+    cpu = run_pipeline(dense_base=base, compact_daily=daily, device="cpu", dtype=torch.float64, **boot)
     cpu_s = time.perf_counter() - start
     diffs = _cell_diffs(gpu.table_2_cells, cpu.table_2_cells)
     repeat = _cell_diffs(again.table_2_cells, gpu.table_2_cells)
@@ -2553,7 +2686,84 @@ def card_vs_cpu(seed: int) -> None:
     _boot_vs_cpu(gpu, cpu)
     _scenarios_vs_cpu(gpu)
     _backtest_vs_cpu(gpu)
-    _estimators_vs_cpu(gpu)
+    _estimators_vs_cpu(gpu, absorb_reading)
+    _wide_vs_cpu(gpu, seed)
+
+
+def _grid_gap(got, want, suspect: np.ndarray) -> tuple:
+    """The worst held gap of two ``SpecGridResult``s (coef at ``max(|b|,
+    nw_se)``, t-stat at ``max(|t|, 1)``) over the specs without a suspect
+    month and over those with one; NaN patterns and month counts equal."""
+    for name in ("coef", "tstat"):
+        a, b = np.asarray(getattr(got, name), float), np.asarray(getattr(want, name), float)
+        check(bool(np.array_equal(np.isnan(a), np.isnan(b))), f"{name}: NaN patterns differ")
+    check(np.array_equal(got.n_months, want.n_months), "month counts differ")
+    scale = {"coef": np.fmax(np.abs(want.coef), want.nw_se),
+             "tstat": np.maximum(np.abs(want.tstat), 1.0)}
+    gap = np.zeros(want.coef.shape[0])
+    for name, sc in scale.items():
+        d = np.abs(np.asarray(getattr(got, name)) - np.asarray(getattr(want, name))) / sc
+        # a column the spec does not select is NaN on both sides (checked)
+        gap = np.maximum(gap, np.where(np.isfinite(d), d, 0.0).max(axis=1))
+    held = float(gap[~suspect].max(initial=0.0))
+    return held, float(gap[suspect].max(initial=0.0))
+
+
+def _wide_vs_cpu(gpu, seed: int) -> None:
+    """K2 past 32 columns card vs CPU at float64 on the card-vs-CPU
+    universe: ``run_spec_grid`` over Table 2's union and 26 seeded columns
+    (``wide_grid``, 40 columns, one K2 launch), and one FWL cell (Model 2,
+    all stocks) whose 20 controls are the union's last 20 columns; specs
+    without a suspect month at 1e-8, the others at ``SUSPECT_TOL``."""
+    from fm_returnprediction_tpu_torch.specgrid.estimators import run_estimator_grid_weights
+    from fm_returnprediction_tpu_torch.specgrid.specs import Spec, SpecGrid
+
+    panel, masks = gpu.panel, gpu.subset_masks
+    t, n = panel.values.shape[:2]
+    universes = [u for u in masks if u in ("All stocks", "All-but-tiny stocks", "Large stocks")]
+    grid, union, seeded = wide_grid(gpu.factors_dict, universes, WIDE_P - 14)
+    dev = panel.values.device
+    x = torch.cat([panel.select(union),
+                   _seeded_columns(t, n, len(seeded), seed, dev, torch.float64)], dim=-1)
+    sides = {"card": (panel.var("retx").contiguous(), x.contiguous(),
+                      {u: masks[u] for u in universes})}
+    sides["cpu"] = tuple(a.cpu() for a in sides["card"][:2]) + (
+        {u: m.cpu() for u, m in sides["card"][2].items()},)
+    model2 = model_columns(MODELS[1], gpu.factors_dict)
+    fwl_grid = SpecGrid((Spec("Model 2 | All stocks", tuple(model2), "All stocks"),),
+                        union=grid.union)
+    # the controls are union columns 20-39, so the cell's 1e-8 pin reaches
+    # every column of the second selection word
+    est = parse_estimator("fwl:" + "+".join(seeded[6:26]))
+    out, counts = {}, {}
+    for side, (y, xx, mm) in sides.items():
+        reset_counts()
+        start = time.perf_counter()
+        res = run_spec_grid(y, xx, mm, grid)
+        fwl, disc = run_estimator_grid_weights(est, y, xx, mm, fwl_grid, ("reference",))
+        out[side] = (res, fwl["reference"], disc, time.perf_counter() - start)
+        counts[side] = launch_counts()
+    (g, gf, gd, g_s), (c, cf, cd, c_s) = out["card"], out["cpu"]
+    suspect = np.asarray(c.suspect_months) > 0
+    held, worst_sus = _grid_gap(g, c, suspect)
+    f_suspect = np.asarray(cf.suspect_months) > 0
+    f_held, f_sus = _grid_gap(gf, cf, f_suspect)
+    log(f"card vs CPU wide (P={WIDE_P}, f64, 240 x {CVC_FIRMS:,}): run_spec_grid and the FWL "
+        f"cell with 20 controls, card {g_s:.2f} s (K2 {counts['card']['k2']}: "
+        f"{ {k: v for k, v in counts['card'].items() if k.startswith('gram/')} }), cpu "
+        f"{c_s:.2f} s; run_spec_grid worst held diff {held:.3e} over "
+        f"{int((~suspect).sum())} specs without a suspect month (tol 1e-8), {worst_sus:.3e} "
+        f"over {int(suspect.sum())} with one (tol {SUSPECT_TOL:g}); referee specs card "
+        f"{list(g.referee_specs)} cpu {list(c.referee_specs)}; FWL cell worst held diff "
+        f"{f_held:.3e} ({int(f_suspect.sum())} suspect), deficient months "
+        f"{gd['deficient_months'].tolist()} vs {cd['deficient_months'].tolist()}")
+    check(counts["card"]["k2"] == (2 if dev.type == "cuda" else 0),
+          f"wide card run: K2 {counts['card']['k2']}, not one a contraction")
+    check(list(g.referee_specs) == list(c.referee_specs), "wide: referee specs differ")
+    check(np.array_equal(gd["deficient_months"], cd["deficient_months"]),
+          "wide FWL: deficient months differ")
+    check(held <= 1e-8 and worst_sus <= SUSPECT_TOL and f_held <= 1e-8
+          and f_sus <= SUSPECT_TOL, "card vs CPU: the wide grid beyond tolerance")
 
 
 SCENARIO_FLOATS = {"coef", "tstat", "nw_se", "mean_r2", "mean_n", "coreset_rate"}
@@ -2706,6 +2916,63 @@ def ingest_vs_cpu() -> None:
     check(diffs[0][0] <= 1e-8, "ingest route card vs CPU: Table 2 beyond tolerance")
     _reporting_vs_cpu(gpu, cpu)
     check(gpu.audit.as_dict() == cpu.audit.as_dict(), "ingest route: audits differ card vs CPU")
+
+
+def frames_route_phase() -> None:
+    """``get_factors(crsp_comp, crsp_d, crsp_index_d)`` on the card at the
+    raw-frame route's size (250 × 130, float64), the reference's own call:
+    the merged monthly frame and the filtered daily frames of the legacy
+    route, the dense base panel and the compact daily strips built inside
+    (``factors/long_to_dense``, ``factors/daily_ingest``), K1 counted; the
+    panel bit-equal to ``get_factors`` on the prebuilt inputs it captured
+    and the strips built from the same frames."""
+    from fm_returnprediction_tpu_torch.data.synthetic import generate_synthetic_wrds
+    from fm_returnprediction_tpu_torch.data.wrds_pull import subset_to_common_stock_and_exchanges
+    from fm_returnprediction_tpu_torch.panel.characteristics import get_factors
+    from fm_returnprediction_tpu_torch.panel.daily import build_compact_daily
+    from fm_returnprediction_tpu_torch.panel.transform_compustat import (
+        add_report_date,
+        calc_book_equity,
+        expand_compustat_annual_to_monthly,
+        merge_CRSP_and_Compustat,
+    )
+    from fm_returnprediction_tpu_torch.panel.transform_crsp import calculate_market_equity
+
+    data = generate_synthetic_wrds(SyntheticConfig(n_firms=250, n_months=130))
+    crsp_d = subset_to_common_stock_and_exchanges(data["crsp_d"],
+                                                  columns=["permno", "dlycaldt", "retx"])
+    crsp = calculate_market_equity(subset_to_common_stock_and_exchanges(data["crsp_m"]))
+    comp = expand_compustat_annual_to_monthly(
+        calc_book_equity(add_report_date(data["comp"].copy())))
+    merged = merge_CRSP_and_Compustat(crsp, comp, data["ccm"])
+    capture = {}
+    timer = StageTimer("cuda")
+    reset_counts()
+    start = time.perf_counter()
+    with timer.stage("build_panel"):
+        panel, factors = get_factors(merged, crsp_d, data["crsp_index_d"], torch.float64,
+                                     timer=timer, capture=capture, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    counts = launch_counts()
+    daily = build_compact_daily(crsp_d, data["crsp_index_d"], capture["dense_base"].months,
+                                dtype=np.float64)
+    again, again_factors = get_factors(None, None, None, torch.float64, device="cuda",
+                                       dense_base=capture["dense_base"], compact_daily=daily)
+    same = (again.var_names == panel.var_names and again_factors == factors
+            and bool(torch.equal(torch.isnan(again.values), torch.isnan(panel.values)))
+            and bool(torch.equal(torch.nan_to_num(again.values, nan=0.0),
+                                 torch.nan_to_num(panel.values, nan=0.0))))
+    stages = {k: round(v, 4) for k, v in timer.durations.items() if k.startswith("factors/")}
+    log(f"get_factors from raw frames (250 x 130, f64) on the card: {wall:.3f} s, panel "
+        f"{tuple(panel.values.shape)}, stages {json.dumps(stages)}; launches K1 {counts['k1']} "
+        f"({ {k: v for k, v in counts.items() if k.startswith('std/w=252,')} }), K2 "
+        f"{counts['k2']}; bit-equal to the prebuilt route: {same}")
+    check(counts["k1"] > 0 and counts.get("std/w=252", 0) > 0,
+          "get_factors from raw frames: K1 std was not launched")
+    check("factors/long_to_dense" in stages and "factors/daily_ingest" in stages,
+          f"get_factors from raw frames: host stages {sorted(stages)}")
+    check(same, "get_factors from raw frames differs from the prebuilt route")
 
 
 # --- the bootstrap-SE table, the stacked-QR route, the month ingest --------
@@ -2900,9 +3167,9 @@ def _mesh_main_path(base, daily, ref) -> dict:
                                  dtype=np.float64)
     kw = dict(device="cuda", dtype=torch.float64, make_figure=False, make_deciles=False,
               make_serving=False)
-    one = run_pipeline(b64, d64, **kw)
+    one = run_pipeline(dense_base=b64, compact_daily=d64, **kw)
     with _env(MESH_DEVICES=MESH_SHARDS):
-        meshed = run_pipeline(b64, d64, **kw)
+        meshed = run_pipeline(dense_base=b64, compact_daily=d64, **kw)
     worst = {"coef": 0.0, "tstat": 0.0}
     for key, want in one.table_2_cells.items():
         got = meshed.table_2_cells[key]
@@ -3177,7 +3444,7 @@ def _stacked_run(base, daily, dtype):
     with _env(FMRP_SPECGRID_ROUTE="stacked"):
         reset_counts()
         start = time.perf_counter()
-        res = run_pipeline(base, daily, device="cuda", dtype=dtype)
+        res = run_pipeline(dense_base=base, compact_daily=daily, device="cuda", dtype=dtype)
         wall = time.perf_counter() - start
         counts = launch_counts()
     return res, wall, {k: counts[k] for k in STACKED_LAUNCHES}, \
@@ -3224,7 +3491,7 @@ def stacked_phase(base, daily, gram_frames: dict) -> None:
     del res, y, mask
     torch.cuda.empty_cache()
 
-    gram = run_pipeline(base, daily, device="cuda", dtype=torch.float64)
+    gram = run_pipeline(dense_base=base, compact_daily=daily, device="cuda", dtype=torch.float64)
     gram64 = {"table_2": gram.table_2, "decile_table": gram.decile_table,
               **{f"figure_1/{name}": frame for name, frame in gram.figure_1.items()}}
     del gram
@@ -3970,14 +4237,139 @@ def estimators_phase(base, daily) -> dict:
     return total
 
 
-def _estimators_vs_cpu(gpu) -> None:
+def _spied_sweep(panel, masks, factors, spec: str, kw: dict, chunk=None) -> tuple:
+    """``run_scenarios(estimators=(spec,))`` with each estimator grid's
+    transformed stats and per-month solve recorded as the solve receives
+    and returns them (``firm_chunk`` width ``chunk`` on the plain
+    contraction when given). Returns ``(frame, {(model, universe, window):
+    record})``, a record holding the spec's per-month equilibrated
+    condition (the selected block of the transformed Gram, diagonal scaled
+    to 1, as ``solve.solve_spec_stats`` scales it) and that equilibrated
+    block, its per-month slopes, validity and row counts, and its
+    coefficients and NW SEs."""
+    import contextlib
+    from unittest import mock
+
+    from fm_returnprediction_tpu_torch.specgrid import engine as engine_mod
+    from fm_returnprediction_tpu_torch.specgrid import grams
+    from fm_returnprediction_tpu_torch.specgrid.estimators import grid as grid_mod
+    from fm_returnprediction_tpu_torch.specgrid.scenarios import subperiod_windows
+
+    model_of = {tuple(model_columns(m, factors)): m.name for m in MODELS}
+    window_of = {w: name for name, w in subperiod_windows(len(panel.months), 2).items()}
+    records = {}
+    grid_fn, solve_fn = grid_mod.run_estimator_grid_weights, grid_mod.solve_spec_stats
+
+    def grid_spy(estimator, y, x, universe_masks, grid, weights, **kw2):
+        seen = {}
+
+        def solve_spy(stats, sel_aug, **kw3):
+            sol, counters = solve_fn(stats, sel_aug, **kw3)
+            seen.update(stats=stats, sel=sel_aug, sol=sol)
+            return sol, counters
+
+        with mock.patch.object(grid_mod, "solve_spec_stats", solve_spy):
+            results, disc = grid_fn(estimator, y, x, universe_masks, grid, weights, **kw2)
+        stats, sel, sol = (seen[k] for k in ("stats", "sel", "sol"))
+        q = stats.gram.shape[-1]
+        gram = stats.gram.detach().cpu().double()
+        pick = (sel[:, None, :, None] & sel[:, None, None, :]).cpu()
+        g = torch.where(pick, gram, torch.eye(q, dtype=torch.float64))
+        d = torch.rsqrt(torch.diagonal(g, dim1=-2, dim2=-1).clamp_min(1e-300))
+        gs = g * d[..., :, None] * d[..., None, :]
+        w = torch.linalg.eigvalsh(gs)
+        cond = (w[..., -1] / w[..., 0]).numpy()
+        res = results[weights[0]]
+        for i, sp in enumerate(grid.specs):
+            key = (model_of[tuple(sp.predictors)], sp.universe, window_of[sp.window])
+            records.setdefault(key, dict(
+                cond=cond[i], gram=gs[i].numpy(), beta=sol.beta[i].detach().cpu().numpy(),
+                valid=sol.month_valid[i].detach().cpu().numpy(),
+                n=stats.n[i].detach().cpu().double().numpy(), coef=res.coef[i],
+                nw_se=res.nw_se[i]))
+        return results, disc
+
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(mock.patch.object(engine_mod, "run_estimator_grid_weights", grid_spy))
+        if chunk:
+            stack.enter_context(mock.patch.object(grams, "auto_firm_chunk",
+                                                  lambda *a, **k: chunk))
+        frame = run_scenarios(panel, masks, factors, estimators=(spec,), **kw)
+    return frame, records
+
+
+def _condition_pin(rec: dict) -> float:
+    """The held limit of one cell derived from its own months: to first
+    order a month's slopes move by ``κ · ‖ΔG‖/‖G‖`` of ``|β|`` when its
+    equilibrated Gram moves by ``ΔG``, and two sum orders of ``n`` rows
+    leave ``‖ΔG‖/‖G‖`` at about ``√n · eps``; the coefficient is the mean
+    of the month slopes, held at ``max(|b|, nw_se)`` (its t-stat at
+    ``max(|t|, 1)``, the same bound over the SE). So the cell's limit is
+    ``Σ_m κ_m · √n_m · eps · max_p |β_mp| / max(|b_p|, se_p) / M``, and
+    never below the 1e-8 pin."""
+    eps = np.finfo(np.float64).eps
+    v = rec["valid"]
+    if not v.any():
+        return 1e-8
+    scale = np.fmax(np.abs(rec["coef"]), rec["nw_se"])
+    usable = np.isfinite(scale) & (scale > 0)
+    ratio = np.abs(rec["beta"][v, 1:]) / np.where(usable, scale, 1.0) * usable
+    per_month = rec["cond"][v] * np.sqrt(np.maximum(rec["n"][v], 1.0)) * eps * ratio.max(axis=1)
+    return max(1e-8, float(per_month.sum() / v.sum()))
+
+
+def _cell_gaps(got: pd.DataFrame, want: pd.DataFrame, keep: np.ndarray) -> dict:
+    """(model, universe, window) → the held gap of the cell's rows
+    (``_scenario_worst``), over the rows ``keep`` selects."""
+    out = {}
+    for cell in want.loc[keep, "cell"].unique():
+        rows = keep & (want["cell"] == cell).to_numpy()
+        first = want.loc[rows].iloc[0]
+        out[(first["model"], first["universe"], first["window"])] = _scenario_worst(
+            _rows(got, rows), _rows(want, rows))
+    return out
+
+
+def _month_reading(card: dict, cpu: dict, chunked: dict, key, gap, chunk_gap) -> str:
+    """The months that carry one cell's gap: each month's share of the
+    coefficient gap (its slope gap over ``max(|b|, nw_se)`` and the month
+    count) on the card and under ``SUSPECT_CHUNK``-firm chunks, its
+    condition, and the card's equilibrated transformed Gram against the
+    CPU's in eps."""
+    v = cpu["valid"]
+    months = int(v.sum())
+    scale = np.fmax(np.abs(cpu["coef"]), cpu["nw_se"])
+
+    def share(other):
+        d = np.abs(other["beta"][:, 1:] - cpu["beta"][:, 1:]) / scale
+        return np.where(v, np.nanmax(np.where(np.isfinite(d), d, 0.0), axis=1) / months, -1.0)
+
+    card_share, chunk_share = share(card), share(chunked)
+    gram_gap = np.abs(card["gram"] - cpu["gram"]).max(axis=(-1, -2)) / np.finfo(np.float64).eps
+    top = np.argsort(card_share)[::-1][:6]
+    worst = float(np.where(v, cpu["cond"], 0.0).max())
+    return (f"{' | '.join(key)}: card vs CPU {gap:.3e}, CPU {SUSPECT_CHUNK}-firm chunks vs CPU "
+            f"{chunk_gap:.3e}, {months} months, worst month condition {worst:.3e} (cond x eps "
+            f"{worst * np.finfo(np.float64).eps:.3e}; the suspect tier flags past "
+            f"{1 / np.sqrt(np.finfo(np.float64).eps):.3e}), rows at most "
+            f"{int(cpu['n'][v].max())}; the months that carry the gap (month: card share, CPU "
+            "chunks share, condition, card's equilibrated Gram vs the CPU's in eps): "
+            + ", ".join(f"{m}: {card_share[m]:.2e}, {chunk_share[m]:.2e}, {cpu['cond'][m]:.2e}, "
+                        f"{gram_gap[m]:.1f}" for m in top))
+
+
+def _estimators_vs_cpu(gpu, absorb_reading: bool = False) -> None:
     """Each estimator kind at float64 on the card against the CPU, both
     from the card run's panel (copied to the host; one FE code draw): FWL,
     IV, one- and two-way absorb, pooled two-way, FWL with the clustered
     tail, absorb on the coreset route. Labels, flags and the integer
     disclosures (``suspect_months``, ``absorb_iters``, ``absorb_converged``)
-    exactly; the numbers at 1e-8 on the rows of cells without a suspect
-    month (``_scenario_worst``'s scales) and at ``SUSPECT_TOL`` on the
+    exactly; the numbers of each cell without a suspect month at 1e-8
+    (``_scenario_worst``'s scales), or at the bound its own months'
+    conditions give where that is larger (``_condition_pin``, from the
+    CPU run's recorded solve; with ``absorb_reading`` the absorb kind's
+    worst such cell printed month by month, ``_month_reading``), and at
+    ``SUSPECT_TOL`` on the
     others, that limit placed for the FWL, IV and two-way absorb sweeps
     between two CPU witnesses: the same sweep under ``SUSPECT_CHUNK``-firm
     chunks (another order of the sums) and with a planted fault (the
@@ -4007,14 +4399,26 @@ def _estimators_vs_cpu(gpu) -> None:
              ("fwl_cluster", f"{specs['fwl']}@cluster", {}, False),
              ("absorb_coreset", "absorb:ind", dict(fe_codes=fe, route="coreset"), False))
     for name, spec, kw, witness in cases:
+        pooled = spec.startswith("pooled")
         start = time.perf_counter()
-        got = run_scenarios(gpu.panel, gpu.subset_masks, factors, estimators=(spec,), **kw)
+        reading = absorb_reading and name == "absorb"
+        if reading:
+            got, card_rec = _spied_sweep(gpu.panel, gpu.subset_masks, factors, spec, kw)
+        else:
+            got = run_scenarios(gpu.panel, gpu.subset_masks, factors, estimators=(spec,), **kw)
         mid = time.perf_counter()
-        want = run_scenarios(host_panel, host_masks, factors, estimators=(spec,), **kw)
+        if pooled:
+            want = run_scenarios(host_panel, host_masks, factors, estimators=(spec,), **kw)
+        else:
+            want, cpu_rec = _spied_sweep(host_panel, host_masks, factors, spec, kw)
         cpu_s = time.perf_counter() - mid
         suspect = (want["suspect_months"] > 0).to_numpy()
+        # the held limit of each cell without a suspect month: 1e-8, or the
+        # bound its own months' conditions give (_condition_pin)
+        pins = ({} if pooled else
+                {key: _condition_pin(rec) for key, rec in cpu_rec.items()})
         extra_note = ""
-        if spec.startswith("pooled"):
+        if pooled:
             ill, cond = _pooled_conditions(host_panel, host_masks, factors, want)
             suspect = suspect | ill
             worst_cond = {m: max(c for key, c in cond.items() if key[0] == m)
@@ -4022,31 +4426,47 @@ def _estimators_vs_cpu(gpu) -> None:
             extra_note = ("; pooled Grams with condition × eps ≥ 1e-9 (held as suspect cells): "
                           f"{want.loc[ill, 'cell'].nunique()} cells, worst condition per "
                           "model " + json.dumps({m: f"{c:.2e}" for m, c in worst_cond.items()}))
-        held = _scenario_worst(_rows(got, ~suspect), _rows(want, ~suspect))
+        gaps = _cell_gaps(got, want, ~suspect)
+        held = max(gaps.values(), default=0.0)
+        over = {" | ".join(k): g for k, g in gaps.items() if g > pins.get(k, 1e-8)}
         worst_sus = (_scenario_worst(_rows(got, suspect), _rows(want, suspect))
                      if suspect.any() else 0.0)
+        derived = {" | ".join(k): [float(f"{pins[k]:.3e}"), float(f"{gaps[k]:.3e}")]
+                   for k in gaps if pins.get(k, 1e-8) > 1e-8}
         text = (f"card vs CPU estimators {name} ({spec}, f64, 240 x {CVC_FIRMS:,}): cuda "
                 f"{mid - start:.2f} s, cpu {cpu_s:.2f} s; worst diff {held:.3e} over "
                 f"{int((~suspect).sum())} rows of {want.loc[~suspect, 'cell'].nunique()} cells "
-                f"without a suspect month (tol 1e-8), {worst_sus:.3e} over {int(suspect.sum())} "
-                f"rows of {want.loc[suspect, 'cell'].nunique()} cells with one (tol "
-                f"{SUSPECT_TOL:g}); labels and integer disclosures equal{extra_note}")
+                f"without a suspect month (tol 1e-8, or the cell's condition bound: cells "
+                f"whose bound passes 1e-8, [bound, gap]: {json.dumps(derived)}), "
+                f"{worst_sus:.3e} over {int(suspect.sum())} rows of "
+                f"{want.loc[suspect, 'cell'].nunique()} cells with one (tol {SUSPECT_TOL:g}); "
+                f"labels and integer disclosures equal{extra_note}")
         if "absorb_iters" in want:
             text += (f"; absorb_iters max {int(want['absorb_iters'].max())}, cells converged "
                      f"{int(want.groupby('cell')['absorb_converged'].first().sum())} of "
                      f"{want['cell'].nunique()}")
         log(text)
-        check(held <= 1e-8 and worst_sus <= SUSPECT_TOL,
-              f"card vs CPU: estimator sweep {name} beyond tolerance")
+        if reading and gaps:
+            chunked, chunk_rec = _spied_sweep(host_panel, host_masks, factors, spec, kw,
+                                              chunk=SUSPECT_CHUNK)
+            chunk_gaps = _cell_gaps(chunked, want, ~suspect)
+            key = max(gaps, key=gaps.get)
+            log("card vs CPU estimators absorb, the worst cell without a suspect month: "
+                + _month_reading(card_rec[key], cpu_rec[key], chunk_rec[key], key, gaps[key],
+                                 chunk_gaps[key]))
+        check(not over and worst_sus <= SUSPECT_TOL,
+              f"card vs CPU: estimator sweep {name} beyond tolerance: {over}")
         if witness and suspect.any():
             with mock.patch.object(grams, "auto_firm_chunk", lambda *a, **k: SUSPECT_CHUNK):
                 reordered = run_scenarios(host_panel, host_masks, factors, estimators=(spec,),
                                           **kw)
             fault = run_scenarios(fault_panel, host_masks, factors, estimators=(spec,), **kw)
+            order_gaps = _cell_gaps(reordered, want, ~suspect)
             wit = {"order_suspect": _scenario_worst(_rows(reordered, suspect),
                                                     _rows(want, suspect)),
-                   "order_held": _scenario_worst(_rows(reordered, ~suspect),
-                                                 _rows(want, ~suspect)),
+                   "order_held": max(order_gaps.values(), default=0.0),
+                   "order_over": {" | ".join(k): g for k, g in order_gaps.items()
+                                  if g > pins.get(k, 1e-8)},
                    "fault_suspect": _scenario_worst(_rows(fault, suspect), _rows(want, suspect),
                                                     strict=False),
                    "fault_held": _scenario_worst(_rows(fault, ~suspect), _rows(want, ~suspect),
@@ -4056,7 +4476,7 @@ def _estimators_vs_cpu(gpu) -> None:
                 f"planted fault (the return one month late) vs CPU: suspect rows "
                 f"{wit['fault_suspect']:.3e}, other rows {wit['fault_held']:.3e}")
             check(wit["order_suspect"] <= SUSPECT_TOL < wit["fault_suspect"]
-                  and wit["order_held"] <= 1e-8 < wit["fault_held"],
+                  and not wit["order_over"] and 1e-8 < wit["fault_held"],
                   f"estimators {name}: the suspect-cell limit {SUSPECT_TOL:g} does not sit "
                   f"between the CPU's sum-order spread and a planted fault: {wit}")
 
@@ -4831,6 +5251,8 @@ def main(argv=None) -> int:
                         help="build and check each kernel once, no timing")
     parser.add_argument("--ptxas", action="store_true",
                         help="print nvcc's register/shared-memory report")
+    parser.add_argument("--absorb-reading", action="store_true",
+                        help="print the absorb kind's worst card-vs-CPU cell month by month")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4855,6 +5277,7 @@ def main(argv=None) -> int:
     timed = not args.kernels_only
     rows = (phase_timed("k1_phase", k1_phase, gen, timed)
             + phase_timed("k2_phase", k2_phase, gen, timed)
+            + phase_timed("k2_wide_phase", k2_wide_phase, gen, timed)
             + phase_timed("k3_phase", k3_phase, gen, timed))
     if args.kernels_only:
         log("kernels-only run: kernel phases passed")
@@ -4883,6 +5306,8 @@ def main(argv=None) -> int:
     sweep_counts, sweep_res = phase_timed("specgrid_phase", specgrid_phase, base, daily)
     path_counts = {"main": counts, **sweep_counts}
     path_counts["multiproc"] = phase_timed("multiproc_phase", multiproc_phase, sweep_res)
+    path_counts["wide"] = phase_timed("k2_wide_path_phase", k2_wide_path_phase, sweep_res,
+                                      args.seed)
     del sweep_res
     boot_ref = phase_timed("bootstrap_phase", bootstrap_phase, base, daily)
     path_counts["mesh"], mesh_rows = phase_timed("mesh_phase", mesh_phase, base, daily,
@@ -4896,8 +5321,9 @@ def main(argv=None) -> int:
     del base, daily
     path_counts["dryrun"] = phase_timed("dryrun_phase", dryrun_phase)
     rows += phase_timed("strip_phase", strip_phase, gen, counts) + mesh_rows + dense_rows
-    phase_timed("card_vs_cpu", card_vs_cpu, args.seed)
+    phase_timed("card_vs_cpu", card_vs_cpu, args.seed, args.absorb_reading)
     phase_timed("ingest_vs_cpu", ingest_vs_cpu)
+    phase_timed("frames_route_phase", frames_route_phase)
     phase_timed("cli_phase", cli_phase)
     phase_timed("bootstrap_backtest_cli_phase", bootstrap_backtest_cli_phase)
     phase_timed("estimator_cli_phase", estimator_cli_phase)

@@ -58,6 +58,15 @@
 // - When S * tiles exceeds one block's threads (large P or S, not on the
 //   main path), the (spec, tile) pairs are split over gridDim.y blocks,
 //   each staging only the valid rows of its own specs.
+// - Any P: a spec's selected columns are ceil(P / 32) words of bits. Past
+//   32 columns a second instance of the kernel (kWide) finds a firm's
+//   non-finite columns one 32-column word at a time (a spec drops the firm
+//   when a selected column is among them) and, when QE rounded to 4
+//   exceeds the block's threads, builds several columns of the rows a
+//   thread; up to 32 the kernel keeps one 64-bit mask and one column a
+//   thread, whose registers the main path's speed depends on. The firm
+//   tile shrinks as P grows to keep a block within its shared-memory
+//   budget.
 // Tensor cores are not used for float and double: TF32 keeps ~10 mantissa
 // bits and would break the 1e-5 (f32) parity with the plain version; a
 // split-TF32 or split-bf16 scheme is left for later work.
@@ -111,10 +120,23 @@
 // waits on its own latencies; a later design overlaps them (producer and
 // consumer warps).
 //
+// Design, bf16 operands past 32 columns (gram_tc_wide_kernel). The kernel
+// above keeps a warp's whole output class in registers, which stops at
+// QE = 34. Past P = 32 the (spec, 16x8 output tile) pairs of the upper
+// triangle are dealt out in runs of kWideKT to the warps of a block, the
+// rest over gridDim.y; a warp loads the A fragment (its spec's masks ANDed
+// in) and the B fragment of each of its tiles from the transposed rows at
+// every 16-firm step, one mma.sync each (two with row weights: hi and lo).
+// Each pair belongs to one warp, whose per-tile partials go into a running
+// sum in registers: no atomics and no cross-warp reduction. The rows are
+// built column by column, 32 at a time for the non-finite words; raw tiles
+// are staged by cp.async as in the float kernel.
+//
 // One launch takes at most 8192 block entries S * QE * (QE + 1) / 2 (60
-// specs at P = 14): the wrapper cuts a larger spec batch into consecutive
-// chunks, one launch each. P is at most 32 (the non-finite column mask is
-// one 32-bit word per spec); no ported path goes past P = 15.
+// specs at P = 14), or one spec, whatever its width: the wrapper cuts a
+// larger spec batch into consecutive chunks, one launch each. Any P
+// whose smallest firm tile (16 firms) fits in shared memory (227 KB): up
+// to ~590 columns in float64, more in float32 and bf16.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -126,7 +148,7 @@
 namespace {
 
 constexpr long long kMaxEntries = 8192;  // S * QE * (QE + 1) / 2
-constexpr int kMaxP = 32;
+constexpr int kMaxP = 32;                // the register-class bf16 kernel's widest P
 constexpr int kMaxTile = 1024;
 constexpr int kMinTile = 16;
 constexpr size_t kSmemMax = 227 * 1024;
@@ -266,14 +288,16 @@ __device__ __forceinline__ void decode_pair(int pr, int ntiles, int nt4,
 }
 
 // kRw: whether there are row weights, a template argument so that the
-// unweighted kernel carries no register or instruction for them.
-template <typename In, typename T, bool kRw>
+// unweighted kernel carries no register or instruction for them. kWide:
+// P > 32, the columns in several words (the narrow kernel keeps one 64-bit
+// non-finite mask, y in bit 32, and one column of the rows a thread).
+template <typename In, typename T, bool kRw, bool kWide>
 __global__ void __launch_bounds__(Limits<T>::kThreads, Limits<T>::kMinBlocks)
 gram_kernel(const In* __restrict__ x, const In* __restrict__ y,
             const In* __restrict__ rw, const unsigned char* __restrict__ valid,
             const unsigned int* __restrict__ sel_bits,
             const In* __restrict__ center, T* __restrict__ out, int t_len,
-            long long n, int p, int s_specs, int tile, int pairs_per_block,
+            long long n, int p, int nw, int s_specs, int tile, int pairs_per_block,
             int groups) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr bool has_rw = kRw;
@@ -302,11 +326,15 @@ gram_kernel(const In* __restrict__ x, const In* __restrict__ y,
     decode_pair(p0 + lp, ntiles, nt4, sl, ti, tj);
     sl -= s_lo;
   }
-  // this thread's column of the augmented rows (firms rf0, rf0 + rstep, ...)
+  // this thread's column of the augmented rows (firms rf0, rf0 + rstep,
+  // ...), and columns rc + nthreads, ... when QE rounded to 4 exceeds the
+  // block's threads (wide unions only: the narrow launch has more threads
+  // than columns)
   const int rc = tid % qp;
   const int rf0 = tid / qp;
-  const int rstep = nthreads / qp;
-  const T shift = (rc >= 1 && rc <= p) ? widen(center[(size_t)t * p + rc - 1]) : T(0);
+  const int rstep = nthreads >= qp ? nthreads / qp : 1;
+  const T shift = (!kWide && rc >= 1 && rc <= p) ? widen(center[(size_t)t * p + rc - 1])
+                                                  : T(0);
 
   const long long n_tiles = (n + tile - 1) / tile;
   const long long row_t = (long long)t * n;
@@ -357,35 +385,80 @@ gram_kernel(const In* __restrict__ x, const In* __restrict__ y,
     const unsigned char* vr = st + v_off;
     // augmented rows [1 | x - c | y | 0 pad]: a fixed column per thread, so
     // a warp writes consecutive words
-    if (rf0 < rstep) {
-      for (int f = rf0; f < cnt; f += rstep) {
-        T v = T(0);
-        if (rc == 0) {
-          v = T(1);
-        } else if (rc <= p) {
-          const T xv = widen(xr[f * p + rc - 1]);
-          v = isfinite(xv) ? as_operand<In, T>(xv - shift) : T(0);
-        } else if (rc == qe - 1) {
-          const T yv = widen(yr[f]);
-          v = isfinite(yv) ? yv : T(0);
+    if constexpr (!kWide) {
+      if (rf0 < rstep) {
+        for (int f = rf0; f < cnt; f += rstep) {
+          T v = T(0);
+          if (rc == 0) {
+            v = T(1);
+          } else if (rc <= p) {
+            const T xv = widen(xr[f * p + rc - 1]);
+            v = isfinite(xv) ? as_operand<In, T>(xv - shift) : T(0);
+          } else if (rc == qe - 1) {
+            const T yv = widen(yr[f]);
+            v = isfinite(yv) ? yv : T(0);
+          }
+          rows[f * qp + rc] = v;
         }
-        rows[f * qp + rc] = v;
       }
-    }
-    // weights: one thread per firm finds its non-finite columns once (bit
-    // 32: y) and writes every spec's weight from the staged valid bytes and
-    // the firm's row weight
-    for (int f = tid; f < cnt; f += nthreads) {
-      unsigned long long bad = isfinite(widen(yr[f])) ? 0ull : (1ull << 32);
-      const In* xf = xr + f * p;
-      for (int c = 0; c < p; ++c)
-        if (!isfinite(widen(xf[c]))) bad |= 1ull << c;
-      const T wf = has_rw ? widen(rwr[f]) : T(1);
-      for (int s = 0; s < nsb; ++s) {
-        const unsigned char* vs = vr + s * L.v_row + misalign(v_first + s * v_stride);
-        const unsigned long long need = (unsigned long long)__ldg(sel_bits + s_lo + s) |
-                                        (1ull << 32);
-        wts[f * nsb + s] = (vs[f] != 0 && (bad & need) == 0ull) ? wf : T(0);
+      // weights: one thread per firm finds its non-finite columns once (bit
+      // 32: y) and writes every spec's weight from the staged valid bytes
+      // and the firm's row weight
+      for (int f = tid; f < cnt; f += nthreads) {
+        unsigned long long bad = isfinite(widen(yr[f])) ? 0ull : (1ull << 32);
+        const In* xf = xr + f * p;
+        for (int c = 0; c < p; ++c)
+          if (!isfinite(widen(xf[c]))) bad |= 1ull << c;
+        const T wf = has_rw ? widen(rwr[f]) : T(1);
+        for (int s = 0; s < nsb; ++s) {
+          const unsigned char* vs = vr + s * L.v_row + misalign(v_first + s * v_stride);
+          const unsigned long long need = (unsigned long long)__ldg(sel_bits + s_lo + s) |
+                                          (1ull << 32);
+          wts[f * nsb + s] = (vs[f] != 0 && (bad & need) == 0ull) ? wf : T(0);
+        }
+      }
+    } else {
+      if (rf0 < rstep) {
+        for (int c = rc; c < qp; c += nthreads) {
+          const T shift_c = (c >= 1 && c <= p) ? widen(center[(size_t)t * p + c - 1]) : T(0);
+          for (int f = rf0; f < cnt; f += rstep) {
+            T v = T(0);
+            if (c == 0) {
+              v = T(1);
+            } else if (c <= p) {
+              const T xv = widen(xr[f * p + c - 1]);
+              v = isfinite(xv) ? as_operand<In, T>(xv - shift_c) : T(0);
+            } else if (c == qe - 1) {
+              const T yv = widen(yr[f]);
+              v = isfinite(yv) ? yv : T(0);
+            }
+            rows[f * qp + c] = v;
+          }
+        }
+      }
+      // weights: as above, the non-finite columns a 32-column word at a
+      // time; a later word with a non-finite column zeroes the specs that
+      // select one
+      for (int f = tid; f < cnt; f += nthreads) {
+        const bool y_ok = isfinite(widen(yr[f]));
+        const In* xf = xr + f * p;
+        unsigned bad = 0u;
+        for (int c = 0; c < p && c < 32; ++c)
+          if (!isfinite(widen(xf[c]))) bad |= 1u << c;
+        const T wf = has_rw ? widen(rwr[f]) : T(1);
+        for (int s = 0; s < nsb; ++s) {
+          const unsigned char* vs = vr + s * L.v_row + misalign(v_first + s * v_stride);
+          const unsigned sel = __ldg(sel_bits + (size_t)(s_lo + s) * nw);
+          wts[f * nsb + s] = (y_ok && vs[f] != 0 && (bad & sel) == 0u) ? wf : T(0);
+        }
+        for (int wd = 1; wd < nw; ++wd) {
+          bad = 0u;
+          for (int c = 32 * wd; c < p && c < 32 * wd + 32; ++c)
+            if (!isfinite(widen(xf[c]))) bad |= 1u << (c - 32 * wd);
+          if (bad == 0u) continue;
+          for (int s = 0; s < nsb; ++s)
+            if (bad & __ldg(sel_bits + (size_t)(s_lo + s) * nw + wd)) wts[f * nsb + s] = T(0);
+        }
       }
     }
     __syncthreads();
@@ -440,13 +513,13 @@ gram_kernel(const In* __restrict__ x, const In* __restrict__ y,
   }
 }
 
-template <typename In, typename T, bool kRw>
+template <typename In, typename T, bool kRw, bool kWide>
 int launch(const void* x, const void* y, const void* rw,
            const unsigned char* valid, const unsigned int* sel_bits,
-           const void* center, void* out, int t_len, long long n, int p,
+           const void* center, void* out, int t_len, long long n, int p, int nw,
            int s_specs, cudaStream_t stream) {
   const int qe = p + 2;
-  if ((long long)s_specs * qe * (qe + 1) / 2 > kMaxEntries) return -1;
+  if (s_specs > 1 && (long long)s_specs * qe * (qe + 1) / 2 > kMaxEntries) return -1;
   constexpr bool has_rw = kRw;
   const int nt4 = (qe + 3) / 4;
   const int ntiles = nt4 * (nt4 + 1) / 2;
@@ -472,26 +545,32 @@ int launch(const void* x, const void* y, const void* rw,
   const size_t smem = smem_for(tile);
   if (smem > kSmemMax || n_blocks_y > 65535) return -1;
   cudaError_t err = cudaFuncSetAttribute(
-      gram_kernel<In, T, kRw>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      gram_kernel<In, T, kRw, kWide>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)t_len, (unsigned)n_blocks_y);
-  gram_kernel<In, T, kRw><<<grid, threads, smem, stream>>>(
+  gram_kernel<In, T, kRw, kWide><<<grid, threads, smem, stream>>>(
       static_cast<const In*>(x), static_cast<const In*>(y),
       static_cast<const In*>(rw), valid, sel_bits, static_cast<const In*>(center),
-      static_cast<T*>(out), t_len, n, p, s_specs, tile, pb, groups);
+      static_cast<T*>(out), t_len, n, p, nw, s_specs, tile, pb, groups);
   return (int)cudaGetLastError();
 }
 
 template <typename In, typename T>
 int launch_any(const void* x, const void* y, const void* rw,
                const unsigned char* valid, const unsigned int* sel_bits,
-               const void* center, void* out, int t_len, long long n, int p,
+               const void* center, void* out, int t_len, long long n, int p, int nw,
                int s_specs, cudaStream_t stream) {
-  if (rw != nullptr)
-    return launch<In, T, true>(x, y, rw, valid, sel_bits, center, out, t_len, n, p,
-                               s_specs, stream);
-  return launch<In, T, false>(x, y, rw, valid, sel_bits, center, out, t_len, n, p,
-                              s_specs, stream);
+  if (p > kMaxP)
+    return rw != nullptr
+               ? launch<In, T, true, true>(x, y, rw, valid, sel_bits, center, out, t_len, n,
+                                           p, nw, s_specs, stream)
+               : launch<In, T, false, true>(x, y, rw, valid, sel_bits, center, out, t_len,
+                                            n, p, nw, s_specs, stream);
+  return rw != nullptr
+             ? launch<In, T, true, false>(x, y, rw, valid, sel_bits, center, out, t_len, n, p,
+                                          nw, s_specs, stream)
+             : launch<In, T, false, false>(x, y, rw, valid, sel_bits, center, out, t_len, n,
+                                           p, nw, s_specs, stream);
 }
 
 
@@ -958,14 +1037,317 @@ int launch_tc(const void* x, const void* y, const void* rw, const unsigned char*
   return (int)cudaGetLastError();
 }
 
+
+// --- bf16 operands past 32 columns: (spec, output tile) pairs per warp -----
+
+constexpr int kWideWarps = 4;   // warps a block has at most
+constexpr int kWideKT = 8;      // 16x8 output tiles one warp sums
+constexpr size_t kWideSmemBudget = 96 * 1024;
+
+// Byte offsets of one block's dynamic shared memory: two stages of raw
+// tiles (as the float kernel's), the month's center in float, each spec's
+// selection words, the transposed augmented rows (mp rows of `tile` bf16
+// firms, stride padded by 16 bytes), with row weights their hi and lo
+// parts, and a 16-bit mask per (spec, firm).
+struct WideLayout {
+  int rstride;  // bytes of one transposed row
+  size_t x_bytes, y_bytes, rw_bytes, v_row, stage;
+  size_t cen_off, sel_off, rows_off, hi_off, lo_off, mask_off, total;
+};
+
+__host__ __device__ inline WideLayout make_wide_layout(int tile, int p, int nw, int nsb,
+                                                       int mp, bool has_rw) {
+  WideLayout L;
+  L.rstride = tile * 2 + 16;
+  L.x_bytes = up16((size_t)tile * p * 2 + 16);
+  L.y_bytes = up16((size_t)tile * 2 + 16);
+  L.rw_bytes = has_rw ? L.y_bytes : 0;
+  L.v_row = up16((size_t)tile + 16);
+  L.stage = L.x_bytes + L.y_bytes + L.rw_bytes + L.v_row * nsb;
+  L.cen_off = 2 * L.stage;
+  L.sel_off = L.cen_off + up16((size_t)p * sizeof(float));
+  L.rows_off = L.sel_off + up16((size_t)nsb * nw * sizeof(unsigned));
+  const size_t rows = (size_t)mp * L.rstride;
+  L.hi_off = L.rows_off + rows;
+  L.lo_off = L.hi_off + (has_rw ? rows : 0);
+  L.mask_off = L.lo_off + (has_rw ? rows : 0);
+  L.total = L.mask_off + up16((size_t)nsb * tile * 2);
+  return L;
+}
+
+// (spec, m-tile, n-tile) of pair index `pr`: the kept 16x8 tiles of one
+// spec's block (nj >= 2 mi), row by row.
+__device__ __forceinline__ void decode_tc_pair(int pr, int ntiles, int nt, int& s, int& mi,
+                                               int& nj) {
+  s = pr / ntiles;
+  int r = pr - s * ntiles;
+  mi = 0;
+  while (r >= nt - 2 * mi) {
+    r -= nt - 2 * mi;
+    ++mi;
+  }
+  nj = 2 * mi + r;
+}
+
+template <bool kRw>
+__global__ void __launch_bounds__(kWideWarps * 32)
+gram_tc_wide_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ y,
+                    const __nv_bfloat16* __restrict__ rw,
+                    const unsigned char* __restrict__ valid,
+                    const unsigned int* __restrict__ sel_bits,
+                    const __nv_bfloat16* __restrict__ center, float* __restrict__ out,
+                    int t_len, long long n, int p, int nw, int s_specs, int tile,
+                    int pairs_per_block) {
+  using bf16 = __nv_bfloat16;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int qe = p + 2;
+  const int mt = (qe + 15) / 16;
+  const int nt = (qe + 7) / 8;
+  const int mp = 16 * mt;
+  const int ntiles = tc_tiles(mt, nt);
+  const int npairs = s_specs * ntiles;
+  const int t = blockIdx.x;
+  const int p0 = blockIdx.y * pairs_per_block;
+  const int p1 = min(p0 + pairs_per_block, npairs);
+  const int s_lo = p0 / ntiles;
+  const int nsb = (p1 - 1) / ntiles - s_lo + 1;
+  const WideLayout L = make_wide_layout(tile, p, nw, nsb, mp, kRw);
+  const int rs2 = L.rstride / 4;  // row stride in firm pairs
+  const int half = tile >> 1;
+  float* cen = reinterpret_cast<float*>(smem + L.cen_off);
+  unsigned* spec_sel = reinterpret_cast<unsigned*>(smem + L.sel_off);
+  uint32_t* rows = reinterpret_cast<uint32_t*>(smem + L.rows_off);
+  uint32_t* rows_hi = reinterpret_cast<uint32_t*>(smem + L.hi_off);
+  uint32_t* rows_lo = reinterpret_cast<uint32_t*>(smem + L.lo_off);
+  uint32_t* masks = reinterpret_cast<uint32_t*>(smem + L.mask_off);  // (spec, pair)
+  const int tid = threadIdx.x;
+  const int nthreads = blockDim.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int tig = lane & 3;
+
+  const unsigned char* v_first = valid + ((long long)s_lo * t_len + t) * n;
+  const long long v_stride = (long long)t_len * n;
+  for (int c = tid; c < p; c += nthreads) cen[c] = __bfloat162float(center[(size_t)t * p + c]);
+  for (int e = tid; e < nsb * nw; e += nthreads) spec_sel[e] = sel_bits[(size_t)s_lo * nw + e];
+
+  // this warp's pairs: word offsets of each tile's A rows (16 mi + g) and
+  // B rows (8 nj + g), and of its spec's masks; a slot past the block's
+  // pairs points at the first pair and is never summed or stored
+  const int w_p0 = p0 + warp * kWideKT;
+  const int nown = max(0, min(kWideKT, p1 - w_p0));
+  int a_off[kWideKT], b_off[kWideKT], m_off[kWideKT];
+#pragma unroll
+  for (int j = 0; j < kWideKT; ++j) {
+    int s, mi, nj;
+    decode_tc_pair(j < nown ? w_p0 + j : p0, ntiles, nt, s, mi, nj);
+    a_off[j] = (16 * mi + g) * rs2 + tig;
+    b_off[j] = (8 * nj + g) * rs2 + tig;
+    m_off[j] = (s - s_lo) * half + tig;
+  }
+  float acc[kWideKT][4];
+#pragma unroll
+  for (int j = 0; j < kWideKT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  const long long n_tiles = (n + tile - 1) / tile;
+  const long long row_t = (long long)t * n;
+  // tiles start at multiples of 16 firms, so each source's misalignment is
+  // the same for every tile of the month
+  const int x_mis = misalign(x + row_t * p);
+  const int y_mis = misalign(y + row_t);
+  const int rw_mis = kRw ? misalign(rw + row_t) : 0;
+  const size_t rw_off = L.x_bytes + L.y_bytes;
+  const size_t v_off = rw_off + L.rw_bytes;
+
+  auto stage_tile = [&](long long n0, int buf) {
+    const int cnt = (int)min((long long)tile, n - n0);
+    unsigned char* st = smem + buf * L.stage;
+    stage_rows(st, 0, reinterpret_cast<const unsigned char*>(x + (row_t + n0) * p), 0, 1,
+               cnt * p * 2, tid, nthreads);
+    stage_rows(st + L.x_bytes, 0, reinterpret_cast<const unsigned char*>(y + row_t + n0), 0,
+               1, cnt * 2, tid, nthreads);
+    if (kRw)
+      stage_rows(st + rw_off, 0, reinterpret_cast<const unsigned char*>(rw + row_t + n0), 0,
+                 1, cnt * 2, tid, nthreads);
+    stage_rows(st + v_off, (int)L.v_row, v_first + n0, v_stride, nsb, cnt, tid, nthreads);
+    cp_async_commit();
+  };
+
+  stage_tile(0, 0);
+  for (long long k = 0; k < n_tiles; ++k) {
+    const long long n0 = k * tile;
+    const int cnt = (int)min((long long)tile, n - n0);
+    const int cnt16 = (cnt + 15) & ~15;
+    const int buf = (int)(k & 1);
+    cp_async_wait_all();
+    __syncthreads();  // tile k staged; the previous tile's products are done
+    if (k + 1 < n_tiles) stage_tile(n0 + tile, buf ^ 1);
+
+    const unsigned char* st = smem + buf * L.stage;
+    const bf16* xr = reinterpret_cast<const bf16*>(st + x_mis);
+    const bf16* yr = reinterpret_cast<const bf16*>(st + L.x_bytes + y_mis);
+    const bf16* rwr = reinterpret_cast<const bf16*>(st + rw_off + rw_mis);
+    const unsigned char* vr = st + v_off;
+    // the build, one thread per firm pair: the transposed columns
+    // [1 | x - c | y | 0 pad] (with row weights also the hi and lo parts
+    // of w * a_i) and each spec's masks. Firms cnt .. cnt16 - 1 read what
+    // the buffer holds and are zeroed (`live`).
+    for (int u = tid; u < (cnt16 >> 1); u += nthreads) {
+      const int f = 2 * u;
+      const uint32_t live = halves(f < cnt, f + 1 < cnt);
+      float wa = 0.f, wb = 0.f;
+      if (kRw) {
+        wa = (live & 1u) ? __bfloat162float(rwr[f]) : 0.f;
+        wb = (live >> 16) ? __bfloat162float(rwr[f + 1]) : 0.f;
+      }
+      auto put = [&](int i, uint32_t v) {
+        rows[i * rs2 + u] = v;
+        if (kRw) {
+          const float pa = wa * lo_float(v), pb = wb * hi_float(v);  // exact in float
+          const uint32_t h = pack_bf16(pa, pb);
+          rows_hi[i * rs2 + u] = h;
+          rows_lo[i * rs2 + u] = pack_bf16(pa - lo_float(h), pb - hi_float(h));
+        }
+      };
+      const uint32_t yab = (uint32_t)__bfloat16_as_ushort(yr[f]) |
+                           ((uint32_t)__bfloat16_as_ushort(yr[f + 1]) << 16);
+      const bool ya_ok = isfinite(lo_float(yab)), yb_ok = isfinite(hi_float(yab));
+      put(0, 0x3F803F80u & live);  // bf16 1.0 twice
+      put(qe - 1, yab & halves(ya_ok, yb_ok) & live);
+      for (int i = qe; i < mp; ++i) put(i, 0u);
+      for (int s = 0; s < nsb; ++s) {
+        const unsigned char* vs = vr + s * L.v_row + misalign(v_first + s * v_stride) + f;
+        masks[s * half + u] = halves(ya_ok && vs[0] != 0, yb_ok && vs[1] != 0) & live;
+      }
+      const bf16* xa_row = xr + f * p;
+      const bf16* xb_row = xa_row + p;
+      for (int wd = 0; wd < nw; ++wd) {
+        unsigned bad_a = 0u, bad_b = 0u;
+        const int c1 = min(p, 32 * wd + 32);
+        for (int c = 32 * wd; c < c1; ++c) {
+          const float xa = __bfloat162float(xa_row[c]), xb = __bfloat162float(xb_row[c]);
+          const bool fa = isfinite(xa), fb = isfinite(xb);
+          bad_a |= fa ? 0u : 1u << (c - 32 * wd);
+          bad_b |= fb ? 0u : 1u << (c - 32 * wd);
+          put(c + 1, pack_bf16(xa - cen[c], xb - cen[c]) & halves(fa, fb) & live);
+        }
+        if ((bad_a | bad_b) == 0u) continue;
+        for (int s = 0; s < nsb; ++s) {
+          const unsigned sel = spec_sel[s * nw + wd];
+          masks[s * half + u] &= halves((bad_a & sel) == 0u, (bad_b & sel) == 0u);
+        }
+      }
+    }
+    __syncthreads();
+
+    // the products, a fresh sum per tile: one MMA per (owned tile, 16-firm
+    // step), two with row weights
+    float part[kWideKT][4];
+#pragma unroll
+    for (int j = 0; j < kWideKT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) part[j][e] = 0.f;
+    const int nks = cnt16 >> 4;
+    for (int ks = 0; ks < nks; ++ks) {
+      const int w0 = ks * 8;
+#pragma unroll
+      for (int j = 0; j < kWideKT; ++j) {
+        if (j < nown) {
+          const uint32_t m0 = masks[m_off[j] + w0], m1 = masks[m_off[j] + w0 + 4];
+          const uint32_t* ar = (kRw ? rows_hi : rows) + a_off[j] + w0;
+          const uint32_t a[4] = {ar[0] & m0, ar[8 * rs2] & m0, ar[4] & m1,
+                                 ar[8 * rs2 + 4] & m1};
+          const uint32_t* br = rows + b_off[j] + w0;
+          const uint32_t b0 = br[0], b1 = br[4];
+          mma_bf16(part[j], a, b0, b1);
+          if constexpr (kRw) {
+            const uint32_t* lr = rows_lo + a_off[j] + w0;
+            const uint32_t alo[4] = {lr[0] & m0, lr[8 * rs2] & m0, lr[4] & m1,
+                                     lr[8 * rs2 + 4] & m1};
+            mma_bf16(part[j], alo, b0, b1);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kWideKT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] += part[j][e];
+  }
+
+  // each owned tile's entries on or above the diagonal, and their mirrors:
+  // element e of the fragment is row 16 mi + g + 8 (e / 2), column
+  // 8 nj + 2 tig + e % 2
+  for (int j = 0; j < nown; ++j) {
+    int s, mi, nj;
+    decode_tc_pair(w_p0 + j, ntiles, nt, s, mi, nj);
+    float* blk = out + ((size_t)s * t_len + t) * qe * qe;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = 16 * mi + g + 8 * (e >> 1), c = 8 * nj + 2 * tig + (e & 1);
+      if (r <= c && c < qe) {
+        blk[r * qe + c] = acc[j][e];
+        blk[c * qe + r] = acc[j][e];
+      }
+    }
+  }
+}
+
+template <bool kRw>
+int launch_tc_wide(const void* x, const void* y, const void* rw, const unsigned char* valid,
+                   const unsigned int* sel_bits, const void* center, void* out, int t_len,
+                   long long n, int p, int nw, int s_specs, cudaStream_t stream) {
+  const int qe = p + 2;
+  const int mt = (qe + 15) / 16;
+  const int nt = (qe + 7) / 8;
+  const int ntiles = tc_tiles(mt, nt);
+  const long long npairs = (long long)s_specs * ntiles;
+  const int per_block = kWideWarps * kWideKT;
+  const long long n_blocks_y = (npairs + per_block - 1) / per_block;
+  if (n_blocks_y > 65535) return -1;
+  const int pb = (int)std::min<long long>(npairs, per_block);  // pairs a block
+  const int threads = 32 * ((pb + kWideKT - 1) / kWideKT);
+  int nsb_max = 0;  // the most specs one block covers
+  for (long long b = 0; b < n_blocks_y; ++b) {
+    const long long lo = b * pb;
+    const long long hi = std::min<long long>(lo + pb, npairs);
+    nsb_max = std::max(nsb_max, (int)((hi - 1) / ntiles - lo / ntiles + 1));
+  }
+  auto smem_for = [&](int tl) {
+    return make_wide_layout(tl, p, nw, nsb_max, 16 * mt, kRw).total;
+  };
+  int tile = kTcMaxTile;
+  while (tile > kMinTile && smem_for(tile) > kWideSmemBudget) tile /= 2;
+  const size_t smem = smem_for(tile);
+  if (smem > kSmemMax) return -1;
+  cudaError_t err = cudaFuncSetAttribute(gram_tc_wide_kernel<kRw>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)t_len, (unsigned)n_blocks_y);
+  gram_tc_wide_kernel<kRw><<<grid, threads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(y),
+      static_cast<const __nv_bfloat16*>(rw), valid, sel_bits,
+      static_cast<const __nv_bfloat16*>(center), static_cast<float*>(out), t_len, n, p, nw,
+      s_specs, tile, pb);
+  return (int)cudaGetLastError();
+}
+
 // The class of QE = P + 2: QE <= 8 one 16x8 tile (six specs a warp), <= 16
-// two (three), <= 32 six (one), <= 34 nine (one).
+// two (three), <= 32 six (one), <= 34 nine (one); past P = 32 the wide
+// kernel.
 template <bool kRw>
 int launch_bf16(const void* x, const void* y, const void* rw, const unsigned char* valid,
                 const unsigned int* sel_bits, const void* center, void* out, int t_len,
-                long long n, int p, int s_specs, cudaStream_t stream) {
+                long long n, int p, int nw, int s_specs, cudaStream_t stream) {
   const int qe = p + 2;
-  if ((long long)s_specs * qe * (qe + 1) / 2 > kMaxEntries) return -1;
+  if (s_specs > 1 && (long long)s_specs * qe * (qe + 1) / 2 > kMaxEntries) return -1;
+  if (p > kMaxP)
+    return launch_tc_wide<kRw>(x, y, rw, valid, sel_bits, center, out, t_len, n, p, nw,
+                               s_specs, stream);
   if (p <= 6)
     return launch_tc<1, 1, 6, kRw>(x, y, rw, valid, sel_bits, center, out, t_len, n, p,
                                    s_specs, stream);
@@ -984,27 +1366,30 @@ int launch_bf16(const void* x, const void* y, const void* rw, const unsigned cha
 // dtype_code: 0 float, 1 double, 2 bf16 operands with float sums. x (T, N,
 // P), y (T, N), center (T, P) and rw (T, N; null for no row weights) in the
 // operand type, out (S, T, P+2, P+2) in float for codes 0 and 2, double for
-// 1; valid (S, T, N) uint8; sel_bits (S,) uint32 with bit c set when spec s
-// selects column c. P must be <= 32 and S * (P+2)(P+3)/2 <= 8192. Returns 0
-// on success, the cudaError_t of the launch otherwise, or -1 for arguments
-// the kernel does not take.
+// 1; valid (S, T, N) uint8; sel_bits (S, max(1, ceil(P / 32))) uint32, bit
+// c % 32 of word c / 32 set when spec s selects column c. S = 1 or
+// S * (P+2)(P+3)/2 <= 8192. Returns 0 on success, the cudaError_t of the
+// launch otherwise, or -1 for arguments the kernel does not take (also a
+// P whose smallest firm tile exceeds shared memory).
 extern "C" int gram_contract(int dtype_code, const void* x, const void* y,
                              const void* rw, const void* valid,
                              const void* sel_bits, const void* center,
                              void* out, int t_len, long long n, int p,
                              int s_specs, void* stream) {
-  if (t_len <= 0 || n <= 0 || p < 0 || p > kMaxP || s_specs <= 0) return -1;
+  if (t_len <= 0 || n <= 0 || p < 0 || s_specs <= 0) return -1;
+  const int nw = p > 32 ? (p + 31) / 32 : 1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const unsigned char* v = static_cast<const unsigned char*>(valid);
   const unsigned int* b = static_cast<const unsigned int*>(sel_bits);
   if (dtype_code == 0)
-    return launch_any<float, float>(x, y, rw, v, b, center, out, t_len, n, p, s_specs, s);
+    return launch_any<float, float>(x, y, rw, v, b, center, out, t_len, n, p, nw, s_specs, s);
   if (dtype_code == 1)
-    return launch_any<double, double>(x, y, rw, v, b, center, out, t_len, n, p, s_specs, s);
+    return launch_any<double, double>(x, y, rw, v, b, center, out, t_len, n, p, nw, s_specs,
+                                      s);
   if (dtype_code == 2)
     return rw != nullptr
-               ? launch_bf16<true>(x, y, rw, v, b, center, out, t_len, n, p, s_specs, s)
-               : launch_bf16<false>(x, y, rw, v, b, center, out, t_len, n, p, s_specs, s);
+               ? launch_bf16<true>(x, y, rw, v, b, center, out, t_len, n, p, nw, s_specs, s)
+               : launch_bf16<false>(x, y, rw, v, b, center, out, t_len, n, p, nw, s_specs, s);
   return -1;
 }
 

@@ -1,4 +1,5 @@
-"""Device resolution shared by every entry point of the port.
+"""Device and compute-dtype resolution shared by every entry point of the
+port.
 
 ``device=None`` means the GPU. There is no silent CPU fallback: asking for
 the GPU on a machine without one raises, and the CPU runs only when the
@@ -7,9 +8,12 @@ caller names it (the tests do).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-__all__ = ["resolve_device", "synchronize"]
+from fm_returnprediction_tpu_torch.settings import config
+
+__all__ = ["resolve_device", "resolve_dtype", "synchronize"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -30,3 +34,21 @@ def synchronize(device: torch.device) -> None:
     """Wait for the device's queued work (a no-op on the CPU)."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+_TORCH_DTYPES = {"float32": torch.float32, "float64": torch.float64}
+
+
+def resolve_dtype(dtype=None) -> torch.dtype:
+    """The compute dtype: ``dtype`` (a torch or numpy dtype, or a name)
+    when given, else the ``DTYPE`` setting (``settings``; default
+    ``float32``)."""
+    if dtype is None:
+        dtype = config("DTYPE")
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    name = np.dtype(dtype).name
+    if name not in _TORCH_DTYPES:
+        raise ValueError(f"unsupported compute dtype {name!r}; "
+                         f"expected one of {sorted(_TORCH_DTYPES)}")
+    return _TORCH_DTYPES[name]

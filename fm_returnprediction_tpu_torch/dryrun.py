@@ -147,10 +147,10 @@ def _dryrun(n_devices: int, dev: torch.device) -> Dict[str, float]:
         window=60, min_periods=20, window_weeks=12,
     )
     ret_t, mask_t, mkt_t = (torch.from_numpy(a).to(dev) for a in (ret_d, mask_d, mkt_d))
-    lengths = torch.as_tensor(np.bincount(week_id, minlength=n_weeks), device=dev)
     vol_1 = rolling_vol_252_monthly(ret_t, mask_t, torch.as_tensor(month_id, device=dev),
                                     n_months_d, window=60, min_periods=20)
-    beta_1 = weekly_rolling_beta_monthly(ret_t, mask_t, mkt_t, lengths,
+    beta_1 = weekly_rolling_beta_monthly(ret_t, mask_t, mkt_t,
+                                         torch.as_tensor(week_id, device=dev), n_weeks,
                                          torch.as_tensor(week_month_id, device=dev),
                                          n_months_d, window_weeks=12)
     gaps["daily_vol"] = _gap(vol_s.to_global()[:, :n_firms], vol_1, 1e-5, 1e-7,

@@ -109,8 +109,9 @@ def daily_characteristics_chunked(
     returns numpy (n_months, N) pairs in ``ret_d``'s dtype.
 
     Inputs are host numpy: ``ret_d``/``mask_d`` (D, N), the per-day
-    ``mkt_d``, ``month_id`` and ``week_id`` (nondecreasing, in
-    ``[0, n_weeks)``), and ``week_month_id`` (n_weeks,). The per-day vectors
+    ``mkt_d``, ``month_id`` and ``week_id`` (any order; ids outside
+    ``[0, n_weeks)`` drop the day from the weekly sums), and
+    ``week_month_id`` (n_weeks,). The per-day vectors
     move to ``device`` (None means the card) once for all strips; each strip
     moves (D, C) once and runs ``rolling_vol_252_monthly`` (the rolling
     kernel on the card) and ``weekly_rolling_beta_monthly``.
@@ -123,11 +124,6 @@ def daily_characteristics_chunked(
     mask_d = np.asarray(mask_d, dtype=bool)
     mkt_d = np.asarray(mkt_d, dtype=ret_d.dtype)
     mkt_present = np.isfinite(mkt_d) if mkt_present is None else np.asarray(mkt_present)
-    week_id = np.asarray(week_id)
-    if np.any(np.diff(week_id) < 0):
-        raise ValueError("week_id must never decrease along the days")
-    if len(week_id) and (week_id.min() < 0 or week_id.max() >= n_weeks):
-        raise ValueError(f"week_id must lie in [0, {n_weeks})")
     d_days, n_firms = ret_d.shape
 
     if firm_chunk is None:
@@ -141,8 +137,7 @@ def daily_characteristics_chunked(
 
     # per-day vectors, shared by every strip: moved once
     month_t = torch.as_tensor(np.asarray(month_id), dtype=torch.int64, device=device)
-    week_lengths = torch.as_tensor(np.bincount(week_id, minlength=int(n_weeks)),
-                                   dtype=torch.int64, device=device)
+    week_t = torch.as_tensor(np.asarray(week_id), dtype=torch.int64, device=device)
     week_month_t = torch.as_tensor(np.asarray(week_month_id), dtype=torch.int64,
                                    device=device)
     mkt_t = to_device(mkt_d)
@@ -153,8 +148,8 @@ def daily_characteristics_chunked(
         mask_t = to_device(mask_d[:, cols])
         vol = rolling_vol_252_monthly(ret_t, mask_t, month_t, n_months,
                                       window=window, min_periods=min_periods)
-        beta = weekly_rolling_beta_monthly(ret_t, mask_t, mkt_t, week_lengths, week_month_t,
-                                           n_months, window_weeks=window_weeks,
+        beta = weekly_rolling_beta_monthly(ret_t, mask_t, mkt_t, week_t, n_weeks,
+                                           week_month_t, n_months, window_weeks=window_weeks,
                                            mkt_present=mkt_present_t)
         return vol.cpu().numpy(), beta.cpu().numpy()
 
@@ -201,8 +196,6 @@ def daily_characteristics_compact_chunked(
     n_days: int,
     n_weeks: int,
     n_months: int,
-    device: torch.device,
-    dtype: torch.dtype,
     window: int = 252,
     min_periods: int = 100,
     window_weeks: int = 156,
@@ -210,6 +203,9 @@ def daily_characteristics_compact_chunked(
     height_bucket: int = 1024,
     mesh=None,
     axis_name: str = "firms",
+    *,
+    device=None,
+    dtype: Optional[torch.dtype] = None,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """vol-252 and weekly beta from the compacted daily layout; returns
     numpy (n_months, N) pairs in the ORIGINAL firm order.
@@ -219,16 +215,20 @@ def daily_characteristics_compact_chunked(
     not the dense (D, N) grid. Strips whose firms are all day-contiguous
     ship per-firm starts/counts instead of the position rectangle. With a
     1-D ``mesh`` of this process's devices the strips shard over its
-    ``axis_name`` axis (module docstring) and ``device`` is not used.
+    ``axis_name`` axis (module docstring) and ``device`` is not used;
+    without one the strips run on ``device`` (None: the card). ``dtype``
+    is the compute dtype (None: ``row_values``'). ``week_id`` may come in
+    any order (``ops.daily_kernels.weekly_partial_sums``).
     """
     row_values = np.asarray(row_values)
     row_pos = np.asarray(row_pos)
     offsets = np.asarray(offsets)
     counts = np.diff(offsets)
     n_firms = len(counts)
-    np_dtype = torch.empty(0, dtype=dtype).numpy().dtype
+    np_dtype = (row_values.dtype if dtype is None
+                else torch.empty(0, dtype=dtype).numpy().dtype)
     if mesh is None:
-        shard_devices = [torch.device(device)]
+        shard_devices = [resolve_device(device)]
     else:
         if mesh.axis_names != (axis_name,) or len(mesh.local_positions()) != mesh.size:
             raise ValueError(f"the daily strips shard over a 1-D '{axis_name}' mesh of this "
@@ -238,14 +238,12 @@ def daily_characteristics_compact_chunked(
     order, c = _strip_plan(counts, height_bucket, firm_chunk, n_shards)
     cw = c // n_shards
 
-    # the per-day vectors, once per device (shards of one card share them);
-    # week lengths: days per week, counted once for every strip's segment
-    # sums (the calendar's week ids never decrease: ``panel.daily.CompactDaily``)
+    # the per-day vectors, once per device (shards of one card share them)
     host_vectors = {
         "mkt_d": (np.asarray(mkt_d, dtype=np_dtype), None),
         "mkt_present": (np.asarray(mkt_present), torch.bool),
         "day_month_id": (np.asarray(day_month_id), torch.int64),
-        "week_lengths": (np.bincount(np.asarray(week_id), minlength=int(n_weeks)), torch.int64),
+        "week_id": (np.asarray(week_id), torch.int64),
         "week_month_id": (np.asarray(week_month_id), torch.int64),
     }
     per_device = {}
@@ -253,8 +251,8 @@ def daily_characteristics_compact_chunked(
         if d not in per_device:
             per_device[d] = [torch.tensor(a, device=d, dtype=dt)
                              for a, dt in host_vectors.values()]
-    kwargs = dict(n_days=int(n_days), n_months=int(n_months), window=window,
-                  min_periods=min_periods, window_weeks=window_weeks)
+    kwargs = dict(n_days=int(n_days), n_weeks=int(n_weeks), n_months=int(n_months),
+                  window=window, min_periods=min_periods, window_weeks=window_weeks)
 
     def run_strip(strip_fn, *blocks):
         """The strip function on each shard's column block, results

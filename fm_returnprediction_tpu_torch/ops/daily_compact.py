@@ -42,9 +42,10 @@ def daily_compact_strip_contiguous(
     mkt_d: torch.Tensor,
     mkt_present: torch.Tensor,
     day_month_id: torch.Tensor,
-    week_lengths: torch.Tensor,
+    week_id: torch.Tensor,
     week_month_id: torch.Tensor,
     n_days: int,
+    n_weeks: int,
     n_months: int,
     window: int = 252,
     min_periods: int = 100,
@@ -72,7 +73,7 @@ def daily_compact_strip_contiguous(
 
     vol = last_obs_per_month(to_cal(vol_rows), mask, day_month_id, n_months)
     beta = weekly_rolling_beta_monthly(
-        to_cal(comp_ret), mask, mkt_d, week_lengths, week_month_id,
+        to_cal(comp_ret), mask, mkt_d, week_id, n_weeks, week_month_id,
         n_months, window_weeks=window_weeks, mkt_present=mkt_present,
     )
     return vol, beta
@@ -84,9 +85,10 @@ def daily_compact_strip(
     mkt_d: torch.Tensor,
     mkt_present: torch.Tensor,
     day_month_id: torch.Tensor,
-    week_lengths: torch.Tensor,
+    week_id: torch.Tensor,
     week_month_id: torch.Tensor,
     n_days: int,
+    n_weeks: int,
     n_months: int,
     window: int = 252,
     min_periods: int = 100,
@@ -96,7 +98,8 @@ def daily_compact_strip(
 
     comp_ret : (H, C) firm rows packed to the front (chronological).
     pos      : (H, C) int day index of each row; ``n_days`` marks padding.
-    week_lengths : (n_weeks,) int64 days of each calendar week.
+    week_id  : (D,) int week of each day, in any order (ids outside
+               ``[0, n_weeks)`` drop the day from the weekly sums).
     Returns ``(vol, beta)``, each (n_months, C).
     """
     pos = pos.to(torch.int64)
@@ -118,7 +121,7 @@ def daily_compact_strip(
 
     ret_cal = to_dense(torch.where(row_present, comp_ret, nan), math.nan)
     beta = weekly_rolling_beta_monthly(
-        ret_cal, mask, mkt_d, week_lengths, week_month_id, n_months,
+        ret_cal, mask, mkt_d, week_id, n_weeks, week_month_id, n_months,
         window_weeks=window_weeks, mkt_present=mkt_present,
     )
     return vol, beta

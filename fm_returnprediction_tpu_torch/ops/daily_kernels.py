@@ -13,8 +13,9 @@ the weekly rows are stamped with the month-end of the window START and
 deduplicated keep-last per (firm, month).
 
 Tensor design: daily rows → weekly partial sums by a segment sum over the
-week lengths (days per week, the calendar's nondecreasing week ids counted
-once on the host), 156-week FORWARD windowed sums by reversed
+days regrouped by one stable sort of their week ids (any order; the
+calendar's days are already in week order and keep it; ids outside
+``[0, n_weeks)`` are dropped), 156-week FORWARD windowed sums by reversed
 cumulative-sum difference, then a per-month max-reduction picks the last
 valid week. Everything is per-firm independent along N. The segment sum
 adds each week's rows in day order on every device (``index_add_`` on the
@@ -93,16 +94,34 @@ def rolling_vol_252_monthly(ret_d, mask_d, month_id, n_months: int, window: int 
     return last_obs_per_month(scatter_back(vol, plan), mask_d, month_id, n_months)
 
 
-def weekly_partial_sums(ret_d, mask_d, mkt_d, week_lengths, mkt_present=None):
+def _week_runs(week_id, n_weeks: int, device):
+    """The days regrouped week by week for ordered sums: ``order`` (D,), a
+    stable sort of the days by week id, and ``lengths`` (n_weeks + 1,), the
+    days of each week; the last run holds the days whose id lies outside
+    ``[0, n_weeks)``, which the sums drop (as the reference's
+    ``segment_sum`` drops them). Days in calendar order keep their order."""
+    week_id = torch.as_tensor(week_id, device=device).to(torch.int64)
+    key = torch.where((week_id >= 0) & (week_id < n_weeks), week_id,
+                      torch.full_like(week_id, n_weeks))
+    return torch.argsort(key, stable=True), torch.bincount(key, minlength=n_weeks + 1)
+
+
+def weekly_partial_sums(ret_d, mask_d, mkt_d, week_id, n_weeks: int, mkt_present=None):
     """Daily rows → the six weekly partial-sum tensors (n_weeks, N);
-    ``week_lengths`` (n_weeks,) int64 counts the days of each week.
+    ``week_id`` (D,) is each day's week, in any order (ids outside
+    ``[0, n_weeks)`` are dropped). Each week's days are added in day order
+    over one stable sort of the days by week (``segment_sum``: the same
+    bits on every run, where ``index_add_``'s atomics would not be).
 
     NaN returns follow the reference's polars semantics: aggregate sums
     skip nulls, while ``pl.count()`` counts ALL rows; days the index table
     lacks (``mkt_present`` False) are dropped by the reference's inner join.
     """
+    n_weeks = int(n_weeks)
     if mkt_present is None:
         mkt_present = torch.isfinite(mkt_d)
+    order, week_lengths = _week_runs(week_id, n_weeks, ret_d.device)
+    ret_d, mask_d, mkt_d, mkt_present = (a[order] for a in (ret_d, mask_d, mkt_d, mkt_present))
     present = mask_d & mkt_present[:, None]
     ri_valid = present & torch.isfinite(ret_d)
     rm_valid = present & torch.isfinite(mkt_d)[:, None]
@@ -110,14 +129,13 @@ def weekly_partial_sums(ret_d, mask_d, mkt_d, week_lengths, mkt_present=None):
     log_ri = torch.where(ri_valid, torch.log1p(ret_d), zero)
     log_rm = torch.where(rm_valid, torch.log1p(mkt_d)[:, None], zero)
 
-    w_ri = segment_sum(log_ri, week_lengths)
-    w_rm = segment_sum(log_rm, week_lengths)
-    w_rirm = segment_sum(torch.where(ri_valid & rm_valid, log_ri * log_rm, zero),
-                         week_lengths)
-    w_rm2 = segment_sum(log_rm * log_rm, week_lengths)
-    w_cnt = segment_sum(present.to(ret_d.dtype), week_lengths)
-    w_rm_cnt = segment_sum(rm_valid.to(ret_d.dtype), week_lengths)
-    return w_ri, w_rm, w_rirm, w_rm2, w_cnt, w_rm_cnt
+    def weekly(a):
+        return segment_sum(a, week_lengths)[:n_weeks]
+
+    return (weekly(log_ri), weekly(log_rm),
+            weekly(torch.where(ri_valid & rm_valid, log_ri * log_rm, zero)),
+            weekly(log_rm * log_rm), weekly(present.to(ret_d.dtype)),
+            weekly(rm_valid.to(ret_d.dtype)))
 
 
 def beta_from_weekly_sums(w_ri, w_rm, w_rirm, w_rm2, w_cnt, w_rm_cnt,
@@ -149,11 +167,12 @@ def beta_from_weekly_sums(w_ri, w_rm, w_rirm, w_rm2, w_cnt, w_rm_cnt,
 
 
 def weekly_rolling_beta_monthly(
-    ret_d, mask_d, mkt_d, week_lengths, week_month_id, n_months: int,
+    ret_d, mask_d, mkt_d, week_id, n_weeks: int, week_month_id, n_months: int,
     window_weeks: int = 156, mkt_present=None,
 ) -> torch.Tensor:
     """Rolling beta on the weekly Monday lattice, one value per
-    (month, firm); NaN where no valid window start falls in the month."""
-    sums = weekly_partial_sums(ret_d, mask_d, mkt_d, week_lengths,
+    (month, firm); NaN where no valid window start falls in the month.
+    ``week_id`` (D,) is each day's week, in any order (``weekly_partial_sums``)."""
+    sums = weekly_partial_sums(ret_d, mask_d, mkt_d, week_id, n_weeks,
                                mkt_present=mkt_present)
     return beta_from_weekly_sums(*sums, week_month_id, n_months, window_weeks)

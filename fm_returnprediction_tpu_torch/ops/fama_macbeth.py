@@ -72,13 +72,17 @@ def fama_macbeth_summary(cs: CSRegressionResult, nw_lags: int = 4,
 
 def fama_macbeth(y: torch.Tensor, x: torch.Tensor, mask: torch.Tensor,
                  nw_lags: int = 4, min_months: int = 10,
-                 weight: str = "reference", solver: str = "qr"):
+                 weight: str = "reference", solver: str = "qr", guard=None):
     """End-to-end FM: batched monthly OLS (``solver`` as in
-    ``ops.ols.monthly_cs_ols``) + aggregation."""
-    cs = monthly_cs_ols(y, x, mask, record=False, solver=solver)
+    ``ops.ols.monthly_cs_ols``) + aggregation. ``guard=None`` follows the
+    guard layer's switch (``guard.checks``); ``True``/``False`` arm or
+    disarm the sentinels (non-finite solves, infinite NW t-stats) for this
+    call."""
+    guard = _guard.guard_active() if guard is None else bool(guard)
+    cs = monthly_cs_ols(y, x, mask, solver=solver, record=False)
     fm = fama_macbeth_summary(cs, nw_lags=nw_lags, min_months=min_months,
                               weight=weight)
-    if _guard.guard_active():
+    if guard:
         _guard.record("ols.fama_macbeth",
                       {**_guard.cs_counters(cs), **_guard.fm_counters(fm)})
     return cs, fm

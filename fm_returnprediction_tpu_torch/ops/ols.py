@@ -163,7 +163,7 @@ def _guard_record(cs: CSRegressionResult, gram_nonfinite, cond_exceeded) -> None
 
 
 def monthly_cs_ols(y: torch.Tensor, x: torch.Tensor, mask: torch.Tensor,
-                   record: bool = True, solver: str = "qr") -> CSRegressionResult:
+                   solver: str = "qr", guard=None, record: bool = True) -> CSRegressionResult:
     """Every month's cross-sectional regression in one batched call.
 
     y (..., T, N) returns; x (..., T, N, P) lagged predictors; mask
@@ -172,9 +172,11 @@ def monthly_cs_ols(y: torch.Tensor, x: torch.Tensor, mask: torch.Tensor,
     ``month_valid=False``; a month that ran with a non-finite solve keeps
     its NaNs for the FM layer to drop. ``solver`` is ``"qr"``, ``"lstsq"``
     or ``"normal"`` (module docstring); another name raises
-    ``ValueError``. With the guard layer on and ``record`` true the call's
-    sentinel counters are queued; a caller that accounts for this solve
-    itself (``fama_macbeth``, the forecast fits) passes ``record=False``.
+    ``ValueError``. ``guard=None`` follows the guard layer's switch
+    (``guard.checks``), ``True``/``False`` override it for this call; when
+    armed and ``record`` is true the call's sentinel counters are queued. A
+    caller that accounts for this solve itself (``fama_macbeth``, the
+    forecast fits) passes ``record=False``.
     """
     if solver not in SOLVERS:
         raise ValueError(f"Unknown solver: {solver}")
@@ -182,7 +184,7 @@ def monthly_cs_ols(y: torch.Tensor, x: torch.Tensor, mask: torch.Tensor,
     y, mask = torch.broadcast_tensors(y, mask)
     x = x.expand(*y.shape, x.shape[-1])
     valid = row_validity(y, x, mask)
-    guarded = record and _guard.guard_active()
+    guarded = record and (_guard.guard_active() if guard is None else bool(guard))
     if solver == "normal":
         stats = sufficient_stats(y, x, valid)
         cs = CSRegressionResult(*solve_from_stats(stats))

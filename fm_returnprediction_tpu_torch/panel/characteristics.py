@@ -28,9 +28,11 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import numpy as np
+import pandas as pd
 import torch
 
-from fm_returnprediction_tpu_torch.device import resolve_device
+from fm_returnprediction_tpu_torch.device import resolve_device, resolve_dtype
+from fm_returnprediction_tpu_torch.guard.contracts import numpy_dtype
 from fm_returnprediction_tpu_torch.ops.compaction import lag, make_compaction
 from fm_returnprediction_tpu_torch.ops.daily_chunked import (
     daily_characteristics_compact_chunked,
@@ -41,8 +43,8 @@ from fm_returnprediction_tpu_torch.ops.rolling import (
     rolling_prod,
     rolling_sum,
 )
-from fm_returnprediction_tpu_torch.panel.daily import CompactDaily
-from fm_returnprediction_tpu_torch.panel.dense import DensePanel
+from fm_returnprediction_tpu_torch.panel.daily import CompactDaily, build_compact_daily
+from fm_returnprediction_tpu_torch.panel.dense import DensePanel, long_to_dense
 from fm_returnprediction_tpu_torch.utils.timing import StageTimer
 
 __all__ = [
@@ -179,23 +181,38 @@ def _panel_characteristics(values, mask, extras, var_index, base_win_idx,
 
 
 def get_factors(
-    dense_base: DensePanel,
-    compact_daily: CompactDaily,
-    dtype: torch.dtype = torch.float32,
-    device=None,
-    include_turnover: bool = False,
-    timer: Optional[StageTimer] = None,
+    crsp_comp: Optional[pd.DataFrame],
+    crsp_d: Optional[pd.DataFrame],
+    crsp_index_d: Optional[pd.DataFrame],
+    dtype=torch.float64,
     mesh=None,
     firm_chunk=None,
+    timer: Optional[StageTimer] = None,
+    include_turnover: Optional[bool] = None,
+    compact_daily: Optional[CompactDaily] = None,
+    dense_base: Optional[DensePanel] = None,
+    capture: Optional[dict] = None,
+    *,
+    device=None,
 ) -> Tuple[DensePanel, Dict[str, str]]:
-    """All 15 characteristics from the prepared inputs, winsorized; returns
-    the enriched panel (values a tensor on ``device``) and the display-name
-    map.
+    """All 15 characteristics, winsorized; returns the enriched panel
+    (values a tensor on ``device``) and the display-name map.
 
-    ``dense_base`` is the dense base panel over BASE_COLUMNS (+ ``vol`` with
-    ``include_turnover``); ``compact_daily`` the compacted daily strips,
-    whose month vocabulary must be the panel's months. With a ``mesh`` the
-    daily strips shard over its devices (``ops.daily_chunked``): a 2-D
+    ``crsp_comp`` is the merged monthly panel (BASE_COLUMNS' sources and
+    permno/jdate/primaryexch), ``crsp_d``/``crsp_index_d`` the daily frames:
+    the host builds the dense base panel (``long_to_dense``, stage
+    ``factors/long_to_dense``) and the compacted daily strips
+    (``build_compact_daily``, ``factors/daily_ingest``) in ``dtype``'s
+    numpy dtype, then the device stages run. ``dense_base`` (the base panel
+    over BASE_COLUMNS + is_nyse) and ``compact_daily`` (the strips, whose
+    month vocabulary must be the panel's months) skip those builds, as the
+    prepared-inputs slot does; the frames they replace may be None.
+    ``capture``, when a dict, receives ``dense_base``.
+
+    ``dtype`` is a torch or numpy dtype (default float64, as the
+    reference's). ``include_turnover=None`` follows ``INCLUDE_TURNOVER``
+    (the 16th characteristic; it needs a ``vol`` column). With a ``mesh``
+    the daily strips shard over its devices (``ops.daily_chunked``): a 2-D
     months × firms mesh flattens to one firm axis (the daily steps need no
     collective, and splitting months too would repeat the same work), and
     a mesh across processes takes this process's devices. ``firm_chunk``
@@ -205,27 +222,46 @@ def get_factors(
         raise ValueError(
             "firm_chunk applies only to the single-device compact path; the mesh "
             "path shards the full firm axis (pass one or the other)")
+    if include_turnover is None:
+        from fm_returnprediction_tpu_torch.settings import config
+
+        include_turnover = bool(config("INCLUDE_TURNOVER"))
     device = resolve_device(device)
+    dtype = resolve_dtype(dtype)
+    np_dtype = numpy_dtype(dtype)
     daily_mesh = None
     if mesh is not None:
         from fm_returnprediction_tpu_torch.parallel.mesh import make_mesh
 
         daily_mesh = make_mesh(axis_name="firms", devices=mesh.local_devices())
     timer = timer or StageTimer(device)
-    panel = dense_base
     base_columns = list(BASE_COLUMNS)
     factors_dict = dict(FACTORS_DICT)
     if include_turnover:
-        if "vol" not in panel.var_names:
-            raise KeyError("include_turnover needs a 'vol' column in the base panel")
+        source = dense_base.var_names if dense_base is not None else crsp_comp.columns
+        if "vol" not in source:
+            raise KeyError("include_turnover needs a 'vol' column in the monthly panel")
         base_columns.append("vol")
         factors_dict[TURNOVER_LABEL] = TURNOVER_COLUMN
-    cd = compact_daily
-    if cd.n_months != len(panel.months):
-        raise ValueError(
-            f"compact_daily was built against {cd.n_months} months but the "
-            f"monthly panel has {len(panel.months)}"
-        )
+    if dense_base is not None:
+        panel = dense_base
+    else:
+        with timer.stage("factors/long_to_dense"):
+            df = crsp_comp.copy()
+            df["is_nyse"] = (df["primaryexch"] == "N").astype(float)
+            panel = long_to_dense(df, "jdate", "permno", base_columns, dtype=np_dtype)
+    if capture is not None:
+        capture["dense_base"] = panel
+    if compact_daily is not None:
+        cd = compact_daily
+        if cd.n_months != len(panel.months):
+            raise ValueError(
+                f"compact_daily was built against {cd.n_months} months but the "
+                f"monthly panel has {len(panel.months)} — stale checkpoint?"
+            )
+    else:
+        with timer.stage("factors/daily_ingest"):
+            cd = build_compact_daily(crsp_d, crsp_index_d, panel.months, dtype=np_dtype)
     with timer.stage("factors/daily_kernels"):
         vol_np, beta_np = daily_characteristics_compact_chunked(
             cd.row_values, cd.row_pos, cd.offsets, cd.mkt, cd.mkt_present,

@@ -56,6 +56,7 @@ from fm_returnprediction_tpu_torch.panel.daily import (
     build_compact_daily_arrays,
 )
 from fm_returnprediction_tpu_torch.panel.dense import DensePanel
+from fm_returnprediction_tpu_torch.settings import config
 from fm_returnprediction_tpu_torch.utils.timing import StageTimer
 
 __all__ = [
@@ -441,22 +442,27 @@ def ingest_compact_daily_columnar(raw_data_dir, months: np.ndarray,
 
 def build_panel_columnar(
     raw_data_dir,
-    dtype: torch.dtype = torch.float32,
-    device=None,
-    include_turnover: bool = False,
-    timer: Optional[StageTimer] = None,
-    capture: Optional[dict] = None,
+    dtype=torch.float64,
     mesh=None,
+    timer: Optional[StageTimer] = None,
+    include_turnover: Optional[bool] = None,
+    capture: Optional[dict] = None,
+    *,
+    device=None,
 ) -> Tuple[DensePanel, Dict[str, str]]:
     """Raw parquet directory → enriched characteristic panel by the columnar
     route: the counterpart of ``pipeline.load_raw_data`` +
     ``pipeline.build_panel`` (the same return, and the same ``capture``
     products — ``dense_base`` and ``compact_daily`` — for the
-    prepared-inputs slot). The host ingest runs in ``dtype``'s numpy dtype,
-    the characteristics on ``device``."""
+    prepared-inputs slot). The host ingest runs in ``dtype``'s numpy dtype
+    (a torch or numpy dtype, default float64 as the reference's), the
+    characteristics on ``device``; ``include_turnover=None`` follows
+    ``INCLUDE_TURNOVER``."""
     device = resolve_device(device)
     timer = timer or StageTimer(device)
     np_dtype = numpy_dtype(dtype)
+    if include_turnover is None:
+        include_turnover = bool(config("INCLUDE_TURNOVER"))
     with timer.ensure_stage("build_panel"):
         base = build_dense_base_columnar(raw_data_dir, dtype=np_dtype,
                                          include_turnover=include_turnover, timer=timer)
@@ -464,5 +470,6 @@ def build_panel_columnar(
             cd = ingest_compact_daily_columnar(raw_data_dir, base.months, dtype=np_dtype)
         if capture is not None:
             capture["dense_base"], capture["compact_daily"] = base, cd
-        return get_factors(base, cd, dtype=dtype, device=device,
-                           include_turnover=include_turnover, timer=timer, mesh=mesh)
+        return get_factors(None, None, None, dtype, mesh, timer=timer,
+                           include_turnover=include_turnover, compact_daily=cd,
+                           dense_base=base, device=device)

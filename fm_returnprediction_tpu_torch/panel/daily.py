@@ -43,12 +43,6 @@ def month_index_of(dates: pd.DatetimeIndex, months: np.ndarray) -> np.ndarray:
     return np.where(hit, pos_clipped, len(months_i8)).astype(np.int32)
 
 
-def _check_week_order(week_id) -> None:
-    # the weekly sums add each week's days as one run of rows
-    if np.any(np.diff(np.asarray(week_id)) < 0):
-        raise ValueError("week_id must never decrease along the days")
-
-
 @dataclasses.dataclass
 class DailyPanel:
     """Dense daily data aligned to a monthly panel's vocabularies."""
@@ -64,9 +58,6 @@ class DailyPanel:
     n_weeks: int
     week_month_id: np.ndarray  # (n_weeks,) month index of each week's Monday
     n_months: int
-
-    def __post_init__(self):
-        _check_week_order(self.week_id)
 
 
 @dataclasses.dataclass
@@ -86,9 +77,6 @@ class CompactDaily:
     n_weeks: int
     week_month_id: np.ndarray  # (n_weeks,) month index of each week's Monday
     n_months: int
-
-    def __post_init__(self):
-        _check_week_order(self.week_id)
 
     @property
     def n_days(self) -> int:

@@ -29,16 +29,7 @@ from fm_returnprediction_tpu_torch.parallel.mesh import (
     place_global,
 )
 
-__all__ = ["daily_characteristics_sharded", "week_lengths"]
-
-
-def week_lengths(week_id, n_weeks: int) -> np.ndarray:
-    """Days per week from the per-day week ids, which must never decrease
-    (the calendar's order; the segment sums add consecutive rows)."""
-    week_id = np.asarray(week_id)
-    if week_id.size and np.any(np.diff(week_id) < 0):
-        raise ValueError("week ids must be nondecreasing along the days")
-    return np.bincount(week_id, minlength=int(n_weeks)).astype(np.int64)
+__all__ = ["daily_characteristics_sharded"]
 
 
 def daily_characteristics_sharded(
@@ -73,7 +64,7 @@ def daily_characteristics_sharded(
     mkt = torch.as_tensor(mkt_d, dtype=ret_d.dtype)
     present = (torch.isfinite(mkt) if mkt_present is None
                else torch.as_tensor(mkt_present, dtype=torch.bool))
-    lengths = torch.from_numpy(week_lengths(np.asarray(week_id), n_weeks))
+    week = torch.as_tensor(np.asarray(week_id), dtype=torch.int64)
     month = torch.as_tensor(month_id, dtype=torch.int64)
     week_month = torch.as_tensor(week_month_id, dtype=torch.int64)
 
@@ -85,7 +76,7 @@ def daily_characteristics_sharded(
         vols.append(rolling_vol_252_monthly(r, m, month.to(dev), int(n_months),
                                             window=window, min_periods=min_periods))
         betas.append(weekly_rolling_beta_monthly(
-            r, m, mkt.to(dev), lengths.to(dev), week_month.to(dev), int(n_months),
+            r, m, mkt.to(dev), week.to(dev), int(n_weeks), week_month.to(dev), int(n_months),
             window_weeks=window_weeks, mkt_present=present.to(dev)))
     shape = (int(n_months), ret_d.shape[1])
     return Placed(vols, strip, shape), Placed(betas, strip, shape)

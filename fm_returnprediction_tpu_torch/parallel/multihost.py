@@ -42,6 +42,7 @@ from fm_returnprediction_tpu_torch.parallel.mesh import (
     Mesh,
     NamedSharding,
     P,
+    Placed,
     all_gather,
     local_devices,
     pad_to_multiple,
@@ -190,6 +191,7 @@ def fama_macbeth_hier(
     min_months: int = 10,
     weight: str = "reference",
     n_refine: int = 2,
+    place: bool = True,
 ) -> tuple:
     """Fama-MacBeth on a 2-D months × firms mesh: the months pad to a
     multiple of the month axis (NaN/False rows, which fail the ``n >= P+1``
@@ -198,21 +200,27 @@ def fama_macbeth_hier(
     months with the firm-sharded ``cs_ols_kernel``, one gather over the
     month axis rebuilds the series, and the FM summary follows. ``y``,
     ``x``, ``mask`` are the whole arrays in every process (numpy or
-    tensors). Returns ``(cs, summary)`` on this process's first mesh
-    device. ``mesh=None`` builds ``make_mesh_2d`` over the local devices of
-    ``y``'s kind."""
+    tensors); with ``place=False`` they are already padded and placed
+    (``place_global`` over ``P(month_axis, firm_axis[, None])``) and go to
+    the kernel as they are. Returns ``(cs, summary)`` on this process's
+    first mesh device. ``mesh=None`` builds ``make_mesh_2d`` over the local
+    devices of ``y``'s kind."""
     if mesh is None:
-        kind = y.device.type if isinstance(y, torch.Tensor) else None
+        kind = (y.shards[0] if isinstance(y, Placed) else y)
+        kind = kind.device.type if isinstance(kind, torch.Tensor) else None
         mesh = make_mesh_2d(month_axis=month_axis, firm_axis=firm_axis, device=kind)
     t = y.shape[0]
     h = mesh.shape[month_axis]
     d = mesh.shape[firm_axis]
-    y = pad_to_multiple(pad_to_multiple(y, 0, h, float("nan")), 1, d, float("nan"))
-    x = pad_to_multiple(pad_to_multiple(x, 0, h, float("nan")), 1, d, float("nan"))
-    mask = pad_to_multiple(pad_to_multiple(mask, 0, h, False), 1, d, False)
-    s2 = NamedSharding(mesh, P(month_axis, firm_axis))
-    s3 = NamedSharding(mesh, P(month_axis, firm_axis, None))
-    yp, xp, mp = place_global(y, s2), place_global(x, s3), place_global(mask, s2)
+    if place:
+        y = pad_to_multiple(pad_to_multiple(y, 0, h, float("nan")), 1, d, float("nan"))
+        x = pad_to_multiple(pad_to_multiple(x, 0, h, float("nan")), 1, d, float("nan"))
+        mask = pad_to_multiple(pad_to_multiple(mask, 0, h, False), 1, d, False)
+        s2 = NamedSharding(mesh, P(month_axis, firm_axis))
+        s3 = NamedSharding(mesh, P(month_axis, firm_axis, None))
+        yp, xp, mp = place_global(y, s2), place_global(x, s3), place_global(mask, s2)
+    else:
+        yp, xp, mp = y, x, mask
     local = cs_ols_kernel(mesh, yp.shards, xp.shards, mp.shards, firm_axis, d,
                           min(n_refine, 1))
     cs = _gather_month_shards(mesh, local, month_axis)[0]

@@ -51,7 +51,6 @@ from fm_returnprediction_tpu_torch.ops.rolling import (
     finalize_sum,
     masked_cumulative_moments,
 )
-from fm_returnprediction_tpu_torch.parallel.daily_sharded import week_lengths
 from fm_returnprediction_tpu_torch.parallel.mesh import (
     Mesh,
     NamedSharding,
@@ -192,7 +191,9 @@ def weekly_rolling_beta_time_sharded(
     axis_name: str = "time",
 ):
     """``ops.daily_kernels.weekly_rolling_beta_monthly`` with the DAY axis
-    sharded (module docstring). ``week_id`` (D,) must never decrease.
+    sharded (module docstring). ``week_id`` (D,) may come in any order:
+    each shard sums its own days by week (ids outside ``[0, n_weeks)``
+    dropped) and one ``psum`` adds the shards in axis order.
     Returns the (n_months, N) betas on the mesh's first device."""
     ret_d = torch.as_tensor(ret_d)
     mask_d = torch.as_tensor(mask_d, dtype=torch.bool)
@@ -201,7 +202,6 @@ def weekly_rolling_beta_time_sharded(
         mesh = make_mesh(axis_name=axis_name, device=ret_d.device.type)
     p = mesh.shape[axis_name]
     week_np = np.asarray(week_id).astype(np.int64)
-    week_lengths(week_np, n_weeks)          # refuses decreasing ids
     ret_d = pad_to_multiple(ret_d, axis=0, multiple=p, fill=float("nan"))
     mask_d = pad_to_multiple(mask_d, axis=0, multiple=p, fill=False)
     mkt_d = pad_to_multiple(mkt_d, axis=0, multiple=p, fill=float("nan"))
@@ -211,9 +211,8 @@ def weekly_rolling_beta_time_sharded(
     else:
         mkt_present = pad_to_multiple(torch.as_tensor(mkt_present, dtype=torch.bool),
                                       axis=0, multiple=p, fill=False)
-    # pad days join the last week, keeping the ids nondecreasing
-    week_np = pad_to_multiple(week_np, axis=0, multiple=p,
-                              fill=int(week_np[-1]) if week_np.size else 0)
+    # pad days take an id past the last week: the sums drop them
+    week_np = pad_to_multiple(week_np, axis=0, multiple=p, fill=int(n_weeks))
     strip = NamedSharding(mesh, P(axis_name, None))
     row = NamedSharding(mesh, P(axis_name))
     rets = place_global(ret_d, strip).shards
@@ -223,8 +222,7 @@ def weekly_rolling_beta_time_sharded(
     weeks = place_global(week_np, row).shards
     partials = []
     for r, m, mk, pr, w in zip(rets, masks, mkts, presents, weeks):
-        lengths = torch.bincount(w.cpu(), minlength=int(n_weeks)).to(r.device)
-        partials.append(weekly_partial_sums(r, m, mk, lengths, mkt_present=pr))
+        partials.append(weekly_partial_sums(r, m, mk, w, int(n_weeks), mkt_present=pr))
     sums = psum(mesh, partials, axis_name)[0]
     home = rets[0].device
     week_month = torch.as_tensor(week_month_id, dtype=torch.int64, device=home)

@@ -13,7 +13,7 @@ the compute device.
     from fm_returnprediction_tpu_torch.pipeline import run_pipeline
     res = run_pipeline(synthetic=True)                       # on the GPU
     res = run_pipeline(raw_data_dir="_data/raw", device="cpu")
-    res = run_pipeline(dense_base, compact_daily)            # prepared inputs
+    res = run_pipeline(dense_base=base, compact_daily=daily)  # prepared inputs
 
     python -m fm_returnprediction_tpu_torch.pipeline --synthetic --output-dir _output
     python -m fm_returnprediction_tpu_torch.pipeline --raw-data-dir _data/raw \
@@ -74,13 +74,13 @@ from fm_returnprediction_tpu_torch.data.wrds_pull import (
     FLAG_COLUMNS,
     subset_to_common_stock_and_exchanges,
 )
-from fm_returnprediction_tpu_torch.device import resolve_device
+from fm_returnprediction_tpu_torch.device import resolve_device, resolve_dtype
 from fm_returnprediction_tpu_torch.guard import checks as _guard_checks
 from fm_returnprediction_tpu_torch.guard import contracts as _contracts
-from fm_returnprediction_tpu_torch.panel.characteristics import BASE_COLUMNS, get_factors
+from fm_returnprediction_tpu_torch.panel.characteristics import get_factors
 from fm_returnprediction_tpu_torch.panel.columnar import build_panel_columnar
 from fm_returnprediction_tpu_torch.panel.daily import CompactDaily, build_compact_daily
-from fm_returnprediction_tpu_torch.panel.dense import DensePanel, long_to_dense
+from fm_returnprediction_tpu_torch.panel.dense import DensePanel
 from fm_returnprediction_tpu_torch.panel.subsets import compute_subset_masks
 from fm_returnprediction_tpu_torch.panel.transform_compustat import (
     add_report_date,
@@ -144,24 +144,6 @@ RAW_FILE_NAMES = dict(FILE_NAMES)
 # filter the CIZ flag columns; the rest of the daily file is pruned at the
 # read.
 _CRSP_D_COLUMNS = ["permno", "dlycaldt", "retx"] + FLAG_COLUMNS
-
-_TORCH_DTYPES = {"float32": torch.float32, "float64": torch.float64}
-
-
-def resolve_dtype(dtype=None) -> torch.dtype:
-    """The compute dtype: ``dtype`` (a torch or numpy dtype, or a name)
-    when given, else the ``DTYPE`` setting (``settings``; default
-    ``float32``)."""
-    if dtype is None:
-        dtype = config("DTYPE")
-    if isinstance(dtype, torch.dtype):
-        return dtype
-    name = np.dtype(dtype).name
-    if name not in _TORCH_DTYPES:
-        raise ValueError(f"unsupported compute dtype {name!r}; "
-                         f"expected one of {sorted(_TORCH_DTYPES)}")
-    return _TORCH_DTYPES[name]
-
 
 def panel_route() -> str:
     """The ingest route of a raw-directory build: ``"columnar"`` (default;
@@ -252,28 +234,30 @@ def load_raw_data(raw_data_dir) -> Dict[str, pd.DataFrame]:
 
 def build_panel(
     data: Dict[str, pd.DataFrame],
-    dtype: torch.dtype = torch.float32,
-    device=None,
-    include_turnover: Optional[bool] = None,
-    timer: Optional[StageTimer] = None,
-    capture: Optional[dict] = None,
+    dtype=torch.float64,
     mesh=None,
+    timer: Optional[StageTimer] = None,
+    include_turnover: Optional[bool] = None,
+    capture: Optional[dict] = None,
+    *,
+    device=None,
 ) -> Tuple[DensePanel, Dict[str, str]]:
     """Raw frames → merged monthly panel → enriched characteristic panel
     (the legacy pandas route).
 
     The common-stock/exchange universe filter is applied to both the
     monthly and the daily rows. The host ingest (filter, market equity,
-    Compustat expansion, CCM merge, daily compaction, ``long_to_dense``)
-    runs in ``dtype``'s numpy dtype; ``get_factors`` then computes the
+    Compustat expansion, CCM merge, daily compaction, then ``get_factors``'
+    ``long_to_dense``) runs in ``dtype``'s numpy dtype (a torch or numpy
+    dtype, default float64 as the reference's); ``get_factors`` computes the
     characteristics on ``device``, the daily strips sharded over ``mesh``
-    when one is given. ``capture``, when a dict, receives the two host
+    when one is given. ``include_turnover=None`` follows
+    ``INCLUDE_TURNOVER``. ``capture``, when a dict, receives the two host
     products, ``dense_base`` and ``compact_daily``, for the prepared-inputs
     slot."""
     device = resolve_device(device)
     timer = timer or StageTimer(device)
     np_dtype = _contracts.numpy_dtype(dtype)
-    include_turnover = _resolve_turnover(include_turnover)
     with timer.ensure_stage("build_panel"):
         with timer.stage("panel/universe_filter"):
             crsp_m = subset_to_common_stock_and_exchanges(data["crsp_m"])
@@ -292,45 +276,41 @@ def build_panel(
             months = np.unique(merged["jdate"].to_numpy())
             daily = build_compact_daily(crsp_d, data["crsp_index_d"], months,
                                         dtype=np_dtype)
-        with timer.stage("factors/long_to_dense"):
-            columns = list(BASE_COLUMNS)
-            if include_turnover:
-                if "vol" not in merged.columns:
-                    raise KeyError("include_turnover needs a 'vol' column in the "
-                                   "monthly CRSP frame")
-                columns.append("vol")
-            merged["is_nyse"] = (merged["primaryexch"] == "N").astype(float)
-            base = long_to_dense(merged, "jdate", "permno", columns, dtype=np_dtype)
         if capture is not None:
-            capture["dense_base"], capture["compact_daily"] = base, daily
-        return get_factors(base, daily, dtype=dtype, device=device,
-                           include_turnover=include_turnover, timer=timer, mesh=mesh)
+            capture["compact_daily"] = daily
+        return get_factors(merged, None, None, dtype, mesh, timer=timer,
+                           include_turnover=include_turnover, compact_daily=daily,
+                           capture=capture, device=device)
 
 
 def build_panel_prepared(
     dense_base: DensePanel,
     compact_daily: CompactDaily,
-    dtype: torch.dtype = torch.float32,
-    device=None,
-    include_turnover: bool = False,
-    timer: Optional[StageTimer] = None,
+    dtype=torch.float64,
     mesh=None,
+    timer: Optional[StageTimer] = None,
+    include_turnover: Optional[bool] = None,
+    *,
+    device=None,
 ) -> Tuple[DensePanel, Dict[str, str]]:
     """The enriched characteristic panel from the prepared inputs (the
-    daily strips sharded over ``mesh`` when one is given)."""
+    daily strips sharded over ``mesh`` when one is given;
+    ``include_turnover=None`` follows ``INCLUDE_TURNOVER``)."""
     timer = timer or StageTimer(resolve_device(device))
     with timer.ensure_stage("build_panel"):
-        return get_factors(dense_base, compact_daily, dtype=dtype, device=device,
-                           include_turnover=include_turnover, timer=timer, mesh=mesh)
+        return get_factors(None, None, None, dtype, mesh, timer=timer,
+                           include_turnover=include_turnover, compact_daily=compact_daily,
+                           dense_base=dense_base, device=device)
 
 
 def load_or_build_panel(
     raw_data_dir,
     dtype=None,
-    device=None,
-    include_turnover: Optional[bool] = None,
-    timer: Optional[StageTimer] = None,
     mesh=None,
+    timer: Optional[StageTimer] = None,
+    include_turnover: Optional[bool] = None,
+    *,
+    device=None,
 ) -> Tuple[DensePanel, Dict[str, str]]:
     """The enriched panel from a raw cache directory, through its
     prepared-inputs slot (the daily strips sharded over ``mesh`` when one is
@@ -410,38 +390,38 @@ def load_or_build_panel(
 
 
 def run_pipeline(
-    dense_base: Optional[DensePanel] = None,
-    compact_daily: Optional[CompactDaily] = None,
-    *,
     raw_data_dir=None,
     output_dir=None,
     synthetic: bool = False,
     synthetic_config: Optional[SyntheticConfig] = None,
-    device=None,
     dtype=None,
-    include_turnover: Optional[bool] = None,
     make_figure: bool = True,
-    make_deciles: bool = True,
-    make_serving: bool = True,
     compile_pdf: bool = True,
-    checkpoint_dir=None,
-    guard: Optional[bool] = None,
-    audit_dir=None,
+    make_deciles: bool = True,
+    make_bootstrap: bool = False,
+    make_serving: bool = True,
     make_specgrid: bool = False,
     specgrid_cells: Optional[int] = None,
     specgrid_sink: Optional[str] = None,
     specgrid_estimator: Optional[str] = None,
-    make_bootstrap: bool = False,
-    bootstrap_replicates: int = 10_000,
     make_backtest: bool = False,
     backtest_schemes: Optional[str] = None,
     backtest_route: Optional[str] = None,
     backtest_quantiles: Optional[int] = None,
     backtest_sink: Optional[str] = None,
+    bootstrap_replicates: int = 10_000,
+    use_mesh: Optional[bool] = None,
+    checkpoint_dir=None,
+    guard: Optional[bool] = None,
+    audit_dir=None,
     trace_dir=None,
     profile_dir=None,
     registry_dir=None,
-    use_mesh: Optional[bool] = None,
+    *,
+    device=None,
+    include_turnover: Optional[bool] = None,
+    dense_base: Optional[DensePanel] = None,
+    compact_daily: Optional[CompactDaily] = None,
 ) -> PipelineResult:
     """Raw data or prepared inputs → characteristics → NYSE-breakpoint
     universes → Table 1 → Table 2 → Figure 1 / deciles → serving state →

@@ -22,6 +22,7 @@ and the decile legs reuse each subset's cross-section on the device.
 
 from __future__ import annotations
 
+from pathlib import Path
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -240,8 +241,16 @@ def draw_figure_1(frames: Dict[str, pd.DataFrame]) -> Tuple[object, object]:
 def create_figure_1(
     panel: DensePanel,
     subset_masks: Dict[str, torch.Tensor],
+    save_plot: bool = False,
+    output_dir=None,
     cs_cache: Optional[Dict[str, SubsetSweepEntry]] = None,
 ) -> Tuple[object, object]:
     """Two stacked panels (All / Large stocks) of 10-year rolling slopes
-    (``figure_frames`` drawn by ``draw_figure_1``; needs matplotlib)."""
-    return draw_figure_1(figure_frames(panel, subset_masks, cs_cache))
+    (``figure_frames`` drawn by ``draw_figure_1``; needs matplotlib). With
+    ``save_plot`` and an ``output_dir`` the figure is also written there as
+    ``figure_1.pdf``."""
+    fig, axes = draw_figure_1(figure_frames(panel, subset_masks, cs_cache))
+    if save_plot and output_dir is not None:
+        Path(output_dir).mkdir(parents=True, exist_ok=True)
+        fig.savefig(Path(output_dir) / "figure_1.pdf", bbox_inches="tight")
+    return fig, axes

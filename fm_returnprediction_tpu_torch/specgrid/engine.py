@@ -271,10 +271,14 @@ class _Engine:
     def x_at_level(self, level: float) -> torch.Tensor:
         """The union tensor re-winsorized at ``level``, one level cached
         (winsor is the outermost dimension; levels arrive contiguously).
-        The previous level's variant is dropped before the next is built,
-        so at most two union tensors are live."""
+        The previous level's variant, when it is not the base tensor, is
+        the buffer the next one is written into, so at most two union
+        tensors are live."""
         if self._winsor_cache is not None and self._winsor_cache[0] == level:
             return self._winsor_cache[1]
+        scratch = None
+        if self._winsor_cache is not None and self._winsor_cache[1] is not self.x_base:
+            scratch = self._winsor_cache[1]
         self._winsor_cache = None
         if level == 1.0:
             x_level = self.x_base
@@ -286,7 +290,8 @@ class _Engine:
                                  "panel validity mask (mask=...)")
             x_level = winsor_variant(self.x_base,
                                      torch.as_tensor(self.mask, device=self.device),
-                                     float(level))
+                                     float(level), scratch=scratch)
+        del scratch
         self._winsor_cache = (level, x_level)
         return x_level
 

@@ -17,9 +17,8 @@ the Gram kernel K2 (``csrc/gram.cu``) on CUDA tensors with its float32,
 float64, bfloat16 and row-weight branches; everything after it is plain
 torch, as in the reference, where the transforms, the FE cell sums and the
 pooled meats are einsums and ``segment_sum`` outside any Pallas kernel.
-K2 takes at most ``grams.GRAM_MAX_P`` (32) union columns, so a wider union
-raises here, naming the cap (estimator columns ride the union: FWL controls
-and IV instruments must be union columns).
+K2 takes a union of any width (estimator columns ride the union: FWL
+controls and IV instruments must be union columns).
 
 Route discipline, as in the reference:
 
@@ -71,7 +70,6 @@ from fm_returnprediction_tpu_torch.specgrid.estimators.core import Estimator
 from fm_returnprediction_tpu_torch.specgrid.estimators.fwl import fwl_transform
 from fm_returnprediction_tpu_torch.specgrid.estimators.iv import iv_r2, iv_transform
 from fm_returnprediction_tpu_torch.specgrid.grams import (
-    GRAM_MAX_P,
     contract_spec_grams,
     resolve_gram_factorize,
     resolve_gram_precision,
@@ -166,11 +164,6 @@ def run_estimator_grid_weights(
     y = torch.as_tensor(y, device=dev)
     x = torch.as_tensor(x, device=dev)
     p = x.shape[-1]
-    if p > GRAM_MAX_P:
-        raise ValueError(
-            f"the estimator grid's union has {p} columns; the Gram kernel takes at most "
-            f"GRAM_MAX_P = {GRAM_MAX_P} (specgrid.grams) — cut the union (controls and "
-            "instruments ride it) to that width")
     names = list(universe_masks)
     universes = torch.stack([torch.as_tensor(universe_masks[nm], device=dev).to(torch.bool)
                              for nm in names])

@@ -157,8 +157,9 @@ def bank_key(
     col_sel: np.ndarray,
     dtype: str,
     months: np.ndarray,
-    device: str,
     precision: str,
+    *,
+    device: str,
 ) -> str:
     """Content address of one bank entry: data provenance + pair selectors
     + MONTH AXIS + contraction numerics (the device type and the
@@ -324,7 +325,7 @@ def save_bank(bank: GramBank, registry=None) -> Optional[Path]:
         return None
     key = bank_key(bank.meta.get("fingerprint", "adhoc"), bank.union, bank.universes,
                    bank.uidx, bank.col_sel, bank.dtype, bank.months,
-                   bank.meta.get("device", "cuda"), bank.meta.get("precision", "highest"))
+                   bank.meta.get("precision", "highest"), device=bank.meta.get("device", "cuda"))
     with tempfile.TemporaryDirectory() as td:
         path = Path(td) / BANK_FILE
         buf = io.BytesIO()
@@ -354,9 +355,10 @@ def load_bank(
     col_sel: np.ndarray,
     dtype: str,
     months: np.ndarray,
-    device=None,
     precision: Optional[str] = None,
     registry=None,
+    *,
+    device=None,
 ) -> Optional[GramBank]:
     """Fetch the bank for this exact (data, pairs, month axis, device,
     precision) address, or None on any miss: no registry, no entry, a
@@ -373,8 +375,8 @@ def load_bank(
         return None
     device_type = resolve_device(device).type
     precision = resolve_gram_precision(precision)
-    key = bank_key(fingerprint, union, universes, uidx, col_sel, dtype, months,
-                   device_type, precision)
+    key = bank_key(fingerprint, union, universes, uidx, col_sel, dtype, months, precision,
+                   device=device_type)
     entry = _artifacts.get_entry_dir(BANK_NAME, key, registry=registry)
     if entry is None:
         return None

@@ -65,6 +65,7 @@ __all__ = [
     "contract_spec_grams_plain",
     "gram_contract_cuda",
     "gram_spec_chunk",
+    "selection_words",
     "resolve_gram_factorize",
     "resolve_gram_precision",
     "split_stats",
@@ -75,7 +76,6 @@ __all__ = [
 _DTYPE_CODES = {torch.float32: (0, "f32"), torch.float64: (1, "f64"),
                 torch.bfloat16: (2, "bf16")}
 GRAM_MAX_ENTRIES = 8192  # upper-triangle entries of one launch (csrc/gram.cu)
-GRAM_MAX_P = 32          # predictor columns the kernel takes (csrc/gram.cu)
 
 GRAM_PRECISIONS = ("highest", "bf16")
 GRAM_FACTORIZE_MODES = ("auto", "on", "off")
@@ -183,8 +183,22 @@ def split_stats(out: torch.Tensor, p: int):
 
 def gram_spec_chunk(p: int) -> int:
     """The most specs one kernel launch takes at ``p`` predictor columns:
-    ⌊8192 / ((P+2)(P+3)/2)⌋, 60 at P = 14."""
-    return GRAM_MAX_ENTRIES // ((p + 2) * (p + 3) // 2)
+    ⌊8192 / ((P+2)(P+3)/2)⌋, 60 at P = 14, and at least one (P ≥ 126)."""
+    return max(1, GRAM_MAX_ENTRIES // ((p + 2) * (p + 3) // 2))
+
+
+def selection_words(col_sel: torch.Tensor) -> torch.Tensor:
+    """The (S, P) bool column selector as the kernel's (S, W) int32 words,
+    W = max(1, ⌈P/32⌉): bit ``c % 32`` of word ``c // 32`` is set when the
+    spec selects column ``c``."""
+    s, p = col_sel.shape
+    words = max(1, -(-p // 32))
+    bits = torch.zeros((s, words * 32), dtype=torch.int64, device=col_sel.device)
+    bits[:, :p] = col_sel.to(torch.int64)
+    weights = 2 ** torch.arange(32, device=col_sel.device, dtype=torch.int64)
+    packed = (bits.reshape(s, words, 32) * weights).sum(-1)
+    # the same 32 bits as a signed word
+    return torch.where(packed >= 2**31, packed - 2**32, packed).to(torch.int32).contiguous()
 
 
 def gram_contract_cuda(y: torch.Tensor, x: torch.Tensor, valid: torch.Tensor,
@@ -200,7 +214,8 @@ def gram_contract_cuda(y: torch.Tensor, x: torch.Tensor, valid: torch.Tensor,
     A spec batch over one launch's 8192 block entries is cut into
     consecutive chunks of ``gram_spec_chunk(P)`` specs, one launch each,
     each writing its own slice of the output; the cut depends only on (S,
-    P). P is at most 32. Raises on anything the kernel does not take."""
+    P). Any P: the spec's columns go to the kernel as ⌈P/32⌉ words of bits
+    (``selection_words``). Raises on anything the kernel does not take."""
     tensors = {"y": y, "x": x, "valid": valid, "col_sel": col_sel,
                "center": center}
     if row_weights is not None:
@@ -222,15 +237,12 @@ def gram_contract_cuda(y: torch.Tensor, x: torch.Tensor, valid: torch.Tensor,
             or col_sel.shape != (s, p) or center.shape != (t, p)
             or (row_weights is not None and row_weights.shape != (t, n))):
         raise ValueError("gram kernel: inconsistent shapes")
-    if p > GRAM_MAX_P:
-        raise ValueError(f"gram kernel takes at most {GRAM_MAX_P} predictor columns, got {p}")
     code, dtype_name = _DTYPE_CODES[x.dtype]
     out_dtype = torch.float32 if x.dtype == torch.bfloat16 else x.dtype
     out = torch.zeros((s, t, p + 2, p + 2), dtype=out_dtype, device=x.device)
     if t == 0 or n == 0 or s == 0:
         return out
-    weights = 2 ** torch.arange(p, device=x.device, dtype=torch.int64)
-    sel_bits = (col_sel.to(torch.int64) * weights).sum(-1).to(torch.int32)
+    sel_bits = selection_words(col_sel)
     fn = kernel_function("gram", "gram_contract", [
         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -323,6 +335,7 @@ def contract_spec_grams(
     center: Optional[torch.Tensor] = None,
     row_weights: Optional[torch.Tensor] = None,
     precision: str = "highest",
+    expect_shared_center: bool = False,
 ) -> SpecGramStats:
     """Contract the (T, N, P) union panel into (S, T, Q, Q) Gram stats.
 
@@ -336,9 +349,18 @@ def contract_spec_grams(
     sets the plain version's firm slice width. CUDA tensors run the Gram
     kernel, CPU tensors the plain version; validity per spec = universe ∧
     finite(y) ∧ finite(selected x) ∧ window either way.
+    ``expect_shared_center`` declares the call one shard of a sharded
+    merge: it raises when ``center`` is None, where a shard-local mean
+    would break the additivity the merge relies on.
     """
     if precision not in GRAM_PRECISIONS:
         raise ValueError(f"precision must be one of {GRAM_PRECISIONS}, got {precision!r}")
+    if expect_shared_center and center is None:
+        raise ValueError(
+            "this contraction is one shard of a sharded merge: the caller must pass the "
+            "one globally agreed center (grams.shared_center over the full panel, merged "
+            "across shards); a shard-local masked mean would break the Gram additivity "
+            "the merge relies on")
     dtype = x.dtype
     center = shared_center(x) if center is None else center.to(dtype)
     y = y.to(dtype)

@@ -222,7 +222,7 @@ class _WorkerState:
             self.y, self.x, self.universes, as_dev(job["uidx"]).long(),
             as_dev(job["col_sel"]).bool(), as_dev(job["window"]).bool(),
             firm_chunk=job.get("firm_chunk"), center=as_dev(center),
-            row_weights=self.row_weights)
+            row_weights=self.row_weights, expect_shared_center=True)
         out = tuple(leaf.cpu().numpy() for leaf in stats[:5])
         self.launches = gram_contract_cuda.launches - n0
         self.launches_by_key = {
@@ -489,12 +489,15 @@ class SpecGridWorkerPool:
 
     # -- one grid contraction ---------------------------------------------
 
-    def contract(self, uidx, col_sel, window, firm_chunk=None):
+    def contract(self, uidx, col_sel, window, firm_chunk=None, report: bool = False):
         """One firm-sharded contraction across the pool: the merged stats
-        ``(gram, moment, n, ysum, yy, center)`` as numpy arrays. A worker
-        that dies mid-round degrades the world (``degraded_ranks``) or,
-        with ``FMRP_TOPO_DEGRADED_GRID=0``, raises ``DegradedWorldError``;
-        a broker death re-elects once (the full world respawned)."""
+        ``(gram, moment, n, ysum, yy, center)`` as numpy arrays. With
+        ``report`` each worker's report of the round (rank, device, pid,
+        launches, nvcc runs, registry fetches) lands in ``last_reports``;
+        the pool counts the workers' launches either way. A worker that
+        dies mid-round degrades the world (``degraded_ranks``) or, with
+        ``FMRP_TOPO_DEGRADED_GRID=0``, raises ``DegradedWorldError``; a
+        broker death re-elects once (the full world respawned)."""
         from fm_returnprediction_tpu_torch.parallel.distributed import DistributedError
 
         uidx = np.asarray(uidx)
@@ -506,7 +509,7 @@ class SpecGridWorkerPool:
             re_elected = False
             while True:
                 try:
-                    return self._contract_locked(uidx, col_sel, window, firm_chunk)
+                    return self._contract_locked(uidx, col_sel, window, firm_chunk, report)
                 except DistributedError as exc:
                     dead = self._reap_dead_ranks()
                     if dead:
@@ -520,7 +523,7 @@ class SpecGridWorkerPool:
                     else:
                         raise
 
-    def _contract_locked(self, uidx, col_sel, window, firm_chunk):
+    def _contract_locked(self, uidx, col_sel, window, firm_chunk, report):
         s_specs = col_sel.shape[0]
         q = self.p + 1
         stagger = not self._warm and (self.device.startswith("cuda") or self._registry_armed)
@@ -565,10 +568,12 @@ class SpecGridWorkerPool:
                 for total, leaf in zip(totals, stats):
                     np.add(total, leaf, out=total)
             self.last_shm_bytes = 0
-        self.last_reports = [report for _, report in parts]
-        for report in self.last_reports:
-            self.worker_launches += report["launches"]
-            WORKER_LAUNCHES.update(report["launches_by_key"])
+        reports = [worker_report for _, worker_report in parts]
+        if report:
+            self.last_reports = reports
+        for worker_report in reports:
+            self.worker_launches += worker_report["launches"]
+            WORKER_LAUNCHES.update(worker_report["launches_by_key"])
         self.last_merge_s = time.perf_counter() - t0
         self.last_merge_bytes = self._transport_bytes() - bytes0
         return (*totals, self._center.copy())
@@ -704,17 +709,22 @@ class SpecGridWorkerPool:
 
 # single-slot pool memo: the tile engine calls the route once per spec
 # batch with the same panel tensors, and respawning per batch would
-# dominate the sweep. Keyed by the caller's array identities; the entry
-# holds strong references, so the ids stay valid while cached.
+# dominate the sweep. Keyed by the caller's array identities and tensor
+# versions (a winsor variant is written into the previous one's buffer);
+# the entry holds strong references, so the ids stay valid while cached.
 _POOL_CACHE: Optional[tuple] = None
+
+
+def _array_tag(a):
+    return None if a is None else (id(a), getattr(a, "_version", None))
 
 
 def _get_pool(procs: int, y, x, universe_arrays, row_weights,
               device: str) -> SpecGridWorkerPool:
     global _POOL_CACHE
     key = (procs, os.environ.get("FMRP_GRID_TRANSPORT", ""), device,
-           id(y), id(x), tuple(id(u) for u in universe_arrays),
-           id(row_weights) if row_weights is not None else None)
+           _array_tag(y), _array_tag(x), tuple(_array_tag(u) for u in universe_arrays),
+           _array_tag(row_weights))
     cached = _POOL_CACHE
     if cached is not None and cached[0] == key:
         return cached[2]
@@ -761,4 +771,4 @@ def multiproc_grid_stats(y, x, universe_arrays, uidx, col_sel, window, *, procs:
     over one panel reuse the spawned processes."""
     pool = _get_pool(procs, y, x, tuple(universe_arrays), row_weights, device)
     return pool.contract(np.asarray(uidx), np.asarray(col_sel), np.asarray(window),
-                         firm_chunk=firm_chunk)
+                         firm_chunk=firm_chunk, report=True)

@@ -57,10 +57,14 @@ def subperiod_windows(n_months: int, pieces: int = 2) -> Dict[str, Optional[Tupl
 
 
 def winsor_variant(x: torch.Tensor, mask: torch.Tensor, level: float,
-                   base_level: float = 1.0) -> torch.Tensor:
+                   base_level: float = 1.0, scratch: Optional[torch.Tensor] = None
+                   ) -> torch.Tensor:
     """Re-clip the (T, N, P) union tensor, already winsorized at
     ``base_level``, at ``[level, 100-level]`` percent (module docstring for
-    when that equals the raw-data variant); looser levels are rejected."""
+    when that equals the raw-data variant); looser levels are rejected.
+    ``scratch``, a dead tensor of the output's shape, dtype and device (the
+    previous level's variant), is written over and returned in place of a
+    new allocation; one that does not fit is ignored."""
     if level < base_level:
         raise ValueError(
             f"winsor level {level}% is looser than the panel's base {base_level}% — "
@@ -68,6 +72,10 @@ def winsor_variant(x: torch.Tensor, mask: torch.Tensor, level: float,
     if level == base_level:
         return x
     win = winsorize_cs_batched(x.movedim(-1, 0), mask, float(level), float(100.0 - level))
+    if (isinstance(scratch, torch.Tensor) and scratch.shape == x.shape
+            and scratch.dtype == x.dtype and scratch.device == x.device
+            and scratch.is_contiguous()):
+        return scratch.copy_(win.movedim(0, -1))
     return win.movedim(0, -1).contiguous()
 
 

@@ -145,7 +145,8 @@ def _contract(mesh, placed, uidx, col_sel, window, firm_chunk) -> SpecGramStats:
                                          placed["universes"].shards, rws, s_glob, c_glob):
         center = s / torch.clamp_min(c, 1).to(xl.dtype)
         stats = contract_spec_grams(yl, xl, ul, uidx.to(dev), col_sel.to(dev), window.to(dev),
-                                    firm_chunk=firm_chunk, center=center, row_weights=rw)
+                                    firm_chunk=firm_chunk, center=center, row_weights=rw,
+                                    expect_shared_center=True)
         parts.append((stats.gram, stats.moment, stats.n, stats.ysum, stats.yy, center))
     summed = psum(mesh, [p[:5] for p in parts], axis)[0]
     return SpecGramStats(*summed, parts[0][5])
@@ -154,7 +155,7 @@ def _contract(mesh, placed, uidx, col_sel, window, firm_chunk) -> SpecGramStats:
 def sharded_grid_parts(
     y: torch.Tensor,
     x: torch.Tensor,
-    universe_list: Tuple[torch.Tensor, ...],
+    universes: Tuple[torch.Tensor, ...],
     uidx: torch.Tensor,
     col_sel: torch.Tensor,
     window: torch.Tensor,
@@ -171,7 +172,7 @@ def sharded_grid_parts(
     fms, suspect, counters)`` as ``solve._solve_and_aggregate`` over the
     whole grid (counters None without ``guard``), computed as the
     firm-sharded contraction → psum → spec-sharded solve (module
-    docstring). ``universe_list`` holds the (T, N) universe masks in
+    docstring). ``universes`` holds the (T, N) universe masks in
     ``uidx`` order. Leaves land on the mesh's first device."""
     from fm_returnprediction_tpu_torch.specgrid.solve import _solve_and_aggregate
 
@@ -182,7 +183,7 @@ def sharded_grid_parts(
     t, _, p = x.shape
     s_specs = int(col_sel.shape[0])
 
-    placed = _placed_panel(mesh, y, x, universe_list, row_weights)
+    placed = _placed_panel(mesh, y, x, universes, row_weights)
     n_local = placed["y"].shards[0].shape[1]
     chunk = min(firm_chunk or auto_firm_chunk(t, n_local, p + 1, x.element_size()), n_local)
     stats = _contract(mesh, placed, uidx, col_sel, window, chunk)

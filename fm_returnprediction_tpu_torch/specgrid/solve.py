@@ -305,10 +305,10 @@ def _host(a: torch.Tensor) -> np.ndarray:
 
 def run_spec_grid(y: torch.Tensor, x: torch.Tensor,
                   universe_masks: Dict[str, torch.Tensor], grid: SpecGrid,
-                  referee: bool = True, firm_chunk=None, row_weights=None,
+                  referee: bool = True, firm_chunk=None, mesh=None,
+                  procs: Optional[int] = None, row_weights=None,
                   precision: Optional[str] = None,
-                  factorize: Optional[str] = None,
-                  procs: Optional[int] = None, mesh=None) -> SpecGridResult:
+                  factorize: Optional[str] = None) -> SpecGridResult:
     """Solve a whole spec grid from panel tensors.
 
     ``x`` holds the grid's union predictor columns in

@@ -259,14 +259,28 @@ def _held_to_plain(got, want, rtol, counts_exact=True):
         assert bool(((g - w).abs() <= rtol * sc).all())
 
 
-def test_gram_wrapper_refuses_too_many_entries(cuda):
-    """P > 32 is refused (the kernel's column mask is one 32-bit word); a
-    spec batch over one launch's 8192 entries is split instead."""
-    y, x, universes, uidx, col_sel, window = _gram_args(torch.float32, cuda, t=2,
-                                                        n=50, p=33, s=3)
-    valid = universes[uidx].to(torch.uint8)
-    with pytest.raises(ValueError, match="32"):
-        grams.gram_contract_cuda(y, x, valid, col_sel, grams.shared_center(x))
+@pytest.mark.parametrize("p", [33, 40, 64, 100])
+@pytest.mark.parametrize("dtype,rtol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
+def test_gram_kernel_wide_unions_match_plain(cuda, dtype, rtol, p):
+    """Past 32 columns (the columns as ⌈P/32⌉ words a spec): float64 and
+    float32, with and without row weights, against the plain version; a
+    batch past one launch's 8192 block entries is cut (S = 5 at P = 64 and
+    100); counts exact under 0/1 weights, symmetric blocks."""
+    y, x, universes, uidx, col_sel, window = _gram_args(dtype, cuda, t=5, n=900, p=p, s=5)
+    x[:, 11, p - 1] = float("nan")                    # a non-finite column of the last word
+    col_sel[1] = False
+    col_sel[1, p - 1] = True
+    before = grams.gram_contract_cuda.launches
+    got = grams.contract_spec_grams(y, x, universes, uidx, col_sel, window)
+    assert grams.gram_contract_cuda.launches == before + -(-5 // grams.gram_spec_chunk(p))
+    want = grams.contract_spec_grams_plain(y, x, universes[uidx], col_sel, window, got.center)
+    _held_to_plain(got, want, rtol)
+    assert torch.equal(got.gram, got.gram.transpose(-1, -2))
+    rw = torch.tensor(np.random.default_rng(p).random(y.shape) * 2, dtype=dtype, device=cuda)
+    got = grams.contract_spec_grams(y, x, universes, uidx, col_sel, window, row_weights=rw)
+    want = grams.contract_spec_grams_plain(y, x, universes[uidx], col_sel, window,
+                                           got.center, row_weights=rw)
+    _held_to_plain(got, want, rtol, counts_exact=False)
 
 
 @pytest.mark.parametrize("dtype,rtol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
@@ -373,7 +387,7 @@ def _bf16_gram_case(cuda, t, n, p, s, weights, seed=7):
 @pytest.mark.parametrize("weights", [None, "binary", "real"])
 @pytest.mark.parametrize("n", [400, 3000])
 @pytest.mark.parametrize("s", [1, 9, 61])
-@pytest.mark.parametrize("p", [1, 5, 14, 15, 30, 32])
+@pytest.mark.parametrize("p", [1, 5, 14, 15, 30, 32, 33, 40, 64, 100])
 def test_gram_bf16_tensor_core_kernel(cuda, p, s, n, weights):
     """The tensor-core bf16 kernel against the float64 sums of the same bf16
     terms (1e-5 of each block's max-abs entry) and against the float32 plain

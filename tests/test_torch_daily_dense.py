@@ -106,12 +106,21 @@ def test_dense_and_compact_layouts_agree(frames):
 
 
 def test_daily_panel_refuses_decreasing_weeks(frames):
+    """A ``DailyPanel`` whose week ids run backwards is taken as the
+    reference takes it: the dense route on it equals the JAX function's on
+    the same arrays at 1e-12."""
     crsp_d, index_d, months = frames
     panel = build_daily_panel(crsp_d, index_d, months)
     fields = {k: getattr(panel, k) for k in panel.__dataclass_fields__}
     fields["week_id"] = panel.week_id[::-1].copy()
-    with pytest.raises(ValueError, match="never decrease"):
-        DailyPanel(**fields)
+    back = DailyPanel(**fields)
+    d = dict(ret_d=back.ret, mask_d=back.mask, mkt_d=back.mkt, month_id=back.day_month_id,
+             week_id=back.week_id, week_month_id=back.week_month_id,
+             n_months=back.n_months, n_weeks=back.n_weeks, mkt_present=back.mkt_present)
+    vol, beta = daily_chunked.daily_characteristics_chunked(**d, **KW, device="cpu")
+    want_vol, want_beta = _reference(d)
+    np.testing.assert_allclose(vol, want_vol, rtol=1e-12, atol=1e-15)
+    np.testing.assert_allclose(beta, want_beta, rtol=1e-12, atol=1e-15)
 
 
 def _reference(d: dict, firm_chunk=None):
@@ -169,13 +178,23 @@ def test_default_budget(monkeypatch):
 
 
 def test_dense_route_refuses_bad_week_ids():
+    """Week ids in any order, and ids past ``n_weeks`` (their days dropped
+    from the weekly sums, as the reference's ``segment_sum`` drops them):
+    the dense route and the compact route equal the JAX function at 1e-12."""
     d = _fixture(8)
-    bad = dict(d, week_id=d["week_id"][::-1].copy())
-    with pytest.raises(ValueError, match="never decrease"):
-        daily_chunked.daily_characteristics_chunked(**bad, **KW, device="cpu")
-    with pytest.raises(ValueError, match=r"\[0, "):
-        daily_chunked.daily_characteristics_chunked(**dict(d, n_weeks=d["n_weeks"] - 1),
-                                                    **KW, device="cpu")
+    rng = np.random.default_rng(8)
+    cases = {"shuffled": dict(d, week_id=rng.permutation(d["week_id"])),
+             "out of range": dict(d, n_weeks=d["n_weeks"] - 1,
+                                  week_month_id=d["week_month_id"][:-1])}
+    for name, case in cases.items():
+        vol, beta = daily_chunked.daily_characteristics_chunked(**case, **KW, device="cpu")
+        want_vol, want_beta = _reference(case)
+        np.testing.assert_allclose(vol, want_vol, rtol=1e-12, atol=1e-15, err_msg=name)
+        np.testing.assert_allclose(beta, want_beta, rtol=1e-12, atol=1e-15, err_msg=name)
+        assert np.isfinite(beta).any(), name
+        got_vol, got_beta = _compact(case)
+        np.testing.assert_allclose(got_vol, want_vol, rtol=1e-12, atol=1e-15, err_msg=name)
+        np.testing.assert_allclose(got_beta, want_beta, rtol=1e-12, atol=1e-15, err_msg=name)
 
 
 def test_dense_route_float32_matches_reference():

@@ -65,7 +65,7 @@ from fm_returnprediction_tpu_torch.specgrid.estimators.absorb import (
 from fm_returnprediction_tpu_torch.specgrid.estimators.cluster import pooled_fit
 from fm_returnprediction_tpu_torch.specgrid.estimators.fwl import fwl_transform
 from fm_returnprediction_tpu_torch.specgrid.estimators.iv import iv_r2, iv_transform
-from fm_returnprediction_tpu_torch.specgrid.grams import GRAM_MAX_P, contract_spec_grams
+from fm_returnprediction_tpu_torch.specgrid.grams import contract_spec_grams
 from fm_returnprediction_tpu_torch.specgrid.solve import (
     contraction_counts,
     run_spec_grid_weights,
@@ -607,24 +607,6 @@ def test_coreset_row_weights_compose(grid_panel, est):
     _disclosures_equal(disc, disc_ref)
 
 
-def test_k2_width_cap_raises(grid_panel):
-    """K2 takes at most GRAM_MAX_P union columns: a wider union raises,
-    naming the cap, before any contraction (no plain fallback)."""
-    y, x, masks, _, _, _ = grid_panel
-    wide = np.concatenate([x] * 9, axis=-1)[..., :GRAM_MAX_P + 1]
-    names = tuple(f"w{i}" for i in range(GRAM_MAX_P + 1))
-    grid = SpecGrid(specs=(Spec("s0", names[:2], "all"),), union=names)
-    before = contraction_counts()
-    with pytest.raises(ValueError, match="GRAM_MAX_P = 32"):
-        run_estimator_grid_weights(parse_estimator("fwl:w5"), _t(y), _t(wide),
-                                   {k: _t(m) for k, m in masks.items()}, grid, ("reference",))
-    assert contraction_counts() == before
-    run_estimator_grid_weights(parse_estimator("fwl:w5"), _t(y), _t(wide[..., :GRAM_MAX_P]),
-                               {k: _t(m) for k, m in masks.items()},
-                               SpecGrid(specs=grid.specs, union=names[:GRAM_MAX_P]),
-                               ("reference",))
-
-
 # --------------------------------------------------- streaming bootstrap
 def test_streaming_bootstrap_draw0_chunks_and_merge(grid_panel):
     y, x, masks, grid, _, _ = grid_panel
@@ -942,7 +924,7 @@ def test_run_pipeline_specgrid_estimator_matches(pipeline_inputs):
 
     ins = pipeline_inputs
     base, daily = prepared_from_numpy(ins["base"], ins["daily"])
-    res = run_pipeline(base, daily, device=CPU, dtype=torch.float64, make_figure=False,
+    res = run_pipeline(dense_base=base, compact_daily=daily, device=CPU, dtype=torch.float64, make_figure=False,
                        make_deciles=False, make_serving=False, make_specgrid=True,
                        make_backtest=True, specgrid_estimator="fwl:log_size",
                        backtest_schemes="expanding,rolling24", backtest_quantiles=5)

@@ -1,0 +1,181 @@
+"""K2 past 32 predictor columns, the port vs the JAX package.
+
+The Gram kernel (``csrc/gram.cu``) takes a union of any width, as the
+Pallas kernel ``ops/gram_pallas.py::gram_contract_pallas`` does; this file
+holds the CPU's view of that branch:
+
+- the plain version (``specgrid.grams.contract_spec_grams_plain``, what a
+  CPU tensor runs) against the Pallas kernel in interpret mode at P = 33
+  and 40, float64 at 1e-12 and float32 at 1e-5 of each (spec, month)
+  block's largest entry, with and without row weights, counts exact;
+- the kernel's column words (``selection_words``: ⌈P/32⌉ 32-bit words a
+  spec) decode back to the selector, and the launch cut
+  (``gram_spec_chunk``) is at least one spec however wide the union;
+- ``run_spec_grid`` on a 40-column union and an FWL cell with 20 controls
+  from it against the JAX functions at float64, at the card-vs-CPU pins
+  of ``PERF.md`` §3: 1e-8 of ``max(|b|, 1)``, NaN patterns and counts
+  equal.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from fm_returnprediction_tpu.ops.gram_pallas import gram_contract_pallas
+from fm_returnprediction_tpu.specgrid import estimators as jest
+from fm_returnprediction_tpu.specgrid.solve import run_spec_grid as jax_run_spec_grid
+from fm_returnprediction_tpu.specgrid.specs import Spec as JaxSpec
+from fm_returnprediction_tpu.specgrid.specs import SpecGrid as JaxSpecGrid
+from fm_returnprediction_tpu_torch.specgrid import grams
+from fm_returnprediction_tpu_torch.specgrid.estimators import (
+    parse_estimator,
+    run_estimator_grid_weights,
+)
+from fm_returnprediction_tpu_torch.specgrid.solve import run_spec_grid
+from fm_returnprediction_tpu_torch.specgrid.specs import Spec, SpecGrid
+
+pytestmark = pytest.mark.torch_port
+
+PIN = 1e-8   # card vs CPU, and port vs reference, at float64 (PERF.md §3)
+
+
+def _contraction_inputs(p: int, dtype, weighted: bool, t=4, n=300, s=5, seed=0):
+    rng = np.random.default_rng(seed + p)
+    x = rng.standard_normal((t, n, p))
+    x[rng.random(x.shape) < 0.05] = np.nan
+    x[:, 7, p - 1] = np.nan                     # a non-finite column past the first word
+    y = rng.standard_normal((t, n))
+    y[rng.random(y.shape) < 0.1] = np.nan
+    valid = rng.random((s, t, n)) > 0.3
+    col_sel = rng.random((s, p)) > 0.5
+    col_sel[0] = False
+    col_sel[0, 0] = True                        # one column of the first word
+    col_sel[1] = False
+    col_sel[1, p - 1] = True                    # one column of the last word
+    col_sel[-1] = True                          # the whole union
+    rw = np.where(rng.random((t, n)) < 0.6, 0.5 + 3.0 * rng.random((t, n)), 0.0) \
+        if weighted else None
+    center = np.nanmean(x, axis=1)
+    return [a if a is None or a.dtype == bool else a.astype(dtype)
+            for a in (y, x, valid, col_sel, center, rw)]
+
+
+def _block_scale(stats):
+    gram, moment, n, ysum, yy = (np.asarray(a, np.float64) for a in stats)
+    return np.maximum(np.maximum.reduce([
+        np.abs(gram).max(axis=(-1, -2)), np.abs(moment).max(axis=-1),
+        np.abs(n), np.abs(ysum), np.abs(yy)]), 1.0)
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("dtype, rtol", [(np.float64, 1e-12), (np.float32, 1e-5)])
+@pytest.mark.parametrize("p", [33, 40])
+def test_plain_version_matches_the_pallas_kernel(p, dtype, rtol, weighted):
+    y, x, valid, col_sel, center, rw = _contraction_inputs(p, dtype, weighted)
+    want = gram_contract_pallas(
+        jnp.asarray(y), jnp.asarray(x), jnp.asarray(valid), jnp.asarray(col_sel),
+        jnp.asarray(center), None if rw is None else jnp.asarray(rw),
+        block_n=128, interpret=True)
+    t = torch.from_numpy
+    got = grams.contract_spec_grams_plain(
+        t(y), t(x), t(valid), t(col_sel), None, t(center),
+        row_weights=None if rw is None else t(rw))
+    assert got[0].shape == (col_sel.shape[0], x.shape[0], p + 1, p + 1)
+    scale = _block_scale(want)
+    for name, g, w in zip(("gram", "moment", "n", "ysum", "yy"), got, want):
+        g, w = g.numpy().astype(np.float64), np.asarray(w, np.float64)
+        if name == "n" and not weighted:
+            np.testing.assert_array_equal(g, w)
+            continue
+        s = scale.reshape(scale.shape + (1,) * (g.ndim - 2))
+        assert np.all(np.abs(g - w) <= rtol * s), (name, float(np.max(np.abs(g - w) / s)))
+
+
+@pytest.mark.parametrize("p", [0, 1, 31, 32, 33, 40, 64, 100])
+def test_selection_words_hold_every_column(p):
+    rng = np.random.default_rng(p)
+    col_sel = torch.from_numpy(rng.random((6, p)) > 0.5)
+    if p:
+        col_sel[0, -1] = True
+        col_sel[1] = True
+    words = grams.selection_words(col_sel)
+    assert words.dtype == torch.int32 and words.shape == (6, max(1, -(-p // 32)))
+    bits = (words.numpy().astype(np.uint32)[:, :, None] >> np.arange(32, dtype=np.uint32)) & 1
+    np.testing.assert_array_equal(bits.reshape(6, -1)[:, :p].astype(bool), col_sel.numpy())
+    assert not bits.reshape(6, -1)[:, p:].any()
+
+
+@pytest.mark.parametrize("p, chunk", [(14, 60), (40, 9), (64, 3), (100, 1), (125, 1),
+                                      (126, 1), (300, 1)])
+def test_launch_cut_takes_at_least_one_spec(p, chunk):
+    assert grams.gram_spec_chunk(p) == chunk
+
+
+def _wide_panel(t=36, n=240, p=40, seed=5):
+    """A 40-column union: Table 2's shapes widened (the first 3, the first
+    7 and every column), two universes; and ``y`` loading on a few
+    columns so the slopes are away from zero."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((t, n, p))
+    x[rng.random(x.shape) < 0.02] = np.nan
+    beta = np.zeros(p)
+    beta[[0, 3, 9, 25, 39]] = [0.5, -0.3, 0.2, 0.4, -0.25]
+    y = np.nansum(x * beta, axis=-1) + rng.standard_normal((t, n))
+    masks = {"all": np.ones((t, n), bool), "big": rng.random((t, n)) > 0.2}
+    names = tuple(f"c{i}" for i in range(p))
+    shapes = [(f"m{k}|{u}", names[:w], u) for k, w in enumerate((3, 7, p)) for u in masks]
+    return y, x, masks, names, shapes
+
+
+def _close(got, want, what):
+    g, w = np.asarray(got, float), np.asarray(want, float)
+    assert g.shape == w.shape, what
+    np.testing.assert_array_equal(np.isnan(g), np.isnan(w), err_msg=what)
+    fin = np.isfinite(w)
+    gap = np.abs(g[fin] - w[fin]) / np.maximum(np.abs(w[fin]), 1.0)
+    assert gap.max(initial=0.0) <= PIN, (what, float(gap.max(initial=0.0)))
+
+
+def _results_close(got, want, what):
+    for name in ("coef", "tstat", "nw_se", "mean_r2", "mean_n", "slopes"):
+        _close(getattr(got, name), getattr(want, name), f"{what} {name}")
+    for name in ("n_months", "suspect_months", "month_valid"):
+        np.testing.assert_array_equal(np.asarray(getattr(got, name)),
+                                      np.asarray(getattr(want, name)), err_msg=f"{what} {name}")
+
+
+def test_wide_spec_grid_matches_jax():
+    """``run_spec_grid`` over a 40-column union: one contraction of every
+    spec (the whole union in the widest), the port's positional call as
+    the reference's."""
+    y, x, masks, names, shapes = _wide_panel()
+    grid = SpecGrid(tuple(Spec(n, c, u) for n, c, u in shapes), union=names)
+    jgrid = JaxSpecGrid(tuple(JaxSpec(n, c, u) for n, c, u in shapes), union=names)
+    want = jax_run_spec_grid(y, x, masks, jgrid)
+    t = torch.from_numpy
+    got = run_spec_grid(t(y), t(x), {k: t(m) for k, m in masks.items()}, grid, True, None)
+    assert got.coef.shape == (len(shapes), len(names))
+    assert tuple(got.referee_specs) == tuple(want.referee_specs)
+    _results_close(got, want, "run_spec_grid P=40")
+    assert np.isfinite(got.coef[-1]).all()
+
+
+def test_wide_fwl_cell_with_20_controls_matches_jax():
+    """An FWL cell whose 20 controls are union columns 20..39, its
+    predictors the first 3 and 7: the contraction selects up to 27
+    columns of a 40-column union."""
+    y, x, masks, names, shapes = _wide_panel(seed=6)
+    shapes = [s for s in shapes if len(s[1]) < len(names)]
+    grid = SpecGrid(tuple(Spec(n, c, u) for n, c, u in shapes), union=names)
+    jgrid = JaxSpecGrid(tuple(JaxSpec(n, c, u) for n, c, u in shapes), union=names)
+    est = "fwl:" + "+".join(names[20:])
+    t = torch.from_numpy
+    got, disc = run_estimator_grid_weights(parse_estimator(est), t(y), t(x),
+                                           {k: t(m) for k, m in masks.items()}, grid,
+                                           ("reference",))
+    want, jdisc = jest.run_estimator_grid_weights(jest.parse_estimator(est), y, x, masks,
+                                                  jgrid, ("reference",))
+    _results_close(got["reference"], want["reference"], "fwl P=40")
+    np.testing.assert_array_equal(disc["deficient_months"], jdisc["deficient_months"])
+    assert np.isfinite(got["reference"].coef[:, :3]).all()

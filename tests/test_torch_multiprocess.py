@@ -321,7 +321,7 @@ def test_multiproc_specgrid_at_most_one_build_over_the_pool(tmp_path):
         2, y, x, uni, child_env={"FMRP_REGISTRY_DIR": str(tmp_path / "registry")},
         device="cpu", transport="frames")
     try:
-        pool.contract(uidx, col_sel, window)
+        pool.contract(uidx, col_sel, window, report=True)
         reports = {r["rank"]: r for r in pool.last_reports}
         assert set(reports) == {1, 2}, reports
         assert sum(r["nvcc_runs"] for r in reports.values()) <= 1

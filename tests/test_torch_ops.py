@@ -181,29 +181,22 @@ def _calendar(daily):
             daily.week_month_id)
 
 
-def _port_calendar(daily):
-    """``_calendar`` with the week ids replaced by the days of each week."""
-    week_lengths = np.bincount(daily.week_id, minlength=daily.n_weeks).astype(np.int64)
-    return (daily.mkt, daily.mkt_present, daily.day_month_id, week_lengths,
-            daily.week_month_id)
-
-
 @pytest.mark.parametrize("contiguous", [True, False])
 def test_daily_strip_matches(monthly, contiguous):
     _, _, _, daily = monthly
     rect, pos, starts, counts = _strip(daily, np.arange(0, 40))
     static = dict(n_days=daily.n_days, n_months=daily.n_months)
-    cal, port_cal = _calendar(daily), _port_calendar(daily)
+    cal = _calendar(daily)
     if contiguous:
         got = daily_compact_strip_contiguous(
-            T(rect), T(starts), T(counts), *(T(np.asarray(a)) for a in port_cal),
-            **static)
+            T(rect), T(starts), T(counts), *(T(np.asarray(a)) for a in cal),
+            n_weeks=daily.n_weeks, **static)
         want = jax_strip_contiguous(
             jnp.asarray(rect), jnp.asarray(starts), jnp.asarray(counts),
             *(jnp.asarray(a) for a in cal), n_weeks=daily.n_weeks, **static)
     else:
-        got = daily_compact_strip(T(rect), T(pos),
-                                  *(T(np.asarray(a)) for a in port_cal), **static)
+        got = daily_compact_strip(T(rect), T(pos), *(T(np.asarray(a)) for a in cal),
+                                  n_weeks=daily.n_weeks, **static)
         want = jax_strip(jnp.asarray(rect), jnp.asarray(pos),
                          *(jnp.asarray(a) for a in cal), n_weeks=daily.n_weeks,
                          **static)
@@ -245,8 +238,10 @@ def test_weekly_segment_sum_adds_rows_in_order(dtype):
 
 
 def test_compact_daily_refuses_decreasing_week_ids(monthly):
-    """The weekly sums take each week's days as one run of rows, so a
-    calendar whose week ids go back is refused where it is built."""
+    """A calendar whose week ids go back (two days' weeks swapped) is
+    taken as the reference takes it: the weekly sums regroup the days by
+    one stable sort of their weeks, so the compact route on it matches the
+    JAX package's at 1e-10."""
     import dataclasses
     import types
 
@@ -257,6 +252,13 @@ def test_compact_daily_refuses_decreasing_week_ids(monthly):
     week_id[[3, 10]] = week_id[[10, 3]]
     assert week_id[10] < week_id[9]
     produced = types.SimpleNamespace(**{**dataclasses.asdict(daily), "week_id": week_id})
-    with pytest.raises(ValueError, match="week_id"):
-        prepared_from_numpy(base, produced)
-    prepared_from_numpy(base, daily)                  # the calendar as made
+    _, swapped = prepared_from_numpy(base, produced)
+    np.testing.assert_array_equal(swapped.week_id, week_id)
+    args = (daily.row_values, daily.row_pos, daily.offsets, daily.mkt, daily.mkt_present,
+            daily.day_month_id, week_id, daily.week_month_id, daily.n_days, daily.n_weeks,
+            daily.n_months)
+    got = daily_characteristics_compact_chunked(*args, firm_chunk=32, device="cpu",
+                                                dtype=torch.float64)
+    want = jax_daily_chunked(*args, firm_chunk=32, use_pallas=False)
+    _close(got[0], want[0], "vol")
+    _close(got[1], want[1], "beta")

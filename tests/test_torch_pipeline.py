@@ -80,7 +80,7 @@ def jax_run():
 @pytest.fixture(scope="module")
 def port_run(jax_run):
     base, daily = prepared_from_numpy(jax_run["base"], jax_run["daily"])
-    return run_pipeline(base, daily, device="cpu", dtype=torch.float64)
+    return run_pipeline(dense_base=base, compact_daily=daily, device="cpu", dtype=torch.float64)
 
 
 def test_enriched_panel_matches(jax_run, port_run):
@@ -185,7 +185,7 @@ def test_pipeline_without_deciles(jax_run, port_run, make_figure):
     universes, or none when the figure is off too (the serving state then
     fits its own cross-section); what runs agrees with the full run."""
     base, daily = prepared_from_numpy(jax_run["base"], jax_run["daily"])
-    res = run_pipeline(base, daily, device="cpu", dtype=torch.float64,
+    res = run_pipeline(dense_base=base, compact_daily=daily, device="cpu", dtype=torch.float64,
                        make_figure=make_figure, make_deciles=False)
     assert res.decile_table is None and "decile_table" not in res.stage_seconds
     if make_figure:
@@ -212,7 +212,7 @@ def test_specgrid_scenarios_match(jax_run):
     two halves) and one grown to 100 cells by bootstrap draws."""
     base, daily = prepared_from_numpy(jax_run["base"], jax_run["daily"])
     for cells in (None, 100):
-        res = run_pipeline(base, daily, device="cpu", dtype=torch.float64, make_figure=False,
+        res = run_pipeline(dense_base=base, compact_daily=daily, device="cpu", dtype=torch.float64, make_figure=False,
                            make_deciles=False, make_serving=False, make_specgrid=True,
                            specgrid_cells=cells)
         want = run_scenarios(jax_run["panel"], jax_run["masks"], jax_run["factors"],
@@ -238,7 +238,7 @@ def test_backtest_table_matches(jax_run):
     EW/VW, one row per cell."""
     base, daily = prepared_from_numpy(jax_run["base"], jax_run["daily"])
     kw = dict(backtest_schemes="expanding,rolling60", backtest_quantiles=5)
-    res = run_pipeline(base, daily, device="cpu", dtype=torch.float64, make_figure=False,
+    res = run_pipeline(dense_base=base, compact_daily=daily, device="cpu", dtype=torch.float64, make_figure=False,
                        make_deciles=False, make_serving=False, make_backtest=True, **kw)
     want = run_backtest_scenarios(jax_run["panel"], jax_run["masks"], jax_run["factors"],
                                   schemes=kw["backtest_schemes"], n_quantiles=5)
@@ -270,8 +270,8 @@ def test_artifacts_without_matplotlib(jax_run, tmp_path, monkeypatch):
     kw = dict(device="cpu", dtype=torch.float64, make_deciles=False, make_specgrid=True,
               specgrid_sink="summary")
     with pytest.raises(ImportError, match="matplotlib"):
-        run_pipeline(base, daily, output_dir=tmp_path / "figure", **kw)
-    run_pipeline(base, daily, make_figure=False, output_dir=tmp_path / "out", **kw)
+        run_pipeline(dense_base=base, compact_daily=daily, output_dir=tmp_path / "figure", **kw)
+    run_pipeline(dense_base=base, compact_daily=daily, make_figure=False, output_dir=tmp_path / "out", **kw)
     made = sorted(p.name for p in (tmp_path / "out").iterdir())
     assert made == ["data_saved.marker", "serving_state.npz", "specgrid_scenarios.csv",
                     "table_1.pkl", "table_1.tex", "table_2.pkl", "table_2.tex"]
@@ -341,7 +341,7 @@ def test_port_runs_with_jax_blocked(tmp_path):
         from fm_returnprediction_tpu_torch.pipeline import run_pipeline
 
         base, daily = make_smoke_inputs(n_firms=80, n_months=60, dtype=np.float64)
-        res = run_pipeline(base, daily, device="cpu", dtype=torch.float64)
+        res = run_pipeline(dense_base=base, compact_daily=daily, device="cpu", dtype=torch.float64)
         assert res.table_2.shape == (27, 9), res.table_2.shape
         assert res.table_1.shape == (15, 9), res.table_1.shape
         assert res.decile_table.shape == (13, 3), res.decile_table.shape
@@ -380,7 +380,7 @@ def test_port_runs_with_jax_blocked(tmp_path):
             "table_2.pkl"]
         assert runs[0].table_2.equals(runs[1].table_2)
 
-        res = run_pipeline(base, daily, device="cpu", dtype=torch.float64,
+        res = run_pipeline(dense_base=base, compact_daily=daily, device="cpu", dtype=torch.float64,
                            make_specgrid=True)
         frame = res.specgrid_scenarios
         assert frame["cell"].nunique() == 27 and frame["coef"].notna().any(), frame
@@ -392,7 +392,7 @@ def test_port_runs_with_jax_blocked(tmp_path):
         top = pd.read_csv(tmp + "/out_sg/specgrid_scenarios.csv")
         assert len(top) == 100 and "draw" in top.columns, top.shape
 
-        res = run_pipeline(base, daily, device="cpu", dtype=torch.float64,
+        res = run_pipeline(dense_base=base, compact_daily=daily, device="cpu", dtype=torch.float64,
                            make_bootstrap=True, bootstrap_replicates=50)
         boot = res.bootstrap_table
         assert boot.shape == (24, 12) and "bootstrap_table" in res.stage_seconds, boot.shape
@@ -404,7 +404,7 @@ def test_port_runs_with_jax_blocked(tmp_path):
 
         os.environ["FMRP_SPECGRID_ROUTE"] = "stacked"
         os.environ["FMRP_FUSE_SUBSETS_MB"] = "0"
-        stacked = run_pipeline(base, daily, device="cpu", dtype=torch.float64,
+        stacked = run_pipeline(dense_base=base, compact_daily=daily, device="cpu", dtype=torch.float64,
                                make_serving=False)
         del os.environ["FMRP_SPECGRID_ROUTE"], os.environ["FMRP_FUSE_SUBSETS_MB"]
         assert stacked.table_2.shape == (27, 9) and set(stacked.sweep) == set(res.sweep)
@@ -416,7 +416,7 @@ def test_port_runs_with_jax_blocked(tmp_path):
                              device="cpu")
         assert grown.n_months == state.n_months + 1, grown.n_months
 
-        res = run_pipeline(base, daily, device="cpu", dtype=torch.float64,
+        res = run_pipeline(dense_base=base, compact_daily=daily, device="cpu", dtype=torch.float64,
                            make_figure=False, make_backtest=True,
                            backtest_schemes="expanding,rolling24")
         assert res.backtest_table.shape[0] == 36 and "backtest" in res.stage_seconds
@@ -443,7 +443,7 @@ def test_port_runs_with_jax_blocked(tmp_path):
         sys.argv = ["pipeline", "--synthetic", "--firms", "60", "--months", "72",
                     "--device", "cpu", "--specgrid-estimator", "fwl:log_size"]
         runpy.run_module("fm_returnprediction_tpu_torch.pipeline", run_name="__main__")
-        res = run_pipeline(base, daily, device="cpu", dtype=torch.float64,
+        res = run_pipeline(dense_base=base, compact_daily=daily, device="cpu", dtype=torch.float64,
                            make_figure=False, trace_dir=tmp + "/trace")
         assert sorted(os.listdir(tmp + "/trace")) == ["events.jsonl", "trace.json"]
         sys.argv = ["pipeline", "--synthetic", "--firms", "60", "--months", "72",
@@ -557,6 +557,35 @@ def test_port_runs_with_jax_blocked(tmp_path):
             dp.n_months, dp.n_weeks, mkt_present=dp.mkt_present, window=60,
             min_periods=20, window_weeks=26, firm_chunk=8, device="cpu")
         assert vol.shape == beta.shape == (30, 20) and np.isfinite(vol).any()
+        from fm_returnprediction_tpu_torch.panel.characteristics import get_factors
+        from fm_returnprediction_tpu_torch.panel.transform_compustat import (
+            add_report_date, calc_book_equity, expand_compustat_annual_to_monthly,
+            merge_CRSP_and_Compustat)
+        from fm_returnprediction_tpu_torch.panel.transform_crsp import calculate_market_equity
+        merged = merge_CRSP_and_Compustat(
+            calculate_market_equity(frames["crsp_m"]),
+            expand_compustat_annual_to_monthly(calc_book_equity(add_report_date(
+                frames["comp"].copy()))), frames["ccm"])
+        fp, _ = get_factors(merged, frames["crsp_d"], frames["crsp_index_d"], np.float64,
+                            device="cpu")
+        from fm_returnprediction_tpu_torch.pipeline import build_panel
+        bp, _ = build_panel(dict(frames), np.float64, None, device="cpu")
+        assert torch.isfinite(fp.values).any() and torch.isfinite(bp.values).any()
+        from fm_returnprediction_tpu_torch.ops.daily_kernels import weekly_partial_sums
+        shuffled = np.random.default_rng(0).permutation(dp.week_id)
+        sums = weekly_partial_sums(torch.from_numpy(dp.ret), torch.from_numpy(dp.mask),
+                                   torch.from_numpy(dp.mkt), torch.from_numpy(shuffled),
+                                   dp.n_weeks)
+        assert sums[0].shape == (dp.n_weeks, 20)
+        wy = torch.randn(12, 90, dtype=torch.float64)
+        wx = torch.randn(12, 90, 40, dtype=torch.float64)
+        names = tuple(f"w{i}" for i in range(40))
+        wgrid = SpecGrid((Spec("wide", names, "all"),), union=names)
+        wide = run_spec_grid(wy, wx, {"all": torch.ones(12, 90, dtype=torch.bool)}, wgrid)
+        assert np.isfinite(wide.coef).all() and wide.coef.shape == (1, 40)
+        from fm_returnprediction_tpu_torch.ops.fama_macbeth import fama_macbeth
+        assert torch.isfinite(fama_macbeth(wy, wx[..., :3], torch.ones(12, 90, dtype=torch.bool),
+                                           guard=False)[1].coef).all()
         from fm_returnprediction_tpu_torch.specgrid import run_spec_grid_on_panel, table2_grid
         grid = table2_grid(res.factors_dict, subsets=list(res.subset_masks))
         on_panel = run_spec_grid_on_panel(res.panel, res.subset_masks, grid)
@@ -595,7 +624,7 @@ def test_default_device_without_gpu_raises(monkeypatch, jax_run):
     base, daily = prepared_from_numpy(jax_run["base"], jax_run["daily"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        run_pipeline(base, daily)
+        run_pipeline(dense_base=base, compact_daily=daily)
 
 
 def _port_files():

@@ -515,7 +515,7 @@ def test_bank_save_load_roundtrip(bank, reg_dir):
     # a bank contracted on the CPU is another entry than the card's
     from fm_returnprediction_tpu_torch.specgrid.grambank import bank_key
 
-    keys = {dev: bank_key("test-bank", *args, bank.months, dev, "highest")
+    keys = {dev: bank_key("test-bank", *args, bank.months, "highest", device=dev)
             for dev in ("cpu", "cuda")}
     assert keys["cpu"] != keys["cuda"] and entry.name == keys["cpu"]
 
@@ -558,7 +558,7 @@ def test_run_pipeline_publishes_into_the_armed_registry(prepared_inputs, tmp_pat
 
     monkeypatch.delenv("FMRP_REGISTRY_DIR", raising=False)
     root = tmp_path / "reg"
-    res = run_pipeline(*prepared_inputs, device="cpu", dtype=torch.float64,
+    res = run_pipeline(dense_base=prepared_inputs[0], compact_daily=prepared_inputs[1], device="cpu", dtype=torch.float64,
                        make_figure=False, output_dir=tmp_path / "out",
                        audit_dir=tmp_path / "audit", registry_dir=root)
     assert "registry_publish" in res.stage_seconds
@@ -583,7 +583,7 @@ def test_registry_publish_raises_when_the_state_is_not_there(prepared_inputs, tm
 
     monkeypatch.setattr(rart, "put_serving_state", lambda *a, **k: None)
     with pytest.raises(RuntimeError, match="holds no serving-state entry"):
-        pipeline.run_pipeline(*prepared_inputs, device="cpu", dtype=torch.float64,
+        pipeline.run_pipeline(dense_base=prepared_inputs[0], compact_daily=prepared_inputs[1], device="cpu", dtype=torch.float64,
                               make_figure=False, registry_dir=tmp_path / "reg")
 
 

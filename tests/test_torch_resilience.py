@@ -275,7 +275,7 @@ def test_corrupt_decile_checkpoint_is_recomputed_on_resume(tmp_path, damage):
 def test_prepared_entry_refuses_checkpoint_dir(tmp_path):
     base, daily = make_smoke_inputs(n_firms=40, n_months=36, dtype=np.float64)
     with pytest.raises(ValueError, match="provenance"):
-        port_pipeline.run_pipeline(base, daily, device="cpu", checkpoint_dir=tmp_path)
+        port_pipeline.run_pipeline(dense_base=base, compact_daily=daily, device="cpu", checkpoint_dir=tmp_path)
     assert not any(tmp_path.iterdir())
 
 

@@ -18,6 +18,21 @@ by the port's module of the same path. A name that the port leaves out by
 design is in ``ALLOWED`` with the mechanism that makes it JAX-only, or the
 port's counterpart; an entry the port does define, or the JAX package no
 longer has, is stale and fails.
+
+The same holds for the parameters of every public function, public method
+and ``__init__`` that both packages define at the same module path, so a
+call written for the JAX package binds alike in the port:
+
+- each JAX parameter is a parameter of the port's function;
+- the JAX function's positional parameters are the port's leading
+  positional parameters, in the same order (parameters only the port has
+  come after them or are keyword-only);
+- a default that is a literal constant on both sides is the same.
+
+A parameter that differs by design is in ``ALLOWED_PARAMS`` as
+``"module:function:parameter"`` with the reason: a JAX parameter the port
+has no counterpart of, or a port parameter that stands in its place among
+the positional ones. An entry that no check needs is stale and fails.
 """
 
 import ast
@@ -95,6 +110,50 @@ ALLOWED = {
     "flag:pipeline.py:--backend": "a JAX platform name: replaced by --device {cuda,cpu}",
     "flag:taskgraph/__main__.py:--backend": "a JAX platform name: replaced by --device "
                                             "{cuda,cpu}",
+}
+
+
+_ROUTE_PARAM = ("a route parameter: the port has no route knob and no fallback; the "
+                "device of the tensors decides between the kernel and its plain version")
+_PRNG = ("a JAX PRNG key: the port draws from a seeded CPU generator "
+         "(parallel.bootstrap), so the key's place is taken by the seed or the draws")
+_SHARD_LOCAL = ("shard_map-local blocks: the port's sharded program is stages with "
+                "explicit collectives, so the kernel takes the mesh and the per-shard lists")
+
+#: "module:function:parameter" → why the parameter differs by design
+ALLOWED_PARAMS = {
+    **{f"{fn}:use_pallas": _ROUTE_PARAM for fn in (
+        "ops/daily_chunked.py:daily_characteristics_chunked",
+        "ops/daily_chunked.py:daily_characteristics_compact_chunked",
+        "ops/daily_compact.py:daily_compact_strip",
+        "ops/daily_compact.py:daily_compact_strip_contiguous",
+        "ops/daily_kernels.py:rolling_vol_252_monthly",
+        "ops/rolling.py:rolling_sum", "ops/rolling.py:rolling_mean",
+        "ops/rolling.py:rolling_std")},
+    **{f"{fn}:gram_route": _ROUTE_PARAM for fn in (
+        "specgrid/engine.py:run_cellspace",
+        "specgrid/estimators/grid.py:run_estimator_grid_weights",
+        "specgrid/grambank.py:bank_key", "specgrid/grambank.py:build_bank",
+        "specgrid/grambank.py:load_bank", "specgrid/scenarios.py:run_scenarios",
+        "specgrid/scenarios.py:bank_for_scenarios", "specgrid/solve.py:run_spec_grid",
+        "specgrid/solve.py:run_spec_grid_weights")},
+    "specgrid/engine.py:run_cellspace:boot_route": _ROUTE_PARAM,
+    "specgrid/scenarios.py:run_scenarios:boot_route": _ROUTE_PARAM,
+    "specgrid/grams.py:contract_spec_grams:route": _ROUTE_PARAM,
+    "specgrid/grams.py:contract_spec_grams:block_n": "the Pallas firm block: " + _ROUTE_PARAM,
+    "specgrid/grams.py:contract_spec_grams:interpret": "Pallas interpret mode: "
+                                                       + _ROUTE_PARAM,
+    "parallel/bootstrap.py:bootstrap_replicate_means:keys": _PRNG,
+    "parallel/bootstrap.py:bootstrap_replicate_means:starts": _PRNG,
+    "parallel/bootstrap.py:block_bootstrap_se:key": _PRNG,
+    "parallel/bootstrap.py:block_bootstrap_se:seed": _PRNG,
+    **{f"parallel/fm_sharded.py:cs_ols_kernel:{name}": _SHARD_LOCAL
+       for name in ("y_l", "x_l", "mask_l", "mesh", "y", "x", "mask")},
+    "registry/executables.py:executable_key:program": (
+        "an XLA program to fingerprint: the port's executables are nvcc libraries, "
+        "keyed by the library's name"),
+    "registry/executables.py:executable_key:name": (
+        "the nvcc library's name, in the place of the reference's XLA program"),
 }
 
 
@@ -318,3 +377,129 @@ def test_scan_sees_a_deleted_name(tmp_path, rel, name, old, new):
     (copy / rel).write_text(text)
     assert _missing(rel) == []
     assert _missing(rel, root=copy) == [name]
+
+
+# --------------------------------------------------------------- parameters
+
+
+def _functions(path: Path) -> dict:
+    """Public top-level functions and the public methods and ``__init__``
+    of public classes: "name" or "Class.method" → the def node."""
+    out = {}
+    if not path.exists():
+        return out
+    for node in _tree(path).body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)) and _public(node.name):
+            out[node.name] = node
+        elif isinstance(node, ast.ClassDef) and _public(node.name):
+            for m in node.body:
+                if isinstance(m, (ast.FunctionDef, ast.AsyncFunctionDef)) and (
+                        _public(m.name) or m.name == "__init__"):
+                    out[f"{node.name}.{m.name}"] = m
+    return out
+
+
+_NO_LITERAL = object()
+
+
+def _literal(node):
+    try:
+        return ast.literal_eval(node)
+    except (ValueError, TypeError, SyntaxError, MemoryError, RecursionError):
+        return _NO_LITERAL
+
+
+def _signature(fn) -> tuple:
+    """(positional names, keyword-only names, {name: literal default})
+    without ``self``/``cls``."""
+    a = fn.args
+    positional = [p.arg for p in a.posonlyargs + a.args]
+    defaults = [None] * (len(positional) - len(a.defaults)) + list(a.defaults)
+    literals = {}
+    for name, node in list(zip(positional, defaults)) + list(
+            zip((p.arg for p in a.kwonlyargs), a.kw_defaults)):
+        if node is not None and _literal(node) is not _NO_LITERAL:
+            literals[name] = _literal(node)
+    if positional[:1] in (["self"], ["cls"]):
+        positional = positional[1:]
+    return positional, [p.arg for p in a.kwonlyargs], literals
+
+
+def _same(a, b) -> bool:
+    return a == b or (isinstance(a, float) and isinstance(b, float) and a != a and b != b)
+
+
+def param_failures(rel: str, name: str, root: Path = PORT, allowed=None) -> list:
+    """How a JAX-style call of ``rel``'s ``name`` would bind otherwise in
+    the port's function: missing parameters, a positional order that
+    differs, literal defaults that differ (``ALLOWED_PARAMS`` entries
+    excepted)."""
+    allowed = ALLOWED_PARAMS if allowed is None else allowed
+    j_pos, j_kw, j_lit = _signature(_functions(JAX / rel)[name])
+    p_pos, p_kw, p_lit = _signature(_functions(root / rel)[name])
+    skip = {key.rsplit(":", 1)[1] for key in allowed if key.rsplit(":", 1)[0] == f"{rel}:{name}"}
+    out = [f"missing {p}" for p in j_pos + j_kw if p not in p_pos + p_kw and p not in skip]
+    want = [p for p in j_pos if p not in skip]
+    got = [p for p in p_pos if p not in skip][:len(want)]
+    if got != want:
+        out.append(f"positional order {got} where the reference has {want}")
+    out += [f"default {p}={p_lit[p]!r} where the reference has {v!r}"
+            for p, v in j_lit.items() if p in p_lit and p not in skip and not _same(v, p_lit[p])]
+    return out
+
+
+SHARED_FUNCTIONS = [(rel, name) for rel in JAX_MODULES
+                    for name in sorted(set(_functions(JAX / rel)) & set(_functions(PORT / rel)))]
+
+
+def test_shared_functions_are_scanned():
+    assert len(SHARED_FUNCTIONS) > 400
+    assert ("panel/characteristics.py", "get_factors") in SHARED_FUNCTIONS
+    assert ("specgrid/multiproc.py", "SpecGridWorkerPool.contract") in SHARED_FUNCTIONS
+
+
+@pytest.mark.parametrize("rel", sorted({rel for rel, _ in SHARED_FUNCTIONS}))
+def test_port_functions_take_the_reference_calls(rel):
+    failures = {name: param_failures(rel, name) for r, name in SHARED_FUNCTIONS if r == rel}
+    failures = {k: v for k, v in failures.items() if v}
+    assert not failures, f"{rel}: {failures}"
+
+
+def test_param_allowlist_has_no_stale_entry():
+    """Every ``ALLOWED_PARAMS`` entry names a function both packages define
+    and is needed: without it that function's check fails."""
+    shared = set(SHARED_FUNCTIONS)
+    stale = []
+    for key, reason in ALLOWED_PARAMS.items():
+        assert reason, key
+        rel, name, _ = key.split(":")
+        if (rel, name) not in shared:
+            stale.append(key)
+            continue
+        rest = {k: v for k, v in ALLOWED_PARAMS.items() if k != key}
+        if not param_failures(rel, name, allowed=rest):
+            stale.append(key)
+    assert not stale, f"parameter allowlist entries no check needs: {stale}"
+
+
+@pytest.mark.parametrize("rel, name, old, new, expect", [
+    ("panel/characteristics.py", "get_factors",
+     "    crsp_comp: Optional[pd.DataFrame],\n    crsp_d: Optional[pd.DataFrame],\n",
+     "    crsp_d: Optional[pd.DataFrame],\n    crsp_comp: Optional[pd.DataFrame],\n",
+     "positional order"),
+    ("ops/fama_macbeth.py", "fama_macbeth", ', guard=None):', '):', "missing guard"),
+    ("pipeline.py", "build_panel_prepared", "    include_turnover: Optional[bool] = None,\n    *,",
+     "    include_turnover: Optional[bool] = False,\n    *,", "default include_turnover"),
+    ("reporting/figure1.py", "create_figure_1",
+     "    save_plot: bool = False,\n    output_dir=None,\n", "", "missing save_plot"),
+])
+def test_param_check_sees_a_changed_signature(tmp_path, rel, name, old, new, expect):
+    """The check fails on a call the port would bind otherwise: a copy of
+    one port module with one signature changed as the port's had it."""
+    copy = tmp_path / "port"
+    (copy / rel).parent.mkdir(parents=True)
+    text = (PORT / rel).read_text()
+    assert old in text
+    (copy / rel).write_text(text.replace(old, new, 1))
+    assert param_failures(rel, name) == []
+    assert any(f.startswith(expect) for f in param_failures(rel, name, root=copy))

@@ -109,9 +109,16 @@ def test_weekly_beta_matches_single_device(d_days):
                                               n_months, window_weeks=12, mesh=_mesh())
     assert M.collective_counts()[("psum", "time")] - before.get(("psum", "time"), 0) == 1
     _close(got, want, rtol=1e-9, atol=1e-12)
-    with pytest.raises(ValueError, match="nondecreasing"):
-        ts.weekly_rolling_beta_time_sharded(ret, mask, mkt, week_id[::-1].copy(), n_weeks,
-                                            week_month_id, n_months, mesh=_mesh())
+    # week ids in reverse: each shard sums its days by week, as the
+    # reference's segment_sum takes any order
+    back = week_id[::-1].copy()
+    want_back = jax_weekly_beta(jnp.asarray(ret), jnp.asarray(mask), jnp.asarray(mkt),
+                                jnp.asarray(back), n_weeks, jnp.asarray(week_month_id),
+                                n_months, window_weeks=12)
+    got_back = ts.weekly_rolling_beta_time_sharded(ret, mask, mkt, back, n_weeks,
+                                                   week_month_id, n_months, window_weeks=12,
+                                                   mesh=_mesh())
+    _close(got_back, want_back, rtol=1e-9, atol=1e-12)
 
 
 def test_each_call_gathers_once_and_permutes_once(data):
