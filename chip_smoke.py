@@ -5,9 +5,9 @@ plain PyTorch versions.
     python3 chip_smoke.py            # full run: build, kernel phases, main
                                      # path at real size, card-vs-CPU check
     python3 chip_smoke.py --kernels-only --ptxas   # build (nvcc's
-                                     # register report, the SASS HMMA count
-                                     # of each Gram kernel) + one checked
-                                     # launch per kernel, no timing
+                                     # register report, the SASS HMMA and
+                                     # DMMA count of each Gram kernel) + one
+                                     # checked launch per kernel, no timing
 
 Phases (any failure exits non-zero without the final line):
 
@@ -690,12 +690,14 @@ def check_gram(t, n, p, dtype, rel, gen, timed, figure=False, weights=None,
     counts_exact = bool((got[2] == want[2]).all())
     worst, max_abs = gram_worst(got, want)
     kind = "bf16" if low else str(dtype)[6:]
+    chunk = gram_spec_chunk(p, dtype=x.dtype)
     label = (f"T={t} N={n} P={p} S={s} {kind}" + (f" rw={weights}" if weights else "")
-             + (f" ({-(-s // gram_spec_chunk(p))} launches)" if s > gram_spec_chunk(p) else ""))
+             + (f" ({-(-s // chunk)} launches)" if s > chunk else ""))
     tol = rel
-    if low:
+    if low or dtype == torch.float64:
         check(torch.equal(out, gram_contract_cuda(y, x, valid, col_sel, center, rw)),
               f"K2 {label}: two calls differ in their bits")
+    if low:
         exact = contract_spec_grams_plain(
             y.double(), (x - center[:, None, :]).double(), uni, col_sel, window,
             torch.zeros(center.shape, dtype=torch.float64, device="cuda"),
@@ -868,14 +870,17 @@ def k2_wide_phase(gen, timed: bool):
 
 
 def sass_hmma_phase() -> None:
-    """Count the tensor-core instructions (``HMMA``) in the SASS of each
-    Gram kernel of the built library (``cuobjdump -sass``): the bf16
-    kernels (the eight register classes and the two wide kernels past 32
-    columns) must have some, the float and double kernels none."""
+    """Count the tensor-core instructions in the SASS of each Gram kernel
+    of the built library (``cuobjdump -sass``): ``HMMA`` (bf16) and
+    ``DMMA`` (float64). The bf16 kernels (the eight register classes and
+    the four wide kernels past 32 columns: two chunk widths, with and
+    without row weights) must have ``HMMA`` and no ``DMMA``, the six
+    float64 kernels (three chunk widths) ``DMMA`` and no ``HMMA``, the four
+    float32 kernels neither."""
     cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
     tool = shutil.which("cuobjdump") or os.path.join(cuda_home, "bin", "cuobjdump")
     if not os.path.exists(tool):
-        log("SASS HMMA count: cuobjdump is not in this toolkit; not counted")
+        log("SASS HMMA/DMMA count: cuobjdump is not in this toolkit; not counted")
         return
     sass = subprocess.run([tool, "-sass", str(library_path("gram"))], check=True,
                           capture_output=True, text=True, timeout=300).stdout
@@ -884,9 +889,10 @@ def sass_hmma_phase() -> None:
         m = re.search(r"Function : (\S+)", line)
         if m:
             name = m.group(1)
-            counts[name] = 0
-        elif name is not None and re.search(r"\bHMMA\b", line):
-            counts[name] += 1
+            counts[name] = {"HMMA": 0, "DMMA": 0}
+        elif name is not None:
+            for op in re.findall(r"\b([HD]MMA)\b", line):
+                counts[name][op] += 1
     filt = shutil.which("c++filt")
     if filt and counts:
         names = subprocess.run([filt], input="\n".join(counts), check=True,
@@ -894,12 +900,16 @@ def sass_hmma_phase() -> None:
         short = (re.sub(r"\(.*$", "", nm.replace("(anonymous namespace)::", ""))
                  .removeprefix("void ") for nm in names)
         counts = dict(zip(short, counts.values()))
-    log("SASS HMMA count per Gram kernel: " + json.dumps(counts))
+    log("SASS HMMA/DMMA count per Gram kernel: " + json.dumps(counts))
     tc = {k: v for k, v in counts.items() if k.startswith("gram_tc_")}
-    cc = {k: v for k, v in counts.items() if not k.startswith("gram_tc_")}
-    check(len(tc) == 10 and all(v > 0 for v in tc.values()),
-          "bf16 Gram kernels without tensor-core instructions")
-    check(all(v == 0 for v in cc.values()), "float/double Gram kernels use the tensor cores")
+    dm = {k: v for k, v in counts.items() if k.startswith("gram_dmma_")}
+    cc = {k: v for k, v in counts.items() if not k.startswith(("gram_tc_", "gram_dmma_"))}
+    check(len(tc) == 12 and all(v["HMMA"] > 0 and v["DMMA"] == 0 for v in tc.values()),
+          "bf16 Gram kernels without HMMA (or with DMMA)")
+    check(len(dm) == 6 and all(v["DMMA"] > 0 and v["HMMA"] == 0 for v in dm.values()),
+          "float64 Gram kernels without DMMA (or with HMMA)")
+    check(len(cc) == 4 and all(v["HMMA"] == 0 and v["DMMA"] == 0 for v in cc.values()),
+          "float32 Gram kernels use the tensor cores")
 
 
 # --- K3: the masked cumulative moments --------------------------------------
@@ -2370,8 +2380,9 @@ def k2_wide_path_phase(res, seed: int) -> dict:
     (``wide_grid``), in float32, with coreset row weights, in bfloat16 and
     in float64; then unions of 64 and 100 columns (50 and 86 seeded) at
     the first 4,096 firms on the same four branches. Each run's K2
-    launches are counted by key: one a contraction, or ⌈9 /
-    gram_spec_chunk(P)⌉ where the batch is cut; Models 1 and 2 come out
+    launches are counted by key: ⌈9 / gram_spec_chunk(P, dtype=…)⌉, one
+    in float64 and bfloat16 (one launch takes the whole batch there), three
+    at P = 64 and nine at P = 100 in float32; Models 1 and 2 come out
     finite. No referee: its QR re-solves launch no K2 (the card-vs-CPU
     check runs the wide grid refereed). Returns the launch counts
     (``gram/…`` keys) of every run."""
@@ -2391,10 +2402,11 @@ def k2_wide_path_phase(res, seed: int) -> dict:
         yy = y[:, :firms].contiguous()
         mm = {u: masks[u][:, :firms].contiguous() for u in universes}
         rw = coreset_like_weights(t, firms, torch.float32, gen, binary=False)
-        runs = (("f32", dict(), yy, cols), ("rw", dict(row_weights=rw), yy, cols),
-                ("bf16", dict(precision="bf16"), yy, cols),
-                ("f64", dict(), yy.double(), cols.double()))
-        for label, kw, y_run, x_run in runs:
+        runs = (("f32", dict(), yy, cols, torch.float32),
+                ("rw", dict(row_weights=rw), yy, cols, torch.float32),
+                ("bf16", dict(precision="bf16"), yy, cols, torch.bfloat16),
+                ("f64", dict(), yy.double(), cols.double(), torch.float64))
+        for label, kw, y_run, x_run, operands in runs:
             masks_run = mm
             reset_counts()
             torch.cuda.synchronize()
@@ -2403,7 +2415,7 @@ def k2_wide_path_phase(res, seed: int) -> dict:
             torch.cuda.synchronize()
             wall = time.perf_counter() - start
             counts = launch_counts()
-            want = -(-len(grid.specs) // gram_spec_chunk(p))
+            want = -(-len(grid.specs) // gram_spec_chunk(p, dtype=operands))
             nested = out.coef[: 2 * len(universes)]
             n_cols = [len(s.predictors) for s in grid.specs[: 2 * len(universes)]]
             finite = all(np.isfinite(nested[i, :k]).all() for i, k in enumerate(n_cols))

@@ -1,6 +1,6 @@
-// Masked per-month Gram contraction for a batch of specs: float and double
-// operands on the CUDA cores, bf16 operands on the tensor cores with float
-// sums.
+// Masked per-month Gram contraction for a batch of specs: float operands on
+// the CUDA cores, double operands on the FP64 tensor cores (DMMA), bf16
+// operands on the tensor cores with float sums.
 //
 // Replaces the Pallas TPU kernel
 //   fm_returnprediction_tpu/ops/gram_pallas.py::gram_contract_pallas
@@ -23,10 +23,13 @@
 // the figure grid's shape (P=5, S=3) the bytes bound it (~0.1 ms). With bf16
 // operands the same work reads ~0.52 GB (~0.16 ms) and its products, on the
 // tensor cores, take ~0.06 ms even at full 16x16 blocks: the bytes bound it.
+// In float64 (67 TFLOP/s on DMMA) the bytes bound it up to about P = 14
+// (Table 2's shape: 1.7 GB, 0.51 ms, against 0.48 ms of products) and the
+// products past it (P = 40: 3.2 ms against 0.8 ms of bytes).
 //
-// Design, float and double (gram_kernel). One block per month t walks the
-// firm axis in tiles; x is read in its native (T, N, P) layout, where a tile
-// is tile*P contiguous values.
+// Design, float (gram_kernel). One block per month t walks the firm axis in
+// tiles; x is read in its native (T, N, P) layout, where a tile is tile*P
+// contiguous values.
 // - Register tiles of the output: the (QE x QE) upper triangle is padded to
 //   a multiple of 4 and cut into 4x4 tiles (10 at P=14, 3 at P=5). A thread
 //   owns one (spec, tile) pair and keeps its 16 sums in registers. Per firm
@@ -37,10 +40,10 @@
 //   free of bank conflicts.
 // - Firm groups: the (spec, tile) owners are replicated G times so that a
 //   block has up to 192 threads; group g sums firms g, g+G, ... of each
-//   tile. Blocks are kept small (float: <= 192 threads, <= 64 registers,
-//   <= 44 KB of shared memory, the row weights' tile included) so that five
-//   share an SM and all 600 months of the main path are resident at once: no
-//   tail wave, and one block's barriers overlap the others' arithmetic. Each
+//   tile. Blocks are kept small (<= 192 threads, <= 64 registers, <= 44 KB
+//   of shared memory, the row weights' tile included) so that five share an
+//   SM and all 600 months of the main path are resident at once: no tail
+//   wave, and one block's barriers overlap the others' arithmetic. Each
 //   thread adds a per-tile partial into a running
 //   total (two-level sum), and at the end the groups' totals are added in
 //   group order through shared memory: no atomics, so the result is the same
@@ -67,9 +70,9 @@
 //   thread, whose registers the main path's speed depends on. The firm
 //   tile shrinks as P grows to keep a block within its shared-memory
 //   budget.
-// Tensor cores are not used for float and double: TF32 keeps ~10 mantissa
-// bits and would break the 1e-5 (f32) parity with the plain version; a
-// split-TF32 or split-bf16 scheme is left for later work.
+// Tensor cores are not used for float: TF32 keeps ~10 mantissa bits and
+// would break the 1e-5 parity with the plain version; a split-TF32 or
+// split-bf16 scheme is left for later work.
 //
 // Design, bf16 operands (gram_tc_kernel). One block per month, as above.
 // - Tiles by the copy engine: each row of a tile (x, y, the row weights,
@@ -120,23 +123,71 @@
 // waits on its own latencies; a later design overlaps them (producer and
 // consumer warps).
 //
+// Design, float64 (gram_dmma_kernel). Products on the FP64 tensor cores:
+// mma.sync m16n8k8 (on an H100 the m16n8k* shapes that sm_90 adds run at
+// the full 67 TFLOP/s, m8n8k4 at half of it). A spec's block is cut into
+// 16-row strips of 8-column tiles, strip mi keeping tiles nj >= 2 mi (a
+// diagonal tile computes its whole 16x8 and keeps the entries on or above
+// the diagonal); per 8 firms one MMA a tile, A the strip's rows times the
+// spec's weights (w o a, the weight applied as the fragment is formed), B
+// the tile's unweighted rows.
+// - Tasks: strips mi and mt - 1 - mi together hold the same number of
+//   tiles whatever mi, so a consumer warp's task is a chunk of at most 8
+//   tiles of one such pair for one spec, and the warp forms the chunk's A
+//   fragments once a step for all of its tiles.
+// - One read of x a month for the whole call: one launch takes the whole
+//   spec batch (no 8192-entry cap); a month's tasks go to as few blocks as
+//   their running sums allow (one at Table 2's shape), consecutive (the
+//   split index fastest), so that split blocks are resident together and
+//   all but the first read the month's tiles from L2.
+// - Warp specialization: 4 producer warps stage each tile by the copy
+//   engine (one bulk copy, 1-D TMA, a raw row, into a ring of two stages,
+//   each completing on its mbarrier) and build it into one of two built
+//   buffers, while up to 12 consumer warps sum the products of the other;
+//   named barriers hand a buffer over (full, empty). One block of up to 16
+//   warps an SM.
+// - The build: lane c of 32-column word wd writes column 32 wd + c + 1 of
+//   the row-major augmented rows [1 | x - c | y | 0 pad] (x column 32 wd +
+//   c, y as column p; row stride 16 mt + 4 doubles, 4 mod 16, so the
+//   fragment loads are free of bank conflicts) and one ballot a firm gives
+//   the word's non-finite bits; then a thread a firm writes the firm's
+//   weight for each spec of the block (rw, or 1, where the valid byte is set
+//   and no selected column, y included, is non-finite; else 0).
+// - Sums: a fresh sum a slot per staged tile, added into the task's running
+//   sums in shared memory (two-level; DMMA is IEEE double). Each entry has
+//   one owner; no atomics: two calls give the same bits, and under 0/1
+//   weights n is an exact count.
+// What bounds it now (H100, PERF.md): not the tensor cores. A DMMA's
+// latency is long (~500 cycles: a warp's few tiles in flight keep the
+// pipe only partly busy), each MMA loads its B fragment (512 bytes) from
+// shared memory, and the build and the fragment loads share the SM's
+// shared-memory bandwidth and issue slots, so producers and consumers only
+// partly overlap.
+//
 // Design, bf16 operands past 32 columns (gram_tc_wide_kernel). The kernel
 // above keeps a warp's whole output class in registers, which stops at
-// QE = 34. Past P = 32 the (spec, 16x8 output tile) pairs of the upper
-// triangle are dealt out in runs of kWideKT to the warps of a block, the
-// rest over gridDim.y; a warp loads the A fragment (its spec's masks ANDed
-// in) and the B fragment of each of its tiles from the transposed rows at
-// every 16-firm step, one mma.sync each (two with row weights: hi and lo).
-// Each pair belongs to one warp, whose per-tile partials go into a running
-// sum in registers: no atomics and no cross-warp reduction. The rows are
-// built column by column, 32 at a time for the non-finite words; raw tiles
-// are staged by cp.async as in the float kernel.
+// QE = 34. Past P = 32 a spec's block is cut and dealt as the float64
+// kernel's (16-row strips of 8-column tiles, a task a chunk of a strip
+// pair for one spec, one launch for the whole spec batch, warp-specialized
+// blocks of producers and consumers), into gram_tc_kernel's transposed
+// rows and masks (hi and lo parts with row weights), built as the float64
+// rows are (a warp a 32-column word of firm pairs, the non-finite bits by
+// ballot; then a thread a firm pair writes its masks). Per 16 firms a
+// consumer loads each of its task's strips' A fragment once (ldmatrix.x4,
+// the spec's masks ANDed in) and each tile's B fragment (ldmatrix.x2), one
+// mma.sync m16n8k16 a tile (two with row weights), into a fresh sum per
+// staged tile (at most 256 firms) that is added into running sums in
+// shared memory: no atomics. What bounds it now: the build (the
+// transposition, a 32-bit store per column and firm pair) past P = 64,
+// where the consumers wait on the producers.
 //
-// One launch takes at most 8192 block entries S * QE * (QE + 1) / 2 (60
-// specs at P = 14), or one spec, whatever its width: the wrapper cuts a
-// larger spec batch into consecutive chunks, one launch each. Any P
-// whose smallest firm tile (16 firms) fits in shared memory (227 KB): up
-// to ~590 columns in float64, more in float32 and bf16.
+// The float kernels and the bf16 kernel up to 32 columns take at most 8192
+// block entries S * QE * (QE + 1) / 2 a launch (60 specs at P = 14), or one
+// spec, whatever its width: the wrapper cuts a larger spec batch into
+// consecutive chunks, one launch each. The float64 kernel and the bf16
+// kernel past 32 columns take up to 65,536 specs in one launch. Any P whose
+// smallest firm tile (16 firms) fits in shared memory (227 KB): some 500
+// columns in float64, more in float and bf16.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -154,10 +205,10 @@ constexpr int kMinTile = 16;
 constexpr size_t kSmemMax = 227 * 1024;
 
 // Threads a block has at most, blocks that must fit on one SM (registers:
-// 64 a thread in float) and the shared memory each may take. In float five
-// blocks of ~180 threads fit on an SM, so all 600 months of the main path
-// are resident at once: no tail wave, and one block's barriers overlap the
-// others' arithmetic.
+// 64 a thread) and the shared memory each may take. Five blocks of ~180
+// threads fit on an SM, so all 600 months of the main path are resident at
+// once: no tail wave, and one block's barriers overlap the others'
+// arithmetic.
 template <typename T>
 struct Limits;
 template <>
@@ -165,12 +216,6 @@ struct Limits<float> {
   static constexpr int kThreads = 192;
   static constexpr int kMinBlocks = 5;
   static constexpr size_t kSmemBudget = 44 * 1024;
-};
-template <>
-struct Limits<double> {
-  static constexpr int kThreads = 192;
-  static constexpr int kMinBlocks = 2;
-  static constexpr size_t kSmemBudget = 112 * 1024;
 };
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
@@ -247,10 +292,9 @@ __device__ __forceinline__ int misalign(const void* p) {
 }
 
 // An operand widened to the accumulation type, and a centred value rounded
-// as the operand type holds it: identities for the float and double kernel
-// (bf16 operands have their own kernel, gram_tc_kernel).
+// as the operand type holds it: identities for the float kernel (double and
+// bf16 operands have their own kernels).
 __device__ __forceinline__ float widen(float v) { return v; }
-__device__ __forceinline__ double widen(double v) { return v; }
 template <typename In, typename T>
 __device__ __forceinline__ T as_operand(T v) {
   return v;
@@ -262,14 +306,6 @@ __device__ __forceinline__ void load4(const float* p, float* v) {
   v[1] = a.y;
   v[2] = a.z;
   v[3] = a.w;
-}
-__device__ __forceinline__ void load4(const double* p, double* v) {
-  const double2 a = *reinterpret_cast<const double2*>(p);
-  const double2 b = *reinterpret_cast<const double2*>(p + 2);
-  v[0] = a.x;
-  v[1] = a.y;
-  v[2] = b.x;
-  v[3] = b.y;
 }
 
 // (spec, 4x4 tile) of pair index `pr`: tiles of the upper triangle of an
@@ -1037,173 +1073,709 @@ int launch_tc(const void* x, const void* y, const void* rw, const unsigned char*
   return (int)cudaGetLastError();
 }
 
+// --- shared by the float64 kernel and the bf16 kernel past 32 columns ------
 
-// --- bf16 operands past 32 columns: (spec, output tile) pairs per warp -----
+constexpr int kOneLaunchSpecs = 65536;  // the most specs one launch of either takes
 
-constexpr int kWideWarps = 4;   // warps a block has at most
-constexpr int kWideKT = 8;      // 16x8 output tiles one warp sums
-constexpr size_t kWideSmemBudget = 96 * 1024;
-
-// Byte offsets of one block's dynamic shared memory: two stages of raw
-// tiles (as the float kernel's), the month's center in float, each spec's
-// selection words, the transposed augmented rows (mp rows of `tile` bf16
-// firms, stride padded by 16 bytes), with row weights their hi and lo
-// parts, and a 16-bit mask per (spec, firm).
-struct WideLayout {
-  int rstride;  // bytes of one transposed row
-  size_t x_bytes, y_bytes, rw_bytes, v_row, stage;
-  size_t cen_off, sel_off, rows_off, hi_off, lo_off, mask_off, total;
+// A spec's (QE x QE) block as 16-row strips of 8-column output tiles: strip
+// mi keeps tiles nj = 2 mi .. nt - 1, those holding an entry on or above the
+// diagonal. Strips mi and mt - 1 - mi together hold c = 2 (nt - mt + 1)
+// tiles whatever mi, the middle strip of an odd mt c / 2; a chunk is cs
+// tiles of one such pair (cs = c / 2 cut into the fewest equal parts of at
+// most 8), the last chunk of a pair or of the middle strip maybe fewer,
+// so the chunks of a spec are (near) equal. The kernels take the chunk
+// width as a template argument JW >= cs: a slot past a chunk's tiles
+// repeats its last tile into sums that are never stored, so no branch
+// splits a step.
+struct Strips {
+  int mt, nt;  // strips of 16 rows, tiles of 8 columns
+  int c;       // tiles of a strip pair
+  int cs, q;   // tiles of a chunk, chunks of a pair
+  int tps;     // chunks a spec: q a pair, and the middle strip's
 };
 
-__host__ __device__ inline WideLayout make_wide_layout(int tile, int p, int nw, int nsb,
-                                                       int mp, bool has_rw) {
+__host__ __device__ inline Strips make_strips(int qe) {
+  Strips g;
+  g.mt = (qe + 15) / 16;
+  g.nt = (qe + 7) / 8;
+  g.c = 2 * (g.nt - g.mt + 1);
+  const int h = g.c / 2, k = (h + 7) / 8;
+  g.cs = (h + k - 1) / k;
+  g.q = (g.c + g.cs - 1) / g.cs;
+  g.tps = (g.mt / 2) * g.q + ((g.mt & 1) ? (h + g.cs - 1) / g.cs : 0);
+  return g;
+}
+
+
+
+// Task u of a spec: tiles (mi_a, nj_a + j) for j < n_a, then
+// (mi_b, nj_b + j - n_a) for n_a <= j < n_a + n_b.
+struct Chunk {
+  int mi_a, nj_a, n_a, mi_b, nj_b, n_b;
+};
+
+__device__ inline Chunk decode_chunk(const Strips& g, int u) {
+  const int paired = (g.mt / 2) * g.q;
+  int a, lo, hi, len_a;  // the pair's first strip, the chunk's tiles in the pair's list
+  if (u < paired) {
+    a = u / g.q;
+    lo = (u - a * g.q) * g.cs;
+    hi = min(g.c, lo + g.cs);
+    len_a = g.nt - 2 * a;
+  } else {  // the middle strip
+    a = g.mt / 2;
+    lo = (u - paired) * g.cs;
+    hi = min(g.c / 2, lo + g.cs);
+    len_a = g.c / 2;
+  }
+  Chunk k;
+  k.mi_a = a;
+  k.nj_a = 2 * a + lo;
+  k.n_a = max(0, min(hi, len_a) - lo);
+  k.mi_b = g.mt - 1 - a;
+  k.nj_b = 2 * k.mi_b + max(lo, len_a) - len_a;
+  k.n_b = max(0, hi - max(lo, len_a));
+  return k;
+}
+
+// A block's warps: the first kProducerWarps stage and build the tiles into
+// one of two built buffers, the rest (at most kConsumerWarps) sum the
+// products of the other: the build of tile k + 1 overlaps the products of
+// tile k. Named barriers hand a buffer over: kBarProd the producers' own,
+// kBarFull + b buffer b built, kBarEmpty + b buffer b summed (id 0 is
+// __syncthreads').
+constexpr int kProducerWarps = 4;
+constexpr int kConsumerWarps = 12;
+constexpr int kBlockThreads = 32 * (kProducerWarps + kConsumerWarps);
+constexpr int kBarProd = 1, kBarFull = 2, kBarEmpty = 4;
+constexpr size_t kGramSmemBudget = 220 * 1024;  // one block an SM
+
+// A month's work: a task is a chunk u of a spec s (task s * tps + u), taken
+// by one consumer warp. A block takes tpb consecutive tasks, splits blocks
+// a month, the split index fastest.
+struct BlockPlan {
+  int tpb, splits, nsb, tile;
+  size_t smem;
+};
+
+// The plan: of the task counts a block whose running sums, staged tiles
+// and built buffers fit `budget` with a tile of at least `min_tile` firms
+// (the largest such tile) and whose valid rows fit warp 0's lanes, the one
+// with the fewest rounds of consumer warps a month (splits times rounds a
+// block), then the fewest splits (each stages and builds the month's
+// tiles); else (a very wide union) the same in the most a block may take
+// with any tile. smem_for(tile, tasks a block, specs a block) is the
+// kernel's layout.
+template <typename SmemFor>
+BlockPlan plan_blocks(int s_specs, int tps, int min_tile, size_t budget, SmemFor smem_for) {
+  const long long tasks = (long long)s_specs * tps;
+  for (int pass = 0; pass < 2; ++pass) {
+    const size_t cap = pass == 0 ? budget : kSmemMax;
+    const int floor_tile = pass == 0 ? min_tile : kMinTile;
+    BlockPlan best{0, 0, 0, 0, 0};
+    long long best_rounds = 0;
+    // each distinct tasks-a-block count once, the fewest splits first
+    for (long long splits = 1; splits <= tasks;) {
+      const long long tpb = (tasks + splits - 1) / splits;
+      const long long sp = (tasks + tpb - 1) / tpb;
+      const long long rounds = sp * ((tpb + kConsumerWarps - 1) / kConsumerWarps);
+      const int nsb = (int)std::min<long long>((tpb + tps - 2) / tps + 1, s_specs);
+      if (nsb + 3 <= 32 && (best.tpb == 0 || rounds < best_rounds)) {
+        for (int tile = kTcMaxTile; tile >= floor_tile; tile /= 2) {
+          const size_t bytes = smem_for(tile, (int)tpb, nsb);
+          if (bytes <= cap) {
+            best = {(int)tpb, (int)sp, nsb, tile, bytes};
+            best_rounds = rounds;
+            break;
+          }
+        }
+      }
+      if (tpb == 1) break;
+      splits = (tasks + tpb - 2) / (tpb - 1);
+    }
+    if (best.tpb != 0) return best;
+  }
+  return {0, 0, 0, 0, 0};
+}
+
+// A block's tasks and specs, as the kernels derive them from the plan:
+// tasks [t0, t0 + ntask), specs [s_lo, s_lo + nsb).
+struct BlockWork {
+  int t0, ntask, s_lo, nsb;
+};
+
+__device__ inline BlockWork block_work(int split, int s_specs, int tps, int tpb) {
+  BlockWork w;
+  w.t0 = split * tpb;
+  const int t1 = min(w.t0 + tpb, s_specs * tps);
+  w.ntask = t1 - w.t0;
+  w.s_lo = w.t0 / tps;
+  w.nsb = (t1 - 1) / tps - w.s_lo + 1;
+  return w;
+}
+
+// A raw row of the staged tiles as one lane of warp 0 holds it: its first
+// byte at firm 0 of the month, its bytes a firm, and its offset in a stage
+// (a lane past the block's rows holds bpf = 0 and copies nothing).
+struct RawRow {
+  const unsigned char* src;
+  int bpf;
+  unsigned dst;
+};
+
+// Stage firms n0 .. n0 + cnt - 1 of each lane's row into the stage at `st`
+// by the copy engine (warp 0 only): the row's 16-byte-aligned interior as
+// one bulk copy (1-D TMA) that completes on `bar` (lane 0 first arms it with
+// the bytes of all of them), its ragged head and tail byte by byte. Byte e
+// of a row lands at st + dst + (its source address & 15) + e, as stage_rows
+// places it.
+__device__ __forceinline__ void stage_bulk(const RawRow& row, long long n0, int cnt,
+                                           unsigned char* st, uint64_t* bar, int lane) {
+  const unsigned char* src = row.src + n0 * row.bpf;
+  const uintptr_t lo = reinterpret_cast<uintptr_t>(src), hi = lo + (uintptr_t)cnt * row.bpf;
+  const uintptr_t a = (lo + 15) & ~uintptr_t(15);
+  const uintptr_t b = (hi & ~uintptr_t(15)) > a ? (hi & ~uintptr_t(15)) : a;
+  unsigned char* dst = st + row.dst + (lo & 15);  // byte e of the row goes to dst[e]
+  const unsigned total = __reduce_add_sync(0xffffffffu, (unsigned)(b - a));
+  if (lane == 0) mbar_expect_tx(bar, total);
+  __syncwarp();
+  if (b > a)
+    bulk_copy(dst + (a - lo), reinterpret_cast<const void*>(a), (unsigned)(b - a), bar);
+  for (uintptr_t e = lo; e < (b > a ? a : hi); ++e) dst[e - lo] = src[e - lo];
+  for (uintptr_t e = b > a ? b : hi; e < hi; ++e) dst[e - lo] = src[e - lo];
+}
+
+// d += a b on the FP64 tensor cores: a 16x8 row-major, b 8x8 column-major.
+// Lane 4 g + t holds a = (A[g][t], A[g+8][t], A[g][t+4], A[g+8][t+4]),
+// b = (B[t][g], B[t+4][g]) and d = (D[g][2t], D[g][2t+1], D[g+8][2t],
+// D[g+8][2t+1]).
+__device__ __forceinline__ void mma_f64(double (&d)[4], const double (&a)[4], double b0,
+                                        double b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b0), "d"(b1));
+}
+
+// Four (two) 8x8 bf16 matrices from shared memory in the fragment layout
+// of mma.m16n8k16: lanes 8 i .. 8 i + 7 give the row addresses of matrix i.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x2(uint32_t& r0, uint32_t& r1, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r0), "=r"(r1)
+               : "r"(smem_addr(p)));
+}
+
+
+// --- warp-specialized blocks, shared by the float64 and wide bf16 kernels --
+
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// A block's task table: a task's two runs of tiles and its spec.
+constexpr int kTaskInts = 8;  // mi_a, nj_a, n_a, mi_b, nj_b, n_b, local spec, pad
+
+// Each task's entry in the block's table (threads of the block in turn).
+__device__ inline void fill_tasks(const Strips& G, const BlockWork& w, int* tasks, int tid,
+                                  int nthreads) {
+  for (int i = tid; i < w.ntask; i += nthreads) {
+    const int q = w.t0 + i, spec = q / G.tps;
+    const Chunk ch = decode_chunk(G, q - spec * G.tps);
+    int* e = tasks + kTaskInts * i;
+    e[0] = ch.mi_a;
+    e[1] = ch.nj_a;
+    e[2] = ch.n_a;
+    e[3] = ch.mi_b;
+    e[4] = ch.nj_b;
+    e[5] = ch.n_b;
+    e[6] = spec - w.s_lo;
+  }
+}
+
+
+// --- float64 on the FP64 tensor cores (DMMA) --------------------------------
+
+// Byte offsets of one block's dynamic shared memory: two stages of raw
+// tiles (x, y, the row weights when there are any, one valid row per spec
+// of the block) and their mbarriers, the month's center, each spec's
+// selection words (y as column p) and valid row offset, each firm's
+// non-finite words, two built buffers (the row-major augmented rows and
+// each (spec, firm) weight), the task table and each task's running sums
+// (cs tiles of 4 doubles a lane, lane-interleaved).
+struct DmmaLayout {
+  int qp;   // row stride in doubles: 16 mt + 4, 4 mod 16 (no bank conflict)
+  int nwb;  // words of a firm's non-finite bits: x columns 0 .. p - 1, y as p
+  size_t x_bytes, y_bytes, rw_bytes, v_row, stage;
+  size_t bar_off, cen_off, sel_off, voff_off, bad_off, rows_off, rows_bytes, w_off, w_bytes,
+      task_off, run_off, total;
+};
+
+__host__ __device__ inline DmmaLayout make_dmma_layout(int tile, int p, int mt, int nsb,
+                                                       bool has_rw, int ntask, int run_slots) {
+  DmmaLayout L;
+  L.qp = 16 * mt + 4;
+  L.nwb = p / 32 + 1;
+  L.x_bytes = up16((size_t)tile * p * 8 + 16);
+  L.y_bytes = up16((size_t)tile * 8 + 16);
+  L.rw_bytes = has_rw ? L.y_bytes : 0;
+  L.v_row = up16((size_t)tile + 16);
+  L.stage = L.x_bytes + L.y_bytes + L.rw_bytes + L.v_row * nsb;
+  L.bar_off = 2 * L.stage;
+  L.cen_off = L.bar_off + 16;
+  L.sel_off = L.cen_off + up16((size_t)p * 8);
+  L.voff_off = L.sel_off + up16((size_t)nsb * L.nwb * 4);
+  L.bad_off = L.voff_off + up16((size_t)nsb * 4);
+  L.rows_off = L.bad_off + up16((size_t)tile * L.nwb * 4);
+  L.rows_bytes = (size_t)tile * L.qp * 8;
+  L.w_off = L.rows_off + 2 * L.rows_bytes;
+  L.w_bytes = up16((size_t)nsb * tile * 8);
+  L.task_off = L.w_off + 2 * L.w_bytes;
+  L.run_off = L.task_off + up16((size_t)ntask * kTaskInts * 4);
+  L.total = L.run_off + (size_t)ntask * run_slots * 128 * 8;
+  return L;
+}
+
+// JW tiles a chunk.
+template <int JW, bool kRw>
+__global__ void __launch_bounds__(kBlockThreads, 1)
+gram_dmma_kernel(const double* __restrict__ x, const double* __restrict__ y,
+                 const double* __restrict__ rw, const unsigned char* __restrict__ valid,
+                 const unsigned int* __restrict__ sel_bits, const double* __restrict__ center,
+                 double* __restrict__ out, int t_len, long long n, int p, int nw, int s_specs,
+                 int tile, int splits, int tpb) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int qe = p + 2;
+  const Strips G = make_strips(qe);
+  const int mp = 16 * G.mt;  // rows of the strips: QE padded
+  const int t = blockIdx.x / splits;
+  const BlockWork W = block_work(blockIdx.x - t * splits, s_specs, G.tps, tpb);
+  const int ntask = W.ntask, s_lo = W.s_lo, nsb = W.nsb;
+  const int run_slots = G.cs;  // a task's running sums: its cs tiles
+  const DmmaLayout L = make_dmma_layout(tile, p, G.mt, nsb, kRw, tpb, run_slots);
+  const int qp = L.qp, nwb = L.nwb;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L.bar_off);  // one a stage
+  double* cen = reinterpret_cast<double*>(smem + L.cen_off);
+  unsigned* spec_sel = reinterpret_cast<unsigned*>(smem + L.sel_off);
+  int* spec_voff = reinterpret_cast<int*>(smem + L.voff_off);
+  unsigned* badw = reinterpret_cast<unsigned*>(smem + L.bad_off);
+  int* tasks = reinterpret_cast<int*>(smem + L.task_off);
+  double* run = reinterpret_cast<double*>(smem + L.run_off);
+  const int tid = threadIdx.x;
+  const int nthreads = blockDim.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+
+  const unsigned char* v_first = valid + ((long long)s_lo * t_len + t) * n;
+  const long long v_stride = (long long)t_len * n;
+  for (int c = tid; c < p; c += nthreads) cen[c] = center[(size_t)t * p + c];
+  // y enters every spec's selection as column p
+  for (int e = tid; e < nsb * nwb; e += nthreads) {
+    const int sl = e / nwb, wd = e - sl * nwb;
+    unsigned v = wd < nw ? sel_bits[(size_t)(s_lo + sl) * nw + wd] : 0u;
+    if (wd == p / 32) v |= 1u << (p % 32);
+    spec_sel[e] = v;
+  }
+  for (int sl = tid; sl < nsb; sl += nthreads)
+    spec_voff[sl] = sl * (int)L.v_row + misalign(v_first + sl * v_stride);
+  fill_tasks(G, W, tasks, tid, nthreads);
+  for (int i = tid; i < ntask * run_slots * 128; i += nthreads) run[i] = 0.0;
+  if (tid == 0) {
+    mbar_init(bars);
+    mbar_init(bars + 1);
+  }
+  __syncthreads();
+
+  const long long n_tiles = (n + tile - 1) / tile;
+  if (warp < kProducerWarps) {
+    // --- producers: stage each tile by the copy engine and build it ---
+    const int nprod = 32 * kProducerWarps;
+    const long long row_t = (long long)t * n;
+    // tiles start at multiples of 16 firms, so each source's misalignment
+    // is the same for every tile of the month
+    const int x_mis = misalign(x + row_t * p);
+    const int y_mis = misalign(y + row_t);
+    const int rw_mis = kRw ? misalign(rw + row_t) : 0;
+    const size_t rw_off = L.x_bytes + L.y_bytes;
+    const size_t v_off = rw_off + L.rw_bytes;
+    // lane r of warp 0 stages row r of each tile: x, y, the row weights,
+    // the block's valid rows (at most 29 specs a block)
+    const int n_raw = kRw ? 3 : 2;
+    RawRow raw{nullptr, 0, 0u};
+    if (lane == 0) {
+      raw = {reinterpret_cast<const unsigned char*>(x + row_t * p), 8 * p, 0u};
+    } else if (lane == 1) {
+      raw = {reinterpret_cast<const unsigned char*>(y + row_t), 8, (unsigned)L.x_bytes};
+    } else if (kRw && lane == 2) {
+      raw = {reinterpret_cast<const unsigned char*>(rw + row_t), 8, (unsigned)rw_off};
+    } else if (lane < n_raw + nsb) {
+      const int sr = lane - n_raw;
+      raw = {v_first + sr * v_stride, 1, (unsigned)(v_off + sr * L.v_row)};
+    }
+    auto stage_tile = [&](long long n0, int buf) {
+      if (warp == 0)
+        stage_bulk(raw, n0, (int)min((long long)tile, n - n0), smem + buf * L.stage,
+                   bars + buf, lane);
+    };
+    // a row of at most 16 columns past the intercept takes a half-warp
+    // (two firms an iteration), a wider one a warp per 32 columns
+    const int fpi = mp <= 16 ? 2 : 1;
+    const int cw = 32 / fpi;
+    const int nwr = (mp - 1 + cw - 1) / cw;  // words of columns 1 .. mp - 1
+    const int h_lane = lane / cw, c_lane = lane - h_lane * cw;
+    stage_tile(0, 0);
+    // warp 0's byte copies of a ragged head or tail precede every
+    // producer's reads: for tile 0 this barrier, for a later tile the one
+    // that ends the build before it
+    bar_sync(kBarProd, nprod);
+    for (long long k = 0; k < n_tiles; ++k) {
+      const long long n0 = k * tile;
+      const int cnt = (int)min((long long)tile, n - n0);
+      const int cnt8 = (cnt + 7) & ~7;
+      const int b = (int)(k & 1);
+      if (k >= 2) bar_sync(kBarEmpty + b, nthreads);  // the consumers are done with buffer b
+      mbar_wait(bars + b, (unsigned)((k >> 1) & 1));
+      // the other stage was last read by the build of tile k - 1, which
+      // every producer finished
+      if (k + 1 < n_tiles) stage_tile(n0 + tile, b ^ 1);
+      const unsigned char* st = smem + b * L.stage;
+      const double* xr = reinterpret_cast<const double*>(st + x_mis);
+      const double* yr = reinterpret_cast<const double*>(st + L.x_bytes + y_mis);
+      const double* rwr = reinterpret_cast<const double*>(st + rw_off + rw_mis);
+      const unsigned char* vr = st + v_off;
+      double* rows = reinterpret_cast<double*>(smem + L.rows_off + b * L.rows_bytes);
+      double* wts = reinterpret_cast<double*>(smem + L.w_off + b * L.w_bytes);
+      // phase 1: lane c of word wd writes column cw wd + c + 1 of the
+      // augmented rows [1 | x - c | y | 0 pad] (x column cw wd + c, y as
+      // column p) of a warp's firms, and one ballot a firm gives the word's
+      // non-finite bits; branch-free, the firms independent of one
+      // another. Firms cnt .. cnt8 - 1 get zero rows.
+      for (int wd = 0; wd < nwr; ++wd) {
+        const int cc = cw * wd + c_lane;
+        const bool is_x = cc < p, is_y = cc == p, in_row = cc + 1 < mp;
+        const double cen_c = is_x ? cen[cc] : 0.0;
+        const int xo = is_x ? cc : 0;
+#pragma unroll 4
+        for (int fg = warp; fg < cnt8 / fpi; fg += kProducerWarps) {
+          const int f = fpi * fg + h_lane;
+          const double xv = xr[f * p + xo], yv = yr[f];
+          const double raw_v = is_y ? yv : xv;
+          const bool keep = (is_x || is_y) && f < cnt;
+          const bool bad = keep && !isfinite(raw_v);
+          if (in_row) rows[f * qp + cc + 1] = keep && !bad ? (is_x ? raw_v - cen_c : raw_v) : 0.0;
+          const unsigned bits = __ballot_sync(0xffffffffu, bad);
+          if (c_lane == 0 && wd < nwb)
+            badw[f * nwb + wd] = fpi == 1 ? bits : (bits >> (16 * h_lane)) & 0xFFFFu;
+        }
+      }
+      bar_sync(kBarProd, nprod);
+      // phase 2, a thread a (spec, firm): the intercept column and each
+      // weight, rw (or 1) where the valid byte is set and no selected
+      // column, y included, is non-finite, else 0
+      for (int f = tid; f < cnt8; f += nprod) rows[f * qp] = f < cnt ? 1.0 : 0.0;
+      for (int s = 0; s < nsb; ++s) {
+        for (int f = tid; f < cnt8; f += nprod) {
+          unsigned hit = 0u;
+          for (int wd = 0; wd < nwb; ++wd) hit |= badw[f * nwb + wd] & spec_sel[s * nwb + wd];
+          wts[s * tile + f] =
+              f < cnt && vr[spec_voff[s] + f] != 0 && hit == 0u ? (kRw ? rwr[f] : 1.0) : 0.0;
+        }
+      }
+      // every producer is done with the stage and the non-finite words
+      bar_sync(kBarProd, nprod);
+      bar_arrive(kBarFull + b, nthreads);  // buffer b is built
+    }
+    return;
+  }
+
+  // --- consumers: a warp's tasks one after another on each built buffer:
+  // per 8 firms the A fragments of the task's (at most two)
+  // strips, w o a, then one MMA a slot against its tile's unweighted rows,
+  // into a fresh sum per tile that is added into the task's running sums ---
+  const int cwarp = warp - kProducerWarps;
+  const int ncw = (nthreads >> 5) - kProducerWarps;
+  const int gq = lane >> 2;
+  const int tq = lane & 3;
+  for (long long k = 0; k < n_tiles; ++k) {
+    const int cnt = (int)min((long long)tile, n - k * tile);
+    const int cnt8 = (cnt + 7) & ~7;
+    const int b = (int)(k & 1);
+    bar_sync(kBarFull + b, nthreads);
+    const double* rows = reinterpret_cast<const double*>(smem + L.rows_off + b * L.rows_bytes);
+    const double* wts = reinterpret_cast<const double*>(smem + L.w_off + b * L.w_bytes);
+    for (int i = cwarp; i < ntask; i += ncw) {
+      const int* e = tasks + kTaskInts * i;
+      const int n_a = e[2], n_tot = n_a + e[5];
+      int c8[JW];  // each slot's B column (a slot past the chunk repeats its last tile)
+#pragma unroll
+      for (int j = 0; j < JW; ++j) {
+        const int jj = max(0, min(j, n_tot - 1));
+        c8[j] = 8 * (jj < n_a ? e[1] + jj : e[4] + jj - n_a);
+      }
+      double part[JW][4];
+#pragma unroll
+      for (int j = 0; j < JW; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) part[j][q] = 0.0;
+      const double* wrow = wts + e[6] * tile + tq;
+      const int ca = 16 * e[0], cb = 16 * e[3];
+      for (int f0 = 0; f0 < cnt8; f0 += 8) {
+        const double* ra = rows + (f0 + tq) * qp + gq;  // firm f0 + t, column g
+        const double* rb = ra + 4 * qp;                 // firm f0 + t + 4
+        const double w0 = wrow[f0], w1 = wrow[f0 + 4];
+        const double fa[4] = {w0 * ra[ca], w0 * ra[ca + 8], w1 * rb[ca], w1 * rb[ca + 8]};
+        double fb[4] = {fa[0], fa[1], fa[2], fa[3]};
+        if (n_tot > n_a) {
+          fb[0] = w0 * ra[cb];
+          fb[1] = w0 * ra[cb + 8];
+          fb[2] = w1 * rb[cb];
+          fb[3] = w1 * rb[cb + 8];
+        }
+#pragma unroll
+        for (int j = 0; j < JW; ++j) {
+          const bool in_a = j < n_a;
+          const double a[4] = {in_a ? fa[0] : fb[0], in_a ? fa[1] : fb[1],
+                               in_a ? fa[2] : fb[2], in_a ? fa[3] : fb[3]};
+          mma_f64(part[j], a, ra[c8[j]], rb[c8[j]]);
+        }
+      }
+      double* rs = run + (size_t)i * run_slots * 128 + lane;
+#pragma unroll
+      for (int j = 0; j < JW; ++j)
+        if (j < n_tot)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) rs[(j * 4 + q) * 32] += part[j][q];
+    }
+    // buffer b may be rebuilt (the producers wait for it two tiles on)
+    if (k + 2 < n_tiles) bar_arrive(kBarEmpty + b, nthreads);
+  }
+
+  // each task's entries on or above the diagonal, and their mirrors:
+  // element q of a lane's sums is row 16 mi + g + 8 (q / 2), column
+  // 8 nj + 2 t + q % 2
+  for (int i = cwarp; i < ntask; i += ncw) {
+    const int* e = tasks + kTaskInts * i;
+    const int n_a = e[2], n_tot = n_a + e[5];
+    double* blk = out + ((size_t)(s_lo + e[6]) * t_len + t) * qe * qe;
+    const double* rs = run + (size_t)i * run_slots * 128 + lane;
+    for (int j = 0; j < n_tot; ++j) {
+      const int mi = j < n_a ? e[0] : e[3];
+      const int nj = j < n_a ? e[1] + j : e[4] + j - n_a;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int r = 16 * mi + gq + 8 * (q >> 1), c = 8 * nj + 2 * tq + (q & 1);
+        const double v = rs[(j * 4 + q) * 32];
+        if (r <= c && c < qe) {
+          blk[r * qe + c] = v;
+          blk[c * qe + r] = v;
+        }
+      }
+    }
+  }
+}
+
+template <int JW, bool kRw>
+int launch_dmma(const void* x, const void* y, const void* rw, const unsigned char* valid,
+                const unsigned int* sel_bits, const void* center, void* out, int t_len,
+                long long n, int p, int nw, int s_specs, cudaStream_t stream) {
+  const Strips G = make_strips(p + 2);
+  const BlockPlan B = plan_blocks(s_specs, G.tps, 32, kGramSmemBudget,
+                                  [&](int tl, int ntask, int nsb) {
+                                    return make_dmma_layout(tl, p, G.mt, nsb, kRw, ntask, G.cs)
+                                        .total;
+                                  });
+  if (B.tpb == 0 || (long long)B.splits * t_len > 0x7fffffffLL) return -1;
+  cudaError_t err = cudaFuncSetAttribute(gram_dmma_kernel<JW, kRw>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)B.smem);
+  if (err != cudaSuccess) return (int)err;
+  const int threads = 32 * (kProducerWarps + std::min(B.tpb, kConsumerWarps));
+  gram_dmma_kernel<JW, kRw><<<(unsigned)(B.splits * t_len), threads, B.smem, stream>>>(
+      static_cast<const double*>(x), static_cast<const double*>(y),
+      static_cast<const double*>(rw), valid, sel_bits, static_cast<const double*>(center),
+      static_cast<double*>(out), t_len, n, p, nw, s_specs, B.tile, B.splits, B.tpb);
+  return (int)cudaGetLastError();
+}
+
+template <bool kRw>
+int launch_f64(const void* x, const void* y, const void* rw, const unsigned char* valid,
+               const unsigned int* sel_bits, const void* center, void* out, int t_len,
+               long long n, int p, int nw, int s_specs, cudaStream_t stream) {
+  const int cs = make_strips(p + 2).cs;
+  if (cs <= 2)
+    return launch_dmma<2, kRw>(x, y, rw, valid, sel_bits, center, out, t_len, n, p, nw,
+                               s_specs, stream);
+  if (cs <= 4)
+    return launch_dmma<4, kRw>(x, y, rw, valid, sel_bits, center, out, t_len, n, p, nw,
+                               s_specs, stream);
+  return launch_dmma<8, kRw>(x, y, rw, valid, sel_bits, center, out, t_len, n, p, nw, s_specs,
+                             stream);
+}
+
+
+// --- bf16 operands past 32 columns: warp-specialized, as the float64 kernel -
+
+// Byte offsets of one block's dynamic shared memory: two stages of raw
+// tiles (as the float64 kernel's) and their mbarriers, the month's center
+// in float, each spec's selection words (y as column p) and valid row
+// offset, each firm's non-finite words, two built buffers (the transposed
+// augmented rows: mp rows of `tile` bf16 firms, stride padded by 16 bytes;
+// with row weights their hi and lo parts; a 16-bit mask per (spec, firm)),
+// the task table and each task's running sums (cs tiles of 4 floats a
+// lane, lane-interleaved).
+struct WideLayout {
+  int rstride;  // bytes of one transposed row
+  int nwb;      // words of a firm's non-finite bits: x columns 0 .. p - 1, y as p
+  size_t x_bytes, y_bytes, rw_bytes, v_row, stage;
+  size_t bar_off, cen_off, sel_off, voff_off, bad_off, rows_off, rows_bytes, buf_bytes,
+      hi_off, lo_off, mask_off, task_off, run_off, total;
+};
+
+__host__ __device__ inline WideLayout make_wide_layout(int tile, int p, int mp, int nsb,
+                                                       bool has_rw, int ntask, int run_slots) {
   WideLayout L;
   L.rstride = tile * 2 + 16;
+  L.nwb = p / 32 + 1;
   L.x_bytes = up16((size_t)tile * p * 2 + 16);
   L.y_bytes = up16((size_t)tile * 2 + 16);
   L.rw_bytes = has_rw ? L.y_bytes : 0;
   L.v_row = up16((size_t)tile + 16);
   L.stage = L.x_bytes + L.y_bytes + L.rw_bytes + L.v_row * nsb;
-  L.cen_off = 2 * L.stage;
+  L.bar_off = 2 * L.stage;
+  L.cen_off = L.bar_off + 16;
   L.sel_off = L.cen_off + up16((size_t)p * sizeof(float));
-  L.rows_off = L.sel_off + up16((size_t)nsb * nw * sizeof(unsigned));
-  const size_t rows = (size_t)mp * L.rstride;
-  L.hi_off = L.rows_off + rows;
-  L.lo_off = L.hi_off + (has_rw ? rows : 0);
-  L.mask_off = L.lo_off + (has_rw ? rows : 0);
-  L.total = L.mask_off + up16((size_t)nsb * tile * 2);
+  L.voff_off = L.sel_off + up16((size_t)nsb * L.nwb * 4);
+  L.bad_off = L.voff_off + up16((size_t)nsb * 4);
+  L.rows_off = L.bad_off + up16((size_t)tile * L.nwb * 4);
+  // a built buffer: rows, hi, lo, masks (offsets within it)
+  L.rows_bytes = (size_t)mp * L.rstride;
+  L.hi_off = L.rows_bytes;
+  L.lo_off = L.hi_off + (has_rw ? L.rows_bytes : 0);
+  L.mask_off = L.lo_off + (has_rw ? L.rows_bytes : 0);
+  L.buf_bytes = L.mask_off + up16((size_t)nsb * tile * 2);
+  L.task_off = L.rows_off + 2 * L.buf_bytes;
+  L.run_off = L.task_off + up16((size_t)ntask * kTaskInts * 4);
+  L.total = L.run_off + (size_t)ntask * run_slots * 128 * 4;
   return L;
 }
 
-// (spec, m-tile, n-tile) of pair index `pr`: the kept 16x8 tiles of one
-// spec's block (nj >= 2 mi), row by row.
-__device__ __forceinline__ void decode_tc_pair(int pr, int ntiles, int nt, int& s, int& mi,
-                                               int& nj) {
-  s = pr / ntiles;
-  int r = pr - s * ntiles;
-  mi = 0;
-  while (r >= nt - 2 * mi) {
-    r -= nt - 2 * mi;
-    ++mi;
-  }
-  nj = 2 * mi + r;
-}
-
-template <bool kRw>
-__global__ void __launch_bounds__(kWideWarps * 32)
+// JW tiles a chunk.
+template <int JW, bool kRw>
+__global__ void __launch_bounds__(kBlockThreads, 1)
 gram_tc_wide_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ y,
                     const __nv_bfloat16* __restrict__ rw,
                     const unsigned char* __restrict__ valid,
                     const unsigned int* __restrict__ sel_bits,
                     const __nv_bfloat16* __restrict__ center, float* __restrict__ out,
-                    int t_len, long long n, int p, int nw, int s_specs, int tile,
-                    int pairs_per_block) {
+                    int t_len, long long n, int p, int nw, int s_specs, int tile, int splits,
+                    int tpb) {
   using bf16 = __nv_bfloat16;
   extern __shared__ __align__(16) unsigned char smem[];
   const int qe = p + 2;
-  const int mt = (qe + 15) / 16;
-  const int nt = (qe + 7) / 8;
-  const int mp = 16 * mt;
-  const int ntiles = tc_tiles(mt, nt);
-  const int npairs = s_specs * ntiles;
-  const int t = blockIdx.x;
-  const int p0 = blockIdx.y * pairs_per_block;
-  const int p1 = min(p0 + pairs_per_block, npairs);
-  const int s_lo = p0 / ntiles;
-  const int nsb = (p1 - 1) / ntiles - s_lo + 1;
-  const WideLayout L = make_wide_layout(tile, p, nw, nsb, mp, kRw);
+  const Strips G = make_strips(qe);
+  const int mp = 16 * G.mt;  // transposed rows: QE padded
+  const int t = blockIdx.x / splits;
+  const BlockWork W = block_work(blockIdx.x - t * splits, s_specs, G.tps, tpb);
+  const int ntask = W.ntask, s_lo = W.s_lo, nsb = W.nsb;
+  const int run_slots = G.cs;  // a task's running sums: its cs tiles
+  const WideLayout L = make_wide_layout(tile, p, mp, nsb, kRw, tpb, run_slots);
+  const int nwb = L.nwb;
   const int rs2 = L.rstride / 4;  // row stride in firm pairs
   const int half = tile >> 1;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L.bar_off);  // one a stage
   float* cen = reinterpret_cast<float*>(smem + L.cen_off);
   unsigned* spec_sel = reinterpret_cast<unsigned*>(smem + L.sel_off);
-  uint32_t* rows = reinterpret_cast<uint32_t*>(smem + L.rows_off);
-  uint32_t* rows_hi = reinterpret_cast<uint32_t*>(smem + L.hi_off);
-  uint32_t* rows_lo = reinterpret_cast<uint32_t*>(smem + L.lo_off);
-  uint32_t* masks = reinterpret_cast<uint32_t*>(smem + L.mask_off);  // (spec, pair)
+  int* spec_voff = reinterpret_cast<int*>(smem + L.voff_off);
+  unsigned* badw = reinterpret_cast<unsigned*>(smem + L.bad_off);
+  int* tasks = reinterpret_cast<int*>(smem + L.task_off);
+  float* run = reinterpret_cast<float*>(smem + L.run_off);
   const int tid = threadIdx.x;
   const int nthreads = blockDim.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int g = lane >> 2;
-  const int tig = lane & 3;
 
   const unsigned char* v_first = valid + ((long long)s_lo * t_len + t) * n;
   const long long v_stride = (long long)t_len * n;
   for (int c = tid; c < p; c += nthreads) cen[c] = __bfloat162float(center[(size_t)t * p + c]);
-  for (int e = tid; e < nsb * nw; e += nthreads) spec_sel[e] = sel_bits[(size_t)s_lo * nw + e];
-
-  // this warp's pairs: word offsets of each tile's A rows (16 mi + g) and
-  // B rows (8 nj + g), and of its spec's masks; a slot past the block's
-  // pairs points at the first pair and is never summed or stored
-  const int w_p0 = p0 + warp * kWideKT;
-  const int nown = max(0, min(kWideKT, p1 - w_p0));
-  int a_off[kWideKT], b_off[kWideKT], m_off[kWideKT];
-#pragma unroll
-  for (int j = 0; j < kWideKT; ++j) {
-    int s, mi, nj;
-    decode_tc_pair(j < nown ? w_p0 + j : p0, ntiles, nt, s, mi, nj);
-    a_off[j] = (16 * mi + g) * rs2 + tig;
-    b_off[j] = (8 * nj + g) * rs2 + tig;
-    m_off[j] = (s - s_lo) * half + tig;
+  // y enters every spec's selection as column p
+  for (int e = tid; e < nsb * nwb; e += nthreads) {
+    const int sl = e / nwb, wd = e - sl * nwb;
+    unsigned v = wd < nw ? sel_bits[(size_t)(s_lo + sl) * nw + wd] : 0u;
+    if (wd == p / 32) v |= 1u << (p % 32);
+    spec_sel[e] = v;
   }
-  float acc[kWideKT][4];
-#pragma unroll
-  for (int j = 0; j < kWideKT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  for (int sl = tid; sl < nsb; sl += nthreads)
+    spec_voff[sl] = sl * (int)L.v_row + misalign(v_first + sl * v_stride);
+  fill_tasks(G, W, tasks, tid, nthreads);
+  for (int i = tid; i < ntask * run_slots * 128; i += nthreads) run[i] = 0.f;
+  if (tid == 0) {
+    mbar_init(bars);
+    mbar_init(bars + 1);
+  }
+  __syncthreads();
 
   const long long n_tiles = (n + tile - 1) / tile;
-  const long long row_t = (long long)t * n;
-  // tiles start at multiples of 16 firms, so each source's misalignment is
-  // the same for every tile of the month
-  const int x_mis = misalign(x + row_t * p);
-  const int y_mis = misalign(y + row_t);
-  const int rw_mis = kRw ? misalign(rw + row_t) : 0;
-  const size_t rw_off = L.x_bytes + L.y_bytes;
-  const size_t v_off = rw_off + L.rw_bytes;
-
-  auto stage_tile = [&](long long n0, int buf) {
-    const int cnt = (int)min((long long)tile, n - n0);
-    unsigned char* st = smem + buf * L.stage;
-    stage_rows(st, 0, reinterpret_cast<const unsigned char*>(x + (row_t + n0) * p), 0, 1,
-               cnt * p * 2, tid, nthreads);
-    stage_rows(st + L.x_bytes, 0, reinterpret_cast<const unsigned char*>(y + row_t + n0), 0,
-               1, cnt * 2, tid, nthreads);
-    if (kRw)
-      stage_rows(st + rw_off, 0, reinterpret_cast<const unsigned char*>(rw + row_t + n0), 0,
-                 1, cnt * 2, tid, nthreads);
-    stage_rows(st + v_off, (int)L.v_row, v_first + n0, v_stride, nsb, cnt, tid, nthreads);
-    cp_async_commit();
-  };
-
-  stage_tile(0, 0);
-  for (long long k = 0; k < n_tiles; ++k) {
-    const long long n0 = k * tile;
-    const int cnt = (int)min((long long)tile, n - n0);
-    const int cnt16 = (cnt + 15) & ~15;
-    const int buf = (int)(k & 1);
-    cp_async_wait_all();
-    __syncthreads();  // tile k staged; the previous tile's products are done
-    if (k + 1 < n_tiles) stage_tile(n0 + tile, buf ^ 1);
-
-    const unsigned char* st = smem + buf * L.stage;
-    const bf16* xr = reinterpret_cast<const bf16*>(st + x_mis);
-    const bf16* yr = reinterpret_cast<const bf16*>(st + L.x_bytes + y_mis);
-    const bf16* rwr = reinterpret_cast<const bf16*>(st + rw_off + rw_mis);
-    const unsigned char* vr = st + v_off;
-    // the build, one thread per firm pair: the transposed columns
-    // [1 | x - c | y | 0 pad] (with row weights also the hi and lo parts
-    // of w * a_i) and each spec's masks. Firms cnt .. cnt16 - 1 read what
-    // the buffer holds and are zeroed (`live`).
-    for (int u = tid; u < (cnt16 >> 1); u += nthreads) {
-      const int f = 2 * u;
-      const uint32_t live = halves(f < cnt, f + 1 < cnt);
-      float wa = 0.f, wb = 0.f;
-      if (kRw) {
-        wa = (live & 1u) ? __bfloat162float(rwr[f]) : 0.f;
-        wb = (live >> 16) ? __bfloat162float(rwr[f + 1]) : 0.f;
-      }
-      auto put = [&](int i, uint32_t v) {
+  if (warp < kProducerWarps) {
+    // --- producers: stage each tile by the copy engine and build it ---
+    const int nprod = 32 * kProducerWarps;
+    const long long row_t = (long long)t * n;
+    // tiles start at multiples of 16 firms, so each source's misalignment
+    // is the same for every tile of the month
+    const int x_mis = misalign(x + row_t * p);
+    const int y_mis = misalign(y + row_t);
+    const int rw_mis = kRw ? misalign(rw + row_t) : 0;
+    const size_t rw_off = L.x_bytes + L.y_bytes;
+    const size_t v_off = rw_off + L.rw_bytes;
+    // lane r of warp 0 stages row r of each tile, as the float64 kernel's
+    const int n_raw = kRw ? 3 : 2;
+    RawRow raw{nullptr, 0, 0u};
+    if (lane == 0) {
+      raw = {reinterpret_cast<const unsigned char*>(x + row_t * p), 2 * p, 0u};
+    } else if (lane == 1) {
+      raw = {reinterpret_cast<const unsigned char*>(y + row_t), 2, (unsigned)L.x_bytes};
+    } else if (kRw && lane == 2) {
+      raw = {reinterpret_cast<const unsigned char*>(rw + row_t), 2, (unsigned)rw_off};
+    } else if (lane < n_raw + nsb) {
+      const int sr = lane - n_raw;
+      raw = {v_first + sr * v_stride, 1, (unsigned)(v_off + sr * L.v_row)};
+    }
+    auto stage_tile = [&](long long n0, int buf) {
+      if (warp == 0)
+        stage_bulk(raw, n0, (int)min((long long)tile, n - n0), smem + buf * L.stage,
+                   bars + buf, lane);
+    };
+    const int nwr = (mp - 1 + 31) / 32;  // 32-column words covering rows 1 .. mp - 1
+    stage_tile(0, 0);
+    bar_sync(kBarProd, nprod);  // warp 0's byte copies precede the reads (as the float64 kernel's)
+    for (long long k = 0; k < n_tiles; ++k) {
+      const long long n0 = k * tile;
+      const int cnt = (int)min((long long)tile, n - n0);
+      const int cnt16 = (cnt + 15) & ~15;
+      const int b = (int)(k & 1);
+      if (k >= 2) bar_sync(kBarEmpty + b, nthreads);  // the consumers are done with buffer b
+      mbar_wait(bars + b, (unsigned)((k >> 1) & 1));
+      // the other stage was last read by the build of tile k - 1, which
+      // every producer finished
+      if (k + 1 < n_tiles) stage_tile(n0 + tile, b ^ 1);
+      const unsigned char* st = smem + b * L.stage;
+      const bf16* xr = reinterpret_cast<const bf16*>(st + x_mis);
+      const bf16* yr = reinterpret_cast<const bf16*>(st + L.x_bytes + y_mis);
+      const bf16* rwr = reinterpret_cast<const bf16*>(st + rw_off + rw_mis);
+      const unsigned char* vr = st + v_off;
+      unsigned char* bb = smem + L.rows_off + b * L.buf_bytes;
+      // the transposed rows, a 32-bit word per firm pair (firm 2u low, 2u + 1 high)
+      uint32_t* rows = reinterpret_cast<uint32_t*>(bb);
+      uint32_t* rows_hi = reinterpret_cast<uint32_t*>(bb + L.hi_off);
+      uint32_t* rows_lo = reinterpret_cast<uint32_t*>(bb + L.lo_off);
+      uint32_t* masks = reinterpret_cast<uint32_t*>(bb + L.mask_off);  // (spec, pair)
+      auto put = [&](int i, int u, uint32_t v, float wa, float wb) {
         rows[i * rs2 + u] = v;
         if (kRw) {
           const float pa = wa * lo_float(v), pb = wb * hi_float(v);  // exact in float
@@ -1212,142 +1784,223 @@ gram_tc_wide_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __
           rows_lo[i * rs2 + u] = pack_bf16(pa - lo_float(h), pb - hi_float(h));
         }
       };
-      const uint32_t yab = (uint32_t)__bfloat16_as_ushort(yr[f]) |
-                           ((uint32_t)__bfloat16_as_ushort(yr[f + 1]) << 16);
-      const bool ya_ok = isfinite(lo_float(yab)), yb_ok = isfinite(hi_float(yab));
-      put(0, 0x3F803F80u & live);  // bf16 1.0 twice
-      put(qe - 1, yab & halves(ya_ok, yb_ok) & live);
-      for (int i = qe; i < mp; ++i) put(i, 0u);
-      for (int s = 0; s < nsb; ++s) {
-        const unsigned char* vs = vr + s * L.v_row + misalign(v_first + s * v_stride) + f;
-        masks[s * half + u] = halves(ya_ok && vs[0] != 0, yb_ok && vs[1] != 0) & live;
-      }
-      const bf16* xa_row = xr + f * p;
-      const bf16* xb_row = xa_row + p;
-      for (int wd = 0; wd < nw; ++wd) {
-        unsigned bad_a = 0u, bad_b = 0u;
-        const int c1 = min(p, 32 * wd + 32);
-        for (int c = 32 * wd; c < c1; ++c) {
-          const float xa = __bfloat162float(xa_row[c]), xb = __bfloat162float(xb_row[c]);
-          const bool fa = isfinite(xa), fb = isfinite(xb);
-          bad_a |= fa ? 0u : 1u << (c - 32 * wd);
-          bad_b |= fb ? 0u : 1u << (c - 32 * wd);
-          put(c + 1, pack_bf16(xa - cen[c], xb - cen[c]) & halves(fa, fb) & live);
-        }
-        if ((bad_a | bad_b) == 0u) continue;
-        for (int s = 0; s < nsb; ++s) {
-          const unsigned sel = spec_sel[s * nw + wd];
-          masks[s * half + u] &= halves((bad_a & sel) == 0u, (bad_b & sel) == 0u);
-        }
-      }
-    }
-    __syncthreads();
-
-    // the products, a fresh sum per tile: one MMA per (owned tile, 16-firm
-    // step), two with row weights
-    float part[kWideKT][4];
-#pragma unroll
-    for (int j = 0; j < kWideKT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) part[j][e] = 0.f;
-    const int nks = cnt16 >> 4;
-    for (int ks = 0; ks < nks; ++ks) {
-      const int w0 = ks * 8;
-#pragma unroll
-      for (int j = 0; j < kWideKT; ++j) {
-        if (j < nown) {
-          const uint32_t m0 = masks[m_off[j] + w0], m1 = masks[m_off[j] + w0 + 4];
-          const uint32_t* ar = (kRw ? rows_hi : rows) + a_off[j] + w0;
-          const uint32_t a[4] = {ar[0] & m0, ar[8 * rs2] & m0, ar[4] & m1,
-                                 ar[8 * rs2 + 4] & m1};
-          const uint32_t* br = rows + b_off[j] + w0;
-          const uint32_t b0 = br[0], b1 = br[4];
-          mma_bf16(part[j], a, b0, b1);
-          if constexpr (kRw) {
-            const uint32_t* lr = rows_lo + a_off[j] + w0;
-            const uint32_t alo[4] = {lr[0] & m0, lr[8 * rs2] & m0, lr[4] & m1,
-                                     lr[8 * rs2 + 4] & m1};
-            mma_bf16(part[j], alo, b0, b1);
+      auto row_weights = [&](int f, uint32_t live, float& wa, float& wb) {
+        wa = (kRw && (live & 1u)) ? __bfloat162float(rwr[f]) : 0.f;
+        wb = (kRw && (live >> 16)) ? __bfloat162float(rwr[f + 1]) : 0.f;
+      };
+      // phase 1: lane c of word wd writes transposed row 32 wd + c + 1 of
+      // [1 | x - c | y | 0 pad] (x column 32 wd + c, y as column p; with
+      // row weights also the hi and lo parts of w * a_i) for a warp's firm
+      // pairs u (firms 2u, 2u + 1), and two ballots a pair give the word's
+      // non-finite bits of each firm; branch-free, the pairs independent of
+      // one another. Firms cnt .. cnt16 - 1 read what the buffer holds and
+      // are zeroed (`live`).
+      for (int wd = 0; wd < nwr; ++wd) {
+        const int cc = 32 * wd + lane;
+        const bool is_x = cc < p, is_y = cc == p, in_row = cc + 1 < mp;
+        const float cen_c = is_x ? cen[cc] : 0.f;
+        const int xo = is_x ? cc : 0;
+#pragma unroll 4
+        for (int u = warp; u < (cnt16 >> 1); u += kProducerWarps) {
+          const int f = 2 * u;
+          const uint32_t live = halves(f < cnt, f + 1 < cnt);
+          float wa, wb;
+          row_weights(f, live, wa, wb);
+          const uint32_t yab = (uint32_t)__bfloat16_as_ushort(yr[f]) |
+                               ((uint32_t)__bfloat16_as_ushort(yr[f + 1]) << 16);
+          const uint32_t xab = (uint32_t)__bfloat16_as_ushort(xr[f * p + xo]) |
+                               ((uint32_t)__bfloat16_as_ushort(xr[(f + 1) * p + xo]) << 16);
+          const uint32_t rab = is_y ? yab : xab;
+          const float va = lo_float(rab), vb = hi_float(rab);
+          const bool fa = isfinite(va), fb = isfinite(vb);
+          const uint32_t v = is_x ? pack_bf16(va - cen_c, vb - cen_c) : (is_y ? rab : 0u);
+          if (in_row) put(cc + 1, u, v & halves(fa, fb) & live, wa, wb);
+          const unsigned ba = __ballot_sync(0xffffffffu, (is_x || is_y) && !fa);
+          const unsigned bb2 = __ballot_sync(0xffffffffu, (is_x || is_y) && !fb);
+          if (lane == 0 && wd < nwb) {
+            badw[f * nwb + wd] = ba;
+            badw[(f + 1) * nwb + wd] = bb2;
           }
         }
       }
+      bar_sync(kBarProd, nprod);
+      // phase 2, a thread a firm pair: the intercept row and each (spec,
+      // pair) mask, 0xFFFF for a firm whose valid byte is set and no
+      // selected column, y included, is non-finite, else 0
+      for (int u = tid; u < (cnt16 >> 1); u += nprod) {
+        const int f = 2 * u;
+        const uint32_t live = halves(f < cnt, f + 1 < cnt);
+        float wa, wb;
+        row_weights(f, live, wa, wb);
+        put(0, u, 0x3F803F80u & live, wa, wb);  // bf16 1.0 twice
+        for (int s = 0; s < nsb; ++s) {
+          const unsigned char* vs = vr + spec_voff[s] + f;
+          unsigned hit_a = 0u, hit_b = 0u;
+          for (int wd = 0; wd < nwb; ++wd) {
+            const unsigned sel = spec_sel[s * nwb + wd];
+            hit_a |= badw[f * nwb + wd] & sel;
+            hit_b |= badw[(f + 1) * nwb + wd] & sel;
+          }
+          masks[s * half + u] =
+              halves(vs[0] != 0 && hit_a == 0u, vs[1] != 0 && hit_b == 0u) & live;
+        }
+      }
+      // every producer is done with the stage and the non-finite words
+      bar_sync(kBarProd, nprod);
+      bar_arrive(kBarFull + b, nthreads);  // buffer b is built
     }
-#pragma unroll
-    for (int j = 0; j < kWideKT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[j][e] += part[j][e];
+    return;
   }
 
-  // each owned tile's entries on or above the diagonal, and their mirrors:
-  // element e of the fragment is row 16 mi + g + 8 (e / 2), column
-  // 8 nj + 2 tig + e % 2
-  for (int j = 0; j < nown; ++j) {
-    int s, mi, nj;
-    decode_tc_pair(w_p0 + j, ntiles, nt, s, mi, nj);
-    float* blk = out + ((size_t)s * t_len + t) * qe * qe;
+  // --- consumers: a warp's tasks one after another on each built buffer:
+  // per 16 firms the A fragments of the task's (at most two)
+  // strips (ldmatrix.x4, the spec's masks ANDed in), then per slot the
+  // tile's B fragment (ldmatrix.x2) and one MMA (two with row weights: hi
+  // and lo), into a fresh sum per tile that is added into the task's
+  // running sums ---
+  const int cwarp = warp - kProducerWarps;
+  const int ncw = (nthreads >> 5) - kProducerWarps;
+  const int gq = lane >> 2;
+  const int tq = lane & 3;
+  // ldmatrix row addresses (in words, within a buffer): the A fragment of
+  // strip mi is rows 16 mi + (lane & 15), firms + 8 (lane >> 4); a tile's
+  // B fragment rows 8 nj + (lane & 7), firms + 8 ((lane >> 3) & 1)
+  const int a_lane = (lane & 15) * rs2 + (lane >> 4) * 4;
+  const int b_lane = (lane & 7) * rs2 + ((lane >> 3) & 1) * 4;
+  for (long long k = 0; k < n_tiles; ++k) {
+    const int cnt = (int)min((long long)tile, n - k * tile);
+    const int cnt16 = (cnt + 15) & ~15;
+    const int b = (int)(k & 1);
+    bar_sync(kBarFull + b, nthreads);
+    const unsigned char* bb = smem + L.rows_off + b * L.buf_bytes;
+    const uint32_t* rows = reinterpret_cast<const uint32_t*>(bb);
+    const uint32_t* a_rows = reinterpret_cast<const uint32_t*>(bb + (kRw ? L.hi_off : 0)) + a_lane;
+    const uint32_t* alo_rows = reinterpret_cast<const uint32_t*>(bb + L.lo_off) + a_lane;
+    const uint32_t* b_rows = rows + b_lane;
+    const uint32_t* masks = reinterpret_cast<const uint32_t*>(bb + L.mask_off);
+    for (int i = cwarp; i < ntask; i += ncw) {
+      const int* e = tasks + kTaskInts * i;
+      const int n_a = e[2], n_tot = n_a + e[5];
+      int boff[JW];  // each slot's B rows (a slot past the chunk repeats its last tile)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int r = 16 * mi + g + 8 * (e >> 1), c = 8 * nj + 2 * tig + (e & 1);
-      if (r <= c && c < qe) {
-        blk[r * qe + c] = acc[j][e];
-        blk[c * qe + r] = acc[j][e];
+      for (int j = 0; j < JW; ++j) {
+        const int jj = max(0, min(j, n_tot - 1));
+        boff[j] = 8 * (jj < n_a ? e[1] + jj : e[4] + jj - n_a) * rs2;
+      }
+      const uint32_t* mrow = masks + e[6] * half + tq;
+      const int a_off = 16 * e[0] * rs2, b_off = 16 * e[3] * rs2;
+      float part[JW][4];
+#pragma unroll
+      for (int j = 0; j < JW; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) part[j][q] = 0.f;
+      for (int w0 = 0; w0 < (cnt16 >> 1); w0 += 8) {
+        const uint32_t m0 = mrow[w0], m1 = mrow[w0 + 4];  // firms 2 w0 + 2t, + 8
+        uint32_t fa[4], fb[4], la[4] = {0u, 0u, 0u, 0u}, lb[4] = {0u, 0u, 0u, 0u};
+        ldsm_x4(fa, a_rows + a_off + w0);
+        ldsm_x4(fb, a_rows + b_off + w0);
+        if (kRw) {
+          ldsm_x4(la, alo_rows + a_off + w0);
+          ldsm_x4(lb, alo_rows + b_off + w0);
+        }
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const uint32_t m = r < 2 ? m0 : m1;
+          fa[r] &= m;
+          fb[r] &= m;
+          la[r] &= m;
+          lb[r] &= m;
+        }
+#pragma unroll
+        for (int j = 0; j < JW; ++j) {
+          const bool in_a = j < n_a;
+          uint32_t b0, b1;
+          ldsm_x2(b0, b1, b_rows + boff[j] + w0);
+          const uint32_t a[4] = {in_a ? fa[0] : fb[0], in_a ? fa[1] : fb[1],
+                                 in_a ? fa[2] : fb[2], in_a ? fa[3] : fb[3]};
+          mma_bf16(part[j], a, b0, b1);
+          if (kRw) {
+            const uint32_t al[4] = {in_a ? la[0] : lb[0], in_a ? la[1] : lb[1],
+                                    in_a ? la[2] : lb[2], in_a ? la[3] : lb[3]};
+            mma_bf16(part[j], al, b0, b1);
+          }
+        }
+      }
+      float* rs = run + (size_t)i * run_slots * 128 + lane;
+#pragma unroll
+      for (int j = 0; j < JW; ++j)
+        if (j < n_tot)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) rs[(j * 4 + q) * 32] += part[j][q];
+    }
+    // buffer b may be rebuilt (the producers wait for it two tiles on)
+    if (k + 2 < n_tiles) bar_arrive(kBarEmpty + b, nthreads);
+  }
+
+  // each task's entries on or above the diagonal, and their mirrors:
+  // element q of a lane's sums is row 16 mi + g + 8 (q / 2), column
+  // 8 nj + 2 t + q % 2
+  for (int i = cwarp; i < ntask; i += ncw) {
+    const int* e = tasks + kTaskInts * i;
+    const int n_a = e[2], n_tot = n_a + e[5];
+    float* blk = out + ((size_t)(s_lo + e[6]) * t_len + t) * qe * qe;
+    const float* rs = run + (size_t)i * run_slots * 128 + lane;
+    for (int j = 0; j < n_tot; ++j) {
+      const int mi = j < n_a ? e[0] : e[3];
+      const int nj = j < n_a ? e[1] + j : e[4] + j - n_a;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int r = 16 * mi + gq + 8 * (q >> 1), c = 8 * nj + 2 * tq + (q & 1);
+        const float v = rs[(j * 4 + q) * 32];
+        if (r <= c && c < qe) {
+          blk[r * qe + c] = v;
+          blk[c * qe + r] = v;
+        }
       }
     }
   }
 }
 
-template <bool kRw>
+template <int JW, bool kRw>
 int launch_tc_wide(const void* x, const void* y, const void* rw, const unsigned char* valid,
                    const unsigned int* sel_bits, const void* center, void* out, int t_len,
                    long long n, int p, int nw, int s_specs, cudaStream_t stream) {
-  const int qe = p + 2;
-  const int mt = (qe + 15) / 16;
-  const int nt = (qe + 7) / 8;
-  const int ntiles = tc_tiles(mt, nt);
-  const long long npairs = (long long)s_specs * ntiles;
-  const int per_block = kWideWarps * kWideKT;
-  const long long n_blocks_y = (npairs + per_block - 1) / per_block;
-  if (n_blocks_y > 65535) return -1;
-  const int pb = (int)std::min<long long>(npairs, per_block);  // pairs a block
-  const int threads = 32 * ((pb + kWideKT - 1) / kWideKT);
-  int nsb_max = 0;  // the most specs one block covers
-  for (long long b = 0; b < n_blocks_y; ++b) {
-    const long long lo = b * pb;
-    const long long hi = std::min<long long>(lo + pb, npairs);
-    nsb_max = std::max(nsb_max, (int)((hi - 1) / ntiles - lo / ntiles + 1));
-  }
-  auto smem_for = [&](int tl) {
-    return make_wide_layout(tl, p, nw, nsb_max, 16 * mt, kRw).total;
-  };
-  int tile = kTcMaxTile;
-  while (tile > kMinTile && smem_for(tile) > kWideSmemBudget) tile /= 2;
-  const size_t smem = smem_for(tile);
-  if (smem > kSmemMax) return -1;
-  cudaError_t err = cudaFuncSetAttribute(gram_tc_wide_kernel<kRw>,
+  const Strips G = make_strips(p + 2);
+  const BlockPlan B = plan_blocks(s_specs, G.tps, 128, kGramSmemBudget,
+                                  [&](int tl, int ntask, int nsb) {
+                                    return make_wide_layout(tl, p, 16 * G.mt, nsb, kRw, ntask,
+                                                            G.cs)
+                                        .total;
+                                  });
+  if (B.tpb == 0 || (long long)B.splits * t_len > 0x7fffffffLL) return -1;
+  cudaError_t err = cudaFuncSetAttribute(gram_tc_wide_kernel<JW, kRw>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+                                         (int)B.smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)t_len, (unsigned)n_blocks_y);
-  gram_tc_wide_kernel<kRw><<<grid, threads, smem, stream>>>(
+  const int threads = 32 * (kProducerWarps + std::min(B.tpb, kConsumerWarps));
+  gram_tc_wide_kernel<JW, kRw><<<(unsigned)(B.splits * t_len), threads, B.smem, stream>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(y),
       static_cast<const __nv_bfloat16*>(rw), valid, sel_bits,
       static_cast<const __nv_bfloat16*>(center), static_cast<float*>(out), t_len, n, p, nw,
-      s_specs, tile, pb);
+      s_specs, B.tile, B.splits, B.tpb);
   return (int)cudaGetLastError();
 }
 
 // The class of QE = P + 2: QE <= 8 one 16x8 tile (six specs a warp), <= 16
 // two (three), <= 32 six (one), <= 34 nine (one); past P = 32 the wide
-// kernel.
+// kernel, which takes the whole spec batch.
 template <bool kRw>
 int launch_bf16(const void* x, const void* y, const void* rw, const unsigned char* valid,
                 const unsigned int* sel_bits, const void* center, void* out, int t_len,
                 long long n, int p, int nw, int s_specs, cudaStream_t stream) {
+  if (p > kMaxP)  // chunks of at least 3 tiles there
+    return make_strips(p + 2).cs <= 4
+               ? launch_tc_wide<4, kRw>(x, y, rw, valid, sel_bits, center, out, t_len, n, p,
+                                        nw, s_specs, stream)
+               : launch_tc_wide<8, kRw>(x, y, rw, valid, sel_bits, center, out, t_len, n, p,
+                                        nw, s_specs, stream);
   const int qe = p + 2;
   if (s_specs > 1 && (long long)s_specs * qe * (qe + 1) / 2 > kMaxEntries) return -1;
-  if (p > kMaxP)
-    return launch_tc_wide<kRw>(x, y, rw, valid, sel_bits, center, out, t_len, n, p, nw,
-                               s_specs, stream);
   if (p <= 6)
     return launch_tc<1, 1, 6, kRw>(x, y, rw, valid, sel_bits, center, out, t_len, n, p,
                                    s_specs, stream);
@@ -1367,10 +2020,11 @@ int launch_bf16(const void* x, const void* y, const void* rw, const unsigned cha
 // P), y (T, N), center (T, P) and rw (T, N; null for no row weights) in the
 // operand type, out (S, T, P+2, P+2) in float for codes 0 and 2, double for
 // 1; valid (S, T, N) uint8; sel_bits (S, max(1, ceil(P / 32))) uint32, bit
-// c % 32 of word c / 32 set when spec s selects column c. S = 1 or
-// S * (P+2)(P+3)/2 <= 8192. Returns 0 on success, the cudaError_t of the
-// launch otherwise, or -1 for arguments the kernel does not take (also a
-// P whose smallest firm tile exceeds shared memory).
+// c % 32 of word c / 32 set when spec s selects column c. Codes 0, and 2 up
+// to P = 32: S = 1 or S * (P+2)(P+3)/2 <= 8192; code 1, and 2 past P = 32:
+// S <= 65,536. Returns 0 on success, the cudaError_t of the launch
+// otherwise, or -1 for arguments the kernel does not take (also a P whose
+// smallest firm tile exceeds shared memory).
 extern "C" int gram_contract(int dtype_code, const void* x, const void* y,
                              const void* rw, const void* valid,
                              const void* sel_bits, const void* center,
@@ -1383,9 +2037,12 @@ extern "C" int gram_contract(int dtype_code, const void* x, const void* y,
   const unsigned int* b = static_cast<const unsigned int*>(sel_bits);
   if (dtype_code == 0)
     return launch_any<float, float>(x, y, rw, v, b, center, out, t_len, n, p, nw, s_specs, s);
+  if ((dtype_code == 1 || (dtype_code == 2 && p > kMaxP)) && s_specs > kOneLaunchSpecs)
+    return -1;
   if (dtype_code == 1)
-    return launch_any<double, double>(x, y, rw, v, b, center, out, t_len, n, p, nw, s_specs,
-                                      s);
+    return rw != nullptr
+               ? launch_f64<true>(x, y, rw, v, b, center, out, t_len, n, p, nw, s_specs, s)
+               : launch_f64<false>(x, y, rw, v, b, center, out, t_len, n, p, nw, s_specs, s);
   if (dtype_code == 2)
     return rw != nullptr
                ? launch_bf16<true>(x, y, rw, v, b, center, out, t_len, n, p, nw, s_specs, s)

@@ -16,12 +16,13 @@ padded solve (``specgrid.solve``).
 tensors lie:
 
 - CUDA tensors go to the hand-written kernel (``csrc/gram.cu``, wrapper
-  ``gram_contract_cuda``): one block per month streams the panel through
-  shared memory once for all specs and builds the weights there; float32
-  and float64 sum 4×4 register tiles of every spec's block on the CUDA
-  cores, bfloat16 operands go to the tensor cores (``mma.sync`` with
-  float32 sums, each spec's 0/1 weight a mask on the fragments, a row
-  weight's product ``w·x̃`` split exactly into two bfloat16 parts);
+  ``gram_contract_cuda``): the blocks of a month stream the panel through
+  shared memory for all specs and build the weights there; float32 sums
+  4×4 register tiles of every spec's block on the CUDA cores, float64 goes
+  to the FP64 tensor cores (DMMA ``mma.sync`` m16n8k8), bfloat16 operands
+  to the tensor cores (``mma.sync`` with float32 sums, each spec's 0/1
+  weight a mask on the fragments, a row weight's product ``w·x̃`` split
+  exactly into two bfloat16 parts);
 - CPU tensors take the plain version, a chunked masked einsum over firm
   slices (``contract_spec_grams_plain``).
 
@@ -75,7 +76,12 @@ __all__ = [
 # operand dtype → (the kernel's dtype code, its launch-key name)
 _DTYPE_CODES = {torch.float32: (0, "f32"), torch.float64: (1, "f64"),
                 torch.bfloat16: (2, "bf16")}
-GRAM_MAX_ENTRIES = 8192  # upper-triangle entries of one launch (csrc/gram.cu)
+# upper-triangle entries of one launch of the float32 kernel and of the
+# bfloat16 kernel up to 32 columns (csrc/gram.cu)
+GRAM_MAX_ENTRIES = 8192
+# specs one launch of the float64 kernel and of the bfloat16 kernel past 32
+# columns takes: the whole batch of any real call
+GRAM_ONE_LAUNCH_SPECS = 65536
 
 GRAM_PRECISIONS = ("highest", "bf16")
 GRAM_FACTORIZE_MODES = ("auto", "on", "off")
@@ -181,9 +187,14 @@ def split_stats(out: torch.Tensor, p: int):
             out[:, :, 0, q], out[:, :, q, q])
 
 
-def gram_spec_chunk(p: int) -> int:
-    """The most specs one kernel launch takes at ``p`` predictor columns:
-    ⌊8192 / ((P+2)(P+3)/2)⌋, 60 at P = 14, and at least one (P ≥ 126)."""
+def gram_spec_chunk(p: int, *, dtype: Optional[torch.dtype] = None) -> int:
+    """The most specs one kernel launch takes at ``p`` predictor columns
+    for operands of ``dtype``: for float32 (and ``None``) and for bfloat16
+    up to 32 columns ⌊8192 / ((P+2)(P+3)/2)⌋, 60 at P = 14, and at least
+    one (P ≥ 126); for float64 at any P and bfloat16 past 32 columns
+    ``GRAM_ONE_LAUNCH_SPECS``, the whole batch of any real call."""
+    if dtype == torch.float64 or (dtype == torch.bfloat16 and p > 32):
+        return GRAM_ONE_LAUNCH_SPECS
     return max(1, GRAM_MAX_ENTRIES // ((p + 2) * (p + 3) // 2))
 
 
@@ -211,10 +222,12 @@ def gram_contract_cuda(y: torch.Tensor, x: torch.Tensor, valid: torch.Tensor,
     augmented (S, T, P+2, P+2) blocks, float32 for bfloat16 operands and
     x's dtype otherwise.
 
-    A spec batch over one launch's 8192 block entries is cut into
-    consecutive chunks of ``gram_spec_chunk(P)`` specs, one launch each,
+    A spec batch over what one launch takes is cut into consecutive
+    chunks of ``gram_spec_chunk(P, dtype=x.dtype)`` specs, one launch each,
     each writing its own slice of the output; the cut depends only on (S,
-    P). Any P: the spec's columns go to the kernel as ⌈P/32⌉ words of bits
+    P, dtype): float32, and bfloat16 up to 32 columns, at 8192 block
+    entries, float64 and bfloat16 past 32 columns in one launch. Any P: the
+    spec's columns go to the kernel as ⌈P/32⌉ words of bits
     (``selection_words``). Raises on anything the kernel does not take."""
     tensors = {"y": y, "x": x, "valid": valid, "col_sel": col_sel,
                "center": center}
@@ -249,7 +262,7 @@ def gram_contract_cuda(y: torch.Tensor, x: torch.Tensor, valid: torch.Tensor,
         ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ])
     rw_ptr = row_weights.data_ptr() if row_weights is not None else None
-    chunk = gram_spec_chunk(p)
+    chunk = gram_spec_chunk(p, dtype=x.dtype)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         for s0 in range(0, s, chunk):

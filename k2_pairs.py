@@ -3,13 +3,16 @@
 in alternating pairs.
 
     python3 k2_pairs.py OTHER_CHECKOUT [--pairs 10] [--reps 7] [--seed N]
+                       [--p 14] [--specs 9] [--dtype float32|float64|bfloat16]
 
 Each checkout gets a worker process whose working directory, and so whose
 ``fm_returnprediction_tpu_torch``, is its own root. A worker builds its
-Gram kernel, makes Table 2's contraction inputs (T=600, N=22,000, P=14,
-S=9, float32, the same from the same seed in both) and then, on each
-request, times ``gram_contract_cuda`` with CUDA events: ``--reps`` runs
-after a warm-up call. The workers are asked in the order other, this /
+Gram kernel, makes the contraction inputs (T=600, N=22,000; by default
+Table 2's P=14, S=9 in float32; the same from the same seed in both; specs
+select the first 3, the first 7 and every column in turn, over three
+universes; bfloat16 operands are the float32 inputs rounded) and then, on
+each request, times ``gram_contract_cuda`` with CUDA events: ``--reps``
+runs after a warm-up call. The workers are asked in the order other, this /
 this, other / ... so a drift in the card's speed falls on both. Prints
 each pair's medians and their ratio, the medians over all runs, the card's
 name and power limit, and a last line of JSON with the same numbers.
@@ -32,7 +35,8 @@ from fm_returnprediction_tpu_torch.cuda_build import build_kernels
 from fm_returnprediction_tpu_torch.specgrid.grams import gram_contract_cuda, shared_center
 
 build_kernels(["gram"])
-t, n, p, s = 600, 22000, 14, 9
+t, n = 600, 22000
+p, s, dtype = int(sys.argv[2]), int(sys.argv[3]), getattr(torch, sys.argv[4])
 gen = torch.Generator(device="cuda")
 gen.manual_seed(int(sys.argv[1]))
 x = torch.randn((t, n, p), generator=gen, device="cuda")
@@ -45,9 +49,11 @@ universes = torch.rand((3, t, n), generator=gen, device="cuda") > \
     torch.tensor([0.1, 0.4, 0.7], device="cuda")[:, None, None]
 col_sel = torch.zeros((s, p), dtype=torch.bool, device="cuda")
 for i in range(s):
-    col_sel[i, :[3, 7, p][i // 3]] = True
+    col_sel[i, :[3, 7, p][(i // 3) % 3]] = True
 valid = universes[torch.arange(s, device="cuda") % 3].to(torch.uint8).contiguous()
 center = shared_center(x)
+if dtype != torch.float32:
+    x, y, center = (a.to(dtype) for a in (x, y, center))
 torch.cuda.synchronize()
 print("ready", flush=True)
 for line in sys.stdin:
@@ -66,8 +72,9 @@ for line in sys.stdin:
 """
 
 
-def start_worker(root: Path, seed: int) -> subprocess.Popen:
-    proc = subprocess.Popen([sys.executable, "-c", WORKER, str(seed)], cwd=root,
+def start_worker(root: Path, seed: int, shape: tuple) -> subprocess.Popen:
+    proc = subprocess.Popen([sys.executable, "-c", WORKER, str(seed), *map(str, shape)],
+                            cwd=root,
                             stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
     if proc.stdout.readline().strip() != "ready":
         proc.kill()
@@ -87,12 +94,17 @@ def main(argv=None) -> int:
     parser.add_argument("--pairs", type=int, default=10)
     parser.add_argument("--reps", type=int, default=7)
     parser.add_argument("--seed", type=int, default=20140131)
+    parser.add_argument("--p", type=int, default=14, help="predictor columns")
+    parser.add_argument("--specs", type=int, default=9)
+    parser.add_argument("--dtype", default="float32",
+                        choices=("float32", "float64", "bfloat16"))
     args = parser.parse_args(argv)
+    shape = (args.p, args.specs, args.dtype)
     roots = {"other": args.other.resolve(), "this": Path(__file__).resolve().parent}
     workers = {}
     try:
         for name, root in roots.items():
-            workers[name] = start_worker(root, args.seed)
+            workers[name] = start_worker(root, args.seed, shape)
         runs = {name: [] for name in roots}
         pairs = []
         for i in range(args.pairs):
@@ -113,12 +125,14 @@ def main(argv=None) -> int:
     medians = {name: float(np.median(t)) for name, t in runs.items()}
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True).stdout
-    print(f"gram_contract_cuda T=600 N=22000 P=14 S=9 f32, {args.pairs} pairs x {args.reps} "
+    print(f"gram_contract_cuda T=600 N=22000 P={args.p} S={args.specs} {args.dtype}, "
+          f"{args.pairs} pairs x {args.reps} "
           f"runs: median other {medians['other']:.4f} ms, this {medians['this']:.4f} ms, "
           f"this / other {medians['this'] / medians['other']:.4f}; this faster in "
           f"{sum(p['this'] < p['other'] for p in pairs)} of {args.pairs} pairs")
     print(card.strip())
-    print(json.dumps({"medians_ms": medians, "pairs": pairs,
+    print(json.dumps({"shape": {"p": args.p, "specs": args.specs, "dtype": args.dtype},
+                      "medians_ms": medians, "pairs": pairs,
                       "roots": {k: str(v) for k, v in roots.items()}}))
     return 0
 

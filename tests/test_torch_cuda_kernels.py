@@ -263,16 +263,18 @@ def _held_to_plain(got, want, rtol, counts_exact=True):
 @pytest.mark.parametrize("dtype,rtol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
 def test_gram_kernel_wide_unions_match_plain(cuda, dtype, rtol, p):
     """Past 32 columns (the columns as ⌈P/32⌉ words a spec): float64 and
-    float32, with and without row weights, against the plain version; a
-    batch past one launch's 8192 block entries is cut (S = 5 at P = 64 and
-    100); counts exact under 0/1 weights, symmetric blocks."""
+    float32, with and without row weights, against the plain version; in
+    float32 a batch past one launch's 8192 block entries is cut (S = 5 at
+    P = 64 and 100), in float64 one launch takes it; counts exact under
+    0/1 weights, symmetric blocks."""
     y, x, universes, uidx, col_sel, window = _gram_args(dtype, cuda, t=5, n=900, p=p, s=5)
     x[:, 11, p - 1] = float("nan")                    # a non-finite column of the last word
     col_sel[1] = False
     col_sel[1, p - 1] = True
     before = grams.gram_contract_cuda.launches
     got = grams.contract_spec_grams(y, x, universes, uidx, col_sel, window)
-    assert grams.gram_contract_cuda.launches == before + -(-5 // grams.gram_spec_chunk(p))
+    assert grams.gram_contract_cuda.launches == before + -(-5 // grams.gram_spec_chunk(
+        p, dtype=dtype))
     want = grams.contract_spec_grams_plain(y, x, universes[uidx], col_sel, window, got.center)
     _held_to_plain(got, want, rtol)
     assert torch.equal(got.gram, got.gram.transpose(-1, -2))
@@ -322,14 +324,14 @@ def test_gram_kernel_bf16_matches_plain(cuda, weighted):
 
 @pytest.mark.parametrize("dtype,rtol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
 def test_gram_kernel_splits_spec_batches(cuda, dtype, rtol):
-    """S = 123 at P = 14 is three launches of at most 60 specs; repeated
-    calls give the same bits."""
+    """S = 123 at P = 14 is three launches of at most 60 specs in float32
+    and one in float64; repeated calls give the same bits."""
     assert grams.gram_spec_chunk(14) == 60
     y, x, universes, uidx, col_sel, window = _gram_args(dtype, cuda, t=5, n=400,
                                                         p=14, s=123)
     before = grams.gram_contract_cuda.launches
     got = grams.contract_spec_grams(y, x, universes, uidx, col_sel, window)
-    assert grams.gram_contract_cuda.launches == before + 3
+    assert grams.gram_contract_cuda.launches == before + (1 if dtype == torch.float64 else 3)
     want = grams.contract_spec_grams_plain(y, x, universes[uidx], col_sel, window,
                                            got.center)
     _held_to_plain(got, want, rtol)
@@ -394,12 +396,15 @@ def test_gram_bf16_tensor_core_kernel(cuda, p, s, n, weights):
     version (1e-5 plus that version's own error against the float64 sums);
     counts exact for 0/1 weights, a repeated call bit-identical, each block
     symmetric. N = 400 and 3,000 leave ragged tiles; S = 61 takes two
-    launches at P = 14 (more at P >= 15)."""
+    launches at P = 14 (more at P >= 15), and one past 32 columns, where
+    one launch takes any spec batch."""
     y, x, uni, valid, col_sel, center, rw = _bf16_gram_case(cuda, 4, n, p, s, weights)
     window = torch.ones((s, 4), dtype=torch.bool, device=cuda)
     before = grams.gram_contract_cuda.launches
     out = grams.gram_contract_cuda(y, x, valid, col_sel, center, rw)
-    assert grams.gram_contract_cuda.launches == before + -(-s // grams.gram_spec_chunk(p))
+    launches = grams.gram_contract_cuda.launches - before
+    assert launches == -(-s // grams.gram_spec_chunk(p, dtype=torch.bfloat16))
+    assert launches == 1 or p <= 32
     assert out.dtype == torch.float32
     got = grams.split_stats(out, p)
     want = grams.contract_spec_grams_plain(y, x, uni, col_sel, window, center,
@@ -421,5 +426,65 @@ def test_gram_bf16_tensor_core_kernel(cuda, p, s, n, weights):
     assert worst(got, want) <= 1e-5 + plain_err
     if weights != "real":
         assert torch.equal(got[2], want[2])
+    assert torch.equal(out, out.transpose(-1, -2))
+    assert torch.equal(out, grams.gram_contract_cuda(y, x, valid, col_sel, center, rw))
+
+
+def _f64_gram_case(cuda, t, n, p, s, weights, seed=11):
+    """float64 operands for the FP64 tensor-core kernel: NaNs and infinities,
+    an all-NaN column (every firm) from P = 4, a non-finite entry in the
+    last column, specs selecting the first column only, the last only and
+    every column, row weights None, 0/1 or real-valued (coreset-like, most
+    rows 0)."""
+    rng = np.random.default_rng(seed + 7 * p + s)
+    x = rng.standard_normal((t, n, p)) * 3.0
+    x[rng.random(x.shape) < 0.05] = np.nan
+    x[rng.random(x.shape) < 0.005] = np.inf
+    if p >= 4:
+        x[:, :, p // 2] = np.nan
+    x[:, 11, p - 1] = -np.inf
+    y = rng.standard_normal((t, n))
+    y[rng.random(y.shape) < 0.1] = np.nan
+    universes = rng.random((3, t, n)) > np.array([0.1, 0.4, 0.7])[:, None, None]
+    uidx = np.arange(s) % 3
+    col_sel = rng.random((s, p)) > 0.4
+    col_sel[0] = False
+    col_sel[0, 0] = True
+    if s > 2:
+        col_sel[1] = False
+        col_sel[1, p - 1] = True
+    col_sel[-1] = True
+    rw = None
+    if weights is not None:
+        u = rng.random((t, n))
+        w = np.ones_like(u) if weights == "binary" else 0.5 + 4.0 * u
+        rw = torch.tensor(np.where(u < 0.3, w, 0.0), device=cuda, dtype=torch.float64)
+    xt = torch.tensor(x, device=cuda, dtype=torch.float64)
+    uni = torch.tensor(universes[uidx], device=cuda)
+    return (torch.tensor(y, device=cuda, dtype=torch.float64), xt, uni,
+            uni.to(torch.uint8).contiguous(), torch.tensor(col_sel, device=cuda),
+            grams.shared_center(xt), rw)
+
+
+@pytest.mark.parametrize("weights", [None, "binary", "real"])
+@pytest.mark.parametrize("s", [1, 9, 61])
+@pytest.mark.parametrize("p", [1, 5, 14, 15, 30, 32, 33, 40, 64, 100])
+def test_gram_f64_tensor_core_kernel(cuda, p, s, weights):
+    """The float64 kernel (DMMA) against its plain version at 1e-12 of each
+    block's max-abs entry: counts exact under 0/1 weights, one launch
+    whatever the spec batch, a repeated call bit-identical, each block
+    symmetric. N = 1,001 leaves a ragged tile and a ragged 8-firm step."""
+    t, n = 3, 1001
+    y, x, uni, valid, col_sel, center, rw = _f64_gram_case(cuda, t, n, p, s, weights)
+    window = torch.ones((s, t), dtype=torch.bool, device=cuda)
+    assert grams.gram_spec_chunk(p, dtype=torch.float64) >= s
+    before = grams.gram_contract_cuda.launches
+    out = grams.gram_contract_cuda(y, x, valid, col_sel, center, rw)
+    assert grams.gram_contract_cuda.launches == before + 1
+    assert out.dtype == torch.float64
+    got = grams.split_stats(out, p)
+    want = grams.contract_spec_grams_plain(y, x, uni, col_sel, window, center,
+                                           row_weights=rw)
+    _held_to_plain(got, want, 1e-12, counts_exact=weights != "real")
     assert torch.equal(out, out.transpose(-1, -2))
     assert torch.equal(out, grams.gram_contract_cuda(y, x, valid, col_sel, center, rw))

@@ -5,12 +5,17 @@ Pallas kernel ``ops/gram_pallas.py::gram_contract_pallas`` does; this file
 holds the CPU's view of that branch:
 
 - the plain version (``specgrid.grams.contract_spec_grams_plain``, what a
-  CPU tensor runs) against the Pallas kernel in interpret mode at P = 33
-  and 40, float64 at 1e-12 and float32 at 1e-5 of each (spec, month)
-  block's largest entry, with and without row weights, counts exact;
+  CPU tensor runs) against the Pallas kernel in interpret mode at P = 33,
+  40 and 64, float64 at 1e-12 and float32 at 1e-5 of each (spec, month)
+  block's largest entry, with and without row weights, counts exact; and
+  on bfloat16 operands at P = 40, held as ``chip_smoke.check_gram`` holds
+  the bf16 kernel: the Pallas kernel within 1e-5 of the float64 sums of
+  the same bf16 terms, the plain version within 1e-5 of the Pallas kernel
+  plus its own gap to those sums;
 - the kernel's column words (``selection_words``: ⌈P/32⌉ 32-bit words a
   spec) decode back to the selector, and the launch cut
-  (``gram_spec_chunk``) is at least one spec however wide the union;
+  (``gram_spec_chunk``) is at least one spec however wide the union, the
+  whole batch for float64 and for bfloat16 past 32 columns;
 - ``run_spec_grid`` on a 40-column union and an FWL cell with 20 controls
   from it against the JAX functions at float64, at the card-vs-CPU pins
   of ``PERF.md`` §3: 1e-8 of ``max(|b|, 1)``, NaN patterns and counts
@@ -70,7 +75,7 @@ def _block_scale(stats):
 
 @pytest.mark.parametrize("weighted", [False, True])
 @pytest.mark.parametrize("dtype, rtol", [(np.float64, 1e-12), (np.float32, 1e-5)])
-@pytest.mark.parametrize("p", [33, 40])
+@pytest.mark.parametrize("p", [33, 40, 64])
 def test_plain_version_matches_the_pallas_kernel(p, dtype, rtol, weighted):
     y, x, valid, col_sel, center, rw = _contraction_inputs(p, dtype, weighted)
     want = gram_contract_pallas(
@@ -92,6 +97,43 @@ def test_plain_version_matches_the_pallas_kernel(p, dtype, rtol, weighted):
         assert np.all(np.abs(g - w) <= rtol * s), (name, float(np.max(np.abs(g - w) / s)))
 
 
+def _worst_to_block_max(got, want, scale):
+    """The largest difference of two sets of stats, each relative to its
+    (spec, month) block's scale."""
+    worst = 0.0
+    for g, w in zip(got, want):
+        g, w = np.asarray(g, np.float64), np.asarray(w, np.float64)
+        sc = scale.reshape(scale.shape + (1,) * (g.ndim - 2))
+        worst = max(worst, float(np.max(np.abs(g - w) / sc)))
+    return worst
+
+
+def test_bf16_plain_version_matches_the_pallas_kernel():
+    """bfloat16 operands at P = 40 (0/1 weights: the Pallas kernel forms
+    its weighted rows in bfloat16, exact only for 0/1): the same bf16 x,
+    y and center into both, float32 sums on both sides."""
+    y, x, valid, col_sel, center, _ = _contraction_inputs(40, np.float32, False)
+    bf = torch.bfloat16
+    yb, xb, cb = (torch.from_numpy(a).to(bf) for a in (y, x, center))
+    as_jax = lambda a: jnp.asarray(a.float().numpy(), jnp.bfloat16)  # noqa: E731 exact
+    want = gram_contract_pallas(as_jax(yb), as_jax(xb), jnp.asarray(valid),
+                                jnp.asarray(col_sel), as_jax(cb), None, block_n=128,
+                                interpret=True)
+    t = torch.from_numpy
+    got = grams.contract_spec_grams_plain(yb, xb, t(valid), t(col_sel), None, cb)
+    assert got[0].dtype == torch.float32
+    # the float64 sums of the same bf16 terms: x − c rounded to bf16 as both form it
+    exact = grams.contract_spec_grams_plain(
+        yb.double(), (xb - cb[:, None, :]).double(), t(valid), t(col_sel), None,
+        torch.zeros(cb.shape, dtype=torch.float64))
+    np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
+    scale = _block_scale(want)
+    pallas_exact = _worst_to_block_max(want, exact, scale)
+    plain_exact = _worst_to_block_max(got, exact, scale)
+    assert pallas_exact <= 1e-5, pallas_exact
+    assert _worst_to_block_max(got, want, scale) <= 1e-5 + plain_exact
+
+
 @pytest.mark.parametrize("p", [0, 1, 31, 32, 33, 40, 64, 100])
 def test_selection_words_hold_every_column(p):
     rng = np.random.default_rng(p)
@@ -110,6 +152,21 @@ def test_selection_words_hold_every_column(p):
                                       (126, 1), (300, 1)])
 def test_launch_cut_takes_at_least_one_spec(p, chunk):
     assert grams.gram_spec_chunk(p) == chunk
+
+
+@pytest.mark.parametrize("dtype", [None, torch.float32, torch.float64, torch.bfloat16])
+@pytest.mark.parametrize("p", [1, 14, 32, 33, 40, 64, 100, 300])
+def test_launch_cut_per_operand_type(p, dtype):
+    """float32 (and no dtype) and bfloat16 up to 32 columns cut at 8192
+    block entries; float64 at any width and bfloat16 past 32 columns take
+    the whole batch in one launch."""
+    chunk = grams.gram_spec_chunk(p, dtype=dtype)
+    if dtype == torch.float64 or (dtype == torch.bfloat16 and p > 32):
+        assert chunk == grams.GRAM_ONE_LAUNCH_SPECS
+    else:
+        assert chunk == grams.gram_spec_chunk(p) == max(1, 8192 // ((p + 2) * (p + 3) // 2))
+    with pytest.raises(TypeError):
+        grams.gram_spec_chunk(p, dtype)
 
 
 def _wide_panel(t=36, n=240, p=40, seed=5):
