@@ -694,9 +694,8 @@ def check_gram(t, n, p, dtype, rel, gen, timed, figure=False, weights=None,
     label = (f"T={t} N={n} P={p} S={s} {kind}" + (f" rw={weights}" if weights else "")
              + (f" ({-(-s // chunk)} launches)" if s > chunk else ""))
     tol = rel
-    if low or dtype == torch.float64:
-        check(torch.equal(out, gram_contract_cuda(y, x, valid, col_sel, center, rw)),
-              f"K2 {label}: two calls differ in their bits")
+    check(torch.equal(out, gram_contract_cuda(y, x, valid, col_sel, center, rw)),
+          f"K2 {label}: two calls differ in their bits")
     if low:
         exact = contract_spec_grams_plain(
             y.double(), (x - center[:, None, :]).double(), uni, col_sel, window,
@@ -852,11 +851,37 @@ ROW_PATH.update({f"gram/P={p},S=9,{branch}": ("wide",) for p, _ in WIDE_SHAPES
                  for branch in ("f32", "f64", "f32,rw", "bf16")})
 
 
+def widest_f32_p(specs: int) -> int:
+    """The widest union one launch of the float32 kernel takes for
+    ``specs`` specs without row weights (its shared memory's reach), by
+    bisection over launches on a one-month, 16-firm input: the kernel
+    refuses a wider one as arguments it does not take."""
+    def takes(p: int) -> bool:
+        try:
+            gram_contract_cuda(torch.zeros((1, 16), device="cuda"),
+                               torch.zeros((1, 16, p), device="cuda"),
+                               torch.ones((specs, 1, 16), dtype=torch.uint8, device="cuda"),
+                               torch.ones((specs, p), dtype=torch.bool, device="cuda"),
+                               torch.zeros((1, p), device="cuda"))
+        except RuntimeError as err:
+            check("invalid arguments" in str(err), f"K2 at P={p}: {err}")
+            return False
+        return True
+
+    lo, hi = 33, 4096
+    check(takes(lo) and not takes(hi), "K2 float32: the widest union is not in 33 .. 4095")
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if takes(mid) else (lo, mid)
+    return lo
+
+
 def k2_wide_phase(gen, timed: bool):
     """K2 at P = 40, 64 and 100 against its plain version on every branch
     (the timed rows of the kernel table), then untimed edge cases: P = 33
-    in float64 and in bfloat16 with 0/1 weights on a ragged N, bfloat16
-    with coreset weights at P = 40."""
+    in float64, float32 and bfloat16 with 0/1 weights on a ragged N,
+    bfloat16 with coreset weights at P = 40, float32 with 61 specs at P =
+    40 and at the widest union one float32 launch takes for 9 specs."""
     rows = []
     for p, n in WIDE_SHAPES:
         rows += [check_gram(600, n, p, torch.float32, 1e-5, gen, timed),
@@ -866,6 +891,11 @@ def k2_wide_phase(gen, timed: bool):
     check_gram(600, 4096, WIDE_P, torch.float32, 1e-5, gen, False, weights="coreset", low=True)
     check_gram(120, 3001, 33, torch.float64, 1e-12, gen, False)
     check_gram(120, 3001, 33, torch.float32, 1e-5, gen, False, weights="binary", low=True)
+    check_gram(120, 3001, 33, torch.float32, 1e-5, gen, False, weights="binary")
+    check_gram(120, 4096, WIDE_P, torch.float32, 1e-5, gen, False, specs=61)
+    widest = widest_f32_p(9)
+    log(f"K2 float32: the widest union one launch takes for 9 specs is P={widest}")
+    check_gram(12, 1001, widest, torch.float32, 1e-5, gen, False)
     return [row for row in rows if row]
 
 
@@ -876,7 +906,9 @@ def sass_hmma_phase() -> None:
     the four wide kernels past 32 columns: two chunk widths, with and
     without row weights) must have ``HMMA`` and no ``DMMA``, the six
     float64 kernels (three chunk widths) ``DMMA`` and no ``HMMA``, the four
-    float32 kernels neither."""
+    float32 kernels (``gram_kernel`` up to 32 columns and
+    ``gram_f32_wide_kernel`` past them, each with and without row weights)
+    neither."""
     cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
     tool = shutil.which("cuobjdump") or os.path.join(cuda_home, "bin", "cuobjdump")
     if not os.path.exists(tool):
@@ -908,8 +940,9 @@ def sass_hmma_phase() -> None:
           "bf16 Gram kernels without HMMA (or with DMMA)")
     check(len(dm) == 6 and all(v["DMMA"] > 0 and v["HMMA"] == 0 for v in dm.values()),
           "float64 Gram kernels without DMMA (or with HMMA)")
-    check(len(cc) == 4 and all(v["HMMA"] == 0 and v["DMMA"] == 0 for v in cc.values()),
-          "float32 Gram kernels use the tensor cores")
+    check(len(cc) == 4 and sum(k.startswith("gram_f32_wide_kernel") for k in cc) == 2
+          and all(v["HMMA"] == 0 and v["DMMA"] == 0 for v in cc.values()),
+          "float32 Gram kernels use the tensor cores (or are not the four expected)")
 
 
 # --- K3: the masked cumulative moments --------------------------------------
@@ -1564,7 +1597,8 @@ def registry_phase(registry_root: Path, seed: int, cold_build: dict, state) -> N
     check(sorted(child["fetched"]) == ["gram", "rolling"]
           and all(p.startswith(root) for p in child["fetched"].values()),
           f"the fresh process did not load both libraries from the registry: {child}")
-    check(child["launches"] == {"k1": 1, "k2": 1}, f"fetched kernels launched {child}")
+    # K2 twice: check_gram's call and the repeat it holds bit for bit
+    check(child["launches"] == {"k1": 1, "k2": 2}, f"fetched kernels launched {child}")
 
     start = time.perf_counter()
     svc, report = warm_from_registry(registry_dir=registry_root, max_batch=SERVING_MAX_BATCH,
@@ -2381,11 +2415,10 @@ def k2_wide_path_phase(res, seed: int) -> dict:
     in float64; then unions of 64 and 100 columns (50 and 86 seeded) at
     the first 4,096 firms on the same four branches. Each run's K2
     launches are counted by key: ⌈9 / gram_spec_chunk(P, dtype=…)⌉, one
-    in float64 and bfloat16 (one launch takes the whole batch there), three
-    at P = 64 and nine at P = 100 in float32; Models 1 and 2 come out
-    finite. No referee: its QR re-solves launch no K2 (the card-vs-CPU
-    check runs the wide grid refereed). Returns the launch counts
-    (``gram/…`` keys) of every run."""
+    on every branch (one launch takes the whole batch past 32 columns);
+    Models 1 and 2 come out finite. No referee: its QR re-solves launch no
+    K2 (the card-vs-CPU check runs the wide grid refereed). Returns the
+    launch counts (``gram/…`` keys) of every run."""
     panel, masks = res.panel, res.subset_masks
     t, n = panel.values.shape[:2]
     universes = [u for u in masks if u in ("All stocks", "All-but-tiny stocks", "Large stocks")]

@@ -1,6 +1,6 @@
 // Masked per-month Gram contraction for a batch of specs: float operands on
-// the CUDA cores, double operands on the FP64 tensor cores (DMMA), bf16
-// operands on the tensor cores with float sums.
+// the CUDA cores (plain IEEE float32), double operands on the FP64 tensor
+// cores (DMMA), bf16 operands on the tensor cores with float sums.
 //
 // Replaces the Pallas TPU kernel
 //   fm_returnprediction_tpu/ops/gram_pallas.py::gram_contract_pallas
@@ -25,11 +25,13 @@
 // tensor cores, take ~0.06 ms even at full 16x16 blocks: the bytes bound it.
 // In float64 (67 TFLOP/s on DMMA) the bytes bound it up to about P = 14
 // (Table 2's shape: 1.7 GB, 0.51 ms, against 0.48 ms of products) and the
-// products past it (P = 40: 3.2 ms against 0.8 ms of bytes).
+// products past it (P = 40: 3.2 ms against 0.8 ms of bytes); in float32 the
+// products past P = 14 as well (P = 40 at N = 22,000 and P = 100 at 4,096
+// firms, S = 9: 3.2 and 3.5 ms of FP32 FMAs).
 //
-// Design, float (gram_kernel). One block per month t walks the firm axis in
-// tiles; x is read in its native (T, N, P) layout, where a tile is tile*P
-// contiguous values.
+// Design, float up to 32 columns (gram_kernel). One block per month t walks
+// the firm axis in tiles; x is read in its native (T, N, P) layout, where a
+// tile is tile*P contiguous values.
 // - Register tiles of the output: the (QE x QE) upper triangle is padded to
 //   a multiple of 4 and cut into 4x4 tiles (10 at P=14, 3 at P=5). A thread
 //   owns one (spec, tile) pair and keeps its 16 sums in registers. Per firm
@@ -58,18 +60,12 @@
 //   thread per firm finds the firm's non-finite columns once, as a bit mask,
 //   then writes every spec's weight from the staged valid byte and row
 //   weight: a (firm, spec) weight costs one byte load and one mask test.
-// - When S * tiles exceeds one block's threads (large P or S, not on the
-//   main path), the (spec, tile) pairs are split over gridDim.y blocks,
-//   each staging only the valid rows of its own specs.
-// - Any P: a spec's selected columns are ceil(P / 32) words of bits. Past
-//   32 columns a second instance of the kernel (kWide) finds a firm's
-//   non-finite columns one 32-column word at a time (a spec drops the firm
-//   when a selected column is among them) and, when QE rounded to 4
-//   exceeds the block's threads, builds several columns of the rows a
-//   thread; up to 32 the kernel keeps one 64-bit mask and one column a
-//   thread, whose registers the main path's speed depends on. The firm
-//   tile shrinks as P grows to keep a block within its shared-memory
-//   budget.
+// - When S * tiles exceeds one block's threads (large S, not on the main
+//   path), the (spec, tile) pairs are split over gridDim.y blocks, each
+//   staging only the valid rows of its own specs.
+// - One 64-bit non-finite mask a firm (y in bit 32) and one column of the
+//   rows a thread, whose registers the main path's speed depends on; past
+//   32 columns gram_f32_wide_kernel (below) takes the union.
 // Tensor cores are not used for float: TF32 keeps ~10 mantissa bits and
 // would break the 1e-5 parity with the plain version; a split-TF32 or
 // split-bf16 scheme is left for later work.
@@ -181,13 +177,50 @@
 // transposition, a 32-bit store per column and firm pair) past P = 64,
 // where the consumers wait on the producers.
 //
-// The float kernels and the bf16 kernel up to 32 columns take at most 8192
-// block entries S * QE * (QE + 1) / 2 a launch (60 specs at P = 14), or one
-// spec, whatever its width: the wrapper cuts a larger spec batch into
-// consecutive chunks, one launch each. The float64 kernel and the bf16
-// kernel past 32 columns take up to 65,536 specs in one launch. Any P whose
-// smallest firm tile (16 firms) fits in shared memory (227 KB): some 500
-// columns in float64, more in float and bf16.
+// Design, float past 32 columns (gram_f32_wide_kernel). The float64
+// kernel's blocks (one launch for the whole spec batch, the fewest blocks a
+// month, warp-specialized producers and consumers, running sums in shared
+// memory) with products on the CUDA cores in plain float32 FMAs:
+// - The build (shared with the float64 kernel: produce_tiles) stages each
+//   tile by 1-D TMA and builds it once for every spec of the block: the
+//   rows [1 | x - c | y | 0 pad] in float32, QE padded to 8 columns, each
+//   8-column segment's two 4-column halves planar (first halves of every
+//   segment, then second halves), the non-finite bits a 32-column word at a
+//   time by ballot, then one weight a (spec, firm).
+// - Products: a spec's upper triangle is cut into 8x8 tiles (21 at P = 40,
+//   91 at P = 100: a plain triangle walk, row by row), a lane owns one tile
+//   for one spec and a consumer warp's task is 32 consecutive (spec, tile)
+//   pairs of the month. Per firm a lane loads its row segment and column
+//   segment (four 16-byte loads) and its spec's weight, forms w * a_i once
+//   (8 multiplies) and does 64 FMAs. The lanes of a warp read one firm's
+//   row, so a load touches at most as many 16-byte words as the warp has
+//   distinct segments, and the planar halves put eight consecutive
+//   segments in eight different bank groups (up to P = 62 no two words of a
+//   load share one): 5 loads for 72 FP32 instructions, where the 4x4 kernel
+//   spent 3 for 16.
+// - The plan: a warp's FMAs run on its SM sub-partition's FP32 pipes, so a
+//   block takes about ceil(units / 4) units' time; where that balances
+//   better, a task is summed as two parts (each half of every staged tile,
+//   its own running sums, added in part order at the end): P = 40 at
+//   S = 9 runs 6 tasks as 12 units on 12 consumer warps. A fresh sum a unit
+//   per staged tile is added into its running sums: no atomics, two calls
+//   give the same bits, and under 0/1 weights n is an exact count.
+// What bounds it now (H100 at 700 W; k2_probe.py times the kernel with
+// parts cut out, PERF.md): without the producers' build and the
+// consumers' loads it runs at about the rate of a register-only 8x8 outer
+// product (two thirds of 67 TFLOP/s); the loads add 17-18% and the build
+// 2-5% at 4,096 firms and 28% at P = 40 over 22,000, together 1.4-1.7x
+// (the producers' ballots and stores and the consumers' loads share the
+// SM's issue slots and shared memory with the FMAs); and the padding of
+// QE to 8 and the weight's multiplies do 1.25-1.7x the bound's operations.
+//
+// The float and bf16 kernels up to 32 columns take at most 8192 block
+// entries S * QE * (QE + 1) / 2 a launch (60 specs at P = 14): the wrapper
+// cuts a larger spec batch into consecutive chunks, one launch each. The
+// float64 kernel, and the float and bf16 kernels past 32 columns, take up
+// to 65,536 specs in one launch. Any P whose smallest firm tile (16 firms)
+// fits in shared memory (227 KB): 424 columns in float64, 848 in float
+// (850 at S = 1, 847 with row weights), more in bf16.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -324,16 +357,16 @@ __device__ __forceinline__ void decode_pair(int pr, int ntiles, int nt4,
 }
 
 // kRw: whether there are row weights, a template argument so that the
-// unweighted kernel carries no register or instruction for them. kWide:
-// P > 32, the columns in several words (the narrow kernel keeps one 64-bit
-// non-finite mask, y in bit 32, and one column of the rows a thread).
-template <typename In, typename T, bool kRw, bool kWide>
+// unweighted kernel carries no register or instruction for them. P <= 32:
+// one 64-bit non-finite mask a firm (y in bit 32) and one column of the rows
+// a thread (wider unions go to gram_f32_wide_kernel).
+template <typename In, typename T, bool kRw>
 __global__ void __launch_bounds__(Limits<T>::kThreads, Limits<T>::kMinBlocks)
 gram_kernel(const In* __restrict__ x, const In* __restrict__ y,
             const In* __restrict__ rw, const unsigned char* __restrict__ valid,
             const unsigned int* __restrict__ sel_bits,
             const In* __restrict__ center, T* __restrict__ out, int t_len,
-            long long n, int p, int nw, int s_specs, int tile, int pairs_per_block,
+            long long n, int p, int s_specs, int tile, int pairs_per_block,
             int groups) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr bool has_rw = kRw;
@@ -363,14 +396,11 @@ gram_kernel(const In* __restrict__ x, const In* __restrict__ y,
     sl -= s_lo;
   }
   // this thread's column of the augmented rows (firms rf0, rf0 + rstep,
-  // ...), and columns rc + nthreads, ... when QE rounded to 4 exceeds the
-  // block's threads (wide unions only: the narrow launch has more threads
-  // than columns)
+  // ...): the launch has more threads than columns
   const int rc = tid % qp;
   const int rf0 = tid / qp;
-  const int rstep = nthreads >= qp ? nthreads / qp : 1;
-  const T shift = (!kWide && rc >= 1 && rc <= p) ? widen(center[(size_t)t * p + rc - 1])
-                                                  : T(0);
+  const int rstep = nthreads / qp;
+  const T shift = (rc >= 1 && rc <= p) ? widen(center[(size_t)t * p + rc - 1]) : T(0);
 
   const long long n_tiles = (n + tile - 1) / tile;
   const long long row_t = (long long)t * n;
@@ -421,80 +451,35 @@ gram_kernel(const In* __restrict__ x, const In* __restrict__ y,
     const unsigned char* vr = st + v_off;
     // augmented rows [1 | x - c | y | 0 pad]: a fixed column per thread, so
     // a warp writes consecutive words
-    if constexpr (!kWide) {
-      if (rf0 < rstep) {
-        for (int f = rf0; f < cnt; f += rstep) {
-          T v = T(0);
-          if (rc == 0) {
-            v = T(1);
-          } else if (rc <= p) {
-            const T xv = widen(xr[f * p + rc - 1]);
-            v = isfinite(xv) ? as_operand<In, T>(xv - shift) : T(0);
-          } else if (rc == qe - 1) {
-            const T yv = widen(yr[f]);
-            v = isfinite(yv) ? yv : T(0);
-          }
-          rows[f * qp + rc] = v;
+    if (rf0 < rstep) {
+      for (int f = rf0; f < cnt; f += rstep) {
+        T v = T(0);
+        if (rc == 0) {
+          v = T(1);
+        } else if (rc <= p) {
+          const T xv = widen(xr[f * p + rc - 1]);
+          v = isfinite(xv) ? as_operand<In, T>(xv - shift) : T(0);
+        } else if (rc == qe - 1) {
+          const T yv = widen(yr[f]);
+          v = isfinite(yv) ? yv : T(0);
         }
+        rows[f * qp + rc] = v;
       }
-      // weights: one thread per firm finds its non-finite columns once (bit
-      // 32: y) and writes every spec's weight from the staged valid bytes
-      // and the firm's row weight
-      for (int f = tid; f < cnt; f += nthreads) {
-        unsigned long long bad = isfinite(widen(yr[f])) ? 0ull : (1ull << 32);
-        const In* xf = xr + f * p;
-        for (int c = 0; c < p; ++c)
-          if (!isfinite(widen(xf[c]))) bad |= 1ull << c;
-        const T wf = has_rw ? widen(rwr[f]) : T(1);
-        for (int s = 0; s < nsb; ++s) {
-          const unsigned char* vs = vr + s * L.v_row + misalign(v_first + s * v_stride);
-          const unsigned long long need = (unsigned long long)__ldg(sel_bits + s_lo + s) |
-                                          (1ull << 32);
-          wts[f * nsb + s] = (vs[f] != 0 && (bad & need) == 0ull) ? wf : T(0);
-        }
-      }
-    } else {
-      if (rf0 < rstep) {
-        for (int c = rc; c < qp; c += nthreads) {
-          const T shift_c = (c >= 1 && c <= p) ? widen(center[(size_t)t * p + c - 1]) : T(0);
-          for (int f = rf0; f < cnt; f += rstep) {
-            T v = T(0);
-            if (c == 0) {
-              v = T(1);
-            } else if (c <= p) {
-              const T xv = widen(xr[f * p + c - 1]);
-              v = isfinite(xv) ? as_operand<In, T>(xv - shift_c) : T(0);
-            } else if (c == qe - 1) {
-              const T yv = widen(yr[f]);
-              v = isfinite(yv) ? yv : T(0);
-            }
-            rows[f * qp + c] = v;
-          }
-        }
-      }
-      // weights: as above, the non-finite columns a 32-column word at a
-      // time; a later word with a non-finite column zeroes the specs that
-      // select one
-      for (int f = tid; f < cnt; f += nthreads) {
-        const bool y_ok = isfinite(widen(yr[f]));
-        const In* xf = xr + f * p;
-        unsigned bad = 0u;
-        for (int c = 0; c < p && c < 32; ++c)
-          if (!isfinite(widen(xf[c]))) bad |= 1u << c;
-        const T wf = has_rw ? widen(rwr[f]) : T(1);
-        for (int s = 0; s < nsb; ++s) {
-          const unsigned char* vs = vr + s * L.v_row + misalign(v_first + s * v_stride);
-          const unsigned sel = __ldg(sel_bits + (size_t)(s_lo + s) * nw);
-          wts[f * nsb + s] = (y_ok && vs[f] != 0 && (bad & sel) == 0u) ? wf : T(0);
-        }
-        for (int wd = 1; wd < nw; ++wd) {
-          bad = 0u;
-          for (int c = 32 * wd; c < p && c < 32 * wd + 32; ++c)
-            if (!isfinite(widen(xf[c]))) bad |= 1u << (c - 32 * wd);
-          if (bad == 0u) continue;
-          for (int s = 0; s < nsb; ++s)
-            if (bad & __ldg(sel_bits + (size_t)(s_lo + s) * nw + wd)) wts[f * nsb + s] = T(0);
-        }
+    }
+    // weights: one thread per firm finds its non-finite columns once (bit
+    // 32: y) and writes every spec's weight from the staged valid bytes
+    // and the firm's row weight
+    for (int f = tid; f < cnt; f += nthreads) {
+      unsigned long long bad = isfinite(widen(yr[f])) ? 0ull : (1ull << 32);
+      const In* xf = xr + f * p;
+      for (int c = 0; c < p; ++c)
+        if (!isfinite(widen(xf[c]))) bad |= 1ull << c;
+      const T wf = has_rw ? widen(rwr[f]) : T(1);
+      for (int s = 0; s < nsb; ++s) {
+        const unsigned char* vs = vr + s * L.v_row + misalign(v_first + s * v_stride);
+        const unsigned long long need = (unsigned long long)__ldg(sel_bits + s_lo + s) |
+                                        (1ull << 32);
+        wts[f * nsb + s] = (vs[f] != 0 && (bad & need) == 0ull) ? wf : T(0);
       }
     }
     __syncthreads();
@@ -549,10 +534,10 @@ gram_kernel(const In* __restrict__ x, const In* __restrict__ y,
   }
 }
 
-template <typename In, typename T, bool kRw, bool kWide>
+template <typename In, typename T, bool kRw>
 int launch(const void* x, const void* y, const void* rw,
            const unsigned char* valid, const unsigned int* sel_bits,
-           const void* center, void* out, int t_len, long long n, int p, int nw,
+           const void* center, void* out, int t_len, long long n, int p,
            int s_specs, cudaStream_t stream) {
   const int qe = p + 2;
   if (s_specs > 1 && (long long)s_specs * qe * (qe + 1) / 2 > kMaxEntries) return -1;
@@ -581,33 +566,16 @@ int launch(const void* x, const void* y, const void* rw,
   const size_t smem = smem_for(tile);
   if (smem > kSmemMax || n_blocks_y > 65535) return -1;
   cudaError_t err = cudaFuncSetAttribute(
-      gram_kernel<In, T, kRw, kWide>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      gram_kernel<In, T, kRw>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)t_len, (unsigned)n_blocks_y);
-  gram_kernel<In, T, kRw, kWide><<<grid, threads, smem, stream>>>(
+  gram_kernel<In, T, kRw><<<grid, threads, smem, stream>>>(
       static_cast<const In*>(x), static_cast<const In*>(y),
       static_cast<const In*>(rw), valid, sel_bits, static_cast<const In*>(center),
-      static_cast<T*>(out), t_len, n, p, nw, s_specs, tile, pb, groups);
+      static_cast<T*>(out), t_len, n, p, s_specs, tile, pb, groups);
   return (int)cudaGetLastError();
 }
 
-template <typename In, typename T>
-int launch_any(const void* x, const void* y, const void* rw,
-               const unsigned char* valid, const unsigned int* sel_bits,
-               const void* center, void* out, int t_len, long long n, int p, int nw,
-               int s_specs, cudaStream_t stream) {
-  if (p > kMaxP)
-    return rw != nullptr
-               ? launch<In, T, true, true>(x, y, rw, valid, sel_bits, center, out, t_len, n,
-                                           p, nw, s_specs, stream)
-               : launch<In, T, false, true>(x, y, rw, valid, sel_bits, center, out, t_len,
-                                            n, p, nw, s_specs, stream);
-  return rw != nullptr
-             ? launch<In, T, true, false>(x, y, rw, valid, sel_bits, center, out, t_len, n, p,
-                                          nw, s_specs, stream)
-             : launch<In, T, false, false>(x, y, rw, valid, sel_bits, center, out, t_len, n,
-                                           p, nw, s_specs, stream);
-}
 
 
 // --- bf16 operands on the tensor cores ---------------------------------------
@@ -1073,7 +1041,8 @@ int launch_tc(const void* x, const void* y, const void* rw, const unsigned char*
   return (int)cudaGetLastError();
 }
 
-// --- shared by the float64 kernel and the bf16 kernel past 32 columns ------
+// --- shared by the float64 kernel and the float and bf16 kernels past 32 ---
+// --- columns ------------------------------------------------------------------
 
 constexpr int kOneLaunchSpecs = 65536;  // the most specs one launch of either takes
 
@@ -1142,50 +1111,58 @@ __device__ inline Chunk decode_chunk(const Strips& g, int u) {
 // one of two built buffers, the rest (at most kConsumerWarps) sum the
 // products of the other: the build of tile k + 1 overlaps the products of
 // tile k. Named barriers hand a buffer over: kBarProd the producers' own,
-// kBarFull + b buffer b built, kBarEmpty + b buffer b summed (id 0 is
-// __syncthreads').
+// kBarFull + b buffer b built, kBarEmpty + b buffer b summed, kBarCons the
+// consumers' own (id 0 is __syncthreads').
 constexpr int kProducerWarps = 4;
 constexpr int kConsumerWarps = 12;
 constexpr int kBlockThreads = 32 * (kProducerWarps + kConsumerWarps);
-constexpr int kBarProd = 1, kBarFull = 2, kBarEmpty = 4;
+constexpr int kBarProd = 1, kBarFull = 2, kBarEmpty = 4, kBarCons = 6;
 constexpr size_t kGramSmemBudget = 220 * 1024;  // one block an SM
 
-// A month's work: a task is a chunk u of a spec s (task s * tps + u), taken
-// by one consumer warp. A block takes tpb consecutive tasks, splits blocks
-// a month, the split index fastest.
+// A month's work: a task is taken by consumer warps; each spec has ups
+// units of work (the float64 and bf16 kernels: its tps chunks, a task one
+// chunk; the float32 kernel: its 8x8 tiles, a task 32 of them, one a lane),
+// `unit` units a task, the tasks of a month in spec order. A block takes tpb
+// consecutive tasks, splits blocks a month, the split index fastest.
 struct BlockPlan {
   int tpb, splits, nsb, tile;
   size_t smem;
+  double cost;
 };
+
+// The float64 and bf16 kernels' cost of a month: rounds of consumer warps
+// (a DMMA task is latency-bound, so every warp of a round runs at once).
+inline double warp_rounds(long long splits, long long tpb) {
+  return (double)(splits * ((tpb + kConsumerWarps - 1) / kConsumerWarps));
+}
 
 // The plan: of the task counts a block whose running sums, staged tiles
 // and built buffers fit `budget` with a tile of at least `min_tile` firms
 // (the largest such tile) and whose valid rows fit warp 0's lanes, the one
-// with the fewest rounds of consumer warps a month (splits times rounds a
-// block), then the fewest splits (each stages and builds the month's
-// tiles); else (a very wide union) the same in the most a block may take
-// with any tile. smem_for(tile, tasks a block, specs a block) is the
-// kernel's layout.
-template <typename SmemFor>
-BlockPlan plan_blocks(int s_specs, int tps, int min_tile, size_t budget, SmemFor smem_for) {
-  const long long tasks = (long long)s_specs * tps;
+// of the least cost(splits, tasks a block) a month, then the fewest splits
+// (each stages and builds the month's tiles); else (a very wide union) the
+// same in the most a block may take with any tile. smem_for(tile, tasks a
+// block, specs a block) is the kernel's layout.
+template <typename SmemFor, typename Cost>
+BlockPlan plan_blocks(int s_specs, int ups, int unit, int min_tile, size_t budget,
+                      SmemFor smem_for, Cost cost) {
+  const long long tasks = ((long long)s_specs * ups + unit - 1) / unit;
   for (int pass = 0; pass < 2; ++pass) {
     const size_t cap = pass == 0 ? budget : kSmemMax;
     const int floor_tile = pass == 0 ? min_tile : kMinTile;
-    BlockPlan best{0, 0, 0, 0, 0};
-    long long best_rounds = 0;
+    BlockPlan best{0, 0, 0, 0, 0, 0.0};
     // each distinct tasks-a-block count once, the fewest splits first
     for (long long splits = 1; splits <= tasks;) {
       const long long tpb = (tasks + splits - 1) / splits;
       const long long sp = (tasks + tpb - 1) / tpb;
-      const long long rounds = sp * ((tpb + kConsumerWarps - 1) / kConsumerWarps);
-      const int nsb = (int)std::min<long long>((tpb + tps - 2) / tps + 1, s_specs);
-      if (nsb + 3 <= 32 && (best.tpb == 0 || rounds < best_rounds)) {
+      const double c = cost(sp, tpb);
+      // the most specs tpb * unit consecutive units touch
+      const int nsb = (int)std::min<long long>((tpb * unit + ups - 2) / ups + 1, s_specs);
+      if (nsb + 3 <= 32 && (best.tpb == 0 || c < best.cost)) {
         for (int tile = kTcMaxTile; tile >= floor_tile; tile /= 2) {
           const size_t bytes = smem_for(tile, (int)tpb, nsb);
           if (bytes <= cap) {
-            best = {(int)tpb, (int)sp, nsb, tile, bytes};
-            best_rounds = rounds;
+            best = {(int)tpb, (int)sp, nsb, tile, bytes, c};
             break;
           }
         }
@@ -1195,7 +1172,7 @@ BlockPlan plan_blocks(int s_specs, int tps, int min_tile, size_t budget, SmemFor
     }
     if (best.tpb != 0) return best;
   }
-  return {0, 0, 0, 0, 0};
+  return {0, 0, 0, 0, 0, 0.0};
 }
 
 // A block's tasks and specs, as the kernels derive them from the plan:
@@ -1204,13 +1181,16 @@ struct BlockWork {
   int t0, ntask, s_lo, nsb;
 };
 
-__device__ inline BlockWork block_work(int split, int s_specs, int tps, int tpb) {
+__device__ inline BlockWork block_work(int split, int s_specs, int ups, int tpb, int unit) {
+  const long long units = (long long)s_specs * ups;
+  const long long tasks = (units + unit - 1) / unit;
   BlockWork w;
   w.t0 = split * tpb;
-  const int t1 = min(w.t0 + tpb, s_specs * tps);
-  w.ntask = t1 - w.t0;
-  w.s_lo = w.t0 / tps;
-  w.nsb = (t1 - 1) / tps - w.s_lo + 1;
+  const long long t1 = w.t0 + tpb < tasks ? w.t0 + tpb : tasks;
+  const long long u1 = t1 * unit < units ? t1 * unit : units;  // the block's last unit + 1
+  w.ntask = (int)(t1 - w.t0);
+  w.s_lo = (int)((long long)w.t0 * unit / ups);
+  w.nsb = (int)((u1 - 1) / ups) - w.s_lo + 1;
   return w;
 }
 
@@ -1271,7 +1251,7 @@ __device__ __forceinline__ void ldsm_x2(uint32_t& r0, uint32_t& r1, const void* 
 }
 
 
-// --- warp-specialized blocks, shared by the float64 and wide bf16 kernels --
+// --- warp-specialized blocks, shared by the float64 and wide kernels -------
 
 __device__ __forceinline__ void bar_sync(int id, int n) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
@@ -1297,6 +1277,160 @@ __device__ inline void fill_tasks(const Strips& G, const BlockWork& w, int* task
     e[4] = ch.nj_b;
     e[5] = ch.n_b;
     e[6] = spec - w.s_lo;
+  }
+}
+
+
+// Each spec of the block's selection words (y enters every spec's selection
+// as column p) and the offset of its valid row in a stage.
+template <typename Layout>
+__device__ inline void fill_specs(const Layout& L, unsigned char* smem,
+                                  const unsigned int* sel_bits, const unsigned char* v_first,
+                                  long long v_stride, int s_lo, int nsb, int nw, int p, int tid,
+                                  int nthreads) {
+  unsigned* spec_sel = reinterpret_cast<unsigned*>(smem + L.sel_off);
+  int* spec_voff = reinterpret_cast<int*>(smem + L.voff_off);
+  const int nwb = L.nwb;
+  for (int e = tid; e < nsb * nwb; e += nthreads) {
+    const int sl = e / nwb, wd = e - sl * nwb;
+    unsigned v = wd < nw ? sel_bits[(size_t)(s_lo + sl) * nw + wd] : 0u;
+    if (wd == p / 32) v |= 1u << (p % 32);
+    spec_sel[e] = v;
+  }
+  for (int sl = tid; sl < nsb; sl += nthreads)
+    spec_voff[sl] = sl * (int)L.v_row + misalign(v_first + sl * v_stride);
+}
+
+// The raw row that lane r of warp 0 stages for each tile of month row_t / n:
+// x, y, the row weights (kRw), then the block's valid rows (at most 29
+// specs a block; a lane past them stages nothing).
+template <typename In, bool kRw, typename Layout>
+__device__ inline RawRow raw_row(const Layout& L, const In* x, const In* y, const In* rw,
+                                 long long row_t, int p, const unsigned char* v_first,
+                                 long long v_stride, int nsb, int lane) {
+  const size_t rw_off = L.x_bytes + L.y_bytes;
+  const size_t v_off = rw_off + L.rw_bytes;
+  const int n_raw = kRw ? 3 : 2;
+  constexpr int b = (int)sizeof(In);
+  if (lane == 0) return {reinterpret_cast<const unsigned char*>(x + row_t * p), b * p, 0u};
+  if (lane == 1) return {reinterpret_cast<const unsigned char*>(y + row_t), b, (unsigned)L.x_bytes};
+  if (kRw && lane == 2)
+    return {reinterpret_cast<const unsigned char*>(rw + row_t), b, (unsigned)rw_off};
+  if (lane < n_raw + nsb) {
+    const int sr = lane - n_raw;
+    return {v_first + sr * v_stride, 1, (unsigned)(v_off + sr * L.v_row)};
+  }
+  return {nullptr, 0, 0u};
+}
+
+// The producers (warps 0 .. kProducerWarps - 1) of a block whose built
+// rows are row-major in the operand type T (the float64 and the wide
+// float32 kernels): stage each tile of month t by the copy engine into a
+// ring of two stages and build it, once for every spec of the block, into
+// built buffer k & 1, which the consumers free (kBarEmpty) before it is
+// built again and take (kBarFull) once built. Column c (0 .. mp - 1) of
+// firm f's augmented row [1 | x - c | y | 0 pad] lands at
+// rows[f * L.qp + col(c)], spec s's weight of firm f at
+// wts[s * wstride + f]; firms cnt .. cnt8 - 1 of a ragged tile get zero
+// rows and weights. The block's prologue has filled the center, the spec
+// tables (fill_specs) and the mbarriers.
+template <typename T, bool kRw, typename Layout, typename Col>
+__device__ inline void produce_tiles(const Layout& L, unsigned char* smem, const T* x,
+                                     const T* y, const T* rw, const unsigned char* v_first,
+                                     long long v_stride, int t, long long n, int p, int nsb,
+                                     int tile, int mp, int wstride, Col col, int tid,
+                                     int nthreads) {
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int nprod = 32 * kProducerWarps;
+  const int qp = L.qp, nwb = L.nwb;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L.bar_off);  // one a stage
+  const T* cen = reinterpret_cast<const T*>(smem + L.cen_off);
+  const unsigned* spec_sel = reinterpret_cast<const unsigned*>(smem + L.sel_off);
+  const int* spec_voff = reinterpret_cast<const int*>(smem + L.voff_off);
+  unsigned* badw = reinterpret_cast<unsigned*>(smem + L.bad_off);
+  const long long n_tiles = (n + tile - 1) / tile;
+  const long long row_t = (long long)t * n;
+  // tiles start at multiples of 16 firms, so each source's misalignment
+  // is the same for every tile of the month
+  const int x_mis = misalign(x + row_t * p);
+  const int y_mis = misalign(y + row_t);
+  const int rw_mis = kRw ? misalign(rw + row_t) : 0;
+  const size_t rw_off = L.x_bytes + L.y_bytes;
+  const size_t v_off = rw_off + L.rw_bytes;
+  const RawRow raw = raw_row<T, kRw>(L, x, y, rw, row_t, p, v_first, v_stride, nsb, lane);
+  auto stage_tile = [&](long long n0, int buf) {
+    if (warp == 0)
+      stage_bulk(raw, n0, (int)min((long long)tile, n - n0), smem + buf * L.stage,
+                 bars + buf, lane);
+  };
+  // a row of at most 16 columns past the intercept takes a half-warp
+  // (two firms an iteration), a wider one a warp per 32 columns
+  const int fpi = mp <= 16 ? 2 : 1;
+  const int cw = 32 / fpi;
+  const int nwr = (mp - 1 + cw - 1) / cw;  // words of columns 1 .. mp - 1
+  const int h_lane = lane / cw, c_lane = lane - h_lane * cw;
+  stage_tile(0, 0);
+  // warp 0's byte copies of a ragged head or tail precede every
+  // producer's reads: for tile 0 this barrier, for a later tile the one
+  // that ends the build before it
+  bar_sync(kBarProd, nprod);
+  for (long long k = 0; k < n_tiles; ++k) {
+    const long long n0 = k * tile;
+    const int cnt = (int)min((long long)tile, n - n0);
+    const int cnt8 = (cnt + 7) & ~7;
+    const int b = (int)(k & 1);
+    if (k >= 2) bar_sync(kBarEmpty + b, nthreads);  // the consumers are done with buffer b
+    mbar_wait(bars + b, (unsigned)((k >> 1) & 1));
+    // the other stage was last read by the build of tile k - 1, which
+    // every producer finished
+    if (k + 1 < n_tiles) stage_tile(n0 + tile, b ^ 1);
+    const unsigned char* st = smem + b * L.stage;
+    const T* xr = reinterpret_cast<const T*>(st + x_mis);
+    const T* yr = reinterpret_cast<const T*>(st + L.x_bytes + y_mis);
+    const T* rwr = reinterpret_cast<const T*>(st + rw_off + rw_mis);
+    const unsigned char* vr = st + v_off;
+    T* rows = reinterpret_cast<T*>(smem + L.rows_off + b * L.rows_bytes);
+    T* wts = reinterpret_cast<T*>(smem + L.w_off + b * L.w_bytes);
+    // phase 1: lane c of word wd writes column cw wd + c + 1 of the
+    // augmented rows (x column cw wd + c, y as column p) of a warp's
+    // firms, and one ballot a firm gives the word's non-finite bits;
+    // branch-free, the firms independent of one another
+    for (int wd = 0; wd < nwr; ++wd) {
+      const int cc = cw * wd + c_lane;
+      const bool is_x = cc < p, is_y = cc == p, in_row = cc + 1 < mp;
+      const T cen_c = is_x ? cen[cc] : T(0);
+      const int xo = is_x ? cc : 0;
+      const int at = in_row ? col(cc + 1) : 0;
+#pragma unroll 4
+      for (int fg = warp; fg < cnt8 / fpi; fg += kProducerWarps) {
+        const int f = fpi * fg + h_lane;
+        const T xv = xr[f * p + xo], yv = yr[f];
+        const T raw_v = is_y ? yv : xv;
+        const bool keep = (is_x || is_y) && f < cnt;
+        const bool bad = keep && !isfinite(raw_v);
+        if (in_row) rows[f * qp + at] = keep && !bad ? (is_x ? raw_v - cen_c : raw_v) : T(0);
+        const unsigned bits = __ballot_sync(0xffffffffu, bad);
+        if (c_lane == 0 && wd < nwb)
+          badw[f * nwb + wd] = fpi == 1 ? bits : (bits >> (16 * h_lane)) & 0xFFFFu;
+      }
+    }
+    bar_sync(kBarProd, nprod);
+    // phase 2, a thread a (spec, firm): the intercept column and each
+    // weight, rw (or 1) where the valid byte is set and no selected
+    // column, y included, is non-finite, else 0
+    for (int f = tid; f < cnt8; f += nprod) rows[f * qp + col(0)] = f < cnt ? T(1) : T(0);
+    for (int s = 0; s < nsb; ++s) {
+      for (int f = tid; f < cnt8; f += nprod) {
+        unsigned hit = 0u;
+        for (int wd = 0; wd < nwb; ++wd) hit |= badw[f * nwb + wd] & spec_sel[s * nwb + wd];
+        wts[s * wstride + f] =
+            f < cnt && vr[spec_voff[s] + f] != 0 && hit == 0u ? (kRw ? rwr[f] : T(1)) : T(0);
+      }
+    }
+    // every producer is done with the stage and the non-finite words
+    bar_sync(kBarProd, nprod);
+    bar_arrive(kBarFull + b, nthreads);  // buffer b is built
   }
 }
 
@@ -1356,16 +1490,13 @@ gram_dmma_kernel(const double* __restrict__ x, const double* __restrict__ y,
   const Strips G = make_strips(qe);
   const int mp = 16 * G.mt;  // rows of the strips: QE padded
   const int t = blockIdx.x / splits;
-  const BlockWork W = block_work(blockIdx.x - t * splits, s_specs, G.tps, tpb);
+  const BlockWork W = block_work(blockIdx.x - t * splits, s_specs, G.tps, tpb, 1);
   const int ntask = W.ntask, s_lo = W.s_lo, nsb = W.nsb;
   const int run_slots = G.cs;  // a task's running sums: its cs tiles
   const DmmaLayout L = make_dmma_layout(tile, p, G.mt, nsb, kRw, tpb, run_slots);
-  const int qp = L.qp, nwb = L.nwb;
+  const int qp = L.qp;
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L.bar_off);  // one a stage
   double* cen = reinterpret_cast<double*>(smem + L.cen_off);
-  unsigned* spec_sel = reinterpret_cast<unsigned*>(smem + L.sel_off);
-  int* spec_voff = reinterpret_cast<int*>(smem + L.voff_off);
-  unsigned* badw = reinterpret_cast<unsigned*>(smem + L.bad_off);
   int* tasks = reinterpret_cast<int*>(smem + L.task_off);
   double* run = reinterpret_cast<double*>(smem + L.run_off);
   const int tid = threadIdx.x;
@@ -1376,15 +1507,7 @@ gram_dmma_kernel(const double* __restrict__ x, const double* __restrict__ y,
   const unsigned char* v_first = valid + ((long long)s_lo * t_len + t) * n;
   const long long v_stride = (long long)t_len * n;
   for (int c = tid; c < p; c += nthreads) cen[c] = center[(size_t)t * p + c];
-  // y enters every spec's selection as column p
-  for (int e = tid; e < nsb * nwb; e += nthreads) {
-    const int sl = e / nwb, wd = e - sl * nwb;
-    unsigned v = wd < nw ? sel_bits[(size_t)(s_lo + sl) * nw + wd] : 0u;
-    if (wd == p / 32) v |= 1u << (p % 32);
-    spec_sel[e] = v;
-  }
-  for (int sl = tid; sl < nsb; sl += nthreads)
-    spec_voff[sl] = sl * (int)L.v_row + misalign(v_first + sl * v_stride);
+  fill_specs(L, smem, sel_bits, v_first, v_stride, s_lo, nsb, nw, p, tid, nthreads);
   fill_tasks(G, W, tasks, tid, nthreads);
   for (int i = tid; i < ntask * run_slots * 128; i += nthreads) run[i] = 0.0;
   if (tid == 0) {
@@ -1395,103 +1518,8 @@ gram_dmma_kernel(const double* __restrict__ x, const double* __restrict__ y,
 
   const long long n_tiles = (n + tile - 1) / tile;
   if (warp < kProducerWarps) {
-    // --- producers: stage each tile by the copy engine and build it ---
-    const int nprod = 32 * kProducerWarps;
-    const long long row_t = (long long)t * n;
-    // tiles start at multiples of 16 firms, so each source's misalignment
-    // is the same for every tile of the month
-    const int x_mis = misalign(x + row_t * p);
-    const int y_mis = misalign(y + row_t);
-    const int rw_mis = kRw ? misalign(rw + row_t) : 0;
-    const size_t rw_off = L.x_bytes + L.y_bytes;
-    const size_t v_off = rw_off + L.rw_bytes;
-    // lane r of warp 0 stages row r of each tile: x, y, the row weights,
-    // the block's valid rows (at most 29 specs a block)
-    const int n_raw = kRw ? 3 : 2;
-    RawRow raw{nullptr, 0, 0u};
-    if (lane == 0) {
-      raw = {reinterpret_cast<const unsigned char*>(x + row_t * p), 8 * p, 0u};
-    } else if (lane == 1) {
-      raw = {reinterpret_cast<const unsigned char*>(y + row_t), 8, (unsigned)L.x_bytes};
-    } else if (kRw && lane == 2) {
-      raw = {reinterpret_cast<const unsigned char*>(rw + row_t), 8, (unsigned)rw_off};
-    } else if (lane < n_raw + nsb) {
-      const int sr = lane - n_raw;
-      raw = {v_first + sr * v_stride, 1, (unsigned)(v_off + sr * L.v_row)};
-    }
-    auto stage_tile = [&](long long n0, int buf) {
-      if (warp == 0)
-        stage_bulk(raw, n0, (int)min((long long)tile, n - n0), smem + buf * L.stage,
-                   bars + buf, lane);
-    };
-    // a row of at most 16 columns past the intercept takes a half-warp
-    // (two firms an iteration), a wider one a warp per 32 columns
-    const int fpi = mp <= 16 ? 2 : 1;
-    const int cw = 32 / fpi;
-    const int nwr = (mp - 1 + cw - 1) / cw;  // words of columns 1 .. mp - 1
-    const int h_lane = lane / cw, c_lane = lane - h_lane * cw;
-    stage_tile(0, 0);
-    // warp 0's byte copies of a ragged head or tail precede every
-    // producer's reads: for tile 0 this barrier, for a later tile the one
-    // that ends the build before it
-    bar_sync(kBarProd, nprod);
-    for (long long k = 0; k < n_tiles; ++k) {
-      const long long n0 = k * tile;
-      const int cnt = (int)min((long long)tile, n - n0);
-      const int cnt8 = (cnt + 7) & ~7;
-      const int b = (int)(k & 1);
-      if (k >= 2) bar_sync(kBarEmpty + b, nthreads);  // the consumers are done with buffer b
-      mbar_wait(bars + b, (unsigned)((k >> 1) & 1));
-      // the other stage was last read by the build of tile k - 1, which
-      // every producer finished
-      if (k + 1 < n_tiles) stage_tile(n0 + tile, b ^ 1);
-      const unsigned char* st = smem + b * L.stage;
-      const double* xr = reinterpret_cast<const double*>(st + x_mis);
-      const double* yr = reinterpret_cast<const double*>(st + L.x_bytes + y_mis);
-      const double* rwr = reinterpret_cast<const double*>(st + rw_off + rw_mis);
-      const unsigned char* vr = st + v_off;
-      double* rows = reinterpret_cast<double*>(smem + L.rows_off + b * L.rows_bytes);
-      double* wts = reinterpret_cast<double*>(smem + L.w_off + b * L.w_bytes);
-      // phase 1: lane c of word wd writes column cw wd + c + 1 of the
-      // augmented rows [1 | x - c | y | 0 pad] (x column cw wd + c, y as
-      // column p) of a warp's firms, and one ballot a firm gives the word's
-      // non-finite bits; branch-free, the firms independent of one
-      // another. Firms cnt .. cnt8 - 1 get zero rows.
-      for (int wd = 0; wd < nwr; ++wd) {
-        const int cc = cw * wd + c_lane;
-        const bool is_x = cc < p, is_y = cc == p, in_row = cc + 1 < mp;
-        const double cen_c = is_x ? cen[cc] : 0.0;
-        const int xo = is_x ? cc : 0;
-#pragma unroll 4
-        for (int fg = warp; fg < cnt8 / fpi; fg += kProducerWarps) {
-          const int f = fpi * fg + h_lane;
-          const double xv = xr[f * p + xo], yv = yr[f];
-          const double raw_v = is_y ? yv : xv;
-          const bool keep = (is_x || is_y) && f < cnt;
-          const bool bad = keep && !isfinite(raw_v);
-          if (in_row) rows[f * qp + cc + 1] = keep && !bad ? (is_x ? raw_v - cen_c : raw_v) : 0.0;
-          const unsigned bits = __ballot_sync(0xffffffffu, bad);
-          if (c_lane == 0 && wd < nwb)
-            badw[f * nwb + wd] = fpi == 1 ? bits : (bits >> (16 * h_lane)) & 0xFFFFu;
-        }
-      }
-      bar_sync(kBarProd, nprod);
-      // phase 2, a thread a (spec, firm): the intercept column and each
-      // weight, rw (or 1) where the valid byte is set and no selected
-      // column, y included, is non-finite, else 0
-      for (int f = tid; f < cnt8; f += nprod) rows[f * qp] = f < cnt ? 1.0 : 0.0;
-      for (int s = 0; s < nsb; ++s) {
-        for (int f = tid; f < cnt8; f += nprod) {
-          unsigned hit = 0u;
-          for (int wd = 0; wd < nwb; ++wd) hit |= badw[f * nwb + wd] & spec_sel[s * nwb + wd];
-          wts[s * tile + f] =
-              f < cnt && vr[spec_voff[s] + f] != 0 && hit == 0u ? (kRw ? rwr[f] : 1.0) : 0.0;
-        }
-      }
-      // every producer is done with the stage and the non-finite words
-      bar_sync(kBarProd, nprod);
-      bar_arrive(kBarFull + b, nthreads);  // buffer b is built
-    }
+    produce_tiles<double, kRw>(L, smem, x, y, rw, v_first, v_stride, t, n, p, nsb, tile, mp,
+                               tile, [](int c) { return c; }, tid, nthreads);
     return;
   }
 
@@ -1586,11 +1614,12 @@ int launch_dmma(const void* x, const void* y, const void* rw, const unsigned cha
                 const unsigned int* sel_bits, const void* center, void* out, int t_len,
                 long long n, int p, int nw, int s_specs, cudaStream_t stream) {
   const Strips G = make_strips(p + 2);
-  const BlockPlan B = plan_blocks(s_specs, G.tps, 32, kGramSmemBudget,
+  const BlockPlan B = plan_blocks(s_specs, G.tps, 1, 32, kGramSmemBudget,
                                   [&](int tl, int ntask, int nsb) {
                                     return make_dmma_layout(tl, p, G.mt, nsb, kRw, ntask, G.cs)
                                         .total;
-                                  });
+                                  },
+                                  warp_rounds);
   if (B.tpb == 0 || (long long)B.splits * t_len > 0x7fffffffLL) return -1;
   cudaError_t err = cudaFuncSetAttribute(gram_dmma_kernel<JW, kRw>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1682,7 +1711,7 @@ gram_tc_wide_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __
   const Strips G = make_strips(qe);
   const int mp = 16 * G.mt;  // transposed rows: QE padded
   const int t = blockIdx.x / splits;
-  const BlockWork W = block_work(blockIdx.x - t * splits, s_specs, G.tps, tpb);
+  const BlockWork W = block_work(blockIdx.x - t * splits, s_specs, G.tps, tpb, 1);
   const int ntask = W.ntask, s_lo = W.s_lo, nsb = W.nsb;
   const int run_slots = G.cs;  // a task's running sums: its cs tiles
   const WideLayout L = make_wide_layout(tile, p, mp, nsb, kRw, tpb, run_slots);
@@ -1704,15 +1733,7 @@ gram_tc_wide_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __
   const unsigned char* v_first = valid + ((long long)s_lo * t_len + t) * n;
   const long long v_stride = (long long)t_len * n;
   for (int c = tid; c < p; c += nthreads) cen[c] = __bfloat162float(center[(size_t)t * p + c]);
-  // y enters every spec's selection as column p
-  for (int e = tid; e < nsb * nwb; e += nthreads) {
-    const int sl = e / nwb, wd = e - sl * nwb;
-    unsigned v = wd < nw ? sel_bits[(size_t)(s_lo + sl) * nw + wd] : 0u;
-    if (wd == p / 32) v |= 1u << (p % 32);
-    spec_sel[e] = v;
-  }
-  for (int sl = tid; sl < nsb; sl += nthreads)
-    spec_voff[sl] = sl * (int)L.v_row + misalign(v_first + sl * v_stride);
+  fill_specs(L, smem, sel_bits, v_first, v_stride, s_lo, nsb, nw, p, tid, nthreads);
   fill_tasks(G, W, tasks, tid, nthreads);
   for (int i = tid; i < ntask * run_slots * 128; i += nthreads) run[i] = 0.f;
   if (tid == 0) {
@@ -1733,19 +1754,7 @@ gram_tc_wide_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __
     const int rw_mis = kRw ? misalign(rw + row_t) : 0;
     const size_t rw_off = L.x_bytes + L.y_bytes;
     const size_t v_off = rw_off + L.rw_bytes;
-    // lane r of warp 0 stages row r of each tile, as the float64 kernel's
-    const int n_raw = kRw ? 3 : 2;
-    RawRow raw{nullptr, 0, 0u};
-    if (lane == 0) {
-      raw = {reinterpret_cast<const unsigned char*>(x + row_t * p), 2 * p, 0u};
-    } else if (lane == 1) {
-      raw = {reinterpret_cast<const unsigned char*>(y + row_t), 2, (unsigned)L.x_bytes};
-    } else if (kRw && lane == 2) {
-      raw = {reinterpret_cast<const unsigned char*>(rw + row_t), 2, (unsigned)rw_off};
-    } else if (lane < n_raw + nsb) {
-      const int sr = lane - n_raw;
-      raw = {v_first + sr * v_stride, 1, (unsigned)(v_off + sr * L.v_row)};
-    }
+    const RawRow raw = raw_row<bf16, kRw>(L, x, y, rw, row_t, p, v_first, v_stride, nsb, lane);
     auto stage_tile = [&](long long n0, int buf) {
       if (warp == 0)
         stage_bulk(raw, n0, (int)min((long long)tile, n - n0), smem + buf * L.stage,
@@ -1966,12 +1975,13 @@ int launch_tc_wide(const void* x, const void* y, const void* rw, const unsigned 
                    const unsigned int* sel_bits, const void* center, void* out, int t_len,
                    long long n, int p, int nw, int s_specs, cudaStream_t stream) {
   const Strips G = make_strips(p + 2);
-  const BlockPlan B = plan_blocks(s_specs, G.tps, 128, kGramSmemBudget,
+  const BlockPlan B = plan_blocks(s_specs, G.tps, 1, 128, kGramSmemBudget,
                                   [&](int tl, int ntask, int nsb) {
                                     return make_wide_layout(tl, p, 16 * G.mt, nsb, kRw, ntask,
                                                             G.cs)
                                         .total;
-                                  });
+                                  },
+                                  warp_rounds);
   if (B.tpb == 0 || (long long)B.splits * t_len > 0x7fffffffLL) return -1;
   cudaError_t err = cudaFuncSetAttribute(gram_tc_wide_kernel<JW, kRw>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -2014,17 +2024,269 @@ int launch_bf16(const void* x, const void* y, const void* rw, const unsigned cha
                                  s_specs, stream);
 }
 
+
+// --- float32 past 32 columns: warp-specialized, 8x8 register tiles ---------
+
+// Byte offsets of one block's dynamic shared memory: two stages of raw
+// tiles (as the float64 kernel's) and their mbarriers, the month's center,
+// each spec's selection words (y as column p) and valid row offset, each
+// firm's non-finite words, two built buffers (the augmented rows, each
+// segment's two halves planar, and each (spec, firm) weight), each lane's
+// tile of each task and the running sums of each of a task's kparts parts
+// (64 floats a lane, lane-interleaved).
+struct F32WideLayout {
+  int nseg;     // 8-column segments of a row: QE padded to 8
+  int qp;       // floats of a built row, 8 nseg
+  int wstride;  // floats of a spec's weights, tile + 1: specs in distinct banks
+  int nwb;      // words of a firm's non-finite bits: x columns 0 .. p - 1, y as p
+  size_t x_bytes, y_bytes, rw_bytes, v_row, stage;
+  size_t bar_off, cen_off, sel_off, voff_off, bad_off, rows_off, rows_bytes, w_off, w_bytes,
+      task_off, run_off, total;
+};
+
+__host__ __device__ inline F32WideLayout make_f32_wide_layout(int tile, int p, int nsb,
+                                                              bool has_rw, int ntask,
+                                                              int kparts) {
+  F32WideLayout L;
+  L.nseg = (p + 2 + 7) / 8;
+  L.qp = 8 * L.nseg;
+  L.wstride = tile + 1;
+  L.nwb = p / 32 + 1;
+  L.x_bytes = up16((size_t)tile * p * 4 + 16);
+  L.y_bytes = up16((size_t)tile * 4 + 16);
+  L.rw_bytes = has_rw ? L.y_bytes : 0;
+  L.v_row = up16((size_t)tile + 16);
+  L.stage = L.x_bytes + L.y_bytes + L.rw_bytes + L.v_row * nsb;
+  L.bar_off = 2 * L.stage;
+  L.cen_off = L.bar_off + 16;
+  L.sel_off = L.cen_off + up16((size_t)p * 4);
+  L.voff_off = L.sel_off + up16((size_t)nsb * L.nwb * 4);
+  L.bad_off = L.voff_off + up16((size_t)nsb * 4);
+  L.rows_off = L.bad_off + up16((size_t)tile * L.nwb * 4);
+  L.rows_bytes = (size_t)tile * L.qp * 4;
+  L.w_off = L.rows_off + 2 * L.rows_bytes;
+  L.w_bytes = up16((size_t)nsb * L.wstride * 4);
+  L.task_off = L.w_off + 2 * L.w_bytes;
+  L.run_off = L.task_off + up16((size_t)ntask * 32 * 4);
+  L.total = L.run_off + (size_t)ntask * kparts * 64 * 32 * 4;
+  return L;
+}
+
+constexpr int kF32MinTile = 64;  // the smallest firm tile the plan's first pass takes
+
+template <bool kRw>
+__global__ void __launch_bounds__(kBlockThreads, 1)
+gram_f32_wide_kernel(const float* __restrict__ x, const float* __restrict__ y,
+                     const float* __restrict__ rw, const unsigned char* __restrict__ valid,
+                     const unsigned int* __restrict__ sel_bits, const float* __restrict__ center,
+                     float* __restrict__ out, int t_len, long long n, int p, int nw, int s_specs,
+                     int tile, int splits, int tpb, int kparts) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int qe = p + 2;
+  const int nseg = (qe + 7) / 8;
+  const int ntile = nseg * (nseg + 1) / 2;  // 8x8 tiles of a spec's upper triangle
+  const int t = blockIdx.x / splits;
+  const BlockWork W = block_work(blockIdx.x - t * splits, s_specs, ntile, tpb, 32);
+  const int ntask = W.ntask, s_lo = W.s_lo, nsb = W.nsb;
+  const F32WideLayout L = make_f32_wide_layout(tile, p, nsb, kRw, tpb, kparts);
+  const int qp = L.qp;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L.bar_off);  // one a stage
+  float* cen = reinterpret_cast<float*>(smem + L.cen_off);
+  int* tasks = reinterpret_cast<int*>(smem + L.task_off);
+  float* run = reinterpret_cast<float*>(smem + L.run_off);
+  const int tid = threadIdx.x;
+  const int nthreads = blockDim.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+
+  const unsigned char* v_first = valid + ((long long)s_lo * t_len + t) * n;
+  const long long v_stride = (long long)t_len * n;
+  for (int c = tid; c < p; c += nthreads) cen[c] = center[(size_t)t * p + c];
+  fill_specs(L, smem, sel_bits, v_first, v_stride, s_lo, nsb, nw, p, tid, nthreads);
+  // lane l of task i sums tile u = 32 (t0 + i) + l of the month's (spec,
+  // tile) list, the tiles of a spec row by row: (local spec << 16) |
+  // (ti << 8) | tj, or -1 past the list
+  const long long u0 = 32LL * W.t0, u_end = (long long)s_specs * ntile;
+  for (int i = tid; i < ntask * 32; i += nthreads) {
+    const long long u = u0 + i;
+    int e = -1;
+    if (u < u_end) {
+      const int s = (int)(u / ntile);
+      int r = (int)(u - (long long)s * ntile), ti = 0;
+      while (r >= nseg - ti) {
+        r -= nseg - ti;
+        ++ti;
+      }
+      e = ((s - s_lo) << 16) | (ti << 8) | (ti + r);
+    }
+    tasks[i] = e;
+  }
+  for (int i = tid; i < ntask * kparts * 64 * 32; i += nthreads) run[i] = 0.f;
+  if (tid == 0) {
+    mbar_init(bars);
+    mbar_init(bars + 1);
+  }
+  __syncthreads();
+
+  const long long n_tiles = (n + tile - 1) / tile;
+  if (warp < kProducerWarps) {
+    // column c of a row: segment c / 8's first half at 4 (c / 8), its
+    // second half at 4 nseg + 4 (c / 8), so that the lanes of a warp that
+    // load eight different segments' halves hit eight different bank groups
+    produce_tiles<float, kRw>(
+        L, smem, x, y, rw, v_first, v_stride, t, n, p, nsb, tile, qp, L.wstride,
+        [nseg](int c) { return ((c >> 2) & 1) * 4 * nseg + (c >> 3) * 4 + (c & 3); }, tid,
+        nthreads);
+    return;
+  }
+
+  // --- consumers: a warp's units one after another on each built buffer,
+  // unit u part h = u % kparts of task u / kparts (firms h cnt / kparts ..
+  // (h + 1) cnt / kparts - 1 of each tile); a lane sums its 8x8 tile (rows
+  // 8 ti.., columns 8 tj..) for its spec over the part's firms, the weight
+  // applied as the row operand is formed: per firm four 16-byte loads, one
+  // weight and 8 + 64 FP32 instructions, the lanes of a warp reading one
+  // firm's row (broadcasts), into a fresh sum per staged tile that is added
+  // into the unit's running sums ---
+  const int cwarp = warp - kProducerWarps;
+  const int ncw = (nthreads >> 5) - kProducerWarps;
+  const int half = 4 * nseg;
+  const int nunit = ntask * kparts;
+  for (long long k = 0; k < n_tiles; ++k) {
+    const int cnt = (int)min((long long)tile, n - k * tile);
+    const int b = (int)(k & 1);
+    bar_sync(kBarFull + b, nthreads);
+    const float* rows = reinterpret_cast<const float*>(smem + L.rows_off + b * L.rows_bytes);
+    const float* wts = reinterpret_cast<const float*>(smem + L.w_off + b * L.w_bytes);
+    for (int u = cwarp; u < nunit; u += ncw) {
+      const int i = u / kparts, h = u - i * kparts;
+      const int f0 = cnt * h / kparts, f1 = cnt * (h + 1) / kparts;
+      // a lane past the list sums spec 0's tile (0, 0), never stored
+      const int e = max(tasks[i * 32 + lane], 0);
+      const float* ra = rows + 4 * ((e >> 8) & 0xFF);
+      const float* rb = rows + 4 * (e & 0xFF);
+      const float* wr = wts + (e >> 16) * L.wstride;
+      float part[64];
+#pragma unroll
+      for (int q = 0; q < 64; ++q) part[q] = 0.f;
+#pragma unroll 2
+      for (int f = f0; f < f1; ++f) {
+        const float4 a0 = *reinterpret_cast<const float4*>(ra + f * qp);
+        const float4 a1 = *reinterpret_cast<const float4*>(ra + f * qp + half);
+        const float4 b0 = *reinterpret_cast<const float4*>(rb + f * qp);
+        const float4 b1 = *reinterpret_cast<const float4*>(rb + f * qp + half);
+        const float w = wr[f];
+        const float a[8] = {w * a0.x, w * a0.y, w * a0.z, w * a0.w,
+                            w * a1.x, w * a1.y, w * a1.z, w * a1.w};
+        const float c[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+        for (int ii = 0; ii < 8; ++ii)
+#pragma unroll
+          for (int jj = 0; jj < 8; ++jj) part[8 * ii + jj] = fmaf(a[ii], c[jj], part[8 * ii + jj]);
+      }
+      float* rs = run + (size_t)u * 64 * 32 + lane;
+#pragma unroll
+      for (int q = 0; q < 64; ++q) rs[q * 32] += part[q];
+    }
+    // buffer b may be rebuilt (the producers wait for it two tiles on)
+    if (k + 2 < n_tiles) bar_arrive(kBarEmpty + b, nthreads);
+  }
+
+  // each lane's entries on or above the diagonal, and their mirrors: the
+  // task's parts added in part order, once every consumer is done
+  if (kparts > 1) bar_sync(kBarCons, nthreads - 32 * kProducerWarps);
+  for (int i = cwarp; i < ntask; i += ncw) {
+    const int e = tasks[i * 32 + lane];
+    if (e < 0) continue;
+    const int r0 = 8 * ((e >> 8) & 0xFF), c0 = 8 * (e & 0xFF);
+    float* blk = out + ((size_t)(s_lo + (e >> 16)) * t_len + t) * qe * qe;
+    const float* rs = run + (size_t)i * kparts * 64 * 32 + lane;
+    for (int ii = 0; ii < 8; ++ii) {
+      for (int jj = 0; jj < 8; ++jj) {
+        const int r = r0 + ii, c = c0 + jj;
+        if (r <= c && c < qe) {
+          float v = rs[(8 * ii + jj) * 32];
+          for (int h = 1; h < kparts; ++h) v += rs[(h * 64 + 8 * ii + jj) * 32];
+          blk[r * qe + c] = v;
+          blk[c * qe + r] = v;
+        }
+      }
+    }
+  }
+}
+
+// The plan of the float32 kernel: the block plan (plan_blocks) for one and
+// for two parts a task, whichever costs less. A consumer warp's unit is
+// bound by the FP32 pipes of its SM sub-partition, so a block takes about
+// ceil(units / 4) units' time (consumer warp w on sub-partition w % 4),
+// a unit of kparts parts 1 / kparts of a task's; each block also stages and
+// builds the month once (about half a task's time, as measured on an H100).
+template <bool kRw>
+BlockPlan plan_f32_wide(int s_specs, int p, int& kparts) {
+  const int nseg = (p + 2 + 7) / 8;
+  BlockPlan best{0, 0, 0, 0, 0, 0.0};
+  for (int kp = 1; kp <= 2; ++kp) {
+    const BlockPlan B = plan_blocks(
+        s_specs, nseg * (nseg + 1) / 2, 32, kF32MinTile, kGramSmemBudget,
+        [&](int tl, int ntask, int nsb) {
+          return make_f32_wide_layout(tl, p, nsb, kRw, ntask, kp).total;
+        },
+        [&](long long splits, long long tpb) {
+          return (double)splits * ((double)((tpb * kp + 3) / 4) / kp + 0.5);
+        });
+    if (B.tpb != 0 && (best.tpb == 0 || B.cost < best.cost)) {
+      best = B;
+      kparts = kp;
+    }
+  }
+  return best;
+}
+
+template <bool kRw>
+int launch_f32_wide(const void* x, const void* y, const void* rw, const unsigned char* valid,
+                    const unsigned int* sel_bits, const void* center, void* out, int t_len,
+                    long long n, int p, int nw, int s_specs, cudaStream_t stream) {
+  int kparts = 1;
+  const BlockPlan B = plan_f32_wide<kRw>(s_specs, p, kparts);
+  if (B.tpb == 0 || (long long)B.splits * t_len > 0x7fffffffLL) return -1;
+  cudaError_t err = cudaFuncSetAttribute(gram_f32_wide_kernel<kRw>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)B.smem);
+  if (err != cudaSuccess) return (int)err;
+  const int threads = 32 * (kProducerWarps + std::min(B.tpb * kparts, kConsumerWarps));
+  gram_f32_wide_kernel<kRw><<<(unsigned)(B.splits * t_len), threads, B.smem, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(y), static_cast<const float*>(rw),
+      valid, sel_bits, static_cast<const float*>(center), static_cast<float*>(out), t_len, n,
+      p, nw, s_specs, B.tile, B.splits, B.tpb, kparts);
+  return (int)cudaGetLastError();
+}
+
+// Up to 32 columns the register-tile kernel (at most 8192 block entries a
+// launch), past them the warp-specialized one (the whole spec batch).
+template <bool kRw>
+int launch_f32(const void* x, const void* y, const void* rw, const unsigned char* valid,
+               const unsigned int* sel_bits, const void* center, void* out, int t_len,
+               long long n, int p, int nw, int s_specs, cudaStream_t stream) {
+  if (p > kMaxP)
+    return launch_f32_wide<kRw>(x, y, rw, valid, sel_bits, center, out, t_len, n, p, nw,
+                                s_specs, stream);
+  return launch<float, float, kRw>(x, y, rw, valid, sel_bits, center, out, t_len, n, p,
+                                   s_specs, stream);
+}
+
 }  // namespace
 
 // dtype_code: 0 float, 1 double, 2 bf16 operands with float sums. x (T, N,
 // P), y (T, N), center (T, P) and rw (T, N; null for no row weights) in the
 // operand type, out (S, T, P+2, P+2) in float for codes 0 and 2, double for
 // 1; valid (S, T, N) uint8; sel_bits (S, max(1, ceil(P / 32))) uint32, bit
-// c % 32 of word c / 32 set when spec s selects column c. Codes 0, and 2 up
-// to P = 32: S = 1 or S * (P+2)(P+3)/2 <= 8192; code 1, and 2 past P = 32:
-// S <= 65,536. Returns 0 on success, the cudaError_t of the launch
+// c % 32 of word c / 32 set when spec s selects column c. Codes 0 and 2 up
+// to P = 32: S * (P+2)(P+3)/2 <= 8192 (the wrapper cuts a larger batch);
+// code 1 at any P, and codes 0 and 2 past P = 32: S <= 65,536, the whole
+// batch in one launch. Returns 0 on success, the cudaError_t of the launch
 // otherwise, or -1 for arguments the kernel does not take (also a P whose
-// smallest firm tile exceeds shared memory).
+// smallest firm tile exceeds shared memory: past 424 columns in float64,
+// about 850 in float).
 extern "C" int gram_contract(int dtype_code, const void* x, const void* y,
                              const void* rw, const void* valid,
                              const void* sel_bits, const void* center,
@@ -2035,10 +2297,11 @@ extern "C" int gram_contract(int dtype_code, const void* x, const void* y,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const unsigned char* v = static_cast<const unsigned char*>(valid);
   const unsigned int* b = static_cast<const unsigned int*>(sel_bits);
+  if ((dtype_code == 1 || p > kMaxP) && s_specs > kOneLaunchSpecs) return -1;
   if (dtype_code == 0)
-    return launch_any<float, float>(x, y, rw, v, b, center, out, t_len, n, p, nw, s_specs, s);
-  if ((dtype_code == 1 || (dtype_code == 2 && p > kMaxP)) && s_specs > kOneLaunchSpecs)
-    return -1;
+    return rw != nullptr
+               ? launch_f32<true>(x, y, rw, v, b, center, out, t_len, n, p, nw, s_specs, s)
+               : launch_f32<false>(x, y, rw, v, b, center, out, t_len, n, p, nw, s_specs, s);
   if (dtype_code == 1)
     return rw != nullptr
                ? launch_f64<true>(x, y, rw, v, b, center, out, t_len, n, p, nw, s_specs, s)

@@ -18,11 +18,13 @@ tensors lie:
 - CUDA tensors go to the hand-written kernel (``csrc/gram.cu``, wrapper
   ``gram_contract_cuda``): the blocks of a month stream the panel through
   shared memory for all specs and build the weights there; float32 sums
-  4×4 register tiles of every spec's block on the CUDA cores, float64 goes
-  to the FP64 tensor cores (DMMA ``mma.sync`` m16n8k8), bfloat16 operands
-  to the tensor cores (``mma.sync`` with float32 sums, each spec's 0/1
-  weight a mask on the fragments, a row weight's product ``w·x̃`` split
-  exactly into two bfloat16 parts);
+  register tiles of every spec's block on the CUDA cores in plain IEEE
+  float32 (4×4 tiles up to 32 columns; past 32 columns 8×8 tiles in
+  warp-specialized blocks that stage and build a month's tiles once for
+  every spec), float64 goes to the FP64 tensor cores (DMMA ``mma.sync``
+  m16n8k8), bfloat16 operands to the tensor cores (``mma.sync`` with
+  float32 sums, each spec's 0/1 weight a mask on the fragments, a row
+  weight's product ``w·x̃`` split exactly into two bfloat16 parts);
 - CPU tensors take the plain version, a chunked masked einsum over firm
   slices (``contract_spec_grams_plain``).
 
@@ -76,11 +78,11 @@ __all__ = [
 # operand dtype → (the kernel's dtype code, its launch-key name)
 _DTYPE_CODES = {torch.float32: (0, "f32"), torch.float64: (1, "f64"),
                 torch.bfloat16: (2, "bf16")}
-# upper-triangle entries of one launch of the float32 kernel and of the
-# bfloat16 kernel up to 32 columns (csrc/gram.cu)
+# upper-triangle entries of one launch of the float32 and bfloat16 kernels
+# up to 32 columns (csrc/gram.cu)
 GRAM_MAX_ENTRIES = 8192
-# specs one launch of the float64 kernel and of the bfloat16 kernel past 32
-# columns takes: the whole batch of any real call
+# specs one launch of the float64 kernel, and of the float32 and bfloat16
+# kernels past 32 columns, takes: the whole batch of any real call
 GRAM_ONE_LAUNCH_SPECS = 65536
 
 GRAM_PRECISIONS = ("highest", "bf16")
@@ -189,13 +191,13 @@ def split_stats(out: torch.Tensor, p: int):
 
 def gram_spec_chunk(p: int, *, dtype: Optional[torch.dtype] = None) -> int:
     """The most specs one kernel launch takes at ``p`` predictor columns
-    for operands of ``dtype``: for float32 (and ``None``) and for bfloat16
-    up to 32 columns ⌊8192 / ((P+2)(P+3)/2)⌋, 60 at P = 14, and at least
-    one (P ≥ 126); for float64 at any P and bfloat16 past 32 columns
-    ``GRAM_ONE_LAUNCH_SPECS``, the whole batch of any real call."""
-    if dtype == torch.float64 or (dtype == torch.bfloat16 and p > 32):
+    for operands of ``dtype`` (``None``: float32): up to 32 columns, for
+    float32 and bfloat16, ⌊8192 / ((P+2)(P+3)/2)⌋, 60 at P = 14; past 32
+    columns, and for float64 at any P, ``GRAM_ONE_LAUNCH_SPECS``, the whole
+    batch of any real call."""
+    if dtype == torch.float64 or p > 32:
         return GRAM_ONE_LAUNCH_SPECS
-    return max(1, GRAM_MAX_ENTRIES // ((p + 2) * (p + 3) // 2))
+    return GRAM_MAX_ENTRIES // ((p + 2) * (p + 3) // 2)
 
 
 def selection_words(col_sel: torch.Tensor) -> torch.Tensor:
@@ -225,10 +227,12 @@ def gram_contract_cuda(y: torch.Tensor, x: torch.Tensor, valid: torch.Tensor,
     A spec batch over what one launch takes is cut into consecutive
     chunks of ``gram_spec_chunk(P, dtype=x.dtype)`` specs, one launch each,
     each writing its own slice of the output; the cut depends only on (S,
-    P, dtype): float32, and bfloat16 up to 32 columns, at 8192 block
-    entries, float64 and bfloat16 past 32 columns in one launch. Any P: the
-    spec's columns go to the kernel as ⌈P/32⌉ words of bits
-    (``selection_words``). Raises on anything the kernel does not take."""
+    P, dtype): float32 and bfloat16 up to 32 columns at 8192 block entries,
+    float64, and every dtype past 32 columns, in one launch. Any P the
+    kernel's shared memory holds (some 500 columns in float64, more in
+    float32 and bfloat16): the spec's columns go to the kernel as ⌈P/32⌉
+    words of bits (``selection_words``). Raises on anything the kernel
+    does not take."""
     tensors = {"y": y, "x": x, "valid": valid, "col_sel": col_sel,
                "center": center}
     if row_weights is not None:

@@ -263,10 +263,9 @@ def _held_to_plain(got, want, rtol, counts_exact=True):
 @pytest.mark.parametrize("dtype,rtol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
 def test_gram_kernel_wide_unions_match_plain(cuda, dtype, rtol, p):
     """Past 32 columns (the columns as ⌈P/32⌉ words a spec): float64 and
-    float32, with and without row weights, against the plain version; in
-    float32 a batch past one launch's 8192 block entries is cut (S = 5 at
-    P = 64 and 100), in float64 one launch takes it; counts exact under
-    0/1 weights, symmetric blocks."""
+    float32, with and without row weights, against the plain version; one
+    launch takes the spec batch in both; counts exact under 0/1 weights,
+    symmetric blocks."""
     y, x, universes, uidx, col_sel, window = _gram_args(dtype, cuda, t=5, n=900, p=p, s=5)
     x[:, 11, p - 1] = float("nan")                    # a non-finite column of the last word
     col_sel[1] = False
@@ -430,12 +429,12 @@ def test_gram_bf16_tensor_core_kernel(cuda, p, s, n, weights):
     assert torch.equal(out, grams.gram_contract_cuda(y, x, valid, col_sel, center, rw))
 
 
-def _f64_gram_case(cuda, t, n, p, s, weights, seed=11):
-    """float64 operands for the FP64 tensor-core kernel: NaNs and infinities,
-    an all-NaN column (every firm) from P = 4, a non-finite entry in the
-    last column, specs selecting the first column only, the last only and
-    every column, row weights None, 0/1 or real-valued (coreset-like, most
-    rows 0)."""
+def _gram_case(cuda, dtype, t, n, p, s, weights, seed=11):
+    """Operands of ``dtype`` for the float64 (DMMA) and wide float32
+    kernels: NaNs and infinities, an all-NaN column (every firm) from
+    P = 4, a non-finite entry in the last column, specs selecting the first
+    column only, the last only and every column, row weights None, 0/1 or
+    real-valued (coreset-like, most rows 0)."""
     rng = np.random.default_rng(seed + 7 * p + s)
     x = rng.standard_normal((t, n, p)) * 3.0
     x[rng.random(x.shape) < 0.05] = np.nan
@@ -458,10 +457,10 @@ def _f64_gram_case(cuda, t, n, p, s, weights, seed=11):
     if weights is not None:
         u = rng.random((t, n))
         w = np.ones_like(u) if weights == "binary" else 0.5 + 4.0 * u
-        rw = torch.tensor(np.where(u < 0.3, w, 0.0), device=cuda, dtype=torch.float64)
-    xt = torch.tensor(x, device=cuda, dtype=torch.float64)
+        rw = torch.tensor(np.where(u < 0.3, w, 0.0), device=cuda, dtype=dtype)
+    xt = torch.tensor(x, device=cuda, dtype=dtype)
     uni = torch.tensor(universes[uidx], device=cuda)
-    return (torch.tensor(y, device=cuda, dtype=torch.float64), xt, uni,
+    return (torch.tensor(y, device=cuda, dtype=dtype), xt, uni,
             uni.to(torch.uint8).contiguous(), torch.tensor(col_sel, device=cuda),
             grams.shared_center(xt), rw)
 
@@ -475,7 +474,8 @@ def test_gram_f64_tensor_core_kernel(cuda, p, s, weights):
     whatever the spec batch, a repeated call bit-identical, each block
     symmetric. N = 1,001 leaves a ragged tile and a ragged 8-firm step."""
     t, n = 3, 1001
-    y, x, uni, valid, col_sel, center, rw = _f64_gram_case(cuda, t, n, p, s, weights)
+    y, x, uni, valid, col_sel, center, rw = _gram_case(cuda, torch.float64, t, n, p, s,
+                                                       weights)
     window = torch.ones((s, t), dtype=torch.bool, device=cuda)
     assert grams.gram_spec_chunk(p, dtype=torch.float64) >= s
     before = grams.gram_contract_cuda.launches
@@ -486,5 +486,69 @@ def test_gram_f64_tensor_core_kernel(cuda, p, s, weights):
     want = grams.contract_spec_grams_plain(y, x, uni, col_sel, window, center,
                                            row_weights=rw)
     _held_to_plain(got, want, 1e-12, counts_exact=weights != "real")
+    assert torch.equal(out, out.transpose(-1, -2))
+    assert torch.equal(out, grams.gram_contract_cuda(y, x, valid, col_sel, center, rw))
+
+
+_WIDEST: dict = {}
+
+
+def _widest_f32_p(cuda, s: int, weighted: bool) -> int:
+    """The widest union one launch of the float32 kernel takes for ``s``
+    specs, with or without row weights (its shared memory's reach, some 800
+    columns), found by bisection over launches on a one-month, 16-firm
+    input: the kernel refuses a wider one as arguments it does not take."""
+    key = (s, weighted)
+    if key in _WIDEST:
+        return _WIDEST[key]
+
+    def takes(p: int) -> bool:
+        y = torch.zeros((1, 16), device=cuda)
+        x = torch.zeros((1, 16, p), device=cuda)
+        valid = torch.ones((s, 1, 16), dtype=torch.uint8, device=cuda)
+        col_sel = torch.ones((s, p), dtype=torch.bool, device=cuda)
+        rw = torch.ones((1, 16), device=cuda) if weighted else None
+        try:
+            grams.gram_contract_cuda(y, x, valid, col_sel, torch.zeros((1, p), device=cuda), rw)
+        except RuntimeError as err:
+            assert "invalid arguments" in str(err)
+            return False
+        return True
+
+    lo, hi = 33, 4096
+    assert takes(lo) and not takes(hi)
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if takes(mid) else (lo, mid)
+    _WIDEST[key] = lo
+    return lo
+
+
+@pytest.mark.parametrize("weights", [None, "binary", "real"])
+@pytest.mark.parametrize("s", [1, 9, 61])
+@pytest.mark.parametrize("p", [33, 40, 63, 64, 65, 100, 160, "widest"])
+def test_gram_f32_wide_kernel(cuda, p, s, weights):
+    """The float32 kernel past 32 columns (``gram_f32_wide_kernel``) against
+    its plain version at 1e-5 of each block's max-abs entry: counts exact
+    under 0/1 weights, one launch whatever the spec batch, a repeated call
+    bit-identical, each block symmetric. N = 1,001 leaves a ragged tile;
+    the last column (in the last selection word) holds a non-finite entry.
+    "widest" is the widest union one launch takes for this S and weighting
+    (one column more is refused)."""
+    t, n = 3, 1001
+    if p == "widest":
+        p = _widest_f32_p(cuda, s, weights is not None)
+    y, x, uni, valid, col_sel, center, rw = _gram_case(cuda, torch.float32, t, n, p, s,
+                                                       weights)
+    window = torch.ones((s, t), dtype=torch.bool, device=cuda)
+    assert grams.gram_spec_chunk(p, dtype=torch.float32) >= s
+    before = grams.gram_contract_cuda.launches
+    out = grams.gram_contract_cuda(y, x, valid, col_sel, center, rw)
+    assert grams.gram_contract_cuda.launches == before + 1
+    assert out.dtype == torch.float32
+    got = grams.split_stats(out, p)
+    want = grams.contract_spec_grams_plain(y, x, uni, col_sel, window, center,
+                                           row_weights=rw)
+    _held_to_plain(got, want, 1e-5, counts_exact=weights != "real")
     assert torch.equal(out, out.transpose(-1, -2))
     assert torch.equal(out, grams.gram_contract_cuda(y, x, valid, col_sel, center, rw))

@@ -6,7 +6,7 @@ holds the CPU's view of that branch:
 
 - the plain version (``specgrid.grams.contract_spec_grams_plain``, what a
   CPU tensor runs) against the Pallas kernel in interpret mode at P = 33,
-  40 and 64, float64 at 1e-12 and float32 at 1e-5 of each (spec, month)
+  40, 64 and 100, float64 at 1e-12 and float32 at 1e-5 of each (spec, month)
   block's largest entry, with and without row weights, counts exact; and
   on bfloat16 operands at P = 40, held as ``chip_smoke.check_gram`` holds
   the bf16 kernel: the Pallas kernel within 1e-5 of the float64 sums of
@@ -15,7 +15,7 @@ holds the CPU's view of that branch:
 - the kernel's column words (``selection_words``: ⌈P/32⌉ 32-bit words a
   spec) decode back to the selector, and the launch cut
   (``gram_spec_chunk``) is at least one spec however wide the union, the
-  whole batch for float64 and for bfloat16 past 32 columns;
+  whole batch for float64 and for every operand type past 32 columns;
 - ``run_spec_grid`` on a 40-column union and an FWL cell with 20 controls
   from it against the JAX functions at float64, at the card-vs-CPU pins
   of ``PERF.md`` §3: 1e-8 of ``max(|b|, 1)``, NaN patterns and counts
@@ -75,7 +75,7 @@ def _block_scale(stats):
 
 @pytest.mark.parametrize("weighted", [False, True])
 @pytest.mark.parametrize("dtype, rtol", [(np.float64, 1e-12), (np.float32, 1e-5)])
-@pytest.mark.parametrize("p", [33, 40, 64])
+@pytest.mark.parametrize("p", [33, 40, 64, 100])
 def test_plain_version_matches_the_pallas_kernel(p, dtype, rtol, weighted):
     y, x, valid, col_sel, center, rw = _contraction_inputs(p, dtype, weighted)
     want = gram_contract_pallas(
@@ -148,8 +148,11 @@ def test_selection_words_hold_every_column(p):
     assert not bits.reshape(6, -1)[:, p:].any()
 
 
-@pytest.mark.parametrize("p, chunk", [(14, 60), (40, 9), (64, 3), (100, 1), (125, 1),
-                                      (126, 1), (300, 1)])
+ONE = grams.GRAM_ONE_LAUNCH_SPECS
+
+
+@pytest.mark.parametrize("p, chunk", [(14, 60), (40, ONE), (64, ONE), (100, ONE), (125, ONE),
+                                      (126, ONE), (300, ONE)])
 def test_launch_cut_takes_at_least_one_spec(p, chunk):
     assert grams.gram_spec_chunk(p) == chunk
 
@@ -158,10 +161,10 @@ def test_launch_cut_takes_at_least_one_spec(p, chunk):
 @pytest.mark.parametrize("p", [1, 14, 32, 33, 40, 64, 100, 300])
 def test_launch_cut_per_operand_type(p, dtype):
     """float32 (and no dtype) and bfloat16 up to 32 columns cut at 8192
-    block entries; float64 at any width and bfloat16 past 32 columns take
-    the whole batch in one launch."""
+    block entries; float64 at any width and every operand type past 32
+    columns take the whole batch in one launch."""
     chunk = grams.gram_spec_chunk(p, dtype=dtype)
-    if dtype == torch.float64 or (dtype == torch.bfloat16 and p > 32):
+    if dtype == torch.float64 or p > 32:
         assert chunk == grams.GRAM_ONE_LAUNCH_SPECS
     else:
         assert chunk == grams.gram_spec_chunk(p) == max(1, 8192 // ((p + 2) * (p + 3) // 2))
