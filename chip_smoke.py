@@ -23,7 +23,13 @@ Phases (any failure exits non-zero without the final line):
    exact counts, two calls bit-identical, and the whole bf16
    ``contract_spec_grams`` call from float32 inputs timed), a 117-spec
    batch cut into two launches, and the estimator family's shapes (27 specs
-   in one launch, with and without row weights; Table 2's in float64);
+   in one launch, with and without row weights; Table 2's in float64); past
+   32 columns P = 40, 64 and 100 on every branch, each side of the reach one
+   launch had before column panels (424 float64 columns, 848 float32, 1,367
+   bfloat16; 847 and 622 with row weights), and the 920-column union
+   (T = 60, N = 22,000, 3 specs) on every branch, float32, float64 and row
+   weights cut into column panels, with the panel route's pre-pass
+   (``gram_fold_cuda``) timed beside them;
 4. the main path at real size — 600 months, 22,000 firms, ~77M daily rows
    built from ``--seed`` by ``data.smoke_inputs`` — through
    ``run_pipeline(device="cuda", dtype=torch.float32)`` and all of its
@@ -81,7 +87,7 @@ Phases (any failure exits non-zero without the final line):
    kill→replace cycles; then process replicas (``process_fleet_phase``):
    a fleet of 2 replica processes, each with its own CUDA context, over
    the socket and (where ``/dev/shm`` fits the rings) the shm transport,
-   quoting the same first 16,384 rows (the socket fleet the first 8,192
+   quoting the same first 16,384 rows (the socket fleet the first 4,096
    where the shm fleet runs) bit-equal to the bare service, p50/p99 and rows/s beside
    the thread fleets'; a journaled, traced fleet of 2 with one
    replica SIGKILLed under load (replaced by the supervisor, the journal
@@ -203,6 +209,9 @@ Phases (any failure exits non-zero without the final line):
    (FWL, IV, absorb one- and two-way, pooled two-way, FWL@cluster, absorb
    on the coreset route) at 1e-8, cells with a suspect month at
    ``SUSPECT_TOL`` between two CPU witnesses, integer disclosures exact;
+   ``run_spec_grid`` over a 40-column union and an FWL cell with 20
+   controls, and over a 920-column union (12 months × 2,000 seeded firms,
+   3 specs: the panel route) at the same pins;
 8. the raw-frame route (a 250-firm × 130-month synthetic universe, float64)
    on the card and on the CPU: the enriched panel at rtol 1e-10, the tables
    as in phase 7, the audit records equal;
@@ -361,7 +370,11 @@ from fm_returnprediction_tpu_torch.serving.state import ServingState, build_serv
 from fm_returnprediction_tpu_torch.specgrid.grams import (
     contract_spec_grams,
     contract_spec_grams_plain,
+    gram_column_panels,
     gram_contract_cuda,
+    gram_fold_cuda,
+    gram_fold_plain,
+    gram_launch_count,
     gram_spec_chunk,
     shared_center,
     split_stats,
@@ -609,15 +622,17 @@ def strip_phase(gen, by_shape: dict, mp: int = 100):
 # --- K2: the Gram contraction ----------------------------------------------
 
 
-def gram_inputs(t: int, n: int, p: int, dtype, gen, figure: bool = False, specs: int = 9):
-    """The contraction inputs: x (T, N, P) with NaNs and an all-NaN firm
-    column, y with NaNs, 3 universes, valid = universe of each spec. Table
-    2's grid has 9 specs (3 nested models × 3 universes); ``specs`` more
+def gram_inputs(t: int, n: int, p: int, dtype, gen, figure: bool = False, specs: int = 9,
+                widths=(3, 7, None), nan_frac: float = 0.05):
+    """The contraction inputs: x (T, N, P) with NaNs (``nan_frac`` of the
+    entries) and an all-NaN firm column, y with NaNs, 3 universes, valid =
+    universe of each spec. Table 2's grid has 9 specs (3 nested models × 3
+    universes: the first 3, 7 and every column, ``widths``); ``specs`` more
     cycle through the same models and universes, as the unfactorized
-    scenario sweep's windows do; the figure grid (``figure=True``) has 3,
-    every column in each."""
+    scenario sweep's windows do, and 3 take one model each; the figure
+    grid (``figure=True``) has 3, every column in each."""
     x = torch.randn((t, n, p), generator=gen, device="cuda", dtype=dtype)
-    x = torch.where(torch.rand((t, n, p), generator=gen, device="cuda") < 0.05,
+    x = torch.where(torch.rand((t, n, p), generator=gen, device="cuda") < nan_frac,
                     torch.full_like(x, float("nan")), x)
     x[:, 7, 2] = float("nan")
     y = 0.1 * torch.randn((t, n), generator=gen, device="cuda", dtype=dtype)
@@ -629,8 +644,9 @@ def gram_inputs(t: int, n: int, p: int, dtype, gen, figure: bool = False, specs:
         col_sel = torch.ones((3, p), dtype=torch.bool, device="cuda")
     else:
         col_sel = torch.zeros((specs, p), dtype=torch.bool, device="cuda")
+        widths = [p if w is None else w for w in widths]
         for i in range(specs):
-            col_sel[i, :[3, 7, p][(i // 3) % 3]] = True
+            col_sel[i, :widths[(i // 3) % 3 if specs > 3 else i]] = True
     uidx = torch.arange(col_sel.shape[0], device="cuda") % 3
     valid = universes[uidx].to(torch.uint8).contiguous()
     center = shared_center(x)
@@ -663,7 +679,8 @@ def gram_worst(got, want) -> tuple:
 
 
 def check_gram(t, n, p, dtype, rel, gen, timed, figure=False, weights=None,
-               low=False, specs=9, key_prefix="gram"):
+               low=False, specs=9, key_prefix="gram", widths=(3, 7, None), nan_frac=0.05,
+               reps=7):
     """K2 against its plain version on the same inputs; with ``timed`` the
     kernel table row. ``weights`` is None, "binary" (0/1: counts exact) or
     "coreset"; ``low`` runs bfloat16 operands (the float32 inputs rounded)
@@ -673,7 +690,8 @@ def check_gram(t, n, p, dtype, rel, gen, timed, figure=False, weights=None,
     bfloat16-rounded terms (``x − c`` rounded to bfloat16 as both form it),
     then against the float32 plain version at ``rel`` plus that plain
     version's own worst error against the float64 sums."""
-    y, x, uni, valid, col_sel, center = gram_inputs(t, n, p, dtype, gen, figure, specs)
+    y, x, uni, valid, col_sel, center = gram_inputs(t, n, p, dtype, gen, figure, specs, widths,
+                                                    nan_frac)
     rw = None
     if weights is not None:
         rw = coreset_like_weights(t, n, dtype, gen, binary=weights == "binary")
@@ -691,8 +709,11 @@ def check_gram(t, n, p, dtype, rel, gen, timed, figure=False, weights=None,
     worst, max_abs = gram_worst(got, want)
     kind = "bf16" if low else str(dtype)[6:]
     chunk = gram_spec_chunk(p, dtype=x.dtype)
+    plan = gram_column_panels(p, x.dtype, s, rw is not None)
     label = (f"T={t} N={n} P={p} S={s} {kind}" + (f" rw={weights}" if weights else "")
-             + (f" ({-(-s // chunk)} launches)" if s > chunk else ""))
+             + (f" ({-(-s // chunk)} launches)" if s > chunk else "")
+             + (f" ({gram_launch_count(t, n, p, s, x.dtype, rw is not None)} launches: "
+                f"{len(plan.pairs)} pairs of {len(plan.panels)} column panels)" if plan else ""))
     tol = rel
     check(torch.equal(out, gram_contract_cuda(y, x, valid, col_sel, center, rw)),
           f"K2 {label}: two calls differ in their bits")
@@ -716,53 +737,61 @@ def check_gram(t, n, p, dtype, rel, gen, timed, figure=False, weights=None,
     check(worst <= tol, f"K2 {label}: error beyond tolerance")
     row = None
     if timed:
-        ms = time_ms(lambda: gram_contract_cuda(y, x, valid, col_sel, center, rw))
+        ms = time_ms(lambda: gram_contract_cuda(y, x, valid, col_sel, center, rw), reps=reps)
         plain_ms = time_ms(lambda: contract_spec_grams_plain(
-            y, x, uni, col_sel, window, center, row_weights=rw), reps=5)
+            y, x, uni, col_sel, window, center, row_weights=rw), reps=min(reps, 5))
         tri = (p + 2) * (p + 3) // 2
         in_bytes = sum(a.numel() * a.element_size()
                        for a in (x, y, valid, col_sel, center, rw) if a is not None)
         out_bytes = s * t * (p + 2) ** 2 * got[0].element_size()
         b_ms, b_by = bound(in_bytes + out_bytes, 2.0 * s * t * n * tri, x.dtype)
-        library_ms, lib_note = None, "none: the pre-weighted design would not fit"
         qe, isz = p + 2, x.element_size()
         torch.cuda.empty_cache()
-        free = torch.cuda.mem_get_info()[0]
-        # yardstick: ONE batched matmul over the pre-weighted augmented
-        # design. Every (spec, month) its own (QE, N) @ (N, QE) product
-        # where both operands fit under 24 GiB; past that, one product a
-        # month, the specs' weighted rows stacked against the month's
-        # design, (S·QE, N) @ (N, QE): the same sums, the weighted operand
-        # the only large one
+        # yardstick: batched matmuls over the pre-weighted augmented
+        # design. Every (spec, month) its own (QE, N) @ (N, QE) product in
+        # one call where both operands fit under 24 GiB; past that, one
+        # product a month, the specs' weighted rows stacked against the
+        # month's design, (S·QE, N) @ (N, QE): the same sums, the weighted
+        # operand the only large one, one call over as many months as half
+        # the free memory holds, the calls' times summed
         per_spec = 2 * s * t * n * qe * isz < 24 * 2**30
-        if per_spec or (s * t * n * qe + 2 * t * n * qe + s * t * n) * isz < 0.85 * free:
-            fin = torch.isfinite(x)
-            xz = torch.where(fin, x - center[:, None, :], torch.zeros_like(x))
-            finy = torch.isfinite(y)
-            yz = torch.where(finy, y, torch.zeros_like(y))
-            xa = torch.cat([torch.ones_like(y)[..., None], xz, yz[..., None]], -1)
-            bad = torch.einsum("tnp,sp->stn", (~fin).float(), col_sel.float())
-            w = (uni & finy[None] & (bad == 0)).to(x.dtype)
-            if rw is not None:
-                w = w * rw
-            del fin, xz, yz, bad
-            if per_spec:
-                lhs = (xa[None] * w[..., None]).reshape(-1, n, qe).transpose(1, 2)
-                rhs = xa[None].expand(s, t, n, qe).reshape(-1, n, qe).contiguous()
-                lib = torch.bmm(lhs, rhs).reshape(s, t, qe, qe).float()
-                layout = "one (QE, N) @ (N, QE) product a (spec, month)"
-            else:
-                lhs = torch.empty((t, s, qe, n), dtype=x.dtype, device="cuda")
+        fin = torch.isfinite(x)
+        xz = torch.where(fin, x - center[:, None, :], torch.zeros_like(x))
+        finy = torch.isfinite(y)
+        yz = torch.where(finy, y, torch.zeros_like(y))
+        xa = torch.cat([torch.ones_like(y)[..., None], xz, yz[..., None]], -1)
+        bad = torch.einsum("tnp,sp->stn", (~fin).float(), col_sel.float())
+        w = (uni & finy[None] & (bad == 0)).to(x.dtype)
+        if rw is not None:
+            w = w * rw
+        del fin, xz, yz, bad
+        torch.cuda.empty_cache()
+        if per_spec:
+            lhs = (xa[None] * w[..., None]).reshape(-1, n, qe).transpose(1, 2)
+            rhs = xa[None].expand(s, t, n, qe).reshape(-1, n, qe).contiguous()
+            lib = torch.bmm(lhs, rhs).reshape(s, t, qe, qe).float()
+            library_ms = time_ms(lambda: torch.bmm(lhs, rhs), reps=reps)
+            layout = "one (QE, N) @ (N, QE) product a (spec, month)"
+            del lhs, rhs
+        else:
+            months = max(1, int(0.5 * torch.cuda.mem_get_info()[0] // (s * qe * n * isz)))
+            lib = torch.empty((s, t, qe, qe), dtype=torch.float32, device="cuda")
+            library_ms = 0.0
+            for t0 in range(0, t, months):
+                t1 = min(t0 + months, t)
+                lhs = torch.empty((t1 - t0, s, qe, n), dtype=x.dtype, device="cuda")
                 for j in range(s):
-                    lhs[:, j] = (xa * w[j][..., None]).transpose(1, 2)
-                lhs, rhs = lhs.view(t, s * qe, n), xa
-                lib = torch.bmm(lhs, rhs).view(t, s, qe, qe).transpose(0, 1).float()
-                layout = "one (S·QE, N) @ (N, QE) product a month"
-            lib_err = float((split_stats(lib, p)[0] - got[0].float()).abs().max())
-            library_ms = time_ms(lambda: torch.bmm(lhs, rhs))
-            lib_note = (f"bmm {library_ms:.4f} ms ({layout}; |gram diff| {lib_err:.3e}; "
-                        f"kernel/bmm {ms / library_ms:.3f})")
-            del lhs, rhs, lib, w, xa
+                    lhs[:, j] = (xa[t0:t1] * w[j, t0:t1][..., None]).transpose(1, 2)
+                lhs, rhs = lhs.view(t1 - t0, s * qe, n), xa[t0:t1]
+                lib[:, t0:t1] = torch.bmm(lhs, rhs).view(t1 - t0, s, qe, qe).transpose(0, 1)
+                library_ms += time_ms(lambda: torch.bmm(lhs, rhs), reps=reps)
+                del lhs, rhs
+            layout = (f"one (S·QE, N) @ (N, QE) product a month, {-(-t // months)} call(s) of "
+                      f"up to {months} months, summed")
+        lib_err = float((split_stats(lib, p)[0] - got[0].float()).abs().max())
+        lib_note = (f"bmm {library_ms:.4f} ms ({layout}; |gram diff| {lib_err:.3e}; "
+                    f"kernel/bmm {ms / library_ms:.3f})")
+        del lib, w, xa
         log(f"K2 {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
             f"{lib_note}, bound {b_ms:.4f} ms ({b_by})")
         if low:
@@ -771,7 +800,7 @@ def check_gram(t, n, p, dtype, rel, gen, timed, figure=False, weights=None,
             uidx = torch.arange(s, device="cuda") % 3
             whole_ms = time_ms(lambda: contract_spec_grams(
                 y_in, x_in, uni[:3], uidx, col_sel, window, row_weights=rw_in,
-                precision="bf16"))
+                precision="bf16"), reps=reps)
             log(f"K2 {label}: contract_spec_grams(precision='bf16') from float32 "
                 f"inputs {whole_ms:.4f} ms, of which the kernel {ms:.4f} ms")
         # the wrapper's launch key ("P=14,S=9,f32[,rw]")
@@ -846,34 +875,97 @@ def k2_phase(gen, timed: bool):
 # every column of the union, Table 2's three nested shapes widened
 WIDE_P = 40
 WIDE_SHAPES = ((WIDE_P, 22000), (64, 4096), (100, 4096))
+# the months k2_wide_path_phase runs the 64- and 100-column unions over
+WIDE_PATH_MONTHS = 120
 # their launches on a path: k2_wide_path_phase's run_spec_grid runs
 ROW_PATH.update({f"gram/P={p},S=9,{branch}": ("wide",) for p, _ in WIDE_SHAPES
                  for branch in ("f32", "f64", "f32,rw", "bf16")})
 
 
-def widest_f32_p(specs: int) -> int:
-    """The widest union one launch of the float32 kernel takes for
-    ``specs`` specs without row weights (its shared memory's reach), by
-    bisection over launches on a one-month, 16-firm input: the kernel
-    refuses a wider one as arguments it does not take."""
-    def takes(p: int) -> bool:
-        try:
-            gram_contract_cuda(torch.zeros((1, 16), device="cuda"),
-                               torch.zeros((1, 16, p), device="cuda"),
-                               torch.ones((specs, 1, 16), dtype=torch.uint8, device="cuda"),
-                               torch.ones((specs, p), dtype=torch.bool, device="cuda"),
-                               torch.zeros((1, p), device="cuda"))
-        except RuntimeError as err:
-            check("invalid arguments" in str(err), f"K2 at P={p}: {err}")
-            return False
-        return True
+# K2 past one launch's reach: a union of 920 columns (Gu, Kelly and Xiu's
+# 94 characteristics × 9 plus 74 industry dummies), 60 months × 22,000
+# firms (depth cut for time), 3 specs (the first 3, 460 and every column),
+# 1e-4 of the entries NaN (the widest spec keeps most rows), on every
+# branch: float32, float64 and coreset row weights cut into column panels
+# (the pre-pass and one launch a pair), bfloat16 operands in one launch
+# (their reach is 1,367 columns)
+PANEL_P, PANEL_T, PANEL_N = 920, 60, 22000
+PANEL_WIDTHS = (3, PANEL_P // 2, PANEL_P)
+PANEL_NAN = 1e-4
+# the pre-pass's counterpart in the Pallas kernel: the selected columns'
+# non-finite count and the weight of _gram_kernel
+FOLD_REPLACES = "fm_returnprediction_tpu/ops/gram_pallas.py:89"
+# their launches on a path: k2_wide_path_phase's run_spec_grid over 920
+# columns on each branch
+ROW_PATH.update({f"gram/P={PANEL_P},S=3,{branch}": ("wide",)
+                 for branch in ("f32", "f64", "f32,rw", "bf16")})
+ROW_PATH.update({f"fold/P={PANEL_P},S=3,{branch}": ("wide",) for branch in ("f32", "f64")})
+# the reach one launch had before column panels, 9 specs (gram_launch_fits):
+# (label, operands, bfloat16, row weights, the widest union)
+OLD_REACH = (("f64", torch.float64, False, None, 424),
+             ("f64 rw", torch.float64, False, "binary", 423),
+             ("f32", torch.float32, False, None, 848),
+             ("f32 rw", torch.float32, False, "binary", 847),
+             ("bf16", torch.float32, True, None, 1367),
+             ("bf16 rw", torch.float32, True, "binary", 622))
 
-    lo, hi = 33, 4096
-    check(takes(lo) and not takes(hi), "K2 float32: the widest union is not in 33 .. 4095")
-    while hi - lo > 1:
-        mid = (lo + hi) // 2
-        lo, hi = (mid, hi) if takes(mid) else (lo, mid)
-    return lo
+
+def reach_checks(gen) -> None:
+    """Each side of the reach one launch had before column panels, 12
+    months × 1,001 firms, 9 specs: at the reach one launch, one column past
+    it the pre-pass and one launch a pair of panels
+    (``gram_launch_count``), each held to its plain version as
+    ``check_gram`` holds it (two calls, bit-identical)."""
+    for label, dtype, low, weights, reach in OLD_REACH:
+        operands = torch.bfloat16 if low else dtype
+        for p in (reach, reach + 1):
+            plan = gram_column_panels(p, operands, 9, weights is not None)
+            check((plan is None) == (p == reach),
+                  f"K2 {label} P={p}: column panels {'' if plan else 'not '}planned")
+            want = (gram_launch_count(12, 1001, p, 9, operands, weights is not None),
+                    0 if plan is None else 1)
+            before = gram_contract_cuda.launches, gram_fold_cuda.launches
+            check_gram(12, 1001, p, dtype, 1e-12 if dtype == torch.float64 else 1e-5, gen,
+                       False, weights=weights, low=low, nan_frac=1e-3)
+            got = (gram_contract_cuda.launches - before[0],
+                   gram_fold_cuda.launches - before[1])
+            log(f"K2 {label} P={p}: "
+                + ("one launch" if plan is None else
+                   f"{len(plan.panels)} column panels, {len(plan.pairs)} pairs")
+                + f"; launches (K2, pre-pass) of two calls {got}")
+            check(got == (2 * want[0], 2 * want[1]),
+                  f"K2 {label} P={p}: launches {got}, not twice {want}")
+
+
+def fold_row(dtype, gen, timed):
+    """The panel route's pre-pass (``gram_fold_cuda``) at the 920-column
+    shape against its plain version, bit for bit, two calls identical; with
+    ``timed`` its kernel table row."""
+    y, x, _, valid, col_sel, _ = gram_inputs(PANEL_T, PANEL_N, PANEL_P, dtype, gen, specs=3,
+                                             widths=PANEL_WIDTHS, nan_frac=PANEL_NAN)
+    got = gram_fold_cuda(y, x, valid, col_sel)
+    want = gram_fold_plain(y, x, valid, col_sel)
+    kind = {torch.float32: "f32", torch.float64: "f64"}[dtype]
+    label = f"T={PANEL_T} N={PANEL_N} P={PANEL_P} S=3 {kind}"
+    wrong = int((got != want).sum())
+    log(f"gram_fold {label}: {wrong} of {got.numel()} bytes differ from the plain version, "
+        f"{int(got.sum())} rows valid")
+    check(wrong == 0 and torch.equal(got, gram_fold_cuda(y, x, valid, col_sel)),
+          f"gram_fold {label}: differs from the plain version or between calls")
+    row = None
+    if timed:
+        ms = time_ms(lambda: gram_fold_cuda(y, x, valid, col_sel))
+        plain_ms = time_ms(lambda: gram_fold_plain(y, x, valid, col_sel), reps=5)
+        moved = sum(a.numel() * a.element_size() for a in (x, y, valid, col_sel)) + got.numel()
+        b_ms, b_by = bound(moved, float(x.numel()), dtype)
+        log(f"gram_fold {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library none, "
+            f"bound {b_ms:.4f} ms ({b_by})")
+        row = dict(name=f"gram_fold {label}", key=f"fold/P={PANEL_P},S=3,{kind}", route="cuda",
+                   source=K2_SOURCE, replaces=FOLD_REPLACES, max_abs_err=float(wrong), ms=ms,
+                   plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    del y, x, valid, col_sel, got, want
+    torch.cuda.empty_cache()
+    return row
 
 
 def k2_wide_phase(gen, timed: bool):
@@ -881,7 +973,9 @@ def k2_wide_phase(gen, timed: bool):
     (the timed rows of the kernel table), then untimed edge cases: P = 33
     in float64, float32 and bfloat16 with 0/1 weights on a ragged N,
     bfloat16 with coreset weights at P = 40, float32 with 61 specs at P =
-    40 and at the widest union one float32 launch takes for 9 specs."""
+    40, and each side of the reach one launch had before column panels
+    (``reach_checks``); then the 920-column union on every branch and the
+    pre-pass (timed rows)."""
     rows = []
     for p, n in WIDE_SHAPES:
         rows += [check_gram(600, n, p, torch.float32, 1e-5, gen, timed),
@@ -893,9 +987,16 @@ def k2_wide_phase(gen, timed: bool):
     check_gram(120, 3001, 33, torch.float32, 1e-5, gen, False, weights="binary", low=True)
     check_gram(120, 3001, 33, torch.float32, 1e-5, gen, False, weights="binary")
     check_gram(120, 4096, WIDE_P, torch.float32, 1e-5, gen, False, specs=61)
-    widest = widest_f32_p(9)
-    log(f"K2 float32: the widest union one launch takes for 9 specs is P={widest}")
-    check_gram(12, 1001, widest, torch.float32, 1e-5, gen, False)
+    reach_checks(gen)
+    # a call of 0.25-0.9 s: median of 2 (the plain version's too)
+    panel = dict(specs=3, widths=PANEL_WIDTHS, nan_frac=PANEL_NAN, reps=2)
+    rows += [check_gram(PANEL_T, PANEL_N, PANEL_P, torch.float32, 1e-5, gen, timed, **panel),
+             check_gram(PANEL_T, PANEL_N, PANEL_P, torch.float64, 1e-12, gen, timed, **panel),
+             check_gram(PANEL_T, PANEL_N, PANEL_P, torch.float32, 1e-5, gen, timed,
+                        weights="coreset", **panel),
+             check_gram(PANEL_T, PANEL_N, PANEL_P, torch.float32, 1e-5, gen, timed, low=True,
+                        **panel),
+             fold_row(torch.float32, gen, timed), fold_row(torch.float64, gen, timed)]
     return [row for row in rows if row]
 
 
@@ -908,7 +1009,8 @@ def sass_hmma_phase() -> None:
     float64 kernels (three chunk widths) ``DMMA`` and no ``HMMA``, the four
     float32 kernels (``gram_kernel`` up to 32 columns and
     ``gram_f32_wide_kernel`` past them, each with and without row weights)
-    neither."""
+    and the panel route's three pre-pass kernels (``gram_fold_kernel``, one
+    an operand type) neither."""
     cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
     tool = shutil.which("cuobjdump") or os.path.join(cuda_home, "bin", "cuobjdump")
     if not os.path.exists(tool):
@@ -940,9 +1042,11 @@ def sass_hmma_phase() -> None:
           "bf16 Gram kernels without HMMA (or with DMMA)")
     check(len(dm) == 6 and all(v["DMMA"] > 0 and v["HMMA"] == 0 for v in dm.values()),
           "float64 Gram kernels without DMMA (or with HMMA)")
-    check(len(cc) == 4 and sum(k.startswith("gram_f32_wide_kernel") for k in cc) == 2
+    check(len(cc) == 7 and sum(k.startswith("gram_f32_wide_kernel") for k in cc) == 2
+          and sum(k.startswith("gram_fold_kernel") for k in cc) == 3
           and all(v["HMMA"] == 0 and v["DMMA"] == 0 for v in cc.values()),
-          "float32 Gram kernels use the tensor cores (or are not the four expected)")
+          "float32 Gram kernels or the pre-pass use the tensor cores (or are not the seven "
+          "expected)")
 
 
 # --- K3: the masked cumulative moments --------------------------------------
@@ -1034,14 +1138,17 @@ def reset_counts() -> None:
     rolling_reduce_cuda.launches_by_key = {}
     gram_contract_cuda.launches = 0
     gram_contract_cuda.launches_by_key = {}
+    gram_fold_cuda.launches = 0
+    gram_fold_cuda.launches_by_key = {}
     masked_cumulative_moments_cuda.launches = 0
 
 
 def launch_counts() -> dict:
     """The launch counters since ``reset_counts``: K1 per kind, window and
     shape ("mean/w=120,600x15") and per kind ("mean/w=120"), K2 per shape
-    ("gram/P=14,S=9,f32", a call cut into chunks counting each launch), and
-    the totals."""
+    ("gram/P=14,S=9,f32", a call cut into chunks counting each launch), the
+    panel route's pre-pass per shape ("fold/P=920,S=3,f32"), and the
+    totals."""
     by_shape = dict(rolling_reduce_cuda.launches_by_key)
     by_kind = {}
     for key, n in by_shape.items():
@@ -1049,10 +1156,12 @@ def launch_counts() -> dict:
         by_kind[kind] = by_kind.get(kind, 0) + n
     counts = {"k1": rolling_reduce_cuda.launches,
               "k2": gram_contract_cuda.launches,
+              "fold": gram_fold_cuda.launches,
               "moments": masked_cumulative_moments_cuda.launches}
     counts.update(by_shape)
     counts.update(by_kind)
     counts.update({f"gram/{k}": v for k, v in gram_contract_cuda.launches_by_key.items()})
+    counts.update({f"fold/{k}": v for k, v in gram_fold_cuda.launches_by_key.items()})
     return counts
 
 
@@ -1555,10 +1664,10 @@ print("EXE-PLANE " + json.dumps({
 """
 # the journaled passes are cut short: every journal event is written and
 # flushed, so they run at ~2k rows/s (PERF.md, Findings)
-FLEET_JOURNALED_ROWS = 8192    # rows of the journaled pass the kill lands in
+FLEET_JOURNALED_ROWS = 4096    # rows of the journaled pass the kill lands in
 # rows of the socket process fleet's pass (the socket transport moves ~1,500
 # rows/s: 60 s for all 88,157)
-PROCESS_SOCKET_ROWS = 8192
+PROCESS_SOCKET_ROWS = 4096
 # rows of the thread fleets' and the shm process fleet's passes: the first
 # of the serving phase's rows, cut from all 88,157 for the script's time
 FLEET_ROWS = 16384
@@ -2396,15 +2505,32 @@ def wide_grid(factors: dict, universes, extra: int):
     return SpecGrid(tuple(specs), union=tuple(union + seeded)), union, seeded
 
 
-def _seeded_columns(t: int, n: int, k: int, seed: int, device, dtype) -> torch.Tensor:
-    """``k`` seeded standard-normal (T, N) columns, 2% of them NaN, made
-    from ``seed`` on ``device``."""
+def _seeded_columns(t: int, n: int, k: int, seed: int, device, dtype,
+                    nan_frac: float = 0.02) -> torch.Tensor:
+    """``k`` seeded standard-normal (T, N) columns, ``nan_frac`` of the
+    entries NaN, made from ``seed`` on ``device``."""
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     cols = torch.randn((t, n, k), generator=gen, device=device, dtype=torch.float64)
     cols = torch.where(torch.rand((t, n, k), generator=gen, device=device, dtype=torch.float64)
-                       < 0.02, torch.full_like(cols, float("nan")), cols)
+                       < nan_frac, torch.full_like(cols, float("nan")), cols)
     return cols.to(dtype)
+
+
+def panel_grid(factors: dict, universe: str):
+    """The 920-column union: Table 2's union and seeded columns after it;
+    3 specs over ``universe``: Model 1's columns (the union's first 3), the
+    first half and every column. Returns ``(grid, Table 2's union, the
+    seeded columns' names)``."""
+    from fm_returnprediction_tpu_torch.specgrid.specs import Spec, SpecGrid
+
+    cols = [model_columns(m, factors) for m in MODELS]
+    union = list(dict.fromkeys(c for cs in cols for c in cs))
+    seeded = [f"seeded_{i}" for i in range(PANEL_P - len(union))]
+    names = tuple(union + seeded)
+    specs = tuple(Spec(f"P{w} | {universe}", names[:w], universe)
+                  for w in (len(cols[0]),) + PANEL_WIDTHS[1:])
+    return SpecGrid(specs, union=names), union, seeded
 
 
 def k2_wide_path_phase(res, seed: int) -> dict:
@@ -2413,7 +2539,9 @@ def k2_wide_path_phase(res, seed: int) -> dict:
     seeded columns (``WIDE_P`` = 40), Table 2's spec shapes over it
     (``wide_grid``), in float32, with coreset row weights, in bfloat16 and
     in float64; then unions of 64 and 100 columns (50 and 86 seeded) at
-    the first 4,096 firms on the same four branches. Each run's K2
+    the first 4,096 firms of the last ``WIDE_PATH_MONTHS`` months (depth
+    cut for the script's time) on the same four branches; then the
+    920-column union (``_panel_path``). Each run's K2
     launches are counted by key: ⌈9 / gram_spec_chunk(P, dtype=…)⌉, one
     on every branch (one launch takes the whole batch past 32 columns);
     Models 1 and 2 come out finite. No referee: its QR re-solves launch no
@@ -2429,12 +2557,13 @@ def k2_wide_path_phase(res, seed: int) -> dict:
     gen.manual_seed(seed)
     for p, firms in WIDE_SHAPES:
         grid, union, seeded = wide_grid(res.factors_dict, universes, p - 14)
-        cols = torch.cat([panel.select(union),
-                          _seeded_columns(t, n, len(seeded), seed + p, dev, torch.float32)],
+        t_run = t if p == WIDE_P else WIDE_PATH_MONTHS
+        cols = torch.cat([panel.select(union)[t - t_run:],
+                          _seeded_columns(t_run, n, len(seeded), seed + p, dev, torch.float32)],
                          dim=-1)[:, :firms].contiguous()
-        yy = y[:, :firms].contiguous()
-        mm = {u: masks[u][:, :firms].contiguous() for u in universes}
-        rw = coreset_like_weights(t, firms, torch.float32, gen, binary=False)
+        yy = y[t - t_run:, :firms].contiguous()
+        mm = {u: masks[u][t - t_run:, :firms].contiguous() for u in universes}
+        rw = coreset_like_weights(t_run, firms, torch.float32, gen, binary=False)
         runs = (("f32", dict(), yy, cols, torch.float32),
                 ("rw", dict(row_weights=rw), yy, cols, torch.float32),
                 ("bf16", dict(precision="bf16"), yy, cols, torch.bfloat16),
@@ -2464,7 +2593,67 @@ def k2_wide_path_phase(res, seed: int) -> dict:
                     merged[key] = merged.get(key, 0) + v
         del cols, rw, yy, mm
         torch.cuda.empty_cache()
+    _panel_path(res, seed, gen, merged)
     return merged
+
+
+def _panel_path(res, seed: int, gen, merged: dict) -> None:
+    """``run_spec_grid`` over the 920-column union (``panel_grid``): the
+    last ``PANEL_T`` months of the main path's panel (its first months hold
+    fewer firms than the widest spec has columns), all its firms, over All
+    stocks, in float32, with coreset row weights, in bfloat16 and in
+    float64. Each run's K2 launches are ``gram_launch_count``'s (float32,
+    float64 and the row weights cut into column panels: one launch a pair,
+    and one pre-pass launch; bfloat16 one launch), each spec's selected
+    coefficients finite. Adds the launches (``gram/…``, ``fold/…``) to
+    ``merged``."""
+    panel, masks = res.panel, res.subset_masks
+    t, n = PANEL_T, panel.values.shape[1]
+    universe = "All stocks"
+    grid, union, seeded = panel_grid(res.factors_dict, universe)
+    dev = panel.values.device
+    t0 = panel.values.shape[0] - t
+    cols = torch.cat([panel.select(union)[t0:],
+                      _seeded_columns(t, n, len(seeded), seed + PANEL_P, dev, torch.float32,
+                                      nan_frac=PANEL_NAN)], dim=-1).contiguous()
+    y = panel.var("retx")[t0:].contiguous()
+    mm = {universe: masks[universe][t0:].contiguous()}
+    rw = coreset_like_weights(t, n, torch.float32, gen, binary=False)
+    widths = [len(sp.predictors) for sp in grid.specs]
+    runs = (("f32", dict(), y, cols, torch.float32),
+            ("rw", dict(row_weights=rw), y, cols, torch.float32),
+            ("bf16", dict(precision="bf16"), y, cols, torch.bfloat16),
+            ("f64", dict(), y.double(), cols.double(), torch.float64))
+    for label, kw, y_run, x_run, operands in runs:
+        weighted = "row_weights" in kw
+        plan = gram_column_panels(PANEL_P, operands, len(grid.specs), weighted)
+        reset_counts()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out = run_spec_grid(y_run, x_run, mm, grid, False, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+        counts = launch_counts()
+        want = (gram_launch_count(t, n, PANEL_P, len(grid.specs), operands, weighted),
+                0 if plan is None else 1)
+        finite = all(np.isfinite(out.coef[i, :w]).all() for i, w in enumerate(widths))
+        log(f"K2 panel path: run_spec_grid P={PANEL_P} S={len(grid.specs)} T={t} N={n} "
+            f"{label}: {wall:.3f} s, "
+            + ("one launch" if plan is None else
+               f"{len(plan.panels)} column panels, {len(plan.pairs)} pairs")
+            + f", K2 {counts['k2']}, pre-pass {counts['fold']}, mean rows a month "
+            f"{np.round(out.mean_n, 1).tolist()}, specs with a suspect month "
+            f"{int((out.suspect_months > 0).sum())}, selected coefficients finite {finite}")
+        check((counts["k2"], counts["fold"]) == want,
+              f"panel run_spec_grid {label}: launches (K2, pre-pass) "
+              f"{(counts['k2'], counts['fold'])}, not {want}")
+        check(finite, f"panel run_spec_grid {label}: a selected coefficient is not finite")
+        for key, v in counts.items():
+            if key.startswith(("gram/", "fold/")):
+                merged[key] = merged.get(key, 0) + v
+        del out, x_run, y_run
+    del cols, rw, y, mm
+    torch.cuda.empty_cache()
 
 
 def multiproc_phase(res) -> dict:
@@ -2733,6 +2922,7 @@ def card_vs_cpu(seed: int, absorb_reading: bool = False) -> None:
     _backtest_vs_cpu(gpu)
     _estimators_vs_cpu(gpu, absorb_reading)
     _wide_vs_cpu(gpu, seed)
+    _panel_vs_cpu(seed)
 
 
 def _grid_gap(got, want, suspect: np.ndarray) -> tuple:
@@ -2809,6 +2999,50 @@ def _wide_vs_cpu(gpu, seed: int) -> None:
           "wide FWL: deficient months differ")
     check(held <= 1e-8 and worst_sus <= SUSPECT_TOL and f_held <= 1e-8
           and f_sus <= SUSPECT_TOL, "card vs CPU: the wide grid beyond tolerance")
+
+
+def _panel_vs_cpu(seed: int) -> None:
+    """The panel route card vs CPU at float64: ``run_spec_grid`` over 920
+    seeded columns (12 months × 2,000 firms, 1e-4 of the entries NaN, y a
+    few columns' sum and noise), 3 specs (the first 3, 460 and every
+    column): specs without a suspect month at 1e-8, the others at
+    ``SUSPECT_TOL``; the card's launches ``gram_launch_count``'s and one
+    pre-pass."""
+    from fm_returnprediction_tpu_torch.specgrid.specs import Spec, SpecGrid
+
+    t, n, p = 12, 2000, PANEL_P
+    rng = np.random.default_rng(seed + 920)
+    x = rng.standard_normal((t, n, p))
+    x[rng.random(x.shape) < PANEL_NAN] = np.nan
+    beta = np.zeros(p)
+    beta[[0, 2, 400, 700, p - 1]] = [0.5, -0.3, 0.2, 0.4, -0.25]
+    y = np.nansum(x * beta, axis=-1) + rng.standard_normal((t, n))
+    names = tuple(f"c{i}" for i in range(p))
+    grid = SpecGrid(tuple(Spec(f"P{w}", names[:w], "all") for w in PANEL_WIDTHS), union=names)
+    masks = {"all": np.ones((t, n), bool)}
+    out, counts, secs = {}, {}, {}
+    for side in ("cuda", "cpu"):
+        reset_counts()
+        start = time.perf_counter()
+        out[side] = run_spec_grid(torch.tensor(y, device=side), torch.tensor(x, device=side),
+                                  {k: torch.tensor(m, device=side) for k, m in masks.items()},
+                                  grid)
+        secs[side] = time.perf_counter() - start
+        counts[side] = launch_counts()
+    g, c = out["cuda"], out["cpu"]
+    suspect = np.asarray(c.suspect_months) > 0
+    held, worst_sus = _grid_gap(g, c, suspect)
+    want = (gram_launch_count(t, n, p, len(grid.specs), torch.float64), 1)
+    got = (counts["cuda"]["k2"], counts["cuda"]["fold"])
+    log(f"card vs CPU panels (P={p}, f64, {t} x {n:,}, 3 specs): card {secs['cuda']:.2f} s "
+        f"(K2 {got[0]}, pre-pass {got[1]}), cpu {secs['cpu']:.2f} s; worst held diff "
+        f"{held:.3e} over {int((~suspect).sum())} specs without a suspect month (tol 1e-8), "
+        f"{worst_sus:.3e} over {int(suspect.sum())} with one (tol {SUSPECT_TOL:g}); referee "
+        f"specs card {list(g.referee_specs)} cpu {list(c.referee_specs)}")
+    check(got == want, f"panel card run: launches {got}, not {want}")
+    check(list(g.referee_specs) == list(c.referee_specs), "panels: referee specs differ")
+    check(held <= 1e-8 and worst_sus <= SUSPECT_TOL,
+          "card vs CPU: the 920-column grid beyond tolerance")
 
 
 SCENARIO_FLOATS = {"coef", "tstat", "nw_se", "mean_r2", "mean_n", "coreset_rate"}
@@ -4918,10 +5152,10 @@ TASK_UP_TO_DATE = re.compile(r"^-- (\S+) \(up to date\)$", re.MULTILINE)
 TG_TASKS = ["build_panel", "serve_state", "specgrid", "backtest"]
 # The real-size DAG: 600 months of the real-scale synthetic universe
 # (data.benchscale) with every column; its permnos cut from 22,000 (131.7 s
-# for the phase) to 4,000 to keep the whole script under 800 s (PERF.md,
+# for the phase) to 2,000 to keep the whole script under 800 s (PERF.md,
 # Cells).
 TG_MONTHS = 600
-TG_PERMNOS = 4000
+TG_PERMNOS = 2000
 WRDS_TABLES = (("dsf_v2", "crsp_d"), ("msf_v2", "crsp_m"), ("comp.funda", "comp"),
                ("ccmxpf_linktable", "ccm"), ("dsix", "crsp_index_d"))
 

@@ -218,9 +218,21 @@
 // entries S * QE * (QE + 1) / 2 a launch (60 specs at P = 14): the wrapper
 // cuts a larger spec batch into consecutive chunks, one launch each. The
 // float64 kernel, and the float and bf16 kernels past 32 columns, take up
-// to 65,536 specs in one launch. Any P whose smallest firm tile (16 firms)
-// fits in shared memory (227 KB): 424 columns in float64, 848 in float
-// (850 at S = 1, 847 with row weights), more in bf16.
+// to 65,536 specs in one launch, at any P whose smallest firm tile (16
+// firms) fits in shared memory (227 KB): 424 columns in float64 (423 with
+// row weights), 848 in float (850 at S = 1, 847 with row weights), 1,367
+// in bf16 (622 with row weights).
+//
+// Wider unions: column panels. Past that reach the wrapper
+// (specgrid/grams.py::gram_column_panels) cuts the x columns into panels
+// and launches the kernel once a pair of panels (I < J) on a gathered copy
+// of the pair's columns, [1 | x_I - c_I | x_J - c_J | y]; from each
+// launch's block it keeps the (I, J) rectangle, and the diagonal panel
+// blocks and the intercept and y entries of the one launch it names for
+// each. A row's validity spans every selected column, so a pre-pass,
+// gram_fold_kernel (at the end), first folds finite(y) and the finiteness
+// of each spec's selected columns into a copy of the valid mask, which the
+// panel launches read.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -2274,7 +2286,87 @@ int launch_f32(const void* x, const void* y, const void* rw, const unsigned char
                                    s_specs, stream);
 }
 
+// --- the panel route's validity pre-pass -------------------------------------
+
+// Replaces the validity part of the Pallas kernel's body (_gram_kernel:
+// `bad`, the selected columns' non-finite count, and `w`), which the panel
+// launches cannot form: each sees only its pair's columns. One warp a
+// firm-month reads the firm's row once, 32 columns a step (coalesced), and
+// one ballot a step gives the step's non-finite bits; lane l then ORs them
+// into spec l's hits under its selection word (specs past 32 take another
+// pass over the row). out[s, t, n] = valid[s, t, n] and finite(y[t, n]) and
+// no selected column of x[t, n, :] non-finite. It reads x once and writes
+// one byte a (spec, firm-month): the bytes bound it.
+__device__ __forceinline__ bool finite_of(float v) { return isfinite(v); }
+__device__ __forceinline__ bool finite_of(double v) { return isfinite(v); }
+__device__ __forceinline__ bool finite_of(__nv_bfloat16 v) {
+  return isfinite(__bfloat162float(v));
+}
+
+constexpr int kFoldThreads = 256;
+
+template <typename In>
+__global__ void __launch_bounds__(kFoldThreads)
+gram_fold_kernel(const In* __restrict__ x, const In* __restrict__ y,
+                 const unsigned char* __restrict__ valid,
+                 const unsigned int* __restrict__ sel_bits, unsigned char* __restrict__ out,
+                 long long rows, int p, int nw, int s_specs) {
+  const long long row = (long long)blockIdx.x * (kFoldThreads / 32) + (threadIdx.x >> 5);
+  if (row >= rows) return;  // the whole warp: one row a warp
+  const int lane = threadIdx.x & 31;
+  const In* xr = x + row * p;
+  const bool y_ok = finite_of(y[row]);
+  for (int s0 = 0; s0 < s_specs; s0 += 32) {
+    const int s = s0 + lane;
+    const unsigned* sel = sel_bits + (size_t)(s < s_specs ? s : 0) * nw;
+    unsigned hit = 0u;
+    for (int wd = 0; wd < nw; ++wd) {
+      const int c = 32 * wd + lane;
+      const unsigned bits = __ballot_sync(0xffffffffu, c < p && !finite_of(xr[c]));
+      hit |= bits & __ldg(sel + wd);
+    }
+    if (s < s_specs) {
+      const size_t at = (size_t)s * rows + row;
+      out[at] = (valid[at] != 0 && y_ok && hit == 0u) ? 1 : 0;
+    }
+  }
+}
+
+template <typename In>
+int launch_fold(const void* x, const void* y, const unsigned char* valid,
+                const unsigned int* sel_bits, unsigned char* out, long long rows, int p,
+                int nw, int s_specs, cudaStream_t stream) {
+  const long long blocks = (rows + kFoldThreads / 32 - 1) / (kFoldThreads / 32);
+  if (blocks > 0x7fffffffLL) return -1;
+  gram_fold_kernel<In><<<(unsigned)blocks, kFoldThreads, 0, stream>>>(
+      static_cast<const In*>(x), static_cast<const In*>(y), valid, sel_bits, out, rows, p, nw,
+      s_specs);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
+
+// The panel route's validity pre-pass: out (S, T, N) uint8 = valid (S, T,
+// N) uint8 and finite(y) and no column the spec selects (sel_bits, as for
+// gram_contract) non-finite in x (T, N, P); x and y in the operand type of
+// dtype_code (0 float, 1 double, 2 bf16). Returns 0, a cudaError_t, or -1
+// for arguments the kernel does not take.
+extern "C" int gram_fold(int dtype_code, const void* x, const void* y, const void* valid,
+                         const void* sel_bits, void* out, int t_len, long long n, int p,
+                         int s_specs, void* stream) {
+  if (t_len <= 0 || n <= 0 || p < 0 || s_specs <= 0) return -1;
+  const int nw = p > 32 ? (p + 31) / 32 : 1;
+  const long long rows = (long long)t_len * n;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const unsigned char* v = static_cast<const unsigned char*>(valid);
+  const unsigned int* b = static_cast<const unsigned int*>(sel_bits);
+  unsigned char* o = static_cast<unsigned char*>(out);
+  if (dtype_code == 0) return launch_fold<float>(x, y, v, b, o, rows, p, nw, s_specs, st);
+  if (dtype_code == 1) return launch_fold<double>(x, y, v, b, o, rows, p, nw, s_specs, st);
+  if (dtype_code == 2)
+    return launch_fold<__nv_bfloat16>(x, y, v, b, o, rows, p, nw, s_specs, st);
+  return -1;
+}
 
 // dtype_code: 0 float, 1 double, 2 bf16 operands with float sums. x (T, N,
 // P), y (T, N), center (T, P) and rw (T, N; null for no row weights) in the
@@ -2286,7 +2378,8 @@ int launch_f32(const void* x, const void* y, const void* rw, const unsigned char
 // batch in one launch. Returns 0 on success, the cudaError_t of the launch
 // otherwise, or -1 for arguments the kernel does not take (also a P whose
 // smallest firm tile exceeds shared memory: past 424 columns in float64,
-// about 850 in float).
+// 848 in float, 1,367 in bf16 at S = 9; the wrapper cuts a wider union
+// into column panels first).
 extern "C" int gram_contract(int dtype_code, const void* x, const void* y,
                              const void* rw, const void* valid,
                              const void* sel_bits, const void* center,

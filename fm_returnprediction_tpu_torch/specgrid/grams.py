@@ -24,7 +24,11 @@ tensors lie:
   every spec), float64 goes to the FP64 tensor cores (DMMA ``mma.sync``
   m16n8k8), bfloat16 operands to the tensor cores (``mma.sync`` with
   float32 sums, each spec's 0/1 weight a mask on the fragments, a row
-  weight's product ``w·x̃`` split exactly into two bfloat16 parts);
+  weight's product ``w·x̃`` split exactly into two bfloat16 parts). A union
+  wider than one launch's shared memory reaches is cut into column panels
+  (``gram_column_panels``): one launch a pair of panels on a gathered copy
+  of the pair's columns, after a pre-pass kernel folds every column's
+  finiteness into the valid mask (``gram_fold_cuda``);
 - CPU tensors take the plain version, a chunked masked einsum over firm
   slices (``contract_spec_grams_plain``).
 
@@ -63,11 +67,21 @@ from fm_returnprediction_tpu_torch.cuda_build import check_status, kernel_functi
 __all__ = [
     "SpecGramStats",
     "auto_firm_chunk",
+    "contract_panels",
     "shared_center",
     "contract_spec_grams",
     "contract_spec_grams_plain",
+    "GramPanelPlan",
+    "gram_column_panels",
     "gram_contract_cuda",
+    "gram_contract_plain",
+    "gram_fold_cuda",
+    "gram_fold_plain",
+    "gram_launch_count",
+    "gram_launch_fits",
+    "gram_panel_batch",
     "gram_spec_chunk",
+    "panel_pair_entries",
     "selection_words",
     "resolve_gram_factorize",
     "resolve_gram_precision",
@@ -84,6 +98,19 @@ GRAM_MAX_ENTRIES = 8192
 # specs one launch of the float64 kernel, and of the float32 and bfloat16
 # kernels past 32 columns, takes: the whole batch of any real call
 GRAM_ONE_LAUNCH_SPECS = 65536
+
+# the widest x columns one panel of a cut union holds, per operand dtype:
+# a pair of panels is summed by the wide kernels at up to twice that width
+# (narrower pairs recompute the diagonal panels more often, wider ones
+# leave the kernels' block plans fewer tasks a block; the fastest of the
+# widths timed on an H100 at 920 columns, PERF.md)
+GRAM_PANEL_WIDTH = {torch.float32: 80, torch.float64: 48, torch.bfloat16: 64}
+# the most bytes one launch of a cut union's pairs takes (their gathered
+# columns and blocks): as many pairs as fit over every month, else one
+# pair over chunks of months (gram_panel_batch)
+GRAM_PANEL_BYTES = 4 * 2**30
+# shared memory one block of the kernels may take (csrc/gram.cu kSmemMax)
+_SMEM_MAX = 227 * 1024
 
 GRAM_PRECISIONS = ("highest", "bf16")
 GRAM_FACTORIZE_MODES = ("auto", "on", "off")
@@ -214,6 +241,268 @@ def selection_words(col_sel: torch.Tensor) -> torch.Tensor:
     return torch.where(packed >= 2**31, packed - 2**32, packed).to(torch.int32).contiguous()
 
 
+def _up16(b: int) -> int:
+    return (b + 15) & ~15
+
+
+def _strip_chunk(qe: int) -> int:
+    """``make_strips(qe).cs`` of ``csrc/gram.cu``: the tiles a task sums."""
+    mt, nt = -(-qe // 16), -(-qe // 8)
+    h = nt - mt + 1
+    k = -(-h // 8)
+    return -(-h // k)
+
+
+def _smallest_block_bytes(p: int, dtype: torch.dtype, specs: int, weighted: bool) -> int:
+    """The shared memory of the smallest block the wide kernel of ``dtype``
+    can run at ``p`` columns: a 16-firm tile and one task (the layouts
+    ``make_dmma_layout``, ``make_wide_layout`` and ``make_f32_wide_layout``
+    of ``csrc/gram.cu``; one spec a block, or for float32 the two a task of
+    32 tiles can touch)."""
+    tile, isz = 16, {torch.float64: 8, torch.float32: 4, torch.bfloat16: 2}[dtype]
+    qe, nwb = p + 2, p // 32 + 1
+    if dtype == torch.float32:
+        nseg = -(-qe // 8)
+        ntile = nseg * (nseg + 1) // 2
+        nsb = min((32 + ntile - 2) // ntile + 1, specs)
+    else:
+        nsb = 1
+    row = _up16(tile * isz + 16)
+    stage = _up16(tile * p * isz + 16) + row * (2 if weighted else 1) + _up16(tile + 16) * nsb
+    total = 2 * stage + 16 + _up16(p * (4 if dtype == torch.bfloat16 else isz))
+    total += _up16(nsb * nwb * 4) + _up16(nsb * 4) + _up16(tile * nwb * 4)
+    if dtype == torch.float64:
+        built = tile * (16 * -(-qe // 16) + 4) * 8 + _up16(nsb * tile * 8)
+        return total + 2 * built + _up16(8 * 4) + _strip_chunk(qe) * 128 * 8
+    if dtype == torch.bfloat16:
+        rows = 16 * -(-qe // 16) * (tile * 2 + 16)
+        built = rows * (3 if weighted else 1) + _up16(nsb * tile * 2)
+        return total + 2 * built + _up16(8 * 4) + _strip_chunk(qe) * 128 * 4
+    nseg = -(-qe // 8)
+    built = tile * 8 * nseg * 4 + _up16(nsb * (tile + 1) * 4)
+    return total + 2 * built + _up16(32 * 4) + 64 * 32 * 4
+
+
+def gram_launch_fits(p: int, dtype: Optional[torch.dtype] = None, specs: int = 1,
+                     weighted: bool = False) -> bool:
+    """Whether one launch of the Gram kernel takes a union of ``p`` columns
+    for ``specs`` specs of operands ``dtype`` (``None``: float32), with or
+    without row weights: whether its smallest block, a 16-firm tile, fits
+    in the 227 KB of shared memory a block may have (up to 32 columns the
+    register-tile kernels always do). The reach: 424 columns in float64
+    (423 with row weights), 848 in float32 at two specs or more (850 at
+    one; 847 with row weights), 1,367 with bfloat16 operands (622 with row
+    weights)."""
+    dtype = torch.float32 if dtype is None else dtype
+    if p <= 32:
+        return True
+    return _smallest_block_bytes(p, dtype, specs, weighted) <= _SMEM_MAX
+
+
+class GramPanelPlan(NamedTuple):
+    """The column panels of a union too wide for one launch.
+
+    ``panels`` are consecutive ranges ``(a, b)`` of the x columns, each at
+    most ``slot`` wide; every pair ``(I, J)``, ``I < J``, is summed on the
+    columns ``[1 | x_I − c_I | x_J − c_J | y]``, each panel in a slot of
+    ``slot`` columns (a narrower panel padded with zero columns that no
+    spec selects). A pair keeps the (I, J) rectangle of its block and the
+    mirror; the diagonal block of panel K (with the intercept and y
+    entries of K's columns) comes from pair ``diag_owner[K]``, and the
+    intercept and y corner from the first pair."""
+
+    p: int
+    slot: int                 # columns of a panel's slot: every panel's width at most
+    panels: tuple             # ((a, b), ...): x columns a .. b - 1
+    pairs: tuple              # ((I, J), ...) in order, I < J
+    diag_owner: tuple         # for each panel, the pair that writes its block
+
+
+def gram_column_panels(p: int, dtype: Optional[torch.dtype] = None, specs: int = 1,
+                       weighted: bool = False) -> Optional[GramPanelPlan]:
+    """The column panels ``gram_contract_cuda`` cuts a ``p``-column union
+    into, or None where one launch takes it (``gram_launch_fits``): K =
+    ⌈p / width⌉ panels of ⌈p / K⌉ columns (the last maybe fewer), width =
+    ``GRAM_PANEL_WIDTH[dtype]``, every pair of them summed at once. A pair
+    holds at most twice that many columns, which one launch takes at any
+    spec count and with row weights."""
+    dtype = torch.float32 if dtype is None else dtype
+    if gram_launch_fits(p, dtype, specs, weighted):
+        return None
+    slot = -(-p // -(-p // GRAM_PANEL_WIDTH[dtype]))
+    panels = tuple((a, min(a + slot, p)) for a in range(0, p, slot))
+    k = len(panels)
+    pairs = tuple((i, j) for i in range(k) for j in range(i + 1, k))
+    diag = tuple(pairs.index((0, max(i, 1))) for i in range(k))
+    return GramPanelPlan(p, slot, panels, pairs, diag)
+
+
+def panel_pair_entries(plan: GramPanelPlan, k: int):
+    """The entries pair ``k`` of ``plan`` writes: flat indices into its
+    (QE', QE') block, QE' = 2 slot + 2, and the flat indices of the same
+    entries in the full (P + 2, P + 2) block (numpy int64, one to one).
+    Over every pair of the plan the full block's entries are each written
+    exactly once."""
+    i, j = plan.pairs[k]
+    (ai, bi), (aj, bj) = plan.panels[i], plan.panels[j]
+    qv = 2 * plan.slot + 2
+    # each column's place in the full block and its class: 0 the intercept
+    # or y, 1 panel I, 2 panel J, -1 a slot's padding
+    glob = np.full(qv, -1)
+    cls = np.full(qv, -1)
+    glob[[0, -1]], cls[[0, -1]] = (0, plan.p + 1), 0
+    glob[1:1 + bi - ai], cls[1:1 + bi - ai] = 1 + np.arange(ai, bi), 1
+    at = 1 + plan.slot
+    glob[at:at + bj - aj], cls[at:at + bj - aj] = 1 + np.arange(aj, bj), 2
+    u, v = cls[:, None], cls[None, :]
+    keep = u * v == 2                                     # the (I, J) rectangle, mirrored
+    for c, panel in ((1, i), (2, j)):
+        if plan.diag_owner[panel] == k:                   # the panel's block and its edges
+            keep |= np.isin(u, (0, c)) & np.isin(v, (0, c)) & ((u == c) | (v == c))
+    if k == 0:
+        keep |= (u == 0) & (v == 0)
+    rows, cols = np.nonzero(keep)
+    return rows * qv + cols, glob[rows] * (plan.p + 2) + glob[cols]
+
+
+def gram_panel_batch(t: int, n: int, specs: int, plan: GramPanelPlan, itemsize: int,
+                     out_itemsize: int) -> tuple:
+    """(pairs, months) one launch of the panel route takes: the pairs'
+    gathered columns and blocks within ``GRAM_PANEL_BYTES`` at ``n`` firms
+    and ``specs`` specs. Every month, and as many pairs as fit (in
+    launches of near-equal pair counts), stacked along the month axis so
+    that a launch has blocks enough for the card; past the budget one pair
+    a launch over chunks of months (at least one)."""
+    width = 2 * plan.slot
+    per_month = n * width * itemsize + specs * (width + 2) ** 2 * out_itemsize
+    if t * per_month > GRAM_PANEL_BYTES:
+        return 1, max(1, GRAM_PANEL_BYTES // per_month)
+    most = max(1, min(len(plan.pairs), GRAM_PANEL_BYTES // (t * per_month)))
+    launches = -(-len(plan.pairs) // most)
+    return -(-len(plan.pairs) // launches), t
+
+
+def gram_launch_count(t: int, n: int, p: int, specs: int,
+                      dtype: Optional[torch.dtype] = None, weighted: bool = False) -> int:
+    """The Gram kernel launches one ``gram_contract_cuda`` call makes: spec
+    chunks of ``gram_spec_chunk``; for a union cut into panels, that for
+    every launch of pairs and chunk of months (``gram_panel_batch``); the
+    pre-pass (``gram_fold_cuda``) counts apart."""
+    dtype = torch.float32 if dtype is None else dtype
+    plan = gram_column_panels(p, dtype, specs, weighted)
+    if plan is None:
+        return -(-specs // gram_spec_chunk(p, dtype=dtype))
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    per, months = gram_panel_batch(t, n, specs, plan, itemsize, 8 if itemsize == 8 else 4)
+    return (-(-len(plan.pairs) // per) * -(-t // months)
+            * -(-specs // gram_spec_chunk(2 * plan.slot, dtype=dtype)))
+
+
+def gram_fold_plain(y: torch.Tensor, x: torch.Tensor, valid: torch.Tensor,
+                    col_sel: torch.Tensor) -> torch.Tensor:
+    """The plain version of the pre-pass: (S, T, N) uint8, ``valid`` and
+    finite(y) and no column the spec selects non-finite in x."""
+    bad = torch.einsum("tnp,sp->stn", (~torch.isfinite(x)).to(torch.float32),
+                       col_sel.to(torch.float32))
+    return ((valid != 0) & torch.isfinite(y)[None] & (bad == 0)).to(torch.uint8)
+
+
+def gram_fold_cuda(y: torch.Tensor, x: torch.Tensor, valid: torch.Tensor,
+                   col_sel: torch.Tensor) -> torch.Tensor:
+    """Launch the pre-pass kernel (``csrc/gram.cu::gram_fold``) on CUDA
+    tensors as ``gram_contract_cuda`` takes them: the (S, T, N) uint8 valid
+    mask with finite(y) and the finiteness of each spec's selected columns
+    folded in, which the launches of a union cut into panels read (each
+    sees only its pair's columns)."""
+    t, n, p = x.shape
+    s = col_sel.shape[0]
+    out = torch.empty((s, t, n), dtype=torch.uint8, device=x.device)
+    if t == 0 or n == 0 or s == 0:
+        return out
+    sel_bits = selection_words(col_sel)
+    fn = kernel_function("gram", "gram_fold", [
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p,
+    ])
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = fn(_DTYPE_CODES[x.dtype][0], x.data_ptr(), y.data_ptr(), valid.data_ptr(),
+                    sel_bits.data_ptr(), out.data_ptr(), t, n, p, s, stream)
+        check_status("gram", status)
+        gram_fold_cuda.launches += 1
+        key = f"P={p},S={s},{_DTYPE_CODES[x.dtype][1]}"
+        gram_fold_cuda.launches_by_key[key] = gram_fold_cuda.launches_by_key.get(key, 0) + 1
+    return out
+
+
+# launch counters of the pre-pass: the total, and per call shape
+# "P=<columns>,S=<specs>,<f32|f64|bf16>"
+gram_fold_cuda.launches = 0
+gram_fold_cuda.launches_by_key = {}
+
+
+def gram_contract_plain(y: torch.Tensor, x: torch.Tensor, valid: torch.Tensor,
+                        col_sel: torch.Tensor, center: torch.Tensor,
+                        row_weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The plain version of ``gram_contract_cuda``, on any device: the
+    augmented (S, T, P+2, P+2) blocks from ``contract_spec_grams_plain``
+    (float32 for bfloat16 operands)."""
+    t, _, p = x.shape
+    q = p + 1
+    gram, moment, _, _, yy = contract_spec_grams_plain(
+        y, x, valid != 0, col_sel, None, center, row_weights=row_weights)
+    out = torch.zeros((col_sel.shape[0], t, q + 1, q + 1), dtype=gram.dtype, device=x.device)
+    out[:, :, :q, :q] = gram
+    out[:, :, :q, q] = moment
+    out[:, :, q, :q] = moment
+    out[:, :, q, q] = yy
+    return out
+
+
+def contract_panels(y, x, valid, col_sel, center, row_weights, plan: GramPanelPlan,
+                    contract, fold, out: torch.Tensor) -> torch.Tensor:
+    """The panel route into ``out`` (S, T, P+2, P+2): ``fold`` (the
+    pre-pass) once, then ``contract`` (one launch of the kernel) on the
+    pairs of ``plan`` as ``gram_panel_batch`` groups them: a gathered copy
+    of each pair's x and center columns in its slots, the pairs stacked
+    along the month axis with y, the folded mask and the row weights
+    repeated, no column selected (the folded mask holds every selection);
+    the entries ``panel_pair_entries`` names are copied from each pair's
+    blocks into ``out``. The arguments are those of
+    ``gram_contract_cuda``."""
+    t, n, p = x.shape
+    s = col_sel.shape[0]
+    valid = fold(y, x, valid, col_sel)
+    flat = out.view(s, t, (p + 2) ** 2)
+    per, months = gram_panel_batch(t, n, s, plan, x.element_size(), out.element_size())
+    slot, width = plan.slot, 2 * plan.slot
+    none = torch.zeros((s, width), dtype=torch.bool, device=x.device)
+    for t0 in range(0, t, months):
+        t1 = min(t0 + months, t)
+        tc = t1 - t0
+        for k0 in range(0, len(plan.pairs), per):
+            batch = range(k0, min(k0 + per, len(plan.pairs)))
+            xs = torch.empty((len(batch), tc, n, width), dtype=x.dtype, device=x.device)
+            cs = torch.zeros((len(batch), tc, width), dtype=center.dtype, device=x.device)
+            for b, k in enumerate(batch):
+                for at, (a0, a1) in zip((0, slot), (plan.panels[i] for i in plan.pairs[k])):
+                    xs[b, :, :, at:at + a1 - a0] = x[t0:t1, :, a0:a1]
+                    xs[b, :, :, at + a1 - a0:at + slot] = 0
+                    cs[b, :, at:at + a1 - a0] = center[t0:t1, a0:a1]
+            rw = None if row_weights is None else row_weights[t0:t1].repeat(len(batch), 1)
+            block = contract(y[t0:t1].repeat(len(batch), 1), xs.view(-1, n, width),
+                             valid[:, t0:t1].repeat(1, len(batch), 1), none,
+                             cs.view(-1, width), rw)
+            del xs
+            block = block.view(s, len(batch), tc, -1)
+            for b, k in enumerate(batch):
+                virt, glob = (torch.from_numpy(a).to(x.device) for a in panel_pair_entries(plan, k))
+                flat[:, t0:t1].index_copy_(2, glob, block[:, b][:, :, virt])
+            del block
+    return out
+
+
 def gram_contract_cuda(y: torch.Tensor, x: torch.Tensor, valid: torch.Tensor,
                        col_sel: torch.Tensor, center: torch.Tensor,
                        row_weights: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -228,11 +517,14 @@ def gram_contract_cuda(y: torch.Tensor, x: torch.Tensor, valid: torch.Tensor,
     chunks of ``gram_spec_chunk(P, dtype=x.dtype)`` specs, one launch each,
     each writing its own slice of the output; the cut depends only on (S,
     P, dtype): float32 and bfloat16 up to 32 columns at 8192 block entries,
-    float64, and every dtype past 32 columns, in one launch. Any P the
-    kernel's shared memory holds (some 500 columns in float64, more in
-    float32 and bfloat16): the spec's columns go to the kernel as ⌈P/32⌉
-    words of bits (``selection_words``). Raises on anything the kernel
-    does not take."""
+    float64, and every dtype past 32 columns, in one launch. The spec's
+    columns go to the kernel as ⌈P/32⌉ words of bits (``selection_words``).
+    Any P: a union wider than one launch's shared memory reaches
+    (``gram_launch_fits``: 424 columns in float64, 848 in float32, 1,367 in
+    bfloat16) is cut into column panels (``gram_column_panels``,
+    ``contract_panels``), the pre-pass launched once and the kernel once a
+    pair of panels and chunk of months (``gram_launch_count``). Raises on
+    anything the kernel does not take."""
     tensors = {"y": y, "x": x, "valid": valid, "col_sel": col_sel,
                "center": center}
     if row_weights is not None:
@@ -254,11 +546,29 @@ def gram_contract_cuda(y: torch.Tensor, x: torch.Tensor, valid: torch.Tensor,
             or col_sel.shape != (s, p) or center.shape != (t, p)
             or (row_weights is not None and row_weights.shape != (t, n))):
         raise ValueError("gram kernel: inconsistent shapes")
-    code, dtype_name = _DTYPE_CODES[x.dtype]
     out_dtype = torch.float32 if x.dtype == torch.bfloat16 else x.dtype
     out = torch.zeros((s, t, p + 2, p + 2), dtype=out_dtype, device=x.device)
     if t == 0 or n == 0 or s == 0:
         return out
+    key = f"P={p},S={s},{_DTYPE_CODES[x.dtype][1]}" + (",rw" if row_weights is not None else "")
+    plan = gram_column_panels(p, x.dtype, s, row_weights is not None)
+    if plan is None:
+        return _launch_contract(y, x, valid, col_sel, center, row_weights, out, key)
+
+    def contract(y_, x_, valid_, sel_, center_, rw_):
+        block = torch.zeros((s, x_.shape[0], x_.shape[2] + 2, x_.shape[2] + 2),
+                            dtype=out_dtype, device=x.device)
+        return _launch_contract(y_, x_, valid_, sel_, center_, rw_, block, key)
+
+    return contract_panels(y, x, valid, col_sel, center, row_weights, plan, contract,
+                           gram_fold_cuda, out)
+
+
+def _launch_contract(y, x, valid, col_sel, center, row_weights, out, key: str):
+    """One launch of the kernel a chunk of ``gram_spec_chunk`` specs,
+    into ``out``; each counted under ``key``."""
+    t, n, p = x.shape
+    s = col_sel.shape[0]
     sel_bits = selection_words(col_sel)
     fn = kernel_function("gram", "gram_contract", [
         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -271,13 +581,12 @@ def gram_contract_cuda(y: torch.Tensor, x: torch.Tensor, valid: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         for s0 in range(0, s, chunk):
             s1 = min(s0 + chunk, s)
-            status = fn(code, x.data_ptr(), y.data_ptr(), rw_ptr,
+            status = fn(_DTYPE_CODES[x.dtype][0], x.data_ptr(), y.data_ptr(), rw_ptr,
                         valid[s0:s1].data_ptr(), sel_bits[s0:s1].data_ptr(),
                         center.data_ptr(), out[s0:s1].data_ptr(), t, n, p,
                         s1 - s0, stream)
             check_status("gram", status)
             gram_contract_cuda.launches += 1
-            key = f"P={p},S={s},{dtype_name}" + (",rw" if row_weights is not None else "")
             by_key = gram_contract_cuda.launches_by_key
             by_key[key] = by_key.get(key, 0) + 1
     return out

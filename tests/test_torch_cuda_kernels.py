@@ -490,54 +490,18 @@ def test_gram_f64_tensor_core_kernel(cuda, p, s, weights):
     assert torch.equal(out, grams.gram_contract_cuda(y, x, valid, col_sel, center, rw))
 
 
-_WIDEST: dict = {}
-
-
-def _widest_f32_p(cuda, s: int, weighted: bool) -> int:
-    """The widest union one launch of the float32 kernel takes for ``s``
-    specs, with or without row weights (its shared memory's reach, some 800
-    columns), found by bisection over launches on a one-month, 16-firm
-    input: the kernel refuses a wider one as arguments it does not take."""
-    key = (s, weighted)
-    if key in _WIDEST:
-        return _WIDEST[key]
-
-    def takes(p: int) -> bool:
-        y = torch.zeros((1, 16), device=cuda)
-        x = torch.zeros((1, 16, p), device=cuda)
-        valid = torch.ones((s, 1, 16), dtype=torch.uint8, device=cuda)
-        col_sel = torch.ones((s, p), dtype=torch.bool, device=cuda)
-        rw = torch.ones((1, 16), device=cuda) if weighted else None
-        try:
-            grams.gram_contract_cuda(y, x, valid, col_sel, torch.zeros((1, p), device=cuda), rw)
-        except RuntimeError as err:
-            assert "invalid arguments" in str(err)
-            return False
-        return True
-
-    lo, hi = 33, 4096
-    assert takes(lo) and not takes(hi)
-    while hi - lo > 1:
-        mid = (lo + hi) // 2
-        lo, hi = (mid, hi) if takes(mid) else (lo, mid)
-    _WIDEST[key] = lo
-    return lo
-
-
 @pytest.mark.parametrize("weights", [None, "binary", "real"])
 @pytest.mark.parametrize("s", [1, 9, 61])
-@pytest.mark.parametrize("p", [33, 40, 63, 64, 65, 100, 160, "widest"])
+@pytest.mark.parametrize("p", [33, 40, 63, 64, 65, 100, 160])
 def test_gram_f32_wide_kernel(cuda, p, s, weights):
     """The float32 kernel past 32 columns (``gram_f32_wide_kernel``) against
     its plain version at 1e-5 of each block's max-abs entry: counts exact
     under 0/1 weights, one launch whatever the spec batch, a repeated call
     bit-identical, each block symmetric. N = 1,001 leaves a ragged tile;
     the last column (in the last selection word) holds a non-finite entry.
-    "widest" is the widest union one launch takes for this S and weighting
-    (one column more is refused)."""
+    The widest unions, one launch and column panels on each side of its
+    reach, are ``test_gram_kernel_on_each_side_of_one_launch``'s."""
     t, n = 3, 1001
-    if p == "widest":
-        p = _widest_f32_p(cuda, s, weights is not None)
     y, x, uni, valid, col_sel, center, rw = _gram_case(cuda, torch.float32, t, n, p, s,
                                                        weights)
     window = torch.ones((s, t), dtype=torch.bool, device=cuda)
@@ -552,3 +516,88 @@ def test_gram_f32_wide_kernel(cuda, p, s, weights):
     _held_to_plain(got, want, 1e-5, counts_exact=weights != "real")
     assert torch.equal(out, out.transpose(-1, -2))
     assert torch.equal(out, grams.gram_contract_cuda(y, x, valid, col_sel, center, rw))
+
+
+# each side of the reach one launch had before column panels, at 9 specs
+# (1 spec reaches 850 float32 columns, 849 with row weights), and wider
+# unions: (dtype, P, row weights: None, "binary" (0/1) or "real")
+_UNWEIGHTED, _WEIGHTED, _ALL = (None,), ("binary", "real"), (None, "binary", "real")
+PANEL_CASES = [(dtype, p, kind) for dtype, p, kinds in (
+    (torch.float64, 423, _WEIGHTED), (torch.float64, 424, _ALL), (torch.float64, 425, _ALL),
+    (torch.float32, 847, _WEIGHTED), (torch.float32, 848, _ALL), (torch.float32, 849, _ALL),
+    (torch.bfloat16, 622, _WEIGHTED), (torch.bfloat16, 623, _WEIGHTED),
+    (torch.bfloat16, 1367, _UNWEIGHTED), (torch.bfloat16, 1368, _UNWEIGHTED),
+    *((dtype, p, _ALL) for p in (920, 2000)
+      for dtype in (torch.float64, torch.float32, torch.bfloat16))) for kind in kinds]
+
+
+@pytest.mark.parametrize("s", [1, 9])
+@pytest.mark.parametrize("dtype, p, kind", PANEL_CASES)
+def test_gram_kernel_on_each_side_of_one_launch(cuda, dtype, p, kind, s):
+    """Unions up to and past the widest one launch takes (424 float64
+    columns, 848 float32, 1,367 bfloat16; fewer with row weights): one
+    launch where it fits, else the pre-pass and one launch a pair of column
+    panels (``gram_column_panels``, ``gram_launch_count``). Held to the
+    plain version at 1e-12 of each block's max in float64 and 1e-5 in
+    float32, bfloat16 at 1e-5 of the float64 sums of the same terms (the
+    plain version within 1e-5 plus its own error of them); counts exact
+    under 0/1 weights, each block symmetric, a repeated call bit-identical.
+    T = 2, N = 1,001: a ragged tile."""
+    t, n = 2, 1001
+    src = torch.float32 if dtype == torch.bfloat16 else dtype
+    y, x, uni, valid, col_sel, center, rw = _gram_case(cuda, src, t, n, p, s, kind)
+    if dtype == torch.bfloat16:
+        y, x, center = (a.to(dtype) for a in (y, x, center))
+        rw = None if rw is None else rw.to(dtype)
+    plan = grams.gram_column_panels(p, dtype, s, rw is not None)
+    assert (plan is None) == grams.gram_launch_fits(p, dtype, s, rw is not None)
+    window = torch.ones((s, t), dtype=torch.bool, device=cuda)
+    before = grams.gram_contract_cuda.launches, grams.gram_fold_cuda.launches
+    out = grams.gram_contract_cuda(y, x, valid, col_sel, center, rw)
+    launches = (grams.gram_contract_cuda.launches - before[0],
+                grams.gram_fold_cuda.launches - before[1])
+    assert launches == (grams.gram_launch_count(t, n, p, s, dtype, rw is not None),
+                        0 if plan is None else 1)
+    assert launches[0] == 1 or 1 < launches[0] <= len(plan.pairs)
+    got = grams.split_stats(out, p)
+    want = grams.contract_spec_grams_plain(y, x, uni, col_sel, window, center,
+                                           row_weights=rw)
+    if dtype == torch.bfloat16:
+        exact = grams.contract_spec_grams_plain(
+            y.double(), (x - center[:, None, :]).double(), uni, col_sel, window,
+            torch.zeros(center.shape, dtype=torch.float64, device=cuda),
+            row_weights=None if rw is None else rw.double())
+        plain_err = _worst_to_block(want, exact)
+        assert _worst_to_block(got, exact) <= 1e-5
+        assert _worst_to_block(got, want) <= 1e-5 + plain_err
+        if kind != "real":
+            assert torch.equal(got[2], want[2])
+    else:
+        _held_to_plain(got, want, 1e-12 if dtype == torch.float64 else 1e-5,
+                       counts_exact=kind != "real")
+    assert torch.equal(out, out.transpose(-1, -2))
+    assert torch.equal(out, grams.gram_contract_cuda(y, x, valid, col_sel, center, rw))
+
+
+def _worst_to_block(a, b) -> float:
+    """The largest difference of two sets of split stats, each relative to
+    its (spec, month) block's max-abs entry in ``b`` (a NaN: infinite)."""
+    scale = torch.stack([b[0].abs().amax((-1, -2)), b[1].abs().amax(-1), b[2].abs(),
+                         b[3].abs(), b[4].abs()]).amax(0).clamp_min(1.0)
+    return max(float(torch.nan_to_num(
+        (g.double() - w.double()).abs() / scale.reshape(scale.shape + (1,) * (g.dim() - 2)),
+        nan=float("inf")).max()) for g, w in zip(a, b))
+
+
+def test_gram_fold_kernel_matches_plain(cuda):
+    """The panel route's pre-pass against its plain version, bit for bit:
+    float64, float32 and bfloat16 operands, 40 specs (two passes over a
+    row), 2,000 columns."""
+    for dtype in (torch.float64, torch.float32, torch.bfloat16):
+        y, x, uni, valid, col_sel, _, _ = _gram_case(cuda, torch.float64, 2, 777, 2000, 40,
+                                                      None)
+        y, x = y.to(dtype), x.to(dtype)
+        before = grams.gram_fold_cuda.launches
+        got = grams.gram_fold_cuda(y, x, valid, col_sel)
+        assert grams.gram_fold_cuda.launches == before + 1
+        assert torch.equal(got, grams.gram_fold_plain(y, x, valid, col_sel))

@@ -19,7 +19,15 @@ holds the CPU's view of that branch:
 - ``run_spec_grid`` on a 40-column union and an FWL cell with 20 controls
   from it against the JAX functions at float64, at the card-vs-CPU pins
   of ``PERF.md`` §3: 1e-8 of ``max(|b|, 1)``, NaN patterns and counts
-  equal.
+  equal; and on a 430-column union, past one float64 launch's reach;
+- the column panels a union past one launch's reach is cut into
+  (``gram_column_panels``): no cut at or below the reach each kernel had
+  before panels (424 columns in float64, 848 in float32 at 9 specs, 1,367
+  with bfloat16 operands; fewer with row weights), every entry of the
+  block written by exactly one pair, each pair within one launch; and the
+  panel route itself (``contract_panels``: the pre-pass, the gathered
+  pairs, the month chunks, the copies) run with the plain versions in the
+  kernel's place against the whole plain contraction.
 """
 
 import jax.numpy as jnp
@@ -239,3 +247,209 @@ def test_wide_fwl_cell_with_20_controls_matches_jax():
     _results_close(got["reference"], want["reference"], "fwl P=40")
     np.testing.assert_array_equal(disc["deficient_months"], jdisc["deficient_months"])
     assert np.isfinite(got["reference"].coef[:, :3]).all()
+
+
+# one launch's reach at 9 specs before panels (csrc/gram.cu): (dtype,
+# row weights) -> the widest union
+OLD_REACH = {(torch.float64, False): 424, (torch.float64, True): 423,
+             (torch.float32, False): 848, (torch.float32, True): 847,
+             (torch.bfloat16, False): 1367, (torch.bfloat16, True): 622}
+
+
+def _covered_once(plan) -> None:
+    """Every entry of the (P+2, P+2) block written by exactly one pair,
+    each pair's entries one to one with its launch's block."""
+    q = plan.p + 2
+    count = np.zeros(q * q, np.int64)
+    for k, (i, j) in enumerate(plan.pairs):
+        virt, glob = grams.panel_pair_entries(plan, k)
+        width = 2 * plan.slot + 2
+        assert virt.shape == glob.shape and len(np.unique(virt)) == len(virt)
+        assert virt.min() >= 0 and virt.max() < width * width
+        count[glob] += 1
+    np.testing.assert_array_equal(count, 1)
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.bfloat16])
+@pytest.mark.parametrize("p", [33, 424, 425, 848, 849, 920, 2000])
+def test_column_panels_cover_the_block_once(p, dtype, weighted):
+    """No cut at or below the reach one launch had before panels; past it,
+    consecutive panels of at most ``GRAM_PANEL_WIDTH[dtype]`` columns, every
+    pair of them one launch that fits, and every entry of the block (upper
+    triangle and mirror) written once."""
+    plan = grams.gram_column_panels(p, dtype, 9, weighted)
+    reach = OLD_REACH[(dtype, weighted)]
+    assert grams.gram_launch_fits(reach, dtype, 9, weighted)
+    assert not grams.gram_launch_fits(reach + 1, dtype, 9, weighted)
+    if p <= reach:
+        assert plan is None
+        assert grams.gram_launch_count(12, 1001, p, 9, dtype, weighted) == 1
+        return
+    assert plan is not None and plan.p == p
+    width = grams.GRAM_PANEL_WIDTH[dtype]
+    assert plan.slot <= width
+    assert plan.panels[0][0] == 0 and plan.panels[-1][1] == p
+    assert all(a < b <= a + plan.slot for a, b in plan.panels)
+    assert all(b == a2 for (_, b), (a2, _) in zip(plan.panels, plan.panels[1:]))
+    k = len(plan.panels)
+    assert plan.pairs == tuple((i, j) for i in range(k) for j in range(i + 1, k))
+    # a pair's launch: two slots, at any spec count
+    assert 32 < 2 * plan.slot <= 2 * width
+    assert grams.gram_launch_fits(2 * plan.slot, dtype, 1, weighted)
+    assert grams.gram_launch_fits(2 * plan.slot, dtype, 9, weighted)
+    _covered_once(plan)
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    per, months = grams.gram_panel_batch(12, 1001, 9, plan, itemsize, max(itemsize, 4))
+    assert months == 12 and per >= 1
+    assert grams.gram_launch_count(12, 1001, p, 9, dtype, weighted) == -(-len(plan.pairs) // per)
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("specs, reach", [(1, 850), (2, 848), (61, 848)])
+def test_float32_reach_follows_the_spec_count(specs, reach, weighted):
+    """float32's smallest block holds the two specs a task of 32 tiles can
+    touch, so one spec reaches two columns further (one less with row
+    weights); the plan cuts exactly past that."""
+    reach -= weighted
+    assert grams.gram_column_panels(reach, torch.float32, specs, weighted) is None
+    plan = grams.gram_column_panels(reach + 1, torch.float32, specs, weighted)
+    assert plan is not None
+    _covered_once(plan)
+
+
+def _panel_inputs(t, n, p, s, dtype, weighted, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((t, n, p)) * 2.0
+    x[rng.random(x.shape) < 0.002] = np.nan
+    x[:, 5, p - 1] = np.inf                      # a non-finite entry in the last panel
+    x[:, 9, 0] = np.nan                          # and in the first
+    y = rng.standard_normal((t, n))
+    y[rng.random(y.shape) < 0.05] = np.nan
+    valid = rng.random((s, t, n)) > 0.3
+    col_sel = rng.random((s, p)) > 0.5
+    col_sel[0] = False
+    col_sel[0, 0] = True
+    col_sel[1] = False
+    col_sel[1, p - 1] = True
+    col_sel[-1] = True
+    rw = (np.where(rng.random((t, n)) < 0.6, 0.5 + 3.0 * rng.random((t, n)), 0.0)
+          if weighted else None)
+    to = (lambda a: torch.from_numpy(a).to(dtype))  # noqa: E731
+    x_t = to(x)
+    return (to(y), x_t, torch.from_numpy(valid).to(torch.uint8), torch.from_numpy(col_sel),
+            grams.shared_center(x_t), None if rw is None else to(rw))
+
+
+@pytest.fixture
+def one_thread():
+    """torch (and the MKL/OpenMP runtime it shares with the LAPACK calls
+    of this process) on one thread for the test: eight threads a test
+    process beside other test processes made the 430-column solves of both
+    packages, and the panel route's many small contractions, spin many
+    times longer."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
+@pytest.fixture
+def narrow_panels(monkeypatch):
+    """Cut unions past 40 columns into panels of at most 20 (one launch's
+    reach and the panel width at small sizes, so that the panel route runs
+    on a 70-column union: 4 panels of 18, 6 pairs of 36 columns)."""
+    monkeypatch.setattr(grams, "gram_launch_fits", lambda p, *args, **kw: p <= 40)
+    monkeypatch.setitem(grams.GRAM_PANEL_WIDTH, torch.float64, 20)
+    monkeypatch.setitem(grams.GRAM_PANEL_WIDTH, torch.float32, 20)
+
+
+@pytest.mark.parametrize("launches", ["one", "pairs of pairs", "months"])
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("dtype, rtol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
+def test_panel_route_matches_the_whole_contraction(dtype, rtol, weighted, launches,
+                                                   narrow_panels, one_thread, monkeypatch):
+    """The panel route with the plain versions in the kernels' place (the
+    pre-pass and one contraction a launch) against the plain contraction of
+    the whole 70-column union (``narrow_panels``): each (spec, month) block
+    within ``rtol`` of its largest entry, counts exact under 0/1 weights,
+    symmetric, one contraction a launch (``gram_launch_count``). The
+    gathered copy's budget sets the launches: every pair in one ("one"),
+    three pairs a launch, or one pair a launch over chunks of two months."""
+    t, n, p, s = 5, 160, 70, 4
+    y, x, valid, col_sel, center, rw = _panel_inputs(t, n, p, s, dtype, weighted, seed=3)
+    plan = grams.gram_column_panels(p, dtype, s, weighted)
+    assert (len(plan.panels), len(plan.pairs), plan.slot) == (4, 6, 18)
+    width = 2 * plan.slot
+    per_month = n * width * x.element_size() + s * (width + 2) ** 2 * x.element_size()
+    budget = {"one": grams.GRAM_PANEL_BYTES, "pairs of pairs": 3 * t * per_month,
+              "months": 2 * per_month}[launches]
+    monkeypatch.setattr(grams, "GRAM_PANEL_BYTES", budget)
+    calls = []
+
+    def contract(*args):
+        # as the kernel writes it: each entry on or above the diagonal, and
+        # its mirror (the plain weighted sums are symmetric only to rounding)
+        calls.append(args[1].shape)
+        assert not args[3].any()                          # the folded mask holds the selection
+        block = grams.gram_contract_plain(*args)
+        upper = torch.triu(block)
+        return upper + torch.triu(block, 1).transpose(-1, -2)
+
+    out = torch.zeros((s, t, p + 2, p + 2), dtype=dtype)
+    got = grams.contract_panels(y, x, valid, col_sel, center, rw, plan, contract,
+                                grams.gram_fold_plain, out)
+    want = grams.gram_contract_plain(y, x, valid, col_sel, center, rw)
+    pairs = len(plan.pairs)
+    expect = {"one": [(pairs * t, n, width)],
+              "pairs of pairs": [(3 * t, n, width)] * (pairs // 3),
+              "months": [(2, n, width), (2, n, width), (1, n, width)] * pairs}[launches]
+    assert sorted(tuple(c) for c in calls) == sorted(expect)
+    assert len(calls) == grams.gram_launch_count(t, n, p, s, dtype, weighted)
+    assert torch.equal(got, got.transpose(-1, -2))
+    if not weighted:
+        assert torch.equal(got[:, :, 0, 0], want[:, :, 0, 0])
+    scale = want.abs().amax((-1, -2), keepdim=True).clamp_min(1.0)
+    assert float(((got - want).abs() / scale).max()) <= rtol
+
+
+def test_fold_plain_version_is_the_kernels_validity():
+    """The pre-pass's plain version: valid, finite y and no selected column
+    non-finite, column by column in numpy; an unselected non-finite column
+    leaves the row valid."""
+    y, x, valid, col_sel, _, _ = _panel_inputs(3, 120, 70, 5, torch.float64, False, seed=4)
+    got = grams.gram_fold_plain(y, x, valid, col_sel).numpy()
+    xn, yn, cs = x.numpy(), y.numpy(), col_sel.numpy()
+    want = valid.numpy().astype(bool) & np.isfinite(yn)[None]
+    for s in range(cs.shape[0]):
+        want[s] &= np.isfinite(xn[:, :, cs[s]]).all(-1)
+    assert got.dtype == np.uint8
+    np.testing.assert_array_equal(got.astype(bool), want)
+    assert not want[0].all() and want[0].sum() > want[-1].sum()
+
+
+def test_spec_grid_past_one_launch_matches_jax(one_thread):
+    """``run_spec_grid`` over a 430-column union (past one float64 launch's
+    reach; here the CPU's plain version) against the JAX function at
+    float64: 3 specs over the first 3, 215 and all 430 columns, 6 months
+    (the grid's minimum set to 4)."""
+    t, n, p = 6, 600, 430
+    rng = np.random.default_rng(21)
+    x = rng.standard_normal((t, n, p))
+    x[np.arange(t)[:, None], rng.integers(0, n, (t, 12)), rng.integers(0, p, (t, 12))] = np.nan
+    beta = np.zeros(p)
+    beta[[0, 2, 100, 300, 429]] = [0.5, -0.3, 0.2, 0.4, -0.25]
+    y = np.nansum(x * beta, axis=-1) + rng.standard_normal((t, n))
+    masks = {"all": np.ones((t, n), bool)}
+    names = tuple(f"c{i}" for i in range(p))
+    shapes = [(f"m{w}", names[:w], "all") for w in (3, 215, p)]
+    grid = SpecGrid(tuple(Spec(nm, c, u) for nm, c, u in shapes), union=names, min_months=4)
+    jgrid = JaxSpecGrid(tuple(JaxSpec(nm, c, u) for nm, c, u in shapes), union=names,
+                        min_months=4)
+    want = jax_run_spec_grid(y, x, masks, jgrid)
+    t_ = torch.from_numpy
+    got = run_spec_grid(t_(y), t_(x), {k: t_(m) for k, m in masks.items()}, grid, True, None)
+    assert got.coef.shape == (3, p)
+    assert tuple(got.referee_specs) == tuple(want.referee_specs)
+    _results_close(got, want, "run_spec_grid P=430")
+    assert np.isfinite(got.coef[-1]).all()
