@@ -24,12 +24,14 @@ Phases (any failure exits non-zero without the final line):
    ``contract_spec_grams`` call from float32 inputs timed), a 117-spec
    batch cut into two launches, and the estimator family's shapes (27 specs
    in one launch, with and without row weights; Table 2's in float64); past
-   32 columns P = 40, 64 and 100 on every branch, each side of the reach one
-   launch had before column panels (424 float64 columns, 848 float32, 1,367
-   bfloat16; 847 and 622 with row weights), and the 920-column union
-   (T = 60, N = 22,000, 3 specs) on every branch, float32, float64 and row
-   weights cut into column panels, with the panel route's pre-pass
-   (``gram_fold_cuda``) timed beside them;
+   32 columns P = 40, 64 and 100 on every branch, each side of the reach of
+   one launch of the wide kernels (424 float64 columns, 848 float32, 1,367
+   bfloat16; 847 and 622 with row weights) and of the tile-pair kernel's
+   crossover (``GRAM_TILE_FROM``; 921 columns, no 16-byte row stride), and
+   the 920-column union (T = 60, N = 22,000, 3 specs) on every branch:
+   float32 and its row weights cut into column panels, float64 and bfloat16
+   (also with coreset row weights, untimed) on the tile-pair kernel, with
+   the pre-pass (``gram_fold_cuda``) timed beside them;
 4. the main path at real size — 600 months, 22,000 firms, ~77M daily rows
    built from ``--seed`` by ``data.smoke_inputs`` — through
    ``run_pipeline(device="cuda", dtype=torch.float32)`` and all of its
@@ -211,7 +213,7 @@ Phases (any failure exits non-zero without the final line):
    ``SUSPECT_TOL`` between two CPU witnesses, integer disclosures exact;
    ``run_spec_grid`` over a 40-column union and an FWL cell with 20
    controls, and over a 920-column union (12 months × 2,000 seeded firms,
-   3 specs: the panel route) at the same pins;
+   3 specs: the tile-pair kernel) at the same pins;
 8. the raw-frame route (a 250-firm × 130-month synthetic universe, float64)
    on the card and on the CPU: the enriched panel at rtol 1e-10, the tables
    as in phase 7, the audit records equal;
@@ -376,6 +378,8 @@ from fm_returnprediction_tpu_torch.specgrid.grams import (
     gram_fold_plain,
     gram_launch_count,
     gram_spec_chunk,
+    gram_tile_plan,
+    GRAM_TILE_FROM,
     shared_center,
     split_stats,
 )
@@ -406,6 +410,9 @@ K1_SOURCE = "fm_returnprediction_tpu_torch/csrc/rolling.cu"
 K1_REPLACES = "fm_returnprediction_tpu/ops/pallas_kernels.py:216"
 K2_SOURCE = "fm_returnprediction_tpu_torch/csrc/gram.cu"
 K2_REPLACES = "fm_returnprediction_tpu/ops/gram_pallas.py:120"
+# the tile-pair kernel's rows: the Pallas kernel's body, each (spec, month)
+# block of [1 | x - c | y] that it computes
+K2_TILES_REPLACES = "fm_returnprediction_tpu/ops/gram_pallas.py:56"
 K3_SOURCE = "fm_returnprediction_tpu_torch/csrc/rolling.cu"
 K3_REPLACES = "fm_returnprediction_tpu/ops/pallas_kernels.py:132"
 K3_MAIN_PATH = ("not launched at this shape: the mesh path's time shards launch K3, "
@@ -710,10 +717,13 @@ def check_gram(t, n, p, dtype, rel, gen, timed, figure=False, weights=None,
     kind = "bf16" if low else str(dtype)[6:]
     chunk = gram_spec_chunk(p, dtype=x.dtype)
     plan = gram_column_panels(p, x.dtype, s, rw is not None)
+    tiles = gram_tile_plan(p, x.dtype, s)
     label = (f"T={t} N={n} P={p} S={s} {kind}" + (f" rw={weights}" if weights else "")
              + (f" ({-(-s // chunk)} launches)" if s > chunk else "")
              + (f" ({gram_launch_count(t, n, p, s, x.dtype, rw is not None)} launches: "
-                f"{len(plan.pairs)} pairs of {len(plan.panels)} column panels)" if plan else ""))
+                f"{len(plan.pairs)} pairs of {len(plan.panels)} column panels)" if plan else "")
+             + (f" (tile pairs: one launch, {len(tiles.pairs)} pairs of {tiles.tiles} tiles, "
+                f"{tiles.groups} spec group(s) of {tiles.spec_group})" if tiles else ""))
     tol = rel
     check(torch.equal(out, gram_contract_cuda(y, x, valid, col_sel, center, rw)),
           f"K2 {label}: two calls differ in their bits")
@@ -806,8 +816,10 @@ def check_gram(t, n, p, dtype, rel, gen, timed, figure=False, weights=None,
         # the wrapper's launch key ("P=14,S=9,f32[,rw]")
         key = (f"{key_prefix}/P={p},S={s},{'bf16' if low else {torch.float32: 'f32', torch.float64: 'f64'}[dtype]}"
                + (",rw" if rw is not None else ""))
-        row = dict(name=f"gram_contract {label}", key=key, route="cuda", source=K2_SOURCE,
-                   replaces=K2_REPLACES, max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+        row = dict(name=f"{'gram_tiles' if tiles else 'gram_contract'} {label}", key=key,
+                   route="cuda", source=K2_SOURCE,
+                   replaces=K2_TILES_REPLACES if tiles else K2_REPLACES,
+                   max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
                    bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
     del y, x, uni, valid, col_sel, center, out, got, want, rw, y_in, x_in, rw_in
     torch.cuda.empty_cache()
@@ -882,13 +894,13 @@ ROW_PATH.update({f"gram/P={p},S=9,{branch}": ("wide",) for p, _ in WIDE_SHAPES
                  for branch in ("f32", "f64", "f32,rw", "bf16")})
 
 
-# K2 past one launch's reach: a union of 920 columns (Gu, Kelly and Xiu's
-# 94 characteristics × 9 plus 74 industry dummies), 60 months × 22,000
-# firms (depth cut for time), 3 specs (the first 3, 460 and every column),
-# 1e-4 of the entries NaN (the widest spec keeps most rows), on every
-# branch: float32, float64 and coreset row weights cut into column panels
-# (the pre-pass and one launch a pair), bfloat16 operands in one launch
-# (their reach is 1,367 columns)
+# K2 on wide unions: 920 columns (Gu, Kelly and Xiu's 94 characteristics
+# × 9 plus 74 industry dummies), 60 months × 22,000 firms (depth cut for
+# time), 3 specs (the first 3, 460 and every column), 1e-4 of the entries
+# NaN (the widest spec keeps most rows), on every branch: float32 and its
+# coreset row weights cut into column panels (the pre-pass and one launch
+# a pair), float64 and bfloat16 operands on the tile-pair kernel (the
+# pre-pass and one launch)
 PANEL_P, PANEL_T, PANEL_N = 920, 60, 22000
 PANEL_WIDTHS = (3, PANEL_P // 2, PANEL_P)
 PANEL_NAN = 1e-4
@@ -900,8 +912,9 @@ FOLD_REPLACES = "fm_returnprediction_tpu/ops/gram_pallas.py:89"
 ROW_PATH.update({f"gram/P={PANEL_P},S=3,{branch}": ("wide",)
                  for branch in ("f32", "f64", "f32,rw", "bf16")})
 ROW_PATH.update({f"fold/P={PANEL_P},S=3,{branch}": ("wide",) for branch in ("f32", "f64")})
-# the reach one launch had before column panels, 9 specs (gram_launch_fits):
-# (label, operands, bfloat16, row weights, the widest union)
+# the reach of one launch of the wide kernels, 9 specs: (label, operands,
+# bfloat16, row weights, the widest union); float64 and bfloat16 take the
+# tile-pair kernel on both sides of it
 OLD_REACH = (("f64", torch.float64, False, None, 424),
              ("f64 rw", torch.float64, False, "binary", 423),
              ("f32", torch.float32, False, None, 848),
@@ -911,30 +924,61 @@ OLD_REACH = (("f64", torch.float64, False, None, 424),
 
 
 def reach_checks(gen) -> None:
-    """Each side of the reach one launch had before column panels, 12
-    months × 1,001 firms, 9 specs: at the reach one launch, one column past
-    it the pre-pass and one launch a pair of panels
-    (``gram_launch_count``), each held to its plain version as
-    ``check_gram`` holds it (two calls, bit-identical)."""
+    """Each side of the reach of one launch of the wide kernels, 12 months
+    × 1,001 firms, 9 specs: float32 one launch at the reach, one column past
+    it the pre-pass and one launch a pair of panels (``gram_launch_count``);
+    float64 and bfloat16 the pre-pass and one launch of the tile-pair kernel
+    on both sides; each held to its plain version as ``check_gram`` holds
+    it (two calls, bit-identical)."""
     for label, dtype, low, weights, reach in OLD_REACH:
         operands = torch.bfloat16 if low else dtype
         for p in (reach, reach + 1):
             plan = gram_column_panels(p, operands, 9, weights is not None)
-            check((plan is None) == (p == reach),
-                  f"K2 {label} P={p}: column panels {'' if plan else 'not '}planned")
+            tiles = gram_tile_plan(p, operands, 9)
+            if operands == torch.float32:
+                check((plan is None) == (p == reach),
+                      f"K2 {label} P={p}: column panels {'' if plan else 'not '}planned")
+            else:
+                check(tiles is not None, f"K2 {label} P={p}: not on the tile route")
             want = (gram_launch_count(12, 1001, p, 9, operands, weights is not None),
-                    0 if plan is None else 1)
+                    0 if plan is None and tiles is None else 1)
             before = gram_contract_cuda.launches, gram_fold_cuda.launches
             check_gram(12, 1001, p, dtype, 1e-12 if dtype == torch.float64 else 1e-5, gen,
                        False, weights=weights, low=low, nan_frac=1e-3)
             got = (gram_contract_cuda.launches - before[0],
                    gram_fold_cuda.launches - before[1])
             log(f"K2 {label} P={p}: "
-                + ("one launch" if plan is None else
+                + (f"tile pairs, {len(tiles.pairs)} pairs of {tiles.tiles} tiles" if tiles else
+                   "one launch" if plan is None else
                    f"{len(plan.panels)} column panels, {len(plan.pairs)} pairs")
                 + f"; launches (K2, pre-pass) of two calls {got}")
             check(got == (2 * want[0], 2 * want[1]),
                   f"K2 {label} P={p}: launches {got}, not twice {want}")
+
+
+def tile_side_checks(gen) -> None:
+    """The tile-pair kernel's edges, 12 months × 1,001 firms, 9 specs, in
+    float64 and bfloat16 (with 0/1 row weights too): one launch of the
+    one-launch kernel one column below ``GRAM_TILE_FROM``, the pre-pass and
+    one launch of the tile-pair kernel at it and at 921 columns (no
+    16-byte row stride in either type), each held to its plain version as
+    ``check_gram`` holds it (two calls, bit-identical)."""
+    for dtype, low in ((torch.float64, False), (torch.float32, True)):
+        operands = torch.bfloat16 if low else dtype
+        start = GRAM_TILE_FROM[operands]
+        for p in (start - 1, start, 921):
+            for weights in (None, "binary"):
+                tiles = gram_tile_plan(p, operands, 9)
+                check((tiles is not None) == (p >= start),
+                      f"K2 {operands} P={p}: tile route {'' if tiles else 'not '}planned")
+                before = gram_contract_cuda.launches, gram_fold_cuda.launches
+                check_gram(12, 1001, p, dtype, 1e-12 if dtype == torch.float64 else 1e-5, gen,
+                           False, weights=weights, low=low, nan_frac=1e-3)
+                got = (gram_contract_cuda.launches - before[0],
+                       gram_fold_cuda.launches - before[1])
+                want = (2, 0 if tiles is None else 2)
+                check(got == want, f"K2 {operands} P={p}: launches (K2, pre-pass) of two "
+                      f"calls {got}, not {want}")
 
 
 def fold_row(dtype, gen, timed):
@@ -973,9 +1017,11 @@ def k2_wide_phase(gen, timed: bool):
     (the timed rows of the kernel table), then untimed edge cases: P = 33
     in float64, float32 and bfloat16 with 0/1 weights on a ragged N,
     bfloat16 with coreset weights at P = 40, float32 with 61 specs at P =
-    40, and each side of the reach one launch had before column panels
-    (``reach_checks``); then the 920-column union on every branch and the
-    pre-pass (timed rows)."""
+    40, each side of the reach of one launch of the wide kernels
+    (``reach_checks``) and of the tile-pair kernel's crossover
+    (``tile_side_checks``), and bfloat16 with coreset weights over 920
+    columns; then the 920-column union on every branch and the pre-pass
+    (timed rows)."""
     rows = []
     for p, n in WIDE_SHAPES:
         rows += [check_gram(600, n, p, torch.float32, 1e-5, gen, timed),
@@ -988,8 +1034,11 @@ def k2_wide_phase(gen, timed: bool):
     check_gram(120, 3001, 33, torch.float32, 1e-5, gen, False, weights="binary")
     check_gram(120, 4096, WIDE_P, torch.float32, 1e-5, gen, False, specs=61)
     reach_checks(gen)
-    # a call of 0.25-0.9 s: median of 2 (the plain version's too)
+    tile_side_checks(gen)
+    # a call of up to 0.5 s: median of 2 (the plain version's too)
     panel = dict(specs=3, widths=PANEL_WIDTHS, nan_frac=PANEL_NAN, reps=2)
+    check_gram(PANEL_T, PANEL_N, PANEL_P, torch.float32, 1e-5, gen, False, weights="coreset",
+               low=True, **panel)
     rows += [check_gram(PANEL_T, PANEL_N, PANEL_P, torch.float32, 1e-5, gen, timed, **panel),
              check_gram(PANEL_T, PANEL_N, PANEL_P, torch.float64, 1e-12, gen, timed, **panel),
              check_gram(PANEL_T, PANEL_N, PANEL_P, torch.float32, 1e-5, gen, timed,
@@ -1003,10 +1052,12 @@ def k2_wide_phase(gen, timed: bool):
 def sass_hmma_phase() -> None:
     """Count the tensor-core instructions in the SASS of each Gram kernel
     of the built library (``cuobjdump -sass``): ``HMMA`` (bf16) and
-    ``DMMA`` (float64). The bf16 kernels (the eight register classes and
-    the four wide kernels past 32 columns: two chunk widths, with and
-    without row weights) must have ``HMMA`` and no ``DMMA``, the six
-    float64 kernels (three chunk widths) ``DMMA`` and no ``HMMA``, the four
+    ``DMMA`` (float64). The bf16 kernels (the eight register classes, the
+    four wide kernels past 32 columns: two chunk widths, with and without
+    row weights, and the six tile-pair kernels: 1 to 3 specs a block, with
+    and without row weights) must have ``HMMA`` and no ``DMMA``, the
+    ten float64 kernels (three chunk widths, and the four tile-pair
+    kernels: 2 and 3 specs a block) ``DMMA`` and no ``HMMA``, the four
     float32 kernels (``gram_kernel`` up to 32 columns and
     ``gram_f32_wide_kernel`` past them, each with and without row weights)
     and the panel route's three pre-pass kernels (``gram_fold_kernel``, one
@@ -1038,9 +1089,9 @@ def sass_hmma_phase() -> None:
     tc = {k: v for k, v in counts.items() if k.startswith("gram_tc_")}
     dm = {k: v for k, v in counts.items() if k.startswith("gram_dmma_")}
     cc = {k: v for k, v in counts.items() if not k.startswith(("gram_tc_", "gram_dmma_"))}
-    check(len(tc) == 12 and all(v["HMMA"] > 0 and v["DMMA"] == 0 for v in tc.values()),
+    check(len(tc) == 18 and all(v["HMMA"] > 0 and v["DMMA"] == 0 for v in tc.values()),
           "bf16 Gram kernels without HMMA (or with DMMA)")
-    check(len(dm) == 6 and all(v["DMMA"] > 0 and v["HMMA"] == 0 for v in dm.values()),
+    check(len(dm) == 10 and all(v["DMMA"] > 0 and v["HMMA"] == 0 for v in dm.values()),
           "float64 Gram kernels without DMMA (or with HMMA)")
     check(len(cc) == 7 and sum(k.startswith("gram_f32_wide_kernel") for k in cc) == 2
           and sum(k.startswith("gram_fold_kernel") for k in cc) == 3
@@ -2602,11 +2653,11 @@ def _panel_path(res, seed: int, gen, merged: dict) -> None:
     last ``PANEL_T`` months of the main path's panel (its first months hold
     fewer firms than the widest spec has columns), all its firms, over All
     stocks, in float32, with coreset row weights, in bfloat16 and in
-    float64. Each run's K2 launches are ``gram_launch_count``'s (float32,
-    float64 and the row weights cut into column panels: one launch a pair,
-    and one pre-pass launch; bfloat16 one launch), each spec's selected
-    coefficients finite. Adds the launches (``gram/…``, ``fold/…``) to
-    ``merged``."""
+    float64. Each run's K2 launches are ``gram_launch_count``'s (float32
+    and the row weights cut into column panels: one launch a pair; float64
+    and bfloat16 one launch of the tile-pair kernel), and one pre-pass
+    launch; each spec's selected coefficients finite. Adds the launches
+    (``gram/…``, ``fold/…``) to ``merged``."""
     panel, masks = res.panel, res.subset_masks
     t, n = PANEL_T, panel.values.shape[1]
     universe = "All stocks"
@@ -2627,6 +2678,9 @@ def _panel_path(res, seed: int, gen, merged: dict) -> None:
     for label, kw, y_run, x_run, operands in runs:
         weighted = "row_weights" in kw
         plan = gram_column_panels(PANEL_P, operands, len(grid.specs), weighted)
+        tiles = gram_tile_plan(PANEL_P, operands, len(grid.specs))
+        check((tiles is None) == (operands == torch.float32),
+              f"panel run_spec_grid {label}: the tile route {'' if tiles else 'not '}planned")
         reset_counts()
         torch.cuda.synchronize()
         start = time.perf_counter()
@@ -2634,12 +2688,11 @@ def _panel_path(res, seed: int, gen, merged: dict) -> None:
         torch.cuda.synchronize()
         wall = time.perf_counter() - start
         counts = launch_counts()
-        want = (gram_launch_count(t, n, PANEL_P, len(grid.specs), operands, weighted),
-                0 if plan is None else 1)
+        want = (gram_launch_count(t, n, PANEL_P, len(grid.specs), operands, weighted), 1)
         finite = all(np.isfinite(out.coef[i, :w]).all() for i, w in enumerate(widths))
         log(f"K2 panel path: run_spec_grid P={PANEL_P} S={len(grid.specs)} T={t} N={n} "
             f"{label}: {wall:.3f} s, "
-            + ("one launch" if plan is None else
+            + (f"tile pairs, {len(tiles.pairs)} pairs of {tiles.tiles} tiles" if tiles else
                f"{len(plan.panels)} column panels, {len(plan.pairs)} pairs")
             + f", K2 {counts['k2']}, pre-pass {counts['fold']}, mean rows a month "
             f"{np.round(out.mean_n, 1).tolist()}, specs with a suspect month "
@@ -3002,12 +3055,12 @@ def _wide_vs_cpu(gpu, seed: int) -> None:
 
 
 def _panel_vs_cpu(seed: int) -> None:
-    """The panel route card vs CPU at float64: ``run_spec_grid`` over 920
-    seeded columns (12 months × 2,000 firms, 1e-4 of the entries NaN, y a
-    few columns' sum and noise), 3 specs (the first 3, 460 and every
-    column): specs without a suspect month at 1e-8, the others at
-    ``SUSPECT_TOL``; the card's launches ``gram_launch_count``'s and one
-    pre-pass."""
+    """The 920-column union card vs CPU at float64 (on the card the
+    tile-pair kernel): ``run_spec_grid`` over 920 seeded columns (12 months
+    × 2,000 firms, 1e-4 of the entries NaN, y a few columns' sum and
+    noise), 3 specs (the first 3, 460 and every column): specs without a
+    suspect month at 1e-8, the others at ``SUSPECT_TOL``; the card's
+    launches one and one pre-pass."""
     from fm_returnprediction_tpu_torch.specgrid.specs import Spec, SpecGrid
 
     t, n, p = 12, 2000, PANEL_P
@@ -3032,9 +3085,11 @@ def _panel_vs_cpu(seed: int) -> None:
     g, c = out["cuda"], out["cpu"]
     suspect = np.asarray(c.suspect_months) > 0
     held, worst_sus = _grid_gap(g, c, suspect)
-    want = (gram_launch_count(t, n, p, len(grid.specs), torch.float64), 1)
+    check(gram_tile_plan(p, torch.float64, len(grid.specs)) is not None,
+          "card vs CPU 920 columns: not on the tile route")
+    want = (1, 1)
     got = (counts["cuda"]["k2"], counts["cuda"]["fold"])
-    log(f"card vs CPU panels (P={p}, f64, {t} x {n:,}, 3 specs): card {secs['cuda']:.2f} s "
+    log(f"card vs CPU tile pairs (P={p}, f64, {t} x {n:,}, 3 specs): card {secs['cuda']:.2f} s "
         f"(K2 {got[0]}, pre-pass {got[1]}), cpu {secs['cpu']:.2f} s; worst held diff "
         f"{held:.3e} over {int((~suspect).sum())} specs without a suspect month (tol 1e-8), "
         f"{worst_sus:.3e} over {int(suspect.sum())} with one (tol {SUSPECT_TOL:g}); referee "

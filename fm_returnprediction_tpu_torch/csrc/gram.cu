@@ -221,18 +221,63 @@
 // to 65,536 specs in one launch, at any P whose smallest firm tile (16
 // firms) fits in shared memory (227 KB): 424 columns in float64 (423 with
 // row weights), 848 in float (850 at S = 1, 847 with row weights), 1,367
-// in bf16 (622 with row weights).
+// in bf16 (622 with row weights); the wrapper sends float64 and bf16 to the
+// tile-pair kernel before those reaches.
 //
-// Wider unions: column panels. Past that reach the wrapper
-// (specgrid/grams.py::gram_column_panels) cuts the x columns into panels
-// and launches the kernel once a pair of panels (I < J) on a gathered copy
-// of the pair's columns, [1 | x_I - c_I | x_J - c_J | y]; from each
-// launch's block it keeps the (I, J) rectangle, and the diagonal panel
-// blocks and the intercept and y entries of the one launch it names for
-// each. A row's validity spans every selected column, so a pre-pass,
+// Design, wide float64 and bf16 unions (gram_dmma_tiles_kernel,
+// gram_tc_tiles_kernel: the tile-pair kernel). It ports the same Pallas
+// kernel body (fm_returnprediction_tpu/ops/gram_pallas.py::_gram_kernel,
+// :56) for float64 and bf16 operands from GRAM_TILE_FROM columns
+// (specgrid/grams.py, the crossover timed on an H100), at any P in one
+// launch. At 920 columns (T = 60, N = 22,000, S = 3) the products bound it
+// (~3.4e12 operations: 50 ms of DMMA, 3.4 ms of bf16 tensor cores, against
+// 1.5 GB of bytes, 0.5 ms), and the kernels past 32 columns above stage
+// and build a month's whole rows in every block (tile 16 a block at that
+// width, or a gathered panel copy a launch).
+// - The augmented columns [1 | x - c | y] are cut into tiles of 64; a
+//   block owns one tile pair (I <= J) for one month and a group of up to 3
+//   specs (the pure-Python plan gram_tile_plan gives the pairs, passed as
+//   an int32 array, and the group size), walks the firms in chunks of 64
+//   and writes its (I, J) rectangle and the mirror straight into the
+//   output; a diagonal pair keeps the entries on or above the diagonal.
+//   Each entry has one writer and no atomics: two calls give the same
+//   bits, and under 0/1 weights n is an exact count. The blocks of a pair's
+//   spec groups, then of a month's pairs, run together, so the month's
+//   firms are read from L2 (a block reads 2 x 64 columns of every firm).
+// - Staging from x itself: per firm and tile, every 16-byte-aligned chunk
+//   that holds a byte of the tile's columns goes by one cp.async (so any P
+//   and any alignment of x: no 16-byte row stride is needed, as a TMA
+//   tensor map would need), and y, the row weights and the spec's rows of
+//   the folded mask as 1-D spans the same way; two stages, chunk k + 1 in
+//   flight while chunk k is built and summed. No gathered copy: the only
+//   scratch is the pre-pass's (S, T, N) uint8 mask.
+// - Validity: the pre-pass (gram_fold_kernel, below) folds finite(y) and
+//   every selected column's finiteness into the mask once; a block reads
+//   the folded bytes, not the firm's whole row.
+// - The build, all threads: each chunk's two tiles as firm-major augmented
+//   rows (non-finite entries 0, x - c formed in float and rounded to bf16
+//   as the plain version rounds it), and each (spec, firm) weight.
+// - bf16 products: mma.sync m16n8k16, both fragments loaded from the
+//   firm-major rows by ldmatrix.trans (k = the firm), four warps of 32 x 32
+//   outputs; each spec ANDs its 0xFFFF/0 masks into the A fragment, and
+//   row weights split w * a exactly into hi + lo (two MMAs, as
+//   gram_tc_kernel). Each step's product starts from a zero sum and is
+//   added into the running sums in float registers, so the tensor core's
+//   own sum never spans more than 16 firms.
+// - float64 products: mma.sync m16n8k8 (the full DMMA rate), eight warps of
+//   16 x 32 outputs, the weight applied as each spec forms its A fragment,
+//   straight into running sums in registers (DMMA is IEEE double).
+//
+// Wider float unions: column panels. Past the float kernel's reach the
+// wrapper (specgrid/grams.py::gram_column_panels) cuts the x columns into
+// panels and launches the kernel once a pair of panels (I < J) on a
+// gathered copy of the pair's columns, [1 | x_I - c_I | x_J - c_J | y];
+// from each launch's block it keeps the (I, J) rectangle, and the diagonal
+// panel blocks and the intercept and y entries of the one launch it names
+// for each. A row's validity spans every selected column, so a pre-pass,
 // gram_fold_kernel (at the end), first folds finite(y) and the finiteness
 // of each spec's selected columns into a copy of the valid mask, which the
-// panel launches read.
+// panel launches (and the tile-pair kernel) read.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -240,6 +285,7 @@
 #include <stdint.h>
 
 #include <algorithm>
+#include <type_traits>
 
 namespace {
 
@@ -2286,6 +2332,641 @@ int launch_f32(const void* x, const void* y, const void* rw, const unsigned char
                                    s_specs, stream);
 }
 
+// --- wide unions of float64 and bf16 operands: the tile-pair kernel ----------
+
+constexpr int kTileCols = 64;   // augmented columns a tile
+constexpr int kTileSpecs = 3;   // the most specs one block sums
+constexpr int kTileFirms = 64;  // firms a staged chunk
+constexpr int kTileVRow = 80;   // bytes of a staged valid row: the 16-byte chunks of 64 bytes
+
+// A block's work: month t, tile pair (ti, tj), specs s0 .. s0 + nsb - 1;
+// for each side (0: tile ti, the A operand; 1: tile tj, the B operand) its
+// first augmented column and the x columns xa .. xa + xn - 1 it stages
+// (augmented column a is x column a - 1).
+struct TileBlock {
+  int t, ti, tj, s0, nsb;
+  int base[2], xa[2], xn[2];
+};
+
+// Block b takes spec group b % groups of pair (b / groups) % npairs of month
+// b / (groups * npairs): the groups of a pair, then the pairs of a month,
+// run together, so that they read the month's firms from L2.
+__device__ inline TileBlock tile_block(const int* __restrict__ pairs, int npairs, int groups,
+                                       int group, int s_specs, int p) {
+  TileBlock B;
+  const long long b = blockIdx.x;
+  const long long rest = b / groups;
+  const int k = (int)(rest % npairs);
+  B.t = (int)(rest / npairs);
+  B.s0 = (int)(b - rest * groups) * group;
+  B.nsb = min(group, s_specs - B.s0);
+  B.ti = pairs[2 * k];
+  B.tj = pairs[2 * k + 1];
+  const int nt = (p + 2 + kTileCols - 1) / kTileCols;
+  if (B.ti < 0 || B.ti > B.tj || B.tj >= nt) __trap();  // a plan the kernel does not take
+#pragma unroll
+  for (int side = 0; side < 2; ++side) {
+    B.base[side] = kTileCols * (side == 0 ? B.ti : B.tj);
+    B.xa[side] = max(B.base[side] - 1, 0);
+    B.xn[side] = max(min(B.base[side] + kTileCols - 1, p) - B.xa[side], 0);
+  }
+  return B;
+}
+
+// A side's field (0 or 1) by a select, so the block's fields stay in
+// registers (an array indexed by a runtime side would go to local memory).
+__device__ __forceinline__ int of_side(const int (&v)[2], int side) {
+  return side == 0 ? v[0] : v[1];
+}
+
+__device__ __forceinline__ const unsigned char* align16(const void* p) {
+  return reinterpret_cast<const unsigned char*>(reinterpret_cast<uintptr_t>(p) & ~uintptr_t(15));
+}
+__device__ __forceinline__ void cp_async8(void* smem, const void* gmem) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(smem_addr(smem)), "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_wait_1() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// The 16-byte-aligned chunks that hold a byte of the span [lo, lo + bytes),
+// chunk c to dst + 16 c (value e of the span lands at dst + (lo & 15) + e),
+// the chunks dealt over threads `at` .. in steps of `step`. A chunk may hold
+// bytes on either side of its span (the row's other columns, the next
+// firm's): an aligned 16-byte chunk that holds a byte of a tensor lies
+// within the tensor's allocation, whose start and size are multiples of 16
+// bytes or more.
+__device__ __forceinline__ void stage_span(unsigned char* dst, const unsigned char* lo,
+                                           size_t bytes, int at, int step) {
+  const unsigned char* src = align16(lo) + 16 * at;
+  for (dst += 16 * at; src < lo + bytes; src += 16 * step, dst += 16 * step)
+    cp_async16(dst, src);
+}
+
+// Stage each spec's folded valid bytes of firms n0 .. n0 + cnt - 1 (one row
+// of kTileVRow bytes a spec, at v_off of the stage).
+__device__ inline void stage_valid_rows(unsigned char* st, size_t v_off, const TileBlock& B,
+                                        const unsigned char* valid, int t_len, long long n,
+                                        long long n0, int cnt, int tid, int nthreads) {
+  constexpr int ch = kTileVRow / 16;
+  for (int i = tid; i < B.nsb * ch; i += nthreads) {
+    const int j = i / ch;
+    stage_span(st + v_off + j * kTileVRow,
+               valid + ((long long)(B.s0 + j) * t_len + B.t) * n + n0, (size_t)cnt, i - j * ch,
+               ch);
+  }
+}
+
+// The staging loop of both instances: three stages of raw chunks in a ring,
+// chunk k + 2 in flight while chunk k is summed. stage(k) stages chunk k
+// into its ring slot; chunk(k, cnt) sums it once every copy of it has landed
+// and every thread is done with chunk k - 1 (one barrier a chunk, and any of
+// its own).
+template <typename Stage, typename Chunk>
+__device__ inline void tile_walk(long long n, Stage stage, Chunk chunk) {
+  const long long n_chunks = (n + kTileFirms - 1) / kTileFirms;
+  stage(0);
+  cp_async_commit();
+  if (n_chunks > 1) stage(1);
+  cp_async_commit();
+  for (long long k = 0; k < n_chunks; ++k) {
+    cp_async_wait_1();
+    __syncthreads();  // chunk k staged; chunk k - 1 summed (its ring slot free)
+    if (k + 2 < n_chunks) stage(k + 2);
+    cp_async_commit();
+    chunk(k, (int)min((long long)kTileFirms, n - k * kTileFirms));
+  }
+}
+
+// Both sides' output rows and columns of a lane's sums and the spec they
+// belong to: entry (r, c) is written, and its mirror, when it lies in the
+// block and on or above the diagonal (a diagonal pair's lower entries are
+// its upper entries' mirrors). Each entry of the block has one writer.
+template <typename A>
+__device__ __forceinline__ void tile_store(A* out, const TileBlock& B, int j, int t_len, int qe,
+                                           int r, int c, A v) {
+  if (j < B.nsb && r < qe && c < qe && (B.ti < B.tj || r <= c)) {
+    A* blk = out + ((size_t)(B.s0 + j) * t_len + B.t) * qe * qe;
+    blk[(size_t)r * qe + c] = v;
+    blk[(size_t)c * qe + r] = v;
+  }
+}
+
+// --- bf16: built rows on the tensor cores ---
+
+// Byte offsets of one block's dynamic shared memory: three stages of raw
+// chunks (a slot of the 16-byte chunks of each (side, firm) span of 64
+// bf16, each span's misalignment, y, the row weights, one folded valid row a
+// spec), both panels' centers in float, the built rows (firm-major, 72 bf16
+// a row: nine 16-byte units, so the eight rows of an ldmatrix fall in eight
+// bank groups) of side 0 and side 1 (with row weights side 0's hi and lo
+// parts), then a 0xFFFF/0 half a (spec, firm). 76 KB without row weights:
+// three blocks an SM.
+struct TcTileLayout {
+  size_t mis_off, y_off, rw_off, v_off, stage, cen_off, built_off, built_bytes, mask_off,
+      total;
+};
+constexpr int kTcTileSlot = 144;    // bytes of a raw (side, firm) slot
+constexpr int kTcTileStride = 72;   // bf16 of a built row
+
+__host__ __device__ inline TcTileLayout make_tc_tile_layout(bool has_rw) {
+  TcTileLayout L;
+  L.mis_off = (size_t)2 * kTileFirms * kTcTileSlot;
+  L.y_off = L.mis_off + 2 * kTileFirms;
+  L.rw_off = L.y_off + up16(kTileFirms * 2 + 16);
+  L.v_off = L.rw_off + (has_rw ? up16(kTileFirms * 2 + 16) : 0);
+  L.stage = L.v_off + kTileSpecs * kTileVRow;
+  L.cen_off = 3 * L.stage;
+  L.built_off = L.cen_off + 2 * kTileCols * sizeof(float);
+  L.built_bytes = (size_t)kTileFirms * kTcTileStride * 2;
+  L.mask_off = L.built_off + (has_rw ? 3 : 2) * L.built_bytes;
+  L.total = L.mask_off + kTileSpecs * kTileFirms * 2;
+  return L;
+}
+
+// Stage firms n0 .. n0 + cnt - 1: a thread a (side, firm, chunk), the
+// chunks of a span on consecutive threads (so a warp's copies are runs of
+// each row), the span's first chunk noting its misalignment; then y, the
+// row weights and the valid rows.
+template <bool kRw>
+__device__ inline void stage_tc_tiles(const TcTileLayout& L, unsigned char* st,
+                                      const TileBlock& B, const __nv_bfloat16* x,
+                                      const __nv_bfloat16* y, const __nv_bfloat16* rw,
+                                      const unsigned char* valid, int t_len, long long n, int p,
+                                      long long n0, int cnt, int tid, int nthreads) {
+  const long long row0 = (long long)B.t * n + n0;
+  constexpr int ch = kTcTileSlot / 16;
+  for (int i = tid; i < 2 * kTileFirms * ch; i += nthreads) {
+    const int sf = i / ch, c = i - sf * ch;  // (side, firm) sf = side * 64 + firm
+    const int side = sf / kTileFirms, f = sf - side * kTileFirms;
+    if (f >= cnt) continue;
+    const unsigned char* lo =
+        reinterpret_cast<const unsigned char*>(x + (row0 + f) * p + of_side(B.xa, side));
+    if (c == 0) st[L.mis_off + sf] = (unsigned char)misalign(lo);
+    const unsigned char* src = align16(lo) + 16 * c;
+    if (src < lo + (size_t)of_side(B.xn, side) * 2)
+      cp_async16(st + (size_t)sf * kTcTileSlot + 16 * c, src);
+  }
+  constexpr int ych = (kTileFirms * 2 + 16) / 16;
+  for (int i = tid; i < (kRw ? 2 : 1) * ych; i += nthreads) {
+    const bool is_y = i < ych;
+    stage_span(st + (is_y ? L.y_off : L.rw_off),
+               reinterpret_cast<const unsigned char*>((is_y ? y : rw) + row0), (size_t)cnt * 2,
+               is_y ? i : i - ych, ych);
+  }
+  stage_valid_rows(st, L.v_off, B, valid, t_len, n, n0, cnt, tid, nthreads);
+}
+
+// The bf16 build of a staged chunk, all threads: a thread a (side, firm,
+// 8-column group) forms the group's values in float (x - c rounded to bf16
+// as the plain version rounds it) and writes them as one 16-byte row
+// segment. A group of eight x columns (all but the first group of tile 0
+// and the groups past x's last column) reads them as five aligned words
+// shifted into place; the others take each column as it comes (1 for the
+// intercept, y, 0 past QE). With row weights side 0 writes hi =
+// bf16_rn(w a) and lo = bf16_rn(w a - hi), so hi + lo == w a exactly
+// (gram_tc_kernel's split). Then a thread a (spec, firm pair) writes the
+// pair's 0xFFFF/0 masks from the folded valid bytes. Firms cnt ..
+// kTileFirms - 1 get zero rows and masks.
+template <bool kRw>
+__device__ inline void build_tc_tiles(const TcTileLayout& L, unsigned char* smem,
+                                      const unsigned char* st, const TileBlock& B, int p,
+                                      int cnt, int y_mis, int rw_mis,
+                                      const int (&v_mis)[kTileSpecs], int tid, int nthreads) {
+  using bf16 = __nv_bfloat16;
+  constexpr int kGroups = kTileCols / 8;
+  const float* cen = reinterpret_cast<const float*>(smem + L.cen_off);
+  const bf16* yr = reinterpret_cast<const bf16*>(st + L.y_off + y_mis);
+  const bf16* rwr = reinterpret_cast<const bf16*>(st + L.rw_off + rw_mis);
+  unsigned char* built = smem + L.built_off;
+  for (int i = tid; i < 2 * kTileFirms * kGroups; i += nthreads) {
+    const int side = i / (kTileFirms * kGroups);
+    const int r = i - side * kTileFirms * kGroups;
+    const int f = r / kGroups, q = r - f * kGroups;
+    const int base = of_side(B.base, side), xa = of_side(B.xa, side);
+    const int a0 = base + 8 * q;  // the group's first augmented column
+    const unsigned char* slot = st + (size_t)(side * kTileFirms + f) * kTcTileSlot;
+    const int mis = st[L.mis_off + side * kTileFirms + f];
+    const float* cg = cen + side * kTileCols + 8 * q;
+    uint32_t v[4] = {0u, 0u, 0u, 0u};
+    if (f < cnt && a0 >= 1 && a0 + 7 <= p) {
+      const int pos = mis + 2 * (a0 - 1 - xa);  // byte of x column a0 - 1 in the slot
+      const uint32_t* w = reinterpret_cast<const uint32_t*>(slot + (pos & ~3));
+      const uint32_t u[5] = {w[0], w[1], w[2], w[3], w[4]};
+      const float4 c0 = *reinterpret_cast<const float4*>(cg);
+      const float4 c1 = *reinterpret_cast<const float4*>(cg + 4);
+      const float cc[8] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+        const uint32_t xp = __funnelshift_r(u[h], u[h + 1], (pos & 2) * 8);
+        const float xa_v = lo_float(xp), xb_v = hi_float(xp);
+        v[h] = pack_bf16(isfinite(xa_v) ? xa_v - cc[2 * h] : 0.f,
+                         isfinite(xb_v) ? xb_v - cc[2 * h + 1] : 0.f);
+      }
+    } else if (f < cnt) {
+      const bf16* xs = reinterpret_cast<const bf16*>(slot + mis);
+      const float yv = __bfloat162float(yr[f]);
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+        float pr[2];
+#pragma unroll
+        for (int d = 0; d < 2; ++d) {
+          const int a = a0 + 2 * h + d;
+          float val = 0.f;
+          if (a == 0) {
+            val = 1.f;
+          } else if (a <= p) {
+            const float xv = __bfloat162float(xs[a - 1 - xa]);
+            val = isfinite(xv) ? xv - cg[2 * h + d] : 0.f;
+          } else if (a == p + 1) {
+            val = isfinite(yv) ? yv : 0.f;
+          }
+          pr[d] = val;
+        }
+        v[h] = pack_bf16(pr[0], pr[1]);
+      }
+    }
+    const size_t at = ((size_t)f * kTcTileStride + 8 * q) * 2;
+    if (kRw && side == 0) {
+      const float w = f < cnt ? __bfloat162float(rwr[f]) : 0.f;
+      uint32_t hi[4], lo[4];
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+        const float pa = w * lo_float(v[h]), pb = w * hi_float(v[h]);  // exact in float
+        hi[h] = pack_bf16(pa, pb);
+        lo[h] = pack_bf16(pa - lo_float(hi[h]), pb - hi_float(hi[h]));
+      }
+      *reinterpret_cast<uint4*>(built + at) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+      *reinterpret_cast<uint4*>(built + 2 * L.built_bytes + at) =
+          make_uint4(lo[0], lo[1], lo[2], lo[3]);
+    } else {
+      *reinterpret_cast<uint4*>(built + side * L.built_bytes + at) =
+          make_uint4(v[0], v[1], v[2], v[3]);
+    }
+  }
+  uint32_t* masks = reinterpret_cast<uint32_t*>(smem + L.mask_off);
+  for (int i = tid; i < kTileSpecs * (kTileFirms / 2); i += nthreads) {
+    const int j = i / (kTileFirms / 2), f = 2 * (i - j * (kTileFirms / 2));
+    uint32_t m = 0u;
+#pragma unroll
+    for (int jj = 0; jj < kTileSpecs; ++jj) {
+      if (jj == j && j < B.nsb) {
+        const unsigned char* vr = st + L.v_off + j * kTileVRow + v_mis[jj];
+        m = halves(f < cnt && vr[f] != 0, f + 1 < cnt && vr[f + 1] != 0);
+      }
+    }
+    masks[i] = m;
+  }
+}
+
+// Four 8x8 bf16 matrices from shared memory, transposed: lanes 8 i .. 8 i + 7
+// give the addresses of matrix i's eight rows of 16 bytes, and lane 4 g + t
+// receives rows 2 t and 2 t + 1 of column g. From firm-major rows (a firm's
+// eight columns a row) that is the fragment of mma.m16n8k16 whose k index
+// is the firm: A[column][firm] and B[firm][column].
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// bf16 operands: SG specs a block (a template argument: the running sums
+// are registers), kRw row weights. Four warps; a chunk is built, then (a
+// second barrier) summed.
+template <int SG, bool kRw>
+__global__ void __launch_bounds__(128, 3)
+gram_tc_tiles_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ y,
+                     const __nv_bfloat16* __restrict__ rw,
+                     const unsigned char* __restrict__ valid,
+                     const __nv_bfloat16* __restrict__ center, float* __restrict__ out,
+                     int t_len, long long n, int p, int s_specs, const int* __restrict__ pairs,
+                     int npairs, int groups, int group) {
+  using bf16 = __nv_bfloat16;
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int RS = kTcTileStride;
+  const TcTileLayout L = make_tc_tile_layout(kRw);
+  const TileBlock B = tile_block(pairs, npairs, groups, group, s_specs, p);
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  float* cen = reinterpret_cast<float*>(smem + L.cen_off);
+  for (int i = tid; i < 2 * kTileCols; i += nthreads) {
+    const int side = i / kTileCols, a = of_side(B.base, side) + i - side * kTileCols;
+    cen[i] = a >= 1 && a <= p ? __bfloat162float(center[(size_t)B.t * p + a - 1]) : 0.f;
+  }
+  // tiles start at multiples of 64 firms, so each row's misalignment is the
+  // same for every chunk of the month
+  const long long row_t = (long long)B.t * n;
+  const int y_mis = misalign(y + row_t), rw_mis = kRw ? misalign(rw + row_t) : 0;
+  int v_mis[kTileSpecs];
+#pragma unroll
+  for (int j = 0; j < kTileSpecs; ++j)
+    v_mis[j] = misalign(valid + ((long long)(B.s0 + min(j, B.nsb - 1)) * t_len + B.t) * n);
+
+  // warp (wr, wc) sums rows 32 wr .. of side 0 against columns 32 wc .. of
+  // side 1; ldmatrix row addresses: A matrix i = lane / 8 is firms 8 (i / 2)
+  // .., columns 8 (i % 2) ..; B matrix i firms 8 (i % 2) .., columns
+  // 8 (i / 2) ..
+  const int wr = warp >> 1, wc = warp & 1, gq = lane >> 2, tq = lane & 3;
+  const bf16* built = reinterpret_cast<const bf16*>(smem + L.built_off);
+  const size_t nb = L.built_bytes / 2;
+  const bf16* a_rows =
+      built + ((lane & 7) + ((lane >> 4) << 3)) * RS + 32 * wr + (((lane >> 3) & 1) << 3);
+  const bf16* alo_rows = a_rows + 2 * nb;
+  const bf16* b_rows =
+      built + nb + ((lane & 7) + (((lane >> 3) & 1) << 3)) * RS + 32 * wc + ((lane >> 4) << 3);
+  float run[SG][2][4][4];
+#pragma unroll
+  for (int j = 0; j < SG; ++j)
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) run[j][mi][ni][q] = 0.f;
+
+  const uint32_t* masks = reinterpret_cast<const uint32_t*>(smem + L.mask_off) + tq;
+  tile_walk(
+      n,
+      [&](long long k) {
+        stage_tc_tiles<kRw>(L, smem + (k % 3) * L.stage, B, x, y, rw, valid, t_len, n, p,
+                            k * kTileFirms, (int)min((long long)kTileFirms, n - k * kTileFirms),
+                            tid, nthreads);
+      },
+      [&](long long k, int cnt) {
+        build_tc_tiles<kRw>(L, smem, smem + (k % 3) * L.stage, B, p, cnt, y_mis, rw_mis,
+                            v_mis, tid, nthreads);
+        __syncthreads();  // chunk k built
+        // spec by spec: per 16 firms the A fragments of the warp's two
+        // 16-row strips (the spec's masks ANDed in) and the B fragments of
+        // its four 8-column tiles, one MMA a tile into a sum of the chunk
+        // that starts at 0 (the tensor core's own sum never spans more than
+        // 64 firms), then added into the running sums in float
+#pragma unroll
+        for (int j = 0; j < SG; ++j) {
+          float part[2][4][4];
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+            for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+              for (int q = 0; q < 4; ++q) part[mi][ni][q] = 0.f;
+#pragma unroll 1
+          for (int k0 = 0; k0 < cnt; k0 += 16) {
+            const uint32_t m0 = masks[j * (kTileFirms / 2) + (k0 >> 1)];
+            const uint32_t m1 = masks[j * (kTileFirms / 2) + (k0 >> 1) + 4];
+            uint32_t fa[2][4], fl[2][4], fb[4][2];
+#pragma unroll
+            for (int mi = 0; mi < 2; ++mi) {
+              ldsm_x4_t(fa[mi], a_rows + k0 * RS + 16 * mi);
+              if (kRw) ldsm_x4_t(fl[mi], alo_rows + k0 * RS + 16 * mi);
+            }
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              uint32_t r4[4];
+              ldsm_x4_t(r4, b_rows + k0 * RS + 16 * h);
+              fb[2 * h][0] = r4[0];
+              fb[2 * h][1] = r4[1];
+              fb[2 * h + 1][0] = r4[2];
+              fb[2 * h + 1][1] = r4[3];
+            }
+#pragma unroll
+            for (int mi = 0; mi < 2; ++mi) {
+              const uint32_t a[4] = {fa[mi][0] & m0, fa[mi][1] & m0, fa[mi][2] & m1,
+                                     fa[mi][3] & m1};
+              const uint32_t al[4] = {fl[mi][0] & m0, fl[mi][1] & m0, fl[mi][2] & m1,
+                                      fl[mi][3] & m1};
+#pragma unroll
+              for (int ni = 0; ni < 4; ++ni) {
+                mma_bf16(part[mi][ni], a, fb[ni][0], fb[ni][1]);
+                if (kRw) mma_bf16(part[mi][ni], al, fb[ni][0], fb[ni][1]);
+              }
+            }
+          }
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+            for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+              for (int q = 0; q < 4; ++q) run[j][mi][ni][q] += part[mi][ni][q];
+        }
+      });
+
+  // element q of a lane's sums is row 16 mi + g + 8 (q / 2), column
+  // 8 ni + 2 t + q % 2 of the warp's outputs
+  const int qe = p + 2;
+#pragma unroll
+  for (int j = 0; j < SG; ++j)
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          tile_store(out, B, j, t_len, qe, B.base[0] + 32 * wr + 16 * mi + gq + 8 * (q >> 1),
+                     B.base[1] + 32 * wc + 8 * ni + 2 * tq + (q & 1), run[j][mi][ni][q]);
+}
+
+// --- float64: fragments straight from the staged rows on DMMA ---
+
+// Byte offsets of one block's dynamic shared memory: three stages of raw
+// chunks, each a slot of 68 doubles a (side, firm) (the side's x columns
+// from element 0, y at element 64; 68 is 4 mod 16, so the fragment loads
+// are free of bank conflicts), the row weights, one folded valid row a spec.
+struct DmmaTileLayout {
+  size_t rw_off, v_off, stage, total;
+};
+constexpr int kDmmaTileSlot = 68;  // doubles of a (side, firm) slot
+constexpr int kDmmaTileY = 64;     // y's element in a slot
+
+__host__ __device__ inline DmmaTileLayout make_dmma_tile_layout(bool has_rw) {
+  DmmaTileLayout L;
+  L.rw_off = (size_t)2 * kTileFirms * kDmmaTileSlot * 8;
+  L.v_off = L.rw_off + (has_rw ? kTileFirms * 8 : 0);
+  L.stage = L.v_off + kTileSpecs * kTileVRow;
+  L.total = 3 * L.stage;
+  return L;
+}
+
+// Stage firms n0 .. n0 + cnt - 1 by 8-byte copies, every value at its
+// place (a float64 is 8-byte aligned at any P): thread t copies x column
+// xa + t % 64 of every fourth firm of each side (a warp's lanes on
+// consecutive columns), and y into element 64 of each (side, firm) slot;
+// then the row weights and the valid rows.
+template <bool kRw>
+__device__ inline void stage_dmma_tiles(const DmmaTileLayout& L, unsigned char* st,
+                                        const TileBlock& B, const double* x, const double* y,
+                                        const double* rw, const unsigned char* valid, int t_len,
+                                        long long n, int p, long long n0, int cnt, int tid,
+                                        int nthreads) {
+  const long long row0 = (long long)B.t * n + n0;
+  double* slots = reinterpret_cast<double*>(st);
+  const int c = tid & (kTileCols - 1), fstep = nthreads / kTileCols;
+#pragma unroll
+  for (int side = 0; side < 2; ++side) {
+    if (c >= B.xn[side]) continue;
+    const double* src = x + row0 * p + B.xa[side] + c;
+    for (int f = tid / kTileCols; f < cnt; f += fstep)
+      cp_async8(slots + (side * kTileFirms + f) * kDmmaTileSlot + c, src + (long long)f * p);
+  }
+  for (int i = tid; i < 2 * kTileFirms; i += nthreads) {
+    const int f = i & (kTileFirms - 1);
+    if (f < cnt) cp_async8(slots + i * kDmmaTileSlot + kDmmaTileY, y + row0 + f);
+  }
+  if (kRw)
+    for (int f = tid; f < cnt; f += nthreads) cp_async8(st + L.rw_off + 8 * f, rw + row0 + f);
+  stage_valid_rows(st, L.v_off, B, valid, t_len, n, n0, cnt, tid, nthreads);
+}
+
+// float64 operands: SG specs a block, kRw row weights. Eight warps of
+// 16 x 32 outputs; a lane forms its fragments straight from the staged
+// rows (x - c, 0 where not finite; the intercept 1, y as staged, 0 past
+// QE) and its weights from the valid bytes; three stages, one barrier a
+// chunk.
+template <int SG, bool kRw>
+__global__ void __launch_bounds__(256, 1)
+gram_dmma_tiles_kernel(const double* __restrict__ x, const double* __restrict__ y,
+                       const double* __restrict__ rw, const unsigned char* __restrict__ valid,
+                       const double* __restrict__ center, double* __restrict__ out, int t_len,
+                       long long n, int p, int s_specs, const int* __restrict__ pairs,
+                       int npairs, int groups, int group) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int RS = kDmmaTileSlot;
+  const DmmaTileLayout L = make_dmma_tile_layout(kRw);
+  const TileBlock B = tile_block(pairs, npairs, groups, group, s_specs, p);
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int wr = warp >> 1, wc = warp & 1, gq = lane >> 2, tq = lane & 3;
+  // the lane's six columns: A rows 16 wr + g and + 8 of side 0 (u = 0, 1),
+  // B columns 32 wc + 8 ni + g of side 1 (u = 2 + ni): each its element of
+  // a slot and its center, or a constant (the intercept 1, 0 past QE)
+  int off[6];
+  double cv[6], kv[6];
+  bool konst[6];
+#pragma unroll
+  for (int u = 0; u < 6; ++u) {
+    const int side = u < 2 ? 0 : 1;
+    const int a = B.base[side] + (u < 2 ? 16 * wr + gq + 8 * u : 32 * wc + 8 * (u - 2) + gq);
+    const bool is_x = a >= 1 && a <= p;
+    off[u] = is_x ? a - 1 - B.xa[side] : kDmmaTileY;
+    cv[u] = is_x ? center[(size_t)B.t * p + a - 1] : 0.0;
+    konst[u] = a == 0 || a > p + 1;
+    kv[u] = a == 0 ? 1.0 : 0.0;
+  }
+  const long long row_t = (long long)B.t * n;
+  int v_at[SG];
+#pragma unroll
+  for (int j = 0; j < SG; ++j)
+    v_at[j] = (int)L.v_off + j * kTileVRow +
+              misalign(valid + ((long long)(B.s0 + min(j, B.nsb - 1)) * t_len + B.t) * n);
+  double run[SG][4][4];
+#pragma unroll
+  for (int j = 0; j < SG; ++j)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) run[j][ni][q] = 0.0;
+
+  tile_walk(
+      n,
+      [&](long long k) {
+        stage_dmma_tiles<kRw>(L, smem + (k % 3) * L.stage, B, x, y, rw, valid, t_len, n, p,
+                              k * kTileFirms,
+                              (int)min((long long)kTileFirms, n - k * kTileFirms), tid, nthreads);
+      },
+      [&](long long k, int cnt) {
+        const unsigned char* st = smem + (k % 3) * L.stage;
+        const double* s0 = reinterpret_cast<const double*>(st);
+        const double* s1 = s0 + kTileFirms * RS;
+        const double* rwr = reinterpret_cast<const double*>(st + L.rw_off);
+        auto value = [&](const double* slots, int f, int u) {
+          const double v = slots[f * RS + off[u]];
+          return konst[u] ? kv[u] : (isfinite(v) ? v - cv[u] : 0.0);
+        };
+        auto weight = [&](int j, int f) {
+          const bool ok = f < cnt && j < B.nsb && st[v_at[j] + f] != 0;
+          return ok ? (kRw ? rwr[f] : 1.0) : 0.0;
+        };
+        // per 8 firms: the A fragment (w o a, the weight applied as each
+        // spec forms it) against the B fragments of four 8-column tiles,
+        // straight into the running sums (DMMA is IEEE double)
+#pragma unroll 1
+        for (int k0 = 0; k0 < cnt; k0 += 8) {
+          const int fa = k0 + tq, fb = fa + 4;
+          const double a0 = value(s0, fa, 0), a1 = value(s0, fa, 1);
+          const double a2 = value(s0, fb, 0), a3 = value(s0, fb, 1);
+          double bf[4][2];
+#pragma unroll
+          for (int ni = 0; ni < 4; ++ni) {
+            bf[ni][0] = value(s1, fa, 2 + ni);
+            bf[ni][1] = value(s1, fb, 2 + ni);
+          }
+#pragma unroll
+          for (int j = 0; j < SG; ++j) {
+            const double w0 = weight(j, fa), w1 = weight(j, fb);
+            const double a[4] = {w0 * a0, w0 * a1, w1 * a2, w1 * a3};
+#pragma unroll
+            for (int ni = 0; ni < 4; ++ni) mma_f64(run[j][ni], a, bf[ni][0], bf[ni][1]);
+          }
+        }
+      });
+
+  // element q of a lane's sums is row g + 8 (q / 2), column 8 ni + 2 t +
+  // q % 2 of the warp's outputs
+  const int qe = p + 2;
+#pragma unroll
+  for (int j = 0; j < SG; ++j)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        tile_store(out, B, j, t_len, qe, B.base[0] + 16 * wr + gq + 8 * (q >> 1),
+                   B.base[1] + 32 * wc + 8 * ni + 2 * tq + (q & 1), run[j][ni][q]);
+}
+
+template <typename T, typename Acc, typename Kernel>
+int launch_tiles_with(Kernel kernel, bool has_rw, const void* x, const void* y, const void* rw,
+                      const unsigned char* valid, const void* center, void* out, int t_len,
+                      long long n, int p, int s_specs, const int* pairs, int npairs, int groups,
+                      int group, cudaStream_t stream) {
+  constexpr bool bf = sizeof(T) == 2;
+  const size_t smem =
+      bf ? make_tc_tile_layout(has_rw).total : make_dmma_tile_layout(has_rw).total;
+  const long long blocks = (long long)t_len * npairs * groups;
+  if (blocks > 0x7fffffffLL || smem > kSmemMax) return -1;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(unsigned)blocks, bf ? 128 : 256, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(y), static_cast<const T*>(rw), valid,
+      static_cast<const T*>(center), static_cast<Acc*>(out), t_len, n, p, s_specs, pairs,
+      npairs, groups, group);
+  return (int)cudaGetLastError();
+}
+
+// The instance of SG >= group specs a block (a short group leaves slots
+// empty). float64 has no one-spec instance: one built as the two- and
+// three-spec ones never finished on an H100 at any N (not understood), so a
+// one-spec group runs on the two-spec instance.
+template <typename T, bool kRw>
+int launch_tiles(int group, const void* x, const void* y, const void* rw,
+                 const unsigned char* valid, const void* center, void* out, int t_len,
+                 long long n, int p, int s_specs, const int* pairs, int npairs, int groups,
+                 cudaStream_t stream) {
+  auto go = [&](auto kernel) {
+    using Acc = typename std::conditional<sizeof(T) == 2, float, double>::type;
+    return launch_tiles_with<T, Acc>(kernel, kRw, x, y, rw, valid, center, out, t_len, n, p,
+                                     s_specs, pairs, npairs, groups, group, stream);
+  };
+  if constexpr (sizeof(T) == 2) {
+    if (group == 1) return go(gram_tc_tiles_kernel<1, kRw>);
+    if (group == 2) return go(gram_tc_tiles_kernel<2, kRw>);
+    return go(gram_tc_tiles_kernel<3, kRw>);
+  } else {
+    if (group <= 2) return go(gram_dmma_tiles_kernel<2, kRw>);
+    return go(gram_dmma_tiles_kernel<3, kRw>);
+  }
+}
+
 // --- the panel route's validity pre-pass -------------------------------------
 
 // Replaces the validity part of the Pallas kernel's body (_gram_kernel:
@@ -2403,6 +3084,43 @@ extern "C" int gram_contract(int dtype_code, const void* x, const void* y,
     return rw != nullptr
                ? launch_bf16<true>(x, y, rw, v, b, center, out, t_len, n, p, nw, s_specs, s)
                : launch_bf16<false>(x, y, rw, v, b, center, out, t_len, n, p, nw, s_specs, s);
+  return -1;
+}
+
+// The tile-pair kernel (float64 and bf16 operands past the crossover width,
+// specgrid/grams.py::gram_tile_plan): x (T, N, P), y (T, N), center (T, P)
+// and rw (T, N; null for no row weights) in the operand type of dtype_code
+// (1 double, 2 bf16); valid (S, T, N) uint8, the folded mask of gram_fold;
+// out (S, T, P+2, P+2), double for code 1 and float for code 2, zeroed;
+// pairs the plan's npairs tile pairs (I, J), I <= J, of cols = 64 augmented
+// columns each, int32 on the device; group the specs a block sums (1 to 3).
+// Returns 0, a cudaError_t, or -1 for arguments the kernel does not take
+// (another tile width, a pair count that is not every pair's, a group out
+// of range); a pair outside the block's tiles traps.
+extern "C" int gram_tiles(int dtype_code, const void* x, const void* y, const void* rw,
+                          const void* valid, const void* center, void* out, int t_len,
+                          long long n, int p, int s_specs, const void* pairs, int npairs,
+                          int cols, int group, void* stream) {
+  if (t_len <= 0 || n <= 0 || p < 0 || s_specs <= 0) return -1;
+  if (cols != kTileCols || group < 1 || group > kTileSpecs) return -1;
+  const int nt = (p + 2 + kTileCols - 1) / kTileCols;
+  if (npairs != nt * (nt + 1) / 2) return -1;
+  const int groups = (s_specs + group - 1) / group;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned char* v = static_cast<const unsigned char*>(valid);
+  const int* pr = static_cast<const int*>(pairs);
+  if (dtype_code == 1)
+    return rw != nullptr
+               ? launch_tiles<double, true>(group, x, y, rw, v, center, out, t_len, n, p,
+                                            s_specs, pr, npairs, groups, s)
+               : launch_tiles<double, false>(group, x, y, rw, v, center, out, t_len, n, p,
+                                             s_specs, pr, npairs, groups, s);
+  if (dtype_code == 2)
+    return rw != nullptr
+               ? launch_tiles<__nv_bfloat16, true>(group, x, y, rw, v, center, out, t_len, n, p,
+                                                   s_specs, pr, npairs, groups, s)
+               : launch_tiles<__nv_bfloat16, false>(group, x, y, rw, v, center, out, t_len, n,
+                                                    p, s_specs, pr, npairs, groups, s);
   return -1;
 }
 

@@ -24,11 +24,15 @@ tensors lie:
   every spec), float64 goes to the FP64 tensor cores (DMMA ``mma.sync``
   m16n8k8), bfloat16 operands to the tensor cores (``mma.sync`` with
   float32 sums, each spec's 0/1 weight a mask on the fragments, a row
-  weight's product ``w·x̃`` split exactly into two bfloat16 parts). A union
-  wider than one launch's shared memory reaches is cut into column panels
-  (``gram_column_panels``): one launch a pair of panels on a gathered copy
-  of the pair's columns, after a pre-pass kernel folds every column's
-  finiteness into the valid mask (``gram_fold_cuda``);
+  weight's product ``w·x̃`` split exactly into two bfloat16 parts). Past
+  ``GRAM_TILE_FROM`` columns float64 and bfloat16 operands go to the
+  tile-pair kernel (``gram_tile_plan``): one launch, a block a pair of
+  64-column tiles of the augmented block, a month and a group of specs,
+  each tile staged from x itself, after a pre-pass kernel folds every
+  selected column's finiteness into the valid mask (``gram_fold_cuda``). A
+  float32 union wider than one launch's shared memory reaches is cut into
+  column panels (``gram_column_panels``): one launch a pair of panels on a
+  gathered copy of the pair's columns, after the same pre-pass;
 - CPU tensors take the plain version, a chunked masked einsum over firm
   slices (``contract_spec_grams_plain``).
 
@@ -73,6 +77,7 @@ __all__ = [
     "contract_spec_grams_plain",
     "GramPanelPlan",
     "gram_column_panels",
+    "GramTilePlan",
     "gram_contract_cuda",
     "gram_contract_plain",
     "gram_fold_cuda",
@@ -81,6 +86,7 @@ __all__ = [
     "gram_launch_fits",
     "gram_panel_batch",
     "gram_spec_chunk",
+    "gram_tile_plan",
     "panel_pair_entries",
     "selection_words",
     "resolve_gram_factorize",
@@ -99,12 +105,19 @@ GRAM_MAX_ENTRIES = 8192
 # kernels past 32 columns, takes: the whole batch of any real call
 GRAM_ONE_LAUNCH_SPECS = 65536
 
-# the widest x columns one panel of a cut union holds, per operand dtype:
-# a pair of panels is summed by the wide kernels at up to twice that width
-# (narrower pairs recompute the diagonal panels more often, wider ones
-# leave the kernels' block plans fewer tasks a block; the fastest of the
-# widths timed on an H100 at 920 columns, PERF.md)
-GRAM_PANEL_WIDTH = {torch.float32: 80, torch.float64: 48, torch.bfloat16: 64}
+# the widest x columns one panel of a cut float32 union holds: a pair of
+# panels is summed by the wide kernel at up to twice that width (narrower
+# pairs recompute the diagonal panels more often, wider ones leave the
+# kernel's block plans fewer tasks a block; the fastest of the widths timed
+# on an H100 at 920 columns, PERF.md)
+GRAM_PANEL_WIDTH = {torch.float32: 80}
+# the tile-pair kernel (csrc/gram.cu gram_tiles): augmented columns a tile,
+# the most specs one block sums, and the union width from which it takes a
+# call of each operand type (below it the one-launch kernels are faster;
+# timed on an H100 by k2_crossover.py, PERF.md)
+GRAM_TILE_COLS = 64
+GRAM_TILE_SPECS = 3
+GRAM_TILE_FROM = {torch.float64: 128, torch.bfloat16: 160}
 # the most bytes one launch of a cut union's pairs takes (their gathered
 # columns and blocks): as many pairs as fit over every month, else one
 # pair over chunks of months (gram_panel_batch)
@@ -287,16 +300,55 @@ def gram_launch_fits(p: int, dtype: Optional[torch.dtype] = None, specs: int = 1
                      weighted: bool = False) -> bool:
     """Whether one launch of the Gram kernel takes a union of ``p`` columns
     for ``specs`` specs of operands ``dtype`` (``None``: float32), with or
-    without row weights: whether its smallest block, a 16-firm tile, fits
-    in the 227 KB of shared memory a block may have (up to 32 columns the
-    register-tile kernels always do). The reach: 424 columns in float64
-    (423 with row weights), 848 in float32 at two specs or more (850 at
-    one; 847 with row weights), 1,367 with bfloat16 operands (622 with row
-    weights)."""
+    without row weights: always on the tile route (``gram_tile_plan``) and
+    up to 32 columns; else whether the wide kernel's smallest block, a
+    16-firm tile, fits in the 227 KB of shared memory a block may have. The
+    float32 reach: 848 columns at two specs or more (850 at one; 847 with
+    row weights). Below ``GRAM_TILE_FROM`` float64 and bfloat16 unions are
+    always within their kernels' reach (424 and 1,367 columns; 423 and 622
+    with row weights)."""
     dtype = torch.float32 if dtype is None else dtype
-    if p <= 32:
+    if p <= 32 or gram_tile_plan(p, dtype, specs) is not None:
         return True
     return _smallest_block_bytes(p, dtype, specs, weighted) <= _SMEM_MAX
+
+
+class GramTilePlan(NamedTuple):
+    """The tile-pair kernel's walk of a union past ``GRAM_TILE_FROM``.
+
+    The augmented columns ``[1 | x − c | y]`` (QE = P + 2; column 0 the
+    intercept, column P + 1 y) are cut into ``tiles`` tiles of ``cols``
+    columns, tile I holding columns I·cols .. (I + 1)·cols − 1 (the last
+    padded past QE). A block sums one pair (I, J), I ≤ J, for one month and
+    one group of ``spec_group`` consecutive specs (the last maybe fewer) and
+    writes the (I, J) rectangle of each spec's block and its mirror, a
+    diagonal pair (I = J) its entries on or above the diagonal and their
+    mirrors: every entry of the block has one writer. The blocks of a month
+    take ``pairs`` in order, the groups of a pair together."""
+
+    p: int
+    cols: int                 # augmented columns a tile
+    tiles: int                # ⌈(P + 2) / cols⌉
+    pairs: tuple              # ((I, J), ...), I ≤ J, row by row
+    spec_group: int           # specs a block sums
+    groups: int               # blocks a (pair, month): ⌈S / spec_group⌉
+
+
+def gram_tile_plan(p: int, dtype: Optional[torch.dtype] = None,
+                   specs: int = 1) -> Optional[GramTilePlan]:
+    """The tile-pair kernel's plan for a ``p``-column union of ``specs``
+    specs of operands ``dtype`` (``None``: float32), or None where the call
+    takes another route: float32 at any width, and float64 and bfloat16
+    below ``GRAM_TILE_FROM``. With or without row weights the plan is the
+    same. The specs are dealt into the fewest groups of at most
+    ``GRAM_TILE_SPECS``, near equal."""
+    dtype = torch.float32 if dtype is None else dtype
+    if dtype not in GRAM_TILE_FROM or p < GRAM_TILE_FROM[dtype]:
+        return None
+    tiles = -(-(p + 2) // GRAM_TILE_COLS)
+    pairs = tuple((i, j) for i in range(tiles) for j in range(i, tiles))
+    groups = -(-specs // GRAM_TILE_SPECS)
+    return GramTilePlan(p, GRAM_TILE_COLS, tiles, pairs, -(-specs // groups), groups)
 
 
 class GramPanelPlan(NamedTuple):
@@ -321,11 +373,11 @@ class GramPanelPlan(NamedTuple):
 def gram_column_panels(p: int, dtype: Optional[torch.dtype] = None, specs: int = 1,
                        weighted: bool = False) -> Optional[GramPanelPlan]:
     """The column panels ``gram_contract_cuda`` cuts a ``p``-column union
-    into, or None where one launch takes it (``gram_launch_fits``): K =
-    ⌈p / width⌉ panels of ⌈p / K⌉ columns (the last maybe fewer), width =
-    ``GRAM_PANEL_WIDTH[dtype]``, every pair of them summed at once. A pair
-    holds at most twice that many columns, which one launch takes at any
-    spec count and with row weights."""
+    into, or None where one launch takes it (``gram_launch_fits``; only a
+    float32 union is ever cut): K = ⌈p / width⌉ panels of ⌈p / K⌉ columns
+    (the last maybe fewer), width = ``GRAM_PANEL_WIDTH[dtype]``, every pair
+    of them summed at once. A pair holds at most twice that many columns,
+    which one launch takes at any spec count and with row weights."""
     dtype = torch.float32 if dtype is None else dtype
     if gram_launch_fits(p, dtype, specs, weighted):
         return None
@@ -384,11 +436,15 @@ def gram_panel_batch(t: int, n: int, specs: int, plan: GramPanelPlan, itemsize: 
 
 def gram_launch_count(t: int, n: int, p: int, specs: int,
                       dtype: Optional[torch.dtype] = None, weighted: bool = False) -> int:
-    """The Gram kernel launches one ``gram_contract_cuda`` call makes: spec
-    chunks of ``gram_spec_chunk``; for a union cut into panels, that for
-    every launch of pairs and chunk of months (``gram_panel_batch``); the
-    pre-pass (``gram_fold_cuda``) counts apart."""
+    """The Gram kernel launches one ``gram_contract_cuda`` call makes: one
+    on the tile route (``gram_tile_plan``); else spec chunks of
+    ``gram_spec_chunk``; for a union cut into panels, that for every launch
+    of pairs and chunk of months (``gram_panel_batch``). The pre-pass
+    (``gram_fold_cuda``: once a call on the tile and panel routes) counts
+    apart."""
     dtype = torch.float32 if dtype is None else dtype
+    if gram_tile_plan(p, dtype, specs) is not None:
+        return 1
     plan = gram_column_panels(p, dtype, specs, weighted)
     if plan is None:
         return -(-specs // gram_spec_chunk(p, dtype=dtype))
@@ -412,8 +468,9 @@ def gram_fold_cuda(y: torch.Tensor, x: torch.Tensor, valid: torch.Tensor,
     """Launch the pre-pass kernel (``csrc/gram.cu::gram_fold``) on CUDA
     tensors as ``gram_contract_cuda`` takes them: the (S, T, N) uint8 valid
     mask with finite(y) and the finiteness of each spec's selected columns
-    folded in, which the launches of a union cut into panels read (each
-    sees only its pair's columns)."""
+    folded in, which the tile-pair kernel and the launches of a union cut
+    into panels read (each block or launch sees only two tiles' or panels'
+    columns)."""
     t, n, p = x.shape
     s = col_sel.shape[0]
     out = torch.empty((s, t, n), dtype=torch.uint8, device=x.device)
@@ -519,12 +576,13 @@ def gram_contract_cuda(y: torch.Tensor, x: torch.Tensor, valid: torch.Tensor,
     P, dtype): float32 and bfloat16 up to 32 columns at 8192 block entries,
     float64, and every dtype past 32 columns, in one launch. The spec's
     columns go to the kernel as ⌈P/32⌉ words of bits (``selection_words``).
-    Any P: a union wider than one launch's shared memory reaches
-    (``gram_launch_fits``: 424 columns in float64, 848 in float32, 1,367 in
-    bfloat16) is cut into column panels (``gram_column_panels``,
-    ``contract_panels``), the pre-pass launched once and the kernel once a
-    pair of panels and chunk of months (``gram_launch_count``). Raises on
-    anything the kernel does not take."""
+    Any P: float64 and bfloat16 from ``GRAM_TILE_FROM`` columns take the
+    pre-pass and one launch of the tile-pair kernel (``gram_tile_plan``); a
+    float32 union wider than one launch's shared memory reaches
+    (``gram_launch_fits``: 848 columns) is cut into column panels
+    (``gram_column_panels``, ``contract_panels``), the pre-pass launched
+    once and the kernel once a pair of panels and chunk of months
+    (``gram_launch_count``). Raises on anything the kernel does not take."""
     tensors = {"y": y, "x": x, "valid": valid, "col_sel": col_sel,
                "center": center}
     if row_weights is not None:
@@ -551,6 +609,9 @@ def gram_contract_cuda(y: torch.Tensor, x: torch.Tensor, valid: torch.Tensor,
     if t == 0 or n == 0 or s == 0:
         return out
     key = f"P={p},S={s},{_DTYPE_CODES[x.dtype][1]}" + (",rw" if row_weights is not None else "")
+    tiles = gram_tile_plan(p, x.dtype, s)
+    if tiles is not None:
+        return _launch_tiles(y, x, valid, col_sel, center, row_weights, out, tiles, key)
     plan = gram_column_panels(p, x.dtype, s, row_weights is not None)
     if plan is None:
         return _launch_contract(y, x, valid, col_sel, center, row_weights, out, key)
@@ -589,6 +650,34 @@ def _launch_contract(y, x, valid, col_sel, center, row_weights, out, key: str):
             gram_contract_cuda.launches += 1
             by_key = gram_contract_cuda.launches_by_key
             by_key[key] = by_key.get(key, 0) + 1
+    return out
+
+
+def _launch_tiles(y, x, valid, col_sel, center, row_weights, out, plan: GramTilePlan,
+                  key: str):
+    """The tile route into ``out``: the pre-pass, then one launch of the
+    tile-pair kernel over ``plan`` (its pairs as an int32 array on the
+    device), counted under ``key``."""
+    t, n, p = x.shape
+    s = col_sel.shape[0]
+    folded = gram_fold_cuda(y, x, valid, col_sel)
+    pairs = torch.tensor(plan.pairs, dtype=torch.int32).to(x.device)
+    fn = kernel_function("gram", "gram_tiles", [
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p,
+    ])
+    rw_ptr = row_weights.data_ptr() if row_weights is not None else None
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = fn(_DTYPE_CODES[x.dtype][0], x.data_ptr(), y.data_ptr(), rw_ptr,
+                    folded.data_ptr(), center.data_ptr(), out.data_ptr(), t, n, p, s,
+                    pairs.data_ptr(), len(plan.pairs), plan.cols, plan.spec_group, stream)
+        check_status("gram", status)
+        gram_contract_cuda.launches += 1
+        by_key = gram_contract_cuda.launches_by_key
+        by_key[key] = by_key.get(key, 0) + 1
     return out
 
 

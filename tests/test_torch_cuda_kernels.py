@@ -534,10 +534,12 @@ PANEL_CASES = [(dtype, p, kind) for dtype, p, kinds in (
 @pytest.mark.parametrize("s", [1, 9])
 @pytest.mark.parametrize("dtype, p, kind", PANEL_CASES)
 def test_gram_kernel_on_each_side_of_one_launch(cuda, dtype, p, kind, s):
-    """Unions up to and past the widest one launch takes (424 float64
-    columns, 848 float32, 1,367 bfloat16; fewer with row weights): one
-    launch where it fits, else the pre-pass and one launch a pair of column
-    panels (``gram_column_panels``, ``gram_launch_count``). Held to the
+    """Unions up to and past the widest one launch of the wide kernels takes
+    (424 float64 columns, 848 float32, 1,367 bfloat16; fewer with row
+    weights): float32 one launch where it fits, else the pre-pass and one
+    launch a pair of column panels (``gram_column_panels``,
+    ``gram_launch_count``); float64 and bfloat16 the pre-pass and one launch
+    of the tile-pair kernel (``gram_tile_plan``) on each side. Held to the
     plain version at 1e-12 of each block's max in float64 and 1e-5 in
     float32, bfloat16 at 1e-5 of the float64 sums of the same terms (the
     plain version within 1e-5 plus its own error of them); counts exact
@@ -551,13 +553,15 @@ def test_gram_kernel_on_each_side_of_one_launch(cuda, dtype, p, kind, s):
         rw = None if rw is None else rw.to(dtype)
     plan = grams.gram_column_panels(p, dtype, s, rw is not None)
     assert (plan is None) == grams.gram_launch_fits(p, dtype, s, rw is not None)
+    tiles = grams.gram_tile_plan(p, dtype, s)
+    assert (tiles is not None) == (dtype != torch.float32)
     window = torch.ones((s, t), dtype=torch.bool, device=cuda)
     before = grams.gram_contract_cuda.launches, grams.gram_fold_cuda.launches
     out = grams.gram_contract_cuda(y, x, valid, col_sel, center, rw)
     launches = (grams.gram_contract_cuda.launches - before[0],
                 grams.gram_fold_cuda.launches - before[1])
     assert launches == (grams.gram_launch_count(t, n, p, s, dtype, rw is not None),
-                        0 if plan is None else 1)
+                        0 if plan is None and tiles is None else 1)
     assert launches[0] == 1 or 1 < launches[0] <= len(plan.pairs)
     got = grams.split_stats(out, p)
     want = grams.contract_spec_grams_plain(y, x, uni, col_sel, window, center,
@@ -575,6 +579,63 @@ def test_gram_kernel_on_each_side_of_one_launch(cuda, dtype, p, kind, s):
     else:
         _held_to_plain(got, want, 1e-12 if dtype == torch.float64 else 1e-5,
                        counts_exact=kind != "real")
+    assert torch.equal(out, out.transpose(-1, -2))
+    assert torch.equal(out, grams.gram_contract_cuda(y, x, valid, col_sel, center, rw))
+
+
+# each side of the crossover, the old reach of the one-launch float64
+# kernel, the 920-column union, unaligned rows (921 and 1,001 columns: no
+# 16-byte row stride in either type) and a wide union
+TILE_WIDTHS = sorted({w for dtype, start in grams.GRAM_TILE_FROM.items()
+                      for w in (start - 1, start)} | {425, 920, 921, 1001, 2000})
+TILE_CASES = ([(dtype, p, s) for dtype in (torch.float64, torch.bfloat16) for p in TILE_WIDTHS
+               for s in (1, 3, 9)]
+              + [(dtype, p, 61) for dtype in (torch.float64, torch.bfloat16)
+                 for p in (grams.GRAM_TILE_FROM[dtype], 425)])
+
+
+@pytest.mark.parametrize("weights", [None, "binary", "real"])
+@pytest.mark.parametrize("dtype, p, s", TILE_CASES)
+def test_gram_tile_pair_kernel(cuda, dtype, p, s, weights):
+    """The tile-pair kernel (``gram_tc_tiles_kernel``,
+    ``gram_dmma_tiles_kernel``) against the plain version: float64 at 1e-12
+    of each block's max-abs entry, bfloat16 at 1e-5 of the float64 sums of
+    the same bf16 terms (the float32 plain version within 1e-5 plus its own
+    error of them); counts exact under 0/1 weights, each block symmetric, a
+    repeated call bit-identical; the pre-pass and one launch from the
+    crossover, one launch of the one-launch kernel below it. N = 1,001:
+    a ragged chunk of firms and a ragged MMA step."""
+    t, n = 3, 1001
+    src = torch.float32 if dtype == torch.bfloat16 else dtype
+    y, x, uni, valid, col_sel, center, rw = _gram_case(cuda, src, t, n, p, s, weights)
+    if dtype == torch.bfloat16:
+        y, x, center = (a.to(dtype) for a in (y, x, center))
+        rw = None if rw is None else rw.to(dtype)
+    tiles = grams.gram_tile_plan(p, dtype, s)
+    assert (tiles is not None) == (p >= grams.GRAM_TILE_FROM[dtype])
+    window = torch.ones((s, t), dtype=torch.bool, device=cuda)
+    before = grams.gram_contract_cuda.launches, grams.gram_fold_cuda.launches
+    out = grams.gram_contract_cuda(y, x, valid, col_sel, center, rw)
+    launches = (grams.gram_contract_cuda.launches - before[0],
+                grams.gram_fold_cuda.launches - before[1])
+    assert launches == (1, 0 if tiles is None else 1)
+    got = grams.split_stats(out, p)
+    want = grams.contract_spec_grams_plain(y, x, uni, col_sel, window, center,
+                                           row_weights=rw)
+    if dtype == torch.bfloat16:
+        assert out.dtype == torch.float32
+        exact = grams.contract_spec_grams_plain(
+            y.double(), (x - center[:, None, :]).double(), uni, col_sel, window,
+            torch.zeros(center.shape, dtype=torch.float64, device=cuda),
+            row_weights=None if rw is None else rw.double())
+        plain_err = _worst_to_block(want, exact)
+        assert _worst_to_block(got, exact) <= 1e-5
+        assert _worst_to_block(got, want) <= 1e-5 + plain_err
+        if weights != "real":
+            assert torch.equal(got[2], want[2])
+    else:
+        assert out.dtype == torch.float64
+        _held_to_plain(got, want, 1e-12, counts_exact=weights != "real")
     assert torch.equal(out, out.transpose(-1, -2))
     assert torch.equal(out, grams.gram_contract_cuda(y, x, valid, col_sel, center, rw))
 

@@ -20,13 +20,15 @@ holds the CPU's view of that branch:
   from it against the JAX functions at float64, at the card-vs-CPU pins
   of ``PERF.md`` §3: 1e-8 of ``max(|b|, 1)``, NaN patterns and counts
   equal; and on a 430-column union, past one float64 launch's reach;
-- the column panels a union past one launch's reach is cut into
-  (``gram_column_panels``): no cut at or below the reach each kernel had
-  before panels (424 columns in float64, 848 in float32 at 9 specs, 1,367
-  with bfloat16 operands; fewer with row weights), every entry of the
-  block written by exactly one pair, each pair within one launch; and the
-  panel route itself (``contract_panels``: the pre-pass, the gathered
-  pairs, the month chunks, the copies) run with the plain versions in the
+- the column panels a float32 union past one launch's reach is cut into
+  (``gram_column_panels``): no cut at or below the reach (848 columns at 9
+  specs, 847 with row weights), every entry of the block written by
+  exactly one pair, each pair within one launch; no cut at any width for
+  float64 and bfloat16 operands, which take one launch of the tile-pair
+  kernel from ``GRAM_TILE_FROM`` (``tests/test_torch_gram_tiles.py``) and
+  are within their one-launch kernels' reach below it; and the panel
+  route itself (``contract_panels``: the pre-pass, the gathered pairs,
+  the month chunks, the copies) run with the plain versions in the
   kernel's place against the whole plain contraction.
 """
 
@@ -249,8 +251,9 @@ def test_wide_fwl_cell_with_20_controls_matches_jax():
     assert np.isfinite(got["reference"].coef[:, :3]).all()
 
 
-# one launch's reach at 9 specs before panels (csrc/gram.cu): (dtype,
-# row weights) -> the widest union
+# one launch's reach at 9 specs of the wide kernels (csrc/gram.cu): (dtype,
+# row weights) -> the widest union; float64 and bfloat16 take the tile-pair
+# kernel before it
 OLD_REACH = {(torch.float64, False): 424, (torch.float64, True): 423,
              (torch.float32, False): 848, (torch.float32, True): 847,
              (torch.bfloat16, False): 1367, (torch.bfloat16, True): 622}
@@ -274,13 +277,22 @@ def _covered_once(plan) -> None:
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.bfloat16])
 @pytest.mark.parametrize("p", [33, 424, 425, 848, 849, 920, 2000])
 def test_column_panels_cover_the_block_once(p, dtype, weighted):
-    """No cut at or below the reach one launch had before panels; past it,
-    consecutive panels of at most ``GRAM_PANEL_WIDTH[dtype]`` columns, every
-    pair of them one launch that fits, and every entry of the block (upper
-    triangle and mirror) written once."""
+    """float32: no cut at or below one launch's reach; past it, consecutive
+    panels of at most ``GRAM_PANEL_WIDTH[dtype]`` columns, every pair of
+    them one launch that fits, and every entry of the block (upper triangle
+    and mirror) written once. float64 and bfloat16: no cut at any width,
+    one launch (the tile-pair kernel from ``GRAM_TILE_FROM``, which is
+    within the one-launch kernel's reach)."""
     plan = grams.gram_column_panels(p, dtype, 9, weighted)
     reach = OLD_REACH[(dtype, weighted)]
     assert grams.gram_launch_fits(reach, dtype, 9, weighted)
+    if dtype != torch.float32:
+        assert plan is None and grams.gram_launch_fits(p, dtype, 9, weighted)
+        assert grams.gram_launch_count(12, 1001, p, 9, dtype, weighted) == 1
+        tiles = grams.gram_tile_plan(p, dtype, 9)
+        assert (tiles is not None) == (p >= grams.GRAM_TILE_FROM[dtype])
+        assert grams.GRAM_TILE_FROM[dtype] <= reach
+        return
     assert not grams.gram_launch_fits(reach + 1, dtype, 9, weighted)
     if p <= reach:
         assert plan is None
@@ -428,21 +440,24 @@ def test_fold_plain_version_is_the_kernels_validity():
     assert not want[0].all() and want[0].sum() > want[-1].sum()
 
 
-def test_spec_grid_past_one_launch_matches_jax(one_thread):
-    """``run_spec_grid`` over a 430-column union (past one float64 launch's
-    reach; here the CPU's plain version) against the JAX function at
-    float64: 3 specs over the first 3, 215 and all 430 columns, 6 months
-    (the grid's minimum set to 4)."""
-    t, n, p = 6, 600, 430
+@pytest.mark.parametrize("p", [430, 200])
+def test_spec_grid_past_one_launch_matches_jax(one_thread, p):
+    """``run_spec_grid`` over a union past the tile-pair kernel's float64
+    crossover (on the card one launch of it; 430 columns was past the
+    one-launch kernel's reach; here the CPU's plain version) against the
+    JAX function at float64: 3 specs over the first 3, half and every
+    column, 6 months (the grid's minimum set to 4)."""
+    assert p >= grams.GRAM_TILE_FROM[torch.float64]
+    t, n = 6, 600
     rng = np.random.default_rng(21)
     x = rng.standard_normal((t, n, p))
     x[np.arange(t)[:, None], rng.integers(0, n, (t, 12)), rng.integers(0, p, (t, 12))] = np.nan
     beta = np.zeros(p)
-    beta[[0, 2, 100, 300, 429]] = [0.5, -0.3, 0.2, 0.4, -0.25]
+    beta[[0, 2, p // 4, 2 * p // 3, p - 1]] = [0.5, -0.3, 0.2, 0.4, -0.25]
     y = np.nansum(x * beta, axis=-1) + rng.standard_normal((t, n))
     masks = {"all": np.ones((t, n), bool)}
     names = tuple(f"c{i}" for i in range(p))
-    shapes = [(f"m{w}", names[:w], "all") for w in (3, 215, p)]
+    shapes = [(f"m{w}", names[:w], "all") for w in (3, p // 2, p)]
     grid = SpecGrid(tuple(Spec(nm, c, u) for nm, c, u in shapes), union=names, min_months=4)
     jgrid = JaxSpecGrid(tuple(JaxSpec(nm, c, u) for nm, c, u in shapes), union=names,
                         min_months=4)
@@ -451,5 +466,5 @@ def test_spec_grid_past_one_launch_matches_jax(one_thread):
     got = run_spec_grid(t_(y), t_(x), {k: t_(m) for k, m in masks.items()}, grid, True, None)
     assert got.coef.shape == (3, p)
     assert tuple(got.referee_specs) == tuple(want.referee_specs)
-    _results_close(got, want, "run_spec_grid P=430")
+    _results_close(got, want, f"run_spec_grid P={p}")
     assert np.isfinite(got.coef[-1]).all()
