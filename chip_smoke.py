@@ -29,9 +29,9 @@ Phases (any failure exits non-zero without the final line):
    bfloat16; 847 and 622 with row weights) and of the tile-pair kernel's
    crossover (``GRAM_TILE_FROM``; 921 columns, no 16-byte row stride), and
    the 920-column union (T = 60, N = 22,000, 3 specs) on every branch:
-   float32 and its row weights cut into column panels, float64 and bfloat16
-   (also with coreset row weights, untimed) on the tile-pair kernel, with
-   the pre-pass (``gram_fold_cuda``) timed beside them;
+   every branch on the tile-pair kernel (bfloat16 also with coreset row
+   weights, untimed; float32 also at 921 columns, untimed), with the
+   pre-pass (``gram_fold_cuda``) timed beside them;
 4. the main path at real size — 600 months, 22,000 firms, ~77M daily rows
    built from ``--seed`` by ``data.smoke_inputs`` — through
    ``run_pipeline(device="cuda", dtype=torch.float32)`` and all of its
@@ -372,11 +372,9 @@ from fm_returnprediction_tpu_torch.serving.state import ServingState, build_serv
 from fm_returnprediction_tpu_torch.specgrid.grams import (
     contract_spec_grams,
     contract_spec_grams_plain,
-    gram_column_panels,
     gram_contract_cuda,
     gram_fold_cuda,
     gram_fold_plain,
-    gram_launch_count,
     gram_spec_chunk,
     gram_tile_plan,
     GRAM_TILE_FROM,
@@ -716,12 +714,9 @@ def check_gram(t, n, p, dtype, rel, gen, timed, figure=False, weights=None,
     worst, max_abs = gram_worst(got, want)
     kind = "bf16" if low else str(dtype)[6:]
     chunk = gram_spec_chunk(p, dtype=x.dtype)
-    plan = gram_column_panels(p, x.dtype, s, rw is not None)
     tiles = gram_tile_plan(p, x.dtype, s)
     label = (f"T={t} N={n} P={p} S={s} {kind}" + (f" rw={weights}" if weights else "")
              + (f" ({-(-s // chunk)} launches)" if s > chunk else "")
-             + (f" ({gram_launch_count(t, n, p, s, x.dtype, rw is not None)} launches: "
-                f"{len(plan.pairs)} pairs of {len(plan.panels)} column panels)" if plan else "")
              + (f" (tile pairs: one launch, {len(tiles.pairs)} pairs of {tiles.tiles} tiles, "
                 f"{tiles.groups} spec group(s) of {tiles.spec_group})" if tiles else ""))
     tol = rel
@@ -750,11 +745,6 @@ def check_gram(t, n, p, dtype, rel, gen, timed, figure=False, weights=None,
         ms = time_ms(lambda: gram_contract_cuda(y, x, valid, col_sel, center, rw), reps=reps)
         plain_ms = time_ms(lambda: contract_spec_grams_plain(
             y, x, uni, col_sel, window, center, row_weights=rw), reps=min(reps, 5))
-        tri = (p + 2) * (p + 3) // 2
-        in_bytes = sum(a.numel() * a.element_size()
-                       for a in (x, y, valid, col_sel, center, rw) if a is not None)
-        out_bytes = s * t * (p + 2) ** 2 * got[0].element_size()
-        b_ms, b_by = bound(in_bytes + out_bytes, 2.0 * s * t * n * tri, x.dtype)
         qe, isz = p + 2, x.element_size()
         torch.cuda.empty_cache()
         # yardstick: batched matmuls over the pre-weighted augmented
@@ -776,6 +766,14 @@ def check_gram(t, n, p, dtype, rel, gen, timed, figure=False, weights=None,
             w = w * rw
         del fin, xz, yz, bad
         torch.cuda.empty_cache()
+        # the bound counts the products of the (spec, month, firm) rows of
+        # nonzero weight: a row of weight 0 adds nothing to the sums
+        tri = (p + 2) * (p + 3) // 2
+        taken = int((w != 0).sum())
+        in_bytes = sum(a.numel() * a.element_size()
+                       for a in (x, y, valid, col_sel, center, rw) if a is not None)
+        out_bytes = s * t * (p + 2) ** 2 * got[0].element_size()
+        b_ms, b_by = bound(in_bytes + out_bytes, 2.0 * taken * tri, x.dtype)
         if per_spec:
             lhs = (xa[None] * w[..., None]).reshape(-1, n, qe).transpose(1, 2)
             rhs = xa[None].expand(s, t, n, qe).reshape(-1, n, qe).contiguous()
@@ -803,7 +801,8 @@ def check_gram(t, n, p, dtype, rel, gen, timed, figure=False, weights=None,
                     f"kernel/bmm {ms / library_ms:.3f})")
         del lib, w, xa
         log(f"K2 {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
-            f"{lib_note}, bound {b_ms:.4f} ms ({b_by})")
+            f"{lib_note}, bound {b_ms:.4f} ms ({b_by}; {taken:,} of {s * t * n:,} rows of "
+            f"nonzero weight)")
         if low:
             # the whole call as Table 2 makes it from float32 inputs: the
             # center, the bf16 casts, the universe gather and the kernel
@@ -897,23 +896,22 @@ ROW_PATH.update({f"gram/P={p},S=9,{branch}": ("wide",) for p, _ in WIDE_SHAPES
 # K2 on wide unions: 920 columns (Gu, Kelly and Xiu's 94 characteristics
 # × 9 plus 74 industry dummies), 60 months × 22,000 firms (depth cut for
 # time), 3 specs (the first 3, 460 and every column), 1e-4 of the entries
-# NaN (the widest spec keeps most rows), on every branch: float32 and its
-# coreset row weights cut into column panels (the pre-pass and one launch
-# a pair), float64 and bfloat16 operands on the tile-pair kernel (the
-# pre-pass and one launch)
-PANEL_P, PANEL_T, PANEL_N = 920, 60, 22000
-PANEL_WIDTHS = (3, PANEL_P // 2, PANEL_P)
-PANEL_NAN = 1e-4
+# NaN (the widest spec keeps most rows), on every branch: float32 (with
+# and without coreset row weights), float64 and bfloat16 operands on the
+# tile-pair kernel (the pre-pass and one launch)
+UNION_P, UNION_T, UNION_N = 920, 60, 22000
+UNION_WIDTHS = (3, UNION_P // 2, UNION_P)
+UNION_NAN = 1e-4
 # the pre-pass's counterpart in the Pallas kernel: the selected columns'
 # non-finite count and the weight of _gram_kernel
 FOLD_REPLACES = "fm_returnprediction_tpu/ops/gram_pallas.py:89"
 # their launches on a path: k2_wide_path_phase's run_spec_grid over 920
 # columns on each branch
-ROW_PATH.update({f"gram/P={PANEL_P},S=3,{branch}": ("wide",)
+ROW_PATH.update({f"gram/P={UNION_P},S=3,{branch}": ("wide",)
                  for branch in ("f32", "f64", "f32,rw", "bf16")})
-ROW_PATH.update({f"fold/P={PANEL_P},S=3,{branch}": ("wide",) for branch in ("f32", "f64")})
+ROW_PATH.update({f"fold/P={UNION_P},S=3,{branch}": ("wide",) for branch in ("f32", "f64")})
 # the reach of one launch of the wide kernels, 9 specs: (label, operands,
-# bfloat16, row weights, the widest union); float64 and bfloat16 take the
+# bfloat16, row weights, the widest union); every operand type takes the
 # tile-pair kernel on both sides of it
 OLD_REACH = (("f64", torch.float64, False, None, 424),
              ("f64 rw", torch.float64, False, "binary", 423),
@@ -925,45 +923,33 @@ OLD_REACH = (("f64", torch.float64, False, None, 424),
 
 def reach_checks(gen) -> None:
     """Each side of the reach of one launch of the wide kernels, 12 months
-    × 1,001 firms, 9 specs: float32 one launch at the reach, one column past
-    it the pre-pass and one launch a pair of panels (``gram_launch_count``);
-    float64 and bfloat16 the pre-pass and one launch of the tile-pair kernel
-    on both sides; each held to its plain version as ``check_gram`` holds
-    it (two calls, bit-identical)."""
+    × 1,001 firms, 9 specs: every operand type the pre-pass and one launch
+    of the tile-pair kernel on both sides (each crossover lies within its
+    one-launch kernel's reach); each held to its plain version as
+    ``check_gram`` holds it (two calls, bit-identical)."""
     for label, dtype, low, weights, reach in OLD_REACH:
         operands = torch.bfloat16 if low else dtype
         for p in (reach, reach + 1):
-            plan = gram_column_panels(p, operands, 9, weights is not None)
             tiles = gram_tile_plan(p, operands, 9)
-            if operands == torch.float32:
-                check((plan is None) == (p == reach),
-                      f"K2 {label} P={p}: column panels {'' if plan else 'not '}planned")
-            else:
-                check(tiles is not None, f"K2 {label} P={p}: not on the tile route")
-            want = (gram_launch_count(12, 1001, p, 9, operands, weights is not None),
-                    0 if plan is None and tiles is None else 1)
+            check(tiles is not None, f"K2 {label} P={p}: not on the tile route")
             before = gram_contract_cuda.launches, gram_fold_cuda.launches
             check_gram(12, 1001, p, dtype, 1e-12 if dtype == torch.float64 else 1e-5, gen,
                        False, weights=weights, low=low, nan_frac=1e-3)
             got = (gram_contract_cuda.launches - before[0],
                    gram_fold_cuda.launches - before[1])
-            log(f"K2 {label} P={p}: "
-                + (f"tile pairs, {len(tiles.pairs)} pairs of {tiles.tiles} tiles" if tiles else
-                   "one launch" if plan is None else
-                   f"{len(plan.panels)} column panels, {len(plan.pairs)} pairs")
-                + f"; launches (K2, pre-pass) of two calls {got}")
-            check(got == (2 * want[0], 2 * want[1]),
-                  f"K2 {label} P={p}: launches {got}, not twice {want}")
+            log(f"K2 {label} P={p}: tile pairs, {len(tiles.pairs)} pairs of {tiles.tiles} "
+                f"tiles; launches (K2, pre-pass) of two calls {got}")
+            check(got == (2, 2), f"K2 {label} P={p}: launches {got}, not (2, 2)")
 
 
 def tile_side_checks(gen) -> None:
     """The tile-pair kernel's edges, 12 months × 1,001 firms, 9 specs, in
-    float64 and bfloat16 (with 0/1 row weights too): one launch of the
+    float32, float64 and bfloat16 (with 0/1 row weights too): one launch of the
     one-launch kernel one column below ``GRAM_TILE_FROM``, the pre-pass and
     one launch of the tile-pair kernel at it and at 921 columns (no
     16-byte row stride in either type), each held to its plain version as
     ``check_gram`` holds it (two calls, bit-identical)."""
-    for dtype, low in ((torch.float64, False), (torch.float32, True)):
+    for dtype, low in ((torch.float32, False), (torch.float64, False), (torch.float32, True)):
         operands = torch.bfloat16 if low else dtype
         start = GRAM_TILE_FROM[operands]
         for p in (start - 1, start, 921):
@@ -982,15 +968,15 @@ def tile_side_checks(gen) -> None:
 
 
 def fold_row(dtype, gen, timed):
-    """The panel route's pre-pass (``gram_fold_cuda``) at the 920-column
+    """The tile-pair kernel's pre-pass (``gram_fold_cuda``) at the 920-column
     shape against its plain version, bit for bit, two calls identical; with
     ``timed`` its kernel table row."""
-    y, x, _, valid, col_sel, _ = gram_inputs(PANEL_T, PANEL_N, PANEL_P, dtype, gen, specs=3,
-                                             widths=PANEL_WIDTHS, nan_frac=PANEL_NAN)
+    y, x, _, valid, col_sel, _ = gram_inputs(UNION_T, UNION_N, UNION_P, dtype, gen, specs=3,
+                                             widths=UNION_WIDTHS, nan_frac=UNION_NAN)
     got = gram_fold_cuda(y, x, valid, col_sel)
     want = gram_fold_plain(y, x, valid, col_sel)
     kind = {torch.float32: "f32", torch.float64: "f64"}[dtype]
-    label = f"T={PANEL_T} N={PANEL_N} P={PANEL_P} S=3 {kind}"
+    label = f"T={UNION_T} N={UNION_N} P={UNION_P} S=3 {kind}"
     wrong = int((got != want).sum())
     log(f"gram_fold {label}: {wrong} of {got.numel()} bytes differ from the plain version, "
         f"{int(got.sum())} rows valid")
@@ -1004,7 +990,7 @@ def fold_row(dtype, gen, timed):
         b_ms, b_by = bound(moved, float(x.numel()), dtype)
         log(f"gram_fold {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library none, "
             f"bound {b_ms:.4f} ms ({b_by})")
-        row = dict(name=f"gram_fold {label}", key=f"fold/P={PANEL_P},S=3,{kind}", route="cuda",
+        row = dict(name=f"gram_fold {label}", key=f"fold/P={UNION_P},S=3,{kind}", route="cuda",
                    source=K2_SOURCE, replaces=FOLD_REPLACES, max_abs_err=float(wrong), ms=ms,
                    plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
     del y, x, valid, col_sel, got, want
@@ -1019,9 +1005,9 @@ def k2_wide_phase(gen, timed: bool):
     bfloat16 with coreset weights at P = 40, float32 with 61 specs at P =
     40, each side of the reach of one launch of the wide kernels
     (``reach_checks``) and of the tile-pair kernel's crossover
-    (``tile_side_checks``), and bfloat16 with coreset weights over 920
-    columns; then the 920-column union on every branch and the pre-pass
-    (timed rows)."""
+    (``tile_side_checks``), bfloat16 with coreset weights over 920 columns
+    and float32 over 921 (no 16-byte row stride); then the 920-column union
+    on every branch and the pre-pass (timed rows)."""
     rows = []
     for p, n in WIDE_SHAPES:
         rows += [check_gram(600, n, p, torch.float32, 1e-5, gen, timed),
@@ -1036,14 +1022,16 @@ def k2_wide_phase(gen, timed: bool):
     reach_checks(gen)
     tile_side_checks(gen)
     # a call of up to 0.5 s: median of 2 (the plain version's too)
-    panel = dict(specs=3, widths=PANEL_WIDTHS, nan_frac=PANEL_NAN, reps=2)
-    check_gram(PANEL_T, PANEL_N, PANEL_P, torch.float32, 1e-5, gen, False, weights="coreset",
+    panel = dict(specs=3, widths=UNION_WIDTHS, nan_frac=UNION_NAN, reps=2)
+    check_gram(UNION_T, UNION_N, UNION_P, torch.float32, 1e-5, gen, False, weights="coreset",
                low=True, **panel)
-    rows += [check_gram(PANEL_T, PANEL_N, PANEL_P, torch.float32, 1e-5, gen, timed, **panel),
-             check_gram(PANEL_T, PANEL_N, PANEL_P, torch.float64, 1e-12, gen, timed, **panel),
-             check_gram(PANEL_T, PANEL_N, PANEL_P, torch.float32, 1e-5, gen, timed,
+    check_gram(UNION_T, UNION_N, UNION_P + 1, torch.float32, 1e-5, gen, False,
+               **dict(panel, widths=(3, UNION_P // 2, None)))
+    rows += [check_gram(UNION_T, UNION_N, UNION_P, torch.float32, 1e-5, gen, timed, **panel),
+             check_gram(UNION_T, UNION_N, UNION_P, torch.float64, 1e-12, gen, timed, **panel),
+             check_gram(UNION_T, UNION_N, UNION_P, torch.float32, 1e-5, gen, timed,
                         weights="coreset", **panel),
-             check_gram(PANEL_T, PANEL_N, PANEL_P, torch.float32, 1e-5, gen, timed, low=True,
+             check_gram(UNION_T, UNION_N, UNION_P, torch.float32, 1e-5, gen, timed, low=True,
                         **panel),
              fold_row(torch.float32, gen, timed), fold_row(torch.float64, gen, timed)]
     return [row for row in rows if row]
@@ -1057,11 +1045,12 @@ def sass_hmma_phase() -> None:
     row weights, and the six tile-pair kernels: 1 to 3 specs a block, with
     and without row weights) must have ``HMMA`` and no ``DMMA``, the
     ten float64 kernels (three chunk widths, and the four tile-pair
-    kernels: 2 and 3 specs a block) ``DMMA`` and no ``HMMA``, the four
-    float32 kernels (``gram_kernel`` up to 32 columns and
-    ``gram_f32_wide_kernel`` past them, each with and without row weights)
-    and the panel route's three pre-pass kernels (``gram_fold_kernel``, one
-    an operand type) neither."""
+    kernels: 2 and 3 specs a block) ``DMMA`` and no ``HMMA``, the ten
+    float32 kernels (``gram_kernel`` up to 32 columns,
+    ``gram_f32_wide_kernel`` past them and the six tile-pair kernels
+    ``gram_f32_tiles_kernel``: 1 to 3 specs a block; each with and without
+    row weights) and the tile-pair kernel's three pre-pass kernels
+    (``gram_fold_kernel``, one an operand type) neither."""
     cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
     tool = shutil.which("cuobjdump") or os.path.join(cuda_home, "bin", "cuobjdump")
     if not os.path.exists(tool):
@@ -1093,10 +1082,11 @@ def sass_hmma_phase() -> None:
           "bf16 Gram kernels without HMMA (or with DMMA)")
     check(len(dm) == 10 and all(v["DMMA"] > 0 and v["HMMA"] == 0 for v in dm.values()),
           "float64 Gram kernels without DMMA (or with HMMA)")
-    check(len(cc) == 7 and sum(k.startswith("gram_f32_wide_kernel") for k in cc) == 2
+    check(len(cc) == 13 and sum(k.startswith("gram_f32_wide_kernel") for k in cc) == 2
+          and sum(k.startswith("gram_f32_tiles_kernel") for k in cc) == 6
           and sum(k.startswith("gram_fold_kernel") for k in cc) == 3
           and all(v["HMMA"] == 0 and v["DMMA"] == 0 for v in cc.values()),
-          "float32 Gram kernels or the pre-pass use the tensor cores (or are not the seven "
+          "float32 Gram kernels or the pre-pass use the tensor cores (or are not the 13 "
           "expected)")
 
 
@@ -1198,7 +1188,7 @@ def launch_counts() -> dict:
     """The launch counters since ``reset_counts``: K1 per kind, window and
     shape ("mean/w=120,600x15") and per kind ("mean/w=120"), K2 per shape
     ("gram/P=14,S=9,f32", a call cut into chunks counting each launch), the
-    panel route's pre-pass per shape ("fold/P=920,S=3,f32"), and the
+    tile-pair kernel's pre-pass per shape ("fold/P=920,S=3,f32"), and the
     totals."""
     by_shape = dict(rolling_reduce_cuda.launches_by_key)
     by_kind = {}
@@ -2568,7 +2558,7 @@ def _seeded_columns(t: int, n: int, k: int, seed: int, device, dtype,
     return cols.to(dtype)
 
 
-def panel_grid(factors: dict, universe: str):
+def union_grid(factors: dict, universe: str):
     """The 920-column union: Table 2's union and seeded columns after it;
     3 specs over ``universe``: Model 1's columns (the union's first 3), the
     first half and every column. Returns ``(grid, Table 2's union, the
@@ -2577,10 +2567,10 @@ def panel_grid(factors: dict, universe: str):
 
     cols = [model_columns(m, factors) for m in MODELS]
     union = list(dict.fromkeys(c for cs in cols for c in cs))
-    seeded = [f"seeded_{i}" for i in range(PANEL_P - len(union))]
+    seeded = [f"seeded_{i}" for i in range(UNION_P - len(union))]
     names = tuple(union + seeded)
     specs = tuple(Spec(f"P{w} | {universe}", names[:w], universe)
-                  for w in (len(cols[0]),) + PANEL_WIDTHS[1:])
+                  for w in (len(cols[0]),) + UNION_WIDTHS[1:])
     return SpecGrid(specs, union=names), union, seeded
 
 
@@ -2592,7 +2582,7 @@ def k2_wide_path_phase(res, seed: int) -> dict:
     in float64; then unions of 64 and 100 columns (50 and 86 seeded) at
     the first 4,096 firms of the last ``WIDE_PATH_MONTHS`` months (depth
     cut for the script's time) on the same four branches; then the
-    920-column union (``_panel_path``). Each run's K2
+    920-column union (``_union_path``). Each run's K2
     launches are counted by key: ⌈9 / gram_spec_chunk(P, dtype=…)⌉, one
     on every branch (one launch takes the whole batch past 32 columns);
     Models 1 and 2 come out finite. No referee: its QR re-solves launch no
@@ -2644,29 +2634,27 @@ def k2_wide_path_phase(res, seed: int) -> dict:
                     merged[key] = merged.get(key, 0) + v
         del cols, rw, yy, mm
         torch.cuda.empty_cache()
-    _panel_path(res, seed, gen, merged)
+    _union_path(res, seed, gen, merged)
     return merged
 
 
-def _panel_path(res, seed: int, gen, merged: dict) -> None:
-    """``run_spec_grid`` over the 920-column union (``panel_grid``): the
-    last ``PANEL_T`` months of the main path's panel (its first months hold
+def _union_path(res, seed: int, gen, merged: dict) -> None:
+    """``run_spec_grid`` over the 920-column union (``union_grid``): the
+    last ``UNION_T`` months of the main path's panel (its first months hold
     fewer firms than the widest spec has columns), all its firms, over All
     stocks, in float32, with coreset row weights, in bfloat16 and in
-    float64. Each run's K2 launches are ``gram_launch_count``'s (float32
-    and the row weights cut into column panels: one launch a pair; float64
-    and bfloat16 one launch of the tile-pair kernel), and one pre-pass
-    launch; each spec's selected coefficients finite. Adds the launches
-    (``gram/…``, ``fold/…``) to ``merged``."""
+    float64. Each run's K2 launches are one launch of the tile-pair kernel
+    and one pre-pass launch; each spec's selected coefficients finite. Adds
+    the launches (``gram/…``, ``fold/…``) to ``merged``."""
     panel, masks = res.panel, res.subset_masks
-    t, n = PANEL_T, panel.values.shape[1]
+    t, n = UNION_T, panel.values.shape[1]
     universe = "All stocks"
-    grid, union, seeded = panel_grid(res.factors_dict, universe)
+    grid, union, seeded = union_grid(res.factors_dict, universe)
     dev = panel.values.device
     t0 = panel.values.shape[0] - t
     cols = torch.cat([panel.select(union)[t0:],
-                      _seeded_columns(t, n, len(seeded), seed + PANEL_P, dev, torch.float32,
-                                      nan_frac=PANEL_NAN)], dim=-1).contiguous()
+                      _seeded_columns(t, n, len(seeded), seed + UNION_P, dev, torch.float32,
+                                      nan_frac=UNION_NAN)], dim=-1).contiguous()
     y = panel.var("retx")[t0:].contiguous()
     mm = {universe: masks[universe][t0:].contiguous()}
     rw = coreset_like_weights(t, n, torch.float32, gen, binary=False)
@@ -2676,11 +2664,8 @@ def _panel_path(res, seed: int, gen, merged: dict) -> None:
             ("bf16", dict(precision="bf16"), y, cols, torch.bfloat16),
             ("f64", dict(), y.double(), cols.double(), torch.float64))
     for label, kw, y_run, x_run, operands in runs:
-        weighted = "row_weights" in kw
-        plan = gram_column_panels(PANEL_P, operands, len(grid.specs), weighted)
-        tiles = gram_tile_plan(PANEL_P, operands, len(grid.specs))
-        check((tiles is None) == (operands == torch.float32),
-              f"panel run_spec_grid {label}: the tile route {'' if tiles else 'not '}planned")
+        tiles = gram_tile_plan(UNION_P, operands, len(grid.specs))
+        check(tiles is not None, f"920-column run_spec_grid {label}: not on the tile route")
         reset_counts()
         torch.cuda.synchronize()
         start = time.perf_counter()
@@ -2688,19 +2673,17 @@ def _panel_path(res, seed: int, gen, merged: dict) -> None:
         torch.cuda.synchronize()
         wall = time.perf_counter() - start
         counts = launch_counts()
-        want = (gram_launch_count(t, n, PANEL_P, len(grid.specs), operands, weighted), 1)
+        want = (1, 1)
         finite = all(np.isfinite(out.coef[i, :w]).all() for i, w in enumerate(widths))
-        log(f"K2 panel path: run_spec_grid P={PANEL_P} S={len(grid.specs)} T={t} N={n} "
-            f"{label}: {wall:.3f} s, "
-            + (f"tile pairs, {len(tiles.pairs)} pairs of {tiles.tiles} tiles" if tiles else
-               f"{len(plan.panels)} column panels, {len(plan.pairs)} pairs")
-            + f", K2 {counts['k2']}, pre-pass {counts['fold']}, mean rows a month "
+        log(f"K2 920-column path: run_spec_grid P={UNION_P} S={len(grid.specs)} T={t} N={n} "
+            f"{label}: {wall:.3f} s, tile pairs, {len(tiles.pairs)} pairs of {tiles.tiles} "
+            f"tiles, K2 {counts['k2']}, pre-pass {counts['fold']}, mean rows a month "
             f"{np.round(out.mean_n, 1).tolist()}, specs with a suspect month "
             f"{int((out.suspect_months > 0).sum())}, selected coefficients finite {finite}")
         check((counts["k2"], counts["fold"]) == want,
-              f"panel run_spec_grid {label}: launches (K2, pre-pass) "
+              f"920-column run_spec_grid {label}: launches (K2, pre-pass) "
               f"{(counts['k2'], counts['fold'])}, not {want}")
-        check(finite, f"panel run_spec_grid {label}: a selected coefficient is not finite")
+        check(finite, f"920-column run_spec_grid {label}: a selected coefficient is not finite")
         for key, v in counts.items():
             if key.startswith(("gram/", "fold/")):
                 merged[key] = merged.get(key, 0) + v
@@ -2975,7 +2958,7 @@ def card_vs_cpu(seed: int, absorb_reading: bool = False) -> None:
     _backtest_vs_cpu(gpu)
     _estimators_vs_cpu(gpu, absorb_reading)
     _wide_vs_cpu(gpu, seed)
-    _panel_vs_cpu(seed)
+    _union_vs_cpu(seed)
 
 
 def _grid_gap(got, want, suspect: np.ndarray) -> tuple:
@@ -3054,7 +3037,7 @@ def _wide_vs_cpu(gpu, seed: int) -> None:
           and f_sus <= SUSPECT_TOL, "card vs CPU: the wide grid beyond tolerance")
 
 
-def _panel_vs_cpu(seed: int) -> None:
+def _union_vs_cpu(seed: int) -> None:
     """The 920-column union card vs CPU at float64 (on the card the
     tile-pair kernel): ``run_spec_grid`` over 920 seeded columns (12 months
     × 2,000 firms, 1e-4 of the entries NaN, y a few columns' sum and
@@ -3063,15 +3046,15 @@ def _panel_vs_cpu(seed: int) -> None:
     launches one and one pre-pass."""
     from fm_returnprediction_tpu_torch.specgrid.specs import Spec, SpecGrid
 
-    t, n, p = 12, 2000, PANEL_P
+    t, n, p = 12, 2000, UNION_P
     rng = np.random.default_rng(seed + 920)
     x = rng.standard_normal((t, n, p))
-    x[rng.random(x.shape) < PANEL_NAN] = np.nan
+    x[rng.random(x.shape) < UNION_NAN] = np.nan
     beta = np.zeros(p)
     beta[[0, 2, 400, 700, p - 1]] = [0.5, -0.3, 0.2, 0.4, -0.25]
     y = np.nansum(x * beta, axis=-1) + rng.standard_normal((t, n))
     names = tuple(f"c{i}" for i in range(p))
-    grid = SpecGrid(tuple(Spec(f"P{w}", names[:w], "all") for w in PANEL_WIDTHS), union=names)
+    grid = SpecGrid(tuple(Spec(f"P{w}", names[:w], "all") for w in UNION_WIDTHS), union=names)
     masks = {"all": np.ones((t, n), bool)}
     out, counts, secs = {}, {}, {}
     for side in ("cuda", "cpu"):
@@ -3094,8 +3077,8 @@ def _panel_vs_cpu(seed: int) -> None:
         f"{held:.3e} over {int((~suspect).sum())} specs without a suspect month (tol 1e-8), "
         f"{worst_sus:.3e} over {int(suspect.sum())} with one (tol {SUSPECT_TOL:g}); referee "
         f"specs card {list(g.referee_specs)} cpu {list(c.referee_specs)}")
-    check(got == want, f"panel card run: launches {got}, not {want}")
-    check(list(g.referee_specs) == list(c.referee_specs), "panels: referee specs differ")
+    check(got == want, f"920-column card run: launches {got}, not {want}")
+    check(list(g.referee_specs) == list(c.referee_specs), "920 columns: referee specs differ")
     check(held <= 1e-8 and worst_sus <= SUSPECT_TOL,
           "card vs CPU: the 920-column grid beyond tolerance")
 

@@ -221,19 +221,20 @@
 // to 65,536 specs in one launch, at any P whose smallest firm tile (16
 // firms) fits in shared memory (227 KB): 424 columns in float64 (423 with
 // row weights), 848 in float (850 at S = 1, 847 with row weights), 1,367
-// in bf16 (622 with row weights); the wrapper sends float64 and bf16 to the
-// tile-pair kernel before those reaches.
+// in bf16 (622 with row weights); the wrapper sends every operand type to
+// the tile-pair kernel before those reaches.
 //
-// Design, wide float64 and bf16 unions (gram_dmma_tiles_kernel,
-// gram_tc_tiles_kernel: the tile-pair kernel). It ports the same Pallas
-// kernel body (fm_returnprediction_tpu/ops/gram_pallas.py::_gram_kernel,
-// :56) for float64 and bf16 operands from GRAM_TILE_FROM columns
-// (specgrid/grams.py, the crossover timed on an H100), at any P in one
-// launch. At 920 columns (T = 60, N = 22,000, S = 3) the products bound it
-// (~3.4e12 operations: 50 ms of DMMA, 3.4 ms of bf16 tensor cores, against
-// 1.5 GB of bytes, 0.5 ms), and the kernels past 32 columns above stage
-// and build a month's whole rows in every block (tile 16 a block at that
-// width, or a gathered panel copy a launch).
+// Design, wide unions of every operand type (gram_f32_tiles_kernel,
+// gram_dmma_tiles_kernel, gram_tc_tiles_kernel: the tile-pair kernel). It
+// ports the same Pallas kernel body
+// (fm_returnprediction_tpu/ops/gram_pallas.py::_gram_kernel, :56) from
+// GRAM_TILE_FROM columns (specgrid/grams.py, the crossover of each operand
+// type timed on an H100), at any P in one launch. At 920 columns (T = 60,
+// N = 22,000, S = 3) the products bound it (~3.4e12 operations: 50 ms of
+// FP32 FMAs or of DMMA, 3.4 ms of bf16 tensor cores, against 0.8-1.5 GB of
+// bytes, under 0.5 ms), and the kernels past 32 columns above stage and
+// build a month's whole rows in every block (tile 16 a block at that
+// width).
 // - The augmented columns [1 | x - c | y] are cut into tiles of 64; a
 //   block owns one tile pair (I <= J) for one month and a group of up to 3
 //   specs (the pure-Python plan gram_tile_plan gives the pairs, passed as
@@ -244,40 +245,55 @@
 //   bits, and under 0/1 weights n is an exact count. The blocks of a pair's
 //   spec groups, then of a month's pairs, run together, so the month's
 //   firms are read from L2 (a block reads 2 x 64 columns of every firm).
-// - Staging from x itself: per firm and tile, every 16-byte-aligned chunk
-//   that holds a byte of the tile's columns goes by one cp.async (so any P
-//   and any alignment of x: no 16-byte row stride is needed, as a TMA
-//   tensor map would need), and y, the row weights and the spec's rows of
-//   the folded mask as 1-D spans the same way; two stages, chunk k + 1 in
-//   flight while chunk k is built and summed. No gathered copy: the only
-//   scratch is the pre-pass's (S, T, N) uint8 mask.
+// - Staging from x itself, so any P and any alignment of x (no 16-byte row
+//   stride is needed, as a TMA tensor map would need): float32 and float64
+//   copy every value by a cp.async of its own size (4 or 8 bytes, a warp's
+//   lanes on consecutive columns), bf16 every 16-byte-aligned chunk that
+//   holds a byte of the tile's columns, with a per-firm misalignment; y,
+//   the row weights and the spec's rows of the folded mask as 1-D spans;
+//   three stages, chunks k + 1 and k + 2 in flight while chunk k is built
+//   and summed. No gathered copy: the only scratch is the pre-pass's (S, T,
+//   N) uint8 mask.
 // - Validity: the pre-pass (gram_fold_kernel, below) folds finite(y) and
 //   every selected column's finiteness into the mask once; a block reads
 //   the folded bytes, not the firm's whole row.
-// - The build, all threads: each chunk's two tiles as firm-major augmented
-//   rows (non-finite entries 0, x - c formed in float and rounded to bf16
-//   as the plain version rounds it), and each (spec, firm) weight.
-// - bf16 products: mma.sync m16n8k16, both fragments loaded from the
-//   firm-major rows by ldmatrix.trans (k = the firm), four warps of 32 x 32
-//   outputs; each spec ANDs its 0xFFFF/0 masks into the A fragment, and
-//   row weights split w * a exactly into hi + lo (two MMAs, as
+// - bf16: the build, all threads, writes each chunk's two tiles as
+//   firm-major augmented rows (non-finite entries 0, x - c formed in float
+//   and rounded to bf16 as the plain version rounds it) and each (spec,
+//   firm) mask; products by mma.sync m16n8k16, both fragments loaded from
+//   the firm-major rows by ldmatrix.trans (k = the firm), four warps of
+//   32 x 32 outputs; each spec ANDs its 0xFFFF/0 masks into the A fragment,
+//   and row weights split w * a exactly into hi + lo (two MMAs, as
 //   gram_tc_kernel). Each step's product starts from a zero sum and is
 //   added into the running sums in float registers, so the tensor core's
 //   own sum never spans more than 16 firms.
-// - float64 products: mma.sync m16n8k8 (the full DMMA rate), eight warps of
-//   16 x 32 outputs, the weight applied as each spec forms its A fragment,
-//   straight into running sums in registers (DMMA is IEEE double).
-//
-// Wider float unions: column panels. Past the float kernel's reach the
-// wrapper (specgrid/grams.py::gram_column_panels) cuts the x columns into
-// panels and launches the kernel once a pair of panels (I < J) on a
-// gathered copy of the pair's columns, [1 | x_I - c_I | x_J - c_J | y];
-// from each launch's block it keeps the (I, J) rectangle, and the diagonal
-// panel blocks and the intercept and y entries of the one launch it names
-// for each. A row's validity spans every selected column, so a pre-pass,
-// gram_fold_kernel (at the end), first folds finite(y) and the finiteness
-// of each spec's selected columns into a copy of the valid mask, which the
-// panel launches (and the tile-pair kernel) read.
+// - float64: mma.sync m16n8k8 (the full DMMA rate), eight warps of 16 x 32
+//   outputs, a lane forming its fragments straight from the staged rows and
+//   the weight applied as each spec forms its A fragment, straight into
+//   running sums in registers (DMMA is IEEE double).
+// - float32, on the CUDA cores in plain IEEE float32 FMAs (no TF32: the
+//   1e-5 pins of a block's max against the plain version). At 64 x 64
+//   outputs a block and 3 specs a block, a chunk's FMAs take ~3.1 us on one
+//   SM at the FP32 peak; they outweigh the loads only if every value is
+//   formed once a chunk and the inner loop holds nothing else, and the
+//   staging and the build (~2.5 us a chunk when nothing overlaps them) must
+//   run beside the FMAs, not between them. So the block is warp-specialized:
+//   four producer warps stage chunk k + 2 (a ring of two raw stages) and
+//   build chunk k into one of two built buffers (side 0's rows as they are,
+//   side 1's times the row weight, once for every spec of the block, and
+//   for each spec the list of the chunk's firms it takes), while eight
+//   consumer warps sum the other buffer; a lane owns a 4 x 4 tile of each
+//   spec's outputs and, spec by spec, per listed firm does one 16-byte load
+//   of each side and 16 FMAs. A (spec, firm) of weight 0 (outside the
+//   universe, a non-finite selected column, a coreset weight of 0) adds
+//   nothing and is not listed: the products follow the rows the data
+//   weights, and the loop has no branch (a per-firm test of each spec's
+//   bit inside the firm loop ran slower than the products it skipped).
+//   A tile of 8 x 8 a lane at 3 specs would hold 192 sums, past the
+//   registers a lane has room for; 4 x 4 keeps 64 (a chunk's sums and the
+//   running sums). One block an SM (136 KB of shared memory, 384 threads).
+//   k2_probe.py --tiles times the parts (PERF.md): the consumers' loop
+//   alone is most of the time, at ~60% of the FP32 issue rate.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -2332,7 +2348,7 @@ int launch_f32(const void* x, const void* y, const void* rw, const unsigned char
                                    s_specs, stream);
 }
 
-// --- wide unions of float64 and bf16 operands: the tile-pair kernel ----------
+// --- wide unions: the tile-pair kernel -----------------------------------------
 
 constexpr int kTileCols = 64;   // augmented columns a tile
 constexpr int kTileSpecs = 3;   // the most specs one block sums
@@ -2923,20 +2939,317 @@ gram_dmma_tiles_kernel(const double* __restrict__ x, const double* __restrict__ 
                    B.base[1] + 32 * wc + 8 * ni + 2 * tq + (q & 1), run[j][ni][q]);
 }
 
+// --- float32: built rows on the CUDA cores, warp-specialized ---
+
+// Byte offsets of one block's dynamic shared memory: two stages of raw
+// chunks, each a slot of 68 floats a (side, firm) (the side's x columns from
+// element 0, y at element 64; 272 bytes, a multiple of 16), the row weights,
+// one folded valid row a spec; both tiles' centers; then two built buffers,
+// each the built rows of side 0 and of side 1 (times the row weights),
+// firm-major, 64 floats a firm and a 65th row of zeros, each spec's list of
+// the chunk's firms it takes (padded to a multiple of 4 by the zero row)
+// and the lists' lengths. 136 KB with row weights: one block an SM.
+struct F32TileLayout {
+  size_t rw_off, v_off, stage, cen_off, built_off, b_off, list_off, count_off, built_bytes,
+      total;
+};
+constexpr int kF32TileSlot = 68;        // floats of a (side, firm) slot
+constexpr int kF32TileY = 64;           // y's element in a slot
+constexpr int kF32TileList = 68;        // ints of a spec's list: 64 firms, padded to 4
+constexpr int kF32TileConsumers = 256;  // 8 row groups x 4 column groups of 4, 8 warps
+constexpr int kF32TileProducers = 128;
+constexpr int kF32TileThreads = kF32TileConsumers + kF32TileProducers;
+
+__host__ __device__ inline F32TileLayout make_f32_tile_layout(bool has_rw) {
+  F32TileLayout L;
+  L.rw_off = (size_t)2 * kTileFirms * kF32TileSlot * 4;
+  L.v_off = L.rw_off + (has_rw ? kTileFirms * 4 : 0);
+  L.stage = L.v_off + kTileSpecs * kTileVRow;
+  L.cen_off = 2 * L.stage;
+  L.built_off = L.cen_off + 2 * kTileCols * sizeof(float);
+  L.b_off = (size_t)(kTileFirms + 1) * kTileCols * sizeof(float);  // side 1's rows
+  L.list_off = 2 * L.b_off;
+  L.count_off = L.list_off + (size_t)kTileSpecs * kF32TileList * sizeof(int);
+  L.built_bytes = L.count_off + 4 * sizeof(int);
+  L.total = L.built_off + 2 * L.built_bytes;
+  return L;
+}
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(smem)), "l"(gmem));
+}
+
+// Stage firms n0 .. n0 + cnt - 1 by 4-byte copies, every value at its place
+// (a float32 is 4-byte aligned at any P): thread t copies x column
+// xa + t % 64 of every (nthreads / 64)-th firm of each side (a warp's lanes
+// on consecutive columns), and y into element 64 of each (side, firm) slot;
+// then the row weights and the valid rows.
+template <bool kRw>
+__device__ inline void stage_f32_tiles(const F32TileLayout& L, unsigned char* st,
+                                       const TileBlock& B, const float* x, const float* y,
+                                       const float* rw, const unsigned char* valid, int t_len,
+                                       long long n, int p, long long n0, int cnt, int tid,
+                                       int nthreads) {
+  const long long row0 = (long long)B.t * n + n0;
+  float* slots = reinterpret_cast<float*>(st);
+  const int c = tid & (kTileCols - 1), fstep = nthreads / kTileCols;
+#pragma unroll
+  for (int side = 0; side < 2; ++side) {
+    if (c >= B.xn[side]) continue;
+    const float* src = x + row0 * p + B.xa[side] + c;
+    for (int f = tid / kTileCols; f < cnt; f += fstep)
+      cp_async4(slots + (side * kTileFirms + f) * kF32TileSlot + c, src + (long long)f * p);
+  }
+  for (int i = tid; i < 2 * kTileFirms; i += nthreads) {
+    const int f = i & (kTileFirms - 1);
+    if (f < cnt) cp_async4(slots + i * kF32TileSlot + kF32TileY, y + row0 + f);
+  }
+  if (kRw)
+    for (int f = tid; f < cnt; f += nthreads) cp_async4(st + L.rw_off + 4 * f, rw + row0 + f);
+  stage_valid_rows(st, L.v_off, B, valid, t_len, n, n0, cnt, tid, nthreads);
+}
+
+// The float32 build of a staged chunk by the NT producer threads: a thread
+// a (side, firm, 4-column group) forms the group's values once (x - c, 0
+// where not finite; the intercept 1; y, 0 where not finite; 0 past QE and
+// for firms cnt ..) and writes them as one 16-byte row segment, side 0's as
+// they are and side 1's times the firm's row weight (w * a rounded in
+// float32, as the plain version's weighted row). A thread's column group is
+// the same for all its items (tid % 16), and past tile 0 a group of x
+// columns is one aligned 16-byte load of the slot. Then producer warp j
+// lists the firms spec j of the block takes (its folded valid byte set, and
+// with row weights a nonzero weight), in firm order, by two ballots, as
+// the byte offsets of their built rows, and pads the list to a multiple of
+// 4 with the zero row (firm 64).
+template <int SG, bool kRw, int NT>
+__device__ inline void build_f32_tiles(const F32TileLayout& L, unsigned char* built,
+                                       const float* cen, const unsigned char* st,
+                                       const TileBlock& B, int p, int cnt,
+                                       const int (&v_at)[SG], int tid) {
+  const int q = tid & 15;
+  const float* slots = reinterpret_cast<const float*>(st);
+  const float* rwr = reinterpret_cast<const float*>(st + L.rw_off);
+  float* a_rows = reinterpret_cast<float*>(built);
+  float* b_rows = reinterpret_cast<float*>(built + L.b_off);
+#pragma unroll
+  for (int side = 0; side < 2; ++side) {
+    const int a0 = of_side(B.base, side) + 4 * q;  // the group's first augmented column
+    const int at = a0 - 1 - of_side(B.xa, side);   // its x column's element in a slot
+    const bool whole = a0 >= 1 && a0 + 3 <= p && (at & 3) == 0;
+    const float4 c4 = *reinterpret_cast<const float4*>(cen + side * kTileCols + 4 * q);
+    const float cc[4] = {c4.x, c4.y, c4.z, c4.w};
+#pragma unroll
+    for (int m = 0; m < kTileFirms * 16 / NT; ++m) {
+      const int f = (tid >> 4) + (NT / 16) * m;
+      const float* slot = slots + (side * kTileFirms + f) * kF32TileSlot;
+      float v[4] = {0.f, 0.f, 0.f, 0.f};
+      if (f < cnt && whole) {
+        const float4 x4 = *reinterpret_cast<const float4*>(slot + at);
+        const float xs[4] = {x4.x, x4.y, x4.z, x4.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) v[e] = isfinite(xs[e]) ? xs[e] - cc[e] : 0.f;
+      } else if (f < cnt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int a = a0 + e;
+          if (a == 0) {
+            v[e] = 1.f;
+          } else if (a <= p) {
+            const float xv = slot[at + e];
+            v[e] = isfinite(xv) ? xv - cc[e] : 0.f;
+          } else if (a == p + 1) {
+            const float yv = slot[kF32TileY];
+            v[e] = isfinite(yv) ? yv : 0.f;
+          }
+        }
+      }
+      const size_t row = (size_t)f * kTileCols + 4 * q;
+      if (side == 0) {
+        *reinterpret_cast<float4*>(a_rows + row) = make_float4(v[0], v[1], v[2], v[3]);
+      } else {
+        const float w = kRw ? (f < cnt ? rwr[f] : 0.f) : 1.f;
+        *reinterpret_cast<float4*>(b_rows + row) =
+            make_float4(w * v[0], w * v[1], w * v[2], w * v[3]);
+      }
+    }
+  }
+  const int j = tid >> 5, lane = tid & 31;
+  if (j < SG) {
+    int* list = reinterpret_cast<int*>(built + L.list_off) + j * kF32TileList;
+    int vj = v_at[0];  // v_at[j] by selects: a register array indexed at run time spills
+#pragma unroll
+    for (int jj = 1; jj < SG; ++jj) vj = jj == j ? v_at[jj] : vj;
+    auto takes = [&](int f) {
+      return f < cnt && j < B.nsb && st[vj + f] != 0 && (!kRw || rwr[f] != 0.f);
+    };
+    const bool lo = takes(lane), hi = takes(lane + 32);
+    const unsigned b_lo = __ballot_sync(0xffffffffu, lo), b_hi = __ballot_sync(0xffffffffu, hi);
+    const unsigned below = (1u << lane) - 1u;
+    const int n_lo = __popc(b_lo), total = n_lo + __popc(b_hi);
+    constexpr int kRow = kTileCols * sizeof(float);
+    if (lo) list[__popc(b_lo & below)] = lane * kRow;
+    if (hi) list[n_lo + __popc(b_hi & below)] = (lane + 32) * kRow;
+    if (lane < 3 && total + lane < ((total + 3) & ~3)) list[total + lane] = kTileFirms * kRow;
+    if (lane == 0) reinterpret_cast<int*>(built + L.count_off)[j] = total;
+  }
+}
+
+// float32 operands: SG specs a block, kRw row weights. Warp-specialized:
+// four producer warps stage chunk k + 2 into a ring of two raw stages and
+// build chunk k into one of two built buffers (named barriers: kBarFull + b
+// buffer b built, kBarEmpty + b buffer b summed, kBarProd the producers'
+// own), while eight consumer warps sum the other buffer. Consumer warp w
+// sums rows 32 (w % 2) .. + 31 of side 0 against columns 16 (w / 2) .. + 15
+// of side 1, a lane a 4 x 4 tile of them (rows 32 (w % 2) + 4 (lane % 8) ..,
+// columns 16 (w / 2) + 4 (lane / 8) ..). Spec by spec, it walks the spec's
+// list of the chunk's firms four at a time: one 16-byte load of the four
+// rows' offsets (broadcast), and per firm one 16-byte load of each side (a warp
+// reads 8 distinct side-0 and 4 distinct side-1 addresses: one wavefront
+// each) and 16 FMAs. A (spec, firm) of weight 0 is not in the list: the
+// products follow the rows the data weights, with no branch in the loop.
+// Each chunk's sums of a spec start at 0 and are added into its running
+// sums (a two-level sum: the chunk's own sum spans 64 firms). A consumer
+// warp whose rows or columns all lie past QE (the last tile's padding)
+// sums nothing.
+template <int SG, bool kRw>
+__global__ void __launch_bounds__(kF32TileThreads, 1)
+gram_f32_tiles_kernel(const float* __restrict__ x, const float* __restrict__ y,
+                      const float* __restrict__ rw, const unsigned char* __restrict__ valid,
+                      const float* __restrict__ center, float* __restrict__ out, int t_len,
+                      long long n, int p, int s_specs, const int* __restrict__ pairs,
+                      int npairs, int groups, int group) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int NP = kF32TileProducers;
+  const F32TileLayout L = make_f32_tile_layout(kRw);
+  const TileBlock B = tile_block(pairs, npairs, groups, group, s_specs, p);
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  float* cen = reinterpret_cast<float*>(smem + L.cen_off);
+  for (int i = tid; i < 2 * kTileCols; i += nthreads) {
+    const int side = i / kTileCols, a = of_side(B.base, side) + i - side * kTileCols;
+    cen[i] = a >= 1 && a <= p ? center[(size_t)B.t * p + a - 1] : 0.f;
+  }
+  // the zero row (firm 64) of each side of both buffers, which pads the lists
+  for (int i = tid; i < 4 * kTileCols; i += nthreads) {
+    const int u = i / kTileCols;  // buffer u / 2, side u % 2
+    reinterpret_cast<float*>(smem + L.built_off + (u >> 1) * L.built_bytes +
+                             (u & 1) * L.b_off)[kTileFirms * kTileCols + i % kTileCols] = 0.f;
+  }
+  __syncthreads();  // the centers and the zero rows, before any build
+  const long long n_chunks = (n + kTileFirms - 1) / kTileFirms;
+  auto count = [&](long long k) { return (int)min((long long)kTileFirms, n - k * kTileFirms); };
+
+  if (tid >= kF32TileConsumers) {
+    // producers
+    const int ptid = tid - kF32TileConsumers;
+    int v_at[SG];
+#pragma unroll
+    for (int j = 0; j < SG; ++j)
+      v_at[j] = (int)L.v_off + j * kTileVRow +
+                misalign(valid + ((long long)(B.s0 + min(j, B.nsb - 1)) * t_len + B.t) * n);
+    for (long long k = 0; k < 2 && k < n_chunks; ++k) {
+      stage_f32_tiles<kRw>(L, smem + k * L.stage, B, x, y, rw, valid, t_len, n, p,
+                           k * kTileFirms, count(k), ptid, NP);
+      cp_async_commit();
+    }
+    if (n_chunks < 2) cp_async_commit();
+    for (long long k = 0; k < n_chunks; ++k) {
+      const int b = (int)(k & 1);
+      unsigned char* st = smem + b * L.stage;
+      cp_async_wait_1();
+      bar_sync(kBarProd, NP);  // chunk k staged, every producer's copies
+      if (k >= 2) bar_sync(kBarEmpty + b, nthreads);  // the consumers are done with buffer b
+      build_f32_tiles<SG, kRw, NP>(L, smem + L.built_off + b * L.built_bytes, cen, st, B, p,
+                                   count(k), v_at, ptid);
+      bar_sync(kBarProd, NP);  // stage b read, buffer b written
+      bar_arrive(kBarFull + b, nthreads);  // buffer b is built
+      if (k + 2 < n_chunks)
+        stage_f32_tiles<kRw>(L, st, B, x, y, rw, valid, t_len, n, p, (k + 2) * kTileFirms,
+                             count(k + 2), ptid, NP);
+      cp_async_commit();
+    }
+    return;
+  }
+
+  // consumers
+  const int lane = tid & 31, warp = tid >> 5;
+  const int qe = p + 2;
+  const int r4 = 32 * (warp & 1) + 4 * (lane & 7), c4 = 16 * (warp >> 1) + 4 * (lane >> 3);
+  const bool live =
+      B.base[0] + 32 * (warp & 1) < qe && B.base[1] + 16 * (warp >> 1) < qe;
+  float run[SG][4][4];
+#pragma unroll
+  for (int j = 0; j < SG; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) run[j][i][k] = 0.f;
+  for (long long k = 0; k < n_chunks; ++k) {
+    const int b = (int)(k & 1);
+    bar_sync(kBarFull + b, nthreads);
+    if (live) {
+      const unsigned char* built = smem + L.built_off + b * L.built_bytes;
+      const unsigned char* a_rows = built + 4 * r4;
+      const unsigned char* b_rows = built + L.b_off + 4 * c4;
+      const int* counts = reinterpret_cast<const int*>(built + L.count_off);
+#pragma unroll
+      for (int j = 0; j < SG; ++j) {
+        const int4* list =
+            reinterpret_cast<const int4*>(built + L.list_off) + j * (kF32TileList / 4);
+        const int quads = (counts[j] + 3) >> 2;
+        float part[4][4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) part[i][kk] = 0.f;
+        // the next quad's offsets are read a quad ahead (a list has 17
+        // quads' room: the read past the last quad is never used)
+        int4 next = list[0];
+#pragma unroll 2
+        for (int g = 0; g < quads; ++g) {
+          const int4 ix = next;
+          next = list[g + 1];
+          const int fs[4] = {ix.x, ix.y, ix.z, ix.w};
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const float4 a4 = *reinterpret_cast<const float4*>(a_rows + fs[u]);
+            const float4 b4 = *reinterpret_cast<const float4*>(b_rows + fs[u]);
+            const float a[4] = {a4.x, a4.y, a4.z, a4.w};
+            const float bv[4] = {b4.x, b4.y, b4.z, b4.w};
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+#pragma unroll
+              for (int kk = 0; kk < 4; ++kk) part[i][kk] = fmaf(a[i], bv[kk], part[i][kk]);
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) run[j][i][kk] += part[i][kk];
+      }
+    }
+    if (k + 2 < n_chunks) bar_arrive(kBarEmpty + b, nthreads);  // buffer b is summed
+  }
+
+#pragma unroll
+  for (int j = 0; j < SG; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        tile_store(out, B, j, t_len, qe, B.base[0] + r4 + i, B.base[1] + c4 + k, run[j][i][k]);
+}
+
 template <typename T, typename Acc, typename Kernel>
-int launch_tiles_with(Kernel kernel, bool has_rw, const void* x, const void* y, const void* rw,
-                      const unsigned char* valid, const void* center, void* out, int t_len,
-                      long long n, int p, int s_specs, const int* pairs, int npairs, int groups,
-                      int group, cudaStream_t stream) {
-  constexpr bool bf = sizeof(T) == 2;
-  const size_t smem =
-      bf ? make_tc_tile_layout(has_rw).total : make_dmma_tile_layout(has_rw).total;
+int launch_tiles_with(Kernel kernel, size_t smem, int threads, const void* x, const void* y,
+                      const void* rw, const unsigned char* valid, const void* center, void* out,
+                      int t_len, long long n, int p, int s_specs, const int* pairs, int npairs,
+                      int groups, int group, cudaStream_t stream) {
   const long long blocks = (long long)t_len * npairs * groups;
   if (blocks > 0x7fffffffLL || smem > kSmemMax) return -1;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<(unsigned)blocks, bf ? 128 : 256, smem, stream>>>(
+  kernel<<<(unsigned)blocks, threads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(y), static_cast<const T*>(rw), valid,
       static_cast<const T*>(center), static_cast<Acc*>(out), t_len, n, p, s_specs, pairs,
       npairs, groups, group);
@@ -2946,32 +3259,43 @@ int launch_tiles_with(Kernel kernel, bool has_rw, const void* x, const void* y, 
 // The instance of SG >= group specs a block (a short group leaves slots
 // empty). float64 has no one-spec instance: one built as the two- and
 // three-spec ones never finished on an H100 at any N (not understood), so a
-// one-spec group runs on the two-spec instance.
+// one-spec group runs on the two-spec instance. float32's one-spec instance
+// finishes (a card test runs it in a child process under a time limit): it
+// shares tile_block, stage_valid_rows and tile_store with the float64
+// instance but not tile_walk, the fragments formed from the staged rows or
+// the DMMAs, so the float64 hang lies in what the two do not share.
 template <typename T, bool kRw>
 int launch_tiles(int group, const void* x, const void* y, const void* rw,
                  const unsigned char* valid, const void* center, void* out, int t_len,
                  long long n, int p, int s_specs, const int* pairs, int npairs, int groups,
                  cudaStream_t stream) {
-  auto go = [&](auto kernel) {
-    using Acc = typename std::conditional<sizeof(T) == 2, float, double>::type;
-    return launch_tiles_with<T, Acc>(kernel, kRw, x, y, rw, valid, center, out, t_len, n, p,
-                                     s_specs, pairs, npairs, groups, group, stream);
+  auto go = [&](auto kernel, size_t smem, int threads) {
+    using Acc = typename std::conditional<sizeof(T) == 2, float, T>::type;
+    return launch_tiles_with<T, Acc>(kernel, smem, threads, x, y, rw, valid, center, out,
+                                     t_len, n, p, s_specs, pairs, npairs, groups, group, stream);
   };
   if constexpr (sizeof(T) == 2) {
-    if (group == 1) return go(gram_tc_tiles_kernel<1, kRw>);
-    if (group == 2) return go(gram_tc_tiles_kernel<2, kRw>);
-    return go(gram_tc_tiles_kernel<3, kRw>);
+    const size_t smem = make_tc_tile_layout(kRw).total;
+    if (group == 1) return go(gram_tc_tiles_kernel<1, kRw>, smem, 128);
+    if (group == 2) return go(gram_tc_tiles_kernel<2, kRw>, smem, 128);
+    return go(gram_tc_tiles_kernel<3, kRw>, smem, 128);
+  } else if constexpr (sizeof(T) == 4) {
+    const size_t smem = make_f32_tile_layout(kRw).total;
+    if (group == 1) return go(gram_f32_tiles_kernel<1, kRw>, smem, kF32TileThreads);
+    if (group == 2) return go(gram_f32_tiles_kernel<2, kRw>, smem, kF32TileThreads);
+    return go(gram_f32_tiles_kernel<3, kRw>, smem, kF32TileThreads);
   } else {
-    if (group <= 2) return go(gram_dmma_tiles_kernel<2, kRw>);
-    return go(gram_dmma_tiles_kernel<3, kRw>);
+    const size_t smem = make_dmma_tile_layout(kRw).total;
+    if (group <= 2) return go(gram_dmma_tiles_kernel<2, kRw>, smem, 256);
+    return go(gram_dmma_tiles_kernel<3, kRw>, smem, 256);
   }
 }
 
-// --- the panel route's validity pre-pass -------------------------------------
+// --- the tile-pair kernel's validity pre-pass --------------------------------
 
 // Replaces the validity part of the Pallas kernel's body (_gram_kernel:
-// `bad`, the selected columns' non-finite count, and `w`), which the panel
-// launches cannot form: each sees only its pair's columns. One warp a
+// `bad`, the selected columns' non-finite count, and `w`), which a block of
+// the tile-pair kernel cannot form: each sees only its pair's columns. One warp a
 // firm-month reads the firm's row once, 32 columns a step (coalesced), and
 // one ballot a step gives the step's non-finite bits; lane l then ORs them
 // into spec l's hits under its selection word (specs past 32 take another
@@ -3027,7 +3351,7 @@ int launch_fold(const void* x, const void* y, const unsigned char* valid,
 
 }  // namespace
 
-// The panel route's validity pre-pass: out (S, T, N) uint8 = valid (S, T,
+// The tile-pair kernel's validity pre-pass: out (S, T, N) uint8 = valid (S, T,
 // N) uint8 and finite(y) and no column the spec selects (sel_bits, as for
 // gram_contract) non-finite in x (T, N, P); x and y in the operand type of
 // dtype_code (0 float, 1 double, 2 bf16). Returns 0, a cudaError_t, or -1
@@ -3059,8 +3383,8 @@ extern "C" int gram_fold(int dtype_code, const void* x, const void* y, const voi
 // batch in one launch. Returns 0 on success, the cudaError_t of the launch
 // otherwise, or -1 for arguments the kernel does not take (also a P whose
 // smallest firm tile exceeds shared memory: past 424 columns in float64,
-// 848 in float, 1,367 in bf16 at S = 9; the wrapper cuts a wider union
-// into column panels first).
+// 848 in float, 1,367 in bf16 at S = 9; the wrapper sends a wider union to
+// gram_tiles first).
 extern "C" int gram_contract(int dtype_code, const void* x, const void* y,
                              const void* rw, const void* valid,
                              const void* sel_bits, const void* center,
@@ -3087,11 +3411,12 @@ extern "C" int gram_contract(int dtype_code, const void* x, const void* y,
   return -1;
 }
 
-// The tile-pair kernel (float64 and bf16 operands past the crossover width,
+// The tile-pair kernel (every operand type past its crossover width,
 // specgrid/grams.py::gram_tile_plan): x (T, N, P), y (T, N), center (T, P)
 // and rw (T, N; null for no row weights) in the operand type of dtype_code
-// (1 double, 2 bf16); valid (S, T, N) uint8, the folded mask of gram_fold;
-// out (S, T, P+2, P+2), double for code 1 and float for code 2, zeroed;
+// (0 float, 1 double, 2 bf16); valid (S, T, N) uint8, the folded mask of
+// gram_fold; out (S, T, P+2, P+2), double for code 1 and float for codes 0
+// and 2, zeroed;
 // pairs the plan's npairs tile pairs (I, J), I <= J, of cols = 64 augmented
 // columns each, int32 on the device; group the specs a block sums (1 to 3).
 // Returns 0, a cudaError_t, or -1 for arguments the kernel does not take
@@ -3109,6 +3434,12 @@ extern "C" int gram_tiles(int dtype_code, const void* x, const void* y, const vo
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const unsigned char* v = static_cast<const unsigned char*>(valid);
   const int* pr = static_cast<const int*>(pairs);
+  if (dtype_code == 0)
+    return rw != nullptr
+               ? launch_tiles<float, true>(group, x, y, rw, v, center, out, t_len, n, p, s_specs,
+                                           pr, npairs, groups, s)
+               : launch_tiles<float, false>(group, x, y, rw, v, center, out, t_len, n, p,
+                                            s_specs, pr, npairs, groups, s);
   if (dtype_code == 1)
     return rw != nullptr
                ? launch_tiles<double, true>(group, x, y, rw, v, center, out, t_len, n, p,

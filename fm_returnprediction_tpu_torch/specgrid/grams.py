@@ -25,14 +25,11 @@ tensors lie:
   m16n8k8), bfloat16 operands to the tensor cores (``mma.sync`` with
   float32 sums, each spec's 0/1 weight a mask on the fragments, a row
   weight's product ``w·x̃`` split exactly into two bfloat16 parts). Past
-  ``GRAM_TILE_FROM`` columns float64 and bfloat16 operands go to the
-  tile-pair kernel (``gram_tile_plan``): one launch, a block a pair of
+  ``GRAM_TILE_FROM`` columns every operand type goes to the tile-pair
+  kernel (``gram_tile_plan``): one launch at any width, a block a pair of
   64-column tiles of the augmented block, a month and a group of specs,
   each tile staged from x itself, after a pre-pass kernel folds every
-  selected column's finiteness into the valid mask (``gram_fold_cuda``). A
-  float32 union wider than one launch's shared memory reaches is cut into
-  column panels (``gram_column_panels``): one launch a pair of panels on a
-  gathered copy of the pair's columns, after the same pre-pass;
+  selected column's finiteness into the valid mask (``gram_fold_cuda``);
 - CPU tensors take the plain version, a chunked masked einsum over firm
   slices (``contract_spec_grams_plain``).
 
@@ -71,12 +68,9 @@ from fm_returnprediction_tpu_torch.cuda_build import check_status, kernel_functi
 __all__ = [
     "SpecGramStats",
     "auto_firm_chunk",
-    "contract_panels",
     "shared_center",
     "contract_spec_grams",
     "contract_spec_grams_plain",
-    "GramPanelPlan",
-    "gram_column_panels",
     "GramTilePlan",
     "gram_contract_cuda",
     "gram_contract_plain",
@@ -84,10 +78,8 @@ __all__ = [
     "gram_fold_plain",
     "gram_launch_count",
     "gram_launch_fits",
-    "gram_panel_batch",
     "gram_spec_chunk",
     "gram_tile_plan",
-    "panel_pair_entries",
     "selection_words",
     "resolve_gram_factorize",
     "resolve_gram_precision",
@@ -105,23 +97,13 @@ GRAM_MAX_ENTRIES = 8192
 # kernels past 32 columns, takes: the whole batch of any real call
 GRAM_ONE_LAUNCH_SPECS = 65536
 
-# the widest x columns one panel of a cut float32 union holds: a pair of
-# panels is summed by the wide kernel at up to twice that width (narrower
-# pairs recompute the diagonal panels more often, wider ones leave the
-# kernel's block plans fewer tasks a block; the fastest of the widths timed
-# on an H100 at 920 columns, PERF.md)
-GRAM_PANEL_WIDTH = {torch.float32: 80}
 # the tile-pair kernel (csrc/gram.cu gram_tiles): augmented columns a tile,
 # the most specs one block sums, and the union width from which it takes a
 # call of each operand type (below it the one-launch kernels are faster;
 # timed on an H100 by k2_crossover.py, PERF.md)
 GRAM_TILE_COLS = 64
 GRAM_TILE_SPECS = 3
-GRAM_TILE_FROM = {torch.float64: 128, torch.bfloat16: 160}
-# the most bytes one launch of a cut union's pairs takes (their gathered
-# columns and blocks): as many pairs as fit over every month, else one
-# pair over chunks of months (gram_panel_batch)
-GRAM_PANEL_BYTES = 4 * 2**30
+GRAM_TILE_FROM = {torch.float32: 160, torch.float64: 128, torch.bfloat16: 160}
 # shared memory one block of the kernels may take (csrc/gram.cu kSmemMax)
 _SMEM_MAX = 227 * 1024
 
@@ -302,11 +284,12 @@ def gram_launch_fits(p: int, dtype: Optional[torch.dtype] = None, specs: int = 1
     for ``specs`` specs of operands ``dtype`` (``None``: float32), with or
     without row weights: always on the tile route (``gram_tile_plan``) and
     up to 32 columns; else whether the wide kernel's smallest block, a
-    16-firm tile, fits in the 227 KB of shared memory a block may have. The
-    float32 reach: 848 columns at two specs or more (850 at one; 847 with
-    row weights). Below ``GRAM_TILE_FROM`` float64 and bfloat16 unions are
-    always within their kernels' reach (424 and 1,367 columns; 423 and 622
-    with row weights)."""
+    16-firm tile, fits in the 227 KB of shared memory a block may have
+    (the one-launch kernels' reach: 848 float32 columns at two specs or
+    more, 850 at one, 847 with row weights; 424 float64 columns, 423 with
+    row weights; 1,367 with bfloat16 operands, 622 with row weights).
+    Below ``GRAM_TILE_FROM`` every union is within that reach, so every
+    call is one launch."""
     dtype = torch.float32 if dtype is None else dtype
     if p <= 32 or gram_tile_plan(p, dtype, specs) is not None:
         return True
@@ -337,13 +320,12 @@ class GramTilePlan(NamedTuple):
 def gram_tile_plan(p: int, dtype: Optional[torch.dtype] = None,
                    specs: int = 1) -> Optional[GramTilePlan]:
     """The tile-pair kernel's plan for a ``p``-column union of ``specs``
-    specs of operands ``dtype`` (``None``: float32), or None where the call
-    takes another route: float32 at any width, and float64 and bfloat16
-    below ``GRAM_TILE_FROM``. With or without row weights the plan is the
-    same. The specs are dealt into the fewest groups of at most
-    ``GRAM_TILE_SPECS``, near equal."""
+    specs of operands ``dtype`` (``None``: float32), or None below
+    ``GRAM_TILE_FROM[dtype]``, where the call takes a one-launch kernel.
+    With or without row weights the plan is the same. The specs are dealt
+    into the fewest groups of at most ``GRAM_TILE_SPECS``, near equal."""
     dtype = torch.float32 if dtype is None else dtype
-    if dtype not in GRAM_TILE_FROM or p < GRAM_TILE_FROM[dtype]:
+    if p < GRAM_TILE_FROM[dtype]:
         return None
     tiles = -(-(p + 2) // GRAM_TILE_COLS)
     pairs = tuple((i, j) for i in range(tiles) for j in range(i, tiles))
@@ -351,107 +333,17 @@ def gram_tile_plan(p: int, dtype: Optional[torch.dtype] = None,
     return GramTilePlan(p, GRAM_TILE_COLS, tiles, pairs, -(-specs // groups), groups)
 
 
-class GramPanelPlan(NamedTuple):
-    """The column panels of a union too wide for one launch.
-
-    ``panels`` are consecutive ranges ``(a, b)`` of the x columns, each at
-    most ``slot`` wide; every pair ``(I, J)``, ``I < J``, is summed on the
-    columns ``[1 | x_I − c_I | x_J − c_J | y]``, each panel in a slot of
-    ``slot`` columns (a narrower panel padded with zero columns that no
-    spec selects). A pair keeps the (I, J) rectangle of its block and the
-    mirror; the diagonal block of panel K (with the intercept and y
-    entries of K's columns) comes from pair ``diag_owner[K]``, and the
-    intercept and y corner from the first pair."""
-
-    p: int
-    slot: int                 # columns of a panel's slot: every panel's width at most
-    panels: tuple             # ((a, b), ...): x columns a .. b - 1
-    pairs: tuple              # ((I, J), ...) in order, I < J
-    diag_owner: tuple         # for each panel, the pair that writes its block
-
-
-def gram_column_panels(p: int, dtype: Optional[torch.dtype] = None, specs: int = 1,
-                       weighted: bool = False) -> Optional[GramPanelPlan]:
-    """The column panels ``gram_contract_cuda`` cuts a ``p``-column union
-    into, or None where one launch takes it (``gram_launch_fits``; only a
-    float32 union is ever cut): K = ⌈p / width⌉ panels of ⌈p / K⌉ columns
-    (the last maybe fewer), width = ``GRAM_PANEL_WIDTH[dtype]``, every pair
-    of them summed at once. A pair holds at most twice that many columns,
-    which one launch takes at any spec count and with row weights."""
-    dtype = torch.float32 if dtype is None else dtype
-    if gram_launch_fits(p, dtype, specs, weighted):
-        return None
-    slot = -(-p // -(-p // GRAM_PANEL_WIDTH[dtype]))
-    panels = tuple((a, min(a + slot, p)) for a in range(0, p, slot))
-    k = len(panels)
-    pairs = tuple((i, j) for i in range(k) for j in range(i + 1, k))
-    diag = tuple(pairs.index((0, max(i, 1))) for i in range(k))
-    return GramPanelPlan(p, slot, panels, pairs, diag)
-
-
-def panel_pair_entries(plan: GramPanelPlan, k: int):
-    """The entries pair ``k`` of ``plan`` writes: flat indices into its
-    (QE', QE') block, QE' = 2 slot + 2, and the flat indices of the same
-    entries in the full (P + 2, P + 2) block (numpy int64, one to one).
-    Over every pair of the plan the full block's entries are each written
-    exactly once."""
-    i, j = plan.pairs[k]
-    (ai, bi), (aj, bj) = plan.panels[i], plan.panels[j]
-    qv = 2 * plan.slot + 2
-    # each column's place in the full block and its class: 0 the intercept
-    # or y, 1 panel I, 2 panel J, -1 a slot's padding
-    glob = np.full(qv, -1)
-    cls = np.full(qv, -1)
-    glob[[0, -1]], cls[[0, -1]] = (0, plan.p + 1), 0
-    glob[1:1 + bi - ai], cls[1:1 + bi - ai] = 1 + np.arange(ai, bi), 1
-    at = 1 + plan.slot
-    glob[at:at + bj - aj], cls[at:at + bj - aj] = 1 + np.arange(aj, bj), 2
-    u, v = cls[:, None], cls[None, :]
-    keep = u * v == 2                                     # the (I, J) rectangle, mirrored
-    for c, panel in ((1, i), (2, j)):
-        if plan.diag_owner[panel] == k:                   # the panel's block and its edges
-            keep |= np.isin(u, (0, c)) & np.isin(v, (0, c)) & ((u == c) | (v == c))
-    if k == 0:
-        keep |= (u == 0) & (v == 0)
-    rows, cols = np.nonzero(keep)
-    return rows * qv + cols, glob[rows] * (plan.p + 2) + glob[cols]
-
-
-def gram_panel_batch(t: int, n: int, specs: int, plan: GramPanelPlan, itemsize: int,
-                     out_itemsize: int) -> tuple:
-    """(pairs, months) one launch of the panel route takes: the pairs'
-    gathered columns and blocks within ``GRAM_PANEL_BYTES`` at ``n`` firms
-    and ``specs`` specs. Every month, and as many pairs as fit (in
-    launches of near-equal pair counts), stacked along the month axis so
-    that a launch has blocks enough for the card; past the budget one pair
-    a launch over chunks of months (at least one)."""
-    width = 2 * plan.slot
-    per_month = n * width * itemsize + specs * (width + 2) ** 2 * out_itemsize
-    if t * per_month > GRAM_PANEL_BYTES:
-        return 1, max(1, GRAM_PANEL_BYTES // per_month)
-    most = max(1, min(len(plan.pairs), GRAM_PANEL_BYTES // (t * per_month)))
-    launches = -(-len(plan.pairs) // most)
-    return -(-len(plan.pairs) // launches), t
-
-
-def gram_launch_count(t: int, n: int, p: int, specs: int,
-                      dtype: Optional[torch.dtype] = None, weighted: bool = False) -> int:
-    """The Gram kernel launches one ``gram_contract_cuda`` call makes: one
-    on the tile route (``gram_tile_plan``); else spec chunks of
-    ``gram_spec_chunk``; for a union cut into panels, that for every launch
-    of pairs and chunk of months (``gram_panel_batch``). The pre-pass
-    (``gram_fold_cuda``: once a call on the tile and panel routes) counts
+def gram_launch_count(p: int, specs: int, dtype: Optional[torch.dtype] = None) -> int:
+    """The Gram kernel launches one ``gram_contract_cuda`` call makes at
+    ``p`` columns and ``specs`` specs of operands ``dtype`` (``None``:
+    float32), with or without row weights: one on the tile route
+    (``gram_tile_plan``), else one a chunk of ``gram_spec_chunk`` specs.
+    The pre-pass (``gram_fold_cuda``: once a call on the tile route) counts
     apart."""
     dtype = torch.float32 if dtype is None else dtype
     if gram_tile_plan(p, dtype, specs) is not None:
         return 1
-    plan = gram_column_panels(p, dtype, specs, weighted)
-    if plan is None:
-        return -(-specs // gram_spec_chunk(p, dtype=dtype))
-    itemsize = torch.empty((), dtype=dtype).element_size()
-    per, months = gram_panel_batch(t, n, specs, plan, itemsize, 8 if itemsize == 8 else 4)
-    return (-(-len(plan.pairs) // per) * -(-t // months)
-            * -(-specs // gram_spec_chunk(2 * plan.slot, dtype=dtype)))
+    return -(-specs // gram_spec_chunk(p, dtype=dtype))
 
 
 def gram_fold_plain(y: torch.Tensor, x: torch.Tensor, valid: torch.Tensor,
@@ -468,9 +360,8 @@ def gram_fold_cuda(y: torch.Tensor, x: torch.Tensor, valid: torch.Tensor,
     """Launch the pre-pass kernel (``csrc/gram.cu::gram_fold``) on CUDA
     tensors as ``gram_contract_cuda`` takes them: the (S, T, N) uint8 valid
     mask with finite(y) and the finiteness of each spec's selected columns
-    folded in, which the tile-pair kernel and the launches of a union cut
-    into panels read (each block or launch sees only two tiles' or panels'
-    columns)."""
+    folded in, which the tile-pair kernel reads (each of its blocks sees
+    only two tiles' columns)."""
     t, n, p = x.shape
     s = col_sel.shape[0]
     out = torch.empty((s, t, n), dtype=torch.uint8, device=x.device)
@@ -517,49 +408,6 @@ def gram_contract_plain(y: torch.Tensor, x: torch.Tensor, valid: torch.Tensor,
     return out
 
 
-def contract_panels(y, x, valid, col_sel, center, row_weights, plan: GramPanelPlan,
-                    contract, fold, out: torch.Tensor) -> torch.Tensor:
-    """The panel route into ``out`` (S, T, P+2, P+2): ``fold`` (the
-    pre-pass) once, then ``contract`` (one launch of the kernel) on the
-    pairs of ``plan`` as ``gram_panel_batch`` groups them: a gathered copy
-    of each pair's x and center columns in its slots, the pairs stacked
-    along the month axis with y, the folded mask and the row weights
-    repeated, no column selected (the folded mask holds every selection);
-    the entries ``panel_pair_entries`` names are copied from each pair's
-    blocks into ``out``. The arguments are those of
-    ``gram_contract_cuda``."""
-    t, n, p = x.shape
-    s = col_sel.shape[0]
-    valid = fold(y, x, valid, col_sel)
-    flat = out.view(s, t, (p + 2) ** 2)
-    per, months = gram_panel_batch(t, n, s, plan, x.element_size(), out.element_size())
-    slot, width = plan.slot, 2 * plan.slot
-    none = torch.zeros((s, width), dtype=torch.bool, device=x.device)
-    for t0 in range(0, t, months):
-        t1 = min(t0 + months, t)
-        tc = t1 - t0
-        for k0 in range(0, len(plan.pairs), per):
-            batch = range(k0, min(k0 + per, len(plan.pairs)))
-            xs = torch.empty((len(batch), tc, n, width), dtype=x.dtype, device=x.device)
-            cs = torch.zeros((len(batch), tc, width), dtype=center.dtype, device=x.device)
-            for b, k in enumerate(batch):
-                for at, (a0, a1) in zip((0, slot), (plan.panels[i] for i in plan.pairs[k])):
-                    xs[b, :, :, at:at + a1 - a0] = x[t0:t1, :, a0:a1]
-                    xs[b, :, :, at + a1 - a0:at + slot] = 0
-                    cs[b, :, at:at + a1 - a0] = center[t0:t1, a0:a1]
-            rw = None if row_weights is None else row_weights[t0:t1].repeat(len(batch), 1)
-            block = contract(y[t0:t1].repeat(len(batch), 1), xs.view(-1, n, width),
-                             valid[:, t0:t1].repeat(1, len(batch), 1), none,
-                             cs.view(-1, width), rw)
-            del xs
-            block = block.view(s, len(batch), tc, -1)
-            for b, k in enumerate(batch):
-                virt, glob = (torch.from_numpy(a).to(x.device) for a in panel_pair_entries(plan, k))
-                flat[:, t0:t1].index_copy_(2, glob, block[:, b][:, :, virt])
-            del block
-    return out
-
-
 def gram_contract_cuda(y: torch.Tensor, x: torch.Tensor, valid: torch.Tensor,
                        col_sel: torch.Tensor, center: torch.Tensor,
                        row_weights: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -576,13 +424,10 @@ def gram_contract_cuda(y: torch.Tensor, x: torch.Tensor, valid: torch.Tensor,
     P, dtype): float32 and bfloat16 up to 32 columns at 8192 block entries,
     float64, and every dtype past 32 columns, in one launch. The spec's
     columns go to the kernel as ⌈P/32⌉ words of bits (``selection_words``).
-    Any P: float64 and bfloat16 from ``GRAM_TILE_FROM`` columns take the
-    pre-pass and one launch of the tile-pair kernel (``gram_tile_plan``); a
-    float32 union wider than one launch's shared memory reaches
-    (``gram_launch_fits``: 848 columns) is cut into column panels
-    (``gram_column_panels``, ``contract_panels``), the pre-pass launched
-    once and the kernel once a pair of panels and chunk of months
-    (``gram_launch_count``). Raises on anything the kernel does not take."""
+    Any P: from ``GRAM_TILE_FROM[x.dtype]`` columns the call takes the
+    pre-pass and one launch of the tile-pair kernel (``gram_tile_plan``),
+    with or without row weights. Raises on anything the kernel does not
+    take."""
     tensors = {"y": y, "x": x, "valid": valid, "col_sel": col_sel,
                "center": center}
     if row_weights is not None:
@@ -612,17 +457,7 @@ def gram_contract_cuda(y: torch.Tensor, x: torch.Tensor, valid: torch.Tensor,
     tiles = gram_tile_plan(p, x.dtype, s)
     if tiles is not None:
         return _launch_tiles(y, x, valid, col_sel, center, row_weights, out, tiles, key)
-    plan = gram_column_panels(p, x.dtype, s, row_weights is not None)
-    if plan is None:
-        return _launch_contract(y, x, valid, col_sel, center, row_weights, out, key)
-
-    def contract(y_, x_, valid_, sel_, center_, rw_):
-        block = torch.zeros((s, x_.shape[0], x_.shape[2] + 2, x_.shape[2] + 2),
-                            dtype=out_dtype, device=x.device)
-        return _launch_contract(y_, x_, valid_, sel_, center_, rw_, block, key)
-
-    return contract_panels(y, x, valid, col_sel, center, row_weights, plan, contract,
-                           gram_fold_cuda, out)
+    return _launch_contract(y, x, valid, col_sel, center, row_weights, out, key)
 
 
 def _launch_contract(y, x, valid, col_sel, center, row_weights, out, key: str):

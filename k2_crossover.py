@@ -1,18 +1,20 @@
 #!/usr/bin/env python3
 """Time K2's tile-pair kernel against the one-launch kernels on one GPU, to
-place the width from which float64 and bfloat16 unions take the tile route
+place the width from which each operand type's unions take the tile route
 (``specgrid.grams.GRAM_TILE_FROM``).
 
     python3 k2_crossover.py [--reps 5] [--seed N] [--specs 3,9]
+                            [--dtypes float32,float64,bfloat16]
 
 At T = 60 months and N = 22,000 firms, for each operand type, union width P
 and spec count S (specs select the first 3 columns, the first half and
 every column in turn, over three universes, as ``chip_smoke.gram_inputs``
 makes them), the same inputs go through ``gram_contract_cuda`` twice: with
 ``GRAM_TILE_FROM`` set so that the call takes the tile route (the pre-pass
-and one launch of ``gram_tc_tiles_kernel`` / ``gram_dmma_tiles_kernel``),
-and so that it takes the one-launch kernel (``gram_dmma_kernel``,
-``gram_tc_wide_kernel``) where one launch reaches that width. Each is timed
+and one launch of ``gram_f32_tiles_kernel`` / ``gram_dmma_tiles_kernel`` /
+``gram_tc_tiles_kernel``), and so that it takes the one-launch kernel
+(``gram_f32_wide_kernel``, ``gram_dmma_kernel``, ``gram_tc_wide_kernel``)
+where one launch reaches that width. Each is timed
 with CUDA events, the median of ``--reps`` runs after a warm-up, in the
 order tile, one launch, one launch, tile (the two medians of each route
 averaged), and the two routes' blocks are compared (the largest difference
@@ -34,7 +36,8 @@ from fm_returnprediction_tpu_torch.cuda_build import build_kernels
 from fm_returnprediction_tpu_torch.specgrid import grams
 
 T, N = 60, 22000
-WIDTHS = {torch.float64: (64, 100, 128, 160, 200, 300, 424, 920),
+WIDTHS = {torch.float32: (101, 128, 160, 200, 256, 300, 424, 512, 640, 848),
+          torch.float64: (64, 100, 128, 160, 200, 300, 424, 920),
           torch.bfloat16: (64, 100, 128, 160, 256, 512, 920)}
 NEVER = 10**9
 
@@ -83,7 +86,9 @@ def main(argv=None) -> int:
     parser.add_argument("--reps", type=int, default=5)
     parser.add_argument("--seed", type=int, default=20140131)
     parser.add_argument("--specs", default="3,9")
+    parser.add_argument("--dtypes", default="float32,float64,bfloat16")
     args = parser.parse_args(argv)
+    dtypes = [getattr(torch, name) for name in args.dtypes.split(",")]
     if not torch.cuda.is_available():
         print("k2_crossover: no CUDA device is available", file=sys.stderr)
         return 2
@@ -94,8 +99,8 @@ def main(argv=None) -> int:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(args.seed)
     readings = []
-    for dtype, widths in WIDTHS.items():
-        for p in widths:
+    for dtype in dtypes:
+        for p in WIDTHS[dtype]:
             for s in (int(v) for v in args.specs.split(",")):
                 y, x, valid, col_sel, center = inputs(p, s, dtype, gen)
 

@@ -536,10 +536,8 @@ PANEL_CASES = [(dtype, p, kind) for dtype, p, kinds in (
 def test_gram_kernel_on_each_side_of_one_launch(cuda, dtype, p, kind, s):
     """Unions up to and past the widest one launch of the wide kernels takes
     (424 float64 columns, 848 float32, 1,367 bfloat16; fewer with row
-    weights): float32 one launch where it fits, else the pre-pass and one
-    launch a pair of column panels (``gram_column_panels``,
-    ``gram_launch_count``); float64 and bfloat16 the pre-pass and one launch
-    of the tile-pair kernel (``gram_tile_plan``) on each side. Held to the
+    weights): every operand type the pre-pass and one launch of the
+    tile-pair kernel (``gram_tile_plan``) on each side. Held to the
     plain version at 1e-12 of each block's max in float64 and 1e-5 in
     float32, bfloat16 at 1e-5 of the float64 sums of the same terms (the
     plain version within 1e-5 plus its own error of them); counts exact
@@ -551,18 +549,15 @@ def test_gram_kernel_on_each_side_of_one_launch(cuda, dtype, p, kind, s):
     if dtype == torch.bfloat16:
         y, x, center = (a.to(dtype) for a in (y, x, center))
         rw = None if rw is None else rw.to(dtype)
-    plan = grams.gram_column_panels(p, dtype, s, rw is not None)
-    assert (plan is None) == grams.gram_launch_fits(p, dtype, s, rw is not None)
+    assert grams.gram_launch_fits(p, dtype, s, rw is not None)
     tiles = grams.gram_tile_plan(p, dtype, s)
-    assert (tiles is not None) == (dtype != torch.float32)
+    assert tiles is not None
     window = torch.ones((s, t), dtype=torch.bool, device=cuda)
     before = grams.gram_contract_cuda.launches, grams.gram_fold_cuda.launches
     out = grams.gram_contract_cuda(y, x, valid, col_sel, center, rw)
     launches = (grams.gram_contract_cuda.launches - before[0],
                 grams.gram_fold_cuda.launches - before[1])
-    assert launches == (grams.gram_launch_count(t, n, p, s, dtype, rw is not None),
-                        0 if plan is None and tiles is None else 1)
-    assert launches[0] == 1 or 1 < launches[0] <= len(plan.pairs)
+    assert launches == (grams.gram_launch_count(p, s, dtype), 1) == (1, 1)
     got = grams.split_stats(out, p)
     want = grams.contract_spec_grams_plain(y, x, uni, col_sel, window, center,
                                            row_weights=rw)
@@ -585,26 +580,30 @@ def test_gram_kernel_on_each_side_of_one_launch(cuda, dtype, p, kind, s):
 
 # each side of the crossover, the old reach of the one-launch float64
 # kernel, the 920-column union, unaligned rows (921 and 1,001 columns: no
-# 16-byte row stride in either type) and a wide union
+# 16-byte row stride in either type) and a wide union; float32 also each
+# side of its one-launch kernel's reach (848 columns)
 TILE_WIDTHS = sorted({w for dtype, start in grams.GRAM_TILE_FROM.items()
                       for w in (start - 1, start)} | {425, 920, 921, 1001, 2000})
+F32_FROM = grams.GRAM_TILE_FROM[torch.float32]
+F32_TILE_WIDTHS = (F32_FROM - 1, F32_FROM, 425, 848, 849, 920, 921, 1001, 2000)
+# float32's one-spec groups (S = 1, and the last group of S = 7: 3, 3, 1)
+# run in a child process under a time limit (test_gram_f32_tile_one_spec_groups)
 TILE_CASES = ([(dtype, p, s) for dtype in (torch.float64, torch.bfloat16) for p in TILE_WIDTHS
                for s in (1, 3, 9)]
               + [(dtype, p, 61) for dtype in (torch.float64, torch.bfloat16)
-                 for p in (grams.GRAM_TILE_FROM[dtype], 425)])
+                 for p in (grams.GRAM_TILE_FROM[dtype], 425)]
+              + [(torch.float32, p, s) for p in F32_TILE_WIDTHS for s in (3, 4, 9)]
+              + [(torch.float32, p, 61) for p in (F32_FROM, 920)])
 
 
-@pytest.mark.parametrize("weights", [None, "binary", "real"])
-@pytest.mark.parametrize("dtype, p, s", TILE_CASES)
-def test_gram_tile_pair_kernel(cuda, dtype, p, s, weights):
-    """The tile-pair kernel (``gram_tc_tiles_kernel``,
-    ``gram_dmma_tiles_kernel``) against the plain version: float64 at 1e-12
-    of each block's max-abs entry, bfloat16 at 1e-5 of the float64 sums of
-    the same bf16 terms (the float32 plain version within 1e-5 plus its own
-    error of them); counts exact under 0/1 weights, each block symmetric, a
-    repeated call bit-identical; the pre-pass and one launch from the
-    crossover, one launch of the one-launch kernel below it. N = 1,001:
-    a ragged chunk of firms and a ragged MMA step."""
+def check_tile_case(cuda, dtype, p, s, weights):
+    """One tile-pair case against the plain version: float64 at 1e-12 of
+    each block's max-abs entry, float32 at 1e-5, bfloat16 at 1e-5 of the
+    float64 sums of the same bf16 terms (the float32 plain version within
+    1e-5 plus its own error of them); counts exact under 0/1 weights, each
+    block symmetric, a repeated call bit-identical; the pre-pass and one
+    launch from the crossover, one launch of the one-launch kernel below
+    it. T = 3, N = 1,001: a ragged chunk of firms and a ragged MMA step."""
     t, n = 3, 1001
     src = torch.float32 if dtype == torch.bfloat16 else dtype
     y, x, uni, valid, col_sel, center, rw = _gram_case(cuda, src, t, n, p, s, weights)
@@ -634,10 +633,55 @@ def test_gram_tile_pair_kernel(cuda, dtype, p, s, weights):
         if weights != "real":
             assert torch.equal(got[2], want[2])
     else:
-        assert out.dtype == torch.float64
-        _held_to_plain(got, want, 1e-12, counts_exact=weights != "real")
+        assert out.dtype == dtype
+        _held_to_plain(got, want, 1e-12 if dtype == torch.float64 else 1e-5,
+                       counts_exact=weights != "real")
     assert torch.equal(out, out.transpose(-1, -2))
     assert torch.equal(out, grams.gram_contract_cuda(y, x, valid, col_sel, center, rw))
+
+
+@pytest.mark.parametrize("weights", [None, "binary", "real"])
+@pytest.mark.parametrize("dtype, p, s", TILE_CASES)
+def test_gram_tile_pair_kernel(cuda, dtype, p, s, weights):
+    """The tile-pair kernel (``gram_f32_tiles_kernel``,
+    ``gram_dmma_tiles_kernel``, ``gram_tc_tiles_kernel``) as
+    ``check_tile_case`` holds it."""
+    check_tile_case(cuda, dtype, p, s, weights)
+
+
+F32_ONE_SPEC_CHILD = """
+import sys
+import torch
+sys.path.insert(0, {tests!r})
+import test_torch_cuda_kernels as k
+for p in {widths!r}:
+    for s in (1, 7):
+        for weights in (None, "binary", "real"):
+            k.check_tile_case(torch.device("cuda"), torch.float32, p, s, weights)
+            print("finished", p, s, weights, flush=True)
+"""
+
+
+def test_gram_f32_tile_one_spec_groups(cuda):
+    """float32's one-spec groups on the tile-pair kernel (S = 1 on the
+    one-spec instance; S = 7, whose last group holds one spec, on the
+    three-spec one), held as ``check_tile_case`` holds them, in a child
+    process under a time limit: a block that never finishes fails this test
+    instead of stalling the run."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    tests = Path(__file__).resolve().parent
+    widths = (F32_FROM, 920, 921, 2000)
+    code = F32_ONE_SPEC_CHILD.format(tests=str(tests), widths=widths)
+    try:
+        proc = subprocess.run([sys.executable, "-c", code], cwd=tests.parent, timeout=900,
+                              capture_output=True, text=True)
+    except subprocess.TimeoutExpired as exc:
+        pytest.fail(f"float32 one-spec tile cases did not finish in 900 s: {exc.stdout!r}")
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-4000:]
+    assert proc.stdout.count("finished") == len(widths) * 2 * 3
 
 
 def _worst_to_block(a, b) -> float:

@@ -20,16 +20,13 @@ holds the CPU's view of that branch:
   from it against the JAX functions at float64, at the card-vs-CPU pins
   of ``PERF.md`` §3: 1e-8 of ``max(|b|, 1)``, NaN patterns and counts
   equal; and on a 430-column union, past one float64 launch's reach;
-- the column panels a float32 union past one launch's reach is cut into
-  (``gram_column_panels``): no cut at or below the reach (848 columns at 9
-  specs, 847 with row weights), every entry of the block written by
-  exactly one pair, each pair within one launch; no cut at any width for
-  float64 and bfloat16 operands, which take one launch of the tile-pair
-  kernel from ``GRAM_TILE_FROM`` (``tests/test_torch_gram_tiles.py``) and
-  are within their one-launch kernels' reach below it; and the panel
-  route itself (``contract_panels``: the pre-pass, the gathered pairs,
-  the month chunks, the copies) run with the plain versions in the
-  kernel's place against the whole plain contraction.
+- one launch's reach of each operand type's one-launch kernel
+  (``gram_launch_fits``: 848 float32 columns at 9 specs, 847 with row
+  weights, 850 at one spec; 424 float64, 1,367 bfloat16), and that every
+  type's tile route (``GRAM_TILE_FROM``, ``tests/test_torch_gram_tiles.py``)
+  starts within it: every width is one launch of some kernel;
+- the pre-pass's plain version (``gram_fold_plain``) against a numpy
+  reading of the kernel's validity.
 """
 
 import jax.numpy as jnp
@@ -49,6 +46,7 @@ from fm_returnprediction_tpu_torch.specgrid.estimators import (
 )
 from fm_returnprediction_tpu_torch.specgrid.solve import run_spec_grid
 from fm_returnprediction_tpu_torch.specgrid.specs import Spec, SpecGrid
+from torch_threads import one_thread  # noqa: F401 (a fixture)
 
 pytestmark = pytest.mark.torch_port
 
@@ -251,90 +249,59 @@ def test_wide_fwl_cell_with_20_controls_matches_jax():
     assert np.isfinite(got["reference"].coef[:, :3]).all()
 
 
-# one launch's reach at 9 specs of the wide kernels (csrc/gram.cu): (dtype,
-# row weights) -> the widest union; float64 and bfloat16 take the tile-pair
-# kernel before it
+# one launch's reach at 9 specs of the one-launch kernels (csrc/gram.cu):
+# (dtype, row weights) -> the widest union; every operand type takes the
+# tile-pair kernel before it
 OLD_REACH = {(torch.float64, False): 424, (torch.float64, True): 423,
              (torch.float32, False): 848, (torch.float32, True): 847,
              (torch.bfloat16, False): 1367, (torch.bfloat16, True): 622}
 
 
-def _covered_once(plan) -> None:
-    """Every entry of the (P+2, P+2) block written by exactly one pair,
-    each pair's entries one to one with its launch's block."""
-    q = plan.p + 2
-    count = np.zeros(q * q, np.int64)
-    for k, (i, j) in enumerate(plan.pairs):
-        virt, glob = grams.panel_pair_entries(plan, k)
-        width = 2 * plan.slot + 2
-        assert virt.shape == glob.shape and len(np.unique(virt)) == len(virt)
-        assert virt.min() >= 0 and virt.max() < width * width
-        count[glob] += 1
-    np.testing.assert_array_equal(count, 1)
+@pytest.fixture
+def one_launch_only(monkeypatch):
+    """No call takes the tile route: ``gram_launch_fits`` then says what the
+    one-launch kernels alone reach."""
+    for dtype in list(grams.GRAM_TILE_FROM):
+        monkeypatch.setitem(grams.GRAM_TILE_FROM, dtype, 10**9)
 
 
-@pytest.mark.parametrize("weighted", [False, True])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.bfloat16])
-@pytest.mark.parametrize("p", [33, 424, 425, 848, 849, 920, 2000])
-def test_column_panels_cover_the_block_once(p, dtype, weighted):
-    """float32: no cut at or below one launch's reach; past it, consecutive
-    panels of at most ``GRAM_PANEL_WIDTH[dtype]`` columns, every pair of
-    them one launch that fits, and every entry of the block (upper triangle
-    and mirror) written once. float64 and bfloat16: no cut at any width,
-    one launch (the tile-pair kernel from ``GRAM_TILE_FROM``, which is
-    within the one-launch kernel's reach)."""
-    plan = grams.gram_column_panels(p, dtype, 9, weighted)
+@pytest.mark.parametrize("dtype, weighted", list(OLD_REACH))
+def test_one_launch_reach_of_each_operand_type(dtype, weighted, one_launch_only):
+    """The one-launch kernels' reach at 9 specs, as ``gram_launch_fits``
+    replicates their smallest shared-memory layout: one launch at the
+    reach, none a column past it; the tile route (the real crossover)
+    starts within the reach, so every width is one launch of some kernel."""
     reach = OLD_REACH[(dtype, weighted)]
     assert grams.gram_launch_fits(reach, dtype, 9, weighted)
-    if dtype != torch.float32:
-        assert plan is None and grams.gram_launch_fits(p, dtype, 9, weighted)
-        assert grams.gram_launch_count(12, 1001, p, 9, dtype, weighted) == 1
-        tiles = grams.gram_tile_plan(p, dtype, 9)
-        assert (tiles is not None) == (p >= grams.GRAM_TILE_FROM[dtype])
-        assert grams.GRAM_TILE_FROM[dtype] <= reach
-        return
     assert not grams.gram_launch_fits(reach + 1, dtype, 9, weighted)
-    if p <= reach:
-        assert plan is None
-        assert grams.gram_launch_count(12, 1001, p, 9, dtype, weighted) == 1
-        return
-    assert plan is not None and plan.p == p
-    width = grams.GRAM_PANEL_WIDTH[dtype]
-    assert plan.slot <= width
-    assert plan.panels[0][0] == 0 and plan.panels[-1][1] == p
-    assert all(a < b <= a + plan.slot for a, b in plan.panels)
-    assert all(b == a2 for (_, b), (a2, _) in zip(plan.panels, plan.panels[1:]))
-    k = len(plan.panels)
-    assert plan.pairs == tuple((i, j) for i in range(k) for j in range(i + 1, k))
-    # a pair's launch: two slots, at any spec count
-    assert 32 < 2 * plan.slot <= 2 * width
-    assert grams.gram_launch_fits(2 * plan.slot, dtype, 1, weighted)
-    assert grams.gram_launch_fits(2 * plan.slot, dtype, 9, weighted)
-    _covered_once(plan)
-    itemsize = torch.empty((), dtype=dtype).element_size()
-    per, months = grams.gram_panel_batch(12, 1001, 9, plan, itemsize, max(itemsize, 4))
-    assert months == 12 and per >= 1
-    assert grams.gram_launch_count(12, 1001, p, 9, dtype, weighted) == -(-len(plan.pairs) // per)
+    assert grams.gram_tile_plan(reach + 1, dtype, 9) is None
+
+
+def test_tile_route_starts_within_the_reach():
+    """Every crossover is within its one-launch kernel's reach."""
+    for (dtype, weighted), reach in OLD_REACH.items():
+        assert 101 <= grams.GRAM_TILE_FROM[dtype] <= reach + 1
+        for p in (reach, reach + 1, 4000):
+            assert grams.gram_launch_fits(p, dtype, 9, weighted)
+            assert grams.gram_tile_plan(p, dtype, 9) is not None
 
 
 @pytest.mark.parametrize("weighted", [False, True])
 @pytest.mark.parametrize("specs, reach", [(1, 850), (2, 848), (61, 848)])
-def test_float32_reach_follows_the_spec_count(specs, reach, weighted):
+def test_float32_reach_follows_the_spec_count(specs, reach, weighted, one_launch_only):
     """float32's smallest block holds the two specs a task of 32 tiles can
     touch, so one spec reaches two columns further (one less with row
-    weights); the plan cuts exactly past that."""
+    weights); one launch takes the reach and not a column past it."""
     reach -= weighted
-    assert grams.gram_column_panels(reach, torch.float32, specs, weighted) is None
-    plan = grams.gram_column_panels(reach + 1, torch.float32, specs, weighted)
-    assert plan is not None
-    _covered_once(plan)
+    assert grams.gram_launch_fits(reach, torch.float32, specs, weighted)
+    assert not grams.gram_launch_fits(reach + 1, torch.float32, specs, weighted)
 
 
-def _panel_inputs(t, n, p, s, dtype, weighted, seed):
+def _wide_inputs(t, n, p, s, dtype, weighted, seed):
     rng = np.random.default_rng(seed)
     x = rng.standard_normal((t, n, p)) * 2.0
     x[rng.random(x.shape) < 0.002] = np.nan
-    x[:, 5, p - 1] = np.inf                      # a non-finite entry in the last panel
+    x[:, 5, p - 1] = np.inf                      # a non-finite entry in the last column
     x[:, 9, 0] = np.nan                          # and in the first
     y = rng.standard_normal((t, n))
     y[rng.random(y.shape) < 0.05] = np.nan
@@ -353,83 +320,11 @@ def _panel_inputs(t, n, p, s, dtype, weighted, seed):
             grams.shared_center(x_t), None if rw is None else to(rw))
 
 
-@pytest.fixture
-def one_thread():
-    """torch (and the MKL/OpenMP runtime it shares with the LAPACK calls
-    of this process) on one thread for the test: eight threads a test
-    process beside other test processes made the 430-column solves of both
-    packages, and the panel route's many small contractions, spin many
-    times longer."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
-
-
-@pytest.fixture
-def narrow_panels(monkeypatch):
-    """Cut unions past 40 columns into panels of at most 20 (one launch's
-    reach and the panel width at small sizes, so that the panel route runs
-    on a 70-column union: 4 panels of 18, 6 pairs of 36 columns)."""
-    monkeypatch.setattr(grams, "gram_launch_fits", lambda p, *args, **kw: p <= 40)
-    monkeypatch.setitem(grams.GRAM_PANEL_WIDTH, torch.float64, 20)
-    monkeypatch.setitem(grams.GRAM_PANEL_WIDTH, torch.float32, 20)
-
-
-@pytest.mark.parametrize("launches", ["one", "pairs of pairs", "months"])
-@pytest.mark.parametrize("weighted", [False, True])
-@pytest.mark.parametrize("dtype, rtol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
-def test_panel_route_matches_the_whole_contraction(dtype, rtol, weighted, launches,
-                                                   narrow_panels, one_thread, monkeypatch):
-    """The panel route with the plain versions in the kernels' place (the
-    pre-pass and one contraction a launch) against the plain contraction of
-    the whole 70-column union (``narrow_panels``): each (spec, month) block
-    within ``rtol`` of its largest entry, counts exact under 0/1 weights,
-    symmetric, one contraction a launch (``gram_launch_count``). The
-    gathered copy's budget sets the launches: every pair in one ("one"),
-    three pairs a launch, or one pair a launch over chunks of two months."""
-    t, n, p, s = 5, 160, 70, 4
-    y, x, valid, col_sel, center, rw = _panel_inputs(t, n, p, s, dtype, weighted, seed=3)
-    plan = grams.gram_column_panels(p, dtype, s, weighted)
-    assert (len(plan.panels), len(plan.pairs), plan.slot) == (4, 6, 18)
-    width = 2 * plan.slot
-    per_month = n * width * x.element_size() + s * (width + 2) ** 2 * x.element_size()
-    budget = {"one": grams.GRAM_PANEL_BYTES, "pairs of pairs": 3 * t * per_month,
-              "months": 2 * per_month}[launches]
-    monkeypatch.setattr(grams, "GRAM_PANEL_BYTES", budget)
-    calls = []
-
-    def contract(*args):
-        # as the kernel writes it: each entry on or above the diagonal, and
-        # its mirror (the plain weighted sums are symmetric only to rounding)
-        calls.append(args[1].shape)
-        assert not args[3].any()                          # the folded mask holds the selection
-        block = grams.gram_contract_plain(*args)
-        upper = torch.triu(block)
-        return upper + torch.triu(block, 1).transpose(-1, -2)
-
-    out = torch.zeros((s, t, p + 2, p + 2), dtype=dtype)
-    got = grams.contract_panels(y, x, valid, col_sel, center, rw, plan, contract,
-                                grams.gram_fold_plain, out)
-    want = grams.gram_contract_plain(y, x, valid, col_sel, center, rw)
-    pairs = len(plan.pairs)
-    expect = {"one": [(pairs * t, n, width)],
-              "pairs of pairs": [(3 * t, n, width)] * (pairs // 3),
-              "months": [(2, n, width), (2, n, width), (1, n, width)] * pairs}[launches]
-    assert sorted(tuple(c) for c in calls) == sorted(expect)
-    assert len(calls) == grams.gram_launch_count(t, n, p, s, dtype, weighted)
-    assert torch.equal(got, got.transpose(-1, -2))
-    if not weighted:
-        assert torch.equal(got[:, :, 0, 0], want[:, :, 0, 0])
-    scale = want.abs().amax((-1, -2), keepdim=True).clamp_min(1.0)
-    assert float(((got - want).abs() / scale).max()) <= rtol
-
-
 def test_fold_plain_version_is_the_kernels_validity():
     """The pre-pass's plain version: valid, finite y and no selected column
     non-finite, column by column in numpy; an unselected non-finite column
     leaves the row valid."""
-    y, x, valid, col_sel, _, _ = _panel_inputs(3, 120, 70, 5, torch.float64, False, seed=4)
+    y, x, valid, col_sel, _, _ = _wide_inputs(3, 120, 70, 5, torch.float64, False, seed=4)
     got = grams.gram_fold_plain(y, x, valid, col_sel).numpy()
     xn, yn, cs = x.numpy(), y.numpy(), col_sel.numpy()
     want = valid.numpy().astype(bool) & np.isfinite(yn)[None]
